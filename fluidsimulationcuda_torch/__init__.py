@@ -1,0 +1,34 @@
+"""fluidsimulationcuda_torch — the Stable Fluids engine on PyTorch, with
+hand-written CUDA kernels for the NVIDIA H100.
+
+The port of ``fluidsimulationcuda_tpu`` (JAX/Pallas), which stays the
+reference it is tested against.  It imports ``torch`` and never ``jax``:
+
+- ``core``     — ``SimConfig`` (with an explicit ``device``), ``FluidState`` /
+  ``Sources`` tensor NamedTuples and numpy round-trip helpers
+- ``ops``      — the 2-D operators in plain torch (``reference`` backend)
+- ``kernels``  — backend dispatch, the CUDA wrappers (``cuda`` backend) and
+  the nvcc build of ``csrc/``
+- ``models``   — the 2-D step
+"""
+
+from .core.config import SimConfig
+from .core.state import FluidState, Sources, reference_init, zero_sources, zero_state
+from .models.stable_fluids_2d import StableFluids2D, make_step_fn, simulate, step, step_audited
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SimConfig",
+    "FluidState",
+    "Sources",
+    "reference_init",
+    "zero_state",
+    "zero_sources",
+    "StableFluids2D",
+    "make_step_fn",
+    "simulate",
+    "step",
+    "step_audited",
+    "__version__",
+]

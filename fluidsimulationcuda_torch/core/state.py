@@ -1,0 +1,102 @@
+"""Simulation state (PyTorch twin of ``fluidsimulationcuda_tpu.core.state``).
+
+``FluidState`` holds the fields carried across steps, ``Sources`` the
+per-step inputs integrated as ``x += dt * src`` (``FluidSequential.c:78-82``).
+Both are NamedTuples of tensors of shape ``cfg.grid_shape``, indexed
+``[i, j] = [row, col]`` like the reference's ``x[j + i*(N+2)]`` layout.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import SimConfig
+
+__all__ = [
+    "FluidState", "Sources", "zero_state", "zero_sources", "reference_init",
+    "state_from_numpy", "state_to_numpy",
+]
+
+
+class FluidState(NamedTuple):
+    """Fields carried across timesteps: ``u`` is the x (column) velocity,
+    ``v`` the y (row) velocity.  ``w`` is reserved for 3-D and is None."""
+
+    dens: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor | None = None
+
+
+class Sources(NamedTuple):
+    """Per-step external sources; shapes match the state fields."""
+
+    dens: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor | None = None
+
+
+def _zeros(cfg: SimConfig) -> torch.Tensor:
+    return torch.zeros(cfg.grid_shape, dtype=cfg.dtype, device=cfg.device)
+
+
+def zero_state(cfg: SimConfig) -> FluidState:
+    return FluidState(dens=_zeros(cfg), u=_zeros(cfg), v=_zeros(cfg))
+
+
+def zero_sources(cfg: SimConfig) -> Sources:
+    return Sources(dens=_zeros(cfg), u=_zeros(cfg), v=_zeros(cfg))
+
+
+def reference_init(generator: torch.Generator,
+                   cfg: SimConfig) -> tuple[FluidState, Sources]:
+    """Initial condition mirroring ``initializeParameters``
+    (``FluidSequential.c:244-271``), with the distributions of the JAX
+    package's ``reference_init``: density source uniform in [0, 0.099]
+    inside a centred square of half-width ``(n+2)//8``, zero elsewhere;
+    velocity sources uniform in [0, 0.99] everywhere; carried fields zero.
+    Sources are meant for step 1 only.
+
+    The numbers come from ``generator`` (drawn on its device, then moved to
+    ``cfg.device``), so they differ from the JAX package's bits; tests that
+    compare the two packages feed both the same numpy arrays instead."""
+    side = cfg.n + 2
+
+    def uniform(lo: float, hi: float) -> torch.Tensor:
+        r = torch.rand(cfg.grid_shape, generator=generator, dtype=cfg.dtype,
+                       device=generator.device)
+        return (lo + (hi - lo) * r).to(cfg.device)
+
+    dens_src = uniform(0.0, 0.099)
+    u_src = uniform(0.0, 0.99)
+    v_src = uniform(0.0, 0.99)
+    center, radius = side // 2, side // 8
+    band = slice(center - radius, center + radius)
+    mask = torch.zeros(cfg.grid_shape, dtype=torch.bool, device=cfg.device)
+    mask[band, band] = True
+    dens_src = torch.where(mask, dens_src, torch.zeros_like(dens_src))
+    return zero_state(cfg), Sources(dens=dens_src, u=u_src, v=v_src)
+
+
+def _field(obj, name: str):
+    return getattr(obj, name) if hasattr(obj, name) else obj[name]
+
+
+def state_from_numpy(obj, device: torch.device | str = "cpu") -> FluidState:
+    """A ``FluidState`` of float32 tensors on ``device`` from any object
+    whose ``dens``/``u``/``v`` (attributes or keys) convert through
+    ``np.asarray``: a JAX ``FluidState``, an npz file, a dict."""
+    def conv(name):
+        a = np.asarray(_field(obj, name), dtype=np.float32)
+        return torch.from_numpy(a.copy()).to(device)
+
+    return FluidState(dens=conv("dens"), u=conv("u"), v=conv("v"))
+
+
+def state_to_numpy(state: FluidState) -> FluidState:
+    """The same state with each field as a float32 numpy array (``w`` stays
+    None), ready for ``np.savez`` or the JAX package's ``FluidState``."""
+    return FluidState(*(t.detach().cpu().numpy() for t in state[:3]))

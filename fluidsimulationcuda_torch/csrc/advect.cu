@@ -1,0 +1,57 @@
+// K3 advect: semi-Lagrangian backtrace and bilinear gather of one or two
+// fields that share the backtrace.
+//
+// Replaces the TPU kernel _advect_kernel
+// (fluidsimulationcuda_tpu/kernels/pallas_ops.py:935, pallas_call at :1182;
+// wrappers advect_shift :1085 and advect_shift_fused :1100).  The TPU has no
+// fast dynamic gather, so it decomposed the gather into (2C+1)^2 masked
+// shifts over a VMEM window and was exact only while the displacement stayed
+// below C cells.  Hopper gathers through L1/L2 directly, so this kernel is
+// the exact gather of ops/advect.py at any displacement; it equals the TPU
+// result wherever that one was exact.
+//
+// Bound: device memory.  A cell reads u, v and four gather points per field
+// (mostly neighbours of each other for a smooth flow, so L1/L2 hits) and
+// writes one value per field: about 16 bytes a cell for the u/v pair.
+// Outputs are fresh tensors: both self-advections read the pre-advection
+// velocity (stable_fluids_2d.py:106-107).
+#include "fsc_common.cuh"
+
+namespace {
+
+__global__ void advect_kernel(const float* __restrict__ d1,
+                              const float* __restrict__ d2,
+                              const float* __restrict__ u,
+                              const float* __restrict__ v,
+                              float* __restrict__ o1, float* __restrict__ o2,
+                              int side, int b1, int b2, float dt0) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= side || j >= side) return;
+  const int n = side - 2;
+  const fsc::Departure d =
+      fsc::backtrace(u, v, fsc::clampi(i, 1, n), fsc::clampi(j, 1, n), side,
+                     dt0);
+  const int g = d.i0 * side + d.j0;
+  const float a = fsc::blend(d, d1[g], d1[g + side], d1[g + 1],
+                             d1[g + side + 1]);
+  o1[i * side + j] = fsc::border_value(a, i, j, side, b1);
+  if (d2 != nullptr) {
+    const float e = fsc::blend(d, d2[g], d2[g + side], d2[g + 1],
+                               d2[g + side + 1]);
+    o2[i * side + j] = fsc::border_value(e, i, j, side, b2);
+  }
+}
+
+}  // namespace
+
+// d2/o2 null advects one field.  dt0 = dt*n in float32.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int fsc_advect(const float* d1, const float* d2, const float* u,
+                          const float* v, float* o1, float* o2, int side,
+                          int b1, int b2, float dt0, void* stream) {
+  advect_kernel<<<fsc::grid_dim(side), fsc::block_dim(), 0,
+                  static_cast<cudaStream_t>(stream)>>>(d1, d2, u, v, o1, o2,
+                                                       side, b1, b2, dt0);
+  return static_cast<int>(cudaGetLastError());
+}

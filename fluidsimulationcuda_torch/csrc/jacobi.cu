@@ -1,0 +1,51 @@
+// K1 jacobi_sweep: one Jacobi (or Chebyshev) sweep of a padded grid.
+//
+// Replaces the sweep body of the TPU kernel _jacobi_kernel
+// (fluidsimulationcuda_tpu/kernels/pallas_ops.py:301, pallas_call at :645)
+// and is the sweep engine of the projection (:899) and of the fused density
+// step (:1480).  The TPU kernel fuses up to 20 sweeps per VMEM round-trip in
+// row strips with K-deep margins; here one launch is one sweep and the
+// wrapper ping-pongs between scratch tensors, so nothing is carried between
+// blocks.
+//
+// Bound: device memory.  A sweep reads x (five points, four of them shared
+// with neighbouring threads through L1/L2), rhs, and for Chebyshev x_{k-1},
+// and writes one value: 12-16 bytes a cell, no reuse across launches beyond
+// what the 50 MB L2 keeps of a 16 MB (2048^2) field.  The border is derived
+// in the same launch (fsc_common.cuh), so a sweep costs one pass, not two.
+#include "fsc_common.cuh"
+
+namespace {
+
+__global__ void jacobi_sweep_kernel(fsc::SweepParams p, float* __restrict__ out,
+                                    float* __restrict__ rhs_out, int side,
+                                    int b) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= side || j >= side) return;
+  const int c = fsc::interior_of(i, j, side);
+  const float r = fsc::rhs_at(p, c);
+  const float val = fsc::sweep_at(p, c, side, r);
+  // The first sweep of a folded solve stores the rhs it built, once per
+  // interior cell, for the sweeps after it.
+  if (rhs_out != nullptr && c == i * side + j) rhs_out[c] = r;
+  out[i * side + j] = fsc::border_value(val, i, j, side, b);
+}
+
+}  // namespace
+
+// x, src, xm and rhs_out may be null (see fsc::SweepParams); out must not
+// alias any input.  Returns cudaGetLastError() after the launch.
+extern "C" int fsc_jacobi_sweep(const float* x, const float* rhs,
+                                const float* src, const float* xm, float* out,
+                                float* rhs_out, int side, int b, float alpha,
+                                float beta, float ab, float inv_b,
+                                float src_dt, float w, int flags,
+                                void* stream) {
+  const fsc::SweepParams p = fsc::make_sweep_params(
+      x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt, w, flags);
+  jacobi_sweep_kernel<<<fsc::grid_dim(side), fsc::block_dim(), 0,
+                        static_cast<cudaStream_t>(stream)>>>(p, out, rhs_out,
+                                                             side, b);
+  return static_cast<int>(cudaGetLastError());
+}

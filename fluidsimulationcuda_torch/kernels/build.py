@@ -1,0 +1,98 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface, which ``ctypes`` loads: no PyTorch headers are compiled, so a
+cold build takes seconds.  The library goes to ``build/fluidsimulationcuda_torch/``
+at the repository root and is named by a hash of the sources, the compiler
+flags and the ``nvcc --version`` text, so it is rebuilt exactly when one of
+those changes.  The build happens at first use, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "load"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fluidsimulationcuda_torch"
+# --fmad=false keeps each expression's rounding as the reference writes it;
+# fast mode calls fmaf where it fuses on purpose.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every entry point of the library (all return int: the
+# cudaError_t of the launch).
+_SIGNATURES = {
+    "fsc_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                         _F, _I, _P],
+    "fsc_divergence": [_P, _P, _P, _I, _F, _P],
+    "fsc_gradient": [_P, _P, _P, _P, _P, _I, _F, _P],
+    "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "fsc_dens_advect": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _P, _P,
+                        _P, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME or put "
+                           "nvcc on PATH)")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if no library matches the current sources and
+    compiler; return the library's path.  ``verbose`` adds ``-Xptxas -v``
+    (registers and spills of each kernel) to a fresh build and prints the
+    compiler's output."""
+    nvcc = nvcc_path()
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    digest.update(subprocess.run([nvcc, "--version"], check=True,
+                                 capture_output=True, text=True).stdout.encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    lib = BUILD_DIR / f"libfsc_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), *map(str, sources)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if verbose or res.returncode != 0:
+        print(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
+    os.replace(tmp, lib)  # atomic: a process building at the same time never sees half a file
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process,
+    with the argument types of every entry point declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

@@ -1,0 +1,401 @@
+"""The CUDA backend: one wrapper per ported TPU kernel, each beside its plain
+PyTorch version.
+
+Wrappers keep the names and signatures of ``fluidsimulationcuda_tpu.kernels.
+pallas_ops`` minus the TPU-only knobs (``max_fused``, ``cmax``, ``nb1``,
+``damp``, ``self_advect``).  Each checks dtype (float32), shape, contiguity
+and device.  On CPU tensors it returns its plain version, built from
+``ops/``; on CUDA tensors it launches the hand-written kernels of ``csrc/``
+(built on first use by ``build.py``) or raises.  Nothing falls back.
+
+Four CUDA kernels (K1-K4) carry the five TPU kernel families of the 2-D
+step:
+
+- ``jacobi_sweep`` (K1, ``csrc/jacobi.cu``): one sweep per launch.  It is
+  ``fused_jacobi`` (TPU ``pallas_ops.py:645``) and the sweep engine of
+  ``fused_project`` and ``fused_dens_advect``.
+- ``divergence`` and ``gradient`` (K2, ``csrc/project.cu``): with K1 they
+  make ``fused_project`` (``:899``); alone they are ``divergence_p``
+  (``:1622``) and ``gradient_p`` (``:1645``).
+- ``advect`` (K3, ``csrc/advect.cu``): ``advect_shift`` and
+  ``advect_shift_fused`` (``:1182``), an exact gather.
+- ``dens_advect`` (K4, ``csrc/dens_advect.cu``): the last sweep and the
+  gather of ``fused_dens_advect`` (``:1480``).
+
+``launch_counts()`` reports how often each kernel was launched since
+``reset_launch_counts()``: every successful launch adds one, nothing else
+does, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.advect import advect
+from ..ops.chebyshev import cheby_diffuse, cheby_omegas
+from ..ops.diffuse import diffuse
+from ..ops.project import apply_pressure_gradient, divergence, grid_h
+from ..ops.source import add_source
+from . import build
+from .dispatch import OpSet
+
+__all__ = [
+    "KERNELS", "launch_counts", "reset_launch_counts", "make_opset",
+    "fused_jacobi", "fused_jacobi_plain", "fused_project",
+    "fused_project_plain", "advect_shift", "advect_shift_plain",
+    "advect_shift_fused", "advect_shift_fused_plain", "fused_dens_advect",
+    "fused_dens_advect_plain", "divergence_p", "divergence_p_plain",
+    "gradient_p", "gradient_p_plain",
+]
+
+KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect")
+_launches = dict.fromkeys(KERNELS, 0)
+
+# Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
+_PREP, _FAST, _CHEBY = 1, 2, 4
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each CUDA kernel since the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Checks and launches
+# ---------------------------------------------------------------------------
+
+
+def _on_card(side: int, *tensors: torch.Tensor) -> bool:
+    """Check that every tensor is a contiguous float32 (side, side) grid on
+    one device; True for CUDA, False for the CPU, and raise otherwise."""
+    if side < 3 or side * side >= 2**31:
+        raise ValueError(f"unsupported grid side {side}")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"expected float32, got {t.dtype}")
+        if tuple(t.shape) != (side, side):
+            raise ValueError(f"expected shape {(side, side)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("expected a contiguous tensor")
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cuda"
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as ``jnp.asarray(x, float32)`` rounds it."""
+    return float(np.float32(x))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(kernel: str, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError_t {err}")
+    _launches[kernel] += 1
+
+
+class _Sweeps:
+    """The K1 launches of one solve: ``sweep()`` advances one iterate.
+
+    It owns the scratch it ping-pongs through (two tensors, three for
+    Chebyshev, whose x_{k-1} and x_k are read-only while x_{k+1} is
+    written, so no ghost thread races a neighbour's update).  A solve with
+    a source or in fast mode builds its rhs in the first sweep, which stores
+    it for every later sweep: the fold reaches every sweep, not only the
+    first launch (the trap of ``pallas_ops.py:550-559``).  The Chebyshev
+    weights come from ``cheby_omegas`` on the host, one per launch; the
+    first sweep is plain."""
+
+    def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
+                 src_dt, fast, cheby_rho):
+        self.b = b
+        self.side = rhs.shape[-1]
+        self.stream = _stream(rhs)
+        self.x = None if zero_init else x_init  # None: the zero guess
+        self.xm = None
+        self.rhs = rhs
+        self.src = x_init if (src_dt is not None and not zero_init) else None
+        self.prep = src_dt is not None or fast
+        self.fast = fast
+        self.omegas = (None if cheby_rho is None
+                       else cheby_omegas(float(cheby_rho), iters))
+        self.k = 0
+        self.coefs = (_f32(alpha), _f32(beta), _f32(alpha / beta),
+                      _f32(1.0 / beta), _f32(0.0 if src_dt is None else src_dt))
+        self._pool: list[torch.Tensor] = []
+
+    def next_args(self) -> tuple:
+        """Pointer and scalar arguments (x, rhs, src, xm, alpha, beta, ab,
+        inv_b, src_dt, w, flags) of the next sweep."""
+        cheby = self.omegas is not None and self.k >= 1
+        flags = ((_PREP if self.prep else 0) | (_FAST if self.fast else 0)
+                 | (_CHEBY if cheby else 0))
+        w = _f32(self.omegas[self.k - 1]) if cheby else 0.0
+        return (_ptr(self.x), self.rhs.data_ptr(),
+                _ptr(self.src if self.prep else None),
+                _ptr(self.xm if cheby else None), *self.coefs, w, flags)
+
+    def _scratch(self) -> torch.Tensor:
+        for t in self._pool:
+            if t is not self.x and t is not self.xm:
+                return t
+        t = torch.empty_like(self.rhs)
+        self._pool.append(t)
+        return t
+
+    def sweep(self, lib) -> None:
+        out = self._scratch()
+        rhs_out = torch.empty_like(self.rhs) if self.prep else None
+        x, rhs, src, xm, *scalars = self.next_args()
+        _launch("jacobi_sweep", lib.fsc_jacobi_sweep, x, rhs, src, xm,
+                out.data_ptr(), _ptr(rhs_out), self.side, self.b, *scalars,
+                self.stream)
+        if self.prep:
+            self.rhs, self.prep = rhs_out, False
+        if self.omegas is not None:
+            self.xm = self.x
+        self.x = out
+        self.k += 1
+
+
+# ---------------------------------------------------------------------------
+# B1 fused_jacobi (K1)
+# ---------------------------------------------------------------------------
+
+
+def fused_jacobi_plain(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
+                       src_dt=None, fast=False, cheby_rho=None):
+    """Plain form of ``fused_jacobi``: ``ops.diffuse`` or
+    ``ops.chebyshev.cheby_diffuse`` on the rhs ``x0 + dt*x_init``."""
+    if zero_init:
+        x_init = torch.zeros_like(x0)
+    rhs = x0 if src_dt is None else add_source(x0, x_init, src_dt)
+    if fast:
+        # The reciprocal form rhs/beta + (alpha/beta)*neigh is the Jacobi
+        # update with alpha' = alpha/beta and beta' = 1 on a pre-scaled rhs
+        # (division by 1 is exact).
+        rhs = rhs * (1.0 / beta)
+        alpha, beta = alpha / beta, 1.0
+    if cheby_rho is not None:
+        return cheby_diffuse(b, x_init, rhs, alpha, beta, iters, cheby_rho)
+    return diffuse(b, x_init, rhs, alpha, beta, iters)
+
+
+def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
+                 src_dt=None, fast=False, cheby_rho=None):
+    """``iters`` Jacobi sweeps (semantics of ``ops.diffuse``) from guess
+    ``x_init`` with rhs ``x0``.  ``zero_init`` starts from zero (pressure
+    solve); ``src_dt`` folds the source ``x_init`` into the rhs as
+    ``x0 + src_dt*x_init``; ``fast`` uses the reciprocal form
+    (``pallas_ops.py:423-456``); ``cheby_rho`` switches to Chebyshev sweeps
+    (``ops/chebyshev.py``).  One K1 launch per sweep."""
+    if iters < 1:
+        raise ValueError("iters must be >= 1")
+    if not _on_card(x0.shape[-1], x_init, x0):
+        return fused_jacobi_plain(b, x_init, x0, alpha, beta, iters,
+                                  zero_init=zero_init, src_dt=src_dt,
+                                  fast=fast, cheby_rho=cheby_rho)
+    with torch.cuda.device(x0.device):
+        lib = build.load()
+        sweeps = _Sweeps(b, x_init, x0, alpha, beta, iters,
+                         zero_init=zero_init, src_dt=src_dt, fast=fast,
+                         cheby_rho=cheby_rho)
+        for _ in range(iters):
+            sweeps.sweep(lib)
+        return sweeps.x
+
+
+# ---------------------------------------------------------------------------
+# B5a divergence_p, B5b gradient_p (K2) and B2 fused_project (K2 + K1)
+# ---------------------------------------------------------------------------
+
+
+def divergence_p_plain(u, v, n):
+    return divergence(u, v, n)
+
+
+def divergence_p(u, v, n):
+    """Divergence with the b=0 border (``ops.project.divergence``)."""
+    if not _on_card(n + 2, u, v):
+        return divergence_p_plain(u, v, n)
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        out = torch.empty_like(u)
+        _launch("divergence", lib.fsc_divergence, u.data_ptr(), v.data_ptr(),
+                out.data_ptr(), n + 2, -0.5 * grid_h(n), _stream(u))
+        return out
+
+
+def gradient_p_plain(u, v, p, n):
+    return apply_pressure_gradient(u, v, p, n)
+
+
+def gradient_p(u, v, p, n):
+    """Pressure-gradient subtraction with the b=1 (u) and b=2 (v) borders
+    (``ops.project.apply_pressure_gradient``)."""
+    if not _on_card(n + 2, u, v, p):
+        return gradient_p_plain(u, v, p, n)
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        uo = torch.empty_like(u)
+        vo = torch.empty_like(v)
+        _launch("gradient", lib.fsc_gradient, u.data_ptr(), v.data_ptr(),
+                p.data_ptr(), uo.data_ptr(), vo.data_ptr(), n + 2, grid_h(n),
+                _stream(u))
+        return uo, vo
+
+
+def fused_project_plain(u, v, n, iters, *, cheby_rho=None):
+    div = divergence(u, v, n)
+    p = fused_jacobi_plain(0, div, div, 1.0, 4.0, iters, zero_init=True,
+                           cheby_rho=cheby_rho)
+    return apply_pressure_gradient(u, v, p, n)
+
+
+def fused_project(u, v, n, iters, *, cheby_rho=None):
+    """Projection: divergence (K2), ``iters`` pressure sweeps from zero with
+    alpha=1, beta=4 (K1, Jacobi or Chebyshev), gradient (K2)."""
+    div = divergence_p(u, v, n)
+    p = fused_jacobi(0, div, div, 1.0, 4.0, iters, zero_init=True,
+                     cheby_rho=cheby_rho)
+    return gradient_p(u, v, p, n)
+
+
+# ---------------------------------------------------------------------------
+# B3 advect_shift / advect_shift_fused (K3)
+# ---------------------------------------------------------------------------
+
+
+def advect_shift_plain(b, d0, u, v, dt, n):
+    return advect(b, d0, u, v, dt, n)
+
+
+def advect_shift_fused_plain(bs, d0s, u, v, dt, n):
+    return tuple(advect(b, d0, u, v, dt, n) for b, d0 in zip(bs, d0s))
+
+
+def _dt0(dt: float, n: int) -> float:
+    return float(np.float32(dt) * np.float32(n))
+
+
+def advect_shift_fused(bs, d0s, u, v, dt, n):
+    """Advect one or two fields by the same velocity with one shared
+    backtrace (the u/v self-advection pair, ``FluidSequential.c:232,237``).
+    Exact at any displacement; outputs are fresh tensors, so advecting u and
+    v by themselves reads the pre-advection velocity."""
+    bs, d0s = tuple(bs), tuple(d0s)
+    if len(bs) != len(d0s) or len(d0s) not in (1, 2):
+        raise ValueError("advect_shift_fused takes one or two fields")
+    if not _on_card(n + 2, u, v, *d0s):
+        return advect_shift_fused_plain(bs, d0s, u, v, dt, n)
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        outs = tuple(torch.empty_like(d) for d in d0s)
+        d2, o2, b2 = ((d0s[1], outs[1], bs[1]) if len(d0s) == 2
+                      else (None, None, 0))
+        _launch("advect", lib.fsc_advect, d0s[0].data_ptr(), _ptr(d2),
+                u.data_ptr(), v.data_ptr(), outs[0].data_ptr(), _ptr(o2),
+                n + 2, bs[0], b2, _dt0(dt, n), _stream(u))
+        return outs
+
+
+def advect_shift(b, d0, u, v, dt, n):
+    """Semi-Lagrangian advection of one field (``ops.advect.advect``)."""
+    return advect_shift_fused((b,), (d0,), u, v, dt, n)[0]
+
+
+# ---------------------------------------------------------------------------
+# B4 fused_dens_advect (K1 + K4)
+# ---------------------------------------------------------------------------
+
+
+def fused_dens_advect_plain(b, src, base, u, v, alpha, beta, iters, dt, n, *,
+                            fast=False, cheby_rho=None):
+    d = fused_jacobi_plain(b, src, base, alpha, beta, iters, src_dt=dt,
+                           fast=fast, cheby_rho=cheby_rho)
+    return advect(b, d, u, v, dt, n)
+
+
+def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
+                      fast=False, cheby_rho=None):
+    """``advect(b, diffuse_src(b, src, base, ...), u, v)``: K1 runs the
+    first ``iters-1`` sweeps, then K4 evaluates the last sweep at the gather
+    points and blends them, so the diffused field is never stored."""
+    if iters < 1:
+        raise ValueError("iters must be >= 1")
+    if not _on_card(n + 2, src, base, u, v):
+        return fused_dens_advect_plain(b, src, base, u, v, alpha, beta, iters,
+                                       dt, n, fast=fast, cheby_rho=cheby_rho)
+    with torch.cuda.device(base.device):
+        lib = build.load()
+        sweeps = _Sweeps(b, src, base, alpha, beta, iters, zero_init=False,
+                         src_dt=dt, fast=fast, cheby_rho=cheby_rho)
+        for _ in range(iters - 1):
+            sweeps.sweep(lib)
+        out = torch.empty_like(base)
+        _launch("dens_advect", lib.fsc_dens_advect, *sweeps.next_args(),
+                u.data_ptr(), v.data_ptr(), out.data_ptr(), n + 2, b,
+                _dt0(dt, n), sweeps.stream)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# OpSet wiring
+# ---------------------------------------------------------------------------
+
+
+def make_opset(cfg) -> OpSet:
+    """The CUDA OpSet (twin of ``pallas_ops.make_opset``) for ``cfg``; the
+    only knob it reads is ``fast_math``."""
+    fast = cfg.fast_math
+
+    def diffuse_op(b, x_init, x0, alpha, beta, iters, cheby_rho=None):
+        return fused_jacobi(b, x_init, x0, alpha, beta, iters, fast=fast,
+                            cheby_rho=cheby_rho)
+
+    def diffuse_src(b, src, base, alpha, beta, iters, dt, cheby_rho=None):
+        return fused_jacobi(b, src, base, alpha, beta, iters, src_dt=dt,
+                            fast=fast, cheby_rho=cheby_rho)
+
+    def advect_pair(b1, b2, d1, d2, u, v, dt, n):
+        return advect_shift_fused((b1, b2), (d1, d2), u, v, dt, n)
+
+    def pressure_solve(div, iters, cheby_rho=None):
+        return fused_jacobi(0, div, div, 1.0, 4.0, iters, zero_init=True,
+                            cheby_rho=cheby_rho)
+
+    def diffuse_advect(b, src, base, u, v, alpha, beta, iters, dt, n,
+                       cheby_rho=None):
+        return fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt,
+                                 n, fast=fast, cheby_rho=cheby_rho)
+
+    return OpSet(
+        diffuse=diffuse_op,
+        advect=advect_shift,
+        divergence=divergence_p,
+        pressure_solve=pressure_solve,
+        apply_pressure_gradient=gradient_p,
+        advect_pair=advect_pair,
+        project=fused_project,
+        diffuse_src=diffuse_src,
+        diffuse_advect=diffuse_advect,
+    )

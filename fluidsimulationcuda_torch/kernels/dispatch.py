@@ -1,0 +1,100 @@
+"""Backend dispatch (twin of ``fluidsimulationcuda_tpu.kernels.dispatch``).
+
+- ``reference``: the plain torch ops of ``ops/``, on any device.
+- ``cuda``: the hand-written kernels (``kernels/cuda_ops.py``).
+- ``auto``: decided by ``SimConfig.resolved_backend`` from the config's
+  device alone.
+
+The backend is chosen once, explicitly, from the config: callers never
+infer it from which OpSet fields are set, and no path catches an error to
+fall back to another backend.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from ..core.config import SimConfig
+from ..ops.advect import advect as _advect_ref
+from ..ops.chebyshev import cheby_diffuse as _cheby_diffuse_ref
+from ..ops.chebyshev import cheby_pressure_solve as _cheby_pressure_ref
+from ..ops.diffuse import diffuse as _diffuse_plain
+from ..ops.project import (
+    apply_pressure_gradient as _apg_ref,
+    divergence as _divergence_ref,
+    pressure_solve as _pressure_plain,
+)
+from ..ops.source import add_source
+
+__all__ = ["OpSet", "get_ops"]
+
+
+class OpSet(NamedTuple):
+    """The five-op compute surface plus the fused forms the step uses: the
+    u/v pair advection (shared backtrace), the projection, the diffusion
+    with its source folded in, and optionally the whole density pair
+    ``diffuse_src -> advect`` (``FluidSequential.c:176-186``) in one op
+    (None: the step composes the two)."""
+
+    diffuse: Callable
+    advect: Callable
+    divergence: Callable
+    pressure_solve: Callable
+    apply_pressure_gradient: Callable
+    advect_pair: Callable
+    project: Callable
+    diffuse_src: Callable
+    diffuse_advect: Callable | None = None
+
+
+def _diffuse_ref(b, x_init, x0, alpha, beta, iters, cheby_rho=None):
+    if cheby_rho is not None:
+        return _cheby_diffuse_ref(b, x_init, x0, alpha, beta, iters, cheby_rho)
+    return _diffuse_plain(b, x_init, x0, alpha, beta, iters)
+
+
+def _pressure_ref(div, iters, cheby_rho=None):
+    if cheby_rho is not None:
+        return _cheby_pressure_ref(div, iters, cheby_rho)
+    return _pressure_plain(div, iters)
+
+
+def _advect_pair_ref(b1, b2, d1, d2, u, v, dt, n):
+    return _advect_ref(b1, d1, u, v, dt, n), _advect_ref(b2, d2, u, v, dt, n)
+
+
+def _project_ref(u, v, n, iters, cheby_rho=None):
+    div = _divergence_ref(u, v, n)
+    p = _pressure_ref(div, iters, cheby_rho=cheby_rho)
+    return _apg_ref(u, v, p, n)
+
+
+def _diffuse_src_ref(b, src, base, alpha, beta, iters, dt, cheby_rho=None):
+    return _diffuse_ref(b, src, add_source(base, src, dt), alpha, beta, iters,
+                        cheby_rho=cheby_rho)
+
+
+_REFERENCE_OPS = OpSet(
+    diffuse=_diffuse_ref,
+    advect=_advect_ref,
+    divergence=_divergence_ref,
+    pressure_solve=_pressure_ref,
+    apply_pressure_gradient=_apg_ref,
+    advect_pair=_advect_pair_ref,
+    project=_project_ref,
+    diffuse_src=_diffuse_src_ref,
+)
+
+
+def get_ops(cfg: SimConfig) -> OpSet:
+    if cfg.advect_mode == "windowed":
+        raise NotImplementedError(
+            "advect_mode='windowed' (the TPU gather window) is not ported; "
+            "the port gathers exactly ('auto' or 'exact')")
+    backend = cfg.resolved_backend
+    if backend == "reference":
+        return _REFERENCE_OPS
+    if backend == "cuda":
+        from . import cuda_ops
+
+        return cuda_ops.make_opset(cfg)
+    raise ValueError(f"unknown backend {backend!r}")

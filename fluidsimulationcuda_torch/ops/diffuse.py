@@ -1,0 +1,47 @@
+"""Jacobi diffusion / Poisson solves (plain torch; twin of
+``fluidsimulationcuda_tpu.ops.diffuse``).
+
+The plain form of the CUDA ``jacobi_sweep`` kernel: one sweep is one
+``jacobi_sweep`` call, and a solve is a Python loop of them.
+"""
+from __future__ import annotations
+
+import torch
+
+from .boundary import embed_interior
+
+__all__ = ["jacobi_sweep", "diffuse", "as_scalar"]
+
+
+def as_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-dim tensor of ``like``'s dtype on ``like``'s device
+    (the twin of ``jnp.asarray(value, dtype)``).  Dividing by it is a true
+    division on every device; dividing a CUDA tensor by a python scalar
+    multiplies by the reciprocal instead, one rounding away from the
+    reference's expression."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def jacobi_sweep(b: int, x: torch.Tensor, rhs_int: torch.Tensor, alpha,
+                 beta) -> torch.Tensor:
+    """One Jacobi sweep (``FluidSequential.c:93-101``):
+    ``x'[c] = (rhs[c] + alpha*(xL+xR+xU+xD)) / beta`` on the interior, border
+    re-derived by the mode-``b`` rule.  ``rhs_int`` is the (n, n) interior
+    of the right-hand side; ``alpha`` and ``beta`` are floats or 0-dim
+    tensors."""
+    neigh = ((x[1:-1, :-2] + x[1:-1, 2:]) + x[:-2, 1:-1]) + x[2:, 1:-1]
+    return embed_interior(b, (rhs_int + alpha * neigh) / beta)
+
+
+def diffuse(b: int, x_init: torch.Tensor, x0: torch.Tensor, alpha: float,
+            beta: float, iters: int) -> torch.Tensor:
+    """``iters`` Jacobi sweeps from guess ``x_init`` with RHS ``x0``
+    (``FluidSequential.c:85-104``).  Covers diffusion (alpha = dt*k*n²,
+    beta = 1+4*alpha) and the pressure Poisson solve (alpha=1, beta=4)."""
+    a = as_scalar(alpha, x0)
+    bt = as_scalar(beta, x0)
+    rhs_int = x0[1:-1, 1:-1]
+    x = x_init
+    for _ in range(iters):
+        x = jacobi_sweep(b, x, rhs_int, a, bt)
+    return x

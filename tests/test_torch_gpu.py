@@ -1,0 +1,86 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
+no CUDA device is present (decided when the test runs, never at import).
+On a machine with one H100:
+
+    python -m pytest tests/test_torch_gpu.py -q -m gpu
+"""
+import glob
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import fluidsimulationcuda_torch as ft  # noqa: E402
+from fluidsimulationcuda_torch.kernels import checks, cuda_ops  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+GOLDEN = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "golden",
+                                       "*.npz")))
+PERF = dict(pressure_solver="chebyshev", diffusion_solver="chebyshev",
+            cheby_rho=0.9, cheby_iters=10, cheby_press_iters=14)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("side", [34, 130, 2048])
+def test_kernels_match_plain(cuda, side):
+    for check in checks.kernel_checks(side, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert all(counts[k] > 0 for k in check.kernels), (check.label, counts)
+        err = checks.max_abs_diff(got, want)
+        assert err <= checks.TOL, (check.label, err)
+
+
+@pytest.mark.parametrize("path", GOLDEN, ids=[os.path.basename(p) for p in GOLDEN])
+def test_golden_cuda_backend(cuda, path):
+    with np.load(path) as z:
+        n, steps, iters = int(z["n"]), int(z["steps"]), int(z["iters"])
+        cfg = ft.SimConfig(n=n, jacobi_iters=iters, backend="cuda", device=cuda)
+        src = ft.Sources(*(torch.from_numpy(np.array(z[k])).to(cuda)
+                           for k in ("dens_src", "u_src", "v_src")))
+        got = ft.simulate(cfg, ft.zero_state(cfg), src, steps)
+        for name in ("dens", "u", "v"):
+            np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
+                                       z[name], atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["parity", "perf"])
+def test_step_launches_and_matches_reference(cuda, mode):
+    kw = PERF if mode == "perf" else {}
+    cfg = ft.SimConfig(n=254, jacobi_iters=20, backend="cuda", device=cuda, **kw)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.step(cfg, state, src)
+    torch.cuda.synchronize()
+    k_vel = cfg.cheby_iters if mode == "perf" else cfg.jacobi_iters
+    k_p = cfg.press_cheby_iters if mode == "perf" else cfg.jacobi_iters
+    assert cuda_ops.launch_counts() == {
+        "jacobi_sweep": 2 * k_vel + 2 * k_p + k_vel - 1, "divergence": 2,
+        "gradient": 2, "advect": 1, "dens_advect": 1}
+    want = ft.step(cfg.replace(backend="reference"), state, src)
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
+
+
+def test_cuda_tensor_launches_or_raises(cuda):
+    x = torch.zeros(34, 34, device=cuda)
+    cuda_ops.reset_launch_counts()
+    cuda_ops.fused_jacobi(0, x, x, 1.0, 4.0, 3)
+    assert cuda_ops.launch_counts()["jacobi_sweep"] == 3
+    with pytest.raises(ValueError):
+        cuda_ops.fused_jacobi(0, x, x.cpu(), 1.0, 4.0, 3)

@@ -1,0 +1,208 @@
+"""The port's 2-D step against the JAX package's, its config and its state.
+
+Sources come from numpy (a seed) and go to both packages; JAX runs its
+``reference`` backend on the CPU.  The step tolerance is that of
+tests/test_step_parity.py (rtol = atol = 1e-5), the golden tolerance that of
+tests/test_golden.py (atol 1e-5).
+"""
+import dataclasses
+import glob
+import os
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import fluidsimulationcuda_torch as ft  # noqa: E402
+import fluidsimulationcuda_tpu as fj  # noqa: E402
+from fluidsimulationcuda_torch.core import config as tconfig  # noqa: E402
+from fluidsimulationcuda_torch.core.state import (  # noqa: E402
+    state_from_numpy, state_to_numpy)
+from fluidsimulationcuda_tpu.core import config as jconfig  # noqa: E402
+
+GOLDEN = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "golden",
+                                       "*.npz")))
+MODES = {
+    "parity": dict(),
+    "perf": dict(pressure_solver="chebyshev", diffusion_solver="chebyshev",
+                 cheby_rho=0.9, cheby_iters=10, cheby_press_iters=14,
+                 fast_math=True),
+}
+
+
+def _sources(seed, n):
+    """reference_init's distributions, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    side = n + 2
+    dens = rng.uniform(0.0, 0.099, (side, side)).astype(np.float32)
+    band = np.zeros(side, bool)
+    band[side // 2 - side // 8: side // 2 + side // 8] = True
+    dens[~(band[:, None] & band[None, :])] = 0.0
+    u = rng.uniform(0.0, 0.99, (side, side)).astype(np.float32)
+    v = rng.uniform(0.0, 0.99, (side, side)).astype(np.float32)
+    return dens, u, v
+
+
+def _jax_run(cfg, srcs, steps):
+    step = fj.make_step_fn(cfg)
+    state = fj.zero_state(cfg)
+    sources = fj.Sources(*map(jnp.asarray, srcs))
+    zeros = fj.zero_sources(cfg)
+    for k in range(steps):
+        state = step(state, sources if k == 0 else zeros)
+    return state
+
+
+def _torch_sources(srcs):
+    return ft.Sources(*(torch.from_numpy(np.array(a)) for a in srcs))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("steps", [1, 10])
+def test_step_matches_jax(mode, steps):
+    kw = dict(n=30, jacobi_iters=20, backend="reference", **MODES[mode])
+    srcs = _sources(steps, 30)
+    want = _jax_run(fj.SimConfig(**kw), srcs, steps)
+    tcfg = ft.SimConfig(**kw)
+    got = ft.simulate(tcfg, ft.zero_state(tcfg), _torch_sources(srcs), steps)
+    for name in ("dens", "u", "v"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("path", GOLDEN, ids=[os.path.basename(p) for p in GOLDEN])
+def test_golden(path):
+    with np.load(path) as z:
+        n, steps, iters = int(z["n"]), int(z["steps"]), int(z["iters"])
+        cfg = ft.SimConfig(n=n, jacobi_iters=iters, backend="reference")
+        src = _torch_sources([z["dens_src"], z["u_src"], z["v_src"]])
+        got = ft.simulate(cfg, ft.zero_state(cfg), src, steps)
+        for name in ("dens", "u", "v"):
+            np.testing.assert_allclose(getattr(got, name).numpy(), z[name],
+                                       atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("every", [False, True])
+def test_simulate_equals_python_loop(every):
+    cfg = ft.SimConfig(n=30, jacobi_iters=8, backend="reference")
+    src = _torch_sources(_sources(3, 30))
+    got = ft.simulate(cfg, ft.zero_state(cfg), src, 5, sources_every_step=every)
+    sim = ft.StableFluids2D(cfg)
+    want = ft.zero_state(cfg)
+    for k in range(5):
+        want = sim.step(want, src if (k == 0 or every) else None)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_step_audited_matches_step_and_jax():
+    kw = dict(n=30, jacobi_iters=8, backend="reference")
+    srcs = _sources(4, 30)
+    tcfg = ft.SimConfig(**kw)
+    src = _torch_sources(srcs)
+    state = ft.step(tcfg, ft.zero_state(tcfg), src)
+    audited, disp = ft.step_audited(tcfg, state, src)
+    plain = ft.step(tcfg, state, src)
+    for a, b in zip(audited[:3], plain[:3]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    jcfg = fj.SimConfig(**kw)
+    jstate = fj.step(jcfg, fj.zero_state(jcfg), fj.Sources(*map(jnp.asarray, srcs)))
+    _, jdisp = fj.step_audited(jcfg, jstate, fj.Sources(*map(jnp.asarray, srcs)))
+    assert float(disp) > 0
+    np.testing.assert_allclose(float(disp), float(jdisp), rtol=1e-5)
+
+
+def test_state_round_trip_from_jax():
+    cfg = fj.SimConfig(n=30, jacobi_iters=4, backend="reference")
+    state0, sources = fj.reference_init(jax.random.key(0), cfg)
+    jstate = fj.step(cfg, state0, sources)
+    tstate = state_from_numpy(jstate)
+    assert all(t.dtype == torch.float32 for t in tstate[:3])
+    back = state_to_numpy(tstate)
+    for name in ("dens", "u", "v"):
+        np.testing.assert_array_equal(getattr(back, name),
+                                      np.asarray(getattr(jstate, name)))
+    # ...and the JAX package takes the numpy state back as it is.
+    again = fj.FluidState(*map(jnp.asarray, back[:3]))
+    np.testing.assert_array_equal(np.asarray(again.u), np.asarray(jstate.u))
+
+
+def test_state_from_npz():
+    with np.load(GOLDEN[0]) as z:
+        state = state_from_numpy(z)
+        np.testing.assert_array_equal(state.dens.numpy(), z["dens"])
+
+
+def test_reference_init_distributions():
+    cfg = ft.SimConfig(n=62)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    again = ft.reference_init(torch.Generator().manual_seed(0), cfg)[1]
+    assert all(bool((t == 0).all()) for t in state[:3])
+    side, c, r = 64, 32, 8
+    inside = src.dens[c - r:c + r, c - r:c + r]
+    outside = src.dens.clone()
+    outside[c - r:c + r, c - r:c + r] = 0
+    assert float(inside.min()) >= 0 and float(inside.max()) <= 0.099
+    assert float(inside.max()) > 0 and bool((outside == 0).all())
+    for t in (src.u, src.v):
+        assert tuple(t.shape) == (side, side)
+        assert 0 <= float(t.min()) and float(t.max()) <= 0.99
+    for a, b in zip(src[:3], again[:3]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_config_twin_fields_and_defaults():
+    jf = {f.name: f.default for f in dataclasses.fields(jconfig.SimConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(tconfig.SimConfig)}
+    assert set(tf) == set(jf) | {"device"}
+    for name, default in jf.items():
+        if name not in ("dtype", "backend"):
+            assert tf[name] == default, name
+    assert tf["dtype"] == torch.float32 and tf["backend"] == "auto"
+    assert tconfig.PERF_POINTS_2D == jconfig.PERF_POINTS_2D
+    assert tconfig.PERF_POINT_3D == jconfig.PERF_POINT_3D
+
+
+def test_config_backend_resolution():
+    assert ft.SimConfig().resolved_backend == "reference"
+    assert ft.SimConfig(device="cuda").resolved_backend == "cuda"
+    assert ft.SimConfig(device="cuda", backend="reference").resolved_backend == "reference"
+    with pytest.raises(ValueError):
+        ft.SimConfig(backend="cuda")  # needs a CUDA device; nothing falls back
+    with pytest.raises(ValueError):
+        ft.SimConfig(backend="pallas")
+    with pytest.raises(ValueError):
+        ft.SimConfig(dtype=torch.float64)
+
+
+@pytest.mark.parametrize("kw", [dict(pressure_solver="multigrid"),
+                                dict(pressure_solver="cg"),
+                                dict(advect_mode="windowed")])
+def test_unported_options_raise(kw):
+    cfg = ft.SimConfig(n=14, **kw)
+    with pytest.raises(NotImplementedError):
+        ft.step(cfg, ft.zero_state(cfg), ft.zero_sources(cfg))
+
+
+@pytest.mark.parametrize("side,point", [(2048, (0.9, 10, 14)),
+                                        (8192, (0.96, 12, 14))])
+def test_perf_point_measured(side, point):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert tconfig.perf_operating_point(side) == point
+
+
+@pytest.mark.parametrize("side,anchor", [(4096, 8192), (1024, 2048),
+                                         (16384, 8192), (5000, 8192)])
+def test_perf_point_unvalidated_warns(side, anchor):
+    """4096² is a tie between the anchors and goes to the larger one."""
+    with pytest.warns(UserWarning, match="unvalidated at this size"):
+        got = tconfig.perf_operating_point(side)
+    assert got == tconfig.PERF_POINTS_2D[anchor]
