@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the PyTorch port's step on one GPU, from a
+``torch.profiler`` trace.
+
+    python3 dev/profile_torch_step.py --ndim 3 --n 254 --mode parity
+    python3 dev/profile_torch_step.py --ndim 2 --n 2046 --mode compensated
+
+Runs the impulse step (sources from ``reference_init``, seed 0) and two more
+steps on the ``cuda`` backend, then traces ``--steps`` steps of
+``StableFluids2D`` or ``StableFluids3D`` (20 Jacobi iterations, or the
+compensated mode's Chebyshev point with fast math) and prints, per CUDA
+kernel, its launches and device ms per step, its share of the step, and
+its time per launch; then the step's wall time (host clock around the
+traced steps, ending in a synchronise) and the device's busy share (summed
+kernel time over wall time).  ``--forcing 0.05`` fires the sources, scaled,
+on every step, as the smoke script's forced trajectory does.  The card's
+name and power limit come with the numbers.  Exits non-zero without a card
+or when the trace holds no device time.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ndim", type=int, choices=(2, 3), default=3)
+    ap.add_argument("--n", type=int, default=254)
+    ap.add_argument("--mode", choices=("parity", "compensated"),
+                    default="parity")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--forcing", type=float, default=0.0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_step: no CUDA device")
+    sys.path.insert(0, ROOT)
+    from fluidsimulationcuda_torch import (SimConfig, Sources, StableFluids2D,
+                                           StableFluids3D, reference_init)
+    from fluidsimulationcuda_torch.core.config import perf_operating_point
+
+    cfg = SimConfig(n=args.n, ndim=args.ndim, jacobi_iters=20,
+                    backend="cuda", device="cuda")
+    if args.mode == "compensated":
+        rho, k_d, k_p = perf_operating_point(args.n + 2, ndim=args.ndim)
+        cfg = cfg.replace(pressure_solver="chebyshev",
+                          diffusion_solver="chebyshev", cheby_rho=rho,
+                          cheby_iters=k_d, cheby_press_iters=k_p,
+                          fast_math=True)
+    sim = (StableFluids3D if args.ndim == 3 else StableFluids2D)(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, sources = reference_init(gen, cfg)
+    drive = (Sources(*(None if s is None else args.forcing * s
+                       for s in sources)) if args.forcing else None)
+    state = sim.step(state, sources)
+    for _ in range(2):
+        state = sim.step(state, drive)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state = sim.step(state, drive)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    per_kernel = collections.defaultdict(lambda: [0, 0.0])  # launches, us
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = evt.name.replace("(anonymous namespace)::", "")
+            entry = per_kernel[name.split("(")[0]]
+            entry[0] += 1
+            entry[1] += evt.time_range.elapsed_us()
+    busy_ms = sum(us for _, us in per_kernel.values()) / 1e3 / args.steps
+    if busy_ms <= 0:
+        raise SystemExit("profile_torch_step: the trace holds no device "
+                         "time")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    side = args.n + 2
+    print(f"{side}^{args.ndim} {args.mode}, forcing {args.forcing}, "
+          f"{args.steps} traced steps ({card})")
+    print(f"{'kernel':60s} {'launches/step':>13s} {'ms/step':>9s} "
+          f"{'share':>6s} {'us/launch':>10s}")
+    for name, (count, us) in sorted(per_kernel.items(),
+                                    key=lambda kv: -kv[1][1]):
+        ms = us / 1e3 / args.steps
+        print(f"{name[:60]:60s} {count / args.steps:13.1f} {ms:9.4f} "
+              f"{100 * ms / busy_ms:5.1f}% {us / count:10.2f}")
+    print(f"device busy {busy_ms:.4f} ms/step of {wall_ms:.4f} ms/step wall "
+          f"({100 * busy_ms / wall_ms:.1f}%; profiler on)")
+
+
+if __name__ == "__main__":
+    main()

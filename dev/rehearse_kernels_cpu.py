@@ -1,0 +1,205 @@
+#!/usr/bin/env python3
+"""Run the port's CUDA kernels on the CPU, behind a host shim, against their
+plain PyTorch versions.
+
+    python3 dev/rehearse_kernels_cpu.py [--side2 34] [--side3 24]
+
+A CUDA kernel has no interpret mode, and a machine without ``nvcc`` cannot
+build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
+``g++ -ffp-contract=off`` instead: a shim header defines ``__global__``,
+``__device__``, ``dim3``, ``blockIdx``/``threadIdx``, and every launch
+``k<<<grid, block, 0, stream>>>(args);`` becomes a loop over the grid (the
+kernels run one thread per cell, with no shared memory or barriers).  The
+wrappers of ``kernels/cuda_ops.py`` and ``kernels/cuda_ops_3d.py`` then run
+against that library on CPU tensors (their device checks, stream and loader
+patched), and:
+
+- every check of ``kernels/checks.py`` (``kernel_checks`` at ``--side2``,
+  ``kernel_checks3`` at ``--side3``) compares kernel and plain version;
+- one 2-D and one 3-D step per mode go through the ``cuda`` backend, their
+  launch counts against ``chip_smoke.expected_launches(3)``, their state
+  against the ``reference`` backend.
+
+It prints max|d| per check and exits non-zero on a difference above
+``checks.TOL`` or a wrong launch count.  The build goes to
+``build/cpu_shim/`` (gitignored).  It says nothing about speed, and the
+card's compiler may still refuse what g++ accepts.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "fluidsimulationcuda_torch" / "csrc"
+OUT = ROOT / "build" / "cpu_shim"
+
+SHIM = r"""#pragma once
+#include <cmath>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__ __restrict
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+typedef void* cudaStream_t;
+inline dim3 blockIdx, threadIdx, blockDim, gridDim;
+inline int cudaGetLastError() { return 0; }
+using std::fmaf; using std::fmaxf; using std::fminf;
+template <class F> void shim_launch(dim3 g, dim3 b, F f) {
+  gridDim = g; blockDim = b;
+  for (unsigned bz = 0; bz < g.z; ++bz)
+    for (unsigned by = 0; by < g.y; ++by)
+      for (unsigned bx = 0; bx < g.x; ++bx)
+        for (unsigned tz = 0; tz < b.z; ++tz)
+          for (unsigned ty = 0; ty < b.y; ++ty)
+            for (unsigned tx = 0; tx < b.x; ++tx) {
+              blockIdx = dim3(bx, by, bz); threadIdx = dim3(tx, ty, tz);
+              f();
+            }
+}
+"""
+LAUNCH = re.compile(r"(\w+)<<<(.*?)>>>\((.*?)\);", re.S)
+
+
+def _top_level_args(text: str) -> list[str]:
+    args, depth, cur = [], 0, ""
+    for ch in text:
+        depth += (ch == "(") - (ch == ")")
+        if ch == "," and depth == 0:
+            args.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    return args + [cur]
+
+
+def build_shim_library() -> Path:
+    gen = OUT / "gen"
+    gen.mkdir(parents=True, exist_ok=True)
+    (OUT / "cuda_runtime.h").write_text(SHIM)
+    sources = []
+    for path in sorted(CSRC.glob("*.cu*")):
+        def launch(m):
+            grid, block = _top_level_args(m.group(2))[:2]
+            return f"shim_launch({grid}, {block}, [&] {{ {m.group(1)}({m.group(3)}); }});"
+
+        target = gen / (path.stem + ".cpp" if path.suffix == ".cu" else path.name)
+        target.write_text(LAUNCH.sub(launch, path.read_text()))
+        if path.suffix == ".cu":
+            sources.append(str(target))
+    lib = OUT / "libfsc_shim.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", f"-I{OUT}", f"-I{gen}", "-o", str(lib), *sources],
+                   check=True)
+    return lib
+
+
+@contextlib.contextmanager
+def kernels_on_cpu(lib_path: Path):
+    """Make the wrappers launch the shim library on CPU tensors."""
+    from fluidsimulationcuda_torch.kernels import build, cuda_ops, cuda_ops_3d
+
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in build._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    check = cuda_ops._on_card
+
+    def on_card(side, *tensors, ndim=2):
+        check(side, *tensors, ndim=ndim)
+        return True
+
+    saved = (build.load, cuda_ops._on_card, cuda_ops_3d._on_card,
+             cuda_ops._stream, cuda_ops_3d._stream, torch.cuda.device)
+    build.load = lambda: lib
+    cuda_ops._on_card = cuda_ops_3d._on_card = on_card
+    cuda_ops._stream = cuda_ops_3d._stream = lambda t: 0
+    torch.cuda.device = lambda d: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        (build.load, cuda_ops._on_card, cuda_ops_3d._on_card,
+         cuda_ops._stream, cuda_ops_3d._stream, torch.cuda.device) = saved
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--side2", type=int, default=34)
+    ap.add_argument("--side3", type=int, default=24)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    os.chdir(ROOT)
+    import chip_smoke
+    import fluidsimulationcuda_torch as ft
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    lib = build_shim_library()
+    failures = 0
+    check_list = (checks.kernel_checks(args.side2, "cpu", 1)
+                  + checks.kernel_checks3(args.side3, "cpu", 1))
+    for c in check_list:
+        with kernels_on_cpu(lib):
+            cuda_ops.reset_launch_counts()
+            got = c.run()
+            counts = cuda_ops.launch_counts()
+        want = c.plain()
+        err = checks.max_abs_diff(got, want)
+        bad = err > checks.TOL or not all(counts[k] for k in c.kernels)
+        failures += bad
+        print(f"  {c.label:45s} max|d| {err:.3e}{'  FAIL' if bad else ''}")
+
+    modes = {"parity": {},
+             "compensated": dict(pressure_solver="chebyshev",
+                                 diffusion_solver="chebyshev",
+                                 cheby_rho=0.85, cheby_iters=10,
+                                 cheby_press_iters=12, fast_math=True),
+             "chebyshev-dens": dict(diffusion_solver="chebyshev-dens",
+                                    cheby_rho=0.85)}
+    for ndim, side in ((2, args.side2), (3, args.side3)):
+        step = ft.step3 if ndim == 3 else ft.step
+        design = (chip_smoke.expected_launches3 if ndim == 3
+                  else chip_smoke.expected_launches)
+        for mode, kw in modes.items():
+            if ndim == 2 and mode == "compensated":
+                kw = dict(kw, cheby_rho=0.9, cheby_press_iters=14)
+            ref = ft.SimConfig(n=side - 2, ndim=ndim, backend="reference",
+                               device="cpu", **kw)
+            cfg = ref.replace()
+            # The cuda backend on CPU tensors, which only the shim allows.
+            object.__setattr__(cfg, "backend", "cuda")
+            state, src = ft.reference_init(torch.Generator().manual_seed(0),
+                                           ref)
+            with kernels_on_cpu(lib):
+                cuda_ops.reset_launch_counts()
+                got = step(cfg, state, src)
+                counts = cuda_ops.launch_counts()
+            want = step(ref, state, src)
+            per_step = design(cfg)
+            launches_ok = counts == {k: per_step.get(k, 0)
+                                     for k in cuda_ops.KERNELS}
+            err = chip_smoke.max_diff(got, want)
+            tol = 1e-4 if cfg.fast_math else 0.0
+            bad = err > tol or not launches_ok
+            failures += bad
+            print(f"  {ndim}-D step {mode:15s} max|d| vs reference "
+                  f"{err:.3e}, launches "
+                  f"{'as designed' if launches_ok else counts}"
+                  f"{'  FAIL' if bad else ''}")
+    print(f"{failures} failure(s)")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,15 +6,20 @@ reference it is tested against.  It imports ``torch`` and never ``jax``:
 
 - ``core``     — ``SimConfig`` (with an explicit ``device``), ``FluidState`` /
   ``Sources`` tensor NamedTuples and numpy round-trip helpers
-- ``ops``      — the 2-D operators in plain torch (``reference`` backend)
+- ``ops``      — the 2-D and 3-D operators in plain torch (``reference``
+  backend)
 - ``kernels``  — backend dispatch, the CUDA wrappers (``cuda`` backend) and
   the nvcc build of ``csrc/``
-- ``models``   — the 2-D step
+- ``models``   — the 2-D step and the 3-D smoke-volume step
+
+Entry points run on the card (``SimConfig.device`` defaults to ``"cuda"``)
+unless the caller asks for the CPU.
 """
 
 from .core.config import SimConfig
 from .core.state import FluidState, Sources, reference_init, zero_sources, zero_state
 from .models.stable_fluids_2d import StableFluids2D, make_step_fn, simulate, step, step_audited
+from .models.stable_fluids_3d import StableFluids3D, step3
 
 __version__ = "0.1.0"
 
@@ -26,9 +31,11 @@ __all__ = [
     "zero_state",
     "zero_sources",
     "StableFluids2D",
+    "StableFluids3D",
     "make_step_fn",
     "simulate",
     "step",
     "step_audited",
+    "step3",
     "__version__",
 ]

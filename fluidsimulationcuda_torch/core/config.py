@@ -29,20 +29,23 @@ class SimConfig:
       dtype: ``torch.float32``; the bf16 storage mode is not ported yet.
       backend: ``"reference"`` runs the plain torch ops of ``ops/``;
         ``"cuda"`` runs the hand-written kernels of ``kernels/cuda_ops.py``
-        and needs a CUDA ``device``; ``"auto"`` is ``"cuda"`` when
-        ``device`` is a CUDA device and ``"reference"`` otherwise.  It is
-        decided from ``device`` alone: nothing probes for a GPU.
-      device: where the state lives and the ops run.
+        and ``kernels/cuda_ops_3d.py`` and needs a CUDA ``device``;
+        ``"auto"`` is ``"cuda"`` when ``device`` is a CUDA device and
+        ``"reference"`` otherwise.  It is decided from ``device`` alone:
+        nothing probes for a GPU and nothing falls back to the CPU.
+      device: where the state lives and the ops run; the card
+        (``"cuda"``) unless the caller asks for ``"cpu"``.
       fuse_sweeps, max_courant: TPU kernel knobs (sweeps per VMEM
         round-trip, gather window).  The CUDA kernels run one sweep per
         launch and gather exactly at any displacement, so neither changes
         what the port computes; they are kept so a config carries over.
       pressure_solver: ``"jacobi"`` or ``"chebyshev"`` run here;
-        ``"multigrid"`` and ``"cg"`` are accepted and raise when a step
-        asks for them (not ported yet).
+        ``"multigrid"`` and ``"cg"`` are accepted in 2-D and raise when a
+        step asks for them (not ported yet); 3-D refuses them, as the JAX
+        package does.
       advect_mode: ``"auto"`` and ``"exact"`` gather exactly;
         ``"windowed"`` is not ported yet.
-      ndim: 2; the 3-D solver is not ported yet.
+      ndim: 2 (the flagship) or 3 (smoke volumes, ``(n+2)^3``).
     """
 
     n: int = 126
@@ -65,7 +68,7 @@ class SimConfig:
     advect_mode: str = "auto"
     fast_math: bool = False
     ndim: int = 2
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
@@ -99,9 +102,21 @@ class SimConfig:
             raise ValueError("cheby_dens_iters must be >= 2")
         if self.advect_mode not in ("auto", "exact", "windowed"):
             raise ValueError(f"unknown advect_mode {self.advect_mode!r}")
-        if self.ndim != 2:
-            raise ValueError("ndim must be 2 (the 3-D solver is not ported "
-                             "yet)")
+        if self.ndim not in (2, 3):
+            raise ValueError("ndim must be 2 or 3")
+        if self.ndim == 3 and self.pressure_solver not in ("jacobi",
+                                                           "chebyshev"):
+            raise ValueError(
+                "pressure_solver='multigrid'/'cg' are 2-D solvers; "
+                "ndim=3 supports 'jacobi' and 'chebyshev'")
+        if (self.ndim == 3 and self.diffusion_solver == "chebyshev"
+                and self.pressure_solver != "chebyshev"):
+            # The velocity-diffusion swap is validated only with the
+            # Chebyshev pressure solve compensating it (PERF_POINT_3D).
+            raise ValueError(
+                "ndim=3 diffusion_solver='chebyshev' requires "
+                "pressure_solver='chebyshev' (the compensated mode); "
+                "uncompensated 3-D swaps have no validated operating point")
 
     @property
     def grid_shape(self) -> Tuple[int, ...]:

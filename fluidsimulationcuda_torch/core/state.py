@@ -3,7 +3,8 @@
 ``FluidState`` holds the fields carried across steps, ``Sources`` the
 per-step inputs integrated as ``x += dt * src`` (``FluidSequential.c:78-82``).
 Both are NamedTuples of tensors of shape ``cfg.grid_shape``, indexed
-``[i, j] = [row, col]`` like the reference's ``x[j + i*(N+2)]`` layout.
+``[i, j] = [row, col]`` like the reference's ``x[j + i*(N+2)]`` layout in
+2-D and ``[z, y, x]`` in 3-D, where ``w`` carries the depth velocity.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ __all__ = [
 
 class FluidState(NamedTuple):
     """Fields carried across timesteps: ``u`` is the x (column) velocity,
-    ``v`` the y (row) velocity.  ``w`` is reserved for 3-D and is None."""
+    ``v`` the y (row) velocity, ``w`` the z (depth) velocity in 3-D and
+    None in 2-D."""
 
     dens: torch.Tensor
     u: torch.Tensor
@@ -43,12 +45,17 @@ def _zeros(cfg: SimConfig) -> torch.Tensor:
     return torch.zeros(cfg.grid_shape, dtype=cfg.dtype, device=cfg.device)
 
 
+def _w(cfg: SimConfig) -> torch.Tensor | None:
+    return _zeros(cfg) if cfg.ndim == 3 else None
+
+
 def zero_state(cfg: SimConfig) -> FluidState:
-    return FluidState(dens=_zeros(cfg), u=_zeros(cfg), v=_zeros(cfg))
+    return FluidState(dens=_zeros(cfg), u=_zeros(cfg), v=_zeros(cfg),
+                      w=_w(cfg))
 
 
 def zero_sources(cfg: SimConfig) -> Sources:
-    return Sources(dens=_zeros(cfg), u=_zeros(cfg), v=_zeros(cfg))
+    return Sources(dens=_zeros(cfg), u=_zeros(cfg), v=_zeros(cfg), w=_w(cfg))
 
 
 def reference_init(generator: torch.Generator,
@@ -56,9 +63,10 @@ def reference_init(generator: torch.Generator,
     """Initial condition mirroring ``initializeParameters``
     (``FluidSequential.c:244-271``), with the distributions of the JAX
     package's ``reference_init``: density source uniform in [0, 0.099]
-    inside a centred square of half-width ``(n+2)//8``, zero elsewhere;
-    velocity sources uniform in [0, 0.99] everywhere; carried fields zero.
-    Sources are meant for step 1 only.
+    inside a centred square (a cube in 3-D) of half-width ``(n+2)//8``,
+    zero elsewhere; velocity sources (``w`` too in 3-D) uniform in
+    [0, 0.99] everywhere; carried fields zero.  Sources are meant for
+    step 1 only.
 
     The numbers come from ``generator`` (drawn on its device, then moved to
     ``cfg.device``), so they differ from the JAX package's bits; tests that
@@ -73,30 +81,42 @@ def reference_init(generator: torch.Generator,
     dens_src = uniform(0.0, 0.099)
     u_src = uniform(0.0, 0.99)
     v_src = uniform(0.0, 0.99)
+    w_src = uniform(0.0, 0.99) if cfg.ndim == 3 else None
     center, radius = side // 2, side // 8
     band = slice(center - radius, center + radius)
     mask = torch.zeros(cfg.grid_shape, dtype=torch.bool, device=cfg.device)
-    mask[band, band] = True
+    mask[(band,) * cfg.ndim] = True
     dens_src = torch.where(mask, dens_src, torch.zeros_like(dens_src))
-    return zero_state(cfg), Sources(dens=dens_src, u=u_src, v=v_src)
+    return zero_state(cfg), Sources(dens=dens_src, u=u_src, v=v_src,
+                                    w=w_src)
 
 
 def _field(obj, name: str):
-    return getattr(obj, name) if hasattr(obj, name) else obj[name]
+    if hasattr(obj, name):
+        return getattr(obj, name)
+    if name == "w" and name not in obj:
+        return None  # a 2-D npz file or dict has no w
+    return obj[name]
 
 
-def state_from_numpy(obj, device: torch.device | str = "cpu") -> FluidState:
-    """A ``FluidState`` of float32 tensors on ``device`` from any object
-    whose ``dens``/``u``/``v`` (attributes or keys) convert through
+def state_from_numpy(obj, device: torch.device | str = "cuda") -> FluidState:
+    """A ``FluidState`` of float32 tensors on ``device`` (the card unless
+    the caller asks for ``"cpu"``) from any object whose ``dens``/``u``/
+    ``v`` and, in 3-D, ``w`` (attributes or keys) convert through
     ``np.asarray``: a JAX ``FluidState``, an npz file, a dict."""
     def conv(name):
-        a = np.asarray(_field(obj, name), dtype=np.float32)
+        a = _field(obj, name)
+        if a is None:
+            return None
+        a = np.asarray(a, dtype=np.float32)
         return torch.from_numpy(a.copy()).to(device)
 
-    return FluidState(dens=conv("dens"), u=conv("u"), v=conv("v"))
+    return FluidState(*map(conv, FluidState._fields))
 
 
 def state_to_numpy(state: FluidState) -> FluidState:
     """The same state with each field as a float32 numpy array (``w`` stays
-    None), ready for ``np.savez`` or the JAX package's ``FluidState``."""
-    return FluidState(*(t.detach().cpu().numpy() for t in state[:3]))
+    None in 2-D), ready for ``np.savez`` or the JAX package's
+    ``FluidState``."""
+    return FluidState(*(None if t is None else t.detach().cpu().numpy()
+                        for t in state))

@@ -1,13 +1,16 @@
 // Shared device code of the Stable Fluids kernels for Hopper (sm_90a).
 //
-// Every kernel runs one thread per cell of the padded (side, side) float32
-// grid, row-major, cell (i, j) at i*side + j, interior 1..n with n = side-2.
-// A thread on the ghost ring evaluates the interior cell next to it and
-// applies the mode-b border rule to that value (ops/boundary.py): edges
-// mirror it (negated on the wall-normal component, b=1 at the left/right
-// walls, b=2 at the top/bottom walls), corners take 0.5*(sy*v + sx*v).  So
-// the border is derived in the same launch as the interior, never by a
-// separate set_bnd pass, and every output has valid corners.
+// Every 2-D kernel runs one thread per cell of the padded (side, side)
+// float32 grid, row-major, cell (i, j) at i*side + j, interior 1..n with
+// n = side-2.  A thread on the ghost ring evaluates the interior cell next
+// to it and applies the mode-b border rule to that value (ops/boundary.py):
+// edges mirror it (negated on the wall-normal component, b=1 at the
+// left/right walls, b=2 at the top/bottom walls), corners take
+// 0.5*(sy*v + sx*v).  So the border is derived in the same launch as the
+// interior, never by a separate set_bnd pass, and every output has valid
+// corners.  The 3-D kernels do the same on (side, side, side) volumes,
+// [z, y, x] row-major, cell (k, i, j) at (k*side + i)*side + j, with the
+// rule of ops/three_d.py (border_value3 below).
 //
 // The library is built with --fmad=false: each expression keeps the
 // reference's order and rounding, so a kernel matches its plain PyTorch
@@ -25,6 +28,12 @@ constexpr int kBlockY = 8;
 inline dim3 block_dim() { return dim3(kBlockX, kBlockY); }
 inline dim3 grid_dim(int side) {
   return dim3((side + kBlockX - 1) / kBlockX, (side + kBlockY - 1) / kBlockY);
+}
+
+// 3-D launches: 32x8 threads over (x, y), one grid layer per z plane.
+inline dim3 grid_dim3(int side) {
+  return dim3((side + kBlockX - 1) / kBlockX, (side + kBlockY - 1) / kBlockY,
+              side);
 }
 
 __device__ __forceinline__ int clampi(int a, int lo, int hi) {
@@ -50,8 +59,43 @@ __device__ __forceinline__ float border_value(float v, int i, int j, int side,
   return v;
 }
 
+// Flat index of the interior cell that padded volume cell (k, i, j) derives
+// from.
+__device__ __forceinline__ int interior_of3(int k, int i, int j, int side) {
+  const int n = side - 2;
+  return (clampi(k, 1, n) * side + clampi(i, 1, n)) * side + clampi(j, 1, n);
+}
+
+// The value of padded volume cell (k, i, j) given the value v of its
+// interior cell: the rule set_bnd3 (ops/three_d.py) derives with its face,
+// edge and corner passes, evaluated at one cell.  A face is s*v, with the
+// sign of the face's axis (b=1 flips x, b=2 flips y, b=3 flips z).  An edge
+// with ghost axes a1 < a2 (order z, y, x) is the mean of its two face
+// neighbours, 0.5*(s_a2*v + s_a1*v).  A corner is the mean of its three
+// edge neighbours, third*((E_yx + E_zx) + E_zy), a multiplication by 1/3
+// rounded to float32, in that order.
+__device__ __forceinline__ float border_value3(float v, int k, int i, int j,
+                                               int side, int b) {
+  const bool gx = (j == 0) || (j == side - 1);
+  const bool gy = (i == 0) || (i == side - 1);
+  const bool gz = (k == 0) || (k == side - 1);
+  const float sx = (b == 1) ? -1.0f : 1.0f;
+  const float sy = (b == 2) ? -1.0f : 1.0f;
+  const float sz = (b == 3) ? -1.0f : 1.0f;
+  const int ghosts = int(gx) + int(gy) + int(gz);
+  if (ghosts == 0) return v;
+  if (ghosts == 1) return gx ? sx * v : (gy ? sy * v : sz * v);
+  const float e_yx = 0.5f * (sx * v + sy * v);
+  const float e_zx = 0.5f * (sx * v + sz * v);
+  const float e_zy = 0.5f * (sy * v + sz * v);
+  if (ghosts == 2) return gz ? (gy ? e_zy : e_zx) : e_yx;
+  const float third = static_cast<float>(1.0 / 3.0);
+  return third * ((e_yx + e_zx) + e_zy);
+}
+
 // ---------------------------------------------------------------------------
-// One Jacobi sweep at one interior cell (ops/diffuse.py, ops/chebyshev.py)
+// One Jacobi sweep at one interior cell (ops/diffuse.py, ops/three_d.py,
+// ops/chebyshev.py)
 // ---------------------------------------------------------------------------
 
 enum SweepFlags {
@@ -80,13 +124,11 @@ __device__ __forceinline__ float rhs_at(const SweepParams& p, int c) {
   return r;
 }
 
-// x_{k+1} at interior cell c with rhs value r: the neighbour sum in the
-// order ((L+R)+U)+D of ops/diffuse.py:29, then the Jacobi update, then the
-// Chebyshev combine w*S(x_k) + (1-w)*x_{k-1} read pointwise.
-__device__ __forceinline__ float sweep_at(const SweepParams& p, int c, int side,
-                                          float r) {
-  float neigh = 0.0f;
-  if (p.x) neigh = ((p.x[c - 1] + p.x[c + 1]) + p.x[c - side]) + p.x[c + side];
+// x_{k+1} at interior cell c from its neighbour sum and rhs value r: the
+// Jacobi update, then the Chebyshev combine w*S(x_k) + (1-w)*x_{k-1} read
+// pointwise.
+__device__ __forceinline__ float sweep_update(const SweepParams& p, int c,
+                                              float neigh, float r) {
   float val = (p.flags & kFast) ? fmaf(p.ab, neigh, r)
                                 : (r + p.alpha * neigh) / p.beta;
   if (p.flags & kCheby) {
@@ -94,6 +136,27 @@ __device__ __forceinline__ float sweep_at(const SweepParams& p, int c, int side,
     val = p.w * val + (1.0f - p.w) * prev;
   }
   return val;
+}
+
+// 2-D: the neighbour sum in the order ((L+R)+U)+D of ops/diffuse.py:29.
+__device__ __forceinline__ float sweep_at(const SweepParams& p, int c, int side,
+                                          float r) {
+  float neigh = 0.0f;
+  if (p.x) neigh = ((p.x[c - 1] + p.x[c + 1]) + p.x[c - side]) + p.x[c + side];
+  return sweep_update(p, c, neigh, r);
+}
+
+// 3-D: the neighbour sum in the order ((L+R)+(U+D))+(F+B) of
+// ops/three_d.py (x, then y, then z neighbours).
+__device__ __forceinline__ float sweep_at3(const SweepParams& p, int c,
+                                           int side, float r) {
+  float neigh = 0.0f;
+  if (p.x) {
+    const int plane = side * side;
+    neigh = ((p.x[c - 1] + p.x[c + 1]) + (p.x[c - side] + p.x[c + side])) +
+            (p.x[c - plane] + p.x[c + plane]);
+  }
+  return sweep_update(p, c, neigh, r);
 }
 
 inline SweepParams make_sweep_params(const float* x, const float* rhs,
@@ -152,6 +215,54 @@ __device__ __forceinline__ Departure backtrace(const float* u, const float* v,
 __device__ __forceinline__ float blend(const Departure& d, float g00,
                                        float g10, float g01, float g11) {
   return d.s0 * (d.t0 * g00 + d.t1 * g10) + d.s1 * (d.t0 * g01 + d.t1 * g11);
+}
+
+// 3-D departure of interior cell (ck, ci, cj): (cj, ci, ck) - dt0*(u, v, w)
+// clamped per axis to [0.5, n+0.5] and truncated (ops/three_d.py advect3).
+struct Departure3 {
+  int base;            // flat index of the lower gather corner
+  float fx, fy, fz;    // trilinear weights of the upper corner per axis
+};
+
+__device__ __forceinline__ Departure3 backtrace3(const float* u,
+                                                 const float* v,
+                                                 const float* w, int ck,
+                                                 int ci, int cj, int side,
+                                                 float dt0) {
+  const int c = (ck * side + ci) * side + cj;
+  const float lo = 0.5f;
+  const float hi = static_cast<float>(side - 2) + 0.5f;
+  float x = static_cast<float>(cj) - dt0 * u[c];
+  float y = static_cast<float>(ci) - dt0 * v[c];
+  float z = static_cast<float>(ck) - dt0 * w[c];
+  x = fminf(fmaxf(x, lo), hi);
+  y = fminf(fmaxf(y, lo), hi);
+  z = fminf(fmaxf(z, lo), hi);
+  const int i0 = static_cast<int>(x);
+  const int j0 = static_cast<int>(y);
+  const int k0 = static_cast<int>(z);
+  Departure3 d;
+  d.base = (k0 * side + j0) * side + i0;
+  d.fx = x - static_cast<float>(i0);
+  d.fy = y - static_cast<float>(j0);
+  d.fz = z - static_cast<float>(k0);
+  return d;
+}
+
+// The trilinear blend in the order of ops/three_d.py advect3:
+// (1-fz)*((1-fy)*((1-fx)*g000 + fx*g001) + fy*(...)) + fz*(...).
+__device__ __forceinline__ float trilinear(const Departure3& d,
+                                           const float* __restrict__ f,
+                                           int side) {
+  const int plane = side * side;
+  const float* g = f + d.base;
+  const float gx = 1.0f - d.fx;
+  const float gy = 1.0f - d.fy;
+  const float gz = 1.0f - d.fz;
+  return gz * (gy * (gx * g[0] + d.fx * g[1]) +
+               d.fy * (gx * g[side] + d.fx * g[side + 1])) +
+         d.fz * (gy * (gx * g[plane] + d.fx * g[plane + 1]) +
+                 d.fy * (gx * g[plane + side] + d.fx * g[plane + side + 1]));
 }
 
 }  // namespace fsc

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, which ``ctypes`` loads: no PyTorch headers are compiled, so a
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all started
+together) and links the objects into one shared library with a plain C
+interface, which ``ctypes`` loads: no PyTorch headers are compiled, so a
 cold build takes seconds.  The library goes to ``build/fluidsimulationcuda_torch/``
 at the repository root and is named by a hash of the sources, the compiler
 flags and the ``nvcc --version`` text, so it is rebuilt exactly when one of
@@ -22,8 +23,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fluidsimulationcuda_torch"
 # --fmad=false keeps each expression's rounding as the reference writes it;
 # fast mode calls fmaf where it fuses on purpose.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +40,12 @@ _SIGNATURES = {
     "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "fsc_dens_advect": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _P, _P,
                         _P, _I, _I, _F, _P],
+    "fsc_jacobi3_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                          _F, _I, _P],
+    "fsc_divergence3": [_P, _P, _P, _P, _I, _F, _P],
+    "fsc_gradient3": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P],
+    "fsc_advect3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                    _P],
 }
 
 _lock = threading.Lock()
@@ -72,15 +80,39 @@ def build(verbose: bool = False) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or res.returncode != 0:
-        print(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c",
+         "-o", str(obj), str(src)]
+        for src, obj in zip(sources, objs)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        # Wait for every compile before reporting one that failed.
+        results = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, proc in zip(compiles, procs)]
+        for cmd, output, returncode in results:
+            _finish(cmd, output, returncode, verbose)
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        _finish(link, res.stdout + res.stderr, res.returncode, verbose)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: a process building at the same time never sees half a file
     return lib
+
+
+def _finish(cmd: list[str], output: str, returncode: int,
+            verbose: bool) -> None:
+    """Print a step's compiler output when asked or when it failed; raise
+    if it failed."""
+    if verbose or returncode != 0:
+        print(output)
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}")
 
 
 def load() -> ctypes.CDLL:

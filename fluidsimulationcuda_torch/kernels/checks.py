@@ -1,10 +1,15 @@
 """Kernel-against-plain comparisons and device timing on the card.
 
 Shared by ``chip_smoke.py`` and the GPU tests: each ``Check`` calls one
-``cuda_ops`` wrapper on CUDA tensors and its plain version on the same
-tensors, at the coefficients the 2-D step gives it.  Inputs come from
-``np.random.default_rng(seed)``: fields in [-1, 1], velocities scaled so the
-backtrace moves at most two cells.
+``cuda_ops`` or ``cuda_ops_3d`` wrapper on CUDA tensors and its plain
+version on the same tensors, at the coefficients the 2-D or 3-D step gives
+it.  Inputs come from ``np.random.default_rng(seed)``: fields in [-1, 1],
+velocities scaled so the backtrace moves at most two cells.
+
+A timed check also carries its cost: the field-sized arrays its launches
+must move (each launch reading each input once and writing each output
+once) and its float operations per cell.  ``Check.bound()`` turns them into
+the least time the card could take for the same launches.
 """
 from __future__ import annotations
 
@@ -14,16 +19,24 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.config import PERF_POINT_3D, PERF_POINTS_2D
 from . import cuda_ops as co
+from . import cuda_ops_3d as co3
 
-__all__ = ["TOL", "Check", "kernel_checks", "timing_checks", "max_abs_diff",
-           "device_ms"]
+__all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
+           "kernel_checks", "timing_checks", "kernel_checks3",
+           "timing_checks3", "max_abs_diff", "device_ms"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
 # --fmad=false), so parity modes agree to a few ulps; fast mode differs by
 # one rounding per sweep (fmaf against a multiply and an add).
 TOL = 1e-5
+
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM3 bandwidth and
+# float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 DT, VISC, DIFF = 0.016, 0.0025, 0.1
 
@@ -34,6 +47,18 @@ class Check:
     kernels: tuple[str, ...]  # the CUDA kernels this wrapper call launches
     run: Callable[[], object]
     plain: Callable[[], object]
+    cost: tuple[int, int] = (0, 0)  # (field passes, float ops per cell)
+    cells: int = 0  # cells of one field
+
+    def bound(self) -> tuple[float, str]:
+        """(ms, "bytes" or "operations"): the larger of the bytes the
+        launches must move over the HBM rate and their float operations
+        over the float32 peak."""
+        fields, ops = self.cost
+        bytes_ms = 1e3 * fields * self.cells * 4 / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops * self.cells / F32_OPS_PER_S
+        return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                               "operations")
 
 
 def _check(label, kernels, fn, plain, *args, **kw) -> Check:
@@ -41,20 +66,59 @@ def _check(label, kernels, fn, plain, *args, **kw) -> Check:
                  lambda: plain(*args, **kw))
 
 
-class _Inputs:
-    """Random fields at grid ``side`` and the step's coefficients there."""
+def _timed(cost: tuple[int, int], cells: int, label, kernels, fn, plain,
+           *args, **kw) -> Check:
+    check = _check(label, kernels, fn, plain, *args, **kw)
+    check.cost, check.cells = cost, cells
+    return check
 
-    def __init__(self, side: int, device, seed: int):
+
+def _add(*costs: tuple[int, int]) -> tuple[int, int]:
+    return sum(c[0] for c in costs), sum(c[1] for c in costs)
+
+
+def _sweeps_cost(iters: int, ndim: int, *, zero_init=False, src=False,
+                 fast=False, cheby=False) -> tuple[int, int]:
+    """Cost of the sweep launches of one solve, as ``cuda_ops._Sweeps``
+    runs them: each reads its x (none for the zero guess), x_{k-1} (the
+    Chebyshev combine) and rhs, writes its output, and the first also
+    writes the rhs it builds (the folded source is the guess x itself)."""
+    fields = ops = 0
+    has_x, has_xm, prep = not zero_init, False, src or fast
+    for k in range(iters):
+        combine = cheby and k >= 1
+        fields += has_x + (combine and has_xm) + 1 + 1 + prep
+        # neighbour sum, alpha*sum + rhs, /beta; fold; combine
+        ops += (2 * ndim + 2) + (2 * src + fast if prep else 0) + 4 * combine
+        has_xm, has_x, prep = has_x, True, False
+    return fields, ops
+
+
+# (field passes, float ops per cell) of one launch of the other kernels.
+DIV2, GRAD2 = (3, 4), (5, 8)
+ADVECT2_PAIR, ADVECT2_ONE = (4, 24), (4, 18)
+DENS_ADVECT = (5, 50)  # four stencil evaluations and a bilinear blend
+DIV3, GRAD3 = (4, 6), (7, 12)
+ADVECT3_ONE, ADVECT3_TRIPLE = (5, 39), (6, 81)
+
+
+class _Inputs:
+    """Random fields at grid ``side`` (``ndim``-D) and the step's
+    coefficients there."""
+
+    def __init__(self, side: int, device, seed: int, ndim: int = 2):
         rng = np.random.default_rng(seed)
         self.n = n = side - 2
+        self.cells = side**ndim
 
         def field(scale=1.0):
-            a = rng.uniform(-1.0, 1.0, (side, side)).astype(np.float32)
+            a = rng.uniform(-1.0, 1.0, (side,) * ndim).astype(np.float32)
             return torch.from_numpy(a * np.float32(scale)).to(device)
 
         vscale = 2.0 / (DT * n)  # |dt*n*u| <= 2 cells
         self.x, self.x0, self.src, self.p = field(), field(), field(), field()
         self.u, self.v = field(vscale), field(vscale)
+        self.w = field(vscale) if ndim == 3 else None
         self.a_visc = DT * VISC * n * n
         self.a_diff = DT * DIFF * n * n
 
@@ -70,7 +134,7 @@ def kernel_checks(side: int, device, seed: int = 0) -> list[Check]:
     (rho, k_d, k_p) = (0.9, 10, 14)."""
     t = _Inputs(side, device, seed)
     n, av, ad = t.n, t.a_visc, t.a_diff
-    iters, (rho, k_d, k_p) = 20, (0.9, 10, 14)
+    iters, (rho, k_d, k_p) = 20, PERF_POINTS_2D[2048]
     modes = {
         "jacobi": dict(),
         "src_dt": dict(src_dt=DT),
@@ -116,45 +180,148 @@ def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
     wrapper at the main path's iteration counts, then the unfused density
     step (K1 then K3) that K4 has to beat (ROADMAP B4)."""
     t = _Inputs(side, device, seed)
-    n, av, ad = t.n, t.a_visc, t.a_diff
+    n, av, ad, cells = t.n, t.a_visc, t.a_diff, t.cells
     bv, bd = 1 + 4 * av, 1 + 4 * ad
+    rho, k_d, k_p = PERF_POINTS_2D[2048]
+
+    def sweeps(iters, **kw):
+        return _sweeps_cost(iters, 2, **kw)
 
     def unfused_density():
         d = co.fused_jacobi(0, t.src, t.x0, ad, bd, 20, src_dt=DT)
         return co.advect_shift(0, d, t.u, t.v, DT, n)
 
+    unfused = Check("unfused density step: K1 20it + K3",
+                    ("jacobi_sweep", "advect"), unfused_density,
+                    lambda: co.fused_dens_advect_plain(0, t.src, t.x0, t.u,
+                                                       t.v, ad, bd, 20, DT, n),
+                    _add(sweeps(20, src=True), ADVECT2_ONE), cells)
     return [
-        _check("jacobi_sweep", JAC, co.fused_jacobi, co.fused_jacobi_plain,
-               1, t.x, t.x0, av, bv, 1),
-        _check("divergence", ("divergence",), co.divergence_p,
+        _timed(sweeps(1), cells, "jacobi_sweep", JAC, co.fused_jacobi,
+               co.fused_jacobi_plain, 1, t.x, t.x0, av, bv, 1),
+        _timed(DIV2, cells, "divergence", ("divergence",), co.divergence_p,
                co.divergence_p_plain, t.u, t.v, n),
-        _check("gradient", ("gradient",), co.gradient_p, co.gradient_p_plain,
-               t.u, t.v, t.p, n),
-        _check("advect", ("advect",), co.advect_shift_fused,
-               co.advect_shift_fused_plain, (1, 2), (t.u, t.v), t.u, t.v, DT,
-               n),
-        _check("dens_advect", ("dens_advect",), co.fused_dens_advect,
-               co.fused_dens_advect_plain, 0, t.src, t.x0, t.u, t.v, ad, bd,
-               1, DT, n),
-        _check("fused_jacobi 20it src_dt (u diffusion)", JAC, co.fused_jacobi,
+        _timed(GRAD2, cells, "gradient", ("gradient",), co.gradient_p,
+               co.gradient_p_plain, t.u, t.v, t.p, n),
+        _timed(ADVECT2_PAIR, cells, "advect", ("advect",),
+               co.advect_shift_fused, co.advect_shift_fused_plain, (1, 2),
+               (t.u, t.v), t.u, t.v, DT, n),
+        _timed(DENS_ADVECT, cells, "dens_advect", ("dens_advect",),
+               co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
+               t.x0, t.u, t.v, ad, bd, 1, DT, n),
+        _timed(sweeps(20, src=True), cells,
+               "fused_jacobi 20it src_dt (u diffusion)", JAC, co.fused_jacobi,
                co.fused_jacobi_plain, 1, t.src, t.x0, av, bv, 20, src_dt=DT),
-        _check("fused_jacobi 10it chebyshev+fast", JAC, co.fused_jacobi,
-               co.fused_jacobi_plain, 1, t.src, t.x0, av, bv, 10, src_dt=DT,
-               fast=True, cheby_rho=0.9),
-        _check("fused_project 20it", PROJ, co.fused_project,
+        _timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
+               f"fused_jacobi {k_d}it chebyshev+fast", JAC, co.fused_jacobi,
+               co.fused_jacobi_plain, 1, t.src, t.x0, av, bv, k_d, src_dt=DT,
+               fast=True, cheby_rho=rho),
+        _timed(_add(DIV2, sweeps(20, zero_init=True), GRAD2), cells,
+               "fused_project 20it", PROJ, co.fused_project,
                co.fused_project_plain, t.u, t.v, n, 20),
-        _check("fused_project 14it chebyshev", PROJ, co.fused_project,
-               co.fused_project_plain, t.u, t.v, n, 14, cheby_rho=0.9),
-        _check("fused_dens_advect 20it", DENS, co.fused_dens_advect,
+        _timed(_add(DIV2, sweeps(k_p, zero_init=True, cheby=True), GRAD2),
+               cells, f"fused_project {k_p}it chebyshev", PROJ,
+               co.fused_project, co.fused_project_plain, t.u, t.v, n, k_p,
+               cheby_rho=rho),
+        _timed(_add(sweeps(19, src=True), DENS_ADVECT), cells,
+               "fused_dens_advect 20it", DENS, co.fused_dens_advect,
                co.fused_dens_advect_plain, 0, t.src, t.x0, t.u, t.v, ad, bd,
                20, DT, n),
-        _check("fused_dens_advect 10it chebyshev+fast", DENS,
+        _timed(_add(sweeps(k_d - 1, src=True, fast=True, cheby=True),
+                    DENS_ADVECT), cells,
+               f"fused_dens_advect {k_d}it chebyshev+fast", DENS,
                co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
-               t.x0, t.u, t.v, ad, bd, 10, DT, n, fast=True, cheby_rho=0.9),
-        Check("unfused density step: K1 20it + K3", ("jacobi_sweep", "advect"),
-              unfused_density,
-              lambda: co.fused_dens_advect_plain(0, t.src, t.x0, t.u, t.v,
-                                                 ad, bd, 20, DT, n)),
+               t.x0, t.u, t.v, ad, bd, k_d, DT, n, fast=True, cheby_rho=rho),
+        unfused,
+    ]
+
+
+JAC3 = ("jacobi3_sweep",)
+
+
+def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
+    """Every wrapper of the 3-D step in every mode the step uses, at volume
+    ``side``: K5 for b = 0..3 in the parity modes (20 sweeps: plain, source
+    fold, zero guess) and the compensated mode's Chebyshev sweeps
+    (``PERF_POINT_3D``, with and without fast math), the compensated
+    pressure solve, K7, K8, and K6 for one field and for the (u, v, w)
+    triple."""
+    t = _Inputs(side, device, seed, ndim=3)
+    n, av = t.n, t.a_visc
+    iters, (rho, k_d, k_p) = 20, PERF_POINT_3D
+    modes = {
+        "jacobi": dict(),
+        "src-fold": dict(src_dt=DT),
+        "zero_init": dict(zero_init=True),
+        "chebyshev": dict(src_dt=DT, cheby_rho=rho),
+        "chebyshev+fast": dict(src_dt=DT, cheby_rho=rho, fast=True),
+    }
+    out = []
+    for b in (0, 1, 2, 3):
+        for mode, kw in modes.items():
+            k = k_d if "cheby_rho" in kw else iters
+            out.append(_check(f"fused_jacobi3 b={b} {mode} {k}it", JAC3,
+                              co3.fused_jacobi3, co3.fused_jacobi3_plain, b,
+                              t.x, t.x0, av, 1 + 6 * av, k, **kw))
+    uvw = (t.u, t.v, t.w)
+    return out + [
+        _check(f"pressure3 chebyshev+fast {k_p}it", JAC3, co3.fused_jacobi3,
+               co3.fused_jacobi3_plain, 0, t.p, t.p, 1.0, 6.0, k_p,
+               zero_init=True, fast=True, cheby_rho=rho),
+        _check("divergence3_p", ("divergence3",), co3.divergence3_p,
+               co3.divergence3_p_plain, *uvw, n),
+        _check("gradient3_p", ("gradient3",), co3.gradient3_p,
+               co3.gradient3_p_plain, *uvw, t.p, n),
+        _check("advect3_shift b=0", ("advect3",), co3.advect3_shift,
+               co3.advect3_shift_plain, 0, t.x, *uvw, DT, n),
+        _check("advect3_shift_fused u/v/w triple", ("advect3",),
+               co3.advect3_shift_fused, co3.advect3_shift_fused_plain,
+               (1, 2, 3), uvw, *uvw, DT, n),
+    ]
+
+
+def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times in 3-D: one launch of each CUDA kernel
+    (labelled by the kernel's name; ``advect3`` is the self-advected
+    triple), then K6 on one field and each solve at the main path's
+    iteration counts."""
+    t = _Inputs(side, device, seed, ndim=3)
+    n, av, cells = t.n, t.a_visc, t.cells
+    bv = 1 + 6 * av
+    rho, k_d, k_p = PERF_POINT_3D
+    uvw = (t.u, t.v, t.w)
+
+    def sweeps(iters, **kw):
+        return _sweeps_cost(iters, 3, **kw)
+
+    return [
+        _timed(sweeps(1), cells, "jacobi3_sweep", JAC3, co3.fused_jacobi3,
+               co3.fused_jacobi3_plain, 1, t.x, t.x0, av, bv, 1),
+        _timed(DIV3, cells, "divergence3", ("divergence3",),
+               co3.divergence3_p, co3.divergence3_p_plain, *uvw, n),
+        _timed(GRAD3, cells, "gradient3", ("gradient3",), co3.gradient3_p,
+               co3.gradient3_p_plain, *uvw, t.p, n),
+        _timed(ADVECT3_TRIPLE, cells, "advect3", ("advect3",),
+               co3.advect3_shift_fused, co3.advect3_shift_fused_plain,
+               (1, 2, 3), uvw, *uvw, DT, n),
+        _timed(ADVECT3_ONE, cells, "advect3 one field (density)",
+               ("advect3",), co3.advect3_shift, co3.advect3_shift_plain, 0,
+               t.x, *uvw, DT, n),
+        _timed(sweeps(20, src=True), cells,
+               "fused_jacobi3 20it src_dt (u diffusion)", JAC3,
+               co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0, av,
+               bv, 20, src_dt=DT),
+        _timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
+               f"fused_jacobi3 {k_d}it chebyshev+fast", JAC3,
+               co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0, av,
+               bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
+        _timed(sweeps(20, zero_init=True), cells, "pressure3 20it", JAC3,
+               co3.fused_jacobi3, co3.fused_jacobi3_plain, 0, t.p, t.p, 1.0,
+               6.0, 20, zero_init=True),
+        _timed(sweeps(k_p, zero_init=True, fast=True, cheby=True), cells,
+               f"pressure3 {k_p}it chebyshev+fast", JAC3, co3.fused_jacobi3,
+               co3.fused_jacobi3_plain, 0, t.p, t.p, 1.0, 6.0, k_p,
+               zero_init=True, fast=True, cheby_rho=rho),
     ]
 
 

@@ -22,7 +22,9 @@ step:
 - ``dens_advect`` (K4, ``csrc/dens_advect.cu``): the last sweep and the
   gather of ``fused_dens_advect`` (``:1480``).
 
-``launch_counts()`` reports how often each kernel was launched since
+The 3-D kernels (K5-K8) have their wrappers in ``cuda_ops_3d.py`` and
+share this module's checks, launch helper and counts.  ``launch_counts()``
+reports how often each kernel of either module was launched since
 ``reset_launch_counts()``: every successful launch adds one, nothing else
 does, so a run can show that it went through the kernels.
 """
@@ -48,7 +50,8 @@ __all__ = [
     "gradient_p", "gradient_p_plain",
 ]
 
-KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect")
+KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
+           "jacobi3_sweep", "divergence3", "gradient3", "advect3")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -70,16 +73,19 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _on_card(side: int, *tensors: torch.Tensor) -> bool:
-    """Check that every tensor is a contiguous float32 (side, side) grid on
-    one device; True for CUDA, False for the CPU, and raise otherwise."""
-    if side < 3 or side * side >= 2**31:
-        raise ValueError(f"unsupported grid side {side}")
+def _on_card(side: int, *tensors: torch.Tensor, ndim: int = 2) -> bool:
+    """Check that every tensor is a contiguous float32 grid of shape
+    ``(side,) * ndim`` on one device; True for CUDA, False for the CPU, and
+    raise otherwise.  The kernels index with 32-bit ints, so
+    ``side**ndim`` must stay below 2**31."""
+    if side < 3 or side**ndim >= 2**31:
+        raise ValueError(f"unsupported grid side {side} for {ndim}-D")
+    shape = (side,) * ndim
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"expected float32, got {t.dtype}")
-        if tuple(t.shape) != (side, side):
-            raise ValueError(f"expected shape {(side, side)}, got "
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("expected a contiguous tensor")
@@ -114,7 +120,8 @@ def _launch(kernel: str, fn, *args) -> None:
 
 
 class _Sweeps:
-    """The K1 launches of one solve: ``sweep()`` advances one iterate.
+    """The sweep launches of one solve (K1 ``jacobi_sweep`` on a grid, K5
+    ``jacobi3_sweep`` on a volume): ``sweep()`` advances one iterate.
 
     It owns the scratch it ping-pongs through (two tensors, three for
     Chebyshev, whose x_{k-1} and x_k are read-only while x_{k+1} is
@@ -126,7 +133,8 @@ class _Sweeps:
     first sweep is plain."""
 
     def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
-                 src_dt, fast, cheby_rho):
+                 src_dt, fast, cheby_rho, kernel="jacobi_sweep"):
+        self.kernel = kernel
         self.b = b
         self.side = rhs.shape[-1]
         self.stream = _stream(rhs)
@@ -166,9 +174,9 @@ class _Sweeps:
         out = self._scratch()
         rhs_out = torch.empty_like(self.rhs) if self.prep else None
         x, rhs, src, xm, *scalars = self.next_args()
-        _launch("jacobi_sweep", lib.fsc_jacobi_sweep, x, rhs, src, xm,
-                out.data_ptr(), _ptr(rhs_out), self.side, self.b, *scalars,
-                self.stream)
+        _launch(self.kernel, getattr(lib, f"fsc_{self.kernel}"), x, rhs, src,
+                xm, out.data_ptr(), _ptr(rhs_out), self.side, self.b,
+                *scalars, self.stream)
         if self.prep:
             self.rhs, self.prep = rhs_out, False
         if self.omegas is not None:

@@ -25,7 +25,7 @@ from ..ops.project import (
 )
 from ..ops.source import add_source
 
-__all__ = ["OpSet", "get_ops"]
+__all__ = ["OpSet", "get_ops", "require_exact_advection"]
 
 
 class OpSet(NamedTuple):
@@ -85,11 +85,16 @@ _REFERENCE_OPS = OpSet(
 )
 
 
-def get_ops(cfg: SimConfig) -> OpSet:
+def require_exact_advection(cfg: SimConfig) -> None:
+    """Refuse ``advect_mode="windowed"``: the port gathers exactly."""
     if cfg.advect_mode == "windowed":
         raise NotImplementedError(
             "advect_mode='windowed' (the TPU gather window) is not ported; "
             "the port gathers exactly ('auto' or 'exact')")
+
+
+def get_ops(cfg: SimConfig) -> OpSet:
+    require_exact_advection(cfg)
     backend = cfg.resolved_backend
     if backend == "reference":
         return _REFERENCE_OPS

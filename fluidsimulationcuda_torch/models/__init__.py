@@ -1,3 +1,7 @@
 from .stable_fluids_2d import StableFluids2D, make_step_fn, simulate, step, step_audited
+from .stable_fluids_3d import (StableFluids3D, dens_step3, make_step_fn_3d, step3,
+                               step_audited3, vel_step3)
 
-__all__ = ["StableFluids2D", "make_step_fn", "simulate", "step", "step_audited"]
+__all__ = ["StableFluids2D", "make_step_fn", "simulate", "step", "step_audited",
+           "StableFluids3D", "make_step_fn_3d", "step3", "step_audited3",
+           "vel_step3", "dens_step3"]

@@ -30,6 +30,12 @@ __all__ = [
 ]
 
 
+def _require_2d(cfg: SimConfig, what: str) -> None:
+    if cfg.ndim != 2:
+        raise ValueError(f"{what} requires ndim == 2, got ndim={cfg.ndim} "
+                         f"(the 3-D step is models/stable_fluids_3d.py)")
+
+
 def _make_project(cfg: SimConfig, ops: OpSet):
     """Pressure-projection closure honouring ``cfg.pressure_solver``."""
     if cfg.pressure_solver in ("multigrid", "cg"):
@@ -69,6 +75,7 @@ def _diffuse_velocity(cfg, ops, u, v, u_src, v_src):
 def vel_step(cfg: SimConfig, u: torch.Tensor, v: torch.Tensor,
              u_src: torch.Tensor, v_src: torch.Tensor):
     """Velocity update (``FluidSequential.c:189-241``)."""
+    _require_2d(cfg, "vel_step")
     ops = get_ops(cfg)
     project = _make_project(cfg, ops)
     u, v = project(*_diffuse_velocity(cfg, ops, u, v, u_src, v_src))
@@ -79,6 +86,7 @@ def vel_step(cfg: SimConfig, u: torch.Tensor, v: torch.Tensor,
 def dens_step(cfg: SimConfig, dens: torch.Tensor, dens_src: torch.Tensor,
               u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Density update (``FluidSequential.c:176-186``)."""
+    _require_2d(cfg, "dens_step")
     ops = get_ops(cfg)
     alpha = cfg.diffusion_alpha_diff
     beta = 1.0 + 4.0 * alpha
@@ -107,6 +115,7 @@ def step_audited(cfg: SimConfig, state: FluidState,
     stored state alone under-reports it.  The port's gather is exact at any
     displacement; the number says whether the TPU's windowed gather (exact
     below ``cfg.max_courant``) would have been."""
+    _require_2d(cfg, "step_audited")
     dt0 = cfg.dt * cfg.n
 
     def _disp(u, v):
@@ -126,6 +135,7 @@ def step_audited(cfg: SimConfig, state: FluidState,
 
 def make_step_fn(cfg: SimConfig) -> Callable[[FluidState, Sources], FluidState]:
     """``step`` bound to ``cfg``."""
+    _require_2d(cfg, "make_step_fn")
     return functools.partial(step, cfg)
 
 
@@ -144,8 +154,7 @@ class StableFluids2D:
     """Object-style wrapper around ``step`` and ``simulate``."""
 
     def __init__(self, cfg: SimConfig):
-        if cfg.ndim != 2:
-            raise ValueError("StableFluids2D requires ndim == 2")
+        _require_2d(cfg, "StableFluids2D")
         self.cfg = cfg
         self._zeros = None
 

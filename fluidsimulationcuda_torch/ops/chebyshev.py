@@ -1,5 +1,5 @@
 """Chebyshev semi-iterative acceleration of the Jacobi solves (plain torch;
-the 2-D part of ``fluidsimulationcuda_tpu.ops.chebyshev``).
+twin of ``fluidsimulationcuda_tpu.ops.chebyshev``, 2-D and 3-D).
 
 The same Jacobi sweep ``S`` as parity mode, combined by the three-term
 recurrence (Golub & Van Loan §11.2.8):
@@ -9,7 +9,8 @@ recurrence (Golub & Van Loan §11.2.8):
     w_{k+1} = 1 / (1 - rho^2 * w_k / 4),   w_1 = 2
 
 Not a parity mode; it is the compensated perf mode's solver, and the plain
-form of the CUDA ``jacobi_sweep`` kernel's Chebyshev flag.
+form of the Chebyshev flag of the CUDA ``jacobi_sweep`` and
+``jacobi3_sweep`` kernels.
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ import torch
 
 from .boundary import embed_interior
 from .diffuse import as_scalar, jacobi_sweep
+from .three_d import embed_faces3, embed_interior3, jacobi_sweep3
 
-__all__ = ["cheby_omegas", "cheby_diffuse", "cheby_pressure_solve"]
+__all__ = ["cheby_omegas", "cheby_diffuse", "cheby_pressure_solve",
+           "cheby_diffuse3", "cheby_pressure_solve3"]
 
 
 def cheby_omegas(rho: float, iters: int) -> tuple[float, ...]:
@@ -58,3 +61,29 @@ def cheby_pressure_solve(div: torch.Tensor, iters: int,
     """Chebyshev Poisson solve from the zero guess (perf-mode twin of
     ``ops.project.pressure_solve``)."""
     return cheby_diffuse(0, torch.zeros_like(div), div, 1.0, 4.0, iters, rho)
+
+
+def cheby_diffuse3(b: int, x_init: torch.Tensor, x0: torch.Tensor,
+                   alpha: float, beta: float, iters: int,
+                   rho: float) -> torch.Tensor:
+    """3-D twin of :func:`cheby_diffuse` (7-point sweep, semantics of
+    ``ops.three_d.diffuse3``): the ghost faces are re-derived from the
+    combined interior after every iterate, the full ghost layer once at the
+    end."""
+    a = as_scalar(alpha, x0)
+    bt = as_scalar(beta, x0)
+    rhs = x0[1:-1, 1:-1, 1:-1]
+    xm = x_init
+    x = jacobi_sweep3(b, xm, rhs, a, bt)
+    for w in cheby_omegas(rho, iters):
+        wc = as_scalar(w, x0)
+        xn = wc * jacobi_sweep3(b, x, rhs, a, bt) + (1.0 - wc) * xm
+        xm, x = x, embed_faces3(b, xn[1:-1, 1:-1, 1:-1])
+    return embed_interior3(b, x[1:-1, 1:-1, 1:-1])
+
+
+def cheby_pressure_solve3(div: torch.Tensor, iters: int,
+                          rho: float) -> torch.Tensor:
+    """3-D Chebyshev Poisson solve from the zero guess (perf-mode twin of
+    ``ops.three_d.pressure_solve3``)."""
+    return cheby_diffuse3(0, torch.zeros_like(div), div, 1.0, 6.0, iters, rho)

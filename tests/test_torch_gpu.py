@@ -4,7 +4,7 @@ Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 no CUDA device is present (decided when the test runs, never at import).
 On a machine with one H100:
 
-    python -m pytest tests/test_torch_gpu.py -q -m gpu
+    python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
 """
 import glob
 import os
@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import fluidsimulationcuda_torch as ft  # noqa: E402
-from fluidsimulationcuda_torch.kernels import checks, cuda_ops  # noqa: E402
+from fluidsimulationcuda_torch.kernels import checks, cuda_ops, cuda_ops_3d  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -24,6 +24,8 @@ GOLDEN = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "golden",
                                        "*.npz")))
 PERF = dict(pressure_solver="chebyshev", diffusion_solver="chebyshev",
             cheby_rho=0.9, cheby_iters=10, cheby_press_iters=14)
+COMP3 = dict(pressure_solver="chebyshev", diffusion_solver="chebyshev",
+             cheby_rho=0.85, cheby_iters=10, cheby_press_iters=12)
 
 
 @pytest.fixture
@@ -70,6 +72,7 @@ def test_step_launches_and_matches_reference(cuda, mode):
     k_vel = cfg.cheby_iters if mode == "perf" else cfg.jacobi_iters
     k_p = cfg.press_cheby_iters if mode == "perf" else cfg.jacobi_iters
     assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
         "jacobi_sweep": 2 * k_vel + 2 * k_p + k_vel - 1, "divergence": 2,
         "gradient": 2, "advect": 1, "dens_advect": 1}
     want = ft.step(cfg.replace(backend="reference"), state, src)
@@ -84,3 +87,49 @@ def test_cuda_tensor_launches_or_raises(cuda):
     assert cuda_ops.launch_counts()["jacobi_sweep"] == 3
     with pytest.raises(ValueError):
         cuda_ops.fused_jacobi(0, x, x.cpu(), 1.0, 4.0, 3)
+
+
+@pytest.mark.parametrize("side", [24, 64])
+def test_kernels3_match_plain(cuda, side):
+    for check in checks.kernel_checks3(side, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert all(counts[k] > 0 for k in check.kernels), (check.label, counts)
+        err = checks.max_abs_diff(got, want)
+        assert err <= checks.TOL, (check.label, err)
+
+
+@pytest.mark.parametrize("mode", ["parity", "compensated", "chebyshev-dens"])
+def test_step3_launches_and_matches_reference(cuda, mode):
+    kw = {"parity": {}, "compensated": COMP3,
+          "chebyshev-dens": dict(diffusion_solver="chebyshev-dens",
+                                 cheby_rho=0.85)}[mode]
+    cfg = ft.SimConfig(n=62, ndim=3, jacobi_iters=20, backend="cuda",
+                       device=cuda, **kw)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.StableFluids3D(cfg).step(state, src)
+    torch.cuda.synchronize()
+    k_vel = cfg.cheby_iters if mode == "compensated" else cfg.jacobi_iters
+    k_p = cfg.press_cheby_iters if mode == "compensated" else cfg.jacobi_iters
+    k_dens = {"parity": cfg.jacobi_iters, "compensated": cfg.cheby_iters,
+              "chebyshev-dens": cfg.cheby_dens_iters}[mode]
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        "jacobi3_sweep": 3 * k_vel + 2 * k_p + k_dens, "divergence3": 2,
+        "gradient3": 2, "advect3": 2}
+    want = ft.step3(cfg.replace(backend="reference"), state, src)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
+
+
+def test_cuda_volume_launches_or_raises(cuda):
+    x = torch.zeros(24, 24, 24, device=cuda)
+    cuda_ops.reset_launch_counts()
+    cuda_ops_3d.fused_jacobi3(0, x, x, 1.0, 6.0, 3)
+    assert cuda_ops.launch_counts()["jacobi3_sweep"] == 3
+    with pytest.raises(ValueError):
+        cuda_ops_3d.fused_jacobi3(0, x, x.cpu(), 1.0, 6.0, 3)

@@ -7,6 +7,7 @@ tests/test_golden.py (atol 1e-5).
 """
 import dataclasses
 import glob
+import inspect
 import os
 import warnings
 
@@ -69,7 +70,7 @@ def test_step_matches_jax(mode, steps):
     kw = dict(n=30, jacobi_iters=20, backend="reference", **MODES[mode])
     srcs = _sources(steps, 30)
     want = _jax_run(fj.SimConfig(**kw), srcs, steps)
-    tcfg = ft.SimConfig(**kw)
+    tcfg = ft.SimConfig(device="cpu", **kw)
     got = ft.simulate(tcfg, ft.zero_state(tcfg), _torch_sources(srcs), steps)
     for name in ("dens", "u", "v"):
         np.testing.assert_allclose(getattr(got, name).numpy(),
@@ -81,7 +82,8 @@ def test_step_matches_jax(mode, steps):
 def test_golden(path):
     with np.load(path) as z:
         n, steps, iters = int(z["n"]), int(z["steps"]), int(z["iters"])
-        cfg = ft.SimConfig(n=n, jacobi_iters=iters, backend="reference")
+        cfg = ft.SimConfig(n=n, jacobi_iters=iters, backend="reference",
+                           device="cpu")
         src = _torch_sources([z["dens_src"], z["u_src"], z["v_src"]])
         got = ft.simulate(cfg, ft.zero_state(cfg), src, steps)
         for name in ("dens", "u", "v"):
@@ -91,7 +93,7 @@ def test_golden(path):
 
 @pytest.mark.parametrize("every", [False, True])
 def test_simulate_equals_python_loop(every):
-    cfg = ft.SimConfig(n=30, jacobi_iters=8, backend="reference")
+    cfg = ft.SimConfig(n=30, jacobi_iters=8, backend="reference", device="cpu")
     src = _torch_sources(_sources(3, 30))
     got = ft.simulate(cfg, ft.zero_state(cfg), src, 5, sources_every_step=every)
     sim = ft.StableFluids2D(cfg)
@@ -105,7 +107,7 @@ def test_simulate_equals_python_loop(every):
 def test_step_audited_matches_step_and_jax():
     kw = dict(n=30, jacobi_iters=8, backend="reference")
     srcs = _sources(4, 30)
-    tcfg = ft.SimConfig(**kw)
+    tcfg = ft.SimConfig(device="cpu", **kw)
     src = _torch_sources(srcs)
     state = ft.step(tcfg, ft.zero_state(tcfg), src)
     audited, disp = ft.step_audited(tcfg, state, src)
@@ -123,7 +125,7 @@ def test_state_round_trip_from_jax():
     cfg = fj.SimConfig(n=30, jacobi_iters=4, backend="reference")
     state0, sources = fj.reference_init(jax.random.key(0), cfg)
     jstate = fj.step(cfg, state0, sources)
-    tstate = state_from_numpy(jstate)
+    tstate = state_from_numpy(jstate, device="cpu")
     assert all(t.dtype == torch.float32 for t in tstate[:3])
     back = state_to_numpy(tstate)
     for name in ("dens", "u", "v"):
@@ -136,12 +138,12 @@ def test_state_round_trip_from_jax():
 
 def test_state_from_npz():
     with np.load(GOLDEN[0]) as z:
-        state = state_from_numpy(z)
+        state = state_from_numpy(z, device="cpu")
         np.testing.assert_array_equal(state.dens.numpy(), z["dens"])
 
 
 def test_reference_init_distributions():
-    cfg = ft.SimConfig(n=62)
+    cfg = ft.SimConfig(n=62, device="cpu")
     state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
     again = ft.reference_init(torch.Generator().manual_seed(0), cfg)[1]
     assert all(bool((t == 0).all()) for t in state[:3])
@@ -171,22 +173,39 @@ def test_config_twin_fields_and_defaults():
 
 
 def test_config_backend_resolution():
-    assert ft.SimConfig().resolved_backend == "reference"
-    assert ft.SimConfig(device="cuda").resolved_backend == "cuda"
+    assert ft.SimConfig().resolved_backend == "cuda"
+    assert ft.SimConfig(device="cpu").resolved_backend == "reference"
     assert ft.SimConfig(device="cuda", backend="reference").resolved_backend == "reference"
     with pytest.raises(ValueError):
-        ft.SimConfig(backend="cuda")  # needs a CUDA device; nothing falls back
+        # needs a CUDA device; nothing falls back
+        ft.SimConfig(backend="cuda", device="cpu")
     with pytest.raises(ValueError):
         ft.SimConfig(backend="pallas")
     with pytest.raises(ValueError):
         ft.SimConfig(dtype=torch.float64)
 
 
+def test_default_config_targets_the_card():
+    """Entry points run on the card unless the caller asks for the CPU; on
+    a machine without one, a default config fails at its first tensor and
+    nothing falls back to the CPU."""
+    cfg = ft.SimConfig()
+    assert cfg.device == torch.device("cuda")
+    assert cfg.resolved_backend == "cuda"
+    default = inspect.signature(state_from_numpy).parameters["device"].default
+    assert torch.device(default) == torch.device("cuda")
+    if torch.cuda.is_available():
+        assert ft.zero_state(cfg).u.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            ft.zero_state(cfg)
+
+
 @pytest.mark.parametrize("kw", [dict(pressure_solver="multigrid"),
                                 dict(pressure_solver="cg"),
                                 dict(advect_mode="windowed")])
 def test_unported_options_raise(kw):
-    cfg = ft.SimConfig(n=14, **kw)
+    cfg = ft.SimConfig(n=14, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         ft.step(cfg, ft.zero_state(cfg), ft.zero_sources(cfg))
 
