@@ -12,6 +12,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    2048² shapes of the main path (max|Δ| <= 1e-5), plus device times of
    both beside the bound;
 3b. every 3-D kernel the same way at 256³;
+3c. every row-slab kernel of the multi-device step against its plain twin
+   for a top, an interior and a bottom slab of 256 rows at 2048²
+   (max|Δ| <= 1e-5), in its Jacobi, Chebyshev and fast forms, the gathers
+   under and over the 4-cell window, plus device times beside the bound;
 4. the six golden fixtures ``tests/golden/*.npz`` through the ``cuda``
    backend (atol 1e-5);
 5. the 2-D main path, ``StableFluids2D.step`` at 2048² (n=2046), 20 Jacobi
@@ -25,13 +29,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    scaled by 0.05 every step) held against the ``reference`` backend after
    20 steps;
 9. the same in the 3-D compensated mode (``PERF_POINT_3D``), without and
-   with fast math.
+   with fast math;
+10. the multi-device step, ``make_sharded_step_fn`` with ``audited=True`` on
+   one card (a mesh that lists it once per slab): 2048² parity on the 1×1
+   mesh and on 8 slabs, the 2048² compensated perf mode on 8 slabs, 8192²
+   (40 iterations) on 4 slabs, and 2048² with ``fuse_sweeps=8`` on 128 slabs
+   of 16 rows (the composed projection); launch counts checked, state held
+   against the ``reference`` backend of the same sharded step and, where
+   the audited displacement stays under the window, against
+   ``StableFluids2D.step`` (the impulse moves the 2048² backtrace ~20
+   cells, so a forced trajectory, sources × 0.05 every step, is held
+   against it too); ms/step eager and as a CUDA graph.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5 for the 2-D kernels, phase 8 for the 3-D
-ones), its max|Δ| from phase 3 or 3b, its device time beside its plain
-version's, and its bound.  The last line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA device the script exits non-zero before any phase.
+ones, the 8-slab 2048² parity run of phase 10 for the slab kernels), its
+max|Δ| from phase 3, 3b or 3c, its device time beside its plain version's,
+and its bound.  The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits non-zero before any phase.
 """
 from __future__ import annotations
 
@@ -49,6 +64,7 @@ SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNELS = "fluidsimulationcuda_tpu/kernels/pallas_ops.py"
 TPU_KERNELS_3D = "fluidsimulationcuda_tpu/kernels/pallas_ops_3d.py"
+TPU_SLABS = "fluidsimulationcuda_tpu/kernels/pallas_sharded.py"
 CSRC = "fluidsimulationcuda_torch/csrc"
 # CUDA kernel -> (its source, the pallas_call it replaces on the main path).
 KERNEL_SOURCES = {
@@ -61,6 +77,10 @@ KERNEL_SOURCES = {
     "divergence3": (f"{CSRC}/project3.cu", f"{TPU_KERNELS_3D}:1085"),
     "gradient3": (f"{CSRC}/project3.cu", f"{TPU_KERNELS_3D}:1101"),
     "advect3": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
+    "jacobi_slab": (f"{CSRC}/jacobi_slab.cu", f"{TPU_SLABS}:290"),
+    "divergence_slab": (f"{CSRC}/project_slab.cu", f"{TPU_SLABS}:1357"),
+    "gradient_slab": (f"{CSRC}/project_slab.cu", f"{TPU_SLABS}:1378"),
+    "advect_slab": (f"{CSRC}/advect_slab.cu", f"{TPU_SLABS}:1246"),
 }
 
 
@@ -101,6 +121,25 @@ def expected_launches3(cfg) -> dict[str, int]:
            else cfg.jacobi_iters)
     return {"jacobi3_sweep": 3 * k_vel + 2 * k_p + k_dens,
             "divergence3": 2, "gradient3": 2, "advect3": 2}
+
+
+def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
+    """Kernel launches of one multi-device step of ``cfg`` on ``slabs`` row
+    slabs.  Each slab launches K9 once per sweep of its two velocity
+    diffusions, two pressure solves and its density diffusion, K10 and K11
+    once per projection, K12 for the u/v pair and the density gather.  The
+    fused and composed routes launch the same kernels as often: they differ
+    in halo exchanges, not in launches."""
+    k_vel = k_dens = cfg.jacobi_iters
+    if cfg.diffusion_solver == "chebyshev":
+        k_vel = k_dens = cfg.cheby_iters
+    elif cfg.diffusion_solver == "chebyshev-dens":
+        k_dens = cfg.cheby_dens_iters
+    k_p = (cfg.press_cheby_iters if cfg.pressure_solver == "chebyshev"
+           else cfg.jacobi_iters)
+    return {"jacobi_slab": slabs * (2 * k_vel + 2 * k_p + k_dens),
+            "divergence_slab": 2 * slabs, "gradient_slab": 2 * slabs,
+            "advect_slab": 2 * slabs}
 
 
 def fields(state) -> list[tuple[str, torch.Tensor]]:
@@ -218,6 +257,118 @@ def main_path(cfg, label: str, card: str, steps: int,
     return counts
 
 
+def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
+                 tol: tuple[float, float, float] | None,
+                 graph_reps: int = 3) -> dict[str, int]:
+    """Impulse step plus ``steps-1`` steps of ``make_sharded_step_fn(cfg,
+    audited=True)`` on ``slabs`` row slabs of one card (a mesh that lists
+    ``cuda:0`` once per slab); check and return the launch counts of that
+    run.  ``tol = (rtol, atol, last)`` holds step 1 to ``|d| <= atol +
+    rtol*|ref|`` and step ``steps`` to ``max|d| <= last`` against the
+    ``reference`` backend of the same sharded step on the same CUDA tensors
+    and, where the audited displacement stayed under ``cfg.max_courant``
+    (the gathers were exact), against ``StableFluids2D.step``; None skips
+    both.  With ``tol`` it also drives ``steps`` steps of a forced
+    trajectory (sources scaled by 0.05 every step, as in phase 8), which
+    at 2048² stays under the window where the impulse does not, and holds
+    it against ``StableFluids2D.step`` the same way.  Then times the step
+    eager and as a CUDA graph."""
+    from fluidsimulationcuda_torch import (Sources, StableFluids2D,
+                                           reference_init, zero_sources)
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_state, unshard)
+
+    mesh = make_mesh([torch.device("cuda", 0)] * slabs)
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    step_fn = make_sharded_step_fn(cfg, mesh, audited=True)
+    start, src, zeros = (shard_state(x, mesh)
+                         for x in (state0, sources, zero_sources(cfg)))
+    print(f"{label}: {slabs} slab(s) of {(cfg.n + 2) // slabs} rows, "
+          f"routes {step_fn.routes}")
+
+    def run(fn):
+        states, disps, state = [], [], start
+        for k in range(steps):
+            state, disp = fn(state, src if k == 0 else zeros)
+            states.append(state)
+            disps.append(disp)
+        return states, disps
+
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    states, disps = run(step_fn)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    per_step = expected_launches_sharded(cfg, slabs)
+    want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    first, last = unshard(states[0]), unshard(states[-1])
+    require_finite(last, label)
+    disp = max(float(d) for d in disps)
+    print(f"{label}: audited displacement {disp:.6f} cells (largest of "
+          f"{steps} steps; window {cfg.max_courant})")
+    if tol is not None:
+        rtol, atol, last_tol = tol
+        ref = make_sharded_step_fn(cfg.replace(backend="reference"), mesh,
+                                   audited=True)
+        r_states, _ = run(ref)
+        twins = [("reference backend, sharded",
+                  unshard(r_states[0]), unshard(r_states[-1]))]
+        if disp < cfg.max_courant:
+            sim = StableFluids2D(cfg)
+            single = [sim.step(state0, sources)]
+            for _ in range(steps - 1):
+                single.append(sim.step(single[-1]))
+            twins.append(("single-device step", single[0], single[-1]))
+        else:
+            print(f"{label}: displacement >= window: no single-device "
+                  f"comparison")
+        for what, t_first, t_last in twins:
+            d1, dn = max_diff(first, t_first), max_diff(last, t_last)
+            require_close(first, t_first, rtol, atol, f"{label} step 1 vs {what}")
+            print(f"{label}: max|d| vs {what}: step 1 {d1:.3e}, step {steps} "
+                  f"{dn:.3e}")
+            if not dn <= last_tol:
+                raise AssertionError(f"{label}: step {steps} vs {what}: "
+                                     f"max|d| {dn:.3e} > {last_tol}")
+        drive = Sources(*(None if s is None else 0.05 * s for s in sources))
+        s_drive, forced, single = shard_state(drive, mesh), start, state0
+        sim, f_disp = StableFluids2D(cfg), 0.0
+        for _ in range(steps):
+            forced, d = step_fn(forced, s_drive)
+            single = sim.step(single, drive)
+            f_disp = max(f_disp, float(d))
+        forced = unshard(forced)
+        require_finite(forced, f"{label} forced")
+        print(f"{label}: forced trajectory (sources x 0.05 every step): "
+              f"audited displacement {f_disp:.6f} cells")
+        if f_disp < cfg.max_courant:
+            df = max_diff(forced, single)
+            require_close(forced, single, rtol, atol,
+                          f"{label} forced step {steps} vs single-device step")
+            print(f"{label}: forced step {steps}: max|d| vs single-device "
+                  f"step {df:.3e}")
+        else:
+            print(f"{label}: forced displacement >= window: no single-device "
+                  f"comparison")
+    plain = make_sharded_step_fn(cfg, mesh)
+    state, ms = timed_steps(lambda s: plain(s, zeros), states[-1],
+                            max(steps - 1, 2))
+    require_finite(unshard(state), label)
+    graph_ms = checks.device_ms(lambda: plain(state, zeros), reps=graph_reps)
+    print(f"{label}: {ms:.4f} ms/step eager, "
+          f"{cfg.num_cells / (ms * 1e-3) / 1e6:.1f} Mcell-updates/s; "
+          f"{graph_ms:.4f} ms/step as a CUDA graph (device busy "
+          f"{100 * graph_ms / ms:.1f}% of the eager step, host share "
+          f"{100 * (1 - graph_ms / ms):.1f}%) ({card})")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -255,6 +406,13 @@ def main() -> None:
     compare(checks.kernel_checks3(256, "cuda", SEED), checks.TOL, errs)
     times.update(kernel_times(checks.timing_checks3(256, "cuda", SEED),
                               "256³", card))
+
+    phase("3c row-slab kernels against their plain twins (2048², m=256)")
+    compare(checks.kernel_checks_slab(2048, 256, "cuda", SEED), checks.TOL,
+            errs)
+    times.update(kernel_times(checks.timing_checks_slab(2048, 256, "cuda",
+                                                        SEED),
+                              "2048², slab of 256 rows", card))
 
     phase("4 golden fixtures through the cuda backend")
     paths = sorted(glob.glob(os.path.join(ROOT, "tests", "golden", "*.npz")))
@@ -317,7 +475,23 @@ def main() -> None:
     main_path(comp3.replace(fast_math=True), label + " fast_math", card, 21,
               tol=(0.0, 1e-4, 1e-4), forced_tol=1e-4)
 
-    main_launches = {k: launches[k] + launches3[k] for k in cuda_ops.KERNELS}
+    phase("10 multi-device step: row slabs on one card")
+    sharded_path(parity, 1, "2048² parity, 1×1 mesh", card, 6,
+                 tol=(1e-5, 2e-5, 1e-4))
+    launches_slab = sharded_path(parity, 8, "2048² parity, 8 slabs", card, 6,
+                                 tol=(1e-5, 2e-5, 1e-4))
+    rho, k_d, k_p = perf_operating_point(2048)
+    # As in phase 6: the reference backend ignores fast_math.
+    sharded_path(cheby.replace(fast_math=True), 8,
+                 f"2048² perf (rho={rho}, k_d={k_d}, k_p={k_p}) fast_math, "
+                 f"8 slabs", card, 6, tol=(0.0, 1e-4, 1e-4))
+    sharded_path(big, 4, "8192² parity 40 it, 4 slabs", card, 3, tol=None)
+    sharded_path(parity.replace(fuse_sweeps=8), 128,
+                 "2048² parity fuse_sweeps=8, 128 slabs", card, 3,
+                 tol=(1e-5, 2e-5, 1e-4), graph_reps=1)
+
+    main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
+                     for k in cuda_ops.KERNELS}
     kernels = [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],
@@ -326,7 +500,7 @@ def main() -> None:
         "bound_ms": times[name][2], "bound_by": times[name][3],
         # No single PyTorch call computes any of these functions (a sweep
         # with its border rule, a clamped semi-Lagrangian gather, a
-        # stencil with its ghost layer).
+        # stencil with its ghost layer or a slab's wall rows).
         "library_ms": None,
     } for name in cuda_ops.KERNELS]
     print()

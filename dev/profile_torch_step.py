@@ -4,6 +4,7 @@
 
     python3 dev/profile_torch_step.py --ndim 3 --n 254 --mode parity
     python3 dev/profile_torch_step.py --ndim 2 --n 2046 --mode compensated
+    python3 dev/profile_torch_step.py --ndim 2 --n 2046 --slabs 8
 
 Runs the impulse step (sources from ``reference_init``, seed 0) and two more
 steps on the ``cuda`` backend, then traces ``--steps`` steps of
@@ -12,10 +13,14 @@ compensated mode's Chebyshev point with fast math) and prints, per CUDA
 kernel, its launches and device ms per step, its share of the step, and
 its time per launch; then the step's wall time (host clock around the
 traced steps, ending in a synchronise) and the device's busy share (summed
-kernel time over wall time).  ``--forcing 0.05`` fires the sources, scaled,
-on every step, as the smoke script's forced trajectory does.  The card's
-name and power limit come with the numbers.  Exits non-zero without a card
-or when the trace holds no device time.
+kernel time over wall time).  ``--slabs P`` traces the 2-D multi-device
+step (``parallel.make_sharded_step_fn``) on P row slabs of the one card
+instead (``--fuse-sweeps 8`` for slabs of 16 rows); its halo copies show as
+PyTorch's own copy kernels.
+``--forcing 0.05`` fires the sources, scaled, on every step, as the smoke
+script's forced trajectory does.  The card's name and power limit come
+with the numbers.  Exits non-zero without a card or when the trace holds no
+device time.
 """
 from __future__ import annotations
 
@@ -39,30 +44,46 @@ def main() -> None:
                     default="parity")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--forcing", type=float, default=0.0)
+    ap.add_argument("--slabs", type=int, default=0)
+    ap.add_argument("--fuse-sweeps", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
+    if args.slabs and args.ndim != 2:
+        raise SystemExit("profile_torch_step: --slabs is the 2-D step")
     sys.path.insert(0, ROOT)
     from fluidsimulationcuda_torch import (SimConfig, Sources, StableFluids2D,
-                                           StableFluids3D, reference_init)
+                                           StableFluids3D, reference_init,
+                                           zero_sources)
     from fluidsimulationcuda_torch.core.config import perf_operating_point
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_state)
 
     cfg = SimConfig(n=args.n, ndim=args.ndim, jacobi_iters=20,
-                    backend="cuda", device="cuda")
+                    fuse_sweeps=args.fuse_sweeps, backend="cuda",
+                    device="cuda")
     if args.mode == "compensated":
         rho, k_d, k_p = perf_operating_point(args.n + 2, ndim=args.ndim)
         cfg = cfg.replace(pressure_solver="chebyshev",
                           diffusion_solver="chebyshev", cheby_rho=rho,
                           cheby_iters=k_d, cheby_press_iters=k_p,
                           fast_math=True)
-    sim = (StableFluids3D if args.ndim == 3 else StableFluids2D)(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state, sources = reference_init(gen, cfg)
     drive = (Sources(*(None if s is None else args.forcing * s
-                       for s in sources)) if args.forcing else None)
-    state = sim.step(state, sources)
+                       for s in sources)) if args.forcing
+             else zero_sources(cfg))
+    if args.slabs:
+        mesh = make_mesh([torch.device("cuda", 0)] * args.slabs)
+        step = make_sharded_step_fn(cfg, mesh)
+        state, sources, drive = (shard_state(x, mesh)
+                                 for x in (state, sources, drive))
+    else:
+        step = (StableFluids3D if args.ndim == 3 else StableFluids2D)(cfg).step
+    state = step(state, sources)
     for _ in range(2):
-        state = sim.step(state, drive)
+        state = step(state, drive)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -70,7 +91,7 @@ def main() -> None:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            state = sim.step(state, drive)
+            state = step(state, drive)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -90,7 +111,7 @@ def main() -> None:
         check=True, capture_output=True, text=True).stdout.strip()
     side = args.n + 2
     print(f"{side}^{args.ndim} {args.mode}, forcing {args.forcing}, "
-          f"{args.steps} traced steps ({card})")
+          f"{args.slabs or 'no'} slabs, {args.steps} traced steps ({card})")
     print(f"{'kernel':60s} {'launches/step':>13s} {'ms/step':>9s} "
           f"{'share':>6s} {'us/launch':>10s}")
     for name, (count, us) in sorted(per_kernel.items(),

@@ -2,7 +2,7 @@
 """Run the port's CUDA kernels on the CPU, behind a host shim, against their
 plain PyTorch versions.
 
-    python3 dev/rehearse_kernels_cpu.py [--side2 34] [--side3 24]
+    python3 dev/rehearse_kernels_cpu.py [--side2 34] [--side3 24] [--slab-side 64]
 
 A CUDA kernel has no interpret mode, and a machine without ``nvcc`` cannot
 build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
@@ -10,15 +10,21 @@ build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
 ``__device__``, ``dim3``, ``blockIdx``/``threadIdx``, and every launch
 ``k<<<grid, block, 0, stream>>>(args);`` becomes a loop over the grid (the
 kernels run one thread per cell, with no shared memory or barriers).  The
-wrappers of ``kernels/cuda_ops.py`` and ``kernels/cuda_ops_3d.py`` then run
-against that library on CPU tensors (their device checks, stream and loader
-patched), and:
+wrappers of ``kernels/cuda_ops.py``, ``kernels/cuda_ops_3d.py`` and
+``kernels/cuda_sharded.py`` then run against that library on CPU tensors
+(their device checks, stream and loader patched), and:
 
 - every check of ``kernels/checks.py`` (``kernel_checks`` at ``--side2``,
-  ``kernel_checks3`` at ``--side3``) compares kernel and plain version;
+  ``kernel_checks3`` at ``--side3``, ``kernel_checks_slab`` for slabs of
+  ``--slab-side``/4 rows at ``--slab-side``) compares kernel and plain
+  version;
 - one 2-D and one 3-D step per mode go through the ``cuda`` backend, their
   launch counts against ``chip_smoke.expected_launches(3)``, their state
-  against the ``reference`` backend.
+  against the ``reference`` backend;
+- one multi-device step per mode and route goes through the ``cuda``
+  backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``), its
+  launch counts against ``chip_smoke.expected_launches_sharded``, its state
+  against the ``reference`` backend of the same sharded step.
 
 It prints max|d| per check and exits non-zero on a difference above
 ``checks.TOL`` or a wrong launch count.  The build goes to
@@ -115,29 +121,30 @@ def kernels_on_cpu(lib_path: Path):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    check = cuda_ops._on_card
+    check = cuda_ops._on_device
 
-    def on_card(side, *tensors, ndim=2):
-        check(side, *tensors, ndim=ndim)
+    def on_device(*specs):
+        check(*specs)
         return True
 
-    saved = (build.load, cuda_ops._on_card, cuda_ops_3d._on_card,
-             cuda_ops._stream, cuda_ops_3d._stream, torch.cuda.device)
+    saved = (build.load, cuda_ops._on_device, cuda_ops._stream,
+             cuda_ops_3d._stream, torch.cuda.device)
     build.load = lambda: lib
-    cuda_ops._on_card = cuda_ops_3d._on_card = on_card
+    cuda_ops._on_device = on_device
     cuda_ops._stream = cuda_ops_3d._stream = lambda t: 0
     torch.cuda.device = lambda d: contextlib.nullcontext()
     try:
         yield
     finally:
-        (build.load, cuda_ops._on_card, cuda_ops_3d._on_card,
-         cuda_ops._stream, cuda_ops_3d._stream, torch.cuda.device) = saved
+        (build.load, cuda_ops._on_device, cuda_ops._stream,
+         cuda_ops_3d._stream, torch.cuda.device) = saved
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--side2", type=int, default=34)
     ap.add_argument("--side3", type=int, default=24)
+    ap.add_argument("--slab-side", type=int, default=64)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     os.chdir(ROOT)
@@ -148,7 +155,9 @@ def main() -> int:
     lib = build_shim_library()
     failures = 0
     check_list = (checks.kernel_checks(args.side2, "cpu", 1)
-                  + checks.kernel_checks3(args.side3, "cpu", 1))
+                  + checks.kernel_checks3(args.side3, "cpu", 1)
+                  + checks.kernel_checks_slab(args.slab_side,
+                                              args.slab_side // 4, "cpu", 1))
     for c in check_list:
         with kernels_on_cpu(lib):
             cuda_ops.reset_launch_counts()
@@ -197,8 +206,62 @@ def main() -> int:
                   f"{err:.3e}, launches "
                   f"{'as designed' if launches_ok else counts}"
                   f"{'  FAIL' if bad else ''}")
+    failures += rehearse_sharded(lib, args.slab_side)
     print(f"{failures} failure(s)")
     return 1 if failures else 0
+
+
+def rehearse_sharded(lib, side: int) -> int:
+    """One multi-device step per mode and route through the ``cuda``
+    backend on a virtual CPU mesh against the ``reference`` backend of the
+    same step; returns the number of failures."""
+    import chip_smoke
+    import fluidsimulationcuda_torch as ft
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_state, unshard)
+
+    base = dict(n=side - 2, jacobi_iters=6, max_courant=2)
+    modes = {
+        "parity": dict(),
+        "compensated": dict(pressure_solver="chebyshev",
+                            diffusion_solver="chebyshev", cheby_rho=0.9,
+                            cheby_iters=6, cheby_press_iters=6,
+                            fast_math=True),
+        "chebyshev-dens": dict(diffusion_solver="chebyshev-dens",
+                               cheby_rho=0.9, cheby_dens_iters=6),
+        "multi-chunk": dict(jacobi_iters=9, fuse_sweeps=4),
+    }
+    failures = 0
+    for mode, slabs in (("parity", 4), ("parity", 8), ("compensated", 4),
+                        ("chebyshev-dens", 4), ("multi-chunk", 4)):
+        ref = ft.SimConfig(backend="reference", device="cpu",
+                           **{**base, **modes[mode]})
+        cfg = ref.replace()
+        # The cuda backend on CPU tensors, which only the shim allows.
+        object.__setattr__(cfg, "backend", "cuda")
+        mesh = make_mesh([torch.device("cpu")] * slabs)
+        state, src = ft.reference_init(torch.Generator().manual_seed(0), ref)
+        state, src = shard_state(state, mesh), shard_state(src, mesh)
+        step = make_sharded_step_fn(cfg, mesh)
+        with kernels_on_cpu(lib):
+            cuda_ops.reset_launch_counts()
+            got = unshard(step(state, src))
+            counts = cuda_ops.launch_counts()
+        want = unshard(make_sharded_step_fn(ref, mesh)(state, src))
+        per_step = chip_smoke.expected_launches_sharded(cfg, slabs)
+        launches_ok = counts == {k: per_step.get(k, 0)
+                                 for k in cuda_ops.KERNELS}
+        err = chip_smoke.max_diff(got, want)
+        tol = 1e-4 if cfg.fast_math else 0.0
+        bad = err > tol or not launches_ok
+        failures += bad
+        print(f"  sharded {mode:15s} {slabs} slabs {step.routes} max|d| vs "
+              f"reference {err:.3e}, launches "
+              f"{'as designed' if launches_ok else counts}"
+              f"{'  FAIL' if bad else ''}")
+    return failures
 
 
 if __name__ == "__main__":

@@ -1,0 +1,70 @@
+// K12 advect_slab: the windowed semi-Lagrangian gather of one or two fields
+// on a row slab, from halo-extended copies of the fields.
+//
+// Replaces the TPU kernel _advect_slab_kernel
+// (fluidsimulationcuda_tpu/kernels/pallas_sharded.py:1055, pallas_call at
+// :1246; wrapper advect_slab :1206), and is the gather of the slab density
+// step _dens_slab_kernel (:815, pallas_call at :1010), which reads the
+// diffused field straight from K9's swept buffer.  The TPU kernels gather
+// by (2*cmax+1)^2 masked shifts over a VMEM window; here each thread reads
+// its four points directly, at global row row0 + r.
+//
+// The departure point is clamped to [0.5, n+0.5] and then to
+// [g - cmax, g + cmax] around the cell's own global coordinate
+// (fsc_common.cuh: window_backtrace), so the gather equals the exact one
+// (K3) while the displacement stays at or below cmax and is clamped, not
+// refused, above it.  The four reads then lie within cmax+1 rows of the
+// cell's own row: inside a halo of `halo` >= cmax+1 rows, which the wrapper
+// checks.  A ghost column or wall ghost row takes its value from its
+// interior neighbour's gather (fsc_common.cuh).
+//
+// Bound: device memory, as K3: u, v and four gather points per field (L1/L2
+// hits for a smooth flow) and one write per field.
+#include "fsc_common.cuh"
+
+namespace {
+
+__global__ void advect_slab_kernel(const float* __restrict__ d1,
+                                   const float* __restrict__ d2,
+                                   const float* __restrict__ u,
+                                   const float* __restrict__ v,
+                                   float* __restrict__ o1,
+                                   float* __restrict__ o2, int m, int side,
+                                   int halo, int b1, int b2, float dt0,
+                                   int row0, int cmax, int gtop, int gbot) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= m || j >= side) return;
+  const int n = side - 2;
+  const int ri = fsc::slab_row_of(r, gtop, gbot);
+  const int cj = fsc::clampi(j, 1, n);
+  const int c = ri * side + cj;
+  const fsc::Departure d =
+      fsc::window_backtrace(u[c], v[c], row0 + ri, cj, n, dt0, cmax);
+  const int g = (d.i0 - row0 + halo) * side + d.j0;
+  const float a = fsc::blend(d, d1[g], d1[g + side], d1[g + 1],
+                             d1[g + side + 1]);
+  o1[r * side + j] = fsc::slab_border_value(a, r, j, side, gtop, gbot, b1);
+  if (d2 != nullptr) {
+    const float e = fsc::blend(d, d2[g], d2[g + side], d2[g + 1],
+                               d2[g + side + 1]);
+    o2[r * side + j] = fsc::slab_border_value(e, r, j, side, gtop, gbot, b2);
+  }
+}
+
+}  // namespace
+
+// d1, d2: (m + 2*halo, side) extended fields, slab row r at buffer row
+// halo + r; u, v, o1, o2: (m, side).  d2/o2 null gathers one field.
+// dt0 = dt*n in float32.  Returns cudaGetLastError() after the launch.
+extern "C" int fsc_advect_slab(const float* d1, const float* d2,
+                               const float* u, const float* v, float* o1,
+                               float* o2, int m, int side, int halo, int b1,
+                               int b2, float dt0, int row0, int cmax,
+                               int gtop, int gbot, void* stream) {
+  advect_slab_kernel<<<fsc::slab_grid_dim(side, m), fsc::block_dim(), 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      d1, d2, u, v, o1, o2, m, side, halo, b1, b2, dt0, row0, cmax, gtop,
+      gbot);
+  return static_cast<int>(cudaGetLastError());
+}

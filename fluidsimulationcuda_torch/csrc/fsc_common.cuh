@@ -46,17 +46,66 @@ __device__ __forceinline__ int interior_of(int i, int j, int side) {
   return clampi(i, 1, n) * side + clampi(j, 1, n);
 }
 
-// The value of padded cell (i, j) given the value v of its interior cell.
-__device__ __forceinline__ float border_value(float v, int i, int j, int side,
-                                              int b) {
-  const bool gx = (j == 0) || (j == side - 1);
-  const bool gy = (i == 0) || (i == side - 1);
+// The mode-b rule at a cell that is a ghost column (gx), a ghost row (gy),
+// both (a corner) or neither, given the value v of its interior cell.
+__device__ __forceinline__ float border_rule(float v, bool gx, bool gy,
+                                             int b) {
   const float sx = (b == 1) ? -1.0f : 1.0f;
   const float sy = (b == 2) ? -1.0f : 1.0f;
   if (gx && gy) return 0.5f * (sy * v + sx * v);
   if (gx) return sx * v;
   if (gy) return sy * v;
   return v;
+}
+
+// The value of padded cell (i, j) given the value v of its interior cell.
+__device__ __forceinline__ float border_value(float v, int i, int j, int side,
+                                              int b) {
+  const bool gx = (j == 0) || (j == side - 1);
+  const bool gy = (i == 0) || (i == side - 1);
+  return border_rule(v, gx, gy, b);
+}
+
+// ---------------------------------------------------------------------------
+// Row slabs (the multi-device step, parallel/sharded.py)
+// ---------------------------------------------------------------------------
+//
+// A slab kernel runs on a (rows, side) buffer that holds a band of
+// full-width rows of the global grid, row r at r*side.  Ghost columns belong
+// to every slab.  A global wall ghost row lies only in the buffer of the top
+// slab (buffer row gtop) or of the bottom slab (gbot); -1 marks its absence.
+// Each slab kernel takes them from the host, with the slab's first global
+// row, as launch scalars: the TPU kernels read them from an SMEM vector
+// (is_top, is_bot, row0).  A thread on a wall ghost row evaluates the row
+// next to it, as the 2-D kernels' ghost threads do, so the edge rule and
+// the corner average follow in the same launch.
+
+// The buffer row whose value buffer row r takes.
+__device__ __forceinline__ int slab_row_of(int r, int gtop, int gbot) {
+  return r == gtop ? r + 1 : (r == gbot ? r - 1 : r);
+}
+
+// The value of buffer cell (r, j) given the value v of its interior cell.
+__device__ __forceinline__ float slab_border_value(float v, int r, int j,
+                                                   int side, int gtop,
+                                                   int gbot, int b) {
+  const bool gx = (j == 0) || (j == side - 1);
+  const bool gy = (r == gtop) || (r == gbot);
+  return border_rule(v, gx, gy, b);
+}
+
+// Row r of a (rows, side) slab field whose row above row 0 is the halo row
+// top and whose row below row rows-1 is the halo row bot.
+__device__ __forceinline__ const float* slab_row(const float* f,
+                                                 const float* top,
+                                                 const float* bot, int r,
+                                                 int rows, int side) {
+  return r < 0 ? top : (r >= rows ? bot : f + r * side);
+}
+
+// 2-D launches over rows [lo, hi) of a slab buffer.
+inline dim3 slab_grid_dim(int side, int rows) {
+  return dim3((side + kBlockX - 1) / kBlockX, (rows + kBlockY - 1) / kBlockY);
 }
 
 // Flat index of the interior cell that padded volume cell (k, i, j) derives
@@ -215,6 +264,35 @@ __device__ __forceinline__ Departure backtrace(const float* u, const float* v,
 __device__ __forceinline__ float blend(const Departure& d, float g00,
                                        float g10, float g01, float g11) {
   return d.s0 * (d.t0 * g00 + d.t1 * g10) + d.s1 * (d.t0 * g01 + d.t1 * g11);
+}
+
+// Departure point of the cell at global (row gr, column gc) with velocity
+// (uc, vc) under the window clamp of the multi-device gather
+// (pallas_sharded.py:1089-1096): (gc, gr) - dt0*(u, v), clamped to
+// [0.5, n+0.5], then to [g - cmax, g + cmax] around the cell's own
+// coordinate, in that order, truncated.  i0 is a global row.
+__device__ __forceinline__ Departure window_backtrace(float uc, float vc,
+                                                      int gr, int gc, int n,
+                                                      float dt0, int cmax) {
+  const float lo = 0.5f;
+  const float hi = static_cast<float>(n) + 0.5f;
+  const float fr = static_cast<float>(gr);
+  const float fc = static_cast<float>(gc);
+  const float c = static_cast<float>(cmax);
+  float x = fc - dt0 * uc;
+  float y = fr - dt0 * vc;
+  x = fminf(fmaxf(x, lo), hi);
+  y = fminf(fmaxf(y, lo), hi);
+  x = fminf(fmaxf(x, fc - c), fc + c);
+  y = fminf(fmaxf(y, fr - c), fr + c);
+  Departure d;
+  d.j0 = static_cast<int>(x);
+  d.i0 = static_cast<int>(y);
+  d.s1 = x - static_cast<float>(d.j0);
+  d.s0 = 1.0f - d.s1;
+  d.t1 = y - static_cast<float>(d.i0);
+  d.t0 = 1.0f - d.t1;
+  return d;
 }
 
 // 3-D departure of interior cell (ck, ci, cj): (cj, ci, ck) - dt0*(u, v, w)

@@ -46,6 +46,13 @@ _SIGNATURES = {
     "fsc_gradient3": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P],
     "fsc_advect3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                     _P],
+    "fsc_jacobi_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                        _F, _I, _I, _I, _I, _I, _P],
+    "fsc_divergence_slab": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "fsc_gradient_slab": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _P],
+    "fsc_advect_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                        _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
 """Kernel-against-plain comparisons and device timing on the card.
 
 Shared by ``chip_smoke.py`` and the GPU tests: each ``Check`` calls one
-``cuda_ops`` or ``cuda_ops_3d`` wrapper on CUDA tensors and its plain
-version on the same tensors, at the coefficients the 2-D or 3-D step gives
-it.  Inputs come from ``np.random.default_rng(seed)``: fields in [-1, 1],
-velocities scaled so the backtrace moves at most two cells.
+``cuda_ops``, ``cuda_ops_3d`` or ``cuda_sharded`` wrapper on CUDA tensors
+and its plain version on the same tensors, at the coefficients the 2-D,
+3-D or multi-device step gives it.  Inputs come from
+``np.random.default_rng(seed)``: fields in [-1, 1], velocities scaled so
+the backtrace moves at most two cells (six for the slab gathers that test
+the window clamp).
 
 A timed check also carries its cost: the field-sized arrays its launches
 must move (each launch reading each input once and writing each output
@@ -22,10 +24,12 @@ import torch
 from ..core.config import PERF_POINT_3D, PERF_POINTS_2D
 from . import cuda_ops as co
 from . import cuda_ops_3d as co3
+from . import cuda_sharded as cs
 
 __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks", "timing_checks", "kernel_checks3",
-           "timing_checks3", "max_abs_diff", "device_ms"]
+           "timing_checks3", "kernel_checks_slab", "timing_checks_slab",
+           "max_abs_diff", "device_ms"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -77,21 +81,41 @@ def _add(*costs: tuple[int, int]) -> tuple[int, int]:
     return sum(c[0] for c in costs), sum(c[1] for c in costs)
 
 
-def _sweeps_cost(iters: int, ndim: int, *, zero_init=False, src=False,
-                 fast=False, cheby=False) -> tuple[int, int]:
-    """Cost of the sweep launches of one solve, as ``cuda_ops._Sweeps``
-    runs them: each reads its x (none for the zero guess), x_{k-1} (the
-    Chebyshev combine) and rhs, writes its output, and the first also
-    writes the rhs it builds (the folded source is the guess x itself)."""
-    fields = ops = 0
+def _sweep_costs(iters: int, ndim: int, *, zero_init=False, src=False,
+                 fast=False, cheby=False):
+    """(field passes, float ops per cell) of each sweep launch of one
+    solve, as ``cuda_ops._Sweeps`` runs them: each reads its x (none for
+    the zero guess), x_{k-1} (the Chebyshev combine) and rhs, writes its
+    output, and the first also writes the rhs it builds (the folded source
+    is the guess x itself)."""
     has_x, has_xm, prep = not zero_init, False, src or fast
     for k in range(iters):
         combine = cheby and k >= 1
-        fields += has_x + (combine and has_xm) + 1 + 1 + prep
         # neighbour sum, alpha*sum + rhs, /beta; fold; combine
-        ops += (2 * ndim + 2) + (2 * src + fast if prep else 0) + 4 * combine
+        yield (has_x + (combine and has_xm) + 1 + 1 + prep,
+               (2 * ndim + 2) + (2 * src + fast if prep else 0) + 4 * combine)
         has_xm, has_x, prep = has_x, True, False
+
+
+def _sweeps_cost(iters: int, ndim: int, **kw) -> tuple[int, int]:
+    """Cost of the sweep launches of one solve over a whole grid."""
+    costs = list(_sweep_costs(iters, ndim, **kw))
+    return sum(c[0] for c in costs), sum(c[1] for c in costs)
+
+
+def _slab_sweeps_cost(iters: int, rows: int, side: int,
+                      **kw) -> tuple[int, int]:
+    """Cost of the K9 launches of one slab solve, in field-cells (use with
+    ``cells=1``): sweep k computes rows [k, rows-k) of the buffer."""
+    fields = ops = 0
+    for k, (f, o) in enumerate(_sweep_costs(iters, 2, **kw), start=1):
+        cells = (rows - 2 * k) * side
+        fields, ops = fields + f * cells, ops + o * cells
     return fields, ops
+
+
+def _scaled(cost: tuple[int, int], cells: int) -> tuple[int, int]:
+    return cost[0] * cells, cost[1] * cells
 
 
 # (field passes, float ops per cell) of one launch of the other kernels.
@@ -322,6 +346,191 @@ def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
                f"pressure3 {k_p}it chebyshev+fast", JAC3, co3.fused_jacobi3,
                co3.fused_jacobi3_plain, 0, t.p, t.p, 1.0, 6.0, k_p,
                zero_init=True, fast=True, cheby_rho=rho),
+    ]
+
+
+JAC_SLAB = ("jacobi_slab",)
+PROJ_SLAB = ("divergence_slab", "jacobi_slab", "gradient_slab")
+DENS_SLAB = ("jacobi_slab", "advect_slab")
+SLAB_CMAX = 4  # SimConfig.max_courant's default: the main path's window
+
+
+def _ceil8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+class _SlabInputs(_Inputs):
+    """Random global fields at grid ``side`` cut into slabs of ``m`` rows,
+    with velocities that move the backtrace up to 2 cells (``u``, ``v``)
+    and up to 6 (``uf``, ``vf``: over the 4-cell window)."""
+
+    def __init__(self, side: int, m: int, device, seed: int):
+        super().__init__(side, device, seed)
+        rng = np.random.default_rng(seed + 1)
+        vfast = 6.0 / (DT * self.n)
+        self.uf, self.vf = (torch.from_numpy(
+            rng.uniform(-vfast, vfast, (side, side)).astype(np.float32)
+        ).to(device) for _ in range(2))
+        self.side, self.m, self.slabs = side, m, side // m
+
+    def positions(self) -> dict[str, int]:
+        return {"top": 0, "interior": self.slabs // 2,
+                "bottom": self.slabs - 1}
+
+    def flags(self, i: int) -> tuple[int, int, int]:
+        return (int(i == 0), int(i == self.slabs - 1), i * self.m)
+
+    def slab(self, g: torch.Tensor, i: int) -> torch.Tensor:
+        return g[i * self.m:(i + 1) * self.m]
+
+    def ext(self, g: torch.Tensor, i: int, K: int) -> torch.Tensor:
+        """Rows [i*m - K, (i+1)*m + K) of g, zeros outside the grid."""
+        out = g.new_zeros((self.m + 2 * K, self.side))
+        lo, hi = i * self.m - K, (i + 1) * self.m + K
+        a, b = max(lo, 0), min(hi, self.side)
+        out[a - lo:b - lo] = g[a:b]
+        return out
+
+    def halo(self, g: torch.Tensor, i: int, k: int = 8):
+        """JAX's (8, side) neighbour blocks above and below slab i."""
+        e = self.ext(g, i, k)
+        return e[:k], e[-k:]
+
+
+def kernel_checks_slab(side: int, m: int, device, seed: int = 0) -> list[Check]:
+    """Every slab wrapper of the multi-device step in every mode it uses,
+    for a top, an interior and a bottom slab of ``m`` rows at grid
+    ``side``, with the margins the step gives them: parity (20 sweeps),
+    the compensated point (rho, k_d, k_p) = (0.9, 10, 14), fast math, and
+    gathers under and over the 4-cell window."""
+    t = _SlabInputs(side, m, device, seed)
+    n, av, ad = t.n, t.a_visc, t.a_diff
+    iters, (rho, k_d, k_p) = 20, PERF_POINTS_2D[2048]
+    cmax, out = SLAB_CMAX, []
+    for pos, i in t.positions().items():
+        fl, ext, slab = t.flags(i), t.ext, t.slab
+        jac = {
+            "jacobi": (iters, dict()),
+            "zero_init": (iters, dict(zero_init=True)),
+            "fast": (iters, dict(fast=True)),
+            "chebyshev": (k_d, dict(cheby_rho=rho)),
+            "chebyshev+fast": (k_d, dict(cheby_rho=rho, fast=True)),
+            "chebyshev pressure": (k_p, dict(zero_init=True, cheby_rho=rho)),
+        }
+        for mode, (k, kw) in jac.items():
+            K = _ceil8(k + 1)
+            out.append(_check(
+                f"fused_jacobi_slab {pos} {mode} {k}it", JAC_SLAB,
+                cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
+                ext(t.x, i, K), ext(t.x0, i, K), fl, m=m, K=K, alpha=av,
+                beta=1 + 4 * av, sweeps=k, **kw))
+        for k, r in ((iters, None), (k_p, rho)):
+            K = _ceil8(k + 3)
+            out.append(_check(
+                f"fused_project_slab {pos} {k}it"
+                + (" chebyshev" if r else ""), PROJ_SLAB,
+                cs.fused_project_slab, cs.fused_project_slab_plain,
+                ext(t.u, i, K), ext(t.v, i, K), fl, n=n, iters=k, m=m, K=K,
+                cheby_rho=r))
+        K = _ceil8(iters + 1 + cmax)
+        for fast in (False, True):
+            out.append(_check(
+                f"fused_dens_slab {pos} {iters}it" + (" fast" if fast else ""),
+                DENS_SLAB, cs.fused_dens_slab, cs.fused_dens_slab_plain, 0,
+                ext(t.src, i, K), ext(t.x0, i, K), slab(t.u, i),
+                slab(t.v, i), fl, alpha=ad, beta=1 + 4 * ad, iters=iters,
+                dt=DT, n=n, cmax=cmax, m=m, K=K, fast=fast))
+        C = cmax + 1
+        for window, (u, v) in (("under", (t.u, t.v)), ("over", (t.uf, t.vf))):
+            out.append(_check(
+                f"advect_slab {pos} b=0, {window} the window", ("advect_slab",),
+                cs.advect_slab, cs.advect_slab_plain, (0,),
+                (ext(t.x, i, C),), slab(u, i), slab(v, i), fl, dt=DT, n=n,
+                cmax=cmax, m=m, self_adv=False))
+            out.append(_check(
+                f"advect_slab {pos} u/v pair, {window} the window",
+                ("advect_slab",), cs.advect_slab, cs.advect_slab_plain,
+                (1, 2), (ext(u, i, C), ext(v, i, C)), None, None, fl, dt=DT,
+                n=n, cmax=cmax, m=m, self_adv=True))
+        out.append(_check(f"divergence_slab {pos}", ("divergence_slab",),
+                          cs.divergence_slab, cs.divergence_slab_plain,
+                          slab(t.u, i), slab(t.v, i), *t.halo(t.v, i), fl, n))
+        out.append(_check(f"gradient_slab {pos}", ("gradient_slab",),
+                          cs.gradient_slab, cs.gradient_slab_plain,
+                          slab(t.u, i), slab(t.v, i), slab(t.p, i),
+                          *t.halo(t.p, i), fl, n))
+    return out
+
+
+def timing_checks_slab(side: int, m: int, device,
+                       seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times for the slab kernels, on an interior
+    slab of ``m`` rows at grid ``side`` with the margins the step gives:
+    first one launch of each CUDA kernel (labelled by the kernel's name)
+    beside its plain twin, then each wrapper at the main path's iteration
+    counts.  Costs are counted over the rows each launch computes."""
+    t = _SlabInputs(side, m, device, seed)
+    n, av, ad = t.n, t.a_visc, t.a_diff
+    bv, bd = 1 + 4 * av, 1 + 4 * ad
+    rho, k_d, k_p = PERF_POINTS_2D[2048]
+    i = t.slabs // 2
+    fl, ext, slab, cmax = t.flags(i), t.ext, t.slab, SLAB_CMAX
+    cells = m * side
+
+    def sweeps(k, K, **kw):
+        return _slab_sweeps_cost(k, m + 2 * K, side, **kw)
+
+    def project(k, K, **kw):
+        return _add(_scaled(DIV2, (m + 2 * K - 2) * side),
+                    sweeps(k, K, zero_init=True, **kw),
+                    _scaled(GRAD2, cells))
+
+    K20, Kc, Kp, Kd = (_ceil8(21), _ceil8(k_d + 1), _ceil8(20 + 3),
+                       _ceil8(20 + 1 + cmax))
+    Kpc, C = _ceil8(k_p + 3), cmax + 1
+    return [
+        _timed(sweeps(1, K20), 1, "jacobi_slab", JAC_SLAB,
+               cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
+               ext(t.x, i, K20), ext(t.x0, i, K20), fl, m=m, K=K20,
+               alpha=av, beta=bv, sweeps=1),
+        _timed(_scaled(DIV2, cells), 1, "divergence_slab",
+               ("divergence_slab",), cs.divergence_slab,
+               cs.divergence_slab_plain, slab(t.u, i), slab(t.v, i),
+               *t.halo(t.v, i), fl, n),
+        _timed(_scaled(GRAD2, cells), 1, "gradient_slab", ("gradient_slab",),
+               cs.gradient_slab, cs.gradient_slab_plain, slab(t.u, i),
+               slab(t.v, i), slab(t.p, i), *t.halo(t.p, i), fl, n),
+        _timed(_scaled(ADVECT2_PAIR, cells), 1, "advect_slab",
+               ("advect_slab",), cs.advect_slab, cs.advect_slab_plain, (1, 2),
+               (ext(t.u, i, C), ext(t.v, i, C)), None, None, fl, dt=DT, n=n,
+               cmax=cmax, m=m, self_adv=True),
+        _timed(_scaled(ADVECT2_ONE, cells), 1, "advect_slab one field",
+               ("advect_slab",), cs.advect_slab, cs.advect_slab_plain, (0,),
+               (ext(t.x, i, C),), slab(t.u, i), slab(t.v, i), fl, dt=DT,
+               n=n, cmax=cmax, m=m, self_adv=False),
+        _timed(sweeps(20, K20), 1, "fused_jacobi_slab 20it (u diffusion)",
+               JAC_SLAB, cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
+               ext(t.src, i, K20), ext(t.x0, i, K20), fl, m=m, K=K20,
+               alpha=av, beta=bv, sweeps=20),
+        _timed(sweeps(k_d, Kc, fast=True, cheby=True), 1,
+               f"fused_jacobi_slab {k_d}it chebyshev+fast", JAC_SLAB,
+               cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
+               ext(t.src, i, Kc), ext(t.x0, i, Kc), fl, m=m, K=Kc, alpha=av,
+               beta=bv, sweeps=k_d, fast=True, cheby_rho=rho),
+        _timed(project(20, Kp), 1, "fused_project_slab 20it", PROJ_SLAB,
+               cs.fused_project_slab, cs.fused_project_slab_plain,
+               ext(t.u, i, Kp), ext(t.v, i, Kp), fl, n=n, iters=20, m=m,
+               K=Kp),
+        _timed(project(k_p, Kpc, cheby=True), 1,
+               f"fused_project_slab {k_p}it chebyshev", PROJ_SLAB,
+               cs.fused_project_slab, cs.fused_project_slab_plain,
+               ext(t.u, i, Kpc), ext(t.v, i, Kpc), fl, n=n, iters=k_p, m=m,
+               K=Kpc, cheby_rho=rho),
+        _timed(_add(sweeps(20, Kd, src=True), _scaled(ADVECT2_ONE, cells)),
+               1, "fused_dens_slab 20it", DENS_SLAB, cs.fused_dens_slab,
+               cs.fused_dens_slab_plain, 0, ext(t.src, i, Kd),
+               ext(t.x0, i, Kd), slab(t.u, i), slab(t.v, i), fl, alpha=ad,
+               beta=bd, iters=20, dt=DT, n=n, cmax=cmax, m=m, K=Kd),
     ]
 
 

@@ -22,11 +22,12 @@ step:
 - ``dens_advect`` (K4, ``csrc/dens_advect.cu``): the last sweep and the
   gather of ``fused_dens_advect`` (``:1480``).
 
-The 3-D kernels (K5-K8) have their wrappers in ``cuda_ops_3d.py`` and
-share this module's checks, launch helper and counts.  ``launch_counts()``
-reports how often each kernel of either module was launched since
-``reset_launch_counts()``: every successful launch adds one, nothing else
-does, so a run can show that it went through the kernels.
+The 3-D kernels (K5-K8) have their wrappers in ``cuda_ops_3d.py``, the
+row-slab kernels of the multi-device step (K9-K12) theirs in
+``cuda_sharded.py``; both share this module's checks, launch helper and
+counts.  ``launch_counts()`` reports how often each kernel was launched
+since ``reset_launch_counts()``: every successful launch adds one, nothing
+else does, so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ __all__ = [
 ]
 
 KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
-           "jacobi3_sweep", "divergence3", "gradient3", "advect3")
+           "jacobi3_sweep", "divergence3", "gradient3", "advect3",
+           "jacobi_slab", "divergence_slab", "gradient_slab", "advect_slab")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -80,16 +82,22 @@ def _on_card(side: int, *tensors: torch.Tensor, ndim: int = 2) -> bool:
     ``side**ndim`` must stay below 2**31."""
     if side < 3 or side**ndim >= 2**31:
         raise ValueError(f"unsupported grid side {side} for {ndim}-D")
-    shape = (side,) * ndim
-    for t in tensors:
+    return _on_device(*((t, (side,) * ndim) for t in tensors))
+
+
+def _on_device(*specs: tuple[torch.Tensor, tuple[int, ...]]) -> bool:
+    """Check that each tensor is a contiguous float32 array of its shape,
+    all on one device; True for CUDA, False for the CPU, and raise
+    otherwise."""
+    for t, shape in specs:
         if t.dtype != torch.float32:
             raise TypeError(f"expected float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"expected shape {shape}, got "
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"expected shape {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("expected a contiguous tensor")
-    devices = {t.device for t in tensors}
+    devices = {t.device for t, _ in specs}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     device = devices.pop()
@@ -170,13 +178,15 @@ class _Sweeps:
         self._pool.append(t)
         return t
 
-    def sweep(self, lib) -> None:
+    def sweep(self, lib, *geometry: int) -> None:
+        """One launch; ``geometry`` goes between the sweep scalars and the
+        stream (the slab kernel's row range and wall rows)."""
         out = self._scratch()
         rhs_out = torch.empty_like(self.rhs) if self.prep else None
         x, rhs, src, xm, *scalars = self.next_args()
         _launch(self.kernel, getattr(lib, f"fsc_{self.kernel}"), x, rhs, src,
                 xm, out.data_ptr(), _ptr(rhs_out), self.side, self.b,
-                *scalars, self.stream)
+                *scalars, *geometry, self.stream)
         if self.prep:
             self.rhs, self.prep = rhs_out, False
         if self.omegas is not None:

@@ -5,6 +5,10 @@
 - ``auto``: decided by ``SimConfig.resolved_backend`` from the config's
   device alone.
 
+``get_ops`` returns the single-device step's ``OpSet``, ``get_slab_ops``
+the multi-device step's ``SlabOpSet`` (``kernels/cuda_sharded.py``: the
+slab kernels or their plain twins).
+
 The backend is chosen once, explicitly, from the config: callers never
 infer it from which OpSet fields are set, and no path catches an error to
 fall back to another backend.
@@ -25,7 +29,8 @@ from ..ops.project import (
 )
 from ..ops.source import add_source
 
-__all__ = ["OpSet", "get_ops", "require_exact_advection"]
+__all__ = ["OpSet", "SlabOpSet", "get_ops", "get_slab_ops",
+           "require_exact_advection"]
 
 
 class OpSet(NamedTuple):
@@ -102,4 +107,40 @@ def get_ops(cfg: SimConfig) -> OpSet:
         from . import cuda_ops
 
         return cuda_ops.make_opset(cfg)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+class SlabOpSet(NamedTuple):
+    """The per-slab operations of the multi-device step
+    (``parallel/sharded.py``), with the JAX slab functions' signatures
+    (``kernels/cuda_sharded.py``), and whether this backend honours
+    ``fast_math`` (the ``reference`` backend ignores it, as the JAX
+    package's does)."""
+
+    jacobi: Callable
+    project: Callable
+    dens: Callable
+    advect: Callable
+    divergence: Callable
+    gradient: Callable
+    fast: bool
+
+
+def get_slab_ops(cfg: SimConfig) -> SlabOpSet:
+    """The slab kernels (``cuda``) or their plain twins (``reference``),
+    chosen once from ``cfg.resolved_backend``."""
+    from . import cuda_sharded as cs
+
+    backend = cfg.resolved_backend
+    if backend == "reference":
+        return SlabOpSet(cs.fused_jacobi_slab_plain,
+                         cs.fused_project_slab_plain,
+                         cs.fused_dens_slab_plain, cs.advect_slab_plain,
+                         cs.divergence_slab_plain, cs.gradient_slab_plain,
+                         fast=False)
+    if backend == "cuda":
+        return SlabOpSet(cs.fused_jacobi_slab, cs.fused_project_slab,
+                         cs.fused_dens_slab, cs.advect_slab,
+                         cs.divergence_slab, cs.gradient_slab,
+                         fast=cfg.fast_math)
     raise ValueError(f"unknown backend {backend!r}")

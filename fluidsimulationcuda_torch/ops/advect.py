@@ -1,12 +1,14 @@
-"""Semi-Lagrangian advection (plain torch; twin of the exact path of
+"""Semi-Lagrangian advection (plain torch; twin of
 ``fluidsimulationcuda_tpu.ops.advect``).
 
 Backtrace plus bilinear gather, matching ``advect`` in
 ``FluidSequential.c:107-141``: departure point ``(x, y) = (j, i) -
 dt*n*(u, v)``, clamped to ``[0.5, n+0.5]`` (``:117-127``), truncated to the
 lower cell (the clamp makes trunc == floor), bilinearly interpolated from
-``d0`` (``:136-137``).  Exact for any displacement; the clamp keeps every
-read inside the padded grid.
+``d0`` (``:136-137``).  ``advect`` is exact for any displacement; the clamp
+keeps every read inside the padded grid.  ``advect_windowed`` also clamps
+the departure point to ``cmax`` cells around its cell, the semantics of
+every gather of the multi-device step.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from .boundary import embed_interior
 
-__all__ = ["advect", "backtrace"]
+__all__ = ["advect", "advect_windowed", "backtrace"]
 
 
 def backtrace(u: torch.Tensor, v: torch.Tensor, dt: float, n: int):
@@ -31,7 +33,31 @@ def backtrace(u: torch.Tensor, v: torch.Tensor, dt: float, n: int):
 
 def advect(b: int, d0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
            dt: float, n: int) -> torch.Tensor:
+    return _gather(b, d0, *backtrace(u, v, dt, n), n)
+
+
+def advect_windowed(b: int, d0: torch.Tensor, u: torch.Tensor,
+                    v: torch.Tensor, dt: float, n: int,
+                    cmax: int) -> torch.Tensor:
+    """Window-clamped advection (``ops/advect.py:73-145`` of the JAX
+    package): the departure point is clamped to ``[0.5, n+0.5]``, then to
+    ``[g - cmax, g + cmax]`` around the cell's own coordinate ``g``, in that
+    order.  It equals ``advect`` while the displacement ``dt*n*|velocity|``
+    stays at or below ``cmax``, and is clamped, not refused, above it.  The
+    JAX package sums (2*cmax+1)² masked shifts; after the window clamp every
+    departure point lies inside the window, so a direct gather reads the
+    same four values."""
     x, y = backtrace(u, v, dt, n)
+    idx = torch.arange(1, n + 1, dtype=torch.float32, device=u.device)
+    x = torch.clamp(x, idx[None, :] - cmax, idx[None, :] + cmax)
+    y = torch.clamp(y, idx[:, None] - cmax, idx[:, None] + cmax)
+    return _gather(b, d0, x, y, n)
+
+
+def _gather(b: int, d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+            n: int) -> torch.Tensor:
+    """Bilinear gather of ``d0`` at departure points (x, y) in the
+    reference's blend order, border derived by the mode-``b`` rule."""
     j0 = x.to(torch.int32)
     i0 = y.to(torch.int32)
     s1 = x - j0.to(torch.float32)

@@ -126,6 +126,71 @@ def test_step3_launches_and_matches_reference(cuda, mode):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("side,m", [(64, 16), (2048, 256)])
+def test_slab_kernels_match_plain(cuda, side, m):
+    for check in checks.kernel_checks_slab(side, m, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert all(counts[k] > 0 for k in check.kernels), (check.label, counts)
+        err = checks.max_abs_diff(got, want)
+        assert err <= checks.TOL, (check.label, err)
+
+
+@pytest.mark.parametrize("mode,slabs", [("parity", 4), ("parity", 16),
+                                        ("perf", 4)])
+def test_sharded_step_launches_and_matches_reference(cuda, mode, slabs):
+    """The multi-device step on a mesh that lists the card once per slab:
+    4 slabs of 64 rows take the fused routes, 16 slabs of 16 rows (with
+    8-sweep chunks) the composed ones."""
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_state, unshard)
+
+    kw = dict(PERF, fast_math=True) if mode == "perf" else {}
+    if slabs == 16:
+        kw["fuse_sweeps"] = 8
+    cfg = ft.SimConfig(n=254, jacobi_iters=20, backend="cuda", device=cuda,
+                       **kw)
+    mesh = make_mesh([cuda] * slabs)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    state, src = shard_state(state, mesh), shard_state(src, mesh)
+    step = make_sharded_step_fn(cfg, mesh)
+    assert step.routes["projection"] == ("fused" if slabs == 4
+                                         else "composed")
+    cuda_ops.reset_launch_counts()
+    got = unshard(step(state, src))
+    torch.cuda.synchronize()
+    k_vel = cfg.cheby_iters if mode == "perf" else cfg.jacobi_iters
+    k_p = cfg.press_cheby_iters if mode == "perf" else cfg.jacobi_iters
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        "jacobi_slab": slabs * (3 * k_vel + 2 * k_p),
+        "divergence_slab": 2 * slabs, "gradient_slab": 2 * slabs,
+        "advect_slab": 2 * slabs}
+    ref = make_sharded_step_fn(cfg.replace(backend="reference"), mesh)
+    want = unshard(ref(state, src))
+    # The reference backend ignores fast_math (phase 6 of chip_smoke.py).
+    atol = 1e-4 if mode == "perf" else 2e-5
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+
+
+def test_cuda_slab_launches_or_raises(cuda):
+    from fluidsimulationcuda_torch.kernels import cuda_sharded
+
+    x = torch.zeros(48, 34, device=cuda)
+    cuda_ops.reset_launch_counts()
+    cuda_sharded.fused_jacobi_slab(0, x, x, (1, 0, 0), m=32, K=8, alpha=1.0,
+                                   beta=4.0, sweeps=3)
+    assert cuda_ops.launch_counts()["jacobi_slab"] == 3
+    with pytest.raises(ValueError):
+        cuda_sharded.fused_jacobi_slab(0, x, x.cpu(), (1, 0, 0), m=32, K=8,
+                                       alpha=1.0, beta=4.0, sweeps=3)
+
+
 def test_cuda_volume_launches_or_raises(cuda):
     x = torch.zeros(24, 24, 24, device=cuda)
     cuda_ops.reset_launch_counts()
