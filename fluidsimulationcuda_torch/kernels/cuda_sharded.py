@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.advect import bilinear, departure
 from ..ops.chebyshev import cheby_omegas
 from ..ops.diffuse import as_scalar
 from ..ops.project import grid_h
@@ -189,32 +190,13 @@ def _advect_plain(bs, exts, halo, u, v, flags, dt, n, cmax):
     slab row r is ext row ``halo + r``."""
     _, _, row0 = _flags(flags)
     m, side = u.shape
-    gtop, gbot = _wall_rows(flags, 0, m)
-    dt0 = co._dt0(dt, n)
     gr = torch.arange(row0, row0 + m, dtype=torch.float32,
                       device=u.device)[:, None]
     gc = torch.arange(side, dtype=torch.float32, device=u.device)[None, :]
-    x = (gc - dt0 * u).clamp(0.5, n + 0.5)
-    y = (gr - dt0 * v).clamp(0.5, n + 0.5)
-    x = torch.clamp(x, gc - cmax, gc + cmax)
-    y = torch.clamp(y, gr - cmax, gr + cmax)
-    j0 = x.to(torch.int32)
-    i0 = y.to(torch.int32)
-    s1 = x - j0.to(torch.float32)
-    s0 = 1.0 - s1
-    t1 = y - i0.to(torch.float32)
-    t0 = 1.0 - t1
-    base = ((i0 - row0 + halo) * side + j0).to(torch.int64)
-    outs = []
-    for b, ext in zip(bs, exts):
-        flat = ext.reshape(-1)
-        g00 = flat[base]
-        g10 = flat[base + side]
-        g01 = flat[base + 1]
-        g11 = flat[base + side + 1]
-        val = s0 * (t0 * g00 + t1 * g10) + s1 * (t0 * g01 + t1 * g11)
-        outs.append(_slab_bnd(b, val, gtop, gbot))
-    return tuple(outs)
+    x, y = departure(u, v, gc, gr, dt, n, cmax)
+    gtop, gbot = _wall_rows(flags, 0, m)
+    return tuple(_slab_bnd(b, bilinear(ext, x, y, row0 - halo), gtop, gbot)
+                 for b, ext in zip(bs, exts))
 
 
 def _run_sweeps(run: co._Sweeps, lib, sweeps: int, rows: int, gtop: int,

@@ -11,7 +11,6 @@ interior and wall slabs both present.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
@@ -47,14 +46,6 @@ def _mesh(devices: list[torch.device], px: int, py: int) -> Mesh:
     return Mesh(tuple(tuple(devices[i * py:(i + 1) * py]) for i in range(px)))
 
 
-def _factor_2d(n: int) -> tuple[int, int]:
-    """Near-square factorization of a device count."""
-    px = int(math.isqrt(n))
-    while n % px:
-        px -= 1
-    return px, n // px
-
-
 def _normalise(device) -> torch.device:
     d = torch.device(device)
     if d.type == "cuda" and d.index is None:
@@ -62,17 +53,12 @@ def _normalise(device) -> torch.device:
     return d
 
 
-def make_mesh(devices=None, shape: tuple[int, int] | None = None, *,
-              layout: str = "rows") -> Mesh:
+def make_mesh(devices=None, shape: tuple[int, int] | None = None) -> Mesh:
     """A 2-D ("x", "y") mesh over ``devices``: every CUDA device by
     default, and an error where there is none (nothing falls back to the
     CPU; a CPU mesh lists ``torch.device("cpu")`` as often as it has
-    slabs).
-
-    ``layout`` picks the shape when ``shape`` is None: ``"rows"`` (default)
-    is an (n, 1) row mesh, full-width slabs, the only layout the port's
-    step runs (a 2-D mesh is row-flattened by it); ``"square"`` is the
-    near-square factorization of the JAX package's ``_factor_2d``.
+    slabs).  ``shape`` defaults to the (n, 1) row mesh of full-width slabs,
+    the only layout the port's step runs (it row-flattens a 2-D mesh).
     """
     if devices is None:
         count = torch.cuda.device_count()
@@ -84,11 +70,4 @@ def make_mesh(devices=None, shape: tuple[int, int] | None = None, *,
     devices = [_normalise(d) for d in devices]
     if not devices:
         raise ValueError("make_mesh needs at least one device")
-    if shape is None:
-        if layout == "rows":
-            shape = (len(devices), 1)
-        elif layout == "square":
-            shape = _factor_2d(len(devices))
-        else:
-            raise ValueError(f"unknown layout {layout!r}")
-    return _mesh(devices, *shape)
+    return _mesh(devices, *(shape or (len(devices), 1)))

@@ -101,9 +101,9 @@ def unshard(tree):
     return type(tree)(*map(join, tree))
 
 
-def _slab_viable(cfg: SimConfig, px: int, py: int) -> bool:
+def _slab_viable(cfg: SimConfig, slabs: int) -> bool:
     side = cfg.n + 2
-    return py == 1 and side % px == 0 and side // px >= cfg.max_courant + 1
+    return side % slabs == 0 and side // slabs >= cfg.max_courant + 1
 
 
 class _SlabStep:
@@ -327,9 +327,9 @@ def make_sharded_step_fn(
     slab route where the shape qualifies and raises otherwise.  A 2-D mesh
     qualifies by row-flattening: its devices become a (px·py, 1) mesh.
 
-    ``advect_mode``: ``"windowed"`` (the slab route's gather) or ``"auto"``
-    (windowed when every slab holds ``max_courant+1`` rows); ``"exact"``
-    needs the block route.
+    ``advect_mode``: ``"windowed"`` or ``"auto"``, the slab route's
+    gather (every slab must hold ``max_courant+1`` rows); ``"exact"`` needs
+    the block route.
 
     ``audited=True`` returns ``(state, max_displacement)``, the largest
     backtrace displacement of the step's advections over every slab (a
@@ -348,45 +348,33 @@ def make_sharded_step_fn(
         raise ValueError("make_sharded_step_fn is the 2-D step; the 3-D "
                          "z-slab step is not ported (ROADMAP A10b)")
     px, py = mesh.shape["x"], mesh.shape["y"]
-    side, cmax = cfg.n + 2, cfg.max_courant
-
-    # A 2-D mesh takes the slab route by row-flattening (sharded.py:962-981).
-    if (py > 1 and shard_backend in ("auto", "slab")
-            and advect_mode in ("auto", "windowed")
-            and _slab_viable(cfg, px * py, 1)):
-        px, py = px * py, 1
-        mesh = mesh.reshape(px, py)
+    side = cfg.n + 2
     if side % px or side % py:
         raise ValueError(f"grid side {side} not divisible by mesh shape "
                          f"({px}, {py})")
-    if advect_mode == "auto":
-        advect_mode = ("windowed" if min(side // px, side // py) >= cmax + 1
-                       else "exact")
-    if advect_mode == "windowed" and min(side // px, side // py) < cmax + 1:
-        raise ValueError(
-            f"windowed advection needs >= {cmax + 1} rows/cols per shard "
-            f"(max_courant={cmax}); got ({side // px}, {side // py}) on mesh "
-            f"({px}, {py}). Use a coarser mesh.")
-    if shard_backend == "reference":
-        raise NotImplementedError(f"shard_backend='reference': {_BLOCK_ROUTE}")
+    # The one route ported: JAX's "pallas" slab route on the row-flattened
+    # mesh (sharded.py:962-981), whose gathers are windowed.
+    slabs = px * py
     if shard_backend == "slab":
-        if not _slab_viable(cfg, px, py):
-            raise ValueError(
-                f"shard_backend='slab' needs row slabs (2-D meshes are "
-                f"row-flattened when they qualify): (n+2) % n_devices == 0 "
-                f"and slabs of >= max_courant+1 rows; got mesh ({px}, {py}), "
-                f"n={cfg.n}")
         if advect_mode == "exact":
             raise ValueError("shard_backend='slab' advection is always "
                              "windowed; pass advect_mode='windowed'")
-    elif advect_mode != "windowed" or not _slab_viable(cfg, px, py):
+        if not _slab_viable(cfg, slabs):
+            raise ValueError(
+                f"shard_backend='slab' needs row slabs (2-D meshes are "
+                f"row-flattened): (n+2) % n_devices == 0 and slabs of >= "
+                f"max_courant+1 rows; got mesh ({px}, {py}), n={cfg.n}")
+    elif (shard_backend == "reference" or advect_mode == "exact"
+          or not _slab_viable(cfg, slabs)):
         raise NotImplementedError(
-            f"mesh ({px}, {py}) with advect_mode={advect_mode!r} does not "
-            f"qualify for row slabs: {_BLOCK_ROUTE}")
+            f"mesh ({px}, {py}) with shard_backend={shard_backend!r}, "
+            f"advect_mode={advect_mode!r} needs the block route: "
+            f"{_BLOCK_ROUTE}")
     if cfg.pressure_solver in ("multigrid", "cg"):
         raise NotImplementedError(
             f"pressure_solver={cfg.pressure_solver!r} on slabs composes the "
             f"sharded {cfg.pressure_solver} solver: {_BLOCK_ROUTE}")
+    mesh = mesh.reshape(slabs, 1)
 
     run = _SlabStep(cfg, mesh, audited)
 
@@ -394,7 +382,7 @@ def make_sharded_step_fn(
         return run(state, src)
 
     step_fn.shard_backend = "slab"
-    step_fn.advect_mode = advect_mode
+    step_fn.advect_mode = "windowed"
     step_fn.mesh = mesh
     step_fn.routes = {
         "projection": "fused" if run.fused_proj else "composed",

@@ -213,13 +213,12 @@ def test_shard_state_round_trip():
 
 def test_make_mesh_shapes():
     assert make_mesh([CPU] * 8).shape == {"x": 8, "y": 1}
-    assert make_mesh([CPU] * 8, layout="square").shape == {"x": 2, "y": 4}
     assert make_mesh([CPU] * 6, shape=(3, 2)).shape == {"x": 3, "y": 2}
     assert make_mesh(["cpu"] * 4).device_list == [CPU] * 4
     with pytest.raises(ValueError):
         make_mesh([CPU] * 4, shape=(3, 1))
     with pytest.raises(ValueError):
-        make_mesh([CPU] * 4, layout="cubes")
+        make_mesh([])
 
 
 def test_step_needs_slabs():
