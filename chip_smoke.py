@@ -20,6 +20,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    a one-element kernel's time in a CUDA graph, is printed beside it) and
    on an interior slab of 2048 rows of 8192² (the 4-slab run's shape,
    whose working set exceeds the L2);
+3d. every z-slab kernel of the 3-D multi-device step against its plain twin
+   for a top, an interior and a bottom slab of 32 planes of 256³
+   (max|Δ| <= 1e-5): Jacobi, zero guess, fast, a Chebyshev chain's first
+   and chained segments (x_{k-1} carried in and out), the gathers under and
+   over the 4-cell window, the two stencils; timed beside bound and launch
+   floor;
 4. the six golden fixtures ``tests/golden/*.npz`` through the ``cuda``
    backend (atol 1e-5);
 5. the 2-D main path, ``StableFluids2D.step`` at 2048² (n=2046), 20 Jacobi
@@ -43,13 +49,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    step and, where the audited displacement stays under the window, against
    ``StableFluids2D.step`` (the impulse moves the 2048² backtrace ~20
    cells, so a forced trajectory, sources × 0.05 every step, is held
-   against it too); ms/step eager and as a CUDA graph.
+   against it too); ms/step eager and as a CUDA graph;
+11. the 3-D multi-device step, ``make_sharded_step_fn_3d`` with
+   ``audited=True`` on one card: 256³ parity on 1 and on 8 z-slabs, the
+   compensated mode (``PERF_POINT_3D``) with fast math on 8 slabs, and the
+   compensated mode on 32 slabs of 8 planes (every solve chained across
+   halo exchanges: 7+3 velocity sweeps, 7+5 pressure sweeps); checked as
+   phase 10 checks the row slabs (against ``StableFluids3D.step`` where
+   the audited displacement stays under the window).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5 for the 2-D kernels, phase 8 for the 3-D
-ones, the 8-slab 2048² parity run of phase 10 for the slab kernels), its
-max|Δ| from phase 3, 3b or 3c, its device time beside its plain version's,
-and its bound.  The last line is ``{"ok": true, "device": {...}}``.
+ones, the 8-slab 2048² parity run of phase 10 for the row-slab kernels, the
+8-slab 256³ parity run of phase 11 for the z-slab kernels), its max|Δ| from
+phase 3, 3b, 3c or 3d, its device time beside its plain version's, and its
+bound.  The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
 from __future__ import annotations
@@ -69,6 +83,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNELS = "fluidsimulationcuda_tpu/kernels/pallas_ops.py"
 TPU_KERNELS_3D = "fluidsimulationcuda_tpu/kernels/pallas_ops_3d.py"
 TPU_SLABS = "fluidsimulationcuda_tpu/kernels/pallas_sharded.py"
+TPU_SLABS_3D = "fluidsimulationcuda_tpu/kernels/pallas_sharded_3d.py"
+TPU_STEP_3D = "fluidsimulationcuda_tpu/parallel/sharded3d.py"
 CSRC = "fluidsimulationcuda_torch/csrc"
 # CUDA kernel -> (its source, the pallas_call it replaces on the main path).
 KERNEL_SOURCES = {
@@ -85,6 +101,11 @@ KERNEL_SOURCES = {
     "divergence_slab": (f"{CSRC}/project_slab.cu", f"{TPU_SLABS}:1357"),
     "gradient_slab": (f"{CSRC}/project_slab.cu", f"{TPU_SLABS}:1378"),
     "advect_slab": (f"{CSRC}/advect_slab.cu", f"{TPU_SLABS}:1246"),
+    "jacobi3_slab": (f"{CSRC}/jacobi3_slab.cu", f"{TPU_SLABS_3D}:349"),
+    # The TPU step computes these two stencils in jnp (no pallas_call).
+    "divergence3_slab": (f"{CSRC}/project3_slab.cu", f"{TPU_STEP_3D}:567"),
+    "gradient3_slab": (f"{CSRC}/project3_slab.cu", f"{TPU_STEP_3D}:582"),
+    "advect3_slab": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
 }
 
 
@@ -144,6 +165,18 @@ def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
     return {"jacobi_slab": slabs * (2 * k_vel + 2 * k_p + k_dens),
             "divergence_slab": 2 * slabs, "gradient_slab": 2 * slabs,
             "advect_slab": 2 * slabs}
+
+
+def expected_launches_sharded3(cfg, slabs: int) -> dict[str, int]:
+    """Kernel launches of one 3-D multi-device step of ``cfg`` on ``slabs``
+    z-slabs.  Each slab launches K13 once per sweep of its three velocity
+    diffusions, two pressure solves and its density diffusion, whatever the
+    segments; K15 and K16 once per projection; K14 for the (u, v, w)
+    triple and for the density."""
+    per_slab = expected_launches3(cfg)
+    return {"jacobi3_slab": slabs * per_slab["jacobi3_sweep"],
+            "divergence3_slab": 2 * slabs, "gradient3_slab": 2 * slabs,
+            "advect3_slab": 2 * slabs}
 
 
 def fields(state) -> list[tuple[str, torch.Tensor]]:
@@ -266,32 +299,48 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
                  graph_reps: int = 3) -> dict[str, int]:
     """Impulse step plus ``steps-1`` steps of ``make_sharded_step_fn(cfg,
     audited=True)`` on ``slabs`` row slabs of one card (a mesh that lists
-    ``cuda:0`` once per slab); check and return the launch counts of that
-    run.  ``tol = (rtol, atol, last)`` holds step 1 to ``|d| <= atol +
+    ``cuda:0`` once per slab), or in 3-D of ``make_sharded_step_fn_3d`` on
+    ``slabs`` z-slabs; check and return the launch counts of that run.
+    ``tol = (rtol, atol, last)`` holds step 1 to ``|d| <= atol +
     rtol*|ref|`` and step ``steps`` to ``max|d| <= last`` against the
     ``reference`` backend of the same sharded step on the same CUDA tensors
     and, where the audited displacement stayed under ``cfg.max_courant``
-    (the gathers were exact), against ``StableFluids2D.step``; None skips
-    both.  With ``tol`` it also drives ``steps`` steps of a forced
-    trajectory (sources scaled by 0.05 every step, as in phase 8), which
-    at 2048² stays under the window where the impulse does not, and holds
-    it against ``StableFluids2D.step`` the same way.  Then times the step
-    eager and as a CUDA graph."""
+    (the gathers were exact), against ``StableFluids2D.step`` (3-D:
+    ``StableFluids3D.step``); None skips both.  With ``tol`` it also drives
+    ``steps`` steps of a forced trajectory (sources scaled by 0.05 every
+    step, as in phase 8), which at 2048² stays under the window where the
+    impulse does not, and holds it against the single-device step the same
+    way.  Then times the step eager and as a CUDA graph."""
     from fluidsimulationcuda_torch import (Sources, StableFluids2D,
-                                           reference_init, zero_sources)
+                                           StableFluids3D, reference_init,
+                                           zero_sources)
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
     from fluidsimulationcuda_torch.parallel import (make_mesh,
                                                     make_sharded_step_fn,
-                                                    shard_state, unshard)
+                                                    make_sharded_step_fn_3d,
+                                                    shard_state,
+                                                    shard_state_3d, unshard)
 
+    if cfg.ndim == 3:
+        make_step, shard, model = (make_sharded_step_fn_3d, shard_state_3d,
+                                   StableFluids3D)
+        design = expected_launches_sharded3
+    else:
+        make_step, shard, model = (make_sharded_step_fn, shard_state,
+                                   StableFluids2D)
+        design = expected_launches_sharded
     mesh = make_mesh([torch.device("cuda", 0)] * slabs)
     gen = torch.Generator(device=cfg.device).manual_seed(SEED)
     state0, sources = reference_init(gen, cfg)
-    step_fn = make_sharded_step_fn(cfg, mesh, audited=True)
-    start, src, zeros = (shard_state(x, mesh)
+    step_fn = make_step(cfg, mesh, audited=True)
+    start, src, zeros = (shard(x, mesh)
                          for x in (state0, sources, zero_sources(cfg)))
-    print(f"{label}: {slabs} slab(s) of {(cfg.n + 2) // slabs} rows, "
-          f"routes {step_fn.routes}")
+    if cfg.ndim == 3:
+        print(f"{label}: {slabs} slab(s) of {(cfg.n + 2) // slabs} planes, "
+              f"(K, H) per solve {step_fn.chunks}")
+    else:
+        print(f"{label}: {slabs} slab(s) of {(cfg.n + 2) // slabs} rows, "
+              f"routes {step_fn.routes}")
 
     def run(fn):
         states, disps, state = [], [], start
@@ -306,7 +355,7 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
     states, disps = run(step_fn)
     torch.cuda.synchronize()
     counts = cuda_ops.launch_counts()
-    per_step = expected_launches_sharded(cfg, slabs)
+    per_step = design(cfg, slabs)
     want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
     print(f"{label}: launches {counts} (expected {want})")
     if counts != want:
@@ -318,13 +367,13 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
           f"{steps} steps; window {cfg.max_courant})")
     if tol is not None:
         rtol, atol, last_tol = tol
-        ref = make_sharded_step_fn(cfg.replace(backend="reference"), mesh,
-                                   audited=True)
+        ref = make_step(cfg.replace(backend="reference"), mesh,
+                        audited=True)
         r_states, _ = run(ref)
         twins = [("reference backend, sharded",
                   unshard(r_states[0]), unshard(r_states[-1]))]
         if disp < cfg.max_courant:
-            sim = StableFluids2D(cfg)
+            sim = model(cfg)
             single = [sim.step(state0, sources)]
             for _ in range(steps - 1):
                 single.append(sim.step(single[-1]))
@@ -341,8 +390,8 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
                 raise AssertionError(f"{label}: step {steps} vs {what}: "
                                      f"max|d| {dn:.3e} > {last_tol}")
         drive = Sources(*(None if s is None else 0.05 * s for s in sources))
-        s_drive, forced, single = shard_state(drive, mesh), start, state0
-        sim, f_disp = StableFluids2D(cfg), 0.0
+        s_drive, forced, single = shard(drive, mesh), start, state0
+        sim, f_disp = model(cfg), 0.0
         for _ in range(steps):
             forced, d = step_fn(forced, s_drive)
             single = sim.step(single, drive)
@@ -360,7 +409,7 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
         else:
             print(f"{label}: forced displacement >= window: no single-device "
                   f"comparison")
-    plain = make_sharded_step_fn(cfg, mesh)
+    plain = make_step(cfg, mesh)
     state, ms = timed_steps(lambda s: plain(s, zeros), states[-1],
                             max(steps - 1, 2))
     require_finite(unshard(state), label)
@@ -422,6 +471,13 @@ def main() -> None:
                               "2048², slab of 256 rows", card, floor))
     kernel_times(checks.timing_checks_slab(8192, 2048, "cuda", SEED),
                  "8192², slab of 2048 rows", card, floor)
+
+    phase("3d z-slab kernels against their plain twins (256³, mz=32)")
+    compare(checks.kernel_checks_slab3(256, 32, "cuda", SEED), checks.TOL,
+            errs)
+    times.update(kernel_times(checks.timing_checks_slab3(256, 32, "cuda",
+                                                         SEED),
+                              "256³, slab of 32 planes", card, floor))
 
     phase("4 golden fixtures through the cuda backend")
     paths = sorted(glob.glob(os.path.join(ROOT, "tests", "golden", "*.npz")))
@@ -500,8 +556,22 @@ def main() -> None:
                  "2048² parity fuse_sweeps=8, 128 slabs", card, 3,
                  tol=(1e-5, 2e-5, 1e-4), graph_reps=1)
 
+    phase("11 3-D multi-device step: z-slabs on one card")
+    sharded_path(parity3, 1, "256³ parity, 1 slab", card, 3,
+                 tol=(1e-5, 2e-5, 1e-4))
+    launches_slab3 = sharded_path(parity3, 8, "256³ parity, 8 slabs", card,
+                                  3, tol=(1e-5, 2e-5, 1e-4))
+    rho, k_d, k_p = perf_operating_point(256, ndim=3)
+    label = f"256³ compensated (rho={rho}, k_d={k_d}, k_p={k_p})"
+    # As in phase 9: the reference backend ignores fast_math.
+    sharded_path(comp3.replace(fast_math=True), 8,
+                 label + " fast_math, 8 slabs", card, 3,
+                 tol=(0.0, 1e-4, 1e-4))
+    sharded_path(comp3, 32, label + ", 32 slabs of 8 planes", card, 3,
+                 tol=(1e-5, 2e-5, 1e-4), graph_reps=1)
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
-                     for k in cuda_ops.KERNELS}
+                     + launches_slab3[k] for k in cuda_ops.KERNELS}
     kernels = [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],
@@ -510,7 +580,7 @@ def main() -> None:
         "bound_ms": times[name][2], "bound_by": times[name][3],
         # No single PyTorch call computes any of these functions (a sweep
         # with its border rule, a clamped semi-Lagrangian gather, a
-        # stencil with its ghost layer or a slab's wall rows).
+        # stencil with its ghost layer or a slab's wall rows or planes).
         "library_ms": None,
     } for name in cuda_ops.KERNELS]
     print()

@@ -5,6 +5,7 @@
     python3 dev/profile_torch_step.py --ndim 3 --n 254 --mode parity
     python3 dev/profile_torch_step.py --ndim 2 --n 2046 --mode compensated
     python3 dev/profile_torch_step.py --ndim 2 --n 2046 --slabs 8
+    python3 dev/profile_torch_step.py --ndim 3 --n 254 --slabs 8
 
 Runs the impulse step (sources from ``reference_init``, seed 0) and two more
 steps on the ``cuda`` backend, then traces ``--steps`` steps of
@@ -13,10 +14,11 @@ compensated mode's Chebyshev point with fast math) and prints, per CUDA
 kernel, its launches and device ms per step, its share of the step, and
 its time per launch; then the step's wall time (host clock around the
 traced steps, ending in a synchronise) and the device's busy share (summed
-kernel time over wall time).  ``--slabs P`` traces the 2-D multi-device
-step (``parallel.make_sharded_step_fn``) on P row slabs of the one card
-instead (``--fuse-sweeps 8`` for slabs of 16 rows); its halo copies show as
-PyTorch's own copy kernels.
+kernel time over wall time).  ``--slabs P`` traces the multi-device
+step on P slabs of the one card instead: row slabs in 2-D
+(``parallel.make_sharded_step_fn``; ``--fuse-sweeps 8`` for slabs of 16
+rows), z-slabs in 3-D (``parallel.make_sharded_step_fn_3d``); its halo
+copies show as PyTorch's own copy kernels.
 ``--forcing 0.05`` fires the sources, scaled, on every step, as the smoke
 script's forced trajectory does.  The card's name and power limit come
 with the numbers.  Exits non-zero without a card or when the trace holds no
@@ -49,8 +51,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
-    if args.slabs and args.ndim != 2:
-        raise SystemExit("profile_torch_step: --slabs is the 2-D step")
     sys.path.insert(0, ROOT)
     from fluidsimulationcuda_torch import (SimConfig, Sources, StableFluids2D,
                                            StableFluids3D, reference_init,
@@ -58,7 +58,9 @@ def main() -> None:
     from fluidsimulationcuda_torch.core.config import perf_operating_point
     from fluidsimulationcuda_torch.parallel import (make_mesh,
                                                     make_sharded_step_fn,
-                                                    shard_state)
+                                                    make_sharded_step_fn_3d,
+                                                    shard_state,
+                                                    shard_state_3d)
 
     cfg = SimConfig(n=args.n, ndim=args.ndim, jacobi_iters=20,
                     fuse_sweeps=args.fuse_sweeps, backend="cuda",
@@ -76,8 +78,11 @@ def main() -> None:
              else zero_sources(cfg))
     if args.slabs:
         mesh = make_mesh([torch.device("cuda", 0)] * args.slabs)
-        step = make_sharded_step_fn(cfg, mesh)
-        state, sources, drive = (shard_state(x, mesh)
+        make, shard = ((make_sharded_step_fn_3d, shard_state_3d)
+                       if args.ndim == 3 else
+                       (make_sharded_step_fn, shard_state))
+        step = make(cfg, mesh)
+        state, sources, drive = (shard(x, mesh)
                                  for x in (state, sources, drive))
     else:
         step = (StableFluids3D if args.ndim == 3 else StableFluids2D)(cfg).step

@@ -3,6 +3,7 @@
 plain PyTorch versions.
 
     python3 dev/rehearse_kernels_cpu.py [--side2 34] [--side3 24] [--slab-side 64]
+                                        [--slab3-side 24]
 
 A CUDA kernel has no interpret mode, and a machine without ``nvcc`` cannot
 build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
@@ -10,21 +11,26 @@ build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
 ``__device__``, ``dim3``, ``blockIdx``/``threadIdx``, and every launch
 ``k<<<grid, block, 0, stream>>>(args);`` becomes a loop over the grid (the
 kernels run one thread per cell, with no shared memory or barriers).  The
-wrappers of ``kernels/cuda_ops.py``, ``kernels/cuda_ops_3d.py`` and
-``kernels/cuda_sharded.py`` then run against that library on CPU tensors
-(their device checks, stream and loader patched), and:
+wrappers of ``kernels/cuda_ops.py``, ``kernels/cuda_ops_3d.py``,
+``kernels/cuda_sharded.py`` and ``kernels/cuda_sharded_3d.py`` then run
+against that library on CPU tensors (their device checks, stream and loader
+patched), and:
 
 - every check of ``kernels/checks.py`` (``kernel_checks`` at ``--side2``,
   ``kernel_checks3`` at ``--side3``, ``kernel_checks_slab`` for slabs of
-  ``--slab-side``/4 rows at ``--slab-side``) compares kernel and plain
-  version;
+  ``--slab-side``/4 rows at ``--slab-side``, ``kernel_checks_slab3`` for
+  z-slabs of ``--slab3-side``/3 planes at ``--slab3-side``) compares kernel
+  and plain version;
 - one 2-D and one 3-D step per mode go through the ``cuda`` backend, their
   launch counts against ``chip_smoke.expected_launches(3)``, their state
   against the ``reference`` backend;
 - one multi-device step per mode and route goes through the ``cuda``
   backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``), its
   launch counts against ``chip_smoke.expected_launches_sharded``, its state
-  against the ``reference`` backend of the same sharded step.
+  against the ``reference`` backend of the same sharded step; and one 3-D
+  multi-device step per mode on 3 and 8 z-slabs at ``--slab3-side``
+  (chained segments included) against
+  ``chip_smoke.expected_launches_sharded3`` and the ``reference`` backend.
 
 It prints max|d| per check and exits non-zero on a difference above
 ``checks.TOL`` or a wrong launch count.  The build goes to
@@ -145,6 +151,7 @@ def main() -> int:
     ap.add_argument("--side2", type=int, default=34)
     ap.add_argument("--side3", type=int, default=24)
     ap.add_argument("--slab-side", type=int, default=64)
+    ap.add_argument("--slab3-side", type=int, default=24)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     os.chdir(ROOT)
@@ -157,7 +164,10 @@ def main() -> int:
     check_list = (checks.kernel_checks(args.side2, "cpu", 1)
                   + checks.kernel_checks3(args.side3, "cpu", 1)
                   + checks.kernel_checks_slab(args.slab_side,
-                                              args.slab_side // 4, "cpu", 1))
+                                              args.slab_side // 4, "cpu", 1)
+                  + checks.kernel_checks_slab3(args.slab3_side,
+                                               args.slab3_side // 3, "cpu",
+                                               1))
     for c in check_list:
         with kernels_on_cpu(lib):
             cuda_ops.reset_launch_counts()
@@ -207,6 +217,7 @@ def main() -> int:
                   f"{'as designed' if launches_ok else counts}"
                   f"{'  FAIL' if bad else ''}")
     failures += rehearse_sharded(lib, args.slab_side)
+    failures += rehearse_sharded3(lib, args.slab3_side)
     print(f"{failures} failure(s)")
     return 1 if failures else 0
 
@@ -259,6 +270,60 @@ def rehearse_sharded(lib, side: int) -> int:
         failures += bad
         print(f"  sharded {mode:15s} {slabs} slabs {step.routes} max|d| vs "
               f"reference {err:.3e}, launches "
+              f"{'as designed' if launches_ok else counts}"
+              f"{'  FAIL' if bad else ''}")
+    return failures
+
+
+def rehearse_sharded3(lib, side: int) -> int:
+    """One 3-D multi-device step per mode through the ``cuda`` backend on
+    a virtual CPU mesh against the ``reference`` backend of the same step;
+    returns the number of failures."""
+    import chip_smoke
+    import fluidsimulationcuda_torch as ft
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn_3d,
+                                                    shard_state_3d, unshard)
+
+    base = dict(n=side - 2, ndim=3, jacobi_iters=10, max_courant=2)
+    modes = {
+        "parity": dict(),
+        "compensated": dict(pressure_solver="chebyshev",
+                            diffusion_solver="chebyshev", cheby_rho=0.85,
+                            cheby_iters=10, cheby_press_iters=12,
+                            fast_math=True),
+        "chebyshev-dens": dict(diffusion_solver="chebyshev-dens",
+                               cheby_rho=0.85, cheby_dens_iters=6),
+    }
+    failures = 0
+    for mode, slabs in (("parity", 3), ("parity", 8), ("compensated", 3),
+                        ("compensated", 8), ("chebyshev-dens", 8)):
+        kw = {**base, **modes[mode]}
+        if slabs == 8:
+            kw["max_courant"] = 1  # 3-plane slabs: the window must fit
+        ref = ft.SimConfig(backend="reference", device="cpu", **kw)
+        cfg = ref.replace()
+        # The cuda backend on CPU tensors, which only the shim allows.
+        object.__setattr__(cfg, "backend", "cuda")
+        mesh = make_mesh([torch.device("cpu")] * slabs)
+        state, src = ft.reference_init(torch.Generator().manual_seed(0), ref)
+        state, src = shard_state_3d(state, mesh), shard_state_3d(src, mesh)
+        step = make_sharded_step_fn_3d(cfg, mesh)
+        with kernels_on_cpu(lib):
+            cuda_ops.reset_launch_counts()
+            got = unshard(step(state, src))
+            counts = cuda_ops.launch_counts()
+        want = unshard(make_sharded_step_fn_3d(ref, mesh)(state, src))
+        per_step = chip_smoke.expected_launches_sharded3(cfg, slabs)
+        launches_ok = counts == {k: per_step.get(k, 0)
+                                 for k in cuda_ops.KERNELS}
+        err = chip_smoke.max_diff(got, want)
+        tol = 1e-4 if cfg.fast_math else 0.0
+        bad = err > tol or not launches_ok
+        failures += bad
+        print(f"  sharded 3-D {mode:15s} {slabs} slabs {step.chunks} max|d| "
+              f"vs reference {err:.3e}, launches "
               f"{'as designed' if launches_ok else counts}"
               f"{'  FAIL' if bad else ''}")
     return failures

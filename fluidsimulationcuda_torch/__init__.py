@@ -11,6 +11,8 @@ reference it is tested against.  It imports ``torch`` and never ``jax``:
 - ``kernels``  — backend dispatch, the CUDA wrappers (``cuda`` backend) and
   the nvcc build of ``csrc/``
 - ``models``   — the 2-D step and the 3-D smoke-volume step
+- ``parallel`` — the multi-device steps on one process's mesh: row slabs
+  (2-D) and z-slabs (3-D)
 
 Entry points run on the card (``SimConfig.device`` defaults to ``"cuda"``)
 unless the caller asks for the CPU.
@@ -20,6 +22,9 @@ from .core.config import SimConfig
 from .core.state import FluidState, Sources, reference_init, zero_sources, zero_state
 from .models.stable_fluids_2d import StableFluids2D, make_step_fn, simulate, step, step_audited
 from .models.stable_fluids_3d import StableFluids3D, step3
+from .parallel import (make_mesh, make_sharded_step_fn,
+                       make_sharded_step_fn_3d, shard_state, shard_state_3d,
+                       unshard)
 
 __version__ = "0.1.0"
 
@@ -37,5 +42,11 @@ __all__ = [
     "step",
     "step_audited",
     "step3",
+    "make_mesh",
+    "make_sharded_step_fn",
+    "make_sharded_step_fn_3d",
+    "shard_state",
+    "shard_state_3d",
+    "unshard",
     "__version__",
 ]

@@ -35,10 +35,11 @@ class SimConfig:
         nothing probes for a GPU and nothing falls back to the CPU.
       device: where the state lives and the ops run; the card
         (``"cuda"``) unless the caller asks for ``"cpu"``.
-      fuse_sweeps, max_courant: TPU kernel knobs (sweeps per VMEM
-        round-trip, gather window).  The CUDA kernels run one sweep per
-        launch and gather exactly at any displacement, so neither changes
-        what the port computes; they are kept so a config carries over.
+      fuse_sweeps, max_courant: the multi-device steps' sweeps per halo
+        exchange (0: 20) and gather window in cells, as in the JAX
+        package.  The single-device steps run one sweep per launch and
+        gather exactly at any displacement, so neither changes what they
+        compute.
       pressure_solver: ``"jacobi"`` or ``"chebyshev"`` run here;
         ``"multigrid"`` and ``"cg"`` are accepted in 2-D and raise when a
         step asks for them (not ported yet); 3-D refuses them, as the JAX

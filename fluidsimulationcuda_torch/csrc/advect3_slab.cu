@@ -1,0 +1,83 @@
+// K14 advect3_slab: the windowed semi-Lagrangian trilinear gather of one to
+// three fields on a z-slab, from plane-halo-extended copies of the fields.
+//
+// Replaces the TPU kernel _advect3_flat_slab_kernel
+// (fluidsimulationcuda_tpu/kernels/pallas_sharded_3d.py:483, pallas_call at
+// :530; wrapper advect3_flat_slab :510).  The TPU kernel gathers one field
+// per call by masked shifts over a VMEM window, which limits it to
+// cmax <= 2 (advect3_slab_plan :465), and leaves the ghost layer raw for
+// the step to derive (sharded3d.py:692-702).  Here each thread reads its
+// eight points directly, at global plane plane0 + k, for up to three fields
+// that share the backtrace (the (u, v, w) self-advection is one launch
+// where the TPU step made three calls, sharded3d.py:731-733), and derives
+// the full ghost layer in the same launch: a ghost row, column or wall
+// plane takes its value from its interior neighbour's gather
+// (fsc_common.cuh slab_border_value3).
+//
+// The departure point is clamped per axis to [0.5, n+0.5] and then to
+// [g - cmax, g + cmax] around the cell's own global coordinate
+// (fsc_common.cuh window_coord), so the gather equals the exact one (K6)
+// while the displacement stays at or below cmax and is clamped, not
+// refused, above it.  The eight reads then lie within cmax+1 planes of the
+// cell's own plane: inside a halo of `halo` >= cmax+1 planes, which the
+// wrapper checks.  Any cmax below the slab's plane count works.
+//
+// Bound: device memory, as K6: u, v, w and eight gather points per field
+// (neighbours of each other for a smooth flow, so mostly L1/L2 hits) and
+// one write per field.
+#include "fsc_common.cuh"
+
+namespace {
+
+__global__ void advect3_slab_kernel(
+    const float* __restrict__ d1, const float* __restrict__ d2,
+    const float* __restrict__ d3, const float* __restrict__ u,
+    const float* __restrict__ v, const float* __restrict__ w,
+    float* __restrict__ o1, float* __restrict__ o2, float* __restrict__ o3,
+    int side, int halo, int b1, int b2, int b3, float dt0, int plane0,
+    int cmax, int gtop, int gbot) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int k = blockIdx.z;
+  if (i >= side || j >= side) return;
+  const int n = side - 2;
+  const int ki = fsc::slab_row_of(k, gtop, gbot);
+  const int ci = fsc::clampi(i, 1, n);
+  const int cj = fsc::clampi(j, 1, n);
+  const int c = (ki * side + ci) * side + cj;
+  const fsc::Departure3 d = fsc::departure3(
+      fsc::window_coord(cj, u[c], n, dt0, cmax),
+      fsc::window_coord(ci, v[c], n, dt0, cmax),
+      fsc::window_coord(plane0 + ki, w[c], n, dt0, cmax), side,
+      plane0 - halo);
+  const int o = (k * side + i) * side + j;
+  o1[o] = fsc::slab_border_value3(fsc::trilinear(d, d1, side), k, i, j, side,
+                                  gtop, gbot, b1);
+  if (d2 != nullptr)
+    o2[o] = fsc::slab_border_value3(fsc::trilinear(d, d2, side), k, i, j,
+                                    side, gtop, gbot, b2);
+  if (d3 != nullptr)
+    o3[o] = fsc::slab_border_value3(fsc::trilinear(d, d3, side), k, i, j,
+                                    side, gtop, gbot, b3);
+}
+
+}  // namespace
+
+// d1..d3: (mz + 2*halo, side, side) extended fields, slab plane k at buffer
+// plane halo + k; u, v, w, o1..o3: (mz, side, side).  d2/o2 and d3/o3 null
+// gather fewer fields (d3 needs d2).  dt0 = dt*n in float32; plane0 is the
+// slab's first global plane; gtop/gbot are slab planes (-1: absent).
+// Returns cudaGetLastError() after the launch.
+extern "C" int fsc_advect3_slab(const float* d1, const float* d2,
+                                const float* d3, const float* u,
+                                const float* v, const float* w, float* o1,
+                                float* o2, float* o3, int mz, int side,
+                                int halo, int b1, int b2, int b3, float dt0,
+                                int plane0, int cmax, int gtop, int gbot,
+                                void* stream) {
+  advect3_slab_kernel<<<fsc::slab_grid_dim3(side, mz), fsc::block_dim(), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      d1, d2, d3, u, v, w, o1, o2, o3, side, halo, b1, b2, b3, dt0, plane0,
+      cmax, gtop, gbot);
+  return static_cast<int>(cudaGetLastError());
+}

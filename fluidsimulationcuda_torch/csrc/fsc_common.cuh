@@ -80,7 +80,8 @@ __device__ __forceinline__ float border_value(float v, int i, int j, int side,
 // next to it, as the 2-D kernels' ghost threads do, so the edge rule and
 // the corner average follow in the same launch.
 
-// The buffer row whose value buffer row r takes.
+// The buffer row whose value buffer row r takes.  A z-slab (below) uses it
+// for planes.
 __device__ __forceinline__ int slab_row_of(int r, int gtop, int gbot) {
   return r == gtop ? r + 1 : (r == gbot ? r - 1 : r);
 }
@@ -95,17 +96,25 @@ __device__ __forceinline__ float slab_border_value(float v, int r, int j,
 }
 
 // Row r of a (rows, side) slab field whose row above row 0 is the halo row
-// top and whose row below row rows-1 is the halo row bot.
+// top and whose row below row rows-1 is the halo row bot; with stride
+// side*side, plane r of a z-slab and its halo planes.
 __device__ __forceinline__ const float* slab_row(const float* f,
                                                  const float* top,
                                                  const float* bot, int r,
-                                                 int rows, int side) {
-  return r < 0 ? top : (r >= rows ? bot : f + r * side);
+                                                 int rows, int stride) {
+  return r < 0 ? top : (r >= rows ? bot : f + r * stride);
 }
 
 // 2-D launches over rows [lo, hi) of a slab buffer.
 inline dim3 slab_grid_dim(int side, int rows) {
   return dim3((side + kBlockX - 1) / kBlockX, (rows + kBlockY - 1) / kBlockY);
+}
+
+// 3-D launches over `planes` planes of a z-slab buffer: 32x8 threads over
+// (x, y), one grid layer per plane.
+inline dim3 slab_grid_dim3(int side, int planes) {
+  return dim3((side + kBlockX - 1) / kBlockX, (side + kBlockY - 1) / kBlockY,
+              planes);
 }
 
 // Flat index of the interior cell that padded volume cell (k, i, j) derives
@@ -122,12 +131,10 @@ __device__ __forceinline__ int interior_of3(int k, int i, int j, int side) {
 // with ghost axes a1 < a2 (order z, y, x) is the mean of its two face
 // neighbours, 0.5*(s_a2*v + s_a1*v).  A corner is the mean of its three
 // edge neighbours, third*((E_yx + E_zx) + E_zy), a multiplication by 1/3
-// rounded to float32, in that order.
-__device__ __forceinline__ float border_value3(float v, int k, int i, int j,
-                                               int side, int b) {
-  const bool gx = (j == 0) || (j == side - 1);
-  const bool gy = (i == 0) || (i == side - 1);
-  const bool gz = (k == 0) || (k == side - 1);
+// rounded to float32, in that order.  gx, gy, gz say which axes are ghost
+// axes of the cell.
+__device__ __forceinline__ float border_rule3(float v, bool gx, bool gy,
+                                              bool gz, int b) {
   const float sx = (b == 1) ? -1.0f : 1.0f;
   const float sy = (b == 2) ? -1.0f : 1.0f;
   const float sz = (b == 3) ? -1.0f : 1.0f;
@@ -140,6 +147,44 @@ __device__ __forceinline__ float border_value3(float v, int k, int i, int j,
   if (ghosts == 2) return gz ? (gy ? e_zy : e_zx) : e_yx;
   const float third = static_cast<float>(1.0 / 3.0);
   return third * ((e_yx + e_zx) + e_zy);
+}
+
+__device__ __forceinline__ float border_value3(float v, int k, int i, int j,
+                                               int side, int b) {
+  return border_rule3(v, (j == 0) || (j == side - 1),
+                      (i == 0) || (i == side - 1),
+                      (k == 0) || (k == side - 1), b);
+}
+
+// ---------------------------------------------------------------------------
+// Z-slabs (the 3-D multi-device step, parallel/sharded3d.py)
+// ---------------------------------------------------------------------------
+//
+// A z-slab kernel runs on a (planes, side, side) buffer that holds a band of
+// whole (y, x) planes of the global volume, plane k at k*side*side.  Ghost
+// rows and columns belong to every plane; a global wall ghost plane lies
+// only in the buffer of the top slab (buffer plane gtop) or of the bottom
+// slab (gbot), -1 marking its absence, as the row slabs' wall rows do.  A
+// thread on a wall ghost plane evaluates the plane next to it
+// (slab_row_of), so faces, edges and corners follow in the same launch.
+
+// Flat index of the interior cell that buffer cell (k, i, j) derives from.
+__device__ __forceinline__ int slab_interior_of3(int k, int i, int j,
+                                                 int side, int gtop,
+                                                 int gbot) {
+  const int n = side - 2;
+  return (slab_row_of(k, gtop, gbot) * side + clampi(i, 1, n)) * side +
+         clampi(j, 1, n);
+}
+
+// The value of buffer cell (k, i, j) given the value v of its interior
+// cell.
+__device__ __forceinline__ float slab_border_value3(float v, int k, int i,
+                                                    int j, int side, int gtop,
+                                                    int gbot, int b) {
+  return border_rule3(v, (j == 0) || (j == side - 1),
+                      (i == 0) || (i == side - 1), (k == gtop) || (k == gbot),
+                      b);
 }
 
 // ---------------------------------------------------------------------------
@@ -266,25 +311,26 @@ __device__ __forceinline__ float blend(const Departure& d, float g00,
   return d.s0 * (d.t0 * g00 + d.t1 * g10) + d.s1 * (d.t0 * g01 + d.t1 * g11);
 }
 
+// One coordinate of a departure point under the window clamp of the
+// multi-device gathers (pallas_sharded.py:1089-1096, sharded3d.py:354-356):
+// g - dt0*vel for the cell at global coordinate g, clamped to [0.5, n+0.5],
+// then to [g - cmax, g + cmax], in that order.
+__device__ __forceinline__ float window_coord(int g, float vel, int n,
+                                              float dt0, int cmax) {
+  const float fg = static_cast<float>(g);
+  const float c = static_cast<float>(cmax);
+  const float x = fminf(fmaxf(fg - dt0 * vel, 0.5f),
+                        static_cast<float>(n) + 0.5f);
+  return fminf(fmaxf(x, fg - c), fg + c);
+}
+
 // Departure point of the cell at global (row gr, column gc) with velocity
-// (uc, vc) under the window clamp of the multi-device gather
-// (pallas_sharded.py:1089-1096): (gc, gr) - dt0*(u, v), clamped to
-// [0.5, n+0.5], then to [g - cmax, g + cmax] around the cell's own
-// coordinate, in that order, truncated.  i0 is a global row.
+// (uc, vc) under the window clamp, truncated.  i0 is a global row.
 __device__ __forceinline__ Departure window_backtrace(float uc, float vc,
                                                       int gr, int gc, int n,
                                                       float dt0, int cmax) {
-  const float lo = 0.5f;
-  const float hi = static_cast<float>(n) + 0.5f;
-  const float fr = static_cast<float>(gr);
-  const float fc = static_cast<float>(gc);
-  const float c = static_cast<float>(cmax);
-  float x = fc - dt0 * uc;
-  float y = fr - dt0 * vc;
-  x = fminf(fmaxf(x, lo), hi);
-  y = fminf(fmaxf(y, lo), hi);
-  x = fminf(fmaxf(x, fc - c), fc + c);
-  y = fminf(fmaxf(y, fr - c), fr + c);
+  const float x = window_coord(gc, uc, n, dt0, cmax);
+  const float y = window_coord(gr, vc, n, dt0, cmax);
   Departure d;
   d.j0 = static_cast<int>(x);
   d.i0 = static_cast<int>(y);
@@ -302,6 +348,21 @@ struct Departure3 {
   float fx, fy, fz;    // trilinear weights of the upper corner per axis
 };
 
+// The truncated departure point (x, y, z) in a buffer whose plane 0 is
+// global plane z0.
+__device__ __forceinline__ Departure3 departure3(float x, float y, float z,
+                                                 int side, int z0) {
+  const int i0 = static_cast<int>(x);
+  const int j0 = static_cast<int>(y);
+  const int k0 = static_cast<int>(z);
+  Departure3 d;
+  d.base = ((k0 - z0) * side + j0) * side + i0;
+  d.fx = x - static_cast<float>(i0);
+  d.fy = y - static_cast<float>(j0);
+  d.fz = z - static_cast<float>(k0);
+  return d;
+}
+
 __device__ __forceinline__ Departure3 backtrace3(const float* u,
                                                  const float* v,
                                                  const float* w, int ck,
@@ -316,15 +377,7 @@ __device__ __forceinline__ Departure3 backtrace3(const float* u,
   x = fminf(fmaxf(x, lo), hi);
   y = fminf(fmaxf(y, lo), hi);
   z = fminf(fmaxf(z, lo), hi);
-  const int i0 = static_cast<int>(x);
-  const int j0 = static_cast<int>(y);
-  const int k0 = static_cast<int>(z);
-  Departure3 d;
-  d.base = (k0 * side + j0) * side + i0;
-  d.fx = x - static_cast<float>(i0);
-  d.fy = y - static_cast<float>(j0);
-  d.fz = z - static_cast<float>(k0);
-  return d;
+  return departure3(x, y, z, side, 0);
 }
 
 // The trilinear blend in the order of ops/three_d.py advect3:

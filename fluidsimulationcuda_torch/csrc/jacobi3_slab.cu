@@ -1,0 +1,71 @@
+// K13 jacobi3_slab: one 7-point Jacobi (or Chebyshev) sweep over planes
+// [lo, hi) of a plane-halo-extended z-slab.
+//
+// Replaces the TPU kernel _jacobi3_slab_kernel
+// (fluidsimulationcuda_tpu/kernels/pallas_sharded_3d.py:105), reached
+// through fused_jacobi3_slab (:310, pallas_call at :349) and, as one
+// Chebyshev chain segment, fused_cheby3_slab (:381, pallas_call at :442).
+// It is K5 (jacobi3.cu) restricted to a range of planes of an
+// (mz + 2H, side, side) buffer, with wall planes.  The TPU kernel runs all
+// sweeps of a halo exchange in VMEM, strip by strip, folding the border rule
+// into its neighbour reads; here one launch is one sweep, and the wrapper
+// (kernels/cuda_sharded_3d.py) rotates scratch buffers with
+// cuda_ops._Sweeps, which also resumes a Chebyshev chain at a given sweep
+// with x_{k-1} carried in and hands both final iterates back.  Sweep k
+// computes planes [k, mz+2H-k): the buffer's edge planes have no neighbour
+// beyond them, and what they would hold reaches one plane further in per
+// sweep, so it never touches the mz slab planes while k < H.
+//
+// The global wall ghost planes (gtop, gbot: buffer planes, -1 when absent)
+// take the set_bnd3 rule from the plane next to them, and ghost rows and
+// columns do the same on every plane (fsc_common.cuh slab_border_value3):
+// the full ghost layer, in the launch that computes it.  The first sweep of
+// a solve reads the guess as it is, ghost faces included (the TPU kernel's
+// unfolded first sweep, pallas_sharded_3d.py:252); later sweeps, and a
+// chained segment's first, read faces derived from the interior, which is
+// what the TPU kernel's folded reads compute.
+//
+// Bound: device memory, as K5: 12 bytes a cell (16 with Chebyshev) over the
+// planes a sweep computes, the 2H halo planes computed again by each slab.
+#include "fsc_common.cuh"
+
+namespace {
+
+__global__ void jacobi3_slab_kernel(fsc::SweepParams p,
+                                    float* __restrict__ out,
+                                    float* __restrict__ rhs_out, int side,
+                                    int b, int lo, int gtop, int gbot) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int k = lo + static_cast<int>(blockIdx.z);
+  if (i >= side || j >= side) return;
+  const int c = fsc::slab_interior_of3(k, i, j, side, gtop, gbot);
+  const int o = (k * side + i) * side + j;
+  const float r = fsc::rhs_at(p, c);
+  const float val = fsc::sweep_at3(p, c, side, r);
+  // The first sweep of a fast solve stores the rhs it built, once per cell
+  // that is its own interior cell, for the sweeps after it.
+  if (rhs_out != nullptr && c == o) rhs_out[c] = r;
+  out[o] = fsc::slab_border_value3(val, k, i, j, side, gtop, gbot, b);
+}
+
+}  // namespace
+
+// The sweep arguments (x .. flags) are those of fsc_jacobi3_sweep, on
+// (planes, side, side) buffers; planes [lo, hi) of out are written, and a
+// sweep reads planes [lo-1, hi+1) of x.  Returns cudaGetLastError() after
+// the launch.
+extern "C" int fsc_jacobi3_slab(const float* x, const float* rhs,
+                                const float* src, const float* xm, float* out,
+                                float* rhs_out, int side, int b, float alpha,
+                                float beta, float ab, float inv_b,
+                                float src_dt, float w, int flags, int lo,
+                                int hi, int gtop, int gbot, void* stream) {
+  if (hi <= lo) return 0;
+  const fsc::SweepParams p = fsc::make_sweep_params(
+      x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt, w, flags);
+  jacobi3_slab_kernel<<<fsc::slab_grid_dim3(side, hi - lo), fsc::block_dim(),
+                        0, static_cast<cudaStream_t>(stream)>>>(
+      p, out, rhs_out, side, b, lo, gtop, gbot);
+  return static_cast<int>(cudaGetLastError());
+}

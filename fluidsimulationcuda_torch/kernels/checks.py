@@ -1,9 +1,9 @@
 """Kernel-against-plain comparisons and device timing on the card.
 
 Shared by ``chip_smoke.py`` and the GPU tests: each ``Check`` calls one
-``cuda_ops``, ``cuda_ops_3d`` or ``cuda_sharded`` wrapper on CUDA tensors
-and its plain version on the same tensors, at the coefficients the 2-D,
-3-D or multi-device step gives it.  Inputs come from
+``cuda_ops``, ``cuda_ops_3d``, ``cuda_sharded`` or ``cuda_sharded_3d``
+wrapper on CUDA tensors and its plain version on the same tensors, at the
+coefficients the 2-D, 3-D or multi-device step gives it.  Inputs come from
 ``np.random.default_rng(seed)``: fields in [-1, 1], velocities scaled so
 the backtrace moves at most two cells (six for the slab gathers that test
 the window clamp).
@@ -25,11 +25,13 @@ from ..core.config import PERF_POINT_3D, PERF_POINTS_2D
 from . import cuda_ops as co
 from . import cuda_ops_3d as co3
 from . import cuda_sharded as cs
+from . import cuda_sharded_3d as cs3
 
 __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks", "timing_checks", "kernel_checks3",
            "timing_checks3", "kernel_checks_slab", "timing_checks_slab",
-           "max_abs_diff", "device_ms"]
+           "kernel_checks_slab3", "timing_checks_slab3", "max_abs_diff",
+           "device_ms"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -531,6 +533,207 @@ def timing_checks_slab(side: int, m: int, device,
                cs.fused_dens_slab_plain, 0, ext(t.src, i, Kd),
                ext(t.x0, i, Kd), slab(t.u, i), slab(t.v, i), fl, alpha=ad,
                beta=bd, iters=20, dt=DT, n=n, cmax=cmax, m=m, K=Kd),
+    ]
+
+
+JAC3_SLAB = ("jacobi3_slab",)
+SLAB3_CMAX = 4  # SimConfig.max_courant's default: the main path's window
+
+
+class _Slab3Inputs(_Inputs):
+    """Random global volumes at ``side`` cut into z-slabs of ``mz`` planes,
+    with velocities that move the backtrace up to 2 cells (``u``, ``v``,
+    ``w``) and up to 6 (``uf``, ``vf``, ``wf``: over the 4-cell window)."""
+
+    def __init__(self, side: int, mz: int, device, seed: int):
+        super().__init__(side, device, seed, ndim=3)
+        rng = np.random.default_rng(seed + 1)
+        vfast = 6.0 / (DT * self.n)
+        self.uf, self.vf, self.wf = (torch.from_numpy(
+            rng.uniform(-vfast, vfast, (side,) * 3).astype(np.float32)
+        ).to(device) for _ in range(3))
+        self.side, self.mz, self.slabs = side, mz, side // mz
+
+    positions = _SlabInputs.positions
+
+    def flags(self, i: int) -> tuple[int, int, int]:
+        return (int(i == 0), int(i == self.slabs - 1), i * self.mz)
+
+    def slab(self, g: torch.Tensor, i: int) -> torch.Tensor:
+        return g[i * self.mz:(i + 1) * self.mz]
+
+    def ext(self, g: torch.Tensor, i: int, H: int) -> torch.Tensor:
+        """Planes [i*mz - H, (i+1)*mz + H) of g, zeros outside the
+        volume."""
+        out = g.new_zeros((self.mz + 2 * H, self.side, self.side))
+        lo, hi = i * self.mz - H, (i + 1) * self.mz + H
+        a, b = max(lo, 0), min(hi, self.side)
+        out[a - lo:b - lo] = g[a:b]
+        return out
+
+    def halo(self, g: torch.Tensor, i: int):
+        """The planes next to slab i, above and below (zeros past a wall)."""
+        e = self.ext(g, i, 1)
+        return e[:1], e[-1:]
+
+
+def _slab3_sweeps_cost(iters: int, planes: int, side: int,
+                       **kw) -> tuple[int, int]:
+    """Cost of the K13 launches of one slab solve segment, in field-cells
+    (use with ``cells=1``): sweep k computes planes [k, planes-k) of the
+    buffer."""
+    fields = ops = 0
+    for k, (f, o) in enumerate(_sweep_costs(iters, 3, **kw), start=1):
+        cells = (planes - 2 * k) * side * side
+        fields, ops = fields + f * cells, ops + o * cells
+    return fields, ops
+
+
+def kernel_checks_slab3(side: int, mz: int, device,
+                        seed: int = 0) -> list[Check]:
+    """Every z-slab wrapper of the 3-D multi-device step in every mode it
+    uses, for a top, an interior and a bottom slab of ``mz`` planes at
+    volume ``side``, with the step's margins (K = min(20, iters, mz-1), H =
+    K+1): 20 Jacobi sweeps, the zero guess, fast math, the compensated
+    point's Chebyshev chain as a first segment and as a chained segment
+    (x_{k-1} carried in and out), the gathers under and over the 4-cell
+    window, and the two stencils."""
+    t = _Slab3Inputs(side, mz, device, seed)
+    n, av = t.n, t.a_visc
+    rho, k_d, k_p = PERF_POINT_3D
+    cmax, out = SLAB3_CMAX, []
+    for pos, i in t.positions().items():
+        fl, ext, slab = t.flags(i), t.ext, t.slab
+
+        def plan(iters):
+            K = min(20, iters, mz - 1)
+            return K, K + 1
+
+        K, H = plan(20)
+        jac = {"jacobi": dict(), "zero_init": dict(zero_init=True),
+               "fast": dict(fast=True)}
+        for mode, kw in jac.items():
+            out.append(_check(
+                f"fused_jacobi3_slab {pos} {mode} {K}it", JAC3_SLAB,
+                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
+                ext(t.x, i, H), ext(t.x0, i, H), fl, mz=mz, H=H, alpha=av,
+                beta=1 + 6 * av, sweeps=K, **kw))
+        # The compensated point's velocity chain (k_d sweeps) as its first
+        # segment, and a segment that resumes it at sweep s with x_{k-1}
+        # carried in; each hands both iterates on.
+        K, H = plan(k_d)
+        s = max(1, K // 2)
+        xm = ext(t.p, i, H)
+        for what, start, sweeps, carried, fast in (
+                ("first segment", 0, s, None, False),
+                ("chained segment", s, min(K, k_d - s), xm, False),
+                ("chained segment fast", s, min(K, k_d - s), xm, True)):
+            out.append(_check(
+                f"fused_cheby3_slab {pos} {what} {start}+{sweeps}it",
+                JAC3_SLAB, cs3.fused_cheby3_slab,
+                cs3.fused_cheby3_slab_plain, 3, ext(t.x, i, H), carried,
+                ext(t.x0, i, H), fl, mz=mz, H=H, alpha=av, beta=1 + 6 * av,
+                cheby_rho=rho, start=start, sweeps=sweeps, fast=fast,
+                carry_in=carried is not None, carry_out=True))
+        K, H = plan(k_p)
+        out.append(_check(
+            f"fused_cheby3_slab {pos} pressure fast 0+{K}it", JAC3_SLAB,
+            cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 0,
+            ext(t.p, i, H), None, ext(t.p, i, H), fl, mz=mz, H=H, alpha=1.0,
+            beta=6.0, cheby_rho=rho, start=0, sweeps=K, zero_init=True,
+            fast=True, carry_out=K < k_p))
+        C = cmax + 1
+        for window, (u, v, w) in (("under", (t.u, t.v, t.w)),
+                                  ("over", (t.uf, t.vf, t.wf))):
+            uvw = tuple(slab(f, i) for f in (u, v, w))
+            out.append(_check(
+                f"advect3_flat_slab {pos} b=0, {window} the window",
+                ("advect3_slab",), cs3.advect3_flat_slab,
+                cs3.advect3_flat_slab_plain, (0,), (ext(t.x, i, C),), *uvw,
+                fl, dt=DT, n=n, cmax=cmax, mz=mz))
+            out.append(_check(
+                f"advect3_flat_slab {pos} u/v/w triple, {window} the window",
+                ("advect3_slab",), cs3.advect3_flat_slab,
+                cs3.advect3_flat_slab_plain, (1, 2, 3),
+                tuple(ext(f, i, C) for f in (u, v, w)), *uvw, fl, dt=DT, n=n,
+                cmax=cmax, mz=mz))
+        uvw = tuple(slab(f, i) for f in (t.u, t.v, t.w))
+        out.append(_check(f"divergence3_slab {pos}", ("divergence3_slab",),
+                          cs3.divergence3_slab, cs3.divergence3_slab_plain,
+                          *uvw, *t.halo(t.w, i), fl, n))
+        out.append(_check(f"gradient3_slab {pos}", ("gradient3_slab",),
+                          cs3.gradient3_slab, cs3.gradient3_slab_plain,
+                          *uvw, slab(t.p, i), *t.halo(t.p, i), fl, n))
+    return out
+
+
+def timing_checks_slab3(side: int, mz: int, device,
+                        seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times for the z-slab kernels, on an interior
+    slab of ``mz`` planes at volume ``side`` with the step's margins: one
+    launch of each CUDA kernel (labelled by the kernel's name; K13 is the
+    first sweep of a 20-sweep segment over the whole extended buffer,
+    ``advect3_slab`` the (u, v, w) triple) beside its plain twin, then each
+    wrapper at the main path's iteration counts.  Costs count the planes
+    each launch computes."""
+    t = _Slab3Inputs(side, mz, device, seed)
+    n, av = t.n, t.a_visc
+    bv = 1 + 6 * av
+    rho, k_d, k_p = PERF_POINT_3D
+    i = t.slabs // 2
+    fl, ext, slab, cmax = t.flags(i), t.ext, t.slab, SLAB3_CMAX
+    cells = mz * side * side
+    uvw = tuple(slab(f, i) for f in (t.u, t.v, t.w))
+    K20 = min(20, mz - 1)
+    Kd, Kp = min(k_d, mz - 1), min(k_p, mz - 1)
+    C = cmax + 1
+
+    def sweeps(k, H, **kw):
+        return _slab3_sweeps_cost(k, mz + 2 * H, side, **kw)
+
+    return [
+        _timed(sweeps(1, K20 + 1), 1, "jacobi3_slab", JAC3_SLAB,
+               cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
+               ext(t.x, i, K20 + 1), ext(t.x0, i, K20 + 1), fl, mz=mz,
+               H=K20 + 1, alpha=av, beta=bv, sweeps=1),
+        _timed(_scaled(DIV3, cells), 1, "divergence3_slab",
+               ("divergence3_slab",), cs3.divergence3_slab,
+               cs3.divergence3_slab_plain, *uvw, *t.halo(t.w, i), fl, n),
+        _timed(_scaled(GRAD3, cells), 1, "gradient3_slab",
+               ("gradient3_slab",), cs3.gradient3_slab,
+               cs3.gradient3_slab_plain, *uvw, slab(t.p, i),
+               *t.halo(t.p, i), fl, n),
+        _timed(_scaled(ADVECT3_TRIPLE, cells), 1, "advect3_slab",
+               ("advect3_slab",), cs3.advect3_flat_slab,
+               cs3.advect3_flat_slab_plain, (1, 2, 3),
+               tuple(ext(f, i, C) for f in (t.u, t.v, t.w)), *uvw, fl, dt=DT,
+               n=n, cmax=cmax, mz=mz),
+        _timed(_scaled(ADVECT3_ONE, cells), 1, "advect3_slab one field",
+               ("advect3_slab",), cs3.advect3_flat_slab,
+               cs3.advect3_flat_slab_plain, (0,), (ext(t.x, i, C),), *uvw,
+               fl, dt=DT, n=n, cmax=cmax, mz=mz),
+        _timed(sweeps(K20, K20 + 1), 1,
+               f"fused_jacobi3_slab {K20}it (u diffusion)", JAC3_SLAB,
+               cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
+               ext(t.src, i, K20 + 1), ext(t.x0, i, K20 + 1), fl, mz=mz,
+               H=K20 + 1, alpha=av, beta=bv, sweeps=K20),
+        _timed(sweeps(K20, K20 + 1, zero_init=True), 1,
+               f"fused_jacobi3_slab {K20}it pressure", JAC3_SLAB,
+               cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 0,
+               ext(t.p, i, K20 + 1), ext(t.p, i, K20 + 1), fl, mz=mz,
+               H=K20 + 1, alpha=1.0, beta=6.0, sweeps=K20, zero_init=True),
+        _timed(sweeps(Kd, Kd + 1, fast=True, cheby=True), 1,
+               f"fused_cheby3_slab {Kd}it fast (u diffusion)", JAC3_SLAB,
+               cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 1,
+               ext(t.src, i, Kd + 1), None, ext(t.x0, i, Kd + 1), fl, mz=mz,
+               H=Kd + 1, alpha=av, beta=bv, cheby_rho=rho, start=0,
+               sweeps=Kd, fast=True),
+        _timed(sweeps(Kp, Kp + 1, zero_init=True, fast=True, cheby=True), 1,
+               f"fused_cheby3_slab {Kp}it fast pressure", JAC3_SLAB,
+               cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 0,
+               ext(t.p, i, Kp + 1), None, ext(t.p, i, Kp + 1), fl, mz=mz,
+               H=Kp + 1, alpha=1.0, beta=6.0, cheby_rho=rho, start=0,
+               sweeps=Kp, zero_init=True, fast=True),
     ]
 
 

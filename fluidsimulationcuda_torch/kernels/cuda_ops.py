@@ -24,7 +24,8 @@ step:
 
 The 3-D kernels (K5-K8) have their wrappers in ``cuda_ops_3d.py``, the
 row-slab kernels of the multi-device step (K9-K12) theirs in
-``cuda_sharded.py``; both share this module's checks, launch helper and
+``cuda_sharded.py``, its z-slab kernels (K13-K16) theirs in
+``cuda_sharded_3d.py``; all share this module's checks, launch helper and
 counts.  ``launch_counts()`` reports how often each kernel was launched
 since ``reset_launch_counts()``: every successful launch adds one, nothing
 else does, so a run can show that it went through the kernels.
@@ -53,7 +54,9 @@ __all__ = [
 
 KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi3_sweep", "divergence3", "gradient3", "advect3",
-           "jacobi_slab", "divergence_slab", "gradient_slab", "advect_slab")
+           "jacobi_slab", "divergence_slab", "gradient_slab", "advect_slab",
+           "jacobi3_slab", "divergence3_slab", "gradient3_slab",
+           "advect3_slab")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -138,23 +141,31 @@ class _Sweeps:
     it for every later sweep: the fold reaches every sweep, not only the
     first launch (the trap of ``pallas_ops.py:550-559``).  The Chebyshev
     weights come from ``cheby_omegas`` on the host, one per launch; the
-    first sweep is plain."""
+    first sweep of a solve is plain.
+
+    A Chebyshev chain may run in segments (the z-slab step exchanges halos
+    between them): ``start`` is the segment's first global sweep, whose ω
+    is ``cheby_omegas[start-1]``, ``xm`` the x_{k-1} carried in, and after
+    the segment ``x`` and ``xm`` are both final iterates, to carry out
+    (the trap of ``pallas_ops.py:560-585``: a chain that restarts ω or
+    drops x_{k-1} at a segment boundary looks plausible and is wrong)."""
 
     def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
-                 src_dt, fast, cheby_rho, kernel="jacobi_sweep"):
+                 src_dt, fast, cheby_rho, kernel="jacobi_sweep", start=0,
+                 xm=None):
         self.kernel = kernel
         self.b = b
         self.side = rhs.shape[-1]
         self.stream = _stream(rhs)
         self.x = None if zero_init else x_init  # None: the zero guess
-        self.xm = None
+        self.xm = xm  # None: zero (the chain's x_{-1} is never read)
         self.rhs = rhs
         self.src = x_init if (src_dt is not None and not zero_init) else None
         self.prep = src_dt is not None or fast
         self.fast = fast
         self.omegas = (None if cheby_rho is None
-                       else cheby_omegas(float(cheby_rho), iters))
-        self.k = 0
+                       else cheby_omegas(float(cheby_rho), start + iters))
+        self.k = start
         self.coefs = (_f32(alpha), _f32(beta), _f32(alpha / beta),
                       _f32(1.0 / beta), _f32(0.0 if src_dt is None else src_dt))
         self._pool: list[torch.Tensor] = []

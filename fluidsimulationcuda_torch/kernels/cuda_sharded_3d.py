@@ -1,0 +1,427 @@
+"""The z-slab kernels of the 3-D multi-device step: one wrapper per TPU
+function of ``fluidsimulationcuda_tpu.kernels.pallas_sharded_3d`` (and per
+jnp stencil of its step), each beside its plain PyTorch twin.
+
+A z-slab is a band of ``mz`` whole (y, x) planes of the padded global
+volume, global plane ``plane0 + k`` at slab plane ``k``.  An extended slab
+``(mz + 2H, side, side)`` adds the ``H`` planes above and below it,
+received from the neighbouring slabs (zeros beyond a wall), slab plane
+``k`` at ext plane ``H + k``.  Every function takes ``flags = (is_top,
+is_bot, plane0)`` as host ints, as ``cuda_sharded`` does for row slabs.
+
+Wrappers keep the JAX names and arguments minus the TPU knobs and check
+dtype (float32), shape, contiguity, device and 32-bit indexing.  On CPU
+tensors they return their plain twin (the ``*_plain`` function, which the
+``reference`` backend of the z-slab step also runs, on any device); on CUDA
+tensors they launch the hand-written kernels of ``csrc/`` or raise.
+Nothing falls back.  Launches count in ``cuda_ops.launch_counts()``.
+Unlike the TPU functions, every output carries its full ghost layer.
+
+Four CUDA kernels carry the three TPU kernels and the step's two stencils:
+
+- ``jacobi3_slab`` (K13, ``csrc/jacobi3_slab.cu``), one sweep per launch:
+  ``fused_jacobi3_slab`` (B10a, ``pallas_sharded_3d.py:349``) and
+  ``fused_cheby3_slab`` (B10b, ``:442``), a Chebyshev chain segment that
+  resumes at global sweep ``start`` with x_{k-1} carried in and out;
+- ``advect3_slab`` (K14, ``csrc/advect3_slab.cu``): ``advect3_flat_slab``
+  (B10c, ``:530``), one field or the (u, v, w) triple per launch;
+- ``divergence3_slab`` (K15) and ``gradient3_slab`` (K16),
+  ``csrc/project3_slab.cu``: the step's ``_divergence3_fast`` and
+  ``_gradient3_fast`` (``parallel/sharded3d.py:567-597``).
+
+Each result equals the global operation restricted to the slab while the
+halos are deep enough: ``H >= sweeps + 1`` for a solve segment (JAX's
+margin) and ``cmax + 1`` planes for a gather; the wrappers check these.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.chebyshev import cheby_omegas
+from ..ops.diffuse import as_scalar
+from ..ops.project import grid_h
+from ..ops.three_d import _THIRD, _neigh3, departure3, trilinear
+from . import build
+from . import cuda_ops as co
+from .cuda_sharded import _flags, _require, _run_sweeps, _shift, _wall_rows
+
+__all__ = [
+    "fused_jacobi3_slab", "fused_jacobi3_slab_plain", "fused_cheby3_slab",
+    "fused_cheby3_slab_plain", "advect3_flat_slab", "advect3_flat_slab_plain",
+    "divergence3_slab", "divergence3_slab_plain", "gradient3_slab",
+    "gradient3_slab_plain",
+]
+
+
+# ---------------------------------------------------------------------------
+# Checks and geometry
+# ---------------------------------------------------------------------------
+
+
+def _on_card(*specs: tuple[torch.Tensor, tuple[int, int, int]]) -> bool:
+    """``cuda_ops._on_device`` for (planes, side, side) slab arrays, each
+    at least 3 cells wide and below 2**31 cells (the kernels index with
+    32-bit ints)."""
+    for _, (planes, side, _) in specs:
+        if side < 3 or planes * side * side >= 2**31:
+            raise ValueError(f"unsupported slab shape {(planes, side, side)}")
+    return co._on_device(*specs)
+
+
+# ---------------------------------------------------------------------------
+# Plain building blocks
+# ---------------------------------------------------------------------------
+
+
+def _signs3(b: int) -> tuple[float, float, float]:
+    return (-1.0 if b == 1 else 1.0), (-1.0 if b == 2 else 1.0), \
+        (-1.0 if b == 3 else 1.0)
+
+
+def _slab_bnd3(b: int, x: torch.Tensor, gtop: int, gbot: int) -> torch.Tensor:
+    """The mode-``b`` ghost layer on a (planes, side, side) buffer, in
+    place: ghost rows and columns on every plane, a wall ghost plane
+    (``gtop``/``gbot``, -1 when absent) from the plane next to it; edges
+    average their two face neighbours, corners their three edge neighbours,
+    in the expression order of ``ops.three_d.set_bnd3`` (and of JAX's
+    ``_apply_bnd3_direct``, ``sharded3d.py:516-564``)."""
+    sx, sy, sz = _signs3(b)
+    x[:, 1:-1, 0] = sx * x[:, 1:-1, 1]
+    x[:, 1:-1, -1] = sx * x[:, 1:-1, -2]
+    x[:, 0, 1:-1] = sy * x[:, 1, 1:-1]
+    x[:, -1, 1:-1] = sy * x[:, -2, 1:-1]
+    walls = [(g, nb) for g, nb in ((gtop, gtop + 1), (gbot, gbot - 1))
+             if g >= 0]
+    for g, nb in walls:
+        x[g, 1:-1, 1:-1] = sz * x[nb, 1:-1, 1:-1]
+    ends = ((0, 1), (-1, -2))  # (ghost index, its inner neighbour)
+    for yi, yn in ends:
+        for xi, xn in ends:
+            x[:, yi, xi] = 0.5 * (x[:, yn, xi] + x[:, yi, xn])
+    for g, nb in walls:
+        for yi, yn in ends:
+            x[g, yi, 1:-1] = 0.5 * (x[nb, yi, 1:-1] + x[g, yn, 1:-1])
+        for xi, xn in ends:
+            x[g, 1:-1, xi] = 0.5 * (x[nb, 1:-1, xi] + x[g, 1:-1, xn])
+        for yi, yn in ends:
+            for xi, xn in ends:
+                x[g, yi, xi] = _THIRD * ((x[nb, yi, xi] + x[g, yn, xi])
+                                      + x[g, yi, xn])
+    return x
+
+
+def _sweeps3_plain(b, x, rhs, alpha, beta, sweeps, gtop, gbot, *,
+                   zero_init=False, fast=False, cheby_rho=None, start=0,
+                   xm=None):
+    """The whole (planes, side, side) buffers x and x_{k-1} after
+    ``sweeps`` Jacobi (or Chebyshev, from global sweep ``start``) sweeps,
+    each over the buffer's inner planes (its edge planes keep their input
+    values), with the ghost layer after each.  Fast form and Chebyshev
+    weights as ``cuda_ops.fused_jacobi_plain``."""
+    if zero_init:
+        x = torch.zeros_like(rhs)
+    if fast:
+        rhs = rhs * (1.0 / beta)
+        alpha, beta = alpha / beta, 1.0
+    a = as_scalar(alpha, rhs)
+    bt = as_scalar(beta, rhs)
+    ws = [None] * sweeps
+    if cheby_rho is not None:
+        ws = [None, *cheby_omegas(float(cheby_rho), start + sweeps)]
+        ws = ws[start:start + sweeps]
+    rhs_in = rhs[1:-1, 1:-1, 1:-1]
+    g_in = (_shift(gtop, 1), _shift(gbot, 1))
+    xm = x if xm is None else xm
+    for w in ws:
+        val = (rhs_in + a * _neigh3(x)) / bt
+        if w is not None:
+            wc = as_scalar(w, rhs)
+            val = wc * val + (1.0 - wc) * xm[1:-1, 1:-1, 1:-1]
+        new = x.clone()
+        new[1:-1, 1:-1, 1:-1] = val
+        _slab_bnd3(b, new[1:-1], *g_in)
+        xm, x = x, new
+    return x, xm
+
+
+def _advect3_plain(bs, exts, halo, u, v, w, flags, dt, n, cmax):
+    """The windowed gather (``ops.three_d.advect3_windowed``) of each field
+    of ``exts`` at the cells of an (mz, side, side) slab, at global
+    coordinates; slab plane k is ext plane ``halo + k``."""
+    _, _, plane0 = _flags(flags)
+    mz, side, _ = u.shape
+
+    def coords(lo, count):
+        return torch.arange(lo, lo + count, dtype=torch.float32,
+                            device=u.device)
+
+    x, y, z = departure3(u, v, w, coords(0, side)[None, None, :],
+                         coords(0, side)[None, :, None],
+                         coords(plane0, mz)[:, None, None], dt, n, cmax)
+    gtop, gbot = _wall_rows(flags, 0, mz)
+    return tuple(_slab_bnd3(b, trilinear(ext, x, y, z, plane0 - halo), gtop,
+                            gbot)
+                 for b, ext in zip(bs, exts))
+
+
+def _divergence3_plain(u, v, w, wtop, wbot, n, gtop, gbot):
+    """``(-0.5*h)*((du + dv) + (w_dn - w_up))`` on (planes, side, side)
+    slabs whose neighbour planes are the one-plane halos ``wtop``/``wbot``;
+    border mode 0."""
+    w_up = torch.cat([wtop, w[:-1]])
+    w_dn = torch.cat([w[1:], wbot])
+    out = torch.empty_like(u)
+    out[:, 1:-1, 1:-1] = (-0.5 * grid_h(n)) * (
+        (u[:, 1:-1, 2:] - u[:, 1:-1, :-2]) + (v[:, 2:, 1:-1] - v[:, :-2, 1:-1])
+        + (w_dn - w_up)[:, 1:-1, 1:-1])
+    return _slab_bnd3(0, out, gtop, gbot)
+
+
+def _gradient3_plain(u, v, w, p, ptop, pbot, n, gtop, gbot):
+    """``u - (0.5*dp)/h`` per axis on (planes, side, side) slabs with
+    one-plane halos of ``p``; border modes 1, 2 and 3."""
+    h = as_scalar(grid_h(n), u)
+    p_up = torch.cat([ptop, p[:-1]])
+    p_dn = torch.cat([p[1:], pbot])
+    uo, vo, wo = (torch.empty_like(t) for t in (u, v, w))
+    inner = (slice(None), slice(1, -1), slice(1, -1))
+    uo[inner] = u[inner] - (0.5 * (p[:, 1:-1, 2:] - p[:, 1:-1, :-2])) / h
+    vo[inner] = v[inner] - (0.5 * (p[:, 2:, 1:-1] - p[:, :-2, 1:-1])) / h
+    wo[inner] = w[inner] - (0.5 * (p_dn - p_up)[inner]) / h
+    return (_slab_bnd3(1, uo, gtop, gbot), _slab_bnd3(2, vo, gtop, gbot),
+            _slab_bnd3(3, wo, gtop, gbot))
+
+
+# ---------------------------------------------------------------------------
+# B10a fused_jacobi3_slab, B10b fused_cheby3_slab (K13)
+# ---------------------------------------------------------------------------
+
+
+def _solve_checks(x_ext, rhs_ext, mz, H, sweeps, xm_ext=None) -> bool:
+    side = rhs_ext.shape[-1]
+    _require(sweeps >= 1, "sweeps must be >= 1")
+    _require(H >= sweeps + 1, f"a {H}-plane halo is valid for at most "
+             f"{H - 1} sweeps, got {sweeps}")
+    ext = (mz + 2 * H, side, side)
+    specs = [(rhs_ext, ext), (x_ext, ext)]
+    if xm_ext is not None:
+        specs.append((xm_ext, ext))
+    return _on_card(*specs)
+
+
+def _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta, sweeps, *,
+                   zero_init, fast, cheby_rho=None, start=0, xm_ext=None):
+    """``sweeps`` K13 launches; returns the final (x, x_{k-1}) buffers."""
+    gtop, gbot = _wall_rows(flags, H, mz)
+    with torch.cuda.device(rhs_ext.device):
+        lib = build.load()
+        run = co._Sweeps(b, x_ext, rhs_ext, alpha, beta, sweeps,
+                         zero_init=zero_init, src_dt=None, fast=fast,
+                         cheby_rho=cheby_rho, kernel="jacobi3_slab",
+                         start=start, xm=xm_ext)
+        _run_sweeps(run, lib, sweeps, mz + 2 * H, gtop, gbot)
+        return run.x, run.xm
+
+
+def fused_jacobi3_slab_plain(b, x_ext, rhs_ext, flags, *, mz, H, alpha, beta,
+                             sweeps, zero_init=False, fast=False):
+    _solve_checks(x_ext, rhs_ext, mz, H, sweeps)
+    x, _ = _sweeps3_plain(b, x_ext, rhs_ext, alpha, beta, sweeps,
+                          *_wall_rows(flags, H, mz), zero_init=zero_init,
+                          fast=fast)
+    return x[H:H + mz]
+
+
+def fused_jacobi3_slab(b, x_ext, rhs_ext, flags, *, mz, H, alpha, beta,
+                       sweeps, zero_init=False, fast=False):
+    """``sweeps`` 7-point Jacobi sweeps (the reciprocal form with ``fast``)
+    on an ``(mz+2H, side, side)`` extended slab from guess ``x_ext`` (zero
+    with ``zero_init``; ``x_ext`` is then ignored) with rhs ``rhs_ext``;
+    requires ``H >= sweeps + 1``.  Returns the (mz, side, side) slab.  One
+    K13 launch per sweep."""
+    if not _solve_checks(x_ext, rhs_ext, mz, H, sweeps):
+        return fused_jacobi3_slab_plain(
+            b, x_ext, rhs_ext, flags, mz=mz, H=H, alpha=alpha, beta=beta,
+            sweeps=sweeps, zero_init=zero_init, fast=fast)
+    x, _ = _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta,
+                          sweeps, zero_init=zero_init, fast=fast)
+    return x[H:H + mz]
+
+
+def _cheby_checks(x_ext, xm_ext, rhs_ext, mz, H, sweeps, start,
+                  carry_in) -> bool:
+    _require(carry_in == (xm_ext is not None),
+             "carry_in says whether xm_ext is given")
+    _require(carry_in == (start > 0), "a segment after the first (start > "
+             "0) carries x_{k-1} in, and only such a segment does")
+    return _solve_checks(x_ext, rhs_ext, mz, H, sweeps, xm_ext)
+
+
+def _cheby_result(x, xm, H, mz, carry_out):
+    return (x[H:H + mz], xm[H:H + mz]) if carry_out else x[H:H + mz]
+
+
+def fused_cheby3_slab_plain(b, x_ext, xm_ext, rhs_ext, flags, *, mz, H, alpha,
+                            beta, cheby_rho, start, sweeps, zero_init=False,
+                            fast=False, carry_in=False, carry_out=False):
+    _cheby_checks(x_ext, xm_ext, rhs_ext, mz, H, sweeps, start, carry_in)
+    x, xm = _sweeps3_plain(b, x_ext, rhs_ext, alpha, beta, sweeps,
+                           *_wall_rows(flags, H, mz), zero_init=zero_init,
+                           fast=fast, cheby_rho=cheby_rho, start=start,
+                           xm=xm_ext)
+    return _cheby_result(x, xm, H, mz, carry_out)
+
+
+def fused_cheby3_slab(b, x_ext, xm_ext, rhs_ext, flags, *, mz, H, alpha, beta,
+                      cheby_rho, start, sweeps, zero_init=False, fast=False,
+                      carry_in=False, carry_out=False):
+    """One segment of a Chebyshev chain: global sweeps ``[start, start +
+    sweeps)`` on ``(mz+2H, side, side)`` extended slabs, ω from
+    ``cheby_omegas(cheby_rho)`` at the segment's position (sweep 0 is the
+    chain's plain first sweep).  ``carry_in``: ``xm_ext`` is the extended
+    x_{k-1} of the previous segment (required exactly when ``start > 0``);
+    ``carry_out``: also return the slab of the previous iterate, for the
+    next segment.  Returns the (mz, side, side) slab, or (x, x_{k-1}).  One
+    K13 launch per sweep."""
+    if not _cheby_checks(x_ext, xm_ext, rhs_ext, mz, H, sweeps, start,
+                         carry_in):
+        return fused_cheby3_slab_plain(
+            b, x_ext, xm_ext, rhs_ext, flags, mz=mz, H=H, alpha=alpha,
+            beta=beta, cheby_rho=cheby_rho, start=start, sweeps=sweeps,
+            zero_init=zero_init, fast=fast, carry_in=carry_in,
+            carry_out=carry_out)
+    x, xm = _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta,
+                           sweeps, zero_init=zero_init, fast=fast,
+                           cheby_rho=cheby_rho, start=start, xm_ext=xm_ext)
+    return _cheby_result(x, xm, H, mz, carry_out)
+
+
+# ---------------------------------------------------------------------------
+# B10c advect3_flat_slab (K14)
+# ---------------------------------------------------------------------------
+
+
+def _advect_args(bs, exts, u_slab, v_slab, w_slab, n, cmax, mz):
+    """(bs, exts, halo, on_card) after the checks."""
+    bs, exts = tuple(bs), tuple(exts)
+    _require(len(bs) == len(exts) and len(bs) in (1, 2, 3),
+             "advect3_flat_slab takes one to three fields")
+    planes, side, _ = exts[0].shape
+    halo = (planes - mz) // 2
+    _require(side == n + 2, f"slab width {side} != n+2 = {n + 2}")
+    _require(planes - mz == 2 * halo and halo >= cmax + 1 and cmax >= 0,
+             f"the gather needs an extended slab of mz + 2*halo planes with "
+             f"halo >= cmax+1 = {cmax + 1}; got {planes} planes for mz={mz}")
+    slab = (mz, side, side)
+    on_card = _on_card(*((e, (planes, side, side)) for e in exts),
+                       (u_slab, slab), (v_slab, slab), (w_slab, slab))
+    return bs, exts, halo, on_card
+
+
+def advect3_flat_slab_plain(bs, exts, u_slab, v_slab, w_slab, flags, *, dt, n,
+                            cmax, mz):
+    bs, exts, halo, _ = _advect_args(bs, exts, u_slab, v_slab, w_slab, n,
+                                     cmax, mz)
+    return _advect3_plain(bs, exts, halo, u_slab, v_slab, w_slab, flags, dt,
+                          n, cmax)
+
+
+def advect3_flat_slab(bs, exts, u_slab, v_slab, w_slab, flags, *, dt, n, cmax,
+                      mz):
+    """Windowed trilinear advection of one to three fields (border modes
+    ``bs``) of an (mz, side, side) slab from their extended copies ``exts``
+    (``mz + 2*halo`` planes, ``halo >= cmax+1``; any ``cmax`` the halo
+    holds, where the TPU kernel takes ``cmax <= 2``) by the velocity slabs
+    ``u_slab``, ``v_slab``, ``w_slab``, with one shared backtrace.  Outputs
+    are fresh tensors with their full ghost layer, so the (u, v, w)
+    self-advection reads the pre-advection velocity.  One K14 launch;
+    returns a tuple of (mz, side, side) slabs."""
+    bs, exts, halo, on_card = _advect_args(bs, exts, u_slab, v_slab, w_slab,
+                                           n, cmax, mz)
+    if not on_card:
+        return _advect3_plain(bs, exts, halo, u_slab, v_slab, w_slab, flags,
+                              dt, n, cmax)
+    side = n + 2
+    with torch.cuda.device(u_slab.device):
+        lib = build.load()
+        outs = tuple(u_slab.new_empty((mz, side, side)) for _ in bs)
+        pad = 3 - len(bs)  # null pointers for the fields not given
+        co._launch("advect3_slab", lib.fsc_advect3_slab,
+                   *(e.data_ptr() for e in exts), *[None] * pad,
+                   u_slab.data_ptr(), v_slab.data_ptr(), w_slab.data_ptr(),
+                   *(o.data_ptr() for o in outs), *[None] * pad, mz, side,
+                   halo, *bs, *[0] * pad, co._dt0(dt, n), _flags(flags)[2],
+                   cmax, *_wall_rows(flags, 0, mz), co._stream(u_slab))
+        return outs
+
+
+# ---------------------------------------------------------------------------
+# The step's stencils: divergence3_slab (K15), gradient3_slab (K16)
+# ---------------------------------------------------------------------------
+
+
+def _halo_checks(n, side, *halos) -> None:
+    _require(side == n + 2, f"slab width {side} != n+2 = {n + 2}")
+    for h in halos:
+        _require(h.dim() == 3 and h.shape[0] >= 1
+                 and tuple(h.shape[1:]) == (side, side),
+                 f"a halo is (k >= 1, {side}, {side}) planes, got "
+                 f"{tuple(h.shape)}")
+
+
+def divergence3_slab_plain(u, v, w, wtop, wbot, flags, n):
+    mz, side, _ = u.shape
+    _halo_checks(n, side, wtop, wbot)
+    return _divergence3_plain(u, v, w, wtop[-1:], wbot[:1], n,
+                              *_wall_rows(flags, 0, mz))
+
+
+def divergence3_slab(u, v, w, wtop, wbot, flags, n):
+    """Divergence (border mode 0) on (mz, side, side) slabs; ``wtop``/
+    ``wbot`` hold planes of the neighbouring slabs' w (any number >= 1; the
+    plane next to the slab is the last of ``wtop`` and the first of
+    ``wbot``).  One K15 launch."""
+    mz, side, _ = u.shape
+    _halo_checks(n, side, wtop, wbot)
+    wtop, wbot = wtop[-1:], wbot[:1]
+    slab, one = (mz, side, side), (1, side, side)
+    if not _on_card((u, slab), (v, slab), (w, slab), (wtop, one),
+                    (wbot, one)):
+        return divergence3_slab_plain(u, v, w, wtop, wbot, flags, n)
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        out = torch.empty_like(u)
+        co._launch("divergence3_slab", lib.fsc_divergence3_slab,
+                   u.data_ptr(), v.data_ptr(), w.data_ptr(), wtop.data_ptr(),
+                   wbot.data_ptr(), out.data_ptr(), mz, side,
+                   *_wall_rows(flags, 0, mz), -0.5 * grid_h(n),
+                   co._stream(u))
+        return out
+
+
+def gradient3_slab_plain(u, v, w, p, ptop, pbot, flags, n):
+    mz, side, _ = u.shape
+    _halo_checks(n, side, ptop, pbot)
+    return _gradient3_plain(u, v, w, p, ptop[-1:], pbot[:1], n,
+                            *_wall_rows(flags, 0, mz))
+
+
+def gradient3_slab(u, v, w, p, ptop, pbot, flags, n):
+    """Pressure-gradient subtraction (border modes 1, 2 and 3) on (mz,
+    side, side) slabs, ``ptop``/``pbot`` as ``divergence3_slab``'s halos.
+    One K16 launch; returns the (u, v, w) slabs."""
+    mz, side, _ = u.shape
+    _halo_checks(n, side, ptop, pbot)
+    ptop, pbot = ptop[-1:], pbot[:1]
+    slab, one = (mz, side, side), (1, side, side)
+    if not _on_card((u, slab), (v, slab), (w, slab), (p, slab), (ptop, one),
+                    (pbot, one)):
+        return gradient3_slab_plain(u, v, w, p, ptop, pbot, flags, n)
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        outs = tuple(torch.empty_like(t) for t in (u, v, w))
+        co._launch("gradient3_slab", lib.fsc_gradient3_slab, u.data_ptr(),
+                   v.data_ptr(), w.data_ptr(), p.data_ptr(), ptop.data_ptr(),
+                   pbot.data_ptr(), *(o.data_ptr() for o in outs), mz, side,
+                   *_wall_rows(flags, 0, mz), grid_h(n), co._stream(u))
+        return outs

@@ -7,7 +7,9 @@
 
 ``get_ops`` returns the single-device step's ``OpSet``, ``get_slab_ops``
 the multi-device step's ``SlabOpSet`` (``kernels/cuda_sharded.py``: the
-slab kernels or their plain twins).
+row-slab kernels or their plain twins), ``get_slab3_ops`` the 3-D
+multi-device step's ``Slab3OpSet`` (``kernels/cuda_sharded_3d.py``: the
+z-slab kernels or their plain twins).
 
 The backend is chosen once, explicitly, from the config: callers never
 infer it from which OpSet fields are set, and no path catches an error to
@@ -29,8 +31,8 @@ from ..ops.project import (
 )
 from ..ops.source import add_source
 
-__all__ = ["OpSet", "SlabOpSet", "get_ops", "get_slab_ops",
-           "require_exact_advection"]
+__all__ = ["OpSet", "SlabOpSet", "Slab3OpSet", "get_ops", "get_slab_ops",
+           "get_slab3_ops", "require_exact_advection"]
 
 
 class OpSet(NamedTuple):
@@ -143,4 +145,38 @@ def get_slab_ops(cfg: SimConfig) -> SlabOpSet:
                          cs.fused_dens_slab, cs.advect_slab,
                          cs.divergence_slab, cs.gradient_slab,
                          fast=cfg.fast_math)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+class Slab3OpSet(NamedTuple):
+    """The per-slab operations of the 3-D multi-device step
+    (``parallel/sharded3d.py``), with the signatures of
+    ``kernels/cuda_sharded_3d.py``, and whether this backend honours
+    ``fast_math`` (the ``reference`` backend ignores it, as the JAX
+    package's does)."""
+
+    jacobi: Callable
+    cheby: Callable
+    advect: Callable
+    divergence: Callable
+    gradient: Callable
+    fast: bool
+
+
+def get_slab3_ops(cfg: SimConfig) -> Slab3OpSet:
+    """The z-slab kernels (``cuda``) or their plain twins (``reference``),
+    chosen once from ``cfg.resolved_backend``."""
+    from . import cuda_sharded_3d as cs3
+
+    backend = cfg.resolved_backend
+    if backend == "reference":
+        return Slab3OpSet(cs3.fused_jacobi3_slab_plain,
+                          cs3.fused_cheby3_slab_plain,
+                          cs3.advect3_flat_slab_plain,
+                          cs3.divergence3_slab_plain,
+                          cs3.gradient3_slab_plain, fast=False)
+    if backend == "cuda":
+        return Slab3OpSet(cs3.fused_jacobi3_slab, cs3.fused_cheby3_slab,
+                          cs3.advect3_flat_slab, cs3.divergence3_slab,
+                          cs3.gradient3_slab, fast=cfg.fast_math)
     raise ValueError(f"unknown backend {backend!r}")

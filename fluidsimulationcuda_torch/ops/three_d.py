@@ -14,7 +14,10 @@ The smoke-volume generalization of the 2-D solver (BASELINE config 5):
 - diffusion ``alpha = dt*k*n^2``, ``beta = 1 + 6*alpha``; pressure
   alpha=1, beta=6;
 - advection: backtrace clamped to ``[0.5, n+0.5]`` per axis, trilinear
-  gather, exact at any displacement.
+  gather, exact at any displacement (``advect3``); ``advect3_windowed``
+  also clamps to ``cmax`` cells around the cell, as every z-slab gather of
+  the multi-device step does (``kernels/cuda_sharded_3d.py``).  All three
+  share ``departure3`` and ``trilinear``.
 
 Each function keeps the JAX package's expression order, so both round
 alike.  These are the ``reference`` backend's 3-D ops and the plain forms
@@ -30,7 +33,8 @@ from .project import grid_h
 
 __all__ = [
     "embed_faces3", "embed_interior3", "set_bnd3", "fix_faces3",
-    "fix_edges3", "jacobi_sweep3", "diffuse3", "advect3", "divergence3",
+    "fix_edges3", "jacobi_sweep3", "diffuse3", "departure3", "backtrace3",
+    "trilinear", "advect3", "advect3_windowed", "divergence3",
     "pressure_solve3", "apply_pressure_gradient3", "project3",
 ]
 
@@ -140,29 +144,54 @@ def diffuse3(b: int, x_init: torch.Tensor, x0: torch.Tensor, alpha: float,
     return embed_interior3(b, x[1:-1, 1:-1, 1:-1])
 
 
-def advect3(b: int, d0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-            w: torch.Tensor, dt: float, n: int) -> torch.Tensor:
-    """Semi-Lagrangian advection: backtrace by ``dt*n*(u, v, w)`` taken in
-    float32, clamp to ``[0.5, n+0.5]``, trilinear gather."""
+def departure3(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor,
+               dt: float, n: int, cmax: int | None = None):
+    """Departure points (x, y, z) in grid units of the cells at global
+    padded coordinates ``(xs, ys, zs)`` (broadcast against their velocities
+    ``u``, ``v``, ``w``): ``g - dt0*vel`` per axis, clamped to
+    ``[0.5, n+0.5]`` and then, with ``cmax``, to ``[g - cmax, g + cmax]``
+    around the cell's own coordinate ``g``, in that order.  ``dt0 = dt*n``
+    is taken in float32, as the JAX package takes it."""
     dt0 = float(np.float32(dt) * np.float32(n))
-    coords = torch.arange(1, n + 1, dtype=torch.float32, device=d0.device)
-    x = coords[None, None, :] - dt0 * u[1:-1, 1:-1, 1:-1]
-    y = coords[None, :, None] - dt0 * v[1:-1, 1:-1, 1:-1]
-    z = coords[:, None, None] - dt0 * w[1:-1, 1:-1, 1:-1]
-    x, y, z = (t.clamp(0.5, n + 0.5) for t in (x, y, z))
+    out = []
+    for g, vel in ((xs, u), (ys, v), (zs, w)):
+        c = (g - dt0 * vel).clamp(0.5, n + 0.5)
+        if cmax is not None:
+            c = torch.clamp(c, g - cmax, g + cmax)
+        out.append(c)
+    return tuple(out)
+
+
+def backtrace3(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, dt: float,
+               n: int, cmax: int | None = None):
+    """``departure3`` of every interior cell of the padded volume, float32
+    arrays of shape (n, n, n)."""
+    idx = torch.arange(1, n + 1, dtype=torch.float32, device=u.device)
+    return departure3(u[1:-1, 1:-1, 1:-1], v[1:-1, 1:-1, 1:-1],
+                      w[1:-1, 1:-1, 1:-1], idx[None, None, :],
+                      idx[None, :, None], idx[:, None, None], dt, n, cmax)
+
+
+def trilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+              z: torch.Tensor, z_offset: int = 0) -> torch.Tensor:
+    """Trilinear gather of ``d0`` at departure points (x, y, z), truncated
+    to the lower corner (the clamp makes trunc == floor) and blended in the
+    JAX ``advect3`` order; global plane ``k`` is plane ``k - z_offset`` of
+    ``d0``."""
     i0, j0, k0 = (t.to(torch.int32) for t in (x, y, z))
     fx = x - i0.to(torch.float32)
     fy = y - j0.to(torch.float32)
     fz = z - k0.to(torch.float32)
 
-    side = n + 2
+    side = d0.shape[-1]
     flat = d0.reshape(-1)
-    base = ((k0 * side + j0) * side + i0).to(torch.int64)
+    base = (((k0 - z_offset) * side + j0) * side + i0).to(torch.int64)
 
     def g(dz, dy, dx):
         return flat[base + ((dz * side + dy) * side + dx)]
 
-    interior = (
+    return (
         (1.0 - fz) * (
             (1.0 - fy) * ((1.0 - fx) * g(0, 0, 0) + fx * g(0, 0, 1))
             + fy * ((1.0 - fx) * g(0, 1, 0) + fx * g(0, 1, 1))
@@ -172,7 +201,27 @@ def advect3(b: int, d0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             + fy * ((1.0 - fx) * g(1, 1, 0) + fx * g(1, 1, 1))
         )
     )
-    return embed_interior3(b, interior)
+
+
+def advect3(b: int, d0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, dt: float, n: int) -> torch.Tensor:
+    """Semi-Lagrangian advection: backtrace by ``dt*n*(u, v, w)`` taken in
+    float32, clamp to ``[0.5, n+0.5]``, trilinear gather."""
+    return embed_interior3(b, trilinear(d0, *backtrace3(u, v, w, dt, n)))
+
+
+def advect3_windowed(b: int, d0: torch.Tensor, u: torch.Tensor,
+                     v: torch.Tensor, w: torch.Tensor, dt: float, n: int,
+                     cmax: int = 2) -> torch.Tensor:
+    """Window-clamped trilinear advection (``ops/three_d.py:212-280`` of
+    the JAX package; ``departure3`` with ``cmax``).  It equals ``advect3``
+    while the displacement ``dt*n*|velocity|`` stays at or below ``cmax``
+    on every axis, and is clamped, not refused, above it.  The JAX package
+    sums (2*cmax+1)³ masked shifts; after the window clamp every departure
+    point lies inside the window, so a direct gather reads the same eight
+    values."""
+    return embed_interior3(b, trilinear(d0, *backtrace3(u, v, w, dt, n,
+                                                         cmax)))
 
 
 def divergence3(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

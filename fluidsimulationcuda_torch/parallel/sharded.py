@@ -65,23 +65,21 @@ def _ceil8(x: int) -> int:
     return -(-x // 8) * 8
 
 
-def shard_state(tree, mesh: Mesh):
-    """Split each (side, side) field of a ``FluidState`` or ``Sources``
-    into the row slabs of ``mesh``: a tuple of ``px·py`` tensors of shape
-    (side/(px·py), side), slab ``i`` a copy on the mesh's ``i``-th device
-    (row-major).  A 2-D mesh gets the slabs of its row-flattened form, the
-    only layout the step runs."""
+def _split(tree, mesh: Mesh, ndim: int):
+    """Each ``ndim``-D field of ``tree`` cut along its leading axis into
+    one slab per device of ``mesh`` (row-major), slab ``i`` a copy on the
+    ``i``-th device."""
     devices = mesh.device_list
 
     def split(t):
         if t is None:
             return None
-        if t.dim() != 2 or t.shape[0] != t.shape[1]:
-            raise ValueError(f"expected a (side, side) grid, got "
-                             f"{tuple(t.shape)}")
+        if t.dim() != ndim or len(set(t.shape)) != 1:
+            raise ValueError(f"expected a {ndim}-D field of shape "
+                             f"(side,)*{ndim}, got {tuple(t.shape)}")
         side = t.shape[0]
         if side % len(devices):
-            raise ValueError(f"grid side {side} not divisible by "
+            raise ValueError(f"side {side} not divisible by "
                              f"{len(devices)} slabs")
         m = side // len(devices)
         return tuple(t[i * m:(i + 1) * m].to(d, copy=True)
@@ -90,15 +88,49 @@ def shard_state(tree, mesh: Mesh):
     return type(tree)(*map(split, tree))
 
 
+def shard_state(tree, mesh: Mesh):
+    """Split each (side, side) field of a ``FluidState`` or ``Sources``
+    into the row slabs of ``mesh``: a tuple of ``px·py`` tensors of shape
+    (side/(px·py), side), slab ``i`` a copy on the mesh's ``i``-th device
+    (row-major).  A 2-D mesh gets the slabs of its row-flattened form, the
+    only layout the step runs."""
+    return _split(tree, mesh, 2)
+
+
 def unshard(tree):
-    """Stitch each field's slabs back into one (side, side) tensor on the
-    first slab's device."""
+    """Stitch each field's slabs back into one tensor (a (side, side) grid
+    or a (side, side, side) volume) on the first slab's device."""
     def join(slabs):
         if slabs is None:
             return None
         return torch.cat([s.to(slabs[0].device) for s in slabs])
 
     return type(tree)(*map(join, tree))
+
+
+def _halos(xs, k: int):
+    """(top, bottom) halos of each slab of ``xs``: the ``k`` leading-axis
+    entries (rows, or planes of a z-slab) of the neighbouring slabs next to
+    it, moved to its device, zeros beyond a wall.  A halo must come from
+    the adjacent slab: deeper than a slab raises (JAX's ``x[-K:]`` would
+    silently take fewer)."""
+    out = []
+    for i, x in enumerate(xs):
+        if k > x.shape[0]:
+            raise ValueError(f"a {k}-deep halo is deeper than the "
+                             f"{x.shape[0]}-deep slab")
+        zeros = (k, *x.shape[1:])
+        top = xs[i - 1][-k:].to(x.device) if i > 0 else x.new_zeros(zeros)
+        bot = (xs[i + 1][:k].to(x.device) if i < len(xs) - 1
+               else x.new_zeros(zeros))
+        out.append((top, bot))
+    return out
+
+
+def _ext(xs, k: int):
+    """Each slab extended by its ``k``-deep halos on both sides."""
+    return [torch.cat([top, x, bot])
+            for x, (top, bot) in zip(xs, _halos(xs, k))]
 
 
 def _slab_viable(cfg: SimConfig, slabs: int) -> bool:
@@ -155,25 +187,6 @@ class _SlabStep:
                     f"{_ceil8(iters + 1)}-row halo, deeper than the {m}-row "
                     f"slabs; {_BLOCK_ROUTE}")
 
-    # -- halos ---------------------------------------------------------------
-
-    def _halos(self, xs, k: int):
-        """(top, bottom) k-row halos of each slab: the neighbours' edge
-        rows, zeros beyond a wall."""
-        out = []
-        for i, x in enumerate(xs):
-            top = (xs[i - 1][-k:].to(x.device) if i > 0
-                   else x.new_zeros((k, x.shape[1])))
-            bot = (xs[i + 1][:k].to(x.device) if i < self.px - 1
-                   else x.new_zeros((k, x.shape[1])))
-            out.append((top, bot))
-        return out
-
-    def _ext(self, xs, K: int):
-        """(m + 2K, side) extended slabs."""
-        return [torch.cat([top, x, bot])
-                for x, (top, bot) in zip(xs, self._halos(xs, K))]
-
     # -- the operations of _step_local_pallas ----------------------------------
 
     def _diffuse(self, b, x_init, rhs, alpha, beta, iters, zero_init=False,
@@ -183,9 +196,9 @@ class _SlabStep:
         while remaining > 0:
             s = min(self.fuse, remaining)
             K = _ceil8(s + 1)
-            rhs_ext = self._ext(rhs, K)
+            rhs_ext = _ext(rhs, K)
             zi = zero_init and first
-            x_ext = rhs_ext if zi else self._ext(x, K)
+            x_ext = rhs_ext if zi else _ext(x, K)
             x = [self.ops.jacobi(b, xe, re, fl, m=self.m, K=K, alpha=alpha,
                                  beta=beta, sweeps=s, zero_init=zi,
                                  fast=use_fast)
@@ -202,13 +215,13 @@ class _SlabStep:
                                 beta=beta, sweeps=iters, zero_init=False,
                                 fast=self.ops.fast,
                                 cheby_rho=self.cfg.cheby_rho)
-                for xe, re, fl in zip(self._ext(x_init, K),
-                                      self._ext(rhs, K), self.flags)]
+                for xe, re, fl in zip(_ext(x_init, K),
+                                      _ext(rhs, K), self.flags)]
 
     def _pressure(self, div):
         if self.cheby_p:
             K = _ceil8(self.it_p + 1)
-            ext = self._ext(div, K)
+            ext = _ext(div, K)
             return [self.ops.jacobi(0, e, e, fl, m=self.m, K=K, alpha=1.0,
                                     beta=4.0, sweeps=self.it_p,
                                     zero_init=True, cheby_rho=self.rho_p)
@@ -222,22 +235,22 @@ class _SlabStep:
             K = _ceil8(self.it_p + 3)
             pairs = [self.ops.project(ue, ve, fl, n=n, iters=self.it_p, m=m,
                                       K=K, cheby_rho=self.rho_p)
-                     for ue, ve, fl in zip(self._ext(u, K), self._ext(v, K),
+                     for ue, ve, fl in zip(_ext(u, K), _ext(v, K),
                                            self.flags)]
             return [p[0] for p in pairs], [p[1] for p in pairs]
         div = [self.ops.divergence(ui, vi, top, bot, fl, n)
-               for ui, vi, (top, bot), fl in zip(u, v, self._halos(v, 1),
+               for ui, vi, (top, bot), fl in zip(u, v, _halos(v, 1),
                                                  self.flags)]
         p = self._pressure(div)
         pairs = [self.ops.gradient(ui, vi, pi, top, bot, fl, n)
                  for ui, vi, pi, (top, bot), fl in zip(u, v, p,
-                                                       self._halos(p, 1),
+                                                       _halos(p, 1),
                                                        self.flags)]
         return [q[0] for q in pairs], [q[1] for q in pairs]
 
     def _advect(self, bs, fields, u, v, self_adv):
         cfg, C = self.cfg, self.cfg.max_courant + 1
-        exts = [self._ext(f, C) for f in fields]
+        exts = [_ext(f, C) for f in fields]
         return [self.ops.advect(bs, es, ui, vi, fl, dt=cfg.dt, n=cfg.n,
                                 cmax=cfg.max_courant, m=self.m,
                                 self_adv=self_adv)
@@ -292,8 +305,8 @@ class _SlabStep:
             dens = [ops.dens(0, se, be, ui, vi, fl, alpha=alpha, beta=beta,
                              iters=it, dt=dt, n=n, cmax=cfg.max_courant,
                              m=m, K=K, fast=fast)
-                    for se, be, ui, vi, fl in zip(self._ext(src.dens, K),
-                                                  self._ext(state.dens, K),
+                    for se, be, ui, vi, fl in zip(_ext(src.dens, K),
+                                                  _ext(state.dens, K),
                                                   u, v, self.flags)]
         else:
             dens = [add_source(a, s, dt) for a, s in zip(state.dens,

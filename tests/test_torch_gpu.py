@@ -198,3 +198,63 @@ def test_cuda_volume_launches_or_raises(cuda):
     assert cuda_ops.launch_counts()["jacobi3_sweep"] == 3
     with pytest.raises(ValueError):
         cuda_ops_3d.fused_jacobi3(0, x, x.cpu(), 1.0, 6.0, 3)
+
+
+@pytest.mark.parametrize("side,mz", [(24, 8), (64, 16)])
+def test_slab3_kernels_match_plain(cuda, side, mz):
+    for check in checks.kernel_checks_slab3(side, mz, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert all(counts[k] > 0 for k in check.kernels), (check.label, counts)
+        err = checks.max_abs_diff(got, want)
+        assert err <= checks.TOL, (check.label, err)
+
+
+@pytest.mark.parametrize("mode", ["parity", "compensated"])
+def test_sharded3d_step_launches_and_matches_reference(cuda, mode):
+    """The 3-D multi-device step on 4 z-slabs of 16 planes of 64³: 15-sweep
+    segments, so the 20-sweep solves run chained (15 + 5); compensated with
+    fast math."""
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn_3d,
+                                                    shard_state_3d, unshard)
+
+    kw = dict(COMP3, fast_math=True) if mode == "compensated" else {}
+    cfg = ft.SimConfig(n=62, ndim=3, jacobi_iters=20, backend="cuda",
+                       device=cuda, **kw)
+    mesh = make_mesh([cuda] * 4)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    state, src = shard_state_3d(state, mesh), shard_state_3d(src, mesh)
+    step = make_sharded_step_fn_3d(cfg, mesh)
+    cuda_ops.reset_launch_counts()
+    got = unshard(step(state, src))
+    torch.cuda.synchronize()
+    k_vel = cfg.cheby_iters if mode == "compensated" else cfg.jacobi_iters
+    k_p = cfg.press_cheby_iters if mode == "compensated" else cfg.jacobi_iters
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        "jacobi3_slab": 4 * (4 * k_vel + 2 * k_p),
+        "divergence3_slab": 8, "gradient3_slab": 8, "advect3_slab": 8}
+    ref = make_sharded_step_fn_3d(cfg.replace(backend="reference"), mesh)
+    want = unshard(ref(state, src))
+    # The reference backend ignores fast_math (phase 9 of chip_smoke.py).
+    atol = 1e-4 if mode == "compensated" else 2e-5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+
+
+def test_cuda_slab3_launches_or_raises(cuda):
+    from fluidsimulationcuda_torch.kernels import cuda_sharded_3d
+
+    x = torch.zeros(16, 24, 24, device=cuda)
+    cuda_ops.reset_launch_counts()
+    cuda_sharded_3d.fused_jacobi3_slab(0, x, x, (1, 0, 0), mz=8, H=4,
+                                       alpha=1.0, beta=6.0, sweeps=3)
+    assert cuda_ops.launch_counts()["jacobi3_slab"] == 3
+    with pytest.raises(ValueError):
+        cuda_sharded_3d.fused_jacobi3_slab(0, x, x.cpu(), (1, 0, 0), mz=8,
+                                           H=4, alpha=1.0, beta=6.0,
+                                           sweeps=3)

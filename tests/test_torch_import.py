@@ -30,8 +30,10 @@ def test_import_leaves_jax_out():
         "import fluidsimulationcuda_torch\n"
         "from fluidsimulationcuda_torch.kernels import build, checks, cuda_ops, dispatch\n"
         "from fluidsimulationcuda_torch.kernels import cuda_ops_3d, cuda_sharded\n"
+        "from fluidsimulationcuda_torch.kernels import cuda_sharded_3d\n"
         "from fluidsimulationcuda_torch.models import stable_fluids_3d\n"
         "from fluidsimulationcuda_torch.parallel import mesh, sharded\n"
+        "from fluidsimulationcuda_torch.parallel import sharded3d\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'fluidsimulationcuda_tpu'))\n"
         "assert not bad, bad\n"
@@ -52,7 +54,8 @@ def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (PACKAGE / "csrc").iterdir())
     assert {"jacobi.cu", "project.cu", "advect.cu", "dens_advect.cu",
             "jacobi3.cu", "project3.cu", "advect3.cu", "jacobi_slab.cu",
-            "project_slab.cu", "advect_slab.cu",
+            "project_slab.cu", "advect_slab.cu", "jacobi3_slab.cu",
+            "project3_slab.cu", "advect3_slab.cu",
             "fsc_common.cuh"} <= set(names)
 
 
