@@ -26,6 +26,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and chained segments (x_{k-1} carried in and out), the gathers under and
    over the 4-cell window, the two stencils; timed beside bound and launch
    floor;
+3e. the two fused kernels no step calls (as in the JAX package): K18, the
+   split-operand slab Jacobi, against K9 on the ``torch.cat`` of its
+   operands bit for bit on top, interior and bottom 256-row slabs of 2048²
+   and on 2048-row slabs of 8192² (K = 24, 20 sweeps; Jacobi, zero guess,
+   fast); then K17, the fused velocity tail, at 2048² (20 parity sweeps
+   with windows of 4 and 1 cells, the 14-sweep Chebyshev pressure solve)
+   and K18 on an interior slab, each timed beside its bound, the launch
+   floor, its plain version and the composition it replaces (K3's
+   windowed pair and ``fused_project``; two ``torch.cat`` and K9).  K17
+   against its plain version runs in phase 3, K18 in phase 3c;
 4. the six golden fixtures ``tests/golden/*.npz`` through the ``cuda``
    backend (atol 1e-5);
 5. the 2-D main path, ``StableFluids2D.step`` at 2048² (n=2046), 20 Jacobi
@@ -49,20 +59,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    step and, where the audited displacement stays under the window, against
    ``StableFluids2D.step`` (the impulse moves the 2048² backtrace ~20
    cells, so a forced trajectory, sources × 0.05 every step, is held
-   against it too); ms/step eager and as a CUDA graph;
+   against it too); ms/step eager and as a CUDA graph; then the 8-slab
+   step's first velocity-diffusion chunk again through K18, each slab's
+   halos as the step exchanges them, against the step's own route (bit for
+   bit), launch counts checked;
 11. the 3-D multi-device step, ``make_sharded_step_fn_3d`` with
    ``audited=True`` on one card: 256³ parity on 1 and on 8 z-slabs, the
    compensated mode (``PERF_POINT_3D``) with fast math on 8 slabs, and the
    compensated mode on 32 slabs of 8 planes (every solve chained across
    halo exchanges: 7+3 velocity sweeps, 7+5 pressure sweeps); checked as
    phase 10 checks the row slabs (against ``StableFluids3D.step`` where
-   the audited displacement stays under the window).
+   the audited displacement stays under the window);
+12. the windowed 2-D step, ``StableFluids2D`` at 2048² with
+   ``advect_mode="windowed"`` (4-cell window), parity and the compensated
+   perf mode with fast math: checked as phases 5-6 (launch counts, the
+   ``reference`` backend, which gathers windowed too), the audited
+   displacement printed beside the window, and the step's velocity tail
+   computed again through K17 from the step's own post-projection velocity
+   and held against the step's result (max|Δ| <= 1e-5).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5 for the 2-D kernels, phase 8 for the 3-D
 ones, the 8-slab 2048² parity run of phase 10 for the row-slab kernels, the
-8-slab 256³ parity run of phase 11 for the z-slab kernels), its max|Δ| from
-phase 3, 3b, 3c or 3d, its device time beside its plain version's, and its
+8-slab 256³ parity run of phase 11 for the z-slab kernels, phase 12's tail
+runs for K17 and phase 10's chunk run for K18), its max|Δ| from phase 3,
+3b, 3c, 3d or 3e, its device time beside its plain version's, and its
 bound.  The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
@@ -85,6 +106,7 @@ TPU_KERNELS_3D = "fluidsimulationcuda_tpu/kernels/pallas_ops_3d.py"
 TPU_SLABS = "fluidsimulationcuda_tpu/kernels/pallas_sharded.py"
 TPU_SLABS_3D = "fluidsimulationcuda_tpu/kernels/pallas_sharded_3d.py"
 TPU_STEP_3D = "fluidsimulationcuda_tpu/parallel/sharded3d.py"
+TPU_TAIL = "fluidsimulationcuda_tpu/kernels/pallas_step.py"
 CSRC = "fluidsimulationcuda_torch/csrc"
 # CUDA kernel -> (its source, the pallas_call it replaces on the main path).
 KERNEL_SOURCES = {
@@ -106,6 +128,8 @@ KERNEL_SOURCES = {
     "divergence3_slab": (f"{CSRC}/project3_slab.cu", f"{TPU_STEP_3D}:567"),
     "gradient3_slab": (f"{CSRC}/project3_slab.cu", f"{TPU_STEP_3D}:582"),
     "advect3_slab": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
+    "advect_project": (f"{CSRC}/advect_project.cu", f"{TPU_TAIL}:299"),
+    "jacobi_slab_split": (f"{CSRC}/jacobi_slab_split.cu", f"{TPU_SLABS}:506"),
 }
 
 
@@ -422,6 +446,126 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
     return counts
 
 
+def windowed_tail(cfg, state, sources):
+    """The velocity tail of one windowed step of ``cfg`` computed again
+    through K17: the step's velocity up to its first projection (the
+    diffusions and the projection of ``vel_step``, through ``cfg``'s
+    backend), then ``fused_advect_project`` with the step's window and
+    pressure solve.  Returns (u, v), to hold against the step's own."""
+    from fluidsimulationcuda_torch.kernels.cuda_step import (
+        fused_advect_project)
+    from fluidsimulationcuda_torch.kernels.dispatch import get_ops
+    # The head of vel_step, as the step composes it.
+    from fluidsimulationcuda_torch.models.stable_fluids_2d import (
+        _diffuse_velocity, _make_project)
+
+    ops = get_ops(cfg)
+    u, v = _make_project(cfg, ops)(*_diffuse_velocity(
+        cfg, ops, state.u, state.v, sources.u, sources.v))
+    cheby = cfg.pressure_solver == "chebyshev"
+    return fused_advect_project(
+        u, v, cfg.n, cfg.press_cheby_iters if cheby else cfg.jacobi_iters,
+        cfg.dt, cmax=cfg.max_courant,
+        cheby_rho=cfg.cheby_rho if cheby else None)
+
+
+def windowed_path(cfg, label: str, card: str) -> dict[str, int]:
+    """The impulse step of the windowed ``cfg`` through ``step_audited``
+    (its displacement printed beside the window), then its velocity tail
+    again through K17 (``windowed_tail``) held against the step's own
+    result to ``checks.TOL``; the K17 run's launch counts are checked and
+    returned."""
+    from fluidsimulationcuda_torch import reference_init, step_audited
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    state1, disp = step_audited(cfg, state0, sources)
+    disp = float(disp)
+    print(f"{label}: audited displacement {disp:.6f} cells (window "
+          f"{cfg.max_courant}: the gathers "
+          f"{'clamp' if disp > cfg.max_courant else 'are exact'})")
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    u, v = windowed_tail(cfg, state0, sources)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    if counts["advect_project"] != 1:
+        raise AssertionError(f"{label}: K17 launches {counts}")
+    err = max(float((u - state1.u).abs().max()),
+              float((v - state1.v).abs().max()))
+    print(f"{label}: velocity tail through K17 against the step's own: "
+          f"max|d| {err:.3e} ({card})")
+    if not err <= checks.TOL:
+        raise AssertionError(f"{label}: K17 tail max|d| {err:.3e} > "
+                             f"{checks.TOL}")
+    return counts
+
+
+def split_chunk(cfg, slabs: int, label: str, card: str) -> dict[str, int]:
+    """K18 on the row-slab step's Jacobi chunk: the first step's
+    u-diffusion chunk of ``cfg`` on ``slabs`` slabs of one card (rhs u +
+    dt*src from the guess src, ``min(fuse, iters)`` sweeps over a
+    ``ceil8(sweeps+1)``-row halo), each slab's halos as the step exchanges
+    them, through ``fused_jacobi_slab_split`` against the step's own route
+    (the ``torch.cat`` extended slabs and K9), bit for bit; both timed as
+    CUDA graphs over every slab.  Returns the K18 run's launch counts."""
+    from fluidsimulationcuda_torch import reference_init
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.kernels import cuda_sharded as cs
+    from fluidsimulationcuda_torch.ops.source import add_source
+    from fluidsimulationcuda_torch.parallel import make_mesh, shard_state
+    # The step's halo exchange and margin.
+    from fluidsimulationcuda_torch.parallel.sharded import _ceil8, _ext, _halos
+
+    mesh = make_mesh([torch.device("cuda", 0)] * slabs)
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    state, src = shard_state(state0, mesh), shard_state(sources, mesh)
+    m = (cfg.n + 2) // slabs
+    sweeps = min(cfg.fuse_sweeps or 20, cfg.jacobi_iters)
+    K = _ceil8(sweeps + 1)
+    alpha = cfg.diffusion_alpha_visc
+    x = src.u
+    rhs = [add_source(a, s, cfg.dt) for a, s in zip(state.u, src.u)]
+    flags = [(int(i == 0), int(i == slabs - 1), i * m) for i in range(slabs)]
+    kw = dict(m=m, K=K, alpha=alpha, beta=1 + 4 * alpha, sweeps=sweeps,
+              fast=cfg.fast_math)
+
+    def own():
+        return [cs.fused_jacobi_slab(1, xe, re, fl, **kw)
+                for xe, re, fl in zip(_ext(x, K), _ext(rhs, K), flags)]
+
+    def split():
+        return [cs.fused_jacobi_slab_split(1, xi, xt, xb, ri, rt, rb, fl,
+                                           **kw)
+                for xi, (xt, xb), ri, (rt, rb), fl
+                in zip(x, _halos(x, K), rhs, _halos(rhs, K), flags)]
+
+    want = own()
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    got = split()
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    design = {**dict.fromkeys(cuda_ops.KERNELS, 0),
+              "jacobi_slab_split": slabs,
+              "jacobi_slab": slabs * (sweeps - 1)}
+    print(f"{label}: launches {counts} (expected {design})")
+    if counts != design:
+        raise AssertionError(f"{label}: launch counts {counts} != {design}")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"{label}: against the step's own route: max|d| {err:.3e}")
+    if err != 0.0:
+        raise AssertionError(f"{label}: K18 chunk differs by {err:.3e}")
+    k1, o1 = checks.device_ms(split), checks.device_ms(own)
+    k2, o2 = checks.device_ms(split), checks.device_ms(own)
+    print(f"{label}: the chunk over {slabs} slabs as a CUDA graph: K18 + K9 "
+          f"{(k1 + k2) / 2:.5f} ms, torch.cat + K9 {(o1 + o2) / 2:.5f} ms "
+          f"({card})")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -478,6 +622,19 @@ def main() -> None:
     times.update(kernel_times(checks.timing_checks_slab3(256, 32, "cuda",
                                                          SEED),
                               "256³, slab of 32 planes", card, floor))
+
+    phase("3e the fused tail K17 and the split slab Jacobi K18")
+    compare(checks.split_against_concat(2048, 256, "cuda", SEED), 0.0, errs,
+            "against K9 on the concatenation")
+    compare(checks.split_against_concat(8192, 2048, "cuda", SEED), 0.0, errs,
+            "against K9 on the concatenation")
+    times.update(kernel_times(checks.timing_checks_tail(2048, "cuda", SEED),
+                              "2048²", card, floor))
+    times.update(kernel_times(checks.timing_checks_split(2048, 256, "cuda",
+                                                         SEED),
+                              "2048², slab of 256 rows", card, floor))
+    kernel_times(checks.timing_checks_split(8192, 2048, "cuda", SEED),
+                 "8192², slab of 2048 rows", card, floor)
 
     phase("4 golden fixtures through the cuda backend")
     paths = sorted(glob.glob(os.path.join(ROOT, "tests", "golden", "*.npz")))
@@ -545,6 +702,8 @@ def main() -> None:
                  tol=(1e-5, 2e-5, 1e-4))
     launches_slab = sharded_path(parity, 8, "2048² parity, 8 slabs", card, 6,
                                  tol=(1e-5, 2e-5, 1e-4))
+    launches_split = split_chunk(parity, 8, "2048² parity, 8 slabs, u "
+                                 "diffusion chunk through K18", card)
     rho, k_d, k_p = perf_operating_point(2048)
     # As in phase 6: the reference backend ignores fast_math.
     sharded_path(cheby.replace(fast_math=True), 8,
@@ -570,8 +729,26 @@ def main() -> None:
     sharded_path(comp3, 32, label + ", 32 slabs of 8 planes", card, 3,
                  tol=(1e-5, 2e-5, 1e-4), graph_reps=1)
 
+    phase("12 the windowed 2-D step: 2048², 4-cell window")
+    windowed = parity.replace(advect_mode="windowed")
+    main_path(windowed, "2048² windowed parity", card, 21,
+              tol=(1e-5, 2e-5, 1e-4))
+    tails = windowed_path(windowed, "2048² windowed parity", card)
+    rho, k_d, k_p = perf_operating_point(2048)
+    label = f"2048² windowed perf (rho={rho}, k_d={k_d}, k_p={k_p}) fast_math"
+    perf_win = cheby.replace(advect_mode="windowed", fast_math=True)
+    # As in phase 6: the reference backend ignores fast_math.
+    main_path(perf_win, label, card, 21, tol=(0.0, 1e-4, 1e-4))
+    tails = {k: c + tails[k]
+             for k, c in windowed_path(perf_win, label, card).items()}
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
                      + launches_slab3[k] for k in cuda_ops.KERNELS}
+    main_launches["advect_project"] = tails["advect_project"]
+    main_launches["jacobi_slab_split"] = launches_split["jacobi_slab_split"]
+    idle = [k for k, c in main_launches.items() if c == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
     kernels = [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],
@@ -591,16 +768,18 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def compare(check_list, tol: float, errs: dict[str, float]) -> None:
-    """Run each check's kernel and plain version on the same inputs and
-    hold them to ``max|d| <= tol``; record the worst per kernel."""
+def compare(check_list, tol: float, errs: dict[str, float],
+            against: str = "") -> None:
+    """Run each check's kernel and plain version (or what ``against``
+    names) on the same inputs and hold them to ``max|d| <= tol``; record
+    the worst per kernel."""
     from fluidsimulationcuda_torch.kernels import checks
 
     for c in check_list:
         got, want = c.run(), c.plain()
         torch.cuda.synchronize()
         err = checks.max_abs_diff(got, want)
-        print(f"  {c.label:45s} max|d| {err:.3e}")
+        print(f"  {c.label:45s} max|d| {err:.3e} {against}")
         if not err <= tol:
             raise AssertionError(f"{c.label}: max|d| {err:.3e} > {tol}")
         for k in c.kernels:
@@ -619,10 +798,12 @@ def launch_floor_ms() -> float:
 def kernel_times(check_list, size: str, card: str, floor: float | None = None
                  ) -> dict[str, tuple[float, float, float, str]]:
     """Device ms of each timing check, kernel beside plain: CUDA graphs of
-    20 calls, timed in turns plain, kernel, kernel, plain; with the bound
-    (the least time for the bytes and operations of its launches over the
-    HBM and float32 peaks) and, given the launch ``floor``, the call's
-    launches times that floor."""
+    20 calls, timed in turns plain, kernel, kernel, plain (plain, kernel,
+    composed, composed, kernel, plain where the check carries the
+    composition a fused kernel replaces); with the bound (the least time
+    for the bytes and operations of its launches over the HBM and float32
+    peaks) and, given the launch ``floor``, the call's launches times that
+    floor."""
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
 
     times = {}
@@ -630,6 +811,9 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
     for c in check_list:
         p1 = checks.device_ms(c.plain)
         k1 = checks.device_ms(c.run)
+        if c.composed is not None:
+            c1 = checks.device_ms(c.composed)
+            c2 = checks.device_ms(c.composed)
         k2 = checks.device_ms(c.run)
         p2 = checks.device_ms(c.plain)
         bound, bound_by = c.bound()
@@ -638,6 +822,8 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
         line = (f"  {c.label:45s} kernel {kernel:.5f} ms  plain {plain:.5f} "
                 f"ms  bound {bound:.5f} ms ({bound_by}; "
                 f"{100 * bound / kernel:.1f}% of it)")
+        if c.composed is not None:
+            line += f"  composition it replaces {(c1 + c2) / 2:.5f} ms"
         if floor is not None:
             cuda_ops.reset_launch_counts()
             c.run()

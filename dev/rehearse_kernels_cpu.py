@@ -11,10 +11,14 @@ build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
 ``__device__``, ``dim3``, ``blockIdx``/``threadIdx``, and every launch
 ``k<<<grid, block, 0, stream>>>(args);`` becomes a loop over the grid (the
 kernels run one thread per cell, with no shared memory or barriers).  The
-wrappers of ``kernels/cuda_ops.py``, ``kernels/cuda_ops_3d.py``,
-``kernels/cuda_sharded.py`` and ``kernels/cuda_sharded_3d.py`` then run
-against that library on CPU tensors (their device checks, stream and loader
-patched), and:
+one cooperative launch, K17 (``csrc/advect_project.cu``), runs as a single
+thread: its grid-stride loops then cover every cell, stage after stage, and
+its grid barriers (a stub ``cooperative_groups.h``) have nothing to wait
+for, so each stage runs whole over the grid before the next.  The wrappers
+of ``kernels/cuda_ops.py``, ``kernels/cuda_ops_3d.py``,
+``kernels/cuda_step.py``, ``kernels/cuda_sharded.py`` and
+``kernels/cuda_sharded_3d.py`` then run against that library on CPU tensors
+(their device checks, stream and loader patched), and:
 
 - every check of ``kernels/checks.py`` (``kernel_checks`` at ``--side2``,
   ``kernel_checks3`` at ``--side3``, ``kernel_checks_slab`` for slabs of
@@ -23,7 +27,9 @@ patched), and:
   and plain version;
 - one 2-D and one 3-D step per mode go through the ``cuda`` backend, their
   launch counts against ``chip_smoke.expected_launches(3)``, their state
-  against the ``reference`` backend;
+  against the ``reference`` backend; the 2-D steps also in windowed mode,
+  and each windowed step's velocity tail again through K17 against the
+  step's own;
 - one multi-device step per mode and route goes through the ``cuda``
   backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``), its
   launch counts against ``chip_smoke.expected_launches_sharded``, its state
@@ -80,8 +86,32 @@ template <class F> void shim_launch(dim3 g, dim3 b, F f) {
               f();
             }
 }
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorCooperativeLaunchTooLarge = 82 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 0; }
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, int) {
+  *n = 1; return 0;
+}
+// A cooperative launch runs one thread (see the module docstring).
+template <class P> int cudaLaunchCooperativeKernel(void (*fn)(P), dim3, dim3, void** args,
+                                                   int, cudaStream_t) {
+  gridDim = blockDim = dim3(1, 1, 1); blockIdx = threadIdx = dim3(0, 0, 0);
+  fn(*static_cast<P*>(args[0]));
+  return 0;
+}
+"""
+COOPERATIVE_GROUPS = r"""#pragma once
+namespace cooperative_groups {
+struct grid_group { void sync() const {} };
+inline grid_group this_grid() { return grid_group(); }
+}
 """
 LAUNCH = re.compile(r"(\w+)<<<(.*?)>>>\((.*?)\);", re.S)
+# The shim's cudaLaunchCooperativeKernel takes the kernel with its type.
+COOPERATIVE = re.compile(r"cudaLaunchCooperativeKernel\(\s*\(void\s*\*\)\s*")
 
 
 def _top_level_args(text: str) -> list[str]:
@@ -100,6 +130,7 @@ def build_shim_library() -> Path:
     gen = OUT / "gen"
     gen.mkdir(parents=True, exist_ok=True)
     (OUT / "cuda_runtime.h").write_text(SHIM)
+    (OUT / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
     sources = []
     for path in sorted(CSRC.glob("*.cu*")):
         def launch(m):
@@ -107,7 +138,9 @@ def build_shim_library() -> Path:
             return f"shim_launch({grid}, {block}, [&] {{ {m.group(1)}({m.group(3)}); }});"
 
         target = gen / (path.stem + ".cpp" if path.suffix == ".cu" else path.name)
-        target.write_text(LAUNCH.sub(launch, path.read_text()))
+        text = COOPERATIVE.sub("cudaLaunchCooperativeKernel(",
+                               path.read_text())
+        target.write_text(LAUNCH.sub(launch, text))
         if path.suffix == ".cu":
             sources.append(str(target))
     lib = OUT / "libfsc_shim.so"
@@ -178,6 +211,14 @@ def main() -> int:
         bad = err > checks.TOL or not all(counts[k] for k in c.kernels)
         failures += bad
         print(f"  {c.label:45s} max|d| {err:.3e}{'  FAIL' if bad else ''}")
+    # K18 against K9 on the concatenated operands: bit for bit.
+    for c in checks.split_against_concat(args.slab_side, args.slab_side // 4,
+                                         "cpu", 1):
+        with kernels_on_cpu(lib):
+            err = checks.max_abs_diff(c.run(), c.plain())
+        failures += err > 0.0
+        print(f"  {c.label + ' vs concat':45s} max|d| {err:.3e}"
+              f"{'  FAIL' if err > 0.0 else ''}")
 
     modes = {"parity": {},
              "compensated": dict(pressure_solver="chebyshev",
@@ -186,13 +227,19 @@ def main() -> int:
                                  cheby_press_iters=12, fast_math=True),
              "chebyshev-dens": dict(diffusion_solver="chebyshev-dens",
                                     cheby_rho=0.85)}
+    modes["windowed parity"] = modes["parity"]
+    modes["windowed compensated"] = modes["compensated"]
     for ndim, side in ((2, args.side2), (3, args.side3)):
         step = ft.step3 if ndim == 3 else ft.step
         design = (chip_smoke.expected_launches3 if ndim == 3
                   else chip_smoke.expected_launches)
         for mode, kw in modes.items():
-            if ndim == 2 and mode == "compensated":
+            if ndim == 3 and mode.startswith("windowed"):
+                continue  # the 3-D step gathers exactly
+            if ndim == 2 and mode.endswith("compensated"):
                 kw = dict(kw, cheby_rho=0.9, cheby_press_iters=14)
+            if mode.startswith("windowed"):
+                kw = dict(kw, advect_mode="windowed", max_courant=1)
             ref = ft.SimConfig(n=side - 2, ndim=ndim, backend="reference",
                                device="cpu", **kw)
             cfg = ref.replace()
@@ -216,6 +263,18 @@ def main() -> int:
                   f"{err:.3e}, launches "
                   f"{'as designed' if launches_ok else counts}"
                   f"{'  FAIL' if bad else ''}")
+            if mode.startswith("windowed"):
+                with kernels_on_cpu(lib):
+                    cuda_ops.reset_launch_counts()
+                    tail = chip_smoke.windowed_tail(cfg, state, src)
+                    counts = cuda_ops.launch_counts()
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(tail, (got.u, got.v)))
+                bad = err > 0.0 or counts["advect_project"] != 1
+                failures += bad
+                print(f"  2-D {mode} velocity tail through K17 max|d| vs "
+                      f"the step's {err:.3e}, K17 launches "
+                      f"{counts['advect_project']}{'  FAIL' if bad else ''}")
     failures += rehearse_sharded(lib, args.slab_side)
     failures += rehearse_sharded3(lib, args.slab3_side)
     print(f"{failures} failure(s)")

@@ -37,15 +37,20 @@ class SimConfig:
         (``"cuda"``) unless the caller asks for ``"cpu"``.
       fuse_sweeps, max_courant: the multi-device steps' sweeps per halo
         exchange (0: 20) and gather window in cells, as in the JAX
-        package.  The single-device steps run one sweep per launch and
-        gather exactly at any displacement, so neither changes what they
-        compute.
+        package.  The single-device steps run one sweep per launch, so
+        ``fuse_sweeps`` changes nothing there; ``max_courant`` is the 2-D
+        step's window under ``advect_mode="windowed"``.
       pressure_solver: ``"jacobi"`` or ``"chebyshev"`` run here;
         ``"multigrid"`` and ``"cg"`` are accepted in 2-D and raise when a
         step asks for them (not ported yet); 3-D refuses them, as the JAX
         package does.
-      advect_mode: ``"auto"`` and ``"exact"`` gather exactly;
-        ``"windowed"`` is not ported yet.
+      advect_mode: ``"auto"`` and ``"exact"`` gather exactly (the JAX
+        package's ``"auto"`` is windowed on a TPU only); ``"windowed"``
+        clamps each departure point to ``max_courant`` cells around its
+        cell (``ops.advect.advect_windowed``: exact while the backtrace
+        moves at most ``max_courant`` cells), in the 2-D step on both
+        backends.  The 3-D step refuses it (it gathers exactly); the
+        multi-device steps are always windowed.
       ndim: 2 (the flagship) or 3 (smoke volumes, ``(n+2)^3``).
     """
 

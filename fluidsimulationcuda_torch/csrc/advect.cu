@@ -6,9 +6,13 @@
 // wrappers advect_shift :1085 and advect_shift_fused :1100).  The TPU has no
 // fast dynamic gather, so it decomposed the gather into (2C+1)^2 masked
 // shifts over a VMEM window and was exact only while the displacement stayed
-// below C cells.  Hopper gathers through L1/L2 directly, so this kernel is
-// the exact gather of ops/advect.py at any displacement; it equals the TPU
-// result wherever that one was exact.
+// below C cells.  Hopper gathers through L1/L2 directly, so this kernel reads
+// the four points of each departure point directly.  With cmax <= 0 it is
+// the exact gather of ops/advect.py at any displacement; with cmax > 0 the
+// departure point is also clamped to cmax cells around its cell
+// (fsc_common.cuh: departure, the clamp K12 shares), which is the TPU
+// kernel's semantics (ops/advect.py advect_windowed): equal to the exact
+// gather while the displacement stays at or below cmax, clamped above it.
 //
 // Bound: device memory.  A cell reads u, v and four gather points per field
 // (mostly neighbours of each other for a smooth flow, so L1/L2 hits) and
@@ -24,14 +28,14 @@ __global__ void advect_kernel(const float* __restrict__ d1,
                               const float* __restrict__ u,
                               const float* __restrict__ v,
                               float* __restrict__ o1, float* __restrict__ o2,
-                              int side, int b1, int b2, float dt0) {
+                              int side, int b1, int b2, float dt0, int cmax) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= side || j >= side) return;
   const int n = side - 2;
   const fsc::Departure d =
-      fsc::backtrace(u, v, fsc::clampi(i, 1, n), fsc::clampi(j, 1, n), side,
-                     dt0);
+      fsc::departure(u, v, fsc::clampi(i, 1, n), fsc::clampi(j, 1, n), side,
+                     dt0, cmax);
   const int g = d.i0 * side + d.j0;
   const float a = fsc::blend(d, d1[g], d1[g + side], d1[g + 1],
                              d1[g + side + 1]);
@@ -45,13 +49,14 @@ __global__ void advect_kernel(const float* __restrict__ d1,
 
 }  // namespace
 
-// d2/o2 null advects one field.  dt0 = dt*n in float32.  Returns
-// cudaGetLastError() after the launch.
+// d2/o2 null advects one field.  dt0 = dt*n in float32; cmax <= 0 gathers
+// exactly.  Returns cudaGetLastError() after the launch.
 extern "C" int fsc_advect(const float* d1, const float* d2, const float* u,
                           const float* v, float* o1, float* o2, int side,
-                          int b1, int b2, float dt0, void* stream) {
+                          int b1, int b2, float dt0, int cmax, void* stream) {
   advect_kernel<<<fsc::grid_dim(side), fsc::block_dim(), 0,
                   static_cast<cudaStream_t>(stream)>>>(d1, d2, u, v, o1, o2,
-                                                       side, b1, b2, dt0);
+                                                       side, b1, b2, dt0,
+                                                       cmax);
   return static_cast<int>(cudaGetLastError());
 }

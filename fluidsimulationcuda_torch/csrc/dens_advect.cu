@@ -9,7 +9,9 @@
 // gather points of each cell's departure point (with the Chebyshev combine
 // and the derived border rule at ghost and corner points) and blends them.
 // The diffused field is never written to device memory, which is what the
-// TPU fusion (pallas_ops.py:1219-1234) existed for.
+// TPU fusion (pallas_ops.py:1219-1234) existed for.  The departure point is
+// exact for cmax <= 0 and window-clamped to cmax cells otherwise, as K3's
+// (fsc_common.cuh: departure).
 //
 // Bound: memory latency more than bandwidth.  A cell reads u, v and, for
 // each of four gather points, the five stencil points of x_{K-1}, rhs and
@@ -33,14 +35,14 @@ __global__ void dens_advect_kernel(fsc::SweepParams p,
                                    const float* __restrict__ u,
                                    const float* __restrict__ v,
                                    float* __restrict__ out, int side, int b,
-                                   float dt0) {
+                                   float dt0, int cmax) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= side || j >= side) return;
   const int n = side - 2;
   const fsc::Departure d =
-      fsc::backtrace(u, v, fsc::clampi(i, 1, n), fsc::clampi(j, 1, n), side,
-                     dt0);
+      fsc::departure(u, v, fsc::clampi(i, 1, n), fsc::clampi(j, 1, n), side,
+                     dt0, cmax);
   const float g00 = swept_at(p, d.i0, d.j0, side, b);
   const float g10 = swept_at(p, d.i0 + 1, d.j0, side, b);
   const float g01 = swept_at(p, d.i0, d.j0 + 1, side, b);
@@ -52,17 +54,18 @@ __global__ void dens_advect_kernel(fsc::SweepParams p,
 }  // namespace
 
 // The sweep arguments (x .. flags) are those of fsc_jacobi_sweep for the
-// last sweep.  Returns cudaGetLastError() after the launch.
+// last sweep; cmax <= 0 gathers exactly.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int fsc_dens_advect(const float* x, const float* rhs,
                                const float* src, const float* xm, float alpha,
                                float beta, float ab, float inv_b, float src_dt,
                                float w, int flags, const float* u,
                                const float* v, float* out, int side, int b,
-                               float dt0, void* stream) {
+                               float dt0, int cmax, void* stream) {
   const fsc::SweepParams p = fsc::make_sweep_params(
       x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt, w, flags);
   dens_advect_kernel<<<fsc::grid_dim(side), fsc::block_dim(), 0,
                        static_cast<cudaStream_t>(stream)>>>(p, u, v, out, side,
-                                                            b, dt0);
+                                                            b, dt0, cmax);
   return static_cast<int>(cudaGetLastError());
 }

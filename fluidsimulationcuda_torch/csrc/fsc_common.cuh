@@ -341,6 +341,17 @@ __device__ __forceinline__ Departure window_backtrace(float uc, float vc,
   return d;
 }
 
+// Departure point of interior cell (ci, cj) of a (side, side) grid: exact
+// (backtrace) for cmax <= 0, under the window clamp of cmax cells
+// (window_backtrace, ops/advect.py advect_windowed) otherwise.
+__device__ __forceinline__ Departure departure(const float* u, const float* v,
+                                               int ci, int cj, int side,
+                                               float dt0, int cmax) {
+  if (cmax <= 0) return backtrace(u, v, ci, cj, side, dt0);
+  const int c = ci * side + cj;
+  return window_backtrace(u[c], v[c], ci, cj, side - 2, dt0, cmax);
+}
+
 // 3-D departure of interior cell (ck, ci, cj): (cj, ci, ck) - dt0*(u, v, w)
 // clamped per axis to [0.5, n+0.5] and truncated (ops/three_d.py advect3).
 struct Departure3 {

@@ -37,9 +37,13 @@ _SIGNATURES = {
                          _F, _I, _P],
     "fsc_divergence": [_P, _P, _P, _I, _F, _P],
     "fsc_gradient": [_P, _P, _P, _P, _P, _I, _F, _P],
-    "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "fsc_dens_advect": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _P, _P,
-                        _P, _I, _I, _F, _P],
+                        _P, _I, _I, _F, _I, _P],
+    "fsc_advect_project": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _F, _F, _F, _P, _I, _P],
+    "fsc_jacobi_slab_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _F, _F, _F, _F, _I, _I, _I, _P],
     "fsc_jacobi3_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
                           _F, _I, _P],
     "fsc_divergence3": [_P, _P, _P, _P, _I, _F, _P],

@@ -1,17 +1,19 @@
 """Kernel-against-plain comparisons and device timing on the card.
 
 Shared by ``chip_smoke.py`` and the GPU tests: each ``Check`` calls one
-``cuda_ops``, ``cuda_ops_3d``, ``cuda_sharded`` or ``cuda_sharded_3d``
-wrapper on CUDA tensors and its plain version on the same tensors, at the
-coefficients the 2-D, 3-D or multi-device step gives it.  Inputs come from
-``np.random.default_rng(seed)``: fields in [-1, 1], velocities scaled so
-the backtrace moves at most two cells (six for the slab gathers that test
-the window clamp).
+``cuda_ops``, ``cuda_ops_3d``, ``cuda_step``, ``cuda_sharded`` or
+``cuda_sharded_3d`` wrapper on CUDA tensors and its plain version on the
+same tensors, at the coefficients the 2-D, 3-D or multi-device step gives
+it.  Inputs come from ``np.random.default_rng(seed)``: fields in [-1, 1],
+velocities scaled so the backtrace moves at most two cells (six for the
+gathers that test the window clamp).
 
 A timed check also carries its cost: the field-sized arrays its launches
 must move (each launch reading each input once and writing each output
 once) and its float operations per cell.  ``Check.bound()`` turns them into
-the least time the card could take for the same launches.
+the least time the card could take for the same launches.  A fused kernel's
+timed check also carries the composition it replaces (``composed``), timed
+beside it.
 """
 from __future__ import annotations
 
@@ -26,11 +28,14 @@ from . import cuda_ops as co
 from . import cuda_ops_3d as co3
 from . import cuda_sharded as cs
 from . import cuda_sharded_3d as cs3
+from . import cuda_step as cst
 
 __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks", "timing_checks", "kernel_checks3",
            "timing_checks3", "kernel_checks_slab", "timing_checks_slab",
-           "kernel_checks_slab3", "timing_checks_slab3", "max_abs_diff",
+           "kernel_checks_slab3", "timing_checks_slab3",
+           "split_against_concat", "timing_checks_tail",
+           "timing_checks_split", "max_abs_diff",
            "device_ms"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
@@ -55,6 +60,7 @@ class Check:
     plain: Callable[[], object]
     cost: tuple[int, int] = (0, 0)  # (field passes, float ops per cell)
     cells: int = 0  # cells of one field
+    composed: Callable[[], object] | None = None  # what a fusion replaces
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the larger of the bytes the
@@ -130,7 +136,8 @@ ADVECT3_ONE, ADVECT3_TRIPLE = (5, 39), (6, 81)
 
 class _Inputs:
     """Random fields at grid ``side`` (``ndim``-D) and the step's
-    coefficients there."""
+    coefficients there; in 2-D also velocities that move the backtrace up
+    to 6 cells (``uf``, ``vf``: over the 4-cell window)."""
 
     def __init__(self, side: int, device, seed: int, ndim: int = 2):
         rng = np.random.default_rng(seed)
@@ -147,17 +154,29 @@ class _Inputs:
         self.w = field(vscale) if ndim == 3 else None
         self.a_visc = DT * VISC * n * n
         self.a_diff = DT * DIFF * n * n
+        if ndim == 2:
+            rng = np.random.default_rng(seed + 1)
+            vfast = 6.0 / (DT * n)
+            self.uf, self.vf = (torch.from_numpy(
+                rng.uniform(-vfast, vfast, (side, side)).astype(np.float32)
+            ).to(device) for _ in range(2))
 
 
 JAC = ("jacobi_sweep",)
 PROJ = ("divergence", "jacobi_sweep", "gradient")
 DENS = ("jacobi_sweep", "dens_advect")
+TAIL = ("advect_project",)
+CMAX = 4  # SimConfig.max_courant's default: the windowed step's window
 
 
 def kernel_checks(side: int, device, seed: int = 0) -> list[Check]:
     """Every wrapper of the 2-D step in every mode the step uses, at grid
     ``side``: 20 parity sweeps, and the compensated perf mode's
-    (rho, k_d, k_p) = (0.9, 10, 14)."""
+    (rho, k_d, k_p) = (0.9, 10, 14); the gathers exact and windowed (4
+    cells, under and over the window; the pair also at 1 cell); and K17,
+    the fused velocity tail, at 20 parity sweeps with windows of 1 and 4
+    cells, at the compensated mode's Chebyshev pressure solve, and on a
+    batch of two grids."""
     t = _Inputs(side, device, seed)
     n, av, ad = t.n, t.a_visc, t.a_diff
     iters, (rho, k_d, k_p) = 20, PERF_POINTS_2D[2048]
@@ -197,6 +216,39 @@ def kernel_checks(side: int, device, seed: int = 0) -> list[Check]:
                co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
                t.x0, t.u, t.v, ad, 1 + 4 * ad, k_d, DT, n, fast=True,
                cheby_rho=rho),
+    ] + [
+        _check(f"advect_shift b=0 cmax={CMAX}, {window} the window",
+               ("advect",), co.advect_shift, co.advect_shift_plain, 0, t.x,
+               u, v, DT, n, CMAX)
+        for window, (u, v) in (("under", (t.u, t.v)), ("over", (t.uf, t.vf)))
+    ] + [
+        _check(f"advect_shift_fused u/v pair cmax={cmax}", ("advect",),
+               co.advect_shift_fused, co.advect_shift_fused_plain, (1, 2),
+               (u, v), u, v, DT, n, cmax)
+        for cmax, (u, v) in ((1, (t.u, t.v)), (CMAX, (t.uf, t.vf)))
+    ] + [
+        _check(f"fused_dens_advect jacobi {iters}it cmax={CMAX}, over the "
+               f"window", DENS, co.fused_dens_advect,
+               co.fused_dens_advect_plain, 0, t.src, t.x0, t.uf, t.vf, ad,
+               1 + 4 * ad, iters, DT, n, cmax=CMAX),
+        _check(f"fused_dens_advect chebyshev+fast {k_d}it cmax={CMAX}", DENS,
+               co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
+               t.x0, t.uf, t.vf, ad, 1 + 4 * ad, k_d, DT, n, cmax=CMAX,
+               fast=True, cheby_rho=rho),
+        _check(f"fused_advect_project {iters}it cmax=1", TAIL,
+               cst.fused_advect_project, cst.fused_advect_project_plain, t.u,
+               t.v, n, iters, DT, cmax=1),
+        _check(f"fused_advect_project {iters}it cmax={CMAX}, over the "
+               f"window", TAIL, cst.fused_advect_project,
+               cst.fused_advect_project_plain, t.uf, t.vf, n, iters, DT,
+               cmax=CMAX),
+        _check(f"fused_advect_project chebyshev {k_p}it cmax={CMAX}", TAIL,
+               cst.fused_advect_project, cst.fused_advect_project_plain,
+               t.uf, t.vf, n, k_p, DT, cmax=CMAX, cheby_rho=rho),
+        _check(f"fused_advect_project batch of 2, {iters}it cmax=2", TAIL,
+               cst.fused_advect_project, cst.fused_advect_project_plain,
+               torch.stack([t.u, t.uf]), torch.stack([t.v, t.vf]), n, iters,
+               DT, cmax=2),
     ]
 
 
@@ -259,6 +311,39 @@ def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
                co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
                t.x0, t.u, t.v, ad, bd, k_d, DT, n, fast=True, cheby_rho=rho),
         unfused,
+    ]
+
+
+def timing_checks_tail(side: int, device, seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of K17 at grid ``side``, each beside the
+    composition it replaces (K3's windowed pair, then ``fused_project``):
+    20 parity sweeps with the step's 4-cell window on velocities that cross
+    it (labelled by the kernel's name), with JAX's measured 1-cell window,
+    and the compensated mode's 14-sweep Chebyshev pressure solve.  The
+    bound counts the function's own traffic, u and v read once and the
+    projected pair written once."""
+    t = _Inputs(side, device, seed)
+    n, cells, iters = t.n, t.cells, 20
+    rho, _, k_p = PERF_POINTS_2D[2048]
+
+    def tail(label, u, v, cmax, k, cheby_rho=None):
+        sweep_ops = _sweeps_cost(k, 2, zero_init=True,
+                                 cheby=cheby_rho is not None)[1]
+        check = _timed(
+            (4, ADVECT2_PAIR[1] + DIV2[1] + sweep_ops + GRAD2[1]), cells,
+            label, TAIL, cst.fused_advect_project,
+            cst.fused_advect_project_plain, u, v, n, k, DT, cmax=cmax,
+            cheby_rho=cheby_rho)
+        check.composed = lambda: co.fused_project(
+            *co.advect_shift_fused((1, 2), (u, v), u, v, DT, n, cmax), n, k,
+            cheby_rho=cheby_rho)
+        return check
+
+    return [
+        tail("advect_project", t.uf, t.vf, CMAX, iters),
+        tail(f"fused_advect_project {iters}it cmax=1", t.u, t.v, 1, iters),
+        tail(f"fused_advect_project chebyshev {k_p}it cmax={CMAX}", t.uf,
+             t.vf, CMAX, k_p, rho),
     ]
 
 
@@ -368,11 +453,6 @@ class _SlabInputs(_Inputs):
 
     def __init__(self, side: int, m: int, device, seed: int):
         super().__init__(side, device, seed)
-        rng = np.random.default_rng(seed + 1)
-        vfast = 6.0 / (DT * self.n)
-        self.uf, self.vf = (torch.from_numpy(
-            rng.uniform(-vfast, vfast, (side, side)).astype(np.float32)
-        ).to(device) for _ in range(2))
         self.side, self.m, self.slabs = side, m, side // m
 
     def positions(self) -> dict[str, int]:
@@ -397,6 +477,12 @@ class _SlabInputs(_Inputs):
         """JAX's (8, side) neighbour blocks above and below slab i."""
         e = self.ext(g, i, k)
         return e[:k], e[-k:]
+
+    def split(self, g: torch.Tensor, i: int, k: int):
+        """(slab, top halo, bottom halo) of slab i: the operands of
+        ``fused_jacobi_slab_split``, each contiguous."""
+        top, bot = self.halo(g, i, k)
+        return self.slab(g, i), top.contiguous(), bot.contiguous()
 
 
 def kernel_checks_slab(side: int, m: int, device, seed: int = 0) -> list[Check]:
@@ -461,7 +547,78 @@ def kernel_checks_slab(side: int, m: int, device, seed: int = 0) -> list[Check]:
                           cs.gradient_slab, cs.gradient_slab_plain,
                           slab(t.u, i), slab(t.v, i), slab(t.p, i),
                           *t.halo(t.p, i), fl, n))
+        out.extend(_split_cases(t, i, pos, cs.fused_jacobi_slab_split_plain))
     return out
+
+
+SPLIT = ("jacobi_slab_split", "jacobi_slab")
+SPLIT_MODES = {"jacobi": dict(), "zero_init": dict(zero_init=True),
+               "fast": dict(fast=True)}
+
+
+def _split_cases(t: "_SlabInputs", i: int, pos: str, against) -> list[Check]:
+    """K18 (B13) on slab i at the step's 20-sweep margin (K = 24), each
+    mode, against ``against`` on the same operands."""
+    K, sweeps, av = _ceil8(21), 20, t.a_visc
+    x, rhs = t.split(t.x, i, K), t.split(t.x0, i, K)
+    return [_check(f"fused_jacobi_slab_split {pos} {mode} {sweeps}it", SPLIT,
+                   cs.fused_jacobi_slab_split, against, 1, *x, *rhs,
+                   t.flags(i), m=t.m, K=K, alpha=av, beta=1 + 4 * av,
+                   sweeps=sweeps, **kw)
+            for mode, kw in SPLIT_MODES.items()]
+
+
+def _split_cost(sweeps: int, rows: int, side: int, *, zero_init=False,
+                fast=False) -> tuple[int, int]:
+    """Cost of K18's first sweep (x and rhs read, x_1 and the extended rhs
+    written) and K9's sweeps after it, in field-cells."""
+    f, o = _slab_sweeps_cost(sweeps, rows, side, zero_init=zero_init,
+                             fast=True)
+    return f, o - (0 if fast else (rows - 2) * side)
+
+
+def timing_checks_split(side: int, m: int, device,
+                        seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of K18 on an interior slab of ``m``
+    rows at grid ``side``, with the step's 20-sweep margin (K = 24), each
+    beside the composition it replaces (two ``torch.cat``, then K9): its
+    one launch (a 1-sweep solve, labelled by the kernel's name) and the
+    20-sweep solve."""
+    t = _SlabInputs(side, m, device, seed)
+    i, K, av = t.slabs // 2, _ceil8(21), t.a_visc
+    x, rhs, fl = t.split(t.x, i, K), t.split(t.x0, i, K), t.flags(i)
+    rows = m + 2 * K
+    out = []
+    for label, sweeps in (("jacobi_slab_split", 1),
+                          ("fused_jacobi_slab_split 20it", 20)):
+        kw = dict(m=m, K=K, alpha=av, beta=1 + 4 * av, sweeps=sweeps)
+        check = _timed(_split_cost(sweeps, rows, side), 1, label, SPLIT,
+                       cs.fused_jacobi_slab_split,
+                       cs.fused_jacobi_slab_split_plain, 1, *x, *rhs, fl,
+                       **kw)
+        check.composed = (lambda kw=kw: cs.fused_jacobi_slab(
+            1, torch.cat([x[1], x[0], x[2]]),
+            torch.cat([rhs[1], rhs[0], rhs[2]]), fl, **kw))
+        out.append(check)
+    return out
+
+
+def split_against_concat(side: int, m: int, device,
+                         seed: int = 0) -> list[Check]:
+    """K18 against K9 on the ``torch.cat`` of the same operands (JAX's
+    contract for B13: equal bit for bit), for a top, an interior and a
+    bottom slab of ``m`` rows at grid ``side``."""
+    t = _SlabInputs(side, m, device, seed)
+
+    def concat(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags, *,
+               zero_init=False, **kw):
+        r = torch.cat([rhs_top, rhs, rhs_bot])
+        xe = r if zero_init else torch.cat([x_top, x, x_bot])
+        return cs.fused_jacobi_slab(b, xe, r, flags, zero_init=zero_init,
+                                    **kw)
+
+    return [c for pos, i in t.positions().items()
+            for c in _split_cases(t, i, pos, concat)]
 
 
 def timing_checks_slab(side: int, m: int, device,

@@ -2,11 +2,13 @@
 PyTorch version.
 
 Wrappers keep the names and signatures of ``fluidsimulationcuda_tpu.kernels.
-pallas_ops`` minus the TPU-only knobs (``max_fused``, ``cmax``, ``nb1``,
-``damp``, ``self_advect``).  Each checks dtype (float32), shape, contiguity
-and device.  On CPU tensors it returns its plain version, built from
-``ops/``; on CUDA tensors it launches the hand-written kernels of ``csrc/``
-(built on first use by ``build.py``) or raises.  Nothing falls back.
+pallas_ops`` minus the TPU-only knobs (``max_fused``, ``nb1``, ``damp``,
+``self_advect``).  The gathers take JAX's ``cmax`` (the gather window in
+cells); None gathers exactly.  Each checks dtype (float32), shape,
+contiguity and device.  On CPU tensors it returns its plain version, built
+from ``ops/``; on CUDA tensors it launches the hand-written kernels of
+``csrc/`` (built on first use by ``build.py``) or raises.  Nothing falls
+back.
 
 Four CUDA kernels (K1-K4) carry the five TPU kernel families of the 2-D
 step:
@@ -18,24 +20,26 @@ step:
   make ``fused_project`` (``:899``); alone they are ``divergence_p``
   (``:1622``) and ``gradient_p`` (``:1645``).
 - ``advect`` (K3, ``csrc/advect.cu``): ``advect_shift`` and
-  ``advect_shift_fused`` (``:1182``), an exact gather.
+  ``advect_shift_fused`` (``:1182``), an exact or windowed gather.
 - ``dens_advect`` (K4, ``csrc/dens_advect.cu``): the last sweep and the
   gather of ``fused_dens_advect`` (``:1480``).
 
 The 3-D kernels (K5-K8) have their wrappers in ``cuda_ops_3d.py``, the
-row-slab kernels of the multi-device step (K9-K12) theirs in
-``cuda_sharded.py``, its z-slab kernels (K13-K16) theirs in
-``cuda_sharded_3d.py``; all share this module's checks, launch helper and
-counts.  ``launch_counts()`` reports how often each kernel was launched
-since ``reset_launch_counts()``: every successful launch adds one, nothing
-else does, so a run can show that it went through the kernels.
+row-slab kernels of the multi-device step (K9-K12, and K18 for the
+split-operand slab Jacobi) theirs in ``cuda_sharded.py``, its z-slab
+kernels (K13-K16) theirs in ``cuda_sharded_3d.py``, the fused velocity tail
+(K17) its wrapper in ``cuda_step.py``; all share this module's checks,
+launch helper and counts.  ``launch_counts()`` reports how often each
+kernel was launched since ``reset_launch_counts()``: every successful
+launch adds one, nothing else does, so a run can show that it went through
+the kernels.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.advect import advect
+from ..ops.advect import advect, advect_windowed
 from ..ops.chebyshev import cheby_diffuse, cheby_omegas
 from ..ops.diffuse import diffuse
 from ..ops.project import apply_pressure_gradient, divergence, grid_h
@@ -56,7 +60,7 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi3_sweep", "divergence3", "gradient3", "advect3",
            "jacobi_slab", "divergence_slab", "gradient_slab", "advect_slab",
            "jacobi3_slab", "divergence3_slab", "gradient3_slab",
-           "advect3_slab")
+           "advect3_slab", "advect_project", "jacobi_slab_split")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -189,6 +193,11 @@ class _Sweeps:
         self._pool.append(t)
         return t
 
+    def ran_first_sweep(self, x: torch.Tensor) -> None:
+        """Take x_1 from a first sweep another kernel ran (K18, which also
+        stored the rhs it built in ``self.rhs``)."""
+        self.x, self.prep, self.k = x, False, self.k + 1
+
     def sweep(self, lib, *geometry: int) -> None:
         """One launch; ``geometry`` goes between the sweep scalars and the
         stream (the slab kernel's row range and wall rows)."""
@@ -314,28 +323,47 @@ def fused_project(u, v, n, iters, *, cheby_rho=None):
 # ---------------------------------------------------------------------------
 
 
-def advect_shift_plain(b, d0, u, v, dt, n):
-    return advect(b, d0, u, v, dt, n)
+def _advect_plain(b, d0, u, v, dt, n, cmax):
+    if cmax is None:
+        return advect(b, d0, u, v, dt, n)
+    return advect_windowed(b, d0, u, v, dt, n, cmax)
 
 
-def advect_shift_fused_plain(bs, d0s, u, v, dt, n):
-    return tuple(advect(b, d0, u, v, dt, n) for b, d0 in zip(bs, d0s))
+def advect_shift_plain(b, d0, u, v, dt, n, cmax=None):
+    return _advect_plain(b, d0, u, v, dt, n, cmax)
+
+
+def advect_shift_fused_plain(bs, d0s, u, v, dt, n, cmax=None):
+    return tuple(_advect_plain(b, d0, u, v, dt, n, cmax)
+                 for b, d0 in zip(bs, d0s))
 
 
 def _dt0(dt: float, n: int) -> float:
     return float(np.float32(dt) * np.float32(n))
 
 
-def advect_shift_fused(bs, d0s, u, v, dt, n):
+def _cmax_arg(cmax) -> int:
+    """The kernels' ``cmax`` argument: 0 gathers exactly."""
+    if cmax is None:
+        return 0
+    if cmax < 1:
+        raise ValueError(f"the gather window is >= 1 cell, got cmax={cmax}")
+    return int(cmax)
+
+
+def advect_shift_fused(bs, d0s, u, v, dt, n, cmax=None):
     """Advect one or two fields by the same velocity with one shared
     backtrace (the u/v self-advection pair, ``FluidSequential.c:232,237``).
-    Exact at any displacement; outputs are fresh tensors, so advecting u and
-    v by themselves reads the pre-advection velocity."""
+    Exact at any displacement, or with ``cmax`` clamped to the gather
+    window of ``cmax`` cells (``ops.advect.advect_windowed``); outputs are
+    fresh tensors, so advecting u and v by themselves reads the
+    pre-advection velocity."""
     bs, d0s = tuple(bs), tuple(d0s)
     if len(bs) != len(d0s) or len(d0s) not in (1, 2):
         raise ValueError("advect_shift_fused takes one or two fields")
+    window = _cmax_arg(cmax)
     if not _on_card(n + 2, u, v, *d0s):
-        return advect_shift_fused_plain(bs, d0s, u, v, dt, n)
+        return advect_shift_fused_plain(bs, d0s, u, v, dt, n, cmax)
     with torch.cuda.device(u.device):
         lib = build.load()
         outs = tuple(torch.empty_like(d) for d in d0s)
@@ -343,13 +371,14 @@ def advect_shift_fused(bs, d0s, u, v, dt, n):
                       else (None, None, 0))
         _launch("advect", lib.fsc_advect, d0s[0].data_ptr(), _ptr(d2),
                 u.data_ptr(), v.data_ptr(), outs[0].data_ptr(), _ptr(o2),
-                n + 2, bs[0], b2, _dt0(dt, n), _stream(u))
+                n + 2, bs[0], b2, _dt0(dt, n), window, _stream(u))
         return outs
 
 
-def advect_shift(b, d0, u, v, dt, n):
-    """Semi-Lagrangian advection of one field (``ops.advect.advect``)."""
-    return advect_shift_fused((b,), (d0,), u, v, dt, n)[0]
+def advect_shift(b, d0, u, v, dt, n, cmax=None):
+    """Semi-Lagrangian advection of one field (``ops.advect.advect``, or
+    ``advect_windowed`` with ``cmax``)."""
+    return advect_shift_fused((b,), (d0,), u, v, dt, n, cmax)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -358,22 +387,25 @@ def advect_shift(b, d0, u, v, dt, n):
 
 
 def fused_dens_advect_plain(b, src, base, u, v, alpha, beta, iters, dt, n, *,
-                            fast=False, cheby_rho=None):
+                            cmax=None, fast=False, cheby_rho=None):
     d = fused_jacobi_plain(b, src, base, alpha, beta, iters, src_dt=dt,
                            fast=fast, cheby_rho=cheby_rho)
-    return advect(b, d, u, v, dt, n)
+    return _advect_plain(b, d, u, v, dt, n, cmax)
 
 
 def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
-                      fast=False, cheby_rho=None):
+                      cmax=None, fast=False, cheby_rho=None):
     """``advect(b, diffuse_src(b, src, base, ...), u, v)``: K1 runs the
     first ``iters-1`` sweeps, then K4 evaluates the last sweep at the gather
-    points and blends them, so the diffused field is never stored."""
+    points and blends them, so the diffused field is never stored.  The
+    gather is exact, or windowed with ``cmax`` as ``advect_shift``'s."""
     if iters < 1:
         raise ValueError("iters must be >= 1")
+    window = _cmax_arg(cmax)
     if not _on_card(n + 2, src, base, u, v):
         return fused_dens_advect_plain(b, src, base, u, v, alpha, beta, iters,
-                                       dt, n, fast=fast, cheby_rho=cheby_rho)
+                                       dt, n, cmax=cmax, fast=fast,
+                                       cheby_rho=cheby_rho)
     with torch.cuda.device(base.device):
         lib = build.load()
         sweeps = _Sweeps(b, src, base, alpha, beta, iters, zero_init=False,
@@ -383,7 +415,7 @@ def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
         out = torch.empty_like(base)
         _launch("dens_advect", lib.fsc_dens_advect, *sweeps.next_args(),
                 u.data_ptr(), v.data_ptr(), out.data_ptr(), n + 2, b,
-                _dt0(dt, n), sweeps.stream)
+                _dt0(dt, n), window, sweeps.stream)
         return out
 
 
@@ -393,9 +425,12 @@ def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
 
 
 def make_opset(cfg) -> OpSet:
-    """The CUDA OpSet (twin of ``pallas_ops.make_opset``) for ``cfg``; the
-    only knob it reads is ``fast_math``."""
+    """The CUDA OpSet (twin of ``pallas_ops.make_opset``) for ``cfg``.  It
+    reads ``fast_math``, and ``advect_mode``: ``"windowed"`` gathers under
+    the window of ``max_courant`` cells, as JAX's Pallas OpSet always does;
+    ``"auto"`` and ``"exact"`` gather exactly."""
     fast = cfg.fast_math
+    cmax = cfg.max_courant if cfg.advect_mode == "windowed" else None
 
     def diffuse_op(b, x_init, x0, alpha, beta, iters, cheby_rho=None):
         return fused_jacobi(b, x_init, x0, alpha, beta, iters, fast=fast,
@@ -405,8 +440,11 @@ def make_opset(cfg) -> OpSet:
         return fused_jacobi(b, src, base, alpha, beta, iters, src_dt=dt,
                             fast=fast, cheby_rho=cheby_rho)
 
+    def advect(b, d0, u, v, dt, n):
+        return advect_shift(b, d0, u, v, dt, n, cmax)
+
     def advect_pair(b1, b2, d1, d2, u, v, dt, n):
-        return advect_shift_fused((b1, b2), (d1, d2), u, v, dt, n)
+        return advect_shift_fused((b1, b2), (d1, d2), u, v, dt, n, cmax)
 
     def pressure_solve(div, iters, cheby_rho=None):
         return fused_jacobi(0, div, div, 1.0, 4.0, iters, zero_init=True,
@@ -415,11 +453,11 @@ def make_opset(cfg) -> OpSet:
     def diffuse_advect(b, src, base, u, v, alpha, beta, iters, dt, n,
                        cheby_rho=None):
         return fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt,
-                                 n, fast=fast, cheby_rho=cheby_rho)
+                                 n, cmax=cmax, fast=fast, cheby_rho=cheby_rho)
 
     return OpSet(
         diffuse=diffuse_op,
-        advect=advect_shift,
+        advect=advect,
         divergence=divergence_p,
         pressure_solve=pressure_solve,
         apply_pressure_gradient=gradient_p,

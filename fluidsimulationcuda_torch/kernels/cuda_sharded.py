@@ -18,7 +18,7 @@ also runs, on any device); on CUDA tensors they launch the hand-written
 kernels of ``csrc/`` or raise.  Nothing falls back.  Launches count in
 ``cuda_ops.launch_counts()``.
 
-Four CUDA kernels carry the six TPU kernels:
+Five CUDA kernels carry the seven TPU kernels:
 
 - ``jacobi_slab`` (K9, ``csrc/jacobi_slab.cu``), one sweep per launch:
   ``fused_jacobi_slab`` (B9a, ``pallas_sharded.py:290``);
@@ -27,7 +27,11 @@ Four CUDA kernels carry the six TPU kernels:
   ``gradient_slab`` (B9f, ``:1378``), and with K9 between them
   ``fused_project_slab`` (B9b, ``:700``);
 - ``advect_slab`` (K12, ``csrc/advect_slab.cu``): ``advect_slab`` (B9d,
-  ``:1246``), and after K9's sweeps ``fused_dens_slab`` (B9c, ``:1010``).
+  ``:1246``), and after K9's sweeps ``fused_dens_slab`` (B9c, ``:1010``);
+- ``jacobi_slab_split`` (K18, ``csrc/jacobi_slab_split.cu``), the first
+  sweep of ``fused_jacobi_slab_split`` (B13, ``:506``), whose window is
+  read from the halo and slab operands with no concatenation; K9 runs the
+  sweeps after it.  As in JAX no step calls it.
 
 Each result equals the global operation restricted to the slab while the
 halos are deep enough: ``K >= sweeps`` for the sweeps, ``K >= iters + 1``
@@ -53,6 +57,8 @@ __all__ = [
     "fused_project_slab_plain", "fused_dens_slab", "fused_dens_slab_plain",
     "advect_slab", "advect_slab_plain", "divergence_slab",
     "divergence_slab_plain", "gradient_slab", "gradient_slab_plain",
+    "fused_jacobi_slab_split", "fused_jacobi_slab_split_plain",
+    "jacobi_slab_split_viable",
 ]
 
 
@@ -200,9 +206,10 @@ def _advect_plain(bs, exts, halo, u, v, flags, dt, n, cmax):
 
 
 def _run_sweeps(run: co._Sweeps, lib, sweeps: int, rows: int, gtop: int,
-                gbot: int) -> torch.Tensor:
-    """``sweeps`` K9 launches; sweep k computes buffer rows [k, rows-k)."""
-    for k in range(1, sweeps + 1):
+                gbot: int, first: int = 1) -> torch.Tensor:
+    """K9 launches for sweeps ``first..sweeps``; sweep k computes buffer
+    rows [k, rows-k)."""
+    for k in range(first, sweeps + 1):
         run.sweep(lib, k, rows - k, gtop, gbot)
     return run.x
 
@@ -250,6 +257,82 @@ def fused_jacobi_slab(b, x_ext, rhs_ext, flags, *, m, K, alpha, beta,
                          zero_init=zero_init, src_dt=None, fast=fast,
                          cheby_rho=cheby_rho, kernel="jacobi_slab")
         return _run_sweeps(run, lib, sweeps, m + 2 * K, gtop, gbot)[K:K + m]
+
+
+# ---------------------------------------------------------------------------
+# B13 fused_jacobi_slab_split (K18 + K9)
+# ---------------------------------------------------------------------------
+
+
+def jacobi_slab_split_viable(m: int, side: int, K: int) -> bool:
+    """Whether K18 takes an (m, side) slab with K-row halos.  JAX's gate
+    ``tm >= K`` sizes the TPU's strip DMAs and is left out."""
+    return m >= 1 and K >= 1 and side >= 3 and (m + 2 * K) * side < 2**31
+
+
+def _split_checks(x, x_top, x_bot, rhs, rhs_top, rhs_bot, m, K, sweeps,
+                  zero_init) -> bool:
+    side = rhs.shape[-1]
+    _require(sweeps >= 1, "sweeps must be >= 1")
+    _require(K >= sweeps, f"a {K}-row halo is valid for at most {K} sweeps, "
+             f"got {sweeps}")
+    _require(jacobi_slab_split_viable(m, side, K),
+             f"unsupported split slab m={m}, side={side}, K={K}")
+    specs = [(rhs, (m, side)), (rhs_top, (K, side)), (rhs_bot, (K, side))]
+    if not zero_init:
+        specs += [(x, (m, side)), (x_top, (K, side)), (x_bot, (K, side))]
+    return _on_card(*specs)
+
+
+def fused_jacobi_slab_split_plain(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot,
+                                  flags, *, m, K, alpha, beta, sweeps,
+                                  zero_init=False, fast=False):
+    """The concat route: the extended slabs by ``torch.cat``, then
+    ``fused_jacobi_slab_plain``."""
+    _split_checks(x, x_top, x_bot, rhs, rhs_top, rhs_bot, m, K, sweeps,
+                  zero_init)
+    rhs_ext = torch.cat([rhs_top, rhs, rhs_bot])
+    x_ext = rhs_ext if zero_init else torch.cat([x_top, x, x_bot])
+    return fused_jacobi_slab_plain(b, x_ext, rhs_ext, flags, m=m, K=K,
+                                   alpha=alpha, beta=beta, sweeps=sweeps,
+                                   zero_init=zero_init, fast=fast)
+
+
+def fused_jacobi_slab_split(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags,
+                            *, m, K, alpha, beta, sweeps, zero_init=False,
+                            fast=False):
+    """``fused_jacobi_slab`` on the slab ``x``/``rhs`` (m, side) and its
+    (K, side) halos ``x_top``/``x_bot``, ``rhs_top``/``rhs_bot`` as they
+    come from the neighbouring slabs, with no concatenated extended slab:
+    K18 runs the first sweep from the three operands and stores the
+    extended rhs it reads, K9 the ``sweeps-1`` sweeps after it.
+    ``zero_init`` starts from zero and ignores the x operands.  Equals
+    ``fused_jacobi_slab`` on the concatenation bit for bit; returns the
+    (m, side) slab."""
+    if not _split_checks(x, x_top, x_bot, rhs, rhs_top, rhs_bot, m, K,
+                         sweeps, zero_init):
+        return fused_jacobi_slab_split_plain(
+            b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags, m=m, K=K,
+            alpha=alpha, beta=beta, sweeps=sweeps, zero_init=zero_init,
+            fast=fast)
+    side, rows = rhs.shape[-1], m + 2 * K
+    gtop, gbot = _wall_rows(flags, K, m)
+    xs = (None, None, None) if zero_init else (x, x_top, x_bot)
+    with torch.cuda.device(rhs.device):
+        lib = build.load()
+        rhs_ext = rhs.new_empty((rows, side))
+        run = co._Sweeps(b, None, rhs_ext, alpha, beta, sweeps,
+                         zero_init=False, src_dt=None, fast=fast,
+                         cheby_rho=None, kernel="jacobi_slab")
+        x1 = run._scratch()
+        co._launch("jacobi_slab_split", lib.fsc_jacobi_slab_split,
+                   *map(co._ptr, xs), rhs.data_ptr(), rhs_top.data_ptr(),
+                   rhs_bot.data_ptr(), x1.data_ptr(), rhs_ext.data_ptr(), m,
+                   K, side, b, *run.coefs[:4], co._FAST if fast else 0,
+                   gtop, gbot, run.stream)
+        run.ran_first_sweep(x1)
+        return _run_sweeps(run, lib, sweeps, rows, gtop, gbot,
+                           first=2)[K:K + m]
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,11 @@
 - ``auto``: decided by ``SimConfig.resolved_backend`` from the config's
   device alone.
 
+Both gather exactly under ``advect_mode="auto"`` or ``"exact"``, and under
+the window of ``max_courant`` cells with ``"windowed"`` (JAX's reference
+backend takes ``ops.advect.advect_windowed`` then, and its Pallas backend
+always gathers so).
+
 ``get_ops`` returns the single-device step's ``OpSet``, ``get_slab_ops``
 the multi-device step's ``SlabOpSet`` (``kernels/cuda_sharded.py``: the
 row-slab kernels or their plain twins), ``get_slab3_ops`` the 3-D
@@ -21,6 +26,7 @@ from typing import Callable, NamedTuple
 
 from ..core.config import SimConfig
 from ..ops.advect import advect as _advect_ref
+from ..ops.advect import advect_windowed as _advect_windowed_ref
 from ..ops.chebyshev import cheby_diffuse as _cheby_diffuse_ref
 from ..ops.chebyshev import cheby_pressure_solve as _cheby_pressure_ref
 from ..ops.diffuse import diffuse as _diffuse_plain
@@ -93,18 +99,28 @@ _REFERENCE_OPS = OpSet(
 
 
 def require_exact_advection(cfg: SimConfig) -> None:
-    """Refuse ``advect_mode="windowed"``: the port gathers exactly."""
+    """Refuse ``advect_mode="windowed"`` in the 3-D step, which gathers
+    exactly (``advect3_windowed`` is not wired into it)."""
     if cfg.advect_mode == "windowed":
         raise NotImplementedError(
-            "advect_mode='windowed' (the TPU gather window) is not ported; "
-            "the port gathers exactly ('auto' or 'exact')")
+            "advect_mode='windowed' (the TPU gather window) is not ported to "
+            "the 3-D step; it gathers exactly ('auto' or 'exact')")
 
 
 def get_ops(cfg: SimConfig) -> OpSet:
-    require_exact_advection(cfg)
     backend = cfg.resolved_backend
     if backend == "reference":
-        return _REFERENCE_OPS
+        if cfg.advect_mode != "windowed":
+            return _REFERENCE_OPS
+        cmax = cfg.max_courant
+
+        def adv(b, d0, u, v, dt, n):
+            return _advect_windowed_ref(b, d0, u, v, dt, n, cmax)
+
+        def adv_pair(b1, b2, d1, d2, u, v, dt, n):
+            return adv(b1, d1, u, v, dt, n), adv(b2, d2, u, v, dt, n)
+
+        return _REFERENCE_OPS._replace(advect=adv, advect_pair=adv_pair)
     if backend == "cuda":
         from . import cuda_ops
 

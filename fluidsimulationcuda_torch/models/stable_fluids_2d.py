@@ -112,9 +112,11 @@ def step_audited(cfg: SimConfig, state: FluidState,
     """``step`` plus the largest semi-Lagrangian backtrace displacement
     (cells, a 0-dim tensor) of this step's advections.  The self-advection
     backtraces through the post-projection intermediate velocity, so the
-    stored state alone under-reports it.  The port's gather is exact at any
-    displacement; the number says whether the TPU's windowed gather (exact
-    below ``cfg.max_courant``) would have been."""
+    stored state alone under-reports it.  Under ``advect_mode="windowed"``
+    the gathers were exact while it stays at or below ``cfg.max_courant``
+    and clamped above; under ``"auto"``/``"exact"`` they are exact at any
+    displacement, and the number says whether the windowed gather would
+    have been."""
     _require_2d(cfg, "step_audited")
     dt0 = cfg.dt * cfg.n
 

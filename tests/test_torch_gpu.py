@@ -258,3 +258,57 @@ def test_cuda_slab3_launches_or_raises(cuda):
         cuda_sharded_3d.fused_jacobi3_slab(0, x, x.cpu(), (1, 0, 0), mz=8,
                                            H=4, alpha=1.0, beta=6.0,
                                            sweeps=3)
+
+
+@pytest.mark.parametrize("side,m", [(64, 16), (2048, 256)])
+def test_split_slab_equals_concat_route(cuda, side, m):
+    """K18 then K9 equal K9 on the ``torch.cat`` of the same operands, bit
+    for bit (JAX's contract for B13)."""
+    for check in checks.split_against_concat(side, m, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts["jacobi_slab_split"] == 1, (check.label, counts)
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("mode", ["parity", "perf"])
+def test_windowed_step_launches_matches_reference_and_k17(cuda, mode):
+    """The windowed 2-D step (a 1-cell window): launches as the exact step,
+    held against the ``reference`` backend; its velocity tail again through
+    K17 equals the step's own."""
+    import chip_smoke
+
+    kw = dict(PERF, fast_math=True) if mode == "perf" else {}
+    cfg = ft.SimConfig(n=254, jacobi_iters=20, backend="cuda", device=cuda,
+                       advect_mode="windowed", max_courant=1, **kw)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.step(cfg, state, src)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        **chip_smoke.expected_launches(cfg)}
+    want = ft.step(cfg.replace(backend="reference"), state, src)
+    # The reference backend ignores fast_math (phase 6 of chip_smoke.py).
+    atol = 1e-4 if mode == "perf" else 2e-5
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+    cuda_ops.reset_launch_counts()
+    tail = chip_smoke.windowed_tail(cfg, state, src)
+    assert cuda_ops.launch_counts()["advect_project"] == 1
+    for a, b in zip(tail, (got.u, got.v)):
+        assert float((a - b).abs().max()) <= checks.TOL
+
+
+def test_cuda_tail_launches_or_raises(cuda):
+    from fluidsimulationcuda_torch.kernels import cuda_step
+
+    u = torch.zeros(34, 34, device=cuda)
+    cuda_ops.reset_launch_counts()
+    cuda_step.fused_advect_project(u, u, 32, 3, 0.016, cmax=2)
+    assert cuda_ops.launch_counts()["advect_project"] == 1
+    with pytest.raises(ValueError):
+        cuda_step.fused_advect_project(u, u.cpu(), 32, 3, 0.016, cmax=2)
