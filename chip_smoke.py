@@ -10,7 +10,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``nvcc`` per source, all started together);
 3. every 2-D kernel against its plain PyTorch version on the card at the
    2048² shapes of the main path (max|Δ| <= 1e-5), plus device times of
-   both beside the bound;
+   both beside the bound; then K1-K4 on a batch of 1024 grids of 258² (the
+   batched datagen step's shapes: one sweep, the 20-sweep and 10-sweep
+   Chebyshev+fast solves, the zero-guess solve, ``fused_project`` at 20
+   and Chebyshev 14 sweeps, K2's stencils, K3's u/v pair exact and at the
+   window ``select_cmax_batched`` probes, K4 in that window), each against
+   its plain version (max|Δ| <= 1e-5) and timed beside its bound; and
+   ``fused_jacobi_pair`` (B12, the u/v diffusion stacked on the batch axis)
+   against two ``fused_jacobi`` calls, bit for bit, on a stack of two 258²
+   grids and of two 2048² grids, timed beside them;
 3b. every 3-D kernel the same way at 256³;
 3c. every row-slab kernel of the multi-device step against its plain twin
    for a top, an interior and a bottom slab of 256 rows at 2048²
@@ -76,11 +84,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``reference`` backend, which gathers windowed too), the audited
    displacement printed beside the window, and the step's velocity tail
    computed again through K17 from the step's own post-projection velocity
-   and held against the step's result (max|Δ| <= 1e-5).
+   and held against the step's result (max|Δ| <= 1e-5);
+13. batched datagen, ``models/batched.py`` at BASELINE config 4 (1024
+   grids of 256², n=254, 20 iterations), parity and the compensated mode
+   (0.9, 10, 14) with fast math: ``select_cmax_batched`` probes the gather
+   window, ``generate_trajectories`` runs 20 windowed steps with a density
+   snapshot every 5 (launch counts checked: those of one grid, 105 parity
+   / 63 compensated a step; the audited displacement finite and within the
+   window; the last snapshot equal to the final density); grids 0, 1, 511
+   and 1023 run again alone through ``StableFluids2D.step`` and equal the
+   batch bit for bit (snapshots and final state); the batch is held against
+   the ``reference`` backend (step 1: rtol 1e-5 / atol 2e-5, or atol 1e-4
+   with fast math, which the reference ignores; the last step: max|Δ| <=
+   1e-4); then ms/step eager and as a CUDA graph, Mcell-updates/s, and one
+   step traced with ``torch.profiler`` (device ms per kernel, busy share).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
-in its main path's run (phase 5 for the 2-D kernels, phase 8 for the 3-D
-ones, the 8-slab 2048² parity run of phase 10 for the row-slab kernels, the
+in its main path's run (phase 5 and phase 13's two trajectories for the
+2-D kernels, phase 8 for the 3-D ones, the 8-slab 2048² parity run of phase 10 for the row-slab kernels, the
 8-slab 256³ parity run of phase 11 for the z-slab kernels, phase 12's tail
 runs for K17 and phase 10's chunk run for K18), its max|Δ| from phase 3,
 3b, 3c, 3d or 3e, its device time beside its plain version's, and its
@@ -107,6 +128,10 @@ TPU_SLABS = "fluidsimulationcuda_tpu/kernels/pallas_sharded.py"
 TPU_SLABS_3D = "fluidsimulationcuda_tpu/kernels/pallas_sharded_3d.py"
 TPU_STEP_3D = "fluidsimulationcuda_tpu/parallel/sharded3d.py"
 TPU_TAIL = "fluidsimulationcuda_tpu/kernels/pallas_step.py"
+# BASELINE config 4 (BASELINE.json:10): 1024 independent sims of 256²; the
+# grids phase 13 runs again one by one.
+DATAGEN_BATCH, DATAGEN_N = 1024, 254
+DATAGEN_GRIDS = (0, 1, 511, 1023)
 CSRC = "fluidsimulationcuda_torch/csrc"
 # CUDA kernel -> (its source, the pallas_call it replaces on the main path).
 KERNEL_SOURCES = {
@@ -566,13 +591,181 @@ def split_chunk(cfg, slabs: int, label: str, card: str) -> dict[str, int]:
     return counts
 
 
+def batched_kernels(card: str, errs: dict[str, float]) -> None:
+    """Phase 3's batched checks: K1-K4 on the datagen step's batch
+    (``DATAGEN_BATCH`` grids at ``DATAGEN_N``, K3 and K4 in the window
+    ``select_cmax_batched`` probes there) against their plain versions and
+    timed beside their bounds; then ``fused_jacobi_pair`` against two
+    ``fused_jacobi`` calls, bit for bit, and timed beside them, on stacks
+    of two grids of the datagen side and of 2048²."""
+    from fluidsimulationcuda_torch import SimConfig, select_cmax_batched
+    from fluidsimulationcuda_torch.kernels import checks
+
+    side = DATAGEN_N + 2
+    cfg = SimConfig(n=DATAGEN_N, jacobi_iters=20, backend="cuda",
+                    device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cmax, probed = select_cmax_batched(gen, cfg, DATAGEN_BATCH)
+    print(f"  batched: {DATAGEN_BATCH} grids of {side}²; the datagen probe "
+          f"moves the backtrace {probed:.6f} cells: window cmax={cmax}")
+    compare(checks.kernel_checks_batched(DATAGEN_BATCH, side, "cuda", SEED,
+                                         cmax), checks.TOL, errs)
+    kernel_times(checks.timing_checks_batched(DATAGEN_BATCH, side, "cuda",
+                                              SEED, cmax),
+                 f"{DATAGEN_BATCH} × {side}²", card)
+    for pair_side in (side, 2048):
+        compare(checks.pair_against_singles(pair_side, "cuda", SEED), 0.0,
+                errs, "against two fused_jacobi calls")
+        kernel_times(checks.timing_checks_pair(pair_side, "cuda", SEED),
+                     f"{pair_side}², a stack of two", card)
+
+
+def datagen_path(cfg, label: str, card: str, tol: tuple[float, float, float],
+                 steps: int = 20, every: int = 5) -> dict[str, int]:
+    """Phase 13 for ``cfg`` on ``DATAGEN_BATCH`` grids: probe the window
+    (``select_cmax_batched``), run ``generate_trajectories`` windowed at it
+    for ``steps`` steps with a snapshot every ``every``, and check its
+    launch counts (those of one grid a step), its audited displacement
+    (finite, within the window) and its last snapshot (the final density);
+    run ``DATAGEN_GRIDS`` again one by one through ``StableFluids2D.step``
+    and hold the batch's snapshots and final state to them bit for bit;
+    hold step 1 to ``|d| <= atol + rtol*|ref|`` and the last step to
+    ``max|d| <= last`` against the ``reference`` backend (``tol = (rtol,
+    atol, last)``); time the step eager and as a CUDA graph and trace one
+    step with the profiler.  Returns the trajectory's launch counts."""
+    from fluidsimulationcuda_torch import (FluidState, Sources,
+                                           StableFluids2D, batched_init,
+                                           generate_trajectories,
+                                           make_batched_step_fn,
+                                           select_cmax_batched)
+    from fluidsimulationcuda_torch.core.state import zero_sources_like
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.models.batched import _trajectory_runner
+
+    def gen():
+        return torch.Generator(device=cfg.device).manual_seed(SEED)
+
+    batch, side = DATAGEN_BATCH, cfg.n + 2
+    cmax, probed = select_cmax_batched(gen(), cfg, batch)
+    cfg = cfg.replace(advect_mode="windowed", max_courant=cmax)
+    print(f"{label}: probed displacement {probed:.6f} cells (8 exact "
+          f"steps): window cmax={cmax}")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    start.record()
+    final, snaps, dmax = generate_trajectories(gen(), cfg, batch, steps,
+                                               snapshot_every=every)
+    stop.record()
+    stop.synchronize()
+    counts = cuda_ops.launch_counts()
+    per_step = expected_launches(cfg)
+    want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: launches {counts} (expected {want}; "
+          f"{sum(per_step.values())} a step)")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    require_finite(final, label)
+    dmax = float(dmax)
+    print(f"{label}: generate_trajectories {steps} steps in "
+          f"{start.elapsed_time(stop):.2f} ms (the batch's draw included); "
+          f"audited displacement {dmax:.6f} cells (window {cmax})")
+    if not (np.isfinite(dmax) and dmax <= cmax):
+        raise AssertionError(f"{label}: audited displacement {dmax} outside "
+                             f"the window {cmax}")
+    if (tuple(snaps.shape) != (steps // every, batch, side, side)
+            or not torch.equal(snaps[-1], final.dens)):
+        raise AssertionError(f"{label}: snapshots {tuple(snaps.shape)} or "
+                             f"the last one differs from the final density")
+
+    state0, sources = batched_init(gen(), cfg, batch)
+    sim = StableFluids2D(cfg)
+    for g in DATAGEN_GRIDS:
+        state = FluidState(*(t[g] for t in state0[:3]))
+        src = Sources(*(t[g] for t in sources[:3]))
+        dens = []
+        for k in range(steps):
+            state = sim.step(state, src if k == 0 else None)
+            if (k + 1) % every == 0:
+                dens.append(state.dens)
+        alone = (torch.stack(dens),) + tuple(state[:3])
+        batched = (snaps[:, g],) + tuple(t[g] for t in final[:3])
+        err = max(float((a - b).abs().max()) for a, b in zip(alone, batched))
+        if not all(torch.equal(a, b) for a, b in zip(alone, batched)):
+            raise AssertionError(f"{label}: grid {g} alone differs from the "
+                                 f"batch by {err:.3e}")
+    print(f"{label}: grids {DATAGEN_GRIDS} run alone equal the batch bit for "
+          f"bit ({steps // every} snapshots and the final state)")
+
+    rtol, atol, last = tol
+    ref = cfg.replace(backend="reference")
+    step_fn = make_batched_step_fn(cfg)
+    first = step_fn(state0, sources)
+    r_first = make_batched_step_fn(ref)(state0, sources)
+    d1 = max_diff(first, r_first)
+    require_close(first, r_first, rtol, atol, f"{label} step 1")
+    r_final, _, r_dmax = _trajectory_runner(ref, steps, every)(state0,
+                                                               sources)
+    dn = max_diff(final, r_final)
+    print(f"{label}: max|d| vs reference backend: step 1 {d1:.3e}, step "
+          f"{steps} {dn:.3e}; its audited displacement {float(r_dmax):.6f}")
+    if not dn <= last:
+        raise AssertionError(f"{label}: step {steps} max|d| {dn:.3e} > "
+                             f"{last}")
+
+    zeros = zero_sources_like(sources)
+    state, ms = timed_steps(lambda s: step_fn(s, zeros), final, 5)
+    require_finite(state, label)
+    graph_ms = checks.device_ms(lambda: step_fn(state, zeros), reps=3)
+    cells = batch * side * side
+    print(f"{label}: {ms:.4f} ms/step eager, "
+          f"{cells / (ms * 1e-3) / 1e6:.1f} Mcell-updates/s; "
+          f"{graph_ms:.4f} ms/step as a CUDA graph (device busy "
+          f"{100 * graph_ms / ms:.1f}% of the eager step) ({card})")
+    profile_step(lambda: step_fn(state, zeros), label, card)
+    return counts
+
+
+def profile_step(fn, label: str, card: str) -> None:
+    """One ``fn()`` traced with ``torch.profiler``: device ms and share
+    per CUDA kernel, and the busy share of the wall time (host clock
+    around the traced call, ending in a synchronise)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = evt.name.replace("(anonymous namespace)::", "")
+            entry = per_kernel.setdefault(name.split("(")[0], [0, 0.0])
+            entry[0] += 1
+            entry[1] += evt.time_range.elapsed_us() / 1e3
+    busy_ms = sum(ms for _, ms in per_kernel.values())
+    if busy_ms <= 0:
+        raise AssertionError(f"{label}: the trace holds no device time")
+    print(f"{label}: one step traced ({card}):")
+    for name, (count, ms) in sorted(per_kernel.items(),
+                                    key=lambda kv: -kv[1][1]):
+        print(f"  {name[:50]:50s} {count:4d} launches {ms:9.4f} ms "
+              f"{100 * ms / busy_ms:5.1f}% {1e3 * ms / count:9.2f} us/launch")
+    print(f"  device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall "
+          f"({100 * busy_ms / wall_ms:.1f}%; profiler on)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA device")
     sys.path.insert(0, ROOT)
     from fluidsimulationcuda_torch import SimConfig, Sources, simulate, zero_state
-    from fluidsimulationcuda_torch.core.config import perf_operating_point
+    from fluidsimulationcuda_torch.core.config import (PERF_POINTS_2D,
+                                                       perf_operating_point)
     from fluidsimulationcuda_torch.kernels import build, checks, cuda_ops
 
     phase("1 environment")
@@ -598,6 +791,7 @@ def main() -> None:
     compare(checks.kernel_checks(2048, "cuda", SEED), checks.TOL, errs)
     times = kernel_times(checks.timing_checks(2048, "cuda", SEED), "2048²",
                          card)
+    batched_kernels(card, errs)
 
     phase("3b 3-D kernels against their plain versions (side 256)")
     compare(checks.kernel_checks3(256, "cuda", SEED), checks.TOL, errs)
@@ -742,8 +936,26 @@ def main() -> None:
     tails = {k: c + tails[k]
              for k, c in windowed_path(perf_win, label, card).items()}
 
+    phase("13 batched datagen: 1024 × 256², 20 iterations")
+    datagen = SimConfig(n=DATAGEN_N, jacobi_iters=20, backend="cuda",
+                        device="cuda")
+    launches_dg = datagen_path(datagen, "1024 × 256² parity", card,
+                               tol=(1e-5, 2e-5, 1e-4))
+    # The compensated point dev/bench_r3u_datagen_perf.py:98-100 chose at
+    # this size, with fast math, which the reference backend ignores (as
+    # in phase 6).
+    rho, k_d, k_p = PERF_POINTS_2D[2048]
+    comp = datagen.replace(pressure_solver="chebyshev",
+                           diffusion_solver="chebyshev", cheby_rho=rho,
+                           cheby_iters=k_d, cheby_press_iters=k_p,
+                           fast_math=True)
+    launches_dg = {k: c + launches_dg[k] for k, c in datagen_path(
+        comp, f"1024 × 256² compensated (rho={rho}, k_d={k_d}, k_p={k_p}) "
+        f"fast_math", card, tol=(0.0, 1e-4, 1e-4)).items()}
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
-                     + launches_slab3[k] for k in cuda_ops.KERNELS}
+                     + launches_slab3[k] + launches_dg[k]
+                     for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_split"] = launches_split["jacobi_slab_split"]
     idle = [k for k, c in main_launches.items() if c == 0]

@@ -10,7 +10,8 @@ reference it is tested against.  It imports ``torch`` and never ``jax``:
   backend)
 - ``kernels``  — backend dispatch, the CUDA wrappers (``cuda`` backend) and
   the nvcc build of ``csrc/``
-- ``models``   — the 2-D step and the 3-D smoke-volume step
+- ``models``   — the 2-D step, batched datagen over it, and the 3-D
+  smoke-volume step
 - ``parallel`` — the multi-device steps on one process's mesh: row slabs
   (2-D) and z-slabs (3-D)
 
@@ -20,6 +21,8 @@ unless the caller asks for the CPU.
 
 from .core.config import SimConfig
 from .core.state import FluidState, Sources, reference_init, zero_sources, zero_state
+from .models.batched import (batched_init, generate_trajectories,
+                             make_batched_step_fn, select_cmax_batched)
 from .models.stable_fluids_2d import StableFluids2D, make_step_fn, simulate, step, step_audited
 from .models.stable_fluids_3d import StableFluids3D, step3
 from .parallel import (make_mesh, make_sharded_step_fn,
@@ -42,6 +45,10 @@ __all__ = [
     "step",
     "step_audited",
     "step3",
+    "batched_init",
+    "make_batched_step_fn",
+    "select_cmax_batched",
+    "generate_trajectories",
     "make_mesh",
     "make_sharded_step_fn",
     "make_sharded_step_fn_3d",

@@ -16,8 +16,8 @@ import torch
 from .config import SimConfig
 
 __all__ = [
-    "FluidState", "Sources", "zero_state", "zero_sources", "reference_init",
-    "state_from_numpy", "state_to_numpy",
+    "FluidState", "Sources", "zero_state", "zero_sources", "zero_sources_like",
+    "reference_init", "state_from_numpy", "state_to_numpy",
 ]
 
 
@@ -56,6 +56,13 @@ def zero_state(cfg: SimConfig) -> FluidState:
 
 def zero_sources(cfg: SimConfig) -> Sources:
     return Sources(dens=_zeros(cfg), u=_zeros(cfg), v=_zeros(cfg), w=_w(cfg))
+
+
+def zero_sources_like(fields) -> Sources:
+    """Zero sources shaped like ``fields`` (a state or sources, one grid or
+    a batch of them), on their device."""
+    return Sources(*(None if t is None else torch.zeros_like(t)
+                     for t in fields))
 
 
 def reference_init(generator: torch.Generator,
@@ -103,7 +110,8 @@ def state_from_numpy(obj, device: torch.device | str = "cuda") -> FluidState:
     """A ``FluidState`` of float32 tensors on ``device`` (the card unless
     the caller asks for ``"cpu"``) from any object whose ``dens``/``u``/
     ``v`` and, in 3-D, ``w`` (attributes or keys) convert through
-    ``np.asarray``: a JAX ``FluidState``, an npz file, a dict."""
+    ``np.asarray``: a JAX ``FluidState``, an npz file, a dict.  Shapes carry
+    over as they are, a batch of grids ``(B, side, side)`` included."""
     def conv(name):
         a = _field(obj, name)
         if a is None:

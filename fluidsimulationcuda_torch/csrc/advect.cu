@@ -18,7 +18,8 @@
 // (mostly neighbours of each other for a smooth flow, so L1/L2 hits) and
 // writes one value per field: about 16 bytes a cell for the u/v pair.
 // Outputs are fresh tensors: both self-advections read the pre-advection
-// velocity (stable_fluids_2d.py:106-107).
+// velocity (stable_fluids_2d.py:106-107).  A launch takes a batch of grids,
+// one per grid layer; each gathers from its own grid.
 #include "fsc_common.cuh"
 
 namespace {
@@ -33,28 +34,31 @@ __global__ void advect_kernel(const float* __restrict__ d1,
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= side || j >= side) return;
   const int n = side - 2;
+  const int off = fsc::grid_offset(side);
   const fsc::Departure d =
-      fsc::departure(u, v, fsc::clampi(i, 1, n), fsc::clampi(j, 1, n), side,
-                     dt0, cmax);
-  const int g = d.i0 * side + d.j0;
+      fsc::departure(u + off, v + off, fsc::clampi(i, 1, n),
+                     fsc::clampi(j, 1, n), side, dt0, cmax);
+  const int g = off + d.i0 * side + d.j0;
   const float a = fsc::blend(d, d1[g], d1[g + side], d1[g + 1],
                              d1[g + side + 1]);
-  o1[i * side + j] = fsc::border_value(a, i, j, side, b1);
+  o1[off + i * side + j] = fsc::border_value(a, i, j, side, b1);
   if (d2 != nullptr) {
     const float e = fsc::blend(d, d2[g], d2[g + side], d2[g + 1],
                                d2[g + side + 1]);
-    o2[i * side + j] = fsc::border_value(e, i, j, side, b2);
+    o2[off + i * side + j] = fsc::border_value(e, i, j, side, b2);
   }
 }
 
 }  // namespace
 
-// d2/o2 null advects one field.  dt0 = dt*n in float32; cmax <= 0 gathers
-// exactly.  Returns cudaGetLastError() after the launch.
+// Every pointer holds nb grids of side^2 cells; d2/o2 null advects one
+// field.  dt0 = dt*n in float32; cmax <= 0 gathers exactly.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int fsc_advect(const float* d1, const float* d2, const float* u,
                           const float* v, float* o1, float* o2, int side,
-                          int b1, int b2, float dt0, int cmax, void* stream) {
-  advect_kernel<<<fsc::grid_dim(side), fsc::block_dim(), 0,
+                          int nb, int b1, int b2, float dt0, int cmax,
+                          void* stream) {
+  advect_kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0,
                   static_cast<cudaStream_t>(stream)>>>(d1, d2, u, v, o1, o2,
                                                        side, b1, b2, dt0,
                                                        cmax);

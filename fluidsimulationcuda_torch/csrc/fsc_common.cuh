@@ -2,8 +2,10 @@
 //
 // Every 2-D kernel runs one thread per cell of the padded (side, side)
 // float32 grid, row-major, cell (i, j) at i*side + j, interior 1..n with
-// n = side-2.  A thread on the ghost ring evaluates the interior cell next
-// to it and applies the mode-b border rule to that value (ops/boundary.py):
+// n = side-2; K1-K4 take a batch of such grids, one per grid layer of the
+// launch (grid_dim, grid_offset).  A thread on the ghost ring evaluates the
+// interior cell next to it and applies the mode-b border rule to that value
+// (ops/boundary.py):
 // edges mirror it (negated on the wall-normal component, b=1 at the
 // left/right walls, b=2 at the top/bottom walls), corners take
 // 0.5*(sy*v + sx*v).  So the border is derived in the same launch as the
@@ -26,8 +28,25 @@ constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
 inline dim3 block_dim() { return dim3(kBlockX, kBlockY); }
-inline dim3 grid_dim(int side) {
-  return dim3((side + kBlockX - 1) / kBlockX, (side + kBlockY - 1) / kBlockY);
+
+// 2-D launches over a batch of nb (side, side) grids stored one after the
+// other (nb <= 65535, checked by the wrapper): 32x8 threads over (x, y),
+// one grid layer per grid of the batch, the TPU kernels' batch program
+// axis (pallas_ops.py:311-312).
+inline dim3 grid_dim(int side, int nb = 1) {
+  return dim3((side + kBlockX - 1) / kBlockX, (side + kBlockY - 1) / kBlockY,
+              nb);
+}
+
+// The first cell of the calling block's grid in a batch.  The wrappers keep
+// a batch under 2^31 cells (as K17's), so it is an int, and a size_t
+// offset measured 2-3% slower on one grid.  A kernel indexes every access
+// at grid_offset + its in-grid index and never moves its __restrict__
+// output pointers: moving them costs nvcc the proof that the inputs are
+// read-only, and with it the read-only load path (LDG.E.CONSTANT), ~26% of
+// K1's time on the H100 (PERF.md).
+__device__ __forceinline__ int grid_offset(int side) {
+  return static_cast<int>(blockIdx.z) * side * side;
 }
 
 // 3-D launches: 32x8 threads over (x, y), one grid layer per z plane.

@@ -1,4 +1,5 @@
-// K1 jacobi_sweep: one Jacobi (or Chebyshev) sweep of a padded grid.
+// K1 jacobi_sweep: one Jacobi (or Chebyshev) sweep of a batch of padded
+// grids.
 //
 // Replaces the sweep body of the TPU kernel _jacobi_kernel
 // (fluidsimulationcuda_tpu/kernels/pallas_ops.py:301, pallas_call at :645)
@@ -6,7 +7,10 @@
 // step (:1480).  The TPU kernel fuses up to 20 sweeps per VMEM round-trip in
 // row strips with K-deep margins; here one launch is one sweep and the
 // wrapper ping-pongs between scratch tensors, so nothing is carried between
-// blocks.
+// blocks.  Like the TPU kernel's batch program axis, the launch's grid
+// layers are the grids of a batch, each swept alone; grids [0, nb1) take
+// boundary mode b and the rest b1, which is the u/v pair of
+// fused_jacobi_pair (:671, the TPU kernel's nb1 at :393-400).
 //
 // Bound: device memory.  A sweep reads x (five points, four of them shared
 // with neighbouring threads through L1/L2), rhs, and for Chebyshev x_{k-1},
@@ -19,33 +23,38 @@ namespace {
 
 __global__ void jacobi_sweep_kernel(fsc::SweepParams p, float* __restrict__ out,
                                     float* __restrict__ rhs_out, int side,
-                                    int b) {
+                                    int b, int nb1, int b1) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= side || j >= side) return;
+  const int off = fsc::grid_offset(side);
+  const int mode = static_cast<int>(blockIdx.z) < nb1 ? b : b1;
   const int c = fsc::interior_of(i, j, side);
-  const float r = fsc::rhs_at(p, c);
-  const float val = fsc::sweep_at(p, c, side, r);
+  const int g = off + c;
+  const float r = fsc::rhs_at(p, g);
+  const float val = fsc::sweep_at(p, g, side, r);
   // The first sweep of a folded solve stores the rhs it built, once per
   // interior cell, for the sweeps after it.
-  if (rhs_out != nullptr && c == i * side + j) rhs_out[c] = r;
-  out[i * side + j] = fsc::border_value(val, i, j, side, b);
+  if (rhs_out != nullptr && c == i * side + j) rhs_out[g] = r;
+  out[off + i * side + j] = fsc::border_value(val, i, j, side, mode);
 }
 
 }  // namespace
 
-// x, src, xm and rhs_out may be null (see fsc::SweepParams); out must not
-// alias any input.  Returns cudaGetLastError() after the launch.
+// Every pointer holds nb grids of side^2 cells.  x, src, xm and rhs_out may
+// be null (see fsc::SweepParams); out must not alias any input.  Grids
+// [0, nb1) take boundary mode b, grids [nb1, nb) mode b1.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int fsc_jacobi_sweep(const float* x, const float* rhs,
                                 const float* src, const float* xm, float* out,
                                 float* rhs_out, int side, int b, float alpha,
                                 float beta, float ab, float inv_b,
-                                float src_dt, float w, int flags,
-                                void* stream) {
+                                float src_dt, float w, int flags, int nb,
+                                int nb1, int b1, void* stream) {
   const fsc::SweepParams p = fsc::make_sweep_params(
       x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt, w, flags);
-  jacobi_sweep_kernel<<<fsc::grid_dim(side), fsc::block_dim(), 0,
+  jacobi_sweep_kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0,
                         static_cast<cudaStream_t>(stream)>>>(p, out, rhs_out,
-                                                             side, b);
+                                                             side, b, nb1, b1);
   return static_cast<int>(cudaGetLastError());
 }

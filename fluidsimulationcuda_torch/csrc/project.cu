@@ -7,6 +7,8 @@
 // gradient_p (:1635, pallas_call :1645).  The TPU fused the three stages to
 // keep div and p in VMEM across a strip; here each stage is a launch and
 // div and p go through device memory, which the L2 mostly holds at 2048^2.
+// Each launch takes a batch of grids, one per grid layer, as the TPU
+// kernels' batch program axis does.
 //
 // Bound: device memory, 12 bytes a cell for the divergence (u, v in; div
 // out) and 20 for the gradient (u, v, p in; u, v out).  Each derives its
@@ -23,9 +25,10 @@ __global__ void divergence_kernel(const float* __restrict__ u,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= side || j >= side) return;
-  const int c = fsc::interior_of(i, j, side);
+  const int off = fsc::grid_offset(side);
+  const int c = off + fsc::interior_of(i, j, side);
   const float d = coef * ((u[c + 1] - u[c - 1]) + (v[c + side] - v[c - side]));
-  out[i * side + j] = fsc::border_value(d, i, j, side, 0);
+  out[off + i * side + j] = fsc::border_value(d, i, j, side, 0);
 }
 
 __global__ void gradient_kernel(const float* __restrict__ u,
@@ -36,29 +39,32 @@ __global__ void gradient_kernel(const float* __restrict__ u,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= side || j >= side) return;
-  const int c = fsc::interior_of(i, j, side);
+  const int off = fsc::grid_offset(side);
+  const int c = off + fsc::interior_of(i, j, side);
   const float un = u[c] - (0.5f * (p[c + 1] - p[c - 1])) / h;
   const float vn = v[c] - (0.5f * (p[c + side] - p[c - side])) / h;
-  uo[i * side + j] = fsc::border_value(un, i, j, side, 1);
-  vo[i * side + j] = fsc::border_value(vn, i, j, side, 2);
+  uo[off + i * side + j] = fsc::border_value(un, i, j, side, 1);
+  vo[off + i * side + j] = fsc::border_value(vn, i, j, side, 2);
 }
 
 }  // namespace
 
-// coef = -0.5*h in float32.  Returns cudaGetLastError() after the launch.
+// Every pointer holds nb grids of side^2 cells; coef = -0.5*h in float32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int fsc_divergence(const float* u, const float* v, float* out,
-                              int side, float coef, void* stream) {
-  divergence_kernel<<<fsc::grid_dim(side), fsc::block_dim(), 0,
+                              int side, int nb, float coef, void* stream) {
+  divergence_kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0,
                       static_cast<cudaStream_t>(stream)>>>(u, v, out, side,
                                                            coef);
   return static_cast<int>(cudaGetLastError());
 }
 
-// h = 1/n in float32.  Returns cudaGetLastError() after the launch.
+// Every pointer holds nb grids of side^2 cells; h = 1/n in float32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int fsc_gradient(const float* u, const float* v, const float* p,
-                            float* uo, float* vo, int side, float h,
+                            float* uo, float* vo, int side, int nb, float h,
                             void* stream) {
-  gradient_kernel<<<fsc::grid_dim(side), fsc::block_dim(), 0,
+  gradient_kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0,
                     static_cast<cudaStream_t>(stream)>>>(u, v, p, uo, vo, side,
                                                          h);
   return static_cast<int>(cudaGetLastError());

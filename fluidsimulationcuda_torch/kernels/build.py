@@ -34,12 +34,12 @@ _F = ctypes.c_float
 # cudaError_t of the launch).
 _SIGNATURES = {
     "fsc_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
-                         _F, _I, _P],
-    "fsc_divergence": [_P, _P, _P, _I, _F, _P],
-    "fsc_gradient": [_P, _P, _P, _P, _P, _I, _F, _P],
-    "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+                         _F, _I, _I, _I, _I, _P],
+    "fsc_divergence": [_P, _P, _P, _I, _I, _F, _P],
+    "fsc_gradient": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "fsc_dens_advect": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _P, _P,
-                        _P, _I, _I, _F, _I, _P],
+                        _P, _I, _I, _I, _F, _I, _P],
     "fsc_advect_project": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _F, _F, _F, _P, _I, _P],
     "fsc_jacobi_slab_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

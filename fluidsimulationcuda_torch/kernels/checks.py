@@ -18,6 +18,8 @@ beside it.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Callable
 
 import numpy as np
@@ -35,6 +37,9 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "timing_checks3", "kernel_checks_slab", "timing_checks_slab",
            "kernel_checks_slab3", "timing_checks_slab3",
            "split_against_concat", "timing_checks_tail",
+           "kernel_checks_batched", "batched_against_grids",
+           "timing_checks_batched",
+           "pair_against_singles", "timing_checks_pair",
            "timing_checks_split", "max_abs_diff",
            "device_ms"]
 
@@ -135,17 +140,20 @@ ADVECT3_ONE, ADVECT3_TRIPLE = (5, 39), (6, 81)
 
 
 class _Inputs:
-    """Random fields at grid ``side`` (``ndim``-D) and the step's
-    coefficients there; in 2-D also velocities that move the backtrace up
-    to 6 cells (``uf``, ``vf``: over the 4-cell window)."""
+    """Random fields at grid ``side`` (``ndim``-D; with ``batch``, a batch
+    of that many 2-D grids) and the step's coefficients there; in 2-D also
+    velocities that move the backtrace up to 6 cells (``uf``, ``vf``: over
+    the 4-cell window)."""
 
-    def __init__(self, side: int, device, seed: int, ndim: int = 2):
+    def __init__(self, side: int, device, seed: int, ndim: int = 2,
+                 batch: int = 0):
         rng = np.random.default_rng(seed)
         self.n = n = side - 2
-        self.cells = side**ndim
+        shape = ((batch,) if batch else ()) + (side,) * ndim
+        self.cells = math.prod(shape)
 
         def field(scale=1.0):
-            a = rng.uniform(-1.0, 1.0, (side,) * ndim).astype(np.float32)
+            a = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
             return torch.from_numpy(a * np.float32(scale)).to(device)
 
         vscale = 2.0 / (DT * n)  # |dt*n*u| <= 2 cells
@@ -158,7 +166,7 @@ class _Inputs:
             rng = np.random.default_rng(seed + 1)
             vfast = 6.0 / (DT * n)
             self.uf, self.vf = (torch.from_numpy(
-                rng.uniform(-vfast, vfast, (side, side)).astype(np.float32)
+                rng.uniform(-vfast, vfast, shape).astype(np.float32)
             ).to(device) for _ in range(2))
 
 
@@ -345,6 +353,191 @@ def timing_checks_tail(side: int, device, seed: int = 0) -> list[Check]:
         tail(f"fused_advect_project chebyshev {k_p}it cmax={CMAX}", t.uf,
              t.vf, CMAX, k_p, rho),
     ]
+
+
+def _batched_cases(t: "_Inputs", cmax: int) -> list[tuple]:
+    """(label, kernels, wrapper, plain version, args, kwargs) of every 2-D
+    wrapper call of ``kernel_checks_batched`` on the batched inputs ``t``."""
+    n, av, ad = t.n, t.a_visc, t.a_diff
+    bv, bd = 1 + 4 * av, 1 + 4 * ad
+    rho, k_d, k_p = PERF_POINTS_2D[2048]
+    return [
+        ("fused_jacobi 1 sweep", JAC, co.fused_jacobi, co.fused_jacobi_plain,
+         (1, t.x, t.x0, av, bv, 1), {}),
+        ("fused_jacobi 20it src_dt", JAC, co.fused_jacobi,
+         co.fused_jacobi_plain, (1, t.src, t.x0, av, bv, 20),
+         dict(src_dt=DT)),
+        ("fused_jacobi 20it zero_init", JAC, co.fused_jacobi,
+         co.fused_jacobi_plain, (0, t.p, t.p, 1.0, 4.0, 20),
+         dict(zero_init=True)),
+        (f"fused_jacobi {k_d}it chebyshev+fast", JAC, co.fused_jacobi,
+         co.fused_jacobi_plain, (2, t.src, t.x0, av, bv, k_d),
+         dict(src_dt=DT, fast=True, cheby_rho=rho)),
+        ("fused_jacobi_pair u/v 20it src_dt", JAC, co.fused_jacobi_pair,
+         co.fused_jacobi_pair_plain, _pair_args(t), dict(src_dt=DT)),
+        ("fused_project 20it", PROJ, co.fused_project,
+         co.fused_project_plain, (t.u, t.v, n, 20), {}),
+        (f"fused_project chebyshev {k_p}it", PROJ, co.fused_project,
+         co.fused_project_plain, (t.u, t.v, n, k_p), dict(cheby_rho=rho)),
+        ("divergence_p", ("divergence",), co.divergence_p,
+         co.divergence_p_plain, (t.u, t.v, n), {}),
+        ("gradient_p", ("gradient",), co.gradient_p, co.gradient_p_plain,
+         (t.u, t.v, t.p, n), {}),
+        ("advect_shift_fused u/v pair", ("advect",), co.advect_shift_fused,
+         co.advect_shift_fused_plain, ((1, 2), (t.u, t.v), t.u, t.v, DT, n),
+         {}),
+        (f"advect_shift_fused u/v pair cmax={cmax}", ("advect",),
+         co.advect_shift_fused, co.advect_shift_fused_plain,
+         ((1, 2), (t.u, t.v), t.u, t.v, DT, n, cmax), {}),
+        ("advect_shift b=0", ("advect",), co.advect_shift,
+         co.advect_shift_plain, (0, t.x, t.u, t.v, DT, n), {}),
+        (f"fused_dens_advect 20it cmax={cmax}", DENS, co.fused_dens_advect,
+         co.fused_dens_advect_plain,
+         (0, t.src, t.x0, t.u, t.v, ad, bd, 20, DT, n), dict(cmax=cmax)),
+        (f"fused_dens_advect chebyshev+fast {k_d}it cmax={cmax}", DENS,
+         co.fused_dens_advect, co.fused_dens_advect_plain,
+         (0, t.src, t.x0, t.u, t.v, ad, bd, k_d, DT, n),
+         dict(cmax=cmax, fast=True, cheby_rho=rho)),
+    ]
+
+
+def kernel_checks_batched(nb: int, side: int, device, seed: int = 0,
+                          cmax: int = 1) -> list[Check]:
+    """Every 2-D wrapper on a batch of ``nb`` grids at ``side``, at the
+    counts and coefficients of the batched datagen step: K1 one sweep, the
+    20-sweep velocity solve with its source fold, the zero-guess pressure
+    solve, the compensated point's 10-sweep Chebyshev+fast solve; the u/v
+    pair (``fused_jacobi_pair``, the batch stacked twice); ``fused_project``
+    at 20 sweeps and at the 14-sweep Chebyshev solve; K2's two stencils;
+    K3 on the u/v pair exact and in the window of ``cmax`` cells, and on
+    one field; K4 at 20 sweeps and at 10 Chebyshev+fast sweeps, in the
+    window."""
+    t = _Inputs(side, device, seed, batch=nb)
+    return [_check(f"{nb}x{side}² {label}", kernels, fn, plain, *args, **kw)
+            for label, kernels, fn, plain, args, kw in _batched_cases(t, cmax)]
+
+
+def _grid(x, g: int):
+    """Grid ``g`` of a batched operand (tensors, tuples of them); other
+    arguments as they are."""
+    if isinstance(x, torch.Tensor):
+        return x[g]
+    if isinstance(x, tuple):
+        return tuple(_grid(y, g) for y in x)
+    return x
+
+
+def _per_grid(nb: int, fn, *args, **kw):
+    """``fn`` called on each grid of a batch alone, results stacked."""
+    outs = [fn(*(_grid(a, g) for a in args), **kw) for g in range(nb)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def batched_against_grids(nb: int, side: int, device, seed: int = 0,
+                          cmax: int = 1) -> list[Check]:
+    """The calls of ``kernel_checks_batched``, each against the same
+    wrapper called on every grid of the batch alone (equal bit for bit:
+    a batch changes which grids a launch covers, not any cell's
+    arithmetic)."""
+    t = _Inputs(side, device, seed, batch=nb)
+    return [_check(f"{label} vs per grid", kernels, fn,
+                   functools.partial(_per_grid, nb, fn), *args, **kw)
+            for label, kernels, fn, _, args, kw in _batched_cases(t, cmax)]
+
+
+def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
+                          cmax: int = 1) -> list[Check]:
+    """What ``chip_smoke.py`` times on a batch of ``nb`` grids at ``side``
+    (the batched datagen step's shapes): one launch of each of K1-K4
+    beside its plain version, then each wrapper at the step's counts.  The
+    bound counts every grid of the batch."""
+    t = _Inputs(side, device, seed, batch=nb)
+    n, av, ad, cells = t.n, t.a_visc, t.a_diff, t.cells
+    bv, bd = 1 + 4 * av, 1 + 4 * ad
+    rho, k_d, k_p = PERF_POINTS_2D[2048]
+    tag = f"{nb}x{side}²"
+
+    def sweeps(iters, **kw):
+        return _sweeps_cost(iters, 2, **kw)
+
+    return [
+        _timed(sweeps(1), cells, f"{tag} jacobi_sweep", JAC, co.fused_jacobi,
+               co.fused_jacobi_plain, 1, t.x, t.x0, av, bv, 1),
+        _timed(DIV2, cells, f"{tag} divergence", ("divergence",),
+               co.divergence_p, co.divergence_p_plain, t.u, t.v, n),
+        _timed(GRAD2, cells, f"{tag} gradient", ("gradient",), co.gradient_p,
+               co.gradient_p_plain, t.u, t.v, t.p, n),
+        _timed(ADVECT2_PAIR, cells, f"{tag} advect (u/v pair cmax={cmax})",
+               ("advect",), co.advect_shift_fused,
+               co.advect_shift_fused_plain, (1, 2), (t.u, t.v), t.u, t.v, DT,
+               n, cmax),
+        _timed(DENS_ADVECT, cells, f"{tag} dens_advect (cmax={cmax})",
+               ("dens_advect",), co.fused_dens_advect,
+               co.fused_dens_advect_plain, 0, t.src, t.x0, t.u, t.v, ad, bd,
+               1, DT, n, cmax=cmax),
+        _timed(sweeps(20, src=True), cells, f"{tag} fused_jacobi 20it src_dt",
+               JAC, co.fused_jacobi, co.fused_jacobi_plain, 1, t.src, t.x0,
+               av, bv, 20, src_dt=DT),
+        _timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
+               f"{tag} fused_jacobi {k_d}it chebyshev+fast", JAC,
+               co.fused_jacobi, co.fused_jacobi_plain, 1, t.src, t.x0, av,
+               bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
+        _timed(_add(DIV2, sweeps(20, zero_init=True), GRAD2), cells,
+               f"{tag} fused_project 20it", PROJ, co.fused_project,
+               co.fused_project_plain, t.u, t.v, n, 20),
+        _timed(_add(DIV2, sweeps(k_p, zero_init=True, cheby=True), GRAD2),
+               cells, f"{tag} fused_project {k_p}it chebyshev", PROJ,
+               co.fused_project, co.fused_project_plain, t.u, t.v, n, k_p,
+               cheby_rho=rho),
+        _timed(_add(sweeps(19, src=True), DENS_ADVECT), cells,
+               f"{tag} fused_dens_advect 20it cmax={cmax}", DENS,
+               co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
+               t.x0, t.u, t.v, ad, bd, 20, DT, n, cmax=cmax),
+    ]
+
+
+def _pair_args(t: "_Inputs") -> tuple:
+    """The u/v velocity diffusion of the step as ``fused_jacobi_pair``
+    takes it: modes 1 and 2, sources as guesses, 20 sweeps."""
+    av = t.a_visc
+    return (1, 2, t.src, t.x, t.x0, t.p, av, 1 + 4 * av, 20)
+
+
+def _two_singles(b1, b2, s1, s2, base1, base2, alpha, beta, iters, **kw):
+    return (co.fused_jacobi(b1, s1, base1, alpha, beta, iters, **kw),
+            co.fused_jacobi(b2, s2, base2, alpha, beta, iters, **kw))
+
+
+def pair_against_singles(side: int, device, seed: int = 0,
+                         batch: int = 0) -> list[Check]:
+    """``fused_jacobi_pair`` (B12) against two ``fused_jacobi`` calls on the
+    same operands (JAX's contract: equal bit for bit), with operands of
+    one grid at ``side`` (or, with ``batch``, of that many grids each):
+    with the source fold, in fast mode, and as guesses only."""
+    t = _Inputs(side, device, seed, batch=batch)
+    args = _pair_args(t)
+    return [_check(f"fused_jacobi_pair {side}² {mode}", JAC,
+                   co.fused_jacobi_pair, _two_singles, *args, **kw)
+            for mode, kw in (("src_dt", dict(src_dt=DT)),
+                             ("src_dt fast", dict(src_dt=DT, fast=True)),
+                             ("guess only", dict()))]
+
+
+def timing_checks_pair(side: int, device, seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of B12 at grid ``side``: the u/v
+    velocity diffusion (20 sweeps, source fold) as one stacked pair beside
+    its plain version and the two ``fused_jacobi`` calls it stands for.
+    The bound counts both fields' sweeps, not the stacking copies."""
+    t = _Inputs(side, device, seed)
+    args = _pair_args(t)
+    check = _timed(_scaled(_sweeps_cost(20, 2, src=True), 2), t.cells,
+                   f"fused_jacobi_pair {side}² u/v 20it src_dt", JAC,
+                   co.fused_jacobi_pair, co.fused_jacobi_pair_plain, *args,
+                   src_dt=DT)
+    check.composed = lambda: _two_singles(*args, src_dt=DT)
+    return [check]
 
 
 JAC3 = ("jacobi3_sweep",)

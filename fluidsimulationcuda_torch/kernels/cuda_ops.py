@@ -2,20 +2,24 @@
 PyTorch version.
 
 Wrappers keep the names and signatures of ``fluidsimulationcuda_tpu.kernels.
-pallas_ops`` minus the TPU-only knobs (``max_fused``, ``nb1``, ``damp``,
-``self_advect``).  The gathers take JAX's ``cmax`` (the gather window in
-cells); None gathers exactly.  Each checks dtype (float32), shape,
-contiguity and device.  On CPU tensors it returns its plain version, built
-from ``ops/``; on CUDA tensors it launches the hand-written kernels of
-``csrc/`` (built on first use by ``build.py``) or raises.  Nothing falls
-back.
+pallas_ops`` minus the TPU-only knobs (``max_fused``, ``damp``,
+``self_advect``; ``nb1`` is ``fused_jacobi_pair``'s, not a caller's).  The
+gathers take JAX's ``cmax`` (the gather window in cells); None gathers
+exactly.  Like the TPU kernels, each takes one (side, side) grid or a batch
+of them, (nb, side, side), and launches its kernels once whatever nb is.
+Each checks dtype (float32), shape, contiguity and device.  On CPU tensors
+it returns its plain version, built from ``ops/``; on CUDA tensors it
+launches the hand-written kernels of ``csrc/`` (built on first use by
+``build.py``) or raises.  Nothing falls back.
 
 Four CUDA kernels (K1-K4) carry the five TPU kernel families of the 2-D
 step:
 
 - ``jacobi_sweep`` (K1, ``csrc/jacobi.cu``): one sweep per launch.  It is
-  ``fused_jacobi`` (TPU ``pallas_ops.py:645``) and the sweep engine of
-  ``fused_project`` and ``fused_dens_advect``.
+  ``fused_jacobi`` (TPU ``pallas_ops.py:645``), ``fused_jacobi_pair``
+  (``:671``, u and v stacked on the batch axis, each with its boundary
+  mode) and the sweep engine of ``fused_project`` and
+  ``fused_dens_advect``.
 - ``divergence`` and ``gradient`` (K2, ``csrc/project.cu``): with K1 they
   make ``fused_project`` (``:899``); alone they are ``divergence_p``
   (``:1622``) and ``gradient_p`` (``:1645``).
@@ -36,6 +40,8 @@ the kernels.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -49,7 +55,8 @@ from .dispatch import OpSet
 
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "make_opset",
-    "fused_jacobi", "fused_jacobi_plain", "fused_project",
+    "fused_jacobi", "fused_jacobi_plain", "fused_jacobi_pair",
+    "fused_jacobi_pair_plain", "fused_project",
     "fused_project_plain", "advect_shift", "advect_shift_plain",
     "advect_shift_fused", "advect_shift_fused_plain", "fused_dens_advect",
     "fused_dens_advect_plain", "divergence_p", "divergence_p_plain",
@@ -65,6 +72,8 @@ _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
 _PREP, _FAST, _CHEBY = 1, 2, 4
+# Grids of one 2-D launch: CUDA's limit on the launch's third axis.
+_MAX_BATCH = 65535
 
 
 def launch_counts() -> dict[str, int]:
@@ -84,12 +93,25 @@ def reset_launch_counts() -> None:
 
 def _on_card(side: int, *tensors: torch.Tensor, ndim: int = 2) -> bool:
     """Check that every tensor is a contiguous float32 grid of shape
-    ``(side,) * ndim`` on one device; True for CUDA, False for the CPU, and
-    raise otherwise.  The kernels index with 32-bit ints, so
-    ``side**ndim`` must stay below 2**31."""
-    if side < 3 or side**ndim >= 2**31:
-        raise ValueError(f"unsupported grid side {side} for {ndim}-D")
-    return _on_device(*((t, (side,) * ndim) for t in tensors))
+    ``(side,) * ndim`` or, in 2-D, that all are batches of the same shape
+    ``(nb, side, side)``, on one device; True for CUDA, False for the CPU,
+    and raise otherwise.  The kernels index a batch with 32-bit ints and
+    launch a batch's grids on the launch's third axis, so the cells of a
+    call stay below 2**31 and nb at most 65535."""
+    shape = (side,) * ndim
+    if ndim == 2 and tensors[0].dim() == 3:
+        shape = (tensors[0].shape[0],) + shape
+    if side < 3 or math.prod(shape) >= 2**31:
+        raise ValueError(f"unsupported grid shape {shape} for {ndim}-D")
+    if len(shape) > ndim and not 1 <= shape[0] <= _MAX_BATCH:
+        raise ValueError(f"a batch holds 1 to {_MAX_BATCH} grids, got "
+                         f"{shape[0]}")
+    return _on_device(*((t, shape) for t in tensors))
+
+
+def _batch(t: torch.Tensor) -> int:
+    """Grids in a checked 2-D operand: nb of (nb, side, side), else 1."""
+    return t.shape[0] if t.dim() == 3 else 1
 
 
 def _on_device(*specs: tuple[torch.Tensor, tuple[int, ...]]) -> bool:
@@ -135,8 +157,9 @@ def _launch(kernel: str, fn, *args) -> None:
 
 
 class _Sweeps:
-    """The sweep launches of one solve (K1 ``jacobi_sweep`` on a grid, K5
-    ``jacobi3_sweep`` on a volume): ``sweep()`` advances one iterate.
+    """The sweep launches of one solve (K1 ``jacobi_sweep`` on a grid or a
+    batch of grids, K5 ``jacobi3_sweep`` on a volume): ``sweep()`` advances
+    one iterate.
 
     It owns the scratch it ping-pongs through (two tensors, three for
     Chebyshev, whose x_{k-1} and x_k are read-only while x_{k+1} is
@@ -200,7 +223,8 @@ class _Sweeps:
 
     def sweep(self, lib, *geometry: int) -> None:
         """One launch; ``geometry`` goes between the sweep scalars and the
-        stream (the slab kernel's row range and wall rows)."""
+        stream (K1's batch and boundary split, the slab kernel's row range
+        and wall rows)."""
         out = self._scratch()
         rhs_out = torch.empty_like(self.rhs) if self.prep else None
         x, rhs, src, xm, *scalars = self.next_args()
@@ -252,14 +276,57 @@ def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
         return fused_jacobi_plain(b, x_init, x0, alpha, beta, iters,
                                   zero_init=zero_init, src_dt=src_dt,
                                   fast=fast, cheby_rho=cheby_rho)
+    return _solve(b, _batch(x0), b, x_init, x0, alpha, beta, iters,
+                  zero_init=zero_init, src_dt=src_dt, fast=fast,
+                  cheby_rho=cheby_rho)
+
+
+def _solve(b, nb1, b1, x_init, x0, alpha, beta, iters, **kw):
+    """The K1 launches of one solve on the card: grids [0, nb1) of the
+    batch take boundary mode ``b``, the rest ``b1``."""
     with torch.cuda.device(x0.device):
         lib = build.load()
-        sweeps = _Sweeps(b, x_init, x0, alpha, beta, iters,
-                         zero_init=zero_init, src_dt=src_dt, fast=fast,
-                         cheby_rho=cheby_rho)
+        sweeps = _Sweeps(b, x_init, x0, alpha, beta, iters, **kw)
         for _ in range(iters):
-            sweeps.sweep(lib)
+            sweeps.sweep(lib, _batch(x0), nb1, b1)
         return sweeps.x
+
+
+def fused_jacobi_pair_plain(b1, b2, s1, s2, base1, base2, alpha, beta, iters,
+                            *, src_dt=None, fast=False):
+    """Plain form of ``fused_jacobi_pair``: the two solves it stacks."""
+    return tuple(fused_jacobi_plain(b, s, base, alpha, beta, iters,
+                                    src_dt=src_dt, fast=fast)
+                 for b, s, base in ((b1, s1, base1), (b2, s2, base2)))
+
+
+def fused_jacobi_pair(b1, b2, s1, s2, base1, base2, alpha, beta, iters, *,
+                      src_dt=None, fast=False):
+    """Two same-coefficient solves with boundary modes ``b1`` and ``b2``
+    (the velocity pair, ``FluidSequential.c:228-229``) in one K1 launch per
+    sweep: as JAX's ``fused_jacobi_pair`` (``pallas_ops.py:671``), the
+    operands stack on the batch axis (``torch.cat``, so both fields are
+    copied once) and grids at or past ``nb1`` (the first operand's grid
+    count) take ``b2``.  Operands are (side, side) or (nb, side, side);
+    returns the two results, each equal to its own ``fused_jacobi`` bit for
+    bit.  JAX measured it slower than two singles and does not wire it into
+    the step; neither does the port."""
+    if iters < 1:
+        raise ValueError("iters must be >= 1")
+    if not _on_card(base1.shape[-1], s1, s2, base1, base2):
+        return fused_jacobi_pair_plain(b1, b2, s1, s2, base1, base2, alpha,
+                                       beta, iters, src_dt=src_dt, fast=fast)
+    nb = _batch(base1)
+
+    def stack(a, c):
+        return torch.cat([a, c]) if a.dim() == 3 else torch.stack([a, c])
+
+    out = _solve(b1, nb, b2, stack(s1, s2), stack(base1, base2), alpha,
+                 beta, iters, zero_init=False, src_dt=src_dt, fast=fast,
+                 cheby_rho=None)
+    if base1.dim() == 2:
+        return out[0], out[1]
+    return out[:nb], out[nb:]
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +346,8 @@ def divergence_p(u, v, n):
         lib = build.load()
         out = torch.empty_like(u)
         _launch("divergence", lib.fsc_divergence, u.data_ptr(), v.data_ptr(),
-                out.data_ptr(), n + 2, -0.5 * grid_h(n), _stream(u))
+                out.data_ptr(), n + 2, _batch(u), -0.5 * grid_h(n),
+                _stream(u))
         return out
 
 
@@ -297,8 +365,8 @@ def gradient_p(u, v, p, n):
         uo = torch.empty_like(u)
         vo = torch.empty_like(v)
         _launch("gradient", lib.fsc_gradient, u.data_ptr(), v.data_ptr(),
-                p.data_ptr(), uo.data_ptr(), vo.data_ptr(), n + 2, grid_h(n),
-                _stream(u))
+                p.data_ptr(), uo.data_ptr(), vo.data_ptr(), n + 2, _batch(u),
+                grid_h(n), _stream(u))
         return uo, vo
 
 
@@ -371,7 +439,7 @@ def advect_shift_fused(bs, d0s, u, v, dt, n, cmax=None):
                       else (None, None, 0))
         _launch("advect", lib.fsc_advect, d0s[0].data_ptr(), _ptr(d2),
                 u.data_ptr(), v.data_ptr(), outs[0].data_ptr(), _ptr(o2),
-                n + 2, bs[0], b2, _dt0(dt, n), window, _stream(u))
+                n + 2, _batch(u), bs[0], b2, _dt0(dt, n), window, _stream(u))
         return outs
 
 
@@ -408,13 +476,14 @@ def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
                                        cheby_rho=cheby_rho)
     with torch.cuda.device(base.device):
         lib = build.load()
+        nb = _batch(base)
         sweeps = _Sweeps(b, src, base, alpha, beta, iters, zero_init=False,
                          src_dt=dt, fast=fast, cheby_rho=cheby_rho)
         for _ in range(iters - 1):
-            sweeps.sweep(lib)
+            sweeps.sweep(lib, nb, nb, b)
         out = torch.empty_like(base)
         _launch("dens_advect", lib.fsc_dens_advect, *sweeps.next_args(),
-                u.data_ptr(), v.data_ptr(), out.data_ptr(), n + 2, b,
+                u.data_ptr(), v.data_ptr(), out.data_ptr(), n + 2, nb, b,
                 _dt0(dt, n), window, sweeps.stream)
         return out
 

@@ -11,7 +11,9 @@ for parity:
 - the velocity step projects twice (``:213-226`` and ``:238-240``).
 
 PyTorch runs eagerly, so a step is a plain function of tensors and
-``simulate`` is a Python loop.
+``simulate`` is a Python loop.  A step takes one (side, side) grid per
+field or a batch of them, (B, side, side), through either backend
+(``models/batched.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Callable
 import torch
 
 from ..core.config import SimConfig
-from ..core.state import FluidState, Sources, zero_sources
+from ..core.state import FluidState, Sources, zero_sources_like
 from ..kernels.dispatch import OpSet, get_ops
 
 __all__ = [
@@ -110,7 +112,8 @@ def step(cfg: SimConfig, state: FluidState, sources: Sources) -> FluidState:
 def step_audited(cfg: SimConfig, state: FluidState,
                  sources: Sources) -> tuple[FluidState, torch.Tensor]:
     """``step`` plus the largest semi-Lagrangian backtrace displacement
-    (cells, a 0-dim tensor) of this step's advections.  The self-advection
+    (cells, a 0-dim tensor, over every grid of a batch) of this step's
+    advections.  The self-advection
     backtraces through the post-projection intermediate velocity, so the
     stored state alone under-reports it.  Under ``advect_mode="windowed"``
     the gathers were exact while it stays at or below ``cfg.max_courant``
@@ -146,7 +149,7 @@ def simulate(cfg: SimConfig, state: FluidState, sources: Sources,
     """Run ``num_steps`` steps.  Sources fire on step 1 only by default,
     matching the reference harness (``FluidSequential.c:289-303``);
     ``sources_every_step=True`` makes them a continuous inflow."""
-    zeros = sources if sources_every_step else zero_sources(cfg)
+    zeros = sources if sources_every_step else zero_sources_like(sources)
     for k in range(num_steps):
         state = step(cfg, state, sources if k == 0 else zeros)
     return state
@@ -163,8 +166,9 @@ class StableFluids2D:
     def step(self, state: FluidState,
              sources: Sources | None = None) -> FluidState:
         if sources is None:
-            if self._zeros is None:
-                self._zeros = zero_sources(self.cfg)
+            zeros = self._zeros
+            if zeros is None or zeros.dens.shape != state.dens.shape:
+                self._zeros = zero_sources_like(state)
             sources = self._zeros
         return step(self.cfg, state, sources)
 

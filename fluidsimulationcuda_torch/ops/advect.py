@@ -9,9 +9,13 @@ lower cell (the clamp makes trunc == floor), bilinearly interpolated from
 keeps every read inside the padded grid.  ``advect_windowed`` also clamps
 the departure point to ``cmax`` cells around its cell; the slab gathers of
 the multi-device step (``kernels/cuda_sharded.py``) apply the same
-``departure`` and ``bilinear`` at global coordinates.
+``departure`` and ``bilinear`` at global coordinates.  ``advect`` and
+``advect_windowed`` take one (side, side) grid or a batch of them on
+leading axes.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -41,10 +45,11 @@ def departure(u: torch.Tensor, v: torch.Tensor, cols: torch.Tensor,
 
 def backtrace(u: torch.Tensor, v: torch.Tensor, dt: float, n: int,
               cmax: int | None = None):
-    """``departure`` of every interior cell of the (side, side) grid,
-    float32 arrays of shape (n, n)."""
+    """``departure`` of every interior cell of the (side, side) grid, or of
+    each grid of a batch on leading axes: float32 arrays of shape (..., n,
+    n)."""
     idx = torch.arange(1, n + 1, dtype=torch.float32, device=u.device)
-    return departure(u[1:-1, 1:-1], v[1:-1, 1:-1], idx[None, :],
+    return departure(u[..., 1:-1, 1:-1], v[..., 1:-1, 1:-1], idx[None, :],
                      idx[:, None], dt, n, cmax)
 
 
@@ -52,7 +57,9 @@ def bilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
              row0: int = 0) -> torch.Tensor:
     """Bilinear gather of ``d0`` at departure points (x, y) in the
     reference's blend order (the clamp makes trunc == floor); global row
-    ``i`` is row ``i - row0`` of ``d0``."""
+    ``i`` is row ``i - row0`` of ``d0``.  Leading axes of ``d0`` are a batch
+    of grids: the points of grid ``g`` (the same leading index of x and y)
+    gather from grid ``g`` alone."""
     j0 = x.to(torch.int32)
     i0 = y.to(torch.int32)
     s1 = x - j0.to(torch.float32)
@@ -63,6 +70,11 @@ def bilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     side = d0.shape[-1]
     flat = d0.reshape(-1)
     base = ((i0 - row0) * side + j0).to(torch.int64)
+    if d0.dim() > 2:
+        # Each grid's flat offset, g * rows * side, broadcast over its points.
+        grids = torch.arange(math.prod(d0.shape[:-2]), device=d0.device)
+        base = base + (grids.reshape(d0.shape[:-2] + (1, 1))
+                       * (d0.shape[-2] * side))
     g00 = flat[base]
     g10 = flat[base + side]
     g01 = flat[base + 1]

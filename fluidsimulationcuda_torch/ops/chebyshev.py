@@ -40,10 +40,11 @@ def cheby_diffuse(b: int, x_init: torch.Tensor, x0: torch.Tensor,
                   alpha: float, beta: float, iters: int,
                   rho: float) -> torch.Tensor:
     """``iters`` Chebyshev-accelerated Jacobi sweeps (the perf-mode twin of
-    ``ops.diffuse.diffuse``; guess ``x_init``, rhs ``x0``)."""
+    ``ops.diffuse.diffuse``; guess ``x_init``, rhs ``x0``; one grid or a
+    batch of them)."""
     a = as_scalar(alpha, x0)
     bt = as_scalar(beta, x0)
-    rhs_int = x0[1:-1, 1:-1]
+    rhs_int = x0[..., 1:-1, 1:-1]
     xm = x_init
     x = jacobi_sweep(b, xm, rhs_int, a, bt)
     for w in cheby_omegas(rho, iters):
@@ -52,7 +53,7 @@ def cheby_diffuse(b: int, x_init: torch.Tensor, x0: torch.Tensor,
         # Re-derive the ghost ring from the combined interior: the affine
         # combination would otherwise leak x_{k-1}'s ghosts (for k=2 the raw
         # guess border) into the ring the next sweep reads.
-        xm, x = x, embed_interior(b, xn[1:-1, 1:-1])
+        xm, x = x, embed_interior(b, xn[..., 1:-1, 1:-1])
     return x
 
 

@@ -28,8 +28,9 @@ def jacobi_sweep(b: int, x: torch.Tensor, rhs_int: torch.Tensor, alpha,
     ``x'[c] = (rhs[c] + alpha*(xL+xR+xU+xD)) / beta`` on the interior, border
     re-derived by the mode-``b`` rule.  ``rhs_int`` is the (n, n) interior
     of the right-hand side; ``alpha`` and ``beta`` are floats or 0-dim
-    tensors."""
-    neigh = ((x[1:-1, :-2] + x[1:-1, 2:]) + x[:-2, 1:-1]) + x[2:, 1:-1]
+    tensors.  Leading axes are a batch of grids, each swept alone."""
+    neigh = (((x[..., 1:-1, :-2] + x[..., 1:-1, 2:]) + x[..., :-2, 1:-1])
+             + x[..., 2:, 1:-1])
     return embed_interior(b, (rhs_int + alpha * neigh) / beta)
 
 
@@ -37,10 +38,11 @@ def diffuse(b: int, x_init: torch.Tensor, x0: torch.Tensor, alpha: float,
             beta: float, iters: int) -> torch.Tensor:
     """``iters`` Jacobi sweeps from guess ``x_init`` with RHS ``x0``
     (``FluidSequential.c:85-104``).  Covers diffusion (alpha = dt*k*n²,
-    beta = 1+4*alpha) and the pressure Poisson solve (alpha=1, beta=4)."""
+    beta = 1+4*alpha) and the pressure Poisson solve (alpha=1, beta=4), on
+    one (side, side) grid or a batch of them."""
     a = as_scalar(alpha, x0)
     bt = as_scalar(beta, x0)
-    rhs_int = x0[1:-1, 1:-1]
+    rhs_int = x0[..., 1:-1, 1:-1]
     x = x_init
     for _ in range(iters):
         x = jacobi_sweep(b, x, rhs_int, a, bt)

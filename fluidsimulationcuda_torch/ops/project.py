@@ -4,6 +4,7 @@
 Divergence with a zero pressure guess (``computeDivergenceAndPressure``,
 ``FluidSequential.c:143-158``), Jacobi Poisson solve (alpha=1, beta=4,
 ``:218-220``), and gradient subtraction (``lastProject``, ``:161-173``).
+Each takes one (side, side) grid or a batch of them on leading axes.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ def divergence(u: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
     """``div = -0.5*h*(uR-uL + vD-vU)``, ``h = 1/n``
     (``FluidSequential.c:148-155``); boundary mode 0."""
     coef = -0.5 * grid_h(n)  # exact in float32: a power-of-two scaling
-    d = coef * ((u[1:-1, 2:] - u[1:-1, :-2]) + (v[2:, 1:-1] - v[:-2, 1:-1]))
+    d = coef * ((u[..., 1:-1, 2:] - u[..., 1:-1, :-2])
+                + (v[..., 2:, 1:-1] - v[..., :-2, 1:-1]))
     return embed_interior(0, d)
 
 
@@ -40,8 +42,10 @@ def apply_pressure_gradient(u: torch.Tensor, v: torch.Tensor,
     """``u -= 0.5*(pR-pL)/h``, ``v -= 0.5*(pD-pU)/h``
     (``FluidSequential.c:165-172``); boundary modes 1 and 2."""
     h = as_scalar(grid_h(n), u)
-    un = u[1:-1, 1:-1] - (0.5 * (p[1:-1, 2:] - p[1:-1, :-2])) / h
-    vn = v[1:-1, 1:-1] - (0.5 * (p[2:, 1:-1] - p[:-2, 1:-1])) / h
+    un = (u[..., 1:-1, 1:-1]
+          - (0.5 * (p[..., 1:-1, 2:] - p[..., 1:-1, :-2])) / h)
+    vn = (v[..., 1:-1, 1:-1]
+          - (0.5 * (p[..., 2:, 1:-1] - p[..., :-2, 1:-1])) / h)
     return embed_interior(1, un), embed_interior(2, vn)
 
 

@@ -312,3 +312,77 @@ def test_cuda_tail_launches_or_raises(cuda):
     assert cuda_ops.launch_counts()["advect_project"] == 1
     with pytest.raises(ValueError):
         cuda_step.fused_advect_project(u, u.cpu(), 32, 3, 0.016, cmax=2)
+
+
+@pytest.mark.parametrize("nb,side", [(3, 34), (2, 130)])
+def test_batched_kernels_match_plain_and_per_grid(cuda, nb, side):
+    """K1-K4 on a batch: against their plain versions, and against the same
+    wrapper launched on each grid alone (bit for bit)."""
+    for check in checks.kernel_checks_batched(nb, side, cuda, seed=side,
+                                              cmax=2):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert all(counts[k] > 0 for k in check.kernels), (check.label, counts)
+        assert checks.max_abs_diff(got, want) <= checks.TOL, check.label
+    for check in checks.batched_against_grids(nb, side, cuda, seed=side,
+                                              cmax=2):
+        got, want = check.run(), check.plain()
+        torch.cuda.synchronize()
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("side,batch", [(34, 0), (34, 3), (2048, 0)])
+def test_pair_equals_two_singles(cuda, side, batch):
+    """B12: one K1 launch a sweep for the stacked u/v pair, equal to two
+    ``fused_jacobi`` calls bit for bit."""
+    for check in checks.pair_against_singles(side, cuda, seed=side,
+                                             batch=batch):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        assert cuda_ops.launch_counts()["jacobi_sweep"] == 20, check.label
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("mode", ["parity", "perf"])
+def test_batched_step_launches_matches_per_grid_and_reference(cuda, mode):
+    """The windowed step on a batch of four 64² grids: the launches of one
+    grid, each grid equal to its own step bit for bit, and the batch held
+    against the ``reference`` backend."""
+    import chip_smoke
+
+    kw = dict(PERF, fast_math=True) if mode == "perf" else {}
+    cfg = ft.SimConfig(n=62, jacobi_iters=20, backend="cuda", device=cuda,
+                       advect_mode="windowed", max_courant=1, **kw)
+    state, src = ft.batched_init(torch.Generator(device=cuda).manual_seed(0),
+                                 cfg, 4)
+    state = ft.step(cfg, state, src)
+    cuda_ops.reset_launch_counts()
+    got = ft.step(cfg, state, src)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        **chip_smoke.expected_launches(cfg)}
+    for g in range(4):
+        one = ft.step(cfg, ft.FluidState(*(t[g] for t in state[:3])),
+                      ft.Sources(*(t[g] for t in src[:3])))
+        for a, b in zip(got[:3], one[:3]):
+            assert torch.equal(a[g], b)
+    want = ft.step(cfg.replace(backend="reference"), state, src)
+    # The reference backend ignores fast_math (phase 6 of chip_smoke.py).
+    atol = 1e-4 if mode == "perf" else 2e-5
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+
+
+def test_cuda_batch_launches_once_or_raises(cuda):
+    x = torch.zeros(5, 34, 34, device=cuda)
+    cuda_ops.reset_launch_counts()
+    cuda_ops.fused_jacobi(0, x, x, 1.0, 4.0, 3)
+    assert cuda_ops.launch_counts()["jacobi_sweep"] == 3
+    with pytest.raises(ValueError):
+        cuda_ops.fused_jacobi(0, x, x[:4].clone(), 1.0, 4.0, 3)

@@ -50,13 +50,13 @@ def _sources(seed, n):
     return dens, u, v
 
 
-def _jax_run(cfg, srcs, steps):
+def _jax_run(cfg, srcs, steps, every=False):
     step = fj.make_step_fn(cfg)
     state = fj.zero_state(cfg)
     sources = fj.Sources(*map(jnp.asarray, srcs))
     zeros = fj.zero_sources(cfg)
     for k in range(steps):
-        state = step(state, sources if k == 0 else zeros)
+        state = step(state, sources if (k == 0 or every) else zeros)
     return state
 
 
@@ -72,6 +72,37 @@ def test_step_matches_jax(mode, steps):
     want = _jax_run(fj.SimConfig(**kw), srcs, steps)
     tcfg = ft.SimConfig(device="cpu", **kw)
     got = ft.simulate(tcfg, ft.zero_state(tcfg), _torch_sources(srcs), steps)
+    for name in ("dens", "u", "v"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+# Configurations no other test pins (ROADMAP.md §C): the Chebyshev
+# density solve alone, each Chebyshev solve alone, and the windowed step.
+PINNED = {
+    "chebyshev-dens": dict(diffusion_solver="chebyshev-dens", cheby_rho=0.9),
+    "chebyshev pressure": dict(pressure_solver="chebyshev", cheby_rho=0.9,
+                               cheby_iters=10, cheby_press_iters=14),
+    "chebyshev diffusion": dict(diffusion_solver="chebyshev", cheby_rho=0.9,
+                                cheby_iters=10),
+    "windowed cmax=1": dict(advect_mode="windowed", max_courant=1),
+    "windowed cmax=2 chebyshev-dens": dict(
+        advect_mode="windowed", max_courant=2,
+        diffusion_solver="chebyshev-dens", cheby_rho=0.9),
+}
+
+
+@pytest.mark.parametrize("every", [False, True],
+                         ids=["sources on step 1", "sources every step"])
+@pytest.mark.parametrize("config", list(PINNED))
+def test_pinned_configs_match_jax(config, every):
+    kw = dict(n=30, jacobi_iters=20, backend="reference", **PINNED[config])
+    srcs = _sources(5, 30)
+    want = _jax_run(fj.SimConfig(**kw), srcs, 6, every)
+    tcfg = ft.SimConfig(device="cpu", **kw)
+    got = ft.simulate(tcfg, ft.zero_state(tcfg), _torch_sources(srcs), 6,
+                      sources_every_step=every)
     for name in ("dens", "u", "v"):
         np.testing.assert_allclose(getattr(got, name).numpy(),
                                    np.asarray(getattr(want, name)),
