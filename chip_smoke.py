@@ -44,6 +44,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    floor, its plain version and the composition it replaces (K3's
    windowed pair and ``fused_project``; two ``torch.cat`` and K9).  K17
    against its plain version runs in phase 3, K18 in phase 3c;
+3f. K1's damped sweep (the multigrid smoother) against
+   ``ops.multigrid._smooth`` at 2048², 128² and 16² (2 sweeps from a guess
+   and from zero, 40 from zero; bit for bit expected, max|Δ| <= 1e-6
+   required), and K6 in the gather window against
+   ``ops.three_d.advect3_windowed`` at 256³ (constant displacements inside,
+   across and far over a 2-cell window, random velocities up to 6 cells in
+   windows of 2 and 4, one field and the self-advected triple; max|Δ| <=
+   1e-5); each timed beside its bound and plain version (K1-damp also at
+   16², beside the launch floor), K6 in the window on the inputs phase 3b
+   times exact K6 on;
 4. the six golden fixtures ``tests/golden/*.npz`` through the ``cuda``
    backend (atol 1e-5);
 5. the 2-D main path, ``StableFluids2D.step`` at 2048² (n=2046), 20 Jacobi
@@ -97,19 +107,40 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the ``reference`` backend (step 1: rtol 1e-5 / atol 2e-5, or atol 1e-4
    with fast math, which the reference ignores; the last step: max|Δ| <=
    1e-4); then ms/step eager and as a CUDA graph, Mcell-updates/s, and one
-   step traced with ``torch.profiler`` (device ms per kernel, busy share).
+   step traced with ``torch.profiler`` (device ms per kernel, busy share);
+14. the multigrid 2-D step at 2048²: ``pressure_solver="multigrid"`` with
+   two cycles and Jacobi-20 diffusion, one cycle, and the JAX bench's line
+   (one cycle, fast math): the launches of ``expected_launches`` (68
+   K1-damp launches a cycle), the first two held to the ``reference``
+   backend as phase 5, the bench line at the same bars to the ``cuda``
+   OpSet's plain twins, which take fast_math and round as the kernels do
+   (``make_opset(cfg, plain=True)``; the reference ignores fast_math: its
+   gap is printed beside the plain twins' own), float32 matmuls checked
+   to run without TF32, the first projection's max|div| beside the
+   Jacobi-20 projection's on the same velocity (at most it for
+   multigrid), and one step traced (the transfers' GEMM time beside K1's);
+15. the CG-20 2-D step at 2048², checked the same way (its step captured as
+   a CUDA graph: no host sync inside the loop), with max|div|;
+16. the windowed 3-D step at 256³ (4-cell window), parity and the
+   compensated mode with fast math: checked as phases 8-9, then the
+   impulse step's audited displacement beside the window and a forced
+   trajectory (sources × 0.05 every step) windowed and exact, equal bit for
+   bit while the displacement stays under the window.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
-in its main path's run (phase 5 and phase 13's two trajectories for the
-2-D kernels, phase 8 for the 3-D ones, the 8-slab 2048² parity run of phase 10 for the row-slab kernels, the
-8-slab 256³ parity run of phase 11 for the z-slab kernels, phase 12's tail
-runs for K17 and phase 10's chunk run for K18), its max|Δ| from phase 3,
-3b, 3c, 3d or 3e, its device time beside its plain version's, and its
-bound.  The last line is ``{"ok": true, "device": {...}}``.
+in its main path's run (phase 5, phase 13's two trajectories and phases
+14-15 for the 2-D kernels, phases 8 and 16 for the 3-D ones, the 8-slab
+2048² parity run of phase 10 for the row-slab kernels, the 8-slab 256³
+parity run of phase 11 for the z-slab kernels, phase 12's tail runs for
+K17, phase 10's chunk run for K18, phase 14 for K1's damped sweep and
+phase 16 for K6's window), its max|Δ| from phase 3, 3b, 3c, 3d, 3e or 3f,
+its device time beside its plain version's, and its bound.  The last line
+is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
 from __future__ import annotations
 
+import functools
 import glob
 import json
 import os
@@ -155,6 +186,10 @@ KERNEL_SOURCES = {
     "advect3_slab": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
     "advect_project": (f"{CSRC}/advect_project.cu", f"{TPU_TAIL}:299"),
     "jacobi_slab_split": (f"{CSRC}/jacobi_slab_split.cu", f"{TPU_SLABS}:506"),
+    # The damped mode of the same pallas_call (fused_jacobi's damp), and the
+    # window of the 3-D gather (advect3_shift(_fused)'s cmax).
+    "jacobi_sweep_damp": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
+    "advect3_windowed": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
 }
 
 
@@ -168,24 +203,48 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
+def mg_cycle_sweeps(n: int, pre: int = 2, post: int = 2,
+                    min_n: int = 16) -> int:
+    """Damped K1 sweeps of one multigrid V-cycle from interior ``n``: ``pre``
+    + ``post`` on every level whose interior is at least ``min_n``, each
+    next padded side the half rounded down to a multiple of 8 (at least
+    16), then 40 on the coarsest level (JAX's ``mg_pressure_solve_fast``;
+    at 2048²: 7 levels, 68 sweeps)."""
+    sweeps = 0
+    while n >= min_n:
+        sweeps += pre + post
+        half = (n + 2) // 2
+        n = max(16, half - half % 8) - 2
+    return sweeps + 40
+
+
 def expected_launches(cfg) -> dict[str, int]:
-    """Kernel launches of one step of ``cfg`` with one sweep per launch."""
+    """Kernel launches of one step of ``cfg`` with one sweep per launch.
+    The multigrid projection smooths with K1's damped sweep (counted
+    apart); the CG projection launches K2 alone (its iterations are torch
+    operations)."""
     k_vel = k_dens = cfg.jacobi_iters
     if cfg.diffusion_solver == "chebyshev":
         k_vel = k_dens = cfg.cheby_iters
     elif cfg.diffusion_solver == "chebyshev-dens":
         k_dens = cfg.cheby_dens_iters
-    k_p = (cfg.press_cheby_iters if cfg.pressure_solver == "chebyshev"
-           else cfg.jacobi_iters)
-    return {"jacobi_sweep": 2 * k_vel + 2 * k_p + (k_dens - 1),
-            "divergence": 2, "gradient": 2, "advect": 1, "dens_advect": 1}
+    k_p = {"chebyshev": cfg.press_cheby_iters, "multigrid": 0,
+           "cg": 0}.get(cfg.pressure_solver, cfg.jacobi_iters)
+    launches = {"jacobi_sweep": 2 * k_vel + 2 * k_p + (k_dens - 1),
+                "divergence": 2, "gradient": 2, "advect": 1,
+                "dens_advect": 1}
+    if cfg.pressure_solver == "multigrid":
+        launches["jacobi_sweep_damp"] = (2 * cfg.mg_cycles
+                                         * mg_cycle_sweeps(cfg.n))
+    return launches
 
 
 def expected_launches3(cfg) -> dict[str, int]:
     """Kernel launches of one 3-D step of ``cfg`` with one sweep per launch:
     three velocity diffusions, two pressure solves and the density
     diffusion on K5, one K7 and one K8 per projection, one K6 for the
-    (u, v, w) self-advection triple and one for the density."""
+    (u, v, w) self-advection triple and one for the density (counted as
+    ``advect3_windowed`` under ``advect_mode="windowed"``)."""
     k_vel = (cfg.cheby_iters if cfg.diffusion_solver == "chebyshev"
              else cfg.jacobi_iters)
     k_dens = {"chebyshev": cfg.cheby_iters,
@@ -193,8 +252,10 @@ def expected_launches3(cfg) -> dict[str, int]:
                   cfg.diffusion_solver, cfg.jacobi_iters)
     k_p = (cfg.press_cheby_iters if cfg.pressure_solver == "chebyshev"
            else cfg.jacobi_iters)
+    advect = ("advect3_windowed" if cfg.advect_mode == "windowed"
+              else "advect3")
     return {"jacobi3_sweep": 3 * k_vel + 2 * k_p + k_dens,
-            "divergence3": 2, "gradient3": 2, "advect3": 2}
+            "divergence3": 2, "gradient3": 2, advect: 2}
 
 
 def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
@@ -267,12 +328,14 @@ def timed_steps(step_fn, state, steps: int) -> tuple[object, float]:
 
 def main_path(cfg, label: str, card: str, steps: int,
               tol: tuple[float, float, float] | None,
-              forced_tol: float | None = None) -> dict[str, int]:
+              forced_tol: float | None = None,
+              oracle: tuple[str, object] | None = None) -> dict[str, int]:
     """Impulse step plus ``steps-1`` steps through ``StableFluids2D`` or
     ``StableFluids3D`` (by ``cfg.ndim``); check and return the launch counts
     of that run.  ``tol = (rtol, atol, last)`` holds step 1 to
     ``|d| <= atol + rtol*|ref|`` and step ``steps`` to ``max|d| <= last``
-    against the ``reference`` backend on the same tensors; None skips the
+    against the ``reference`` backend on the same tensors, or against
+    ``oracle = (its name, step(state, sources))``; None skips the
     comparison.  ``forced_tol`` also runs ``steps-1`` steps of both backends
     with the sources scaled by 0.05 firing every step (the forced twin of
     the JAX bench, ``bench.py:405-406``) and holds the last to
@@ -309,14 +372,16 @@ def main_path(cfg, label: str, card: str, steps: int,
     if tol is not None:
         rtol, atol, last = tol
         zeros = zero_sources(ref)
-        r_first = step_fn(ref, state0, sources)
+        name, o_step = oracle or ("reference backend",
+                                  functools.partial(step_fn, ref))
+        r_first = o_step(state0, sources)
         d1 = max_diff(first, r_first)
         require_close(first, r_first, rtol, atol, f"{label} step 1")
-        r_state, ref_ms = timed_steps(lambda s: step_fn(ref, s, zeros),
-                                      r_first, steps - 1)
+        r_state, ref_ms = timed_steps(lambda s: o_step(s, zeros), r_first,
+                                      steps - 1)
         dn = max_diff(state, r_state)
-        print(f"{label}: max|d| vs reference backend: step 1 {d1:.3e}, "
-              f"step {steps} {dn:.3e}; reference backend {ref_ms:.4f} ms/step")
+        print(f"{label}: max|d| vs {name}: step 1 {d1:.3e}, step {steps} "
+              f"{dn:.3e}; {name} {ref_ms:.4f} ms/step")
         if not dn <= last:
             raise AssertionError(f"{label}: step {steps} max|d| {dn:.3e} > {last}")
     if forced_tol is not None:
@@ -727,10 +792,11 @@ def datagen_path(cfg, label: str, card: str, tol: tuple[float, float, float],
     return counts
 
 
-def profile_step(fn, label: str, card: str) -> None:
+def profile_step(fn, label: str, card: str) -> dict[str, list]:
     """One ``fn()`` traced with ``torch.profiler``: device ms and share
     per CUDA kernel, and the busy share of the wall time (host clock
-    around the traced call, ending in a synchronise)."""
+    around the traced call, ending in a synchronise).  Returns
+    {kernel name: [launches, device ms]}."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -756,6 +822,115 @@ def profile_step(fn, label: str, card: str) -> None:
               f"{100 * ms / busy_ms:5.1f}% {1e3 * ms / count:9.2f} us/launch")
     print(f"  device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall "
           f"({100 * busy_ms / wall_ms:.1f}%; profiler on)")
+    return per_kernel
+
+
+def max_div(u, v, n: int) -> float:
+    from fluidsimulationcuda_torch.ops.project import divergence
+
+    return float(divergence(u, v, n)[1:-1, 1:-1].abs().max())
+
+
+def projection_quality(cfg, label: str, bar: bool) -> None:
+    """The step's first projection of ``cfg`` (on its backend) beside the
+    Jacobi-20 projection (``fused_project``) on the same velocity: the
+    impulse step's diffused velocity.  Prints max|div| after each; with
+    ``bar``, fails unless the first is at most the second (the JAX bench's
+    bar for its multigrid line, ``bench.py:234``)."""
+    from fluidsimulationcuda_torch import reference_init
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+    from fluidsimulationcuda_torch.kernels.dispatch import get_ops
+    # The head of vel_step, as the step composes it.
+    from fluidsimulationcuda_torch.models.stable_fluids_2d import (
+        _diffuse_velocity, _make_project)
+
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    ops = get_ops(cfg)
+    u, v = _diffuse_velocity(cfg, ops, state0.u, state0.v, sources.u,
+                             sources.v)
+    before = max_div(u, v, cfg.n)
+    got = max_div(*_make_project(cfg, ops)(u, v), cfg.n)
+    jac = max_div(*cuda_ops.fused_project(u, v, cfg.n, 20), cfg.n)
+    print(f"{label}: max|div| of the diffused impulse velocity {before:.4e}; "
+          f"after this projection {got:.4e}, after the Jacobi-20 projection "
+          f"{jac:.4e} ({got / jac:.3f}x)")
+    if not np.isfinite(got) or (bar and not got <= jac):
+        raise AssertionError(f"{label}: max|div| {got:.4e} against "
+                             f"Jacobi-20's {jac:.4e}")
+
+
+def fast_math_gap(cfg, label: str) -> None:
+    """Step 1 of the fast-math ``cfg`` on the card, and through the
+    ``cuda`` OpSet's plain twins, each against the ``reference`` backend,
+    which ignores ``fast_math``: max|d| and its largest ratio to the parity
+    bar (atol 2e-5, rtol 1e-5).  Where the two gaps are alike, the gap is
+    fast math's own as the step carries it, not the kernels' (a reading,
+    not a bar)."""
+    from fluidsimulationcuda_torch import reference_init, step
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    ref = step(cfg.replace(backend="reference"), state0, sources)
+    plain = cuda_ops.make_opset(cfg, plain=True)
+    for name, got in (("the card", step(cfg, state0, sources)),
+                      ("the plain twins",
+                       step(cfg, state0, sources, plain))):
+        ratio = max(float(((a - b).abs() / (2e-5 + 1e-5 * b.abs())).max())
+                    for (_, a), (_, b) in zip(fields(got), fields(ref)))
+        print(f"{label}: step 1, {name} against the reference backend: "
+              f"max|d| {max_diff(got, ref):.3e}, {ratio:.2f}x the parity "
+              f"bar")
+
+
+def transfer_split(per_kernel: dict[str, list], label: str) -> None:
+    """The traced step's device time in the multigrid transfers (the GEMM
+    kernels of ``torch.matmul``) beside K1's damped sweeps (its
+    ``jacobi_sweep_kernel<true>`` instantiation) and its other sweeps."""
+    busy = sum(ms for _, ms in per_kernel.values())
+
+    def share(match) -> str:
+        ms = sum(t for name, (_, t) in per_kernel.items() if match(name))
+        return f"{ms:.4f} ms ({100 * ms / busy:.1f}%)"
+
+    print(f"{label}: of {busy:.4f} device ms, transfers (GEMM) "
+          f"{share(lambda k: 'gemm' in k.lower())}, K1-damp "
+          f"{share(lambda k: 'jacobi_sweep_kernel<true>' in k)}, K1 "
+          f"diffusion sweeps {share(lambda k: 'jacobi_sweep_kernel<false>' in k)}")
+
+
+def windowed3_path(cfg, label: str, card: str, steps: int) -> None:
+    """The windowed 3-D step's audited displacement (``step_audited3``) on
+    the impulse step, beside the window; then ``steps`` steps of the forced
+    trajectory (sources × 0.05 every step, ``bench.py:405-406``) windowed
+    and exact, on the card: while the audited displacement stays under the
+    window the two are equal bit for bit."""
+    from fluidsimulationcuda_torch import Sources, reference_init, step3
+    from fluidsimulationcuda_torch.models.stable_fluids_3d import (
+        step_audited3)
+
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    _, disp = step_audited3(cfg, state0, sources)
+    disp = float(disp)
+    print(f"{label}: impulse step audited displacement {disp:.6f} cells "
+          f"(window {cfg.max_courant}: the gathers "
+          f"{'clamp' if disp > cfg.max_courant else 'are exact'})")
+    drive = Sources(*(None if s is None else 0.05 * s for s in sources))
+    exact_cfg = cfg.replace(advect_mode="exact")
+    windowed, exact, f_disp = state0, state0, 0.0
+    for _ in range(steps):
+        windowed, d = step_audited3(cfg, windowed, drive)
+        exact = step3(exact_cfg, exact, drive)
+        f_disp = max(f_disp, float(d))
+    require_finite(windowed, f"{label} forced")
+    diff = max_diff(windowed, exact)
+    print(f"{label}: forced trajectory, {steps} steps: audited displacement "
+          f"{f_disp:.6f} cells; max|d| windowed vs exact {diff:.3e} ({card})")
+    if f_disp < cfg.max_courant and diff != 0.0:
+        raise AssertionError(f"{label}: under the window the windowed step "
+                             f"differs from the exact one by {diff:.3e}")
 
 
 def main() -> None:
@@ -763,7 +938,9 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA device")
     sys.path.insert(0, ROOT)
-    from fluidsimulationcuda_torch import SimConfig, Sources, simulate, zero_state
+    from fluidsimulationcuda_torch import (SimConfig, Sources, StableFluids2D,
+                                           reference_init, simulate, step,
+                                           zero_state)
     from fluidsimulationcuda_torch.core.config import (PERF_POINTS_2D,
                                                        perf_operating_point)
     from fluidsimulationcuda_torch.kernels import build, checks, cuda_ops
@@ -829,6 +1006,22 @@ def main() -> None:
                               "2048², slab of 256 rows", card, floor))
     kernel_times(checks.timing_checks_split(8192, 2048, "cuda", SEED),
                  "8192², slab of 2048 rows", card, floor)
+
+    phase("3f K1's damped sweep and K6's window against their plain "
+          "versions")
+    # K1-damp equals ops.multigrid._smooth bit for bit (--fmad=false);
+    # 1e-6 is the bar.
+    for side in (2048, 128, 16):
+        compare(checks.kernel_checks_damp(side, "cuda", SEED), 1e-6, errs)
+    compare(checks.kernel_checks3_windowed(256, "cuda", SEED), checks.TOL,
+            errs)
+    times.update(kernel_times(checks.timing_checks_damp(2048, "cuda", SEED),
+                              "2048²", card, floor))
+    kernel_times(checks.timing_checks_damp(16, "cuda", SEED), "16²", card,
+                 floor)
+    times.update(kernel_times(checks.timing_checks3_windowed(256, "cuda",
+                                                             SEED),
+                              "256³", card))
 
     phase("4 golden fixtures through the cuda backend")
     paths = sorted(glob.glob(os.path.join(ROOT, "tests", "golden", "*.npz")))
@@ -953,8 +1146,66 @@ def main() -> None:
         comp, f"1024 × 256² compensated (rho={rho}, k_d={k_d}, k_p={k_p}) "
         f"fast_math", card, tol=(0.0, 1e-4, 1e-4)).items()}
 
+    phase("14 the multigrid 2-D step: 2048²")
+    # Full float32 transfers: TF32 stays off, as PyTorch leaves it.
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("float32 matmuls are not in full precision")
+    mg = parity.replace(pressure_solver="multigrid", mg_cycles=2)
+    label = "2048² multigrid, 2 cycles, Jacobi-20 diffusion"
+    launches_mg = main_path(mg, label, card, 6, tol=(1e-5, 2e-5, 1e-4))
+    projection_quality(mg, label, bar=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state_mg = StableFluids2D(mg).step(*reference_init(gen, mg))
+    transfer_split(profile_step(lambda: StableFluids2D(mg).step(state_mg),
+                                label, card), label)
+    # The JAX bench's multigrid line (bench.py:140-143): one cycle with fast
+    # math.  One cycle is held to the reference backend without fast math.
+    # The reference backend ignores fast_math; the cuda OpSet's plain twins
+    # take it and round as the kernels do (K1's fmaf), so the fast line is
+    # held to them at the parity bar, and to the JAX bench's divergence bar.
+    mg1 = mg.replace(mg_cycles=1)
+    launches_mg = {k: c + launches_mg[k] for k, c in main_path(
+        mg1, "2048² multigrid, 1 cycle", card, 6,
+        tol=(1e-5, 2e-5, 1e-4)).items()}
+    mg1 = mg1.replace(fast_math=True)
+    label = "2048² multigrid, 1 cycle, fast_math (the bench line)"
+    plain_mg1 = functools.partial(step, mg1,
+                                  ops=cuda_ops.make_opset(mg1, plain=True))
+    launches_mg = {k: c + launches_mg[k] for k, c in main_path(
+        mg1, label, card, 6, tol=(1e-5, 2e-5, 1e-4),
+        oracle=("the cuda OpSet's plain twins", plain_mg1)).items()}
+    fast_math_gap(mg1, label)
+    projection_quality(mg1, label, bar=True)
+    transfer_split(profile_step(lambda: StableFluids2D(mg1).step(state_mg),
+                                label, card), label)
+
+    phase("15 the CG 2-D step: 2048², 20 iterations")
+    cg = parity.replace(pressure_solver="cg", cg_iters=20)
+    label = "2048² CG-20"
+    # main_path captures the step in a CUDA graph: no host sync inside.
+    launches_cg = main_path(cg, label, card, 6, tol=(1e-5, 2e-5, 1e-4))
+    projection_quality(cg, label, bar=False)
+
+    phase("16 the windowed 3-D step: 256³, 4-cell window")
+    win3 = parity3.replace(advect_mode="windowed")
+    label = "256³ windowed parity"
+    launches_w3 = main_path(win3, label, card, 6, tol=(1e-5, 2e-5, 1e-4),
+                            forced_tol=1e-4)
+    windowed3_path(win3, label, card, 6)
+    rho, k_d, k_p = perf_operating_point(256, ndim=3)
+    label = (f"256³ windowed compensated (rho={rho}, k_d={k_d}, k_p={k_p}) "
+             f"fast_math")
+    win3c = comp3.replace(advect_mode="windowed", fast_math=True)
+    # As in phase 9: the reference backend ignores fast_math.
+    launches_w3 = {k: c + launches_w3[k] for k, c in main_path(
+        win3c, label, card, 6, tol=(0.0, 1e-4, 1e-4),
+        forced_tol=1e-4).items()}
+    windowed3_path(win3c, label, card, 6)
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
-                     + launches_slab3[k] + launches_dg[k]
+                     + launches_slab3[k] + launches_dg[k] + launches_mg[k]
+                     + launches_cg[k] + launches_w3[k]
                      for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_split"] = launches_split["jacobi_slab_split"]

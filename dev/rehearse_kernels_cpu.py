@@ -3,7 +3,7 @@
 plain PyTorch versions.
 
     python3 dev/rehearse_kernels_cpu.py [--side2 34] [--side3 24] [--slab-side 64]
-                                        [--slab3-side 24]
+                                        [--slab3-side 24] [--mg-side 130]
 
 A CUDA kernel has no interpret mode, and a machine without ``nvcc`` cannot
 build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
@@ -27,9 +27,12 @@ of ``kernels/cuda_ops.py``, ``kernels/cuda_ops_3d.py``,
   and plain version;
 - one 2-D and one 3-D step per mode go through the ``cuda`` backend, their
   launch counts against ``chip_smoke.expected_launches(3)``, their state
-  against the ``reference`` backend; the 2-D steps also in windowed mode,
-  and each windowed step's velocity tail again through K17 against the
-  step's own;
+  against the ``reference`` backend; both also in windowed mode, each
+  windowed 2-D step's velocity tail again through K17 against the step's
+  own; and 2-D steps at ``--mg-side`` with the multigrid (two cycles; one
+  with fast math) and CG pressure solves; K1's damped sweep
+  (``kernel_checks_damp`` at ``--mg-side``) and K6's window
+  (``kernel_checks3_windowed``) against their plain versions;
 - one multi-device step per mode and route goes through the ``cuda``
   backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``), its
   launch counts against ``chip_smoke.expected_launches_sharded``, its state
@@ -185,6 +188,7 @@ def main() -> int:
     ap.add_argument("--side3", type=int, default=24)
     ap.add_argument("--slab-side", type=int, default=64)
     ap.add_argument("--slab3-side", type=int, default=24)
+    ap.add_argument("--mg-side", type=int, default=130)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     os.chdir(ROOT)
@@ -195,7 +199,9 @@ def main() -> int:
     lib = build_shim_library()
     failures = 0
     check_list = (checks.kernel_checks(args.side2, "cpu", 1)
+                  + checks.kernel_checks_damp(args.mg_side, "cpu", 1)
                   + checks.kernel_checks3(args.side3, "cpu", 1)
+                  + checks.kernel_checks3_windowed(args.side3, "cpu", 1)
                   + checks.kernel_checks_slab(args.slab_side,
                                               args.slab_side // 4, "cpu", 1)
                   + checks.kernel_checks_slab3(args.slab3_side,
@@ -229,52 +235,62 @@ def main() -> int:
                                     cheby_rho=0.85)}
     modes["windowed parity"] = modes["parity"]
     modes["windowed compensated"] = modes["compensated"]
-    for ndim, side in ((2, args.side2), (3, args.side3)):
+    solvers = {"multigrid": dict(pressure_solver="multigrid", mg_cycles=2),
+               "multigrid fast": dict(pressure_solver="multigrid",
+                                      mg_cycles=1, fast_math=True),
+               "cg": dict(pressure_solver="cg", cg_iters=20)}
+    for ndim, side, mode, kw in (
+            [(2, args.side2, m, kw) for m, kw in modes.items()]
+            + [(2, args.mg_side, m, kw) for m, kw in solvers.items()]
+            + [(3, args.side3, m, kw) for m, kw in modes.items()]):
         step = ft.step3 if ndim == 3 else ft.step
         design = (chip_smoke.expected_launches3 if ndim == 3
                   else chip_smoke.expected_launches)
-        for mode, kw in modes.items():
-            if ndim == 3 and mode.startswith("windowed"):
-                continue  # the 3-D step gathers exactly
-            if ndim == 2 and mode.endswith("compensated"):
-                kw = dict(kw, cheby_rho=0.9, cheby_press_iters=14)
-            if mode.startswith("windowed"):
-                kw = dict(kw, advect_mode="windowed", max_courant=1)
-            ref = ft.SimConfig(n=side - 2, ndim=ndim, backend="reference",
-                               device="cpu", **kw)
-            cfg = ref.replace()
-            # The cuda backend on CPU tensors, which only the shim allows.
-            object.__setattr__(cfg, "backend", "cuda")
-            state, src = ft.reference_init(torch.Generator().manual_seed(0),
-                                           ref)
+        if ndim == 2 and mode.endswith("compensated"):
+            kw = dict(kw, cheby_rho=0.9, cheby_press_iters=14)
+        if mode.startswith("windowed"):
+            kw = dict(kw, advect_mode="windowed", max_courant=1)
+        ref = ft.SimConfig(n=side - 2, ndim=ndim, backend="reference",
+                           device="cpu", **kw)
+        cfg = ref.replace()
+        # The cuda backend on CPU tensors, which only the shim allows.
+        object.__setattr__(cfg, "backend", "cuda")
+        state, src = ft.reference_init(torch.Generator().manual_seed(0),
+                                       ref)
+        with kernels_on_cpu(lib):
+            cuda_ops.reset_launch_counts()
+            got = step(cfg, state, src)
+            counts = cuda_ops.launch_counts()
+        # The multigrid fast line is held, as phase 14 holds it, to the
+        # cuda OpSet's plain twins, which take fast_math and round as the
+        # kernels do; the other fast modes to the reference at 1e-4.
+        exact_twins = mode == "multigrid fast"
+        want = (step(ref, state, src, cuda_ops.make_opset(ref, plain=True))
+                if exact_twins else step(ref, state, src))
+        per_step = design(cfg)
+        launches_ok = counts == {k: per_step.get(k, 0)
+                                 for k in cuda_ops.KERNELS}
+        err = chip_smoke.max_diff(got, want)
+        tol = 1e-4 if cfg.fast_math and not exact_twins else 0.0
+        bad = err > tol or not launches_ok
+        failures += bad
+        print(f"  {ndim}-D step {mode:15s} max|d| vs "
+              f"{'plain twins' if exact_twins else 'reference'} "
+              f"{err:.3e}, launches "
+              f"{'as designed' if launches_ok else counts}"
+              f"{'  FAIL' if bad else ''}")
+        if ndim == 2 and mode.startswith("windowed"):
             with kernels_on_cpu(lib):
                 cuda_ops.reset_launch_counts()
-                got = step(cfg, state, src)
+                tail = chip_smoke.windowed_tail(cfg, state, src)
                 counts = cuda_ops.launch_counts()
-            want = step(ref, state, src)
-            per_step = design(cfg)
-            launches_ok = counts == {k: per_step.get(k, 0)
-                                     for k in cuda_ops.KERNELS}
-            err = chip_smoke.max_diff(got, want)
-            tol = 1e-4 if cfg.fast_math else 0.0
-            bad = err > tol or not launches_ok
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(tail, (got.u, got.v)))
+            bad = err > 0.0 or counts["advect_project"] != 1
             failures += bad
-            print(f"  {ndim}-D step {mode:15s} max|d| vs reference "
-                  f"{err:.3e}, launches "
-                  f"{'as designed' if launches_ok else counts}"
-                  f"{'  FAIL' if bad else ''}")
-            if mode.startswith("windowed"):
-                with kernels_on_cpu(lib):
-                    cuda_ops.reset_launch_counts()
-                    tail = chip_smoke.windowed_tail(cfg, state, src)
-                    counts = cuda_ops.launch_counts()
-                err = max(float((a - b).abs().max())
-                          for a, b in zip(tail, (got.u, got.v)))
-                bad = err > 0.0 or counts["advect_project"] != 1
-                failures += bad
-                print(f"  2-D {mode} velocity tail through K17 max|d| vs "
-                      f"the step's {err:.3e}, K17 launches "
-                      f"{counts['advect_project']}{'  FAIL' if bad else ''}")
+            print(f"  2-D {mode} velocity tail through K17 max|d| vs "
+                  f"the step's {err:.3e}, K17 launches "
+                  f"{counts['advect_project']}{'  FAIL' if bad else ''}")
     failures += rehearse_sharded(lib, args.slab_side)
     failures += rehearse_sharded3(lib, args.slab3_side)
     print(f"{failures} failure(s)")

@@ -40,17 +40,18 @@ class SimConfig:
         package.  The single-device steps run one sweep per launch, so
         ``fuse_sweeps`` changes nothing there; ``max_courant`` is the 2-D
         step's window under ``advect_mode="windowed"``.
-      pressure_solver: ``"jacobi"`` or ``"chebyshev"`` run here;
-        ``"multigrid"`` and ``"cg"`` are accepted in 2-D and raise when a
-        step asks for them (not ported yet); 3-D refuses them, as the JAX
-        package does.
+      pressure_solver: ``"jacobi"`` and ``"chebyshev"`` everywhere;
+        ``"multigrid"`` (``mg_cycles`` V-cycles, ``ops/multigrid.py``) and
+        ``"cg"`` (``cg_iters`` iterations, ``ops/cg.py``) in the 2-D step,
+        not on a batch or on slabs; 3-D refuses them, as the JAX package
+        does.
       advect_mode: ``"auto"`` and ``"exact"`` gather exactly (the JAX
         package's ``"auto"`` is windowed on a TPU only); ``"windowed"``
         clamps each departure point to ``max_courant`` cells around its
-        cell (``ops.advect.advect_windowed``: exact while the backtrace
-        moves at most ``max_courant`` cells), in the 2-D step on both
-        backends.  The 3-D step refuses it (it gathers exactly); the
-        multi-device steps are always windowed.
+        cell (``ops.advect.advect_windowed``, ``ops.three_d.
+        advect3_windowed``: exact while the backtrace moves at most
+        ``max_courant`` cells), in the 2-D and 3-D steps on both backends.
+        The multi-device steps are always windowed.
       ndim: 2 (the flagship) or 3 (smoke volumes, ``(n+2)^3``).
     """
 

@@ -215,6 +215,8 @@ enum SweepFlags {
   kPrep = 1,   // rhs holds the raw base: fold src and/or pre-scale it here
   kFast = 2,   // reciprocal form rhs/beta + (alpha/beta)*neigh
   kCheby = 4,  // Chebyshev three-term combine with x_{k-1}
+  kDamp = 8,   // damped Jacobi (1-w)*x_k + w*S(x_k): K1 applies it after
+               // sweep_update (jacobi.cu), so no other kernel carries it
 };
 
 struct SweepParams {
@@ -408,6 +410,19 @@ __device__ __forceinline__ Departure3 backtrace3(const float* u,
   y = fminf(fmaxf(y, lo), hi);
   z = fminf(fmaxf(z, lo), hi);
   return departure3(x, y, z, side, 0);
+}
+
+// 3-D departure of interior cell (ck, ci, cj) under the window clamp of
+// cmax cells per axis (window_coord; ops/three_d.py advect3_windowed), the
+// windowed twin of backtrace3.
+__device__ __forceinline__ Departure3 window_backtrace3(
+    const float* u, const float* v, const float* w, int ck, int ci, int cj,
+    int side, float dt0, int cmax) {
+  const int c = (ck * side + ci) * side + cj;
+  const int n = side - 2;
+  return departure3(window_coord(cj, u[c], n, dt0, cmax),
+                    window_coord(ci, v[c], n, dt0, cmax),
+                    window_coord(ck, w[c], n, dt0, cmax), side, 0);
 }
 
 // The trilinear blend in the order of ops/three_d.py advect3:

@@ -34,7 +34,7 @@ _F = ctypes.c_float
 # cudaError_t of the launch).
 _SIGNATURES = {
     "fsc_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
-                         _F, _I, _I, _I, _I, _P],
+                         _F, _I, _I, _I, _I, _F, _P],
     "fsc_divergence": [_P, _P, _P, _I, _I, _F, _P],
     "fsc_gradient": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
@@ -49,7 +49,7 @@ _SIGNATURES = {
     "fsc_divergence3": [_P, _P, _P, _P, _I, _F, _P],
     "fsc_gradient3": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P],
     "fsc_advect3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                    _P],
+                    _I, _P],
     "fsc_jacobi_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
                         _F, _I, _I, _I, _I, _I, _P],
     "fsc_divergence_slab": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.config import PERF_POINT_3D, PERF_POINTS_2D
+from ..ops.multigrid import OMEGA, _smooth
 from . import cuda_ops as co
 from . import cuda_ops_3d as co3
 from . import cuda_sharded as cs
@@ -40,8 +41,9 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks_batched", "batched_against_grids",
            "timing_checks_batched",
            "pair_against_singles", "timing_checks_pair",
-           "timing_checks_split", "max_abs_diff",
-           "device_ms"]
+           "timing_checks_split", "kernel_checks_damp",
+           "timing_checks_damp", "kernel_checks3_windowed",
+           "timing_checks3_windowed", "max_abs_diff", "device_ms"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -95,18 +97,19 @@ def _add(*costs: tuple[int, int]) -> tuple[int, int]:
 
 
 def _sweep_costs(iters: int, ndim: int, *, zero_init=False, src=False,
-                 fast=False, cheby=False):
+                 fast=False, cheby=False, damp=False):
     """(field passes, float ops per cell) of each sweep launch of one
     solve, as ``cuda_ops._Sweeps`` runs them: each reads its x (none for
     the zero guess), x_{k-1} (the Chebyshev combine) and rhs, writes its
     output, and the first also writes the rhs it builds (the folded source
-    is the guess x itself)."""
+    is the guess x itself).  The damped combine reads x again (no pass)."""
     has_x, has_xm, prep = not zero_init, False, src or fast
     for k in range(iters):
         combine = cheby and k >= 1
-        # neighbour sum, alpha*sum + rhs, /beta; fold; combine
+        # neighbour sum, alpha*sum + rhs, /beta; fold; combine; damping
         yield (has_x + (combine and has_xm) + 1 + 1 + prep,
-               (2 * ndim + 2) + (2 * src + fast if prep else 0) + 4 * combine)
+               (2 * ndim + 2) + (2 * src + fast if prep else 0) + 4 * combine
+               + 3 * damp)
         has_xm, has_x, prep = has_x, True, False
 
 
@@ -171,6 +174,7 @@ class _Inputs:
 
 
 JAC = ("jacobi_sweep",)
+DAMP = ("jacobi_sweep_damp",)
 PROJ = ("divergence", "jacobi_sweep", "gradient")
 DENS = ("jacobi_sweep", "dens_advect")
 TAIL = ("advect_project",)
@@ -195,12 +199,14 @@ def kernel_checks(side: int, device, seed: int = 0) -> list[Check]:
         "fast": dict(src_dt=DT, fast=True),
         "chebyshev": dict(src_dt=DT, cheby_rho=rho),
         "chebyshev+fast": dict(src_dt=DT, cheby_rho=rho, fast=True),
+        "damped": dict(damp=OMEGA),
     }
     out = []
     for b in (0, 1, 2):
         for mode, kw in modes.items():
             k = k_d if "cheby_rho" in kw else iters
-            out.append(_check(f"fused_jacobi b={b} {mode} {k}it", JAC,
+            out.append(_check(f"fused_jacobi b={b} {mode} {k}it",
+                              DAMP if "damp" in kw else JAC,
                               co.fused_jacobi, co.fused_jacobi_plain, b, t.x,
                               t.x0, av, 1 + 4 * av, k, **kw))
     return out + [
@@ -320,6 +326,39 @@ def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
                t.x0, t.u, t.v, ad, bd, k_d, DT, n, fast=True, cheby_rho=rho),
         unfused,
     ]
+
+
+# (sweeps, zero_init) of the multigrid cycle's smoothing calls: the pre- and
+# post-smooth of a level from a guess, the first pre-smooth of a level
+# from zero, the coarsest level's 40 sweeps from zero.
+MG_SMOOTHS = ((2, False), (2, True), (40, True))
+
+
+def kernel_checks_damp(side: int, device, seed: int = 0) -> list[Check]:
+    """K1's damped sweep (B1's ``damp``) against the plain multigrid
+    smoother ``ops.multigrid._smooth`` at grid ``side``, in the calls a
+    V-cycle makes (``MG_SMOOTHS``); with ``--fmad=false`` they agree bit for
+    bit."""
+    t = _Inputs(side, device, seed)
+    return [_check(f"{side}² damped jacobi {k} sweeps"
+                   f"{' zero_init' if z else ''}", DAMP, co.mg_smooth,
+                   _smooth, t.x, t.x0, k, z) for k, z in MG_SMOOTHS]
+
+
+def timing_checks_damp(side: int, device, seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of K1's damped sweep at grid ``side``:
+    one sweep (labelled by its count's name), and the cycle's smoothing
+    calls of ``MG_SMOOTHS``, each beside ``_smooth``."""
+    t = _Inputs(side, device, seed)
+
+    def cost(k, z):
+        return _sweeps_cost(k, 2, zero_init=z, damp=True)
+
+    return [_timed(cost(1, False), t.cells, "jacobi_sweep_damp", DAMP,
+                   co.mg_smooth, _smooth, t.x, t.x0, 1)] + [
+        _timed(cost(k, z), t.cells, f"{side}² damped jacobi {k} sweeps"
+               f"{' zero_init' if z else ''}", DAMP, co.mg_smooth,
+               _smooth, t.x, t.x0, k, z) for k, z in MG_SMOOTHS]
 
 
 def timing_checks_tail(side: int, device, seed: int = 0) -> list[Check]:
@@ -626,6 +665,77 @@ def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
                f"pressure3 {k_p}it chebyshev+fast", JAC3, co3.fused_jacobi3,
                co3.fused_jacobi3_plain, 0, t.p, t.p, 1.0, 6.0, k_p,
                zero_init=True, fast=True, cheby_rho=rho),
+    ]
+
+
+ADV3_WIN = ("advect3_windowed",)
+WINDOW3 = 2  # the window of the TPU kernel's own tests (test_pallas_3d.py)
+# Constant displacements in cells, (x, y, z): inside the window, across its
+# edge, and far over it (tests/test_pallas_3d.py:173-174).
+DISPLACEMENTS3 = ((0.4, -0.3, 0.2), (1.7, 1.7, -1.7), (9.0, -9.0, 9.0))
+
+
+def kernel_checks3_windowed(side: int, device, seed: int = 0) -> list[Check]:
+    """K6 in the gather window (B7/B7f's ``cmax``) against
+    ``ops.three_d.advect3_windowed`` at volume ``side``: one field under
+    each constant displacement of ``DISPLACEMENTS3`` (window of
+    ``WINDOW3`` cells), and random velocities moving the backtrace up to 6
+    cells (one field and the self-advected triple, windows of ``WINDOW3``
+    and of the step's 4 cells)."""
+    t = _Inputs(side, device, seed, ndim=3)
+    n = t.n
+    dt0 = DT * n
+    out = []
+    for disp in DISPLACEMENTS3:
+        uvw = tuple(torch.full_like(t.x, float(np.float32(-d / dt0)))
+                    for d in disp)
+        out.append(_check(f"advect3_shift b=0 cmax={WINDOW3} displacement "
+                          f"{disp}", ADV3_WIN, co3.advect3_shift,
+                          co3.advect3_shift_plain, 0, t.x, *uvw, DT, n,
+                          WINDOW3))
+    fast = tuple(3.0 * f for f in (t.u, t.v, t.w))  # up to 6 cells
+    for cmax in (WINDOW3, CMAX):
+        out += [
+            _check(f"advect3_shift b=0 cmax={cmax}, random velocities",
+                   ADV3_WIN, co3.advect3_shift, co3.advect3_shift_plain, 0,
+                   t.x, *fast, DT, n, cmax),
+            _check(f"advect3_shift_fused u/v/w triple cmax={cmax}", ADV3_WIN,
+                   co3.advect3_shift_fused, co3.advect3_shift_fused_plain,
+                   (1, 2, 3), fast, *fast, DT, n, cmax),
+        ]
+    return out
+
+
+def timing_checks3_windowed(side: int, device,
+                            seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of K6 in the window at volume ``side``,
+    on the inputs of ``timing_checks3``'s exact K6 (the backtrace moves up
+    to 2 cells): the self-advected triple (labelled by its count's name)
+    and one field in the step's 4-cell window, then the triple in a 2-cell
+    window on velocities that cross it.  The window adds a second clamp of
+    each coordinate: its two bounds and a min and a max, 12 operations a
+    cell."""
+    t = _Inputs(side, device, seed, ndim=3)
+    n, cells = t.n, t.cells
+    uvw = (t.u, t.v, t.w)
+    fast = tuple(3.0 * f for f in uvw)
+
+    def win(cost):
+        return cost[0], cost[1] + 4 * 3
+
+    return [
+        _timed(win(ADVECT3_TRIPLE), cells, "advect3_windowed", ADV3_WIN,
+               co3.advect3_shift_fused, co3.advect3_shift_fused_plain,
+               (1, 2, 3), uvw, *uvw, DT, n, CMAX),
+        _timed(win(ADVECT3_ONE), cells,
+               f"advect3_windowed one field cmax={CMAX}", ADV3_WIN,
+               co3.advect3_shift, co3.advect3_shift_plain, 0, t.x, *uvw, DT,
+               n, CMAX),
+        _timed(win(ADVECT3_TRIPLE), cells,
+               f"advect3_windowed triple cmax={WINDOW3}, over the window",
+               ADV3_WIN, co3.advect3_shift_fused,
+               co3.advect3_shift_fused_plain, (1, 2, 3), fast, *fast, DT, n,
+               WINDOW3),
     ]
 
 

@@ -2,11 +2,12 @@
 PyTorch version.
 
 Wrappers keep the names and signatures of ``fluidsimulationcuda_tpu.kernels.
-pallas_ops`` minus the TPU-only knobs (``max_fused``, ``damp``,
-``self_advect``; ``nb1`` is ``fused_jacobi_pair``'s, not a caller's).  The
-gathers take JAX's ``cmax`` (the gather window in cells); None gathers
-exactly.  Like the TPU kernels, each takes one (side, side) grid or a batch
-of them, (nb, side, side), and launches its kernels once whatever nb is.
+pallas_ops`` minus the TPU-only knobs (``max_fused``, ``self_advect``;
+``nb1`` is ``fused_jacobi_pair``'s, not a caller's).  ``fused_jacobi``
+takes JAX's ``damp`` (damped Jacobi, the multigrid smoother), the gathers
+JAX's ``cmax`` (the gather window in cells; None gathers exactly).  Like
+the TPU kernels, each takes one (side, side) grid or a batch of them, (nb,
+side, side), and launches its kernels once whatever nb is.
 Each checks dtype (float32), shape, contiguity and device.  On CPU tensors
 it returns its plain version, built from ``ops/``; on CUDA tensors it
 launches the hand-written kernels of ``csrc/`` (built on first use by
@@ -19,7 +20,8 @@ step:
   ``fused_jacobi`` (TPU ``pallas_ops.py:645``), ``fused_jacobi_pair``
   (``:671``, u and v stacked on the batch axis, each with its boundary
   mode) and the sweep engine of ``fused_project`` and
-  ``fused_dens_advect``.
+  ``fused_dens_advect``; with ``damp`` the multigrid smoother, whose
+  launches count apart as ``jacobi_sweep_damp``.
 - ``divergence`` and ``gradient`` (K2, ``csrc/project.cu``): with K1 they
   make ``fused_project`` (``:899``); alone they are ``divergence_p``
   (``:1622``) and ``gradient_p`` (``:1645``).
@@ -36,7 +38,9 @@ kernels (K13-K16) theirs in ``cuda_sharded_3d.py``, the fused velocity tail
 launch helper and counts.  ``launch_counts()`` reports how often each
 kernel was launched since ``reset_launch_counts()``: every successful
 launch adds one, nothing else does, so a run can show that it went through
-the kernels.
+the kernels.  Two modes that no earlier path ran count under names of
+their own: K1's damped sweep (``jacobi_sweep_damp``) and K6's windowed
+gather (``advect3_windowed``).
 """
 from __future__ import annotations
 
@@ -46,8 +50,10 @@ import numpy as np
 import torch
 
 from ..ops.advect import advect, advect_windowed
+from ..ops.boundary import embed_interior
 from ..ops.chebyshev import cheby_diffuse, cheby_omegas
-from ..ops.diffuse import diffuse
+from ..ops.diffuse import damped_diffuse, diffuse
+from ..ops.multigrid import OMEGA, _smooth
 from ..ops.project import apply_pressure_gradient, divergence, grid_h
 from ..ops.source import add_source
 from . import build
@@ -55,7 +61,7 @@ from .dispatch import OpSet
 
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "make_opset",
-    "fused_jacobi", "fused_jacobi_plain", "fused_jacobi_pair",
+    "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "fused_jacobi_pair",
     "fused_jacobi_pair_plain", "fused_project",
     "fused_project_plain", "advect_shift", "advect_shift_plain",
     "advect_shift_fused", "advect_shift_fused_plain", "fused_dens_advect",
@@ -67,11 +73,12 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi3_sweep", "divergence3", "gradient3", "advect3",
            "jacobi_slab", "divergence_slab", "gradient_slab", "advect_slab",
            "jacobi3_slab", "divergence3_slab", "gradient3_slab",
-           "advect3_slab", "advect_project", "jacobi_slab_split")
+           "advect3_slab", "advect_project", "jacobi_slab_split",
+           "jacobi_sweep_damp", "advect3_windowed")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
-_PREP, _FAST, _CHEBY = 1, 2, 4
+_PREP, _FAST, _CHEBY, _DAMP = 1, 2, 4, 8
 # Grids of one 2-D launch: CUDA's limit on the launch's third axis.
 _MAX_BATCH = 65535
 
@@ -168,7 +175,9 @@ class _Sweeps:
     it for every later sweep: the fold reaches every sweep, not only the
     first launch (the trap of ``pallas_ops.py:550-559``).  The Chebyshev
     weights come from ``cheby_omegas`` on the host, one per launch; the
-    first sweep of a solve is plain.
+    first sweep of a solve is plain.  ``damp`` makes every sweep damped
+    Jacobi (K1 only; ``omw``, 1-w rounded once from float64, goes to the
+    launch beside the geometry), counted as ``jacobi_sweep_damp``.
 
     A Chebyshev chain may run in segments (the z-slab step exchanges halos
     between them): ``start`` is the segment's first global sweep, whose ω
@@ -179,8 +188,11 @@ class _Sweeps:
 
     def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
                  src_dt, fast, cheby_rho, kernel="jacobi_sweep", start=0,
-                 xm=None):
+                 xm=None, damp=None):
         self.kernel = kernel
+        self.count = kernel if damp is None else f"{kernel}_damp"
+        self.damp = None if damp is None else _f32(damp)
+        self.omw = 0.0 if damp is None else _f32(1.0 - damp)
         self.b = b
         self.side = rhs.shape[-1]
         self.stream = _stream(rhs)
@@ -201,9 +213,11 @@ class _Sweeps:
         """Pointer and scalar arguments (x, rhs, src, xm, alpha, beta, ab,
         inv_b, src_dt, w, flags) of the next sweep."""
         cheby = self.omegas is not None and self.k >= 1
+        damp = self.damp is not None
         flags = ((_PREP if self.prep else 0) | (_FAST if self.fast else 0)
-                 | (_CHEBY if cheby else 0))
-        w = _f32(self.omegas[self.k - 1]) if cheby else 0.0
+                 | (_CHEBY if cheby else 0) | (_DAMP if damp else 0))
+        w = (_f32(self.omegas[self.k - 1]) if cheby
+             else self.damp if damp else 0.0)
         return (_ptr(self.x), self.rhs.data_ptr(),
                 _ptr(self.src if self.prep else None),
                 _ptr(self.xm if cheby else None), *self.coefs, w, flags)
@@ -223,12 +237,12 @@ class _Sweeps:
 
     def sweep(self, lib, *geometry: int) -> None:
         """One launch; ``geometry`` goes between the sweep scalars and the
-        stream (K1's batch and boundary split, the slab kernel's row range
-        and wall rows)."""
+        stream (K1's batch and boundary split and ``omw``, the slab
+        kernel's row range and wall rows)."""
         out = self._scratch()
         rhs_out = torch.empty_like(self.rhs) if self.prep else None
         x, rhs, src, xm, *scalars = self.next_args()
-        _launch(self.kernel, getattr(lib, f"fsc_{self.kernel}"), x, rhs, src,
+        _launch(self.count, getattr(lib, f"fsc_{self.kernel}"), x, rhs, src,
                 xm, out.data_ptr(), _ptr(rhs_out), self.side, self.b,
                 *scalars, *geometry, self.stream)
         if self.prep:
@@ -244,10 +258,42 @@ class _Sweeps:
 # ---------------------------------------------------------------------------
 
 
+def _check_damp(damp, src_dt, fast, cheby_rho) -> None:
+    """``damp`` is the multigrid smoother's alone: no source fold, no
+    reciprocal form and no Chebyshev weights (JAX asserts the last,
+    ``pallas_ops.py:540``)."""
+    if damp is not None and (src_dt is not None or fast
+                             or cheby_rho is not None):
+        raise ValueError("damp takes no src_dt, fast or cheby_rho")
+
+
+def _fma_diffuse(b, x_init, rhs, ab, iters):
+    """``iters`` sweeps of the reciprocal form ``x' = rhs + ab*neigh`` (rhs
+    already scaled by 1/beta) with the product and the sum rounded once, as
+    K1's ``fmaf`` rounds them: in float64, where the product of two float32
+    values is exact, then back to float32.  That second rounding can differ
+    from the single one only where the float64 sum lands exactly halfway
+    between two float32 values."""
+    ab = _f32(ab)
+    rhs_int = rhs[..., 1:-1, 1:-1].double()
+    x = x_init
+    for _ in range(iters):
+        neigh = (((x[..., 1:-1, :-2] + x[..., 1:-1, 2:]) + x[..., :-2, 1:-1])
+                 + x[..., 2:, 1:-1])
+        x = embed_interior(b, (rhs_int + ab * neigh.double()).to(x.dtype))
+    return x
+
+
 def fused_jacobi_plain(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
-                       src_dt=None, fast=False, cheby_rho=None):
-    """Plain form of ``fused_jacobi``: ``ops.diffuse`` or
-    ``ops.chebyshev.cheby_diffuse`` on the rhs ``x0 + dt*x_init``."""
+                       src_dt=None, fast=False, cheby_rho=None, damp=None):
+    """Plain form of ``fused_jacobi``: ``ops.diffuse``,
+    ``ops.chebyshev.cheby_diffuse`` or ``ops.diffuse.damped_diffuse`` on
+    the rhs ``x0 + dt*x_init`` (with b=0, alpha=1, beta=4 and damp=0.8 the
+    multigrid smoother ``ops.multigrid._smooth``).  ``fast`` Jacobi sweeps
+    round as K1's do (``_fma_diffuse``), so the two agree to the bit; the
+    fast Chebyshev sweeps round the product and the sum apart, a few ulp
+    from K1's."""
+    _check_damp(damp, src_dt, fast, cheby_rho)
     if zero_init:
         x_init = torch.zeros_like(x0)
     rhs = x0 if src_dt is None else add_source(x0, x_init, src_dt)
@@ -257,28 +303,45 @@ def fused_jacobi_plain(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
         # (division by 1 is exact).
         rhs = rhs * (1.0 / beta)
         alpha, beta = alpha / beta, 1.0
+        if cheby_rho is None:
+            return _fma_diffuse(b, x_init, rhs, alpha, iters)
     if cheby_rho is not None:
         return cheby_diffuse(b, x_init, rhs, alpha, beta, iters, cheby_rho)
+    if damp is not None:
+        return damped_diffuse(b, x_init, rhs, alpha, beta, iters, damp)
     return diffuse(b, x_init, rhs, alpha, beta, iters)
 
 
 def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
-                 src_dt=None, fast=False, cheby_rho=None):
+                 src_dt=None, fast=False, cheby_rho=None, damp=None):
     """``iters`` Jacobi sweeps (semantics of ``ops.diffuse``) from guess
     ``x_init`` with rhs ``x0``.  ``zero_init`` starts from zero (pressure
     solve); ``src_dt`` folds the source ``x_init`` into the rhs as
     ``x0 + src_dt*x_init``; ``fast`` uses the reciprocal form
     (``pallas_ops.py:423-456``); ``cheby_rho`` switches to Chebyshev sweeps
-    (``ops/chebyshev.py``).  One K1 launch per sweep."""
+    (``ops/chebyshev.py``); ``damp`` to damped Jacobi, x <- (1-damp)*x +
+    damp*sweep (``pallas_ops.py:432-459``, the multigrid smoother), which
+    takes none of ``src_dt``, ``fast`` and ``cheby_rho``.  One K1 launch
+    per sweep."""
     if iters < 1:
         raise ValueError("iters must be >= 1")
+    _check_damp(damp, src_dt, fast, cheby_rho)
     if not _on_card(x0.shape[-1], x_init, x0):
         return fused_jacobi_plain(b, x_init, x0, alpha, beta, iters,
                                   zero_init=zero_init, src_dt=src_dt,
-                                  fast=fast, cheby_rho=cheby_rho)
+                                  fast=fast, cheby_rho=cheby_rho, damp=damp)
     return _solve(b, _batch(x0), b, x_init, x0, alpha, beta, iters,
                   zero_init=zero_init, src_dt=src_dt, fast=fast,
-                  cheby_rho=cheby_rho)
+                  cheby_rho=cheby_rho, damp=damp)
+
+
+def mg_smooth(p, div, sweeps, zero_init=False):
+    """The multigrid smoother on K1 (the ``cuda`` OpSet's ``smooth``):
+    ``sweeps`` damped sweeps, w = ``ops.multigrid.OMEGA``, of the pressure
+    problem (b=0, alpha=1, beta=4) from ``p`` or from zero; equal to
+    ``ops.multigrid._smooth`` bit for bit."""
+    return fused_jacobi(0, p, div, 1.0, 4.0, sweeps, zero_init=zero_init,
+                        damp=OMEGA)
 
 
 def _solve(b, nb1, b1, x_init, x0, alpha, beta, iters, **kw):
@@ -288,7 +351,7 @@ def _solve(b, nb1, b1, x_init, x0, alpha, beta, iters, **kw):
         lib = build.load()
         sweeps = _Sweeps(b, x_init, x0, alpha, beta, iters, **kw)
         for _ in range(iters):
-            sweeps.sweep(lib, _batch(x0), nb1, b1)
+            sweeps.sweep(lib, _batch(x0), nb1, b1, sweeps.omw)
         return sweeps.x
 
 
@@ -480,7 +543,7 @@ def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
         sweeps = _Sweeps(b, src, base, alpha, beta, iters, zero_init=False,
                          src_dt=dt, fast=fast, cheby_rho=cheby_rho)
         for _ in range(iters - 1):
-            sweeps.sweep(lib, nb, nb, b)
+            sweeps.sweep(lib, nb, nb, b, sweeps.omw)
         out = torch.empty_like(base)
         _launch("dens_advect", lib.fsc_dens_advect, *sweeps.next_args(),
                 u.data_ptr(), v.data_ptr(), out.data_ptr(), n + 2, nb, b,
@@ -493,45 +556,66 @@ def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
 # ---------------------------------------------------------------------------
 
 
-def make_opset(cfg) -> OpSet:
+def make_opset(cfg, plain: bool = False) -> OpSet:
     """The CUDA OpSet (twin of ``pallas_ops.make_opset``) for ``cfg``.  It
     reads ``fast_math``, and ``advect_mode``: ``"windowed"`` gathers under
     the window of ``max_courant`` cells, as JAX's Pallas OpSet always does;
-    ``"auto"`` and ``"exact"`` gather exactly."""
+    ``"auto"`` and ``"exact"`` gather exactly.  The multigrid smoother is
+    K1's damped sweep on every level (JAX's Pallas OpSet takes its damped
+    kernel where the TPU tiling allows, ``ops/multigrid.py:242-251``); like
+    JAX's, it ignores ``fast_math``.
+
+    ``plain`` binds every op to its kernel's plain twin on any device, fast
+    math's reciprocal form included: the same arithmetic as the kernels in
+    torch ops, which launch nothing.  The ``reference`` backend ignores
+    ``fast_math``, so this is what a fast-math step on the card is held to
+    (``chip_smoke.py``)."""
     fast = cfg.fast_math
     cmax = cfg.max_courant if cfg.advect_mode == "windowed" else None
+    if plain:
+        jacobi, adv, adv_fused, dens_adv = (
+            fused_jacobi_plain, advect_shift_plain, advect_shift_fused_plain,
+            fused_dens_advect_plain)
+        div, grad, project, smooth = (divergence_p_plain, gradient_p_plain,
+                                      fused_project_plain, _smooth)
+    else:
+        jacobi, adv, adv_fused, dens_adv = (
+            fused_jacobi, advect_shift, advect_shift_fused, fused_dens_advect)
+        div, grad, project, smooth = (divergence_p, gradient_p,
+                                      fused_project, mg_smooth)
 
     def diffuse_op(b, x_init, x0, alpha, beta, iters, cheby_rho=None):
-        return fused_jacobi(b, x_init, x0, alpha, beta, iters, fast=fast,
-                            cheby_rho=cheby_rho)
+        return jacobi(b, x_init, x0, alpha, beta, iters, fast=fast,
+                      cheby_rho=cheby_rho)
 
     def diffuse_src(b, src, base, alpha, beta, iters, dt, cheby_rho=None):
-        return fused_jacobi(b, src, base, alpha, beta, iters, src_dt=dt,
-                            fast=fast, cheby_rho=cheby_rho)
+        return jacobi(b, src, base, alpha, beta, iters, src_dt=dt, fast=fast,
+                      cheby_rho=cheby_rho)
 
     def advect(b, d0, u, v, dt, n):
-        return advect_shift(b, d0, u, v, dt, n, cmax)
+        return adv(b, d0, u, v, dt, n, cmax)
 
     def advect_pair(b1, b2, d1, d2, u, v, dt, n):
-        return advect_shift_fused((b1, b2), (d1, d2), u, v, dt, n, cmax)
+        return adv_fused((b1, b2), (d1, d2), u, v, dt, n, cmax)
 
     def pressure_solve(div, iters, cheby_rho=None):
-        return fused_jacobi(0, div, div, 1.0, 4.0, iters, zero_init=True,
-                            cheby_rho=cheby_rho)
+        return jacobi(0, div, div, 1.0, 4.0, iters, zero_init=True,
+                      cheby_rho=cheby_rho)
 
     def diffuse_advect(b, src, base, u, v, alpha, beta, iters, dt, n,
                        cheby_rho=None):
-        return fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt,
-                                 n, cmax=cmax, fast=fast, cheby_rho=cheby_rho)
+        return dens_adv(b, src, base, u, v, alpha, beta, iters, dt, n,
+                        cmax=cmax, fast=fast, cheby_rho=cheby_rho)
 
     return OpSet(
         diffuse=diffuse_op,
         advect=advect,
-        divergence=divergence_p,
+        divergence=div,
         pressure_solve=pressure_solve,
-        apply_pressure_gradient=gradient_p,
+        apply_pressure_gradient=grad,
         advect_pair=advect_pair,
-        project=fused_project,
+        project=project,
         diffuse_src=diffuse_src,
+        smooth=smooth,
         diffuse_advect=diffuse_advect,
     )

@@ -3,7 +3,8 @@ function, each beside its plain PyTorch version (twin of
 ``fluidsimulationcuda_tpu.kernels.pallas_ops_3d``).
 
 Wrappers keep the names and signatures of ``pallas_ops_3d`` minus the TPU
-knobs (``max_fused``, ``cmax``, ``self_advect``).  Each checks dtype
+knobs (``max_fused``, ``self_advect``); the gathers take JAX's ``cmax``
+(the gather window in cells; None gathers exactly).  Each checks dtype
 (float32), shape ``(side, side, side)``, contiguity and device, and raises
 if ``side**3`` does not fit a 32-bit index.  On CPU tensors it returns its
 plain version, built from ``ops/three_d.py``; on CUDA tensors it launches
@@ -17,8 +18,9 @@ Four CUDA kernels carry the three 3-D TPU kernel families:
   ``fused_jacobi3`` (TPU ``pallas_ops_3d.py:458``, and ``:522`` for
   Chebyshev) and the pressure solve between K7 and K8.
 - ``advect3`` (K6, ``csrc/advect3.cu``): ``advect3_shift`` (``:971``) and
-  ``advect3_shift_fused`` (``:728``), an exact trilinear gather of one to
-  three fields with one backtrace.
+  ``advect3_shift_fused`` (``:728``), a trilinear gather of one to three
+  fields with one backtrace, exact or in the window of ``cmax`` cells
+  (launches in the window count as ``advect3_windowed``).
 - ``divergence3`` (K7) and ``gradient3`` (K8), ``csrc/project3.cu``:
   ``divergence3_p`` (``:1085``) and ``gradient3_p`` (``:1101``).
 
@@ -31,10 +33,10 @@ import torch
 from ..ops.chebyshev import cheby_diffuse3
 from ..ops.project import grid_h
 from ..ops.source import add_source
-from ..ops.three_d import (advect3, apply_pressure_gradient3, diffuse3,
-                           divergence3)
+from ..ops.three_d import (advect3, advect3_windowed,
+                           apply_pressure_gradient3, diffuse3, divergence3)
 from . import build
-from .cuda_ops import _Sweeps, _dt0, _launch, _on_card, _stream
+from .cuda_ops import _Sweeps, _cmax_arg, _dt0, _launch, _on_card, _stream
 
 __all__ = [
     "fused_jacobi3", "fused_jacobi3_plain", "advect3_shift",
@@ -96,24 +98,30 @@ def fused_jacobi3(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
 # ---------------------------------------------------------------------------
 
 
-def advect3_shift_plain(b, d0, u, v, w, dt, n):
-    return advect3(b, d0, u, v, w, dt, n)
+def advect3_shift_plain(b, d0, u, v, w, dt, n, cmax=None):
+    if cmax is None:
+        return advect3(b, d0, u, v, w, dt, n)
+    return advect3_windowed(b, d0, u, v, w, dt, n, cmax)
 
 
-def advect3_shift_fused_plain(bs, d0s, u, v, w, dt, n):
-    return tuple(advect3(b, d0, u, v, w, dt, n) for b, d0 in zip(bs, d0s))
+def advect3_shift_fused_plain(bs, d0s, u, v, w, dt, n, cmax=None):
+    return tuple(advect3_shift_plain(b, d0, u, v, w, dt, n, cmax)
+                 for b, d0 in zip(bs, d0s))
 
 
-def advect3_shift_fused(bs, d0s, u, v, w, dt, n):
+def advect3_shift_fused(bs, d0s, u, v, w, dt, n, cmax=None):
     """Advect one to three fields by the same velocity with one shared
     backtrace (the (u, v, w) self-advection triple).  Exact at any
-    displacement; outputs are fresh tensors, so advecting the velocities by
-    themselves reads the pre-advection velocity."""
+    displacement, or with ``cmax`` each departure coordinate clamped to
+    ``cmax`` cells around its cell (``ops.three_d.advect3_windowed``, the
+    TPU kernel's window); outputs are fresh tensors, so advecting the
+    velocities by themselves reads the pre-advection velocity."""
     bs, d0s = tuple(bs), tuple(d0s)
     if len(bs) != len(d0s) or len(d0s) not in (1, 2, 3):
         raise ValueError("advect3_shift_fused takes one to three fields")
+    window = _cmax_arg(cmax)
     if not _on_card(n + 2, u, v, w, *d0s, ndim=3):
-        return advect3_shift_fused_plain(bs, d0s, u, v, w, dt, n)
+        return advect3_shift_fused_plain(bs, d0s, u, v, w, dt, n, cmax)
     with torch.cuda.device(u.device):
         lib = build.load()
         outs = tuple(torch.empty_like(d) for d in d0s)
@@ -121,15 +129,17 @@ def advect3_shift_fused(bs, d0s, u, v, w, dt, n):
         fields = [d.data_ptr() for d in d0s] + [None] * pad
         results = [o.data_ptr() for o in outs] + [None] * pad
         modes = list(bs) + [0] * pad
-        _launch("advect3", lib.fsc_advect3, *fields, u.data_ptr(),
-                v.data_ptr(), w.data_ptr(), *results, n + 2, *modes,
-                _dt0(dt, n), _stream(u))
+        _launch("advect3_windowed" if window else "advect3",
+                lib.fsc_advect3, *fields, u.data_ptr(), v.data_ptr(),
+                w.data_ptr(), *results, n + 2, *modes, _dt0(dt, n), window,
+                _stream(u))
         return outs
 
 
-def advect3_shift(b, d0, u, v, w, dt, n):
-    """Semi-Lagrangian advection of one field (``ops.three_d.advect3``)."""
-    return advect3_shift_fused((b,), (d0,), u, v, w, dt, n)[0]
+def advect3_shift(b, d0, u, v, w, dt, n, cmax=None):
+    """Semi-Lagrangian advection of one field (``ops.three_d.advect3``, or
+    ``advect3_windowed`` with ``cmax``)."""
+    return advect3_shift_fused((b,), (d0,), u, v, w, dt, n, cmax)[0]
 
 
 # ---------------------------------------------------------------------------

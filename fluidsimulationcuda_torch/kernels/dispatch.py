@@ -8,7 +8,8 @@
 Both gather exactly under ``advect_mode="auto"`` or ``"exact"``, and under
 the window of ``max_courant`` cells with ``"windowed"`` (JAX's reference
 backend takes ``ops.advect.advect_windowed`` then, and its Pallas backend
-always gathers so).
+always gathers so).  The multigrid smoother is ``ops.multigrid._smooth`` on
+``reference`` and K1's damped sweep on ``cuda``.
 
 ``get_ops`` returns the single-device step's ``OpSet``, ``get_slab_ops``
 the multi-device step's ``SlabOpSet`` (``kernels/cuda_sharded.py``: the
@@ -30,6 +31,7 @@ from ..ops.advect import advect_windowed as _advect_windowed_ref
 from ..ops.chebyshev import cheby_diffuse as _cheby_diffuse_ref
 from ..ops.chebyshev import cheby_pressure_solve as _cheby_pressure_ref
 from ..ops.diffuse import diffuse as _diffuse_plain
+from ..ops.multigrid import _smooth as _smooth_ref
 from ..ops.project import (
     apply_pressure_gradient as _apg_ref,
     divergence as _divergence_ref,
@@ -38,15 +40,17 @@ from ..ops.project import (
 from ..ops.source import add_source
 
 __all__ = ["OpSet", "SlabOpSet", "Slab3OpSet", "get_ops", "get_slab_ops",
-           "get_slab3_ops", "require_exact_advection"]
+           "get_slab3_ops"]
 
 
 class OpSet(NamedTuple):
     """The five-op compute surface plus the fused forms the step uses: the
     u/v pair advection (shared backtrace), the projection, the diffusion
-    with its source folded in, and optionally the whole density pair
-    ``diffuse_src -> advect`` (``FluidSequential.c:176-186``) in one op
-    (None: the step composes the two)."""
+    with its source folded in, the multigrid smoother (``smooth(p, div,
+    sweeps, zero_init=False)``, damped Jacobi; ``ops/multigrid.py``), and
+    optionally the whole density pair ``diffuse_src -> advect``
+    (``FluidSequential.c:176-186``) in one op (None: the step composes the
+    two)."""
 
     diffuse: Callable
     advect: Callable
@@ -56,6 +60,7 @@ class OpSet(NamedTuple):
     advect_pair: Callable
     project: Callable
     diffuse_src: Callable
+    smooth: Callable
     diffuse_advect: Callable | None = None
 
 
@@ -95,16 +100,8 @@ _REFERENCE_OPS = OpSet(
     advect_pair=_advect_pair_ref,
     project=_project_ref,
     diffuse_src=_diffuse_src_ref,
+    smooth=_smooth_ref,
 )
-
-
-def require_exact_advection(cfg: SimConfig) -> None:
-    """Refuse ``advect_mode="windowed"`` in the 3-D step, which gathers
-    exactly (``advect3_windowed`` is not wired into it)."""
-    if cfg.advect_mode == "windowed":
-        raise NotImplementedError(
-            "advect_mode='windowed' (the TPU gather window) is not ported to "
-            "the 3-D step; it gathers exactly ('auto' or 'exact')")
 
 
 def get_ops(cfg: SimConfig) -> OpSet:

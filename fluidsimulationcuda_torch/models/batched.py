@@ -28,8 +28,7 @@ import torch
 from ..core.config import SimConfig
 from ..core.state import (FluidState, Sources, reference_init,
                           zero_sources_like)
-from ..kernels.dispatch import get_ops
-from .stable_fluids_2d import _make_project, make_step_fn, step_audited
+from .stable_fluids_2d import make_step_fn, step_audited
 
 __all__ = ["batched_init", "make_batched_step_fn", "select_cmax_batched",
            "generate_trajectories"]
@@ -52,11 +51,15 @@ def batched_init(generator: torch.Generator, cfg: SimConfig,
 
 def make_batched_step_fn(cfg: SimConfig) -> Callable:
     """``step`` bound to ``cfg``, for a batched state and sources.  The
-    multigrid and CG pressure solvers raise ``NotImplementedError`` (not
-    ported yet), as the 2-D step's projection does."""
-    step_fn = make_step_fn(cfg)
-    _make_project(cfg, get_ops(cfg))
-    return step_fn
+    batched step runs the Jacobi and Chebyshev pressure solves, whose
+    kernels take the batch axis; the multigrid and CG solves reduce over
+    one grid and raise ``NotImplementedError`` here (JAX's batched step
+    keeps them off its kernels too, ``models/batched.py:39-44`` there)."""
+    if cfg.pressure_solver in ("multigrid", "cg"):
+        raise NotImplementedError(
+            f"pressure_solver={cfg.pressure_solver!r} solves one grid; the "
+            f"batched step takes 'jacobi' or 'chebyshev'")
+    return make_step_fn(cfg)
 
 
 def _probe_cmax(cfg: SimConfig, state: FluidState, sources: Sources, *,

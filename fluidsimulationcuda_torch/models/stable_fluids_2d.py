@@ -25,6 +25,8 @@ import torch
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources, zero_sources_like
 from ..kernels.dispatch import OpSet, get_ops
+from ..ops.cg import cg_pressure_solve
+from ..ops.multigrid import mg_pressure_solve_fast
 
 __all__ = [
     "vel_step", "dens_step", "step", "step_audited", "make_step_fn",
@@ -39,12 +41,23 @@ def _require_2d(cfg: SimConfig, what: str) -> None:
 
 
 def _make_project(cfg: SimConfig, ops: OpSet):
-    """Pressure-projection closure honouring ``cfg.pressure_solver``."""
-    if cfg.pressure_solver in ("multigrid", "cg"):
-        raise NotImplementedError(
-            f"pressure_solver={cfg.pressure_solver!r} is not ported yet; "
-            f"use 'jacobi' or 'chebyshev'")
-    if cfg.pressure_solver == "chebyshev":
+    """Pressure-projection closure honouring ``cfg.pressure_solver``.  The
+    multigrid and CG solves sit between the OpSet's divergence and
+    gradient (K2 on the card); multigrid smooths with the OpSet's smoother
+    (K1's damped sweep on the card), CG runs the same torch code on both
+    backends."""
+    if cfg.pressure_solver == "multigrid":
+        def _project(u, v):
+            div = ops.divergence(u, v, cfg.n)
+            p = mg_pressure_solve_fast(div, cycles=cfg.mg_cycles,
+                                       smooth=ops.smooth)
+            return ops.apply_pressure_gradient(u, v, p, cfg.n)
+    elif cfg.pressure_solver == "cg":
+        def _project(u, v):
+            div = ops.divergence(u, v, cfg.n)
+            p = cg_pressure_solve(div, iters=cfg.cg_iters)
+            return ops.apply_pressure_gradient(u, v, p, cfg.n)
+    elif cfg.pressure_solver == "chebyshev":
         def _project(u, v):
             return ops.project(u, v, cfg.n, cfg.press_cheby_iters,
                                cheby_rho=cfg.cheby_rho)
@@ -75,10 +88,12 @@ def _diffuse_velocity(cfg, ops, u, v, u_src, v_src):
 
 
 def vel_step(cfg: SimConfig, u: torch.Tensor, v: torch.Tensor,
-             u_src: torch.Tensor, v_src: torch.Tensor):
-    """Velocity update (``FluidSequential.c:189-241``)."""
+             u_src: torch.Tensor, v_src: torch.Tensor,
+             ops: OpSet | None = None):
+    """Velocity update (``FluidSequential.c:189-241``), on ``ops`` or the
+    backend's OpSet."""
     _require_2d(cfg, "vel_step")
-    ops = get_ops(cfg)
+    ops = get_ops(cfg) if ops is None else ops
     project = _make_project(cfg, ops)
     u, v = project(*_diffuse_velocity(cfg, ops, u, v, u_src, v_src))
     u, v = ops.advect_pair(1, 2, u, v, u, v, cfg.dt, cfg.n)
@@ -86,10 +101,12 @@ def vel_step(cfg: SimConfig, u: torch.Tensor, v: torch.Tensor,
 
 
 def dens_step(cfg: SimConfig, dens: torch.Tensor, dens_src: torch.Tensor,
-              u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Density update (``FluidSequential.c:176-186``)."""
+              u: torch.Tensor, v: torch.Tensor,
+              ops: OpSet | None = None) -> torch.Tensor:
+    """Density update (``FluidSequential.c:176-186``), on ``ops`` or the
+    backend's OpSet."""
     _require_2d(cfg, "dens_step")
-    ops = get_ops(cfg)
+    ops = get_ops(cfg) if ops is None else ops
     alpha = cfg.diffusion_alpha_diff
     beta = 1.0 + 4.0 * alpha
     d_iters, d_kw = _diffusion_args(cfg, dens=True)
@@ -101,11 +118,15 @@ def dens_step(cfg: SimConfig, dens: torch.Tensor, dens_src: torch.Tensor,
     return ops.advect(0, dens, u, v, cfg.dt, cfg.n)
 
 
-def step(cfg: SimConfig, state: FluidState, sources: Sources) -> FluidState:
+def step(cfg: SimConfig, state: FluidState, sources: Sources,
+         ops: OpSet | None = None) -> FluidState:
     """One full timestep: ``vel_step`` then ``dens_step``
-    (``FluidSequential.c:305-306``)."""
-    u, v = vel_step(cfg, state.u, state.v, sources.u, sources.v)
-    dens = dens_step(cfg, state.dens, sources.dens, u, v)
+    (``FluidSequential.c:305-306``).  ``ops`` replaces the backend's OpSet
+    (``get_ops(cfg)``), as the plain twins of the ``cuda`` kernels
+    (``cuda_ops.make_opset(cfg, plain=True)``) do to hold a fast-math step
+    on the card to the same arithmetic in torch ops."""
+    u, v = vel_step(cfg, state.u, state.v, sources.u, sources.v, ops)
+    dens = dens_step(cfg, state.dens, sources.dens, u, v, ops)
     return FluidState(dens=dens, u=u, v=v)
 
 
@@ -134,7 +155,7 @@ def step_audited(cfg: SimConfig, state: FluidState,
     u, v = ops.advect_pair(1, 2, u, v, u, v, cfg.dt, cfg.n)
     u, v = project(u, v)
     d_dens = _disp(u, v)
-    dens = dens_step(cfg, state.dens, sources.dens, u, v)
+    dens = dens_step(cfg, state.dens, sources.dens, u, v, ops)
     return FluidState(dens=dens, u=u, v=v), torch.maximum(d_vel, d_dens)
 
 

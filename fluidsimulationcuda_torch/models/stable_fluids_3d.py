@@ -11,7 +11,11 @@ dimensions, kept exactly as the JAX package composes it:
 - the three self-advections all read the pre-advection velocity;
 - ``diffusion_solver="chebyshev"`` runs every diffusion on Chebyshev sweeps
   (the compensated mode, ``PERF_POINT_3D``), ``"chebyshev-dens"`` only the
-  density's.
+  density's;
+- ``advect_mode="windowed"`` clamps every gather to the window of
+  ``cfg.max_courant`` cells per axis, on both backends (JAX's Pallas 3-D
+  step always gathers so, and its jnp step on a TPU); ``"auto"`` and
+  ``"exact"`` gather exactly, as in the 2-D step.
 
 Every op of either backend returns its full ghost layer, so the JAX
 package's ghost-layer policy (which kernel outputs get ``set_bnd3``) has
@@ -27,11 +31,11 @@ import torch
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources, zero_sources
-from ..kernels.dispatch import require_exact_advection
 from ..ops.chebyshev import cheby_diffuse3, cheby_pressure_solve3
 from ..ops.source import add_source
-from ..ops.three_d import (advect3, apply_pressure_gradient3, diffuse3,
-                           divergence3, pressure_solve3)
+from ..ops.three_d import (advect3, advect3_windowed,
+                           apply_pressure_gradient3, diffuse3, divergence3,
+                           pressure_solve3)
 
 __all__ = ["vel_step3", "dens_step3", "step3", "step_audited3",
            "make_step_fn_3d", "StableFluids3D"]
@@ -46,14 +50,14 @@ class _Ops3:
     """3-D op dispatch by ``cfg.resolved_backend``: the plain ops of
     ``ops/three_d.py`` (``reference``) or the CUDA kernels of
     ``kernels/cuda_ops_3d.py`` (``cuda``).  Chosen once, explicitly; nothing
-    falls back."""
+    falls back.  ``cmax`` is the gather window (None: exact)."""
 
     def __init__(self, cfg: SimConfig):
-        require_exact_advection(cfg)
         backend = cfg.resolved_backend
         if backend not in ("reference", "cuda"):
             raise ValueError(f"unknown backend {backend!r}")
         self.cfg = cfg
+        self.cmax = cfg.max_courant if cfg.advect_mode == "windowed" else None
         self.k3 = None
         if backend == "cuda":
             from ..kernels import cuda_ops_3d
@@ -97,14 +101,17 @@ class _Ops3:
         cfg = self.cfg
         if self.k3 is not None:
             return self.k3.advect3_shift_fused((1, 2, 3), (u, v, w), u, v, w,
-                                               cfg.dt, cfg.n)
-        return tuple(advect3(b, f, u, v, w, cfg.dt, cfg.n)
+                                               cfg.dt, cfg.n, self.cmax)
+        return tuple(self.advect(b, f, u, v, w)
                      for b, f in ((1, u), (2, v), (3, w)))
 
     def advect(self, b, d0, u, v, w):
         cfg = self.cfg
         if self.k3 is not None:
-            return self.k3.advect3_shift(b, d0, u, v, w, cfg.dt, cfg.n)
+            return self.k3.advect3_shift(b, d0, u, v, w, cfg.dt, cfg.n,
+                                         self.cmax)
+        if self.cmax is not None:
+            return advect3_windowed(b, d0, u, v, w, cfg.dt, cfg.n, self.cmax)
         return advect3(b, d0, u, v, w, cfg.dt, cfg.n)
 
 
@@ -162,10 +169,11 @@ def step_audited3(cfg: SimConfig, state: FluidState,
                   sources: Sources) -> tuple[FluidState, torch.Tensor]:
     """``step3`` plus the largest trilinear backtrace displacement (cells, a
     0-dim tensor) its advections see: the self-advection backtraces through
-    the first projection's velocity, the density through the second's.  The
-    port's gather is exact at any displacement; the number says whether the
-    TPU's windowed gather (exact below ``cfg.max_courant``) would have
-    been."""
+    the first projection's velocity, the density through the second's.
+    Under ``advect_mode="windowed"`` the gathers were exact while it stays
+    at or below ``cfg.max_courant`` and clamped above; under ``"auto"``/
+    ``"exact"`` they are exact at any displacement, and the number says
+    whether the windowed gather would have been."""
     _require_3d(cfg, "step_audited3")
     dt0 = cfg.dt * cfg.n
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["set_bnd", "embed_interior"]
+__all__ = ["set_bnd", "embed_interior", "embed_copy"]
 
 
 def _signs(b: int) -> tuple[float, float]:
@@ -39,6 +39,15 @@ def embed_interior(b: int, interior: torch.Tensor) -> torch.Tensor:
         corner = interior[..., r, c]
         out[..., r, c] = 0.5 * (sy * corner + sx * corner)
     return out
+
+
+def embed_copy(interior: torch.Tensor) -> torch.Tensor:
+    """``embed_interior(0, interior)`` in one replicate pad: under mode 0 an
+    edge is a copy of its interior cell and a corner ``0.5*(v + v)``, which
+    is ``v`` to the bit, so the two are equal.  For one (n, n) interior, as
+    the multigrid and CG solves build their iterates."""
+    return torch.nn.functional.pad(interior[None], (1, 1, 1, 1),
+                                   mode="replicate")[0]
 
 
 def set_bnd(b: int, x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ import torch
 
 from .boundary import embed_interior
 
-__all__ = ["jacobi_sweep", "diffuse", "as_scalar"]
+__all__ = ["jacobi_sweep", "diffuse", "damped_diffuse", "as_scalar"]
 
 
 def as_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -46,4 +46,26 @@ def diffuse(b: int, x_init: torch.Tensor, x0: torch.Tensor, alpha: float,
     x = x_init
     for _ in range(iters):
         x = jacobi_sweep(b, x, rhs_int, a, bt)
+    return x
+
+
+def damped_diffuse(b: int, x_init: torch.Tensor, x0: torch.Tensor,
+                   alpha: float, beta: float, iters: int,
+                   damp: float) -> torch.Tensor:
+    """``iters`` damped Jacobi sweeps ``x <- (1-w)*x + w*S(x)`` with
+    ``w = damp`` and ``S`` the sweep of ``diffuse`` (guess ``x_init``, rhs
+    ``x0``), in the order of the TPU kernel's damped mode
+    (``pallas_ops.py:456-459``).  1-w is taken in float64 and rounded to
+    float32 once, as ``jnp.asarray(1.0 - damp, float32)`` rounds it."""
+    w = as_scalar(damp, x0)
+    omw = as_scalar(1.0 - damp, x0)
+    a = as_scalar(alpha, x0)
+    bt = as_scalar(beta, x0)
+    rhs_int = x0[..., 1:-1, 1:-1]
+    x = x_init
+    for _ in range(iters):
+        neigh = (((x[..., 1:-1, :-2] + x[..., 1:-1, 2:]) + x[..., :-2, 1:-1])
+                 + x[..., 2:, 1:-1])
+        val = (rhs_int + a * neigh) / bt
+        x = embed_interior(b, omw * x[..., 1:-1, 1:-1] + w * val)
     return x

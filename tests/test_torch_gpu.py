@@ -386,3 +386,112 @@ def test_cuda_batch_launches_once_or_raises(cuda):
     assert cuda_ops.launch_counts()["jacobi_sweep"] == 3
     with pytest.raises(ValueError):
         cuda_ops.fused_jacobi(0, x, x[:4].clone(), 1.0, 4.0, 3)
+
+
+@pytest.mark.parametrize("side", [16, 128, 2048])
+def test_damped_smoother_matches_plain(cuda, side):
+    """K1's damped sweep (the multigrid smoother) against
+    ``ops.multigrid._smooth``: bit for bit expected, 1e-6 required."""
+    for check in checks.kernel_checks_damp(side, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts["jacobi_sweep_damp"] > 0, (check.label, counts)
+        assert counts["jacobi_sweep"] == 0, (check.label, counts)
+        assert checks.max_abs_diff(got, want) <= 1e-6, check.label
+
+
+@pytest.mark.parametrize("side", [24, 64])
+def test_windowed_k6_matches_plain(cuda, side):
+    """K6 in the gather window against ``ops.three_d.advect3_windowed``:
+    constant displacements inside, across and far over the window, and
+    random velocities (one field and the self-advected triple)."""
+    for check in checks.kernel_checks3_windowed(side, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts["advect3_windowed"] == 1, (check.label, counts)
+        assert counts["advect3"] == 0, (check.label, counts)
+        assert checks.max_abs_diff(got, want) <= checks.TOL, check.label
+
+
+@pytest.mark.parametrize("solver", ["multigrid", "multigrid fast", "cg"])
+def test_solver_step_launches_and_matches_reference(cuda, solver):
+    """The 2-D step with the multigrid (two cycles; one with fast math, the
+    JAX bench's line) and CG-20 projections: the launches of
+    ``chip_smoke.expected_launches`` and the ``reference`` backend's state
+    (with fast math, that of the ``cuda`` OpSet's plain twins)."""
+    import chip_smoke
+
+    kw = {"multigrid": dict(pressure_solver="multigrid", mg_cycles=2),
+          "multigrid fast": dict(pressure_solver="multigrid", mg_cycles=1,
+                                 fast_math=True),
+          "cg": dict(pressure_solver="cg", cg_iters=20)}[solver]
+    cfg = ft.SimConfig(n=254, jacobi_iters=20, backend="cuda", device=cuda,
+                       **kw)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.step(cfg, state, src)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        **chip_smoke.expected_launches(cfg)}
+    # The reference backend ignores fast_math; the cuda OpSet's plain twins
+    # take it and round as the kernels do (phase 14 of chip_smoke.py).
+    ops = cuda_ops.make_opset(cfg, plain=True) if cfg.fast_math else None
+    want = ft.step(cfg.replace(backend="reference"), state, src, ops)
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b", [0, 1, 2])
+def test_fast_jacobi_equals_its_plain_twin_to_the_bit(cuda, b):
+    """K1's reciprocal form (one fmaf a sweep) against
+    ``fused_jacobi_plain(fast=True)``, which rounds the product and the sum
+    once: equal to the bit, with a source fold and from zero."""
+    gen = torch.Generator().manual_seed(b)
+    x, x0 = (torch.rand(258, 258, generator=gen).to(cuda) for _ in range(2))
+    for kw in (dict(src_dt=0.016), dict(zero_init=True)):
+        got = cuda_ops.fused_jacobi(b, x, x0, 2.5, 11.0, 20, fast=True, **kw)
+        want = cuda_ops.fused_jacobi_plain(b, x, x0, 2.5, 11.0, 20, fast=True,
+                                           **kw)
+        assert torch.equal(got, want), (kw, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("solver", ["multigrid", "cg"])
+def test_solver_step_captures_as_a_cuda_graph(cuda, solver):
+    """No host sync inside the multigrid or CG projection: the whole step
+    captures into a CUDA graph and replays."""
+    cfg = ft.SimConfig(n=126, jacobi_iters=20, backend="cuda", device=cuda,
+                       pressure_solver=solver)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    state = ft.step(cfg, state, src)
+    assert checks.device_ms(lambda: ft.step(cfg, state, src), reps=2) > 0
+
+
+@pytest.mark.parametrize("mode", ["parity", "compensated"])
+def test_windowed_step3_launches_and_matches_reference(cuda, mode):
+    """The windowed 3-D step (a 1-cell window, which the reference impulse
+    crosses at 64³): K6 in the window twice a step, held against the
+    ``reference`` backend."""
+    import chip_smoke
+
+    kw = dict(COMP3, fast_math=True) if mode == "compensated" else {}
+    cfg = ft.SimConfig(n=62, ndim=3, jacobi_iters=20, backend="cuda",
+                       device=cuda, advect_mode="windowed", max_courant=1,
+                       **kw)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.StableFluids3D(cfg).step(state, src)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        **chip_smoke.expected_launches3(cfg)}
+    want = ft.step3(cfg.replace(backend="reference"), state, src)
+    atol = 1e-4 if cfg.fast_math else 2e-5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)

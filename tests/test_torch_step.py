@@ -236,12 +236,49 @@ def test_default_config_targets_the_card():
                                 dict(pressure_solver="cg"),
                                 dict(ndim=3, advect_mode="windowed")])
 def test_unported_options_raise(kw):
-    """The windowed gather is ported to the 2-D step
-    (tests/test_torch_step_windowed.py), not to the 3-D one."""
+    """The options the port once refused, and this test's name still
+    recalls (the multigrid and CG pressure solves, the windowed 3-D
+    gather), now run: a step from the zero state
+    with numpy sources returns finite states of the grid's shape.  Their
+    numbers are held against JAX in tests/test_torch_multigrid.py,
+    tests/test_torch_cg.py and tests/test_torch_step3_windowed.py."""
     cfg = ft.SimConfig(n=14, device="cpu", **kw)
     step = ft.step3 if cfg.ndim == 3 else ft.step
-    with pytest.raises(NotImplementedError):
-        step(cfg, ft.zero_state(cfg), ft.zero_sources(cfg))
+    rng = np.random.default_rng(0)
+    src = type(ft.zero_sources(cfg))(*(
+        None if z is None else torch.from_numpy(
+            rng.uniform(0.0, 0.99, tuple(z.shape)).astype(np.float32))
+        for z in ft.zero_sources(cfg)))
+    out = step(cfg, ft.zero_state(cfg), src)
+    for x in out:
+        if x is not None:
+            assert tuple(x.shape) == cfg.grid_shape
+            assert bool(torch.isfinite(x).all())
+    assert float(out.u.abs().max()) > 0
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast_math"])
+@pytest.mark.parametrize("solver", ["jacobi", "chebyshev", "multigrid", "cg"])
+def test_plain_opset_is_what_the_wrappers_run_on_cpu(solver, fast):
+    """``make_opset(cfg, plain=True)``, the oracle of a fast-math step on
+    the card, is the ``cuda`` backend's arithmetic: on CPU tensors, where
+    each wrapper runs its plain twin, the two steps agree to the bit, and
+    without fast math both equal the ``reference`` backend's."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    kw = MODES["perf"] if solver == "chebyshev" else dict(
+        pressure_solver=solver, mg_cycles=1)
+    cfg = ft.SimConfig(n=30, device="cpu", **{**kw, "fast_math": fast})
+    src = ft.Sources(*map(torch.from_numpy, _sources(4, 30)))
+    plain = ft.step(cfg, ft.zero_state(cfg), src,
+                    cuda_ops.make_opset(cfg, plain=True))
+    wrappers = dataclasses.replace(cfg)
+    object.__setattr__(wrappers, "backend", "cuda")  # CPU tensors: plain
+    for a, b in zip(plain[:3], ft.step(wrappers, ft.zero_state(cfg), src)[:3]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    if not fast:
+        for a, b in zip(plain[:3], ft.step(cfg, ft.zero_state(cfg), src)[:3]):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 @pytest.mark.parametrize("side,point", [(2048, (0.9, 10, 14)),
