@@ -675,6 +675,8 @@ def batched_kernels(card: str, errs: dict[str, float]) -> None:
           f"moves the backtrace {probed:.6f} cells: window cmax={cmax}")
     compare(checks.kernel_checks_batched(DATAGEN_BATCH, side, "cuda", SEED,
                                          cmax), checks.TOL, errs)
+    compare(checks.kernel_checks_flows(side, "cuda", SEED,
+                                        batch=DATAGEN_BATCH), checks.TOL, errs)
     kernel_times(checks.timing_checks_batched(DATAGEN_BATCH, side, "cuda",
                                               SEED, cmax),
                  f"{DATAGEN_BATCH} × {side}²", card)
@@ -955,6 +957,8 @@ def main() -> None:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s))")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # grid_sample, the gathers' library yardstick (library_gather_ms), may
+    # take cuDNN's route: in full float32 too.
     torch.backends.cudnn.allow_tf32 = False
 
     phase("2 build")
@@ -966,12 +970,15 @@ def main() -> None:
     phase("3 kernels against their plain versions (side 2048)")
     errs = dict.fromkeys(cuda_ops.KERNELS, 0.0)
     compare(checks.kernel_checks(2048, "cuda", SEED), checks.TOL, errs)
+    compare(checks.kernel_checks_flows(2048, "cuda", SEED), checks.TOL, errs)
     times = kernel_times(checks.timing_checks(2048, "cuda", SEED), "2048²",
                          card)
     batched_kernels(card, errs)
 
     phase("3b 3-D kernels against their plain versions (side 256)")
     compare(checks.kernel_checks3(256, "cuda", SEED), checks.TOL, errs)
+    compare(checks.kernel_checks_flows(256, "cuda", SEED, ndim=3),
+            checks.TOL, errs)
     times.update(kernel_times(checks.timing_checks3(256, "cuda", SEED),
                               "256³", card))
 
@@ -1218,10 +1225,13 @@ def main() -> None:
         "launches": main_launches[name], "max_abs_err": errs[name],
         "ms": times[name][0], "plain_ms": times[name][1],
         "bound_ms": times[name][2], "bound_by": times[name][3],
-        # No single PyTorch call computes any of these functions (a sweep
-        # with its border rule, a clamped semi-Lagrangian gather, a
-        # stencil with its ghost layer or a slab's wall rows or planes).
-        "library_ms": None,
+        # The gathers K3, K6, K12 and K14 have a library yardstick:
+        # torch.nn.functional.grid_sample at the same departure points,
+        # the gather only (library_gather_ms).  No single PyTorch call
+        # computes the others' functions (a sweep with its border rule, a
+        # sweep fused with a gather, a stencil with its ghost layer or a
+        # slab's wall rows or planes).
+        "library_ms": times[name][4],
     } for name in cuda_ops.KERNELS]
     print()
     print(card_line())
@@ -1242,7 +1252,9 @@ def compare(check_list, tol: float, errs: dict[str, float],
         got, want = c.run(), c.plain()
         torch.cuda.synchronize()
         err = checks.max_abs_diff(got, want)
-        print(f"  {c.label:45s} max|d| {err:.3e} {against}")
+        share = (f"  blocks staged {100 * checks.staged_share(c):.1f}%"
+                 if c.boxes is not None else "")
+        print(f"  {c.label:45s} max|d| {err:.3e} {against}{share}")
         if not err <= tol:
             raise AssertionError(f"{c.label}: max|d| {err:.3e} > {tol}")
         for k in c.kernels:
@@ -1258,15 +1270,40 @@ def launch_floor_ms() -> float:
     return checks.device_ms(lambda: one.add_(1.0))
 
 
+def library_gather_ms(gather) -> float:
+    """Device ms of ``torch.nn.functional.grid_sample`` (bilinear, or
+    trilinear on a volume; ``align_corners=True``, ``padding_mode=
+    "border"``) gathering the fields of ``gather()`` at its departure
+    coordinates, in a CUDA graph as ``checks.device_ms`` times a kernel:
+    the gather only, the coordinates computed and scaled to [-1, 1] before
+    the timing.  It is the gathers' library yardstick and nothing of the
+    port calls it; main() turns cuDNN's TF32 off beside it."""
+    from fluidsimulationcuda_torch.kernels import checks
+
+    fields, coords = gather()
+    ndim = len(coords)
+    inp = torch.stack(fields, dim=-ndim - 1)  # (batch, fields, grid)
+    sizes = fields[0].shape[-ndim:]
+    grid = torch.stack([2.0 * c / (size - 1) - 1.0
+                        for c, size in zip(coords, reversed(sizes))], dim=-1)
+    if inp.dim() == ndim + 1:
+        inp, grid = inp[None], grid[None]
+    return checks.device_ms(lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="border",
+        align_corners=True))
+
+
 def kernel_times(check_list, size: str, card: str, floor: float | None = None
-                 ) -> dict[str, tuple[float, float, float, str]]:
+                 ) -> dict[str, tuple[float, float, float, str,
+                                      float | None]]:
     """Device ms of each timing check, kernel beside plain: CUDA graphs of
     20 calls, timed in turns plain, kernel, kernel, plain (plain, kernel,
     composed, composed, kernel, plain where the check carries the
     composition a fused kernel replaces); with the bound (the least time
     for the bytes and operations of its launches over the HBM and float32
-    peaks) and, given the launch ``floor``, the call's launches times that
-    floor."""
+    peaks), a gather's library yardstick (``library_gather_ms``), the share
+    of K4's or K6's blocks that stage their footprint box and, given the
+    launch ``floor``, the call's launches times that floor."""
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
 
     times = {}
@@ -1281,12 +1318,19 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
         p2 = checks.device_ms(c.plain)
         bound, bound_by = c.bound()
         kernel, plain = (k1 + k2) / 2, (p1 + p2) / 2
-        times[c.label] = (kernel, plain, bound, bound_by)
+        library = (library_gather_ms(c.gather) if c.gather is not None
+                   else None)
+        times[c.label] = (kernel, plain, bound, bound_by, library)
         line = (f"  {c.label:45s} kernel {kernel:.5f} ms  plain {plain:.5f} "
                 f"ms  bound {bound:.5f} ms ({bound_by}; "
                 f"{100 * bound / kernel:.1f}% of it)")
         if c.composed is not None:
             line += f"  composition it replaces {(c1 + c2) / 2:.5f} ms"
+        if library is not None:
+            line += f"  grid_sample (gather only) {library:.5f} ms"
+        if c.boxes is not None:
+            line += (f"  blocks staged "
+                     f"{100 * checks.staged_share(c):.1f}%")
         if floor is not None:
             cuda_ops.reset_launch_counts()
             c.run()

@@ -18,9 +18,19 @@ kernel time over wall time).  ``--slabs P`` traces the multi-device
 step on P slabs of the one card instead: row slabs in 2-D
 (``parallel.make_sharded_step_fn``; ``--fuse-sweeps 8`` for slabs of 16
 rows), z-slabs in 3-D (``parallel.make_sharded_step_fn_3d``); its halo
-copies show as PyTorch's own copy kernels.
+copies show as PyTorch's own copy kernels.  ``--batch B`` traces the
+batched datagen step on B grids (2-D), windowed at the window
+``select_cmax_batched`` probes.
 ``--forcing 0.05`` fires the sources, scaled, on every step, as the smoke
-script's forced trajectory does.  The card's name and power limit come
+script's forced trajectory does.  ``--split NAME`` lists the launches of
+each kernel whose name holds NAME apart by their order in the step (#1,
+#2, ...): K6's self-advected triple and its density field, for instance,
+are the 3-D step's first and second ``advect3_kernel`` launches.
+``--parent DIR`` builds the kernels of another tree as well (a checkout
+with the same C entry points, e.g. the parent commit unpacked with ``git
+archive``) and traces the step four times, with its kernels, this tree's,
+this tree's and its kernels again, on the same card in one process, each
+trace from the same state.  The card's name and power limit come
 with the numbers.  Exits non-zero without a card or when the trace holds no
 device time.
 """
@@ -32,6 +42,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -48,6 +59,9 @@ def main() -> None:
     ap.add_argument("--forcing", type=float, default=0.0)
     ap.add_argument("--slabs", type=int, default=0)
     ap.add_argument("--fuse-sweeps", type=int, default=0)
+    ap.add_argument("--split", action="append", default=[])
+    ap.add_argument("--parent", type=Path)
+    ap.add_argument("--batch", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
@@ -76,7 +90,20 @@ def main() -> None:
     drive = (Sources(*(None if s is None else args.forcing * s
                        for s in sources)) if args.forcing
              else zero_sources(cfg))
-    if args.slabs:
+    if args.batch:
+        from fluidsimulationcuda_torch import (batched_init,
+                                               make_batched_step_fn,
+                                               select_cmax_batched)
+        from fluidsimulationcuda_torch.core.state import zero_sources_like
+        cmax, _ = select_cmax_batched(
+            torch.Generator(device="cuda").manual_seed(0), cfg, args.batch)
+        cfg = cfg.replace(advect_mode="windowed", max_courant=cmax)
+        state, sources = batched_init(gen, cfg, args.batch)
+        drive = (Sources(*(None if s is None else args.forcing * s
+                           for s in sources)) if args.forcing
+                 else zero_sources_like(sources))
+        step = make_batched_step_fn(cfg)
+    elif args.slabs:
         mesh = make_mesh([torch.device("cuda", 0)] * args.slabs)
         make, shard = ((make_sharded_step_fn_3d, shard_state_3d)
                        if args.ndim == 3 else
@@ -91,8 +118,33 @@ def main() -> None:
         state = step(state, drive)
     torch.cuda.synchronize()
 
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(f"{args.n + 2}^{args.ndim} {args.mode}, forcing {args.forcing}, "
+          f"{args.slabs or 'no'} slabs, batch {args.batch or 'none'}"
+          f"{f' (window {cfg.max_courant})' if args.batch else ''}, "
+          f"{args.steps} traced steps ({card})")
+    if not args.parent:
+        trace(step, state, drive, args)
+        return
+    from fluidsimulationcuda_torch.kernels import build
+    libs = {"parent": build.open_library(build.build(
+                csrc=args.parent / "fluidsimulationcuda_torch" / "csrc")),
+            "this tree": build.load()}
+    for tree in ("parent", "this tree", "this tree", "parent"):
+        print(f"\n[{tree}'s kernels]")
+        build._lib = libs[tree]
+        step(state, drive)  # warm-up with these kernels
+        trace(step, state, drive, args)  # each trace from the same state
+
+
+def trace(step, state, drive, args):
+    """Trace ``args.steps`` steps from ``state`` and print the table;
+    returns the last state."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -101,22 +153,24 @@ def main() -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     per_kernel = collections.defaultdict(lambda: [0, 0.0])  # launches, us
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            name = evt.name.replace("(anonymous namespace)::", "")
-            entry = per_kernel[name.split("(")[0]]
-            entry[0] += 1
-            entry[1] += evt.time_range.elapsed_us()
+    events = sorted((evt for evt in prof.events()
+                     if evt.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda evt: evt.time_range.start)
+    names = [evt.name.replace("(anonymous namespace)::", "").split("(")[0]
+             for evt in events]
+    totals, seen = collections.Counter(names), collections.Counter()
+    for name, evt in zip(names, events):
+        if any(part in name for part in args.split):
+            per_step = totals[name] // args.steps
+            seen[name] += 1
+            name = f"{name} #{(seen[name] - 1) % per_step + 1}"
+        entry = per_kernel[name]
+        entry[0] += 1
+        entry[1] += evt.time_range.elapsed_us()
     busy_ms = sum(us for _, us in per_kernel.values()) / 1e3 / args.steps
     if busy_ms <= 0:
         raise SystemExit("profile_torch_step: the trace holds no device "
                          "time")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    side = args.n + 2
-    print(f"{side}^{args.ndim} {args.mode}, forcing {args.forcing}, "
-          f"{args.slabs or 'no'} slabs, {args.steps} traced steps ({card})")
     print(f"{'kernel':60s} {'launches/step':>13s} {'ms/step':>9s} "
           f"{'share':>6s} {'us/launch':>10s}")
     for name, (count, us) in sorted(per_kernel.items(),
@@ -126,7 +180,7 @@ def main() -> None:
               f"{100 * ms / busy_ms:5.1f}% {us / count:10.2f}")
     print(f"device busy {busy_ms:.4f} ms/step of {wall_ms:.4f} ms/step wall "
           f"({100 * busy_ms / wall_ms:.1f}%; profiler on)")
-
+    return state
 
 if __name__ == "__main__":
     main()

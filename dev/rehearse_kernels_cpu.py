@@ -9,22 +9,33 @@ A CUDA kernel has no interpret mode, and a machine without ``nvcc`` cannot
 build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
 ``g++ -ffp-contract=off`` instead: a shim header defines ``__global__``,
 ``__device__``, ``dim3``, ``blockIdx``/``threadIdx``, and every launch
-``k<<<grid, block, 0, stream>>>(args);`` becomes a loop over the grid (the
-kernels run one thread per cell, with no shared memory or barriers).  The
-one cooperative launch, K17 (``csrc/advect_project.cu``), runs as a single
-thread: its grid-stride loops then cover every cell, stage after stage, and
-its grid barriers (a stub ``cooperative_groups.h``) have nothing to wait
-for, so each stage runs whole over the grid before the next.  The wrappers
-of ``kernels/cuda_ops.py``, ``kernels/cuda_ops_3d.py``,
-``kernels/cuda_step.py``, ``kernels/cuda_sharded.py`` and
-``kernels/cuda_sharded_3d.py`` then run against that library on CPU tensors
-(their device checks, stream and loader patched), and:
+``k<<<grid, block, 0, stream>>>(args);`` becomes a loop over the grid, one
+thread after another.  A source that calls ``__syncthreads()`` (K4, which
+stages a block's footprint in shared memory) launches instead with a
+``std::thread`` per thread of the block, all running together, the blocks
+one after another: ``__shared__`` storage is static, which is the running
+block's, ``__syncthreads()`` is a C++20 ``std::barrier`` of the block,
+``__reduce_max_sync`` one of the warp, and a block whose threads passed
+different numbers of barriers aborts the run.  The shim counts the blocks
+of K4 that stage their footprint and those that take the direct path
+(``csrc/dens_advect.cu``'s ``FSC_BLOCK_PATH``; ``block_paths`` reads
+them).  The one cooperative launch, K17 (``csrc/advect_project.cu``), runs
+as a single thread: its grid-stride loops then cover every cell, stage
+after stage, and its grid barriers (a stub ``cooperative_groups.h``) have
+nothing to wait for, so each stage runs whole over the grid before the
+next.  The wrappers of ``kernels/cuda_ops.py``,
+``kernels/cuda_ops_3d.py``, ``kernels/cuda_step.py``,
+``kernels/cuda_sharded.py`` and ``kernels/cuda_sharded_3d.py`` then run
+against that library on CPU tensors (their device checks, stream and
+loader patched), and:
 
-- every check of ``kernels/checks.py`` (``kernel_checks`` at ``--side2``,
-  ``kernel_checks3`` at ``--side3``, ``kernel_checks_slab`` for slabs of
-  ``--slab-side``/4 rows at ``--slab-side``, ``kernel_checks_slab3`` for
-  z-slabs of ``--slab3-side``/3 planes at ``--slab3-side``) compares kernel
-  and plain version;
+- every check of ``kernels/checks.py`` (``kernel_checks`` and, on a batch
+  of three grids, ``kernel_checks_flows`` at ``--side2``,
+  ``kernel_checks3`` and ``kernel_checks_flows`` at ``--side3``,
+  ``kernel_checks_slab`` for slabs of ``--slab-side``/4 rows at
+  ``--slab-side``, ``kernel_checks_slab3`` for z-slabs of
+  ``--slab3-side``/3 planes at ``--slab3-side``) compares kernel and plain
+  version;
 - one 2-D and one 3-D step per mode go through the ``cuda`` backend, their
   launch counts against ``chip_smoke.expected_launches(3)``, their state
   against the ``reference`` backend; both also in windowed mode, each
@@ -64,17 +75,26 @@ CSRC = ROOT / "fluidsimulationcuda_torch" / "csrc"
 OUT = ROOT / "build" / "cpu_shim"
 
 SHIM = r"""#pragma once
+#include <barrier>
 #include <cmath>
+#include <cstdio>
+#include <cstdlib>
+#include <memory>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__ __restrict
+#define __shared__ static
+#define __launch_bounds__(...)
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 typedef void* cudaStream_t;
-inline dim3 blockIdx, threadIdx, blockDim, gridDim;
+inline thread_local dim3 blockIdx, threadIdx;
+inline dim3 blockDim, gridDim;
 inline int cudaGetLastError() { return 0; }
 using std::fmaf; using std::fmaxf; using std::fminf;
 template <class F> void shim_launch(dim3 g, dim3 b, F f) {
@@ -105,6 +125,74 @@ template <class P> int cudaLaunchCooperativeKernel(void (*fn)(P), dim3, dim3, vo
   fn(*static_cast<P*>(args[0]));
   return 0;
 }
+// A block's threads run together (see the module docstring).
+struct ShimBlock {
+  std::barrier<> all;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<int> lanes;  // one slot per thread, for the warp reductions
+  explicit ShimBlock(int threads) : all(threads), lanes(threads) {
+    for (int t = 0; t < threads; t += 32)
+      warps.push_back(std::make_unique<std::barrier<>>(threads - t < 32 ? threads - t : 32));
+  }
+};
+inline ShimBlock* shim_block;
+inline thread_local int shim_tid, shim_syncs;
+inline void __syncthreads() { ++shim_syncs; shim_block->all.arrive_and_wait(); }
+inline int __reduce_max_sync(unsigned, int v) {
+  ShimBlock& blk = *shim_block;
+  const int w = shim_tid / 32;
+  blk.lanes[shim_tid] = v;
+  blk.warps[w]->arrive_and_wait();
+  int m = v;
+  for (int l = 32 * w; l < 32 * w + 32 && l < int(blk.lanes.size()); ++l)
+    m = blk.lanes[l] > m ? blk.lanes[l] : m;
+  blk.warps[w]->arrive_and_wait();
+  return m;
+}
+inline long long shim_paths[2];  // blocks that staged, blocks that did not
+inline void shim_block_path(bool direct) {
+  if (shim_tid == 0) ++shim_paths[direct];
+}
+#define FSC_BLOCK_PATH(direct) shim_block_path(direct)
+template <class F> void shim_launch_block(dim3 g, dim3 b, F f) {
+  gridDim = g; blockDim = b;
+  const int nt = b.x * b.y * b.z;
+  ShimBlock blk(nt);
+  shim_block = &blk;
+  std::vector<int> syncs(nt);
+  bool uneven = false;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nt; ++t)
+    threads.emplace_back([&, t] {
+      shim_tid = t;
+      threadIdx = dim3(t % b.x, t / b.x % b.y, t / (b.x * b.y));
+      for (unsigned bz = 0; bz < g.z; ++bz)
+        for (unsigned by = 0; by < g.y; ++by)
+          for (unsigned bx = 0; bx < g.x; ++bx) {
+            blockIdx = dim3(bx, by, bz);
+            shim_syncs = 0;
+            f();
+            syncs[t] = shim_syncs;
+            blk.all.arrive_and_wait();
+            if (t == 0)
+              for (int s : syncs) uneven = uneven || s != syncs[0];
+            blk.all.arrive_and_wait();
+          }
+    });
+  for (auto& th : threads) th.join();
+  if (uneven) {
+    std::fprintf(stderr, "shim: the threads of a block passed different "
+                         "numbers of __syncthreads()\n");
+    std::abort();
+  }
+}
+"""
+PATHS = r"""#include "cuda_runtime.h"
+extern "C" void fsc_shim_block_paths(long long* out) {
+  out[0] = shim_paths[0];
+  out[1] = shim_paths[1];
+  shim_paths[0] = shim_paths[1] = 0;
+}
 """
 COOPERATIVE_GROUPS = r"""#pragma once
 namespace cooperative_groups {
@@ -129,37 +217,56 @@ def _top_level_args(text: str) -> list[str]:
     return args + [cur]
 
 
-def build_shim_library() -> Path:
-    gen = OUT / "gen"
+def build_shim_library(names: tuple[str, ...] | None = None,
+                       out: Path = OUT) -> Path:
+    """Compile the sources of ``csrc`` (only the ``.cu`` files ``names``,
+    if given) behind the shim into ``out/libfsc_shim.so``."""
+    gen = out / "gen"
     gen.mkdir(parents=True, exist_ok=True)
-    (OUT / "cuda_runtime.h").write_text(SHIM)
-    (OUT / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
-    sources = []
+    (out / "cuda_runtime.h").write_text(SHIM)
+    (out / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
+    (gen / "shim_paths.cpp").write_text(PATHS)
+    sources = [str(gen / "shim_paths.cpp")]
     for path in sorted(CSRC.glob("*.cu*")):
-        def launch(m):
-            grid, block = _top_level_args(m.group(2))[:2]
-            return f"shim_launch({grid}, {block}, [&] {{ {m.group(1)}({m.group(3)}); }});"
-
-        target = gen / (path.stem + ".cpp" if path.suffix == ".cu" else path.name)
+        if path.suffix == ".cu" and names is not None and path.name not in names:
+            continue
         text = COOPERATIVE.sub("cudaLaunchCooperativeKernel(",
                                path.read_text())
+        shim = "shim_launch_block" if "__syncthreads" in text else "shim_launch"
+
+        def launch(m):
+            grid, block = _top_level_args(m.group(2))[:2]
+            return f"{shim}({grid}, {block}, [&] {{ {m.group(1)}({m.group(3)}); }});"
+
+        target = gen / (path.stem + ".cpp" if path.suffix == ".cu" else path.name)
         target.write_text(LAUNCH.sub(launch, text))
         if path.suffix == ".cu":
             sources.append(str(target))
-    lib = OUT / "libfsc_shim.so"
-    subprocess.run(["g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
-                    "-fPIC", f"-I{OUT}", f"-I{gen}", "-o", str(lib), *sources],
-                   check=True)
+    lib = out / "libfsc_shim.so"
+    subprocess.run(["g++", "-O2", "-std=c++20", "-pthread", "-ffp-contract=off",
+                    "-shared", "-fPIC", f"-I{out}", f"-I{gen}", "-o", str(lib),
+                    *sources], check=True)
     return lib
+
+
+def block_paths(lib) -> tuple[int, int]:
+    """(staged, direct): the blocks of K4 that staged their footprint and
+    those that took the direct path since the last call."""
+    counts = (ctypes.c_longlong * 2)()
+    lib.fsc_shim_block_paths(counts)
+    return counts[0], counts[1]
 
 
 @contextlib.contextmanager
 def kernels_on_cpu(lib_path: Path):
-    """Make the wrappers launch the shim library on CPU tensors."""
+    """Make the wrappers launch the shim library at ``lib_path`` on CPU
+    tensors; yields the library."""
     from fluidsimulationcuda_torch.kernels import build, cuda_ops, cuda_ops_3d
 
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in build._SIGNATURES.items():
+        if not hasattr(lib, name):  # a library of some sources only
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -176,7 +283,7 @@ def kernels_on_cpu(lib_path: Path):
     cuda_ops._stream = cuda_ops_3d._stream = lambda t: 0
     torch.cuda.device = lambda d: contextlib.nullcontext()
     try:
-        yield
+        yield lib
     finally:
         (build.load, cuda_ops._on_device, cuda_ops._stream,
          cuda_ops_3d._stream, torch.cuda.device) = saved
@@ -206,7 +313,11 @@ def main() -> int:
                                               args.slab_side // 4, "cpu", 1)
                   + checks.kernel_checks_slab3(args.slab3_side,
                                                args.slab3_side // 3, "cpu",
-                                               1))
+                                               1)
+                  + checks.kernel_checks_flows(args.side2, "cpu", 1,
+                                                batch=3)
+                  + checks.kernel_checks_flows(args.side3, "cpu", 1,
+                                                ndim=3))
     for c in check_list:
         with kernels_on_cpu(lib):
             cuda_ops.reset_launch_counts()

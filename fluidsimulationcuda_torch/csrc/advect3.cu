@@ -7,24 +7,40 @@
 // :992).  The TPU has no fast dynamic gather, so it decomposed the gather
 // into (2C+1)^3 masked shifts over a VMEM window of z planes, each
 // departure coordinate clamped to C = cmax cells around its cell.  Hopper
-// gathers through L1/L2 directly, so the window costs nothing here: with
-// cmax <= 0 this kernel is the exact gather of ops/three_d.py advect3 at
-// any displacement; with cmax >= 1 it clamps each coordinate as the TPU
-// kernel does (fsc_common.cuh window_coord, which K3, K4, K12 and K14
-// share) and reads the eight points directly, which is ops/three_d.py
-// advect3_windowed.  The two agree while the displacement stays at or
-// below cmax on every axis.  The windowed form is its own instantiation,
-// so the exact gather compiles as it did without it.
+// gathers directly, so the window costs nothing here: with cmax <= 0 this
+// kernel is the exact gather of ops/three_d.py advect3 at any
+// displacement; with cmax >= 1 it clamps each coordinate as the TPU kernel
+// does (fsc_common.cuh window_coord, which K3, K4, K12 and K14 share),
+// which is ops/three_d.py advect3_windowed.  The two agree while the
+// displacement stays at or below cmax on every axis.  The windowed form is
+// its own instantiation, so the exact gather compiles without it.
 //
-// Bound: device memory.  A cell reads u, v, w and eight gather points per
-// field (neighbours of each other for a smooth flow, so mostly L1/L2 hits)
-// and writes one value per field: 5 field passes for one field, 6 for the
-// self-advected (u, v, w) triple, whose fields are the velocities.  Outputs
-// are fresh tensors, so the three self-advections all read the
-// pre-advection velocity (stable_fluids_3d.py:118-119).
+// Bound: not HBM (5 field passes for one field, 6 for the self-advected
+// (u, v, w) triple, whose fields are the velocities) but the latency of
+// its loads: a cell issues 3 velocity loads and 8 corner loads per field,
+// 27 for the triple, almost all L1 or L2 hits.
+//
+// A block covers a brick of 32 x 8 cells over kBrickZ = 2 planes: each
+// thread first finds both its departures (six velocity loads in flight),
+// then gathers each field for both planes (sixteen corner loads in
+// flight).  Two planes read each other's gather planes through the same
+// L1, and a thread has twice the independent loads of one plane per
+// thread.  Measured on the H100 (PERF.md), this is at least as fast as one
+// plane per thread on every input timed and up to 18% faster; three or
+// four planes are faster on random velocities but slower on smooth ones,
+// the flows the steps run.  Staging the brick's footprint in shared memory
+// was measured too and was about twice as slow on every input: for a
+// smooth flow L1 already holds each footprint value for all the gathers
+// that read it, and for a random one the shared-memory reads meet as many
+// bank conflicts as the direct loads meet cache lines, while the copies and
+// barriers add their own time.  Outputs are fresh tensors, so the three
+// self-advections all read the pre-advection velocity
+// (stable_fluids_3d.py:118-119).
 #include "fsc_common.cuh"
 
 namespace {
+
+constexpr int kBrickZ = 2;
 
 template <bool kWindowed>
 __global__ void advect3_kernel(const float* __restrict__ d1,
@@ -38,22 +54,36 @@ __global__ void advect3_kernel(const float* __restrict__ d1,
                                int b2, int b3, float dt0, int cmax) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int k = blockIdx.z;
+  const int k0 = blockIdx.z * kBrickZ;
   if (i >= side || j >= side) return;
   const int n = side - 2;
-  const int ck = fsc::clampi(k, 1, n);
   const int ci = fsc::clampi(i, 1, n);
   const int cj = fsc::clampi(j, 1, n);
-  const fsc::Departure3 d =
-      kWindowed
-          ? fsc::window_backtrace3(u, v, w, ck, ci, cj, side, dt0, cmax)
-          : fsc::backtrace3(u, v, w, ck, ci, cj, side, dt0);
-  const int o = (k * side + i) * side + j;
-  o1[o] = fsc::border_value3(fsc::trilinear(d, d1, side), k, i, j, side, b1);
-  if (d2 != nullptr)
-    o2[o] = fsc::border_value3(fsc::trilinear(d, d2, side), k, i, j, side, b2);
-  if (d3 != nullptr)
-    o3[o] = fsc::border_value3(fsc::trilinear(d, d3, side), k, i, j, side, b3);
+  // Every plane's departure first, so that all their velocity loads are in
+  // flight together.
+  fsc::Departure3 d[kBrickZ] = {};
+#pragma unroll
+  for (int z = 0; z < kBrickZ; ++z) {
+    const int ck = fsc::clampi(k0 + z, 1, n);
+    d[z] = kWindowed
+               ? fsc::window_backtrace3(u, v, w, ck, ci, cj, side, dt0, cmax)
+               : fsc::backtrace3(u, v, w, ck, ci, cj, side, dt0);
+  }
+  // Then each field's gathers over the brick.
+  auto gather = [&](const float* __restrict__ f, float* __restrict__ o,
+                    int bb) {
+#pragma unroll
+    for (int z = 0; z < kBrickZ; ++z) {
+      const int k = k0 + z;
+      if (k < side)
+        o[(k * side + i) * side + j] =
+            fsc::border_value3(fsc::trilinear(d[z], f, side), k, i, j, side,
+                               bb);
+    }
+  };
+  gather(d1, o1, b1);
+  if (d2 != nullptr) gather(d2, o2, b2);
+  if (d3 != nullptr) gather(d3, o3, b3);
 }
 
 }  // namespace
@@ -68,8 +98,10 @@ extern "C" int fsc_advect3(const float* d1, const float* d2, const float* d3,
                            void* stream) {
   const auto kernel =
       cmax > 0 ? advect3_kernel<true> : advect3_kernel<false>;
-  kernel<<<fsc::grid_dim3(side), fsc::block_dim(), 0,
-           static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((side + fsc::kBlockX - 1) / fsc::kBlockX,
+                  (side + fsc::kBlockY - 1) / fsc::kBlockY,
+                  (side + kBrickZ - 1) / kBrickZ);
+  kernel<<<grid, fsc::block_dim(), 0, static_cast<cudaStream_t>(stream)>>>(
       d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3, dt0, cmax);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "load"]
+__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "open_library", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fluidsimulationcuda_torch"
@@ -79,18 +79,19 @@ def nvcc_path() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
     """Compile the kernels if no library matches the current sources and
     compiler; return the library's path.  ``verbose`` adds ``-Xptxas -v``
     (registers and spills of each kernel) to a fresh build and prints the
-    compiler's output."""
+    compiler's output.  ``csrc`` builds another tree's sources (the dev
+    scripts time a parent commit's kernels that way)."""
     nvcc = nvcc_path()
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(csrc.glob("*.cu"))
     digest = hashlib.sha256()
     digest.update(subprocess.run([nvcc, "--version"], check=True,
                                  capture_output=True, text=True).stdout.encode())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in sorted(csrc.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     lib = BUILD_DIR / f"libfsc_{digest.hexdigest()[:16]}.so"
@@ -133,16 +134,21 @@ def _finish(cmd: list[str], output: str, returncode: int,
         raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}")
 
 
+def open_library(path: Path) -> ctypes.CDLL:
+    """The kernel library at ``path``, with the argument types of every
+    entry point declared."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once per process,
-    with the argument types of every entry point declared."""
+    """The kernel library, built on first use and loaded once per process."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = open_library(build())
         return _lib

@@ -26,7 +26,9 @@ import numpy as np
 import torch
 
 from ..core.config import PERF_POINT_3D, PERF_POINTS_2D
+from ..ops.advect import backtrace, departure
 from ..ops.multigrid import OMEGA, _smooth
+from ..ops.three_d import backtrace3, departure3
 from . import cuda_ops as co
 from . import cuda_ops_3d as co3
 from . import cuda_sharded as cs
@@ -43,7 +45,9 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "pair_against_singles", "timing_checks_pair",
            "timing_checks_split", "kernel_checks_damp",
            "timing_checks_damp", "kernel_checks3_windowed",
-           "timing_checks3_windowed", "max_abs_diff", "device_ms"]
+           "timing_checks3_windowed", "K4_TILE", "K4_BOX_CAP",
+           "footprint_boxes", "gather_velocities", "kernel_checks_flows",
+           "staged_share", "max_abs_diff", "device_ms"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -68,6 +72,11 @@ class Check:
     cost: tuple[int, int] = (0, 0)  # (field passes, float ops per cell)
     cells: int = 0  # cells of one field
     composed: Callable[[], object] | None = None  # what a fusion replaces
+    # A gather's fields and its departure coordinates (x, y[, z]) in each
+    # field's own cells, for a library gather's time beside the kernel's.
+    gather: Callable[[], tuple[list, tuple]] | None = None
+    # K4's footprint box per block of its launch (footprint_boxes).
+    boxes: Callable[[], torch.Tensor] | None = None
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the larger of the bytes the
@@ -171,6 +180,75 @@ class _Inputs:
             self.uf, self.vf = (torch.from_numpy(
                 rng.uniform(-vfast, vfast, shape).astype(np.float32)
             ).to(device) for _ in range(2))
+        self._spec = (shape, ndim, device, seed)
+
+    @functools.cached_property
+    def smooth(self) -> tuple[torch.Tensor, ...]:
+        """Velocities of the kind the steps run (``_smooth_velocities``),
+        from a generator of their own, so the fields above stay as they
+        were."""
+        shape, ndim, device, seed = self._spec
+        return tuple(torch.from_numpy(f).to(device) for f in
+                     _smooth_velocities(np.random.default_rng(seed + 2),
+                                        shape, ndim, self.n))
+
+    @functools.cached_property
+    def blob(self) -> torch.Tensor:
+        """A 2-D density as a step leaves it: a Gaussian blob of width
+        side/32 in the middle of each grid, exactly zero or subnormal far
+        from it (the sweep's division meets such values in a step, not on
+        the random fields)."""
+        shape, _, device, _ = self._spec
+        side = shape[-1]
+        r = (np.arange(side, dtype=np.float32) - side / 2) / (side / 32)
+        g = np.exp(-0.5 * r * r).astype(np.float32)
+        blob = np.broadcast_to(g[:, None] * g[None, :], shape).copy()
+        return torch.from_numpy(blob).to(device)
+
+    @functools.cached_property
+    def shear(self) -> tuple[torch.Tensor, ...]:
+        """A shear layer (``_shear_velocities``)."""
+        shape, ndim, device, _ = self._spec
+        return tuple(torch.from_numpy(f).to(device) for f in
+                     _shear_velocities(shape, ndim, self.n))
+
+
+def _smooth_velocities(rng, shape: tuple[int, ...], ndim: int, n: int,
+                       cells: float = 2.0) -> list[np.ndarray]:
+    """``ndim`` velocity components on ``shape`` (grids on the last
+    ``ndim`` axes, a batch before them): each a sum of three sine modes of
+    wave numbers 1-3 per axis over the grid, a phase per mode and grid,
+    scaled so that the backtrace moves at most ``cells`` cells."""
+    side = shape[-1]
+    axes = np.meshgrid(*[np.arange(side, dtype=np.float32) / side] * ndim,
+                       indexing="ij")
+    batch = shape[:-ndim]
+    out = []
+    for _ in range(ndim):
+        f = np.zeros(shape, np.float32)
+        for _ in range(3):
+            k = rng.integers(1, 4, ndim)
+            phase = rng.uniform(0.0, 2 * np.pi, batch + (1,) * ndim)
+            arg = 2 * np.pi * sum(kk * a for kk, a in zip(k, axes))
+            f += np.sin(arg + phase.astype(np.float32))
+        f *= np.float32(cells / (DT * n)) / np.abs(f).max()
+        out.append(f)
+    return out
+
+
+def _shear_velocities(shape: tuple[int, ...], ndim: int,
+                      n: int) -> list[np.ndarray]:
+    """A shear layer: every component moves the backtrace ``c`` =
+    min(16, side // 2) cells one way above row side // 2 + 3 (the last axis
+    but one) and ``c`` cells the other way below it, a jump of 2c cells
+    across one row, so the blocks of K4 astride it gather from boxes past
+    its cap (``footprint_boxes``)."""
+    side = shape[-1]
+    cells = min(16, side // 2)
+    rows = np.arange(side).reshape((side, 1))
+    sign = np.where(rows < side // 2 + 3, 1.0, -1.0).astype(np.float32)
+    f = np.broadcast_to(sign * np.float32(cells / (DT * n)), shape)
+    return [np.ascontiguousarray(f) for _ in range(ndim)]
 
 
 JAC = ("jacobi_sweep",)
@@ -266,28 +344,62 @@ def kernel_checks(side: int, device, seed: int = 0) -> list[Check]:
     ]
 
 
+def _unfused_density(t: "_Inputs", src, base, u, v, cmax=None):
+    """The density step K4 stands for, unfused: K1's 20 sweeps, then K3."""
+    def run():
+        d = co.fused_jacobi(0, src, base, t.a_diff, 1 + 4 * t.a_diff, 20,
+                            src_dt=DT)
+        return co.advect_shift(0, d, u, v, DT, t.n, cmax)
+    return run
+
+
+def _dens_timed(t: "_Inputs", label: str, u, v, iters: int, cmax=None,
+                fields=None) -> Check:
+    """K4's wrapper at ``iters`` parity sweeps (one launch of K4 alone for
+    ``iters=1``; at 20, beside the unfused step, K1 20it + K3) on the
+    source and base ``fields`` (``t.src``, ``t.x0`` by default)."""
+    ad = t.a_diff
+    src, base = fields or (t.src, t.x0)
+    cost = _add(_sweeps_cost(iters - 1, 2, src=True), DENS_ADVECT)
+    check = _timed(cost, t.cells, label,
+                   ("dens_advect",) if iters == 1 else DENS,
+                   co.fused_dens_advect, co.fused_dens_advect_plain, 0, src,
+                   base, u, v, ad, 1 + 4 * ad, iters, DT, t.n, cmax=cmax)
+    check.boxes = functools.partial(footprint_boxes, (u, v), t.n, cmax)
+    if iters == 20:
+        check.composed = _unfused_density(t, src, base, u, v, cmax)
+    return check
+
+
+def _gather2(fields, u, v, n: int, cmax=None):
+    """A 2-D gather's fields and departure coordinates (``Check.gather``)."""
+    return lambda: (list(fields), backtrace(u, v, DT, n, cmax))
+
+
+def _gather3(fields, u, v, w, n: int, cmax=None):
+    """A 3-D gather's fields and departure coordinates (``Check.gather``)."""
+    return lambda: (list(fields), backtrace3(u, v, w, DT, n, cmax))
+
+
 def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times: first one launch of each CUDA kernel
     (labelled by the kernel's name) beside its plain version, then each
-    wrapper at the main path's iteration counts, then the unfused density
-    step (K1 then K3) that K4 has to beat (ROADMAP B4)."""
+    wrapper at the main path's iteration counts; K4 also on smooth and
+    shear velocities, and at 20 sweeps beside the unfused density step (K1
+    then K3) that it has to beat (ROADMAP B4), also on a density blob."""
     t = _Inputs(side, device, seed)
     n, av, ad, cells = t.n, t.a_visc, t.a_diff, t.cells
     bv, bd = 1 + 4 * av, 1 + 4 * ad
     rho, k_d, k_p = PERF_POINTS_2D[2048]
+    us, vs = t.smooth
 
     def sweeps(iters, **kw):
         return _sweeps_cost(iters, 2, **kw)
 
-    def unfused_density():
-        d = co.fused_jacobi(0, t.src, t.x0, ad, bd, 20, src_dt=DT)
-        return co.advect_shift(0, d, t.u, t.v, DT, n)
-
-    unfused = Check("unfused density step: K1 20it + K3",
-                    ("jacobi_sweep", "advect"), unfused_density,
-                    lambda: co.fused_dens_advect_plain(0, t.src, t.x0, t.u,
-                                                       t.v, ad, bd, 20, DT, n),
-                    _add(sweeps(20, src=True), ADVECT2_ONE), cells)
+    advect = _timed(ADVECT2_PAIR, cells, "advect", ("advect",),
+                    co.advect_shift_fused, co.advect_shift_fused_plain,
+                    (1, 2), (t.u, t.v), t.u, t.v, DT, n)
+    advect.gather = _gather2((t.u, t.v), t.u, t.v, n)
     return [
         _timed(sweeps(1), cells, "jacobi_sweep", JAC, co.fused_jacobi,
                co.fused_jacobi_plain, 1, t.x, t.x0, av, bv, 1),
@@ -295,12 +407,10 @@ def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
                co.divergence_p_plain, t.u, t.v, n),
         _timed(GRAD2, cells, "gradient", ("gradient",), co.gradient_p,
                co.gradient_p_plain, t.u, t.v, t.p, n),
-        _timed(ADVECT2_PAIR, cells, "advect", ("advect",),
-               co.advect_shift_fused, co.advect_shift_fused_plain, (1, 2),
-               (t.u, t.v), t.u, t.v, DT, n),
-        _timed(DENS_ADVECT, cells, "dens_advect", ("dens_advect",),
-               co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
-               t.x0, t.u, t.v, ad, bd, 1, DT, n),
+        advect,
+        _dens_timed(t, "dens_advect", t.u, t.v, 1),
+        _dens_timed(t, "dens_advect smooth velocities", us, vs, 1),
+        _dens_timed(t, "dens_advect shear velocities", *t.shear, 1),
         _timed(sweeps(20, src=True), cells,
                "fused_jacobi 20it src_dt (u diffusion)", JAC, co.fused_jacobi,
                co.fused_jacobi_plain, 1, t.src, t.x0, av, bv, 20, src_dt=DT),
@@ -315,16 +425,17 @@ def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
                cells, f"fused_project {k_p}it chebyshev", PROJ,
                co.fused_project, co.fused_project_plain, t.u, t.v, n, k_p,
                cheby_rho=rho),
-        _timed(_add(sweeps(19, src=True), DENS_ADVECT), cells,
-               "fused_dens_advect 20it", DENS, co.fused_dens_advect,
-               co.fused_dens_advect_plain, 0, t.src, t.x0, t.u, t.v, ad, bd,
-               20, DT, n),
+        _dens_timed(t, "fused_dens_advect 20it", t.u, t.v, 20),
+        _dens_timed(t, "fused_dens_advect 20it smooth velocities", us, vs,
+                    20),
+        _dens_timed(t, "fused_dens_advect 20it smooth velocities, a density "
+                    "blob", us, vs, 20, fields=(torch.zeros_like(t.blob),
+                                                t.blob)),
         _timed(_add(sweeps(k_d - 1, src=True, fast=True, cheby=True),
                     DENS_ADVECT), cells,
                f"fused_dens_advect {k_d}it chebyshev+fast", DENS,
                co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
                t.x0, t.u, t.v, ad, bd, k_d, DT, n, fast=True, cheby_rho=rho),
-        unfused,
     ]
 
 
@@ -490,7 +601,9 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
                           cmax: int = 1) -> list[Check]:
     """What ``chip_smoke.py`` times on a batch of ``nb`` grids at ``side``
     (the batched datagen step's shapes): one launch of each of K1-K4
-    beside its plain version, then each wrapper at the step's counts.  The
+    beside its plain version (K4 also on smooth velocities, and exact on
+    shear velocities), then each wrapper at the step's counts (K4 at 20
+    sweeps on random and smooth velocities, beside K1 20it + K3).  The
     bound counts every grid of the batch."""
     t = _Inputs(side, device, seed, batch=nb)
     n, av, ad, cells = t.n, t.a_visc, t.a_diff, t.cells
@@ -501,6 +614,11 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
     def sweeps(iters, **kw):
         return _sweeps_cost(iters, 2, **kw)
 
+    advect = _timed(ADVECT2_PAIR, cells,
+                    f"{tag} advect (u/v pair cmax={cmax})", ("advect",),
+                    co.advect_shift_fused, co.advect_shift_fused_plain,
+                    (1, 2), (t.u, t.v), t.u, t.v, DT, n, cmax)
+    advect.gather = _gather2((t.u, t.v), t.u, t.v, n, cmax)
     return [
         _timed(sweeps(1), cells, f"{tag} jacobi_sweep", JAC, co.fused_jacobi,
                co.fused_jacobi_plain, 1, t.x, t.x0, av, bv, 1),
@@ -508,14 +626,13 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
                co.divergence_p, co.divergence_p_plain, t.u, t.v, n),
         _timed(GRAD2, cells, f"{tag} gradient", ("gradient",), co.gradient_p,
                co.gradient_p_plain, t.u, t.v, t.p, n),
-        _timed(ADVECT2_PAIR, cells, f"{tag} advect (u/v pair cmax={cmax})",
-               ("advect",), co.advect_shift_fused,
-               co.advect_shift_fused_plain, (1, 2), (t.u, t.v), t.u, t.v, DT,
-               n, cmax),
-        _timed(DENS_ADVECT, cells, f"{tag} dens_advect (cmax={cmax})",
-               ("dens_advect",), co.fused_dens_advect,
-               co.fused_dens_advect_plain, 0, t.src, t.x0, t.u, t.v, ad, bd,
-               1, DT, n, cmax=cmax),
+        advect,
+        _dens_timed(t, f"{tag} dens_advect (cmax={cmax})", t.u, t.v, 1,
+                    cmax),
+        _dens_timed(t, f"{tag} dens_advect (cmax={cmax}) smooth velocities",
+                    *t.smooth, 1, cmax),
+        _dens_timed(t, f"{tag} dens_advect exact, shear velocities",
+                    *t.shear, 1),
         _timed(sweeps(20, src=True), cells, f"{tag} fused_jacobi 20it src_dt",
                JAC, co.fused_jacobi, co.fused_jacobi_plain, 1, t.src, t.x0,
                av, bv, 20, src_dt=DT),
@@ -530,10 +647,10 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
                cells, f"{tag} fused_project {k_p}it chebyshev", PROJ,
                co.fused_project, co.fused_project_plain, t.u, t.v, n, k_p,
                cheby_rho=rho),
-        _timed(_add(sweeps(19, src=True), DENS_ADVECT), cells,
-               f"{tag} fused_dens_advect 20it cmax={cmax}", DENS,
-               co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
-               t.x0, t.u, t.v, ad, bd, 20, DT, n, cmax=cmax),
+        _dens_timed(t, f"{tag} fused_dens_advect 20it cmax={cmax}", t.u,
+                    t.v, 20, cmax),
+        _dens_timed(t, f"{tag} fused_dens_advect 20it cmax={cmax} smooth "
+                    f"velocities", *t.smooth, 20, cmax),
     ]
 
 
@@ -626,8 +743,8 @@ def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
 def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times in 3-D: one launch of each CUDA kernel
     (labelled by the kernel's name; ``advect3`` is the self-advected
-    triple), then K6 on one field and each solve at the main path's
-    iteration counts."""
+    triple), then K6 on one field and on smooth and shear velocities, and
+    each solve at the main path's iteration counts."""
     t = _Inputs(side, device, seed, ndim=3)
     n, av, cells = t.n, t.a_visc, t.cells
     bv = 1 + 6 * av
@@ -637,6 +754,14 @@ def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
     def sweeps(iters, **kw):
         return _sweeps_cost(iters, 3, **kw)
 
+    def k6(label, cost, bs, fields, vel):
+        check = _timed(cost, cells, label, ("advect3",),
+                       co3.advect3_shift_fused,
+                       co3.advect3_shift_fused_plain, bs, fields, *vel, DT,
+                       n)
+        check.gather = _gather3(fields, *vel, n)
+        return check
+
     return [
         _timed(sweeps(1), cells, "jacobi3_sweep", JAC3, co3.fused_jacobi3,
                co3.fused_jacobi3_plain, 1, t.x, t.x0, av, bv, 1),
@@ -644,12 +769,16 @@ def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
                co3.divergence3_p, co3.divergence3_p_plain, *uvw, n),
         _timed(GRAD3, cells, "gradient3", ("gradient3",), co3.gradient3_p,
                co3.gradient3_p_plain, *uvw, t.p, n),
-        _timed(ADVECT3_TRIPLE, cells, "advect3", ("advect3",),
-               co3.advect3_shift_fused, co3.advect3_shift_fused_plain,
-               (1, 2, 3), uvw, *uvw, DT, n),
-        _timed(ADVECT3_ONE, cells, "advect3 one field (density)",
-               ("advect3",), co3.advect3_shift, co3.advect3_shift_plain, 0,
-               t.x, *uvw, DT, n),
+        k6("advect3", ADVECT3_TRIPLE, (1, 2, 3), uvw, uvw),
+        k6("advect3 one field (density)", ADVECT3_ONE, (0,), (t.x,), uvw),
+        k6("advect3 smooth velocities", ADVECT3_TRIPLE, (1, 2, 3), t.smooth,
+           t.smooth),
+        k6("advect3 one field, smooth velocities", ADVECT3_ONE, (0,),
+           (t.x,), t.smooth),
+        k6("advect3 shear velocities", ADVECT3_TRIPLE, (1, 2, 3), t.shear,
+           t.shear),
+        k6("advect3 one field, shear velocities", ADVECT3_ONE, (0,), (t.x,),
+           t.shear),
         _timed(sweeps(20, src=True), cells,
                "fused_jacobi3 20it src_dt (u diffusion)", JAC3,
                co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0, av,
@@ -711,31 +840,31 @@ def timing_checks3_windowed(side: int, device,
     """What ``chip_smoke.py`` times of K6 in the window at volume ``side``,
     on the inputs of ``timing_checks3``'s exact K6 (the backtrace moves up
     to 2 cells): the self-advected triple (labelled by its count's name)
-    and one field in the step's 4-cell window, then the triple in a 2-cell
-    window on velocities that cross it.  The window adds a second clamp of
-    each coordinate: its two bounds and a min and a max, 12 operations a
-    cell."""
+    and one field in the step's 4-cell window, the triple there on smooth
+    velocities, then in a 2-cell window on velocities that cross it.  The
+    window adds a second clamp of each coordinate: its two bounds and a min
+    and a max, 12 operations a cell."""
     t = _Inputs(side, device, seed, ndim=3)
     n, cells = t.n, t.cells
     uvw = (t.u, t.v, t.w)
     fast = tuple(3.0 * f for f in uvw)
 
-    def win(cost):
-        return cost[0], cost[1] + 4 * 3
+    def win(label, cost, bs, fields, vel, cmax):
+        check = _timed((cost[0], cost[1] + 4 * 3), cells, label, ADV3_WIN,
+                       co3.advect3_shift_fused,
+                       co3.advect3_shift_fused_plain, bs, fields, *vel, DT,
+                       n, cmax)
+        check.gather = _gather3(fields, *vel, n, cmax)
+        return check
 
     return [
-        _timed(win(ADVECT3_TRIPLE), cells, "advect3_windowed", ADV3_WIN,
-               co3.advect3_shift_fused, co3.advect3_shift_fused_plain,
-               (1, 2, 3), uvw, *uvw, DT, n, CMAX),
-        _timed(win(ADVECT3_ONE), cells,
-               f"advect3_windowed one field cmax={CMAX}", ADV3_WIN,
-               co3.advect3_shift, co3.advect3_shift_plain, 0, t.x, *uvw, DT,
-               n, CMAX),
-        _timed(win(ADVECT3_TRIPLE), cells,
-               f"advect3_windowed triple cmax={WINDOW3}, over the window",
-               ADV3_WIN, co3.advect3_shift_fused,
-               co3.advect3_shift_fused_plain, (1, 2, 3), fast, *fast, DT, n,
-               WINDOW3),
+        win("advect3_windowed", ADVECT3_TRIPLE, (1, 2, 3), uvw, uvw, CMAX),
+        win(f"advect3_windowed one field cmax={CMAX}", ADVECT3_ONE, (0,),
+            (t.x,), uvw, CMAX),
+        win(f"advect3_windowed triple cmax={CMAX}, smooth velocities",
+            ADVECT3_TRIPLE, (1, 2, 3), t.smooth, t.smooth, CMAX),
+        win(f"advect3_windowed triple cmax={WINDOW3}, over the window",
+            ADVECT3_TRIPLE, (1, 2, 3), fast, fast, WINDOW3),
     ]
 
 
@@ -950,6 +1079,21 @@ def timing_checks_slab(side: int, m: int, device,
     K20, Kc, Kp, Kd = (_ceil8(21), _ceil8(k_d + 1), _ceil8(20 + 3),
                        _ceil8(20 + 1 + cmax))
     Kpc, C = _ceil8(k_p + 3), cmax + 1
+    advect = _timed(_scaled(ADVECT2_PAIR, cells), 1, "advect_slab",
+                    ("advect_slab",), cs.advect_slab, cs.advect_slab_plain,
+                    (1, 2), (ext(t.u, i, C), ext(t.v, i, C)), None, None, fl,
+                    dt=DT, n=n, cmax=cmax, m=m, self_adv=True)
+
+    def slab_gather():
+        # The slab's cells, at global coordinates, into the extended
+        # buffer, whose row 0 is global row i*m - C.
+        cols = torch.arange(side, dtype=torch.float32, device=t.u.device)
+        rows = torch.arange(i * m, (i + 1) * m, dtype=torch.float32,
+                            device=t.u.device)[:, None]
+        x, y = departure(slab(t.u, i), slab(t.v, i), cols, rows, DT, n, cmax)
+        return [ext(t.u, i, C), ext(t.v, i, C)], (x, y - (i * m - C))
+
+    advect.gather = slab_gather
     return [
         _timed(sweeps(1, K20), 1, "jacobi_slab", JAC_SLAB,
                cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
@@ -962,10 +1106,7 @@ def timing_checks_slab(side: int, m: int, device,
         _timed(_scaled(GRAD2, cells), 1, "gradient_slab", ("gradient_slab",),
                cs.gradient_slab, cs.gradient_slab_plain, slab(t.u, i),
                slab(t.v, i), slab(t.p, i), *t.halo(t.p, i), fl, n),
-        _timed(_scaled(ADVECT2_PAIR, cells), 1, "advect_slab",
-               ("advect_slab",), cs.advect_slab, cs.advect_slab_plain, (1, 2),
-               (ext(t.u, i, C), ext(t.v, i, C)), None, None, fl, dt=DT, n=n,
-               cmax=cmax, m=m, self_adv=True),
+        advect,
         _timed(_scaled(ADVECT2_ONE, cells), 1, "advect_slab one field",
                ("advect_slab",), cs.advect_slab, cs.advect_slab_plain, (0,),
                (ext(t.x, i, C),), slab(t.u, i), slab(t.v, i), fl, dt=DT,
@@ -1151,6 +1292,23 @@ def timing_checks_slab3(side: int, mz: int, device,
     def sweeps(k, H, **kw):
         return _slab3_sweeps_cost(k, mz + 2 * H, side, **kw)
 
+    advect = _timed(_scaled(ADVECT3_TRIPLE, cells), 1, "advect3_slab",
+                    ("advect3_slab",), cs3.advect3_flat_slab,
+                    cs3.advect3_flat_slab_plain, (1, 2, 3),
+                    tuple(ext(f, i, C) for f in (t.u, t.v, t.w)), *uvw, fl,
+                    dt=DT, n=n, cmax=cmax, mz=mz)
+
+    def slab_gather():
+        # The slab's cells, at global coordinates, into the extended
+        # buffer, whose plane 0 is global plane i*mz - C.
+        ax = torch.arange(side, dtype=torch.float32, device=t.u.device)
+        zs = torch.arange(i * mz, (i + 1) * mz, dtype=torch.float32,
+                          device=t.u.device)[:, None, None]
+        x, y, z = departure3(*uvw, ax, ax[:, None], zs, DT, n, cmax)
+        return ([ext(f, i, C) for f in (t.u, t.v, t.w)],
+                (x, y, z - (i * mz - C)))
+
+    advect.gather = slab_gather
     return [
         _timed(sweeps(1, K20 + 1), 1, "jacobi3_slab", JAC3_SLAB,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
@@ -1163,11 +1321,7 @@ def timing_checks_slab3(side: int, mz: int, device,
                ("gradient3_slab",), cs3.gradient3_slab,
                cs3.gradient3_slab_plain, *uvw, slab(t.p, i),
                *t.halo(t.p, i), fl, n),
-        _timed(_scaled(ADVECT3_TRIPLE, cells), 1, "advect3_slab",
-               ("advect3_slab",), cs3.advect3_flat_slab,
-               cs3.advect3_flat_slab_plain, (1, 2, 3),
-               tuple(ext(f, i, C) for f in (t.u, t.v, t.w)), *uvw, fl, dt=DT,
-               n=n, cmax=cmax, mz=mz),
+        advect,
         _timed(_scaled(ADVECT3_ONE, cells), 1, "advect3_slab one field",
                ("advect3_slab",), cs3.advect3_flat_slab,
                cs3.advect3_flat_slab_plain, (0,), (ext(t.x, i, C),), *uvw,
@@ -1199,6 +1353,104 @@ def timing_checks_slab3(side: int, mz: int, device,
 
 def _as_tuple(x) -> tuple:
     return x if isinstance(x, tuple) else (x,)
+
+
+# ---------------------------------------------------------------------------
+# K4's footprint staging, and the flows K4 and K6 are held on
+# ---------------------------------------------------------------------------
+
+# K4's tile (rows, columns) and the most cells of a footprint box it
+# stages (csrc/dens_advect.cu kRows, kBoxCap).
+K4_TILE, K4_BOX_CAP = (8, 32), 4 * 8 * 32
+
+
+def footprint_boxes(vel: tuple[torch.Tensor, torch.Tensor], n: int,
+                    cmax: int | None = None) -> torch.Tensor:
+    """Cells of the footprint box of each block of K4 on the velocities
+    ``vel`` = (u, v) of a grid, or of a batch on leading axes, found as the
+    kernel finds it: every cell's departure (a ghost cell takes its
+    interior neighbour's) truncated to its lower gather corner, the
+    corners' range over the block plus one on each axis.  Shape: the batch,
+    then blocks per axis.  A block stages its box if it holds at most
+    ``K4_BOX_CAP`` cells."""
+    idx = torch.arange(n + 2, device=vel[0].device).clamp(1, n) - 1
+    cells = None
+    # backtrace gives (x, y): the last axis first.
+    for dim, c in zip((-1, -2), backtrace(*vel, DT, n, cmax)):
+        corner = c.to(torch.int32).to(torch.float64)
+        corner = corner.index_select(-1, idx).index_select(-2, idx)
+        pads = [0, -corner.shape[-1] % K4_TILE[1],
+                0, -corner.shape[-2] % K4_TILE[0]]
+        lo = torch.nn.functional.pad(corner, pads, value=float(2 ** 30))
+        hi = torch.nn.functional.pad(corner, pads, value=-float(2 ** 30))
+        split = lo.shape[:-2] + (lo.shape[-2] // K4_TILE[0], K4_TILE[0],
+                                 lo.shape[-1] // K4_TILE[1], K4_TILE[1])
+        extent = (hi.reshape(split).amax((-3, -1))
+                  - lo.reshape(split).amin((-3, -1)) + 2)
+        cells = extent if cells is None else cells * extent
+    return cells.to(torch.int64)
+
+
+def gather_velocities(t: "_Inputs") -> dict[str, tuple[torch.Tensor, ...]]:
+    """The velocities K4 and K6 are held on: smooth (a few sine modes, up
+    to 2 cells); random over the 4-cell window (up to 6 cells); a shear
+    layer whose jump puts K4's blocks astride it past the box cap."""
+    fast = ((t.uf, t.vf) if t.w is None
+            else tuple(3.0 * f for f in (t.u, t.v, t.w)))
+    return {"smooth": t.smooth, "random": fast, "shear": t.shear}
+
+
+def kernel_checks_flows(side: int, device, seed: int = 0, ndim: int = 2,
+                        batch: int = 0) -> list[Check]:
+    """K4 (2-D: a grid at ``side``, or a batch of ``batch`` grids; 20
+    Jacobi sweeps, 10 Chebyshev, 10 Chebyshev+fast) or K6 (3-D: a volume
+    at ``side``;
+    one field and the self-advected triple) on each velocity set of
+    ``gather_velocities``, exact and in windows of 1 and 4 cells, against
+    the plain version.  K4's checks carry their blocks' footprint boxes
+    (``Check.boxes``): a block stages its box, or past the cap gathers
+    directly, with the same result bit for bit (the fast mode's sweep
+    takes the direct kernel throughout)."""
+    t = _Inputs(side, device, seed, ndim=ndim, batch=batch)
+    n, ad = t.n, t.a_diff
+    rho, k_d, _ = PERF_POINTS_2D[2048]
+    tag = (f"{batch}x{side}²" if batch else
+           f"{side}{'³' if ndim == 3 else '²'}")
+    out = []
+    for name, vel in gather_velocities(t).items():
+        for cmax in (None, 1, CMAX):
+            win = "exact" if cmax is None else f"cmax={cmax}"
+            if ndim == 3:
+                kernels = ADV3_WIN if cmax else ("advect3",)
+                out += [
+                    _check(f"{tag} advect3_shift b=0 {win}, {name} "
+                           f"velocities", kernels, co3.advect3_shift,
+                           co3.advect3_shift_plain, 0, t.x, *vel, DT, n,
+                           cmax),
+                    _check(f"{tag} advect3_shift_fused u/v/w triple {win}, "
+                           f"{name} velocities", kernels,
+                           co3.advect3_shift_fused,
+                           co3.advect3_shift_fused_plain, (1, 2, 3), vel,
+                           *vel, DT, n, cmax)]
+                continue
+            for mode, iters, kw in (("jacobi 20it", 20, {}),
+                                    (f"chebyshev {k_d}it", k_d,
+                                     dict(cheby_rho=rho)),
+                                    (f"chebyshev+fast {k_d}it", k_d,
+                                     dict(fast=True, cheby_rho=rho))):
+                c = _check(f"{tag} fused_dens_advect {mode} {win}, {name} "
+                           f"velocities", DENS, co.fused_dens_advect,
+                           co.fused_dens_advect_plain, 0, t.src, t.x0, *vel,
+                           ad, 1 + 4 * ad, iters, DT, n, cmax=cmax, **kw)
+                c.boxes = functools.partial(footprint_boxes, vel, n, cmax)
+                out.append(c)
+    return out
+
+
+def staged_share(check: Check) -> float:
+    """The share of the blocks of the check's K4 launch whose footprint box
+    fits the cap, so that they stage it."""
+    return float((check.boxes() <= K4_BOX_CAP).double().mean())
 
 
 def max_abs_diff(a, b) -> float:

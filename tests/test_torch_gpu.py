@@ -495,3 +495,26 @@ def test_windowed_step3_launches_and_matches_reference(cuda, mode):
     atol = 1e-4 if cfg.fast_math else 2e-5
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("side,ndim,batch", [(2048, 2, 0), (258, 2, 1024),
+                                             (256, 3, 0)],
+                         ids=["2048sq", "1024x258sq", "256cube"])
+def test_staged_gathers_match_plain(cuda, side, ndim, batch):
+    """K4 (a 2048² grid, the datagen batch of 1024 grids of 258²), which
+    stages each block's footprint in shared memory, and K6 (256³) against
+    their plain versions on smooth, random and shear velocities, exact and
+    windowed; the shear puts K4's blocks astride its jump past the box cap,
+    so they gather directly."""
+    for check in checks.kernel_checks_flows(side, cuda, seed=1, ndim=ndim,
+                                             batch=batch):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert all(counts[k] > 0 for k in check.kernels), (check.label, counts)
+        assert checks.max_abs_diff(got, want) <= checks.TOL, check.label
+        if check.boxes is not None and "shear" in check.label and (
+                "exact" in check.label):
+            assert checks.staged_share(check) < 1.0, check.label
