@@ -32,18 +32,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    for a top, an interior and a bottom slab of 32 planes of 256³
    (max|Δ| <= 1e-5): Jacobi, zero guess, fast, a Chebyshev chain's first
    and chained segments (x_{k-1} carried in and out), the gathers under and
-   over the 4-cell window, the two stencils; timed beside bound and launch
-   floor;
+   over the 4-cell window, the two stencils; K14 also on smooth, random and
+   shear velocities in windows of 1 and 2, one field and the triple, bit
+   for bit; timed beside bound and launch floor (K14 also on one field and
+   on smooth and shear velocities, beside ``grid_sample``);
 3e. the two fused kernels no step calls (as in the JAX package): K18, the
    split-operand slab Jacobi, against K9 on the ``torch.cat`` of its
    operands bit for bit on top, interior and bottom 256-row slabs of 2048²
    and on 2048-row slabs of 8192² (K = 24, 20 sweeps; Jacobi, zero guess,
-   fast); then K17, the fused velocity tail, at 2048² (20 parity sweeps
-   with windows of 4 and 1 cells, the 14-sweep Chebyshev pressure solve)
+   fast); K17, the fused velocity tail, against its plain version bit for
+   bit at 2048² in both its forms (resident, which the launch takes there,
+   and streaming) and on a batch of two 2048² grids (streaming), each
+   check printing the form that ran; then K17 at 2048² (20 parity sweeps
+   with windows of 4 and 1 cells, the 14-sweep Chebyshev pressure solve,
+   then the first and the last in the streaming form) and on the datagen
+   batch of 1024 × 256² (streaming; 20 sweeps and Chebyshev 14, window 1),
    and K18 on an interior slab, each timed beside its bound, the launch
    floor, its plain version and the composition it replaces (K3's
-   windowed pair and ``fused_project``; two ``torch.cat`` and K9).  K17
-   against its plain version runs in phase 3, K18 in phase 3c;
+   windowed pair and ``fused_project``; two ``torch.cat`` and K9).  K18
+   against its plain version runs in phase 3c;
 3f. K1's damped sweep (the multigrid smoother) against
    ``ops.multigrid._smooth`` at 2048², 128² and 16² (2 sweeps from a guess
    and from zero, 40 from zero; bit for bit expected, max|Δ| <= 1e-6
@@ -94,7 +101,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``reference`` backend, which gathers windowed too), the audited
    displacement printed beside the window, and the step's velocity tail
    computed again through K17 from the step's own post-projection velocity
-   and held against the step's result (max|Δ| <= 1e-5);
+   and held against the step's result (max|Δ| <= 1e-5), the form K17 took
+   printed (the resident one on an H100 SXM);
 13. batched datagen, ``models/batched.py`` at BASELINE config 4 (1024
    grids of 256², n=254, 20 iterations), parity and the compensated mode
    (0.9, 10, 14) with fast math: ``select_cmax_batched`` probes the gather
@@ -566,7 +574,7 @@ def windowed_path(cfg, label: str, card: str) -> dict[str, int]:
     result to ``checks.TOL``; the K17 run's launch counts are checked and
     returned."""
     from fluidsimulationcuda_torch import reference_init, step_audited
-    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops, cuda_step
 
     gen = torch.Generator(device=cfg.device).manual_seed(SEED)
     state0, sources = reference_init(gen, cfg)
@@ -577,15 +585,18 @@ def windowed_path(cfg, label: str, card: str) -> dict[str, int]:
           f"{'clamp' if disp > cfg.max_courant else 'are exact'})")
     torch.cuda.synchronize()
     cuda_ops.reset_launch_counts()
+    cuda_step.reset_form_counts()
     u, v = windowed_tail(cfg, state0, sources)
     torch.cuda.synchronize()
     counts = cuda_ops.launch_counts()
-    if counts["advect_project"] != 1:
-        raise AssertionError(f"{label}: K17 launches {counts}")
+    form = [k for k, n in cuda_step.form_counts().items() if n]
+    if counts["advect_project"] != 1 or len(form) != 1:
+        raise AssertionError(f"{label}: K17 launches {counts}, forms "
+                             f"{form}")
     err = max(float((u - state1.u).abs().max()),
               float((v - state1.v).abs().max()))
-    print(f"{label}: velocity tail through K17 against the step's own: "
-          f"max|d| {err:.3e} ({card})")
+    print(f"{label}: velocity tail through K17 ({form[0]} form) against the "
+          f"step's own: max|d| {err:.3e} ({card})")
     if not err <= checks.TOL:
         raise AssertionError(f"{label}: K17 tail max|d| {err:.3e} > "
                              f"{checks.TOL}")
@@ -997,6 +1008,8 @@ def main() -> None:
     phase("3d z-slab kernels against their plain twins (256³, mz=32)")
     compare(checks.kernel_checks_slab3(256, 32, "cuda", SEED), checks.TOL,
             errs)
+    compare(checks.kernel_checks_slab3_flows(256, 32, "cuda", SEED), 0.0,
+            errs, "bit for bit")
     times.update(kernel_times(checks.timing_checks_slab3(256, 32, "cuda",
                                                          SEED),
                               "256³, slab of 32 planes", card, floor))
@@ -1006,8 +1019,13 @@ def main() -> None:
             "against K9 on the concatenation")
     compare(checks.split_against_concat(8192, 2048, "cuda", SEED), 0.0, errs,
             "against K9 on the concatenation")
+    compare([c for c in checks.kernel_checks(2048, "cuda", SEED)
+             if "advect_project" in c.kernels], 0.0, errs, "bit for bit")
     times.update(kernel_times(checks.timing_checks_tail(2048, "cuda", SEED),
                               "2048²", card, floor))
+    kernel_times(checks.timing_checks_tail_batched(
+        DATAGEN_BATCH, DATAGEN_N + 2, "cuda", SEED), "1024 × 256²", card,
+        floor)
     times.update(kernel_times(checks.timing_checks_split(2048, 256, "cuda",
                                                          SEED),
                               "2048², slab of 256 rows", card, floor))
@@ -1254,11 +1272,25 @@ def compare(check_list, tol: float, errs: dict[str, float],
         err = checks.max_abs_diff(got, want)
         share = (f"  blocks staged {100 * checks.staged_share(c):.1f}%"
                  if c.boxes is not None else "")
-        print(f"  {c.label:45s} max|d| {err:.3e} {against}{share}")
+        print(f"  {c.label:45s} max|d| {err:.3e} {against}{share}"
+              f"{tail_form(c)}")
         if not err <= tol:
             raise AssertionError(f"{c.label}: max|d| {err:.3e} > {tol}")
         for k in c.kernels:
             errs[k] = max(errs[k], err)
+
+
+def tail_form(check) -> str:
+    """For a check of K17, the form its launch takes ("  form resident"),
+    from the form counters around one more run; "" for other checks."""
+    from fluidsimulationcuda_torch.kernels import cuda_step
+
+    if "advect_project" not in check.kernels:
+        return ""
+    cuda_step.reset_form_counts()
+    check.run()
+    return "  form " + "/".join(k for k, n in
+                                cuda_step.form_counts().items() if n)
 
 
 def launch_floor_ms() -> float:
@@ -1331,6 +1363,7 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
         if c.boxes is not None:
             line += (f"  blocks staged "
                      f"{100 * checks.staged_share(c):.1f}%")
+        line += tail_form(c)
         if floor is not None:
             cuda_ops.reset_launch_counts()
             c.run()

@@ -20,10 +20,17 @@ different numbers of barriers aborts the run.  The shim counts the blocks
 of K4 that stage their footprint and those that take the direct path
 (``csrc/dens_advect.cu``'s ``FSC_BLOCK_PATH``; ``block_paths`` reads
 them).  The one cooperative launch, K17 (``csrc/advect_project.cu``), runs
-as a single thread: its grid-stride loops then cover every cell, stage
-after stage, and its grid barriers (a stub ``cooperative_groups.h``) have
-nothing to wait for, so each stage runs whole over the grid before the
-next.  The wrappers of ``kernels/cuda_ops.py``,
+every thread of every block together, a ``std::thread`` each: a block's
+dynamic ``extern __shared__`` array is its own buffer of the launch's
+size, ``__syncthreads()`` a barrier of the block, a warp shuffle one of the
+warp's threads, and ``grid.sync()`` (a stub ``cooperative_groups.h``) one
+of all the launch's threads; a thread
+that returns drops out of both, and a launch whose threads passed
+different numbers of grid barriers aborts the run.  The device the shim
+reports has ``shim_sms`` SMs (1 unless ``set_device`` says otherwise) and
+227 KB of shared memory a block, and takes one block of any size an SM, so
+K17's resident form cuts a grid into bands, one per SM, and its streaming
+form runs one block an SM.  The wrappers of ``kernels/cuda_ops.py``,
 ``kernels/cuda_ops_3d.py``, ``kernels/cuda_step.py``,
 ``kernels/cuda_sharded.py`` and ``kernels/cuda_sharded_3d.py`` then run
 against that library on CPU tensors (their device checks, stream and
@@ -33,9 +40,10 @@ loader patched), and:
   of three grids, ``kernel_checks_flows`` at ``--side2``,
   ``kernel_checks3`` and ``kernel_checks_flows`` at ``--side3``,
   ``kernel_checks_slab`` for slabs of ``--slab-side``/4 rows at
-  ``--slab-side``, ``kernel_checks_slab3`` for z-slabs of
-  ``--slab3-side``/3 planes at ``--slab3-side``) compares kernel and plain
-  version;
+  ``--slab-side``, ``kernel_checks_slab3`` and
+  ``kernel_checks_slab3_flows`` for z-slabs of ``--slab3-side``/3 planes at
+  ``--slab3-side``) compares kernel and plain version, on a shim device of
+  3 SMs;
 - one 2-D and one 3-D step per mode go through the ``cuda`` backend, their
   launch counts against ``chip_smoke.expected_launches(3)``, their state
   against the ``reference`` backend; both also in windowed mode, each
@@ -82,8 +90,12 @@ SHIM = r"""#pragma once
 #include <memory>
 #include <thread>
 #include <vector>
+#include <cstring>
+#include <type_traits>
+#include <utility>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__ __restrict
 #define __shared__ static
@@ -112,30 +124,33 @@ template <class F> void shim_launch(dim3 g, dim3 b, F f) {
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorCooperativeLaunchTooLarge = 82 };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16,
+                      cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+// The device the shim reports (see the module docstring).
+inline int shim_sms = 1, shim_smem_optin = 232448;
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 0; }
-template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, int) {
-  *n = 1; return 0;
-}
-// A cooperative launch runs one thread (see the module docstring).
-template <class P> int cudaLaunchCooperativeKernel(void (*fn)(P), dim3, dim3, void** args,
-                                                   int, cudaStream_t) {
-  gridDim = blockDim = dim3(1, 1, 1); blockIdx = threadIdx = dim3(0, 0, 0);
-  fn(*static_cast<P*>(args[0]));
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? shim_sms : shim_smem_optin;
   return 0;
+}
+template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                                    size_t smem) {
+  *n = smem <= size_t(shim_smem_optin) ? 1 : 0; return 0;
 }
 // A block's threads run together (see the module docstring).
 struct ShimBlock {
   std::barrier<> all;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<int> lanes;  // one slot per thread, for the warp reductions
-  explicit ShimBlock(int threads) : all(threads), lanes(threads) {
+  std::vector<float> flanes;  // and for the shuffles
+  explicit ShimBlock(int threads) : all(threads), lanes(threads), flanes(threads) {
     for (int t = 0; t < threads; t += 32)
       warps.push_back(std::make_unique<std::barrier<>>(threads - t < 32 ? threads - t : 32));
   }
 };
-inline ShimBlock* shim_block;
+inline thread_local ShimBlock* shim_block;
 inline thread_local int shim_tid, shim_syncs;
 inline void __syncthreads() { ++shim_syncs; shim_block->all.arrive_and_wait(); }
 inline int __reduce_max_sync(unsigned, int v) {
@@ -149,6 +164,22 @@ inline int __reduce_max_sync(unsigned, int v) {
   blk.warps[w]->arrive_and_wait();
   return m;
 }
+// A shuffle within a warp: lane l takes lane l+delta's v (its own where
+// that lane is past the warp).
+inline float shim_shfl(float v, int delta) {
+  ShimBlock& blk = *shim_block;
+  const int w = shim_tid / 32, lane = shim_tid % 32;
+  const int size = int(blk.flanes.size()) - 32 * w < 32 ? int(blk.flanes.size()) - 32 * w : 32;
+  blk.flanes[shim_tid] = v;
+  blk.warps[w]->arrive_and_wait();
+  const float r = lane + delta >= 0 && lane + delta < size ? blk.flanes[shim_tid + delta] : v;
+  blk.warps[w]->arrive_and_wait();
+  return r;
+}
+inline float __shfl_up_sync(unsigned, float v, unsigned d) { return shim_shfl(v, -int(d)); }
+inline float __shfl_down_sync(unsigned, float v, unsigned d) { return shim_shfl(v, int(d)); }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 inline long long shim_paths[2];  // blocks that staged, blocks that did not
 inline void shim_block_path(bool direct) {
   if (shim_tid == 0) ++shim_paths[direct];
@@ -158,12 +189,12 @@ template <class F> void shim_launch_block(dim3 g, dim3 b, F f) {
   gridDim = g; blockDim = b;
   const int nt = b.x * b.y * b.z;
   ShimBlock blk(nt);
-  shim_block = &blk;
   std::vector<int> syncs(nt);
   bool uneven = false;
   std::vector<std::thread> threads;
   for (int t = 0; t < nt; ++t)
     threads.emplace_back([&, t] {
+      shim_block = &blk;
       shim_tid = t;
       threadIdx = dim3(t % b.x, t / b.x % b.y, t / (b.x * b.y));
       for (unsigned bz = 0; bz < g.z; ++bz)
@@ -186,6 +217,55 @@ template <class F> void shim_launch_block(dim3 g, dim3 b, F f) {
     std::abort();
   }
 }
+// A cooperative launch runs all its blocks' threads together (see the
+// module docstring).
+inline std::barrier<>* shim_grid;
+inline thread_local int shim_grid_syncs;
+inline thread_local char* shim_smem;
+inline void shim_grid_sync() { ++shim_grid_syncs; shim_grid->arrive_and_wait(); }
+template <class T> T* shim_dynamic_smem() { return reinterpret_cast<T*>(shim_smem); }
+template <class... A, size_t... I>
+void shim_call(void (*fn)(A...), void** args, std::index_sequence<I...>) {
+  fn(*static_cast<std::remove_cv_t<std::remove_reference_t<A>>*>(args[I])...);
+}
+template <class... A> int cudaLaunchCooperativeKernel(void (*fn)(A...), dim3 g, dim3 b,
+                                                      void** args, size_t smem,
+                                                      cudaStream_t) {
+  gridDim = g; blockDim = b;
+  const int nt = b.x * b.y * b.z, nb = g.x * g.y * g.z;
+  std::barrier<> grid(nt * nb);
+  shim_grid = &grid;
+  std::vector<std::unique_ptr<ShimBlock>> blocks;
+  std::vector<std::vector<char>> mem;
+  for (int k = 0; k < nb; ++k) {
+    blocks.push_back(std::make_unique<ShimBlock>(nt));
+    mem.emplace_back(smem + 1);
+  }
+  std::vector<int> syncs(nt * nb);
+  std::vector<std::thread> threads;
+  for (int k = 0; k < nb; ++k)
+    for (int t = 0; t < nt; ++t)
+      threads.emplace_back([&, k, t] {
+        shim_block = blocks[k].get();
+        shim_tid = t;
+        shim_smem = mem[k].data();
+        shim_grid_syncs = 0;
+        blockIdx = dim3(k % g.x, k / g.x % g.y, k / (g.x * g.y));
+        threadIdx = dim3(t % b.x, t / b.x % b.y, t / (b.x * b.y));
+        shim_call(fn, args, std::index_sequence_for<A...>());
+        syncs[k * nt + t] = shim_grid_syncs;
+        shim_block->all.arrive_and_drop();
+        grid.arrive_and_drop();
+      });
+  for (auto& th : threads) th.join();
+  for (int s : syncs)
+    if (s != syncs[0]) {
+      std::fprintf(stderr, "shim: the threads of a cooperative launch passed "
+                           "different numbers of grid barriers\n");
+      std::abort();
+    }
+  return 0;
+}
 """
 PATHS = r"""#include "cuda_runtime.h"
 extern "C" void fsc_shim_block_paths(long long* out) {
@@ -193,14 +273,18 @@ extern "C" void fsc_shim_block_paths(long long* out) {
   out[1] = shim_paths[1];
   shim_paths[0] = shim_paths[1] = 0;
 }
+extern "C" void fsc_shim_set_device(int sms) { shim_sms = sms; }
 """
 COOPERATIVE_GROUPS = r"""#pragma once
+#include "cuda_runtime.h"
 namespace cooperative_groups {
-struct grid_group { void sync() const {} };
+struct grid_group { void sync() const { shim_grid_sync(); } };
 inline grid_group this_grid() { return grid_group(); }
 }
 """
 LAUNCH = re.compile(r"(\w+)<<<(.*?)>>>\((.*?)\);", re.S)
+# A block's dynamic shared memory is its own buffer in the shim.
+DYNAMIC_SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 # The shim's cudaLaunchCooperativeKernel takes the kernel with its type.
 COOPERATIVE = re.compile(r"cudaLaunchCooperativeKernel\(\s*\(void\s*\*\)\s*")
 
@@ -232,6 +316,7 @@ def build_shim_library(names: tuple[str, ...] | None = None,
             continue
         text = COOPERATIVE.sub("cudaLaunchCooperativeKernel(",
                                path.read_text())
+        text = DYNAMIC_SMEM.sub(r"\1* \2 = shim_dynamic_smem<\1>();", text)
         shim = "shim_launch_block" if "__syncthreads" in text else "shim_launch"
 
         def launch(m):
@@ -247,6 +332,11 @@ def build_shim_library(names: tuple[str, ...] | None = None,
                     "-shared", "-fPIC", f"-I{out}", f"-I{gen}", "-o", str(lib),
                     *sources], check=True)
     return lib
+
+
+def set_device(lib, sms: int) -> None:
+    """Make the shim library ``lib`` report ``sms`` SMs."""
+    lib.fsc_shim_set_device(sms)
 
 
 def block_paths(lib) -> tuple[int, int]:
@@ -304,6 +394,8 @@ def main() -> int:
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
 
     lib = build_shim_library()
+    with kernels_on_cpu(lib) as handle:
+        set_device(handle, 3)  # K17's resident form in three bands
     failures = 0
     check_list = (checks.kernel_checks(args.side2, "cpu", 1)
                   + checks.kernel_checks_damp(args.mg_side, "cpu", 1)
@@ -314,6 +406,9 @@ def main() -> int:
                   + checks.kernel_checks_slab3(args.slab3_side,
                                                args.slab3_side // 3, "cpu",
                                                1)
+                  + checks.kernel_checks_slab3_flows(args.slab3_side,
+                                                     args.slab3_side // 3,
+                                                     "cpu", 1)
                   + checks.kernel_checks_flows(args.side2, "cpu", 1,
                                                 batch=3)
                   + checks.kernel_checks_flows(args.side3, "cpu", 1,

@@ -239,17 +239,20 @@ __device__ __forceinline__ float rhs_at(const SweepParams& p, int c) {
   return r;
 }
 
+// The Chebyshev combine w*S(x_k) + (1-w)*x_{k-1} of a Jacobi update val
+// and x_{k-1} at its cell.
+__device__ __forceinline__ float cheby_combine(float w, float val,
+                                               float prev) {
+  return w * val + (1.0f - w) * prev;
+}
+
 // x_{k+1} at interior cell c from its neighbour sum and rhs value r: the
-// Jacobi update, then the Chebyshev combine w*S(x_k) + (1-w)*x_{k-1} read
-// pointwise.
+// Jacobi update, then the Chebyshev combine read pointwise.
 __device__ __forceinline__ float sweep_update(const SweepParams& p, int c,
                                               float neigh, float r) {
   float val = (p.flags & kFast) ? fmaf(p.ab, neigh, r)
                                 : (r + p.alpha * neigh) / p.beta;
-  if (p.flags & kCheby) {
-    const float prev = p.xm ? p.xm[c] : 0.0f;
-    val = p.w * val + (1.0f - p.w) * prev;
-  }
+  if (p.flags & kCheby) val = cheby_combine(p.w, val, p.xm ? p.xm[c] : 0.0f);
   return val;
 }
 

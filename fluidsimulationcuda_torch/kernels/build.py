@@ -40,8 +40,9 @@ _SIGNATURES = {
     "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "fsc_dens_advect": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _P, _P,
                         _P, _I, _I, _I, _F, _I, _P],
-    "fsc_advect_project": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _F, _F, _F, _P, _I, _P],
+    "fsc_advect_project": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _I, _F, _F, _F, _P, _I, _I, _P],
+    "fsc_advect_project_form": [_I, _I, _I, _P, _P],
     "fsc_jacobi_slab_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _F, _F, _F, _F, _I, _I, _I, _P],
     "fsc_jacobi3_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
@@ -136,9 +137,12 @@ def _finish(cmd: list[str], output: str, returncode: int,
 
 def open_library(path: Path) -> ctypes.CDLL:
     """The kernel library at ``path``, with the argument types of every
-    entry point declared."""
+    entry point declared; a library built from another tree may lack some
+    of them."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

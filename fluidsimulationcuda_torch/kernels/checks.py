@@ -38,8 +38,10 @@ from . import cuda_step as cst
 __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks", "timing_checks", "kernel_checks3",
            "timing_checks3", "kernel_checks_slab", "timing_checks_slab",
-           "kernel_checks_slab3", "timing_checks_slab3",
+           "kernel_checks_slab3", "kernel_checks_slab3_flows",
+           "timing_checks_slab3",
            "split_against_concat", "timing_checks_tail",
+           "timing_checks_tail_batched",
            "kernel_checks_batched", "batched_against_grids",
            "timing_checks_batched",
            "pair_against_singles", "timing_checks_pair",
@@ -341,6 +343,16 @@ def kernel_checks(side: int, device, seed: int = 0) -> list[Check]:
                cst.fused_advect_project, cst.fused_advect_project_plain,
                torch.stack([t.u, t.uf]), torch.stack([t.v, t.vf]), n, iters,
                DT, cmax=2),
+        # The form the launch did not choose for one grid: the streaming
+        # one, which larger grids and batches take.
+        _check(f"fused_advect_project streaming form {iters}it cmax={CMAX}, "
+               f"over the window", TAIL, cst.fused_advect_project,
+               cst.fused_advect_project_plain, t.uf, t.vf, n, iters, DT,
+               cmax=CMAX, form="streaming"),
+        _check(f"fused_advect_project streaming form chebyshev {k_p}it "
+               f"cmax={CMAX}", TAIL, cst.fused_advect_project,
+               cst.fused_advect_project_plain, t.uf, t.vf, n, k_p, DT,
+               cmax=CMAX, cheby_rho=rho, form="streaming"),
     ]
 
 
@@ -472,36 +484,65 @@ def timing_checks_damp(side: int, device, seed: int = 0) -> list[Check]:
                _smooth, t.x, t.x0, k, z) for k, z in MG_SMOOTHS]
 
 
-def timing_checks_tail(side: int, device, seed: int = 0) -> list[Check]:
-    """What ``chip_smoke.py`` times of K17 at grid ``side``, each beside the
-    composition it replaces (K3's windowed pair, then ``fused_project``):
-    20 parity sweeps with the step's 4-cell window on velocities that cross
-    it (labelled by the kernel's name), with JAX's measured 1-cell window,
-    and the compensated mode's 14-sweep Chebyshev pressure solve.  The
-    bound counts the function's own traffic, u and v read once and the
+def _tail_timed(t: "_Inputs", label: str, u, v, cmax: int, k: int,
+                cheby_rho=None, form=None) -> Check:
+    """K17 on ``t``'s grid or batch beside the composition it replaces.
+    The bound counts the function's own traffic, u and v read once and the
     projected pair written once."""
+    n = t.n
+    sweep_ops = _sweeps_cost(k, 2, zero_init=True,
+                             cheby=cheby_rho is not None)[1]
+    check = _timed(
+        (4, ADVECT2_PAIR[1] + DIV2[1] + sweep_ops + GRAD2[1]), t.cells,
+        label, TAIL, cst.fused_advect_project,
+        cst.fused_advect_project_plain, u, v, n, k, DT, cmax=cmax,
+        cheby_rho=cheby_rho, form=form)
+    check.composed = lambda: co.fused_project(
+        *co.advect_shift_fused((1, 2), (u, v), u, v, DT, n, cmax), n, k,
+        cheby_rho=cheby_rho)
+    return check
+
+
+def timing_checks_tail(side: int, device, seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of K17 at grid ``side``, in the form the
+    launch chooses and each beside the composition it replaces (K3's
+    windowed pair, then ``fused_project``): 20 parity sweeps with the
+    step's 4-cell window on velocities that cross it (labelled by the
+    kernel's name), with JAX's measured 1-cell window, and the compensated
+    mode's 14-sweep Chebyshev pressure solve; then the first and the last
+    in the streaming form."""
     t = _Inputs(side, device, seed)
-    n, cells, iters = t.n, t.cells, 20
+    iters = 20
     rho, _, k_p = PERF_POINTS_2D[2048]
-
-    def tail(label, u, v, cmax, k, cheby_rho=None):
-        sweep_ops = _sweeps_cost(k, 2, zero_init=True,
-                                 cheby=cheby_rho is not None)[1]
-        check = _timed(
-            (4, ADVECT2_PAIR[1] + DIV2[1] + sweep_ops + GRAD2[1]), cells,
-            label, TAIL, cst.fused_advect_project,
-            cst.fused_advect_project_plain, u, v, n, k, DT, cmax=cmax,
-            cheby_rho=cheby_rho)
-        check.composed = lambda: co.fused_project(
-            *co.advect_shift_fused((1, 2), (u, v), u, v, DT, n, cmax), n, k,
-            cheby_rho=cheby_rho)
-        return check
-
     return [
-        tail("advect_project", t.uf, t.vf, CMAX, iters),
-        tail(f"fused_advect_project {iters}it cmax=1", t.u, t.v, 1, iters),
-        tail(f"fused_advect_project chebyshev {k_p}it cmax={CMAX}", t.uf,
-             t.vf, CMAX, k_p, rho),
+        _tail_timed(t, "advect_project", t.uf, t.vf, CMAX, iters),
+        _tail_timed(t, f"fused_advect_project {iters}it cmax=1", t.u, t.v, 1,
+                    iters),
+        _tail_timed(t, f"fused_advect_project chebyshev {k_p}it "
+                    f"cmax={CMAX}", t.uf, t.vf, CMAX, k_p, rho),
+        _tail_timed(t, f"fused_advect_project streaming form {iters}it "
+                    f"cmax={CMAX}", t.uf, t.vf, CMAX, iters,
+                    form="streaming"),
+        _tail_timed(t, f"fused_advect_project streaming form chebyshev "
+                    f"{k_p}it cmax={CMAX}", t.uf, t.vf, CMAX, k_p, rho,
+                    form="streaming"),
+    ]
+
+
+def timing_checks_tail_batched(nb: int, side: int, device,
+                               seed: int = 0) -> list[Check]:
+    """K17 on a batch of ``nb`` grids of ``side`` (the datagen batch takes
+    the streaming form), 20 parity sweeps and the 14-sweep Chebyshev solve
+    in a 1-cell window (the batched step's probed window at that size),
+    each beside the composition it replaces."""
+    t = _Inputs(side, device, seed, batch=nb)
+    rho, _, k_p = PERF_POINTS_2D[2048]
+    tag = f"{nb} x {side}²"
+    return [
+        _tail_timed(t, f"{tag} fused_advect_project 20it cmax=1", t.u, t.v,
+                    1, 20),
+        _tail_timed(t, f"{tag} fused_advect_project chebyshev {k_p}it "
+                    f"cmax=1", t.u, t.v, 1, k_p, rho),
     ]
 
 
@@ -1084,16 +1125,24 @@ def timing_checks_slab(side: int, m: int, device,
                     (1, 2), (ext(t.u, i, C), ext(t.v, i, C)), None, None, fl,
                     dt=DT, n=n, cmax=cmax, m=m, self_adv=True)
 
-    def slab_gather():
+    def slab_gather(fields):
         # The slab's cells, at global coordinates, into the extended
         # buffer, whose row 0 is global row i*m - C.
-        cols = torch.arange(side, dtype=torch.float32, device=t.u.device)
-        rows = torch.arange(i * m, (i + 1) * m, dtype=torch.float32,
-                            device=t.u.device)[:, None]
-        x, y = departure(slab(t.u, i), slab(t.v, i), cols, rows, DT, n, cmax)
-        return [ext(t.u, i, C), ext(t.v, i, C)], (x, y - (i * m - C))
+        def gather():
+            cols = torch.arange(side, dtype=torch.float32, device=t.u.device)
+            rows = torch.arange(i * m, (i + 1) * m, dtype=torch.float32,
+                                device=t.u.device)[:, None]
+            x, y = departure(slab(t.u, i), slab(t.v, i), cols, rows, DT, n,
+                             cmax)
+            return [ext(f, i, C) for f in fields], (x, y - (i * m - C))
+        return gather
 
-    advect.gather = slab_gather
+    advect.gather = slab_gather((t.u, t.v))
+    one = _timed(_scaled(ADVECT2_ONE, cells), 1, "advect_slab one field",
+                 ("advect_slab",), cs.advect_slab, cs.advect_slab_plain, (0,),
+                 (ext(t.x, i, C),), slab(t.u, i), slab(t.v, i), fl, dt=DT,
+                 n=n, cmax=cmax, m=m, self_adv=False)
+    one.gather = slab_gather((t.x,))
     return [
         _timed(sweeps(1, K20), 1, "jacobi_slab", JAC_SLAB,
                cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
@@ -1107,10 +1156,7 @@ def timing_checks_slab(side: int, m: int, device,
                cs.gradient_slab, cs.gradient_slab_plain, slab(t.u, i),
                slab(t.v, i), slab(t.p, i), *t.halo(t.p, i), fl, n),
         advect,
-        _timed(_scaled(ADVECT2_ONE, cells), 1, "advect_slab one field",
-               ("advect_slab",), cs.advect_slab, cs.advect_slab_plain, (0,),
-               (ext(t.x, i, C),), slab(t.u, i), slab(t.v, i), fl, dt=DT,
-               n=n, cmax=cmax, m=m, self_adv=False),
+        one,
         _timed(sweeps(20, K20), 1, "fused_jacobi_slab 20it (u diffusion)",
                JAC_SLAB, cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
                ext(t.src, i, K20), ext(t.x0, i, K20), fl, m=m, K=K20,
@@ -1268,6 +1314,31 @@ def kernel_checks_slab3(side: int, mz: int, device,
     return out
 
 
+def kernel_checks_slab3_flows(side: int, mz: int, device,
+                              seed: int = 0) -> list[Check]:
+    """K14 (``advect3_flat_slab``) on a top, an interior and a bottom slab
+    of ``mz`` planes (odd or even) at volume ``side``, on each velocity set
+    of ``gather_velocities`` (smooth, random up to 6 cells, a shear layer),
+    in windows of 1 and 2 cells: one field and the self-advected (u, v, w)
+    triple against the plain version, which K14 equals bit for bit."""
+    t = _Slab3Inputs(side, mz, device, seed)
+    out = []
+    for name, vel in gather_velocities(t).items():
+        for pos, i in t.positions().items():
+            uvw = tuple(t.slab(f, i) for f in vel)
+            for cmax in (1, 2):
+                C = cmax + 1
+                for what, bs, fields in (("b=0", (0,), (t.x,)),
+                                         ("u/v/w triple", (1, 2, 3), vel)):
+                    out.append(_check(
+                        f"{side}³ mz={mz} advect3_flat_slab {pos} {what} "
+                        f"cmax={cmax}, {name} velocities", ("advect3_slab",),
+                        cs3.advect3_flat_slab, cs3.advect3_flat_slab_plain,
+                        bs, tuple(t.ext(f, i, C) for f in fields), *uvw,
+                        t.flags(i), dt=DT, n=t.n, cmax=cmax, mz=mz))
+    return out
+
+
 def timing_checks_slab3(side: int, mz: int, device,
                         seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times for the z-slab kernels, on an interior
@@ -1275,8 +1346,9 @@ def timing_checks_slab3(side: int, mz: int, device,
     launch of each CUDA kernel (labelled by the kernel's name; K13 is the
     first sweep of a 20-sweep segment over the whole extended buffer,
     ``advect3_slab`` the (u, v, w) triple) beside its plain twin, then each
-    wrapper at the main path's iteration counts.  Costs count the planes
-    each launch computes."""
+    wrapper at the main path's iteration counts; K14 also on one field and
+    on smooth and shear velocities, as K6 (``timing_checks3``).  Costs
+    count the planes each launch computes."""
     t = _Slab3Inputs(side, mz, device, seed)
     n, av = t.n, t.a_visc
     bv = 1 + 6 * av
@@ -1292,23 +1364,26 @@ def timing_checks_slab3(side: int, mz: int, device,
     def sweeps(k, H, **kw):
         return _slab3_sweeps_cost(k, mz + 2 * H, side, **kw)
 
-    advect = _timed(_scaled(ADVECT3_TRIPLE, cells), 1, "advect3_slab",
-                    ("advect3_slab",), cs3.advect3_flat_slab,
-                    cs3.advect3_flat_slab_plain, (1, 2, 3),
-                    tuple(ext(f, i, C) for f in (t.u, t.v, t.w)), *uvw, fl,
-                    dt=DT, n=n, cmax=cmax, mz=mz)
+    def k14(label, cost, bs, fields, vel):
+        vel = tuple(slab(f, i) for f in vel)
+        exts = tuple(ext(f, i, C) for f in fields)
+        check = _timed(_scaled(cost, cells), 1, label, ("advect3_slab",),
+                       cs3.advect3_flat_slab, cs3.advect3_flat_slab_plain,
+                       bs, exts, *vel, fl, dt=DT, n=n, cmax=cmax, mz=mz)
 
-    def slab_gather():
-        # The slab's cells, at global coordinates, into the extended
-        # buffer, whose plane 0 is global plane i*mz - C.
-        ax = torch.arange(side, dtype=torch.float32, device=t.u.device)
-        zs = torch.arange(i * mz, (i + 1) * mz, dtype=torch.float32,
-                          device=t.u.device)[:, None, None]
-        x, y, z = departure3(*uvw, ax, ax[:, None], zs, DT, n, cmax)
-        return ([ext(f, i, C) for f in (t.u, t.v, t.w)],
-                (x, y, z - (i * mz - C)))
+        def slab_gather():
+            # The slab's cells, at global coordinates, into the extended
+            # buffer, whose plane 0 is global plane i*mz - C.
+            ax = torch.arange(side, dtype=torch.float32, device=t.u.device)
+            zs = torch.arange(i * mz, (i + 1) * mz, dtype=torch.float32,
+                              device=t.u.device)[:, None, None]
+            x, y, z = departure3(*vel, ax, ax[:, None], zs, DT, n, cmax)
+            return list(exts), (x, y, z - (i * mz - C))
 
-    advect.gather = slab_gather
+        check.gather = slab_gather
+        return check
+
+    rand = (t.u, t.v, t.w)
     return [
         _timed(sweeps(1, K20 + 1), 1, "jacobi3_slab", JAC3_SLAB,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
@@ -1321,11 +1396,16 @@ def timing_checks_slab3(side: int, mz: int, device,
                ("gradient3_slab",), cs3.gradient3_slab,
                cs3.gradient3_slab_plain, *uvw, slab(t.p, i),
                *t.halo(t.p, i), fl, n),
-        advect,
-        _timed(_scaled(ADVECT3_ONE, cells), 1, "advect3_slab one field",
-               ("advect3_slab",), cs3.advect3_flat_slab,
-               cs3.advect3_flat_slab_plain, (0,), (ext(t.x, i, C),), *uvw,
-               fl, dt=DT, n=n, cmax=cmax, mz=mz),
+        k14("advect3_slab", ADVECT3_TRIPLE, (1, 2, 3), rand, rand),
+        k14("advect3_slab one field", ADVECT3_ONE, (0,), (t.x,), rand),
+        k14("advect3_slab smooth velocities", ADVECT3_TRIPLE, (1, 2, 3),
+            t.smooth, t.smooth),
+        k14("advect3_slab one field, smooth velocities", ADVECT3_ONE, (0,),
+            (t.x,), t.smooth),
+        k14("advect3_slab shear velocities", ADVECT3_TRIPLE, (1, 2, 3),
+            t.shear, t.shear),
+        k14("advect3_slab one field, shear velocities", ADVECT3_ONE, (0,),
+            (t.x,), t.shear),
         _timed(sweeps(K20, K20 + 1), 1,
                f"fused_jacobi3_slab {K20}it (u diffusion)", JAC3_SLAB,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,

@@ -303,6 +303,52 @@ def test_windowed_step_launches_matches_reference_and_k17(cuda, mode):
         assert float((a - b).abs().max()) <= checks.TOL
 
 
+@pytest.mark.parametrize("side", [34, 2048])
+def test_tail_forms_match_plain_bit_for_bit(cuda, side):
+    """K17 in the form its launch takes (resident, where its band fits) and
+    in the streaming form, against its plain version: equal to the bit."""
+    from fluidsimulationcuda_torch.kernels import cuda_step
+
+    t = checks._Inputs(side, cuda, side)
+    for form in (None, "resident", "streaming"):
+        for args, kw in (((t.uf, t.vf, t.n, 20, checks.DT), dict(cmax=4)),
+                         ((t.uf, t.vf, t.n, 14, checks.DT),
+                          dict(cmax=4, cheby_rho=0.9))):
+            cuda_step.reset_form_counts()
+            got = cuda_step.fused_advect_project(*args, form=form, **kw)
+            want = cuda_step.fused_advect_project_plain(*args, **kw)
+            torch.cuda.synchronize()
+            ran = cuda_step.form_counts()
+            assert ran[form or "resident"] == 1, (form, ran)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (form, kw)
+
+
+def test_tail_resident_form_that_does_not_fit_raises(cuda):
+    """Two 2048² grids make bands of 32 rows on 132 SMs, whose 34 rows with
+    their halos (278 KB) pass a block's 227 KB of shared memory: the launch
+    takes the streaming form, and asking for the resident one raises."""
+    from fluidsimulationcuda_torch.kernels import cuda_step
+
+    u = torch.zeros(2, 2048, 2048, device=cuda)
+    assert cuda_step.advect_project_form(2048, 2) == "streaming"
+    with pytest.raises(RuntimeError, match="resident"):
+        cuda_step.fused_advect_project(u, u, 2046, 2, 0.016, cmax=1,
+                                       form="resident")
+
+
+@pytest.mark.parametrize("side,mz", [(24, 3), (64, 16)])
+def test_slab3_flows_match_plain_bit_for_bit(cuda, side, mz):
+    for check in checks.kernel_checks_slab3_flows(side, mz, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts["advect3_slab"] == 1, check.label
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
 def test_cuda_tail_launches_or_raises(cuda):
     from fluidsimulationcuda_torch.kernels import cuda_step
 
