@@ -133,11 +133,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    compensated mode with fast math: checked as phases 8-9, then the
    impulse step's audited displacement beside the window and a forced
    trajectory (sources × 0.05 every step) windowed and exact, equal bit for
-   bit while the displacement stays under the window.
+   bit while the displacement stays under the window;
+17. the command line on the card, ``fluidsimulationcuda_torch.__main__.main``
+   called in this process with the launch counters reset before each call
+   and read after it: ``run`` at 2048² (20 parity steps saved, resumed for
+   20 more and held bit for bit against a straight 40-step run; 105
+   launches a step), ``run --perf --validate`` at 2048² (the bars print and
+   pass; the audits' launches plus 63 a step), ``run --ndim 3`` at 256³
+   (the reference impulse, 126 a step, finite), ``datagen`` at 1024 ×
+   256² (the probe's 8 steps and the run's 20 at 105 a step; the file's
+   ``dens_final`` (1024, 256, 256), the audit exact, equal bit for bit to
+   ``generate_trajectories`` with the seed and the probed window),
+   ``profile --trace`` at 2048² (the table and a trace file) and ``info``;
+   each run's ms/step beside the eager step of phases 5, 6 and 8.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
-in its main path's run (phase 5, phase 13's two trajectories and phases
-14-15 for the 2-D kernels, phases 8 and 16 for the 3-D ones, the 8-slab
+in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
+and phase 17's CLI calls for the 2-D kernels, phases 8, 16 and 17 for the
+3-D ones, the 8-slab
 2048² parity run of phase 10 for the row-slab kernels, the 8-slab 256³
 parity run of phase 11 for the z-slab kernels, phase 12's tail runs for
 K17, phase 10's chunk run for K18, phase 14 for K1's damped sweep and
@@ -148,10 +161,14 @@ Without a CUDA device the script exits non-zero before any phase.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import glob
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -171,6 +188,13 @@ TPU_TAIL = "fluidsimulationcuda_tpu/kernels/pallas_step.py"
 # grids phase 13 runs again one by one.
 DATAGEN_BATCH, DATAGEN_N = 1024, 254
 DATAGEN_GRIDS = (0, 1, 511, 1023)
+# Phase 17: the CLI's 2-D and 3-D interiors (2048², 256³) and its files
+# (gitignored, removed after the phase).
+CLI_N, CLI_N3 = 2046, 254
+CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+# Each main_path run's eager ms/step, by label (phase 17 prints the CLI's
+# beside them).
+EAGER_MS: dict[str, float] = {}
 CSRC = "fluidsimulationcuda_torch/csrc"
 # CUDA kernel -> (its source, the pallas_call it replaces on the main path).
 KERNEL_SOURCES = {
@@ -408,6 +432,7 @@ def main_path(cfg, label: str, card: str, steps: int,
                                  f"{forced_tol}")
     state, ms = timed_steps(sim.step, state, max(steps - 1, 2))
     require_finite(state, label)
+    EAGER_MS[label] = ms
     graph_ms = checks.device_ms(lambda: sim.step(state), reps=3)
     print(f"{label}: {ms:.4f} ms/step eager, "
           f"{cfg.num_cells / (ms * 1e-3) / 1e6:.1f} Mcell-updates/s; "
@@ -946,6 +971,163 @@ def windowed3_path(cfg, label: str, card: str, steps: int) -> None:
                              f"differs from the exact one by {diff:.3e}")
 
 
+def run_cli(argv: list[str]) -> tuple[dict[str, int], str, str]:
+    """``fluidsimulationcuda_torch.__main__.main(argv)`` in this process, its
+    output echoed; returns the kernel launches of the call (counters reset
+    just before it, read just after) and its stdout and stderr."""
+    from fluidsimulationcuda_torch import __main__ as cli
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        # Echoed on failure too: a call that raises keeps its output.
+        wall = time.perf_counter() - t0
+        print(f"$ python -m fluidsimulationcuda_torch {' '.join(argv)}   "
+              f"[{wall:.2f} s]")
+        for line in (out.getvalue() + err.getvalue()).splitlines():
+            print(f"  | {line}")
+    return cuda_ops.launch_counts(), out.getvalue(), err.getvalue()
+
+
+def require_launches(counts: dict[str, int], want: dict[str, int],
+                     label: str) -> None:
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    want = {k: want.get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+
+
+def cli_ms(err: str, label: str, card: str, eager: str) -> None:
+    """The CLI's ms/step incl. dispatch beside phase 5, 6 or 8's eager
+    ms/step of the same configuration (``EAGER_MS[eager]``)."""
+    ms = float(re.search(r"\(([0-9.]+) ms/step incl. dispatch\)",
+                         err).group(1))
+    print(f"{label}: {ms:.2f} ms/step incl. dispatch through the CLI; "
+          f"{EAGER_MS[eager]:.4f} ms/step eager in the phase of "
+          f"{eager!r} ({card})")
+
+
+def cli_path(card: str) -> dict[str, int]:
+    """Phase 17: the command line on the card at full width.  Returns the
+    launches of its calls."""
+    from fluidsimulationcuda_torch import SimConfig, generate_trajectories
+    from fluidsimulationcuda_torch.core.config import perf_operating_point
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    total = dict.fromkeys(cuda_ops.KERNELS, 0)
+
+    def tally(counts):
+        for k, c in counts.items():
+            total[k] += c
+        return counts
+
+    a, b, c = (os.path.join(CLI_DIR, f"{x}.npz") for x in "ABC")
+    parity = SimConfig(n=CLI_N, jacobi_iters=20, device="cuda")
+    per_step = expected_launches(parity)
+    label = "CLI run 2048² parity"
+    counts, _, err = run_cli(["run", "--n", str(CLI_N), "--steps", "20",
+                              "--save", a])
+    require_launches(tally(counts), {k: 20 * v for k, v in per_step.items()},
+                     label)
+    cli_ms(err, label, card, "2048² parity")
+    run_cli(["run", "--resume", a, "--steps", "20", "--save", b])
+    run_cli(["run", "--n", str(CLI_N), "--steps", "40", "--save", c])
+    with np.load(b) as zb, np.load(c) as zc:
+        for k in ("dens", "u", "v"):
+            if not np.array_equal(zb[k], zc[k]):
+                raise AssertionError(
+                    f"{label}: resumed {k} differs from the straight run by "
+                    f"{np.abs(zb[k] - zc[k]).max():.3e}")
+    print(f"{label}: 20 steps saved and 20 resumed equal 40 straight steps "
+          f"bit for bit")
+
+    label = "CLI run 2048² --perf --validate"
+    rho, k_d, k_p = perf_operating_point(CLI_N + 2)
+    perf = parity.replace(pressure_solver="chebyshev",
+                          diffusion_solver="chebyshev", fast_math=True,
+                          cheby_rho=rho, cheby_iters=k_d, cheby_press_iters=k_p)
+    per_perf = expected_launches(perf)
+    counts, _, err = run_cli(["run", "--n", str(CLI_N), "--steps", "20",
+                              "--perf", "--validate"])
+    # validate_perf_point: the parity and perf divergence audits (20 steps
+    # each), the velocity and density forcing twins (8 perf steps each);
+    # the injection step runs on the reference backend.
+    want = {k: 20 * per_step.get(k, 0) + (20 + 8 + 8) * per_perf.get(k, 0)
+            + 20 * per_perf.get(k, 0) for k in cuda_ops.KERNELS}
+    require_launches(tally(counts), want, label + " (audits + 20 steps)")
+    if "validation PASSED" not in err:
+        raise AssertionError(f"{label}: the bars did not pass")
+    print(f"{label}: the bars pass; {sum(per_perf.values())} launches a "
+          f"step in the run")
+    cli_ms(err, label, card,
+           f"2048² perf (rho={rho}, k_d={k_d}, k_p={k_p}) fast_math")
+
+    label = "CLI run 256³"
+    cfg3 = SimConfig(n=CLI_N3, ndim=3, jacobi_iters=20, device="cuda")
+    counts, _, err = run_cli(["run", "--ndim", "3", "--n", str(CLI_N3),
+                              "--steps", "10"])
+    require_launches(tally(counts), {k: 10 * v for k, v in
+                                     expected_launches3(cfg3).items()}, label)
+    if "; stable," not in err:
+        raise AssertionError(f"{label}: the final state is not finite")
+    cli_ms(err, label, card, "256³ parity")
+
+    label = "CLI datagen 1024 × 256²"
+    out = os.path.join(CLI_DIR, "T.npz")
+    dg = SimConfig(n=DATAGEN_N, jacobi_iters=20, device="cuda")
+    counts, _, err = run_cli(["datagen", "--n", str(DATAGEN_N), "--batch",
+                              str(DATAGEN_BATCH), "--steps", "20", "--out",
+                              out])
+    # select_cmax_batched's 8 probe steps, then the 20 of the run.
+    require_launches(tally(counts), {k: 28 * v for k, v in
+                                     expected_launches(dg).items()}, label)
+    cmax = int(re.search(r"auto-selected advect window cmax=(\d+)",
+                         err).group(1))
+    if "(exact" not in err:
+        raise AssertionError(f"{label}: the audit verdict is not exact")
+    with np.load(out) as z:
+        written = z["dens_final"]
+    side = DATAGEN_N + 2
+    if written.shape != (DATAGEN_BATCH, side, side):
+        raise AssertionError(f"{label}: dens_final {written.shape}")
+    final, _, _ = generate_trajectories(
+        torch.Generator(device="cuda").manual_seed(SEED),
+        dg.replace(max_courant=cmax), DATAGEN_BATCH, 20)
+    if not torch.equal(torch.from_numpy(written).cuda(), final.dens):
+        raise AssertionError(f"{label}: the file differs from "
+                             f"generate_trajectories")
+    print(f"{label}: dens_final {written.shape} equals generate_trajectories "
+          f"(seed {SEED}, cmax={cmax}) bit for bit")
+
+    label = "CLI profile 2048²"
+    trace = os.path.join(CLI_DIR, "trace")
+    counts, out, _ = run_cli(["profile", "--n", str(CLI_N), "--trace", trace])
+    tally(counts)
+    if "full step (est)" not in out:
+        raise AssertionError(f"{label}: no phase table")
+    size = os.path.getsize(os.path.join(trace, "trace.json"))
+    idle = [k for k in ("jacobi_sweep", "divergence", "gradient", "advect",
+                        "dens_advect") if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"{label}: kernels never launched: {idle}")
+    print(f"{label}: trace.json {size} bytes; launches {counts}")
+
+    run_cli(["info"])
+    shutil.rmtree(CLI_DIR)
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1228,9 +1410,12 @@ def main() -> None:
         forced_tol=1e-4).items()}
     windowed3_path(win3c, label, card, 6)
 
+    phase("17 the command line on the card")
+    launches_cli = cli_path(card)
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
                      + launches_slab3[k] + launches_dg[k] + launches_mg[k]
-                     + launches_cg[k] + launches_w3[k]
+                     + launches_cg[k] + launches_w3[k] + launches_cli[k]
                      for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_split"] = launches_split["jacobi_slab_split"]

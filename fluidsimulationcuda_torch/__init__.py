@@ -14,6 +14,11 @@ reference it is tested against.  It imports ``torch`` and never ``jax``:
   smoke-volume step
 - ``parallel`` — the multi-device steps on one process's mesh: row slabs
   (2-D) and z-slabs (3-D)
+- ``utils``    — checkpoints (readable by both packages), stability
+  diagnostics, per-phase timing, the validation bars and PNG rendering
+
+The command line is ``python -m fluidsimulationcuda_torch run | profile |
+datagen | info`` (``__main__.py``).
 
 Entry points run on the card (``SimConfig.device`` defaults to ``"cuda"``)
 unless the caller asks for the CPU.
@@ -21,6 +26,7 @@ unless the caller asks for the CPU.
 
 from .core.config import SimConfig
 from .core.state import FluidState, Sources, reference_init, zero_sources, zero_state
+from .models import SCENARIOS
 from .models.batched import (batched_init, generate_trajectories,
                              make_batched_step_fn, select_cmax_batched)
 from .models.stable_fluids_2d import StableFluids2D, make_step_fn, simulate, step, step_audited
@@ -28,6 +34,9 @@ from .models.stable_fluids_3d import StableFluids3D, step3
 from .parallel import (make_mesh, make_sharded_step_fn,
                        make_sharded_step_fn_3d, shard_state, shard_state_3d,
                        unshard)
+from .utils import (PhaseReport, StabilityReport, check_stability, is_stable,
+                    load_checkpoint, profile_phases, save_checkpoint,
+                    wallclock)
 
 __version__ = "0.1.0"
 
@@ -55,5 +64,14 @@ __all__ = [
     "shard_state",
     "shard_state_3d",
     "unshard",
+    "SCENARIOS",
+    "load_checkpoint",
+    "save_checkpoint",
+    "StabilityReport",
+    "check_stability",
+    "is_stable",
+    "PhaseReport",
+    "profile_phases",
+    "wallclock",
     "__version__",
 ]

@@ -9,7 +9,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
-from fractions import Fraction
 from typing import Tuple
 
 import torch
@@ -180,21 +179,20 @@ PERF_POINT_3D = (0.85, 10, 12)
 
 def perf_operating_point(side: int, ndim: int = 2):
     """(cheby_rho, cheby_iters, cheby_press_iters) for the compensated perf
-    preset at full grid ``side`` = n + 2.
+    preset at full grid ``side`` = n + 2, as the JAX package's
+    ``perf_operating_point`` returns it.
 
     A side in the table gets its measured point.  Any other side gets the
     anchor nearest in log-distance, with a warning that the point is
-    unvalidated at this size.  A tie (4096² lies exactly between 2048² and
-    8192²) goes to the LARGER anchor: its point runs more diffusion sweeps,
-    and the 2048² point is the one known to fail a bar at a larger size."""
+    unvalidated at this size.  The distance is JAX's float expression, so
+    4096², which lies between 2048² and 8192², takes the 2048² point there
+    as here (its distance to 2048 rounds 9e-16 smaller)."""
     if ndim == 3:
         return PERF_POINT_3D
     if side in PERF_POINTS_2D:
         return PERF_POINTS_2D[side]
-    side = max(side, 1)
-    # Log-distance as an exact ratio, so a tie is a tie and not a rounding.
-    ratio = {s: Fraction(max(s, side), min(s, side)) for s in PERF_POINTS_2D}
-    nearest = min(PERF_POINTS_2D, key=lambda s: (ratio[s], -s))
+    nearest = min(PERF_POINTS_2D,
+                  key=lambda s: abs(math.log(s) - math.log(max(side, 1))))
     warnings.warn(
         f"perf operating point unvalidated at this size (side={side}); "
         f"using the side={nearest} point {PERF_POINTS_2D[nearest]}. Run "

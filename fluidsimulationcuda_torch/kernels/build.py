@@ -17,7 +17,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "nvcc_path", "build", "open_library", "load"]
+__all__ = ["NVCC_FLAGS", "nvcc_path", "library_path", "build",
+           "open_library", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fluidsimulationcuda_torch"
@@ -80,6 +81,20 @@ def nvcc_path() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def library_path(csrc: Path = CSRC) -> Path:
+    """Where ``build`` puts the library of ``csrc``'s sources for the
+    ``nvcc`` found, built or not: the name hashes the sources, the flags
+    and the ``nvcc --version`` text."""
+    digest = hashlib.sha256()
+    digest.update(subprocess.run([nvcc_path(), "--version"], check=True,
+                                 capture_output=True, text=True).stdout.encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(csrc.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"libfsc_{digest.hexdigest()[:16]}.so"
+
+
 def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
     """Compile the kernels if no library matches the current sources and
     compiler; return the library's path.  ``verbose`` adds ``-Xptxas -v``
@@ -88,14 +103,7 @@ def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
     scripts time a parent commit's kernels that way)."""
     nvcc = nvcc_path()
     sources = sorted(csrc.glob("*.cu"))
-    digest = hashlib.sha256()
-    digest.update(subprocess.run([nvcc, "--version"], check=True,
-                                 capture_output=True, text=True).stdout.encode())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(csrc.glob("*.cu*")):
-        digest.update(path.name.encode())
-        digest.update(path.read_bytes())
-    lib = BUILD_DIR / f"libfsc_{digest.hexdigest()[:16]}.so"
+    lib = library_path(csrc)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

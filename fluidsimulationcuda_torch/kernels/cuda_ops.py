@@ -60,7 +60,8 @@ from . import build
 from .dispatch import OpSet
 
 __all__ = [
-    "KERNELS", "launch_counts", "reset_launch_counts", "make_opset",
+    "KERNELS", "launch_counts", "reset_launch_counts", "check_grid",
+    "make_opset",
     "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "fused_jacobi_pair",
     "fused_jacobi_pair_plain", "fused_project",
     "fused_project_plain", "advect_shift", "advect_shift_plain",
@@ -98,21 +99,30 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _on_card(side: int, *tensors: torch.Tensor, ndim: int = 2) -> bool:
-    """Check that every tensor is a contiguous float32 grid of shape
-    ``(side,) * ndim`` or, in 2-D, that all are batches of the same shape
-    ``(nb, side, side)``, on one device; True for CUDA, False for the CPU,
-    and raise otherwise.  The kernels index a batch with 32-bit ints and
-    launch a batch's grids on the launch's third axis, so the cells of a
-    call stay below 2**31 and nb at most 65535."""
-    shape = (side,) * ndim
-    if ndim == 2 and tensors[0].dim() == 3:
-        shape = (tensors[0].shape[0],) + shape
-    if side < 3 or math.prod(shape) >= 2**31:
+def check_grid(shape: tuple[int, ...], ndim: int = 2) -> None:
+    """Raise ``ValueError`` unless the kernels take a grid of ``shape``,
+    ``(side,) * ndim`` or, in 2-D, a batch ``(nb, side, side)``.  The
+    kernels index a batch with 32-bit ints and launch a batch's grids on
+    the launch's third axis, so the cells of a call stay below 2**31 and nb
+    at most 65535.  It needs no tensor: the CLI asks it of a configuration
+    before anything is allocated."""
+    shape = tuple(shape)
+    if shape[-1] < 3 or math.prod(shape) >= 2**31:
         raise ValueError(f"unsupported grid shape {shape} for {ndim}-D")
     if len(shape) > ndim and not 1 <= shape[0] <= _MAX_BATCH:
         raise ValueError(f"a batch holds 1 to {_MAX_BATCH} grids, got "
                          f"{shape[0]}")
+
+
+def _on_card(side: int, *tensors: torch.Tensor, ndim: int = 2) -> bool:
+    """Check that every tensor is a contiguous float32 grid of shape
+    ``(side,) * ndim`` or, in 2-D, that all are batches of the same shape
+    ``(nb, side, side)`` (``check_grid``), on one device; True for CUDA,
+    False for the CPU, and raise otherwise."""
+    shape = (side,) * ndim
+    if ndim == 2 and tensors[0].dim() == 3:
+        shape = (tensors[0].shape[0],) + shape
+    check_grid(shape, ndim)
     return _on_device(*((t, shape) for t in tensors))
 
 

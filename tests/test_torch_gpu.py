@@ -8,6 +8,7 @@ On a machine with one H100:
 """
 import glob
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -564,3 +565,141 @@ def test_staged_gathers_match_plain(cuda, side, ndim, batch):
         if check.boxes is not None and "shear" in check.label and (
                 "exact" in check.label):
             assert checks.staged_share(check) < 1.0, check.label
+
+
+# ---------------------------------------------------------------------------
+# The command line and the utilities on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("perf", [False, True], ids=["parity", "perf"])
+def test_cli_run_launches_and_resumes_bit_for_bit(cuda, tmp_path, perf):
+    """``run`` on the card at 128²: each step launches what
+    ``expected_launches`` says (105 parity, 63 perf at 20 iterations),
+    and a saved run resumed equals the straight run to the bit."""
+    import chip_smoke
+    from fluidsimulationcuda_torch import __main__ as cli
+
+    common = ["run", "--n", "126", "--iters", "20"] + (["--perf"] if perf
+                                                        else [])
+    a, b, c = (str(tmp_path / f"{x}.npz") for x in "abc")
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    cli.main(common + ["--steps", "3", "--save", a])
+    counts = cuda_ops.launch_counts()
+    cfg = cli._cfg(cli._parser().parse_args(common + ["--steps", "3"]))
+    per_step = chip_smoke.expected_launches(cfg)
+    assert sum(per_step.values()) == (63 if perf else 105)
+    assert counts == {**dict.fromkeys(cuda_ops.KERNELS, 0),
+                      **{k: 3 * v for k, v in per_step.items()}}
+    cli.main(["run", "--resume", a, "--steps", "3", "--save", b])
+    cli.main(common + ["--steps", "6", "--save", c])
+    with np.load(b) as zb, np.load(c) as zc:
+        for k in ("dens", "u", "v"):
+            np.testing.assert_array_equal(zb[k], zc[k])
+
+
+def test_cli_profile_times_on_cuda_events(cuda, tmp_path, capsys):
+    from fluidsimulationcuda_torch import __main__ as cli
+    from fluidsimulationcuda_torch.utils import timing
+
+    cuda_ops.reset_launch_counts()
+    cli.main(["profile", "--n", "254", "--trace", str(tmp_path)])
+    assert "full step (est)" in capsys.readouterr().out
+    assert (tmp_path / "trace.json").exists()
+    counts = cuda_ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("jacobi_sweep", "divergence",
+                                       "gradient", "advect")), counts
+    cfg = ft.SimConfig(n=254)
+    rep = timing.profile_phases(cfg, torch.Generator(device=cuda).manual_seed(0))
+    assert all(t > 0 for t in (rep.source, rep.diffusion, rep.divergence,
+                               rep.projection, rep.advection))
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_check_stability_on_the_card(cuda, ndim):
+    from fluidsimulationcuda_torch.utils import stability
+
+    cfg = ft.SimConfig(n=30, ndim=ndim, max_courant=2)
+    rng = np.random.default_rng(ndim)
+    fields = [rng.uniform(-1, 1, cfg.grid_shape).astype(np.float32)
+              for _ in range(4 if ndim == 3 else 3)]
+    state = ft.FluidState(*(torch.from_numpy(f).to(cuda) for f in fields))
+    rep = stability.check_stability(cfg, state)
+    assert all(t.device.type == "cuda" and t.dim() == 0 for t in rep)
+    host = stability.check_stability(
+        cfg.replace(device="cpu"), ft.FluidState(*map(torch.from_numpy,
+                                                       fields)))
+    for a, b in zip(rep, host):
+        assert a.cpu().item() == b.item()
+    assert stability.is_stable(cfg, state)
+    fields[1][3, 3] = np.nan
+    bad = ft.FluidState(*(torch.from_numpy(f).to(cuda) for f in fields))
+    assert not bool(stability.check_stability(cfg, bad).finite)
+
+
+def _spy_residuals(monkeypatch, tva):
+    """Record each residual the port's bars (``tva``, the port's
+    ``utils.validate``) take, as ``(residual, unit)``:
+    the unit is float32's rounding of the residual's largest term, 2**-24
+    max(beta |x|, |rhs|) (alpha |neighbour sum| is smaller).  The calls
+    alternate the Jacobi and the Chebyshev solve of one state."""
+    seen = []
+    real = tva._residual
+
+    def spy(x, rhs, alpha, beta):
+        r = real(x, rhs, alpha, beta)
+        big = max(float(beta * x.abs().max()), float(rhs.abs().max()))
+        seen.append((float(r), 2.0**-24 * big))
+        return r
+
+    monkeypatch.setattr(tva, "_residual", spy)
+    return seen
+
+
+def _residual_bars(seen, steps=8):
+    """Per residual bar of ``validate_perf_point`` (the velocity twin's
+    ``steps`` states, then the density twin's): its worst Chebyshev /
+    Jacobi ratio, that Jacobi residual in rounding units, and the ratio's
+    rounding bound, four units on each residual."""
+    out = {}
+    for k, calls in (("diffusion_residual_ratio", seen[:2 * steps]),
+                     ("dens_residual_ratio", seen[2 * steps:])):
+        (rj, uj), (rc, uc) = max(zip(calls[0::2], calls[1::2]),
+                                 key=lambda p: p[1][0] / p[0][0])
+        out[k] = (rc / rj, rj / uj, 4 * (uc / rc + uj / rj))
+    return out
+
+
+@pytest.mark.parametrize("n,backend", [(254, "cuda"), (2046, "cuda"),
+                                       (2046, "reference")])
+def test_validate_bars_stand_above_rounding(cuda, monkeypatch, capsys, n,
+                                            backend):
+    """``run --perf --validate``'s bars on the card at the CLI's point for
+    the size, against Jacobi-20 over 20 steps: each residual bar's margin
+    below 1 exceeds its float32 rounding bound, so the verdict is no
+    rounding noise.  The ``reference`` backend runs the same bars on the
+    plain torch trajectory.  ``-s`` prints the bars (n=254 against JAX on
+    the CPU: tests/test_torch_utils.py)."""
+    from fluidsimulationcuda_torch.core.config import perf_operating_point
+    from fluidsimulationcuda_torch.utils import validate as tva
+
+    cfg = ft.SimConfig(n=n, jacobi_iters=20, backend=backend, device=cuda)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rho, k_d, k_p = perf_operating_point(n + 2, 2)
+    perf = cfg.replace(pressure_solver="chebyshev",
+                       diffusion_solver="chebyshev", fast_math=True,
+                       cheby_rho=rho, cheby_iters=k_d, cheby_press_iters=k_p)
+    seen = _spy_residuals(monkeypatch, tva)
+    bars = tva.validate_perf_point(cfg, perf)
+    with capsys.disabled():
+        print(f"\nn={n} {backend} ({rho}, {k_d}, {k_p}): max|div| "
+              f"{bars['max_abs_divergence']:.4g} against "
+              f"{bars['jacobi_max_abs_divergence']:.4g}")
+        for k, (ratio, units, bound) in _residual_bars(seen).items():
+            print(f"  {k} {ratio:.7g}: margin {1.0 - ratio:.3g}, rounding "
+                  f"bound {bound:.3g}, Jacobi residual {units:.4g} units")
+            assert ratio == bars[k]
+            assert 1.0 - ratio > bound, k
+    assert bars["ok"]

@@ -34,6 +34,11 @@ def test_import_leaves_jax_out():
         "from fluidsimulationcuda_torch.models import stable_fluids_3d\n"
         "from fluidsimulationcuda_torch.parallel import mesh, sharded\n"
         "from fluidsimulationcuda_torch.parallel import sharded3d\n"
+        "from fluidsimulationcuda_torch import __main__\n"
+        "from fluidsimulationcuda_torch.models import scenarios\n"
+        "from fluidsimulationcuda_torch.utils import (checkpoint, stability,\n"
+        "                                             timing, validate, viz)\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'fluidsimulationcuda_tpu'))\n"
         "assert not bad, bad\n"

@@ -289,10 +289,11 @@ def test_perf_point_measured(side, point):
         assert tconfig.perf_operating_point(side) == point
 
 
-@pytest.mark.parametrize("side,anchor", [(4096, 8192), (1024, 2048),
+@pytest.mark.parametrize("side,anchor", [(4096, 2048), (1024, 2048),
                                          (16384, 8192), (5000, 8192)])
 def test_perf_point_unvalidated_warns(side, anchor):
-    """4096² is a tie between the anchors and goes to the larger one."""
+    """4096² lies between the anchors and takes the 2048² point, as in the
+    JAX package."""
     with pytest.warns(UserWarning, match="unvalidated at this size"):
         got = tconfig.perf_operating_point(side)
     assert got == tconfig.PERF_POINTS_2D[anchor]
