@@ -145,7 +145,28 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``dens_final`` (1024, 256, 256), the audit exact, equal bit for bit to
    ``generate_trajectories`` with the seed and the probed window),
    ``profile --trace`` at 2048² (the table and a trace file) and ``info``;
-   each run's ms/step beside the eager step of phases 5, 6 and 8.
+   each run's ms/step beside the eager step of phases 5, 6 and 8;
+18. bf16 storage on the 2-D step (``SimConfig(dtype=torch.bfloat16)``):
+   every bf16 form of K1-K3 against its plain version at 2048² and on the
+   datagen batch (1024 × 256²), bit for bit, and timed beside the same
+   call in float32, its bound and its plain version at 2048², 8192² (past
+   the L2) and on the batch; ``StableFluids2D`` in bf16 at 2048² (20
+   iterations, parity and the compensated mode with fast math) and 8192²
+   (40 iterations), and ``generate_trajectories`` in bf16 on the datagen
+   batch: launch counts (K1 then K3 for the density, no K4; the bf16 forms
+   counted apart), each run held to the ``cuda`` OpSet's plain twins in
+   bf16 (bit for bit, fast math's fmaf included) and to the float32
+   run from the same rounded draw (rel-L2 under 0.15 for density,
+   tests/test_pallas_ops.py:384, and no farther from it than the
+   ``reference`` backend's bf16 run, whose rel-L2 is printed), every field
+   finite; JAX's bar against the ``reference`` bf16 run (rel-L2 0.01 for
+   density, 0.02 for u, :382-383) at JAX's own point (128², 8 iterations,
+   a 2-cell window, 3 steps); ms/step in bf16 beside float32; then the
+   multigrid and CG steps on a batch of 64
+   grids of 256² (the batched solves of ROADMAP §C 1): the launches of one
+   grid (K1's damped sweep takes the batch), every grid within the parity
+   bar of its own one-grid step (max|Δ| printed, and how many grids equal
+   it bit for bit), the batch held to the ``reference`` backend.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
@@ -155,7 +176,10 @@ and phase 17's CLI calls for the 2-D kernels, phases 8, 16 and 17 for the
 parity run of phase 11 for the z-slab kernels, phase 12's tail runs for
 K17, phase 10's chunk run for K18, phase 14 for K1's damped sweep and
 phase 16 for K6's window), its max|Δ| from phase 3, 3b, 3c, 3d, 3e or 3f,
-its device time beside its plain version's, and its bound.  The last line
+its device time beside its plain version's, and its bound; the bf16 forms
+are entries of their own (``jacobi_sweep_bf16``, ``divergence_bf16``,
+``gradient_bf16``, ``advect_bf16``: launches from phase 18's 2048² parity
+run and its datagen run, max|Δ| and times from phase 18).  The last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
@@ -222,7 +246,14 @@ KERNEL_SOURCES = {
     # window of the 3-D gather (advect3_shift(_fused)'s cmax).
     "jacobi_sweep_damp": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
     "advect3_windowed": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
+    # The bf16 storage forms of the same pallas_calls (JAX's bf16 mode).
+    "jacobi_sweep_bf16": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
+    "divergence_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
+    "gradient_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
+    "advect_bf16": (f"{CSRC}/advect.cu", f"{TPU_KERNELS}:1182"),
 }
+# Phase 18's batch of grids for the multigrid and CG steps.
+SOLVER_BATCH = 64
 
 
 def phase(title: str) -> None:
@@ -262,6 +293,13 @@ def expected_launches(cfg) -> dict[str, int]:
         k_dens = cfg.cheby_dens_iters
     k_p = {"chebyshev": cfg.press_cheby_iters, "multigrid": 0,
            "cg": 0}.get(cfg.pressure_solver, cfg.jacobi_iters)
+    if cfg.dtype == torch.bfloat16:
+        # K1's bf16 form for the three diffusions (the density's too: K1
+        # then K3 replace K4, as in JAX's bf16 OpSet), its float32 form for
+        # the pressure inside fused_project, K2's and K3's bf16 forms.
+        return {"jacobi_sweep_bf16": 2 * k_vel + k_dens,
+                "jacobi_sweep": 2 * k_p, "divergence_bf16": 2,
+                "gradient_bf16": 2, "advect_bf16": 2}
     launches = {"jacobi_sweep": 2 * k_vel + 2 * k_p + (k_dens - 1),
                 "divergence": 2, "gradient": 2, "advect": 1,
                 "dens_advect": 1}
@@ -337,6 +375,39 @@ def require_close(a, b, rtol: float, atol: float, what: str) -> None:
         if bool(bad.any()):
             raise AssertionError(f"{what}: {name} differs in {int(bad.sum())} "
                                  f"cells, max|d|={float((x - y).abs().max()):.3e}")
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, in float64: the datagen density decays to ~1e-27
+    in 20 steps, whose squares float32 flushes to zero."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-300))
+
+
+def bf16_bars(got, twins, ref16, ref32, label: str) -> None:
+    """The bars of a bf16 run of the ``cuda`` backend.  Its own semantics
+    (JAX's Pallas bf16 mode: float32 iterates, bf16 storage) are the
+    ``cuda`` OpSet's plain twins in bf16 (``twins``, fast math's fmaf
+    included): equal bit for bit.  The float32 run from the same rounded draw (``ref32``): rel-L2 under 0.15
+    for density (tests/test_pallas_ops.py:384), and no farther than the
+    ``reference`` backend's bf16 run (``ref16``), which rounds every
+    sweep to bf16 as JAX's jnp ops do, lies from it.  Every field finite.
+    The rel-L2 to ``ref16`` is printed: JAX's bar on it (0.01 density, 0.02
+    u) holds at JAX's point (``bf16_jax_point``), not at these sizes."""
+    require_finite(got, label)
+    twin = max_diff(got, twins)
+    d16, u16 = rel_l2(got.dens, ref16.dens), rel_l2(got.u, ref16.u)
+    d32, u32 = rel_l2(got.dens, ref32.dens), rel_l2(got.u, ref32.u)
+    r32 = rel_l2(ref16.dens, ref32.dens)
+    print(f"{label}: max|d| to the plain twins {twin:.3e}; rel-L2 to the float32 run: dens {d32:.3e} (bar "
+          f"0.15, and <= the reference bf16 run's {r32:.3e}), u {u32:.3e}; "
+          f"to the reference backend's bf16 run: dens {d16:.3e}, u "
+          f"{u16:.3e}")
+    if twin != 0.0:
+        raise AssertionError(f"{label}: differs from the plain twins")
+    if not (d32 < 0.15 and d32 <= r32):
+        raise AssertionError(f"{label}: too far from the float32 run")
 
 
 def require_finite(state, what: str) -> None:
@@ -925,7 +996,8 @@ def fast_math_gap(cfg, label: str) -> None:
 def transfer_split(per_kernel: dict[str, list], label: str) -> None:
     """The traced step's device time in the multigrid transfers (the GEMM
     kernels of ``torch.matmul``) beside K1's damped sweeps (its
-    ``jacobi_sweep_kernel<true>`` instantiation) and its other sweeps."""
+    ``jacobi_sweep_kernel<true, ...>`` instantiations) and its other
+    sweeps."""
     busy = sum(ms for _, ms in per_kernel.values())
 
     def share(match) -> str:
@@ -934,8 +1006,9 @@ def transfer_split(per_kernel: dict[str, list], label: str) -> None:
 
     print(f"{label}: of {busy:.4f} device ms, transfers (GEMM) "
           f"{share(lambda k: 'gemm' in k.lower())}, K1-damp "
-          f"{share(lambda k: 'jacobi_sweep_kernel<true>' in k)}, K1 "
-          f"diffusion sweeps {share(lambda k: 'jacobi_sweep_kernel<false>' in k)}")
+          f"{share(lambda k: 'jacobi_sweep_kernel<true' in k)}, K1 "
+          f"diffusion sweeps "
+          f"{share(lambda k: 'jacobi_sweep_kernel<false' in k)}")
 
 
 def windowed3_path(cfg, label: str, card: str, steps: int) -> None:
@@ -1126,6 +1199,206 @@ def cli_path(card: str) -> dict[str, int]:
     run_cli(["info"])
     shutil.rmtree(CLI_DIR)
     return total
+
+
+def bf16_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
+    """Phase 18 on one grid: ``cfg`` (float32, the ``cuda`` backend) in bf16
+    through ``StableFluids2D``, an impulse step plus ``steps-1``, from the
+    reference draw rounded to bf16: launch counts checked, the state held
+    to ``bf16_bars`` (the plain twins; the float32 run from the same
+    rounded draw, widened, and the ``reference`` backend's bf16 run), ms/step
+    of both storages eager and as a CUDA graph.  Returns the bf16 run's
+    launch counts."""
+    from fluidsimulationcuda_torch import (FluidState, Sources,
+                                           StableFluids2D, reference_init,
+                                           step)
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    c16 = cfg.replace(dtype=torch.bfloat16)
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state, src = reference_init(gen, cfg)
+    state16 = FluidState(*(t.to(torch.bfloat16) for t in state[:3]))
+    src16 = Sources(*(t.to(torch.bfloat16) for t in src[:3]))
+
+    def run(c, st, sr, ops=None):
+        zeros = Sources(*(torch.zeros_like(t) for t in sr[:3]))
+        for k in range(steps):
+            st = step(c, st, sr if k == 0 else zeros, ops)
+        return st
+
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    got = run(c16, state16, src16)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    per_step = expected_launches(c16)
+    want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if any(f.dtype != torch.bfloat16 for f in got[:3]):
+        raise AssertionError(f"{label}: the state left bf16")
+    twins = run(c16, state16, src16, cuda_ops.make_opset(c16, plain=True))
+    ref16 = run(c16.replace(backend="reference"), state16, src16)
+    ref32 = run(cfg, FluidState(*(t.float() for t in state16[:3])),
+                Sources(*(t.float() for t in src16[:3])))
+    bf16_bars(got, twins, ref16, ref32, f"{label}, step {steps}")
+    ms = {}
+    for name, c, st in (("bf16", c16, got), ("float32", cfg, ref32)):
+        sim = StableFluids2D(c)
+        st, eager = timed_steps(sim.step, st, 5)
+        graph = checks.device_ms(lambda: sim.step(st), reps=3)
+        ms[name] = (eager, graph)
+    print(f"{label}: ms/step eager / as a CUDA graph: bf16 "
+          f"{ms['bf16'][0]:.4f} / {ms['bf16'][1]:.4f}, float32 "
+          f"{ms['float32'][0]:.4f} / {ms['float32'][1]:.4f} (bf16/float32 "
+          f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
+    return counts
+
+
+def bf16_jax_point(card: str) -> None:
+    """JAX's bar for its Pallas bf16 step against its jnp bf16 step, at
+    JAX's own point (tests/test_pallas_ops.py:355-384: n=126, 8 iterations,
+    a 2-cell window, 3 steps): the ``cuda`` backend's bf16 run against the
+    ``reference`` backend's, both windowed, rel-L2 under 0.01 for density
+    and 0.02 for u, and under 0.15 to the float32 run for density."""
+    from fluidsimulationcuda_torch import (FluidState, SimConfig, Sources,
+                                           reference_init, step)
+
+    cfg = SimConfig(n=126, jacobi_iters=8, max_courant=2,
+                    advect_mode="windowed", backend="cuda", device="cuda")
+    c16 = cfg.replace(dtype=torch.bfloat16)
+    state, src = reference_init(
+        torch.Generator(device="cuda").manual_seed(SEED), c16)
+
+    def run(c, st, sr):
+        zeros = Sources(*(torch.zeros_like(t) for t in sr[:3]))
+        for k in range(3):
+            st = step(c, st, sr if k == 0 else zeros)
+        return st
+
+    got = run(c16, state, src)
+    ref16 = run(c16.replace(backend="reference"), state, src)
+    ref32 = run(cfg, FluidState(*(t.float() for t in state[:3])),
+                Sources(*(t.float() for t in src[:3])))
+    require_finite(got, "bf16 at JAX's point")
+    d16, u16 = rel_l2(got.dens, ref16.dens), rel_l2(got.u, ref16.u)
+    d32 = rel_l2(got.dens, ref32.dens)
+    print(f"bf16 at JAX's point (128², 8 it, window 2, 3 steps): rel-L2 to "
+          f"the reference backend's bf16 run dens {d16:.3e} (bar 0.01), u "
+          f"{u16:.3e} (bar 0.02); to the float32 run dens {d32:.3e} (bar "
+          f"0.15) ({card})")
+    if not (d16 < 0.01 and u16 < 0.02 and d32 < 0.15):
+        raise AssertionError("bf16 at JAX's point: a bar fails")
+
+
+def bf16_datagen(cfg, label: str, card: str, steps: int = 20,
+                 every: int = 5) -> dict[str, int]:
+    """Phase 18 on the datagen batch: ``generate_trajectories`` in bf16 at
+    the window ``select_cmax_batched`` probes in bf16, launch counts
+    checked (those of one grid), the audit float32 and within the window;
+    the final state held to ``bf16_bars`` (the ``reference`` backend's bf16
+    trajectory and the float32 one from the same bf16 draw, widened);
+    ms/step of both storages.  Returns the trajectory's launch counts."""
+    from fluidsimulationcuda_torch import (FluidState, Sources, batched_init,
+                                           generate_trajectories,
+                                           make_batched_step_fn,
+                                           select_cmax_batched, step)
+    from fluidsimulationcuda_torch.core.state import zero_sources_like
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.models.batched import _trajectory_runner
+
+    def gen():
+        return torch.Generator(device=cfg.device).manual_seed(SEED)
+
+    c16 = cfg.replace(dtype=torch.bfloat16)
+    cmax, probed = select_cmax_batched(gen(), c16, DATAGEN_BATCH)
+    c16 = c16.replace(advect_mode="windowed", max_courant=cmax)
+    c32 = cfg.replace(advect_mode="windowed", max_courant=cmax)
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    final, snaps, dmax = generate_trajectories(gen(), c16, DATAGEN_BATCH,
+                                               steps, snapshot_every=every)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    per_step = expected_launches(c16)
+    want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: probed {probed:.6f} cells, window cmax={cmax}; "
+          f"launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if (dmax.dtype != torch.float32 or not float(dmax) <= cmax
+            or snaps.dtype != torch.bfloat16
+            or any(f.dtype != torch.bfloat16 for f in final[:3])):
+        raise AssertionError(f"{label}: audit {dmax} or storage wrong")
+    state0, sources = batched_init(gen(), c16, DATAGEN_BATCH)
+    zeros = zero_sources_like(sources)
+    twins = state0
+    plain = cuda_ops.make_opset(c16, plain=True)
+    for k in range(steps):
+        twins = step(c16, twins, sources if k == 0 else zeros, plain)
+    ref16, _, _ = _trajectory_runner(c16.replace(backend="reference"), steps,
+                                     every)(state0, sources)
+    wide = (FluidState(*(t.float() for t in state0[:3])),
+            Sources(*(t.float() for t in sources[:3])))
+    ref32, _, _ = _trajectory_runner(c32, steps, every)(*wide)
+    bf16_bars(final, twins, ref16, ref32, f"{label}, step {steps}")
+    ms = {}
+    for name, c, st, src in (("bf16", c16, final, sources),
+                             ("float32", c32, ref32, wide[1])):
+        step_fn, zeros = make_batched_step_fn(c), zero_sources_like(src)
+        st, eager = timed_steps(lambda s: step_fn(s, zeros), st, 5)
+        graph = checks.device_ms(lambda: step_fn(st, zeros), reps=3)
+        ms[name] = (eager, graph)
+    print(f"{label}: ms/step eager / as a CUDA graph: bf16 "
+          f"{ms['bf16'][0]:.4f} / {ms['bf16'][1]:.4f}, float32 "
+          f"{ms['float32'][0]:.4f} / {ms['float32'][1]:.4f} (bf16/float32 "
+          f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
+    return counts
+
+
+def solver_batch_path(solver: str, card: str) -> dict[str, int]:
+    """Phase 18's batched multigrid or CG step: ``SOLVER_BATCH`` grids of
+    256² (20 Jacobi iterations) in one ``make_batched_step_fn`` step;
+    launch counts those of one grid (K1's damped sweep takes the batch);
+    every grid within the parity bar (rtol 1e-5, atol 2e-5) of its own
+    one-grid step, max|Δ| and the grids equal bit for bit printed (the
+    batched transfer GEMMs and CG's per-grid reductions may sum in another
+    order than one grid's); the batch held to the ``reference`` backend at
+    the same bar.  Returns the launch counts."""
+    from fluidsimulationcuda_torch import (FluidState, Sources, SimConfig,
+                                           batched_init, make_batched_step_fn,
+                                           step)
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    cfg = SimConfig(n=254, jacobi_iters=20, backend="cuda", device="cuda",
+                    pressure_solver=solver)
+    label = f"{SOLVER_BATCH} × 256² {solver} step"
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state, src = batched_init(gen, cfg, SOLVER_BATCH)
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    got = make_batched_step_fn(cfg)(state, src)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    want = {k: expected_launches(cfg).get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: launches {counts} (expected those of one grid, {want})")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    worst, exact = 0.0, 0
+    for g in range(SOLVER_BATCH):
+        one = step(cfg, FluidState(*(t[g] for t in state[:3])),
+                   Sources(*(t[g] for t in src[:3])))
+        mine = FluidState(*(t[g] for t in got[:3]))
+        require_close(mine, one, 1e-5, 2e-5, f"{label}, grid {g} alone")
+        worst = max(worst, max_diff(mine, one))
+        exact += all(torch.equal(a, b) for a, b in zip(mine[:3], one[:3]))
+    ref = make_batched_step_fn(cfg.replace(backend="reference"))(state, src)
+    require_close(got, ref, 1e-5, 2e-5, f"{label} vs the reference backend")
+    print(f"{label}: each grid against its own step max|d| {worst:.3e} "
+          f"({exact} of {SOLVER_BATCH} bit for bit); against the reference "
+          f"backend max|d| {max_diff(got, ref):.3e} ({card})")
+    return counts
 
 
 def main() -> None:
@@ -1413,9 +1686,37 @@ def main() -> None:
     phase("17 the command line on the card")
     launches_cli = cli_path(card)
 
+    phase("18 bf16 storage on the 2-D step; multigrid and CG on a batch")
+    compare(checks.kernel_checks_bf16(2048, "cuda", SEED), 0.0, errs,
+            "bit for bit")
+    compare(checks.kernel_checks_bf16(DATAGEN_N + 2, "cuda", SEED,
+                                      batch=DATAGEN_BATCH), 0.0, errs,
+            "bit for bit")
+    times.update(kernel_times(checks.timing_checks_bf16(2048, "cuda", SEED),
+                              "2048²", card))
+    kernel_times(checks.timing_checks_bf16(8192, "cuda", SEED), "8192²",
+                 card)
+    kernel_times(checks.timing_checks_bf16(DATAGEN_N + 2, "cuda", SEED,
+                                           batch=DATAGEN_BATCH),
+                 f"{DATAGEN_BATCH} × {DATAGEN_N + 2}²", card)
+    bf16_jax_point(card)
+    launches_16 = bf16_path(parity, "bf16 2048² parity", card, 6)
+    rho, k_d, k_p = perf_operating_point(2048)
+    bf16_path(cheby.replace(fast_math=True),
+              f"bf16 2048² compensated (rho={rho}, k_d={k_d}, k_p={k_p}) "
+              f"fast_math", card, 6)
+    bf16_path(big, "bf16 8192² parity, 40 iterations", card, 3)
+    launches_16 = {k: c + launches_16[k] for k, c in bf16_datagen(
+        datagen, f"bf16 {DATAGEN_BATCH} × 256² datagen parity",
+        card).items()}
+    launches_sb = solver_batch_path("multigrid", card)
+    launches_sb = {k: c + launches_sb[k]
+                   for k, c in solver_batch_path("cg", card).items()}
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
                      + launches_slab3[k] + launches_dg[k] + launches_mg[k]
                      + launches_cg[k] + launches_w3[k] + launches_cli[k]
+                     + launches_16[k] + launches_sb[k]
                      for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_split"] = launches_split["jacobi_slab_split"]
@@ -1501,8 +1802,11 @@ def library_gather_ms(gather) -> float:
     ndim = len(coords)
     inp = torch.stack(fields, dim=-ndim - 1)  # (batch, fields, grid)
     sizes = fields[0].shape[-ndim:]
+    # grid_sample takes its grid in the fields' dtype (bf16 for K3's bf16
+    # form: the same work, coarser coordinates).
     grid = torch.stack([2.0 * c / (size - 1) - 1.0
-                        for c, size in zip(coords, reversed(sizes))], dim=-1)
+                        for c, size in zip(coords, reversed(sizes))],
+                       dim=-1).to(inp.dtype)
     if inp.dim() == ndim + 1:
         inp, grid = inp[None], grid[None]
     return checks.device_ms(lambda: torch.nn.functional.grid_sample(

@@ -25,7 +25,14 @@ class SimConfig:
     ``diff``, ``jacobi_iters``, the solver choices and the Chebyshev
     knobs).  What differs:
 
-      dtype: ``torch.float32``; the bf16 storage mode is not ported yet.
+      dtype: ``torch.float32``, or ``torch.bfloat16`` as a storage format
+        (JAX's bf16 mode): state and sources are stored in bf16.  The
+        ``reference`` backend runs its plain ops on bf16 tensors, as JAX's
+        jnp ops run on bf16 arrays; the ``cuda`` kernels read bf16, compute
+        in float32 and write bf16 (``kernels/cuda_ops.py``).  The 2-D step
+        with the Jacobi or Chebyshev pressure solve only: multigrid and CG,
+        the 3-D step and the multi-device steps raise
+        ``NotImplementedError`` in bf16 (ROADMAP §A 5).
       backend: ``"reference"`` runs the plain torch ops of ``ops/``;
         ``"cuda"`` runs the hand-written kernels of ``kernels/cuda_ops.py``
         and ``kernels/cuda_ops_3d.py`` and needs a CUDA ``device``;
@@ -42,8 +49,8 @@ class SimConfig:
       pressure_solver: ``"jacobi"`` and ``"chebyshev"`` everywhere;
         ``"multigrid"`` (``mg_cycles`` V-cycles, ``ops/multigrid.py``) and
         ``"cg"`` (``cg_iters`` iterations, ``ops/cg.py``) in the 2-D step,
-        not on a batch or on slabs; 3-D refuses them, as the JAX package
-        does.
+        on one grid or a batch, not on slabs; 3-D refuses them, as the JAX
+        package does.
       advect_mode: ``"auto"`` and ``"exact"`` gather exactly (the JAX
         package's ``"auto"`` is windowed on a TPU only); ``"windowed"``
         clamps each departure point to ``max_courant`` cells around its
@@ -82,9 +89,9 @@ class SimConfig:
             raise ValueError(f"n must be >= 2, got {self.n}")
         if self.jacobi_iters < 1:
             raise ValueError("jacobi_iters must be >= 1")
-        if self.dtype != torch.float32:
-            raise ValueError("dtype must be torch.float32 (bf16 storage is "
-                             "not ported yet)")
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {self.dtype}")
         if self.backend not in ("reference", "cuda", "auto"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.backend == "cuda" and self.device.type != "cuda":
@@ -115,6 +122,17 @@ class SimConfig:
             raise ValueError(
                 "pressure_solver='multigrid'/'cg' are 2-D solvers; "
                 "ndim=3 supports 'jacobi' and 'chebyshev'")
+        if self.dtype == torch.bfloat16 and self.ndim == 3:
+            raise NotImplementedError(
+                "bf16 storage runs the 2-D step only; the 3-D step in bf16 "
+                "waits on ROADMAP §A 5")
+        if (self.dtype == torch.bfloat16
+                and self.pressure_solver in ("multigrid", "cg")):
+            raise NotImplementedError(
+                f"pressure_solver={self.pressure_solver!r} in bf16 waits on "
+                f"ROADMAP §A 5 (its float32 transfer matrices and "
+                f"reductions would meet bf16 fields); bf16 takes 'jacobi' "
+                f"or 'chebyshev'")
         if (self.ndim == 3 and self.diffusion_solver == "chebyshev"
                 and self.pressure_solver != "chebyshev"):
             # The velocity-diffusion swap is validated only with the

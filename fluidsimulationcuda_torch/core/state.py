@@ -106,25 +106,30 @@ def _field(obj, name: str):
     return obj[name]
 
 
-def state_from_numpy(obj, device: torch.device | str = "cuda") -> FluidState:
-    """A ``FluidState`` of float32 tensors on ``device`` (the card unless
-    the caller asks for ``"cpu"``) from any object whose ``dens``/``u``/
-    ``v`` and, in 3-D, ``w`` (attributes or keys) convert through
-    ``np.asarray``: a JAX ``FluidState``, an npz file, a dict.  Shapes carry
-    over as they are, a batch of grids ``(B, side, side)`` included."""
+def state_from_numpy(obj, device: torch.device | str = "cuda",
+                     dtype: torch.dtype = torch.float32) -> FluidState:
+    """A ``FluidState`` of ``dtype`` tensors (float32 unless the caller asks
+    for ``torch.bfloat16``) on ``device`` (the card unless the caller asks
+    for ``"cpu"``) from any object whose ``dens``/``u``/``v`` and, in 3-D,
+    ``w`` (attributes or keys) convert through ``np.asarray``: a JAX
+    ``FluidState`` (bf16 arrays included), an npz file, a dict.  Each field
+    goes through float32, where a bf16 value is exact, and is rounded to
+    nearest even from there, as ``astype(jnp.bfloat16)`` rounds the same
+    float32 array.  Shapes carry over as they are, a batch of grids ``(B,
+    side, side)`` included."""
     def conv(name):
         a = _field(obj, name)
         if a is None:
             return None
         a = np.asarray(a, dtype=np.float32)
-        return torch.from_numpy(a.copy()).to(device)
+        return torch.from_numpy(a.copy()).to(device=device, dtype=dtype)
 
     return FluidState(*map(conv, FluidState._fields))
 
 
 def state_to_numpy(state: FluidState) -> FluidState:
     """The same state with each field as a float32 numpy array (``w`` stays
-    None in 2-D), ready for ``np.savez`` or the JAX package's
-    ``FluidState``."""
-    return FluidState(*(None if t is None else t.detach().cpu().numpy()
+    None in 2-D; a bf16 field widens exactly), ready for ``np.savez`` or the
+    JAX package's ``FluidState``."""
+    return FluidState(*(None if t is None else t.detach().float().cpu().numpy()
                         for t in state))

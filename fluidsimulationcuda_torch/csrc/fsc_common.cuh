@@ -18,11 +18,41 @@
 // reference's order and rounding, so a kernel matches its plain PyTorch
 // version to the last bit or so.  Where the TPU kernel's fast mode fuses on
 // purpose, the code calls fmaf explicitly.
+//
+// K1-K3 also have bf16 storage forms (JAX's bf16 mode, pallas_ops.py:
+// 125-149): a kernel reads bf16 into float32, computes in float32 and
+// rounds to bf16 (to nearest even, as torch.Tensor.to(torch.bfloat16) and
+// astype(jnp.bfloat16) round) on store.  Each form is a template
+// instantiation over its operands' types, chosen at launch; the helpers
+// below (load, store, round_to, SweepParamsT) are at float the plain
+// accesses they stand for, so the float32 kernels compile as before.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fsc {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float load(const float* p, int i) { return p[i]; }
+__device__ __forceinline__ float load(const bf16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, int i, float v) { p[i] = v; }
+__device__ __forceinline__ void store(bf16* p, int i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// v rounded to the storage type T and read back as float32.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
@@ -219,22 +249,31 @@ enum SweepFlags {
                // sweep_update (jacobi.cu), so no other kernel carries it
 };
 
-struct SweepParams {
-  const float* x;    // x_k; null means the zero guess
-  const float* rhs;  // right-hand side (raw base when kPrep)
-  const float* src;  // folded into rhs as rhs + src_dt*src when kPrep; may be null
-  const float* xm;   // x_{k-1} for kCheby; null means zero
+// The operands of one sweep, stored as TX (x_k and src), TM (x_{k-1}) and
+// TR (rhs); every kernel but K1's bf16 form takes them all as float.
+template <typename TX = float, typename TM = float, typename TR = float>
+struct SweepParamsT {
+  const TX* x;    // x_k; null means the zero guess
+  const TR* rhs;  // right-hand side (raw base when kPrep)
+  const TX* src;  // folded into rhs as rhs + src_dt*src when kPrep; may be null
+  const TM* xm;   // x_{k-1} for kCheby; null means zero
   float alpha, beta, ab, inv_b, src_dt, w;
   int flags;
 };
+using SweepParams = SweepParamsT<>;
 
 // The rhs at interior cell c, as the first sweep of a solve builds it
-// (pallas_ops.py:415-428): base + dt*src, times 1/beta in fast mode.
-__device__ __forceinline__ float rhs_at(const SweepParams& p, int c) {
-  float r = p.rhs[c];
+// (pallas_ops.py:415-428): base + dt*src, times 1/beta in fast mode,
+// rounded to the rhs's storage type before any sweep reads it (bf16 mode
+// restages it in its storage dtype, rdt, :416-428).
+template <typename TX, typename TM, typename TR>
+__device__ __forceinline__ float rhs_at(const SweepParamsT<TX, TM, TR>& p,
+                                        int c) {
+  float r = load(p.rhs, c);
   if (p.flags & kPrep) {
-    if (p.src) r = r + p.src_dt * p.src[c];
+    if (p.src) r = r + p.src_dt * load(p.src, c);
     if (p.flags & kFast) r = r * p.inv_b;
+    r = round_to<TR>(r);
   }
   return r;
 }
@@ -248,19 +287,24 @@ __device__ __forceinline__ float cheby_combine(float w, float val,
 
 // x_{k+1} at interior cell c from its neighbour sum and rhs value r: the
 // Jacobi update, then the Chebyshev combine read pointwise.
-__device__ __forceinline__ float sweep_update(const SweepParams& p, int c,
-                                              float neigh, float r) {
+template <typename TX, typename TM, typename TR>
+__device__ __forceinline__ float sweep_update(
+    const SweepParamsT<TX, TM, TR>& p, int c, float neigh, float r) {
   float val = (p.flags & kFast) ? fmaf(p.ab, neigh, r)
                                 : (r + p.alpha * neigh) / p.beta;
-  if (p.flags & kCheby) val = cheby_combine(p.w, val, p.xm ? p.xm[c] : 0.0f);
+  if (p.flags & kCheby)
+    val = cheby_combine(p.w, val, p.xm ? load(p.xm, c) : 0.0f);
   return val;
 }
 
 // 2-D: the neighbour sum in the order ((L+R)+U)+D of ops/diffuse.py:29.
-__device__ __forceinline__ float sweep_at(const SweepParams& p, int c, int side,
-                                          float r) {
+template <typename TX, typename TM, typename TR>
+__device__ __forceinline__ float sweep_at(const SweepParamsT<TX, TM, TR>& p,
+                                          int c, int side, float r) {
   float neigh = 0.0f;
-  if (p.x) neigh = ((p.x[c - 1] + p.x[c + 1]) + p.x[c - side]) + p.x[c + side];
+  if (p.x)
+    neigh = ((load(p.x, c - 1) + load(p.x, c + 1)) + load(p.x, c - side)) +
+            load(p.x, c + side);
   return sweep_update(p, c, neigh, r);
 }
 
@@ -309,14 +353,15 @@ struct Departure {
 // Departure point of interior cell (ci, cj): (cj, ci) - dt0*(u, v), clamped
 // to [0.5, n+0.5], truncated.  fminf/fmaxf also map a NaN velocity into the
 // box, so the four gather reads stay inside the grid whatever the input.
-__device__ __forceinline__ Departure backtrace(const float* u, const float* v,
-                                               int ci, int cj, int side,
-                                               float dt0) {
+// The coordinates are float32 whatever the velocities store.
+template <typename T>
+__device__ __forceinline__ Departure backtrace(const T* u, const T* v, int ci,
+                                               int cj, int side, float dt0) {
   const int c = ci * side + cj;
   const float lo = 0.5f;
   const float hi = static_cast<float>(side - 2) + 0.5f;
-  float x = static_cast<float>(cj) - dt0 * u[c];
-  float y = static_cast<float>(ci) - dt0 * v[c];
+  float x = static_cast<float>(cj) - dt0 * load(u, c);
+  float y = static_cast<float>(ci) - dt0 * load(v, c);
   x = fminf(fmaxf(x, lo), hi);
   y = fminf(fmaxf(y, lo), hi);
   Departure d;
@@ -368,12 +413,14 @@ __device__ __forceinline__ Departure window_backtrace(float uc, float vc,
 // Departure point of interior cell (ci, cj) of a (side, side) grid: exact
 // (backtrace) for cmax <= 0, under the window clamp of cmax cells
 // (window_backtrace, ops/advect.py advect_windowed) otherwise.
-__device__ __forceinline__ Departure departure(const float* u, const float* v,
-                                               int ci, int cj, int side,
-                                               float dt0, int cmax) {
+template <typename T>
+__device__ __forceinline__ Departure departure(const T* u, const T* v, int ci,
+                                               int cj, int side, float dt0,
+                                               int cmax) {
   if (cmax <= 0) return backtrace(u, v, ci, cj, side, dt0);
   const int c = ci * side + cj;
-  return window_backtrace(u[c], v[c], ci, cj, side - 2, dt0, cmax);
+  return window_backtrace(load(u, c), load(v, c), ci, cj, side - 2, dt0,
+                          cmax);
 }
 
 // 3-D departure of interior cell (ck, ci, cj): (cj, ci, ck) - dt0*(u, v, w)

@@ -14,37 +14,51 @@
 // out) and 20 for the gradient (u, v, p in; u, v out).  Each derives its
 // border in the same launch (fsc_common.cuh): divergence with b=0, the
 // gradient with b=1 for u and b=2 for v.
+//
+// The bf16 forms (the TPU kernels' bf16 storage mode) read bf16 u and v and
+// compute in float32: the divergence writes float32 (fused_project's
+// stage, pallas_ops.py:791-797) or bf16 (divergence_p, :1622); the
+// gradient reads a float32 (fused_project, :828-834) or bf16 (gradient_p,
+// :1645) pressure and writes bf16.  Each is a template instantiation over
+// those types, chosen at launch: 6 and 8 bytes a cell for the divergence,
+// 14 and 12 for the gradient.
 #include "fsc_common.cuh"
 
 namespace {
 
-__global__ void divergence_kernel(const float* __restrict__ u,
-                                  const float* __restrict__ v,
-                                  float* __restrict__ out, int side,
+template <typename TI = float, typename TO = float>
+__global__ void divergence_kernel(const TI* __restrict__ u,
+                                  const TI* __restrict__ v,
+                                  TO* __restrict__ out, int side,
                                   float coef) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= side || j >= side) return;
   const int off = fsc::grid_offset(side);
   const int c = off + fsc::interior_of(i, j, side);
-  const float d = coef * ((u[c + 1] - u[c - 1]) + (v[c + side] - v[c - side]));
-  out[off + i * side + j] = fsc::border_value(d, i, j, side, 0);
+  const float d = coef * ((fsc::load(u, c + 1) - fsc::load(u, c - 1)) +
+                          (fsc::load(v, c + side) - fsc::load(v, c - side)));
+  fsc::store(out, off + i * side + j, fsc::border_value(d, i, j, side, 0));
 }
 
-__global__ void gradient_kernel(const float* __restrict__ u,
-                                const float* __restrict__ v,
-                                const float* __restrict__ p,
-                                float* __restrict__ uo, float* __restrict__ vo,
+template <typename TU = float, typename TP = float>
+__global__ void gradient_kernel(const TU* __restrict__ u,
+                                const TU* __restrict__ v,
+                                const TP* __restrict__ p,
+                                TU* __restrict__ uo, TU* __restrict__ vo,
                                 int side, float h) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= side || j >= side) return;
   const int off = fsc::grid_offset(side);
   const int c = off + fsc::interior_of(i, j, side);
-  const float un = u[c] - (0.5f * (p[c + 1] - p[c - 1])) / h;
-  const float vn = v[c] - (0.5f * (p[c + side] - p[c - side])) / h;
-  uo[off + i * side + j] = fsc::border_value(un, i, j, side, 1);
-  vo[off + i * side + j] = fsc::border_value(vn, i, j, side, 2);
+  const float un = fsc::load(u, c) -
+                   (0.5f * (fsc::load(p, c + 1) - fsc::load(p, c - 1))) / h;
+  const float vn =
+      fsc::load(v, c) -
+      (0.5f * (fsc::load(p, c + side) - fsc::load(p, c - side))) / h;
+  fsc::store(uo, off + i * side + j, fsc::border_value(un, i, j, side, 1));
+  fsc::store(vo, off + i * side + j, fsc::border_value(vn, i, j, side, 2));
 }
 
 }  // namespace
@@ -53,9 +67,29 @@ __global__ void gradient_kernel(const float* __restrict__ u,
 // Returns cudaGetLastError() after the launch.
 extern "C" int fsc_divergence(const float* u, const float* v, float* out,
                               int side, int nb, float coef, void* stream) {
-  divergence_kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0,
-                      static_cast<cudaStream_t>(stream)>>>(u, v, out, side,
-                                                           coef);
+  const auto kernel = divergence_kernel<>;
+  kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(u, v, out, side, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form: u and v hold bf16, out float32 (out_bf16 = 0) or bf16.
+// Returns cudaGetLastError() after the launch.
+extern "C" int fsc_divergence_bf16(const void* u, const void* v, void* out,
+                                   int side, int nb, float coef, int out_bf16,
+                                   void* stream) {
+  const auto* ub = static_cast<const fsc::bf16*>(u);
+  const auto* vb = static_cast<const fsc::bf16*>(v);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (out_bf16) {
+    const auto kernel = divergence_kernel<fsc::bf16, fsc::bf16>;
+    kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0, st>>>(
+        ub, vb, static_cast<fsc::bf16*>(out), side, coef);
+  } else {
+    const auto kernel = divergence_kernel<fsc::bf16, float>;
+    kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0, st>>>(
+        ub, vb, static_cast<float*>(out), side, coef);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -64,8 +98,30 @@ extern "C" int fsc_divergence(const float* u, const float* v, float* out,
 extern "C" int fsc_gradient(const float* u, const float* v, const float* p,
                             float* uo, float* vo, int side, int nb, float h,
                             void* stream) {
-  gradient_kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0,
-                    static_cast<cudaStream_t>(stream)>>>(u, v, p, uo, vo, side,
-                                                         h);
+  const auto kernel = gradient_kernel<>;
+  kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(u, v, p, uo, vo, side, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form: u, v, uo and vo hold bf16, p float32 (p_bf16 = 0) or
+// bf16.  Returns cudaGetLastError() after the launch.
+extern "C" int fsc_gradient_bf16(const void* u, const void* v, const void* p,
+                                 void* uo, void* vo, int side, int nb, float h,
+                                 int p_bf16, void* stream) {
+  const auto* ub = static_cast<const fsc::bf16*>(u);
+  const auto* vb = static_cast<const fsc::bf16*>(v);
+  auto* uob = static_cast<fsc::bf16*>(uo);
+  auto* vob = static_cast<fsc::bf16*>(vo);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (p_bf16) {
+    const auto kernel = gradient_kernel<fsc::bf16, fsc::bf16>;
+    kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0, st>>>(
+        ub, vb, static_cast<const fsc::bf16*>(p), uob, vob, side, h);
+  } else {
+    const auto kernel = gradient_kernel<fsc::bf16, float>;
+    kernel<<<fsc::grid_dim(side, nb), fsc::block_dim(), 0, st>>>(
+        ub, vb, static_cast<const float*>(p), uob, vob, side, h);
+  }
   return static_cast<int>(cudaGetLastError());
 }

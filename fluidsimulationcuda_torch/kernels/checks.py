@@ -49,7 +49,8 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "timing_checks_damp", "kernel_checks3_windowed",
            "timing_checks3_windowed", "K4_TILE", "K4_BOX_CAP",
            "footprint_boxes", "gather_velocities", "kernel_checks_flows",
-           "staged_share", "max_abs_diff", "device_ms"]
+           "staged_share", "max_abs_diff", "device_ms",
+           "kernel_checks_bf16", "timing_checks_bf16"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -108,20 +109,27 @@ def _add(*costs: tuple[int, int]) -> tuple[int, int]:
 
 
 def _sweep_costs(iters: int, ndim: int, *, zero_init=False, src=False,
-                 fast=False, cheby=False, damp=False):
+                 fast=False, cheby=False, damp=False, bf16=False):
     """(field passes, float ops per cell) of each sweep launch of one
     solve, as ``cuda_ops._Sweeps`` runs them: each reads its x (none for
     the zero guess), x_{k-1} (the Chebyshev combine) and rhs, writes its
     output, and the first also writes the rhs it builds (the folded source
-    is the guess x itself).  The damped combine reads x again (no pass)."""
-    has_x, has_xm, prep = not zero_init, False, src or fast
+    is the guess x itself).  The damped combine reads x again (no pass).
+    A pass is a float32 field's; in K1's bf16 form (``bf16``) the rhs, the
+    rhs it builds, the caller's guess (read as x, then as x_{k-1}) and the
+    last output are bf16 and count half, the float32 iterate in between
+    whole."""
+    store = 0.5 if bf16 else 1
+    x_pass, xm_pass, prep = (0 if zero_init else store), 0, src or fast
     for k in range(iters):
         combine = cheby and k >= 1
+        out = store if k == iters - 1 else 1
         # neighbour sum, alpha*sum + rhs, /beta; fold; combine; damping
-        yield (has_x + (combine and has_xm) + 1 + 1 + prep,
+        yield (x_pass + (xm_pass if combine else 0) + store + out
+               + (store if prep else 0),
                (2 * ndim + 2) + (2 * src + fast if prep else 0) + 4 * combine
                + 3 * damp)
-        has_xm, has_x, prep = has_x, True, False
+        xm_pass, x_pass, prep = x_pass, 1, False
 
 
 def _sweeps_cost(iters: int, ndim: int, **kw) -> tuple[int, int]:
@@ -148,6 +156,12 @@ def _scaled(cost: tuple[int, int], cells: int) -> tuple[int, int]:
 # (field passes, float ops per cell) of one launch of the other kernels.
 DIV2, GRAD2 = (3, 4), (5, 8)
 ADVECT2_PAIR, ADVECT2_ONE = (4, 24), (4, 18)
+# Their bf16 forms, a bf16 pass counting half: the divergence into float32
+# (fused_project's) and into bf16 (divergence_p's); the gradient from a
+# float32 pressure (fused_project's) and from a bf16 one (gradient_p's).
+DIV2_BF16, DIVP_BF16 = (2, 4), (1.5, 4)
+GRAD2_BF16, GRADP_BF16 = (3, 8), (2.5, 8)
+ADVECT2_PAIR_BF16, ADVECT2_ONE_BF16 = (2, 24), (2, 18)
 DENS_ADVECT = (5, 50)  # four stencil evaluations and a bilinear blend
 DIV3, GRAD3 = (4, 6), (7, 12)
 ADVECT3_ONE, ADVECT3_TRIPLE = (5, 39), (6, 81)
@@ -693,6 +707,175 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
         _dens_timed(t, f"{tag} fused_dens_advect 20it cmax={cmax} smooth "
                     f"velocities", *t.smooth, 20, cmax),
     ]
+
+
+# The CUDA kernels of the bf16 wrappers (cuda_ops: each bf16 form counts
+# under its own name).
+JAC16 = ("jacobi_sweep_bf16",)
+PROJ16 = ("divergence_bf16", "jacobi_sweep", "gradient_bf16")
+
+
+class _Bf16Inputs:
+    """``_Inputs``'s fields rounded to bf16 (a batch of ``batch`` grids if
+    given), with the step's coefficients; ``p32`` keeps a float32
+    pressure for the gradient's fused_project form."""
+
+    def __init__(self, side: int, device, seed: int, batch: int = 0):
+        t = _Inputs(side, device, seed, batch=batch)
+        self.n, self.cells = t.n, t.cells
+        self.a_visc, self.a_diff = t.a_visc, t.a_diff
+        for name in ("x", "x0", "src", "p", "u", "v", "uf", "vf"):
+            setattr(self, name, getattr(t, name).to(torch.bfloat16))
+        self.p32 = t.p
+
+
+def _bf16_cases(t: "_Bf16Inputs") -> list[tuple]:
+    """(label, kernels, wrapper, plain version, args, kwargs) of every bf16
+    wrapper call of ``kernel_checks_bf16``."""
+    n, av = t.n, t.a_visc
+    bv = 1 + 4 * av
+    rho, k_d, k_p = PERF_POINTS_2D[2048]
+    f32 = torch.float32
+    return [
+        ("fused_jacobi 1 sweep", JAC16, co.fused_jacobi,
+         co.fused_jacobi_plain, (1, t.x, t.x0, av, bv, 1), {}),
+        ("fused_jacobi 20it src_dt", JAC16, co.fused_jacobi,
+         co.fused_jacobi_plain, (1, t.src, t.x0, av, bv, 20),
+         dict(src_dt=DT)),
+        ("fused_jacobi 20it src_dt fast", JAC16, co.fused_jacobi,
+         co.fused_jacobi_plain, (2, t.src, t.x0, av, bv, 20),
+         dict(src_dt=DT, fast=True)),
+        ("fused_jacobi 20it zero_init (pressure_solve)", JAC16,
+         co.fused_jacobi, co.fused_jacobi_plain, (0, t.p, t.p, 1.0, 4.0, 20),
+         dict(zero_init=True)),
+        ("fused_jacobi 2it chebyshev", JAC16, co.fused_jacobi,
+         co.fused_jacobi_plain, (1, t.src, t.x0, av, bv, 2),
+         dict(src_dt=DT, cheby_rho=rho)),
+        (f"fused_jacobi {k_d}it chebyshev", JAC16, co.fused_jacobi,
+         co.fused_jacobi_plain, (1, t.src, t.x0, av, bv, k_d),
+         dict(src_dt=DT, cheby_rho=rho)),
+        (f"fused_jacobi {k_d}it chebyshev+fast", JAC16, co.fused_jacobi,
+         co.fused_jacobi_plain, (2, t.src, t.x0, av, bv, k_d),
+         dict(src_dt=DT, fast=True, cheby_rho=rho)),
+        ("fused_project 20it", PROJ16, co.fused_project,
+         co.fused_project_plain, (t.u, t.v, n, 20), {}),
+        (f"fused_project chebyshev {k_p}it", PROJ16, co.fused_project,
+         co.fused_project_plain, (t.u, t.v, n, k_p), dict(cheby_rho=rho)),
+        ("divergence into float32 (fused_project's)", ("divergence_bf16",),
+         co._divergence, co._divergence_plain, (t.u, t.v, n, f32), {}),
+        ("divergence_p", ("divergence_bf16",), co.divergence_p,
+         co.divergence_p_plain, (t.u, t.v, n), {}),
+        ("gradient, float32 p (fused_project's)", ("gradient_bf16",),
+         co.gradient_p, co.gradient_p_plain, (t.u, t.v, t.p32, n), {}),
+        ("gradient_p", ("gradient_bf16",), co.gradient_p,
+         co.gradient_p_plain, (t.u, t.v, t.p, n), {}),
+        ("advect_shift_fused u/v pair", ("advect_bf16",),
+         co.advect_shift_fused, co.advect_shift_fused_plain,
+         ((1, 2), (t.u, t.v), t.u, t.v, DT, n), {}),
+        ("advect_shift b=0", ("advect_bf16",), co.advect_shift,
+         co.advect_shift_plain, (0, t.x, t.u, t.v, DT, n), {}),
+        (f"advect_shift b=0 cmax={CMAX}, over the window", ("advect_bf16",),
+         co.advect_shift, co.advect_shift_plain,
+         (0, t.x, t.uf, t.vf, DT, n, CMAX), {}),
+        ("advect_shift_fused u/v pair cmax=1", ("advect_bf16",),
+         co.advect_shift_fused, co.advect_shift_fused_plain,
+         ((1, 2), (t.u, t.v), t.u, t.v, DT, n, 1), {}),
+    ]
+
+
+def kernel_checks_bf16(side: int, device, seed: int = 0,
+                       batch: int = 0) -> list[Check]:
+    """Every bf16 form of K1-K3 against its plain version at grid ``side``
+    (a batch of ``batch`` grids if given), in the calls the bf16 step makes
+    and the standalone forms: K1 one sweep (bf16 in and out in one
+    launch), the 20-sweep velocity solve with its source fold (plain and
+    fast), the zero-guess pressure solve on a bf16 rhs, Chebyshev at 2
+    sweeps (the guess read as x_{k-1}) and at the compensated point's 10
+    (plain and fast); ``fused_project`` at 20 and Chebyshev 14 sweeps; K2's
+    divergence into float32 and into bf16, its gradient from a float32 and
+    from a bf16 pressure; K3 on the u/v pair, exact and at a 1-cell window,
+    and on one field, exact and over a 4-cell window.  Expected bit for
+    bit: kernel and plain version do the same float32 arithmetic and round
+    once."""
+    t = _Bf16Inputs(side, device, seed, batch)
+    tag = f"{batch}x{side}² " if batch else ""
+    return [_check(f"{tag}bf16 {label}", kernels, fn, plain, *args, **kw)
+            for label, kernels, fn, plain, args, kw in _bf16_cases(t)]
+
+
+def timing_checks_bf16(side: int, device, seed: int = 0,
+                       batch: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of the bf16 forms at grid ``side`` (a
+    batch if given), each beside the same call in float32 on the same
+    values and beside its plain version: first one launch of each form on
+    the main path (labelled by its count's name: K1 one sweep, K2's
+    divergence into float32 and gradient from a float32 pressure, K3's u/v
+    pair), then K2's standalone forms and the wrappers at the step's
+    counts."""
+    t = _Bf16Inputs(side, device, seed, batch)
+    w = _Inputs(side, device, seed, batch=batch)
+    n, av, cells = t.n, t.a_visc, t.cells
+    bv = 1 + 4 * av
+    rho, k_d, k_p = PERF_POINTS_2D[2048]
+    f32 = torch.float32
+    tag = f"{batch}x{side}² " if batch else ""
+
+    def sweeps(iters, **kw):
+        return _sweeps_cost(iters, 2, **kw)
+
+    def pair(label, kernels, cost16, cost32, fn, plain, args16, args32,
+             **kw):
+        name = label if not tag else f"{tag}{label}"
+        return [_timed(cost16, cells, name, kernels, fn, plain, *args16,
+                       **kw),
+                _timed(cost32, cells, f"{tag}{label} (float32)", (), fn,
+                       plain, *args32, **kw)]
+
+    advect = pair("advect_bf16", ("advect_bf16",), ADVECT2_PAIR_BF16,
+                  ADVECT2_PAIR, co.advect_shift_fused,
+                  co.advect_shift_fused_plain,
+                  ((1, 2), (t.u, t.v), t.u, t.v, DT, n),
+                  ((1, 2), (w.u, w.v), w.u, w.v, DT, n))
+    advect[0].gather = _gather2((t.u, t.v), t.u, t.v, n)
+    return (
+        pair("jacobi_sweep_bf16", JAC16, sweeps(1, bf16=True), sweeps(1),
+             co.fused_jacobi, co.fused_jacobi_plain,
+             (1, t.x, t.x0, av, bv, 1), (1, w.x, w.x0, av, bv, 1))
+        + pair("divergence_bf16", ("divergence_bf16",), DIV2_BF16, DIV2,
+               co._divergence, co._divergence_plain, (t.u, t.v, n, f32),
+               (w.u, w.v, n, f32))
+        + pair("gradient_bf16", ("gradient_bf16",), GRAD2_BF16, GRAD2,
+               co.gradient_p, co.gradient_p_plain, (t.u, t.v, t.p32, n),
+               (w.u, w.v, w.p, n))
+        + advect
+        + pair("divergence_p bf16", ("divergence_bf16",), DIVP_BF16, DIV2,
+               co.divergence_p, co.divergence_p_plain, (t.u, t.v, n),
+               (w.u, w.v, n))
+        + pair("gradient_p bf16", ("gradient_bf16",), GRADP_BF16, GRAD2,
+               co.gradient_p, co.gradient_p_plain, (t.u, t.v, t.p, n),
+               (w.u, w.v, w.p, n))
+        + pair("fused_jacobi 20it src_dt bf16", JAC16,
+               sweeps(20, src=True, bf16=True), sweeps(20, src=True),
+               co.fused_jacobi, co.fused_jacobi_plain,
+               (1, t.src, t.x0, av, bv, 20), (1, w.src, w.x0, av, bv, 20),
+               src_dt=DT)
+        + pair(f"fused_jacobi {k_d}it chebyshev+fast bf16", JAC16,
+               sweeps(k_d, src=True, fast=True, cheby=True, bf16=True),
+               sweeps(k_d, src=True, fast=True, cheby=True),
+               co.fused_jacobi, co.fused_jacobi_plain,
+               (1, t.src, t.x0, av, bv, k_d), (1, w.src, w.x0, av, bv, k_d),
+               src_dt=DT, fast=True, cheby_rho=rho)
+        + pair("fused_project 20it bf16", PROJ16,
+               _add(DIV2_BF16, sweeps(20, zero_init=True), GRAD2_BF16),
+               _add(DIV2, sweeps(20, zero_init=True), GRAD2),
+               co.fused_project, co.fused_project_plain, (t.u, t.v, n, 20),
+               (w.u, w.v, n, 20))
+        + pair(f"fused_project {k_p}it chebyshev bf16", PROJ16,
+               _add(DIV2_BF16, sweeps(k_p, zero_init=True, cheby=True),
+                    GRAD2_BF16),
+               _add(DIV2, sweeps(k_p, zero_init=True, cheby=True), GRAD2),
+               co.fused_project, co.fused_project_plain,
+               (t.u, t.v, n, k_p), (w.u, w.v, n, k_p), cheby_rho=rho))
 
 
 def _pair_args(t: "_Inputs") -> tuple:
@@ -1534,7 +1717,7 @@ def staged_share(check: Check) -> float:
 
 
 def max_abs_diff(a, b) -> float:
-    return max(float((x - y).abs().max())
+    return max(float((x.float() - y.float()).abs().max())
                for x, y in zip(_as_tuple(a), _as_tuple(b)))
 
 

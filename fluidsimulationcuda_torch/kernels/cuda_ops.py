@@ -8,10 +8,26 @@ takes JAX's ``damp`` (damped Jacobi, the multigrid smoother), the gathers
 JAX's ``cmax`` (the gather window in cells; None gathers exactly).  Like
 the TPU kernels, each takes one (side, side) grid or a batch of them, (nb,
 side, side), and launches its kernels once whatever nb is.
-Each checks dtype (float32), shape, contiguity and device.  On CPU tensors
-it returns its plain version, built from ``ops/``; on CUDA tensors it
+Each checks dtype, shape, contiguity and device.  On CPU tensors it
+returns its plain version, built from ``ops/``; on CUDA tensors it
 launches the hand-written kernels of ``csrc/`` (built on first use by
 ``build.py``) or raises.  Nothing falls back.
+
+Every wrapper takes float32.  The five that JAX's bf16 storage mode runs
+(``fused_jacobi``, ``fused_project``, ``divergence_p``, ``gradient_p`` and
+the gathers ``advect_shift``/``advect_shift_fused``; JAX's ``supports``,
+``pallas_ops.py:125-149``) also take bf16 fields, as the TPU kernels do:
+they read bf16, compute in float32 and write bf16 (K1's iterate stays
+float32 from the first sweep to the last, and only the folded or
+prescaled rhs and the solve's output are rounded to bf16; inside
+``fused_project`` the divergence and the pressure stay float32).  Each
+bf16 form is a template instantiation of its kernel chosen at launch, and
+counts apart (``jacobi_sweep_bf16``, ``divergence_bf16``,
+``gradient_bf16``, ``advect_bf16``).  Its plain version widens the fields
+to float32, runs the float32 plain version with the same roundings and
+rounds the output to bf16.  A bf16 tensor reaching any other wrapper
+(``fused_dens_advect``, K1's damped sweep, the 3-D, slab and tail
+kernels) raises ``TypeError``: nothing widens it silently.
 
 Four CUDA kernels (K1-K4) carry the five TPU kernel families of the 2-D
 step:
@@ -75,13 +91,19 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi_slab", "divergence_slab", "gradient_slab", "advect_slab",
            "jacobi3_slab", "divergence3_slab", "gradient3_slab",
            "advect3_slab", "advect_project", "jacobi_slab_split",
-           "jacobi_sweep_damp", "advect3_windowed")
+           "jacobi_sweep_damp", "advect3_windowed", "jacobi_sweep_bf16",
+           "divergence_bf16", "gradient_bf16", "advect_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
 _PREP, _FAST, _CHEBY, _DAMP = 1, 2, 4, 8
 # Grids of one 2-D launch: CUDA's limit on the launch's third axis.
 _MAX_BATCH = 65535
+# The storage dtypes of the wrappers that have a bf16 form.
+_F32_BF16 = (torch.float32, torch.bfloat16)
+# fsc_jacobi_sweep_bf16's operand types (csrc/jacobi.cu): which of x, xm
+# and out are bf16 (rhs and rhs_out always are).
+_X_BF16, _XM_BF16, _OUT_BF16 = 1, 2, 4
 
 
 def launch_counts() -> dict[str, int]:
@@ -114,16 +136,20 @@ def check_grid(shape: tuple[int, ...], ndim: int = 2) -> None:
                          f"{shape[0]}")
 
 
-def _on_card(side: int, *tensors: torch.Tensor, ndim: int = 2) -> bool:
-    """Check that every tensor is a contiguous float32 grid of shape
-    ``(side,) * ndim`` or, in 2-D, that all are batches of the same shape
-    ``(nb, side, side)`` (``check_grid``), on one device; True for CUDA,
-    False for the CPU, and raise otherwise."""
+def _on_card(side: int, *tensors: torch.Tensor, ndim: int = 2,
+             dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> bool:
+    """Check that every tensor is a contiguous grid of shape ``(side,) *
+    ndim`` or, in 2-D, that all are batches of the same shape ``(nb, side,
+    side)`` (``check_grid``), of one dtype of ``dtypes``, on one device;
+    True for CUDA, False for the CPU, and raise otherwise."""
     shape = (side,) * ndim
     if ndim == 2 and tensors[0].dim() == 3:
         shape = (tensors[0].shape[0],) + shape
     check_grid(shape, ndim)
-    return _on_device(*((t, shape) for t in tensors))
+    if len({t.dtype for t in tensors}) > 1:
+        raise TypeError(
+            f"mixed dtypes {sorted(str(t.dtype) for t in tensors)}")
+    return _on_device(*((t, shape, dtypes) for t in tensors))
 
 
 def _batch(t: torch.Tensor) -> int:
@@ -131,19 +157,22 @@ def _batch(t: torch.Tensor) -> int:
     return t.shape[0] if t.dim() == 3 else 1
 
 
-def _on_device(*specs: tuple[torch.Tensor, tuple[int, ...]]) -> bool:
-    """Check that each tensor is a contiguous float32 array of its shape,
-    all on one device; True for CUDA, False for the CPU, and raise
-    otherwise."""
-    for t, shape in specs:
-        if t.dtype != torch.float32:
-            raise TypeError(f"expected float32, got {t.dtype}")
+def _on_device(*specs: tuple) -> bool:
+    """Check that each tensor of a spec ``(tensor, shape)`` or ``(tensor,
+    shape, dtypes)`` is a contiguous array of its shape and of a dtype of
+    ``dtypes`` (float32 if not given: a kernel without a bf16 form), all on
+    one device; True for CUDA, False for the CPU, and raise otherwise."""
+    for t, shape, *allowed in specs:
+        dtypes = allowed[0] if allowed else (torch.float32,)
+        if t.dtype not in dtypes:
+            raise TypeError(f"expected {' or '.join(map(str, dtypes))}, got "
+                            f"{t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"expected shape {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("expected a contiguous tensor")
-    devices = {t.device for t, _ in specs}
+    devices = {spec[0].device for spec in specs}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     device = devices.pop()
@@ -194,13 +223,24 @@ class _Sweeps:
     is ``cheby_omegas[start-1]``, ``xm`` the x_{k-1} carried in, and after
     the segment ``x`` and ``xm`` are both final iterates, to carry out
     (the trap of ``pallas_ops.py:560-585``: a chain that restarts ω or
-    drops x_{k-1} at a segment boundary looks plausible and is wrong)."""
+    drops x_{k-1} at a segment boundary looks plausible and is wrong).
+
+    A bf16 rhs (K1 only) makes the solve JAX's bf16 storage form: every
+    sweep launches ``fsc_jacobi_sweep_bf16`` (counted as
+    ``jacobi_sweep_bf16``), the iterate lives in float32 scratch from the
+    first sweep to the last, the guess and x_{k-1} are read as bf16 where
+    they are the caller's, the folded or prescaled rhs is rounded to bf16
+    before any sweep reads it (``pallas_ops.py:416-428``, ``rdt``), and
+    only the last sweep (the ``iters``-th of this call) writes bf16."""
 
     def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
                  src_dt, fast, cheby_rho, kernel="jacobi_sweep", start=0,
                  xm=None, damp=None):
         self.kernel = kernel
-        self.count = kernel if damp is None else f"{kernel}_damp"
+        self.bf16 = rhs.dtype == torch.bfloat16
+        self.count = (f"{kernel}_damp" if damp is not None
+                      else f"{kernel}_bf16" if self.bf16 else kernel)
+        self.symbol = f"fsc_{self.count if self.bf16 else kernel}"
         self.damp = None if damp is None else _f32(damp)
         self.omw = 0.0 if damp is None else _f32(1.0 - damp)
         self.b = b
@@ -215,6 +255,7 @@ class _Sweeps:
         self.omegas = (None if cheby_rho is None
                        else cheby_omegas(float(cheby_rho), start + iters))
         self.k = start
+        self.end = start + iters
         self.coefs = (_f32(alpha), _f32(beta), _f32(alpha / beta),
                       _f32(1.0 / beta), _f32(0.0 if src_dt is None else src_dt))
         self._pool: list[torch.Tensor] = []
@@ -236,9 +277,18 @@ class _Sweeps:
         for t in self._pool:
             if t is not self.x and t is not self.xm:
                 return t
-        t = torch.empty_like(self.rhs)
+        t = torch.empty_like(self.rhs, dtype=torch.float32)
         self._pool.append(t)
         return t
+
+    def _types(self, out: torch.Tensor) -> int:
+        """fsc_jacobi_sweep_bf16's operand types of the next sweep."""
+        def bf16(t):
+            return t is not None and t.dtype == torch.bfloat16
+        cheby = self.omegas is not None and self.k >= 1
+        return ((_X_BF16 if bf16(self.x) else 0)
+                | (_XM_BF16 if cheby and bf16(self.xm) else 0)
+                | (_OUT_BF16 if bf16(out) else 0))
 
     def ran_first_sweep(self, x: torch.Tensor) -> None:
         """Take x_1 from a first sweep another kernel ran (K18, which also
@@ -249,12 +299,14 @@ class _Sweeps:
         """One launch; ``geometry`` goes between the sweep scalars and the
         stream (K1's batch and boundary split and ``omw``, the slab
         kernel's row range and wall rows)."""
-        out = self._scratch()
+        last = self.bf16 and self.k + 1 == self.end
+        out = torch.empty_like(self.rhs) if last else self._scratch()
         rhs_out = torch.empty_like(self.rhs) if self.prep else None
+        types = (self._types(out),) if self.bf16 else ()
         x, rhs, src, xm, *scalars = self.next_args()
-        _launch(self.count, getattr(lib, f"fsc_{self.kernel}"), x, rhs, src,
-                xm, out.data_ptr(), _ptr(rhs_out), self.side, self.b,
-                *scalars, *geometry, self.stream)
+        _launch(self.count, getattr(lib, self.symbol), x, rhs, src, xm,
+                out.data_ptr(), _ptr(rhs_out), self.side, self.b, *scalars,
+                *geometry, *types, self.stream)
         if self.prep:
             self.rhs, self.prep = rhs_out, False
         if self.omegas is not None:
@@ -268,29 +320,43 @@ class _Sweeps:
 # ---------------------------------------------------------------------------
 
 
-def _check_damp(damp, src_dt, fast, cheby_rho) -> None:
+def _check_damp(damp, src_dt, fast, cheby_rho, dtype=torch.float32) -> None:
     """``damp`` is the multigrid smoother's alone: no source fold, no
     reciprocal form and no Chebyshev weights (JAX asserts the last,
-    ``pallas_ops.py:540``)."""
+    ``pallas_ops.py:540``), and float32 (the multigrid solve has no bf16
+    form)."""
     if damp is not None and (src_dt is not None or fast
                              or cheby_rho is not None):
         raise ValueError("damp takes no src_dt, fast or cheby_rho")
+    if damp is not None and dtype != torch.float32:
+        raise TypeError(f"K1's damped sweep takes float32, got {dtype}")
 
 
-def _fma_diffuse(b, x_init, rhs, ab, iters):
+def _fma_diffuse(b, x_init, rhs, ab, iters, cheby_rho=None):
     """``iters`` sweeps of the reciprocal form ``x' = rhs + ab*neigh`` (rhs
     already scaled by 1/beta) with the product and the sum rounded once, as
     K1's ``fmaf`` rounds them: in float64, where the product of two float32
     values is exact, then back to float32.  That second rounding can differ
     from the single one only where the float64 sum lands exactly halfway
-    between two float32 values."""
+    between two float32 values.  With ``cheby_rho`` each sweep after the
+    first is combined with x_{k-1} in float32 as K1 combines it
+    (``w*x' + (1-w)*x_{k-1}``, ``ops/chebyshev.py``)."""
     ab = _f32(ab)
     rhs_int = rhs[..., 1:-1, 1:-1].double()
-    x = x_init
-    for _ in range(iters):
+
+    def sweep(x):
         neigh = (((x[..., 1:-1, :-2] + x[..., 1:-1, 2:]) + x[..., :-2, 1:-1])
                  + x[..., 2:, 1:-1])
-        x = embed_interior(b, (rhs_int + ab * neigh.double()).to(x.dtype))
+        return (rhs_int + ab * neigh.double()).to(x.dtype)
+
+    xm, x = x_init, embed_interior(b, sweep(x_init))
+    omegas = () if cheby_rho is None else cheby_omegas(cheby_rho, iters)
+    for k in range(1, iters):
+        val = sweep(x)
+        if omegas:
+            w = torch.full((), omegas[k - 1], dtype=x.dtype, device=x.device)
+            val = w * val + (1.0 - w) * xm[..., 1:-1, 1:-1]
+        xm, x = x, embed_interior(b, val)
     return x
 
 
@@ -300,21 +366,36 @@ def fused_jacobi_plain(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
     ``ops.chebyshev.cheby_diffuse`` or ``ops.diffuse.damped_diffuse`` on
     the rhs ``x0 + dt*x_init`` (with b=0, alpha=1, beta=4 and damp=0.8 the
     multigrid smoother ``ops.multigrid._smooth``).  ``fast`` Jacobi sweeps
-    round as K1's do (``_fma_diffuse``), so the two agree to the bit; the
-    fast Chebyshev sweeps round the product and the sum apart, a few ulp
-    from K1's."""
-    _check_damp(damp, src_dt, fast, cheby_rho)
+    and Chebyshev sweeps round as K1's do (``_fma_diffuse``), so the two
+    agree to the bit.  bf16 fields are widened to float32, the rhs built in
+    float32 and rounded to bf16 once (K1's bf16 form, ``_Sweeps``), the
+    sweeps run in float32 and the result is rounded to bf16."""
+    _check_damp(damp, src_dt, fast, cheby_rho, x0.dtype)
     if zero_init:
         x_init = torch.zeros_like(x0)
+    if x0.dtype == torch.bfloat16:
+        x_init = x_init.float()
+        rhs = _plain_rhs(x_init, x0.float(), beta, src_dt, fast)
+        return _plain_sweeps(b, x_init, rhs.to(torch.bfloat16).float(),
+                             alpha, beta, iters, fast, cheby_rho,
+                             damp).to(torch.bfloat16)
+    return _plain_sweeps(b, x_init, _plain_rhs(x_init, x0, beta, src_dt, fast),
+                         alpha, beta, iters, fast, cheby_rho, damp)
+
+
+def _plain_rhs(x_init, x0, beta, src_dt, fast):
+    """The rhs a solve's first sweep builds: ``x0 + dt*x_init``, times
+    1/beta in fast mode."""
     rhs = x0 if src_dt is None else add_source(x0, x_init, src_dt)
+    return rhs * (1.0 / beta) if fast else rhs
+
+
+def _plain_sweeps(b, x_init, rhs, alpha, beta, iters, fast, cheby_rho, damp):
+    """The sweeps of ``fused_jacobi_plain`` on a built rhs."""
     if fast:
-        # The reciprocal form rhs/beta + (alpha/beta)*neigh is the Jacobi
-        # update with alpha' = alpha/beta and beta' = 1 on a pre-scaled rhs
-        # (division by 1 is exact).
-        rhs = rhs * (1.0 / beta)
-        alpha, beta = alpha / beta, 1.0
-        if cheby_rho is None:
-            return _fma_diffuse(b, x_init, rhs, alpha, iters)
+        # The reciprocal form rhs/beta + (alpha/beta)*neigh on a pre-scaled
+        # rhs, one fmaf a sweep.
+        return _fma_diffuse(b, x_init, rhs, alpha / beta, iters, cheby_rho)
     if cheby_rho is not None:
         return cheby_diffuse(b, x_init, rhs, alpha, beta, iters, cheby_rho)
     if damp is not None:
@@ -335,8 +416,8 @@ def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
     per sweep."""
     if iters < 1:
         raise ValueError("iters must be >= 1")
-    _check_damp(damp, src_dt, fast, cheby_rho)
-    if not _on_card(x0.shape[-1], x_init, x0):
+    _check_damp(damp, src_dt, fast, cheby_rho, x0.dtype)
+    if not _on_card(x0.shape[-1], x_init, x0, dtypes=_F32_BF16):
         return fused_jacobi_plain(b, x_init, x0, alpha, beta, iters,
                                   zero_init=zero_init, src_dt=src_dt,
                                   fast=fast, cheby_rho=cheby_rho, damp=damp)
@@ -407,53 +488,95 @@ def fused_jacobi_pair(b1, b2, s1, s2, base1, base2, alpha, beta, iters, *,
 # ---------------------------------------------------------------------------
 
 
-def divergence_p_plain(u, v, n):
-    return divergence(u, v, n)
+def _divergence_plain(u, v, n, out_dtype):
+    return divergence(u.float(), v.float(), n).to(out_dtype)
 
 
-def divergence_p(u, v, n):
-    """Divergence with the b=0 border (``ops.project.divergence``)."""
-    if not _on_card(n + 2, u, v):
-        return divergence_p_plain(u, v, n)
+def _divergence(u, v, n, out_dtype):
+    """K2's divergence of float32 or bf16 u, v into ``out_dtype``: float32
+    out of float32; bf16 u, v into float32 (``fused_project``'s stage) or
+    into bf16 (``divergence_p``).  The arithmetic is float32."""
+    if not _on_card(n + 2, u, v, dtypes=_F32_BF16):
+        return _divergence_plain(u, v, n, out_dtype)
     with torch.cuda.device(u.device):
         lib = build.load()
-        out = torch.empty_like(u)
-        _launch("divergence", lib.fsc_divergence, u.data_ptr(), v.data_ptr(),
-                out.data_ptr(), n + 2, _batch(u), -0.5 * grid_h(n),
-                _stream(u))
+        out = torch.empty_like(u, dtype=out_dtype)
+        coef = -0.5 * grid_h(n)
+        if u.dtype == torch.float32:
+            _launch("divergence", lib.fsc_divergence, u.data_ptr(),
+                    v.data_ptr(), out.data_ptr(), n + 2, _batch(u), coef,
+                    _stream(u))
+        else:
+            _launch("divergence_bf16", lib.fsc_divergence_bf16, u.data_ptr(),
+                    v.data_ptr(), out.data_ptr(), n + 2, _batch(u), coef,
+                    int(out_dtype == torch.bfloat16), _stream(u))
         return out
 
 
+def divergence_p_plain(u, v, n):
+    return _divergence_plain(u, v, n, u.dtype)
+
+
+def divergence_p(u, v, n):
+    """Divergence with the b=0 border (``ops.project.divergence``), in the
+    fields' dtype (float32 arithmetic)."""
+    return _divergence(u, v, n, u.dtype)
+
+
+def _check_gradient(u, v, p) -> None:
+    """u and v of one dtype; p float32 or theirs."""
+    if u.dtype != v.dtype or p.dtype not in (torch.float32, u.dtype):
+        raise TypeError(f"gradient_p takes u and v of one dtype and p of "
+                        f"theirs or float32, got {u.dtype}, {v.dtype}, "
+                        f"{p.dtype}")
+
+
 def gradient_p_plain(u, v, p, n):
-    return apply_pressure_gradient(u, v, p, n)
+    _check_gradient(u, v, p)
+    return tuple(f.to(u.dtype) for f in apply_pressure_gradient(
+        u.float(), v.float(), p.float(), n))
 
 
 def gradient_p(u, v, p, n):
     """Pressure-gradient subtraction with the b=1 (u) and b=2 (v) borders
-    (``ops.project.apply_pressure_gradient``)."""
-    if not _on_card(n + 2, u, v, p):
+    (``ops.project.apply_pressure_gradient``), in u's dtype (float32
+    arithmetic): float32 u, v, p; or bf16 u, v with a float32 p
+    (``fused_project``'s stage) or a bf16 one (``gradient_p``)."""
+    _check_gradient(u, v, p)
+    card = _on_card(n + 2, u, v, dtypes=_F32_BF16)
+    _on_device((u, u.shape, _F32_BF16), (p, u.shape, _F32_BF16))
+    if not card:
         return gradient_p_plain(u, v, p, n)
     with torch.cuda.device(u.device):
         lib = build.load()
         uo = torch.empty_like(u)
         vo = torch.empty_like(v)
-        _launch("gradient", lib.fsc_gradient, u.data_ptr(), v.data_ptr(),
-                p.data_ptr(), uo.data_ptr(), vo.data_ptr(), n + 2, _batch(u),
-                grid_h(n), _stream(u))
+        if u.dtype == torch.float32:
+            _launch("gradient", lib.fsc_gradient, u.data_ptr(), v.data_ptr(),
+                    p.data_ptr(), uo.data_ptr(), vo.data_ptr(), n + 2,
+                    _batch(u), grid_h(n), _stream(u))
+        else:
+            _launch("gradient_bf16", lib.fsc_gradient_bf16, u.data_ptr(),
+                    v.data_ptr(), p.data_ptr(), uo.data_ptr(), vo.data_ptr(),
+                    n + 2, _batch(u), grid_h(n),
+                    int(p.dtype == torch.bfloat16), _stream(u))
         return uo, vo
 
 
 def fused_project_plain(u, v, n, iters, *, cheby_rho=None):
-    div = divergence(u, v, n)
+    div = _divergence_plain(u, v, n, torch.float32)
     p = fused_jacobi_plain(0, div, div, 1.0, 4.0, iters, zero_init=True,
                            cheby_rho=cheby_rho)
-    return apply_pressure_gradient(u, v, p, n)
+    return gradient_p_plain(u, v, p, n)
 
 
 def fused_project(u, v, n, iters, *, cheby_rho=None):
     """Projection: divergence (K2), ``iters`` pressure sweeps from zero with
-    alpha=1, beta=4 (K1, Jacobi or Chebyshev), gradient (K2)."""
-    div = divergence_p(u, v, n)
+    alpha=1, beta=4 (K1, Jacobi or Chebyshev), gradient (K2).  The
+    divergence and the pressure are float32 whatever u and v store, as in
+    the TPU kernel's bf16 mode (``pallas_ops.py:791-797``, ``:828-834``):
+    only u and v are read and written as bf16."""
+    div = _divergence(u, v, n, torch.float32)
     p = fused_jacobi(0, div, div, 1.0, 4.0, iters, zero_init=True,
                      cheby_rho=cheby_rho)
     return gradient_p(u, v, p, n)
@@ -498,20 +621,24 @@ def advect_shift_fused(bs, d0s, u, v, dt, n, cmax=None):
     Exact at any displacement, or with ``cmax`` clamped to the gather
     window of ``cmax`` cells (``ops.advect.advect_windowed``); outputs are
     fresh tensors, so advecting u and v by themselves reads the
-    pre-advection velocity."""
+    pre-advection velocity.  Fields and velocities are all float32 or all
+    bf16; the backtrace and the blend are float32 either way (the plain
+    ``ops.advect`` widens bf16 the same way)."""
     bs, d0s = tuple(bs), tuple(d0s)
     if len(bs) != len(d0s) or len(d0s) not in (1, 2):
         raise ValueError("advect_shift_fused takes one or two fields")
     window = _cmax_arg(cmax)
-    if not _on_card(n + 2, u, v, *d0s):
+    if not _on_card(n + 2, u, v, *d0s, dtypes=_F32_BF16):
         return advect_shift_fused_plain(bs, d0s, u, v, dt, n, cmax)
+    name = "advect" if u.dtype == torch.float32 else "advect_bf16"
     with torch.cuda.device(u.device):
         lib = build.load()
         outs = tuple(torch.empty_like(d) for d in d0s)
         d2, o2, b2 = ((d0s[1], outs[1], bs[1]) if len(d0s) == 2
                       else (None, None, 0))
-        _launch("advect", lib.fsc_advect, d0s[0].data_ptr(), _ptr(d2),
-                u.data_ptr(), v.data_ptr(), outs[0].data_ptr(), _ptr(o2),
+        _launch(name, getattr(lib, f"fsc_{name}"), d0s[0].data_ptr(),
+                _ptr(d2), u.data_ptr(), v.data_ptr(), outs[0].data_ptr(),
+                _ptr(o2),
                 n + 2, _batch(u), bs[0], b2, _dt0(dt, n), window, _stream(u))
         return outs
 
@@ -579,9 +706,15 @@ def make_opset(cfg, plain: bool = False) -> OpSet:
     math's reciprocal form included: the same arithmetic as the kernels in
     torch ops, which launch nothing.  The ``reference`` backend ignores
     ``fast_math``, so this is what a fast-math step on the card is held to
-    (``chip_smoke.py``)."""
+    (``chip_smoke.py``).
+
+    In bf16 (``cfg.dtype``, chosen here once) ``diffuse_advect`` composes
+    the density solve and its gather, K1 then K3, as JAX's bf16 OpSet
+    composes ``diffuse_src`` and ``advect`` (``pallas_ops.py:1730-1741``):
+    K4 has no bf16 form, in JAX as here."""
     fast = cfg.fast_math
     cmax = cfg.max_courant if cfg.advect_mode == "windowed" else None
+    bf16 = cfg.dtype == torch.bfloat16
     if plain:
         jacobi, adv, adv_fused, dens_adv = (
             fused_jacobi_plain, advect_shift_plain, advect_shift_fused_plain,
@@ -614,6 +747,10 @@ def make_opset(cfg, plain: bool = False) -> OpSet:
 
     def diffuse_advect(b, src, base, u, v, alpha, beta, iters, dt, n,
                        cheby_rho=None):
+        if bf16:
+            d = diffuse_src(b, src, base, alpha, beta, iters, dt,
+                            cheby_rho=cheby_rho)
+            return advect(b, d, u, v, dt, n)
         return dens_adv(b, src, base, u, v, alpha, beta, iters, dt, n,
                         cmax=cmax, fast=fast, cheby_rho=cheby_rho)
 

@@ -5,7 +5,8 @@ independent 256² sims).
 The reference runs one simulation per process (``FluidSequential.c:273-334``).
 Here every 2-D op of either backend takes a batch of grids ``(B, side,
 side)`` directly: the ``reference`` ops slice the last two axes, and the
-``cuda`` kernels K1-K4 launch every grid of the batch in one launch.  So a
+``cuda`` kernels K1-K4 launch every grid of the batch in one launch; the
+multigrid and CG solves reduce each grid over its last two axes.  So a
 batched step is the 2-D ``step`` itself, with the launches of one grid (105
 a step in parity, 63 in the compensated mode) whatever B is.  JAX's
 ``_use_batched_pallas``/``_batched_cfg`` split (Pallas kernels or a vmapped
@@ -50,15 +51,11 @@ def batched_init(generator: torch.Generator, cfg: SimConfig,
 
 
 def make_batched_step_fn(cfg: SimConfig) -> Callable:
-    """``step`` bound to ``cfg``, for a batched state and sources.  The
-    batched step runs the Jacobi and Chebyshev pressure solves, whose
-    kernels take the batch axis; the multigrid and CG solves reduce over
-    one grid and raise ``NotImplementedError`` here (JAX's batched step
-    keeps them off its kernels too, ``models/batched.py:39-44`` there)."""
-    if cfg.pressure_solver in ("multigrid", "cg"):
-        raise NotImplementedError(
-            f"pressure_solver={cfg.pressure_solver!r} solves one grid; the "
-            f"batched step takes 'jacobi' or 'chebyshev'")
+    """``step`` bound to ``cfg``, for a batched state and sources.  Every
+    pressure solver takes the batch: the Jacobi and Chebyshev solves on
+    kernels with a batch axis, the multigrid and CG solves per grid over
+    the last two axes (``ops/multigrid.py``, ``ops/cg.py``), as JAX's
+    vmapped step runs them (``models/batched.py:38-63`` there)."""
     return make_step_fn(cfg)
 
 

@@ -26,6 +26,7 @@ from ..core.config import SimConfig
 from ..core.state import FluidState, Sources, zero_sources_like
 from ..kernels.dispatch import OpSet, get_ops
 from ..ops.cg import cg_pressure_solve
+from ..ops.diffuse import as_scalar
 from ..ops.multigrid import mg_pressure_solve_fast
 
 __all__ = [
@@ -145,7 +146,10 @@ def step_audited(cfg: SimConfig, state: FluidState,
     dt0 = cfg.dt * cfg.n
 
     def _disp(u, v):
-        return torch.maximum(u.abs().max(), v.abs().max()) * dt0
+        # dt0 in the fields' dtype, as JAX's python scalar is; the batched
+        # runs' accumulators stay float32.
+        return (torch.maximum(u.abs().max(), v.abs().max())
+                * as_scalar(dt0, u))
 
     ops = get_ops(cfg)
     project = _make_project(cfg, ops)

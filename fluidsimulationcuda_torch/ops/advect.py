@@ -33,8 +33,11 @@ def departure(u: torch.Tensor, v: torch.Tensor, cols: torch.Tensor,
     velocities ``u``, ``v`` of those cells): clamped to ``[0.5, n+0.5]``
     and then, with ``cmax``, to ``[g - cmax, g + cmax]`` around the cell's
     own coordinate ``g``, in that order.  ``dt0 = dt*n`` is taken in
-    float32, as the JAX package takes it."""
+    float32, as the JAX package takes it, and so is every coordinate: bf16
+    velocities are widened first (JAX ``ops/advect.py:27-29``), since a
+    grid index past 256 has no exact bf16 value."""
     dt0 = float(np.float32(dt) * np.float32(n))
+    u, v = u.float(), v.float()
     x = (cols - dt0 * u).clamp(0.5, n + 0.5)
     y = (rows - dt0 * v).clamp(0.5, n + 0.5)
     if cmax is not None:
@@ -59,7 +62,9 @@ def bilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     reference's blend order (the clamp makes trunc == floor); global row
     ``i`` is row ``i - row0`` of ``d0``.  Leading axes of ``d0`` are a batch
     of grids: the points of grid ``g`` (the same leading index of x and y)
-    gather from grid ``g`` alone."""
+    gather from grid ``g`` alone.  The blend runs in float32 whatever
+    ``d0`` stores, and the result is rounded to ``d0``'s dtype (JAX
+    ``ops/advect.py:48-70``)."""
     j0 = x.to(torch.int32)
     i0 = y.to(torch.int32)
     s1 = x - j0.to(torch.float32)
@@ -79,7 +84,8 @@ def bilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     g10 = flat[base + side]
     g01 = flat[base + 1]
     g11 = flat[base + side + 1]
-    return s0 * (t0 * g00 + t1 * g10) + s1 * (t0 * g01 + t1 * g11)
+    out = s0 * (t0 * g00 + t1 * g10) + s1 * (t0 * g01 + t1 * g11)
+    return out.to(d0.dtype)
 
 
 def advect(b: int, d0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,

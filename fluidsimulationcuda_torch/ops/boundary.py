@@ -44,10 +44,12 @@ def embed_interior(b: int, interior: torch.Tensor) -> torch.Tensor:
 def embed_copy(interior: torch.Tensor) -> torch.Tensor:
     """``embed_interior(0, interior)`` in one replicate pad: under mode 0 an
     edge is a copy of its interior cell and a corner ``0.5*(v + v)``, which
-    is ``v`` to the bit, so the two are equal.  For one (n, n) interior, as
-    the multigrid and CG solves build their iterates."""
-    return torch.nn.functional.pad(interior[None], (1, 1, 1, 1),
-                                   mode="replicate")[0]
+    is ``v`` to the bit, so the two are equal.  For one (n, n) interior or
+    a batch of them on leading axes, as the multigrid and CG solves build
+    their iterates."""
+    flat = interior.reshape((-1,) + interior.shape[-2:])
+    out = torch.nn.functional.pad(flat, (1, 1, 1, 1), mode="replicate")
+    return out.reshape(interior.shape[:-2] + out.shape[-2:])
 
 
 def set_bnd(b: int, x: torch.Tensor) -> torch.Tensor:

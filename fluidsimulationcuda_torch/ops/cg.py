@@ -12,10 +12,12 @@ Jacobi one, diag(A) = 4I, only rescales).  An optional alternative to the
 parity solve (``SimConfig.pressure_solver = "cg"``), non-parity numerics.
 
 No kernel: both backends run this code (the projection around it takes
-K2's divergence and gradient on the card).  Every scalar of the recurrence
-(``rs``, ``alpha``, ``beta``) stays a 0-dim tensor on the solve's device,
-so an iteration never waits for the host and a step that calls it can be
-captured as a CUDA graph.
+K2's divergence and gradient on the card).  It takes one padded grid or a
+batch of them on leading axes, each solved alone, as JAX's vmapped solve
+runs them: every reduction is per grid, over the last two axes.  The
+scalars of the recurrence (``rs``, ``alpha``, ``beta``, one per grid) stay
+tensors on the solve's device, so an iteration never waits for the host
+and a step that calls it can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -31,8 +33,14 @@ def _apply_A_bc(p_int: torch.Tensor) -> torch.Tensor:
     """A with the copy ghost rule folded in: the interior with mirrored
     ghosts, then the 5-point operator."""
     p = embed_copy(p_int)
-    return 4.0 * p[1:-1, 1:-1] - (
-        ((p[1:-1, :-2] + p[1:-1, 2:]) + p[:-2, 1:-1]) + p[2:, 1:-1])
+    return 4.0 * p[..., 1:-1, 1:-1] - (
+        ((p[..., 1:-1, :-2] + p[..., 1:-1, 2:]) + p[..., :-2, 1:-1])
+        + p[..., 2:, 1:-1])
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Each grid's sum of ``a * b``, kept as a (..., 1, 1) tensor."""
+    return (a * b).sum(dim=(-2, -1), keepdim=True)
 
 
 def cg_pressure_solve(div: torch.Tensor, iters: int = 20) -> torch.Tensor:
@@ -43,19 +51,19 @@ def cg_pressure_solve(div: torch.Tensor, iters: int = 20) -> torch.Tensor:
     the rhs mean is deflated first: pressure is only used through its
     gradient, and without the deflation CG stalls at the inconsistency
     floor of the f32 mean."""
-    b = div[1:-1, 1:-1]
-    b = b - b.mean()
+    b = div[..., 1:-1, 1:-1]
+    b = b - b.mean(dim=(-2, -1), keepdim=True)
     x = torch.zeros_like(b)
     r = b
     p = r
-    rs = (r * r).sum()
+    rs = _dot(r, r)
     eps = as_scalar(1e-30, div)
     for _ in range(iters):
         Ap = _apply_A_bc(p)
-        alpha = rs / ((p * Ap).sum() + eps)
+        alpha = rs / (_dot(p, Ap) + eps)
         x = x + alpha * p
         r = r - alpha * Ap
-        rs_new = (r * r).sum()
+        rs_new = _dot(r, r)
         beta = rs_new / (rs + eps)
         p = r + beta * p
         rs = rs_new
@@ -63,5 +71,7 @@ def cg_pressure_solve(div: torch.Tensor, iters: int = 20) -> torch.Tensor:
 
 
 def cg_residual_norm(p: torch.Tensor, div: torch.Tensor) -> torch.Tensor:
-    """max |div - A p| over the interior (a 0-dim tensor)."""
-    return (div[1:-1, 1:-1] - _apply_A_bc(p[1:-1, 1:-1])).abs().max()
+    """max |div - A p| over the interior of every grid (a 0-dim
+    tensor)."""
+    return (div[..., 1:-1, 1:-1]
+            - _apply_A_bc(p[..., 1:-1, 1:-1])).abs().max()

@@ -49,13 +49,14 @@ OMEGA = 0.8  # damped Jacobi: plain Jacobi leaves the checkerboard mode
 
 def _apply_A(p: torch.Tensor) -> torch.Tensor:
     """Interior application of A = 4I - N."""
-    return 4.0 * p[1:-1, 1:-1] - (
-        ((p[1:-1, :-2] + p[1:-1, 2:]) + p[:-2, 1:-1]) + p[2:, 1:-1])
+    return 4.0 * p[..., 1:-1, 1:-1] - (
+        ((p[..., 1:-1, :-2] + p[..., 1:-1, 2:]) + p[..., :-2, 1:-1])
+        + p[..., 2:, 1:-1])
 
 
 def residual(p: torch.Tensor, div: torch.Tensor) -> torch.Tensor:
     """r = div - A p on the interior, ghost ring by the copy rule."""
-    return embed_copy(div[1:-1, 1:-1] - _apply_A(p))
+    return embed_copy(div[..., 1:-1, 1:-1] - _apply_A(p))
 
 
 def _smooth(p: torch.Tensor, div: torch.Tensor, sweeps: int,
@@ -74,17 +75,18 @@ def _restrict(r: torch.Tensor) -> torch.Tensor:
     """Full-weighting 2x restriction of a padded field (interior n -> n/2),
     scaled by 4 so the same unit-spacing stencil discretizes the coarse
     operator ((h_H/h_h)^2 = 4)."""
-    rin = r[1:-1, 1:-1]
-    n = rin.shape[0]
-    coarse = rin.reshape(n // 2, 2, n // 2, 2).mean(dim=(1, 3))
+    rin = r[..., 1:-1, 1:-1]
+    n = rin.shape[-1]
+    coarse = rin.reshape(rin.shape[:-2] + (n // 2, 2, n // 2, 2)).mean(
+        dim=(-3, -1))
     return embed_interior(0, 4.0 * coarse)
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
-    """Alternate a and b along ``axis`` (a first)."""
+    """Alternate a and b along ``axis`` (a first; a negative axis)."""
     shape = list(a.shape)
     shape[axis] *= 2
-    return torch.stack([a, b], dim=axis + 1).reshape(shape)
+    return torch.stack([a, b], dim=axis).reshape(shape)
 
 
 def _prolong(e: torch.Tensor) -> torch.Tensor:
@@ -92,17 +94,18 @@ def _prolong(e: torch.Tensor) -> torch.Tensor:
     (cell-centred 2x refinement: weights 9/3/3/1 over the padded coarse
     field, which the copy rule makes well defined at the walls); the four
     fine parities are whole coarse-grid arrays, interleaved."""
-    c = e[1:-1, 1:-1]
-    up, down = e[0:-2, 1:-1], e[2:, 1:-1]
-    left, right = e[1:-1, 0:-2], e[1:-1, 2:]
-    ul, ur, dl, dr = e[0:-2, 0:-2], e[0:-2, 2:], e[2:, 0:-2], e[2:, 2:]
+    c = e[..., 1:-1, 1:-1]
+    up, down = e[..., 0:-2, 1:-1], e[..., 2:, 1:-1]
+    left, right = e[..., 1:-1, 0:-2], e[..., 1:-1, 2:]
+    ul, ur = e[..., 0:-2, 0:-2], e[..., 0:-2, 2:]
+    dl, dr = e[..., 2:, 0:-2], e[..., 2:, 2:]
     f00 = 9.0 * c + 3.0 * up + 3.0 * left + ul
     f01 = 9.0 * c + 3.0 * up + 3.0 * right + ur
     f10 = 9.0 * c + 3.0 * down + 3.0 * left + dl
     f11 = 9.0 * c + 3.0 * down + 3.0 * right + dr
-    top = _interleave(f00, f01, axis=1)
-    bot = _interleave(f10, f11, axis=1)
-    return embed_interior(0, _interleave(top, bot, axis=0) * (1.0 / 16.0))
+    top = _interleave(f00, f01, axis=-1)
+    bot = _interleave(f10, f11, axis=-1)
+    return embed_interior(0, _interleave(top, bot, axis=-2) * (1.0 / 16.0))
 
 
 def mg_levels(n: int, min_n: int = 8) -> int:
@@ -123,7 +126,7 @@ def v_cycle(p, div, level: int, pre: int = 2, post: int = 2,
     r_c = _restrict(residual(p, div))
     e_c = v_cycle(torch.zeros_like(r_c), r_c, level - 1, pre, post,
                   coarse_sweeps, smooth)
-    p = embed_copy(p[1:-1, 1:-1] + _prolong(e_c)[1:-1, 1:-1])
+    p = embed_copy(p[..., 1:-1, 1:-1] + _prolong(e_c)[..., 1:-1, 1:-1])
     return smooth(p, div, post)
 
 
@@ -131,7 +134,7 @@ def mg_pressure_solve(div: torch.Tensor, cycles: int = 2, *, pre: int = 2,
                       post: int = 2, smooth=_smooth) -> torch.Tensor:
     """Multigrid Poisson solve from a zero initial guess (drop-in for
     ``ops.project.pressure_solve``)."""
-    levels = mg_levels(div.shape[0] - 2)
+    levels = mg_levels(div.shape[-1] - 2)
     p = torch.zeros_like(div)
     for _ in range(cycles):
         p = v_cycle(p, div, levels, pre, post, smooth=smooth)
@@ -182,8 +185,8 @@ def _restrict_mat(r: torch.Tensor, nc: int) -> torch.Tensor:
     """Restriction r (padded, interior nf) -> coarse rhs (padded, interior
     nc) by the separable matrices, the rhs scaled by the coarsening ratio
     squared (the (h_H/h_h)^2 that keeps the unit-spacing stencil)."""
-    rin = r[1:-1, 1:-1]
-    nf = rin.shape[0]
+    rin = r[..., 1:-1, 1:-1]
+    nf = rin.shape[-1]
     _, R = _transfer_mats(nf, nc, r.device)
     rc = torch.matmul(torch.matmul(R, rin), R.T)
     return embed_copy(((nf / nc) ** 2) * rc)
@@ -192,8 +195,8 @@ def _restrict_mat(r: torch.Tensor, nc: int) -> torch.Tensor:
 def _prolong_mat(e: torch.Tensor, nf: int) -> torch.Tensor:
     """Bilinear prolongation of a padded coarse correction to interior size
     ``nf`` by the separable matrices."""
-    ein = e[1:-1, 1:-1]
-    P, _ = _transfer_mats(nf, ein.shape[0], e.device)
+    ein = e[..., 1:-1, 1:-1]
+    P, _ = _transfer_mats(nf, ein.shape[-1], e.device)
     return embed_copy(torch.matmul(torch.matmul(P, ein), P.T))
 
 
@@ -207,7 +210,7 @@ def mg_pressure_solve_fast(div: torch.Tensor, cycles: int = 2, *,
     the residual)."""
 
     def cycle(p, d, zero_init=False):
-        n = d.shape[0] - 2
+        n = d.shape[-1] - 2
         if n < min_n:
             return smooth(p, d, 40, zero_init=zero_init)
         nc = _coarse_side(n + 2) - 2
@@ -215,7 +218,7 @@ def mg_pressure_solve_fast(div: torch.Tensor, cycles: int = 2, *,
         r_c = _restrict_mat(residual(p, d), nc)
         e_c = cycle(torch.zeros_like(r_c), r_c, zero_init=True)
         e_f = _prolong_mat(e_c, n)
-        p = embed_copy(p[1:-1, 1:-1] + e_f[1:-1, 1:-1])
+        p = embed_copy(p[..., 1:-1, 1:-1] + e_f[..., 1:-1, 1:-1])
         return smooth(p, d, post)
 
     p = torch.zeros_like(div)

@@ -22,10 +22,17 @@ def grid_h(n: int) -> float:
     return float(np.float32(1.0) / np.float32(n))
 
 
+def _h(n: int, like: torch.Tensor) -> torch.Tensor:
+    """``h = 1/n`` as the JAX package takes it, ``jnp.asarray(1.0, dtype) /
+    n``: n and the quotient rounded to ``like``'s dtype (``grid_h(n)`` in
+    float32; in bf16 n=2046 rounds to 2048 first)."""
+    return as_scalar(1.0, like) / as_scalar(n, like)
+
+
 def divergence(u: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
     """``div = -0.5*h*(uR-uL + vD-vU)``, ``h = 1/n``
     (``FluidSequential.c:148-155``); boundary mode 0."""
-    coef = -0.5 * grid_h(n)  # exact in float32: a power-of-two scaling
+    coef = as_scalar(-0.5, u) * _h(n, u)  # exact: a power-of-two scaling
     d = coef * ((u[..., 1:-1, 2:] - u[..., 1:-1, :-2])
                 + (v[..., 2:, 1:-1] - v[..., :-2, 1:-1]))
     return embed_interior(0, d)
@@ -41,7 +48,7 @@ def apply_pressure_gradient(u: torch.Tensor, v: torch.Tensor,
                             p: torch.Tensor, n: int):
     """``u -= 0.5*(pR-pL)/h``, ``v -= 0.5*(pD-pU)/h``
     (``FluidSequential.c:165-172``); boundary modes 1 and 2."""
-    h = as_scalar(grid_h(n), u)
+    h = _h(n, u)
     un = (u[..., 1:-1, 1:-1]
           - (0.5 * (p[..., 1:-1, 2:] - p[..., 1:-1, :-2])) / h)
     vn = (v[..., 1:-1, 1:-1]

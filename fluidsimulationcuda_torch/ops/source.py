@@ -5,10 +5,13 @@ from __future__ import annotations
 
 import torch
 
+from .diffuse import as_scalar
+
 __all__ = ["add_source"]
 
 
 def add_source(x: torch.Tensor, s: torch.Tensor, dt: float) -> torch.Tensor:
-    # A python scalar is cast to the tensor's float32 before the multiply,
-    # as ``jnp.asarray(dt, x.dtype)`` is in the JAX package.
-    return x + dt * s
+    # dt rounded to the fields' dtype before the multiply, as
+    # ``jnp.asarray(dt, x.dtype)`` is in the JAX package (torch would
+    # multiply a bf16 tensor by a python scalar in float32).
+    return x + as_scalar(dt, x) * s

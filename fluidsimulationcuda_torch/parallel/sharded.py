@@ -360,6 +360,12 @@ def make_sharded_step_fn(
     if cfg.ndim != 2:
         raise ValueError("make_sharded_step_fn is the 2-D step; the 3-D "
                          "z-slab step is not ported (ROADMAP A10b)")
+    if cfg.dtype != torch.float32:
+        # JAX's slab route requires float32 (parallel/sharded.py:847 there)
+        # and takes the block route in bf16.
+        raise NotImplementedError(
+            f"dtype={cfg.dtype} on slabs waits on ROADMAP §A 5: "
+            f"{_BLOCK_ROUTE}")
     px, py = mesh.shape["x"], mesh.shape["y"]
     side = cfg.n + 2
     if side % px or side % py:

@@ -5,7 +5,13 @@ The file is the JAX package's: an ``.npz`` of the state fields (float32
 bits as they are) and ``_meta``, the JSON of ``{"version", "config",
 "step"}`` as uint8 bytes.  Either package reads what the other writes:
 
-- ``dtype`` is stored by name (``"float32"``), as numpy names it;
+- ``dtype`` is stored by name (``"float32"``, ``"bfloat16"``), as numpy
+  names it;
+- a bf16 field is stored as JAX's ``np.asarray`` of it saves: its raw 2-byte
+  words as a ``|V2`` array (numpy has no bf16).  ``load_checkpoint`` takes
+  ``|V2`` fields as the dtype the file's config names.  (JAX's own
+  ``load_checkpoint`` raises on such a file: ``jnp.asarray`` refuses
+  ``|V2``.);
 - ``backend`` is stored in the JAX package's names: the port's ``"cuda"``
   is written as ``"pallas"`` (JAX's ``SimConfig`` refuses ``"cuda"``) and
   ``"pallas"`` is read as ``"cuda"``;
@@ -40,8 +46,8 @@ def save_checkpoint(path: str, state: FluidState, cfg: SimConfig,
                     step: int = 0) -> None:
     """Write ``state``, ``cfg`` and ``step`` to ``path`` atomically (a
     ``.tmp`` file, then ``os.replace``)."""
-    arrays = {name: getattr(state, name).detach().cpu().numpy()
-              for name in _FIELDS if getattr(state, name) is not None}
+    arrays = {name: _to_file(getattr(state, name)) for name in _FIELDS
+              if getattr(state, name) is not None}
     meta = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
             if f.name != "device"}
     meta["dtype"] = str(cfg.dtype).removeprefix("torch.")
@@ -55,6 +61,25 @@ def save_checkpoint(path: str, state: FluidState, cfg: SimConfig,
     with open(tmp, "wb") as f:
         np.savez_compressed(f, **payload)
     os.replace(tmp, path)
+
+
+def _to_file(t: torch.Tensor) -> np.ndarray:
+    """A field as the file holds it: float32 as it is, bf16 as raw 2-byte
+    words (``|V2``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _from_file(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A field from the file: raw 2-byte words are bf16 when the config
+    says so."""
+    if a.dtype.kind == "V":
+        if a.dtype.itemsize != 2 or dtype != torch.bfloat16:
+            raise ValueError(f"a {a.dtype} field in a {dtype} checkpoint")
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def config_from_meta(cfg_d: dict, device: torch.device | str) -> SimConfig:
@@ -84,6 +109,6 @@ def load_checkpoint(path: str, device: torch.device | str = "cuda"
                 f"checkpoint {path!r} has schema version {version}, newer "
                 f"than this build's {_SCHEMA_VERSION}; upgrade the framework")
         cfg = config_from_meta(meta["config"], device)
-        fields = {name: torch.from_numpy(z[name]).to(cfg.device)
+        fields = {name: _from_file(z[name], cfg.dtype).to(cfg.device)
                   if name in z.files else None for name in _FIELDS}
     return FluidState(**fields), cfg, meta["step"]

@@ -703,3 +703,97 @@ def test_validate_bars_stand_above_rounding(cuda, monkeypatch, capsys, n,
             assert ratio == bars[k]
             assert 1.0 - ratio > bound, k
     assert bars["ok"]
+
+
+@pytest.mark.parametrize("side,batch", [(34, 0), (130, 3), (2048, 0)])
+def test_bf16_kernel_forms_match_plain(cuda, side, batch):
+    """Each bf16 form of K1-K3 against its plain version, bit for bit (the
+    same float32 arithmetic, one rounding to bf16), its launches counted
+    under its bf16 name."""
+    for check in checks.kernel_checks_bf16(side, cuda, seed=side,
+                                           batch=batch):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert {k for k, c in counts.items() if c} == set(check.kernels), (
+            check.label, counts)
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("mode", ["parity", "perf"])
+def test_bf16_step_launches_and_matches_reference(cuda, mode):
+    """The bf16 step at 256²: K1 then K3 for the density (no K4), the bf16
+    forms counted apart; held by ``chip_smoke.bf16_bars`` to the ``cuda``
+    OpSet's plain twins bit for bit and to the float32 step from the same
+    bf16 draw (rel-L2 under 0.15 for density, and no farther than the
+    ``reference`` backend's bf16 step, which rounds every sweep, lies from
+    it)."""
+    import chip_smoke
+
+    kw = dict(PERF, fast_math=True) if mode == "perf" else {}
+    cfg = ft.SimConfig(n=254, jacobi_iters=20, backend="cuda", device=cuda,
+                       dtype=torch.bfloat16, **kw)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.step(cfg, state, src)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        **chip_smoke.expected_launches(cfg)}
+    assert all(f.dtype == torch.bfloat16 for f in got[:3])
+    twins = ft.step(cfg, state, src, cuda_ops.make_opset(cfg, plain=True))
+    ref16 = ft.step(cfg.replace(backend="reference"), state, src)
+    ref32 = ft.step(cfg.replace(dtype=torch.float32),
+                    ft.FluidState(*(t.float() for t in state[:3])),
+                    ft.Sources(*(t.float() for t in src[:3])))
+    chip_smoke.bf16_bars(got, twins, ref16, ref32, f"bf16 256² {mode}")
+
+
+def test_damped_smoother_takes_a_batch(cuda):
+    """K1's damped sweep (the multigrid smoother) on a batch of three
+    grids: one launch a sweep for the batch, equal to each grid smoothed
+    alone and to ``ops.multigrid._smooth`` on the batch, bit for bit."""
+    from fluidsimulationcuda_torch.ops.multigrid import _smooth
+
+    gen = torch.Generator().manual_seed(5)
+    p, div = (torch.rand(3, 130, 130, generator=gen).to(cuda)
+              for _ in range(2))
+    for sweeps, zero in ((2, False), (40, True)):
+        cuda_ops.reset_launch_counts()
+        got = cuda_ops.mg_smooth(p, div, sweeps, zero)
+        assert cuda_ops.launch_counts()["jacobi_sweep_damp"] == sweeps
+        assert torch.equal(got, _smooth(p, div, sweeps, zero))
+        for g in range(3):
+            assert torch.equal(got[g], cuda_ops.mg_smooth(p[g], div[g],
+                                                          sweeps, zero))
+
+
+@pytest.mark.parametrize("solver", ["multigrid", "cg"])
+def test_batched_solver_step_on_the_card(cuda, solver):
+    """The multigrid and CG steps on a batch of three 128² grids: the
+    launches of one grid (K1's damped sweep takes the batch), every grid
+    within the parity bar of its own step (the batched GEMMs and reductions
+    may sum in another order than one grid's), and the batch held to the
+    ``reference`` backend."""
+    import chip_smoke
+
+    cfg = ft.SimConfig(n=126, jacobi_iters=20, backend="cuda", device=cuda,
+                       pressure_solver=solver)
+    state, src = ft.batched_init(torch.Generator(device=cuda).manual_seed(0),
+                                 cfg, 3)
+    cuda_ops.reset_launch_counts()
+    got = ft.step(cfg, state, src)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        **chip_smoke.expected_launches(cfg)}
+    for g in range(3):
+        one = ft.step(cfg, ft.FluidState(*(t[g] for t in state[:3])),
+                      ft.Sources(*(t[g] for t in src[:3])))
+        for a, b in zip(got[:3], one[:3]):
+            torch.testing.assert_close(a[g], b, rtol=1e-5, atol=2e-5)
+    want = ft.step(cfg.replace(backend="reference"), state, src)
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
