@@ -10,7 +10,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``nvcc`` per source, all started together);
 3. every 2-D kernel against its plain PyTorch version on the card at the
    2048² shapes of the main path (max|Δ| <= 1e-5), plus device times of
-   both beside the bound; then K1-K4 on a batch of 1024 grids of 258² (the
+   both beside the bound; every call with a K1 solve in it
+   (``checks.k1_checks``) at 2048² and on the datagen batch against
+   its plain version and against the same call on the per-sweep K1
+   (``cuda_ops.launch_sweeps(0)``), bit for bit, and each timed call with
+   a K1 solve beside that per-sweep chain in the same CUDA-graph turns
+   (the tiled K1's one launch of T sweeps labelled ``jacobi_sweeps``, the
+   per-sweep K1's one sweep ``jacobi_sweep``); then K1-K4 on a batch of
+   1024 grids of 258² (the
    batched datagen step's shapes: one sweep, the 20-sweep and 10-sweep
    Chebyshev+fast solves, the zero-guess solve, ``fused_project`` at 20
    and Chebyshev 14 sweeps, K2's stencils, K3's u/v pair exact and at the
@@ -107,8 +114,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    grids of 256², n=254, 20 iterations), parity and the compensated mode
    (0.9, 10, 14) with fast math: ``select_cmax_batched`` probes the gather
    window, ``generate_trajectories`` runs 20 windowed steps with a density
-   snapshot every 5 (launch counts checked: those of one grid, 105 parity
-   / 63 compensated a step; the audited displacement finite and within the
+   snapshot every 5 (launch counts checked: those of one grid, 16 parity
+   / 13 compensated a step; the audited displacement finite and within the
    window; the last snapshot equal to the final density); grids 0, 1, 511
    and 1023 run again alone through ``StableFluids2D.step`` and equal the
    batch bit for bit (snapshots and final state); the batch is held against
@@ -137,20 +144,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 17. the command line on the card, ``fluidsimulationcuda_torch.__main__.main``
    called in this process with the launch counters reset before each call
    and read after it: ``run`` at 2048² (20 parity steps saved, resumed for
-   20 more and held bit for bit against a straight 40-step run; 105
+   20 more and held bit for bit against a straight 40-step run; 16
    launches a step), ``run --perf --validate`` at 2048² (the bars print and
-   pass; the audits' launches plus 63 a step), ``run --ndim 3`` at 256³
+   pass; the audits' launches plus 13 a step), ``run --ndim 3`` at 256³
    (the reference impulse, 126 a step, finite), ``datagen`` at 1024 ×
-   256² (the probe's 8 steps and the run's 20 at 105 a step; the file's
+   256² (the probe's 8 steps and the run's 20 at 16 a step; the file's
    ``dens_final`` (1024, 256, 256), the audit exact, equal bit for bit to
    ``generate_trajectories`` with the seed and the probed window),
    ``profile --trace`` at 2048² (the table and a trace file) and ``info``;
    each run's ms/step beside the eager step of phases 5, 6 and 8;
 18. bf16 storage on the 2-D step (``SimConfig(dtype=torch.bfloat16)``):
    every bf16 form of K1-K3 against its plain version at 2048² and on the
-   datagen batch (1024 × 256²), bit for bit, and timed beside the same
-   call in float32, its bound and its plain version at 2048², 8192² (past
-   the L2) and on the batch; ``StableFluids2D`` in bf16 at 2048² (20
+   datagen batch (1024 × 256²), bit for bit; every bf16 call with a K1
+   solve in it at 2048² and on the batch against its plain version
+   and the per-sweep K1 chain, bit for bit, and at 8192² each call phase
+   18 times with a K1 solve in it, bf16 and float32, the same way on the
+   inputs it is timed on; each timed beside the same call in float32, its bound, its plain version and, with a K1 solve in
+   it, the per-sweep chain, at 2048², 8192² (past the L2) and on the
+   batch; ``StableFluids2D`` in bf16 at 2048² (20
    iterations, parity and the compensated mode with fast math) and 8192²
    (40 iterations), and ``generate_trajectories`` in bf16 on the datagen
    batch: launch counts (K1 then K3 for the density, no K4; the bf16 forms
@@ -177,15 +188,19 @@ parity run of phase 11 for the z-slab kernels, phase 12's tail runs for
 K17, phase 10's chunk run for K18, phase 14 for K1's damped sweep and
 phase 16 for K6's window), its max|Δ| from phase 3, 3b, 3c, 3d, 3e or 3f,
 its device time beside its plain version's, and its bound; the bf16 forms
-are entries of their own (``jacobi_sweep_bf16``, ``divergence_bf16``,
+are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 ``gradient_bf16``, ``advect_bf16``: launches from phase 18's 2048² parity
-run and its datagen run, max|Δ| and times from phase 18).  The last line
+run and its datagen run, max|Δ| and times from phase 18).  The per-sweep
+K1's undamped forms (``jacobi_sweep``, ``jacobi_sweep_bf16``), which the
+tiled K1 replaced on every path, run on none and are left out of the line
+(``OFF_PATH``): every path's launch counts hold them at 0.  The last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import glob
 import io
@@ -201,6 +216,8 @@ import numpy as np
 import torch
 
 SEED = 0
+# When the script started: each phase's header says how far in it is.
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNELS = "fluidsimulationcuda_tpu/kernels/pallas_ops.py"
 TPU_KERNELS_3D = "fluidsimulationcuda_tpu/kernels/pallas_ops_3d.py"
@@ -248,16 +265,24 @@ KERNEL_SOURCES = {
     "advect3_windowed": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
     # The bf16 storage forms of the same pallas_calls (JAX's bf16 mode).
     "jacobi_sweep_bf16": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
+    # The tiled K1, T sweeps a launch, in float32 and bf16 storage.
+    "jacobi_sweeps": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_KERNELS}:645"),
+    "jacobi_sweeps_bf16": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_KERNELS}:645"),
     "divergence_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "gradient_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "advect_bf16": (f"{CSRC}/advect.cu", f"{TPU_KERNELS}:1182"),
 }
 # Phase 18's batch of grids for the multigrid and CG steps.
 SOLVER_BATCH = 64
+# The per-sweep K1's undamped forms: the tiled K1 took over every solve
+# they ran, so no path launches them; phases 3 and 18 time them beside the
+# tiled K1 as its "before", and the kernels line leaves them out.
+OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16")
 
 
 def phase(title: str) -> None:
-    print(f"\n=== {title}", flush=True)
+    print(f"\n=== {title} (at {time.perf_counter() - START:.1f} s)",
+          flush=True)
 
 
 def card_line() -> str:
@@ -281,11 +306,20 @@ def mg_cycle_sweeps(n: int, pre: int = 2, post: int = 2,
     return sweeps + 40
 
 
+def k1_launches(sweeps: int) -> int:
+    """Tiled K1 launches of a solve of ``sweeps`` sweeps: T each, the
+    remainder last."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    return -(-sweeps // cuda_ops.SWEEPS_PER_LAUNCH)
+
+
 def expected_launches(cfg) -> dict[str, int]:
-    """Kernel launches of one step of ``cfg`` with one sweep per launch.
-    The multigrid projection smooths with K1's damped sweep (counted
-    apart); the CG projection launches K2 alone (its iterations are torch
-    operations)."""
+    """Kernel launches of one step of ``cfg``: each solve on the tiled K1,
+    T sweeps a launch (``k1_launches``), the density's first ``iters-1``
+    before K4.  The multigrid projection smooths with K1's damped sweep, a
+    launch a sweep (counted apart); the CG projection launches K2 alone
+    (its iterations are torch operations)."""
     k_vel = k_dens = cfg.jacobi_iters
     if cfg.diffusion_solver == "chebyshev":
         k_vel = k_dens = cfg.cheby_iters
@@ -297,10 +331,14 @@ def expected_launches(cfg) -> dict[str, int]:
         # K1's bf16 form for the three diffusions (the density's too: K1
         # then K3 replace K4, as in JAX's bf16 OpSet), its float32 form for
         # the pressure inside fused_project, K2's and K3's bf16 forms.
-        return {"jacobi_sweep_bf16": 2 * k_vel + k_dens,
-                "jacobi_sweep": 2 * k_p, "divergence_bf16": 2,
-                "gradient_bf16": 2, "advect_bf16": 2}
-    launches = {"jacobi_sweep": 2 * k_vel + 2 * k_p + (k_dens - 1),
+        launches = {"jacobi_sweeps_bf16": (2 * k1_launches(k_vel)
+                                           + k1_launches(k_dens)),
+                    "jacobi_sweeps": 2 * k1_launches(k_p),
+                    "divergence_bf16": 2, "gradient_bf16": 2,
+                    "advect_bf16": 2}
+        return launches
+    launches = {"jacobi_sweeps": (2 * k1_launches(k_vel) + 2 * k1_launches(k_p)
+                                  + k1_launches(k_dens - 1)),
                 "divergence": 2, "gradient": 2, "advect": 1,
                 "dens_advect": 1}
     if cfg.pressure_solver == "multigrid":
@@ -310,7 +348,7 @@ def expected_launches(cfg) -> dict[str, int]:
 
 
 def expected_launches3(cfg) -> dict[str, int]:
-    """Kernel launches of one 3-D step of ``cfg`` with one sweep per launch:
+    """Kernel launches of one 3-D step of ``cfg``, K5 one sweep a launch:
     three velocity diffusions, two pressure solves and the density
     diffusion on K5, one K7 and one K8 per projection, one K6 for the
     (u, v, w) self-advection triple and one for the density (counted as
@@ -995,9 +1033,9 @@ def fast_math_gap(cfg, label: str) -> None:
 
 def transfer_split(per_kernel: dict[str, list], label: str) -> None:
     """The traced step's device time in the multigrid transfers (the GEMM
-    kernels of ``torch.matmul``) beside K1's damped sweeps (its
-    ``jacobi_sweep_kernel<true, ...>`` instantiations) and its other
-    sweeps."""
+    kernels of ``torch.matmul``) beside K1's damped sweeps (the per-sweep
+    K1's ``jacobi_sweep_kernel<true, ...>`` instantiations) and the
+    diffusion solves (the tiled K1, ``jacobi_sweeps_kernel``)."""
     busy = sum(ms for _, ms in per_kernel.values())
 
     def share(match) -> str:
@@ -1007,8 +1045,8 @@ def transfer_split(per_kernel: dict[str, list], label: str) -> None:
     print(f"{label}: of {busy:.4f} device ms, transfers (GEMM) "
           f"{share(lambda k: 'gemm' in k.lower())}, K1-damp "
           f"{share(lambda k: 'jacobi_sweep_kernel<true' in k)}, K1 "
-          f"diffusion sweeps "
-          f"{share(lambda k: 'jacobi_sweep_kernel<false' in k)}")
+          f"diffusion solves "
+          f"{share(lambda k: 'jacobi_sweeps_kernel' in k)}")
 
 
 def windowed3_path(cfg, label: str, card: str, steps: int) -> None:
@@ -1190,7 +1228,7 @@ def cli_path(card: str) -> dict[str, int]:
     if "full step (est)" not in out:
         raise AssertionError(f"{label}: no phase table")
     size = os.path.getsize(os.path.join(trace, "trace.json"))
-    idle = [k for k in ("jacobi_sweep", "divergence", "gradient", "advect",
+    idle = [k for k in ("jacobi_sweeps", "divergence", "gradient", "advect",
                         "dens_advect") if counts[k] == 0]
     if idle:
         raise AssertionError(f"{label}: kernels never launched: {idle}")
@@ -1437,6 +1475,7 @@ def main() -> None:
     errs = dict.fromkeys(cuda_ops.KERNELS, 0.0)
     compare(checks.kernel_checks(2048, "cuda", SEED), checks.TOL, errs)
     compare(checks.kernel_checks_flows(2048, "cuda", SEED), checks.TOL, errs)
+    k1_against_both(False, errs)
     times = kernel_times(checks.timing_checks(2048, "cuda", SEED), "2048²",
                          card)
     batched_kernels(card, errs)
@@ -1689,13 +1728,16 @@ def main() -> None:
     phase("18 bf16 storage on the 2-D step; multigrid and CG on a batch")
     compare(checks.kernel_checks_bf16(2048, "cuda", SEED), 0.0, errs,
             "bit for bit")
+    k1_against_both(True, errs)
     compare(checks.kernel_checks_bf16(DATAGEN_N + 2, "cuda", SEED,
                                       batch=DATAGEN_BATCH), 0.0, errs,
             "bit for bit")
     times.update(kernel_times(checks.timing_checks_bf16(2048, "cuda", SEED),
                               "2048²", card))
-    kernel_times(checks.timing_checks_bf16(8192, "cuda", SEED), "8192²",
-                 card)
+    big16 = checks.timing_checks_bf16(8192, "cuda", SEED)
+    k1_timed_against_both(big16, errs)
+    kernel_times(big16, "8192²", card)
+    del big16
     kernel_times(checks.timing_checks_bf16(DATAGEN_N + 2, "cuda", SEED,
                                            batch=DATAGEN_BATCH),
                  f"{DATAGEN_BATCH} × {DATAGEN_N + 2}²", card)
@@ -1720,7 +1762,7 @@ def main() -> None:
                      for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_split"] = launches_split["jacobi_slab_split"]
-    idle = [k for k, c in main_launches.items() if c == 0]
+    idle = [k for k, c in main_launches.items() if c == 0 and k not in OFF_PATH]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")
     kernels = [{
@@ -1736,13 +1778,39 @@ def main() -> None:
         # sweep fused with a gather, a stencil with its ghost layer or a
         # slab's wall rows or planes).
         "library_ms": times[name][4],
-    } for name in cuda_ops.KERNELS]
+    } for name in cuda_ops.KERNELS if name not in OFF_PATH]
     print()
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def k1_against_both(bf16: bool, errs: dict[str, float]) -> None:
+    """Every call with a K1 solve in it (``checks.k1_checks``; float32 or
+    bf16 storage) at 2048² and on the datagen batch, against its plain
+    version and against the same call on the per-sweep K1: bit for bit.
+    At 8192² phase 18 holds the calls it times
+    (``k1_timed_against_both``), in both storage types."""
+    from fluidsimulationcuda_torch.kernels import checks
+
+    for side, batch in ((2048, 0), (DATAGEN_N + 2, DATAGEN_BATCH)):
+        for chain in (False, True):
+            compare(checks.k1_checks(side, "cuda", SEED, batch, bf16, chain),
+                    0.0, errs, "bit for bit")
+
+
+def k1_timed_against_both(check_list, errs: dict[str, float]) -> None:
+    """The timing checks whose call has a K1 solve in it (those carrying
+    the same call on the per-sweep K1, ``chain``), against their plain
+    version and against that chain, on the inputs they are timed on: bit
+    for bit."""
+    timed = [c for c in check_list if c.chain is not None]
+    compare(timed, 0.0, errs, "bit for bit")
+    compare([dataclasses.replace(c, label=f"{c.label} vs per-sweep K1",
+                                 plain=c.chain) for c in timed],
+            0.0, errs, "bit for bit")
 
 
 def compare(check_list, tol: float, errs: dict[str, float],
@@ -1819,12 +1887,14 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
                                       float | None]]:
     """Device ms of each timing check, kernel beside plain: CUDA graphs of
     20 calls, timed in turns plain, kernel, kernel, plain (plain, kernel,
-    composed, composed, kernel, plain where the check carries the
-    composition a fused kernel replaces); with the bound (the least time
-    for the bytes and operations of its launches over the HBM and float32
-    peaks), a gather's library yardstick (``library_gather_ms``), the share
-    of K4's or K6's blocks that stage their footprint box and, given the
-    launch ``floor``, the call's launches times that floor."""
+    composed, chain, chain, composed, kernel, plain where the check carries
+    the composition a fused kernel replaces or the same call on the
+    per-sweep K1); with the bound (the least time for the bytes the call
+    must move, its inputs read once and its outputs written once, and its
+    operations, over the HBM and float32 peaks), a gather's library
+    yardstick (``library_gather_ms``), the share of K4's or K6's blocks
+    that stage their footprint box and, given the launch ``floor``, the
+    call's launches times that floor."""
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
 
     times = {}
@@ -1834,6 +1904,10 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
         k1 = checks.device_ms(c.run)
         if c.composed is not None:
             c1 = checks.device_ms(c.composed)
+        if c.chain is not None:
+            s1 = checks.device_ms(c.chain)
+            s2 = checks.device_ms(c.chain)
+        if c.composed is not None:
             c2 = checks.device_ms(c.composed)
         k2 = checks.device_ms(c.run)
         p2 = checks.device_ms(c.plain)
@@ -1847,6 +1921,10 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
                 f"{100 * bound / kernel:.1f}% of it)")
         if c.composed is not None:
             line += f"  composition it replaces {(c1 + c2) / 2:.5f} ms"
+        if c.chain is not None:
+            chain = (s1 + s2) / 2
+            line += (f"  per-sweep K1 {chain:.5f} ms ({chain / kernel:.2f}x "
+                     f"the tiled K1's)")
         if library is not None:
             line += f"  grid_sample (gather only) {library:.5f} ms"
         if c.boxes is not None:

@@ -30,7 +30,10 @@ are the 3-D step's first and second ``advect3_kernel`` launches.
 with the same C entry points, e.g. the parent commit unpacked with ``git
 archive``) and traces the step four times, with its kernels, this tree's,
 this tree's and its kernels again, on the same card in one process, each
-trace from the same state.  The card's name and power limit come
+trace from the same state.  ``--per-sweep`` does the same with this
+tree's solves on the tiled K1 and on the per-sweep K1
+(``cuda_ops.launch_sweeps(0)``), the chain the tiled K1 replaced: tiled,
+per-sweep, per-sweep, tiled.  The card's name and power limit come
 with the numbers.  Exits non-zero without a card or when the trace holds no
 device time.
 """
@@ -38,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import os
 import subprocess
 import sys
@@ -62,6 +66,7 @@ def main() -> None:
     ap.add_argument("--split", action="append", default=[])
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--per-sweep", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
@@ -125,6 +130,16 @@ def main() -> None:
           f"{args.slabs or 'no'} slabs, batch {args.batch or 'none'}"
           f"{f' (window {cfg.max_courant})' if args.batch else ''}, "
           f"{args.steps} traced steps ({card})")
+    if args.per_sweep:
+        from fluidsimulationcuda_torch.kernels import cuda_ops
+
+        for per_launch in (None, 0, 0, None):
+            print(f"\n[{'per-sweep K1' if per_launch == 0 else 'tiled K1'}]")
+            with (cuda_ops.launch_sweeps(per_launch) if per_launch == 0
+                  else contextlib.nullcontext()):
+                step(state, drive)  # warm-up
+                trace(step, state, drive, args)
+        return
     if not args.parent:
         trace(step, state, drive, args)
         return

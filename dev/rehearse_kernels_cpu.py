@@ -14,7 +14,9 @@ thread after another.  A source that calls ``__syncthreads()`` (K4, which
 stages a block's footprint in shared memory) launches instead with a
 ``std::thread`` per thread of the block, all running together, the blocks
 one after another: ``__shared__`` storage is static, which is the running
-block's, ``__syncthreads()`` is a C++20 ``std::barrier`` of the block,
+block's, as is the launch's dynamic ``extern __shared__`` buffer (the
+tiled K1, ``csrc/jacobi_tiles.cu``), ``__syncthreads()`` is a C++20
+``std::barrier`` of the block,
 ``__reduce_max_sync`` one of the warp, and a block whose threads passed
 different numbers of barriers aborts the run.  The shim counts the blocks
 of K4 that stage their footprint and those that take the direct path
@@ -36,8 +38,10 @@ form runs one block an SM.  The wrappers of ``kernels/cuda_ops.py``,
 against that library on CPU tensors (their device checks, stream and
 loader patched), and:
 
-- every check of ``kernels/checks.py`` (``kernel_checks`` and, on a batch
-  of three grids, ``kernel_checks_flows`` at ``--side2``,
+- every check of ``kernels/checks.py`` (``kernel_checks``, ``k1_checks``
+  against the plain version and the per-sweep K1 chain, one grid and a
+  batch of three, float32 and bf16, and, on a batch of three grids,
+  ``kernel_checks_flows`` at ``--side2``,
   ``kernel_checks3`` and ``kernel_checks_flows`` at ``--side3``,
   ``kernel_checks_slab`` for slabs of ``--slab-side``/4 rows at
   ``--slab-side``, ``kernel_checks_slab3`` and
@@ -109,7 +113,7 @@ inline thread_local dim3 blockIdx, threadIdx;
 inline dim3 blockDim, gridDim;
 inline int cudaGetLastError() { return 0; }
 using std::fmaf; using std::fmaxf; using std::fminf;
-template <class F> void shim_launch(dim3 g, dim3 b, F f) {
+template <class F> void shim_launch(dim3 g, dim3 b, size_t, F f) {
   gridDim = g; blockDim = b;
   for (unsigned bz = 0; bz < g.z; ++bz)
     for (unsigned by = 0; by < g.y; ++by)
@@ -185,10 +189,14 @@ inline void shim_block_path(bool direct) {
   if (shim_tid == 0) ++shim_paths[direct];
 }
 #define FSC_BLOCK_PATH(direct) shim_block_path(direct)
-template <class F> void shim_launch_block(dim3 g, dim3 b, F f) {
+// The block's dynamic shared memory (smem bytes) is one buffer, which the
+// blocks take in turn.
+inline thread_local char* shim_smem;
+template <class F> void shim_launch_block(dim3 g, dim3 b, size_t smem, F f) {
   gridDim = g; blockDim = b;
   const int nt = b.x * b.y * b.z;
   ShimBlock blk(nt);
+  std::vector<char> mem(smem + 1);
   std::vector<int> syncs(nt);
   bool uneven = false;
   std::vector<std::thread> threads;
@@ -196,6 +204,7 @@ template <class F> void shim_launch_block(dim3 g, dim3 b, F f) {
     threads.emplace_back([&, t] {
       shim_block = &blk;
       shim_tid = t;
+      shim_smem = mem.data();
       threadIdx = dim3(t % b.x, t / b.x % b.y, t / (b.x * b.y));
       for (unsigned bz = 0; bz < g.z; ++bz)
         for (unsigned by = 0; by < g.y; ++by)
@@ -221,7 +230,6 @@ template <class F> void shim_launch_block(dim3 g, dim3 b, F f) {
 // module docstring).
 inline std::barrier<>* shim_grid;
 inline thread_local int shim_grid_syncs;
-inline thread_local char* shim_smem;
 inline void shim_grid_sync() { ++shim_grid_syncs; shim_grid->arrive_and_wait(); }
 template <class T> T* shim_dynamic_smem() { return reinterpret_cast<T*>(shim_smem); }
 template <class... A, size_t... I>
@@ -338,8 +346,10 @@ def build_shim_library(names: tuple[str, ...] | None = None,
         shim = "shim_launch_block" if "__syncthreads" in text else "shim_launch"
 
         def launch(m):
-            grid, block = _top_level_args(m.group(2))[:2]
-            return f"{shim}({grid}, {block}, [&] {{ {m.group(1)}({m.group(3)}); }});"
+            grid, block, *rest = _top_level_args(m.group(2))
+            smem = rest[0] if rest else "0"
+            return (f"{shim}({grid}, {block}, {smem}, "
+                    f"[&] {{ {m.group(1)}({m.group(3)}); }});")
 
         target = gen / (path.stem + ".cpp" if path.suffix == ".cu" else path.name)
         target.write_text(LAUNCH.sub(launch, text))
@@ -433,7 +443,11 @@ def main() -> int:
                                                 ndim=3)
                   + checks.kernel_checks_bf16(args.side2, "cpu", 1)
                   + checks.kernel_checks_bf16(args.side2, "cpu", 1,
-                                              batch=3))
+                                              batch=3)
+                  + [c for batch in (0, 3) for bf16 in (False, True)
+                     for chain in (False, True)
+                     for c in checks.k1_checks(args.side2, "cpu", 1, batch,
+                                               bf16, chain)])
     for c in check_list:
         with kernels_on_cpu(lib):
             cuda_ops.reset_launch_counts()

@@ -43,9 +43,12 @@ class SimConfig:
         (``"cuda"``) unless the caller asks for ``"cpu"``.
       fuse_sweeps, max_courant: the multi-device steps' sweeps per halo
         exchange (0: 20) and gather window in cells, as in the JAX
-        package.  The single-device steps run one sweep per launch, so
-        ``fuse_sweeps`` changes nothing there; ``max_courant`` is the 2-D
-        step's window under ``advect_mode="windowed"``.
+        package.  The single-device 2-D step runs T sweeps of a solve per
+        launch of the tiled K1, T a constant of the kernel chosen by
+        measurement (``cuda_ops.SWEEPS_PER_LAUNCH``), and the 3-D step one
+        sweep per launch, so ``fuse_sweeps`` changes nothing there;
+        ``max_courant`` is the 2-D step's window under
+        ``advect_mode="windowed"``.
       pressure_solver: ``"jacobi"`` and ``"chebyshev"`` everywhere;
         ``"multigrid"`` (``mg_cycles`` V-cycles, ``ops/multigrid.py``) and
         ``"cg"`` (``cg_iters`` iterations, ``ops/cg.py``) in the 2-D step,

@@ -1,28 +1,33 @@
 // K1 jacobi_sweep: one Jacobi (or Chebyshev) sweep of a batch of padded
-// grids.
+// grids, the per-sweep form of K1.
 //
-// Replaces the sweep body of the TPU kernel _jacobi_kernel
-// (fluidsimulationcuda_tpu/kernels/pallas_ops.py:301, pallas_call at :645)
-// and is the sweep engine of the projection (:899) and of the fused density
-// step (:1480).  The TPU kernel fuses up to 20 sweeps per VMEM round-trip in
-// row strips with K-deep margins; here one launch is one sweep and the
-// wrapper ping-pongs between scratch tensors, so nothing is carried between
-// blocks.  Like the TPU kernel's batch program axis, the launch's grid
-// layers are the grids of a batch, each swept alone; grids [0, nb1) take
-// boundary mode b and the rest b1, which is the u/v pair of
-// fused_jacobi_pair (:671, the TPU kernel's nb1 at :393-400).  With the
-// kDamp flag a sweep is damped Jacobi, (1-w)*x + w*sweep in the TPU
-// kernel's order (damp, :432-459): the smoother of the multigrid pressure
-// solve (ops/multigrid.py), w = 0.8.  1-w comes from the host, rounded to
-// float32 once from the double 1 - damp as the TPU kernel takes it (:434);
-// 1.0f - 0.8f on the device is one ulp away.  The damped form is its own
-// instantiation, so the undamped sweep compiles as it did without it.
+// Replaces, one sweep a launch, the sweep body of the TPU kernel
+// _jacobi_kernel (fluidsimulationcuda_tpu/kernels/pallas_ops.py:301,
+// pallas_call at :645), which fuses up to 20 sweeps per VMEM round-trip in
+// row strips with K-deep margins.  The solves of the 2-D step run on the
+// tiled K1 (jacobi_tiles.cu), which computes what this kernel's launches
+// compute, T sweeps a launch; this kernel is the multigrid smoother (its
+// damped form) and the per-sweep chain the tiled K1 is held against and
+// timed beside (cuda_ops.launch_sweeps(0)).  Like the TPU kernel's batch
+// program axis, the launch's grid layers are the grids of a batch, each
+// swept alone; grids [0, nb1) take boundary mode b and the rest b1, which
+// is the u/v pair of fused_jacobi_pair (:671, the TPU kernel's nb1 at
+// :393-400).  With the kDamp flag a sweep is damped Jacobi, (1-w)*x +
+// w*sweep in the TPU kernel's order (damp, :432-459): the smoother of the
+// multigrid pressure solve (ops/multigrid.py), w = 0.8.  1-w comes from the
+// host, rounded to float32 once from the double 1 - damp as the TPU kernel
+// takes it (:434); 1.0f - 0.8f on the device is one ulp away.  The damped
+// form is its own instantiation, so the undamped sweep compiles as it did
+// without it.
 //
-// Bound: device memory.  A sweep reads x (five points, four of them shared
-// with neighbouring threads through L1/L2), rhs, and for Chebyshev x_{k-1},
-// and writes one value: 12-16 bytes a cell, no reuse across launches beyond
-// what the 50 MB L2 keeps of a 16 MB (2048^2) field.  The border is derived
-// in the same launch (fsc_common.cuh), so a sweep costs one pass, not two.
+// Bound: device memory.  A launch reads x (five points, four of them
+// shared with neighbouring threads through L1/L2), rhs, and for Chebyshev
+// x_{k-1}, and writes one value: 12-16 bytes a cell a sweep, where the
+// solve needs 8-12 bytes a cell in all (kernels/checks.py: _sweeps_cost),
+// so a 20-sweep solve on one launch a sweep runs at 2-5% of its bound.  The
+// tiled K1 keeps the iterate in shared memory between sweeps for that
+// reason.  The border is derived in the same launch (fsc_common.cuh), so a
+// sweep costs one pass, not two.
 //
 // The bf16 form (fsc_jacobi_sweep_bf16) is the TPU kernel's bf16 storage
 // mode (xs2/rhs2 in bf16, buf_b/buf_c in float32, pallas_ops.py:315-316):
@@ -31,9 +36,7 @@
 // first sweep reads the caller's bf16 guess, its second the bf16 guess as
 // x_{k-1} (Chebyshev), the middle sweeps float32 scratch, and its last
 // writes bf16: each a template instantiation over the types of x, x_{k-1}
-// and out, chosen at launch.  The bytes shrink only where bf16 is read or
-// written (the rhs, the first reads, the last write): about 0.81 of the
-// float32 solve's at 20 sweeps.
+// and out, chosen at launch.
 #include "fsc_common.cuh"
 
 namespace {

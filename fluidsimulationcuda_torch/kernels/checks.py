@@ -8,12 +8,14 @@ it.  Inputs come from ``np.random.default_rng(seed)``: fields in [-1, 1],
 velocities scaled so the backtrace moves at most two cells (six for the
 gathers that test the window clamp).
 
-A timed check also carries its cost: the field-sized arrays its launches
-must move (each launch reading each input once and writing each output
-once) and its float operations per cell.  ``Check.bound()`` turns them into
-the least time the card could take for the same launches.  A fused kernel's
-timed check also carries the composition it replaces (``composed``), timed
-beside it.
+A timed check also carries its cost: the field-sized arrays the call must
+move (each of its inputs read once and each of its outputs written once,
+whatever its launches read again; a solve's intermediate iterates are
+neither) and its float operations per cell.  ``Check.bound()`` turns them
+into the least time the card could take for the same work.  A fused
+kernel's timed check also carries the composition it replaces
+(``composed``), and a call with K1 solves in it the same call on the
+per-sweep K1 (``chain``), each timed beside it.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "timing_checks3_windowed", "K4_TILE", "K4_BOX_CAP",
            "footprint_boxes", "gather_velocities", "kernel_checks_flows",
            "staged_share", "max_abs_diff", "device_ms",
-           "kernel_checks_bf16", "timing_checks_bf16"]
+           "kernel_checks_bf16", "timing_checks_bf16", "k1_checks"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -75,6 +77,8 @@ class Check:
     cost: tuple[int, int] = (0, 0)  # (field passes, float ops per cell)
     cells: int = 0  # cells of one field
     composed: Callable[[], object] | None = None  # what a fusion replaces
+    # The same call with its K1 solves on the per-sweep K1 (``_k1_timed``).
+    chain: Callable[[], object] | None = None
     # A gather's fields and its departure coordinates (x, y[, z]) in each
     # field's own cells, for a library gather's time beside the kernel's.
     gather: Callable[[], tuple[list, tuple]] | None = None
@@ -104,53 +108,75 @@ def _timed(cost: tuple[int, int], cells: int, label, kernels, fn, plain,
     return check
 
 
-def _add(*costs: tuple[int, int]) -> tuple[int, int]:
-    return sum(c[0] for c in costs), sum(c[1] for c in costs)
+def _per_sweep(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every K1 solve in it on the per-sweep K1
+    (``cuda_ops.launch_sweeps(0)``)."""
+    with co.launch_sweeps(0):
+        return fn(*args, **kw)
 
 
-def _sweep_costs(iters: int, ndim: int, *, zero_init=False, src=False,
-                 fast=False, cheby=False, damp=False, bf16=False):
-    """(field passes, float ops per cell) of each sweep launch of one
-    solve, as ``cuda_ops._Sweeps`` runs them: each reads its x (none for
-    the zero guess), x_{k-1} (the Chebyshev combine) and rhs, writes its
-    output, and the first also writes the rhs it builds (the folded source
-    is the guess x itself).  The damped combine reads x again (no pass).
-    A pass is a float32 field's; in K1's bf16 form (``bf16``) the rhs, the
-    rhs it builds, the caller's guess (read as x, then as x_{k-1}) and the
-    last output are bf16 and count half, the float32 iterate in between
-    whole."""
+def _k1_timed(cost: tuple[int, int], cells: int, label, kernels, fn, plain,
+              *args, **kw) -> Check:
+    """A timed check of a call whose K1 solves take the tiled K1, carrying
+    the same call on the per-sweep K1 (``chain``), timed beside it."""
+    check = _timed(cost, cells, label, kernels, fn, plain, *args, **kw)
+    check.chain = functools.partial(_per_sweep, fn, *args, **kw)
+    return check
+
+
+def _sweep_ops(iters: int, ndim: int, *, src=False, fast=False,
+               cheby=False, damp=False) -> list[int]:
+    """Float operations per cell of each sweep of one solve: the neighbour
+    sum, alpha*sum + rhs and /beta; the first sweep of a folded or fast
+    solve also builds the rhs; a Chebyshev sweep after the first combines
+    with x_{k-1}; a damped sweep blends with x_k."""
+    prep = src or fast
+    return [(2 * ndim + 2) + ((2 * src + fast) if prep and k == 0 else 0)
+            + 4 * (cheby and k >= 1) + 3 * damp for k in range(iters)]
+
+
+def _sweeps_cost(iters: int, ndim: int, *, zero_init=False, bf16=False,
+                 **kw) -> tuple[float, int]:
+    """Cost of one solve of ``iters`` sweeps over a whole grid: its
+    inputs read once (the guess, none for the zero guess, and the rhs or
+    base; the folded source is the guess) and its result written once, at
+    their storage widths (in K1's bf16 form a bf16 field counts half a
+    float32 pass), whatever its launches read again; and the operations of
+    every sweep (``_sweep_ops``)."""
     store = 0.5 if bf16 else 1
-    x_pass, xm_pass, prep = (0 if zero_init else store), 0, src or fast
-    for k in range(iters):
-        combine = cheby and k >= 1
-        out = store if k == iters - 1 else 1
-        # neighbour sum, alpha*sum + rhs, /beta; fold; combine; damping
-        yield (x_pass + (xm_pass if combine else 0) + store + out
-               + (store if prep else 0),
-               (2 * ndim + 2) + (2 * src + fast if prep else 0) + 4 * combine
-               + 3 * damp)
-        xm_pass, x_pass, prep = x_pass, 1, False
+    return ((0 if zero_init else store) + 2 * store,
+            sum(_sweep_ops(iters, ndim, **kw)))
 
 
-def _sweeps_cost(iters: int, ndim: int, **kw) -> tuple[int, int]:
-    """Cost of the sweep launches of one solve over a whole grid."""
-    costs = list(_sweep_costs(iters, ndim, **kw))
-    return sum(c[0] for c in costs), sum(c[1] for c in costs)
-
-
-def _slab_sweeps_cost(iters: int, rows: int, side: int,
+def _slab_sweeps_cost(iters: int, rows: int, side: int, *, zero_init=False,
                       **kw) -> tuple[int, int]:
-    """Cost of the K9 launches of one slab solve, in field-cells (use with
-    ``cells=1``): sweep k computes rows [k, rows-k) of the buffer."""
-    fields = ops = 0
-    for k, (f, o) in enumerate(_sweep_costs(iters, 2, **kw), start=1):
-        cells = (rows - 2 * k) * side
-        fields, ops = fields + f * cells, ops + o * cells
-    return fields, ops
+    """Cost of one slab solve on a buffer of ``rows`` rows, in field-cells
+    (use with ``cells=1``): the buffer's guess (none for the zero guess)
+    and rhs read once, the rows its last sweep computes written once;
+    sweep k computes rows [k, rows-k)."""
+    ops = sum(o * (rows - 2 * k) * side for k, o in
+              enumerate(_sweep_ops(iters, 2, **kw), start=1))
+    return ((1 - zero_init + 1) * rows + rows - 2 * iters) * side, ops
 
 
 def _scaled(cost: tuple[int, int], cells: int) -> tuple[int, int]:
     return cost[0] * cells, cost[1] * cells
+
+
+def _function(passes: float, *costs: tuple[float, int]) -> tuple[float, int]:
+    """The cost of a call that composes ``costs``: the call's own inputs
+    and outputs, ``passes``, each once; every part's operations."""
+    return passes, sum(c[1] for c in costs)
+
+
+def _project(solve: tuple[float, int], bf16: bool = False
+             ) -> tuple[float, int]:
+    """``fused_project``'s cost with the pressure ``solve``: u and v read
+    and written once (bf16 in bf16 storage), the divergence, the solve's
+    and the gradient's operations."""
+    if bf16:
+        return _function(2, DIV2_BF16, solve, GRAD2_BF16)
+    return _function(4, DIV2, solve, GRAD2)
 
 
 # (field passes, float ops per cell) of one launch of the other kernels.
@@ -162,7 +188,10 @@ ADVECT2_PAIR, ADVECT2_ONE = (4, 24), (4, 18)
 DIV2_BF16, DIVP_BF16 = (2, 4), (1.5, 4)
 GRAD2_BF16, GRADP_BF16 = (3, 8), (2.5, 8)
 ADVECT2_PAIR_BF16, ADVECT2_ONE_BF16 = (2, 24), (2, 18)
-DENS_ADVECT = (5, 50)  # four stencil evaluations and a bilinear blend
+# K4 alone, and the function fused_dens_advect at any sweep count: src,
+# base, u and v read, the result written; four stencil evaluations and a
+# bilinear blend.
+DENS_ADVECT = (5, 50)
 DIV3, GRAD3 = (4, 6), (7, 12)
 ADVECT3_ONE, ADVECT3_TRIPLE = (5, 39), (6, 81)
 
@@ -267,10 +296,10 @@ def _shear_velocities(shape: tuple[int, ...], ndim: int,
     return [np.ascontiguousarray(f) for _ in range(ndim)]
 
 
-JAC = ("jacobi_sweep",)
+JAC = ("jacobi_sweeps",)
 DAMP = ("jacobi_sweep_damp",)
-PROJ = ("divergence", "jacobi_sweep", "gradient")
-DENS = ("jacobi_sweep", "dens_advect")
+PROJ = ("divergence", "jacobi_sweeps", "gradient")
+DENS = ("jacobi_sweeps", "dens_advect")
 TAIL = ("advect_project",)
 CMAX = 4  # SimConfig.max_courant's default: the windowed step's window
 
@@ -386,8 +415,10 @@ def _dens_timed(t: "_Inputs", label: str, u, v, iters: int, cmax=None,
     source and base ``fields`` (``t.src``, ``t.x0`` by default)."""
     ad = t.a_diff
     src, base = fields or (t.src, t.x0)
-    cost = _add(_sweeps_cost(iters - 1, 2, src=True), DENS_ADVECT)
-    check = _timed(cost, t.cells, label,
+    cost = _function(DENS_ADVECT[0], _sweeps_cost(iters - 1, 2, src=True),
+                     DENS_ADVECT)
+    make = _k1_timed if iters > 1 else _timed
+    check = make(cost, t.cells, label,
                    ("dens_advect",) if iters == 1 else DENS,
                    co.fused_dens_advect, co.fused_dens_advect_plain, 0, src,
                    base, u, v, ad, 1 + 4 * ad, iters, DT, t.n, cmax=cmax)
@@ -409,15 +440,18 @@ def _gather3(fields, u, v, w, n: int, cmax=None):
 
 def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times: first one launch of each CUDA kernel
-    (labelled by the kernel's name) beside its plain version, then each
-    wrapper at the main path's iteration counts; K4 also on smooth and
-    shear velocities, and at 20 sweeps beside the unfused density step (K1
-    then K3) that it has to beat (ROADMAP B4), also on a density blob."""
+    (labelled by the kernel's name; the tiled K1's runs T sweeps, the
+    per-sweep K1's one) beside its plain version, then each wrapper at the
+    main path's iteration counts, each with K1 solves in it beside the
+    same call on the per-sweep K1 (``chain``); K4 also on smooth and shear
+    velocities, and at 20 sweeps beside the unfused density step (K1 then
+    K3), also on a density blob."""
     t = _Inputs(side, device, seed)
     n, av, ad, cells = t.n, t.a_visc, t.a_diff, t.cells
     bv, bd = 1 + 4 * av, 1 + 4 * ad
     rho, k_d, k_p = PERF_POINTS_2D[2048]
     us, vs = t.smooth
+    per_launch = co.SWEEPS_PER_LAUNCH
 
     def sweeps(iters, **kw):
         return _sweeps_cost(iters, 2, **kw)
@@ -427,7 +461,11 @@ def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
                     (1, 2), (t.u, t.v), t.u, t.v, DT, n)
     advect.gather = _gather2((t.u, t.v), t.u, t.v, n)
     return [
-        _timed(sweeps(1), cells, "jacobi_sweep", JAC, co.fused_jacobi,
+        _k1_timed(sweeps(per_launch), cells, "jacobi_sweeps", JAC,
+                  co.fused_jacobi, co.fused_jacobi_plain, 1, t.x, t.x0, av,
+                  bv, per_launch),
+        _timed(sweeps(1), cells, "jacobi_sweep", ("jacobi_sweep",),
+               functools.partial(_per_sweep, co.fused_jacobi),
                co.fused_jacobi_plain, 1, t.x, t.x0, av, bv, 1),
         _timed(DIV2, cells, "divergence", ("divergence",), co.divergence_p,
                co.divergence_p_plain, t.u, t.v, n),
@@ -437,31 +475,37 @@ def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
         _dens_timed(t, "dens_advect", t.u, t.v, 1),
         _dens_timed(t, "dens_advect smooth velocities", us, vs, 1),
         _dens_timed(t, "dens_advect shear velocities", *t.shear, 1),
-        _timed(sweeps(20, src=True), cells,
-               "fused_jacobi 20it src_dt (u diffusion)", JAC, co.fused_jacobi,
-               co.fused_jacobi_plain, 1, t.src, t.x0, av, bv, 20, src_dt=DT),
-        _timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
-               f"fused_jacobi {k_d}it chebyshev+fast", JAC, co.fused_jacobi,
-               co.fused_jacobi_plain, 1, t.src, t.x0, av, bv, k_d, src_dt=DT,
-               fast=True, cheby_rho=rho),
-        _timed(_add(DIV2, sweeps(20, zero_init=True), GRAD2), cells,
-               "fused_project 20it", PROJ, co.fused_project,
-               co.fused_project_plain, t.u, t.v, n, 20),
-        _timed(_add(DIV2, sweeps(k_p, zero_init=True, cheby=True), GRAD2),
-               cells, f"fused_project {k_p}it chebyshev", PROJ,
-               co.fused_project, co.fused_project_plain, t.u, t.v, n, k_p,
-               cheby_rho=rho),
+        _k1_timed(sweeps(20, src=True), cells,
+                  "fused_jacobi 20it src_dt (u diffusion)", JAC,
+                  co.fused_jacobi, co.fused_jacobi_plain, 1, t.src, t.x0, av,
+                  bv, 20, src_dt=DT),
+        _k1_timed(sweeps(20, zero_init=True), cells,
+                  "fused_jacobi 20it zero_init (pressure)", JAC,
+                  co.fused_jacobi, co.fused_jacobi_plain, 0, t.p, t.p, 1.0,
+                  4.0, 20, zero_init=True),
+        _k1_timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
+                  f"fused_jacobi {k_d}it chebyshev+fast", JAC,
+                  co.fused_jacobi, co.fused_jacobi_plain, 1, t.src, t.x0, av,
+                  bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
+        _k1_timed(_project(sweeps(20, zero_init=True)), cells,
+                  "fused_project 20it", PROJ, co.fused_project,
+                  co.fused_project_plain, t.u, t.v, n, 20),
+        _k1_timed(_project(sweeps(k_p, zero_init=True, cheby=True)), cells,
+                  f"fused_project {k_p}it chebyshev", PROJ, co.fused_project,
+                  co.fused_project_plain, t.u, t.v, n, k_p, cheby_rho=rho),
         _dens_timed(t, "fused_dens_advect 20it", t.u, t.v, 20),
         _dens_timed(t, "fused_dens_advect 20it smooth velocities", us, vs,
                     20),
         _dens_timed(t, "fused_dens_advect 20it smooth velocities, a density "
                     "blob", us, vs, 20, fields=(torch.zeros_like(t.blob),
                                                 t.blob)),
-        _timed(_add(sweeps(k_d - 1, src=True, fast=True, cheby=True),
-                    DENS_ADVECT), cells,
-               f"fused_dens_advect {k_d}it chebyshev+fast", DENS,
-               co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
-               t.x0, t.u, t.v, ad, bd, k_d, DT, n, fast=True, cheby_rho=rho),
+        _k1_timed(_function(DENS_ADVECT[0],
+                            sweeps(k_d - 1, src=True, fast=True, cheby=True),
+                            DENS_ADVECT), cells,
+                  f"fused_dens_advect {k_d}it chebyshev+fast", DENS,
+                  co.fused_dens_advect, co.fused_dens_advect_plain, 0, t.src,
+                  t.x0, t.u, t.v, ad, bd, k_d, DT, n, fast=True,
+                  cheby_rho=rho),
     ]
 
 
@@ -658,13 +702,15 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
     (the batched datagen step's shapes): one launch of each of K1-K4
     beside its plain version (K4 also on smooth velocities, and exact on
     shear velocities), then each wrapper at the step's counts (K4 at 20
-    sweeps on random and smooth velocities, beside K1 20it + K3).  The
-    bound counts every grid of the batch."""
+    sweeps on random and smooth velocities, beside K1 20it + K3), K1's
+    solves beside the per-sweep K1 (``chain``).  The bound counts every
+    grid of the batch."""
     t = _Inputs(side, device, seed, batch=nb)
     n, av, ad, cells = t.n, t.a_visc, t.a_diff, t.cells
     bv, bd = 1 + 4 * av, 1 + 4 * ad
     rho, k_d, k_p = PERF_POINTS_2D[2048]
     tag = f"{nb}x{side}²"
+    per_launch = co.SWEEPS_PER_LAUNCH
 
     def sweeps(iters, **kw):
         return _sweeps_cost(iters, 2, **kw)
@@ -675,7 +721,11 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
                     (1, 2), (t.u, t.v), t.u, t.v, DT, n, cmax)
     advect.gather = _gather2((t.u, t.v), t.u, t.v, n, cmax)
     return [
-        _timed(sweeps(1), cells, f"{tag} jacobi_sweep", JAC, co.fused_jacobi,
+        _k1_timed(sweeps(per_launch), cells, f"{tag} jacobi_sweeps", JAC,
+                  co.fused_jacobi, co.fused_jacobi_plain, 1, t.x, t.x0, av,
+                  bv, per_launch),
+        _timed(sweeps(1), cells, f"{tag} jacobi_sweep", ("jacobi_sweep",),
+               functools.partial(_per_sweep, co.fused_jacobi),
                co.fused_jacobi_plain, 1, t.x, t.x0, av, bv, 1),
         _timed(DIV2, cells, f"{tag} divergence", ("divergence",),
                co.divergence_p, co.divergence_p_plain, t.u, t.v, n),
@@ -688,20 +738,21 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
                     *t.smooth, 1, cmax),
         _dens_timed(t, f"{tag} dens_advect exact, shear velocities",
                     *t.shear, 1),
-        _timed(sweeps(20, src=True), cells, f"{tag} fused_jacobi 20it src_dt",
-               JAC, co.fused_jacobi, co.fused_jacobi_plain, 1, t.src, t.x0,
-               av, bv, 20, src_dt=DT),
-        _timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
-               f"{tag} fused_jacobi {k_d}it chebyshev+fast", JAC,
-               co.fused_jacobi, co.fused_jacobi_plain, 1, t.src, t.x0, av,
-               bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
-        _timed(_add(DIV2, sweeps(20, zero_init=True), GRAD2), cells,
-               f"{tag} fused_project 20it", PROJ, co.fused_project,
-               co.fused_project_plain, t.u, t.v, n, 20),
-        _timed(_add(DIV2, sweeps(k_p, zero_init=True, cheby=True), GRAD2),
-               cells, f"{tag} fused_project {k_p}it chebyshev", PROJ,
-               co.fused_project, co.fused_project_plain, t.u, t.v, n, k_p,
-               cheby_rho=rho),
+        _k1_timed(sweeps(20, src=True), cells,
+                  f"{tag} fused_jacobi 20it src_dt", JAC, co.fused_jacobi,
+                  co.fused_jacobi_plain, 1, t.src, t.x0, av, bv, 20,
+                  src_dt=DT),
+        _k1_timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
+                  f"{tag} fused_jacobi {k_d}it chebyshev+fast", JAC,
+                  co.fused_jacobi, co.fused_jacobi_plain, 1, t.src, t.x0, av,
+                  bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
+        _k1_timed(_project(sweeps(20, zero_init=True)), cells,
+                  f"{tag} fused_project 20it", PROJ, co.fused_project,
+                  co.fused_project_plain, t.u, t.v, n, 20),
+        _k1_timed(_project(sweeps(k_p, zero_init=True, cheby=True)), cells,
+                  f"{tag} fused_project {k_p}it chebyshev", PROJ,
+                  co.fused_project, co.fused_project_plain, t.u, t.v, n, k_p,
+                  cheby_rho=rho),
         _dens_timed(t, f"{tag} fused_dens_advect 20it cmax={cmax}", t.u,
                     t.v, 20, cmax),
         _dens_timed(t, f"{tag} fused_dens_advect 20it cmax={cmax} smooth "
@@ -711,8 +762,8 @@ def timing_checks_batched(nb: int, side: int, device, seed: int = 0,
 
 # The CUDA kernels of the bf16 wrappers (cuda_ops: each bf16 form counts
 # under its own name).
-JAC16 = ("jacobi_sweep_bf16",)
-PROJ16 = ("divergence_bf16", "jacobi_sweep", "gradient_bf16")
+JAC16 = ("jacobi_sweeps_bf16",)
+PROJ16 = ("divergence_bf16", "jacobi_sweeps", "gradient_bf16")
 
 
 class _Bf16Inputs:
@@ -808,10 +859,11 @@ def timing_checks_bf16(side: int, device, seed: int = 0,
     """What ``chip_smoke.py`` times of the bf16 forms at grid ``side`` (a
     batch if given), each beside the same call in float32 on the same
     values and beside its plain version: first one launch of each form on
-    the main path (labelled by its count's name: K1 one sweep, K2's
-    divergence into float32 and gradient from a float32 pressure, K3's u/v
-    pair), then K2's standalone forms and the wrappers at the step's
-    counts."""
+    the main path (labelled by its count's name: the tiled K1's T sweeps,
+    the per-sweep K1's one sweep, K2's divergence into float32 and
+    gradient from a float32 pressure, K3's u/v pair), then K2's standalone
+    forms and the wrappers at the step's counts, K1's solves beside the
+    per-sweep K1 (``chain``)."""
     t = _Bf16Inputs(side, device, seed, batch)
     w = _Inputs(side, device, seed, batch=batch)
     n, av, cells = t.n, t.a_visc, t.cells
@@ -819,6 +871,8 @@ def timing_checks_bf16(side: int, device, seed: int = 0,
     rho, k_d, k_p = PERF_POINTS_2D[2048]
     f32 = torch.float32
     tag = f"{batch}x{side}² " if batch else ""
+    per_launch = co.SWEEPS_PER_LAUNCH
+    chain = functools.partial(_per_sweep, co.fused_jacobi)
 
     def sweeps(iters, **kw):
         return _sweeps_cost(iters, 2, **kw)
@@ -826,10 +880,11 @@ def timing_checks_bf16(side: int, device, seed: int = 0,
     def pair(label, kernels, cost16, cost32, fn, plain, args16, args32,
              **kw):
         name = label if not tag else f"{tag}{label}"
-        return [_timed(cost16, cells, name, kernels, fn, plain, *args16,
-                       **kw),
-                _timed(cost32, cells, f"{tag}{label} (float32)", (), fn,
-                       plain, *args32, **kw)]
+        make = _k1_timed if any("jacobi_sweeps" in k for k in kernels) \
+            else _timed
+        return [make(cost16, cells, name, kernels, fn, plain, *args16, **kw),
+                make(cost32, cells, f"{tag}{label} (float32)", (), fn, plain,
+                     *args32, **kw)]
 
     advect = pair("advect_bf16", ("advect_bf16",), ADVECT2_PAIR_BF16,
                   ADVECT2_PAIR, co.advect_shift_fused,
@@ -838,9 +893,13 @@ def timing_checks_bf16(side: int, device, seed: int = 0,
                   ((1, 2), (w.u, w.v), w.u, w.v, DT, n))
     advect[0].gather = _gather2((t.u, t.v), t.u, t.v, n)
     return (
-        pair("jacobi_sweep_bf16", JAC16, sweeps(1, bf16=True), sweeps(1),
-             co.fused_jacobi, co.fused_jacobi_plain,
-             (1, t.x, t.x0, av, bv, 1), (1, w.x, w.x0, av, bv, 1))
+        pair("jacobi_sweeps_bf16", JAC16, sweeps(per_launch, bf16=True),
+             sweeps(per_launch), co.fused_jacobi, co.fused_jacobi_plain,
+             (1, t.x, t.x0, av, bv, per_launch),
+             (1, w.x, w.x0, av, bv, per_launch))
+        + pair("jacobi_sweep_bf16", ("jacobi_sweep_bf16",),
+               sweeps(1, bf16=True), sweeps(1), chain, co.fused_jacobi_plain,
+               (1, t.x, t.x0, av, bv, 1), (1, w.x, w.x0, av, bv, 1))
         + pair("divergence_bf16", ("divergence_bf16",), DIV2_BF16, DIV2,
                co._divergence, co._divergence_plain, (t.u, t.v, n, f32),
                (w.u, w.v, n, f32))
@@ -866,16 +925,52 @@ def timing_checks_bf16(side: int, device, seed: int = 0,
                (1, t.src, t.x0, av, bv, k_d), (1, w.src, w.x0, av, bv, k_d),
                src_dt=DT, fast=True, cheby_rho=rho)
         + pair("fused_project 20it bf16", PROJ16,
-               _add(DIV2_BF16, sweeps(20, zero_init=True), GRAD2_BF16),
-               _add(DIV2, sweeps(20, zero_init=True), GRAD2),
+               _project(sweeps(20, zero_init=True), bf16=True),
+               _project(sweeps(20, zero_init=True)),
                co.fused_project, co.fused_project_plain, (t.u, t.v, n, 20),
                (w.u, w.v, n, 20))
         + pair(f"fused_project {k_p}it chebyshev bf16", PROJ16,
-               _add(DIV2_BF16, sweeps(k_p, zero_init=True, cheby=True),
-                    GRAD2_BF16),
-               _add(DIV2, sweeps(k_p, zero_init=True, cheby=True), GRAD2),
+               _project(sweeps(k_p, zero_init=True, cheby=True), bf16=True),
+               _project(sweeps(k_p, zero_init=True, cheby=True)),
                co.fused_project, co.fused_project_plain,
                (t.u, t.v, n, k_p), (w.u, w.v, n, k_p), cheby_rho=rho))
+
+
+def _k1_cases(t, bf16: bool) -> list[tuple]:
+    """(label, kernels, wrapper, plain version, args, kwargs) of every call
+    with a K1 solve in it: ``fused_jacobi`` in each mode the step runs
+    (``kernel_checks``) and the calls of ``_batched_cases`` (float32) or
+    ``_bf16_cases`` (bf16)."""
+    if bf16:
+        return [c for c in _bf16_cases(t)
+                if any(k.startswith("jacobi_sweeps") for k in c[1])]
+    av = t.a_visc
+    rho, k_d, _ = PERF_POINTS_2D[2048]
+    modes = (("jacobi 20it", 20, dict()),
+             ("chebyshev", k_d, dict(src_dt=DT, cheby_rho=rho)),
+             ("fast 20it", 20, dict(src_dt=DT, fast=True)))
+    return [(f"fused_jacobi b=2 {mode}", JAC, co.fused_jacobi,
+             co.fused_jacobi_plain, (2, t.x, t.x0, av, 1 + 4 * av, k), kw)
+            for mode, k, kw in modes] + [
+        c for c in _batched_cases(t, CMAX) if JAC[0] in c[1]]
+
+
+def k1_checks(side: int, device, seed: int = 0, batch: int = 0,
+              bf16: bool = False, chain: bool = False) -> list[Check]:
+    """Every call with a K1 solve in it (``_k1_cases``) at grid ``side`` (a
+    batch of ``batch`` grids if given; bf16 storage with ``bf16``) against
+    its plain version or, with ``chain``, against the same call on the
+    per-sweep K1: equal bit for bit either way, the tiled K1 computing
+    what the per-sweep launches of its sweeps compute."""
+    t = _Bf16Inputs(side, device, seed, batch) if bf16 else _Inputs(
+        side, device, seed, batch=batch)
+    tag = (f"{batch}x" if batch else "") + f"{side}² " + ("bf16 " if bf16
+                                                          else "")
+    return [_check(f"{tag}{label}{' vs per-sweep K1' if chain else ''}",
+                   kernels, fn,
+                   functools.partial(_per_sweep, fn) if chain else plain,
+                   *args, **kw)
+            for label, kernels, fn, plain, args, kw in _k1_cases(t, bf16)]
 
 
 def _pair_args(t: "_Inputs") -> tuple:
@@ -1224,15 +1319,6 @@ def _split_cases(t: "_SlabInputs", i: int, pos: str, against) -> list[Check]:
             for mode, kw in SPLIT_MODES.items()]
 
 
-def _split_cost(sweeps: int, rows: int, side: int, *, zero_init=False,
-                fast=False) -> tuple[int, int]:
-    """Cost of K18's first sweep (x and rhs read, x_1 and the extended rhs
-    written) and K9's sweeps after it, in field-cells."""
-    f, o = _slab_sweeps_cost(sweeps, rows, side, zero_init=zero_init,
-                             fast=True)
-    return f, o - (0 if fast else (rows - 2) * side)
-
-
 def timing_checks_split(side: int, m: int, device,
                         seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times of K18 on an interior slab of ``m``
@@ -1248,7 +1334,7 @@ def timing_checks_split(side: int, m: int, device,
     for label, sweeps in (("jacobi_slab_split", 1),
                           ("fused_jacobi_slab_split 20it", 20)):
         kw = dict(m=m, K=K, alpha=av, beta=1 + 4 * av, sweeps=sweeps)
-        check = _timed(_split_cost(sweeps, rows, side), 1, label, SPLIT,
+        check = _timed(_slab_sweeps_cost(sweeps, rows, side), 1, label, SPLIT,
                        cs.fused_jacobi_slab_split,
                        cs.fused_jacobi_slab_split_plain, 1, *x, *rhs, fl,
                        **kw)
@@ -1296,9 +1382,11 @@ def timing_checks_slab(side: int, m: int, device,
         return _slab_sweeps_cost(k, m + 2 * K, side, **kw)
 
     def project(k, K, **kw):
-        return _add(_scaled(DIV2, (m + 2 * K - 2) * side),
-                    sweeps(k, K, zero_init=True, **kw),
-                    _scaled(GRAD2, cells))
+        # u and v read over the buffer, the slab's written.
+        return _function(2 * (m + 2 * K) * side + 2 * cells,
+                         _scaled(DIV2, (m + 2 * K - 2) * side),
+                         sweeps(k, K, zero_init=True, **kw),
+                         _scaled(GRAD2, cells))
 
     K20, Kc, Kp, Kd = (_ceil8(21), _ceil8(k_d + 1), _ceil8(20 + 3),
                        _ceil8(20 + 1 + cmax))
@@ -1358,7 +1446,11 @@ def timing_checks_slab(side: int, m: int, device,
                cs.fused_project_slab, cs.fused_project_slab_plain,
                ext(t.u, i, Kpc), ext(t.v, i, Kpc), fl, n=n, iters=k_p, m=m,
                K=Kpc, cheby_rho=rho),
-        _timed(_add(sweeps(20, Kd, src=True), _scaled(ADVECT2_ONE, cells)),
+        # src and base read over the buffer, u and v over the slab, the
+        # slab's density written.
+        _timed(_function(2 * (m + 2 * Kd) * side + 3 * cells,
+                         sweeps(20, Kd, src=True),
+                         _scaled(ADVECT2_ONE, cells)),
                1, "fused_dens_slab 20it", DENS_SLAB, cs.fused_dens_slab,
                cs.fused_dens_slab_plain, 0, ext(t.src, i, Kd),
                ext(t.x0, i, Kd), slab(t.u, i), slab(t.v, i), fl, alpha=ad,
@@ -1407,16 +1499,15 @@ class _Slab3Inputs(_Inputs):
         return e[:1], e[-1:]
 
 
-def _slab3_sweeps_cost(iters: int, planes: int, side: int,
-                       **kw) -> tuple[int, int]:
-    """Cost of the K13 launches of one slab solve segment, in field-cells
-    (use with ``cells=1``): sweep k computes planes [k, planes-k) of the
-    buffer."""
-    fields = ops = 0
-    for k, (f, o) in enumerate(_sweep_costs(iters, 3, **kw), start=1):
-        cells = (planes - 2 * k) * side * side
-        fields, ops = fields + f * cells, ops + o * cells
-    return fields, ops
+def _slab3_sweeps_cost(iters: int, planes: int, side: int, *,
+                       zero_init=False, **kw) -> tuple[int, int]:
+    """Cost of one z-slab solve segment on a buffer of ``planes`` planes,
+    in field-cells (use with ``cells=1``), as ``_slab_sweeps_cost``: sweep
+    k computes planes [k, planes-k)."""
+    plane = side * side
+    ops = sum(o * (planes - 2 * k) * plane for k, o in
+              enumerate(_sweep_ops(iters, 3, **kw), start=1))
+    return ((1 - zero_init + 1) * planes + planes - 2 * iters) * plane, ops
 
 
 def kernel_checks_slab3(side: int, mz: int, device,

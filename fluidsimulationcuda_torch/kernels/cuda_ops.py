@@ -22,8 +22,9 @@ float32 from the first sweep to the last, and only the folded or
 prescaled rhs and the solve's output are rounded to bf16; inside
 ``fused_project`` the divergence and the pressure stay float32).  Each
 bf16 form is a template instantiation of its kernel chosen at launch, and
-counts apart (``jacobi_sweep_bf16``, ``divergence_bf16``,
-``gradient_bf16``, ``advect_bf16``).  Its plain version widens the fields
+counts apart (``jacobi_sweeps_bf16``, ``divergence_bf16``,
+``gradient_bf16``, ``advect_bf16``; the per-sweep K1's
+``jacobi_sweep_bf16``).  Its plain version widens the fields
 to float32, runs the float32 plain version with the same roundings and
 rounds the output to bf16.  A bf16 tensor reaching any other wrapper
 (``fused_dens_advect``, K1's damped sweep, the 3-D, slab and tail
@@ -32,12 +33,16 @@ kernels) raises ``TypeError``: nothing widens it silently.
 Four CUDA kernels (K1-K4) carry the five TPU kernel families of the 2-D
 step:
 
-- ``jacobi_sweep`` (K1, ``csrc/jacobi.cu``): one sweep per launch.  It is
-  ``fused_jacobi`` (TPU ``pallas_ops.py:645``), ``fused_jacobi_pair``
-  (``:671``, u and v stacked on the batch axis, each with its boundary
-  mode) and the sweep engine of ``fused_project`` and
-  ``fused_dens_advect``; with ``damp`` the multigrid smoother, whose
-  launches count apart as ``jacobi_sweep_damp``.
+- ``jacobi_sweeps`` (K1, ``csrc/jacobi_tiles.cu``): up to T sweeps of a
+  solve per launch in shared-memory tiles (``sweep_plan``,
+  ``SWEEPS_PER_LAUNCH``).  It is ``fused_jacobi`` (TPU
+  ``pallas_ops.py:645``), ``fused_jacobi_pair`` (``:671``, u and v stacked
+  on the batch axis, each with its boundary mode) and the sweep engine of
+  ``fused_project`` and ``fused_dens_advect``.  The per-sweep K1
+  (``jacobi_sweep``, ``csrc/jacobi.cu``) computes the same sweeps one
+  launch each; it is the multigrid smoother (``damp``, counted as
+  ``jacobi_sweep_damp``), and ``launch_sweeps(0)`` runs a solve through
+  it, the "before" the tiled kernel is timed and held against.
 - ``divergence`` and ``gradient`` (K2, ``csrc/project.cu``): with K1 they
   make ``fused_project`` (``:899``); alone they are ``divergence_p``
   (``:1622``) and ``gradient_p`` (``:1645``).
@@ -60,7 +65,10 @@ gather (``advect3_windowed``).
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,7 +85,8 @@ from .dispatch import OpSet
 
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "check_grid",
-    "make_opset",
+    "make_opset", "SWEEPS_PER_LAUNCH", "launch_sweeps", "SweepLaunch",
+    "sweep_plan",
     "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "fused_jacobi_pair",
     "fused_jacobi_pair_plain", "fused_project",
     "fused_project_plain", "advect_shift", "advect_shift_plain",
@@ -92,7 +101,8 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi3_slab", "divergence3_slab", "gradient3_slab",
            "advect3_slab", "advect_project", "jacobi_slab_split",
            "jacobi_sweep_damp", "advect3_windowed", "jacobi_sweep_bf16",
-           "divergence_bf16", "gradient_bf16", "advect_bf16")
+           "divergence_bf16", "gradient_bf16", "advect_bf16",
+           "jacobi_sweeps", "jacobi_sweeps_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -101,9 +111,16 @@ _PREP, _FAST, _CHEBY, _DAMP = 1, 2, 4, 8
 _MAX_BATCH = 65535
 # The storage dtypes of the wrappers that have a bf16 form.
 _F32_BF16 = (torch.float32, torch.bfloat16)
-# fsc_jacobi_sweep_bf16's operand types (csrc/jacobi.cu): which of x, xm
-# and out are bf16 (rhs and rhs_out always are).
+# fsc_jacobi_sweep(s)_bf16's operand types (csrc/jacobi.cu,
+# csrc/jacobi_tiles.cu): which of x, xm and out are bf16 (rhs and rhs_out
+# always are).
 _X_BF16, _XM_BF16, _OUT_BF16 = 1, 2, 4
+# T, the sweeps of one tiled K1 launch, chosen by measurement
+# (dev/bench_sweeps.py, PERF.md): the fastest or within 5% of it at 2048²,
+# 8192² and 1024 x 256², in float32 and bf16, for each solve of the step.
+SWEEPS_PER_LAUNCH = 10
+# Set by launch_sweeps(): the sweeps of a K1 launch, 0 for the per-sweep K1.
+_forced: int | None = None
 
 
 def launch_counts() -> dict[str, int]:
@@ -202,10 +219,65 @@ def _launch(kernel: str, fn, *args) -> None:
     _launches[kernel] += 1
 
 
+@contextlib.contextmanager
+def launch_sweeps(per_launch: int):
+    """Within the block every K1 solve on the card takes ``per_launch``
+    sweeps a launch of the tiled K1 (the library refuses a launch of more
+    than its kMaxSweeps, 20), or with 0 launches the per-sweep K1 for each
+    sweep: the chains the checks hold the tiled kernel against and
+    ``dev/bench_sweeps.py`` times.  No path of the port enters it."""
+    global _forced
+    if per_launch < 0:
+        raise ValueError(f"per_launch {per_launch} < 0")
+    saved, _forced = _forced, per_launch
+    try:
+        yield
+    finally:
+        _forced = saved
+
+
+class SweepLaunch(NamedTuple):
+    """One tiled K1 launch of a solve (``sweep_plan``)."""
+
+    first: int  # the solve's index of its first sweep
+    count: int  # its sweeps; sweep k combines with cheby_omegas[k-1], k >= 1
+    reads_guess: bool  # reads the caller's guess as x_k (bf16 in bf16 storage)
+    reads_guess_as_xm: bool  # reads it as x_{k-1}, after a 1-sweep launch
+    stores_rhs: bool  # writes the rhs it builds, for the launches after it
+    stores_xm: bool  # writes x_{k-1} beside x_k, for what follows
+    ends_solve: bool  # writes the solve's result (bf16 in bf16 storage)
+
+
+def sweep_plan(start: int, stop: int, end: int, per_launch: int, *,
+               prep: bool, cheby: bool, guess: bool = True
+               ) -> list[SweepLaunch]:
+    """The tiled K1 launches that run sweeps [start, stop) of a solve whose
+    sweeps end at ``end`` (K4 runs the last where ``stop`` < ``end``):
+    ``per_launch`` sweeps each, the remainder last.  ``prep``: the first
+    launch builds the rhs (a folded source or fast mode); ``cheby``: a
+    Chebyshev solve; ``guess``: the first launch reads a guess, not the
+    zero guess.  What follows a launch reads the rhs it built and, in a
+    Chebyshev chain, its x_{k-1}; a 1-sweep launch's x_{k-1} is its input,
+    so it stores none."""
+    plan, k = [], start
+    while k < stop:
+        count = min(per_launch, stop - k)
+        follows = k + count < end
+        plan.append(SweepLaunch(
+            first=k, count=count, reads_guess=guess and k == start,
+            reads_guess_as_xm=cheby and guess and k == start + 1,
+            stores_rhs=prep and k == start and follows,
+            stores_xm=cheby and count >= 2 and follows,
+            ends_solve=k + count == end))
+        k += count
+    return plan
+
+
 class _Sweeps:
-    """The sweep launches of one solve (K1 ``jacobi_sweep`` on a grid or a
-    batch of grids, K5 ``jacobi3_sweep`` on a volume): ``sweep()`` advances
-    one iterate.
+    """The sweep launches of one solve (K1 on a grid or a batch of grids,
+    K5 ``jacobi3_sweep`` on a volume): ``sweep()`` advances one iterate by
+    a launch of the per-sweep kernel, ``run()`` a K1 solve by the launches
+    of ``sweep_plan`` (the tiled K1, ``launch()``).
 
     It owns the scratch it ping-pongs through (two tensors, three for
     Chebyshev, whose x_{k-1} and x_k are read-only while x_{k+1} is
@@ -225,13 +297,20 @@ class _Sweeps:
     (the trap of ``pallas_ops.py:560-585``: a chain that restarts ω or
     drops x_{k-1} at a segment boundary looks plausible and is wrong).
 
-    A bf16 rhs (K1 only) makes the solve JAX's bf16 storage form: every
-    sweep launches ``fsc_jacobi_sweep_bf16`` (counted as
-    ``jacobi_sweep_bf16``), the iterate lives in float32 scratch from the
-    first sweep to the last, the guess and x_{k-1} are read as bf16 where
-    they are the caller's, the folded or prescaled rhs is rounded to bf16
-    before any sweep reads it (``pallas_ops.py:416-428``, ``rdt``), and
-    only the last sweep (the ``iters``-th of this call) writes bf16."""
+    A bf16 rhs (K1 only) makes the solve JAX's bf16 storage form: it
+    launches ``fsc_jacobi_sweeps_bf16`` (``fsc_jacobi_sweep_bf16`` a sweep
+    on the per-sweep K1; counted as ``jacobi_sweeps_bf16`` and
+    ``jacobi_sweep_bf16``), the iterate lives in float32 (shared memory
+    within a launch, scratch between launches) from the first sweep to the
+    last, the guess and x_{k-1} are read as bf16 where they are the
+    caller's, the folded or prescaled rhs is rounded to bf16 before any
+    sweep reads it (``pallas_ops.py:416-428``, ``rdt``), and only the last
+    sweep (the ``iters``-th of this call) writes bf16.
+
+    A tiled launch (``launch()``) leaves the state as the per-sweep
+    launches of its sweeps leave it: x, x_{k-1} (written by the launch where
+    a Chebyshev chain goes on), the stored rhs, k and prep, so K4 takes
+    the last sweep of a density solve from either (``next_args()``)."""
 
     def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
                  src_dt, fast, cheby_rho, kernel="jacobi_sweep", start=0,
@@ -273,16 +352,19 @@ class _Sweeps:
                 _ptr(self.src if self.prep else None),
                 _ptr(self.xm if cheby else None), *self.coefs, w, flags)
 
-    def _scratch(self) -> torch.Tensor:
+    def _scratch(self, *busy: torch.Tensor) -> torch.Tensor:
+        """A float32 scratch tensor that is none of x, x_{k-1} and ``busy``."""
+        taken = (self.x, self.xm, *busy)
         for t in self._pool:
-            if t is not self.x and t is not self.xm:
+            if all(t is not b for b in taken):
                 return t
         t = torch.empty_like(self.rhs, dtype=torch.float32)
         self._pool.append(t)
         return t
 
     def _types(self, out: torch.Tensor) -> int:
-        """fsc_jacobi_sweep_bf16's operand types of the next sweep."""
+        """fsc_jacobi_sweep_bf16's operand types of the next per-sweep
+        launch."""
         def bf16(t):
             return t is not None and t.dtype == torch.bfloat16
         cheby = self.omegas is not None and self.k >= 1
@@ -313,6 +395,55 @@ class _Sweeps:
             self.xm = self.x
         self.x = out
         self.k += 1
+
+    def run(self, lib, sweeps: int, nb: int, nb1: int, b1: int) -> None:
+        """The next ``sweeps`` sweeps of a K1 solve on ``nb`` grids (grids
+        [0, nb1) in boundary mode b, the rest b1): the tiled K1's launches
+        of ``sweep_plan``, T = ``SWEEPS_PER_LAUNCH`` sweeps each; one
+        per-sweep launch a sweep for the damped smoother or inside
+        ``launch_sweeps(0)``."""
+        per_launch = SWEEPS_PER_LAUNCH if _forced is None else _forced
+        if self.damp is not None or per_launch == 0:
+            for _ in range(sweeps):
+                self.sweep(lib, nb, nb1, b1, self.omw)
+            return
+        for step in sweep_plan(self.k, self.k + sweeps, self.end, per_launch,
+                               prep=self.prep, cheby=self.omegas is not None,
+                               guess=self.x is not None):
+            self.launch(lib, step, nb, nb1, b1)
+
+    def launch(self, lib, step: SweepLaunch, nb: int, nb1: int,
+               b1: int) -> None:
+        """One tiled K1 launch: the sweeps of ``step``."""
+        cheby = self.omegas is not None
+        out = (torch.empty_like(self.rhs) if self.bf16 and step.ends_solve
+               else self._scratch())
+        xm_out = self._scratch(out) if step.stores_xm else None
+        rhs_out = torch.empty_like(self.rhs) if step.stores_rhs else None
+        ks = range(step.first, step.first + step.count)
+        omegas = (ctypes.c_float * step.count)(
+            *(_f32(self.omegas[k - 1]) if cheby and k >= 1 else 0.0
+              for k in ks))
+        flags = ((_PREP if self.prep else 0) | (_FAST if self.fast else 0)
+                 | (_CHEBY if cheby else 0))
+        name = "jacobi_sweeps_bf16" if self.bf16 else "jacobi_sweeps"
+        # A bf16 solve's guess is bf16 (the wrappers take one dtype).
+        types = (((_X_BF16 if step.reads_guess else 0)
+                  | (_XM_BF16 if step.reads_guess_as_xm else 0)
+                  | (_OUT_BF16 if step.ends_solve else 0)),) if self.bf16 \
+            else ()
+        _launch(name, getattr(lib, f"fsc_{name}"), _ptr(self.x),
+                self.rhs.data_ptr(), _ptr(self.src if self.prep else None),
+                _ptr(self.xm if cheby else None), out.data_ptr(),
+                _ptr(xm_out), _ptr(rhs_out), self.side, self.b, *self.coefs,
+                ctypes.addressof(omegas), flags, step.first, step.count, nb,
+                nb1, b1, *types, self.stream)
+        if rhs_out is not None:
+            self.rhs, self.prep = rhs_out, False
+        if cheby:
+            self.xm = self.x if step.count == 1 else xm_out
+        self.x = out
+        self.k += step.count
 
 
 # ---------------------------------------------------------------------------
@@ -412,8 +543,8 @@ def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
     (``pallas_ops.py:423-456``); ``cheby_rho`` switches to Chebyshev sweeps
     (``ops/chebyshev.py``); ``damp`` to damped Jacobi, x <- (1-damp)*x +
     damp*sweep (``pallas_ops.py:432-459``, the multigrid smoother), which
-    takes none of ``src_dt``, ``fast`` and ``cheby_rho``.  One K1 launch
-    per sweep."""
+    takes none of ``src_dt``, ``fast`` and ``cheby_rho``.  The tiled K1
+    runs T sweeps a launch (``sweep_plan``); the damped sweep one."""
     if iters < 1:
         raise ValueError("iters must be >= 1")
     _check_damp(damp, src_dt, fast, cheby_rho, x0.dtype)
@@ -441,8 +572,7 @@ def _solve(b, nb1, b1, x_init, x0, alpha, beta, iters, **kw):
     with torch.cuda.device(x0.device):
         lib = build.load()
         sweeps = _Sweeps(b, x_init, x0, alpha, beta, iters, **kw)
-        for _ in range(iters):
-            sweeps.sweep(lib, _batch(x0), nb1, b1, sweeps.omw)
+        sweeps.run(lib, iters, _batch(x0), nb1, b1)
         return sweeps.x
 
 
@@ -457,8 +587,8 @@ def fused_jacobi_pair_plain(b1, b2, s1, s2, base1, base2, alpha, beta, iters,
 def fused_jacobi_pair(b1, b2, s1, s2, base1, base2, alpha, beta, iters, *,
                       src_dt=None, fast=False):
     """Two same-coefficient solves with boundary modes ``b1`` and ``b2``
-    (the velocity pair, ``FluidSequential.c:228-229``) in one K1 launch per
-    sweep: as JAX's ``fused_jacobi_pair`` (``pallas_ops.py:671``), the
+    (the velocity pair, ``FluidSequential.c:228-229``) in one set of K1
+    launches: as JAX's ``fused_jacobi_pair`` (``pallas_ops.py:671``), the
     operands stack on the batch axis (``torch.cat``, so both fields are
     copied once) and grids at or past ``nb1`` (the first operand's grid
     count) take ``b2``.  Operands are (side, side) or (nb, side, side);
@@ -663,8 +793,8 @@ def fused_dens_advect_plain(b, src, base, u, v, alpha, beta, iters, dt, n, *,
 
 def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
                       cmax=None, fast=False, cheby_rho=None):
-    """``advect(b, diffuse_src(b, src, base, ...), u, v)``: K1 runs the
-    first ``iters-1`` sweeps, then K4 evaluates the last sweep at the gather
+    """``advect(b, diffuse_src(b, src, base, ...), u, v)``: the tiled K1
+    runs the first ``iters-1`` sweeps, then K4 evaluates the last sweep at the gather
     points and blends them, so the diffused field is never stored.  The
     gather is exact, or windowed with ``cmax`` as ``advect_shift``'s."""
     if iters < 1:
@@ -679,8 +809,7 @@ def fused_dens_advect(b, src, base, u, v, alpha, beta, iters, dt, n, *,
         nb = _batch(base)
         sweeps = _Sweeps(b, src, base, alpha, beta, iters, zero_init=False,
                          src_dt=dt, fast=fast, cheby_rho=cheby_rho)
-        for _ in range(iters - 1):
-            sweeps.sweep(lib, nb, nb, b, sweeps.omw)
+        sweeps.run(lib, iters - 1, nb, nb, b)
         out = torch.empty_like(base)
         _launch("dens_advect", lib.fsc_dens_advect, *sweeps.next_args(),
                 u.data_ptr(), v.data_ptr(), out.data_ptr(), n + 2, nb, b,

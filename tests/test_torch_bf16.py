@@ -452,7 +452,8 @@ _SHIM_LABELS = [c.label for c in
 
 @pytest.fixture(scope="module")
 def shim(tmp_path_factory):
-    """jacobi.cu, project.cu and advect.cu built for the CPU behind
+    """jacobi_tiles.cu (the tiled K1 every bf16 solve takes), jacobi.cu,
+    project.cu and advect.cu built for the CPU behind
     dev/rehearse_kernels_cpu.py's shim."""
     import importlib.util
     import os
@@ -463,7 +464,7 @@ def shim(tmp_path_factory):
     rehearse = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(rehearse)
     lib = rehearse.build_shim_library(
-        ("jacobi.cu", "project.cu", "advect.cu"),
+        ("jacobi_tiles.cu", "jacobi.cu", "project.cu", "advect.cu"),
         out=tmp_path_factory.mktemp("cpu_shim_bf16"))
     return rehearse, lib
 
@@ -472,7 +473,10 @@ def shim(tmp_path_factory):
 def test_bf16_kernel_forms_match_plain_behind_the_shim(shim, label):
     """Each bf16 form through the CUDA source compiled for the CPU, against
     its plain version, bit for bit, with its launches counted under its
-    bf16 name."""
+    bf16 name.  K1's solves launch the tiled K1 (``jacobi_sweeps_bf16``,
+    and ``jacobi_sweeps`` for the float32 pressure inside
+    ``fused_project``), whose labels ``checks.JAC16``/``checks.PROJ16``
+    name; the per-sweep K1's bf16 form runs on no path any more."""
     rehearse, lib = shim
     check = {c.label: c for c in
              checks.kernel_checks_bf16(_SHIM_SIDE, "cpu", 0)

@@ -72,10 +72,16 @@ def test_step_launches_and_matches_reference(cuda, mode):
     torch.cuda.synchronize()
     k_vel = cfg.cheby_iters if mode == "perf" else cfg.jacobi_iters
     k_p = cfg.press_cheby_iters if mode == "perf" else cfg.jacobi_iters
+    t = cuda_ops.SWEEPS_PER_LAUNCH
+
+    def launches(k):
+        return -(-k // t)
+
     assert cuda_ops.launch_counts() == {
         **dict.fromkeys(cuda_ops.KERNELS, 0),
-        "jacobi_sweep": 2 * k_vel + 2 * k_p + k_vel - 1, "divergence": 2,
-        "gradient": 2, "advect": 1, "dens_advect": 1}
+        "jacobi_sweeps": 2 * launches(k_vel) + 2 * launches(k_p)
+        + launches(k_vel - 1), "divergence": 2, "gradient": 2, "advect": 1,
+        "dens_advect": 1}
     want = ft.step(cfg.replace(backend="reference"), state, src)
     for a, b in zip(got[:3], want[:3]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
@@ -85,7 +91,7 @@ def test_cuda_tensor_launches_or_raises(cuda):
     x = torch.zeros(34, 34, device=cuda)
     cuda_ops.reset_launch_counts()
     cuda_ops.fused_jacobi(0, x, x, 1.0, 4.0, 3)
-    assert cuda_ops.launch_counts()["jacobi_sweep"] == 3
+    assert cuda_ops.launch_counts()["jacobi_sweeps"] == 1
     with pytest.raises(ValueError):
         cuda_ops.fused_jacobi(0, x, x.cpu(), 1.0, 4.0, 3)
 
@@ -383,13 +389,15 @@ def test_batched_kernels_match_plain_and_per_grid(cuda, nb, side):
 
 @pytest.mark.parametrize("side,batch", [(34, 0), (34, 3), (2048, 0)])
 def test_pair_equals_two_singles(cuda, side, batch):
-    """B12: one K1 launch a sweep for the stacked u/v pair, equal to two
-    ``fused_jacobi`` calls bit for bit."""
+    """B12: one set of tiled K1 launches for the stacked u/v pair, equal to
+    two ``fused_jacobi`` calls bit for bit."""
+    t = cuda_ops.SWEEPS_PER_LAUNCH
     for check in checks.pair_against_singles(side, cuda, seed=side,
                                              batch=batch):
         cuda_ops.reset_launch_counts()
         got = check.run()
-        assert cuda_ops.launch_counts()["jacobi_sweep"] == 20, check.label
+        assert cuda_ops.launch_counts()["jacobi_sweeps"] == -(-20 // t), \
+            check.label
         want = check.plain()
         torch.cuda.synchronize()
         assert checks.max_abs_diff(got, want) == 0.0, check.label
@@ -430,7 +438,7 @@ def test_cuda_batch_launches_once_or_raises(cuda):
     x = torch.zeros(5, 34, 34, device=cuda)
     cuda_ops.reset_launch_counts()
     cuda_ops.fused_jacobi(0, x, x, 1.0, 4.0, 3)
-    assert cuda_ops.launch_counts()["jacobi_sweep"] == 3
+    assert cuda_ops.launch_counts()["jacobi_sweeps"] == 1
     with pytest.raises(ValueError):
         cuda_ops.fused_jacobi(0, x, x[:4].clone(), 1.0, 4.0, 3)
 
@@ -446,7 +454,8 @@ def test_damped_smoother_matches_plain(cuda, side):
         want = check.plain()
         torch.cuda.synchronize()
         assert counts["jacobi_sweep_damp"] > 0, (check.label, counts)
-        assert counts["jacobi_sweep"] == 0, (check.label, counts)
+        assert counts["jacobi_sweep"] == counts["jacobi_sweeps"] == 0, (
+            check.label, counts)
         assert checks.max_abs_diff(got, want) <= 1e-6, check.label
 
 
@@ -575,8 +584,10 @@ def test_staged_gathers_match_plain(cuda, side, ndim, batch):
 @pytest.mark.parametrize("perf", [False, True], ids=["parity", "perf"])
 def test_cli_run_launches_and_resumes_bit_for_bit(cuda, tmp_path, perf):
     """``run`` on the card at 128²: each step launches what
-    ``expected_launches`` says (105 parity, 63 perf at 20 iterations),
-    and a saved run resumed equals the straight run to the bit."""
+    ``expected_launches`` says (16 parity, 13 perf at 20 iterations: each
+    solve on the tiled K1, ten sweeps a launch; 105 and 63 when K1 took
+    one launch a sweep), and a saved run resumed equals the straight run
+    to the bit."""
     import chip_smoke
     from fluidsimulationcuda_torch import __main__ as cli
 
@@ -589,7 +600,7 @@ def test_cli_run_launches_and_resumes_bit_for_bit(cuda, tmp_path, perf):
     counts = cuda_ops.launch_counts()
     cfg = cli._cfg(cli._parser().parse_args(common + ["--steps", "3"]))
     per_step = chip_smoke.expected_launches(cfg)
-    assert sum(per_step.values()) == (63 if perf else 105)
+    assert sum(per_step.values()) == (13 if perf else 16)
     assert counts == {**dict.fromkeys(cuda_ops.KERNELS, 0),
                       **{k: 3 * v for k, v in per_step.items()}}
     cli.main(["run", "--resume", a, "--steps", "3", "--save", b])
@@ -608,8 +619,9 @@ def test_cli_profile_times_on_cuda_events(cuda, tmp_path, capsys):
     assert "full step (est)" in capsys.readouterr().out
     assert (tmp_path / "trace.json").exists()
     counts = cuda_ops.launch_counts()
-    assert all(counts[k] > 0 for k in ("jacobi_sweep", "divergence",
+    assert all(counts[k] > 0 for k in ("jacobi_sweeps", "divergence",
                                        "gradient", "advect")), counts
+    assert counts["jacobi_sweep"] == 0, counts
     cfg = ft.SimConfig(n=254)
     rep = timing.profile_phases(cfg, torch.Generator(device=cuda).manual_seed(0))
     assert all(t > 0 for t in (rep.source, rep.diffusion, rep.divergence,
@@ -797,3 +809,45 @@ def test_batched_solver_step_on_the_card(cuda, solver):
     want = ft.step(cfg.replace(backend="reference"), state, src)
     for a, b in zip(got[:3], want[:3]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("side,batch", [(34, 0), (66, 3), (130, 0),
+                                        (217, 0)])
+def test_tiled_k1_matches_plain_and_per_sweep_chain(cuda, side, batch, bf16):
+    """The tiled K1 in every call with a K1 solve in it
+    (``checks.k1_checks``) against its plain version and against the same
+    call on the per-sweep K1, bit for bit; at 217, with 5 or 10 sweeps a
+    launch, the last row or column of tiles holds only the grid's last
+    ghost line (the halo is one cell deeper there)."""
+    for chain in (False, True):
+        for check in checks.k1_checks(side, cuda, seed=side, batch=batch,
+                                      bf16=bf16, chain=chain):
+            got, want = check.run(), check.plain()
+            torch.cuda.synchronize()
+            assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("per_launch", [1, 2, 3, 7, 10, 20])
+def test_tiled_k1_at_any_sweeps_per_launch(cuda, per_launch):
+    """Every T the tiled K1 takes (1 to its kMaxSweeps, 20) gives the
+    per-sweep chain's result, in the modes of a solve, at 2048² (a
+    Chebyshev+fast and a folded solve); a launch of 21 sweeps is refused."""
+    t = checks._Inputs(2048, cuda, 0)
+    av = t.a_visc
+    for kw, iters in ((dict(src_dt=checks.DT), 20),
+                      (dict(src_dt=checks.DT, fast=True, cheby_rho=0.9), 10),
+                      (dict(zero_init=True), 20)):
+        args = (1, t.src, t.x0, av, 1 + 4 * av, iters)
+        with cuda_ops.launch_sweeps(per_launch):
+            cuda_ops.reset_launch_counts()
+            got = cuda_ops.fused_jacobi(*args, **kw)
+            assert cuda_ops.launch_counts()["jacobi_sweeps"] == \
+                -(-iters // per_launch)
+        with cuda_ops.launch_sweeps(0):
+            want = cuda_ops.fused_jacobi(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kw, per_launch)
+    with cuda_ops.launch_sweeps(21), pytest.raises(RuntimeError,
+                                                   match="jacobi_sweeps"):
+        cuda_ops.fused_jacobi(*args[:-1], 21, zero_init=True)

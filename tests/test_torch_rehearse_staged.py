@@ -11,8 +11,9 @@ took the direct path (a box past the cap); the counts must equal what
 ``checks.footprint_boxes`` predicts from the plain departure, so both
 paths are covered: the shear's jump puts some blocks past the cap, and one
 case puts one block's box exactly on the cap and another's past it.  The
-fast mode's sweep takes K4's direct kernel, which counts no block.  K1 and
-K3 are built too: the wrapper of K4 runs K1 for the first sweeps, and the
+fast mode's sweep takes K4's direct kernel, which counts no block.  K1 (its
+tiled and per-sweep sources) and K3 are built too: the wrapper of K4 runs
+the tiled K1 for the first sweeps, and the
 plain Chebyshev fast twin rounds a few ulp apart from K1, so K4 in
 Chebyshev+fast mode is held bit for bit to K1 followed by K3 (the same
 sweep and blend expressions) and to the plain version within
@@ -32,7 +33,8 @@ from fluidsimulationcuda_torch.core.config import PERF_POINTS_2D  # noqa: E402
 from fluidsimulationcuda_torch.kernels import checks, cuda_ops, cuda_ops_3d  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = ("dens_advect.cu", "advect3.cu", "jacobi.cu", "advect.cu")
+SOURCES = ("dens_advect.cu", "advect3.cu", "jacobi.cu", "jacobi_tiles.cu",
+           "advect.cu")
 DT = checks.DT
 RHO, K_D, _ = PERF_POINTS_2D[2048]
 VELOCITIES = ("smooth", "random", "shear")
