@@ -26,7 +26,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``fused_jacobi_pair`` (B12, the u/v diffusion stacked on the batch axis)
    against two ``fused_jacobi`` calls, bit for bit, on a stack of two 258²
    grids and of two 2048² grids, timed beside them;
-3b. every 3-D kernel the same way at 256³;
+3b. every 3-D kernel the same way at 256³; every 3-D solve check that
+   takes the tiled K5 (``cuda_ops.tiled3``: the fast Chebyshev solves, its
+   one mode) against the same call on the per-sweep K5
+   (``checks.per_sweep_checks``) bit for bit; each solve timed on the
+   kernel its path takes, each tiled call beside the per-sweep chain and
+   held to it and to its plain version (the tiled K5's one launch of T3
+   sweeps labelled ``jacobi3_sweeps``, the per-sweep K5's one sweep
+   ``jacobi3_sweep``);
 3c. every row-slab kernel of the multi-device step against its plain twin
    for a top, an interior and a bottom slab of 256 rows at 2048²
    (max|Δ| <= 1e-5), in its Jacobi, Chebyshev and fast forms, the gathers
@@ -41,8 +48,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and chained segments (x_{k-1} carried in and out), the gathers under and
    over the 4-cell window, the two stencils; K14 also on smooth, random and
    shear velocities in windows of 1 and 2, one field and the triple, bit
-   for bit; timed beside bound and launch floor (K14 also on one field and
-   on smooth and shear velocities, beside ``grid_sample``);
+   for bit; every segment that takes the tiled K13 against the same
+   segment on the per-sweep K13 bit for bit; timed beside bound and launch
+   floor (the segments as in 3b; K14 also on one field and on smooth and
+   shear velocities, beside ``grid_sample``);
 3e. the two fused kernels no step calls (as in the JAX package): K18, the
    split-operand slab Jacobi, against K9 on the ``torch.cat`` of its
    operands bit for bit on top, interior and bottom 256-row slabs of 2048²
@@ -190,10 +199,13 @@ phase 16 for K6's window), its max|Δ| from phase 3, 3b, 3c, 3d, 3e or 3f,
 its device time beside its plain version's, and its bound; the bf16 forms
 are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 ``gradient_bf16``, ``advect_bf16``: launches from phase 18's 2048² parity
-run and its datagen run, max|Δ| and times from phase 18).  The per-sweep
-K1's undamped forms (``jacobi_sweep``, ``jacobi_sweep_bf16``), which the
-tiled K1 replaced on every path, run on none and are left out of the line
-(``OFF_PATH``): every path's launch counts hold them at 0.  The last line
+run and its datagen run, max|Δ| and times from phase 18; the tiled 3-D
+kernel's ``jacobi3_sweeps`` and ``jacobi3_slab_sweeps`` from phase 16's
+compensated run and phase 11's compensated 8-slab run, whose fast
+Chebyshev solves it takes).  The per-sweep K1's undamped forms
+(``jacobi_sweep``, ``jacobi_sweep_bf16``), which the tiled K1 replaced on
+every path, run on none and are left out of the line (``OFF_PATH``): every
+path's launch counts hold them at 0.  The last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
@@ -268,6 +280,11 @@ KERNEL_SOURCES = {
     # The tiled K1, T sweeps a launch, in float32 and bf16 storage.
     "jacobi_sweeps": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_KERNELS}:645"),
     "jacobi_sweeps_bf16": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_KERNELS}:645"),
+    # The tiled 3-D Jacobi, T3 sweeps a launch, on a volume (K5) and on the
+    # plane range of a z-slab (K13).
+    "jacobi3_sweeps": (f"{CSRC}/jacobi3_tiles.cu", f"{TPU_KERNELS_3D}:458"),
+    "jacobi3_slab_sweeps": (f"{CSRC}/jacobi3_tiles.cu",
+                            f"{TPU_SLABS_3D}:349"),
     "divergence_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "gradient_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "advect_bf16": (f"{CSRC}/advect.cu", f"{TPU_KERNELS}:1182"),
@@ -347,23 +364,56 @@ def expected_launches(cfg) -> dict[str, int]:
     return launches
 
 
+def solves3(cfg) -> list[tuple[int, int, bool]]:
+    """(count, sweeps, Chebyshev) of the solves of one 3-D step of ``cfg``:
+    three velocity diffusions, two pressure solves, the density
+    diffusion."""
+    vel = cfg.diffusion_solver == "chebyshev"
+    dens = cfg.diffusion_solver in ("chebyshev", "chebyshev-dens")
+    press = cfg.pressure_solver == "chebyshev"
+    k_dens = (cfg.cheby_dens_iters if cfg.diffusion_solver == "chebyshev-dens"
+              else cfg.cheby_iters if dens else cfg.jacobi_iters)
+    return [(3, cfg.cheby_iters if vel else cfg.jacobi_iters, vel),
+            (2, cfg.press_cheby_iters if press else cfg.jacobi_iters, press),
+            (1, k_dens, dens)]
+
+
+def k3_launches(cfg, mz: int | None = None) -> dict[str, int]:
+    """Launches of the 3-D Jacobi kernels in one step of ``cfg`` (on one
+    z-slab of ``mz`` planes: each solve in segments of K = min(fuse,
+    sweeps, mz-1) sweeps, the remainder last, on buffers of mz + 2(K+1)
+    planes, ``parallel/sharded3d.py``): a solve or segment that
+    ``cuda_ops.tiled3`` gives the tiled kernel runs ceil(sweeps / T3)
+    launches a segment, the others one per-sweep launch a sweep."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    per = cuda_ops.SWEEPS_PER_LAUNCH_3D
+    tiled, plain = (("jacobi3_sweeps", "jacobi3_sweep") if mz is None
+                    else ("jacobi3_slab_sweeps", "jacobi3_slab"))
+    launches = {tiled: 0, plain: 0}
+    for count, sweeps, cheby in solves3(cfg):
+        seg = (sweeps if mz is None
+               else min(cfg.fuse_sweeps or 20, sweeps, mz - 1))
+        planes = None if mz is None else mz + 2 * (seg + 1)
+        if not cuda_ops.tiled3(cheby, cfg.fast_math, planes):
+            launches[plain] += count * sweeps
+            continue
+        full, rest = divmod(sweeps, seg)
+        launches[tiled] += count * (full * -(-seg // per) + -(-rest // per))
+    return launches
+
+
 def expected_launches3(cfg) -> dict[str, int]:
-    """Kernel launches of one 3-D step of ``cfg``, K5 one sweep a launch:
-    three velocity diffusions, two pressure solves and the density
-    diffusion on K5, one K7 and one K8 per projection, one K6 for the
+    """Kernel launches of one 3-D step of ``cfg``: three velocity
+    diffusions, two pressure solves and the density diffusion on K5, the
+    tiled form T3 sweeps a launch where ``cuda_ops.tiled3`` says so
+    (``k3_launches``), one K7 and one K8 per projection, one K6 for the
     (u, v, w) self-advection triple and one for the density (counted as
     ``advect3_windowed`` under ``advect_mode="windowed"``)."""
-    k_vel = (cfg.cheby_iters if cfg.diffusion_solver == "chebyshev"
-             else cfg.jacobi_iters)
-    k_dens = {"chebyshev": cfg.cheby_iters,
-              "chebyshev-dens": cfg.cheby_dens_iters}.get(
-                  cfg.diffusion_solver, cfg.jacobi_iters)
-    k_p = (cfg.press_cheby_iters if cfg.pressure_solver == "chebyshev"
-           else cfg.jacobi_iters)
     advect = ("advect3_windowed" if cfg.advect_mode == "windowed"
               else "advect3")
-    return {"jacobi3_sweep": 3 * k_vel + 2 * k_p + k_dens,
-            "divergence3": 2, "gradient3": 2, advect: 2}
+    return {**k3_launches(cfg), "divergence3": 2, "gradient3": 2,
+            advect: 2}
 
 
 def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
@@ -387,12 +437,13 @@ def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
 
 def expected_launches_sharded3(cfg, slabs: int) -> dict[str, int]:
     """Kernel launches of one 3-D multi-device step of ``cfg`` on ``slabs``
-    z-slabs.  Each slab launches K13 once per sweep of its three velocity
-    diffusions, two pressure solves and its density diffusion, whatever the
-    segments; K15 and K16 once per projection; K14 for the (u, v, w)
-    triple and for the density."""
-    per_slab = expected_launches3(cfg)
-    return {"jacobi3_slab": slabs * per_slab["jacobi3_sweep"],
+    z-slabs.  Each slab runs its three velocity diffusions, two pressure
+    solves and its density diffusion in segments on K13, each on the tiled
+    form T3 sweeps a launch where ``cuda_ops.tiled3`` says so
+    (``k3_launches``); K15 and K16 once per projection; K14 for the
+    (u, v, w) triple and for the density."""
+    jacobi = k3_launches(cfg, (cfg.n + 2) // slabs)
+    return {**{k: slabs * n for k, n in jacobi.items()},
             "divergence3_slab": 2 * slabs, "gradient3_slab": 2 * slabs,
             "advect3_slab": 2 * slabs}
 
@@ -1482,10 +1533,14 @@ def main() -> None:
 
     phase("3b 3-D kernels against their plain versions (side 256)")
     compare(checks.kernel_checks3(256, "cuda", SEED), checks.TOL, errs)
+    compare(checks.per_sweep_checks(checks.kernel_checks3(256, "cuda", SEED)),
+            0.0, errs, "bit for bit")
     compare(checks.kernel_checks_flows(256, "cuda", SEED, ndim=3),
             checks.TOL, errs)
-    times.update(kernel_times(checks.timing_checks3(256, "cuda", SEED),
-                              "256³", card))
+    timed3 = checks.timing_checks3(256, "cuda", SEED)
+    timed_against_both(timed3, checks.TOL, errs)
+    times.update(kernel_times(timed3, "256³", card))
+    del timed3
 
     phase("3c row-slab kernels against their plain twins (2048², m=256)")
     compare(checks.kernel_checks_slab(2048, 256, "cuda", SEED), checks.TOL,
@@ -1502,11 +1557,14 @@ def main() -> None:
     phase("3d z-slab kernels against their plain twins (256³, mz=32)")
     compare(checks.kernel_checks_slab3(256, 32, "cuda", SEED), checks.TOL,
             errs)
+    compare(checks.per_sweep_checks(checks.kernel_checks_slab3(
+        256, 32, "cuda", SEED)), 0.0, errs, "bit for bit")
     compare(checks.kernel_checks_slab3_flows(256, 32, "cuda", SEED), 0.0,
             errs, "bit for bit")
-    times.update(kernel_times(checks.timing_checks_slab3(256, 32, "cuda",
-                                                         SEED),
-                              "256³, slab of 32 planes", card, floor))
+    timed3 = checks.timing_checks_slab3(256, 32, "cuda", SEED)
+    timed_against_both(timed3, checks.TOL, errs)
+    times.update(kernel_times(timed3, "256³, slab of 32 planes", card, floor))
+    del timed3
 
     phase("3e the fused tail K17 and the split slab Jacobi K18")
     compare(checks.split_against_concat(2048, 256, "cuda", SEED), 0.0, errs,
@@ -1629,9 +1687,9 @@ def main() -> None:
     rho, k_d, k_p = perf_operating_point(256, ndim=3)
     label = f"256³ compensated (rho={rho}, k_d={k_d}, k_p={k_p})"
     # As in phase 9: the reference backend ignores fast_math.
-    sharded_path(comp3.replace(fast_math=True), 8,
-                 label + " fast_math, 8 slabs", card, 3,
-                 tol=(0.0, 1e-4, 1e-4))
+    launches_slab3 = {k: c + launches_slab3[k] for k, c in sharded_path(
+        comp3.replace(fast_math=True), 8, label + " fast_math, 8 slabs",
+        card, 3, tol=(0.0, 1e-4, 1e-4)).items()}
     sharded_path(comp3, 32, label + ", 32 slabs of 8 planes", card, 3,
                  tol=(1e-5, 2e-5, 1e-4), graph_reps=1)
 
@@ -1735,7 +1793,7 @@ def main() -> None:
     times.update(kernel_times(checks.timing_checks_bf16(2048, "cuda", SEED),
                               "2048²", card))
     big16 = checks.timing_checks_bf16(8192, "cuda", SEED)
-    k1_timed_against_both(big16, errs)
+    timed_against_both(big16, 0.0, errs)
     kernel_times(big16, "8192²", card)
     del big16
     kernel_times(checks.timing_checks_bf16(DATAGEN_N + 2, "cuda", SEED,
@@ -1792,7 +1850,7 @@ def k1_against_both(bf16: bool, errs: dict[str, float]) -> None:
     bf16 storage) at 2048² and on the datagen batch, against its plain
     version and against the same call on the per-sweep K1: bit for bit.
     At 8192² phase 18 holds the calls it times
-    (``k1_timed_against_both``), in both storage types."""
+    (``timed_against_both``), in both storage types."""
     from fluidsimulationcuda_torch.kernels import checks
 
     for side, batch in ((2048, 0), (DATAGEN_N + 2, DATAGEN_BATCH)):
@@ -1801,14 +1859,17 @@ def k1_against_both(bf16: bool, errs: dict[str, float]) -> None:
                     0.0, errs, "bit for bit")
 
 
-def k1_timed_against_both(check_list, errs: dict[str, float]) -> None:
-    """The timing checks whose call has a K1 solve in it (those carrying
-    the same call on the per-sweep K1, ``chain``), against their plain
-    version and against that chain, on the inputs they are timed on: bit
+def timed_against_both(check_list, tol: float,
+                       errs: dict[str, float]) -> None:
+    """The timing checks whose call has a tiled solve in it (those carrying
+    the same call on the per-sweep kernels, ``chain``), on the inputs they
+    are timed on, against their plain version (``max|Δ| <= tol``: 0 for
+    K1, ``checks.TOL`` for the 3-D kernel, whose plain fast form multiplies
+    and adds where the kernels call ``fmaf``) and against that chain, bit
     for bit."""
     timed = [c for c in check_list if c.chain is not None]
-    compare(timed, 0.0, errs, "bit for bit")
-    compare([dataclasses.replace(c, label=f"{c.label} vs per-sweep K1",
+    compare(timed, tol, errs, "bit for bit" if tol == 0.0 else "")
+    compare([dataclasses.replace(c, label=f"{c.label} vs per-sweep",
                                  plain=c.chain) for c in timed],
             0.0, errs, "bit for bit")
 
@@ -1923,8 +1984,8 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
             line += f"  composition it replaces {(c1 + c2) / 2:.5f} ms"
         if c.chain is not None:
             chain = (s1 + s2) / 2
-            line += (f"  per-sweep K1 {chain:.5f} ms ({chain / kernel:.2f}x "
-                     f"the tiled K1's)")
+            line += (f"  per-sweep chain {chain:.5f} ms ({chain / kernel:.2f}x "
+                     f"the tiled kernel's)")
         if library is not None:
             line += f"  grid_sample (gather only) {library:.5f} ms"
         if c.boxes is not None:

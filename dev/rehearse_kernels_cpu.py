@@ -11,13 +11,17 @@ build one.  This script compiles ``fluidsimulationcuda_torch/csrc`` with
 ``__device__``, ``dim3``, ``blockIdx``/``threadIdx``, and every launch
 ``k<<<grid, block, 0, stream>>>(args);`` becomes a loop over the grid, one
 thread after another.  A source that calls ``__syncthreads()`` (K4, which
-stages a block's footprint in shared memory) launches instead with a
-``std::thread`` per thread of the block, all running together, the blocks
-one after another: ``__shared__`` storage is static, which is the running
-block's, as is the launch's dynamic ``extern __shared__`` buffer (the
-tiled K1, ``csrc/jacobi_tiles.cu``), ``__syncthreads()`` is a C++20
-``std::barrier`` of the block,
-``__reduce_max_sync`` one of the warp, and a block whose threads passed
+stages a block's footprint in shared memory) launches instead with the
+block's threads running together as fibers on the launching thread (each
+with its own stack, switched by a few lines of assembly on x86-64 and
+by ``swapcontext`` elsewhere), the
+blocks one after another: ``__shared__`` storage is static, which is the
+running block's, as is the launch's dynamic ``extern __shared__`` buffer
+(the tiled K1, ``csrc/jacobi_tiles.cu``, and the tiled 3-D Jacobi,
+``csrc/jacobi3_tiles.cu``, which K5's solves and K13's z-slab segments
+take); a fiber runs until it waits at ``__syncthreads()``, which lets the
+block's fibers go on once all wait there, or at ``__reduce_max_sync`` or a
+shuffle, which lets its warp's go on; a block whose threads passed
 different numbers of barriers aborts the run.  The shim counts the blocks
 of K4 that stage their footprint and those that take the direct path
 (``csrc/dens_advect.cu``'s ``FSC_BLOCK_PATH``; ``block_paths`` reads
@@ -96,6 +100,7 @@ SHIM = r"""#pragma once
 #include <vector>
 #include <cstring>
 #include <type_traits>
+#include <ucontext.h>
 #include <utility>
 #define __global__
 #define __device__
@@ -156,16 +161,68 @@ struct ShimBlock {
 };
 inline thread_local ShimBlock* shim_block;
 inline thread_local int shim_tid, shim_syncs;
-inline void __syncthreads() { ++shim_syncs; shim_block->all.arrive_and_wait(); }
+// A block launch runs the block's threads as fibers on the launching
+// thread (shim_launch_block): a fiber runs until it waits at a barrier of
+// the block or of its warp, and a barrier lets its fibers go on once all
+// of them wait at it.  A cooperative launch runs OS threads instead, and
+// the same barriers are std::barriers.
+enum { SHIM_RUN, SHIM_WAIT_BLOCK, SHIM_WAIT_WARP, SHIM_DONE };
+// A context switch saves the running context to *save and resumes load.
+// On x86-64 it is a few lines of assembly (shim_switch, 2.5x faster for
+// these launches than swapcontext, which asks the kernel for the signal
+// mask each time); elsewhere it is swapcontext.
+extern "C" __attribute__((visibility("hidden"))) void shim_fiber_start();
+#if defined(__x86_64__)
+struct ShimContext { void* sp; };
+extern "C" __attribute__((visibility("hidden"))) void shim_switch(void** save, void* load);
+inline void shim_swap(ShimContext* save, ShimContext* load) { shim_switch(&save->sp, load->sp); }
+// A fiber that starts in shim_fiber_start on stack [base, base + size).
+inline void shim_make_fiber(ShimContext* c, char* base, size_t size) {
+  // Six callee-saved registers, then shim_fiber_start as the address
+  // shim_switch returns to, 16-byte aligned after it.
+  void** sp = reinterpret_cast<void**>(base + size) - 8;
+  for (int r = 0; r < 8; ++r) sp[r] = nullptr;
+  sp[6] = reinterpret_cast<void*>(&shim_fiber_start);
+  c->sp = sp;
+}
+#else
+struct ShimContext { ucontext_t uc; };
+inline void shim_swap(ShimContext* save, ShimContext* load) { swapcontext(&save->uc, &load->uc); }
+inline void shim_make_fiber(ShimContext* c, char* base, size_t size) {
+  getcontext(&c->uc);
+  c->uc.uc_stack.ss_sp = base;
+  c->uc.uc_stack.ss_size = size;
+  c->uc.uc_link = nullptr;
+  makecontext(&c->uc, shim_fiber_start, 0);
+}
+#endif
+struct ShimFiber { ShimContext ctx; int state; int syncs; };
+inline thread_local ShimFiber* shim_fiber;  // the running fiber; null in a thread
+inline thread_local ShimContext shim_sched;  // the launching thread's context
+inline thread_local void (*shim_body)(void*);
+inline thread_local void* shim_body_arg;
+inline void shim_wait(int state) {
+  shim_fiber->state = state;
+  shim_swap(&shim_fiber->ctx, &shim_sched);
+}
+inline void __syncthreads() {
+  ++shim_syncs;
+  if (shim_fiber) shim_wait(SHIM_WAIT_BLOCK);
+  else shim_block->all.arrive_and_wait();
+}
+inline void shim_warp_sync() {
+  if (shim_fiber) shim_wait(SHIM_WAIT_WARP);
+  else shim_block->warps[shim_tid / 32]->arrive_and_wait();
+}
 inline int __reduce_max_sync(unsigned, int v) {
   ShimBlock& blk = *shim_block;
   const int w = shim_tid / 32;
   blk.lanes[shim_tid] = v;
-  blk.warps[w]->arrive_and_wait();
+  shim_warp_sync();
   int m = v;
   for (int l = 32 * w; l < 32 * w + 32 && l < int(blk.lanes.size()); ++l)
     m = blk.lanes[l] > m ? blk.lanes[l] : m;
-  blk.warps[w]->arrive_and_wait();
+  shim_warp_sync();
   return m;
 }
 // A shuffle within a warp: lane l takes lane l+delta's v (its own where
@@ -175,9 +232,9 @@ inline float shim_shfl(float v, int delta) {
   const int w = shim_tid / 32, lane = shim_tid % 32;
   const int size = int(blk.flanes.size()) - 32 * w < 32 ? int(blk.flanes.size()) - 32 * w : 32;
   blk.flanes[shim_tid] = v;
-  blk.warps[w]->arrive_and_wait();
+  shim_warp_sync();
   const float r = lane + delta >= 0 && lane + delta < size ? blk.flanes[shim_tid + delta] : v;
-  blk.warps[w]->arrive_and_wait();
+  shim_warp_sync();
   return r;
 }
 inline float __shfl_up_sync(unsigned, float v, unsigned d) { return shim_shfl(v, -int(d)); }
@@ -192,39 +249,66 @@ inline void shim_block_path(bool direct) {
 // The block's dynamic shared memory (smem bytes) is one buffer, which the
 // blocks take in turn.
 inline thread_local char* shim_smem;
+[[noreturn]] inline void shim_fail(const char* what) {
+  std::fprintf(stderr, "shim: %s\n", what);
+  std::abort();
+}
 template <class F> void shim_launch_block(dim3 g, dim3 b, size_t smem, F f) {
   gridDim = g; blockDim = b;
   const int nt = b.x * b.y * b.z;
+  constexpr size_t kStack = size_t(1) << 18;  // each fiber's stack
   ShimBlock blk(nt);
   std::vector<char> mem(smem + 1);
-  std::vector<int> syncs(nt);
-  bool uneven = false;
-  std::vector<std::thread> threads;
-  for (int t = 0; t < nt; ++t)
-    threads.emplace_back([&, t] {
-      shim_block = &blk;
-      shim_tid = t;
-      shim_smem = mem.data();
-      threadIdx = dim3(t % b.x, t / b.x % b.y, t / (b.x * b.y));
-      for (unsigned bz = 0; bz < g.z; ++bz)
-        for (unsigned by = 0; by < g.y; ++by)
-          for (unsigned bx = 0; bx < g.x; ++bx) {
-            blockIdx = dim3(bx, by, bz);
-            shim_syncs = 0;
-            f();
-            syncs[t] = shim_syncs;
-            blk.all.arrive_and_wait();
-            if (t == 0)
-              for (int s : syncs) uneven = uneven || s != syncs[0];
-            blk.all.arrive_and_wait();
+  std::unique_ptr<char[]> stacks(new char[nt * kStack]);
+  std::vector<ShimFiber> fibers(nt);
+  shim_block = &blk;
+  shim_smem = mem.data();
+  shim_body = [](void* arg) { (*static_cast<F*>(arg))(); };
+  shim_body_arg = &f;
+  for (unsigned bz = 0; bz < g.z; ++bz)
+    for (unsigned by = 0; by < g.y; ++by)
+      for (unsigned bx = 0; bx < g.x; ++bx) {
+        blockIdx = dim3(bx, by, bz);
+        for (int t = 0; t < nt; ++t) {
+          shim_make_fiber(&fibers[t].ctx, stacks.get() + t * kStack, kStack);
+          fibers[t].state = SHIM_RUN;
+          fibers[t].syncs = 0;
+        }
+        for (int done = 0; done < nt;) {
+          for (int t = 0; t < nt; ++t) {
+            if (fibers[t].state != SHIM_RUN) continue;
+            shim_fiber = &fibers[t];
+            shim_tid = t;
+            shim_syncs = fibers[t].syncs;
+            threadIdx = dim3(t % b.x, t / b.x % b.y, t / (b.x * b.y));
+            shim_swap(&shim_sched, &fibers[t].ctx);
+            fibers[t].syncs = shim_syncs;
+            done += fibers[t].state == SHIM_DONE;
           }
-    });
-  for (auto& th : threads) th.join();
-  if (uneven) {
-    std::fprintf(stderr, "shim: the threads of a block passed different "
-                         "numbers of __syncthreads()\n");
-    std::abort();
-  }
+          bool go = false;  // a warp whose every thread waits goes on
+          for (int w = 0; w < nt; w += 32) {
+            bool all = true;
+            for (int t = w; t < nt && t < w + 32; ++t)
+              all = all && fibers[t].state == SHIM_WAIT_WARP;
+            for (int t = w; all && t < nt && t < w + 32; ++t)
+              fibers[t].state = SHIM_RUN;
+            go = go || all;
+          }
+          if (go || done == nt) continue;
+          for (int t = 0; t < nt; ++t)
+            if (fibers[t].state != SHIM_WAIT_BLOCK)
+              shim_fail(fibers[t].state == SHIM_DONE
+                            ? "the threads of a block passed different "
+                              "numbers of __syncthreads()"
+                            : "a warp barrier that not every thread reached");
+          for (int t = 0; t < nt; ++t) fibers[t].state = SHIM_RUN;
+        }
+        for (int t = 0; t < nt; ++t)
+          if (fibers[t].syncs != fibers[0].syncs)
+            shim_fail("the threads of a block passed different numbers of "
+                      "__syncthreads()");
+      }
+  shim_fiber = nullptr;
 }
 // A cooperative launch runs all its blocks' threads together (see the
 // module docstring).
@@ -276,6 +360,39 @@ template <class... A> int cudaLaunchCooperativeKernel(void (*fn)(A...), dim3 g, 
 }
 """
 PATHS = r"""#include "cuda_runtime.h"
+#if defined(__x86_64__)
+// Save the callee-saved registers and the stack pointer to *save, load
+// another context's from load (x86-64 System V).
+asm(R"(
+  .text
+  .globl shim_switch
+  .hidden shim_switch
+  .type shim_switch, @function
+shim_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size shim_switch, .-shim_switch
+)");
+#endif
+extern "C" void shim_fiber_start() {
+  shim_body(shim_body_arg);
+  shim_fiber->state = SHIM_DONE;
+  shim_swap(&shim_fiber->ctx, &shim_sched);
+  shim_fail("a finished fiber ran again");
+}
 extern "C" void fsc_shim_block_paths(long long* out) {
   out[0] = shim_paths[0];
   out[1] = shim_paths[1];

@@ -57,6 +57,11 @@ _SIGNATURES = {
                               _F, _F, _F, _F, _I, _I, _I, _P],
     "fsc_jacobi3_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
                           _F, _I, _P],
+    "fsc_jacobi3_sweeps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
+                           _F, _P, _I, _I, _I, _P],
+    "fsc_jacobi3_slab_sweeps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                                _F, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P],
     "fsc_divergence3": [_P, _P, _P, _P, _I, _F, _P],
     "fsc_gradient3": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P],
     "fsc_advect3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,

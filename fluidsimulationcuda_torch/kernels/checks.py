@@ -14,8 +14,9 @@ whatever its launches read again; a solve's intermediate iterates are
 neither) and its float operations per cell.  ``Check.bound()`` turns them
 into the least time the card could take for the same work.  A fused
 kernel's timed check also carries the composition it replaces
-(``composed``), and a call with K1 solves in it the same call on the
-per-sweep K1 (``chain``), each timed beside it.
+(``composed``), and a call with tiled solves in it (K1, or the 3-D kernel
+of K5 and K13) the same call on the per-sweep kernels (``chain``), each
+timed beside it.
 """
 from __future__ import annotations
 
@@ -52,7 +53,8 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "timing_checks3_windowed", "K4_TILE", "K4_BOX_CAP",
            "footprint_boxes", "gather_velocities", "kernel_checks_flows",
            "staged_share", "max_abs_diff", "device_ms",
-           "kernel_checks_bf16", "timing_checks_bf16", "k1_checks"]
+           "kernel_checks_bf16", "timing_checks_bf16", "k1_checks",
+           "per_sweep_checks"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -77,7 +79,8 @@ class Check:
     cost: tuple[int, int] = (0, 0)  # (field passes, float ops per cell)
     cells: int = 0  # cells of one field
     composed: Callable[[], object] | None = None  # what a fusion replaces
-    # The same call with its K1 solves on the per-sweep K1 (``_k1_timed``).
+    # The same call with its tiled solves on the per-sweep kernels
+    # (``_k1_timed``).
     chain: Callable[[], object] | None = None
     # A gather's fields and its departure coordinates (x, y[, z]) in each
     # field's own cells, for a library gather's time beside the kernel's.
@@ -109,16 +112,18 @@ def _timed(cost: tuple[int, int], cells: int, label, kernels, fn, plain,
 
 
 def _per_sweep(fn, *args, **kw):
-    """``fn(*args, **kw)`` with every K1 solve in it on the per-sweep K1
-    (``cuda_ops.launch_sweeps(0)``)."""
+    """``fn(*args, **kw)`` with every K1 solve and 3-D solve or z-slab
+    segment in it on the per-sweep kernels (``cuda_ops.launch_sweeps(0)``:
+    K1, K5, K13)."""
     with co.launch_sweeps(0):
         return fn(*args, **kw)
 
 
 def _k1_timed(cost: tuple[int, int], cells: int, label, kernels, fn, plain,
               *args, **kw) -> Check:
-    """A timed check of a call whose K1 solves take the tiled K1, carrying
-    the same call on the per-sweep K1 (``chain``), timed beside it."""
+    """A timed check of a call whose solves take a tiled kernel (K1, or
+    the 3-D kernel of K5 and K13), carrying the same call on the per-sweep
+    kernels (``chain``), timed beside it."""
     check = _timed(cost, cells, label, kernels, fn, plain, *args, **kw)
     check.chain = functools.partial(_per_sweep, fn, *args, **kw)
     return check
@@ -1015,7 +1020,29 @@ def timing_checks_pair(side: int, device, seed: int = 0) -> list[Check]:
     return [check]
 
 
-JAC3 = ("jacobi3_sweep",)
+JAC3 = ("jacobi3_sweeps",)
+JAC3_SWEEP = ("jacobi3_sweep",)
+
+
+def _jac3(kw: dict, planes: int | None = None) -> tuple[str, ...]:
+    """The kernel a 3-D solve (a segment on a z-slab buffer of ``planes``
+    planes) of keyword arguments ``kw`` takes on the path
+    (``cuda_ops.tiled3``)."""
+    if co.tiled3(kw.get("cheby_rho") is not None, kw.get("fast", False),
+                 planes):
+        return JAC3 if planes is None else JAC3_SLAB
+    return JAC3_SWEEP if planes is None else JAC3_SLAB_SWEEP
+
+
+def per_sweep_checks(check_list: list[Check]) -> list[Check]:
+    """Each check of ``check_list`` whose call takes the tiled 3-D Jacobi
+    on the path (a Chebyshev solve or z-slab segment in fast mode,
+    ``_jac3``) held against the same call on the per-sweep K5 and K13:
+    equal bit for bit, the tiled kernel computing what the per-sweep
+    launches of its sweeps compute."""
+    return [dataclasses.replace(c, label=f"{c.label} tiled vs per-sweep",
+                                plain=functools.partial(_per_sweep, c.run))
+            for c in check_list if c.kernels in (JAC3, JAC3_SLAB)]
 
 
 def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
@@ -1039,7 +1066,7 @@ def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
     for b in (0, 1, 2, 3):
         for mode, kw in modes.items():
             k = k_d if "cheby_rho" in kw else iters
-            out.append(_check(f"fused_jacobi3 b={b} {mode} {k}it", JAC3,
+            out.append(_check(f"fused_jacobi3 b={b} {mode} {k}it", _jac3(kw),
                               co3.fused_jacobi3, co3.fused_jacobi3_plain, b,
                               t.x, t.x0, av, 1 + 6 * av, k, **kw))
     uvw = (t.u, t.v, t.w)
@@ -1061,14 +1088,19 @@ def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
 
 def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times in 3-D: one launch of each CUDA kernel
-    (labelled by the kernel's name; ``advect3`` is the self-advected
-    triple), then K6 on one field and on smooth and shear velocities, and
-    each solve at the main path's iteration counts."""
+    (labelled by the kernel's name; the tiled K5's runs the first T3 sweeps
+    of a fast Chebyshev solve, the per-sweep K5's one Jacobi sweep;
+    ``advect3`` is the self-advected triple), then K6 on one field and on
+    smooth and shear velocities, and each solve at the main path's
+    iteration counts on the kernel the path takes (``cuda_ops.tiled3``),
+    beside the same solve on the per-sweep K5 (``chain``) where that is
+    the tiled kernel."""
     t = _Inputs(side, device, seed, ndim=3)
     n, av, cells = t.n, t.a_visc, t.cells
     bv = 1 + 6 * av
     rho, k_d, k_p = PERF_POINT_3D
     uvw = (t.u, t.v, t.w)
+    per_launch = co.SWEEPS_PER_LAUNCH_3D
 
     def sweeps(iters, **kw):
         return _sweeps_cost(iters, 3, **kw)
@@ -1082,8 +1114,13 @@ def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
         return check
 
     return [
-        _timed(sweeps(1), cells, "jacobi3_sweep", JAC3, co3.fused_jacobi3,
-               co3.fused_jacobi3_plain, 1, t.x, t.x0, av, bv, 1),
+        _k1_timed(sweeps(per_launch, src=True, fast=True, cheby=True), cells,
+                  "jacobi3_sweeps", JAC3, co3.fused_jacobi3,
+                  co3.fused_jacobi3_plain, 1, t.x, t.x0, av, bv, per_launch,
+                  src_dt=DT, fast=True, cheby_rho=rho),
+        _timed(sweeps(1), cells, "jacobi3_sweep", JAC3_SWEEP,
+               co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.x, t.x0, av,
+               bv, 1),
         _timed(DIV3, cells, "divergence3", ("divergence3",),
                co3.divergence3_p, co3.divergence3_p_plain, *uvw, n),
         _timed(GRAD3, cells, "gradient3", ("gradient3",), co3.gradient3_p,
@@ -1099,20 +1136,20 @@ def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
         k6("advect3 one field, shear velocities", ADVECT3_ONE, (0,), (t.x,),
            t.shear),
         _timed(sweeps(20, src=True), cells,
-               "fused_jacobi3 20it src_dt (u diffusion)", JAC3,
+               "fused_jacobi3 20it src_dt (u diffusion)", JAC3_SWEEP,
                co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0, av,
                bv, 20, src_dt=DT),
-        _timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
-               f"fused_jacobi3 {k_d}it chebyshev+fast", JAC3,
-               co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0, av,
-               bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
-        _timed(sweeps(20, zero_init=True), cells, "pressure3 20it", JAC3,
-               co3.fused_jacobi3, co3.fused_jacobi3_plain, 0, t.p, t.p, 1.0,
-               6.0, 20, zero_init=True),
-        _timed(sweeps(k_p, zero_init=True, fast=True, cheby=True), cells,
-               f"pressure3 {k_p}it chebyshev+fast", JAC3, co3.fused_jacobi3,
-               co3.fused_jacobi3_plain, 0, t.p, t.p, 1.0, 6.0, k_p,
-               zero_init=True, fast=True, cheby_rho=rho),
+        _k1_timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
+                  f"fused_jacobi3 {k_d}it chebyshev+fast", JAC3,
+                  co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0,
+                  av, bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
+        _timed(sweeps(20, zero_init=True), cells, "pressure3 20it",
+               JAC3_SWEEP, co3.fused_jacobi3, co3.fused_jacobi3_plain, 0,
+               t.p, t.p, 1.0, 6.0, 20, zero_init=True),
+        _k1_timed(sweeps(k_p, zero_init=True, fast=True, cheby=True), cells,
+                  f"pressure3 {k_p}it chebyshev+fast", JAC3,
+                  co3.fused_jacobi3, co3.fused_jacobi3_plain, 0, t.p, t.p,
+                  1.0, 6.0, k_p, zero_init=True, fast=True, cheby_rho=rho),
     ]
 
 
@@ -1458,7 +1495,8 @@ def timing_checks_slab(side: int, m: int, device,
     ]
 
 
-JAC3_SLAB = ("jacobi3_slab",)
+JAC3_SLAB = ("jacobi3_slab_sweeps",)
+JAC3_SLAB_SWEEP = ("jacobi3_slab",)
 SLAB3_CMAX = 4  # SimConfig.max_courant's default: the main path's window
 
 
@@ -1535,7 +1573,8 @@ def kernel_checks_slab3(side: int, mz: int, device,
                "fast": dict(fast=True)}
         for mode, kw in jac.items():
             out.append(_check(
-                f"fused_jacobi3_slab {pos} {mode} {K}it", JAC3_SLAB,
+                f"fused_jacobi3_slab {pos} {mode} {K}it",
+                _jac3(kw, mz + 2 * H),
                 cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
                 ext(t.x, i, H), ext(t.x0, i, H), fl, mz=mz, H=H, alpha=av,
                 beta=1 + 6 * av, sweeps=K, **kw))
@@ -1551,14 +1590,16 @@ def kernel_checks_slab3(side: int, mz: int, device,
                 ("chained segment fast", s, min(K, k_d - s), xm, True)):
             out.append(_check(
                 f"fused_cheby3_slab {pos} {what} {start}+{sweeps}it",
-                JAC3_SLAB, cs3.fused_cheby3_slab,
+                _jac3(dict(cheby_rho=rho, fast=fast), mz + 2 * H),
+                cs3.fused_cheby3_slab,
                 cs3.fused_cheby3_slab_plain, 3, ext(t.x, i, H), carried,
                 ext(t.x0, i, H), fl, mz=mz, H=H, alpha=av, beta=1 + 6 * av,
                 cheby_rho=rho, start=start, sweeps=sweeps, fast=fast,
                 carry_in=carried is not None, carry_out=True))
         K, H = plan(k_p)
         out.append(_check(
-            f"fused_cheby3_slab {pos} pressure fast 0+{K}it", JAC3_SLAB,
+            f"fused_cheby3_slab {pos} pressure fast 0+{K}it",
+            _jac3(dict(cheby_rho=rho, fast=True), mz + 2 * H),
             cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 0,
             ext(t.p, i, H), None, ext(t.p, i, H), fl, mz=mz, H=H, alpha=1.0,
             beta=6.0, cheby_rho=rho, start=0, sweeps=K, zero_init=True,
@@ -1617,11 +1658,13 @@ def timing_checks_slab3(side: int, mz: int, device,
                         seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times for the z-slab kernels, on an interior
     slab of ``mz`` planes at volume ``side`` with the step's margins: one
-    launch of each CUDA kernel (labelled by the kernel's name; K13 is the
-    first sweep of a 20-sweep segment over the whole extended buffer,
-    ``advect3_slab`` the (u, v, w) triple) beside its plain twin, then each
-    wrapper at the main path's iteration counts; K14 also on one field and
-    on smooth and shear velocities, as K6 (``timing_checks3``).  Costs
+    launch of each CUDA kernel (labelled by the kernel's name; the tiled
+    K13 runs the first T3 sweeps of a fast Chebyshev segment, the
+    per-sweep K13 the first sweep of a Jacobi one, over the whole extended
+    buffer; ``advect3_slab`` is the (u, v, w) triple) beside its plain
+    twin, then each wrapper at the main path's iteration counts on the
+    kernel the path takes, as ``timing_checks3`` times the solves; K14
+    also on one field and on smooth and shear velocities, as K6.  Costs
     count the planes each launch computes."""
     t = _Slab3Inputs(side, mz, device, seed)
     n, av = t.n, t.a_visc
@@ -1658,11 +1701,18 @@ def timing_checks_slab3(side: int, mz: int, device,
         return check
 
     rand = (t.u, t.v, t.w)
+    per_launch = co.SWEEPS_PER_LAUNCH_3D
+    H20 = K20 + 1
     return [
-        _timed(sweeps(1, K20 + 1), 1, "jacobi3_slab", JAC3_SLAB,
+        _k1_timed(sweeps(per_launch, H20, fast=True, cheby=True), 1,
+                  "jacobi3_slab_sweeps", JAC3_SLAB, cs3.fused_cheby3_slab,
+                  cs3.fused_cheby3_slab_plain, 1, ext(t.x, i, H20), None,
+                  ext(t.x0, i, H20), fl, mz=mz, H=H20, alpha=av, beta=bv,
+                  cheby_rho=rho, start=0, sweeps=per_launch, fast=True),
+        _timed(sweeps(1, H20), 1, "jacobi3_slab", JAC3_SLAB_SWEEP,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
-               ext(t.x, i, K20 + 1), ext(t.x0, i, K20 + 1), fl, mz=mz,
-               H=K20 + 1, alpha=av, beta=bv, sweeps=1),
+               ext(t.x, i, H20), ext(t.x0, i, H20), fl, mz=mz, H=H20,
+               alpha=av, beta=bv, sweeps=1),
         _timed(_scaled(DIV3, cells), 1, "divergence3_slab",
                ("divergence3_slab",), cs3.divergence3_slab,
                cs3.divergence3_slab_plain, *uvw, *t.halo(t.w, i), fl, n),
@@ -1680,28 +1730,28 @@ def timing_checks_slab3(side: int, mz: int, device,
             t.shear, t.shear),
         k14("advect3_slab one field, shear velocities", ADVECT3_ONE, (0,),
             (t.x,), t.shear),
-        _timed(sweeps(K20, K20 + 1), 1,
-               f"fused_jacobi3_slab {K20}it (u diffusion)", JAC3_SLAB,
+        _timed(sweeps(K20, H20), 1,
+               f"fused_jacobi3_slab {K20}it (u diffusion)", JAC3_SLAB_SWEEP,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
-               ext(t.src, i, K20 + 1), ext(t.x0, i, K20 + 1), fl, mz=mz,
-               H=K20 + 1, alpha=av, beta=bv, sweeps=K20),
-        _timed(sweeps(K20, K20 + 1, zero_init=True), 1,
-               f"fused_jacobi3_slab {K20}it pressure", JAC3_SLAB,
+               ext(t.src, i, H20), ext(t.x0, i, H20), fl, mz=mz, H=H20,
+               alpha=av, beta=bv, sweeps=K20),
+        _timed(sweeps(K20, H20, zero_init=True), 1,
+               f"fused_jacobi3_slab {K20}it pressure", JAC3_SLAB_SWEEP,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 0,
-               ext(t.p, i, K20 + 1), ext(t.p, i, K20 + 1), fl, mz=mz,
-               H=K20 + 1, alpha=1.0, beta=6.0, sweeps=K20, zero_init=True),
-        _timed(sweeps(Kd, Kd + 1, fast=True, cheby=True), 1,
-               f"fused_cheby3_slab {Kd}it fast (u diffusion)", JAC3_SLAB,
-               cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 1,
-               ext(t.src, i, Kd + 1), None, ext(t.x0, i, Kd + 1), fl, mz=mz,
-               H=Kd + 1, alpha=av, beta=bv, cheby_rho=rho, start=0,
-               sweeps=Kd, fast=True),
-        _timed(sweeps(Kp, Kp + 1, zero_init=True, fast=True, cheby=True), 1,
-               f"fused_cheby3_slab {Kp}it fast pressure", JAC3_SLAB,
-               cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 0,
-               ext(t.p, i, Kp + 1), None, ext(t.p, i, Kp + 1), fl, mz=mz,
-               H=Kp + 1, alpha=1.0, beta=6.0, cheby_rho=rho, start=0,
-               sweeps=Kp, zero_init=True, fast=True),
+               ext(t.p, i, H20), ext(t.p, i, H20), fl, mz=mz, H=H20,
+               alpha=1.0, beta=6.0, sweeps=K20, zero_init=True),
+        _k1_timed(sweeps(Kd, Kd + 1, fast=True, cheby=True), 1,
+                  f"fused_cheby3_slab {Kd}it fast (u diffusion)", JAC3_SLAB,
+                  cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 1,
+                  ext(t.src, i, Kd + 1), None, ext(t.x0, i, Kd + 1), fl,
+                  mz=mz, H=Kd + 1, alpha=av, beta=bv, cheby_rho=rho,
+                  start=0, sweeps=Kd, fast=True),
+        _k1_timed(sweeps(Kp, Kp + 1, zero_init=True, fast=True, cheby=True),
+                  1, f"fused_cheby3_slab {Kp}it fast pressure", JAC3_SLAB,
+                  cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 0,
+                  ext(t.p, i, Kp + 1), None, ext(t.p, i, Kp + 1), fl, mz=mz,
+                  H=Kp + 1, alpha=1.0, beta=6.0, cheby_rho=rho, start=0,
+                  sweeps=Kp, zero_init=True, fast=True),
     ]
 
 

@@ -85,7 +85,8 @@ from .dispatch import OpSet
 
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "check_grid",
-    "make_opset", "SWEEPS_PER_LAUNCH", "launch_sweeps", "SweepLaunch",
+    "make_opset", "SWEEPS_PER_LAUNCH", "SWEEPS_PER_LAUNCH_3D", "tiled3",
+    "launch_sweeps", "SweepLaunch",
     "sweep_plan",
     "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "fused_jacobi_pair",
     "fused_jacobi_pair_plain", "fused_project",
@@ -102,7 +103,8 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "advect3_slab", "advect_project", "jacobi_slab_split",
            "jacobi_sweep_damp", "advect3_windowed", "jacobi_sweep_bf16",
            "divergence_bf16", "gradient_bf16", "advect_bf16",
-           "jacobi_sweeps", "jacobi_sweeps_bf16")
+           "jacobi_sweeps", "jacobi_sweeps_bf16", "jacobi3_sweeps",
+           "jacobi3_slab_sweeps")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -119,8 +121,34 @@ _X_BF16, _XM_BF16, _OUT_BF16 = 1, 2, 4
 # (dev/bench_sweeps.py, PERF.md): the fastest or within 5% of it at 2048²,
 # 8192² and 1024 x 256², in float32 and bf16, for each solve of the step.
 SWEEPS_PER_LAUNCH = 10
-# Set by launch_sweeps(): the sweeps of a K1 launch, 0 for the per-sweep K1.
+# T3, the sweeps of one launch of the tiled 3-D Jacobi (csrc/jacobi3_tiles.cu,
+# on a volume and on z-slabs), chosen by measurement (dev/bench_sweeps3.py,
+# PERF.md): the fastest of 4, 5 and 6 for each fast Chebyshev solve at 256^3
+# and on a 32-plane z-slab, the solves that take the kernel (tiled3); the
+# library takes at most 6.
+SWEEPS_PER_LAUNCH_3D = 6
+# Set by launch_sweeps(): the sweeps of a tiled launch, 0 for the per-sweep
+# kernels.
 _forced: int | None = None
+
+
+def tiled3(cheby: bool, fast: bool, planes: int | None = None) -> bool:
+    """Whether a 3-D solve (``planes`` None) or a segment on a z-slab
+    buffer of ``planes`` planes takes the tiled 3-D Jacobi (T3 sweeps a
+    launch) or the per-sweep K5 or K13 (one launch a sweep).
+
+    The tiled kernel has one mode, a Chebyshev solve in fast mode, the
+    one in which it beat the per-sweep chain on the H100 (PERF.md §6:
+    1.10-1.19x; 0.83-0.99x in the three others, which it does not build).
+    On a z-slab a launch of T3 sweeps writes ``planes - 2*T3`` planes and
+    each block walks 3*T3 more of warm-up and drain (``plan_chunk`` in
+    ``csrc/jacobi3_tiles.cu``); below 5*T3 planes the walk repeats more
+    planes than the launch writes, while the per-sweep K13's fields of
+    such a buffer stay in the L2, and the per-sweep K13 takes the segment
+    (PERF.md §6: 24-plane buffers of 8-plane slabs).
+    ``launch_sweeps`` overrides the geometry, not the mode."""
+    return cheby and fast and (planes is None
+                               or planes >= 5 * SWEEPS_PER_LAUNCH_3D)
 
 
 def launch_counts() -> dict[str, int]:
@@ -221,11 +249,14 @@ def _launch(kernel: str, fn, *args) -> None:
 
 @contextlib.contextmanager
 def launch_sweeps(per_launch: int):
-    """Within the block every K1 solve on the card takes ``per_launch``
-    sweeps a launch of the tiled K1 (the library refuses a launch of more
-    than its kMaxSweeps, 20), or with 0 launches the per-sweep K1 for each
-    sweep: the chains the checks hold the tiled kernel against and
-    ``dev/bench_sweeps.py`` times.  No path of the port enters it."""
+    """Within the block every K1 solve, and every 3-D Chebyshev solve or
+    z-slab segment in fast mode (the tiled 3-D kernel's one mode;
+    ``tiled3``), on the card takes ``per_launch`` sweeps a launch of the
+    tiled kernel (the library refuses a launch of more than its
+    kMaxSweeps: 20 for K1, 6 for the 3-D kernel), or with 0 launches the
+    per-sweep kernel (K1, K5 or K13) for each sweep: the chains the checks
+    hold the tiled kernels against and ``dev/bench_sweeps.py`` and
+    ``dev/bench_sweeps3.py`` time.  No path of the port enters it."""
     global _forced
     if per_launch < 0:
         raise ValueError(f"per_launch {per_launch} < 0")
@@ -237,7 +268,8 @@ def launch_sweeps(per_launch: int):
 
 
 class SweepLaunch(NamedTuple):
-    """One tiled K1 launch of a solve (``sweep_plan``)."""
+    """One tiled launch of a solve (``sweep_plan``): K1, or the 3-D
+    kernel on a volume or a z-slab."""
 
     first: int  # the solve's index of its first sweep
     count: int  # its sweeps; sweep k combines with cheby_omegas[k-1], k >= 1
@@ -249,16 +281,17 @@ class SweepLaunch(NamedTuple):
 
 
 def sweep_plan(start: int, stop: int, end: int, per_launch: int, *,
-               prep: bool, cheby: bool, guess: bool = True
-               ) -> list[SweepLaunch]:
-    """The tiled K1 launches that run sweeps [start, stop) of a solve whose
+               prep: bool, cheby: bool, guess: bool = True,
+               carry_out: bool = False) -> list[SweepLaunch]:
+    """The tiled launches that run sweeps [start, stop) of a solve whose
     sweeps end at ``end`` (K4 runs the last where ``stop`` < ``end``):
     ``per_launch`` sweeps each, the remainder last.  ``prep``: the first
     launch builds the rhs (a folded source or fast mode); ``cheby``: a
     Chebyshev solve; ``guess``: the first launch reads a guess, not the
-    zero guess.  What follows a launch reads the rhs it built and, in a
-    Chebyshev chain, its x_{k-1}; a 1-sweep launch's x_{k-1} is its input,
-    so it stores none."""
+    zero guess; ``carry_out``: the chain goes on after ``end`` (a z-slab
+    segment that hands x_{k-1} to the next).  What follows a launch reads
+    the rhs it built and, in a Chebyshev chain, its x_{k-1}; a 1-sweep
+    launch's x_{k-1} is its input, so it stores none."""
     plan, k = [], start
     while k < stop:
         count = min(per_launch, stop - k)
@@ -267,7 +300,7 @@ def sweep_plan(start: int, stop: int, end: int, per_launch: int, *,
             first=k, count=count, reads_guess=guess and k == start,
             reads_guess_as_xm=cheby and guess and k == start + 1,
             stores_rhs=prep and k == start and follows,
-            stores_xm=cheby and count >= 2 and follows,
+            stores_xm=cheby and count >= 2 and (follows or carry_out),
             ends_solve=k + count == end))
         k += count
     return plan
@@ -275,9 +308,10 @@ def sweep_plan(start: int, stop: int, end: int, per_launch: int, *,
 
 class _Sweeps:
     """The sweep launches of one solve (K1 on a grid or a batch of grids,
-    K5 ``jacobi3_sweep`` on a volume): ``sweep()`` advances one iterate by
-    a launch of the per-sweep kernel, ``run()`` a K1 solve by the launches
-    of ``sweep_plan`` (the tiled K1, ``launch()``).
+    K5 on a volume, K13 on a z-slab): ``sweep()`` advances one iterate by
+    a launch of the per-sweep kernel, ``run()`` a K1 solve and ``run3()``
+    a 3-D solve or z-slab segment by the launches of ``sweep_plan`` (the
+    tiled K1 or the tiled 3-D kernel, ``launch()``).
 
     It owns the scratch it ping-pongs through (two tensors, three for
     Chebyshev, whose x_{k-1} and x_k are read-only while x_{k+1} is
@@ -311,6 +345,10 @@ class _Sweeps:
     launches of its sweeps leave it: x, x_{k-1} (written by the launch where
     a Chebyshev chain goes on), the stored rhs, k and prep, so K4 takes
     the last sweep of a density solve from either (``next_args()``)."""
+
+    # The tiled kernel of each per-sweep kernel.
+    TILED = {"jacobi_sweep": "jacobi_sweeps", "jacobi3_sweep": "jacobi3_sweeps",
+             "jacobi3_slab": "jacobi3_slab_sweeps"}
 
     def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
                  src_dt, fast, cheby_rho, kernel="jacobi_sweep", start=0,
@@ -412,9 +450,47 @@ class _Sweeps:
                                guess=self.x is not None):
             self.launch(lib, step, nb, nb1, b1)
 
-    def launch(self, lib, step: SweepLaunch, nb: int, nb1: int,
-               b1: int) -> None:
-        """One tiled K1 launch: the sweeps of ``step``."""
+    def run3(self, lib, slab: tuple[int, int, int] | None = None,
+             carry_out: bool = False) -> None:
+        """Every sweep of a 3-D solve (K5's, ``slab`` None) or of a z-slab
+        segment on a buffer of ``slab = (planes, gtop, gbot)`` (K13's;
+        sweep k of the segment, from 1, computes buffer planes [k,
+        planes-k)): where ``tiled3`` says so, the tiled 3-D kernel's
+        launches of ``sweep_plan``, T3 = ``SWEEPS_PER_LAUNCH_3D`` sweeps
+        each, otherwise one per-sweep launch a sweep (``launch_sweeps``
+        forces either in the tiled kernel's mode).  ``carry_out``: the
+        last launch also stores x_{k-1}, which the segment hands on."""
+        cheby = self.omegas is not None
+        if _forced is not None:
+            per_launch = _forced if tiled3(cheby, self.fast) else 0
+        else:
+            per_launch = (SWEEPS_PER_LAUNCH_3D if tiled3(
+                cheby, self.fast, None if slab is None else slab[0]) else 0)
+        start = self.k
+        if per_launch == 0:
+            while self.k < self.end:
+                if slab is None:
+                    self.sweep(lib)
+                else:
+                    planes, gtop, gbot = slab
+                    k = self.k - start + 1
+                    self.sweep(lib, k, planes - k, gtop, gbot)
+            return
+        for step in sweep_plan(self.k, self.end, self.end, per_launch,
+                               prep=self.prep, cheby=self.omegas is not None,
+                               guess=self.x is not None,
+                               carry_out=carry_out):
+            if slab is None:
+                self.launch(lib, step)
+            else:
+                planes, gtop, gbot = slab
+                self.launch(lib, step, planes, step.first - start, gtop,
+                            gbot)
+
+    def launch(self, lib, step: SweepLaunch, *geometry: int) -> None:
+        """One tiled launch: the sweeps of ``step``; ``geometry`` goes
+        between the launch's sweeps and the stream (K1's batch and boundary
+        split, a z-slab's planes, sweeps done and wall planes)."""
         cheby = self.omegas is not None
         out = (torch.empty_like(self.rhs) if self.bf16 and step.ends_solve
                else self._scratch())
@@ -426,7 +502,7 @@ class _Sweeps:
               for k in ks))
         flags = ((_PREP if self.prep else 0) | (_FAST if self.fast else 0)
                  | (_CHEBY if cheby else 0))
-        name = "jacobi_sweeps_bf16" if self.bf16 else "jacobi_sweeps"
+        name = self.TILED[self.kernel] + ("_bf16" if self.bf16 else "")
         # A bf16 solve's guess is bf16 (the wrappers take one dtype).
         types = (((_X_BF16 if step.reads_guess else 0)
                   | (_XM_BF16 if step.reads_guess_as_xm else 0)
@@ -436,8 +512,8 @@ class _Sweeps:
                 self.rhs.data_ptr(), _ptr(self.src if self.prep else None),
                 _ptr(self.xm if cheby else None), out.data_ptr(),
                 _ptr(xm_out), _ptr(rhs_out), self.side, self.b, *self.coefs,
-                ctypes.addressof(omegas), flags, step.first, step.count, nb,
-                nb1, b1, *types, self.stream)
+                ctypes.addressof(omegas), flags, step.first, step.count,
+                *geometry, *types, self.stream)
         if rhs_out is not None:
             self.rhs, self.prep = rhs_out, False
         if cheby:

@@ -14,9 +14,16 @@ Unlike the TPU functions, every output carries its full ghost layer: no
 
 Four CUDA kernels carry the three 3-D TPU kernel families:
 
-- ``jacobi3_sweep`` (K5, ``csrc/jacobi3.cu``): one sweep per launch; it is
-  ``fused_jacobi3`` (TPU ``pallas_ops_3d.py:458``, and ``:522`` for
-  Chebyshev) and the pressure solve between K7 and K8.
+- K5, the 7-point sweeps of ``fused_jacobi3`` (TPU ``pallas_ops_3d.py:458``,
+  and ``:522`` for Chebyshev), the solves of the step and the pressure
+  solve between K7 and K8, in two forms that compute the same bits: the
+  per-sweep ``jacobi3_sweep`` (``csrc/jacobi3.cu``, one launch a sweep)
+  and the tiled ``jacobi3_sweeps`` (``csrc/jacobi3_tiles.cu``: up to T3
+  sweeps of a solve a launch, each block walking a (y, x) tile along z in
+  shared memory; ``cuda_ops.sweep_plan``, ``SWEEPS_PER_LAUNCH_3D``).  A
+  Chebyshev solve in fast mode takes the tiled form, the others the
+  per-sweep one, as measured (``cuda_ops.tiled3``);
+  ``cuda_ops.launch_sweeps`` forces either.
 - ``advect3`` (K6, ``csrc/advect3.cu``): ``advect3_shift`` (``:971``) and
   ``advect3_shift_fused`` (``:728``), a trilinear gather of one to three
   fields with one backtrace, exact or in the window of ``cmax`` cells
@@ -76,7 +83,9 @@ def fused_jacobi3(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
     ``x0 + src_dt*x_init`` (the step's ``add_source``); ``fast`` uses the
     reciprocal form (``pallas_ops_3d.py:239-302``); ``cheby_rho`` switches
     to Chebyshev sweeps (``ops/chebyshev.py``), with x_{k-1} carried from
-    launch to launch.  One K5 launch per sweep."""
+    launch to launch.  ceil(iters / T3) launches of the tiled K5 for a
+    Chebyshev solve in fast mode, one launch of the per-sweep K5 a sweep
+    otherwise (``cuda_ops.tiled3``)."""
     if iters < 1:
         raise ValueError("iters must be >= 1")
     if not _on_card(x0.shape[-1], x_init, x0, ndim=3):
@@ -88,8 +97,7 @@ def fused_jacobi3(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
         sweeps = _Sweeps(b, x_init, x0, alpha, beta, iters,
                          zero_init=zero_init, src_dt=src_dt, fast=fast,
                          cheby_rho=cheby_rho, kernel="jacobi3_sweep")
-        for _ in range(iters):
-            sweeps.sweep(lib)
+        sweeps.run3(lib)
         return sweeps.x
 
 

@@ -19,10 +19,14 @@ Unlike the TPU functions, every output carries its full ghost layer.
 
 Four CUDA kernels carry the three TPU kernels and the step's two stencils:
 
-- ``jacobi3_slab`` (K13, ``csrc/jacobi3_slab.cu``), one sweep per launch:
-  ``fused_jacobi3_slab`` (B10a, ``pallas_sharded_3d.py:349``) and
+- K13, ``fused_jacobi3_slab`` (B10a, ``pallas_sharded_3d.py:349``) and
   ``fused_cheby3_slab`` (B10b, ``:442``), a Chebyshev chain segment that
-  resumes at global sweep ``start`` with x_{k-1} carried in and out;
+  resumes at global sweep ``start`` with x_{k-1} carried in and out, in
+  K5's two forms over the buffer's plane range: the per-sweep
+  ``jacobi3_slab`` (``csrc/jacobi3_slab.cu``) and the tiled
+  ``jacobi3_slab_sweeps`` (``csrc/jacobi3_tiles.cu``, T3 sweeps a launch),
+  which a Chebyshev segment in fast mode takes on a buffer of at least
+  5*T3 planes (``cuda_ops.tiled3``);
 - ``advect3_slab`` (K14, ``csrc/advect3_slab.cu``): ``advect3_flat_slab``
   (B10c, ``:530``), one field or the (u, v, w) triple per launch;
 - ``divergence3_slab`` (K15) and ``gradient3_slab`` (K16),
@@ -43,7 +47,7 @@ from ..ops.project import grid_h
 from ..ops.three_d import _THIRD, _neigh3, departure3, trilinear
 from . import build
 from . import cuda_ops as co
-from .cuda_sharded import _flags, _require, _run_sweeps, _shift, _wall_rows
+from .cuda_sharded import _flags, _require, _shift, _wall_rows
 
 __all__ = [
     "fused_jacobi3_slab", "fused_jacobi3_slab_plain", "fused_cheby3_slab",
@@ -210,8 +214,10 @@ def _solve_checks(x_ext, rhs_ext, mz, H, sweeps, xm_ext=None) -> bool:
 
 
 def _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta, sweeps, *,
-                   zero_init, fast, cheby_rho=None, start=0, xm_ext=None):
-    """``sweeps`` K13 launches; returns the final (x, x_{k-1}) buffers."""
+                   zero_init, fast, cheby_rho=None, start=0, xm_ext=None,
+                   carry_out=False):
+    """The segment's K13 launches (``cuda_ops._Sweeps.run3``); returns the
+    final (x, x_{k-1}) buffers, x_{k-1} valid with ``carry_out``."""
     gtop, gbot = _wall_rows(flags, H, mz)
     with torch.cuda.device(rhs_ext.device):
         lib = build.load()
@@ -219,7 +225,7 @@ def _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta, sweeps, *,
                          zero_init=zero_init, src_dt=None, fast=fast,
                          cheby_rho=cheby_rho, kernel="jacobi3_slab",
                          start=start, xm=xm_ext)
-        _run_sweeps(run, lib, sweeps, mz + 2 * H, gtop, gbot)
+        run.run3(lib, (mz + 2 * H, gtop, gbot), carry_out=carry_out)
         return run.x, run.xm
 
 
@@ -238,7 +244,7 @@ def fused_jacobi3_slab(b, x_ext, rhs_ext, flags, *, mz, H, alpha, beta,
     on an ``(mz+2H, side, side)`` extended slab from guess ``x_ext`` (zero
     with ``zero_init``; ``x_ext`` is then ignored) with rhs ``rhs_ext``;
     requires ``H >= sweeps + 1``.  Returns the (mz, side, side) slab.  One
-    K13 launch per sweep."""
+    launch of the per-sweep K13 a sweep (``cuda_ops.tiled3``)."""
     if not _solve_checks(x_ext, rhs_ext, mz, H, sweeps):
         return fused_jacobi3_slab_plain(
             b, x_ext, rhs_ext, flags, mz=mz, H=H, alpha=alpha, beta=beta,
@@ -281,8 +287,10 @@ def fused_cheby3_slab(b, x_ext, xm_ext, rhs_ext, flags, *, mz, H, alpha, beta,
     chain's plain first sweep).  ``carry_in``: ``xm_ext`` is the extended
     x_{k-1} of the previous segment (required exactly when ``start > 0``);
     ``carry_out``: also return the slab of the previous iterate, for the
-    next segment.  Returns the (mz, side, side) slab, or (x, x_{k-1}).  One
-    K13 launch per sweep."""
+    next segment.  Returns the (mz, side, side) slab, or (x, x_{k-1}).
+    ceil(sweeps / T3) launches of the tiled K13 in fast mode on a buffer
+    of at least 5*T3 planes, one of the per-sweep K13 a sweep otherwise
+    (``cuda_ops.tiled3``)."""
     if not _cheby_checks(x_ext, xm_ext, rhs_ext, mz, H, sweeps, start,
                          carry_in):
         return fused_cheby3_slab_plain(
@@ -292,7 +300,8 @@ def fused_cheby3_slab(b, x_ext, xm_ext, rhs_ext, flags, *, mz, H, alpha, beta,
             carry_out=carry_out)
     x, xm = _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta,
                            sweeps, zero_init=zero_init, fast=fast,
-                           cheby_rho=cheby_rho, start=start, xm_ext=xm_ext)
+                           cheby_rho=cheby_rho, start=start, xm_ext=xm_ext,
+                           carry_out=carry_out)
     return _cheby_result(x, xm, H, mz, carry_out)
 
 

@@ -109,6 +109,14 @@ def test_kernels3_match_plain(cuda, side):
         assert err <= checks.TOL, (check.label, err)
 
 
+def _k3(sweeps, segment=None):
+    """Tiled 3-D Jacobi launches of ``sweeps`` sweeps in segments of
+    ``segment``: T3 sweeps a launch, each segment's remainder last."""
+    t, segment = cuda_ops.SWEEPS_PER_LAUNCH_3D, segment or sweeps
+    full, rest = divmod(sweeps, segment)
+    return full * -(-segment // t) + -(-rest // t)
+
+
 @pytest.mark.parametrize("mode", ["parity", "compensated", "chebyshev-dens"])
 def test_step3_launches_and_matches_reference(cuda, mode):
     kw = {"parity": {}, "compensated": COMP3,
@@ -224,7 +232,9 @@ def test_slab3_kernels_match_plain(cuda, side, mz):
 def test_sharded3d_step_launches_and_matches_reference(cuda, mode):
     """The 3-D multi-device step on 4 z-slabs of 16 planes of 64³: 15-sweep
     segments, so the 20-sweep solves run chained (15 + 5); compensated with
-    fast math."""
+    fast math, whose fast Chebyshev segments take ceil(sweeps / T3)
+    launches of the tiled K13 (one a sweep of the per-sweep K13 before it
+    took them; the parity segments still do)."""
     from fluidsimulationcuda_torch.parallel import (make_mesh,
                                                     make_sharded_step_fn_3d,
                                                     shard_state_3d, unshard)
@@ -243,7 +253,10 @@ def test_sharded3d_step_launches_and_matches_reference(cuda, mode):
     k_p = cfg.press_cheby_iters if mode == "compensated" else cfg.jacobi_iters
     assert cuda_ops.launch_counts() == {
         **dict.fromkeys(cuda_ops.KERNELS, 0),
-        "jacobi3_slab": 4 * (4 * k_vel + 2 * k_p),
+        **({"jacobi3_slab_sweeps": 4 * (4 * _k3(k_vel, min(k_vel, 15))
+                                        + 2 * _k3(k_p, min(k_p, 15)))}
+           if mode == "compensated"
+           else {"jacobi3_slab": 4 * (4 * k_vel + 2 * k_p)}),
         "divergence3_slab": 8, "gradient3_slab": 8, "advect3_slab": 8}
     ref = make_sharded_step_fn_3d(cfg.replace(backend="reference"), mesh)
     want = unshard(ref(state, src))
@@ -265,6 +278,65 @@ def test_cuda_slab3_launches_or_raises(cuda):
         cuda_sharded_3d.fused_jacobi3_slab(0, x, x.cpu(), (1, 0, 0), mz=8,
                                            H=4, alpha=1.0, beta=6.0,
                                            sweeps=3)
+
+
+@pytest.mark.parametrize("per_launch", [1, 3, None])
+def test_tiled_3d_solves_equal_the_per_sweep_chain(cuda, per_launch):
+    """Every 3-D solve check at side 66 (tiles and chunks that do not
+    divide it) and every z-slab segment on slabs of 16 planes of 64³ that
+    takes the tiled kernel (its Chebyshev+fast mode), at T = 1, 3 and T3,
+    against the same call on the per-sweep K5 and K13: 0 difference."""
+    lists = (checks.kernel_checks3(66, cuda, seed=66),
+             checks.kernel_checks_slab3(64, 16, cuda, seed=64))
+    for check in checks.per_sweep_checks([c for cl in lists for c in cl]):
+        with cuda_ops.launch_sweeps(per_launch or
+                                    cuda_ops.SWEEPS_PER_LAUNCH_3D):
+            got = check.run()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("slabs", [4, 8])
+@pytest.mark.parametrize("fast", [False, True])
+def test_step3_launches_by_the_tiled3_rule(cuda, fast, slabs):
+    """One compensated 3-D step at 64³ and one on 4 z-slabs of 16 planes
+    or 8 of 8: with fast math the volume's Chebyshev solves take the
+    tiled K5, ceil(sweeps / T3) launches a solve, and the slabs' segments
+    the tiled K13 on 16-plane slabs (10- and 12-sweep segments on buffers
+    of 38 and 42 planes) but the per-sweep K13 on 8-plane slabs (7-sweep
+    segments on 24-plane buffers, fewer than 5*T3); without fast math
+    every sweep is one per-sweep launch and the tiled kernel is idle
+    (``cuda_ops.tiled3``)."""
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn_3d,
+                                                    shard_state_3d)
+
+    cfg = ft.SimConfig(n=62, ndim=3, backend="cuda", device=cuda,
+                       fast_math=fast, **COMP3)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    ft.StableFluids3D(cfg).step(state, src)
+    mesh = make_mesh([cuda] * slabs)
+    make_sharded_step_fn_3d(cfg, mesh)(shard_state_3d(state, mesh),
+                                       shard_state_3d(src, mesh))
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    k_vel, k_p = cfg.cheby_iters, cfg.press_cheby_iters
+    seg = 64 // slabs - 1
+    if fast:
+        assert counts["jacobi3_sweeps"] == 4 * _k3(k_vel) + 2 * _k3(k_p)
+        assert counts["jacobi3_sweep"] == 0
+    else:
+        assert counts["jacobi3_sweep"] == 4 * k_vel + 2 * k_p
+        assert counts["jacobi3_sweeps"] == 0
+    if fast and slabs == 4:
+        assert counts["jacobi3_slab_sweeps"] == slabs * (
+            4 * _k3(k_vel, min(k_vel, seg)) + 2 * _k3(k_p, min(k_p, seg)))
+        assert counts["jacobi3_slab"] == 0
+    else:
+        assert counts["jacobi3_slab"] == slabs * (4 * k_vel + 2 * k_p)
+        assert counts["jacobi3_slab_sweeps"] == 0
 
 
 @pytest.mark.parametrize("side,m", [(64, 16), (2048, 256)])
