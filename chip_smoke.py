@@ -37,11 +37,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 3c. every row-slab kernel of the multi-device step against its plain twin
    for a top, an interior and a bottom slab of 256 rows at 2048²
    (max|Δ| <= 1e-5), in its Jacobi, Chebyshev and fast forms, the gathers
-   under and over the 4-cell window, plus device times beside the bound
-   there (where a slab's fields sit in the 50 MB L2, so the launch floor,
-   a one-element kernel's time in a CUDA graph, is printed beside it) and
-   on an interior slab of 2048 rows of 8192² (the 4-slab run's shape,
-   whose working set exceeds the L2);
+   under and over the 4-cell window; every call whose solve takes the
+   tiled K9 (``slab_against_both``) there and on top, interior and bottom
+   slabs of 2048 rows of 8192² against its plain twin (bit for bit; fast
+   mode within 1e-5) and against the same call on the per-sweep K9
+   (``cuda_ops.launch_sweeps(0)``), bit for bit; plus device times beside
+   the bound there (where a slab's fields sit in the 50 MB L2, so the
+   launch floor, a one-element kernel's time in a CUDA graph, is printed
+   beside it) and on an interior slab of 2048 rows of 8192² (the 4-slab
+   run's shape, whose working set exceeds the L2), each call with a tiled
+   K9 solve beside the per-sweep chain (the tiled K9's one launch of T
+   sweeps labelled ``jacobi_slab_sweeps``, the per-sweep K9's one sweep
+   ``jacobi_slab``);
 3d. every z-slab kernel of the 3-D multi-device step against its plain twin
    for a top, an interior and a bottom slab of 32 planes of 256³
    (max|Δ| <= 1e-5): Jacobi, zero guess, fast, a Chebyshev chain's first
@@ -95,7 +102,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    one card (a mesh that lists it once per slab): 2048² parity on the 1×1
    mesh and on 8 slabs, the 2048² compensated perf mode on 8 slabs, 8192²
    (40 iterations) on 4 slabs, and 2048² with ``fuse_sweeps=8`` on 128 slabs
-   of 16 rows (the composed projection); launch counts checked, every
+   of 16 rows (the composed projection); launch counts checked against
+   ``expected_launches_sharded`` (the tiled K9's launches of each solve,
+   chunk by chunk, as ``cuda_ops.slab_tiling`` plans them), every
    run's state held against the ``reference`` backend of the same sharded
    step and, where the audited displacement stays under the window, against
    ``StableFluids2D.step`` (the impulse moves the 2048² backtrace ~20
@@ -202,10 +211,12 @@ are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 run and its datagen run, max|Δ| and times from phase 18; the tiled 3-D
 kernel's ``jacobi3_sweeps`` and ``jacobi3_slab_sweeps`` from phase 16's
 compensated run and phase 11's compensated 8-slab run, whose fast
-Chebyshev solves it takes).  The per-sweep K1's undamped forms
-(``jacobi_sweep``, ``jacobi_sweep_bf16``), which the tiled K1 replaced on
-every path, run on none and are left out of the line (``OFF_PATH``): every
-path's launch counts hold them at 0.  The last line
+Chebyshev solves it takes; the tiled K9's ``jacobi_slab_sweeps`` from
+phase 10's 8-slab 2048² parity run).  The per-sweep K1's undamped forms
+(``jacobi_sweep``, ``jacobi_sweep_bf16``) and the per-sweep K9
+(``jacobi_slab``), which the tiled K1 and K9 replaced on every path, run
+on none and are left out of the line (``OFF_PATH``): every path's launch
+counts hold them at 0.  The last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
@@ -271,6 +282,8 @@ KERNEL_SOURCES = {
     "advect3_slab": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
     "advect_project": (f"{CSRC}/advect_project.cu", f"{TPU_TAIL}:299"),
     "jacobi_slab_split": (f"{CSRC}/jacobi_slab_split.cu", f"{TPU_SLABS}:506"),
+    # The tiled K9, T sweeps a launch on a row slab's buffer.
+    "jacobi_slab_sweeps": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_SLABS}:290"),
     # The damped mode of the same pallas_call (fused_jacobi's damp), and the
     # window of the 3-D gather (advect3_shift(_fused)'s cmax).
     "jacobi_sweep_damp": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
@@ -291,10 +304,11 @@ KERNEL_SOURCES = {
 }
 # Phase 18's batch of grids for the multigrid and CG steps.
 SOLVER_BATCH = 64
-# The per-sweep K1's undamped forms: the tiled K1 took over every solve
-# they ran, so no path launches them; phases 3 and 18 time them beside the
-# tiled K1 as its "before", and the kernels line leaves them out.
-OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16")
+# The per-sweep K1's undamped forms and the per-sweep K9: the tiled K1 and
+# K9 took over every solve they ran, so no path launches them; phases 3,
+# 3c and 18 time them beside the tiled kernels as their "before", and the
+# kernels line leaves them out.
+OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16", "jacobi_slab")
 
 
 def phase(title: str) -> None:
@@ -416,23 +430,78 @@ def expected_launches3(cfg) -> dict[str, int]:
             advect: 2}
 
 
+def slab_solve_launches(sweeps: int, rows: int, side: int,
+                        done: int = 0) -> dict[str, int]:
+    """Tiled K9 launches of a row-slab solve of ``sweeps`` sweeps, the
+    first ``done`` of them run by another kernel (K18), on a (rows, side)
+    buffer: ``sweep_plan``'s, T of ``cuda_ops.slab_tiling`` sweeps each,
+    the remainder last."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    per_launch = cuda_ops.slab_tiling(rows, side, sweeps - done)[0]
+    return {"jacobi_slab_sweeps": -(-(sweeps - done) // per_launch)}
+
+
+def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
+    """(sweeps, buffer rows) of each K9 solve one slab runs in a
+    multi-device step of ``cfg`` on ``slabs`` row slabs, by the routes of
+    ``parallel/sharded.py``: the velocity diffusions in Jacobi chunks of
+    ``fuse_sweeps`` (a ``ceil8(s+1)``-row halo each) or one Chebyshev call,
+    the pressure solves inside the fused projection (``ceil8(it+3)``) or
+    chunked or one Chebyshev call in the composed one, the density's solve
+    inside the fused density step (``ceil8(it+1+cmax)``) or as the
+    velocities'."""
+    def ceil8(x):
+        return -(-x // 8) * 8
+
+    m, it, cmax = (cfg.n + 2) // slabs, cfg.jacobi_iters, cfg.max_courant
+    fuse = cfg.fuse_sweeps or 20
+
+    def chunks(iters):
+        out, left = [], iters
+        while left > 0:
+            s = min(fuse, left)
+            out.append((s, m + 2 * ceil8(s + 1)))
+            left -= s
+        return out
+
+    def cheby(iters):
+        return [(iters, m + 2 * ceil8(iters + 1))]
+
+    dens_cheby = cfg.diffusion_solver in ("chebyshev", "chebyshev-dens")
+    k_dens = (cfg.cheby_iters if cfg.diffusion_solver == "chebyshev"
+              else cfg.cheby_dens_iters)
+    cheby_p = cfg.pressure_solver == "chebyshev"
+    it_p = cfg.press_cheby_iters if cheby_p else it
+    vel = (cheby(cfg.cheby_iters) if cfg.diffusion_solver == "chebyshev"
+           else chunks(it))
+    if ceil8(it_p + 3) <= m:
+        proj = [(it_p, m + 2 * ceil8(it_p + 3))]
+    else:
+        proj = cheby(it_p) if cheby_p else chunks(it)
+    if (not dens_cheby and it <= fuse and 1 <= cmax <= 7
+            and ceil8(it + 1 + cmax) <= m):
+        dens = [(it, m + 2 * ceil8(it + 1 + cmax))]
+    else:
+        dens = cheby(k_dens) if dens_cheby else chunks(it)
+    return 2 * vel + 2 * proj + dens
+
+
 def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
     """Kernel launches of one multi-device step of ``cfg`` on ``slabs`` row
-    slabs.  Each slab launches K9 once per sweep of its two velocity
-    diffusions, two pressure solves and its density diffusion, K10 and K11
-    once per projection, K12 for the u/v pair and the density gather.  The
-    fused and composed routes launch the same kernels as often: they differ
-    in halo exchanges, not in launches."""
-    k_vel = k_dens = cfg.jacobi_iters
-    if cfg.diffusion_solver == "chebyshev":
-        k_vel = k_dens = cfg.cheby_iters
-    elif cfg.diffusion_solver == "chebyshev-dens":
-        k_dens = cfg.cheby_dens_iters
-    k_p = (cfg.press_cheby_iters if cfg.pressure_solver == "chebyshev"
-           else cfg.jacobi_iters)
-    return {"jacobi_slab": slabs * (2 * k_vel + 2 * k_p + k_dens),
-            "divergence_slab": 2 * slabs, "gradient_slab": 2 * slabs,
-            "advect_slab": 2 * slabs}
+    slabs.  Each slab launches K9 for each solve of ``slab_solves`` (two
+    velocity diffusions, two pressure solves, its density diffusion) as
+    ``slab_solve_launches`` counts them, chunk by chunk; K10 and K11 once
+    per projection, K12 for the u/v pair and the density gather.  The
+    fused and composed routes launch K10-K12 as often: they differ in halo
+    exchanges and in the chunks of their solves."""
+    launches = {"divergence_slab": 2 * slabs, "gradient_slab": 2 * slabs,
+                "advect_slab": 2 * slabs}
+    for sweeps, rows in slab_solves(cfg, slabs):
+        for name, count in slab_solve_launches(sweeps, rows,
+                                               cfg.n + 2).items():
+            launches[name] = launches.get(name, 0) + slabs * count
+    return launches
 
 
 def expected_launches_sharded3(cfg, slabs: int) -> dict[str, int]:
@@ -836,7 +905,8 @@ def split_chunk(cfg, slabs: int, label: str, card: str) -> dict[str, int]:
     counts = cuda_ops.launch_counts()
     design = {**dict.fromkeys(cuda_ops.KERNELS, 0),
               "jacobi_slab_split": slabs,
-              "jacobi_slab": slabs * (sweeps - 1)}
+              **{name: slabs * count for name, count in slab_solve_launches(
+                  sweeps, m + 2 * K, cfg.n + 2, done=1).items()}}
     print(f"{label}: launches {counts} (expected {design})")
     if counts != design:
         raise AssertionError(f"{label}: launch counts {counts} != {design}")
@@ -1543,8 +1613,14 @@ def main() -> None:
     del timed3
 
     phase("3c row-slab kernels against their plain twins (2048², m=256)")
-    compare(checks.kernel_checks_slab(2048, 256, "cuda", SEED), checks.TOL,
-            errs)
+    slab = checks.kernel_checks_slab(2048, 256, "cuda", SEED)
+    compare([c for c in slab if "jacobi_slab_sweeps" not in c.kernels],
+            checks.TOL, errs)
+    slab_against_both(slab, errs)
+    slab = checks.kernel_checks_slab(8192, 2048, "cuda", SEED)
+    print("  8192², slabs of 2048 rows:")
+    slab_against_both(slab, errs)
+    del slab
     floor = launch_floor_ms()
     print(f"  launch floor: {1e3 * floor:.3f} µs per launch (a one-element "
           f"kernel in a CUDA graph of 20; {card})")
@@ -1857,6 +1933,21 @@ def k1_against_both(bf16: bool, errs: dict[str, float]) -> None:
         for chain in (False, True):
             compare(checks.k1_checks(side, "cuda", SEED, batch, bf16, chain),
                     0.0, errs, "bit for bit")
+
+
+def slab_against_both(check_list, errs: dict[str, float]) -> None:
+    """The row-slab checks whose call takes the tiled K9 against their
+    plain twins (bit for bit; in fast mode ``max|Δ| <= checks.TOL``, the
+    plain twin multiplying and adding where the kernels call ``fmaf``, as
+    the per-sweep K9 differs from it too) and against the same call on the
+    per-sweep K9, bit for bit."""
+    from fluidsimulationcuda_torch.kernels import checks
+
+    tiled = [c for c in check_list if "jacobi_slab_sweeps" in c.kernels]
+    compare([c for c in tiled if "fast" not in c.label], 0.0, errs,
+            "bit for bit")
+    compare([c for c in tiled if "fast" in c.label], checks.TOL, errs)
+    compare(checks.slab_per_sweep_checks(tiled), 0.0, errs, "bit for bit")
 
 
 def timed_against_both(check_list, tol: float,

@@ -31,9 +31,9 @@ with the same C entry points, e.g. the parent commit unpacked with ``git
 archive``) and traces the step four times, with its kernels, this tree's,
 this tree's and its kernels again, on the same card in one process, each
 trace from the same state.  ``--per-sweep`` does the same with this
-tree's solves on the tiled K1 and on the per-sweep K1
-(``cuda_ops.launch_sweeps(0)``), the chain the tiled K1 replaced: tiled,
-per-sweep, per-sweep, tiled.  The card's name and power limit come
+tree's solves on the tiled kernels (K1, K9 on row slabs) and on the
+per-sweep ones (``cuda_ops.launch_sweeps(0)``), the chains the tiled
+kernels replaced: tiled, per-sweep, per-sweep, tiled.  The card's name and power limit come
 with the numbers.  Exits non-zero without a card or when the trace holds no
 device time.
 """
@@ -134,7 +134,7 @@ def main() -> None:
         from fluidsimulationcuda_torch.kernels import cuda_ops
 
         for per_launch in (None, 0, 0, None):
-            print(f"\n[{'per-sweep K1' if per_launch == 0 else 'tiled K1'}]")
+            print(f"\n[{'per-sweep' if per_launch == 0 else 'tiled'}]")
             with (cuda_ops.launch_sweeps(per_launch) if per_launch == 0
                   else contextlib.nullcontext()):
                 step(state, drive)  # warm-up

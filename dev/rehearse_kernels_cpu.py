@@ -51,7 +51,9 @@ loader patched), and:
   ``--slab-side``, ``kernel_checks_slab3`` and
   ``kernel_checks_slab3_flows`` for z-slabs of ``--slab3-side``/3 planes at
   ``--slab3-side``) compares kernel and plain version, on a shim device of
-  3 SMs;
+  3 SMs; each row-slab call whose solve takes the tiled K9 is held bit for
+  bit against the same call on the per-sweep K9
+  (``checks.slab_per_sweep_checks``);
 - one 2-D and one 3-D step per mode go through the ``cuda`` backend, their
   launch counts against ``chip_smoke.expected_launches(3)``, their state
   against the ``reference`` backend; both also in windowed mode, each
@@ -575,6 +577,14 @@ def main() -> int:
         bad = err > checks.TOL or not all(counts[k] for k in c.kernels)
         failures += bad
         print(f"  {c.label:45s} max|d| {err:.3e}{'  FAIL' if bad else ''}")
+    # The tiled K9 against the per-sweep K9 on the same calls: bit for bit.
+    for c in checks.slab_per_sweep_checks(checks.kernel_checks_slab(
+            args.slab_side, args.slab_side // 4, "cpu", 1)):
+        with kernels_on_cpu(lib):
+            err = checks.max_abs_diff(c.run(), c.plain())
+        failures += err > 0.0
+        print(f"  {c.label:45s} max|d| {err:.3e}"
+              f"{'  FAIL' if err > 0.0 else ''}")
     # K18 against K9 on the concatenated operands: bit for bit.
     for c in checks.split_against_concat(args.slab_side, args.slab_side // 4,
                                          "cpu", 1):

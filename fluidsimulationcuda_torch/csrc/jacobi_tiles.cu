@@ -50,6 +50,46 @@
 // registers (two shared-memory reads a cell in place of four) measured
 // slower: it spills at the 64 registers two blocks an SM allow (0.224
 // against 0.192 ms).
+//
+// K9 jacobi_slab_sweeps: the same tiles on a row slab's (rows, side)
+// halo-extended buffer (fsc_jacobi_slab_sweeps).  Replaces the TPU kernel
+// _jacobi_slab_kernel (fluidsimulationcuda_tpu/kernels/pallas_sharded.py:
+// 131, pallas_call at :290 in fused_jacobi_slab), which runs every sweep of
+// a halo exchange in VMEM, strip by strip, each strip with its whole K-row
+// margin, and is the sweep engine of the slab projection (B9b, :700), the
+// slab density step (B9c, :1010) and the sweeps after the first of the
+// split-operand slab Jacobi (B13, :506).  The per-sweep K9 (jacobi_slab.cu)
+// computes the same sweeps one launch each; a launch here computes what
+// `count` of its launches compute, bit for bit on the rows they leave
+// exact: sweep k of the solve (from 1) computes buffer rows [k, rows - k),
+// so after `done` sweeps x is exact on [done, rows - done) and a launch
+// writes the band [done + count, rows - done - count).  The wall ghost rows
+// gtop and gbot (-1 when absent) and the ghost columns take the border rule
+// of their interior neighbour's new value in the same sweep, as the
+// per-sweep K9 derives them (fsc::slab_row_of, slab_border_value); rows
+// beyond a wall never reach a valid cell.  Loads clamp into the buffer; a
+// tile row past the band is not written.  Float32 only, as the slab route
+// of the JAX package.
+//
+// Bound: as K1's, a solve reads its guess (none for the zero guess) and
+// its rhs once over the buffer and writes the band of its last sweep once
+// (kernels/checks.py, _slab_sweeps_cost): 0.0021 ms for the 20-sweep solve
+// on a 304-row buffer of 2048^2 (bytes), 0.061 ms on a 2096-row buffer of
+// 8192^2.  One launch a sweep moves x, rhs and x_{k-1} through L2 or HBM
+// every sweep and leaves the thin buffers of the 8-slab step to the launch
+// latency: 3-5% of the bound.  Here a launch of T sweeps loads each tile
+// once with a T-row and T-column halo, so a solve's launches fall by T and
+// its traffic to about 1/T; the tiles start at the band's first row.  A
+// buffer of a few slab rows (304 x 2048) is one partial wave of K1's
+// 128 x 64 tiles, one block an SM, so the tile's height is a template
+// parameter: 32 rows at T = 5 there (twice the blocks: 1.68x the
+// per-sweep chain against 1.33x), 64 at T = 8 from 2 M buffer cells
+// (3.33x at 8192^2, 11.6% of the bound), as cuda_ops.slab_tiling picks by
+// measurement (PERF.md).  A wall row at the last output row of a tile
+// (gtop) or at the first (gbot), like a ghost column at a tile's first
+// output column, would derive from a row the tile's halo leaves stale:
+// such a launch takes a halo one cell deeper, as K1 does for its last
+// ghost line (plan_slab).
 #include <atomic>
 #include <type_traits>
 
@@ -60,15 +100,21 @@ namespace {
 constexpr int kLanes = fsc::kBlockX;  // a warp: 32 columns of one row
 constexpr int kWarps = 16;            // a block's rows of warps
 constexpr int kCols = 4;              // a thread's columns, 32 apart
-constexpr int kRows = 4;              // a thread's rows, 16 apart
 constexpr int kTileW = kLanes * kCols;
-constexpr int kTileH = kWarps * kRows;
 constexpr int kThreads = kLanes * kWarps;
-constexpr int kCells = kCols * kRows;
 constexpr int kMaxSweeps = 20;  // JAX's max_fused
-constexpr int kSmem = 2 * kTileW * kTileH * static_cast<int>(sizeof(float));
 // Devices whose shared-memory attribute launch_kernel keeps.
 constexpr int kDevices = 64;
+
+// The tile of kRows rows of warps a thread (kRows of them 16 apart, K1's
+// 4): kTileH rows, kCells cells a thread, two float32 buffers.
+template <int kRows>
+struct Tile {
+  static constexpr int kTileH = kWarps * kRows;
+  static constexpr int kCells = kCols * kRows;
+  static constexpr int kSmem =
+      2 * kTileW * kTileH * static_cast<int>(sizeof(float));
+};
 
 // One launch's tiling and its sweeps.
 struct Tiling {
@@ -78,21 +124,105 @@ struct Tiling {
   int out_w, out_h;   // the output tile
   int first_combine;  // the first sweep of the launch with the Chebyshev
                       // combine: 1 where the launch starts the solve
+  // A slab buffer: its rows, wall rows (-1 when absent) and the band of
+  // rows the launch writes, [band_lo, band_hi).
+  int rows, gtop, gbot, band_lo, band_hi;
   float w[kMaxSweeps];  // ω of each sweep of the launch
+};
+
+// K1's geometry: grid blockIdx.z of a batch of padded (side, side) grids,
+// its ghost ring the border.
+struct GridTiles {
+  int side, n, off, mode, r0, c0;
+  __device__ explicit GridTiles(const Tiling& t)
+      : side(t.side),
+        n(t.side - 2),
+        off(fsc::grid_offset(t.side)),
+        mode(static_cast<int>(blockIdx.z) < t.nb1 ? t.b : t.b1),
+        r0(static_cast<int>(blockIdx.y) * t.out_h - t.margin),
+        c0(static_cast<int>(blockIdx.x) * t.out_w - t.margin) {}
+  __device__ int load_at(int r, int c) const {
+    return off + fsc::clampi(r, 0, side - 1) * side +
+           fsc::clampi(c, 0, side - 1);
+  }
+  __device__ bool in_grid(int r, int c) const {
+    return r >= 0 && r < side && c >= 0 && c < side;
+  }
+  // The interior cell a cell derives from (fsc::interior_of clamps).
+  __device__ int inner(int r, int c) const {
+    return off + fsc::interior_of(r, c, side);
+  }
+  __device__ bool border(int r, int c) const {
+    return !(r >= 1 && r <= n && c >= 1 && c <= n);
+  }
+  __device__ int row_dir(int r) const {
+    return r == 0 ? 1 : (r == side - 1 ? -1 : 0);
+  }
+  __device__ int col_dir(int c) const {
+    return c == 0 ? 1 : (c == side - 1 ? -1 : 0);
+  }
+  // The tile holds a ghost row or column of the grid.
+  __device__ bool edge(int tile_h) const {
+    return r0 <= 0 || r0 + tile_h >= side || c0 <= 0 || c0 + kTileW >= side;
+  }
+  __device__ bool writes_row(int r) const { return r < side; }
+  __device__ int at(int r, int c) const { return off + r * side + c; }
+};
+
+// K9's geometry: a (rows, side) slab buffer whose tiles start at the
+// band's first row, its ghost columns and wall rows the border.
+struct SlabTiles {
+  int side, n, rows, gtop, gbot, band_hi, mode, r0, c0;
+  __device__ explicit SlabTiles(const Tiling& t)
+      : side(t.side),
+        n(t.side - 2),
+        rows(t.rows),
+        gtop(t.gtop),
+        gbot(t.gbot),
+        band_hi(t.band_hi),
+        mode(t.b),
+        r0(t.band_lo + static_cast<int>(blockIdx.y) * t.out_h - t.margin),
+        c0(static_cast<int>(blockIdx.x) * t.out_w - t.margin) {}
+  __device__ int load_at(int r, int c) const {
+    return fsc::clampi(r, 0, rows - 1) * side + fsc::clampi(c, 0, side - 1);
+  }
+  __device__ bool in_grid(int r, int c) const {
+    return r >= 0 && r < rows && c >= 0 && c < side;
+  }
+  __device__ int inner(int r, int c) const {
+    return fsc::slab_row_of(fsc::clampi(r, 0, rows - 1), gtop, gbot) * side +
+           fsc::clampi(c, 1, n);
+  }
+  __device__ bool border(int r, int c) const {
+    return c == 0 || c == side - 1 || r == gtop || r == gbot;
+  }
+  __device__ int row_dir(int r) const {
+    return r == gtop ? 1 : (r == gbot ? -1 : 0);
+  }
+  __device__ int col_dir(int c) const {
+    return c == 0 ? 1 : (c == side - 1 ? -1 : 0);
+  }
+  __device__ bool edge(int tile_h) const {
+    return c0 <= 0 || c0 + kTileW >= side ||
+           (gtop >= r0 && gtop < r0 + tile_h) ||
+           (gbot >= 0 && gbot >= r0 && gbot < r0 + tile_h);
+  }
+  __device__ bool writes_row(int r) const { return r < band_hi; }
+  __device__ int at(int r, int c) const { return r * side + c; }
 };
 
 // One sweep of the tile's rows [lo, hi) from cur into nxt, every column
 // but the tile's first and last (whose reads wrap to the next and the
-// previous row, in bounds, their values stale as the halo's are).  Ghost
+// previous row, in bounds, their values stale as the halo's are).  Border
 // cells and cells past the grid take the interior update of their own
-// (zero) rhs here; the ghost cells are set after it (jacobi_sweeps_kernel)
-// and nothing exact reads the others.
-template <bool kCheby, bool kFast, bool kCombine, typename TX, typename TM,
-          typename TR>
+// rhs here; the border cells are set after it (sweeps_body) and nothing
+// exact reads the others.
+template <int kRows, bool kCheby, bool kFast, bool kCombine, typename TX,
+          typename TM, typename TR>
 __device__ __forceinline__ void sweep_tile(
     const fsc::SweepParamsT<TX, TM, TR>& p, const float* cur, float* nxt,
-    const float (&rhs)[kCells], float (&xm)[kCheby ? kCells : 1], float w,
-    int lo, int hi) {
+    const float (&rhs)[Tile<kRows>::kCells],
+    float (&xm)[kCheby ? Tile<kRows>::kCells : 1], float w, int lo, int hi) {
 #pragma unroll
   for (int rb = 0; rb < kRows; ++rb) {
     const int lr = static_cast<int>(threadIdx.y) + kWarps * rb;
@@ -114,21 +244,18 @@ __device__ __forceinline__ void sweep_tile(
   }
 }
 
-template <bool kCheby, bool kFast, typename TX, typename TM, typename TR,
-          typename TO>
-__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
-    jacobi_sweeps_kernel(fsc::SweepParamsT<TX, TM, TR> p, Tiling t,
-                         TO* __restrict__ out, float* __restrict__ xm_out,
-                         TR* __restrict__ rhs_out) {
-  extern __shared__ float tile[];
+// The sweeps of one launch on the block's tile of geometry G (GridTiles,
+// SlabTiles): load, `count` sweeps in shared memory, store.
+template <class G, int kRows, bool kCheby, bool kFast, typename TX,
+          typename TM, typename TR, typename TO>
+__device__ __forceinline__ void sweeps_body(
+    const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t, TO* out,
+    float* xm_out, TR* rhs_out, float* tile) {
+  constexpr int kTileH = Tile<kRows>::kTileH;
+  constexpr int kCells = Tile<kRows>::kCells;
   float* cur = tile;                     // x_k
   float* nxt = tile + kTileW * kTileH;  // x_{k+1}
-  const int side = t.side;
-  const int n = side - 2;
-  const int off = fsc::grid_offset(side);
-  const int mode = static_cast<int>(blockIdx.z) < t.nb1 ? t.b : t.b1;
-  const int r0 = static_cast<int>(blockIdx.y) * t.out_h - t.margin;
-  const int c0 = static_cast<int>(blockIdx.x) * t.out_w - t.margin;
+  const G g(t);
   // The tile's loads, one pass an operand, each pass free of branches
   // that depend on the cell (addresses clamped into the grid), so that a
   // thread's loads are all in flight together.  Cell q of the thread is
@@ -140,12 +267,10 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
     return static_cast<int>(threadIdx.x) + kLanes * (q % kCols);
   };
   const auto in_grid = [&](int q) {
-    return r0 + row(q) >= 0 && r0 + row(q) < side && c0 + col(q) >= 0 &&
-           c0 + col(q) < side;
+    return g.in_grid(g.r0 + row(q), g.c0 + col(q));
   };
-  // The interior cell a cell derives from (fsc::interior_of clamps).
   const auto inner = [&](int q) {
-    return off + fsc::interior_of(r0 + row(q), c0 + col(q), side);
+    return g.inner(g.r0 + row(q), g.c0 + col(q));
   };
   float rhs[kCells];
   float xm[kCheby ? kCells : 1];
@@ -156,9 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
     if (p.x) {
 #pragma unroll
       for (int q = 0; q < kCells; ++q)
-        x[q] = fsc::load(p.x, off + fsc::clampi(r0 + row(q), 0, side - 1) *
-                                        side +
-                                    fsc::clampi(c0 + col(q), 0, side - 1));
+        x[q] = fsc::load(p.x, g.load_at(g.r0 + row(q), g.c0 + col(q)));
     }
 #pragma unroll
     for (int q = 0; q < kCells; ++q) {
@@ -192,36 +315,37 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
       for (int q = 0; q < kCells; ++q) xm[q] = fsc::load(p.xm, inner(q));
     }
   }
-  // Bit q: own cell q is a ghost cell of the grid off the tile's outer
-  // ring (set from its interior neighbour after each sweep).
+  // Bit q: own cell q is a border cell off the tile's outer ring (set from
+  // its interior neighbour after each sweep).
   unsigned ghost = 0u;
 #pragma unroll
   for (int q = 0; q < kCells; ++q) {
-    const int gr = r0 + row(q);
-    const int gc = c0 + col(q);
-    const bool interior = gr >= 1 && gr <= n && gc >= 1 && gc <= n;
-    if (in_grid(q) && !interior && row(q) >= 1 && row(q) < kTileH - 1 &&
+    const int gr = g.r0 + row(q);
+    const int gc = g.c0 + col(q);
+    const bool border = g.border(gr, gc);
+    if (in_grid(q) && border && row(q) >= 1 && row(q) < kTileH - 1 &&
         col(q) >= 1 && col(q) < kTileW - 1)
       ghost |= 1u << q;
     // The first launch of a folded or fast solve stores the rhs it built,
-    // once per interior cell, for the launches after it.
+    // once per interior cell it writes, for the launches after it.
     const bool kept = row(q) >= t.margin && row(q) < t.margin + t.out_h &&
                       col(q) >= t.margin && col(q) < t.margin + t.out_w;
-    if (rhs_out != nullptr && interior && kept)
-      fsc::store(rhs_out, off + gr * side + gc, rhs[q]);
+    if (rhs_out != nullptr && in_grid(q) && !border && kept &&
+        g.writes_row(gr))
+      fsc::store(rhs_out, g.at(gr, gc), rhs[q]);
   }
-  // The tile holds a ghost row or column of the grid.
-  const bool edge =
-      r0 <= 0 || r0 + kTileH >= side || c0 <= 0 || c0 + kTileW >= side;
+  const bool edge = g.edge(kTileH);
   __syncthreads();
   for (int s = 0; s < t.count; ++s) {
     // After s sweeps rows [s, kTileH - s) of the tile are exact.
     const int lo = s + 1;
     const int hi = kTileH - 1 - s;
     if (kCheby && s >= t.first_combine)
-      sweep_tile<kCheby, kFast, true>(p, cur, nxt, rhs, xm, t.w[s], lo, hi);
+      sweep_tile<kRows, kCheby, kFast, true>(p, cur, nxt, rhs, xm, t.w[s],
+                                             lo, hi);
     else
-      sweep_tile<kCheby, kFast, false>(p, cur, nxt, rhs, xm, 0.0f, lo, hi);
+      sweep_tile<kRows, kCheby, kFast, false>(p, cur, nxt, rhs, xm, 0.0f,
+                                              lo, hi);
     if (edge) {
       __syncthreads();
 #pragma unroll
@@ -233,13 +357,11 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
           const int q = rb * kCols + cb;
           if (!((ghost >> q) & 1u)) continue;
           const int lc = static_cast<int>(threadIdx.x) + kLanes * cb;
-          const int gr = r0 + lr;
-          const int gc = c0 + lc;
-          const int di = gr == 0 ? 1 : (gr == side - 1 ? -1 : 0);
-          const int dj = gc == 0 ? 1 : (gc == side - 1 ? -1 : 0);
+          const int di = g.row_dir(g.r0 + lr);
+          const int dj = g.col_dir(g.c0 + lc);
           const int i = lr * kTileW + lc;
           nxt[i] = fsc::border_rule(nxt[i + di * kTileW + dj], dj != 0,
-                                    di != 0, mode);
+                                    di != 0, g.mode);
         }
       }
     }
@@ -251,19 +373,50 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 #pragma unroll
   for (int rb = 0; rb < kRows; ++rb) {
     const int lr = static_cast<int>(threadIdx.y) + kWarps * rb;
-    const int gr = r0 + lr;
-    if (lr < t.margin || lr >= t.margin + t.out_h || gr >= side) continue;
+    const int gr = g.r0 + lr;
+    if (lr < t.margin || lr >= t.margin + t.out_h || !g.writes_row(gr))
+      continue;
 #pragma unroll
     for (int cb = 0; cb < kCols; ++cb) {
       const int lc = static_cast<int>(threadIdx.x) + kLanes * cb;
-      const int gc = c0 + lc;
-      if (lc < t.margin || lc >= t.margin + t.out_w || gc >= side) continue;
-      const int g = off + gr * side + gc;
+      const int gc = g.c0 + lc;
+      if (lc < t.margin || lc >= t.margin + t.out_w || gc >= t.side) continue;
+      const int o = g.at(gr, gc);
       const int i = lr * kTileW + lc;
-      fsc::store(out, g, cur[i]);
-      if (xm_out != nullptr) xm_out[g] = nxt[i];
+      fsc::store(out, o, cur[i]);
+      if (xm_out != nullptr) xm_out[o] = nxt[i];
     }
   }
+}
+
+template <bool kCheby, bool kFast, typename TX, typename TM, typename TR,
+          typename TO>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    jacobi_sweeps_kernel(fsc::SweepParamsT<TX, TM, TR> p, Tiling t,
+                         TO* __restrict__ out, float* __restrict__ xm_out,
+                         TR* __restrict__ rhs_out) {
+  extern __shared__ float tile[];
+  sweeps_body<GridTiles, 4, kCheby, kFast>(p, t, out, xm_out, rhs_out, tile);
+}
+
+template <int kRows, bool kCheby, bool kFast>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    jacobi_slab_sweeps_kernel(fsc::SweepParams p, Tiling t,
+                              float* __restrict__ out,
+                              float* __restrict__ xm_out,
+                              float* __restrict__ rhs_out) {
+  extern __shared__ float tile[];
+  sweeps_body<SlabTiles, kRows, kCheby, kFast>(p, t, out, xm_out, rhs_out,
+                                               tile);
+}
+
+// The halo and output tile of a launch of `count` sweeps: a halo of
+// `count` cells, one more where `deeper` says a border line would derive
+// from a line the halo leaves stale.
+void set_halo(int count, int tile_h, bool deeper, Tiling* t) {
+  t->margin = count + (deeper ? 1 : 0);
+  t->out_w = kTileW - 2 * t->margin;
+  t->out_h = tile_h - 2 * t->margin;
 }
 
 // The tiling of a launch of `count` sweeps on grids of `side`: a halo of
@@ -273,28 +426,50 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 int plan_tiling(int side, int count, Tiling* t) {
   if (count < 1 || count > kMaxSweeps || side < 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  t->margin = count;
-  t->out_w = kTileW - 2 * count;
-  t->out_h = kTileH - 2 * count;
-  if (side % t->out_w == 1 || side % t->out_h == 1) {
-    t->margin = count + 1;
-    t->out_w -= 2;
-    t->out_h -= 2;
-  }
+  constexpr int kTileH = Tile<4>::kTileH;
+  set_halo(count, kTileH, false, t);
+  set_halo(count, kTileH, side % t->out_w == 1 || side % t->out_h == 1, t);
   t->side = side;
   t->count = count;
   return 0;
 }
 
-template <bool kCheby, bool kFast, typename TX, typename TM, typename TR,
-          typename TO>
-int launch_kernel(const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t,
-                  void* out, float* xm_out, void* rhs_out, int nb,
-                  cudaStream_t stream) {
-  const auto kernel = jacobi_sweeps_kernel<kCheby, kFast, TX, TM, TR, TO>;
-  // The dynamic shared-memory attribute is each device's: set once a
-  // device, its cudaError_t + 1 kept (0: not set yet) and returned after.
-  static std::atomic<int> attribute[kDevices];
+// The tiling of a launch of `count` sweeps after `done` on a (rows, side)
+// slab buffer with wall rows gtop and gbot: tiles of tile_h rows from the
+// band's first row, done + count.  The halo is one cell deeper where a
+// tile's first output column would be the last ghost column, its last
+// output row the wall row gtop or its first the wall row gbot: each
+// derives from its neighbour across the tile's edge.
+int plan_slab(int rows, int side, int count, int done, int gtop, int gbot,
+              int tile_h, Tiling* t) {
+  if (count < 1 || count > kMaxSweeps || side < 3 || done < 0 ||
+      (tile_h != Tile<4>::kTileH && tile_h != Tile<2>::kTileH) ||
+      rows - 2 * (done + count) < 1 || tile_h - 2 * (count + 1) < 1 ||
+      gtop < -1 || gtop >= rows - 1 || gbot < -1 || gbot == 0 ||
+      gbot >= rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  t->side = side;
+  t->count = count;
+  t->rows = rows;
+  t->gtop = gtop;
+  t->gbot = gbot;
+  t->band_lo = done + count;
+  t->band_hi = rows - done - count;
+  set_halo(count, tile_h, false, t);
+  const auto stale = [&](int wall, int at) {
+    return wall >= t->band_lo && wall < t->band_hi &&
+           (wall - t->band_lo) % t->out_h == at;
+  };
+  set_halo(count, tile_h,
+           side % t->out_w == 1 || stale(gtop, t->out_h - 1) || stale(gbot, 0),
+           t);
+  return 0;
+}
+
+// Set the kernel's dynamic shared-memory attribute once a device, its
+// cudaError_t + 1 kept (0: not set yet) and returned after.
+template <typename K>
+int smem_attribute(K kernel, int smem, std::atomic<int>* attribute) {
   int device = 0;
   int err = static_cast<int>(cudaGetDevice(&device));
   if (err != 0) return err;
@@ -304,8 +479,19 @@ int launch_kernel(const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t,
     attribute[device].store(1 + static_cast<int>(cudaFuncSetAttribute(
                                     kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    kSmem)));
-  err = attribute[device].load() - 1;
+                                    smem)));
+  return attribute[device].load() - 1;
+}
+
+template <bool kCheby, bool kFast, typename TX, typename TM, typename TR,
+          typename TO>
+int launch_kernel(const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t,
+                  void* out, float* xm_out, void* rhs_out, int nb,
+                  cudaStream_t stream) {
+  const auto kernel = jacobi_sweeps_kernel<kCheby, kFast, TX, TM, TR, TO>;
+  constexpr int kSmem = Tile<4>::kSmem;
+  static std::atomic<int> attribute[kDevices];
+  const int err = smem_attribute(kernel, kSmem, attribute);
   if (err != 0) return err;
   const dim3 grid((t.side + t.out_w - 1) / t.out_w,
                   (t.side + t.out_h - 1) / t.out_h, nb);
@@ -384,7 +570,7 @@ int launch_form(const void* x, const void* rhs, const void* src,
                 float inv_b, float src_dt, const float* omegas, int flags,
                 int first, int count, int nb, int nb1, int b1, bool xm_bf16,
                 bool out_bf16, void* stream) {
-  Tiling t;
+  Tiling t{};
   const int err = plan_tiling(side, count, &t);
   if (err != 0) return err;
   if (nb < 1 || first < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -403,6 +589,37 @@ int launch_form(const void* x, const void* rhs, const void* src,
       sweep_params<TX, fsc::bf16, TR>(x, rhs, src, xm, alpha, beta, ab,
                                       inv_b, src_dt, sweep_flags),
       t, out, xm_out, rhs_out, nb, static_cast<cudaStream_t>(stream));
+}
+
+template <int kRows, bool kCheby, bool kFast>
+int launch_slab_kernel(const fsc::SweepParams& p, const Tiling& t, float* out,
+                       float* xm_out, float* rhs_out, cudaStream_t stream) {
+  const auto kernel = jacobi_slab_sweeps_kernel<kRows, kCheby, kFast>;
+  constexpr int kSmem = Tile<kRows>::kSmem;
+  static std::atomic<int> attribute[kDevices];
+  const int err = smem_attribute(kernel, kSmem, attribute);
+  if (err != 0) return err;
+  const dim3 grid((t.side + t.out_w - 1) / t.out_w,
+                  (t.band_hi - t.band_lo + t.out_h - 1) / t.out_h);
+  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(p, t, out, xm_out,
+                                                         rhs_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kRows>
+int launch_slab(bool cheby, const fsc::SweepParams& p, const Tiling& t,
+                float* out, float* xm_out, float* rhs_out,
+                cudaStream_t stream) {
+  const bool fast = (p.flags & fsc::kFast) != 0;
+  if (cheby)
+    return fast ? launch_slab_kernel<kRows, true, true>(p, t, out, xm_out,
+                                                        rhs_out, stream)
+                : launch_slab_kernel<kRows, true, false>(p, t, out, xm_out,
+                                                         rhs_out, stream);
+  return fast ? launch_slab_kernel<kRows, false, true>(p, t, out, xm_out,
+                                                       rhs_out, stream)
+              : launch_slab_kernel<kRows, false, false>(p, t, out, xm_out,
+                                                        rhs_out, stream);
 }
 
 }  // namespace
@@ -448,4 +665,42 @@ extern "C" int fsc_jacobi_sweeps_bf16(const void* x, const void* rhs,
   return form(x, rhs, src, xm, out, xm_out, rhs_out, side, b, alpha, beta,
               ab, inv_b, src_dt, omegas, flags, first, count, nb, nb1, b1,
               (types & 2) != 0, (types & 4) != 0, stream);
+}
+
+// The same sweeps on a (rows, side) row-slab buffer (fsc_jacobi_slab's
+// operands, float32 only): `done` sweeps of the solve ran before this
+// launch (first == done but after a first sweep another kernel ran), so
+// x is exact on rows [done, rows - done), the launch's sweep t (from 1)
+// computes rows [done + t, rows - done - t) and the launch writes out,
+// xm_out and rhs_out on the band [done + count, rows - done - count).  The
+// wall rows gtop and gbot are buffer rows, -1 when absent; tile_h, the
+// tile's rows, is 64 or 32.  Returns cudaErrorInvalidValue for a count out
+// of range or a band, tile or wall row that does not fit, otherwise
+// cudaGetLastError() after the launch.
+extern "C" int fsc_jacobi_slab_sweeps(const float* x, const float* rhs,
+                                      const float* src, const float* xm,
+                                      float* out, float* xm_out,
+                                      float* rhs_out, int side, int b,
+                                      float alpha, float beta, float ab,
+                                      float inv_b, float src_dt,
+                                      const float* omegas, int flags,
+                                      int first, int count, int rows,
+                                      int done, int gtop, int gbot,
+                                      int tile_h, void* stream) {
+  Tiling t{};
+  const int err = plan_slab(rows, side, count, done, gtop, gbot, tile_h, &t);
+  if (err != 0) return err;
+  if (first < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool cheby = (flags & fsc::kCheby) != 0;
+  t.b = b;
+  t.first_combine = first == 0 ? 1 : 0;
+  for (int s = 0; s < kMaxSweeps; ++s)
+    t.w[s] = (cheby && s < count) ? omegas[s] : 0.0f;
+  const fsc::SweepParams p = fsc::make_sweep_params(
+      x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt, 0.0f,
+      flags & ~fsc::kCheby);
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  return tile_h == Tile<4>::kTileH
+             ? launch_slab<4>(cheby, p, t, out, xm_out, rhs_out, stream_)
+             : launch_slab<2>(cheby, p, t, out, xm_out, rhs_out, stream_);
 }

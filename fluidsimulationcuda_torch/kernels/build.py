@@ -62,6 +62,9 @@ _SIGNATURES = {
     "fsc_jacobi3_slab_sweeps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
                                 _F, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P],
+    "fsc_jacobi_slab_sweeps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                               _F, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
     "fsc_divergence3": [_P, _P, _P, _P, _I, _F, _P],
     "fsc_gradient3": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P],
     "fsc_advect3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,

@@ -42,7 +42,7 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks", "timing_checks", "kernel_checks3",
            "timing_checks3", "kernel_checks_slab", "timing_checks_slab",
            "kernel_checks_slab3", "kernel_checks_slab3_flows",
-           "timing_checks_slab3",
+           "timing_checks_slab3", "slab_per_sweep_checks",
            "split_against_concat", "timing_checks_tail",
            "timing_checks_tail_batched",
            "kernel_checks_batched", "batched_against_grids",
@@ -1224,10 +1224,25 @@ def timing_checks3_windowed(side: int, device,
     ]
 
 
-JAC_SLAB = ("jacobi_slab",)
-PROJ_SLAB = ("divergence_slab", "jacobi_slab", "gradient_slab")
-DENS_SLAB = ("jacobi_slab", "advect_slab")
 SLAB_CMAX = 4  # SimConfig.max_courant's default: the main path's window
+
+
+# Every row-slab solve takes the tiled K9 (cuda_ops.slab_tiling).
+JAC_SLAB = ("jacobi_slab_sweeps",)
+PROJ_SLAB = ("divergence_slab", "jacobi_slab_sweeps", "gradient_slab")
+DENS_SLAB = ("jacobi_slab_sweeps", "advect_slab")
+SPLIT = ("jacobi_slab_split", "jacobi_slab_sweeps")
+
+
+def slab_per_sweep_checks(check_list: list[Check]) -> list[Check]:
+    """Each check of ``check_list`` whose call takes the tiled K9 held
+    against the same call on the per-sweep K9 (``launch_sweeps(0)``):
+    equal bit for bit, the tiled kernel computing what the per-sweep
+    launches of its sweeps compute on every row the wrappers return or
+    gather from."""
+    return [dataclasses.replace(c, label=f"{c.label} tiled vs per-sweep",
+                                plain=functools.partial(_per_sweep, c.run))
+            for c in check_list if "jacobi_slab_sweeps" in c.kernels]
 
 
 def _ceil8(x: int) -> int:
@@ -1339,7 +1354,6 @@ def kernel_checks_slab(side: int, m: int, device, seed: int = 0) -> list[Check]:
     return out
 
 
-SPLIT = ("jacobi_slab_split", "jacobi_slab")
 SPLIT_MODES = {"jacobi": dict(), "zero_init": dict(zero_init=True),
                "fast": dict(fast=True)}
 
@@ -1371,7 +1385,8 @@ def timing_checks_split(side: int, m: int, device,
     for label, sweeps in (("jacobi_slab_split", 1),
                           ("fused_jacobi_slab_split 20it", 20)):
         kw = dict(m=m, K=K, alpha=av, beta=1 + 4 * av, sweeps=sweeps)
-        check = _timed(_slab_sweeps_cost(sweeps, rows, side), 1, label, SPLIT,
+        check = _timed(_slab_sweeps_cost(sweeps, rows, side), 1, label,
+                       SPLIT[:1] if sweeps == 1 else SPLIT,
                        cs.fused_jacobi_slab_split,
                        cs.fused_jacobi_slab_split_plain, 1, *x, *rhs, fl,
                        **kw)
@@ -1404,9 +1419,12 @@ def timing_checks_slab(side: int, m: int, device,
                        seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times for the slab kernels, on an interior
     slab of ``m`` rows at grid ``side`` with the margins the step gives:
-    first one launch of each CUDA kernel (labelled by the kernel's name)
-    beside its plain twin, then each wrapper at the main path's iteration
-    counts.  Costs are counted over the rows each launch computes."""
+    first one launch of each CUDA kernel (labelled by the kernel's name;
+    the tiled K9's runs T sweeps (``cuda_ops.slab_tiling``), the per-sweep
+    K9's one) beside its plain twin, then each wrapper at the main path's
+    iteration counts, each whose solve takes the tiled K9 beside the same
+    call on the per-sweep K9 (``chain``).  Costs are counted over the rows
+    each launch computes."""
     t = _SlabInputs(side, m, device, seed)
     n, av, ad = t.n, t.a_visc, t.a_diff
     bv, bd = 1 + 4 * av, 1 + 4 * ad
@@ -1417,6 +1435,9 @@ def timing_checks_slab(side: int, m: int, device,
 
     def sweeps(k, K, **kw):
         return _slab_sweeps_cost(k, m + 2 * K, side, **kw)
+
+    def solve(cost, label, kernels, *args, **kw):
+        return _k1_timed(cost, 1, label, kernels, *args, **kw)
 
     def project(k, K, **kw):
         # u and v read over the buffer, the slab's written.
@@ -1451,11 +1472,18 @@ def timing_checks_slab(side: int, m: int, device,
                  (ext(t.x, i, C),), slab(t.u, i), slab(t.v, i), fl, dt=DT,
                  n=n, cmax=cmax, m=m, self_adv=False)
     one.gather = slab_gather((t.x,))
+    per_launch = co.slab_tiling(m + 2 * K20, side, 20)[0]
     return [
-        _timed(sweeps(1, K20), 1, "jacobi_slab", JAC_SLAB,
-               cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
-               ext(t.x, i, K20), ext(t.x0, i, K20), fl, m=m, K=K20,
-               alpha=av, beta=bv, sweeps=1),
+        _k1_timed(sweeps(per_launch, K20), 1, "jacobi_slab_sweeps",
+                  ("jacobi_slab_sweeps",), cs.fused_jacobi_slab,
+                  cs.fused_jacobi_slab_plain, 1, ext(t.x, i, K20),
+                  ext(t.x0, i, K20), fl, m=m, K=K20, alpha=av, beta=bv,
+                  sweeps=per_launch),
+        _timed(sweeps(1, K20), 1, "jacobi_slab", ("jacobi_slab",),
+               functools.partial(_per_sweep, cs.fused_jacobi_slab),
+               cs.fused_jacobi_slab_plain, 1, ext(t.x, i, K20),
+               ext(t.x0, i, K20), fl, m=m, K=K20, alpha=av, beta=bv,
+               sweeps=1),
         _timed(_scaled(DIV2, cells), 1, "divergence_slab",
                ("divergence_slab",), cs.divergence_slab,
                cs.divergence_slab_plain, slab(t.u, i), slab(t.v, i),
@@ -1465,33 +1493,37 @@ def timing_checks_slab(side: int, m: int, device,
                slab(t.v, i), slab(t.p, i), *t.halo(t.p, i), fl, n),
         advect,
         one,
-        _timed(sweeps(20, K20), 1, "fused_jacobi_slab 20it (u diffusion)",
-               JAC_SLAB, cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
-               ext(t.src, i, K20), ext(t.x0, i, K20), fl, m=m, K=K20,
-               alpha=av, beta=bv, sweeps=20),
-        _timed(sweeps(k_d, Kc, fast=True, cheby=True), 1,
-               f"fused_jacobi_slab {k_d}it chebyshev+fast", JAC_SLAB,
-               cs.fused_jacobi_slab, cs.fused_jacobi_slab_plain, 1,
-               ext(t.src, i, Kc), ext(t.x0, i, Kc), fl, m=m, K=Kc, alpha=av,
-               beta=bv, sweeps=k_d, fast=True, cheby_rho=rho),
-        _timed(project(20, Kp), 1, "fused_project_slab 20it", PROJ_SLAB,
-               cs.fused_project_slab, cs.fused_project_slab_plain,
-               ext(t.u, i, Kp), ext(t.v, i, Kp), fl, n=n, iters=20, m=m,
-               K=Kp),
-        _timed(project(k_p, Kpc, cheby=True), 1,
-               f"fused_project_slab {k_p}it chebyshev", PROJ_SLAB,
-               cs.fused_project_slab, cs.fused_project_slab_plain,
-               ext(t.u, i, Kpc), ext(t.v, i, Kpc), fl, n=n, iters=k_p, m=m,
-               K=Kpc, cheby_rho=rho),
+        solve(sweeps(20, K20), "fused_jacobi_slab 20it (u diffusion)",
+              JAC_SLAB, cs.fused_jacobi_slab,
+              cs.fused_jacobi_slab_plain, 1, ext(t.src, i, K20),
+              ext(t.x0, i, K20), fl, m=m, K=K20, alpha=av, beta=bv,
+              sweeps=20),
+        solve(sweeps(k_d, Kc, fast=True, cheby=True),
+              f"fused_jacobi_slab {k_d}it chebyshev+fast",
+              JAC_SLAB, cs.fused_jacobi_slab,
+              cs.fused_jacobi_slab_plain, 1, ext(t.src, i, Kc),
+              ext(t.x0, i, Kc), fl, m=m, K=Kc, alpha=av, beta=bv,
+              sweeps=k_d, fast=True, cheby_rho=rho),
+        solve(project(20, Kp), "fused_project_slab 20it",
+              PROJ_SLAB, cs.fused_project_slab,
+              cs.fused_project_slab_plain, ext(t.u, i, Kp), ext(t.v, i, Kp),
+              fl, n=n, iters=20, m=m, K=Kp),
+        solve(project(k_p, Kpc, cheby=True),
+              f"fused_project_slab {k_p}it chebyshev",
+              PROJ_SLAB, cs.fused_project_slab,
+              cs.fused_project_slab_plain, ext(t.u, i, Kpc),
+              ext(t.v, i, Kpc), fl, n=n, iters=k_p, m=m, K=Kpc,
+              cheby_rho=rho),
         # src and base read over the buffer, u and v over the slab, the
         # slab's density written.
-        _timed(_function(2 * (m + 2 * Kd) * side + 3 * cells,
-                         sweeps(20, Kd, src=True),
-                         _scaled(ADVECT2_ONE, cells)),
-               1, "fused_dens_slab 20it", DENS_SLAB, cs.fused_dens_slab,
-               cs.fused_dens_slab_plain, 0, ext(t.src, i, Kd),
-               ext(t.x0, i, Kd), slab(t.u, i), slab(t.v, i), fl, alpha=ad,
-               beta=bd, iters=20, dt=DT, n=n, cmax=cmax, m=m, K=Kd),
+        solve(_function(2 * (m + 2 * Kd) * side + 3 * cells,
+                        sweeps(20, Kd, src=True),
+                        _scaled(ADVECT2_ONE, cells)),
+              "fused_dens_slab 20it", DENS_SLAB,
+              cs.fused_dens_slab, cs.fused_dens_slab_plain, 0,
+              ext(t.src, i, Kd), ext(t.x0, i, Kd), slab(t.u, i),
+              slab(t.v, i), fl, alpha=ad, beta=bd, iters=20, dt=DT, n=n,
+              cmax=cmax, m=m, K=Kd),
     ]
 
 

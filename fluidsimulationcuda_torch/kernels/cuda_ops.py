@@ -86,6 +86,7 @@ from .dispatch import OpSet
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "check_grid",
     "make_opset", "SWEEPS_PER_LAUNCH", "SWEEPS_PER_LAUNCH_3D", "tiled3",
+    "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling",
     "launch_sweeps", "SweepLaunch",
     "sweep_plan",
     "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "fused_jacobi_pair",
@@ -104,7 +105,7 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi_sweep_damp", "advect3_windowed", "jacobi_sweep_bf16",
            "divergence_bf16", "gradient_bf16", "advect_bf16",
            "jacobi_sweeps", "jacobi_sweeps_bf16", "jacobi3_sweeps",
-           "jacobi3_slab_sweeps")
+           "jacobi3_slab_sweeps", "jacobi_slab_sweeps")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -127,9 +128,17 @@ SWEEPS_PER_LAUNCH = 10
 # and on a 32-plane z-slab, the solves that take the kernel (tiled3); the
 # library takes at most 6.
 SWEEPS_PER_LAUNCH_3D = 6
+# The tilings of the tiled K9 on a row-slab buffer (csrc/jacobi_tiles.cu,
+# fsc_jacobi_slab_sweeps), chosen by measurement (dev/bench_slab_sweeps.py,
+# PERF.md): (fewest buffer cells, T, tile rows), the first whose cells a
+# buffer reaches (slab_tiling); the library takes tiles of 64 or 32 rows.
+SLAB_TILINGS = ((2_000_000, 8, 64), (0, 5, 32))
+# A row-slab solve of at most this many sweeps runs in one launch.
+SLAB_ONE_LAUNCH = 8
 # Set by launch_sweeps(): the sweeps of a tiled launch, 0 for the per-sweep
-# kernels.
+# kernels; and the rows of a tiled K9's tile.
 _forced: int | None = None
+_forced_tile: int | None = None
 
 
 def tiled3(cheby: bool, fast: bool, planes: int | None = None) -> bool:
@@ -149,6 +158,26 @@ def tiled3(cheby: bool, fast: bool, planes: int | None = None) -> bool:
     ``launch_sweeps`` overrides the geometry, not the mode."""
     return cheby and fast and (planes is None
                                or planes >= 5 * SWEEPS_PER_LAUNCH_3D)
+
+
+def slab_tiling(rows: int, side: int, sweeps: int) -> tuple[int, int]:
+    """(T, tile rows) of the tiled K9 for ``sweeps`` sweeps of a solve on
+    a (rows, side) row-slab buffer: the first of ``SLAB_TILINGS`` whose
+    cell count the buffer reaches, and T raised to ``sweeps`` where at most
+    ``SLAB_ONE_LAUNCH`` remain.  By the H100 measurement (PERF.md §6,
+    ``dev/bench_slab_sweeps.py``): a buffer of a few slab rows (304 x
+    2048, 0.62 M cells) is one wave of 128 x 64 tiles, one block an SM,
+    and 128 x 32 tiles at T = 5 spread it over twice the blocks (1.68x the
+    per-sweep K9 against 1.33x); from 2096 x 2048 (4.3 M cells) up the
+    taller tile at T = 8 repeats fewer halo rows (2.43x, and 3.33x on
+    2096 x 8192, against 2.27x and 2.70x).  A launch costs a load, a store
+    and a partial wave whatever its sweeps, so the 8-sweep chunks of thin
+    buffers (48 x 2048) run in one launch (1.34x against 1.04x at T = 5).
+    ``launch_sweeps`` overrides either."""
+    cells = rows * side
+    per, tile = next((per, tile) for least, per, tile in SLAB_TILINGS
+                     if cells >= least)
+    return (max(per, sweeps) if sweeps <= SLAB_ONE_LAUNCH else per), tile
 
 
 def launch_counts() -> dict[str, int]:
@@ -248,23 +277,26 @@ def _launch(kernel: str, fn, *args) -> None:
 
 
 @contextlib.contextmanager
-def launch_sweeps(per_launch: int):
-    """Within the block every K1 solve, and every 3-D Chebyshev solve or
-    z-slab segment in fast mode (the tiled 3-D kernel's one mode;
-    ``tiled3``), on the card takes ``per_launch`` sweeps a launch of the
-    tiled kernel (the library refuses a launch of more than its
-    kMaxSweeps: 20 for K1, 6 for the 3-D kernel), or with 0 launches the
-    per-sweep kernel (K1, K5 or K13) for each sweep: the chains the checks
-    hold the tiled kernels against and ``dev/bench_sweeps.py`` and
-    ``dev/bench_sweeps3.py`` time.  No path of the port enters it."""
-    global _forced
+def launch_sweeps(per_launch: int, tile_rows: int | None = None):
+    """Within the block every K1 solve, every row-slab solve, and every
+    3-D Chebyshev solve or z-slab segment in fast mode (the tiled 3-D
+    kernel's one mode; ``tiled3``), on the card takes ``per_launch`` sweeps
+    a launch of the tiled kernel (the library refuses a launch of more
+    than its kMaxSweeps: 20 for K1 and K9, 6 for the 3-D kernel), or with
+    0 launches the per-sweep kernel (K1, K5, K9 or K13) for each sweep:
+    the chains the checks hold the tiled kernels against and
+    ``dev/bench_sweeps.py``, ``dev/bench_sweeps3.py`` and
+    ``dev/bench_slab_sweeps.py`` time.  ``tile_rows`` (64 or 32) sets the
+    tiled K9's tile.  No path of the port enters it."""
+    global _forced, _forced_tile
     if per_launch < 0:
         raise ValueError(f"per_launch {per_launch} < 0")
-    saved, _forced = _forced, per_launch
+    saved = _forced, _forced_tile
+    _forced, _forced_tile = per_launch, tile_rows
     try:
         yield
     finally:
-        _forced = saved
+        _forced, _forced_tile = saved
 
 
 class SweepLaunch(NamedTuple):
@@ -308,10 +340,11 @@ def sweep_plan(start: int, stop: int, end: int, per_launch: int, *,
 
 class _Sweeps:
     """The sweep launches of one solve (K1 on a grid or a batch of grids,
-    K5 on a volume, K13 on a z-slab): ``sweep()`` advances one iterate by
-    a launch of the per-sweep kernel, ``run()`` a K1 solve and ``run3()``
-    a 3-D solve or z-slab segment by the launches of ``sweep_plan`` (the
-    tiled K1 or the tiled 3-D kernel, ``launch()``).
+    K5 on a volume, K13 on a z-slab, K9 on a row slab): ``sweep()``
+    advances one iterate by a launch of the per-sweep kernel, ``run()`` a
+    K1 solve, ``run3()`` a 3-D solve or z-slab segment and ``run_slab()`` a
+    row-slab solve by the launches of ``sweep_plan`` (the tiled K1, the
+    tiled 3-D kernel or the tiled K9, ``launch()``).
 
     It owns the scratch it ping-pongs through (two tensors, three for
     Chebyshev, whose x_{k-1} and x_k are read-only while x_{k+1} is
@@ -348,7 +381,8 @@ class _Sweeps:
 
     # The tiled kernel of each per-sweep kernel.
     TILED = {"jacobi_sweep": "jacobi_sweeps", "jacobi3_sweep": "jacobi3_sweeps",
-             "jacobi3_slab": "jacobi3_slab_sweeps"}
+             "jacobi3_slab": "jacobi3_slab_sweeps",
+             "jacobi_slab": "jacobi_slab_sweeps"}
 
     def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
                  src_dt, fast, cheby_rho, kernel="jacobi_sweep", start=0,
@@ -487,10 +521,33 @@ class _Sweeps:
                 self.launch(lib, step, planes, step.first - start, gtop,
                             gbot)
 
+    def run_slab(self, lib, rows: int, gtop: int, gbot: int) -> None:
+        """The remaining sweeps of a row-slab solve (K9's) on a buffer of
+        ``rows`` rows with wall rows ``gtop``/``gbot`` (-1 when absent):
+        sweep k of the solve, from 1, computes buffer rows [k, rows-k), so
+        a launch after ``k`` sweeps writes the band its last sweep leaves
+        exact: the tiled K9's launches of ``sweep_plan``, T sweeps each on
+        tiles of ``slab_tiling``'s rows, or inside ``launch_sweeps(0)`` one
+        per-sweep launch a sweep."""
+        per_launch, tile = slab_tiling(rows, self.side, self.end - self.k)
+        if _forced is not None:
+            per_launch = _forced
+        if _forced_tile is not None:
+            tile = _forced_tile
+        if per_launch == 0:
+            while self.k < self.end:
+                self.sweep(lib, self.k + 1, rows - self.k - 1, gtop, gbot)
+            return
+        for step in sweep_plan(self.k, self.end, self.end, per_launch,
+                               prep=self.prep, cheby=self.omegas is not None,
+                               guess=self.x is not None):
+            self.launch(lib, step, rows, step.first, gtop, gbot, tile)
+
     def launch(self, lib, step: SweepLaunch, *geometry: int) -> None:
         """One tiled launch: the sweeps of ``step``; ``geometry`` goes
         between the launch's sweeps and the stream (K1's batch and boundary
-        split, a z-slab's planes, sweeps done and wall planes)."""
+        split, a z-slab's planes, sweeps done and wall planes, a row slab's
+        rows, sweeps done, wall rows and tile rows)."""
         cheby = self.omegas is not None
         out = (torch.empty_like(self.rhs) if self.bf16 and step.ends_solve
                else self._scratch())

@@ -20,7 +20,12 @@ kernels of ``csrc/`` or raise.  Nothing falls back.  Launches count in
 
 Five CUDA kernels carry the seven TPU kernels:
 
-- ``jacobi_slab`` (K9, ``csrc/jacobi_slab.cu``), one sweep per launch:
+- K9, the sweeps of every row-slab solve: ``jacobi_slab_sweeps``, the
+  slab form of the tiled K1 (``csrc/jacobi_tiles.cu``), T sweeps a launch
+  in shared-memory tiles over the extended slab (``cuda_ops.slab_tiling``
+  picks T and the tile by the buffer); ``jacobi_slab``
+  (``csrc/jacobi_slab.cu``), one sweep a launch, the chain the tiled form
+  is held against (``cuda_ops.launch_sweeps(0)``).  They make
   ``fused_jacobi_slab`` (B9a, ``pallas_sharded.py:290``);
 - ``divergence_slab`` (K10) and ``gradient_slab`` (K11),
   ``csrc/project_slab.cu``: ``divergence_slab`` (B9e, ``:1357``) and
@@ -205,15 +210,6 @@ def _advect_plain(bs, exts, halo, u, v, flags, dt, n, cmax):
                  for b, ext in zip(bs, exts))
 
 
-def _run_sweeps(run: co._Sweeps, lib, sweeps: int, rows: int, gtop: int,
-                gbot: int, first: int = 1) -> torch.Tensor:
-    """K9 launches for sweeps ``first..sweeps``; sweep k computes buffer
-    rows [k, rows-k)."""
-    for k in range(first, sweeps + 1):
-        run.sweep(lib, k, rows - k, gtop, gbot)
-    return run.x
-
-
 # ---------------------------------------------------------------------------
 # B9a fused_jacobi_slab (K9)
 # ---------------------------------------------------------------------------
@@ -242,9 +238,9 @@ def fused_jacobi_slab(b, x_ext, rhs_ext, flags, *, m, K, alpha, beta,
     """``sweeps`` Jacobi sweeps (Chebyshev with ``cheby_rho``, the
     reciprocal form with ``fast``) on an ``(m+2K, side)`` extended slab from
     guess ``x_ext`` (zero with ``zero_init``; ``x_ext`` is then ignored)
-    with rhs ``rhs_ext``; returns the (m, side) slab.  One K9 launch per
-    sweep; a Chebyshev solve runs whole in one call, its x_{k-1} in the
-    third scratch buffer."""
+    with rhs ``rhs_ext``; returns the (m, side) slab.  The tiled K9's
+    launches of T sweeps (``_Sweeps.run_slab``); a Chebyshev solve runs
+    whole in one call, its x_{k-1} handed from launch to launch."""
     if not _jacobi_checks(x_ext, rhs_ext, m, K, sweeps):
         return fused_jacobi_slab_plain(
             b, x_ext, rhs_ext, flags, m=m, K=K, alpha=alpha, beta=beta,
@@ -256,7 +252,8 @@ def fused_jacobi_slab(b, x_ext, rhs_ext, flags, *, m, K, alpha, beta,
         run = co._Sweeps(b, x_ext, rhs_ext, alpha, beta, sweeps,
                          zero_init=zero_init, src_dt=None, fast=fast,
                          cheby_rho=cheby_rho, kernel="jacobi_slab")
-        return _run_sweeps(run, lib, sweeps, m + 2 * K, gtop, gbot)[K:K + m]
+        run.run_slab(lib, m + 2 * K, gtop, gbot)
+        return run.x[K:K + m]
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +302,7 @@ def fused_jacobi_slab_split(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags,
     (K, side) halos ``x_top``/``x_bot``, ``rhs_top``/``rhs_bot`` as they
     come from the neighbouring slabs, with no concatenated extended slab:
     K18 runs the first sweep from the three operands and stores the
-    extended rhs it reads, K9 the ``sweeps-1`` sweeps after it.
+    extended rhs it reads, the tiled K9 the ``sweeps-1`` sweeps after it.
     ``zero_init`` starts from zero and ignores the x operands.  Equals
     ``fused_jacobi_slab`` on the concatenation bit for bit; returns the
     (m, side) slab."""
@@ -331,8 +328,8 @@ def fused_jacobi_slab_split(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags,
                    K, side, b, *run.coefs[:4], co._FAST if fast else 0,
                    gtop, gbot, run.stream)
         run.ran_first_sweep(x1)
-        return _run_sweeps(run, lib, sweeps, rows, gtop, gbot,
-                           first=2)[K:K + m]
+        run.run_slab(lib, rows, gtop, gbot)
+        return run.x[K:K + m]
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +387,8 @@ def fused_project_slab(u_ext, v_ext, flags, *, n, iters, m, K,
         run = co._Sweeps(0, rhs, rhs, 1.0, 4.0, iters, zero_init=True,
                          src_dt=None, fast=False, cheby_rho=cheby_rho,
                          kernel="jacobi_slab")
-        p = _run_sweeps(run, lib, iters, rows, gtop, gbot)
+        run.run_slab(lib, rows, gtop, gbot)
+        p = run.x
         uo = u_ext.new_empty((m, side))
         vo = u_ext.new_empty((m, side))
         co._launch("gradient_slab", lib.fsc_gradient_slab, _row(u_ext, K),
@@ -448,7 +446,8 @@ def fused_dens_slab(b, src_ext, base_ext, u_slab, v_slab, flags, *, alpha,
         run = co._Sweeps(b, src_ext, base_ext, alpha, beta, iters,
                          zero_init=False, src_dt=dt, fast=fast,
                          cheby_rho=None, kernel="jacobi_slab")
-        window = _run_sweeps(run, lib, iters, m + 2 * K, gtop, gbot)
+        run.run_slab(lib, m + 2 * K, gtop, gbot)
+        window = run.x
         out = base_ext.new_empty((m, side))
         co._launch("advect_slab", lib.fsc_advect_slab, window.data_ptr(),
                    None, u_slab.data_ptr(), v_slab.data_ptr(),

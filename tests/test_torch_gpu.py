@@ -6,6 +6,7 @@ On a machine with one H100:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
 """
+import contextlib
 import glob
 import os
 import warnings
@@ -178,13 +179,10 @@ def test_sharded_step_launches_and_matches_reference(cuda, mode, slabs):
     cuda_ops.reset_launch_counts()
     got = unshard(step(state, src))
     torch.cuda.synchronize()
-    k_vel = cfg.cheby_iters if mode == "perf" else cfg.jacobi_iters
-    k_p = cfg.press_cheby_iters if mode == "perf" else cfg.jacobi_iters
+    import chip_smoke
     assert cuda_ops.launch_counts() == {
         **dict.fromkeys(cuda_ops.KERNELS, 0),
-        "jacobi_slab": slabs * (3 * k_vel + 2 * k_p),
-        "divergence_slab": 2 * slabs, "gradient_slab": 2 * slabs,
-        "advect_slab": 2 * slabs}
+        **chip_smoke.expected_launches_sharded(cfg, slabs)}
     ref = make_sharded_step_fn(cfg.replace(backend="reference"), mesh)
     want = unshard(ref(state, src))
     # The reference backend ignores fast_math (phase 6 of chip_smoke.py).
@@ -200,6 +198,10 @@ def test_cuda_slab_launches_or_raises(cuda):
     cuda_ops.reset_launch_counts()
     cuda_sharded.fused_jacobi_slab(0, x, x, (1, 0, 0), m=32, K=8, alpha=1.0,
                                    beta=4.0, sweeps=3)
+    assert cuda_ops.launch_counts()["jacobi_slab_sweeps"] == 1
+    with cuda_ops.launch_sweeps(0):
+        cuda_sharded.fused_jacobi_slab(0, x, x, (1, 0, 0), m=32, K=8,
+                                       alpha=1.0, beta=4.0, sweeps=3)
     assert cuda_ops.launch_counts()["jacobi_slab"] == 3
     with pytest.raises(ValueError):
         cuda_sharded.fused_jacobi_slab(0, x, x.cpu(), (1, 0, 0), m=32, K=8,
@@ -295,6 +297,65 @@ def test_tiled_3d_solves_equal_the_per_sweep_chain(cuda, per_launch):
         want = check.plain()
         torch.cuda.synchronize()
         assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("per_launch,tile", [(1, 32), (3, 64), (5, 32),
+                                             (None, None)])
+def test_tiled_slab_solves_equal_the_per_sweep_chain(cuda, per_launch,
+                                                      tile):
+    """Every row-slab check at 2048² on slabs of 256 rows (top, interior
+    and bottom; every solve mode, the projection, the density step and
+    K18's split chain) on the tiled K9, at T = 1, 3 and 5 on 32- and
+    64-row tiles and as ``slab_tiling`` chooses, against the same call on
+    the per-sweep K9 (0 difference) and against its plain twin (0
+    difference outside fast mode, ``checks.TOL`` in it)."""
+    check_list = (checks.kernel_checks_slab(2048, 256, cuda, seed=7)
+                  + checks.split_against_concat(2048, 256, cuda, seed=7))
+    for check in checks.slab_per_sweep_checks(check_list):
+        forced = (contextlib.nullcontext() if per_launch is None
+                  else cuda_ops.launch_sweeps(per_launch, tile_rows=tile))
+        with forced:
+            got = check.run()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+    for check in check_list:
+        if "jacobi_slab_sweeps" not in check.kernels:
+            continue
+        err = checks.max_abs_diff(check.run(), check.plain())
+        fast = "fast" in check.label
+        assert err <= checks.TOL if fast else err == 0.0, (check.label, err)
+
+
+def test_slab_step_launches_by_the_tiling(cuda):
+    """One 2048² parity step on 8 slabs of 256 rows launches the tiled K9
+    as ``chip_smoke.expected_launches_sharded`` counts it chunk by chunk
+    (160 launches, 800 on the per-sweep K9) and equals the same step on the
+    per-sweep K9 bit for bit."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_state, unshard)
+
+    cfg = ft.SimConfig(n=2046, jacobi_iters=20, backend="cuda", device=cuda)
+    mesh = make_mesh([cuda] * 8)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    state, src = shard_state(state, mesh), shard_state(src, mesh)
+    step = make_sharded_step_fn(cfg, mesh)
+    cuda_ops.reset_launch_counts()
+    got = unshard(step(state, src))
+    torch.cuda.synchronize()
+    want = chip_smoke.expected_launches_sharded(cfg, 8)
+    assert cuda_ops.launch_counts() == {**dict.fromkeys(cuda_ops.KERNELS, 0),
+                                        **want}
+    assert want["jacobi_slab_sweeps"] == 160
+    with cuda_ops.launch_sweeps(0):
+        cuda_ops.reset_launch_counts()
+        chain = unshard(step(state, src))
+        assert cuda_ops.launch_counts()["jacobi_slab"] == 800
+    for a, b in zip(got, chain):
+        if a is not None:
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("slabs", [4, 8])
