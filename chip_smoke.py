@@ -74,16 +74,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    floor, its plain version and the composition it replaces (K3's
    windowed pair and ``fused_project``; two ``torch.cat`` and K9).  K18
    against its plain version runs in phase 3c;
-3f. K1's damped sweep (the multigrid smoother) against
-   ``ops.multigrid._smooth`` at 2048², 128² and 16² (2 sweeps from a guess
+3f. K1-damp (the multigrid smoother) against ``ops.multigrid._smooth``
+   at 2048², 128², 16² and on a batch of 64 × 16² (2 sweeps from a guess
    and from zero, 40 from zero; bit for bit expected, max|Δ| <= 1e-6
-   required), and K6 in the gather window against
+   required) and against the same call on the per-sweep damped K1 (bit
+   for bit required), and K6 in the gather window against
    ``ops.three_d.advect3_windowed`` at 256³ (constant displacements inside,
    across and far over a 2-cell window, random velocities up to 6 cells in
    windows of 2 and 4, one field and the self-advected triple; max|Δ| <=
-   1e-5); each timed beside its bound and plain version (K1-damp also at
-   16², beside the launch floor), K6 in the window on the inputs phase 3b
-   times exact K6 on;
+   1e-5); each timed beside its bound and plain version (K1-damp also
+   beside the per-sweep damped K1, at all four sizes, and at 16² beside
+   the launch floor), K6 in the window on the inputs phase 3b times exact
+   K6 on;
 4. the six golden fixtures ``tests/golden/*.npz`` through the ``cuda``
    backend (atol 1e-5);
 5. the 2-D main path, ``StableFluids2D.step`` at 2048² (n=2046), 20 Jacobi
@@ -143,15 +145,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    step traced with ``torch.profiler`` (device ms per kernel, busy share);
 14. the multigrid 2-D step at 2048²: ``pressure_solver="multigrid"`` with
    two cycles and Jacobi-20 diffusion, one cycle, and the JAX bench's line
-   (one cycle, fast math): the launches of ``expected_launches`` (68
-   K1-damp launches a cycle), the first two held to the ``reference``
+   (one cycle, fast math): the launches of ``expected_launches`` (15
+   K1-damp launches a cycle, ``cuda_ops.damped_plan``), the first two held
+   to the ``reference``
    backend as phase 5, the bench line at the same bars to the ``cuda``
    OpSet's plain twins, which take fast_math and round as the kernels do
    (``make_opset(cfg, plain=True)``; the reference ignores fast_math: its
    gap is printed beside the plain twins' own), float32 matmuls checked
    to run without TF32, the first projection's max|div| beside the
    Jacobi-20 projection's on the same velocity (at most it for
-   multigrid), and one step traced (the transfers' GEMM time beside K1's);
+   multigrid), one step traced (the transfers' GEMM time beside K1-damp's
+   and K1's), and each step's ms/step eager and as a CUDA graph beside
+   the same step with its smoother on the per-sweep damped K1
+   (``cuda_ops.smooth_launches(0)``, the route before K1-damp);
 15. the CG-20 2-D step at 2048², checked the same way (its step captured as
    a CUDA graph: no host sync inside the loop), with max|div|;
 16. the windowed 3-D step at 256³ (4-cell window), parity and the
@@ -193,9 +199,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    a 2-cell window, 3 steps); ms/step in bf16 beside float32; then the
    multigrid and CG steps on a batch of 64
    grids of 256² (the batched solves of ROADMAP §C 1): the launches of one
-   grid (K1's damped sweep takes the batch), every grid within the parity
+   grid (K1-damp takes the batch), every grid within the parity
    bar of its own one-grid step (max|Δ| printed, and how many grids equal
-   it bit for bit), the batch held to the ``reference`` backend.
+   it bit for bit), the batch held to the ``reference`` backend; the
+   multigrid step's ms/step eager and as a CUDA graph beside the per-sweep
+   damped K1's, as in phase 14.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
@@ -203,7 +211,7 @@ and phase 17's CLI calls for the 2-D kernels, phases 8, 16 and 17 for the
 3-D ones, the 8-slab
 2048² parity run of phase 10 for the row-slab kernels, the 8-slab 256³
 parity run of phase 11 for the z-slab kernels, phase 12's tail runs for
-K17, phase 10's chunk run for K18, phase 14 for K1's damped sweep and
+K17, phase 10's chunk run for K18, phases 14 and 18 for K1-damp and
 phase 16 for K6's window), its max|Δ| from phase 3, 3b, 3c, 3d, 3e or 3f,
 its device time beside its plain version's, and its bound; the bf16 forms
 are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
@@ -212,11 +220,11 @@ run and its datagen run, max|Δ| and times from phase 18; the tiled 3-D
 kernel's ``jacobi3_sweeps`` and ``jacobi3_slab_sweeps`` from phase 16's
 compensated run and phase 11's compensated 8-slab run, whose fast
 Chebyshev solves it takes; the tiled K9's ``jacobi_slab_sweeps`` from
-phase 10's 8-slab 2048² parity run).  The per-sweep K1's undamped forms
-(``jacobi_sweep``, ``jacobi_sweep_bf16``) and the per-sweep K9
-(``jacobi_slab``), which the tiled K1 and K9 replaced on every path, run
-on none and are left out of the line (``OFF_PATH``): every path's launch
-counts hold them at 0.  The last line
+phase 10's 8-slab 2048² parity run).  The per-sweep K1's forms
+(``jacobi_sweep``, ``jacobi_sweep_bf16``, ``jacobi_sweep_damp``) and the
+per-sweep K9 (``jacobi_slab``), which the tiled K1, K1-damp and the tiled
+K9 replaced on every path, run on none and are left out of the line
+(``OFF_PATH``): every path's launch counts hold them at 0.  The last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
@@ -284,9 +292,11 @@ KERNEL_SOURCES = {
     "jacobi_slab_split": (f"{CSRC}/jacobi_slab_split.cu", f"{TPU_SLABS}:506"),
     # The tiled K9, T sweeps a launch on a row slab's buffer.
     "jacobi_slab_sweeps": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_SLABS}:290"),
-    # The damped mode of the same pallas_call (fused_jacobi's damp), and the
-    # window of the 3-D gather (advect3_shift(_fused)'s cmax).
+    # The damped mode of the same pallas_call (fused_jacobi's damp), per
+    # sweep and as K1-damp, and the window of the 3-D gather
+    # (advect3_shift(_fused)'s cmax).
     "jacobi_sweep_damp": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
+    "jacobi_sweeps_damp": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_KERNELS}:645"),
     "advect3_windowed": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
     # The bf16 storage forms of the same pallas_calls (JAX's bf16 mode).
     "jacobi_sweep_bf16": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
@@ -304,11 +314,12 @@ KERNEL_SOURCES = {
 }
 # Phase 18's batch of grids for the multigrid and CG steps.
 SOLVER_BATCH = 64
-# The per-sweep K1's undamped forms and the per-sweep K9: the tiled K1 and
-# K9 took over every solve they ran, so no path launches them; phases 3,
-# 3c and 18 time them beside the tiled kernels as their "before", and the
-# kernels line leaves them out.
-OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16", "jacobi_slab")
+# The per-sweep K1's forms and the per-sweep K9: the tiled K1, K1-damp and
+# the tiled K9 took over every solve they ran, so no path launches them;
+# phases 3, 3c, 3f and 18 time them beside the tiled kernels as their
+# "before", and the kernels line leaves them out.
+OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16", "jacobi_slab",
+            "jacobi_sweep_damp")
 
 
 def phase(title: str) -> None:
@@ -322,19 +333,35 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def mg_cycle_sweeps(n: int, pre: int = 2, post: int = 2,
-                    min_n: int = 16) -> int:
-    """Damped K1 sweeps of one multigrid V-cycle from interior ``n``: ``pre``
-    + ``post`` on every level whose interior is at least ``min_n``, each
-    next padded side the half rounded down to a multiple of 8 (at least
-    16), then 40 on the coarsest level (JAX's ``mg_pressure_solve_fast``;
-    at 2048²: 7 levels, 68 sweeps)."""
-    sweeps = 0
+def mg_cycle_launches(n: int, pre: int = 2, post: int = 2,
+                      min_n: int = 16) -> dict[str, int]:
+    """Damped K1 launches of one multigrid V-cycle from interior ``n``, by
+    kernel: a ``pre`` and a ``post`` smooth on every level whose interior
+    is at least ``min_n``, each next padded side the half rounded down to
+    a multiple of 8 (at least 16), then 40 sweeps on the coarsest level
+    (JAX's ``mg_pressure_solve_fast``; at 2048²: 7 levels, 68 sweeps),
+    each smooth in the launches of ``cuda_ops.damped_plan`` (K1-damp's,
+    or a launch a sweep of the per-sweep damped K1; at 2048²: 15 K1-damp
+    launches; from 256²: 9, one grid or a batch, whose smooths are one
+    launch whatever the tile)."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    launches = {"jacobi_sweeps_damp": 0, "jacobi_sweep_damp": 0}
+
+    def smooth(side, sweeps):
+        per_launch = cuda_ops.damped_plan(side, sweeps).per_launch
+        if per_launch == 0:
+            launches["jacobi_sweep_damp"] += sweeps
+        else:
+            launches["jacobi_sweeps_damp"] += -(-sweeps // per_launch)
+
     while n >= min_n:
-        sweeps += pre + post
+        smooth(n + 2, pre)
+        smooth(n + 2, post)
         half = (n + 2) // 2
         n = max(16, half - half % 8) - 2
-    return sweeps + 40
+    smooth(n + 2, 40)
+    return launches
 
 
 def k1_launches(sweeps: int) -> int:
@@ -348,8 +375,8 @@ def k1_launches(sweeps: int) -> int:
 def expected_launches(cfg) -> dict[str, int]:
     """Kernel launches of one step of ``cfg``: each solve on the tiled K1,
     T sweeps a launch (``k1_launches``), the density's first ``iters-1``
-    before K4.  The multigrid projection smooths with K1's damped sweep, a
-    launch a sweep (counted apart); the CG projection launches K2 alone
+    before K4.  The multigrid projection smooths with K1-damp, counted
+    apart (``mg_cycle_launches``); the CG projection launches K2 alone
     (its iterations are torch operations)."""
     k_vel = k_dens = cfg.jacobi_iters
     if cfg.diffusion_solver == "chebyshev":
@@ -373,8 +400,9 @@ def expected_launches(cfg) -> dict[str, int]:
                 "divergence": 2, "gradient": 2, "advect": 1,
                 "dens_advect": 1}
     if cfg.pressure_solver == "multigrid":
-        launches["jacobi_sweep_damp"] = (2 * cfg.mg_cycles
-                                         * mg_cycle_sweeps(cfg.n))
+        for name, count in mg_cycle_launches(cfg.n).items():
+            if count:
+                launches[name] = 2 * cfg.mg_cycles * count
     return launches
 
 
@@ -1154,20 +1182,61 @@ def fast_math_gap(cfg, label: str) -> None:
 
 def transfer_split(per_kernel: dict[str, list], label: str) -> None:
     """The traced step's device time in the multigrid transfers (the GEMM
-    kernels of ``torch.matmul``) beside K1's damped sweeps (the per-sweep
-    K1's ``jacobi_sweep_kernel<true, ...>`` instantiations) and the
-    diffusion solves (the tiled K1, ``jacobi_sweeps_kernel``)."""
+    kernels of ``torch.matmul``) beside K1-damp (``jacobi_damped_sweeps_
+    kernel``, and the per-sweep K1's ``jacobi_sweep_kernel<true, ...>``
+    where a level takes it) and the diffusion solves (the tiled K1,
+    ``jacobi_sweeps_kernel``)."""
     busy = sum(ms for _, ms in per_kernel.values())
 
-    def share(match) -> str:
-        ms = sum(t for name, (_, t) in per_kernel.items() if match(name))
+    def share(*marks: str) -> str:
+        ms = sum(t for name, (_, t) in per_kernel.items()
+                 if any(m in name.lower() for m in marks))
         return f"{ms:.4f} ms ({100 * ms / busy:.1f}%)"
 
     print(f"{label}: of {busy:.4f} device ms, transfers (GEMM) "
-          f"{share(lambda k: 'gemm' in k.lower())}, K1-damp "
-          f"{share(lambda k: 'jacobi_sweep_kernel<true' in k)}, K1 "
-          f"diffusion solves "
-          f"{share(lambda k: 'jacobi_sweeps_kernel' in k)}")
+          f"{share('gemm')}, K1-damp "
+          f"{share('jacobi_damped_sweeps_kernel', 'jacobi_sweep_kernel<true')}"
+          f", K1 diffusion solves {share('jacobi_sweeps_kernel')}")
+
+
+def smoother_routes(step_fn, state, label: str, card: str,
+                    steps: int = 5) -> None:
+    """The multigrid step ``step_fn(state)`` as the path runs it (its
+    smoother on K1-damp) and with its smoother on the per-sweep damped K1
+    (``cuda_ops.smooth_launches(0)``, the route before K1-damp): the state
+    after one step of each, held bit for bit, their launches a step, and
+    ms/step eager (CUDA events around ``steps`` steps) and as a CUDA graph
+    of one step, timed in turns K1-damp, per-sweep, per-sweep, K1-damp."""
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    forms = {"K1-damp": contextlib.nullcontext,
+             "per-sweep damped K1": lambda: cuda_ops.smooth_launches(0)}
+    outs, counts = {}, {}
+    for name, form in forms.items():
+        with form():
+            cuda_ops.reset_launch_counts()
+            outs[name] = step_fn(state)
+            torch.cuda.synchronize()
+            counts[name] = {k: c for k, c in cuda_ops.launch_counts().items()
+                            if c}
+    diff = max_diff(*outs.values())
+    if diff != 0.0:
+        raise AssertionError(f"{label}: K1-damp's step differs from the "
+                             f"per-sweep damped K1's by {diff:.3e}")
+    eager, graph = dict.fromkeys(forms, 0.0), dict.fromkeys(forms, 0.0)
+    for name in [*forms, *reversed(forms)]:
+        with forms[name]():
+            eager[name] += timed_steps(step_fn, state, steps)[1] / 2
+            graph[name] += checks.device_ms(lambda: step_fn(state),
+                                            reps=3) / 2
+    for name in forms:
+        print(f"{label}, smoother on {name}: {eager[name]:.4f} ms/step "
+              f"eager, {graph[name]:.4f} as a CUDA graph, launches "
+              f"{counts[name]} ({card})")
+    before = "per-sweep damped K1"
+    print(f"{label}: the state after one step equal bit for bit on both; "
+          f"K1-damp's step {graph[before] - graph['K1-damp']:.4f} ms "
+          f"shorter as a graph, {eager[before] - eager['K1-damp']:.4f} eager")
 
 
 def windowed3_path(cfg, label: str, card: str, steps: int) -> None:
@@ -1557,6 +1626,9 @@ def solver_batch_path(solver: str, card: str) -> dict[str, int]:
     print(f"{label}: each grid against its own step max|d| {worst:.3e} "
           f"({exact} of {SOLVER_BATCH} bit for bit); against the reference "
           f"backend max|d| {max_diff(got, ref):.3e} ({card})")
+    if solver == "multigrid":
+        fn = make_batched_step_fn(cfg)
+        smoother_routes(lambda s: fn(s, src), got, label, card)
     return counts
 
 
@@ -1660,18 +1732,20 @@ def main() -> None:
     kernel_times(checks.timing_checks_split(8192, 2048, "cuda", SEED),
                  "8192², slab of 2048 rows", card, floor)
 
-    phase("3f K1's damped sweep and K6's window against their plain "
-          "versions")
+    phase("3f K1-damp and K6's window against their plain versions")
     # K1-damp equals ops.multigrid._smooth bit for bit (--fmad=false);
-    # 1e-6 is the bar.
-    for side in (2048, 128, 16):
-        compare(checks.kernel_checks_damp(side, "cuda", SEED), 1e-6, errs)
+    # 1e-6 is the bar.  Against the per-sweep damped K1 it is 0.
+    for side, batch in ((2048, 0), (128, 0), (16, 0), (16, SOLVER_BATCH)):
+        timed_against_both(checks.kernel_checks_damp(side, "cuda", SEED,
+                                                     batch), 1e-6, errs)
     compare(checks.kernel_checks3_windowed(256, "cuda", SEED), checks.TOL,
             errs)
     times.update(kernel_times(checks.timing_checks_damp(2048, "cuda", SEED),
                               "2048²", card, floor))
-    kernel_times(checks.timing_checks_damp(16, "cuda", SEED), "16²", card,
-                 floor)
+    for side, batch in ((128, 0), (16, 0), (16, SOLVER_BATCH)):
+        kernel_times(checks.kernel_checks_damp(side, "cuda", SEED, batch),
+                     f"{batch} × {side}²" if batch else f"{side}²", card,
+                     floor)
     times.update(kernel_times(checks.timing_checks3_windowed(256, "cuda",
                                                              SEED),
                               "256³", card))
@@ -1812,6 +1886,7 @@ def main() -> None:
     state_mg = StableFluids2D(mg).step(*reference_init(gen, mg))
     transfer_split(profile_step(lambda: StableFluids2D(mg).step(state_mg),
                                 label, card), label)
+    smoother_routes(StableFluids2D(mg).step, state_mg, label, card)
     # The JAX bench's multigrid line (bench.py:140-143): one cycle with fast
     # math.  One cycle is held to the reference backend without fast math.
     # The reference backend ignores fast_math; the cuda OpSet's plain twins
@@ -1821,6 +1896,8 @@ def main() -> None:
     launches_mg = {k: c + launches_mg[k] for k, c in main_path(
         mg1, "2048² multigrid, 1 cycle", card, 6,
         tol=(1e-5, 2e-5, 1e-4)).items()}
+    smoother_routes(StableFluids2D(mg1).step, state_mg,
+                    "2048² multigrid, 1 cycle", card)
     mg1 = mg1.replace(fast_math=True)
     label = "2048² multigrid, 1 cycle, fast_math (the bench line)"
     plain_mg1 = functools.partial(step, mg1,

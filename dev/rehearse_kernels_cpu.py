@@ -59,9 +59,11 @@ loader patched), and:
   against the ``reference`` backend; both also in windowed mode, each
   windowed 2-D step's velocity tail again through K17 against the step's
   own; and 2-D steps at ``--mg-side`` with the multigrid (two cycles; one
-  with fast math) and CG pressure solves; K1's damped sweep
-  (``kernel_checks_damp`` at ``--mg-side``) and K6's window
-  (``kernel_checks3_windowed``) against their plain versions;
+  with fast math) and CG pressure solves; K1-damp
+  (``kernel_checks_damp`` at ``--mg-side`` and on a batch of three 16²
+  grids, whole-grid launches) and K6's window
+  (``kernel_checks3_windowed``) against their plain versions, and K1-damp
+  against the same calls on the per-sweep damped K1, bit for bit;
 - one multi-device step per mode and route goes through the ``cuda``
   backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``), its
   launch counts against ``chip_smoke.expected_launches_sharded``, its state
@@ -546,6 +548,7 @@ def main() -> int:
     failures = 0
     check_list = (checks.kernel_checks(args.side2, "cpu", 1)
                   + checks.kernel_checks_damp(args.mg_side, "cpu", 1)
+                  + checks.kernel_checks_damp(16, "cpu", 1, batch=3)
                   + checks.kernel_checks3(args.side3, "cpu", 1)
                   + checks.kernel_checks3_windowed(args.side3, "cpu", 1)
                   + checks.kernel_checks_slab(args.slab_side,
@@ -584,6 +587,15 @@ def main() -> int:
             err = checks.max_abs_diff(c.run(), c.plain())
         failures += err > 0.0
         print(f"  {c.label:45s} max|d| {err:.3e}"
+              f"{'  FAIL' if err > 0.0 else ''}")
+    # K1-damp against the per-sweep damped K1 on the same calls: bit for
+    # bit.
+    for c in (checks.kernel_checks_damp(args.mg_side, "cpu", 1)
+              + checks.kernel_checks_damp(16, "cpu", 1, batch=3)):
+        with kernels_on_cpu(lib):
+            err = checks.max_abs_diff(c.run(), c.chain())
+        failures += err > 0.0
+        print(f"  {c.label + ' vs per-sweep':45s} max|d| {err:.3e}"
               f"{'  FAIL' if err > 0.0 else ''}")
     # K18 against K9 on the concatenated operands: bit for bit.
     for c in checks.split_against_concat(args.slab_side, args.slab_side // 4,

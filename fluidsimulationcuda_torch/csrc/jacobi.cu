@@ -6,9 +6,9 @@
 // pallas_call at :645), which fuses up to 20 sweeps per VMEM round-trip in
 // row strips with K-deep margins.  The solves of the 2-D step run on the
 // tiled K1 (jacobi_tiles.cu), which computes what this kernel's launches
-// compute, T sweeps a launch; this kernel is the multigrid smoother (its
-// damped form) and the per-sweep chain the tiled K1 is held against and
-// timed beside (cuda_ops.launch_sweeps(0)).  Like the TPU kernel's batch
+// compute, T sweeps a launch, and the multigrid smoother on its damped
+// form, K1-damp; this kernel is the per-sweep chain both are held against
+// and timed beside (cuda_ops.launch_sweeps(0)).  Like the TPU kernel's batch
 // program axis, the launch's grid layers are the grids of a batch, each
 // swept alone; grids [0, nb1) take boundary mode b and the rest b1, which
 // is the u/v pair of fused_jacobi_pair (:671, the TPU kernel's nb1 at

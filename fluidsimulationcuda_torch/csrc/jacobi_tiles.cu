@@ -90,6 +90,50 @@
 // output column, would derive from a row the tile's halo leaves stale:
 // such a launch takes a halo one cell deeper, as K1 does for its last
 // ghost line (plan_slab).
+//
+// K1-damp jacobi_damped_sweeps: the multigrid smoother, damped Jacobi
+// x <- (1-w)*x + w*S(x) (w = 0.8, ops/multigrid.py), on the same tiles
+// (fsc_jacobi_sweeps_damp).  Replaces the damped mode of the TPU kernel
+// (pallas_ops.py:432-459, the smooth of ops/multigrid.py:232-239 there,
+// fused_jacobi with `damp`), which runs a smooth's sweeps in one fused
+// call.  The per-sweep K1's damped form (jacobi.cu, jacobi_sweep_kernel
+// <true>) computes the same sweeps one launch each; a launch here computes
+// what `count` of its launches compute, bit for bit: each sweep takes
+// omw*x_k + w*val in that order, x_k the cell's own value in the tile (0
+// for the zero guess), omw = 1-w rounded once on the host from the double
+// 1 - 0.8, and a ghost cell takes the border rule of its interior
+// neighbour's damped value.  Float32 only, no fold, fast mode or
+// Chebyshev, as the smoother calls it.
+//
+// Bound: a smooth reads its guess (none from zero) and its rhs and writes
+// its result once, 8-12 bytes a cell, and does 9 float operations a cell
+// a sweep: 0.0150 ms for a 2-sweep smooth at 2048^2 (bytes), where the
+// per-sweep form's two launches each read x and rhs and write x.  Below
+// 1024^2 a level's smooth is latency, a launch and a few dependent passes
+// through a block, and 40 launches of the per-sweep form for the coarsest
+// 16^2 solve are latency alone.
+//
+// Design, by measurement on the H100 (PERF.md, dev/bench_smooth.py; the
+// route is cuda_ops.damped_plan).  A smooth of 2 sweeps is one launch on
+// tiles with a halo 2 deep: 128 x 64 tiles from 2 M cells a launch
+// (2048^2, 64 x 256^2: 1.1-1.9x the per-sweep pair), 128 x 16 below (4
+// cells a thread: the 64-row tile's 16 a thread made a level's few blocks
+// the whole launch's latency, 8 us at 512^2 and below against the pair's
+// 3-5; 1.1-1.3x the pair at 1024^2 and 512^2, 0.71-0.98x from 256^2 down,
+// where one launch still beats two in the eager step; 128 x 32 tiles
+// measured between the two and are not built).  A small level's
+// tiles reach past its grid, so K1-damp sweeps only the tile's lines in
+// the grid.  A grid that one block's 128 x 32 tile holds whole (side up
+// to 30, the coarsest 16^2 level) runs every sweep of its solve in one
+// launch (WholeGrid, a grid a batch's z layer): the grid sits at tile cell
+// (1, 1), since the ghost bit leaves the tile's outer ring out; every grid
+// line is exact after every sweep, its ghost ring derived from its own
+// interior, so the sweep range stays the whole grid for any count (the
+// tiled form's range shrinks a line a sweep at each end, which would leave
+// the grid's ghost rows stale from the second sweep on).  The 40 sweeps at
+// 16^2 take 0.025 ms against 0.055 for 40 per-sweep launches; the 128 x 64
+// tile took 0.030 there, and 0.0054 ms against 0.0040 on 16-row tiles for
+// a 32^2 smooth.
 #include <atomic>
 #include <type_traits>
 
@@ -128,11 +172,13 @@ struct Tiling {
   // rows the launch writes, [band_lo, band_hi).
   int rows, gtop, gbot, band_lo, band_hi;
   float w[kMaxSweeps];  // ω of each sweep of the launch
+  float omw;            // 1-w of the damped form
 };
 
 // K1's geometry: grid blockIdx.z of a batch of padded (side, side) grids,
 // its ghost ring the border.
 struct GridTiles {
+  static constexpr bool kWhole = false;  // a tile holds part of the grid
   int side, n, off, mode, r0, c0;
   __device__ explicit GridTiles(const Tiling& t)
       : side(t.side),
@@ -169,9 +215,17 @@ struct GridTiles {
   __device__ int at(int r, int c) const { return off + r * side + c; }
 };
 
+// K1-damp's whole-grid geometry: one block a grid, the grid at tile cell
+// (1, 1) (a launch of margin 1 and output tile side x side, plan_whole).
+struct WholeGrid : GridTiles {
+  static constexpr bool kWhole = true;  // every grid line exact every sweep
+  using GridTiles::GridTiles;
+};
+
 // K9's geometry: a (rows, side) slab buffer whose tiles start at the
 // band's first row, its ghost columns and wall rows the border.
 struct SlabTiles {
+  static constexpr bool kWhole = false;
   int side, n, rows, gtop, gbot, band_hi, mode, r0, c0;
   __device__ explicit SlabTiles(const Tiling& t)
       : side(t.side),
@@ -213,28 +267,32 @@ struct SlabTiles {
 
 // One sweep of the tile's rows [lo, hi) from cur into nxt, every column
 // but the tile's first and last (whose reads wrap to the next and the
-// previous row, in bounds, their values stale as the halo's are).  Border
-// cells and cells past the grid take the interior update of their own
-// rhs here; the border cells are set after it (sweeps_body) and nothing
-// exact reads the others.
-template <int kRows, bool kCheby, bool kFast, bool kCombine, typename TX,
-          typename TM, typename TR>
+// previous row, in bounds, their values stale as the halo's are) and the
+// warps' columns from col_hi on.  Border cells and cells past the grid
+// take the interior update of their own rhs here; the border cells are
+// set after it (sweeps_body) and nothing exact reads the others.  A damped
+// sweep blends the update with the cell's own x_k, omw*x_k + w*val.
+template <int kRows, bool kCheby, bool kFast, bool kDamp, bool kCombine,
+          typename TX, typename TM, typename TR>
 __device__ __forceinline__ void sweep_tile(
     const fsc::SweepParamsT<TX, TM, TR>& p, const float* cur, float* nxt,
     const float (&rhs)[Tile<kRows>::kCells],
-    float (&xm)[kCheby ? Tile<kRows>::kCells : 1], float w, int lo, int hi) {
+    float (&xm)[kCheby ? Tile<kRows>::kCells : 1], float w, float omw,
+    int lo, int hi, int col_hi) {
 #pragma unroll
   for (int rb = 0; rb < kRows; ++rb) {
     const int lr = static_cast<int>(threadIdx.y) + kWarps * rb;
     if (lr < lo || lr >= hi) continue;
 #pragma unroll
     for (int cb = 0; cb < kCols; ++cb) {
+      if (kLanes * cb >= col_hi) continue;
       const int q = rb * kCols + cb;
       const int i = lr * kTileW + static_cast<int>(threadIdx.x) + kLanes * cb;
       const float neigh =
           ((cur[i - 1] + cur[i + 1]) + cur[i - kTileW]) + cur[i + kTileW];
       float val = kFast ? fmaf(p.ab, neigh, rhs[q])
                         : (rhs[q] + p.alpha * neigh) / p.beta;
+      if constexpr (kDamp) val = omw * cur[i] + p.w * val;
       if constexpr (kCheby) {
         if (kCombine) val = fsc::cheby_combine(w, val, xm[q]);
         xm[q] = cur[i];
@@ -245,9 +303,9 @@ __device__ __forceinline__ void sweep_tile(
 }
 
 // The sweeps of one launch on the block's tile of geometry G (GridTiles,
-// SlabTiles): load, `count` sweeps in shared memory, store.
-template <class G, int kRows, bool kCheby, bool kFast, typename TX,
-          typename TM, typename TR, typename TO>
+// SlabTiles, WholeGrid): load, `count` sweeps in shared memory, store.
+template <class G, int kRows, bool kCheby, bool kFast, bool kDamp,
+          typename TX, typename TM, typename TR, typename TO>
 __device__ __forceinline__ void sweeps_body(
     const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t, TO* out,
     float* xm_out, TR* rhs_out, float* tile) {
@@ -336,16 +394,28 @@ __device__ __forceinline__ void sweeps_body(
   }
   const bool edge = g.edge(kTileH);
   __syncthreads();
+  // K1-damp sweeps only the tile's lines in the grid (a small level's
+  // tiles reach past it; nothing exact reads a cell past the grid): rows
+  // [-r0, side - r0) and the warps' columns before side - c0.
+  const int row_lo = -g.r0;
+  const int row_hi = t.side - g.r0;
+  const int col_hi =
+      kDamp && t.side - g.c0 < kTileW ? t.side - g.c0 : kTileW;
   for (int s = 0; s < t.count; ++s) {
-    // After s sweeps rows [s, kTileH - s) of the tile are exact.
-    const int lo = s + 1;
-    const int hi = kTileH - 1 - s;
+    // After s sweeps rows [s, kTileH - s) of the tile are exact; a whole
+    // grid's rows all stay exact.
+    int lo = G::kWhole ? 1 : s + 1;
+    int hi = G::kWhole ? t.side + 1 : kTileH - 1 - s;
+    if constexpr (kDamp) {
+      lo = lo > row_lo ? lo : row_lo;
+      hi = hi < row_hi ? hi : row_hi;
+    }
     if (kCheby && s >= t.first_combine)
-      sweep_tile<kRows, kCheby, kFast, true>(p, cur, nxt, rhs, xm, t.w[s],
-                                             lo, hi);
+      sweep_tile<kRows, kCheby, kFast, kDamp, true>(
+          p, cur, nxt, rhs, xm, t.w[s], t.omw, lo, hi, col_hi);
     else
-      sweep_tile<kRows, kCheby, kFast, false>(p, cur, nxt, rhs, xm, 0.0f,
-                                              lo, hi);
+      sweep_tile<kRows, kCheby, kFast, kDamp, false>(
+          p, cur, nxt, rhs, xm, 0.0f, t.omw, lo, hi, col_hi);
     if (edge) {
       __syncthreads();
 #pragma unroll
@@ -396,7 +466,8 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
                          TO* __restrict__ out, float* __restrict__ xm_out,
                          TR* __restrict__ rhs_out) {
   extern __shared__ float tile[];
-  sweeps_body<GridTiles, 4, kCheby, kFast>(p, t, out, xm_out, rhs_out, tile);
+  sweeps_body<GridTiles, 4, kCheby, kFast, false>(p, t, out, xm_out, rhs_out,
+                                                  tile);
 }
 
 template <int kRows, bool kCheby, bool kFast>
@@ -406,8 +477,20 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
                               float* __restrict__ xm_out,
                               float* __restrict__ rhs_out) {
   extern __shared__ float tile[];
-  sweeps_body<SlabTiles, kRows, kCheby, kFast>(p, t, out, xm_out, rhs_out,
-                                               tile);
+  sweeps_body<SlabTiles, kRows, kCheby, kFast, false>(p, t, out, xm_out,
+                                                      rhs_out, tile);
+}
+
+// K1-damp on tiles of kRows rows of warps (GridTiles; kRows 1 or 4: tiles
+// of 16 or 64 rows) or on whole grids (WholeGrid, kRows 2: 32 rows).
+template <class G, int kRows>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    jacobi_damped_sweeps_kernel(fsc::SweepParams p, Tiling t,
+                                float* __restrict__ out) {
+  extern __shared__ float tile[];
+  sweeps_body<G, kRows, false, false, true>(p, t, out, nullptr,
+                                            static_cast<float*>(nullptr),
+                                            tile);
 }
 
 // The halo and output tile of a launch of `count` sweeps: a halo of
@@ -419,16 +502,18 @@ void set_halo(int count, int tile_h, bool deeper, Tiling* t) {
   t->out_h = tile_h - 2 * t->margin;
 }
 
-// The tiling of a launch of `count` sweeps on grids of `side`: a halo of
-// `count` cells, one more where the last tile of a row or column of tiles
-// would hold only the grid's last ghost row or column (its value derives
-// from the row before, which a halo of `count` leaves stale).
-int plan_tiling(int side, int count, Tiling* t) {
-  if (count < 1 || count > kMaxSweeps || side < 3)
+// The tiling of a launch of `count` sweeps on grids of `side` in tiles of
+// tile_h rows: a halo of `count` cells, one more where the last tile of a
+// row or column of tiles would hold only the grid's last ghost row or
+// column (its value derives from the row before, which a halo of `count`
+// leaves stale).
+int plan_tiling(int side, int count, Tiling* t,
+                int tile_h = Tile<4>::kTileH) {
+  if (count < 1 || count > kMaxSweeps || side < 3 ||
+      tile_h - 2 * (count + 1) < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kTileH = Tile<4>::kTileH;
-  set_halo(count, kTileH, false, t);
-  set_halo(count, kTileH, side % t->out_w == 1 || side % t->out_h == 1, t);
+  set_halo(count, tile_h, false, t);
+  set_halo(count, tile_h, side % t->out_w == 1 || side % t->out_h == 1, t);
   t->side = side;
   t->count = count;
   return 0;
@@ -463,6 +548,21 @@ int plan_slab(int rows, int side, int count, int done, int gtop, int gbot,
   set_halo(count, tile_h,
            side % t->out_w == 1 || stale(gtop, t->out_h - 1) || stale(gbot, 0),
            t);
+  return 0;
+}
+
+// The launch of `count` sweeps (any count) on whole grids of `side` in a
+// tile of tile_h rows (32): margin 1, the grid at tile cell (1, 1), which
+// keeps its last ghost line off the tile's outer ring.
+int plan_whole(int side, int count, int tile_h, Tiling* t) {
+  if (count < 1 || side < 3 || tile_h != Tile<2>::kTileH ||
+      side + 2 > tile_h)
+    return static_cast<int>(cudaErrorInvalidValue);
+  t->side = side;
+  t->count = count;
+  t->margin = 1;
+  t->out_w = side;
+  t->out_h = side;
   return 0;
 }
 
@@ -622,6 +722,18 @@ int launch_slab(bool cheby, const fsc::SweepParams& p, const Tiling& t,
                                                         rhs_out, stream);
 }
 
+template <class G, int kRows>
+int launch_damped_kernel(const fsc::SweepParams& p, const Tiling& t,
+                         float* out, dim3 grid, cudaStream_t stream) {
+  const auto kernel = jacobi_damped_sweeps_kernel<G, kRows>;
+  constexpr int kSmem = Tile<kRows>::kSmem;
+  static std::atomic<int> attribute[kDevices];
+  const int err = smem_attribute(kernel, kSmem, attribute);
+  if (err != 0) return err;
+  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(p, t, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // `count` sweeps (1..kMaxSweeps) of a solve whose sweeps are numbered from
@@ -665,6 +777,45 @@ extern "C" int fsc_jacobi_sweeps_bf16(const void* x, const void* rhs,
   return form(x, rhs, src, xm, out, xm_out, rhs_out, side, b, alpha, beta,
               ab, inv_b, src_dt, omegas, flags, first, count, nb, nb1, b1,
               (types & 2) != 0, (types & 4) != 0, stream);
+}
+
+// K1-damp: `count` damped sweeps x <- omw*x + w*S(x) (fsc_jacobi_sweep's
+// kDamp: omw is 1-w rounded on the host) from x (null: the zero guess)
+// with rhs, nb float32 grids of side^2 cells, grids [0, nb1) in boundary
+// mode b and the rest in b1, in tiles of tile_rows rows.  whole 0: on
+// tiles of 16 or 64 rows, count 1..kMaxSweeps and at most
+// (tile_rows - 3)/2; whole 1: each grid whole in one block's tile of 32
+// rows, any count, side at most 30.  out must not alias x or rhs.  Returns
+// cudaErrorInvalidValue for a count, side or tile out of range, otherwise
+// cudaGetLastError() after the launch.
+extern "C" int fsc_jacobi_sweeps_damp(const float* x, const float* rhs,
+                                      float* out, int side, int b,
+                                      float alpha, float beta, float w,
+                                      float omw, int count, int nb, int nb1,
+                                      int b1, int tile_rows, int whole,
+                                      void* stream) {
+  if (nb < 1 || (!whole && tile_rows != Tile<4>::kTileH &&
+                 tile_rows != Tile<1>::kTileH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Tiling t{};
+  const int err = whole ? plan_whole(side, count, tile_rows, &t)
+                        : plan_tiling(side, count, &t, tile_rows);
+  if (err != 0) return err;
+  t.b = b;
+  t.nb1 = nb1;
+  t.b1 = b1;
+  t.omw = omw;
+  const fsc::SweepParams p = fsc::make_sweep_params(
+      x, rhs, nullptr, nullptr, alpha, beta, 0.0f, 0.0f, 0.0f, w, 0);
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  if (whole)
+    return launch_damped_kernel<WholeGrid, 2>(p, t, out, dim3(1, 1, nb),
+                                              stream_);
+  const dim3 grid((side + t.out_w - 1) / t.out_w,
+                  (side + t.out_h - 1) / t.out_h, nb);
+  return tile_rows == Tile<4>::kTileH
+             ? launch_damped_kernel<GridTiles, 4>(p, t, out, grid, stream_)
+             : launch_damped_kernel<GridTiles, 1>(p, t, out, grid, stream_);
 }
 
 // The same sweeps on a (rows, side) row-slab buffer (fsc_jacobi_slab's

@@ -302,7 +302,7 @@ def _shear_velocities(shape: tuple[int, ...], ndim: int,
 
 
 JAC = ("jacobi_sweeps",)
-DAMP = ("jacobi_sweep_damp",)
+DAMP = ("jacobi_sweeps_damp",)
 PROJ = ("divergence", "jacobi_sweeps", "gradient")
 DENS = ("jacobi_sweeps", "dens_advect")
 TAIL = ("advect_project",)
@@ -520,31 +520,37 @@ def timing_checks(side: int, device, seed: int = 0) -> list[Check]:
 MG_SMOOTHS = ((2, False), (2, True), (40, True))
 
 
-def kernel_checks_damp(side: int, device, seed: int = 0) -> list[Check]:
-    """K1's damped sweep (B1's ``damp``) against the plain multigrid
-    smoother ``ops.multigrid._smooth`` at grid ``side``, in the calls a
-    V-cycle makes (``MG_SMOOTHS``); with ``--fmad=false`` they agree bit for
-    bit."""
-    t = _Inputs(side, device, seed)
-    return [_check(f"{side}² damped jacobi {k} sweeps"
-                   f"{' zero_init' if z else ''}", DAMP, co.mg_smooth,
-                   _smooth, t.x, t.x0, k, z) for k, z in MG_SMOOTHS]
+def _damp_cost(sweeps: int, zero_init: bool) -> tuple[float, int]:
+    return _sweeps_cost(sweeps, 2, zero_init=zero_init, damp=True)
 
 
-def timing_checks_damp(side: int, device, seed: int = 0) -> list[Check]:
-    """What ``chip_smoke.py`` times of K1's damped sweep at grid ``side``:
-    one sweep (labelled by its count's name), and the cycle's smoothing
-    calls of ``MG_SMOOTHS``, each beside ``_smooth``."""
-    t = _Inputs(side, device, seed)
+def kernel_checks_damp(side: int, device, seed: int = 0,
+                       batch: int = 0) -> list[Check]:
+    """K1-damp (B1's ``damp``, the multigrid smoother, in the launches of
+    ``cuda_ops.damped_plan``) against the plain multigrid smoother
+    ``ops.multigrid._smooth`` at grid ``side`` (a batch of ``batch``
+    grids), in the calls a V-cycle makes (``MG_SMOOTHS``), each carrying
+    the same call on the per-sweep damped K1 (``chain``); with
+    ``--fmad=false`` all three agree bit for bit."""
+    t = _Inputs(side, device, seed, batch=batch)
+    size = f"{batch} × {side}²" if batch else f"{side}²"
+    return [_k1_timed(_damp_cost(k, z), t.cells,
+                      f"{size} damped jacobi {k} sweeps"
+                      f"{' zero_init' if z else ''}", DAMP, co.mg_smooth,
+                      _smooth, t.x, t.x0, k, z) for k, z in MG_SMOOTHS]
 
-    def cost(k, z):
-        return _sweeps_cost(k, 2, zero_init=z, damp=True)
 
-    return [_timed(cost(1, False), t.cells, "jacobi_sweep_damp", DAMP,
-                   co.mg_smooth, _smooth, t.x, t.x0, 1)] + [
-        _timed(cost(k, z), t.cells, f"{side}² damped jacobi {k} sweeps"
-               f"{' zero_init' if z else ''}", DAMP, co.mg_smooth,
-               _smooth, t.x, t.x0, k, z) for k, z in MG_SMOOTHS]
+def timing_checks_damp(side: int, device, seed: int = 0,
+                       batch: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of K1-damp at grid ``side`` (a batch
+    of ``batch`` grids): the path's launch of a 2-sweep smooth from a guess
+    (labelled by its count's name), then the cycle's smoothing calls of
+    ``MG_SMOOTHS`` (``kernel_checks_damp``), each beside ``_smooth`` and
+    the per-sweep damped K1."""
+    t = _Inputs(side, device, seed, batch=batch)
+    return [_k1_timed(_damp_cost(2, False), t.cells, "jacobi_sweeps_damp",
+                      DAMP, co.mg_smooth, _smooth, t.x, t.x0, 2)
+            ] + kernel_checks_damp(side, device, seed, batch)
 
 
 def _tail_timed(t: "_Inputs", label: str, u, v, cmax: int, k: int,

@@ -38,11 +38,15 @@ step:
   ``SWEEPS_PER_LAUNCH``).  It is ``fused_jacobi`` (TPU
   ``pallas_ops.py:645``), ``fused_jacobi_pair`` (``:671``, u and v stacked
   on the batch axis, each with its boundary mode) and the sweep engine of
-  ``fused_project`` and ``fused_dens_advect``.  The per-sweep K1
-  (``jacobi_sweep``, ``csrc/jacobi.cu``) computes the same sweeps one
-  launch each; it is the multigrid smoother (``damp``, counted as
-  ``jacobi_sweep_damp``), and ``launch_sweeps(0)`` runs a solve through
-  it, the "before" the tiled kernel is timed and held against.
+  ``fused_project`` and ``fused_dens_advect``.  Its damped form
+  (``jacobi_sweeps_damp``, K1-damp, the same source) is the multigrid
+  smoother (``damp``): a smooth in one launch, on K1's tiles or, on grids
+  that one tile holds whole, every sweep of the solve in one launch a
+  grid (``damped_plan``).  The per-sweep K1 (``jacobi_sweep``,
+  ``csrc/jacobi.cu``) computes the same sweeps one launch each, damped
+  ones counted as ``jacobi_sweep_damp``; ``launch_sweeps(0)`` runs a
+  solve through it, the "before" the tiled kernel is timed and held
+  against.
 - ``divergence`` and ``gradient`` (K2, ``csrc/project.cu``): with K1 they
   make ``fused_project`` (``:899``); alone they are ``divergence_p``
   (``:1622``) and ``gradient_p`` (``:1645``).
@@ -59,9 +63,9 @@ kernels (K13-K16) theirs in ``cuda_sharded_3d.py``, the fused velocity tail
 launch helper and counts.  ``launch_counts()`` reports how often each
 kernel was launched since ``reset_launch_counts()``: every successful
 launch adds one, nothing else does, so a run can show that it went through
-the kernels.  Two modes that no earlier path ran count under names of
-their own: K1's damped sweep (``jacobi_sweep_damp``) and K6's windowed
-gather (``advect3_windowed``).
+the kernels.  Modes that no earlier path ran count under names of their
+own: K1's damped sweeps (``jacobi_sweeps_damp``, and the per-sweep
+``jacobi_sweep_damp``) and K6's windowed gather (``advect3_windowed``).
 """
 from __future__ import annotations
 
@@ -86,9 +90,9 @@ from .dispatch import OpSet
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "check_grid",
     "make_opset", "SWEEPS_PER_LAUNCH", "SWEEPS_PER_LAUNCH_3D", "tiled3",
-    "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling",
-    "launch_sweeps", "SweepLaunch",
-    "sweep_plan",
+    "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling", "DAMPED_TILES",
+    "WHOLE_GRID_SIDE", "DampedRoute", "damped_plan", "launch_sweeps",
+    "smooth_launches", "SweepLaunch", "sweep_plan",
     "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "fused_jacobi_pair",
     "fused_jacobi_pair_plain", "fused_project",
     "fused_project_plain", "advect_shift", "advect_shift_plain",
@@ -105,7 +109,7 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi_sweep_damp", "advect3_windowed", "jacobi_sweep_bf16",
            "divergence_bf16", "gradient_bf16", "advect_bf16",
            "jacobi_sweeps", "jacobi_sweeps_bf16", "jacobi3_sweeps",
-           "jacobi3_slab_sweeps", "jacobi_slab_sweeps")
+           "jacobi3_slab_sweeps", "jacobi_slab_sweeps", "jacobi_sweeps_damp")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -135,10 +139,21 @@ SWEEPS_PER_LAUNCH_3D = 6
 SLAB_TILINGS = ((2_000_000, 8, 64), (0, 5, 32))
 # A row-slab solve of at most this many sweeps runs in one launch.
 SLAB_ONE_LAUNCH = 8
+# K1-damp's tiles (csrc/jacobi_tiles.cu, fsc_jacobi_sweeps_damp), chosen
+# by measurement (dev/bench_smooth.py, PERF.md): (fewest cells of a launch,
+# tile rows), the first whose cells a launch reaches; and the largest
+# padded side whose damped solves run all their sweeps in one whole-grid
+# launch, in the 32-row tile (damped_plan).  The library takes tiles of
+# 16 and 64 rows, whole grids in the 32-row one.
+DAMPED_TILES = ((2_000_000, 64), (0, 16))
+WHOLE_GRID_SIDE = 30
 # Set by launch_sweeps(): the sweeps of a tiled launch, 0 for the per-sweep
-# kernels; and the rows of a tiled K9's tile.
+# kernels; and the rows of a tiled K9's tile.  Set by smooth_launches():
+# the route of every damped solve (a DampedRoute, its per_launch ignored
+# for a whole grid).
 _forced: int | None = None
 _forced_tile: int | None = None
+_forced_damp: "DampedRoute | None" = None
 
 
 def tiled3(cheby: bool, fast: bool, planes: int | None = None) -> bool:
@@ -178,6 +193,44 @@ def slab_tiling(rows: int, side: int, sweeps: int) -> tuple[int, int]:
     per, tile = next((per, tile) for least, per, tile in SLAB_TILINGS
                      if cells >= least)
     return (max(per, sweeps) if sweeps <= SLAB_ONE_LAUNCH else per), tile
+
+
+class DampedRoute(NamedTuple):
+    """How a damped solve runs (``damped_plan``)."""
+
+    per_launch: int  # sweeps a launch; 0: a per-sweep damped K1 launch each
+    tile_rows: int  # rows of K1-damp's tile: 16 or 64, 32 for a whole grid
+    whole: bool  # each grid whole in one block's tile, all sweeps a launch
+
+
+def damped_plan(side: int, sweeps: int, grids: int = 1) -> DampedRoute:
+    """The route of a damped solve (the multigrid smoother, K1-damp) of
+    ``sweeps`` sweeps on ``grids`` grids of padded ``side``: every sweep
+    in one whole-grid launch, each grid in one block of the 32-row tile,
+    up to side ``WHOLE_GRID_SIDE``; above, the tile of ``DAMPED_TILES`` by
+    the launch's cells, ``SWEEPS_PER_LAUNCH`` sweeps a launch or the most
+    its halo allows, so a smooth of 2 or 4 sweeps is one launch.  By the
+    H100 measurement (PERF.md §6, ``dev/bench_smooth.py``; device time
+    and the eager call's, host included, as the step calls it): 2048² and
+    64 × 256² take 128 x 64 tiles (1.1-1.9x the per-sweep pair on the
+    device), 1024² and below 128 x 16 ones (1.1-1.3x at 1024² and 512²;
+    from 256² to 32², and on 64 × 128² to 64 × 32², the pair's device
+    time is 2-30% less, while the eager call, one launch against two, is
+    1.03-1.85x faster), the coarsest 16² its 40 sweeps in one whole-grid
+    launch (2.2-2.6x; the 128 x 64 tile 1.8x).  ``smooth_launches``
+    overrides it, ``launch_sweeps`` forces tiled launches of its count on
+    64-row tiles (0: the per-sweep chain)."""
+    if _forced_damp is not None:
+        route = _forced_damp
+        return route._replace(per_launch=sweeps) if route.whole else route
+    if _forced is not None:
+        return DampedRoute(_forced, 64, False)
+    if side <= WHOLE_GRID_SIDE:
+        return DampedRoute(sweeps, 32, True)
+    rows = next(rows for least, rows in DAMPED_TILES
+                if grids * side * side >= least)
+    # A launch of T sweeps takes a halo of T + 1 rows at most.
+    return DampedRoute(min(SWEEPS_PER_LAUNCH, (rows - 3) // 2), rows, False)
 
 
 def launch_counts() -> dict[str, int]:
@@ -286,8 +339,10 @@ def launch_sweeps(per_launch: int, tile_rows: int | None = None):
     0 launches the per-sweep kernel (K1, K5, K9 or K13) for each sweep:
     the chains the checks hold the tiled kernels against and
     ``dev/bench_sweeps.py``, ``dev/bench_sweeps3.py`` and
-    ``dev/bench_slab_sweeps.py`` time.  ``tile_rows`` (64 or 32) sets the
-    tiled K9's tile.  No path of the port enters it."""
+    ``dev/bench_slab_sweeps.py`` time.  A damped K1 solve takes tiled
+    launches of ``per_launch`` sweeps too, never a whole-grid one (0: the
+    per-sweep damped K1).  ``tile_rows`` (64 or 32) sets the tiled K9's
+    tile.  No path of the port enters it."""
     global _forced, _forced_tile
     if per_launch < 0:
         raise ValueError(f"per_launch {per_launch} < 0")
@@ -297,6 +352,30 @@ def launch_sweeps(per_launch: int, tile_rows: int | None = None):
         yield
     finally:
         _forced, _forced_tile = saved
+
+
+@contextlib.contextmanager
+def smooth_launches(per_launch: int = SWEEPS_PER_LAUNCH, tile_rows: int = 64,
+                    whole: bool = False):
+    """Within the block every damped K1 solve (the multigrid smoother) on
+    the card takes ``per_launch`` sweeps a launch on K1-damp's tiles of
+    ``tile_rows`` rows (16 or 64; at most the halo allows; 0: one
+    launch of the per-sweep damped K1 a sweep, the smoother before
+    K1-damp) or, ``whole``, all its sweeps in one launch, each grid whole
+    in a tile of ``tile_rows`` rows (32; the library refuses a grid of a
+    larger side than 30).  It overrides ``damped_plan`` and
+    ``launch_sweeps`` for damped solves only; for tests, ``chip_smoke.py``
+    and ``dev/bench_smooth.py``.  No path of the port enters it."""
+    global _forced_damp
+    if per_launch < 0 or tile_rows not in (16, 32, 64):
+        raise ValueError(f"per_launch {per_launch} < 0 or tile_rows "
+                         f"{tile_rows} not 16, 32 or 64")
+    saved = _forced_damp
+    _forced_damp = DampedRoute(per_launch, tile_rows, whole)
+    try:
+        yield
+    finally:
+        _forced_damp = saved
 
 
 class SweepLaunch(NamedTuple):
@@ -355,7 +434,9 @@ class _Sweeps:
     weights come from ``cheby_omegas`` on the host, one per launch; the
     first sweep of a solve is plain.  ``damp`` makes every sweep damped
     Jacobi (K1 only; ``omw``, 1-w rounded once from float64, goes to the
-    launch beside the geometry), counted as ``jacobi_sweep_damp``.
+    launch beside the geometry): ``run()`` takes the launches of
+    ``damped_plan`` (K1-damp, counted as ``jacobi_sweeps_damp``, or one
+    per-sweep launch a sweep, ``jacobi_sweep_damp``).
 
     A Chebyshev chain may run in segments (the z-slab step exchanges halos
     between them): ``start`` is the segment's first global sweep, whose ω
@@ -471,18 +552,24 @@ class _Sweeps:
     def run(self, lib, sweeps: int, nb: int, nb1: int, b1: int) -> None:
         """The next ``sweeps`` sweeps of a K1 solve on ``nb`` grids (grids
         [0, nb1) in boundary mode b, the rest b1): the tiled K1's launches
-        of ``sweep_plan``, T = ``SWEEPS_PER_LAUNCH`` sweeps each; one
-        per-sweep launch a sweep for the damped smoother or inside
-        ``launch_sweeps(0)``."""
-        per_launch = SWEEPS_PER_LAUNCH if _forced is None else _forced
-        if self.damp is not None or per_launch == 0:
+        of ``sweep_plan``, T = ``SWEEPS_PER_LAUNCH`` sweeps each, or for
+        the damped smoother K1-damp's of ``damped_plan``; one per-sweep
+        launch a sweep inside ``launch_sweeps(0)``."""
+        route = (damped_plan(self.side, sweeps, nb) if self.damp is not None
+                 else None)
+        per_launch = (route.per_launch if route is not None
+                      else SWEEPS_PER_LAUNCH if _forced is None else _forced)
+        if per_launch == 0:
             for _ in range(sweeps):
                 self.sweep(lib, nb, nb1, b1, self.omw)
             return
         for step in sweep_plan(self.k, self.k + sweeps, self.end, per_launch,
                                prep=self.prep, cheby=self.omegas is not None,
                                guess=self.x is not None):
-            self.launch(lib, step, nb, nb1, b1)
+            if self.damp is None:
+                self.launch(lib, step, nb, nb1, b1)
+            else:
+                self.launch_damped(lib, step, nb, nb1, b1, route)
 
     def run3(self, lib, slab: tuple[int, int, int] | None = None,
              carry_out: bool = False) -> None:
@@ -575,6 +662,19 @@ class _Sweeps:
             self.rhs, self.prep = rhs_out, False
         if cheby:
             self.xm = self.x if step.count == 1 else xm_out
+        self.x = out
+        self.k += step.count
+
+    def launch_damped(self, lib, step: SweepLaunch, nb: int, nb1: int,
+                      b1: int, route: DampedRoute) -> None:
+        """One K1-damp launch: the damped sweeps of ``step`` on tiles or
+        whole grids, as ``route`` says."""
+        out = self._scratch()
+        alpha, beta = self.coefs[:2]
+        _launch("jacobi_sweeps_damp", lib.fsc_jacobi_sweeps_damp,
+                _ptr(self.x), self.rhs.data_ptr(), out.data_ptr(), self.side,
+                self.b, alpha, beta, self.damp, self.omw, step.count, nb, nb1,
+                b1, route.tile_rows, int(route.whole), self.stream)
         self.x = out
         self.k += step.count
 
@@ -677,7 +777,8 @@ def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
     (``ops/chebyshev.py``); ``damp`` to damped Jacobi, x <- (1-damp)*x +
     damp*sweep (``pallas_ops.py:432-459``, the multigrid smoother), which
     takes none of ``src_dt``, ``fast`` and ``cheby_rho``.  The tiled K1
-    runs T sweeps a launch (``sweep_plan``); the damped sweep one."""
+    runs T sweeps a launch (``sweep_plan``); K1-damp the launches of
+    ``damped_plan``."""
     if iters < 1:
         raise ValueError("iters must be >= 1")
     _check_damp(damp, src_dt, fast, cheby_rho, x0.dtype)
@@ -691,10 +792,11 @@ def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
 
 
 def mg_smooth(p, div, sweeps, zero_init=False):
-    """The multigrid smoother on K1 (the ``cuda`` OpSet's ``smooth``):
-    ``sweeps`` damped sweeps, w = ``ops.multigrid.OMEGA``, of the pressure
-    problem (b=0, alpha=1, beta=4) from ``p`` or from zero; equal to
-    ``ops.multigrid._smooth`` bit for bit."""
+    """The multigrid smoother on K1-damp (the ``cuda`` OpSet's
+    ``smooth``): ``sweeps`` damped sweeps, w = ``ops.multigrid.OMEGA``, of
+    the pressure problem (b=0, alpha=1, beta=4) from ``p`` or from zero, in
+    the launches of ``damped_plan``; equal to ``ops.multigrid._smooth`` bit
+    for bit."""
     return fused_jacobi(0, p, div, 1.0, 4.0, sweeps, zero_init=zero_init,
                         damp=OMEGA)
 
@@ -960,9 +1062,9 @@ def make_opset(cfg, plain: bool = False) -> OpSet:
     reads ``fast_math``, and ``advect_mode``: ``"windowed"`` gathers under
     the window of ``max_courant`` cells, as JAX's Pallas OpSet always does;
     ``"auto"`` and ``"exact"`` gather exactly.  The multigrid smoother is
-    K1's damped sweep on every level (JAX's Pallas OpSet takes its damped
-    kernel where the TPU tiling allows, ``ops/multigrid.py:242-251``); like
-    JAX's, it ignores ``fast_math``.
+    K1-damp on every level (JAX's Pallas OpSet takes its damped kernel
+    where the TPU tiling allows, ``ops/multigrid.py:242-251``); like JAX's,
+    it ignores ``fast_math``.
 
     ``plain`` binds every op to its kernel's plain twin on any device, fast
     math's reciprocal form included: the same arithmetic as the kernels in

@@ -25,10 +25,10 @@ non-parity numerics.  Two cycles, as in the JAX package:
 
 Every cycle takes its smoother as an argument, ``smooth(p, div, sweeps,
 zero_init=False)``: ``_smooth`` here (the ``reference`` backend), or K1's
-damped mode on the card (the ``cuda`` OpSet, ``kernels/cuda_ops.py``), which
-equals it bit for bit.  The JAX package's ``pallas_smoother`` switch and its
-TPU gate (side >= 128, side % 8) have no counterpart: K1 smooths every
-level.
+damped form K1-damp on the card (the ``cuda`` OpSet, ``kernels/cuda_ops.py``),
+which equals it bit for bit.  The JAX package's ``pallas_smoother`` switch
+and its TPU gate (side >= 128, side % 8) have no counterpart: K1-damp
+smooths every level.
 """
 from __future__ import annotations
 

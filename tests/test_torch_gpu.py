@@ -578,18 +578,29 @@ def test_cuda_batch_launches_once_or_raises(cuda):
 
 @pytest.mark.parametrize("side", [16, 128, 2048])
 def test_damped_smoother_matches_plain(cuda, side):
-    """K1's damped sweep (the multigrid smoother) against
-    ``ops.multigrid._smooth``: bit for bit expected, 1e-6 required."""
+    """K1's damped sweeps (the multigrid smoother) against
+    ``ops.multigrid._smooth``: bit for bit expected, 1e-6 required.  The
+    smoother now runs on K1-damp (``jacobi_sweeps_damp``, the launches of
+    ``cuda_ops.damped_plan``: one a smooth, one whole-grid launch for the
+    40 sweeps at 16²) where it ran one per-sweep launch a sweep
+    (``jacobi_sweep_damp``), so the check counts those launches and holds
+    the result to the per-sweep chain too, bit for bit."""
     for check in checks.kernel_checks_damp(side, cuda, seed=side):
         cuda_ops.reset_launch_counts()
         got = check.run()
         counts = cuda_ops.launch_counts()
         want = check.plain()
+        chain = check.chain()
         torch.cuda.synchronize()
-        assert counts["jacobi_sweep_damp"] > 0, (check.label, counts)
-        assert counts["jacobi_sweep"] == counts["jacobi_sweeps"] == 0, (
+        sweeps = int(check.label.split(" damped jacobi ")[1].split()[0])
+        per_launch = cuda_ops.damped_plan(side, sweeps).per_launch
+        assert counts["jacobi_sweeps_damp"] == -(-sweeps // per_launch), (
             check.label, counts)
+        assert counts["jacobi_sweep_damp"] == counts["jacobi_sweep"] == 0, (
+            check.label, counts)
+        assert counts["jacobi_sweeps"] == 0, (check.label, counts)
         assert checks.max_abs_diff(got, want) <= 1e-6, check.label
+        assert torch.equal(got, chain), check.label
 
 
 @pytest.mark.parametrize("side", [24, 64])
@@ -896,23 +907,56 @@ def test_bf16_step_launches_and_matches_reference(cuda, mode):
     chip_smoke.bf16_bars(got, twins, ref16, ref32, f"bf16 256² {mode}")
 
 
-def test_damped_smoother_takes_a_batch(cuda):
-    """K1's damped sweep (the multigrid smoother) on a batch of three
-    grids: one launch a sweep for the batch, equal to each grid smoothed
-    alone and to ``ops.multigrid._smooth`` on the batch, bit for bit."""
+@pytest.mark.parametrize("side", [16, 130])
+def test_damped_smoother_takes_a_batch(cuda, side):
+    """K1's damped sweeps (the multigrid smoother) on a batch of three
+    grids: the launches of one grid for the batch, equal to each grid
+    smoothed alone and to ``ops.multigrid._smooth`` on the batch, bit for
+    bit.  On K1-damp a 2-sweep smooth is one launch and the 40-sweep solve
+    seven launches on 16-row tiles at 130² (6 sweeps a launch) and one
+    whole-grid launch at 16² (``cuda_ops.damped_plan``), where the
+    per-sweep damped K1 took one a sweep; so the check counts
+    ``jacobi_sweeps_damp`` launches where it counted ``jacobi_sweep_damp``
+    ones, which stay 0."""
     from fluidsimulationcuda_torch.ops.multigrid import _smooth
 
     gen = torch.Generator().manual_seed(5)
-    p, div = (torch.rand(3, 130, 130, generator=gen).to(cuda)
+    p, div = (torch.rand(3, side, side, generator=gen).to(cuda)
               for _ in range(2))
     for sweeps, zero in ((2, False), (40, True)):
         cuda_ops.reset_launch_counts()
         got = cuda_ops.mg_smooth(p, div, sweeps, zero)
-        assert cuda_ops.launch_counts()["jacobi_sweep_damp"] == sweeps
+        per_launch = cuda_ops.damped_plan(side, sweeps, 3).per_launch
+        assert cuda_ops.launch_counts()["jacobi_sweeps_damp"] == -(
+            -sweeps // per_launch)
+        assert cuda_ops.launch_counts()["jacobi_sweep_damp"] == 0
         assert torch.equal(got, _smooth(p, div, sweeps, zero))
         for g in range(3):
             assert torch.equal(got[g], cuda_ops.mg_smooth(p[g], div[g],
                                                           sweeps, zero))
+
+
+@pytest.mark.parametrize("cycles,damped", [(2, 60), (1, 30)])
+def test_multigrid_step_2048_on_k1_damp_equals_reference(cuda, cycles,
+                                                         damped):
+    """The multigrid step at 2048² (Jacobi-20 diffusion), two cycles and
+    one: 60 and 30 K1-damp launches a step (one a smooth on each of the 7
+    levels, one for the coarsest 16² level's 40 sweeps; 272 and 136
+    per-sweep launches before), none of the per-sweep damped K1, and the
+    ``reference`` backend's state bit for bit."""
+    cfg = ft.SimConfig(n=2046, jacobi_iters=20, backend="cuda", device=cuda,
+                       pressure_solver="multigrid", mg_cycles=cycles)
+    state, src = ft.reference_init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.step(cfg, state, src)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    assert counts["jacobi_sweeps_damp"] == damped, counts
+    assert counts["jacobi_sweep_damp"] == 0, counts
+    want = ft.step(cfg.replace(backend="reference"), state, src)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b), float((a - b).abs().max())
 
 
 @pytest.mark.parametrize("solver", ["multigrid", "cg"])
