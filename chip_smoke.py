@@ -179,7 +179,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    each run's ms/step beside the eager step of phases 5, 6 and 8;
 18. bf16 storage on the 2-D step (``SimConfig(dtype=torch.bfloat16)``):
    every bf16 form of K1-K3 against its plain version at 2048² and on the
-   datagen batch (1024 × 256²), bit for bit; every bf16 call with a K1
+   datagen batch (1024 × 256²), bit for bit; every form of the bf16
+   vector kernels of K3 and K2's gradient (``checks.BF16_FORMS``: K3's
+   V = 4 and 2, the gradient's 8, 4 and 2, and the one-cell kernel) on
+   every call of
+   ``checks.kernel_checks_bf16_forms``
+   (K3 on one field with each border mode and on the u/v pair, exact and
+   in windows of 1 and 4 cells, on random, smooth, shear and clamped
+   velocities; the gradient of a float32 and of a bf16 pressure) at 2048²,
+   8192² and on the batch, bit for bit, each launch in the width it was
+   given; every bf16 call with a K1
    solve in it at 2048² and on the batch against its plain version
    and the per-sweep K1 chain, bit for bit, and at 8192² each call phase
    18 times with a K1 solve in it, bf16 and float32, the same way on the
@@ -189,7 +198,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    iterations, parity and the compensated mode with fast math) and 8192²
    (40 iterations), and ``generate_trajectories`` in bf16 on the datagen
    batch: launch counts (K1 then K3 for the density, no K4; the bf16 forms
-   counted apart), each run held to the ``cuda`` OpSet's plain twins in
+   counted apart) and the width each K3 and K2 gradient launch took
+   (``cuda_ops.width_counts``), each run held to the ``cuda`` OpSet's plain twins in
    bf16 (bit for bit, fast math's fmaf included) and to the float32
    run from the same rounded draw (rel-L2 under 0.15 for density,
    tests/test_pallas_ops.py:384, and no farther from it than the
@@ -1456,12 +1466,14 @@ def bf16_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
 
     torch.cuda.synchronize()
     cuda_ops.reset_launch_counts()
+    cuda_ops.reset_width_counts()
     got = run(c16, state16, src16)
     torch.cuda.synchronize()
     counts = cuda_ops.launch_counts()
     per_step = expected_launches(c16)
     want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
-    print(f"{label}: launches {counts} (expected {want})")
+    print(f"{label}: launches {counts} (expected {want}); by width "
+          f"{cuda_ops.width_counts()}")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
     if any(f.dtype != torch.bfloat16 for f in got[:3]):
@@ -1482,6 +1494,37 @@ def bf16_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
           f"{ms['float32'][0]:.4f} / {ms['float32'][1]:.4f} (bf16/float32 "
           f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
     return counts
+
+
+def bf16_forms(side: int, batch: int, errs: dict[str, float]) -> None:
+    """Phase 18: every form of the bf16 vector kernels of K3 and K2's
+    gradient (``checks.BF16_FORMS``) against the plain version of every
+    call of ``checks.kernel_checks_bf16_forms`` at ``side`` (a batch of
+    ``batch`` grids if given), bit for bit, each launch in its form's width
+    where that divides ``side`` (the one-cell kernel where it does not);
+    each plain result is computed once."""
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    calls = checks.kernel_checks_bf16_forms(side, "cuda", SEED, batch)
+    for c in calls:
+        want = c.plain()
+        kernel = c.kernels[0]
+        for form in checks.BF16_FORMS[kernel]:
+            with cuda_ops.vector_widths((form,)):
+                cuda_ops.reset_width_counts()
+                got = c.run()
+                counts = cuda_ops.width_counts()[kernel]
+            width = form if side % form == 0 else 1
+            err = checks.max_abs_diff(got, want)
+            if err != 0.0 or counts != {w: int(w == width) for w in counts}:
+                raise AssertionError(f"{c.label} V={form}: max|d| {err}, "
+                                     f"launches by width {counts}")
+            errs[kernel] = max(errs[kernel], err)
+    size = f"{batch} × {side}²" if batch else f"{side}²"
+    forms = "; ".join(f"{k} V = {', '.join(map(str, ws))}"
+                      for k, ws in checks.BF16_FORMS.items())
+    print(f"{size} bf16 vector forms: {len(calls)} calls, each in every "
+          f"form of its kernel ({forms}), bit for bit")
 
 
 def bf16_jax_point(card: str) -> None:
@@ -1545,6 +1588,7 @@ def bf16_datagen(cfg, label: str, card: str, steps: int = 20,
     c32 = cfg.replace(advect_mode="windowed", max_courant=cmax)
     torch.cuda.synchronize()
     cuda_ops.reset_launch_counts()
+    cuda_ops.reset_width_counts()
     final, snaps, dmax = generate_trajectories(gen(), c16, DATAGEN_BATCH,
                                                steps, snapshot_every=every)
     torch.cuda.synchronize()
@@ -1552,7 +1596,8 @@ def bf16_datagen(cfg, label: str, card: str, steps: int = 20,
     per_step = expected_launches(c16)
     want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
     print(f"{label}: probed {probed:.6f} cells, window cmax={cmax}; "
-          f"launches {counts} (expected {want})")
+          f"launches {counts} (expected {want}); by width "
+          f"{cuda_ops.width_counts()}")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
     if (dmax.dtype != torch.float32 or not float(dmax) <= cmax
@@ -1943,6 +1988,9 @@ def main() -> None:
     compare(checks.kernel_checks_bf16(DATAGEN_N + 2, "cuda", SEED,
                                       batch=DATAGEN_BATCH), 0.0, errs,
             "bit for bit")
+    for side, batch in ((2048, 0), (8192, 0),
+                        (DATAGEN_N + 2, DATAGEN_BATCH)):
+        bf16_forms(side, batch, errs)
     times.update(kernel_times(checks.timing_checks_bf16(2048, "cuda", SEED),
                               "2048²", card))
     big16 = checks.timing_checks_bf16(8192, "cuda", SEED)

@@ -245,6 +245,16 @@ inline float __shfl_up_sync(unsigned, float v, unsigned d) { return shim_shfl(v,
 inline float __shfl_down_sync(unsigned, float v, unsigned d) { return shim_shfl(v, int(d)); }
 struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
+// The vector types and reads of the bf16 forms' vector kernels.
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
+}
+template <class T> T __ldg(const T* p) { return *p; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline long long shim_paths[2];  // blocks that staged, blocks that did not
 inline void shim_block_path(bool direct) {
   if (shim_tid == 0) ++shim_paths[direct];
@@ -404,14 +414,15 @@ extern "C" void fsc_shim_block_paths(long long* out) {
 }
 extern "C" void fsc_shim_set_device(int sms) { shim_sms = sms; }
 """
-# The bf16 storage type and its two conversions, as cuda_bf16.h defines them
-# for the host: round to nearest even, NaN kept quiet.
+# The bf16 storage type, its two conversions, as cuda_bf16.h defines them
+# for the host (round to nearest even, NaN kept quiet), and its bits.
 BF16 = r"""#pragma once
 #include <cstring>
 struct __nv_bfloat16 { unsigned short x; };
 inline float __bfloat162float(__nv_bfloat16 h) {
   unsigned u = unsigned(h.x) << 16; float f; std::memcpy(&f, &u, 4); return f;
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
 inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   unsigned u; std::memcpy(&u, &f, 4);
   __nv_bfloat16 h;

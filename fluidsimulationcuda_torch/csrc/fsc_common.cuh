@@ -85,8 +85,132 @@ inline dim3 grid_dim3(int side) {
               side);
 }
 
+// ---------------------------------------------------------------------------
+// Vector accesses of the bf16 forms' vector kernels (K2's gradient, K3)
+// ---------------------------------------------------------------------------
+//
+// V = 2, 4 or 8 consecutive cells of a row in one access: 2V bytes of bf16
+// (16 at V = 8, one uint4), 4V bytes of float32 (two float4 at V = 8).
+// The address must be aligned to the access's size (at most 16 bytes),
+// which the wrappers check (cuda_ops.vector_width).  Inputs are read on
+// the read-only path (__ldg).  A bf16 value widens to float32 exactly (its
+// bits are the float's upper half), and each value rounds to bf16 as
+// store() rounds it, so a vector kernel computes what the one-cell kernel
+// computes, bit for bit.
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const bf16* __restrict__ p, int i,
+                                         float (&o)[V]) {
+  static_assert(V == 2 || V == 4 || V == 8, "a vector of 2, 4 or 8 cells");
+  unsigned w[V / 2];
+  if constexpr (V == 8) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + i));
+    w[0] = q.x;
+    w[1] = q.y;
+    w[2] = q.z;
+    w[3] = q.w;
+  } else if constexpr (V == 4) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p + i));
+    w[0] = q.x;
+    w[1] = q.y;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned*>(p + i));
+  }
+#pragma unroll
+  for (int k = 0; k < V / 2; ++k) {
+    o[2 * k] = bf16_lo(w[k]);
+    o[2 * k + 1] = bf16_hi(w[k]);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p, int i,
+                                         float (&o)[V]) {
+  static_assert(V == 2 || V == 4 || V == 8, "a vector of 2, 4 or 8 cells");
+  if constexpr (V == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p + i));
+    o[0] = q.x;
+    o[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; k += 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p + i + k));
+      o[k] = q.x;
+      o[k + 1] = q.y;
+      o[k + 2] = q.z;
+      o[k + 3] = q.w;
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(bf16* __restrict__ p, int i,
+                                          const float (&o)[V]) {
+  static_assert(V == 2 || V == 4 || V == 8, "a vector of 2, 4 or 8 cells");
+  unsigned w[V / 2];
+#pragma unroll
+  for (int k = 0; k < V / 2; ++k)
+    w[k] = bf16_bits(o[2 * k]) | (bf16_bits(o[2 * k + 1]) << 16);
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(p + i) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<unsigned*>(p + i) = w[0];
+  }
+}
+
+// p[g] and p[g + 1] of a 4-byte aligned bf16 array: one 4-byte load where
+// g is even, two 2-byte loads where it is odd.
+__device__ __forceinline__ void load_pair(const bf16* __restrict__ p, int g,
+                                          float& lo, float& hi) {
+  if ((g & 1) == 0) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(p + g);
+    lo = bf16_lo(w);
+    hi = bf16_hi(w);
+  } else {
+    lo = load(p, g);
+    hi = load(p, g + 1);
+  }
+}
+
 __device__ __forceinline__ int clampi(int a, int lo, int hi) {
   return a < lo ? lo : (a > hi ? hi : a);
+}
+
+// Whether every pointer that is not null is aligned to `bytes`.
+template <typename... P>
+inline bool aligned(int bytes, const P*... ptrs) {
+  return ((ptrs == nullptr ||
+           reinterpret_cast<size_t>(ptrs) % static_cast<size_t>(bytes) == 0) &&
+          ...);
+}
+
+// Cell k of a thread's vector of V >= 2 cells that starts at column j0 of
+// a row of side cells derives from cell k + ghost_shift: column 0 from
+// column 1, column side-1 from column side-2, both in the same vector.
+template <int V>
+__device__ __forceinline__ int ghost_shift(int k, int j0, int side) {
+  return (k == 0 && j0 == 0) ? 1 : ((k == V - 1 && j0 + V == side) ? -1 : 0);
+}
+
+// x[k + s] for s in {-1, 0, 1}; each alternative's index is clamped into x,
+// so it is a constant once the loop over k is unrolled (no local memory).
+template <int N>
+__device__ __forceinline__ float shifted(const float (&x)[N], int k, int s) {
+  const float below = x[k > 0 ? k - 1 : 0];
+  const float above = x[k + 1 < N ? k + 1 : N - 1];
+  return s > 0 ? above : (s < 0 ? below : x[k]);
 }
 
 // Flat index of the interior cell that padded cell (i, j) derives from.
@@ -354,14 +478,14 @@ struct Departure {
 // to [0.5, n+0.5], truncated.  fminf/fmaxf also map a NaN velocity into the
 // box, so the four gather reads stay inside the grid whatever the input.
 // The coordinates are float32 whatever the velocities store.
-template <typename T>
-__device__ __forceinline__ Departure backtrace(const T* u, const T* v, int ci,
-                                               int cj, int side, float dt0) {
-  const int c = ci * side + cj;
+// backtrace_at takes the cell's velocity (uc, vc) as values.
+__device__ __forceinline__ Departure backtrace_at(float uc, float vc, int ci,
+                                                  int cj, int side,
+                                                  float dt0) {
   const float lo = 0.5f;
   const float hi = static_cast<float>(side - 2) + 0.5f;
-  float x = static_cast<float>(cj) - dt0 * load(u, c);
-  float y = static_cast<float>(ci) - dt0 * load(v, c);
+  float x = static_cast<float>(cj) - dt0 * uc;
+  float y = static_cast<float>(ci) - dt0 * vc;
   x = fminf(fmaxf(x, lo), hi);
   y = fminf(fmaxf(y, lo), hi);
   Departure d;
@@ -372,6 +496,13 @@ __device__ __forceinline__ Departure backtrace(const T* u, const T* v, int ci,
   d.t1 = y - static_cast<float>(d.i0);
   d.t0 = 1.0f - d.t1;
   return d;
+}
+
+template <typename T>
+__device__ __forceinline__ Departure backtrace(const T* u, const T* v, int ci,
+                                               int cj, int side, float dt0) {
+  const int c = ci * side + cj;
+  return backtrace_at(load(u, c), load(v, c), ci, cj, side, dt0);
 }
 
 // The reference's blend order (FluidSequential.c:136-137).
@@ -413,14 +544,20 @@ __device__ __forceinline__ Departure window_backtrace(float uc, float vc,
 // Departure point of interior cell (ci, cj) of a (side, side) grid: exact
 // (backtrace) for cmax <= 0, under the window clamp of cmax cells
 // (window_backtrace, ops/advect.py advect_windowed) otherwise.
+// departure_at takes the cell's velocity (uc, vc) as values.
+__device__ __forceinline__ Departure departure_at(float uc, float vc, int ci,
+                                                  int cj, int side, float dt0,
+                                                  int cmax) {
+  if (cmax <= 0) return backtrace_at(uc, vc, ci, cj, side, dt0);
+  return window_backtrace(uc, vc, ci, cj, side - 2, dt0, cmax);
+}
+
 template <typename T>
 __device__ __forceinline__ Departure departure(const T* u, const T* v, int ci,
                                                int cj, int side, float dt0,
                                                int cmax) {
-  if (cmax <= 0) return backtrace(u, v, ci, cj, side, dt0);
   const int c = ci * side + cj;
-  return window_backtrace(load(u, c), load(v, c), ci, cj, side - 2, dt0,
-                          cmax);
+  return departure_at(load(u, c), load(v, c), ci, cj, side, dt0, cmax);
 }
 
 // 3-D departure of interior cell (ck, ci, cj): (cj, ci, ck) - dt0*(u, v, w)

@@ -47,9 +47,10 @@ _SIGNATURES = {
     "fsc_divergence": [_P, _P, _P, _I, _I, _F, _P],
     "fsc_divergence_bf16": [_P, _P, _P, _I, _I, _F, _I, _P],
     "fsc_gradient": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "fsc_gradient_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "fsc_gradient_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "fsc_advect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "fsc_advect_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "fsc_advect_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                        _P],
     "fsc_dens_advect": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _P, _P,
                         _P, _I, _I, _I, _F, _I, _P],
     "fsc_advect_project": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

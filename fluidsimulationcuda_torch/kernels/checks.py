@@ -54,6 +54,8 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "footprint_boxes", "gather_velocities", "kernel_checks_flows",
            "staged_share", "max_abs_diff", "device_ms",
            "kernel_checks_bf16", "timing_checks_bf16", "k1_checks",
+           "BF16_FORM_VELOCITIES", "BF16_FORM_FIELDS", "BF16_FORMS",
+           "kernel_checks_bf16_forms",
            "per_sweep_checks"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
@@ -945,6 +947,59 @@ def timing_checks_bf16(side: int, device, seed: int = 0,
                _project(sweeps(k_p, zero_init=True, cheby=True)),
                co.fused_project, co.fused_project_plain,
                (t.u, t.v, n, k_p), (w.u, w.v, n, k_p), cheby_rho=rho))
+
+
+# The velocities K3's and K2's bf16 vector forms are held on (besides
+# gather_velocities' three): one that moves every departure up to a grid
+# side, so most land on the clamp, the walls' or the window's.
+BF16_FORM_VELOCITIES = ("random", "smooth", "shear", "clamp")
+# K3's fields: one field with each border mode, and the u/v pair.
+BF16_FORM_FIELDS = ("b=0", "b=1", "b=2", "u/v pair")
+# Every form of the two vector kernels, by kernel: the cells a thread,
+# the path's widths (cuda_ops.VECTOR_WIDTHS) and 1, the one-cell kernel;
+# cuda_ops.vector_widths((V,)) forces one.
+BF16_FORMS = {name: widths + (1,)
+              for name, widths in co.VECTOR_WIDTHS.items()}
+
+
+def kernel_checks_bf16_forms(side: int, device, seed: int = 0,
+                             batch: int = 0,
+                             velocities=BF16_FORM_VELOCITIES,
+                             windows=(None, 1, CMAX)) -> list[Check]:
+    """K3's bf16 form and K2's bf16 gradient (the vector kernels, in the
+    width ``cuda_ops.vector_width`` gives ``side``, else the one-cell
+    kernel) against their plain versions at grid ``side`` (a batch
+    of ``batch`` grids if given): K3 on one field with each border mode and
+    on the u/v pair, on each of ``velocities`` in each of ``windows``
+    (None gathers exactly); the gradient from a float32 and from a bf16
+    pressure.  Expected bit for bit.  ``cuda_ops.vector_widths`` forces
+    another width."""
+    t = _Inputs(side, device, seed, batch=batch)
+    n = t.n
+    bf = torch.bfloat16
+    clamp = tuple(3.0 * (side / 6.0) * f for f in (t.uf, t.vf))
+    flows = dict(gather_velocities(t), clamp=clamp)
+    tag = (f"{batch}x" if batch else "") + f"{side}² bf16"
+    x, p32 = t.x.to(bf), t.p
+    out = []
+    for name in velocities:
+        u, v = (f.to(bf) for f in flows[name][:2])
+        for cmax in windows:
+            win = "exact" if cmax is None else f"cmax={cmax}"
+            for fields in BF16_FORM_FIELDS:
+                if fields == "u/v pair":
+                    args = ((1, 2), (u, v), u, v, DT, n, cmax)
+                else:
+                    args = ((int(fields[-1]),), (x,), u, v, DT, n, cmax)
+                out.append(_check(f"{tag} advect {fields} {win}, {name} "
+                                  f"velocities", ("advect_bf16",),
+                                  co.advect_shift_fused,
+                                  co.advect_shift_fused_plain, *args))
+    u, v = t.u.to(bf), t.v.to(bf)
+    for label, p in (("float32 p", p32), ("bf16 p", p32.to(bf))):
+        out.append(_check(f"{tag} gradient, {label}", ("gradient_bf16",),
+                          co.gradient_p, co.gradient_p_plain, u, v, p, n))
+    return out
 
 
 def _k1_cases(t, bf16: bool) -> list[tuple]:

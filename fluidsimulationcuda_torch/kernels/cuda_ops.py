@@ -24,7 +24,11 @@ prescaled rhs and the solve's output are rounded to bf16; inside
 bf16 form is a template instantiation of its kernel chosen at launch, and
 counts apart (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 ``gradient_bf16``, ``advect_bf16``; the per-sweep K1's
-``jacobi_sweep_bf16``).  Its plain version widens the fields
+``jacobi_sweep_bf16``).  K3's bf16 form and K2's bf16 gradient run in
+V-cell vectors, a thread owning V consecutive cells of a row, the first
+of their ``VECTOR_WIDTHS`` that the side and the operands' alignment
+allow (``vector_width``; else the one-cell kernel), counted by width too
+(``width_counts``).  Its plain version widens the fields
 to float32, runs the float32 plain version with the same roundings and
 rounds the output to bf16.  A bf16 tensor reaching any other wrapper
 (``fused_dens_advect``, K1's damped sweep, the 3-D, slab and tail
@@ -92,7 +96,8 @@ __all__ = [
     "make_opset", "SWEEPS_PER_LAUNCH", "SWEEPS_PER_LAUNCH_3D", "tiled3",
     "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling", "DAMPED_TILES",
     "WHOLE_GRID_SIDE", "DampedRoute", "damped_plan", "launch_sweeps",
-    "smooth_launches", "SweepLaunch", "sweep_plan",
+    "smooth_launches", "SweepLaunch", "sweep_plan", "VECTOR_WIDTHS",
+    "vector_width", "vector_widths", "width_counts", "reset_width_counts",
     "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "fused_jacobi_pair",
     "fused_jacobi_pair_plain", "fused_project",
     "fused_project_plain", "advect_shift", "advect_shift_plain",
@@ -147,6 +152,23 @@ SLAB_ONE_LAUNCH = 8
 # 16 and 64 rows, whole grids in the 32-row one.
 DAMPED_TILES = ((2_000_000, 64), (0, 16))
 WHOLE_GRID_SIDE = 30
+# The cells a thread of the bf16 forms' vector kernels (K3's
+# advect_vec_kernel, K2's gradient_vec_kernel) may take, by kernel, largest
+# first (vector_width); 1 is the one-cell kernel.  Chosen by measurement on
+# the H100 (dev/bench_bf16_stencils.py, PERF.md §6): K3 at V = 4 took
+# 18-22% less time than at V = 8 on the step's velocities and stayed
+# within 5.3% of it on smooth and shear ones, so its V = 8 form is not
+# built (V = 2 was the fastest only on random velocities over the
+# window); the gradient took V = 8 and 4 within 7% of each other, V = 8
+# the faster on a bf16 pressure.
+VECTOR_WIDTHS = {"advect_bf16": (4, 2), "gradient_bf16": (8, 4, 2)}
+# Launches of each bf16 vector kernel by its width since
+# reset_width_counts().
+_width_launches = {name: dict.fromkeys(widths + (1,), 0)
+                   for name, widths in VECTOR_WIDTHS.items()}
+# Set by vector_widths(): the widths every vector kernel may take, in place
+# of VECTOR_WIDTHS.
+_forced_widths: tuple[int, ...] | None = None
 # Set by launch_sweeps(): the sweeps of a tiled launch, 0 for the per-sweep
 # kernels; and the rows of a tiled K9's tile.  Set by smooth_launches():
 # the route of every damped solve (a DampedRoute, its per_launch ignored
@@ -231,6 +253,57 @@ def damped_plan(side: int, sweeps: int, grids: int = 1) -> DampedRoute:
                 if grids * side * side >= least)
     # A launch of T sweeps takes a halo of T + 1 rows at most.
     return DampedRoute(min(SWEEPS_PER_LAUNCH, (rows - 3) // 2), rows, False)
+
+
+def vector_width(kernel: str, side: int, *tensors: torch.Tensor) -> int:
+    """The cells a thread of ``kernel``'s bf16 vector kernel takes on grids
+    of ``side`` with these operands: the largest of its ``VECTOR_WIDTHS``
+    that divides ``side`` and to whose access (that many values of a
+    tensor's dtype, at most 16 bytes) every tensor's data is aligned, so
+    that every row of every grid starts on such an access; else 1, the
+    one-cell kernel.  A view with a storage offset may be misaligned."""
+    widths = VECTOR_WIDTHS[kernel] if _forced_widths is None else _forced_widths
+    for width in widths:
+        if side % width == 0 and all(
+                t.data_ptr() % min(width * t.element_size(), 16) == 0
+                for t in tensors):
+            return width
+    return 1
+
+
+@contextlib.contextmanager
+def vector_widths(widths: tuple[int, ...]):
+    """Let K3's and K2's bf16 vector kernels take only ``widths``, the
+    first that the operands allow (``(1,)`` or ``()``: the one-cell
+    kernel), whatever ``VECTOR_WIDTHS`` says: the forms
+    (``checks.BF16_FORMS``) the tests hold and
+    ``dev/bench_bf16_stencils.py`` times.  A width outside the kernel's
+    ``VECTOR_WIDTHS`` is refused by the library, and its launch raises."""
+    global _forced_widths
+    saved, _forced_widths = _forced_widths, tuple(widths)
+    try:
+        yield
+    finally:
+        _forced_widths = saved
+
+
+def width_counts() -> dict[str, dict[int, int]]:
+    """Launches of ``advect_bf16`` and ``gradient_bf16`` by the cells a
+    thread took (one of its ``VECTOR_WIDTHS`` or 1) since the last
+    ``reset_width_counts``."""
+    return {name: dict(counts) for name, counts in _width_launches.items()}
+
+
+def reset_width_counts() -> None:
+    for counts in _width_launches.values():
+        for width in counts:
+            counts[width] = 0
+
+
+def _launch_vector(kernel: str, width: int, fn, *args) -> None:
+    """``_launch`` of a bf16 vector kernel, counted by its width too."""
+    _launch(kernel, fn, *args)
+    _width_launches[kernel][width] += 1
 
 
 def launch_counts() -> dict[str, int]:
@@ -921,10 +994,12 @@ def gradient_p(u, v, p, n):
                     p.data_ptr(), uo.data_ptr(), vo.data_ptr(), n + 2,
                     _batch(u), grid_h(n), _stream(u))
         else:
-            _launch("gradient_bf16", lib.fsc_gradient_bf16, u.data_ptr(),
-                    v.data_ptr(), p.data_ptr(), uo.data_ptr(), vo.data_ptr(),
-                    n + 2, _batch(u), grid_h(n),
-                    int(p.dtype == torch.bfloat16), _stream(u))
+            width = vector_width("gradient_bf16", n + 2, u, v, p, uo, vo)
+            _launch_vector("gradient_bf16", width, lib.fsc_gradient_bf16,
+                           u.data_ptr(), v.data_ptr(), p.data_ptr(),
+                           uo.data_ptr(), vo.data_ptr(), n + 2, _batch(u),
+                           grid_h(n), int(p.dtype == torch.bfloat16), width,
+                           _stream(u))
         return uo, vo
 
 
@@ -995,16 +1070,20 @@ def advect_shift_fused(bs, d0s, u, v, dt, n, cmax=None):
     window = _cmax_arg(cmax)
     if not _on_card(n + 2, u, v, *d0s, dtypes=_F32_BF16):
         return advect_shift_fused_plain(bs, d0s, u, v, dt, n, cmax)
-    name = "advect" if u.dtype == torch.float32 else "advect_bf16"
     with torch.cuda.device(u.device):
         lib = build.load()
         outs = tuple(torch.empty_like(d) for d in d0s)
         d2, o2, b2 = ((d0s[1], outs[1], bs[1]) if len(d0s) == 2
                       else (None, None, 0))
-        _launch(name, getattr(lib, f"fsc_{name}"), d0s[0].data_ptr(),
-                _ptr(d2), u.data_ptr(), v.data_ptr(), outs[0].data_ptr(),
-                _ptr(o2),
-                n + 2, _batch(u), bs[0], b2, _dt0(dt, n), window, _stream(u))
+        args = (d0s[0].data_ptr(), _ptr(d2), u.data_ptr(), v.data_ptr(),
+                outs[0].data_ptr(), _ptr(o2), n + 2, _batch(u), bs[0], b2,
+                _dt0(dt, n), window)
+        if u.dtype == torch.float32:
+            _launch("advect", lib.fsc_advect, *args, _stream(u))
+        else:
+            width = vector_width("advect_bf16", n + 2, u, v, *d0s, *outs)
+            _launch_vector("advect_bf16", width, lib.fsc_advect_bf16, *args,
+                           width, _stream(u))
         return outs
 
 

@@ -878,6 +878,23 @@ def test_bf16_kernel_forms_match_plain(cuda, side, batch):
         assert checks.max_abs_diff(got, want) == 0.0, check.label
 
 
+@pytest.mark.parametrize("side,batch", [(34, 0), (36, 0), (40, 3), (130, 3),
+                                        (256, 0)])
+def test_bf16_vector_forms_match_plain(cuda, side, batch):
+    """Every form of the bf16 vector kernels of K3 and K2's gradient
+    (``checks.BF16_FORMS``: K3's V = 4 and 2, the gradient's 8, 4 and 2,
+    and the one-cell kernel) against
+    the plain version of every call of ``checks.kernel_checks_bf16_forms``,
+    bit for bit, each launch in the width its form and the side allow
+    (``chip_smoke.bf16_forms``, as phase 18 runs it at 2048², 8192² and on
+    the datagen batch); sides 34 and 130 take V = 2 at most, 36 V = 4."""
+    import chip_smoke
+
+    errs = dict.fromkeys(cuda_ops.KERNELS, 0.0)
+    chip_smoke.bf16_forms(side, batch, errs)
+    assert errs["advect_bf16"] == errs["gradient_bf16"] == 0.0
+
+
 @pytest.mark.parametrize("mode", ["parity", "perf"])
 def test_bf16_step_launches_and_matches_reference(cuda, mode):
     """The bf16 step at 256²: K1 then K3 for the density (no K4), the bf16
