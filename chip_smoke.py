@@ -48,7 +48,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    run's shape, whose working set exceeds the L2), each call with a tiled
    K9 solve beside the per-sweep chain (the tiled K9's one launch of T
    sweeps labelled ``jacobi_slab_sweeps``, the per-sweep K9's one sweep
-   ``jacobi_slab``);
+   ``jacobi_slab``); then K9-damp (``smooth_slab``, the slab multigrid's
+   smoother) on top, interior and bottom slabs of 256 rows with the 8-row
+   halo (2-sweep smooths from a guess and from zero, a 7-sweep chunk)
+   against its plain twin and against itself at one launch a sweep, bit for
+   bit, timed beside both and its bound; and K1-damp at 1025², the slab
+   multigrid's odd coarse grid at 2048², against ``_smooth`` and the
+   per-sweep damped K1 as in phase 3f, timed;
 3d. every z-slab kernel of the 3-D multi-device step against its plain twin
    for a top, an interior and a bottom slab of 32 planes of 256³
    (max|Δ| <= 1e-5): Jacobi, zero guess, fast, a Chebyshev chain's first
@@ -104,14 +110,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    one card (a mesh that lists it once per slab): 2048² parity on the 1×1
    mesh and on 8 slabs, the 2048² compensated perf mode on 8 slabs, 8192²
    (40 iterations) on 4 slabs, and 2048² with ``fuse_sweeps=8`` on 128 slabs
-   of 16 rows (the composed projection); launch counts checked against
+   of 16 rows (the composed projection), the 2048² multigrid step (two
+   cycles, Jacobi-20 diffusion) on 1 and on 8 slabs and the 2048² CG-20 step
+   on 8 slabs (``parallel/solvers.py``); launch counts checked against
    ``expected_launches_sharded`` (the tiled K9's launches of each solve,
-   chunk by chunk, as ``cuda_ops.slab_tiling`` plans them), every
+   chunk by chunk, as ``cuda_ops.slab_tiling`` plans them; for multigrid
+   K9-damp's on every slab and K1-damp's on the replicated coarse grid,
+   ``slab_mg_launches``), every
    run's state held against the ``reference`` backend of the same sharded
    step and, where the audited displacement stays under the window, against
    ``StableFluids2D.step`` (the impulse moves the 2048² backtrace ~20
    cells, so a forced trajectory, sources × 0.05 every step, is held
-   against it too); ms/step eager and as a CUDA graph; then the 8-slab
+   against it too; not for multigrid, whose slab route runs the classic
+   cycle and the single-device step the graded one); ms/step eager and as
+   a CUDA graph; the multigrid and CG slab projections' max|div| beside
+   the single-device step's and Jacobi-20's; then the 8-slab
    step's first velocity-diffusion chunk again through K18, each slab's
    halos as the step exchanges them, against the step's own route (bit for
    bit), launch counts checked;
@@ -219,7 +232,8 @@ The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
 and phase 17's CLI calls for the 2-D kernels, phases 8, 16 and 17 for the
 3-D ones, the 8-slab
-2048² parity run of phase 10 for the row-slab kernels, the 8-slab 256³
+2048² parity run of phase 10 for the row-slab kernels (K9-damp and the
+slab K1-damp from its 8-slab multigrid and CG runs), the 8-slab 256³
 parity run of phase 11 for the z-slab kernels, phase 12's tail runs for
 K17, phase 10's chunk run for K18, phases 14 and 18 for K1-damp and
 phase 16 for K6's window), its max|Δ| from phase 3, 3b, 3c, 3d, 3e or 3f,
@@ -264,6 +278,7 @@ TPU_KERNELS = "fluidsimulationcuda_tpu/kernels/pallas_ops.py"
 TPU_KERNELS_3D = "fluidsimulationcuda_tpu/kernels/pallas_ops_3d.py"
 TPU_SLABS = "fluidsimulationcuda_tpu/kernels/pallas_sharded.py"
 TPU_SLABS_3D = "fluidsimulationcuda_tpu/kernels/pallas_sharded_3d.py"
+TPU_STEP = "fluidsimulationcuda_tpu/parallel/sharded.py"
 TPU_STEP_3D = "fluidsimulationcuda_tpu/parallel/sharded3d.py"
 TPU_TAIL = "fluidsimulationcuda_tpu/kernels/pallas_step.py"
 # BASELINE config 4 (BASELINE.json:10): 1024 independent sims of 256²; the
@@ -300,6 +315,9 @@ KERNEL_SOURCES = {
     "advect3_slab": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
     "advect_project": (f"{CSRC}/advect_project.cu", f"{TPU_TAIL}:299"),
     "jacobi_slab_split": (f"{CSRC}/jacobi_slab_split.cu", f"{TPU_SLABS}:506"),
+    # The slab multigrid's smoother: the TPU step smooths in jnp
+    # (_mg_smooth_local, no pallas_call).
+    "jacobi_slab_sweeps_damp": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_STEP}:477"),
     # The tiled K9, T sweeps a launch on a row slab's buffer.
     "jacobi_slab_sweeps": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_SLABS}:290"),
     # The damped mode of the same pallas_call (fused_jacobi's damp), per
@@ -486,7 +504,8 @@ def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
     ``parallel/sharded.py``: the velocity diffusions in Jacobi chunks of
     ``fuse_sweeps`` (a ``ceil8(s+1)``-row halo each) or one Chebyshev call,
     the pressure solves inside the fused projection (``ceil8(it+3)``) or
-    chunked or one Chebyshev call in the composed one, the density's solve
+    chunked or one Chebyshev call in the composed one (none for the
+    multigrid and CG projections), the density's solve
     inside the fused density step (``ceil8(it+1+cmax)``) or as the
     velocities'."""
     def ceil8(x):
@@ -513,7 +532,9 @@ def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
     it_p = cfg.press_cheby_iters if cheby_p else it
     vel = (cheby(cfg.cheby_iters) if cfg.diffusion_solver == "chebyshev"
            else chunks(it))
-    if ceil8(it_p + 3) <= m:
+    if cfg.pressure_solver in ("multigrid", "cg"):
+        proj = []  # no K9 solve: slab_mg_launches, or torch operations
+    elif ceil8(it_p + 3) <= m:
         proj = [(it_p, m + 2 * ceil8(it_p + 3))]
     else:
         proj = cheby(it_p) if cheby_p else chunks(it)
@@ -525,6 +546,56 @@ def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
     return 2 * vel + 2 * proj + dens
 
 
+def slab_mg_launches(cfg, slabs: int) -> dict[str, int]:
+    """Kernel launches of one slab multigrid solve of ``cfg`` on ``slabs``
+    row slabs (``parallel/solvers.py``), by kernel: each cycle's 2-sweep
+    smooths on every slab on K9-damp (chunks of at most ``SMOOTH_HALO - 1``
+    sweeps, each in the launches of ``cuda_ops.slab_smooth_tiling``: one),
+    and the replicated coarse grid's classic cycle (2 + 40 sweeps on
+    (n/2 + 2)², two-level on more than one slab) on K1-damp in the launches
+    of ``cuda_ops.damped_plan`` (at 1025²: 1 + 7)."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+    from fluidsimulationcuda_torch.ops.multigrid import mg_levels
+    from fluidsimulationcuda_torch.parallel.solvers import SMOOTH_HALO
+
+    side = cfg.n + 2
+    rows = side // slabs + 2 * SMOOTH_HALO
+    launches = dict.fromkeys(("jacobi_slab_sweeps_damp",
+                              "jacobi_sweeps_damp", "jacobi_sweep_damp"), 0)
+
+    def fine(sweeps):
+        while sweeps > 0:
+            s = min(SMOOTH_HALO - 1, sweeps)
+            per_launch = cuda_ops.slab_smooth_tiling(rows, side, s)[0]
+            launches["jacobi_slab_sweeps_damp"] += slabs * -(-s // per_launch)
+            sweeps -= s
+
+    def coarse(n, sweeps):
+        per_launch = cuda_ops.damped_plan(n + 2, sweeps).per_launch
+        if per_launch == 0:
+            launches["jacobi_sweep_damp"] += sweeps
+        else:
+            launches["jacobi_sweeps_damp"] += -(-sweeps // per_launch)
+
+    def classic(n, level):  # ops.multigrid.v_cycle
+        coarse(n, 2)
+        if level == 0:
+            coarse(n, 40)
+            return
+        classic(n // 2, level - 1)
+        coarse(n, 2)
+
+    levels = mg_levels(cfg.n)
+    for _ in range(cfg.mg_cycles):
+        fine(2)
+        if levels == 0:
+            fine(40)
+            continue
+        classic(cfg.n // 2, levels - 1)
+        fine(2)
+    return {k: c for k, c in launches.items() if c}
+
+
 def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
     """Kernel launches of one multi-device step of ``cfg`` on ``slabs`` row
     slabs.  Each slab launches K9 for each solve of ``slab_solves`` (two
@@ -532,13 +603,18 @@ def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
     ``slab_solve_launches`` counts them, chunk by chunk; K10 and K11 once
     per projection, K12 for the u/v pair and the density gather.  The
     fused and composed routes launch K10-K12 as often: they differ in halo
-    exchanges and in the chunks of their solves."""
+    exchanges and in the chunks of their solves.  The multigrid projection
+    adds ``slab_mg_launches`` twice; CG's iterations are torch
+    operations."""
     launches = {"divergence_slab": 2 * slabs, "gradient_slab": 2 * slabs,
                 "advect_slab": 2 * slabs}
     for sweeps, rows in slab_solves(cfg, slabs):
         for name, count in slab_solve_launches(sweeps, rows,
                                                cfg.n + 2).items():
             launches[name] = launches.get(name, 0) + slabs * count
+    if cfg.pressure_solver == "multigrid":
+        for name, count in slab_mg_launches(cfg, slabs).items():
+            launches[name] = 2 * count
     return launches
 
 
@@ -710,7 +786,7 @@ def main_path(cfg, label: str, card: str, steps: int,
 
 def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
                  tol: tuple[float, float, float] | None,
-                 graph_reps: int = 3) -> dict[str, int]:
+                 graph_reps: int = 3, single: bool = True) -> dict[str, int]:
     """Impulse step plus ``steps-1`` steps of ``make_sharded_step_fn(cfg,
     audited=True)`` on ``slabs`` row slabs of one card (a mesh that lists
     ``cuda:0`` once per slab), or in 3-D of ``make_sharded_step_fn_3d`` on
@@ -724,7 +800,9 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
     ``steps`` steps of a forced trajectory (sources scaled by 0.05 every
     step, as in phase 8), which at 2048² stays under the window where the
     impulse does not, and holds it against the single-device step the same
-    way.  Then times the step eager and as a CUDA graph."""
+    way.  ``single=False`` leaves the single-device step out: the slab
+    multigrid runs the classic cycle, the single-device step the graded
+    one.  Then times the step eager and as a CUDA graph."""
     from fluidsimulationcuda_torch import (Sources, StableFluids2D,
                                            StableFluids3D, reference_init,
                                            zero_sources)
@@ -786,12 +864,15 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
         r_states, _ = run(ref)
         twins = [("reference backend, sharded",
                   unshard(r_states[0]), unshard(r_states[-1]))]
-        if disp < cfg.max_courant:
+        if not single:
+            print(f"{label}: the single-device step solves by another "
+                  f"algorithm: no single-device comparison")
+        elif disp < cfg.max_courant:
             sim = model(cfg)
-            single = [sim.step(state0, sources)]
+            ones = [sim.step(state0, sources)]
             for _ in range(steps - 1):
-                single.append(sim.step(single[-1]))
-            twins.append(("single-device step", single[0], single[-1]))
+                ones.append(sim.step(ones[-1]))
+            twins.append(("single-device step", ones[0], ones[-1]))
         else:
             print(f"{label}: displacement >= window: no single-device "
                   f"comparison")
@@ -804,23 +885,24 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
                 raise AssertionError(f"{label}: step {steps} vs {what}: "
                                      f"max|d| {dn:.3e} > {last_tol}")
         drive = Sources(*(None if s is None else 0.05 * s for s in sources))
-        s_drive, forced, single = shard(drive, mesh), start, state0
+        s_drive, forced, one = shard(drive, mesh), start, state0
         sim, f_disp = model(cfg), 0.0
         for _ in range(steps):
             forced, d = step_fn(forced, s_drive)
-            single = sim.step(single, drive)
+            if single:
+                one = sim.step(one, drive)
             f_disp = max(f_disp, float(d))
         forced = unshard(forced)
         require_finite(forced, f"{label} forced")
         print(f"{label}: forced trajectory (sources x 0.05 every step): "
               f"audited displacement {f_disp:.6f} cells")
-        if f_disp < cfg.max_courant:
-            df = max_diff(forced, single)
-            require_close(forced, single, rtol, atol,
+        if single and f_disp < cfg.max_courant:
+            df = max_diff(forced, one)
+            require_close(forced, one, rtol, atol,
                           f"{label} forced step {steps} vs single-device step")
             print(f"{label}: forced step {steps}: max|d| vs single-device "
                   f"step {df:.3e}")
-        else:
+        elif single:
             print(f"{label}: forced displacement >= window: no single-device "
                   f"comparison")
     plain = make_step(cfg, mesh)
@@ -1137,18 +1219,23 @@ def max_div(u, v, n: int) -> float:
     return float(divergence(u, v, n)[1:-1, 1:-1].abs().max())
 
 
-def projection_quality(cfg, label: str, bar: bool) -> None:
+def projection_quality(cfg, label: str, bar: bool, slabs: int = 0) -> None:
     """The step's first projection of ``cfg`` (on its backend) beside the
     Jacobi-20 projection (``fused_project``) on the same velocity: the
     impulse step's diffused velocity.  Prints max|div| after each; with
     ``bar``, fails unless the first is at most the second (the JAX bench's
-    bar for its multigrid line, ``bench.py:234``)."""
+    bar for its multigrid line, ``bench.py:234``).  With ``slabs``, the
+    row-slab step's projection on that many slabs of one card is printed
+    beside them, and it is what ``bar`` holds."""
     from fluidsimulationcuda_torch import reference_init
     from fluidsimulationcuda_torch.kernels import cuda_ops
     from fluidsimulationcuda_torch.kernels.dispatch import get_ops
     # The head of vel_step, as the step composes it.
     from fluidsimulationcuda_torch.models.stable_fluids_2d import (
         _diffuse_velocity, _make_project)
+    from fluidsimulationcuda_torch.parallel import make_mesh
+    # The slab step's own projection.
+    from fluidsimulationcuda_torch.parallel.sharded import _SlabStep
 
     gen = torch.Generator(device=cfg.device).manual_seed(SEED)
     state0, sources = reference_init(gen, cfg)
@@ -1158,9 +1245,19 @@ def projection_quality(cfg, label: str, bar: bool) -> None:
     before = max_div(u, v, cfg.n)
     got = max_div(*_make_project(cfg, ops)(u, v), cfg.n)
     jac = max_div(*cuda_ops.fused_project(u, v, cfg.n, 20), cfg.n)
-    print(f"{label}: max|div| of the diffused impulse velocity {before:.4e}; "
-          f"after this projection {got:.4e}, after the Jacobi-20 projection "
-          f"{jac:.4e} ({got / jac:.3f}x)")
+    line = (f"{label}: max|div| of the diffused impulse velocity "
+            f"{before:.4e}; after this projection {got:.4e}, after the "
+            f"Jacobi-20 projection {jac:.4e} ({got / jac:.3f}x)")
+    if slabs:
+        mesh = make_mesh([torch.device("cuda", 0)] * slabs)
+        m = (cfg.n + 2) // slabs
+        us, vs = ([f[i * m:(i + 1) * m].clone() for i in range(slabs)]
+                  for f in (u, v))
+        got = max_div(*map(torch.cat, _SlabStep(cfg, mesh, False)._project(
+            us, vs)), cfg.n)
+        line += (f"; after the projection on {slabs} slabs {got:.4e} "
+                 f"({got / jac:.3f}x)")
+    print(line)
     if not np.isfinite(got) or (bar and not got <= jac):
         raise AssertionError(f"{label}: max|div| {got:.4e} against "
                              f"Jacobi-20's {jac:.4e}")
@@ -1746,6 +1843,19 @@ def main() -> None:
                               "2048², slab of 256 rows", card, floor))
     kernel_times(checks.timing_checks_slab(8192, 2048, "cuda", SEED),
                  "8192², slab of 2048 rows", card, floor)
+    # K9-damp, the slab multigrid's smoother, and K1-damp on its odd coarse
+    # grid (1025² at 2048²).
+    compare(checks.kernel_checks_slab_smooth(2048, 256, "cuda", SEED), 0.0,
+            errs, "bit for bit")
+    timed = checks.timing_checks_slab_smooth(2048, 256, "cuda", SEED)
+    timed_against_both(timed, 0.0, errs)
+    times.update(kernel_times(timed, "2048², slab of 256 rows, 8-row halo",
+                              card, floor))
+    timed = checks.kernel_checks_damp(1025, "cuda", SEED)
+    timed_against_both(timed, 1e-6, errs)
+    kernel_times(timed, "1025² (the slab multigrid's coarse grid)", card,
+                 floor)
+    del timed
 
     phase("3d z-slab kernels against their plain twins (256³, mz=32)")
     compare(checks.kernel_checks_slab3(256, 32, "cuda", SEED), checks.TOL,
@@ -1873,6 +1983,22 @@ def main() -> None:
     sharded_path(parity.replace(fuse_sweeps=8), 128,
                  "2048² parity fuse_sweeps=8, 128 slabs", card, 3,
                  tol=(1e-5, 2e-5, 1e-4), graph_reps=1)
+    # The multigrid and CG projections on slabs (parallel/solvers.py).  The
+    # slab multigrid is JAX's classic two-level cycle, the single-device
+    # step the graded one: no single-device twin; slab CG is the
+    # single-device CG step's algorithm.
+    mg_slab = parity.replace(pressure_solver="multigrid", mg_cycles=2)
+    label = "2048² multigrid, 2 cycles, Jacobi-20 diffusion"
+    sharded_path(mg_slab, 1, label + ", 1×1 mesh", card, 6,
+                 tol=(1e-5, 2e-5, 1e-4), single=False)
+    launches_slab_mg = sharded_path(mg_slab, 8, label + ", 8 slabs", card,
+                                    6, tol=(1e-5, 2e-5, 1e-4), single=False)
+    projection_quality(mg_slab, label, bar=False, slabs=8)
+    cg_slab = parity.replace(pressure_solver="cg", cg_iters=20)
+    launches_slab_mg = {k: c + launches_slab_mg[k] for k, c in sharded_path(
+        cg_slab, 8, "2048² CG-20, 8 slabs", card, 6,
+        tol=(1e-5, 2e-5, 1e-4)).items()}
+    projection_quality(cg_slab, "2048² CG-20", bar=False, slabs=8)
 
     phase("11 3-D multi-device step: z-slabs on one card")
     sharded_path(parity3, 1, "256³ parity, 1 slab", card, 3,
@@ -2015,6 +2141,7 @@ def main() -> None:
                    for k, c in solver_batch_path("cg", card).items()}
 
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
+                     + launches_slab_mg[k]
                      + launches_slab3[k] + launches_dg[k] + launches_mg[k]
                      + launches_cg[k] + launches_w3[k] + launches_cli[k]
                      + launches_16[k] + launches_sb[k]

@@ -47,8 +47,9 @@ loader patched), and:
   batch of three, float32 and bf16, and, on a batch of three grids,
   ``kernel_checks_flows`` at ``--side2``,
   ``kernel_checks3`` and ``kernel_checks_flows`` at ``--side3``,
-  ``kernel_checks_slab`` for slabs of ``--slab-side``/4 rows at
-  ``--slab-side``, ``kernel_checks_slab3`` and
+  ``kernel_checks_slab`` and ``kernel_checks_slab_smooth`` (K9-damp) for
+  slabs of ``--slab-side``/4 rows at ``--slab-side``,
+  ``kernel_checks_slab3`` and
   ``kernel_checks_slab3_flows`` for z-slabs of ``--slab3-side``/3 planes at
   ``--slab3-side``) compares kernel and plain version, on a shim device of
   3 SMs; each row-slab call whose solve takes the tiled K9 is held bit for
@@ -65,7 +66,8 @@ loader patched), and:
   (``kernel_checks3_windowed``) against their plain versions, and K1-damp
   against the same calls on the per-sweep damped K1, bit for bit;
 - one multi-device step per mode and route goes through the ``cuda``
-  backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``), its
+  backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``; the
+  multigrid and CG projections too), its
   launch counts against ``chip_smoke.expected_launches_sharded``, its state
   against the ``reference`` backend of the same sharded step; and one 3-D
   multi-device step per mode on 3 and 8 z-slabs at ``--slab3-side``
@@ -564,6 +566,9 @@ def main() -> int:
                   + checks.kernel_checks3_windowed(args.side3, "cpu", 1)
                   + checks.kernel_checks_slab(args.slab_side,
                                               args.slab_side // 4, "cpu", 1)
+                  + checks.kernel_checks_slab_smooth(args.slab_side,
+                                                     args.slab_side // 4,
+                                                     "cpu", 1)
                   + checks.kernel_checks_slab3(args.slab3_side,
                                                args.slab3_side // 3, "cpu",
                                                1)
@@ -715,10 +720,13 @@ def rehearse_sharded(lib, side: int) -> int:
         "chebyshev-dens": dict(diffusion_solver="chebyshev-dens",
                                cheby_rho=0.9, cheby_dens_iters=6),
         "multi-chunk": dict(jacobi_iters=9, fuse_sweeps=4),
+        "multigrid": dict(pressure_solver="multigrid", mg_cycles=2),
+        "cg": dict(pressure_solver="cg", cg_iters=12),
     }
     failures = 0
     for mode, slabs in (("parity", 4), ("parity", 8), ("compensated", 4),
-                        ("chebyshev-dens", 4), ("multi-chunk", 4)):
+                        ("chebyshev-dens", 4), ("multi-chunk", 4),
+                        ("multigrid", 4), ("multigrid", 8), ("cg", 8)):
         ref = ft.SimConfig(backend="reference", device="cpu",
                            **{**base, **modes[mode]})
         cfg = ref.replace()

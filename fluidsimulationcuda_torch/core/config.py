@@ -52,8 +52,9 @@ class SimConfig:
       pressure_solver: ``"jacobi"`` and ``"chebyshev"`` everywhere;
         ``"multigrid"`` (``mg_cycles`` V-cycles, ``ops/multigrid.py``) and
         ``"cg"`` (``cg_iters`` iterations, ``ops/cg.py``) in the 2-D step,
-        on one grid or a batch, not on slabs; 3-D refuses them, as the JAX
-        package does.
+        on one grid, a batch or row slabs (``parallel/solvers.py``; the
+        slab multigrid needs slabs of an even row count); 3-D refuses them,
+        as the JAX package does.
       advect_mode: ``"auto"`` and ``"exact"`` gather exactly (the JAX
         package's ``"auto"`` is windowed on a TPU only); ``"windowed"``
         clamps each departure point to ``max_courant`` cells around its

@@ -134,6 +134,31 @@
 // 16^2 take 0.025 ms against 0.055 for 40 per-sweep launches; the 128 x 64
 // tile took 0.030 there, and 0.0054 ms against 0.0040 on 16-row tiles for
 // a 32^2 smooth.
+//
+// K9-damp jacobi_slab_damped_sweeps: the multigrid smoother on a row slab's
+// (rows, side) halo-extended buffer (fsc_jacobi_slab_sweeps_damp), K1-damp's
+// damped body on K9's slab walk (SlabTiles: the band, the wall rows gtop and
+// gbot, the deeper halo of plan_slab).  It replaces no Pallas kernel: the
+// JAX package smooths the fine level of its sharded multigrid in jnp
+// (_mg_smooth_local, fluidsimulationcuda_tpu/parallel/sharded.py:477), one
+// sweep per one-row halo exchange.  Here a smooth of `count` sweeps on a
+// buffer whose halo is at least `count` rows deep is one launch, and
+// computes what that many exchanges and sweeps compute on the slab's rows,
+// bit for bit (the plain twin, cuda_sharded.smooth_slab_plain, equals
+// ops.multigrid._smooth on the whole grid there): omw*x_k + w*val in that
+// order, the wall rows and ghost columns by the border rule of their
+// interior neighbour's damped value.  Float32, no fold, fast mode or
+// Chebyshev.
+//
+// Bound: a smooth reads the buffer's guess (none from zero) and its rhs
+// once and writes the band of its last sweep once, and does 9 float
+// operations a cell a sweep (kernels/checks.py, _slab_sweeps_cost): about
+// 6.6 MB and 2 us for the 2-sweep smooth on a 272-row buffer of 2048^2
+// (8 slabs, an 8-row halo).  Such a buffer (0.56 M cells) is one partial
+// wave of K1's tiles, so the tile's height is chosen by measurement
+// (cuda_ops.slab_smooth_tiling, PERF.md): K1-damp's tiles, 16 rows there
+// (0.0061 ms against 0.0067 on K9's 32 rows, 30% of the bound; a launch a
+// sweep, as JAX exchanges, 0.0094), 64 rows from 2 M buffer cells.
 #include <atomic>
 #include <type_traits>
 
@@ -213,6 +238,8 @@ struct GridTiles {
   }
   __device__ bool writes_row(int r) const { return r < side; }
   __device__ int at(int r, int c) const { return off + r * side + c; }
+  // The lines of the array along the tile's rows.
+  __device__ int extent() const { return side; }
 };
 
 // K1-damp's whole-grid geometry: one block a grid, the grid at tile cell
@@ -263,6 +290,7 @@ struct SlabTiles {
   }
   __device__ bool writes_row(int r) const { return r < band_hi; }
   __device__ int at(int r, int c) const { return r * side + c; }
+  __device__ int extent() const { return rows; }
 };
 
 // One sweep of the tile's rows [lo, hi) from cur into nxt, every column
@@ -394,11 +422,12 @@ __device__ __forceinline__ void sweeps_body(
   }
   const bool edge = g.edge(kTileH);
   __syncthreads();
-  // K1-damp sweeps only the tile's lines in the grid (a small level's
-  // tiles reach past it; nothing exact reads a cell past the grid): rows
-  // [-r0, side - r0) and the warps' columns before side - c0.
+  // K1-damp and K9-damp sweep only the tile's lines in the array (a small
+  // level's tiles reach past it; nothing exact reads a cell past the
+  // array): rows [-r0, extent - r0) and the warps' columns before
+  // side - c0.
   const int row_lo = -g.r0;
-  const int row_hi = t.side - g.r0;
+  const int row_hi = g.extent() - g.r0;
   const int col_hi =
       kDamp && t.side - g.c0 < kTileW ? t.side - g.c0 : kTileW;
   for (int s = 0; s < t.count; ++s) {
@@ -493,6 +522,17 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
                                             tile);
 }
 
+// K9-damp on a slab buffer, tiles of kRows rows of warps (1, 2 or 4: 16,
+// 32 or 64 rows).
+template <int kRows>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    jacobi_slab_damped_sweeps_kernel(fsc::SweepParams p, Tiling t,
+                                     float* __restrict__ out) {
+  extern __shared__ float tile[];
+  sweeps_body<SlabTiles, kRows, false, false, true>(
+      p, t, out, nullptr, static_cast<float*>(nullptr), tile);
+}
+
 // The halo and output tile of a launch of `count` sweeps: a halo of
 // `count` cells, one more where `deeper` says a border line would derive
 // from a line the halo leaves stale.
@@ -524,11 +564,13 @@ int plan_tiling(int side, int count, Tiling* t,
 // band's first row, done + count.  The halo is one cell deeper where a
 // tile's first output column would be the last ghost column, its last
 // output row the wall row gtop or its first the wall row gbot: each
-// derives from its neighbour across the tile's edge.
+// derives from its neighbour across the tile's edge.  K9 takes tiles of
+// 64 or 32 rows, K9-damp (`damped`) also of 16.
 int plan_slab(int rows, int side, int count, int done, int gtop, int gbot,
-              int tile_h, Tiling* t) {
+              int tile_h, Tiling* t, bool damped = false) {
   if (count < 1 || count > kMaxSweeps || side < 3 || done < 0 ||
-      (tile_h != Tile<4>::kTileH && tile_h != Tile<2>::kTileH) ||
+      (tile_h != Tile<4>::kTileH && tile_h != Tile<2>::kTileH &&
+       !(damped && tile_h == Tile<1>::kTileH)) ||
       rows - 2 * (done + count) < 1 || tile_h - 2 * (count + 1) < 1 ||
       gtop < -1 || gtop >= rows - 1 || gbot < -1 || gbot == 0 ||
       gbot >= rows)
@@ -734,6 +776,18 @@ int launch_damped_kernel(const fsc::SweepParams& p, const Tiling& t,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kRows>
+int launch_slab_damped_kernel(const fsc::SweepParams& p, const Tiling& t,
+                              float* out, dim3 grid, cudaStream_t stream) {
+  const auto kernel = jacobi_slab_damped_sweeps_kernel<kRows>;
+  constexpr int kSmem = Tile<kRows>::kSmem;
+  static std::atomic<int> attribute[kDevices];
+  const int err = smem_attribute(kernel, kSmem, attribute);
+  if (err != 0) return err;
+  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(p, t, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // `count` sweeps (1..kMaxSweeps) of a solve whose sweeps are numbered from
@@ -854,4 +908,41 @@ extern "C" int fsc_jacobi_slab_sweeps(const float* x, const float* rhs,
   return tile_h == Tile<4>::kTileH
              ? launch_slab<4>(cheby, p, t, out, xm_out, rhs_out, stream_)
              : launch_slab<2>(cheby, p, t, out, xm_out, rhs_out, stream_);
+}
+
+// K9-damp: `count` damped sweeps x <- omw*x + w*S(x) (K1-damp's, omw 1-w
+// rounded on the host) of boundary mode b from x (null: the zero guess)
+// with rhs on a (rows, side) row-slab buffer, `done` sweeps of the smooth
+// run before this launch: the launch's sweep t (from 1) computes rows
+// [done + t, rows - done - t) and it writes out on the band
+// [done + count, rows - done - count).  Wall rows gtop and gbot as
+// fsc_jacobi_slab_sweeps's; tile_rows is 64, 32 or 16.  out must not alias
+// x or rhs.  Returns cudaErrorInvalidValue for a count out of range or a
+// band, tile or wall row that does not fit, otherwise cudaGetLastError()
+// after the launch.
+extern "C" int fsc_jacobi_slab_sweeps_damp(const float* x, const float* rhs,
+                                           float* out, int side, int b,
+                                           float alpha, float beta, float w,
+                                           float omw, int count, int rows,
+                                           int done, int gtop, int gbot,
+                                           int tile_rows, void* stream) {
+  Tiling t{};
+  const int err =
+      plan_slab(rows, side, count, done, gtop, gbot, tile_rows, &t, true);
+  if (err != 0) return err;
+  t.b = b;
+  t.omw = omw;
+  const fsc::SweepParams p = fsc::make_sweep_params(
+      x, rhs, nullptr, nullptr, alpha, beta, 0.0f, 0.0f, 0.0f, w, 0);
+  const dim3 grid((t.side + t.out_w - 1) / t.out_w,
+                  (t.band_hi - t.band_lo + t.out_h - 1) / t.out_h);
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  switch (tile_rows) {
+    case Tile<4>::kTileH:
+      return launch_slab_damped_kernel<4>(p, t, out, grid, stream_);
+    case Tile<2>::kTileH:
+      return launch_slab_damped_kernel<2>(p, t, out, grid, stream_);
+    default:
+      return launch_slab_damped_kernel<1>(p, t, out, grid, stream_);
+  }
 }

@@ -49,7 +49,8 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "timing_checks_batched",
            "pair_against_singles", "timing_checks_pair",
            "timing_checks_split", "kernel_checks_damp",
-           "timing_checks_damp", "kernel_checks3_windowed",
+           "timing_checks_damp", "kernel_checks_slab_smooth",
+           "timing_checks_slab_smooth", "kernel_checks3_windowed",
            "timing_checks3_windowed", "K4_TILE", "K4_BOX_CAP",
            "footprint_boxes", "gather_velocities", "kernel_checks_flows",
            "staged_share", "max_abs_diff", "device_ms",
@@ -1586,6 +1587,49 @@ def timing_checks_slab(side: int, m: int, device,
               slab(t.v, i), fl, alpha=ad, beta=bd, iters=20, dt=DT, n=n,
               cmax=cmax, m=m, K=Kd),
     ]
+
+
+DAMP_SLAB = ("jacobi_slab_sweeps_damp",)
+
+
+def _smooth_cases(t: "_SlabInputs", i: int, label: str) -> list[Check]:
+    """K9-damp (``smooth_slab``) on slab i with the slab multigrid's halo
+    (``parallel/solvers.py``, ``SMOOTH_HALO``): its 2-sweep smooths from a
+    guess and from zero and a 7-sweep chunk (the most one exchange takes),
+    each carrying the same call at one launch a sweep (``chain``)."""
+    from ..parallel.solvers import SMOOTH_HALO as K
+
+    rows = t.m + 2 * K
+    return [_k1_timed(_slab_sweeps_cost(k, rows, t.side, zero_init=z,
+                                        damp=True), 1,
+                      f"{label}{k} sweeps{' zero_init' if z else ''}",
+                      DAMP_SLAB, cs.smooth_slab, cs.smooth_slab_plain,
+                      t.ext(t.p, i, K), t.ext(t.x0, i, K), t.flags(i),
+                      m=t.m, K=K, sweeps=k, zero_init=z)
+            for k, z in ((2, False), (2, True), (7, False))]
+
+
+def kernel_checks_slab_smooth(side: int, m: int, device,
+                              seed: int = 0) -> list[Check]:
+    """K9-damp against its plain twin ``smooth_slab_plain`` (bit for bit,
+    ``--fmad=false``) for a top, an interior and a bottom slab of ``m``
+    rows at grid ``side`` (``_smooth_cases``)."""
+    t = _SlabInputs(side, m, device, seed)
+    return [c for pos, i in t.positions().items()
+            for c in _smooth_cases(t, i, f"smooth_slab {pos} ")]
+
+
+def timing_checks_slab_smooth(side: int, m: int, device,
+                              seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of K9-damp on an interior slab of
+    ``m`` rows at grid ``side``: the path's 2-sweep smooth from a guess
+    (labelled by the kernel's name), then ``_smooth_cases``, each beside
+    its plain twin and the same call at one launch a sweep."""
+    t = _SlabInputs(side, m, device, seed)
+    i = t.slabs // 2
+    path = _smooth_cases(t, i, "smooth_slab ")[0]
+    path.label = "jacobi_slab_sweeps_damp"
+    return [path] + _smooth_cases(t, i, "smooth_slab ")
 
 
 JAC3_SLAB = ("jacobi3_slab_sweeps",)

@@ -94,7 +94,8 @@ from .dispatch import OpSet
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "check_grid",
     "make_opset", "SWEEPS_PER_LAUNCH", "SWEEPS_PER_LAUNCH_3D", "tiled3",
-    "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling", "DAMPED_TILES",
+    "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling", "slab_smooth_tiling",
+    "DAMPED_TILES",
     "WHOLE_GRID_SIDE", "DampedRoute", "damped_plan", "launch_sweeps",
     "smooth_launches", "SweepLaunch", "sweep_plan", "VECTOR_WIDTHS",
     "vector_width", "vector_widths", "width_counts", "reset_width_counts",
@@ -114,7 +115,8 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi_sweep_damp", "advect3_windowed", "jacobi_sweep_bf16",
            "divergence_bf16", "gradient_bf16", "advect_bf16",
            "jacobi_sweeps", "jacobi_sweeps_bf16", "jacobi3_sweeps",
-           "jacobi3_slab_sweeps", "jacobi_slab_sweeps", "jacobi_sweeps_damp")
+           "jacobi3_slab_sweeps", "jacobi_slab_sweeps", "jacobi_sweeps_damp",
+           "jacobi_slab_sweeps_damp")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -152,6 +154,13 @@ SLAB_ONE_LAUNCH = 8
 # 16 and 64 rows, whole grids in the 32-row one.
 DAMPED_TILES = ((2_000_000, 64), (0, 16))
 WHOLE_GRID_SIDE = 30
+# K9-damp (fsc_jacobi_slab_sweeps_damp) takes the same tiles by its
+# buffer's cells (slab_smooth_tiling): measured on the H100
+# (dev/bench_slab_smooth.py, PERF.md), the 2-sweep smooth on the 8-slab
+# 2048² buffer (272 x 2048) took 0.0061 ms on 16-row tiles against 0.0067
+# on K9's 32-row ones and 0.0086 on 64; on the 1-slab (2064 x 2048) and
+# 8192² (2064 x 8192) buffers 64 rows were the fastest (0.0293 and 0.0835
+# ms against 0.0297 and 0.0934 on 32).
 # The cells a thread of the bf16 forms' vector kernels (K3's
 # advect_vec_kernel, K2's gradient_vec_kernel) may take, by kernel, largest
 # first (vector_width); 1 is the one-cell kernel.  Chosen by measurement on
@@ -215,6 +224,22 @@ def slab_tiling(rows: int, side: int, sweeps: int) -> tuple[int, int]:
     per, tile = next((per, tile) for least, per, tile in SLAB_TILINGS
                      if cells >= least)
     return (max(per, sweeps) if sweeps <= SLAB_ONE_LAUNCH else per), tile
+
+
+def slab_smooth_tiling(rows: int, side: int, sweeps: int) -> tuple[int, int]:
+    """(T, tile rows) of K9-damp for a smooth of ``sweeps`` sweeps on a
+    (rows, side) row-slab buffer: the first of K1-damp's ``DAMPED_TILES``
+    whose cell count the buffer reaches, and T = ``sweeps`` up to the most the
+    tile's halo allows (``(tile - 3) // 2``, at most 20), so the slab
+    multigrid's 2-sweep smooth is one launch.  ``launch_sweeps(t,
+    tile_rows=h)`` forces T = t, capped so (0: one sweep a launch; K9-damp
+    has no per-sweep kernel), and the tile (64, 32 or 16)."""
+    cells = rows * side
+    tile = next(tile for least, tile in DAMPED_TILES if cells >= least)
+    if _forced_tile is not None:
+        tile = _forced_tile
+    per_launch = sweeps if _forced is None else max(_forced, 1)
+    return min(per_launch, (tile - 3) // 2, 20), tile
 
 
 class DampedRoute(NamedTuple):
@@ -415,7 +440,9 @@ def launch_sweeps(per_launch: int, tile_rows: int | None = None):
     ``dev/bench_slab_sweeps.py`` time.  A damped K1 solve takes tiled
     launches of ``per_launch`` sweeps too, never a whole-grid one (0: the
     per-sweep damped K1).  ``tile_rows`` (64 or 32) sets the tiled K9's
-    tile.  No path of the port enters it."""
+    tile.  K9-damp, which has no per-sweep kernel, takes ``per_launch``
+    sweeps a launch (0: one) on tiles of ``tile_rows`` (64, 32 or 16;
+    ``slab_smooth_tiling``).  No path of the port enters it."""
     global _forced, _forced_tile
     if per_launch < 0:
         raise ValueError(f"per_launch {per_launch} < 0")

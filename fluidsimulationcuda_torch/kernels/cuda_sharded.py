@@ -18,7 +18,8 @@ also runs, on any device); on CUDA tensors they launch the hand-written
 kernels of ``csrc/`` or raise.  Nothing falls back.  Launches count in
 ``cuda_ops.launch_counts()``.
 
-Five CUDA kernels carry the seven TPU kernels:
+Six CUDA kernels carry the seven TPU kernels and the multigrid smoother
+of the slab route:
 
 - K9, the sweeps of every row-slab solve: ``jacobi_slab_sweeps``, the
   slab form of the tiled K1 (``csrc/jacobi_tiles.cu``), T sweeps a launch
@@ -36,7 +37,12 @@ Five CUDA kernels carry the seven TPU kernels:
 - ``jacobi_slab_split`` (K18, ``csrc/jacobi_slab_split.cu``), the first
   sweep of ``fused_jacobi_slab_split`` (B13, ``:506``), whose window is
   read from the halo and slab operands with no concatenation; K9 runs the
-  sweeps after it.  As in JAX no step calls it.
+  sweeps after it.  As in JAX no step calls it;
+- ``jacobi_slab_sweeps_damp`` (K9-damp, ``csrc/jacobi_tiles.cu``), the
+  tiled K9 in K1-damp's damped form: ``smooth_slab``, the fine-level
+  smoother of the slab multigrid (``parallel/solvers.py``), which JAX
+  writes in jnp (``_mg_smooth_local``, ``parallel/sharded.py:477``), a
+  smooth in one launch where JAX exchanges a one-row halo a sweep.
 
 Each result equals the global operation restricted to the slab while the
 halos are deep enough: ``K >= sweeps`` for the sweeps, ``K >= iters + 1``
@@ -52,13 +58,15 @@ import torch
 from ..ops.advect import bilinear, departure
 from ..ops.chebyshev import cheby_omegas
 from ..ops.diffuse import as_scalar
+from ..ops.multigrid import OMEGA
 from ..ops.project import grid_h
 from ..ops.source import add_source
 from . import build
 from . import cuda_ops as co
 
 __all__ = [
-    "fused_jacobi_slab", "fused_jacobi_slab_plain", "fused_project_slab",
+    "fused_jacobi_slab", "fused_jacobi_slab_plain", "smooth_slab",
+    "smooth_slab_plain", "fused_project_slab",
     "fused_project_slab_plain", "fused_dens_slab", "fused_dens_slab_plain",
     "advect_slab", "advect_slab_plain", "divergence_slab",
     "divergence_slab_plain", "gradient_slab", "gradient_slab_plain",
@@ -137,11 +145,13 @@ def _slab_bnd(b: int, x: torch.Tensor, gtop: int, gbot: int) -> torch.Tensor:
 
 
 def _sweeps_plain(b, x, rhs, alpha, beta, sweeps, gtop, gbot, *,
-                  zero_init=False, src_dt=None, fast=False, cheby_rho=None):
+                  zero_init=False, src_dt=None, fast=False, cheby_rho=None,
+                  damp=None):
     """The whole (rows, side) buffer after ``sweeps`` Jacobi (or Chebyshev)
     sweeps, each over the buffer's inner rows (its edge rows keep their
     input values), with the border rule after each.  Source fold, fast form
-    and Chebyshev weights as ``cuda_ops.fused_jacobi_plain``."""
+    and Chebyshev weights as ``cuda_ops.fused_jacobi_plain``; ``damp``
+    blends each sweep with x_k as ``ops.diffuse.damped_diffuse`` does."""
     if src_dt is not None:
         rhs = add_source(rhs, x, src_dt)
     if zero_init:
@@ -156,10 +166,14 @@ def _sweeps_plain(b, x, rhs, alpha, beta, sweeps, gtop, gbot, *,
         ws = [None, *cheby_omegas(float(cheby_rho), sweeps)]
     rhs_in = rhs[1:-1, 1:-1]
     g_in = (_shift(gtop, 1), _shift(gbot, 1))
+    if damp is not None:
+        wd, omw = as_scalar(damp, rhs), as_scalar(1.0 - damp, rhs)
     xm = x
     for w in ws:
         neigh = ((x[1:-1, :-2] + x[1:-1, 2:]) + x[:-2, 1:-1]) + x[2:, 1:-1]
         val = (rhs_in + a * neigh) / bt
+        if damp is not None:
+            val = omw * x[1:-1, 1:-1] + wd * val
         if w is not None:
             wc = as_scalar(w, rhs)
             val = wc * val + (1.0 - wc) * xm[1:-1, 1:-1]
@@ -254,6 +268,51 @@ def fused_jacobi_slab(b, x_ext, rhs_ext, flags, *, m, K, alpha, beta,
                          cheby_rho=cheby_rho, kernel="jacobi_slab")
         run.run_slab(lib, m + 2 * K, gtop, gbot)
         return run.x[K:K + m]
+
+
+# ---------------------------------------------------------------------------
+# The slab multigrid's smoother (K9-damp)
+# ---------------------------------------------------------------------------
+
+
+def smooth_slab_plain(p_ext, div_ext, flags, *, m, K, sweeps,
+                      zero_init=False):
+    _jacobi_checks(p_ext, div_ext, m, K, sweeps)
+    gtop, gbot = _wall_rows(flags, K, m)
+    x = _sweeps_plain(0, p_ext, div_ext, 1.0, 4.0, sweeps, gtop, gbot,
+                      zero_init=zero_init, damp=OMEGA)
+    return x[K:K + m]
+
+
+def smooth_slab(p_ext, div_ext, flags, *, m, K, sweeps, zero_init=False):
+    """``sweeps`` damped Jacobi sweeps of the pressure problem (b=0,
+    alpha=1, beta=4, w = ``ops.multigrid.OMEGA``; ``ops.multigrid._smooth``)
+    on an ``(m+2K, side)`` extended slab from guess ``p_ext`` (zero with
+    ``zero_init``; ``p_ext`` is then ignored) with rhs ``div_ext``; returns
+    the (m, side) slab.  A K-row halo is valid for K sweeps, which compute
+    on the slab's rows what as many one-row exchanges and sweeps compute
+    (JAX's ``_mg_smooth_local``).  K9-damp's launches of
+    ``cuda_ops.slab_smooth_tiling``: a smooth of up to T sweeps in one."""
+    if not _jacobi_checks(p_ext, div_ext, m, K, sweeps):
+        return smooth_slab_plain(p_ext, div_ext, flags, m=m, K=K,
+                                 sweeps=sweeps, zero_init=zero_init)
+    side, rows = div_ext.shape[-1], m + 2 * K
+    gtop, gbot = _wall_rows(flags, K, m)
+    with torch.cuda.device(div_ext.device):
+        lib = build.load()
+        stream = co._stream(div_ext)
+        per_launch, tile = co.slab_smooth_tiling(rows, side, sweeps)
+        x, done = None if zero_init else p_ext, 0
+        while done < sweeps:
+            count = min(per_launch, sweeps - done)
+            out = torch.empty_like(div_ext)
+            co._launch("jacobi_slab_sweeps_damp",
+                       lib.fsc_jacobi_slab_sweeps_damp, co._ptr(x),
+                       div_ext.data_ptr(), out.data_ptr(), side, 0, 1.0, 4.0,
+                       co._f32(OMEGA), co._f32(1.0 - OMEGA), count, rows,
+                       done, gtop, gbot, tile, stream)
+            x, done = out, done + count
+        return x[K:K + m]
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,12 @@
 ``fluidsimulationcuda_tpu.parallel.mesh``).
 
 A ``Mesh`` is a 2-D grid of ``torch.device``s with axes ("x", "y"), held
-by one process: the step (``parallel/sharded.py``) drives every device from
-it and moves halo rows between devices with ``.to``.  A mesh may list one
-device more than once.  That is the port's counterpart of the JAX tests'
-virtual 8-device CPU mesh, and how one card runs a 4- or 8-slab mesh with
-interior and wall slabs both present.
+by one process: the steps (``parallel/sharded.py``, ``sharded3d.py``) and
+the slab solvers (``parallel/solvers.py``) drive every device from it and
+move halo rows between devices with ``.to`` (``_halos``, ``_ext``).  A
+mesh may list one device more than once.  That is the port's counterpart
+of the JAX tests' virtual 8-device CPU mesh, and how one card runs a 4- or
+8-slab mesh with interior and wall slabs both present.
 """
 from __future__ import annotations
 
@@ -71,3 +72,28 @@ def make_mesh(devices=None, shape: tuple[int, int] | None = None) -> Mesh:
     if not devices:
         raise ValueError("make_mesh needs at least one device")
     return _mesh(devices, *(shape or (len(devices), 1)))
+
+
+def _halos(xs, k: int):
+    """(top, bottom) halos of each slab of ``xs``: the ``k`` leading-axis
+    entries (rows, or planes of a z-slab) of the neighbouring slabs next to
+    it, moved to its device, zeros beyond a wall.  A halo must come from
+    the adjacent slab: deeper than a slab raises (JAX's ``x[-K:]`` would
+    silently take fewer)."""
+    out = []
+    for i, x in enumerate(xs):
+        if k > x.shape[0]:
+            raise ValueError(f"a {k}-deep halo is deeper than the "
+                             f"{x.shape[0]}-deep slab")
+        zeros = (k, *x.shape[1:])
+        top = xs[i - 1][-k:].to(x.device) if i > 0 else x.new_zeros(zeros)
+        bot = (xs[i + 1][:k].to(x.device) if i < len(xs) - 1
+               else x.new_zeros(zeros))
+        out.append((top, bot))
+    return out
+
+
+def _ext(xs, k: int):
+    """Each slab extended by its ``k``-deep halos on both sides."""
+    return [torch.cat([top, x, bot])
+            for x, (top, bot) in zip(xs, _halos(xs, k))]

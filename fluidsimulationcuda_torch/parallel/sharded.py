@@ -19,10 +19,11 @@ The composition, margins and route gates are JAX's, so a given
   chunks of ``fuse = cfg.fuse_sweeps or 20`` sweeps (halo
   ``ceil8(s+1)`` per chunk, the rhs built once and exchanged per chunk), or
   as one-call Chebyshev solves (halo ``ceil8(iters+1)``);
-- the projection fused (one ``ceil8(iters+3)``-row u/v exchange) when that
-  halo fits a slab, else composed: divergence, the pressure solve (Jacobi
-  chunks from zero, or one Chebyshev call) and gradient, each stencil with
-  a one-row halo;
+- the projection fused (one ``ceil8(iters+3)``-row u/v exchange) for a
+  Jacobi or Chebyshev pressure solve whose halo fits a slab, else
+  composed: divergence, the pressure solve (Jacobi chunks from zero, one
+  Chebyshev call, or the slab multigrid or CG of ``parallel/solvers.py``)
+  and gradient, each stencil with a one-row halo;
 - the u/v self-advection pair (one shared backtrace, ``cmax+1``-row halo),
   then the second projection;
 - the density fused (diffusion and gather, halo ``ceil8(it+1+cmax)``) for
@@ -36,10 +37,14 @@ computed.  Every gather is windowed: exact while the backtrace moves at
 most ``cfg.max_courant`` cells, clamped above (``ops.advect_windowed``);
 ``audited=True`` returns the displacement to check it.
 
-Not ported (ROADMAP A10c): the 2-D block route of ``_step_local`` (2-D
-halos, exact all-gather advection, the sharded CG and multigrid solvers,
-and the jnp Chebyshev solves for a halo deeper than a slab).  Every shape
-that would need it raises; none quietly takes another route.
+``pressure_solver="multigrid"`` needs an even slab height, as JAX's slab
+route does (the coarse grid's 2x2 groups must not straddle two slabs), and
+raises ``ValueError`` otherwise.
+
+Not ported (ROADMAP A10c, now §A 2-3): the exact all-gather advection and
+the 2-D block route of ``_step_local`` (2-D halos, its solvers on 2-D
+blocks, the jnp Chebyshev solves for a halo deeper than a slab).  Every
+shape that would need them raises; none quietly takes another route.
 """
 from __future__ import annotations
 
@@ -49,16 +54,16 @@ import torch
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
-from ..kernels.dispatch import get_slab_ops
+from ..kernels.dispatch import get_ops, get_slab_ops
 from ..ops.source import add_source
-from .mesh import Mesh
+from .mesh import Mesh, _ext, _halos
+from .solvers import SMOOTH_HALO, cg_slabs, mg_slabs
 
 __all__ = ["make_sharded_step_fn", "shard_state", "unshard"]
 
 _BLOCK_ROUTE = ("the block route of the JAX package's _step_local (2-D "
-                "halos, exact all-gather advection, the sharded CG, "
-                "multigrid and jnp Chebyshev solves) is not ported "
-                "(ROADMAP A10c)")
+                "halos, exact all-gather advection, the jnp Chebyshev "
+                "solves) is not ported (ROADMAP A10c)")
 
 
 def _ceil8(x: int) -> int:
@@ -108,31 +113,6 @@ def unshard(tree):
     return type(tree)(*map(join, tree))
 
 
-def _halos(xs, k: int):
-    """(top, bottom) halos of each slab of ``xs``: the ``k`` leading-axis
-    entries (rows, or planes of a z-slab) of the neighbouring slabs next to
-    it, moved to its device, zeros beyond a wall.  A halo must come from
-    the adjacent slab: deeper than a slab raises (JAX's ``x[-K:]`` would
-    silently take fewer)."""
-    out = []
-    for i, x in enumerate(xs):
-        if k > x.shape[0]:
-            raise ValueError(f"a {k}-deep halo is deeper than the "
-                             f"{x.shape[0]}-deep slab")
-        zeros = (k, *x.shape[1:])
-        top = xs[i - 1][-k:].to(x.device) if i > 0 else x.new_zeros(zeros)
-        bot = (xs[i + 1][:k].to(x.device) if i < len(xs) - 1
-               else x.new_zeros(zeros))
-        out.append((top, bot))
-    return out
-
-
-def _ext(xs, k: int):
-    """Each slab extended by its ``k``-deep halos on both sides."""
-    return [torch.cat([top, x, bot])
-            for x, (top, bot) in zip(xs, _halos(xs, k))]
-
-
 def _slab_viable(cfg: SimConfig, slabs: int) -> bool:
     side = cfg.n + 2
     return side % slabs == 0 and side // slabs >= cfg.max_courant + 1
@@ -158,17 +138,25 @@ class _SlabStep:
                                                    "chebyshev-dens")
         self.k_dens = (cfg.cheby_iters if cfg.diffusion_solver == "chebyshev"
                        else cfg.cheby_dens_iters)
-        self.cheby_p = cfg.pressure_solver == "chebyshev"
+        self.solver = cfg.pressure_solver
+        self.cheby_p = self.solver == "chebyshev"
         self.it_p = cfg.press_cheby_iters if self.cheby_p else it
         self.rho_p = cfg.cheby_rho if self.cheby_p else None
-        self.fused_proj = _ceil8(self.it_p + 3) <= m
+        # Multigrid and CG compose the projection, as in JAX
+        # (sharded.py:744-747 there).
+        self.fused_proj = (self.solver in ("jacobi", "chebyshev")
+                           and _ceil8(self.it_p + 3) <= m)
+        # The replicated coarse level of the slab multigrid smooths with
+        # the single-device OpSet's smoother.
+        self.smooth_coarse = (get_ops(cfg).smooth
+                              if self.solver == "multigrid" else None)
         self.fused_dens = (not self.dens_cheby and it <= fuse
                            and 1 <= cmax <= 7
                            and _ceil8(it + 1 + cmax) <= m)
 
         # Every halo the routes exchange must come from the adjacent slab.
         chunked = [it] * ((not self.vel_cheby)
-                          + (not self.fused_proj and not self.cheby_p)
+                          + (not self.fused_proj and self.solver == "jacobi")
                           + (not self.fused_dens and not self.dens_cheby))
         for iters in chunked:
             K = _ceil8(min(fuse, iters) + 1)
@@ -177,6 +165,10 @@ class _SlabStep:
                     f"a Jacobi chunk of {min(fuse, iters)} sweeps needs a "
                     f"{K}-row halo, deeper than the {m}-row slabs; lower "
                     f"fuse_sweeps or use fewer slabs")
+        if self.solver == "multigrid" and SMOOTH_HALO > m:
+            raise ValueError(
+                f"the slab multigrid's smooths need a {SMOOTH_HALO}-row "
+                f"halo, deeper than the {m}-row slabs; use fewer slabs")
         one_call = ([cfg.cheby_iters] * self.vel_cheby
                     + [self.k_dens] * (self.dens_cheby and not self.fused_dens)
                     + [self.it_p] * (self.cheby_p and not self.fused_proj))
@@ -219,6 +211,12 @@ class _SlabStep:
                                       _ext(rhs, K), self.flags)]
 
     def _pressure(self, div):
+        cfg = self.cfg
+        if self.solver == "multigrid":
+            return mg_slabs(div, cfg.mg_cycles, cfg.n, self.flags,
+                            self.ops.smooth, self.smooth_coarse)
+        if self.solver == "cg":
+            return cg_slabs(div, cfg.cg_iters, cfg.n, self.flags)
         if self.cheby_p:
             K = _ceil8(self.it_p + 1)
             ext = _ext(div, K)
@@ -339,6 +337,8 @@ def make_sharded_step_fn(
     jnp block route) raises ``NotImplementedError``.  ``"auto"`` takes the
     slab route where the shape qualifies and raises otherwise.  A 2-D mesh
     qualifies by row-flattening: its devices become a (px·py, 1) mesh.
+    ``pressure_solver="multigrid"`` raises ``ValueError`` unless every slab
+    has an even row count, as JAX's slab route does.
 
     ``advect_mode``: ``"windowed"`` or ``"auto"``, the slab route's
     gather (every slab must hold ``max_courant+1`` rows); ``"exact"`` needs
@@ -389,10 +389,13 @@ def make_sharded_step_fn(
             f"mesh ({px}, {py}) with shard_backend={shard_backend!r}, "
             f"advect_mode={advect_mode!r} needs the block route: "
             f"{_BLOCK_ROUTE}")
-    if cfg.pressure_solver in ("multigrid", "cg"):
-        raise NotImplementedError(
-            f"pressure_solver={cfg.pressure_solver!r} on slabs composes the "
-            f"sharded {cfg.pressure_solver} solver: {_BLOCK_ROUTE}")
+    if cfg.pressure_solver == "multigrid" and (side // slabs) % 2:
+        # The coarse grid's 2x2 groups stay inside a slab (JAX's gate,
+        # sharded.py:1029-1038 there; a slab is full width).
+        raise ValueError(
+            f"sharded multigrid needs even local block sizes ((n+2)/px "
+            f"and (n+2)/py even); got ({side // slabs}, {side}) on mesh "
+            f"({px}, {py})")
     mesh = mesh.reshape(slabs, 1)
 
     run = _SlabStep(cfg, mesh, audited)

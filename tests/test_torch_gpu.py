@@ -603,6 +603,65 @@ def test_damped_smoother_matches_plain(cuda, side):
         assert torch.equal(got, chain), check.label
 
 
+@pytest.mark.parametrize("side", [33, 1025])
+def test_damped_smoother_on_odd_sides(cuda, side):
+    """K1-damp on the odd coarse grids of the slab multigrid ((n/2 + 2)²
+    with n/2 odd: 33² at n = 62, 1025² at 2048²) against
+    ``ops.multigrid._smooth`` and the per-sweep damped K1, bit for bit."""
+    for check in checks.kernel_checks_damp(side, cuda, seed=side):
+        got, want, chain = check.run(), check.plain(), check.chain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), check.label
+        assert torch.equal(got, chain), check.label
+
+
+@pytest.mark.parametrize("side,m", [(64, 16), (2048, 256)])
+def test_slab_smoother_matches_plain(cuda, side, m):
+    """K9-damp (``smooth_slab``) against its plain twin on top, interior
+    and bottom slabs, bit for bit, and against itself at one launch a
+    sweep; a 2-sweep smooth is one launch."""
+    for check in checks.kernel_checks_slab_smooth(side, m, cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want, chain = check.plain(), check.chain()
+        torch.cuda.synchronize()
+        if " 2 sweeps" in check.label:
+            assert counts["jacobi_slab_sweeps_damp"] == 1, check.label
+        assert torch.equal(got, want), check.label
+        assert torch.equal(got, chain), check.label
+
+
+@pytest.mark.parametrize("solver", ["multigrid", "cg"])
+def test_slab_solver_step_launches_and_matches_reference(cuda, solver):
+    """The row-slab step with the multigrid (two cycles) or CG-20
+    projection on 8 slabs of 32 rows: the launches of
+    ``chip_smoke.expected_launches_sharded`` (K9-damp and K1-damp for
+    multigrid) and the ``reference`` backend's state."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_state, unshard)
+
+    cfg = ft.SimConfig(n=254, jacobi_iters=20, backend="cuda", device=cuda,
+                       pressure_solver=solver, mg_cycles=2, cg_iters=20)
+    mesh = make_mesh([cuda] * 8)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    state, src = shard_state(state, mesh), shard_state(src, mesh)
+    step = make_sharded_step_fn(cfg, mesh)
+    assert step.routes["projection"] == "composed"
+    cuda_ops.reset_launch_counts()
+    got = unshard(step(state, src))
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        **chip_smoke.expected_launches_sharded(cfg, 8)}
+    ref = make_sharded_step_fn(cfg.replace(backend="reference"), mesh)
+    want = unshard(ref(state, src))
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("side", [24, 64])
 def test_windowed_k6_matches_plain(cuda, side):
     """K6 in the gather window against ``ops.three_d.advect3_windowed``:

@@ -275,6 +275,13 @@ def test_rejects_unported_or_unknown_backends(kw):
 
 @pytest.mark.parametrize("solver", ["multigrid", "cg"])
 def test_rejects_sharded_krylov_and_multigrid(solver):
+    """The multigrid and CG projections run on row slabs
+    (``tests/test_torch_sharded_solvers.py``); what stays refused is JAX's
+    block route for them (``shard_backend="reference"``, its jnp step on 2-D
+    blocks), which is not ported."""
+    cfg = _cfg("parity", pressure_solver=solver)
     with pytest.raises(NotImplementedError, match="A10c"):
-        make_sharded_step_fn(_cfg("parity", pressure_solver=solver),
-                             make_mesh([CPU] * 4))
+        make_sharded_step_fn(cfg, make_mesh([CPU] * 4),
+                             shard_backend="reference")
+    assert make_sharded_step_fn(cfg, make_mesh([CPU] * 4)).routes[
+        "projection"] == "composed"
