@@ -48,13 +48,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    run's shape, whose working set exceeds the L2), each call with a tiled
    K9 solve beside the per-sweep chain (the tiled K9's one launch of T
    sweeps labelled ``jacobi_slab_sweeps``, the per-sweep K9's one sweep
-   ``jacobi_slab``); then K9-damp (``smooth_slab``, the slab multigrid's
-   smoother) on top, interior and bottom slabs of 256 rows with the 8-row
-   halo (2-sweep smooths from a guess and from zero, a 7-sweep chunk)
-   against its plain twin and against itself at one launch a sweep, bit for
-   bit, timed beside both and its bound; and K1-damp at 1025², the slab
+   ``jacobi_slab``); then K9-damp, the slab multigrid's smoother
+   (``smooth_slabs``, every slab in one launch, its halo rows read from
+   the neighbouring slabs' arrays), on 8 slabs of 2048² (2 sweeps from a
+   guess and from zero, 7, and 40 in several launches) against its plain
+   twin, bit for bit, and its 2-sweep smooths so held and timed beside
+   the plain twin and the bound on 8 slabs of 2048², one slab, 4 slabs of
+   8192² and 128 slabs of 16 rows; and K1-damp at 1025², the slab
    multigrid's odd coarse grid at 2048², against ``_smooth`` and the
-   per-sweep damped K1 as in phase 3f, timed;
+   per-sweep damped K1 as in phase 3f, timed on its route
+   (``cuda_ops.damped_plan``: the 2-sweep smooths on 16-row tiles at T =
+   5, the 40-sweep solve on 64-row tiles at T = 10, both clear of the
+   deeper halo);
 3d. every z-slab kernel of the 3-D multi-device step against its plain twin
    for a top, an interior and a bottom slab of 32 planes of 256³
    (max|Δ| <= 1e-5): Jacobi, zero guess, fast, a Chebyshev chain's first
@@ -65,21 +70,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    segment on the per-sweep K13 bit for bit; timed beside bound and launch
    floor (the segments as in 3b; K14 also on one field and on smooth and
    shear velocities, beside ``grid_sample``);
-3e. the two fused kernels no step calls (as in the JAX package): K18, the
-   split-operand slab Jacobi, against K9 on the ``torch.cat`` of its
-   operands bit for bit on top, interior and bottom 256-row slabs of 2048²
-   and on 2048-row slabs of 8192² (K = 24, 20 sweeps; Jacobi, zero guess,
-   fast); K17, the fused velocity tail, against its plain version bit for
+3e. the two fused kernels no step calls (as in the JAX package): B13, the
+   split-operand slab Jacobi (the tiled K9's first launch reading its
+   tiles from the halo and slab operands, then the tiled K9), against K9
+   on the ``torch.cat`` of its operands bit for bit on top, interior and
+   bottom 256-row slabs of 2048² and on 2048-row slabs of 8192² (K = 24,
+   20 sweeps; Jacobi, zero guess, fast) and against the route before it
+   (K18's one sweep, then K9) on the 2048² slabs; K17, the fused velocity tail, against its plain version bit for
    bit at 2048² in both its forms (resident, which the launch takes there,
    and streaming) and on a batch of two 2048² grids (streaming), each
    check printing the form that ran; then K17 at 2048² (20 parity sweeps
    with windows of 4 and 1 cells, the 14-sweep Chebyshev pressure solve,
    then the first and the last in the streaming form) and on the datagen
    batch of 1024 × 256² (streaming; 20 sweeps and Chebyshev 14, window 1),
-   and K18 on an interior slab, each timed beside its bound, the launch
-   floor, its plain version and the composition it replaces (K3's
-   windowed pair and ``fused_project``; two ``torch.cat`` and K9).  K18
-   against its plain version runs in phase 3c;
+   and B13 on an interior slab (the split-source launch, the 20-sweep
+   solve, and K18's launch and solve before it), each timed beside its
+   bound, the launch floor, its plain version and the composition it
+   replaces (K3's windowed pair and ``fused_project``; two ``torch.cat``
+   and K9).  B13 against its plain version runs in phase 3c;
 3f. K1-damp (the multigrid smoother) against ``ops.multigrid._smooth``
    at 2048², 128², 16² and on a batch of 64 × 16² (2 sweeps from a guess
    and from zero, 40 from zero; bit for bit expected, max|Δ| <= 1e-6
@@ -124,10 +132,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    against it too; not for multigrid, whose slab route runs the classic
    cycle and the single-device step the graded one); ms/step eager and as
    a CUDA graph; the multigrid and CG slab projections' max|div| beside
-   the single-device step's and Jacobi-20's; then the 8-slab
-   step's first velocity-diffusion chunk again through K18, each slab's
+   the single-device step's and Jacobi-20's; the 2048² multigrid step also
+   on 128 slabs of 16 rows (``fuse_sweeps=8``; every slab's smooth in one
+   K9-damp launch); then the 8-slab
+   step's first velocity-diffusion chunk again through B13, each slab's
    halos as the step exchanges them, against the step's own route (bit for
-   bit), launch counts checked;
+   bit), launch counts checked, timed beside it and K18 + K9;
 11. the 3-D multi-device step, ``make_sharded_step_fn_3d`` with
    ``audited=True`` on one card: 256³ parity on 1 and on 8 z-slabs, the
    compensated mode (``PERF_POINT_3D``) with fast math on 8 slabs, and the
@@ -233,9 +243,10 @@ in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
 and phase 17's CLI calls for the 2-D kernels, phases 8, 16 and 17 for the
 3-D ones, the 8-slab
 2048² parity run of phase 10 for the row-slab kernels (K9-damp and the
-slab K1-damp from its 8-slab multigrid and CG runs), the 8-slab 256³
-parity run of phase 11 for the z-slab kernels, phase 12's tail runs for
-K17, phase 10's chunk run for K18, phases 14 and 18 for K1-damp and
+slab K1-damp from its 8-slab multigrid and CG runs), the
+8-slab 256³ parity run of phase 11 for the z-slab kernels, phase 12's tail
+runs for K17, phase 10's chunk run for B13's split-source K9, phases 14 and
+18 for K1-damp and
 phase 16 for K6's window), its max|Δ| from phase 3, 3b, 3c, 3d, 3e or 3f,
 its device time beside its plain version's, and its bound; the bf16 forms
 are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
@@ -245,10 +256,12 @@ kernel's ``jacobi3_sweeps`` and ``jacobi3_slab_sweeps`` from phase 16's
 compensated run and phase 11's compensated 8-slab run, whose fast
 Chebyshev solves it takes; the tiled K9's ``jacobi_slab_sweeps`` from
 phase 10's 8-slab 2048² parity run).  The per-sweep K1's forms
-(``jacobi_sweep``, ``jacobi_sweep_bf16``, ``jacobi_sweep_damp``) and the
-per-sweep K9 (``jacobi_slab``), which the tiled K1, K1-damp and the tiled
-K9 replaced on every path, run on none and are left out of the line
-(``OFF_PATH``): every path's launch counts hold them at 0.  The last line
+(``jacobi_sweep``, ``jacobi_sweep_bf16``, ``jacobi_sweep_damp``), the
+per-sweep K9 (``jacobi_slab``) and K18's one sweep (``jacobi_slab_split``),
+which the tiled K1, K1-damp, the tiled K9 and its split-source first
+launch replaced on every path, run on none and are left out of the line
+(``OFF_PATH``): every path's launch counts hold them at 0.  Each timing
+times a plain version in a CUDA graph of ``PLAIN_REPS`` calls, once.  The last line
 is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before any phase.
 """
@@ -315,9 +328,14 @@ KERNEL_SOURCES = {
     "advect3_slab": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
     "advect_project": (f"{CSRC}/advect_project.cu", f"{TPU_TAIL}:299"),
     "jacobi_slab_split": (f"{CSRC}/jacobi_slab_split.cu", f"{TPU_SLABS}:506"),
-    # The slab multigrid's smoother: the TPU step smooths in jnp
-    # (_mg_smooth_local, no pallas_call).
-    "jacobi_slab_sweeps_damp": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_STEP}:477"),
+    # B13 as the tiled K9's first launch, its tiles read from the split
+    # operands.
+    "jacobi_slab_sweeps_split": (f"{CSRC}/jacobi_tiles.cu",
+                                 f"{TPU_SLABS}:506"),
+    # The slab multigrid's smoother, every slab of a device in one launch:
+    # the TPU step smooths in jnp (_mg_smooth_local, no pallas_call).
+    "jacobi_slab_sweeps_damp_group": (f"{CSRC}/jacobi_tiles.cu",
+                                      f"{TPU_STEP}:477"),
     # The tiled K9, T sweeps a launch on a row slab's buffer.
     "jacobi_slab_sweeps": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_SLABS}:290"),
     # The damped mode of the same pallas_call (fused_jacobi's damp), per
@@ -342,12 +360,18 @@ KERNEL_SOURCES = {
 }
 # Phase 18's batch of grids for the multigrid and CG steps.
 SOLVER_BATCH = 64
+# The calls in a CUDA graph that times a plain version (kernel_times): its
+# many small operations make a graph of 20 slow to capture, and its time is
+# no yardstick of the kernel's.
+PLAIN_REPS = 3
 # The per-sweep K1's forms and the per-sweep K9: the tiled K1, K1-damp and
 # the tiled K9 took over every solve they ran, so no path launches them;
 # phases 3, 3c, 3f and 18 time them beside the tiled kernels as their
-# "before", and the kernels line leaves them out.
+# "before", and the kernels line leaves them out.  So too K18's one sweep,
+# which the split-source tiled K9 replaced (phase 3e holds and times it
+# beside that).
 OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16", "jacobi_slab",
-            "jacobi_sweep_damp")
+            "jacobi_sweep_damp", "jacobi_slab_split")
 
 
 def phase(title: str) -> None:
@@ -487,15 +511,19 @@ def expected_launches3(cfg) -> dict[str, int]:
 
 
 def slab_solve_launches(sweeps: int, rows: int, side: int,
-                        done: int = 0) -> dict[str, int]:
-    """Tiled K9 launches of a row-slab solve of ``sweeps`` sweeps, the
-    first ``done`` of them run by another kernel (K18), on a (rows, side)
-    buffer: ``sweep_plan``'s, T of ``cuda_ops.slab_tiling`` sweeps each,
-    the remainder last."""
+                        split: bool = False) -> dict[str, int]:
+    """Tiled K9 launches of a row-slab solve of ``sweeps`` sweeps on a
+    (rows, side) buffer: ``sweep_plan``'s, T of ``cuda_ops.slab_tiling``
+    sweeps each, the remainder last; ``split``: the first of them from
+    B13's split operands (``jacobi_slab_sweeps_split``)."""
     from fluidsimulationcuda_torch.kernels import cuda_ops
 
-    per_launch = cuda_ops.slab_tiling(rows, side, sweeps - done)[0]
-    return {"jacobi_slab_sweeps": -(-(sweeps - done) // per_launch)}
+    per_launch = cuda_ops.slab_tiling(rows, side, sweeps)[0]
+    launches = -(-sweeps // per_launch)
+    if split:
+        return {"jacobi_slab_sweeps_split": 1,
+                "jacobi_slab_sweeps": launches - 1}
+    return {"jacobi_slab_sweeps": launches}
 
 
 def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
@@ -548,27 +576,28 @@ def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
 
 def slab_mg_launches(cfg, slabs: int) -> dict[str, int]:
     """Kernel launches of one slab multigrid solve of ``cfg`` on ``slabs``
-    row slabs (``parallel/solvers.py``), by kernel: each cycle's 2-sweep
-    smooths on every slab on K9-damp (chunks of at most ``SMOOTH_HALO - 1``
-    sweeps, each in the launches of ``cuda_ops.slab_smooth_tiling``: one),
-    and the replicated coarse grid's classic cycle (2 + 40 sweeps on
-    (n/2 + 2)², two-level on more than one slab) on K1-damp in the launches
-    of ``cuda_ops.damped_plan`` (at 1025²: 1 + 7)."""
+    row slabs of one device (``parallel/solvers.py``), by kernel: each
+    cycle's 2-sweep smooths on the grouped K9-damp, every slab in one
+    launch of ``cuda_ops.group_smooth_tiling``'s T sweeps (a table of at
+    most ``GROUP_SLABS`` slabs a launch), and the replicated coarse grid's
+    classic cycle (2 + 40 sweeps on (n/2 + 2)², two-level on more than one
+    slab) on K1-damp in the launches of ``cuda_ops.damped_plan`` (at
+    1025²: 1 + 4)."""
     from fluidsimulationcuda_torch.kernels import cuda_ops
     from fluidsimulationcuda_torch.ops.multigrid import mg_levels
-    from fluidsimulationcuda_torch.parallel.solvers import SMOOTH_HALO
 
     side = cfg.n + 2
-    rows = side // slabs + 2 * SMOOTH_HALO
-    launches = dict.fromkeys(("jacobi_slab_sweeps_damp",
+    m = side // slabs
+    launches = dict.fromkeys(("jacobi_slab_sweeps_damp_group",
                               "jacobi_sweeps_damp", "jacobi_sweep_damp"), 0)
 
     def fine(sweeps):
         while sweeps > 0:
-            s = min(SMOOTH_HALO - 1, sweeps)
-            per_launch = cuda_ops.slab_smooth_tiling(rows, side, s)[0]
-            launches["jacobi_slab_sweeps_damp"] += slabs * -(-s // per_launch)
-            sweeps -= s
+            per_launch = cuda_ops.group_smooth_tiling(side * side, m,
+                                                      sweeps)[0]
+            launches["jacobi_slab_sweeps_damp_group"] += -(
+                -slabs // cuda_ops.GROUP_SLABS)
+            sweeps -= per_launch
 
     def coarse(n, sweeps):
         per_launch = cuda_ops.damped_plan(n + 2, sweeps).per_launch
@@ -978,13 +1007,15 @@ def windowed_path(cfg, label: str, card: str) -> dict[str, int]:
 
 
 def split_chunk(cfg, slabs: int, label: str, card: str) -> dict[str, int]:
-    """K18 on the row-slab step's Jacobi chunk: the first step's
+    """B13 on the row-slab step's Jacobi chunk: the first step's
     u-diffusion chunk of ``cfg`` on ``slabs`` slabs of one card (rhs u +
     dt*src from the guess src, ``min(fuse, iters)`` sweeps over a
     ``ceil8(sweeps+1)``-row halo), each slab's halos as the step exchanges
-    them, through ``fused_jacobi_slab_split`` against the step's own route
-    (the ``torch.cat`` extended slabs and K9), bit for bit; both timed as
-    CUDA graphs over every slab.  Returns the K18 run's launch counts."""
+    them, through ``fused_jacobi_slab_split`` (the split-source tiled K9,
+    then the tiled K9) against the step's own route (the ``torch.cat``
+    extended slabs and K9), bit for bit; both timed as CUDA graphs over
+    every slab, beside the route before (K18's one sweep, then K9).
+    Returns the split run's launch counts."""
     from fluidsimulationcuda_torch import reference_init
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
     from fluidsimulationcuda_torch.kernels import cuda_sharded as cs
@@ -1024,20 +1055,28 @@ def split_chunk(cfg, slabs: int, label: str, card: str) -> dict[str, int]:
     torch.cuda.synchronize()
     counts = cuda_ops.launch_counts()
     design = {**dict.fromkeys(cuda_ops.KERNELS, 0),
-              "jacobi_slab_split": slabs,
               **{name: slabs * count for name, count in slab_solve_launches(
-                  sweeps, m + 2 * K, cfg.n + 2, done=1).items()}}
+                  sweeps, m + 2 * K, cfg.n + 2, split=True).items()}}
     print(f"{label}: launches {counts} (expected {design})")
     if counts != design:
         raise AssertionError(f"{label}: launch counts {counts} != {design}")
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     print(f"{label}: against the step's own route: max|d| {err:.3e}")
     if err != 0.0:
-        raise AssertionError(f"{label}: K18 chunk differs by {err:.3e}")
-    k1, o1 = checks.device_ms(split), checks.device_ms(own)
-    k2, o2 = checks.device_ms(split), checks.device_ms(own)
-    print(f"{label}: the chunk over {slabs} slabs as a CUDA graph: K18 + K9 "
-          f"{(k1 + k2) / 2:.5f} ms, torch.cat + K9 {(o1 + o2) / 2:.5f} ms "
+        raise AssertionError(f"{label}: split chunk differs by {err:.3e}")
+
+    def before():
+        return [cs._split_k18(1, xi, xt, xb, ri, rt, rb, fl, **kw)
+                for xi, (xt, xb), ri, (rt, rb), fl
+                in zip(x, _halos(x, K), rhs, _halos(rhs, K), flags)]
+
+    fns = {"split": split, "own": own, "before": before}
+    ms = dict.fromkeys(fns, 0.0)
+    for name in (*fns, *reversed(fns)):
+        ms[name] += checks.device_ms(fns[name]) / 2
+    print(f"{label}: the chunk over {slabs} slabs as a CUDA graph: "
+          f"split-source K9 {ms['split']:.5f} ms, torch.cat + K9 "
+          f"{ms['own']:.5f} ms, K18 + K9 (before) {ms['before']:.5f} ms "
           f"({card})")
     return counts
 
@@ -1843,14 +1882,20 @@ def main() -> None:
                               "2048², slab of 256 rows", card, floor))
     kernel_times(checks.timing_checks_slab(8192, 2048, "cuda", SEED),
                  "8192², slab of 2048 rows", card, floor)
-    # K9-damp, the slab multigrid's smoother, and K1-damp on its odd coarse
-    # grid (1025² at 2048²).
-    compare(checks.kernel_checks_slab_smooth(2048, 256, "cuda", SEED), 0.0,
+    # K9-damp, the slab multigrid's smoother (every slab in one launch),
+    # against its plain twin, and timed on four meshes.  K1-damp on the
+    # slab multigrid's odd coarse grid (1025² at 2048²).
+    compare(checks.kernel_checks_group_smooth(2048, 256, "cuda", SEED), 0.0,
             errs, "bit for bit")
-    timed = checks.timing_checks_slab_smooth(2048, 256, "cuda", SEED)
-    timed_against_both(timed, 0.0, errs)
-    times.update(kernel_times(timed, "2048², slab of 256 rows, 8-row halo",
-                              card, floor))
+    for side, m, mesh in ((2048, 256, "2048², 8 slabs of 256 rows"),
+                          (2048, 2048, "2048², one slab"),
+                          (8192, 2048, "8192², 4 slabs of 2048 rows"),
+                          (2048, 16, "2048², 128 slabs of 16 rows")):
+        timed = checks.timing_checks_group_smooth(side, m, "cuda", SEED)
+        compare(timed, 0.0, errs, "bit for bit")
+        timed = kernel_times(timed, f"{mesh}, grouped smooth", card, floor)
+        if m == 256:
+            times.update(timed)
     timed = checks.kernel_checks_damp(1025, "cuda", SEED)
     timed_against_both(timed, 1e-6, errs)
     kernel_times(timed, "1025² (the slab multigrid's coarse grid)", card,
@@ -1869,11 +1914,13 @@ def main() -> None:
     times.update(kernel_times(timed3, "256³, slab of 32 planes", card, floor))
     del timed3
 
-    phase("3e the fused tail K17 and the split slab Jacobi K18")
+    phase("3e the fused tail K17 and the split slab Jacobi B13")
     compare(checks.split_against_concat(2048, 256, "cuda", SEED), 0.0, errs,
             "against K9 on the concatenation")
     compare(checks.split_against_concat(8192, 2048, "cuda", SEED), 0.0, errs,
             "against K9 on the concatenation")
+    compare(checks.split_against_k18(2048, 256, "cuda", SEED), 0.0, errs,
+            "against K18 then K9")
     compare([c for c in checks.kernel_checks(2048, "cuda", SEED)
              if "advect_project" in c.kernels], 0.0, errs, "bit for bit")
     times.update(kernel_times(checks.timing_checks_tail(2048, "cuda", SEED),
@@ -1972,7 +2019,7 @@ def main() -> None:
     launches_slab = sharded_path(parity, 8, "2048² parity, 8 slabs", card, 6,
                                  tol=(1e-5, 2e-5, 1e-4))
     launches_split = split_chunk(parity, 8, "2048² parity, 8 slabs, u "
-                                 "diffusion chunk through K18", card)
+                                 "diffusion chunk through B13", card)
     rho, k_d, k_p = perf_operating_point(2048)
     # As in phase 6: the reference backend ignores fast_math.
     sharded_path(cheby.replace(fast_math=True), 8,
@@ -1993,6 +2040,11 @@ def main() -> None:
                  tol=(1e-5, 2e-5, 1e-4), single=False)
     launches_slab_mg = sharded_path(mg_slab, 8, label + ", 8 slabs", card,
                                     6, tol=(1e-5, 2e-5, 1e-4), single=False)
+    # 16-row slabs take Jacobi chunks of at most 8 sweeps (as above); every
+    # slab's smooth is one K9-damp launch.
+    sharded_path(mg_slab.replace(fuse_sweeps=8), 128,
+                 label + ", fuse_sweeps=8, 128 slabs", card, 3,
+                 tol=(1e-5, 2e-5, 1e-4), graph_reps=1, single=False)
     projection_quality(mg_slab, label, bar=False, slabs=8)
     cg_slab = parity.replace(pressure_solver="cg", cg_iters=20)
     launches_slab_mg = {k: c + launches_slab_mg[k] for k, c in sharded_path(
@@ -2147,7 +2199,8 @@ def main() -> None:
                      + launches_16[k] + launches_sb[k]
                      for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
-    main_launches["jacobi_slab_split"] = launches_split["jacobi_slab_split"]
+    main_launches["jacobi_slab_sweeps_split"] = launches_split[
+        "jacobi_slab_sweeps_split"]
     idle = [k for k, c in main_launches.items() if c == 0 and k not in OFF_PATH]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")
@@ -2290,10 +2343,12 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
                  ) -> dict[str, tuple[float, float, float, str,
                                       float | None]]:
     """Device ms of each timing check, kernel beside plain: CUDA graphs of
-    20 calls, timed in turns plain, kernel, kernel, plain (plain, kernel,
-    composed, chain, chain, composed, kernel, plain where the check carries
-    the composition a fused kernel replaces or the same call on the
-    per-sweep K1); with the bound (the least time for the bytes the call
+    20 calls, timed in turns plain, kernel, kernel (plain, kernel,
+    composed, chain, chain, composed, kernel where the check carries the
+    composition a fused kernel replaces or the same call on the per-sweep
+    K1); the plain version, which repeats the kernel's arithmetic in many
+    PyTorch operations and is no yardstick of speed, once in a graph of
+    ``PLAIN_REPS`` calls; with the bound (the least time for the bytes the call
     must move, its inputs read once and its outputs written once, and its
     operations, over the HBM and float32 peaks), a gather's library
     yardstick (``library_gather_ms``), the share of K4's or K6's blocks
@@ -2302,9 +2357,10 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
 
     times = {}
-    print(f"  device ms per call at {size} (CUDA graph of 20 calls; {card}):")
+    print(f"  device ms per call at {size} (CUDA graph of 20 calls, the "
+          f"plain version's of {PLAIN_REPS}; {card}):")
     for c in check_list:
-        p1 = checks.device_ms(c.plain)
+        plain = checks.device_ms(c.plain, reps=PLAIN_REPS)
         k1 = checks.device_ms(c.run)
         if c.composed is not None:
             c1 = checks.device_ms(c.composed)
@@ -2314,9 +2370,8 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
         if c.composed is not None:
             c2 = checks.device_ms(c.composed)
         k2 = checks.device_ms(c.run)
-        p2 = checks.device_ms(c.plain)
         bound, bound_by = c.bound()
-        kernel, plain = (k1 + k2) / 2, (p1 + p2) / 2
+        kernel = (k1 + k2) / 2
         library = (library_gather_ms(c.gather) if c.gather is not None
                    else None)
         times[c.label] = (kernel, plain, bound, bound_by, library)

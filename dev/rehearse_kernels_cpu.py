@@ -47,7 +47,8 @@ loader patched), and:
   batch of three, float32 and bf16, and, on a batch of three grids,
   ``kernel_checks_flows`` at ``--side2``,
   ``kernel_checks3`` and ``kernel_checks_flows`` at ``--side3``,
-  ``kernel_checks_slab`` and ``kernel_checks_slab_smooth`` (K9-damp) for
+  ``kernel_checks_slab`` and ``kernel_checks_group_smooth`` (K9-damp; B13
+  also against K18 then K9) for
   slabs of ``--slab-side``/4 rows at ``--slab-side``,
   ``kernel_checks_slab3`` and
   ``kernel_checks_slab3_flows`` for z-slabs of ``--slab3-side``/3 planes at
@@ -115,6 +116,7 @@ SHIM = r"""#pragma once
 #define __restrict__ __restrict
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __grid_constant__
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
@@ -566,9 +568,9 @@ def main() -> int:
                   + checks.kernel_checks3_windowed(args.side3, "cpu", 1)
                   + checks.kernel_checks_slab(args.slab_side,
                                               args.slab_side // 4, "cpu", 1)
-                  + checks.kernel_checks_slab_smooth(args.slab_side,
-                                                     args.slab_side // 4,
-                                                     "cpu", 1)
+                  + checks.kernel_checks_group_smooth(args.slab_side,
+                                                      args.slab_side // 4,
+                                                      "cpu", 1)
                   + checks.kernel_checks_slab3(args.slab3_side,
                                                args.slab3_side // 3, "cpu",
                                                1)
@@ -613,13 +615,17 @@ def main() -> int:
         failures += err > 0.0
         print(f"  {c.label + ' vs per-sweep':45s} max|d| {err:.3e}"
               f"{'  FAIL' if err > 0.0 else ''}")
-    # K18 against K9 on the concatenated operands: bit for bit.
-    for c in checks.split_against_concat(args.slab_side, args.slab_side // 4,
-                                         "cpu", 1):
+    # B13 against K9 on the concatenated operands and against K18 then K9:
+    # bit for bit.
+    for c in (checks.split_against_concat(args.slab_side,
+                                          args.slab_side // 4, "cpu", 1)
+              + checks.split_against_k18(args.slab_side,
+                                         args.slab_side // 4, "cpu", 1)):
         with kernels_on_cpu(lib):
             err = checks.max_abs_diff(c.run(), c.plain())
         failures += err > 0.0
-        print(f"  {c.label + ' vs concat':45s} max|d| {err:.3e}"
+        label = c.label if " vs " in c.label else c.label + " vs concat"
+        print(f"  {label:45s} max|d| {err:.3e}"
               f"{'  FAIL' if err > 0.0 else ''}")
 
     modes = {"parity": {},

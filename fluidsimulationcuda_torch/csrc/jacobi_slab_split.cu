@@ -19,6 +19,13 @@
 //
 // Bound: device memory, as K9's first sweep: x and rhs read once (m+2K rows
 // each), x_1 and the extended rhs written once (m+2K-2 rows each).
+//
+// No path launches it any more: B13's first launch is the tiled K9's
+// split-source form (fsc_jacobi_slab_sweeps_split, jacobi_tiles.cu), T
+// sweeps in shared-memory tiles read from the same three operands.  This
+// one-sweep form stays as the head of the per-sweep chain that form is
+// held to (cuda_ops.launch_sweeps(0), then the per-sweep K9), as
+// jacobi_slab.cu stays for the tiled K9.
 #include "fsc_common.cuh"
 
 namespace {

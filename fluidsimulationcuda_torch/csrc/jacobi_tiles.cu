@@ -135,30 +135,55 @@
 // tile took 0.030 there, and 0.0054 ms against 0.0040 on 16-row tiles for
 // a 32^2 smooth.
 //
-// K9-damp jacobi_slab_damped_sweeps: the multigrid smoother on a row slab's
-// (rows, side) halo-extended buffer (fsc_jacobi_slab_sweeps_damp), K1-damp's
-// damped body on K9's slab walk (SlabTiles: the band, the wall rows gtop and
-// gbot, the deeper halo of plan_slab).  It replaces no Pallas kernel: the
-// JAX package smooths the fine level of its sharded multigrid in jnp
-// (_mg_smooth_local, fluidsimulationcuda_tpu/parallel/sharded.py:477), one
-// sweep per one-row halo exchange.  Here a smooth of `count` sweeps on a
-// buffer whose halo is at least `count` rows deep is one launch, and
-// computes what that many exchanges and sweeps compute on the slab's rows,
-// bit for bit (the plain twin, cuda_sharded.smooth_slab_plain, equals
+// K9-damp jacobi_slab_damped_group: the multigrid smoother on row slabs
+// (fsc_jacobi_slab_sweeps_damp_group), K1-damp's damped body on K9's slab
+// walk (SlabTiles: the band, the wall rows gtop and gbot, the deeper halo
+// of plan_slab), every slab of a device in one launch, slab blockIdx.z.
+// It replaces no Pallas kernel: the JAX package smooths the fine level of
+// its sharded multigrid in jnp (_mg_smooth_local,
+// fluidsimulationcuda_tpu/parallel/sharded.py:477), one sweep per one-row
+// halo exchange.  Here a smooth of `count` sweeps is one launch over
+// slabs whose halo is `count` rows deep, and computes what that many
+// exchanges and sweeps compute on each slab's rows, bit for bit (the
+// plain twin, cuda_sharded.smooth_slabs_plain, equals
 // ops.multigrid._smooth on the whole grid there): omw*x_k + w*val in that
 // order, the wall rows and ghost columns by the border rule of their
 // interior neighbour's damped value.  Float32, no fold, fast mode or
 // Chebyshev.
 //
-// Bound: a smooth reads the buffer's guess (none from zero) and its rhs
-// once and writes the band of its last sweep once, and does 9 float
-// operations a cell a sweep (kernels/checks.py, _slab_sweeps_cost): about
-// 6.6 MB and 2 us for the 2-sweep smooth on a 272-row buffer of 2048^2
-// (8 slabs, an 8-row halo).  Such a buffer (0.56 M cells) is one partial
-// wave of K1's tiles, so the tile's height is chosen by measurement
-// (cuda_ops.slab_smooth_tiling, PERF.md): K1-damp's tiles, 16 rows there
-// (0.0061 ms against 0.0067 on K9's 32 rows, 30% of the bound; a launch a
-// sweep, as JAX exchanges, 0.0094), 64 rows from 2 M buffer cells.
+// Bound: a smooth reads every slab's guess (none from zero) and rhs once
+// and writes its result once, and does 9 float operations a cell a sweep
+// (kernels/checks.py, _group_cost): 0.0150 ms for the 2-sweep smooth over
+// 2048^2 (bytes).  What bounded a launch a slab on its halo-extended
+// buffer was latency: each slab's smooth was one partial wave, 8 launches
+// of 0.0061 ms and 8 torch.cat halo copies a smooth on 8 slabs of 2048^2.
+// Here the launch's tiles cover every slab, and a tile loads buffer row r
+// of its slab's (m + 2*count)-row buffer from one of three row sources
+// (SplitSlabTiles, K18's split_row in the tile load): the neighbour
+// above's own last `count` rows, the slab, the neighbour below's first
+// `count` rows, each a pointer into that slab's array (or into a copy
+// where it lies on another device; null, zero rows, beyond a wall), so
+// no extended slab is built.  The slabs' pointers and wall rows travel in
+// the kernel's parameters (SlabGroup), captured with the launch by a CUDA
+// graph.  Every index is SlabTiles', so a launch computes what the tiled
+// sweeps compute on the concatenated buffer, bit for bit; a smooth of
+// more sweeps than a launch takes runs in several, each reading its
+// neighbours' rows as the last left them (a fresh exchange).  The tile by
+// measurement (cuda_ops.group_smooth_tiling, PERF.md): 32 rows over
+// 2048^2 (0.0353 ms on 8 slabs, 42.6% of the bound), 64 over 8192^2.
+//
+// B13 split-source (fsc_jacobi_slab_sweeps_split): the tiled K9's first
+// launch of a solve whose extended slab comes as three operands (top
+// halo, slab, bottom halo; fused_jacobi_slab_split, pallas_sharded.py:473,
+// pallas_call :506).  K18 (jacobi_slab_split.cu) ran that solve's first
+// sweep one cell a thread from the three operands and left the other
+// sweeps to K9 launches on the buffers it wrote, which lost to two
+// torch.cat and K9 at 8192^2 (0.652 against 0.625 ms).  Here the first
+// launch runs T sweeps in the shared-memory tiles, loading them through
+// the same row sources, and writes x_T and the rhs it read (pre-scaled in
+// fast mode) on its band of the extended buffers, which the later tiled
+// launches read: bit for bit K9 on the concatenation.  Jacobi, fast mode
+// and the zero guess, as JAX's B13; no Chebyshev form.
 #include <atomic>
 #include <type_traits>
 
@@ -216,6 +241,21 @@ struct GridTiles {
     return off + fsc::clampi(r, 0, side - 1) * side +
            fsc::clampi(c, 0, side - 1);
   }
+  // The tile's loads from the operands' own arrays: whether the launch has
+  // a guess, x_k at (r, c) clamped into the grid, the rhs at the interior
+  // cell (r, c) derives from.
+  template <class P>
+  __device__ bool guess(const P& p) const {
+    return p.x != nullptr;
+  }
+  template <class P>
+  __device__ float x_at(const P& p, int r, int c) const {
+    return fsc::load(p.x, load_at(r, c));
+  }
+  template <class P>
+  __device__ float rhs_at(const P& p, int r, int c) const {
+    return fsc::load(p.rhs, inner(r, c));
+  }
   __device__ bool in_grid(int r, int c) const {
     return r >= 0 && r < side && c >= 0 && c < side;
   }
@@ -267,6 +307,18 @@ struct SlabTiles {
   __device__ int load_at(int r, int c) const {
     return fsc::clampi(r, 0, rows - 1) * side + fsc::clampi(c, 0, side - 1);
   }
+  template <class P>
+  __device__ bool guess(const P& p) const {
+    return p.x != nullptr;
+  }
+  template <class P>
+  __device__ float x_at(const P& p, int r, int c) const {
+    return fsc::load(p.x, load_at(r, c));
+  }
+  template <class P>
+  __device__ float rhs_at(const P& p, int r, int c) const {
+    return fsc::load(p.rhs, inner(r, c));
+  }
   __device__ bool in_grid(int r, int c) const {
     return r >= 0 && r < rows && c >= 0 && c < side;
   }
@@ -291,6 +343,64 @@ struct SlabTiles {
   __device__ bool writes_row(int r) const { return r < band_hi; }
   __device__ int at(int r, int c) const { return r * side + c; }
   __device__ int extent() const { return rows; }
+};
+
+// The rows of a (m + 2K, side) slab buffer held in three arrays, as
+// K18's split_row reads them (csrc/jacobi_slab_split.cu): rows [0, K) in
+// top, [K, K + m) in mid, [K + m, m + 2K) in bot, each row `side` floats.
+// A null top or bot holds zero rows (beyond a global wall, as
+// parallel/mesh.py's _halos pads there); a null mid is the zero guess.
+struct RowSources {
+  const float* top;
+  const float* mid;
+  const float* bot;
+};
+
+// SlabTiles whose tile loads take buffer row r from split row sources
+// (x and rhs) instead of one buffer: every index is SlabTiles' (rows and
+// columns clamped into the buffer, the rhs at its interior cell), so a
+// launch computes what it computes on the concatenated buffer, bit for
+// bit.  A warp's cells share a row, so the row's source is one choice a
+// warp.  Outputs are stored at buffer row r - out_row0: 0 for a buffer of
+// the whole extended slab, K for one of the slab's m rows alone.
+struct SplitSlabTiles : SlabTiles {
+  RowSources xs, rs;
+  int K, m, out_row0;
+  __device__ SplitSlabTiles(const Tiling& t, const RowSources& x,
+                            const RowSources& rhs, int halo, int slab_rows,
+                            int wall_top, int wall_bot, int first_row)
+      : SlabTiles(t),
+        xs(x),
+        rs(rhs),
+        K(halo),
+        m(slab_rows),
+        out_row0(first_row) {
+    gtop = wall_top;
+    gbot = wall_bot;
+  }
+  __device__ float row_at(const RowSources& s, int r, int c) const {
+    const float* row =
+        r < K ? (s.top ? s.top + r * side : nullptr)
+              : (r < K + m ? s.mid + (r - K) * side
+                           : (s.bot ? s.bot + (r - K - m) * side : nullptr));
+    return row ? __ldg(row + c) : 0.0f;
+  }
+  template <class P>
+  __device__ bool guess(const P&) const {
+    return xs.mid != nullptr;
+  }
+  template <class P>
+  __device__ float x_at(const P&, int r, int c) const {
+    return row_at(xs, fsc::clampi(r, 0, rows - 1),
+                  fsc::clampi(c, 0, side - 1));
+  }
+  template <class P>
+  __device__ float rhs_at(const P&, int r, int c) const {
+    return row_at(rs, fsc::slab_row_of(fsc::clampi(r, 0, rows - 1), gtop,
+                                       gbot),
+                  fsc::clampi(c, 1, n));
+  }
+  __device__ int at(int r, int c) const { return (r - out_row0) * side + c; }
 };
 
 // One sweep of the tile's rows [lo, hi) from cur into nxt, every column
@@ -330,18 +440,18 @@ __device__ __forceinline__ void sweep_tile(
   }
 }
 
-// The sweeps of one launch on the block's tile of geometry G (GridTiles,
-// SlabTiles, WholeGrid): load, `count` sweeps in shared memory, store.
-template <class G, int kRows, bool kCheby, bool kFast, bool kDamp,
+// The sweeps of one launch on the block's tile of geometry g (GridTiles,
+// SlabTiles, SplitSlabTiles, WholeGrid): load, `count` sweeps in shared
+// memory, store.
+template <int kRows, bool kCheby, bool kFast, bool kDamp, class G,
           typename TX, typename TM, typename TR, typename TO>
 __device__ __forceinline__ void sweeps_body(
-    const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t, TO* out,
-    float* xm_out, TR* rhs_out, float* tile) {
+    const G& g, const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t,
+    TO* out, float* xm_out, TR* rhs_out, float* tile) {
   constexpr int kTileH = Tile<kRows>::kTileH;
   constexpr int kCells = Tile<kRows>::kCells;
   float* cur = tile;                     // x_k
   float* nxt = tile + kTileW * kTileH;  // x_{k+1}
-  const G g(t);
   // The tile's loads, one pass an operand, each pass free of branches
   // that depend on the cell (addresses clamped into the grid), so that a
   // thread's loads are all in flight together.  Cell q of the thread is
@@ -364,10 +474,10 @@ __device__ __forceinline__ void sweeps_body(
     float x[kCells];
 #pragma unroll
     for (int q = 0; q < kCells; ++q) x[q] = 0.0f;
-    if (p.x) {
+    if (g.guess(p)) {
 #pragma unroll
       for (int q = 0; q < kCells; ++q)
-        x[q] = fsc::load(p.x, g.load_at(g.r0 + row(q), g.c0 + col(q)));
+        x[q] = g.x_at(p, g.r0 + row(q), g.c0 + col(q));
     }
 #pragma unroll
     for (int q = 0; q < kCells; ++q) {
@@ -379,7 +489,8 @@ __device__ __forceinline__ void sweeps_body(
   // The rhs as fsc::rhs_at builds it: base + src_dt*src, times 1/beta in
   // fast mode, rounded to its storage type.
 #pragma unroll
-  for (int q = 0; q < kCells; ++q) rhs[q] = fsc::load(p.rhs, inner(q));
+  for (int q = 0; q < kCells; ++q)
+    rhs[q] = g.rhs_at(p, g.r0 + row(q), g.c0 + col(q));
   if (p.flags & fsc::kPrep) {
     if (p.src) {
 #pragma unroll
@@ -495,8 +606,8 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
                          TO* __restrict__ out, float* __restrict__ xm_out,
                          TR* __restrict__ rhs_out) {
   extern __shared__ float tile[];
-  sweeps_body<GridTiles, 4, kCheby, kFast, false>(p, t, out, xm_out, rhs_out,
-                                                  tile);
+  sweeps_body<4, kCheby, kFast, false>(GridTiles(t), p, t, out, xm_out,
+                                       rhs_out, tile);
 }
 
 template <int kRows, bool kCheby, bool kFast>
@@ -506,8 +617,8 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
                               float* __restrict__ xm_out,
                               float* __restrict__ rhs_out) {
   extern __shared__ float tile[];
-  sweeps_body<SlabTiles, kRows, kCheby, kFast, false>(p, t, out, xm_out,
-                                                      rhs_out, tile);
+  sweeps_body<kRows, kCheby, kFast, false>(SlabTiles(t), p, t, out, xm_out,
+                                           rhs_out, tile);
 }
 
 // K1-damp on tiles of kRows rows of warps (GridTiles; kRows 1 or 4: tiles
@@ -517,20 +628,56 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
     jacobi_damped_sweeps_kernel(fsc::SweepParams p, Tiling t,
                                 float* __restrict__ out) {
   extern __shared__ float tile[];
-  sweeps_body<G, kRows, false, false, true>(p, t, out, nullptr,
-                                            static_cast<float*>(nullptr),
-                                            tile);
+  sweeps_body<kRows, false, false, true>(G(t), p, t, out, nullptr,
+                                         static_cast<float*>(nullptr), tile);
 }
 
-// K9-damp on a slab buffer, tiles of kRows rows of warps (1, 2 or 4: 16,
-// 32 or 64 rows).
+// One slab of a grouped K9-damp launch: its x and rhs row sources (a
+// halo of `count` rows, the launch's sweeps), its (m, side) output and
+// its wall rows in the (m + 2*count)-row buffer those sources make.
+struct GroupSlab {
+  RowSources x, rhs;
+  float* out;
+  int gtop, gbot;
+};
+
+// The slabs of one grouped launch, passed by value in the kernel's
+// parameters (CUDA 12.1 and later take up to 32,764 bytes of them on
+// sm_70 and later: 64 bytes a slab, 8 KB at kGroupSlabs), so a CUDA graph
+// captures the table with the launch and no copy to the device runs.
+constexpr int kGroupSlabs = 128;
+struct SlabGroup {
+  GroupSlab slab[kGroupSlabs];
+};
+
+// K9-damp grouped: the smooth of every slab of the group in one launch,
+// slab blockIdx.z, its halo rows read from the neighbouring slabs' own
+// arrays (tiles of kRows rows of warps: 1, 2 or 4).
 template <int kRows>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
-    jacobi_slab_damped_sweeps_kernel(fsc::SweepParams p, Tiling t,
-                                     float* __restrict__ out) {
+    jacobi_slab_damped_group_kernel(fsc::SweepParams p, Tiling t, int m,
+                                    const __grid_constant__ SlabGroup group) {
   extern __shared__ float tile[];
-  sweeps_body<SlabTiles, kRows, false, false, true>(
-      p, t, out, nullptr, static_cast<float*>(nullptr), tile);
+  const GroupSlab& s = group.slab[blockIdx.z];
+  sweeps_body<kRows, false, false, true>(
+      SplitSlabTiles(t, s.x, s.rhs, t.count, m, s.gtop, s.gbot, t.count), p,
+      t, s.out, nullptr, static_cast<float*>(nullptr), tile);
+}
+
+// The tiled K9's first launch of a solve on split operands: x and rhs from
+// (top halo, slab, bottom halo) arrays, x_count and the rhs it read
+// (pre-scaled in fast mode) written on its band of the extended
+// (m + 2K, side) buffers the launches after it read.
+template <int kRows, bool kFast>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    jacobi_slab_split_sweeps_kernel(fsc::SweepParams p, Tiling t,
+                                    RowSources xs, RowSources rs, int K,
+                                    int m, float* __restrict__ out,
+                                    float* __restrict__ rhs_out) {
+  extern __shared__ float tile[];
+  sweeps_body<kRows, false, kFast, false>(
+      SplitSlabTiles(t, xs, rs, K, m, t.gtop, t.gbot, 0), p, t, out, nullptr,
+      rhs_out, tile);
 }
 
 // The halo and output tile of a launch of `count` sweeps: a halo of
@@ -565,7 +712,7 @@ int plan_tiling(int side, int count, Tiling* t,
 // tile's first output column would be the last ghost column, its last
 // output row the wall row gtop or its first the wall row gbot: each
 // derives from its neighbour across the tile's edge.  K9 takes tiles of
-// 64 or 32 rows, K9-damp (`damped`) also of 16.
+// 64 or 32 rows, the grouped K9-damp (`damped`) also of 16.
 int plan_slab(int rows, int side, int count, int done, int gtop, int gbot,
               int tile_h, Tiling* t, bool damped = false) {
   if (count < 1 || count > kMaxSweeps || side < 3 || done < 0 ||
@@ -777,15 +924,46 @@ int launch_damped_kernel(const fsc::SweepParams& p, const Tiling& t,
 }
 
 template <int kRows>
-int launch_slab_damped_kernel(const fsc::SweepParams& p, const Tiling& t,
-                              float* out, dim3 grid, cudaStream_t stream) {
-  const auto kernel = jacobi_slab_damped_sweeps_kernel<kRows>;
+int launch_group_kernel(const fsc::SweepParams& p, const Tiling& t, int m,
+                        const SlabGroup& group, int slabs,
+                        cudaStream_t stream) {
+  const auto kernel = jacobi_slab_damped_group_kernel<kRows>;
   constexpr int kSmem = Tile<kRows>::kSmem;
   static std::atomic<int> attribute[kDevices];
   const int err = smem_attribute(kernel, kSmem, attribute);
   if (err != 0) return err;
-  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(p, t, out);
+  const dim3 grid((t.side + t.out_w - 1) / t.out_w,
+                  (t.band_hi - t.band_lo + t.out_h - 1) / t.out_h, slabs);
+  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(p, t, m, group);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kRows, bool kFast>
+int launch_split_kernel(const fsc::SweepParams& p, const Tiling& t,
+                        const RowSources& xs, const RowSources& rs, int K,
+                        int m, float* out, float* rhs_out,
+                        cudaStream_t stream) {
+  const auto kernel = jacobi_slab_split_sweeps_kernel<kRows, kFast>;
+  constexpr int kSmem = Tile<kRows>::kSmem;
+  static std::atomic<int> attribute[kDevices];
+  const int err = smem_attribute(kernel, kSmem, attribute);
+  if (err != 0) return err;
+  const dim3 grid((t.side + t.out_w - 1) / t.out_w,
+                  (t.band_hi - t.band_lo + t.out_h - 1) / t.out_h);
+  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(
+      p, t, xs, rs, K, m, out, rhs_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kRows>
+int launch_split(const fsc::SweepParams& p, const Tiling& t,
+                 const RowSources& xs, const RowSources& rs, int K, int m,
+                 float* out, float* rhs_out, cudaStream_t stream) {
+  return (p.flags & fsc::kFast) != 0
+             ? launch_split_kernel<kRows, true>(p, t, xs, rs, K, m, out,
+                                                rhs_out, stream)
+             : launch_split_kernel<kRows, false>(p, t, xs, rs, K, m, out,
+                                                 rhs_out, stream);
 }
 
 }  // namespace
@@ -910,39 +1088,91 @@ extern "C" int fsc_jacobi_slab_sweeps(const float* x, const float* rhs,
              : launch_slab<2>(cheby, p, t, out, xm_out, rhs_out, stream_);
 }
 
-// K9-damp: `count` damped sweeps x <- omw*x + w*S(x) (K1-damp's, omw 1-w
-// rounded on the host) of boundary mode b from x (null: the zero guess)
-// with rhs on a (rows, side) row-slab buffer, `done` sweeps of the smooth
-// run before this launch: the launch's sweep t (from 1) computes rows
-// [done + t, rows - done - t) and it writes out on the band
-// [done + count, rows - done - count).  Wall rows gtop and gbot as
-// fsc_jacobi_slab_sweeps's; tile_rows is 64, 32 or 16.  out must not alias
-// x or rhs.  Returns cudaErrorInvalidValue for a count out of range or a
-// band, tile or wall row that does not fit, otherwise cudaGetLastError()
-// after the launch.
-extern "C" int fsc_jacobi_slab_sweeps_damp(const float* x, const float* rhs,
-                                           float* out, int side, int b,
-                                           float alpha, float beta, float w,
-                                           float omw, int count, int rows,
-                                           int done, int gtop, int gbot,
-                                           int tile_rows, void* stream) {
+// K9-damp grouped: `count` damped sweeps x <- omw*x + w*S(x) (K1-damp's,
+// omw 1-w rounded on the host) of boundary mode b on each of `slabs` (at most kGroupSlabs) row slabs of
+// m rows in one launch.  ptrs holds 7 pointers a slab, on the host: x's
+// `count` halo rows above the slab, its m rows and its `count` rows below,
+// the same three of rhs, and the slab's (m, side) output; a halo pointer
+// may point into the neighbouring slab's own array (its last or first
+// `count` rows) or at a copy of them, and is null beyond a global wall
+// (zero rows).  x's slab pointers are all null for the zero guess.  walls
+// holds 2 ints a slab: whether it holds the global top and the bottom
+// ghost row.  count is at most m and what the tile's halo allows; tile_rows
+// is 64, 32 or 16.  No output aliases an input.  Returns
+// cudaErrorInvalidValue for a count, slab count, tile or band out of
+// range, otherwise cudaGetLastError() after the launch.
+extern "C" int fsc_jacobi_slab_sweeps_damp_group(
+    const float* const* ptrs, const int* walls, int slabs, int m, int side,
+    int b, float alpha, float beta, float w, float omw, int count,
+    int tile_rows, void* stream) {
+  if (slabs < 1 || slabs > kGroupSlabs || count > m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = m + 2 * count;
+  bool top = false, bot = false;
+  SlabGroup group;
+  for (int i = 0; i < slabs; ++i) {
+    const float* const* q = ptrs + 7 * i;
+    GroupSlab& s = group.slab[i];
+    s.x = RowSources{q[0], q[1], q[2]};
+    s.rhs = RowSources{q[3], q[4], q[5]};
+    s.out = const_cast<float*>(q[6]);
+    s.gtop = walls[2 * i] ? count : -1;
+    s.gbot = walls[2 * i + 1] ? count + m - 1 : -1;
+    top = top || walls[2 * i];
+    bot = bot || walls[2 * i + 1];
+  }
+  // One tiling for every slab: the halo one cell deeper where any slab's
+  // wall row sits on a tile's edge (a deeper halo changes no written cell).
   Tiling t{};
-  const int err =
-      plan_slab(rows, side, count, done, gtop, gbot, tile_rows, &t, true);
+  const int err = plan_slab(rows, side, count, 0, top ? count : -1,
+                            bot ? count + m - 1 : -1, tile_rows, &t, true);
   if (err != 0) return err;
   t.b = b;
   t.omw = omw;
   const fsc::SweepParams p = fsc::make_sweep_params(
-      x, rhs, nullptr, nullptr, alpha, beta, 0.0f, 0.0f, 0.0f, w, 0);
-  const dim3 grid((t.side + t.out_w - 1) / t.out_w,
-                  (t.band_hi - t.band_lo + t.out_h - 1) / t.out_h);
+      nullptr, nullptr, nullptr, nullptr, alpha, beta, 0.0f, 0.0f, 0.0f, w,
+      0);
   const auto stream_ = static_cast<cudaStream_t>(stream);
   switch (tile_rows) {
     case Tile<4>::kTileH:
-      return launch_slab_damped_kernel<4>(p, t, out, grid, stream_);
+      return launch_group_kernel<4>(p, t, m, group, slabs, stream_);
     case Tile<2>::kTileH:
-      return launch_slab_damped_kernel<2>(p, t, out, grid, stream_);
+      return launch_group_kernel<2>(p, t, m, group, slabs, stream_);
     default:
-      return launch_slab_damped_kernel<1>(p, t, out, grid, stream_);
+      return launch_group_kernel<1>(p, t, m, group, slabs, stream_);
   }
+}
+
+// The tiled K9's first launch of a solve (fsc_jacobi_slab_sweeps's, first
+// and done 0) on a slab's split operands, B13's: x (m, side) and its (K,
+// side) halos x_top and x_bot (all null: the zero guess), rhs and its
+// halos rhs_top and rhs_bot, read as the rows of the (m + 2K, side)
+// extended buffer they make.  It writes x_count on the band [count,
+// m + 2K - count) of out and the rhs it read, pre-scaled in fast mode, at
+// the band's cells that are their own interior cells of rhs_out (may be
+// null): the extended buffers the launches after it read.  flags as
+// fsc_jacobi_slab_sweeps's, no source fold and no Chebyshev.  Returns
+// cudaErrorInvalidValue for a count, halo, tile, flag or wall row out of
+// range, otherwise cudaGetLastError() after the launch.
+extern "C" int fsc_jacobi_slab_sweeps_split(
+    const float* x, const float* x_top, const float* x_bot, const float* rhs,
+    const float* rhs_top, const float* rhs_bot, float* out, float* rhs_out,
+    int side, int b, float alpha, float beta, float ab, float inv_b,
+    int flags, int count, int m, int K, int gtop, int gbot, int tile_h,
+    void* stream) {
+  if (K < count || m < 1 || (flags & fsc::kCheby) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Tiling t{};
+  const int err = plan_slab(m + 2 * K, side, count, 0, gtop, gbot, tile_h,
+                            &t);
+  if (err != 0) return err;
+  t.b = b;
+  const fsc::SweepParams p = fsc::make_sweep_params(
+      nullptr, nullptr, nullptr, nullptr, alpha, beta, ab, inv_b, 0.0f, 0.0f,
+      flags);
+  const RowSources xs{x_top, x, x_bot}, rs{rhs_top, rhs, rhs_bot};
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  return tile_h == Tile<4>::kTileH
+             ? launch_split<4>(p, t, xs, rs, K, m, out, rhs_out, stream_)
+             : launch_split<2>(p, t, xs, rs, K, m, out, rhs_out, stream_);
 }

@@ -48,9 +48,9 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks_batched", "batched_against_grids",
            "timing_checks_batched",
            "pair_against_singles", "timing_checks_pair",
-           "timing_checks_split", "kernel_checks_damp",
-           "timing_checks_damp", "kernel_checks_slab_smooth",
-           "timing_checks_slab_smooth", "kernel_checks3_windowed",
+           "timing_checks_split", "split_against_k18", "kernel_checks_damp",
+           "timing_checks_damp", "kernel_checks_group_smooth", "timing_checks_group_smooth",
+           "GROUP_SMOOTHS", "kernel_checks3_windowed",
            "timing_checks3_windowed", "K4_TILE", "K4_BOX_CAP",
            "footprint_boxes", "gather_velocities", "kernel_checks_flows",
            "staged_share", "max_abs_diff", "device_ms",
@@ -1293,7 +1293,9 @@ SLAB_CMAX = 4  # SimConfig.max_courant's default: the main path's window
 JAC_SLAB = ("jacobi_slab_sweeps",)
 PROJ_SLAB = ("divergence_slab", "jacobi_slab_sweeps", "gradient_slab")
 DENS_SLAB = ("jacobi_slab_sweeps", "advect_slab")
-SPLIT = ("jacobi_slab_split", "jacobi_slab_sweeps")
+SPLIT = ("jacobi_slab_sweeps_split", "jacobi_slab_sweeps")
+# B13 before the split-source tiled K9: K18's one sweep, then the tiled K9.
+SPLIT_K18 = ("jacobi_slab_split", "jacobi_slab_sweeps")
 
 
 def slab_per_sweep_checks(check_list: list[Check]) -> list[Check]:
@@ -1348,6 +1350,14 @@ class _SlabInputs(_Inputs):
         ``fused_jacobi_slab_split``, each contiguous."""
         top, bot = self.halo(g, i, k)
         return self.slab(g, i), top.contiguous(), bot.contiguous()
+
+    def slab_list(self, g: torch.Tensor) -> list[torch.Tensor]:
+        """Every slab of g, each an array of its own (as the sharded step
+        holds them)."""
+        return [self.slab(g, i).clone() for i in range(self.slabs)]
+
+    def flag_list(self) -> list[tuple[int, int, int]]:
+        return [self.flags(i) for i in range(self.slabs)]
 
 
 def kernel_checks_slab(side: int, m: int, device, seed: int = 0) -> list[Check]:
@@ -1421,8 +1431,9 @@ SPLIT_MODES = {"jacobi": dict(), "zero_init": dict(zero_init=True),
 
 
 def _split_cases(t: "_SlabInputs", i: int, pos: str, against) -> list[Check]:
-    """K18 (B13) on slab i at the step's 20-sweep margin (K = 24), each
-    mode, against ``against`` on the same operands."""
+    """B13 (the split-source tiled K9, then the tiled K9) on slab i at the
+    step's 20-sweep margin (K = 24), each mode, against ``against`` on the
+    same operands."""
     K, sweeps, av = _ceil8(21), 20, t.a_visc
     x, rhs = t.split(t.x, i, K), t.split(t.x0, i, K)
     return [_check(f"fused_jacobi_slab_split {pos} {mode} {sweeps}it", SPLIT,
@@ -1434,24 +1445,32 @@ def _split_cases(t: "_SlabInputs", i: int, pos: str, against) -> list[Check]:
 
 def timing_checks_split(side: int, m: int, device,
                         seed: int = 0) -> list[Check]:
-    """What ``chip_smoke.py`` times of K18 on an interior slab of ``m``
+    """What ``chip_smoke.py`` times of B13 on an interior slab of ``m``
     rows at grid ``side``, with the step's 20-sweep margin (K = 24), each
-    beside the composition it replaces (two ``torch.cat``, then K9): its
-    one launch (a 1-sweep solve, labelled by the kernel's name) and the
-    20-sweep solve."""
+    beside the composition it replaces (two ``torch.cat``, then the tiled
+    K9): the split-source tiled K9's one launch (a solve of the T sweeps
+    ``slab_tiling`` gives a launch, labelled by the kernel's name), the
+    20-sweep solve, and the route before it (K18's one sweep, then the
+    tiled K9: ``cuda_sharded._split_k18``), K18's one launch (a 1-sweep
+    solve) among it."""
     t = _SlabInputs(side, m, device, seed)
     i, K, av = t.slabs // 2, _ceil8(21), t.a_visc
     x, rhs, fl = t.split(t.x, i, K), t.split(t.x0, i, K), t.flags(i)
     rows = m + 2 * K
+    per_launch = co.slab_tiling(rows, side, 20)[0]
     out = []
-    for label, sweeps in (("jacobi_slab_split", 1),
-                          ("fused_jacobi_slab_split 20it", 20)):
+    for label, kernels, fn, sweeps in (
+            ("jacobi_slab_sweeps_split", SPLIT[:1],
+             cs.fused_jacobi_slab_split, per_launch),
+            ("fused_jacobi_slab_split 20it", SPLIT,
+             cs.fused_jacobi_slab_split, 20),
+            ("jacobi_slab_split", SPLIT_K18[:1], cs._split_k18, 1),
+            ("fused_jacobi_slab_split 20it, K18 then K9 (before)", SPLIT_K18,
+             cs._split_k18, 20)):
         kw = dict(m=m, K=K, alpha=av, beta=1 + 4 * av, sweeps=sweeps)
         check = _timed(_slab_sweeps_cost(sweeps, rows, side), 1, label,
-                       SPLIT[:1] if sweeps == 1 else SPLIT,
-                       cs.fused_jacobi_slab_split,
-                       cs.fused_jacobi_slab_split_plain, 1, *x, *rhs, fl,
-                       **kw)
+                       kernels, fn, cs.fused_jacobi_slab_split_plain, 1, *x,
+                       *rhs, fl, **kw)
         check.composed = (lambda kw=kw: cs.fused_jacobi_slab(
             1, torch.cat([x[1], x[0], x[2]]),
             torch.cat([rhs[1], rhs[0], rhs[2]]), fl, **kw))
@@ -1461,7 +1480,7 @@ def timing_checks_split(side: int, m: int, device,
 
 def split_against_concat(side: int, m: int, device,
                          seed: int = 0) -> list[Check]:
-    """K18 against K9 on the ``torch.cat`` of the same operands (JAX's
+    """B13 against K9 on the ``torch.cat`` of the same operands (JAX's
     contract for B13: equal bit for bit), for a top, an interior and a
     bottom slab of ``m`` rows at grid ``side``."""
     t = _SlabInputs(side, m, device, seed)
@@ -1475,6 +1494,18 @@ def split_against_concat(side: int, m: int, device,
 
     return [c for pos, i in t.positions().items()
             for c in _split_cases(t, i, pos, concat)]
+
+
+def split_against_k18(side: int, m: int, device,
+                      seed: int = 0) -> list[Check]:
+    """B13's split-source tiled K9 against the route before it, K18's one
+    sweep then the tiled K9 (``cuda_sharded._split_k18``), on the same
+    operands, for a top, an interior and a bottom slab: equal bit for
+    bit."""
+    t = _SlabInputs(side, m, device, seed)
+    return [dataclasses.replace(c, label=f"{c.label} vs K18 + K9")
+            for pos, i in t.positions().items()
+            for c in _split_cases(t, i, pos, cs._split_k18)]
 
 
 def timing_checks_slab(side: int, m: int, device,
@@ -1589,47 +1620,55 @@ def timing_checks_slab(side: int, m: int, device,
     ]
 
 
-DAMP_SLAB = ("jacobi_slab_sweeps_damp",)
+DAMP_GROUP = ("jacobi_slab_sweeps_damp_group",)
+# (sweeps, zero_init) of the grouped smooths the checks run: the slab
+# multigrid's 2-sweep smooths from a guess and from zero, a 7-sweep chunk
+# and the 40 sweeps of a cycle with no coarser level (several launches).
+GROUP_SMOOTHS = ((2, False), (2, True), (7, False), (40, True))
 
 
-def _smooth_cases(t: "_SlabInputs", i: int, label: str) -> list[Check]:
-    """K9-damp (``smooth_slab``) on slab i with the slab multigrid's halo
-    (``parallel/solvers.py``, ``SMOOTH_HALO``): its 2-sweep smooths from a
-    guess and from zero and a 7-sweep chunk (the most one exchange takes),
-    each carrying the same call at one launch a sweep (``chain``)."""
-    from ..parallel.solvers import SMOOTH_HALO as K
-
-    rows = t.m + 2 * K
-    return [_k1_timed(_slab_sweeps_cost(k, rows, t.side, zero_init=z,
-                                        damp=True), 1,
-                      f"{label}{k} sweeps{' zero_init' if z else ''}",
-                      DAMP_SLAB, cs.smooth_slab, cs.smooth_slab_plain,
-                      t.ext(t.p, i, K), t.ext(t.x0, i, K), t.flags(i),
-                      m=t.m, K=K, sweeps=k, zero_init=z)
-            for k, z in ((2, False), (2, True), (7, False))]
+def _group_cost(sweeps: int, cells: int, zero_init: bool) -> tuple[int, int]:
+    """A grouped smooth's cost over ``cells`` cells (use with
+    ``cells=1``): every slab's guess (none from zero) and rhs read once
+    and its result written once, 9 operations a cell a sweep."""
+    return ((3 - zero_init) * cells,
+            sum(_sweep_ops(sweeps, 2, damp=True)) * cells)
 
 
-def kernel_checks_slab_smooth(side: int, m: int, device,
-                              seed: int = 0) -> list[Check]:
-    """K9-damp against its plain twin ``smooth_slab_plain`` (bit for bit,
-    ``--fmad=false``) for a top, an interior and a bottom slab of ``m``
-    rows at grid ``side`` (``_smooth_cases``)."""
+def _group_smooth_cases(t: "_SlabInputs", label: str,
+                        smooths=GROUP_SMOOTHS) -> list[Check]:
+    """K9-damp (``smooth_slabs``) over every slab of ``t`` at once, each
+    smooth of ``smooths`` against its plain twin."""
+    p, d, fl = t.slab_list(t.p), t.slab_list(t.x0), t.flag_list()
+    return [_timed(_group_cost(k, t.side * t.side, z), 1,
+                   f"{label}{k} sweeps{' zero_init' if z else ''}",
+                   DAMP_GROUP, cs.smooth_slabs, cs.smooth_slabs_plain, p, d,
+                   fl, sweeps=k, zero_init=z)
+            for k, z in smooths]
+
+
+def kernel_checks_group_smooth(side: int, m: int, device,
+                               seed: int = 0) -> list[Check]:
+    """K9-damp over every slab of ``m`` rows at grid ``side`` against its
+    plain twin ``smooth_slabs_plain`` (bit for bit, ``--fmad=false``): the
+    smooths of ``GROUP_SMOOTHS``."""
     t = _SlabInputs(side, m, device, seed)
-    return [c for pos, i in t.positions().items()
-            for c in _smooth_cases(t, i, f"smooth_slab {pos} ")]
+    return _group_smooth_cases(t, f"smooth_slabs {t.slabs} slabs ")
 
 
-def timing_checks_slab_smooth(side: int, m: int, device,
-                              seed: int = 0) -> list[Check]:
-    """What ``chip_smoke.py`` times of K9-damp on an interior slab of
-    ``m`` rows at grid ``side``: the path's 2-sweep smooth from a guess
-    (labelled by the kernel's name), then ``_smooth_cases``, each beside
-    its plain twin and the same call at one launch a sweep."""
+def timing_checks_group_smooth(side: int, m: int, device,
+                               seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of K9-damp over every slab of ``m``
+    rows at grid ``side``: the path's 2-sweep smooth from a guess
+    (labelled by the kernel's name, on the 8-slab 2048² mesh the kernels
+    line reads) and from zero, each beside its plain twin and its
+    bound."""
     t = _SlabInputs(side, m, device, seed)
-    i = t.slabs // 2
-    path = _smooth_cases(t, i, "smooth_slab ")[0]
-    path.label = "jacobi_slab_sweeps_damp"
-    return [path] + _smooth_cases(t, i, "smooth_slab ")
+    label = f"smooth_slabs {t.slabs} slabs "
+    path, zero = _group_smooth_cases(t, label, GROUP_SMOOTHS[:2])
+    if (side, m) == (2048, 256):
+        path.label = "jacobi_slab_sweeps_damp_group"
+    return [path, zero]
 
 
 JAC3_SLAB = ("jacobi3_slab_sweeps",)
@@ -1893,7 +1932,7 @@ def timing_checks_slab3(side: int, mz: int, device,
 
 
 def _as_tuple(x) -> tuple:
-    return x if isinstance(x, tuple) else (x,)
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
 # ---------------------------------------------------------------------------

@@ -60,8 +60,9 @@ step:
   gather of ``fused_dens_advect`` (``:1480``).
 
 The 3-D kernels (K5-K8) have their wrappers in ``cuda_ops_3d.py``, the
-row-slab kernels of the multi-device step (K9-K12, and K18 for the
-split-operand slab Jacobi) theirs in ``cuda_sharded.py``, its z-slab
+row-slab kernels of the multi-device step (K9-K12 with K9-damp, the
+slab multigrid's smoother, and B13's split-source first launch of
+K9, with K18 before it) theirs in ``cuda_sharded.py``, its z-slab
 kernels (K13-K16) theirs in ``cuda_sharded_3d.py``, the fused velocity tail
 (K17) its wrapper in ``cuda_step.py``; all share this module's checks,
 launch helper and counts.  ``launch_counts()`` reports how often each
@@ -94,8 +95,9 @@ from .dispatch import OpSet
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "check_grid",
     "make_opset", "SWEEPS_PER_LAUNCH", "SWEEPS_PER_LAUNCH_3D", "tiled3",
-    "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling", "slab_smooth_tiling",
-    "DAMPED_TILES",
+    "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling",
+    "GROUP_SLABS", "GROUP_TILES", "group_smooth_tiling", "DAMPED_TILES",
+    "LONG_SOLVE_CELLS",
     "WHOLE_GRID_SIDE", "DampedRoute", "damped_plan", "launch_sweeps",
     "smooth_launches", "SweepLaunch", "sweep_plan", "VECTOR_WIDTHS",
     "vector_width", "vector_widths", "width_counts", "reset_width_counts",
@@ -116,7 +118,8 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "divergence_bf16", "gradient_bf16", "advect_bf16",
            "jacobi_sweeps", "jacobi_sweeps_bf16", "jacobi3_sweeps",
            "jacobi3_slab_sweeps", "jacobi_slab_sweeps", "jacobi_sweeps_damp",
-           "jacobi_slab_sweeps_damp")
+           "jacobi_slab_sweeps_damp_group",
+           "jacobi_slab_sweeps_split")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -154,13 +157,23 @@ SLAB_ONE_LAUNCH = 8
 # 16 and 64 rows, whole grids in the 32-row one.
 DAMPED_TILES = ((2_000_000, 64), (0, 16))
 WHOLE_GRID_SIDE = 30
-# K9-damp (fsc_jacobi_slab_sweeps_damp) takes the same tiles by its
-# buffer's cells (slab_smooth_tiling): measured on the H100
-# (dev/bench_slab_smooth.py, PERF.md), the 2-sweep smooth on the 8-slab
-# 2048² buffer (272 x 2048) took 0.0061 ms on 16-row tiles against 0.0067
-# on K9's 32-row ones and 0.0086 on 64; on the 1-slab (2064 x 2048) and
-# 8192² (2064 x 8192) buffers 64 rows were the fastest (0.0293 and 0.0835
-# ms against 0.0297 and 0.0934 on 32).
+# K9-damp (fsc_jacobi_slab_sweeps_damp_group) takes every slab of a
+# device in one launch, at most GROUP_SLABS (the library's kGroupSlabs) a
+# launch, its tile by the launch's cells (group_smooth_tiling): (fewest
+# cells of a launch, tile rows), chosen by measurement on the H100
+# (dev/bench_slab_smooth.py, PERF.md): the 2-sweep smooth over 2048² took
+# 0.0353 ms on 32-row tiles against 0.0359 on 64 and 0.0442 on 16 (8
+# slabs), 0.0343 against 0.0354 and 0.0430 (one slab), 0.0495 against
+# 0.0748 and 0.0585 (128 slabs of 16 rows); over 8192² on 4 slabs 0.396
+# on 64 rows against 0.451 on 32.
+GROUP_SLABS = 128
+GROUP_TILES = ((16_000_000, 64), (0, 32))
+# A damped solve of more sweeps than one launch on its tile takes (the
+# slab multigrid's 40-sweep coarse solve) takes 64-row tiles from this many
+# cells a launch (damped_plan): at 1025² the 40 sweeps took 0.149 ms at
+# T = 10 on 64 rows against 0.198 at T = 5 on 16 and 0.223 on the per-sweep
+# damped K1 (dev/bench_slab_smooth.py --odd, PERF.md).
+LONG_SOLVE_CELLS = 1_000_000
 # The cells a thread of the bf16 forms' vector kernels (K3's
 # advect_vec_kernel, K2's gradient_vec_kernel) may take, by kernel, largest
 # first (vector_width); 1 is the one-cell kernel.  Chosen by measurement on
@@ -226,20 +239,20 @@ def slab_tiling(rows: int, side: int, sweeps: int) -> tuple[int, int]:
     return (max(per, sweeps) if sweeps <= SLAB_ONE_LAUNCH else per), tile
 
 
-def slab_smooth_tiling(rows: int, side: int, sweeps: int) -> tuple[int, int]:
-    """(T, tile rows) of K9-damp for a smooth of ``sweeps`` sweeps on a
-    (rows, side) row-slab buffer: the first of K1-damp's ``DAMPED_TILES``
-    whose cell count the buffer reaches, and T = ``sweeps`` up to the most the
-    tile's halo allows (``(tile - 3) // 2``, at most 20), so the slab
-    multigrid's 2-sweep smooth is one launch.  ``launch_sweeps(t,
-    tile_rows=h)`` forces T = t, capped so (0: one sweep a launch; K9-damp
-    has no per-sweep kernel), and the tile (64, 32 or 16)."""
-    cells = rows * side
-    tile = next(tile for least, tile in DAMPED_TILES if cells >= least)
+def group_smooth_tiling(cells: int, m: int,
+                        sweeps: int) -> tuple[int, int]:
+    """(T, tile rows) of the grouped K9-damp for a smooth of ``sweeps``
+    sweeps over slabs of ``m`` rows, ``cells`` cells in all in the launch:
+    the first of ``GROUP_TILES`` whose cell count the launch reaches, and
+    T = ``sweeps`` up to the most the tile's halo allows (``(tile - 3) //
+    2``, at most 20) and the slab's rows (a launch reads ``T`` halo rows of
+    each neighbouring slab).  ``launch_sweeps(t, tile_rows=h)`` forces T =
+    t, capped so (0: one sweep a launch), and the tile (64, 32 or 16)."""
+    tile = next(tile for least, tile in GROUP_TILES if cells >= least)
     if _forced_tile is not None:
         tile = _forced_tile
     per_launch = sweeps if _forced is None else max(_forced, 1)
-    return min(per_launch, (tile - 3) // 2, 20), tile
+    return min(per_launch, (tile - 3) // 2, 20, m), tile
 
 
 class DampedRoute(NamedTuple):
@@ -264,7 +277,13 @@ def damped_plan(side: int, sweeps: int, grids: int = 1) -> DampedRoute:
     from 256² to 32², and on 64 × 128² to 64 × 32², the pair's device
     time is 2-30% less, while the eager call, one launch against two, is
     1.03-1.85x faster), the coarsest 16² its 40 sweeps in one whole-grid
-    launch (2.2-2.6x; the 128 x 64 tile 1.8x).  ``smooth_launches``
+    launch (2.2-2.6x; the 128 x 64 tile 1.8x).  A solve of more sweeps
+    than a launch on its tile takes takes the 64-row tile from
+    ``LONG_SOLVE_CELLS`` cells a launch (the slab multigrid's 40-sweep
+    coarse solve at 1025²: 0.149 ms against 0.198 on 16 rows).  On an odd
+    side T falls until the output tile leaves no last tile of the grid's
+    last ghost line alone (``_deeper_halo``; at 1025² on 16 rows T = 6
+    took 0.444 ms, T = 5 0.198).  ``smooth_launches``
     overrides it, ``launch_sweeps`` forces tiled launches of its count on
     64-row tiles (0: the per-sweep chain)."""
     if _forced_damp is not None:
@@ -274,10 +293,28 @@ def damped_plan(side: int, sweeps: int, grids: int = 1) -> DampedRoute:
         return DampedRoute(_forced, 64, False)
     if side <= WHOLE_GRID_SIDE:
         return DampedRoute(sweeps, 32, True)
-    rows = next(rows for least, rows in DAMPED_TILES
-                if grids * side * side >= least)
+    cells = grids * side * side
+    rows = next(rows for least, rows in DAMPED_TILES if cells >= least)
     # A launch of T sweeps takes a halo of T + 1 rows at most.
-    return DampedRoute(min(SWEEPS_PER_LAUNCH, (rows - 3) // 2), rows, False)
+    if sweeps > (rows - 3) // 2 and cells >= LONG_SOLVE_CELLS:
+        rows = DAMPED_TILES[0][1]
+    per_launch = min(SWEEPS_PER_LAUNCH, (rows - 3) // 2)
+    # On an odd side, a T whose output tile leaves a last tile of the
+    # grid's last ghost line alone takes that deeper halo (plan_tiling in
+    # csrc/jacobi_tiles.cu): the next smaller T that does not.
+    while per_launch > 1 and _deeper_halo(side, per_launch, rows):
+        per_launch -= 1
+    return DampedRoute(per_launch, rows, False)
+
+
+def _deeper_halo(side: int, per_launch: int, tile_rows: int) -> bool:
+    """Whether a K1 launch of ``per_launch`` sweeps on grids of ``side``
+    in tiles of ``tile_rows`` x 128 takes a halo one cell deeper: its
+    output tile's height or width leaves the last tile of a row or
+    column of tiles only the grid's last ghost line (``plan_tiling``).
+    Output tiles are even, so only an odd side can."""
+    return any(side % (extent - 2 * per_launch) == 1
+               for extent in (tile_rows, 128))
 
 
 def vector_width(kernel: str, side: int, *tensors: torch.Tensor) -> int:
@@ -440,9 +477,11 @@ def launch_sweeps(per_launch: int, tile_rows: int | None = None):
     ``dev/bench_slab_sweeps.py`` time.  A damped K1 solve takes tiled
     launches of ``per_launch`` sweeps too, never a whole-grid one (0: the
     per-sweep damped K1).  ``tile_rows`` (64 or 32) sets the tiled K9's
-    tile.  K9-damp, which has no per-sweep kernel, takes ``per_launch``
-    sweeps a launch (0: one) on tiles of ``tile_rows`` (64, 32 or 16;
-    ``slab_smooth_tiling``).  No path of the port enters it."""
+    tile (B13's split-source first launch included; with 0, B13 runs
+    K18's one sweep, then the per-sweep K9).  K9-damp, which has no
+    per-sweep kernel, takes ``per_launch`` sweeps a launch (0: one) on
+    tiles of ``tile_rows`` (64, 32 or 16; ``group_smooth_tiling``).  No
+    path of the port enters it."""
     global _forced, _forced_tile
     if per_launch < 0:
         raise ValueError(f"per_launch {per_launch} < 0")
@@ -521,9 +560,10 @@ class _Sweeps:
     """The sweep launches of one solve (K1 on a grid or a batch of grids,
     K5 on a volume, K13 on a z-slab, K9 on a row slab): ``sweep()``
     advances one iterate by a launch of the per-sweep kernel, ``run()`` a
-    K1 solve, ``run3()`` a 3-D solve or z-slab segment and ``run_slab()`` a
-    row-slab solve by the launches of ``sweep_plan`` (the tiled K1, the
-    tiled 3-D kernel or the tiled K9, ``launch()``).
+    K1 solve, ``run3()`` a 3-D solve or z-slab segment, ``run_slab()`` a
+    row-slab solve and ``run_slab_split()`` one on split operands (B13) by
+    the launches of ``sweep_plan`` (the tiled K1, the tiled 3-D kernel or
+    the tiled K9, ``launch()``).
 
     It owns the scratch it ping-pongs through (two tensors, three for
     Chebyshev, whose x_{k-1} and x_k are read-only while x_{k+1} is
@@ -716,11 +756,7 @@ class _Sweeps:
         exact: the tiled K9's launches of ``sweep_plan``, T sweeps each on
         tiles of ``slab_tiling``'s rows, or inside ``launch_sweeps(0)`` one
         per-sweep launch a sweep."""
-        per_launch, tile = slab_tiling(rows, self.side, self.end - self.k)
-        if _forced is not None:
-            per_launch = _forced
-        if _forced_tile is not None:
-            tile = _forced_tile
+        per_launch, tile = self._slab_tiling(rows)
         if per_launch == 0:
             while self.k < self.end:
                 self.sweep(lib, self.k + 1, rows - self.k - 1, gtop, gbot)
@@ -728,6 +764,44 @@ class _Sweeps:
         for step in sweep_plan(self.k, self.end, self.end, per_launch,
                                prep=self.prep, cheby=self.omegas is not None,
                                guess=self.x is not None):
+            self.launch(lib, step, rows, step.first, gtop, gbot, tile)
+
+    def _slab_tiling(self, rows: int) -> tuple[int, int]:
+        """(T, tile rows) of the tiled K9's launches for the rest of the
+        solve: ``slab_tiling``'s, or what ``launch_sweeps`` forces."""
+        per_launch, tile = slab_tiling(rows, self.side, self.end - self.k)
+        if _forced is not None:
+            per_launch = _forced
+        if _forced_tile is not None:
+            tile = _forced_tile
+        return per_launch, tile
+
+    def run_slab_split(self, lib, xs: tuple, rhss: tuple, m: int, K: int,
+                       gtop: int, gbot: int) -> None:
+        """Every sweep of a row-slab Jacobi solve (no Chebyshev) whose
+        extended (m + 2K)-row buffers are split operands, (slab, top halo,
+        bottom halo) of x (all None: the zero guess) and of the rhs (B13):
+        the first tiled K9 launch reads its tiles from the split operands
+        and writes x_T and the rhs it read (pre-scaled in fast mode) on its
+        band of ``self.rhs``'s shape, the launches after it run on those
+        as ``run_slab``'s.  ``launch_sweeps(0)`` is not taken here (the
+        per-sweep chain starts with K18, ``cuda_sharded``)."""
+        rows = m + 2 * K
+        per_launch, tile = self._slab_tiling(rows)
+        first, *rest = sweep_plan(self.k, self.end, self.end, per_launch,
+                                  prep=self.prep, cheby=False,
+                                  guess=xs[0] is not None)
+        out = self._scratch()
+        rhs_out = None if first.ends_solve else self.rhs
+        flags = (_PREP if self.prep else 0) | (_FAST if self.fast else 0)
+        _launch("jacobi_slab_sweeps_split", lib.fsc_jacobi_slab_sweeps_split,
+                *map(_ptr, xs), *map(_ptr, rhss), out.data_ptr(),
+                _ptr(rhs_out), self.side, self.b, *self.coefs[:4], flags,
+                first.count, m, K, gtop, gbot, tile, self.stream)
+        self.prep = False
+        self.x = out
+        self.k += first.count
+        for step in rest:
             self.launch(lib, step, rows, step.first, gtop, gbot, tile)
 
     def launch(self, lib, step: SweepLaunch, *geometry: int) -> None:

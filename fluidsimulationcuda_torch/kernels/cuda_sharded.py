@@ -18,7 +18,7 @@ also runs, on any device); on CUDA tensors they launch the hand-written
 kernels of ``csrc/`` or raise.  Nothing falls back.  Launches count in
 ``cuda_ops.launch_counts()``.
 
-Six CUDA kernels carry the seven TPU kernels and the multigrid smoother
+Eight CUDA kernels carry the seven TPU kernels and the multigrid smoother
 of the slab route:
 
 - K9, the sweeps of every row-slab solve: ``jacobi_slab_sweeps``, the
@@ -34,15 +34,20 @@ of the slab route:
   ``fused_project_slab`` (B9b, ``:700``);
 - ``advect_slab`` (K12, ``csrc/advect_slab.cu``): ``advect_slab`` (B9d,
   ``:1246``), and after K9's sweeps ``fused_dens_slab`` (B9c, ``:1010``);
-- ``jacobi_slab_split`` (K18, ``csrc/jacobi_slab_split.cu``), the first
-  sweep of ``fused_jacobi_slab_split`` (B13, ``:506``), whose window is
-  read from the halo and slab operands with no concatenation; K9 runs the
-  sweeps after it.  As in JAX no step calls it;
-- ``jacobi_slab_sweeps_damp`` (K9-damp, ``csrc/jacobi_tiles.cu``), the
-  tiled K9 in K1-damp's damped form: ``smooth_slab``, the fine-level
-  smoother of the slab multigrid (``parallel/solvers.py``), which JAX
-  writes in jnp (``_mg_smooth_local``, ``parallel/sharded.py:477``), a
-  smooth in one launch where JAX exchanges a one-row halo a sweep.
+- ``jacobi_slab_sweeps_split`` (``csrc/jacobi_tiles.cu``), the tiled
+  K9's first launch of ``fused_jacobi_slab_split`` (B13, ``:506``): T
+  sweeps with its tiles read from the halo and slab operands, no
+  concatenation; the tiled K9 runs the sweeps after it.  As in JAX no
+  step calls it.  ``jacobi_slab_split`` (K18,
+  ``csrc/jacobi_slab_split.cu``), the first sweep alone one cell a
+  thread, heads the per-sweep chain it is held to;
+- ``jacobi_slab_sweeps_damp_group`` (K9-damp, ``csrc/jacobi_tiles.cu``),
+  the tiled K9 in K1-damp's damped form over every slab of a device in
+  one launch, its halo rows read from the neighbouring slabs' arrays:
+  ``smooth_slabs``, the fine-level smoother of the slab multigrid
+  (``parallel/solvers.py``), which JAX writes in jnp
+  (``_mg_smooth_local``, ``parallel/sharded.py:477``), a smooth in one
+  launch where JAX exchanges a one-row halo a sweep.
 
 Each result equals the global operation restricted to the slab while the
 halos are deep enough: ``K >= sweeps`` for the sweeps, ``K >= iters + 1``
@@ -52,6 +57,8 @@ passes JAX's margins (``ceil8`` of a bit more), so that a given shape takes
 the same route in both packages.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -65,8 +72,8 @@ from . import build
 from . import cuda_ops as co
 
 __all__ = [
-    "fused_jacobi_slab", "fused_jacobi_slab_plain", "smooth_slab",
-    "smooth_slab_plain", "fused_project_slab",
+    "fused_jacobi_slab", "fused_jacobi_slab_plain", "smooth_slab_plain",
+    "smooth_slabs", "smooth_slabs_plain", "SMOOTH_HALO", "fused_project_slab",
     "fused_project_slab_plain", "fused_dens_slab", "fused_dens_slab_plain",
     "advect_slab", "advect_slab_plain", "divergence_slab",
     "divergence_slab_plain", "gradient_slab", "gradient_slab_plain",
@@ -274,9 +281,17 @@ def fused_jacobi_slab(b, x_ext, rhs_ext, flags, *, m, K, alpha, beta,
 # The slab multigrid's smoother (K9-damp)
 # ---------------------------------------------------------------------------
 
+# The rows of the plain twin's halo (``smooth_slabs_plain``): a smooth of
+# up to SMOOTH_HALO - 1 sweeps per exchange, ceil8(sweeps + 1) as the
+# step's Jacobi chunks.
+SMOOTH_HALO = 8
+
 
 def smooth_slab_plain(p_ext, div_ext, flags, *, m, K, sweeps,
                       zero_init=False):
+    """``sweeps`` damped sweeps on an ``(m+2K, side)`` extended slab from
+    guess ``p_ext`` (zero with ``zero_init``) with rhs ``div_ext``; returns
+    the (m, side) slab, exact while ``K >= sweeps``."""
     _jacobi_checks(p_ext, div_ext, m, K, sweeps)
     gtop, gbot = _wall_rows(flags, K, m)
     x = _sweeps_plain(0, p_ext, div_ext, 1.0, 4.0, sweeps, gtop, gbot,
@@ -284,35 +299,121 @@ def smooth_slab_plain(p_ext, div_ext, flags, *, m, K, sweeps,
     return x[K:K + m]
 
 
-def smooth_slab(p_ext, div_ext, flags, *, m, K, sweeps, zero_init=False):
-    """``sweeps`` damped Jacobi sweeps of the pressure problem (b=0,
-    alpha=1, beta=4, w = ``ops.multigrid.OMEGA``; ``ops.multigrid._smooth``)
-    on an ``(m+2K, side)`` extended slab from guess ``p_ext`` (zero with
-    ``zero_init``; ``p_ext`` is then ignored) with rhs ``div_ext``; returns
-    the (m, side) slab.  A K-row halo is valid for K sweeps, which compute
-    on the slab's rows what as many one-row exchanges and sweeps compute
-    (JAX's ``_mg_smooth_local``).  K9-damp's launches of
-    ``cuda_ops.slab_smooth_tiling``: a smooth of up to T sweeps in one."""
-    if not _jacobi_checks(p_ext, div_ext, m, K, sweeps):
-        return smooth_slab_plain(p_ext, div_ext, flags, m=m, K=K,
-                                 sweeps=sweeps, zero_init=zero_init)
-    side, rows = div_ext.shape[-1], m + 2 * K
-    gtop, gbot = _wall_rows(flags, K, m)
-    with torch.cuda.device(div_ext.device):
-        lib = build.load()
-        stream = co._stream(div_ext)
-        per_launch, tile = co.slab_smooth_tiling(rows, side, sweeps)
-        x, done = None if zero_init else p_ext, 0
-        while done < sweeps:
-            count = min(per_launch, sweeps - done)
-            out = torch.empty_like(div_ext)
-            co._launch("jacobi_slab_sweeps_damp",
-                       lib.fsc_jacobi_slab_sweeps_damp, co._ptr(x),
-                       div_ext.data_ptr(), out.data_ptr(), side, 0, 1.0, 4.0,
-                       co._f32(OMEGA), co._f32(1.0 - OMEGA), count, rows,
-                       done, gtop, gbot, tile, stream)
-            x, done = out, done + count
-        return x[K:K + m]
+def smooth_slabs_plain(p_slabs, div_slabs, flags, *, sweeps,
+                       zero_init=False):
+    """``sweeps`` damped sweeps of the pressure problem (b=0, alpha=1,
+    beta=4, w = ``ops.multigrid.OMEGA``; ``ops.multigrid._smooth``) on
+    every row slab: chunks of at most ``SMOOTH_HALO - 1`` sweeps, each on
+    slabs extended by an ``SMOOTH_HALO``-row halo (``parallel/mesh.py``'s
+    ``_ext``: the neighbouring slabs' rows moved to each slab's device,
+    zeros beyond a wall) through ``smooth_slab_plain``, which computes on
+    the slab's rows what as many one-row exchanges and sweeps compute
+    (JAX's ``_mg_smooth_local``); returns the list of (m, side) slabs.
+    ``p_slabs`` is ignored with ``zero_init``."""
+    from ..parallel.mesh import _ext
+
+    m = div_slabs[0].shape[0]
+    div_ext = _ext(div_slabs, SMOOTH_HALO)
+    p, done = p_slabs, 0
+    while done < sweeps:
+        s = min(SMOOTH_HALO - 1, sweeps - done)
+        zero = zero_init and done == 0
+        p_ext = div_ext if zero else _ext(p, SMOOTH_HALO)
+        p = [smooth_slab_plain(pe, de, fl, m=m, K=SMOOTH_HALO, sweeps=s,
+                               zero_init=zero)
+             for pe, de, fl in zip(p_ext, div_ext, flags)]
+        done += s
+    return p
+
+
+def smooth_slabs(p_slabs, div_slabs, flags, *, sweeps, zero_init=False):
+    """``smooth_slabs_plain`` on the card: each device's slabs in one
+    grouped K9-damp launch (``fsc_jacobi_slab_sweeps_damp_group``, counted
+    as ``jacobi_slab_sweeps_damp_group``) of T sweeps
+    (``cuda_ops.group_smooth_tiling``), so a 2-sweep smooth is one launch
+    a device, with no extended slab built: a slab's halo rows are read
+    from its neighbour's own array where that lies on the same device, and
+    copied over (a halo exchange) where it does not.  A smooth of more
+    sweeps than a launch takes runs in several, each reading its
+    neighbours' rows as the last left them.  Bit for bit
+    ``smooth_slabs_plain``."""
+    return _smooth_group(p_slabs, div_slabs, flags, sweeps, zero_init,
+                         copy=False)
+
+
+def _neighbour_rows(xs, i: int, k: int, copy: bool):
+    """(top, bottom): the ``k`` rows of slab i's neighbours next to it,
+    views into their own arrays where they lie on its device (unless
+    ``copy``), else copies moved there; None beyond a wall."""
+    dev = xs[i].device
+
+    def rows(j, part):
+        if not 0 <= j < len(xs):
+            return None
+        r = part(xs[j])
+        return r.to(dev, copy=True) if copy or xs[j].device != dev else r
+
+    return (rows(i - 1, lambda x: x[x.shape[0] - k:]),
+            rows(i + 1, lambda x: x[:k]))
+
+
+def _smooth_group(p_slabs, div_slabs, flags, sweeps, zero_init, copy):
+    m, side = div_slabs[0].shape
+    _require(sweeps >= 1, "sweeps must be >= 1")
+    groups: dict[torch.device, list[int]] = {}
+    for i, d in enumerate(div_slabs):
+        groups.setdefault(d.device, []).append(i)
+    on_card = {_on_card(*((t, (m, side)) for i in idx
+                          for t in (div_slabs[i],) + (
+                              () if zero_init else (p_slabs[i],))))
+               for idx in groups.values()}
+    _require(len(on_card) == 1, "slabs on the card and on the CPU at once")
+    if not on_card.pop():
+        return smooth_slabs_plain(p_slabs, div_slabs, flags, sweeps=sweeps,
+                                  zero_init=zero_init)
+    lib = build.load()
+    x, done = None if zero_init else list(p_slabs), 0
+    while done < sweeps:
+        per_launch, tile = co.group_smooth_tiling(
+            max(len(idx) for idx in groups.values()) * m * side, m,
+            sweeps - done)
+        count = min(per_launch, sweeps - done)
+        outs = [torch.empty_like(d) for d in div_slabs]
+        for dev, idx in groups.items():
+            with torch.cuda.device(dev):
+                for lo in range(0, len(idx), co.GROUP_SLABS):
+                    _launch_group(lib, x, div_slabs, outs, flags,
+                                  idx[lo:lo + co.GROUP_SLABS], count, tile,
+                                  copy)
+        x, done = outs, done + count
+    return x
+
+
+def _launch_group(lib, x, div, outs, flags, idx, count, tile, copy):
+    """One grouped K9-damp launch of ``count`` sweeps over slabs ``idx``
+    (all on one device): each slab's row sources and output in the
+    library's table."""
+    m, side = div[0].shape
+    # keep: each halo copy stays alive until the launch that reads it is
+    # enqueued (a copy freed before could lend its memory to the next).
+    ptrs, walls, keep = [], [], []
+    for i in idx:
+        rhs = _neighbour_rows(div, i, count, copy)
+        xs = ((None, None) if x is None
+              else _neighbour_rows(x, i, count, copy))
+        keep += [*rhs, *xs]
+        ptrs += [co._ptr(xs[0]), None if x is None else x[i].data_ptr(),
+                 co._ptr(xs[1]), co._ptr(rhs[0]), div[i].data_ptr(),
+                 co._ptr(rhs[1]), outs[i].data_ptr()]
+        is_top, is_bot, _ = _flags(flags[i])
+        walls += [int(is_top), int(is_bot)]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    wall_table = (ctypes.c_int * len(walls))(*walls)
+    co._launch("jacobi_slab_sweeps_damp_group",
+               lib.fsc_jacobi_slab_sweeps_damp_group,
+               ctypes.addressof(table), ctypes.addressof(wall_table),
+               len(idx), m, side, 0, 1.0, 4.0, co._f32(OMEGA),
+               co._f32(1.0 - OMEGA), count, tile, co._stream(div[idx[0]]))
 
 
 # ---------------------------------------------------------------------------
@@ -360,9 +461,13 @@ def fused_jacobi_slab_split(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags,
     """``fused_jacobi_slab`` on the slab ``x``/``rhs`` (m, side) and its
     (K, side) halos ``x_top``/``x_bot``, ``rhs_top``/``rhs_bot`` as they
     come from the neighbouring slabs, with no concatenated extended slab:
-    K18 runs the first sweep from the three operands and stores the
-    extended rhs it reads, the tiled K9 the ``sweeps-1`` sweeps after it.
-    ``zero_init`` starts from zero and ignores the x operands.  Equals
+    the tiled K9's first launch (``jacobi_slab_sweeps_split``) runs the
+    first T sweeps with its tiles read from the three operands and stores
+    the extended rhs it read, the tiled K9 the sweeps after it
+    (``_Sweeps.run_slab_split``).  ``zero_init`` starts from zero and
+    ignores the x operands; as JAX's B13 it has no Chebyshev form.  Inside
+    ``cuda_ops.launch_sweeps(0)`` it runs the per-sweep chain it is held
+    to, K18's one sweep then the per-sweep K9 (``_split_k18``).  Equals
     ``fused_jacobi_slab`` on the concatenation bit for bit; returns the
     (m, side) slab."""
     if not _split_checks(x, x_top, x_bot, rhs, rhs_top, rhs_bot, m, K,
@@ -371,6 +476,30 @@ def fused_jacobi_slab_split(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags,
             b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags, m=m, K=K,
             alpha=alpha, beta=beta, sweeps=sweeps, zero_init=zero_init,
             fast=fast)
+    kw = dict(m=m, K=K, alpha=alpha, beta=beta, sweeps=sweeps,
+              zero_init=zero_init, fast=fast)
+    if co._forced == 0:
+        return _split_k18(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags,
+                          **kw)
+    side, rows = rhs.shape[-1], m + 2 * K
+    xs = (None, None, None) if zero_init else (x, x_top, x_bot)
+    with torch.cuda.device(rhs.device):
+        lib = build.load()
+        run = co._Sweeps(b, None, rhs.new_empty((rows, side)), alpha, beta,
+                         sweeps, zero_init=False, src_dt=None, fast=fast,
+                         cheby_rho=None, kernel="jacobi_slab")
+        run.run_slab_split(lib, xs, (rhs, rhs_top, rhs_bot), m, K,
+                           *_wall_rows(flags, K, m))
+        return run.x[K:K + m]
+
+
+def _split_k18(b, x, x_top, x_bot, rhs, rhs_top, rhs_bot, flags, *, m, K,
+               alpha, beta, sweeps, zero_init=False, fast=False):
+    """B13 as K18's one sweep from the three operands (storing the
+    extended rhs it reads) and K9 from sweep 2 on the extended buffers it
+    wrote: the tiled K9's launches, or inside ``launch_sweeps(0)`` the
+    per-sweep K9's, the chain ``fused_jacobi_slab_split`` is held to.
+    CUDA tensors only (the caller checks)."""
     side, rows = rhs.shape[-1], m + 2 * K
     gtop, gbot = _wall_rows(flags, K, m)
     xs = (None, None, None) if zero_init else (x, x_top, x_bot)

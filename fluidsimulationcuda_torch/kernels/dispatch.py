@@ -14,8 +14,8 @@ always gathers so).  The multigrid smoother is ``ops.multigrid._smooth`` on
 ``get_ops`` returns the single-device step's ``OpSet``, ``get_slab_ops``
 the multi-device step's ``SlabOpSet`` (``kernels/cuda_sharded.py``: the
 row-slab kernels or their plain twins; the slab multigrid smooths its fine
-level with the SlabOpSet's ``smooth``, K9-damp or its plain twin, and its
-replicated coarse level with the OpSet's), ``get_slab3_ops`` the 3-D
+level with the SlabOpSet's ``smooth``, the grouped K9-damp or its plain
+twin, and its replicated coarse level with the OpSet's), ``get_slab3_ops`` the 3-D
 multi-device step's ``Slab3OpSet`` (``kernels/cuda_sharded_3d.py``: the
 z-slab kernels or their plain twins).
 
@@ -131,7 +131,8 @@ class SlabOpSet(NamedTuple):
     """The per-slab operations of the multi-device step
     (``parallel/sharded.py``), with the JAX slab functions' signatures
     (``kernels/cuda_sharded.py``) and the slab multigrid's smoother
-    (``smooth(p_ext, div_ext, flags, *, m, K, sweeps, zero_init)``), and
+    (``smooth(p_slabs, div_slabs, flags, *, sweeps, zero_init)``, the
+    list of every slab in and out), and
     whether this backend honours ``fast_math`` (the ``reference`` backend
     ignores it, as the JAX package's does)."""
 
@@ -156,12 +157,12 @@ def get_slab_ops(cfg: SimConfig) -> SlabOpSet:
                          cs.fused_project_slab_plain,
                          cs.fused_dens_slab_plain, cs.advect_slab_plain,
                          cs.divergence_slab_plain, cs.gradient_slab_plain,
-                         cs.smooth_slab_plain, fast=False)
+                         cs.smooth_slabs_plain, fast=False)
     if backend == "cuda":
         return SlabOpSet(cs.fused_jacobi_slab, cs.fused_project_slab,
                          cs.fused_dens_slab, cs.advect_slab,
                          cs.divergence_slab, cs.gradient_slab,
-                         cs.smooth_slab, fast=cfg.fast_math)
+                         cs.smooth_slabs, fast=cfg.fast_math)
     raise ValueError(f"unknown backend {backend!r}")
 
 

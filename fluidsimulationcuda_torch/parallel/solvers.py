@@ -17,8 +17,10 @@ the host, so a step that calls them captures into a CUDA graph.
   every slab first.
 - ``mg_slabs``: V-cycles with the fine level on the slabs and the coarse
   levels replicated.  The fine level's smooths (``smooth``, the
-  SlabOpSet's: K9-damp on the card) run on slabs extended by an 8-row
-  halo, a smooth of up to 7 sweeps per exchange; its residual takes a
+  SlabOpSet's: on the card the grouped K9-damp, every slab of a device in
+  one launch, its halo rows read from the neighbouring slabs' arrays; the
+  plain twin extends each slab by an 8-row halo, a smooth of up to 7
+  sweeps per exchange) take and return every slab; its residual takes a
   one-row halo.  Each slab sums its residual's 2x2 cell groups, pair-aligned
   by one leading zero row and column (a slab's first row is even), into a
   block of the coarse grid; the blocks of neighbouring slabs overlap by one
@@ -42,17 +44,13 @@ from typing import Callable
 
 import torch
 
-from ..kernels.cuda_sharded import _slab_bnd, _wall_rows
+from ..kernels.cuda_sharded import SMOOTH_HALO, _slab_bnd, _wall_rows
 from ..ops import multigrid as mg
 from ..ops.boundary import embed_interior
 from ..ops.diffuse import as_scalar
-from .mesh import _ext, _halos
+from .mesh import _halos
 
 __all__ = ["cg_slabs", "mg_slabs", "SMOOTH_HALO"]
-
-# The rows of the fine level's halo: a smooth of up to SMOOTH_HALO - 1
-# sweeps per exchange, ceil8(sweeps + 1) as the step's Jacobi chunks.
-SMOOTH_HALO = 8
 
 
 def _psum_all(parts: list[torch.Tensor]) -> torch.Tensor:
@@ -140,8 +138,9 @@ def mg_slabs(div, cycles: int, n: int, flags, smooth: Callable,
              smooth_coarse: Callable, *, pre: int = 2,
              post: int = 2) -> list[torch.Tensor]:
     """``cycles`` V-cycles from p = 0 over the row slabs ``div`` (JAX's
-    ``_mg_local``): ``pre`` damped sweeps on the slabs (``smooth``, the
-    SlabOpSet's), the residual restricted into the replicated coarse grid,
+    ``_mg_local``): ``pre`` damped sweeps on the slabs (``smooth(p_slabs,
+    div_slabs, flags, *, sweeps, zero_init)``, the SlabOpSet's), the
+    residual restricted into the replicated coarse grid,
     ``ops.multigrid.v_cycle`` there with ``smooth_coarse`` (the OpSet's),
     its prolongation added on each slab's interior, ``post`` sweeps.  With
     no coarser level (``mg_levels(n) == 0``) a cycle is ``pre`` sweeps and
@@ -150,19 +149,9 @@ def mg_slabs(div, cycles: int, n: int, flags, smooth: Callable,
     first = div[0].device
     levels = mg.mg_levels(n)
     masks = _interior_masks(div, n, flags)
-    div_ext = _ext(div, SMOOTH_HALO)
 
     def smooth_slabs(p, sweeps, zero_init=False):
-        done = 0
-        while done < sweeps:
-            s = min(SMOOTH_HALO - 1, sweeps - done)
-            p_ext = div_ext if zero_init and done == 0 else _ext(
-                p, SMOOTH_HALO)
-            p = [smooth(pe, de, fl, m=m, K=SMOOTH_HALO, sweeps=s,
-                        zero_init=zero_init and done == 0)
-                 for pe, de, fl in zip(p_ext, div_ext, flags)]
-            done += s
-        return p
+        return smooth(p, div, flags, sweeps=sweeps, zero_init=zero_init)
 
     def cycle(p, zero_init):
         p = smooth_slabs(p, pre, zero_init)

@@ -402,16 +402,45 @@ def test_step3_launches_by_the_tiled3_rule(cuda, fast, slabs):
 
 @pytest.mark.parametrize("side,m", [(64, 16), (2048, 256)])
 def test_split_slab_equals_concat_route(cuda, side, m):
-    """K18 then K9 equal K9 on the ``torch.cat`` of the same operands, bit
-    for bit (JAX's contract for B13)."""
+    """B13 equals K9 on the ``torch.cat`` of the same operands, bit for
+    bit (JAX's contract for B13).  Its first launch is now the tiled K9's
+    split-source form (``jacobi_slab_sweeps_split``), where K18's one
+    sweep (``jacobi_slab_split``) ran before: the check counts that launch
+    once and K18 not at all."""
     for check in checks.split_against_concat(side, m, cuda, seed=side):
         cuda_ops.reset_launch_counts()
         got = check.run()
         counts = cuda_ops.launch_counts()
         want = check.plain()
         torch.cuda.synchronize()
-        assert counts["jacobi_slab_split"] == 1, (check.label, counts)
+        assert counts["jacobi_slab_sweeps_split"] == 1, (check.label, counts)
+        assert counts["jacobi_slab_split"] == 0, (check.label, counts)
         assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("side,m", [(64, 16), (2048, 256)])
+def test_split_slab_equals_the_k18_route(cuda, side, m):
+    """B13's split-source tiled K9 equals the route before it, K18's one
+    sweep then the tiled K9, bit for bit, in every mode."""
+    for check in checks.split_against_k18(side, m, cuda, seed=side):
+        got, want = check.run(), check.plain()
+        torch.cuda.synchronize()
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+def test_grouped_slab_smoother_from_copied_halos(cuda):
+    """With the neighbours' rows copied over (the halo exchange a slab on
+    another device takes) the grouped K9-damp computes what it computes
+    from pointers into the neighbours' arrays, bit for bit."""
+    from fluidsimulationcuda_torch.kernels import cuda_sharded as cs
+
+    t = checks._SlabInputs(2048, 256, cuda, 3)
+    p, d, fl = t.slab_list(t.p), t.slab_list(t.x0), t.flag_list()
+    for sweeps, zero_init in ((2, False), (2, True), (7, False)):
+        got = cs._smooth_group(p, d, fl, sweeps, zero_init, copy=True)
+        want = cs.smooth_slabs(p, d, fl, sweeps=sweeps, zero_init=zero_init)
+        torch.cuda.synchronize()
+        assert checks.max_abs_diff(got, want) == 0.0
 
 
 @pytest.mark.parametrize("mode", ["parity", "perf"])
@@ -615,21 +644,29 @@ def test_damped_smoother_on_odd_sides(cuda, side):
         assert torch.equal(got, chain), check.label
 
 
-@pytest.mark.parametrize("side,m", [(64, 16), (2048, 256)])
+@pytest.mark.parametrize("side,m", [(64, 16), (64, 8), (2048, 256),
+                                    (2048, 16)])
 def test_slab_smoother_matches_plain(cuda, side, m):
-    """K9-damp (``smooth_slab``) against its plain twin on top, interior
-    and bottom slabs, bit for bit, and against itself at one launch a
-    sweep; a 2-sweep smooth is one launch."""
-    for check in checks.kernel_checks_slab_smooth(side, m, cuda, seed=side):
+    """K9-damp (``smooth_slabs``, every slab in one launch) against its
+    plain twin on every slab of the mesh, bit for bit, and against itself
+    at one launch a sweep; a 2-sweep smooth is one launch for all the
+    slabs.  The smoother takes every slab now, where it took one slab's
+    extended buffer: the checks are ``kernel_checks_group_smooth``'s and
+    count ``jacobi_slab_sweeps_damp_group`` (before,
+    ``kernel_checks_slab_smooth``'s top, interior and bottom slab, and
+    ``jacobi_slab_sweeps_damp``)."""
+    for check in checks.kernel_checks_group_smooth(side, m, cuda, seed=side):
         cuda_ops.reset_launch_counts()
         got = check.run()
         counts = cuda_ops.launch_counts()
-        want, chain = check.plain(), check.chain()
+        with cuda_ops.launch_sweeps(0):
+            chain = check.run()
+        want = check.plain()
         torch.cuda.synchronize()
         if " 2 sweeps" in check.label:
-            assert counts["jacobi_slab_sweeps_damp"] == 1, check.label
-        assert torch.equal(got, want), check.label
-        assert torch.equal(got, chain), check.label
+            assert counts["jacobi_slab_sweeps_damp_group"] == 1, check.label
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+        assert checks.max_abs_diff(got, chain) == 0.0, check.label
 
 
 @pytest.mark.parametrize("solver", ["multigrid", "cg"])

@@ -14,7 +14,12 @@ bottom slabs of 66² (3 slabs of 22 rows) and the one slab of 34² that
 holds both walls, every solve mode, T of 1, 2, 3 and 5 with solves of 1,
 T-1, T, T+1 and the halo's full depth, on tiles of 64 and 32 rows;
 ``fused_project_slab``, ``fused_dens_slab`` and ``fused_jacobi_slab_split``
-(the tiled K9 from sweep 2, after K18); the geometries where a wall row or
+(B13: the tiled K9's first launch reading its tiles from the split
+operands, ``jacobi_slab_sweeps_split``, then the tiled K9; bit for bit
+against K9 on the concatenation, against the chain it is held to, K18's
+one sweep then the per-sweep K9, and against the plain twin, in its
+Jacobi, zero-guess and fast modes, JAX's B13's; a Chebyshev flag is
+refused); the geometries where a wall row or
 the last ghost column would sit on the edge of a tile's output and the
 launch takes a deeper halo; launches the library refuses.  Each launch is
 checked against ``cuda_ops.sweep_plan`` (its sweeps, ω, the band it
@@ -130,6 +135,26 @@ def _check_plan(launches, plan, rows, walls, omegas, tile, done=0):
                       for k in ks]
 
 
+# Positions of fsc_jacobi_slab_sweeps_split's arguments.
+S_RHS_OUT, S_FLAGS, S_COUNT, S_M, S_K, S_GTOP, S_GBOT, S_TILE = (
+    7, 14, 15, 16, 17, 18, 19, 20)
+# B13's modes: JAX's (no Chebyshev).
+SPLIT_MODES = ("jacobi", "zero_init", "fast")
+
+
+def _check_split_launch(launch, step, m, K, walls, tile):
+    """B13's first launch against the first step of its plan: its sweeps
+    from sweep 0, the slab's rows, halo and wall rows, the tile, no
+    Chebyshev flag; it stores the rhs it read wherever a launch follows."""
+    kernel, a, _ = launch
+    assert kernel == "jacobi_slab_sweeps_split"
+    assert step.first == 0
+    assert (a[S_COUNT], a[S_M], a[S_K], a[S_GTOP], a[S_GBOT], a[S_TILE]) == (
+        step.count, m, K, *walls, tile)
+    assert a[S_FLAGS] & 4 == 0
+    assert (a[S_RHS_OUT] is not None) == (not step.ends_solve)
+
+
 def _near_plain(got, want, fast):
     err = checks.max_abs_diff(got, want)
     assert err <= checks.TOL if fast else err == 0.0
@@ -168,10 +193,13 @@ def test_tiled_k9_in_the_slab_wrappers(shim, position, per_launch, tile):
     """``fused_project_slab`` (the 20-sweep pressure solve from zero and
     the Chebyshev 14), ``fused_dens_slab`` (the folded source built by the
     first launch and stored for the rest, K12 gathering from the swept
-    buffer's band; in fast mode too) and ``fused_jacobi_slab_split`` (K18's
-    first sweep, the tiled K9 from sweep 2) at the step's margins: equal
-    to the same call on the per-sweep K9 bit for bit, and to the plain
-    twins (fast within ``checks.TOL``)."""
+    buffer's band; in fast mode too) and ``fused_jacobi_slab_split`` at the
+    step's margins: equal to the same call on the per-sweep K9 bit for
+    bit, and to the plain twins (fast within ``checks.TOL``).  B13's first
+    launch is now the tiled K9's split-source form, T sweeps from sweep 0
+    (``jacobi_slab_sweeps_split``), where K18 ran sweep 1 before the tiled
+    K9 took sweep 2 on: its plan starts at sweep 0 and its first step is
+    checked as that launch."""
     t, i = _slab(position)
     fl, n, m, cmax = t.flags(i), t.n, t.m, 2
     av, ad = t.a_visc, t.a_diff
@@ -191,7 +219,7 @@ def test_tiled_k9_in_the_slab_wrappers(shim, position, per_launch, tile):
         *[(cs.fused_jacobi_slab_split, cs.fused_jacobi_slab_split_plain,
            (1, *t.split(t.x, i, Ks), *t.split(t.x0, i, Ks), fl),
            dict(m=m, K=Ks, alpha=av, beta=1 + 4 * av, sweeps=20, **kw), 20,
-           Ks, 1) for kw in (dict(), dict(zero_init=True), dict(fast=True))],
+           Ks, 0) for kw in (dict(), dict(zero_init=True), dict(fast=True))],
     ]
     for fn, plain, args, kw, sweeps, halo, done in cases:
         got, launches = _run(shim, per_launch, tile, fn, *args, **kw)
@@ -202,16 +230,77 @@ def test_tiled_k9_in_the_slab_wrappers(shim, position, per_launch, tile):
                         checks._as_tuple(plain(*args, **kw))):
             _near_plain(a, b, kw.get("fast", False))
         cheby = kw.get("cheby_rho")
-        prep = fn is cs.fused_dens_slab or (done == 0 and kw.get("fast"))
-        _check_plan(launches, co.sweep_plan(
+        prep = fn is cs.fused_dens_slab or kw.get("fast")
+        plan = co.sweep_plan(
             done, sweeps, sweeps, per_launch, prep=bool(prep),
             cheby=cheby is not None,
             guess=fn is not cs.fused_project_slab
-            and not kw.get("zero_init", False) or done > 0),
-            m + 2 * halo, cs._wall_rows(fl, halo, m),
-            cheby_omegas(RHO, sweeps) if cheby else None, tile, done)
+            and not kw.get("zero_init", False))
         if fn is cs.fused_jacobi_slab_split:
-            assert launches[0][0] == "jacobi_slab_split"
+            _check_split_launch(launches[0], plan[0], m, halo,
+                                cs._wall_rows(fl, halo, m), tile)
+            plan = plan[1:]
+        _check_plan(launches, plan, m + 2 * halo, cs._wall_rows(fl, halo, m),
+                    cheby_omegas(RHO, sweeps) if cheby else None, tile, done)
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("per_launch,sweeps", PLANS)
+@pytest.mark.parametrize("mode", SPLIT_MODES)
+@pytest.mark.parametrize("position", list(POSITIONS))
+def test_split_source_k9_matches_concat_chain_and_plain(shim, position, mode,
+                                                        per_launch, sweeps,
+                                                        tile):
+    """B13 (``fused_jacobi_slab_split``): the tiled K9's first launch of T
+    sweeps reading its tiles from the three operands, then the tiled K9,
+    equals ``fused_jacobi_slab`` on the ``torch.cat`` of the operands (the
+    same launches), the per-sweep chain it is held to (K18's one sweep,
+    then the per-sweep K9) bit for bit, and its plain twin (fast within
+    ``checks.TOL``); its launches follow ``sweep_plan`` from sweep 0."""
+    t, i = _slab(position)
+    kw = dict(MODES[mode], m=t.m, K=K, alpha=t.a_visc,
+              beta=1 + 4 * t.a_visc, sweeps=sweeps)
+    x, rhs, fl = t.split(t.src, i, K), t.split(t.x0, i, K), t.flags(i)
+    args = (1, *x, *rhs, fl)
+    got, launches = _run(shim, per_launch, tile, cs.fused_jacobi_slab_split,
+                         *args, **kw)
+    chain, per_sweep = _run(shim, 0, tile, cs.fused_jacobi_slab_split,
+                            *args, **kw)
+    concat, _ = _run(shim, per_launch, tile, cs.fused_jacobi_slab, 1,
+                     t.ext(t.src, i, K), t.ext(t.x0, i, K), fl, **kw)
+    assert torch.equal(got, chain)
+    assert torch.equal(got, concat)
+    _near_plain(got, cs.fused_jacobi_slab_split_plain(*args, **kw),
+                kw.get("fast", False))
+    plan = co.sweep_plan(0, sweeps, sweeps, per_launch,
+                         prep=kw.get("fast", False), cheby=False,
+                         guess=not kw.get("zero_init", False))
+    walls = cs._wall_rows(fl, K, t.m)
+    _check_split_launch(launches[0], plan[0], t.m, K, walls, tile)
+    _check_plan(launches, plan[1:], t.m + 2 * K, walls, None, tile)
+    assert [k for k, *_ in per_sweep] == (["jacobi_slab_split"]
+                                          + ["jacobi_slab"] * (sweeps - 1))
+
+
+def test_split_launches_the_library_refuses(shim):
+    """The split-source launch takes at most the halo's depth in sweeps,
+    tiles of 64 or 32 rows and no Chebyshev flag: a launch of 9 sweeps
+    over an 8-row halo, a 48-row tile and a Chebyshev launch are refused
+    through ``_launch`` with nothing counted."""
+    mod, lib = shim
+    t, i = _slab("interior")
+    x, rhs = t.split(t.src, i, K), t.split(t.x0, i, K)
+    out = torch.empty((t.m + 2 * K, t.side))
+    for count, tile, flags in ((9, 64, 0), (2, 48, 0), (2, 64, 4)):
+        co.reset_launch_counts()
+        with mod.kernels_on_cpu(lib) as handle, pytest.raises(
+                RuntimeError, match="jacobi_slab_sweeps_split failed"):
+            co._launch("jacobi_slab_sweeps_split",
+                       handle.fsc_jacobi_slab_sweeps_split,
+                       *(a.data_ptr() for a in (*x, *rhs)), out.data_ptr(),
+                       None, t.side, 1, 1.0, 5.0, 0.2, 0.2, flags, count,
+                       t.m, K, -1, -1, tile, 0)
+        assert co.launch_counts()["jacobi_slab_sweeps_split"] == 0
 
 
 @pytest.mark.parametrize("mode", ["jacobi", "zero_init", "chebyshev+fast"])

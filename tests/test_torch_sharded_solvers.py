@@ -192,10 +192,13 @@ def _slabs(g, slabs):
 def test_mg_slabs_matches_the_classic_cycle(slabs):
     """``mg_slabs`` is the classic two-level cycle (not the graded
     ``mg_pressure_solve_fast``): within 1e-5 x max|p| of
-    ``ops.multigrid.mg_pressure_solve``."""
+    ``ops.multigrid.mg_pressure_solve``.  Its fine-level smoother takes
+    every slab at once (the SlabOpSet's ``smooth`` contract), so the
+    test passes the plain twin of that contract, ``smooth_slabs_plain``
+    (before, the one-slab ``smooth_slab_plain``)."""
     div = _div()
     xs, flags = _slabs(div, slabs)
-    got = torch.cat(mg_slabs(xs, 2, N, flags, cs.smooth_slab_plain,
+    got = torch.cat(mg_slabs(xs, 2, N, flags, cs.smooth_slabs_plain,
                              tmg._smooth))
     want = tmg.mg_pressure_solve(div, 2)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -220,7 +223,10 @@ def test_smooth_slab_plain_is_the_smoother_on_the_slab_rows(position, sweeps,
                                                             zero_init):
     """The slab smoother's plain twin on an extended slab equals
     ``ops.multigrid._smooth`` on the whole grid in the slab's rows, bit for
-    bit: a K-row halo is valid for K sweeps."""
+    bit: a K-row halo is valid for K sweeps.  On CPU tensors the kernel's
+    wrapper is that twin: the wrapper now takes every slab
+    (``smooth_slabs``), where the one-slab ``smooth_slab`` it checked
+    before is gone with the per-slab kernel."""
     slabs, K = 4, 8
     i = {"first": 0, "interior": 1, "last": slabs - 1}[position]
     gen = torch.Generator().manual_seed(sweeps)
@@ -233,10 +239,8 @@ def test_smooth_slab_plain_is_the_smoother_on_the_slab_rows(position, sweeps,
                                m=m, K=K, sweeps=sweeps, zero_init=zero_init)
     want = tmg._smooth(p, div, sweeps, zero_init=zero_init)
     assert torch.equal(got, want[i * m:(i + 1) * m])
-    # On CPU tensors the kernel's wrapper is its plain twin.
-    assert torch.equal(cs.smooth_slab(_ext(ps, K)[i], _ext(ds, K)[i],
-                                      flags[i], m=m, K=K, sweeps=sweeps,
-                                      zero_init=zero_init), got)
+    assert torch.equal(cs.smooth_slabs(ps, ds, flags, sweeps=sweeps,
+                                       zero_init=zero_init)[i], got)
 
 
 @pytest.mark.parametrize("n,slabs", [(46, 16), (45, 1), (62, 32)])
