@@ -37,7 +37,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 3c. every row-slab kernel of the multi-device step against its plain twin
    for a top, an interior and a bottom slab of 256 rows at 2048²
    (max|Δ| <= 1e-5), in its Jacobi, Chebyshev and fast forms, the gathers
-   under and over the 4-cell window; every call whose solve takes the
+   under and over the 4-cell window, K12's exact form from the assembled
+   fields up to 24 cells (bit for bit; timed beside K12 and
+   ``grid_sample``); every call whose solve takes the
    tiled K9 (``slab_against_both``) there and on top, interior and bottom
    slabs of 2048 rows of 8192² against its plain twin (bit for bit; fast
    mode within 1e-5) and against the same call on the per-sweep K9
@@ -64,7 +66,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    for a top, an interior and a bottom slab of 32 planes of 256³
    (max|Δ| <= 1e-5): Jacobi, zero guess, fast, a Chebyshev chain's first
    and chained segments (x_{k-1} carried in and out), the gathers under and
-   over the 4-cell window, the two stencils; K14 also on smooth, random and
+   over the 4-cell window, K14's exact form from the assembled volumes up
+   to 24 cells (bit for bit; timed beside K14 and ``grid_sample``), the
+   two stencils; K14 also on smooth, random and
    shear velocities in windows of 1 and 2, one field and the triple, bit
    for bit; every segment that takes the tiled K13 against the same
    segment on the per-sweep K13 bit for bit; timed beside bound and launch
@@ -137,14 +141,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    K9-damp launch); then the 8-slab
    step's first velocity-diffusion chunk again through B13, each slab's
    halos as the step exchanges them, against the step's own route (bit for
-   bit), launch counts checked, timed beside it and K18 + K9;
+   bit), launch counts checked, timed beside it and K18 + K9; then the
+   exact all-gather advection (``advect_mode="exact"``: each gathered
+   field assembled once on the card, K12's exact form) at 2048² on 8
+   slabs and 8192² on 4, past the window, held to ``StableFluids2D.step``
+   and the ``reference`` backend bit for bit over every step, the windowed
+   step's max|d| to the single-device step printed beside it, both steps'
+   ms/step eager and as a graph with their launches, and the all-gather
+   copies' share of the exact step's device time;
 11. the 3-D multi-device step, ``make_sharded_step_fn_3d`` with
    ``audited=True`` on one card: 256³ parity on 1 and on 8 z-slabs, the
    compensated mode (``PERF_POINT_3D``) with fast math on 8 slabs, and the
    compensated mode on 32 slabs of 8 planes (every solve chained across
    halo exchanges: 7+3 velocity sweeps, 7+5 pressure sweeps); checked as
    phase 10 checks the row slabs (against ``StableFluids3D.step`` where
-   the audited displacement stays under the window);
+   the audited displacement stays under the window); then the exact
+   all-gather advection (K14's exact form) on 8 z-slabs and, taken by
+   ``"auto"``, on 64 slabs of 4 planes, too thin for the 4-cell window,
+   held to ``StableFluids3D.step`` and checked as phase 10's exact runs;
 12. the windowed 2-D step, ``StableFluids2D`` at 2048² with
    ``advect_mode="windowed"`` (4-cell window), parity and the compensated
    perf mode with fast math: checked as phases 5-6 (launch counts, the
@@ -243,7 +257,9 @@ in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
 and phase 17's CLI calls for the 2-D kernels, phases 8, 16 and 17 for the
 3-D ones, the 8-slab
 2048² parity run of phase 10 for the row-slab kernels (K9-damp and the
-slab K1-damp from its 8-slab multigrid and CG runs), the
+slab K1-damp from its 8-slab multigrid and CG runs; K12's and K14's exact
+forms, ``advect_slab_exact`` and ``advect3_slab_exact``, from phase 10's
+8-slab 2048² and phase 11's 8-slab 256³ exact runs), the
 8-slab 256³ parity run of phase 11 for the z-slab kernels, phase 12's tail
 runs for K17, phase 10's chunk run for B13's split-source K9, phases 14 and
 18 for K1-damp and
@@ -326,6 +342,10 @@ KERNEL_SOURCES = {
     "divergence3_slab": (f"{CSRC}/project3_slab.cu", f"{TPU_STEP_3D}:567"),
     "gradient3_slab": (f"{CSRC}/project3_slab.cu", f"{TPU_STEP_3D}:582"),
     "advect3_slab": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
+    # The exact forms of K12 and K14: the TPU steps gather exactly in jnp
+    # (_advect_local, _advect3_local_exact; no pallas_call).
+    "advect_slab_exact": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:245"),
+    "advect3_slab_exact": (f"{CSRC}/advect3_slab.cu", f"{TPU_STEP_3D}:288"),
     "advect_project": (f"{CSRC}/advect_project.cu", f"{TPU_TAIL}:299"),
     "jacobi_slab_split": (f"{CSRC}/jacobi_slab_split.cu", f"{TPU_SLABS}:506"),
     # B13 as the tiled K9's first launch, its tiles read from the split
@@ -526,7 +546,8 @@ def slab_solve_launches(sweeps: int, rows: int, side: int,
     return {"jacobi_slab_sweeps": launches}
 
 
-def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
+def slab_solves(cfg, slabs: int,
+                exact: bool = False) -> list[tuple[int, int]]:
     """(sweeps, buffer rows) of each K9 solve one slab runs in a
     multi-device step of ``cfg`` on ``slabs`` row slabs, by the routes of
     ``parallel/sharded.py``: the velocity diffusions in Jacobi chunks of
@@ -534,7 +555,8 @@ def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
     the pressure solves inside the fused projection (``ceil8(it+3)``) or
     chunked or one Chebyshev call in the composed one (none for the
     multigrid and CG projections), the density's solve
-    inside the fused density step (``ceil8(it+1+cmax)``) or as the
+    inside the fused density step (``ceil8(it+1+cmax)``; never with
+    ``exact`` gathers, whose density step is composed) or as the
     velocities'."""
     def ceil8(x):
         return -(-x // 8) * 8
@@ -566,7 +588,7 @@ def slab_solves(cfg, slabs: int) -> list[tuple[int, int]]:
         proj = [(it_p, m + 2 * ceil8(it_p + 3))]
     else:
         proj = cheby(it_p) if cheby_p else chunks(it)
-    if (not dens_cheby and it <= fuse and 1 <= cmax <= 7
+    if (not exact and not dens_cheby and it <= fuse and 1 <= cmax <= 7
             and ceil8(it + 1 + cmax) <= m):
         dens = [(it, m + 2 * ceil8(it + 1 + cmax))]
     else:
@@ -625,19 +647,21 @@ def slab_mg_launches(cfg, slabs: int) -> dict[str, int]:
     return {k: c for k, c in launches.items() if c}
 
 
-def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
+def expected_launches_sharded(cfg, slabs: int,
+                              exact: bool = False) -> dict[str, int]:
     """Kernel launches of one multi-device step of ``cfg`` on ``slabs`` row
     slabs.  Each slab launches K9 for each solve of ``slab_solves`` (two
     velocity diffusions, two pressure solves, its density diffusion) as
     ``slab_solve_launches`` counts them, chunk by chunk; K10 and K11 once
-    per projection, K12 for the u/v pair and the density gather.  The
+    per projection, K12 for the u/v pair and the density gather (its exact
+    form, ``advect_slab_exact``, with ``exact`` gathers).  The
     fused and composed routes launch K10-K12 as often: they differ in halo
     exchanges and in the chunks of their solves.  The multigrid projection
     adds ``slab_mg_launches`` twice; CG's iterations are torch
     operations."""
     launches = {"divergence_slab": 2 * slabs, "gradient_slab": 2 * slabs,
-                "advect_slab": 2 * slabs}
-    for sweeps, rows in slab_solves(cfg, slabs):
+                "advect_slab_exact" if exact else "advect_slab": 2 * slabs}
+    for sweeps, rows in slab_solves(cfg, slabs, exact):
         for name, count in slab_solve_launches(sweeps, rows,
                                                cfg.n + 2).items():
             launches[name] = launches.get(name, 0) + slabs * count
@@ -647,17 +671,19 @@ def expected_launches_sharded(cfg, slabs: int) -> dict[str, int]:
     return launches
 
 
-def expected_launches_sharded3(cfg, slabs: int) -> dict[str, int]:
+def expected_launches_sharded3(cfg, slabs: int,
+                               exact: bool = False) -> dict[str, int]:
     """Kernel launches of one 3-D multi-device step of ``cfg`` on ``slabs``
     z-slabs.  Each slab runs its three velocity diffusions, two pressure
     solves and its density diffusion in segments on K13, each on the tiled
     form T3 sweeps a launch where ``cuda_ops.tiled3`` says so
     (``k3_launches``); K15 and K16 once per projection; K14 for the
-    (u, v, w) triple and for the density."""
+    (u, v, w) triple and for the density (its exact form,
+    ``advect3_slab_exact``, with ``exact`` gathers)."""
     jacobi = k3_launches(cfg, (cfg.n + 2) // slabs)
     return {**{k: slabs * n for k, n in jacobi.items()},
             "divergence3_slab": 2 * slabs, "gradient3_slab": 2 * slabs,
-            "advect3_slab": 2 * slabs}
+            "advect3_slab_exact" if exact else "advect3_slab": 2 * slabs}
 
 
 def fields(state) -> list[tuple[str, torch.Tensor]]:
@@ -815,32 +841,40 @@ def main_path(cfg, label: str, card: str, steps: int,
 
 def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
                  tol: tuple[float, float, float] | None,
-                 graph_reps: int = 3, single: bool = True) -> dict[str, int]:
+                 graph_reps: int = 3, single: bool = True,
+                 advect_mode: str = "auto") -> dict[str, int]:
     """Impulse step plus ``steps-1`` steps of ``make_sharded_step_fn(cfg,
-    audited=True)`` on ``slabs`` row slabs of one card (a mesh that lists
-    ``cuda:0`` once per slab), or in 3-D of ``make_sharded_step_fn_3d`` on
-    ``slabs`` z-slabs; check and return the launch counts of that run.
-    ``tol = (rtol, atol, last)`` holds step 1 to ``|d| <= atol +
-    rtol*|ref|`` and step ``steps`` to ``max|d| <= last`` against the
-    ``reference`` backend of the same sharded step on the same CUDA tensors
-    and, where the audited displacement stayed under ``cfg.max_courant``
-    (the gathers were exact), against ``StableFluids2D.step`` (3-D:
-    ``StableFluids3D.step``); None skips both.  With ``tol`` it also drives
-    ``steps`` steps of a forced trajectory (sources scaled by 0.05 every
-    step, as in phase 8), which at 2048² stays under the window where the
-    impulse does not, and holds it against the single-device step the same
-    way.  ``single=False`` leaves the single-device step out: the slab
-    multigrid runs the classic cycle, the single-device step the graded
-    one.  Then times the step eager and as a CUDA graph."""
-    from fluidsimulationcuda_torch import (Sources, StableFluids2D,
-                                           StableFluids3D, reference_init,
-                                           zero_sources)
+    advect_mode=advect_mode, audited=True)`` on ``slabs`` row slabs of one
+    card (a mesh that lists ``cuda:0`` once per slab), or in 3-D of
+    ``make_sharded_step_fn_3d`` on ``slabs`` z-slabs; check and return the
+    launch counts of that run.  ``tol = (rtol, atol, last)`` holds step 1
+    to ``|d| <= atol + rtol*|ref|`` and step ``steps`` to ``max|d| <=
+    last`` against the ``reference`` backend of the same sharded step on
+    the same CUDA tensors and, where the gathers were exact (the mode
+    taken is ``"exact"``, or the audited displacement stayed under
+    ``cfg.max_courant``), against ``StableFluids2D.step`` (3-D:
+    ``StableFluids3D.step``), which gathers exactly; None skips both.  With
+    ``tol`` a windowed run also drives ``steps`` steps of a forced
+    trajectory (sources scaled by 0.05 every step, as in phase 8), which at
+    2048² stays under the window where the impulse does not, and holds it
+    against the single-device step the same way; an exact run instead runs
+    the windowed step of the same mesh (where its slabs hold the window)
+    from the same start and prints its max|d| to the single-device step:
+    what the window costs there.  ``single=False`` leaves the single-device
+    step out: the slab multigrid runs the classic cycle, the single-device
+    step the graded one.  Then times the step eager and as a CUDA graph
+    (an exact run: beside the windowed step, with both steps' launches,
+    and the share of the exact step's device time that its all-gather
+    copies take, ``mesh._gather`` of its gathered fields timed alone)."""
+    from fluidsimulationcuda_torch import (StableFluids2D, StableFluids3D,
+                                           reference_init, zero_sources)
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
     from fluidsimulationcuda_torch.parallel import (make_mesh,
                                                     make_sharded_step_fn,
                                                     make_sharded_step_fn_3d,
                                                     shard_state,
                                                     shard_state_3d, unshard)
+    from fluidsimulationcuda_torch.parallel.mesh import _gather
 
     if cfg.ndim == 3:
         make_step, shard, model = (make_sharded_step_fn_3d, shard_state_3d,
@@ -853,15 +887,18 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
     mesh = make_mesh([torch.device("cuda", 0)] * slabs)
     gen = torch.Generator(device=cfg.device).manual_seed(SEED)
     state0, sources = reference_init(gen, cfg)
-    step_fn = make_step(cfg, mesh, audited=True)
+    step_fn = make_step(cfg, mesh, advect_mode=advect_mode, audited=True)
+    exact = step_fn.advect_mode == "exact"
     start, src, zeros = (shard(x, mesh)
                          for x in (state0, sources, zero_sources(cfg)))
     if cfg.ndim == 3:
         print(f"{label}: {slabs} slab(s) of {(cfg.n + 2) // slabs} planes, "
-              f"(K, H) per solve {step_fn.chunks}")
+              f"(K, H) per solve {step_fn.chunks}, advect_mode "
+              f"{advect_mode!r} took {step_fn.advect_mode!r}")
     else:
         print(f"{label}: {slabs} slab(s) of {(cfg.n + 2) // slabs} rows, "
-              f"routes {step_fn.routes}")
+              f"routes {step_fn.routes}, advect_mode {advect_mode!r} took "
+              f"{step_fn.advect_mode!r}")
 
     def run(fn):
         states, disps, state = [], [], start
@@ -876,7 +913,7 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
     states, disps = run(step_fn)
     torch.cuda.synchronize()
     counts = cuda_ops.launch_counts()
-    per_step = design(cfg, slabs)
+    per_step = design(cfg, slabs, exact)
     want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
     print(f"{label}: launches {counts} (expected {want})")
     if counts != want:
@@ -885,18 +922,20 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
     require_finite(last, label)
     disp = max(float(d) for d in disps)
     print(f"{label}: audited displacement {disp:.6f} cells (largest of "
-          f"{steps} steps; window {cfg.max_courant})")
+          f"{steps} steps; window {cfg.max_courant}; gathers "
+          f"{'exact' if exact else 'windowed'})")
     if tol is not None:
         rtol, atol, last_tol = tol
         ref = make_step(cfg.replace(backend="reference"), mesh,
-                        audited=True)
+                        advect_mode=advect_mode, audited=True)
         r_states, _ = run(ref)
         twins = [("reference backend, sharded",
                   unshard(r_states[0]), unshard(r_states[-1]))]
+        ones = None
         if not single:
             print(f"{label}: the single-device step solves by another "
                   f"algorithm: no single-device comparison")
-        elif disp < cfg.max_courant:
+        elif exact or disp < cfg.max_courant:
             sim = model(cfg)
             ones = [sim.step(state0, sources)]
             for _ in range(steps - 1):
@@ -913,28 +952,13 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
             if not dn <= last_tol:
                 raise AssertionError(f"{label}: step {steps} vs {what}: "
                                      f"max|d| {dn:.3e} > {last_tol}")
-        drive = Sources(*(None if s is None else 0.05 * s for s in sources))
-        s_drive, forced, one = shard(drive, mesh), start, state0
-        sim, f_disp = model(cfg), 0.0
-        for _ in range(steps):
-            forced, d = step_fn(forced, s_drive)
-            if single:
-                one = sim.step(one, drive)
-            f_disp = max(f_disp, float(d))
-        forced = unshard(forced)
-        require_finite(forced, f"{label} forced")
-        print(f"{label}: forced trajectory (sources x 0.05 every step): "
-              f"audited displacement {f_disp:.6f} cells")
-        if single and f_disp < cfg.max_courant:
-            df = max_diff(forced, one)
-            require_close(forced, one, rtol, atol,
-                          f"{label} forced step {steps} vs single-device step")
-            print(f"{label}: forced step {steps}: max|d| vs single-device "
-                  f"step {df:.3e}")
-        elif single:
-            print(f"{label}: forced displacement >= window: no single-device "
-                  f"comparison")
-    plain = make_step(cfg, mesh)
+        if exact:
+            windowed_cost(cfg, mesh, make_step, start, src, zeros, steps,
+                          ones, label)
+        else:
+            forced_path(cfg, mesh, step_fn, shard, model, state0, sources,
+                        start, steps, single, tol, label)
+    plain = make_step(cfg, mesh, advect_mode=advect_mode)
     state, ms = timed_steps(lambda s: plain(s, zeros), states[-1],
                             max(steps - 1, 2))
     require_finite(unshard(state), label)
@@ -944,7 +968,89 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
           f"{graph_ms:.4f} ms/step as a CUDA graph (device busy "
           f"{100 * graph_ms / ms:.1f}% of the eager step, host share "
           f"{100 * (1 - graph_ms / ms):.1f}%) ({card})")
+    if exact:
+        # The step's gathered fields: the velocities' (two or three) and
+        # the density's, each assembled once on the card.
+        gathered = [f for f in (state.u, state.v, state.w, state.dens)
+                    if f is not None]
+        gather_ms = checks.device_ms(
+            lambda: [_gather(f) for f in gathered], reps=graph_reps)
+        print(f"{label}: the all-gather copies ({len(gathered)} fields "
+              f"assembled) {gather_ms:.4f} ms as a CUDA graph, "
+              f"{100 * gather_ms / graph_ms:.1f}% of the exact step's "
+              f"device time ({card})")
+        m = (cfg.n + 2) // slabs
+        if m >= cfg.max_courant + 1:
+            win = make_step(cfg, mesh, advect_mode="windowed")
+            cuda_ops.reset_launch_counts()
+            win(state, zeros)
+            torch.cuda.synchronize()
+            w_launches = sum(cuda_ops.launch_counts().values())
+            _, w_ms = timed_steps(lambda s: win(s, zeros), state,
+                                  max(steps - 1, 2))
+            w_graph = checks.device_ms(lambda: win(state, zeros),
+                                       reps=graph_reps)
+            print(f"{label}: exact {ms:.4f} ms/step eager, {graph_ms:.4f} "
+                  f"as a CUDA graph, {sum(per_step.values())} launches a "
+                  f"step; windowed {w_ms:.4f} ms/step eager, {w_graph:.4f} "
+                  f"as a CUDA graph, {w_launches} launches a step ({card})")
     return counts
+
+
+def forced_path(cfg, mesh, step_fn, shard, model, state0, sources, start,
+                steps, single, tol, label) -> None:
+    """``steps`` steps of the forced trajectory (sources scaled by 0.05
+    every step) on the sharded step, held to the single-device step where
+    the audited displacement stays under the window."""
+    from fluidsimulationcuda_torch import Sources
+    from fluidsimulationcuda_torch.parallel import unshard
+
+    rtol, atol, _ = tol
+    drive = Sources(*(None if s is None else 0.05 * s for s in sources))
+    s_drive, forced, one = shard(drive, mesh), start, state0
+    sim, f_disp = model(cfg), 0.0
+    for _ in range(steps):
+        forced, d = step_fn(forced, s_drive)
+        if single:
+            one = sim.step(one, drive)
+        f_disp = max(f_disp, float(d))
+    forced = unshard(forced)
+    require_finite(forced, f"{label} forced")
+    print(f"{label}: forced trajectory (sources x 0.05 every step): "
+          f"audited displacement {f_disp:.6f} cells")
+    if single and f_disp < cfg.max_courant:
+        df = max_diff(forced, one)
+        require_close(forced, one, rtol, atol,
+                      f"{label} forced step {steps} vs single-device step")
+        print(f"{label}: forced step {steps}: max|d| vs single-device "
+              f"step {df:.3e}")
+    elif single:
+        print(f"{label}: forced displacement >= window: no single-device "
+              f"comparison")
+
+
+def windowed_cost(cfg, mesh, make_step, start, src, zeros, steps, ones,
+                  label) -> None:
+    """The windowed sharded step from the same start as an exact run: its
+    max|d| to the single-device step's states ``ones`` (the exact run's
+    twin), step 1 and step ``steps``, where the slabs hold the window."""
+    from fluidsimulationcuda_torch.parallel import unshard
+
+    m = (cfg.n + 2) // len(mesh.device_list)
+    if ones is None or m < cfg.max_courant + 1:
+        print(f"{label}: windowed step not compared ({m}-deep slabs, "
+              f"window {cfg.max_courant})")
+        return
+    win = make_step(cfg, mesh, advect_mode="windowed")
+    state = start
+    for k in range(steps):
+        state = win(state, src if k == 0 else zeros)
+        if k == 0:
+            d1 = max_diff(unshard(state), ones[0])
+    print(f"{label}: the windowed step on the same slabs: max|d| vs the "
+          f"single-device step: step 1 {d1:.3e}, step {steps} "
+          f"{max_diff(unshard(state), ones[-1]):.3e} (what the "
+          f"{cfg.max_courant}-cell window costs here)")
 
 
 def windowed_tail(cfg, state, sources):
@@ -1292,8 +1398,8 @@ def projection_quality(cfg, label: str, bar: bool, slabs: int = 0) -> None:
         m = (cfg.n + 2) // slabs
         us, vs = ([f[i * m:(i + 1) * m].clone() for i in range(slabs)]
                   for f in (u, v))
-        got = max_div(*map(torch.cat, _SlabStep(cfg, mesh, False)._project(
-            us, vs)), cfg.n)
+        run = _SlabStep(cfg, mesh, audited=False, exact=False)
+        got = max_div(*map(torch.cat, run._project(us, vs)), cfg.n)
         line += (f"; after the projection on {slabs} slabs {got:.4e} "
                  f"({got / jac:.3f}x)")
     print(line)
@@ -1867,8 +1973,12 @@ def main() -> None:
 
     phase("3c row-slab kernels against their plain twins (2048², m=256)")
     slab = checks.kernel_checks_slab(2048, 256, "cuda", SEED)
-    compare([c for c in slab if "jacobi_slab_sweeps" not in c.kernels],
-            checks.TOL, errs)
+    # K12's exact form computes its plain version's expressions: bit for
+    # bit.
+    compare([c for c in slab if "jacobi_slab_sweeps" not in c.kernels
+             and "advect_slab_exact" not in c.kernels], checks.TOL, errs)
+    compare([c for c in slab if "advect_slab_exact" in c.kernels], 0.0,
+            errs, "bit for bit")
     slab_against_both(slab, errs)
     slab = checks.kernel_checks_slab(8192, 2048, "cuda", SEED)
     print("  8192², slabs of 2048 rows:")
@@ -1903,8 +2013,12 @@ def main() -> None:
     del timed
 
     phase("3d z-slab kernels against their plain twins (256³, mz=32)")
-    compare(checks.kernel_checks_slab3(256, 32, "cuda", SEED), checks.TOL,
-            errs)
+    slab3 = checks.kernel_checks_slab3(256, 32, "cuda", SEED)
+    compare([c for c in slab3 if "advect3_slab_exact" not in c.kernels],
+            checks.TOL, errs)
+    compare([c for c in slab3 if "advect3_slab_exact" in c.kernels], 0.0,
+            errs, "bit for bit")
+    del slab3
     compare(checks.per_sweep_checks(checks.kernel_checks_slab3(
         256, 32, "cuda", SEED)), 0.0, errs, "bit for bit")
     compare(checks.kernel_checks_slab3_flows(256, 32, "cuda", SEED), 0.0,
@@ -2051,6 +2165,14 @@ def main() -> None:
         cg_slab, 8, "2048² CG-20, 8 slabs", card, 6,
         tol=(1e-5, 2e-5, 1e-4)).items()}
     projection_quality(cg_slab, "2048² CG-20", bar=False, slabs=8)
+    # The exact all-gather advection (K12's exact form): past the window,
+    # where the windowed step departs from the single-device step, equal
+    # to it and to the reference backend bit for bit.
+    launches_exact = sharded_path(parity, 8, "2048² parity, 8 slabs, exact",
+                                  card, 6, tol=(0.0, 0.0, 0.0),
+                                  advect_mode="exact")
+    sharded_path(big, 4, "8192² parity 40 it, 4 slabs, exact", card, 3,
+                 tol=(0.0, 0.0, 0.0), advect_mode="exact")
 
     phase("11 3-D multi-device step: z-slabs on one card")
     sharded_path(parity3, 1, "256³ parity, 1 slab", card, 3,
@@ -2065,6 +2187,18 @@ def main() -> None:
         card, 3, tol=(0.0, 1e-4, 1e-4)).items()}
     sharded_path(comp3, 32, label + ", 32 slabs of 8 planes", card, 3,
                  tol=(1e-5, 2e-5, 1e-4), graph_reps=1)
+    # The exact all-gather advection (K14's exact form), asked for on 8
+    # slabs and taken by "auto" on 64 slabs of 4 planes, thinner than the
+    # 5 planes the 4-cell window needs.
+    launches_exact = {k: c + launches_exact[k] for k, c in sharded_path(
+        parity3, 8, "256³ parity, 8 slabs, exact", card, 3,
+        tol=(1e-5, 2e-5, 1e-4), advect_mode="exact").items()}
+    thin = sharded_path(parity3, 64, "256³ parity, 64 slabs of 4 planes, "
+                        "auto", card, 2, tol=(1e-5, 2e-5, 1e-4),
+                        graph_reps=1)
+    if not thin["advect3_slab_exact"]:
+        raise AssertionError("auto on 4-plane slabs did not take the exact "
+                             "gather")
 
     phase("12 the windowed 2-D step: 2048², 4-cell window")
     windowed = parity.replace(advect_mode="windowed")
@@ -2193,7 +2327,7 @@ def main() -> None:
                    for k, c in solver_batch_path("cg", card).items()}
 
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
-                     + launches_slab_mg[k]
+                     + launches_slab_mg[k] + launches_exact[k]
                      + launches_slab3[k] + launches_dg[k] + launches_mg[k]
                      + launches_cg[k] + launches_w3[k] + launches_cli[k]
                      + launches_16[k] + launches_sb[k]

@@ -730,9 +730,17 @@ def rehearse_sharded(lib, side: int) -> int:
         "cg": dict(pressure_solver="cg", cg_iters=12),
     }
     failures = 0
-    for mode, slabs in (("parity", 4), ("parity", 8), ("compensated", 4),
-                        ("chebyshev-dens", 4), ("multi-chunk", 4),
-                        ("multigrid", 4), ("multigrid", 8), ("cg", 8)):
+    # (mode, slabs, advect_mode, velocity source scale): the exact parity
+    # steps' sources move the backtrace past the window; fast math's
+    # roundings, which the reference ignores, stay within the bar at the
+    # unscaled draw.
+    for mode, slabs, gather, scale in (
+            ("parity", 4, "auto", 1), ("parity", 8, "auto", 1),
+            ("compensated", 4, "auto", 1), ("chebyshev-dens", 4, "auto", 1),
+            ("multi-chunk", 4, "auto", 1), ("multigrid", 4, "auto", 1),
+            ("multigrid", 8, "auto", 1), ("cg", 8, "auto", 1),
+            ("parity", 4, "exact", 400), ("parity", 8, "exact", 400),
+            ("compensated", 4, "exact", 1)):
         ref = ft.SimConfig(backend="reference", device="cpu",
                            **{**base, **modes[mode]})
         cfg = ref.replace()
@@ -740,21 +748,25 @@ def rehearse_sharded(lib, side: int) -> int:
         object.__setattr__(cfg, "backend", "cuda")
         mesh = make_mesh([torch.device("cpu")] * slabs)
         state, src = ft.reference_init(torch.Generator().manual_seed(0), ref)
+        src = src._replace(u=src.u * scale, v=src.v * scale)
         state, src = shard_state(state, mesh), shard_state(src, mesh)
-        step = make_sharded_step_fn(cfg, mesh)
+        step = make_sharded_step_fn(cfg, mesh, advect_mode=gather)
         with kernels_on_cpu(lib):
             cuda_ops.reset_launch_counts()
             got = unshard(step(state, src))
             counts = cuda_ops.launch_counts()
-        want = unshard(make_sharded_step_fn(ref, mesh)(state, src))
-        per_step = chip_smoke.expected_launches_sharded(cfg, slabs)
+        want = unshard(make_sharded_step_fn(ref, mesh,
+                                            advect_mode=gather)(state, src))
+        per_step = chip_smoke.expected_launches_sharded(
+            cfg, slabs, step.advect_mode == "exact")
         launches_ok = counts == {k: per_step.get(k, 0)
                                  for k in cuda_ops.KERNELS}
         err = chip_smoke.max_diff(got, want)
         tol = 1e-4 if cfg.fast_math else 0.0
         bad = err > tol or not launches_ok
         failures += bad
-        print(f"  sharded {mode:15s} {slabs} slabs {step.routes} max|d| vs "
+        print(f"  sharded {mode:15s} {slabs} slabs {step.advect_mode} "
+              f"{step.routes} max|d| vs "
               f"reference {err:.3e}, launches "
               f"{'as designed' if launches_ok else counts}"
               f"{'  FAIL' if bad else ''}")
@@ -783,32 +795,44 @@ def rehearse_sharded3(lib, side: int) -> int:
                                cheby_rho=0.85, cheby_dens_iters=6),
     }
     failures = 0
-    for mode, slabs in (("parity", 3), ("parity", 8), ("compensated", 3),
-                        ("compensated", 8), ("chebyshev-dens", 8)):
+    # As rehearse_sharded's cases; "thin" is "auto" on slabs thinner than
+    # the window.
+    for mode, slabs, gather, scale in (
+            ("parity", 3, "auto", 1), ("parity", 8, "auto", 1),
+            ("compensated", 3, "auto", 1), ("compensated", 8, "auto", 1),
+            ("chebyshev-dens", 8, "auto", 1), ("parity", 3, "exact", 400),
+            ("compensated", 8, "exact", 1), ("parity", 8, "thin", 400)):
         kw = {**base, **modes[mode]}
         if slabs == 8:
             kw["max_courant"] = 1  # 3-plane slabs: the window must fit
+        if gather == "thin":
+            kw["max_courant"], gather = 3, "auto"
         ref = ft.SimConfig(backend="reference", device="cpu", **kw)
         cfg = ref.replace()
         # The cuda backend on CPU tensors, which only the shim allows.
         object.__setattr__(cfg, "backend", "cuda")
         mesh = make_mesh([torch.device("cpu")] * slabs)
         state, src = ft.reference_init(torch.Generator().manual_seed(0), ref)
+        src = src._replace(u=src.u * scale, v=src.v * scale,
+                           w=src.w * scale)
         state, src = shard_state_3d(state, mesh), shard_state_3d(src, mesh)
-        step = make_sharded_step_fn_3d(cfg, mesh)
+        step = make_sharded_step_fn_3d(cfg, mesh, advect_mode=gather)
         with kernels_on_cpu(lib):
             cuda_ops.reset_launch_counts()
             got = unshard(step(state, src))
             counts = cuda_ops.launch_counts()
-        want = unshard(make_sharded_step_fn_3d(ref, mesh)(state, src))
-        per_step = chip_smoke.expected_launches_sharded3(cfg, slabs)
+        want = unshard(make_sharded_step_fn_3d(ref, mesh,
+                                               advect_mode=gather)(state, src))
+        per_step = chip_smoke.expected_launches_sharded3(
+            cfg, slabs, step.advect_mode == "exact")
         launches_ok = counts == {k: per_step.get(k, 0)
                                  for k in cuda_ops.KERNELS}
         err = chip_smoke.max_diff(got, want)
         tol = 1e-4 if cfg.fast_math else 0.0
         bad = err > tol or not launches_ok
         failures += bad
-        print(f"  sharded 3-D {mode:15s} {slabs} slabs {step.chunks} max|d| "
+        print(f"  sharded 3-D {mode:15s} {slabs} slabs {step.advect_mode} "
+              f"{step.chunks} max|d| "
               f"vs reference {err:.3e}, launches "
               f"{'as designed' if launches_ok else counts}"
               f"{'  FAIL' if bad else ''}")

@@ -61,7 +61,11 @@ class SimConfig:
         cell (``ops.advect.advect_windowed``, ``ops.three_d.
         advect3_windowed``: exact while the backtrace moves at most
         ``max_courant`` cells), in the 2-D and 3-D steps on both backends.
-        The multi-device steps are always windowed.
+        The multi-device steps take their own ``advect_mode`` argument:
+        ``"exact"`` gathers from the assembled fields at any displacement,
+        ``"windowed"`` in the window; ``"auto"`` is windowed where every
+        slab holds ``max_courant+1`` rows or planes, and on thinner z-slabs
+        exact (thinner row slabs need the block route, ROADMAP §A 3).
       ndim: 2 (the flagship) or 3 (smoke volumes, ``(n+2)^3``).
     """
 

@@ -1,5 +1,6 @@
-// K14 advect3_slab: the windowed semi-Lagrangian trilinear gather of one to
-// three fields on a z-slab, from plane-halo-extended copies of the fields.
+// K14 advect3_slab: the semi-Lagrangian trilinear gather of one to three
+// fields on a z-slab, windowed from plane-halo-extended copies of the
+// fields, or exact from the assembled fields.
 //
 // Replaces the TPU kernel _advect3_flat_slab_kernel
 // (fluidsimulationcuda_tpu/kernels/pallas_sharded_3d.py:483, pallas_call at
@@ -14,13 +15,24 @@
 // plane takes its value from its interior neighbour's gather
 // (fsc_common.cuh slab_border_value3).
 //
-// The departure point is clamped per axis to [0.5, n+0.5] and then to
-// [g - cmax, g + cmax] around the cell's own global coordinate
-// (fsc_common.cuh window_coord), so the gather equals the exact one (K6)
-// while the displacement stays at or below cmax and is clamped, not
-// refused, above it.  The eight reads then lie within cmax+1 planes of the
-// cell's own plane: inside a halo of `halo` >= cmax+1 planes, which the
-// wrapper checks.  Any cmax below the slab's plane count works.
+// Windowed form (fsc_advect3_slab): the departure point is clamped per axis
+// to [0.5, n+0.5] and then to [g - cmax, g + cmax] around the cell's own
+// global coordinate (fsc_common.cuh window_coord), so the gather equals the
+// exact one (K6) while the displacement stays at or below cmax and is
+// clamped, not refused, above it.  The eight reads then lie within cmax+1
+// planes of the cell's own plane: inside a halo of `halo` >= cmax+1 planes,
+// which the wrapper checks.  Any cmax below the slab's plane count works.
+//
+// Exact form (fsc_advect3_slab_exact): the TPU step's exact all-gather
+// advection, _advect3_local_exact
+// (fluidsimulationcuda_tpu/parallel/sharded3d.py:288, jnp, no pallas_call;
+// its Pallas z-slab route refuses "exact").  Each coordinate takes the
+// global clamp alone (exact_coord, the expressions of K6's backtrace3), and
+// the eight points are read from the whole assembled (side, side, side)
+// field at their global planes: the buffer is the assembled field, its
+// plane plane0 the slab's plane 0 (halo = plane0).  This is the form the
+// z-slab step takes on slabs thinner than the window.  Each form is its own
+// instantiation.
 //
 // Bound: device memory, as K6: u, v, w and eight gather points per field
 // (neighbours of each other for a smooth flow, so mostly L1/L2 hits) and
@@ -29,6 +41,7 @@
 
 namespace {
 
+template <bool kExact>
 __global__ void advect3_slab_kernel(
     const float* __restrict__ d1, const float* __restrict__ d2,
     const float* __restrict__ d3, const float* __restrict__ u,
@@ -45,11 +58,16 @@ __global__ void advect3_slab_kernel(
   const int ci = fsc::clampi(i, 1, n);
   const int cj = fsc::clampi(j, 1, n);
   const int c = (ki * side + ci) * side + cj;
-  const fsc::Departure3 d = fsc::departure3(
-      fsc::window_coord(cj, u[c], n, dt0, cmax),
-      fsc::window_coord(ci, v[c], n, dt0, cmax),
-      fsc::window_coord(plane0 + ki, w[c], n, dt0, cmax), side,
-      plane0 - halo);
+  const int gk = plane0 + ki;
+  const fsc::Departure3 d =
+      kExact ? fsc::departure3(fsc::exact_coord(cj, u[c], n, dt0),
+                               fsc::exact_coord(ci, v[c], n, dt0),
+                               fsc::exact_coord(gk, w[c], n, dt0), side,
+                               plane0 - halo)
+             : fsc::departure3(fsc::window_coord(cj, u[c], n, dt0, cmax),
+                               fsc::window_coord(ci, v[c], n, dt0, cmax),
+                               fsc::window_coord(gk, w[c], n, dt0, cmax),
+                               side, plane0 - halo);
   const int o = (k * side + i) * side + j;
   o1[o] = fsc::slab_border_value3(fsc::trilinear(d, d1, side), k, i, j, side,
                                   gtop, gbot, b1);
@@ -59,6 +77,19 @@ __global__ void advect3_slab_kernel(
   if (d3 != nullptr)
     o3[o] = fsc::slab_border_value3(fsc::trilinear(d, d3, side), k, i, j,
                                     side, gtop, gbot, b3);
+}
+
+template <bool kExact>
+int launch(const float* d1, const float* d2, const float* d3, const float* u,
+           const float* v, const float* w, float* o1, float* o2, float* o3,
+           int mz, int side, int halo, int b1, int b2, int b3, float dt0,
+           int plane0, int cmax, int gtop, int gbot, void* stream) {
+  const auto kernel = advect3_slab_kernel<kExact>;
+  kernel<<<fsc::slab_grid_dim3(side, mz), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      d1, d2, d3, u, v, w, o1, o2, o3, side, halo, b1, b2, b3, dt0, plane0,
+      cmax, gtop, gbot);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -75,9 +106,19 @@ extern "C" int fsc_advect3_slab(const float* d1, const float* d2,
                                 int halo, int b1, int b2, int b3, float dt0,
                                 int plane0, int cmax, int gtop, int gbot,
                                 void* stream) {
-  advect3_slab_kernel<<<fsc::slab_grid_dim3(side, mz), fsc::block_dim(), 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      d1, d2, d3, u, v, w, o1, o2, o3, side, halo, b1, b2, b3, dt0, plane0,
-      cmax, gtop, gbot);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side, halo, b1,
+                       b2, b3, dt0, plane0, cmax, gtop, gbot, stream);
+}
+
+// d1..d3: the assembled (side, side, side) fields, slab plane k at plane
+// plane0 + k; the rest as fsc_advect3_slab's.
+extern "C" int fsc_advect3_slab_exact(const float* d1, const float* d2,
+                                      const float* d3, const float* u,
+                                      const float* v, const float* w,
+                                      float* o1, float* o2, float* o3, int mz,
+                                      int side, int b1, int b2, int b3,
+                                      float dt0, int plane0, int gtop,
+                                      int gbot, void* stream) {
+  return launch<true>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side, plane0, b1,
+                      b2, b3, dt0, plane0, 0, gtop, gbot, stream);
 }

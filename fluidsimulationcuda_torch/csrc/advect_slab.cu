@@ -1,5 +1,6 @@
-// K12 advect_slab: the windowed semi-Lagrangian gather of one or two fields
-// on a row slab, from halo-extended copies of the fields.
+// K12 advect_slab: the semi-Lagrangian gather of one or two fields on a row
+// slab, windowed from halo-extended copies of the fields, or exact from the
+// assembled fields.
 //
 // Replaces the TPU kernel _advect_slab_kernel
 // (fluidsimulationcuda_tpu/kernels/pallas_sharded.py:1055, pallas_call at
@@ -9,14 +10,26 @@
 // by (2*cmax+1)^2 masked shifts over a VMEM window; here each thread reads
 // its four points directly, at global row row0 + r.
 //
-// The departure point is clamped to [0.5, n+0.5] and then to
-// [g - cmax, g + cmax] around the cell's own global coordinate
-// (fsc_common.cuh: window_backtrace), so the gather equals the exact one
-// (K3) while the displacement stays at or below cmax and is clamped, not
-// refused, above it.  The four reads then lie within cmax+1 rows of the
-// cell's own row: inside a halo of `halo` >= cmax+1 rows, which the wrapper
-// checks.  A ghost column or wall ghost row takes its value from its
-// interior neighbour's gather (fsc_common.cuh).
+// Windowed form (fsc_advect_slab): the departure point is clamped to
+// [0.5, n+0.5] and then to [g - cmax, g + cmax] around the cell's own global
+// coordinate (fsc_common.cuh: window_backtrace), so the gather equals the
+// exact one (K3) while the displacement stays at or below cmax and is
+// clamped, not refused, above it.  The four reads then lie within cmax+1
+// rows of the cell's own row: inside a halo of `halo` >= cmax+1 rows, which
+// the wrapper checks.
+//
+// Exact form (fsc_advect_slab_exact): the TPU step's exact all-gather
+// advection, _advect_local (fluidsimulationcuda_tpu/parallel/sharded.py:245,
+// jnp, no pallas_call; its Pallas slab route refuses "exact").  The
+// departure point takes the global clamp alone, K3's backtrace_at at the
+// cell's global row, and the four points are read from the whole assembled
+// (side, side) field at their global rows: the buffer is the assembled
+// field, its row row0 the slab's row 0 (halo = row0).  Any displacement is
+// gathered as the single-device step gathers it.  The form is its own
+// instantiation, so neither carries the other's clamp.
+//
+// A ghost column or wall ghost row takes its value from its interior
+// neighbour's gather (fsc_common.cuh), in both forms.
 //
 // Bound: device memory, as K3: u, v and four gather points per field (L1/L2
 // hits for a smooth flow) and one write per field.
@@ -24,6 +37,7 @@
 
 namespace {
 
+template <bool kExact>
 __global__ void advect_slab_kernel(const float* __restrict__ d1,
                                    const float* __restrict__ d2,
                                    const float* __restrict__ u,
@@ -40,7 +54,9 @@ __global__ void advect_slab_kernel(const float* __restrict__ d1,
   const int cj = fsc::clampi(j, 1, n);
   const int c = ri * side + cj;
   const fsc::Departure d =
-      fsc::window_backtrace(u[c], v[c], row0 + ri, cj, n, dt0, cmax);
+      kExact ? fsc::backtrace_at(u[c], v[c], row0 + ri, cj, side, dt0)
+             : fsc::window_backtrace(u[c], v[c], row0 + ri, cj, n, dt0,
+                                     cmax);
   const int g = (d.i0 - row0 + halo) * side + d.j0;
   const float a = fsc::blend(d, d1[g], d1[g + side], d1[g + 1],
                              d1[g + side + 1]);
@@ -50,6 +66,18 @@ __global__ void advect_slab_kernel(const float* __restrict__ d1,
                                d2[g + side + 1]);
     o2[r * side + j] = fsc::slab_border_value(e, r, j, side, gtop, gbot, b2);
   }
+}
+
+template <bool kExact>
+int launch(const float* d1, const float* d2, const float* u, const float* v,
+           float* o1, float* o2, int m, int side, int halo, int b1, int b2,
+           float dt0, int row0, int cmax, int gtop, int gbot, void* stream) {
+  const auto kernel = advect_slab_kernel<kExact>;
+  kernel<<<fsc::slab_grid_dim(side, m), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(d1, d2, u, v, o1, o2, m, side,
+                                                halo, b1, b2, dt0, row0, cmax,
+                                                gtop, gbot);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -62,9 +90,18 @@ extern "C" int fsc_advect_slab(const float* d1, const float* d2,
                                float* o2, int m, int side, int halo, int b1,
                                int b2, float dt0, int row0, int cmax,
                                int gtop, int gbot, void* stream) {
-  advect_slab_kernel<<<fsc::slab_grid_dim(side, m), fsc::block_dim(), 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      d1, d2, u, v, o1, o2, m, side, halo, b1, b2, dt0, row0, cmax, gtop,
-      gbot);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(d1, d2, u, v, o1, o2, m, side, halo, b1, b2, dt0,
+                       row0, cmax, gtop, gbot, stream);
+}
+
+// d1, d2: the assembled (side, side) fields, slab row r at row row0 + r;
+// u, v, o1, o2: (m, side).  d2/o2 null gathers one field.  dt0 = dt*n in
+// float32.  Returns cudaGetLastError() after the launch.
+extern "C" int fsc_advect_slab_exact(const float* d1, const float* d2,
+                                     const float* u, const float* v,
+                                     float* o1, float* o2, int m, int side,
+                                     int b1, int b2, float dt0, int row0,
+                                     int gtop, int gbot, void* stream) {
+  return launch<true>(d1, d2, u, v, o1, o2, m, side, row0, b1, b2, dt0, row0,
+                      0, gtop, gbot, stream);
 }

@@ -511,17 +511,24 @@ __device__ __forceinline__ float blend(const Departure& d, float g00,
   return d.s0 * (d.t0 * g00 + d.t1 * g10) + d.s1 * (d.t0 * g01 + d.t1 * g11);
 }
 
+// One coordinate of an exact departure point: g - dt0*vel for the cell at
+// global coordinate g, clamped to [0.5, n+0.5] (the expressions of
+// backtrace_at and backtrace3, and of the multi-device exact gathers,
+// parallel/sharded.py:249-256 and sharded3d.py:296-310 of the JAX package).
+__device__ __forceinline__ float exact_coord(int g, float vel, int n,
+                                             float dt0) {
+  return fminf(fmaxf(static_cast<float>(g) - dt0 * vel, 0.5f),
+               static_cast<float>(n) + 0.5f);
+}
+
 // One coordinate of a departure point under the window clamp of the
 // multi-device gathers (pallas_sharded.py:1089-1096, sharded3d.py:354-356):
-// g - dt0*vel for the cell at global coordinate g, clamped to [0.5, n+0.5],
-// then to [g - cmax, g + cmax], in that order.
+// exact_coord, then clamped to [g - cmax, g + cmax], in that order.
 __device__ __forceinline__ float window_coord(int g, float vel, int n,
                                               float dt0, int cmax) {
   const float fg = static_cast<float>(g);
   const float c = static_cast<float>(cmax);
-  const float x = fminf(fmaxf(fg - dt0 * vel, 0.5f),
-                        static_cast<float>(n) + 0.5f);
-  return fminf(fmaxf(x, fg - c), fg + c);
+  return fminf(fmaxf(exact_coord(g, vel, n, dt0), fg - c), fg + c);
 }
 
 // Departure point of the cell at global (row gr, column gc) with velocity

@@ -84,10 +84,14 @@ _SIGNATURES = {
                           _P],
     "fsc_advect_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                         _I, _I, _I, _P],
+    "fsc_advect_slab_exact": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                              _I, _I, _I, _P],
     "fsc_jacobi3_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
                          _F, _I, _I, _I, _I, _I, _P],
     "fsc_advect3_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _F, _I, _I, _I, _I, _P],
+    "fsc_advect3_slab_exact": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _F, _I, _I, _I, _P],
     "fsc_divergence3_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fsc_gradient3_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _P],

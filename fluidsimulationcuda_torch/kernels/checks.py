@@ -1365,7 +1365,8 @@ def kernel_checks_slab(side: int, m: int, device, seed: int = 0) -> list[Check]:
     for a top, an interior and a bottom slab of ``m`` rows at grid
     ``side``, with the margins the step gives them: parity (20 sweeps),
     the compensated point (rho, k_d, k_p) = (0.9, 10, 14), fast math, and
-    gathers under and over the 4-cell window."""
+    gathers under and over the 4-cell window; K12's exact form from the
+    assembled fields at the reaches of ``EXACT_REACH``."""
     t = _SlabInputs(side, m, device, seed)
     n, av, ad = t.n, t.a_visc, t.a_diff
     iters, (rho, k_d, k_p) = 20, PERF_POINTS_2D[2048]
@@ -1415,6 +1416,7 @@ def kernel_checks_slab(side: int, m: int, device, seed: int = 0) -> list[Check]:
                 ("advect_slab",), cs.advect_slab, cs.advect_slab_plain,
                 (1, 2), (ext(u, i, C), ext(v, i, C)), None, None, fl, dt=DT,
                 n=n, cmax=cmax, m=m, self_adv=True))
+        out.extend(_exact_cases(t, i, pos))
         out.append(_check(f"divergence_slab {pos}", ("divergence_slab",),
                           cs.divergence_slab, cs.divergence_slab_plain,
                           slab(t.u, i), slab(t.v, i), *t.halo(t.v, i), fl, n))
@@ -1423,6 +1425,32 @@ def kernel_checks_slab(side: int, m: int, device, seed: int = 0) -> list[Check]:
                           slab(t.u, i), slab(t.v, i), slab(t.p, i),
                           *t.halo(t.p, i), fl, n))
         out.extend(_split_cases(t, i, pos, cs.fused_jacobi_slab_split_plain))
+    return out
+
+
+# Velocity scales of the exact gathers' checks: up to 2 cells, up to 6 (over
+# the 4-cell window) and up to 24 (as far as the 2048² impulse moves it).
+EXACT_REACH = {"2 cells": 1.0, "6 cells": 3.0, "24 cells": 12.0}
+
+
+def _exact_cases(t: "_SlabInputs", i: int, pos: str) -> list[Check]:
+    """K12's exact form on slab ``i`` against its plain version, from the
+    assembled fields: one field and the u/v pair at each reach of
+    ``EXACT_REACH``."""
+    out, kw = [], dict(dt=DT, n=t.n, m=t.m)
+    for reach, scale in EXACT_REACH.items():
+        u, v = scale * t.u, scale * t.v
+        out.append(_check(
+            f"advect_slab_exact {pos} b=0, up to {reach}",
+            ("advect_slab_exact",), cs.advect_slab_exact,
+            cs.advect_slab_exact_plain, (0,), (t.x,),
+            t.slab(u, i).contiguous(), t.slab(v, i).contiguous(),
+            t.flags(i), self_adv=False, **kw))
+        out.append(_check(
+            f"advect_slab_exact {pos} u/v pair, up to {reach}",
+            ("advect_slab_exact",), cs.advect_slab_exact,
+            cs.advect_slab_exact_plain, (1, 2), (u, v), None, None,
+            t.flags(i), self_adv=True, **kw))
     return out
 
 
@@ -1508,6 +1536,32 @@ def split_against_k18(side: int, m: int, device,
             for c in _split_cases(t, i, pos, cs._split_k18)]
 
 
+def _exact_timed(t: "_SlabInputs", i: int, label: str, cost, bs,
+                 fields) -> Check:
+    """K12's exact form on slab ``i`` from the assembled ``fields`` (the
+    u/v pair self-advected, or one field by (u, v)), its cost counted over
+    the slab's cells as K12's, and its library gather: ``grid_sample`` of
+    the assembled fields at the slab's exact departure points."""
+    m, side = t.m, t.side
+    rows = slice(i * m, (i + 1) * m)
+    pair = bs == (1, 2)
+    check = _timed(_scaled(cost, m * side), 1, label, ("advect_slab_exact",),
+                   cs.advect_slab_exact, cs.advect_slab_exact_plain, bs,
+                   fields, None if pair else t.u[rows].contiguous(),
+                   None if pair else t.v[rows].contiguous(), t.flags(i),
+                   dt=DT, n=t.n, m=m, self_adv=pair)
+
+    def gather():
+        cols = torch.arange(side, dtype=torch.float32, device=t.u.device)
+        grows = torch.arange(i * m, (i + 1) * m, dtype=torch.float32,
+                             device=t.u.device)[:, None]
+        return list(fields), departure(t.u[rows], t.v[rows], cols, grows,
+                                       DT, t.n)
+
+    check.gather = gather
+    return check
+
+
 def timing_checks_slab(side: int, m: int, device,
                        seed: int = 0) -> list[Check]:
     """What ``chip_smoke.py`` times for the slab kernels, on an interior
@@ -1516,8 +1570,11 @@ def timing_checks_slab(side: int, m: int, device,
     the tiled K9's runs T sweeps (``cuda_ops.slab_tiling``), the per-sweep
     K9's one) beside its plain twin, then each wrapper at the main path's
     iteration counts, each whose solve takes the tiled K9 beside the same
-    call on the per-sweep K9 (``chain``).  Costs are counted over the rows
-    each launch computes."""
+    call on the per-sweep K9 (``chain``), and K12's exact form
+    (``advect_slab_exact``, the u/v pair) from the assembled fields.
+    Costs are counted over the rows each launch computes; the exact
+    form's, as K12's, over the slab's velocities and outputs (its reads of
+    the assembled fields are gathers, mostly L1/L2 hits)."""
     t = _SlabInputs(side, m, device, seed)
     n, av, ad = t.n, t.a_visc, t.a_diff
     bv, bd = 1 + 4 * av, 1 + 4 * ad
@@ -1565,6 +1622,10 @@ def timing_checks_slab(side: int, m: int, device,
                  (ext(t.x, i, C),), slab(t.u, i), slab(t.v, i), fl, dt=DT,
                  n=n, cmax=cmax, m=m, self_adv=False)
     one.gather = slab_gather((t.x,))
+    exact = [_exact_timed(t, i, label, cost, bs, fields)
+             for label, cost, bs, fields in (
+                 ("advect_slab_exact", ADVECT2_PAIR, (1, 2), (t.u, t.v)),
+                 ("advect_slab_exact one field", ADVECT2_ONE, (0,), (t.x,)))]
     per_launch = co.slab_tiling(m + 2 * K20, side, 20)[0]
     return [
         _k1_timed(sweeps(per_launch, K20), 1, "jacobi_slab_sweeps",
@@ -1586,6 +1647,7 @@ def timing_checks_slab(side: int, m: int, device,
                slab(t.v, i), slab(t.p, i), *t.halo(t.p, i), fl, n),
         advect,
         one,
+        *exact,
         solve(sweeps(20, K20), "fused_jacobi_slab 20it (u diffusion)",
               JAC_SLAB, cs.fused_jacobi_slab,
               cs.fused_jacobi_slab_plain, 1, ext(t.src, i, K20),
@@ -1732,7 +1794,8 @@ def kernel_checks_slab3(side: int, mz: int, device,
     K+1): 20 Jacobi sweeps, the zero guess, fast math, the compensated
     point's Chebyshev chain as a first segment and as a chained segment
     (x_{k-1} carried in and out), the gathers under and over the 4-cell
-    window, and the two stencils."""
+    window, K14's exact form from the assembled volumes at the reaches of
+    ``EXACT_REACH``, and the two stencils."""
     t = _Slab3Inputs(side, mz, device, seed)
     n, av = t.n, t.a_visc
     rho, k_d, k_p = PERF_POINT_3D
@@ -1795,6 +1858,16 @@ def kernel_checks_slab3(side: int, mz: int, device,
                 cs3.advect3_flat_slab_plain, (1, 2, 3),
                 tuple(ext(f, i, C) for f in (u, v, w)), *uvw, fl, dt=DT, n=n,
                 cmax=cmax, mz=mz))
+        for reach, scale in EXACT_REACH.items():
+            vel = tuple(scale * f for f in (t.u, t.v, t.w))
+            uvw = tuple(slab(f, i).contiguous() for f in vel)
+            for what, bs, fields in (("b=0", (0,), (t.x,)),
+                                     ("u/v/w triple", (1, 2, 3), vel)):
+                out.append(_check(
+                    f"advect3_flat_slab_exact {pos} {what}, up to {reach}",
+                    ("advect3_slab_exact",), cs3.advect3_flat_slab_exact,
+                    cs3.advect3_flat_slab_exact_plain, bs, fields, *uvw, fl,
+                    dt=DT, n=n, mz=mz))
         uvw = tuple(slab(f, i) for f in (t.u, t.v, t.w))
         out.append(_check(f"divergence3_slab {pos}", ("divergence3_slab",),
                           cs3.divergence3_slab, cs3.divergence3_slab_plain,
@@ -1840,8 +1913,11 @@ def timing_checks_slab3(side: int, mz: int, device,
     buffer; ``advect3_slab`` is the (u, v, w) triple) beside its plain
     twin, then each wrapper at the main path's iteration counts on the
     kernel the path takes, as ``timing_checks3`` times the solves; K14
-    also on one field and on smooth and shear velocities, as K6.  Costs
-    count the planes each launch computes."""
+    also on one field and on smooth and shear velocities, as K6, and its
+    exact form (``advect3_slab_exact``, the triple) from the assembled
+    volumes.  Costs count the planes each launch computes; the exact
+    form's, as K14's, the slab's velocities and outputs (its reads of the
+    assembled volumes are gathers, mostly L1/L2 hits)."""
     t = _Slab3Inputs(side, mz, device, seed)
     n, av = t.n, t.a_visc
     bv = 1 + 6 * av
@@ -1876,6 +1952,25 @@ def timing_checks_slab3(side: int, mz: int, device,
         check.gather = slab_gather
         return check
 
+    def k14_exact(label, cost, bs, fields, vel):
+        vel_slab = tuple(slab(f, i).contiguous() for f in vel)
+        check = _timed(_scaled(cost, cells), 1, label,
+                       ("advect3_slab_exact",), cs3.advect3_flat_slab_exact,
+                       cs3.advect3_flat_slab_exact_plain, bs, fields,
+                       *vel_slab, fl, dt=DT, n=n, mz=mz)
+
+        def full_gather():
+            # The slab's cells, at global coordinates, into the assembled
+            # volumes.
+            ax = torch.arange(side, dtype=torch.float32, device=t.u.device)
+            zs = torch.arange(i * mz, (i + 1) * mz, dtype=torch.float32,
+                              device=t.u.device)[:, None, None]
+            return list(fields), departure3(*vel_slab, ax, ax[:, None], zs,
+                                            DT, n)
+
+        check.gather = full_gather
+        return check
+
     rand = (t.u, t.v, t.w)
     per_launch = co.SWEEPS_PER_LAUNCH_3D
     H20 = K20 + 1
@@ -1906,6 +2001,12 @@ def timing_checks_slab3(side: int, mz: int, device,
             t.shear, t.shear),
         k14("advect3_slab one field, shear velocities", ADVECT3_ONE, (0,),
             (t.x,), t.shear),
+        k14_exact("advect3_slab_exact", ADVECT3_TRIPLE, (1, 2, 3), rand,
+                  rand),
+        k14_exact("advect3_slab_exact one field", ADVECT3_ONE, (0,), (t.x,),
+                  rand),
+        k14_exact("advect3_slab_exact smooth velocities", ADVECT3_TRIPLE,
+                  (1, 2, 3), t.smooth, t.smooth),
         _timed(sweeps(K20, H20), 1,
                f"fused_jacobi3_slab {K20}it (u diffusion)", JAC3_SLAB_SWEEP,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,

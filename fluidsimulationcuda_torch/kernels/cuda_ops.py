@@ -119,7 +119,8 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi_sweeps", "jacobi_sweeps_bf16", "jacobi3_sweeps",
            "jacobi3_slab_sweeps", "jacobi_slab_sweeps", "jacobi_sweeps_damp",
            "jacobi_slab_sweeps_damp_group",
-           "jacobi_slab_sweeps_split")
+           "jacobi_slab_sweeps_split", "advect_slab_exact",
+           "advect3_slab_exact")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).

@@ -18,8 +18,8 @@ also runs, on any device); on CUDA tensors they launch the hand-written
 kernels of ``csrc/`` or raise.  Nothing falls back.  Launches count in
 ``cuda_ops.launch_counts()``.
 
-Eight CUDA kernels carry the seven TPU kernels and the multigrid smoother
-of the slab route:
+Eight CUDA kernels carry the seven TPU kernels, the multigrid smoother and
+the exact gather (a second form of K12) of the slab route:
 
 - K9, the sweeps of every row-slab solve: ``jacobi_slab_sweeps``, the
   slab form of the tiled K1 (``csrc/jacobi_tiles.cu``), T sweeps a launch
@@ -34,6 +34,10 @@ of the slab route:
   ``fused_project_slab`` (B9b, ``:700``);
 - ``advect_slab`` (K12, ``csrc/advect_slab.cu``): ``advect_slab`` (B9d,
   ``:1246``), and after K9's sweeps ``fused_dens_slab`` (B9c, ``:1010``);
+  ``advect_slab_exact``, K12's exact form, the gather of JAX's exact
+  all-gather advection (``_advect_local``, ``parallel/sharded.py:245``,
+  jnp) from the assembled fields, which the slab step takes under
+  ``advect_mode="exact"``;
 - ``jacobi_slab_sweeps_split`` (``csrc/jacobi_tiles.cu``), the tiled
   K9's first launch of ``fused_jacobi_slab_split`` (B13, ``:506``): T
   sweeps with its tiles read from the halo and slab operands, no
@@ -52,7 +56,8 @@ of the slab route:
 Each result equals the global operation restricted to the slab while the
 halos are deep enough: ``K >= sweeps`` for the sweeps, ``K >= iters + 1``
 for the projection, ``K >= iters + cmax + 1`` for the density step and
-``cmax + 1`` rows for a gather; the wrappers check these.  The sharded step
+``cmax + 1`` rows for a windowed gather (the exact one reads the
+assembled fields); the wrappers check these.  The sharded step
 passes JAX's margins (``ceil8`` of a bit more), so that a given shape takes
 the same route in both packages.
 """
@@ -75,7 +80,8 @@ __all__ = [
     "fused_jacobi_slab", "fused_jacobi_slab_plain", "smooth_slab_plain",
     "smooth_slabs", "smooth_slabs_plain", "SMOOTH_HALO", "fused_project_slab",
     "fused_project_slab_plain", "fused_dens_slab", "fused_dens_slab_plain",
-    "advect_slab", "advect_slab_plain", "divergence_slab",
+    "advect_slab", "advect_slab_plain", "advect_slab_exact",
+    "advect_slab_exact_plain", "divergence_slab",
     "divergence_slab_plain", "gradient_slab", "gradient_slab_plain",
     "fused_jacobi_slab_split", "fused_jacobi_slab_split_plain",
     "jacobi_slab_split_viable",
@@ -219,7 +225,9 @@ def _gradient_plain(u, v, p, ptop, pbot, n, gtop, gbot):
 def _advect_plain(bs, exts, halo, u, v, flags, dt, n, cmax):
     """The windowed gather (``ops.advect.advect_windowed``) of each field
     of ``exts`` at the cells of an (m, side) slab, at global coordinates;
-    slab row r is ext row ``halo + r``."""
+    slab row r is ext row ``halo + r``.  With ``cmax=None`` the exact
+    gather (``ops.advect.advect``'s departure) from the assembled fields,
+    ``halo = row0``."""
     _, _, row0 = _flags(flags)
     m, side = u.shape
     gr = torch.arange(row0, row0 + m, dtype=torch.float32,
@@ -700,6 +708,60 @@ def advect_slab(bs, exts, u_slab, v_slab, flags, *, dt, n, cmax, m,
                    co._ptr(d2), u.data_ptr(), v.data_ptr(),
                    outs[0].data_ptr(), co._ptr(o2), m, side, halo, bs[0], b2,
                    co._dt0(dt, n), _flags(flags)[2], cmax,
+                   *_wall_rows(flags, 0, m), co._stream(u))
+        return outs
+
+
+def _advect_exact_args(bs, fulls, u_slab, v_slab, flags, n, m, self_adv):
+    """(bs, fulls, u, v, on_card) after the checks; with ``self_adv`` the
+    velocities are the slab's rows of the two assembled fields."""
+    bs, fulls = tuple(bs), tuple(fulls)
+    _require(len(bs) == len(fulls) and len(bs) in (1, 2),
+             "advect_slab_exact takes one or two fields")
+    side, row0 = n + 2, _flags(flags)[2]
+    _require(0 <= row0 and row0 + m <= side and m >= 1,
+             f"an {m}-row slab at row {row0} is not inside the {side}-row "
+             f"grid")
+    if self_adv:
+        _require(len(bs) == 2, "self_adv advects the (u, v) pair")
+        u_slab, v_slab = (f[row0:row0 + m] for f in fulls)
+    on_card = _on_card(*((f, (side, side)) for f in fulls),
+                       (u_slab, (m, side)), (v_slab, (m, side)))
+    return bs, fulls, u_slab, v_slab, on_card
+
+
+def advect_slab_exact_plain(bs, fulls, u_slab, v_slab, flags, *, dt, n, m,
+                            self_adv):
+    bs, fulls, u, v, _ = _advect_exact_args(bs, fulls, u_slab, v_slab, flags,
+                                            n, m, self_adv)
+    return _advect_plain(bs, fulls, _flags(flags)[2], u, v, flags, dt, n,
+                         None)
+
+
+def advect_slab_exact(bs, fulls, u_slab, v_slab, flags, *, dt, n, m,
+                      self_adv):
+    """Exact advection of one or two fields of an (m, side) slab, gathered
+    from the assembled (side, side) fields ``fulls`` (JAX's
+    ``_advect_local``, which all-gathers the field first): the departure
+    point takes the global clamp alone, so any displacement gathers as the
+    single-device step does.  ``u_slab``/``v_slab`` as ``advect_slab``'s;
+    with ``self_adv`` they are the slab's rows of the two fields.  One
+    launch of K12's exact form; returns a tuple of (m, side) slabs."""
+    bs, fulls, u, v, on_card = _advect_exact_args(bs, fulls, u_slab, v_slab,
+                                                  flags, n, m, self_adv)
+    if not on_card:
+        return _advect_plain(bs, fulls, _flags(flags)[2], u, v, flags, dt, n,
+                             None)
+    side = n + 2
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        outs = tuple(u.new_empty((m, side)) for _ in bs)
+        d2, o2, b2 = ((fulls[1], outs[1], bs[1]) if len(bs) == 2
+                      else (None, None, 0))
+        co._launch("advect_slab_exact", lib.fsc_advect_slab_exact,
+                   fulls[0].data_ptr(), co._ptr(d2), u.data_ptr(),
+                   v.data_ptr(), outs[0].data_ptr(), co._ptr(o2), m, side,
+                   bs[0], b2, co._dt0(dt, n), _flags(flags)[2],
                    *_wall_rows(flags, 0, m), co._stream(u))
         return outs
 

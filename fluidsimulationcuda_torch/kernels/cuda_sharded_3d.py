@@ -17,7 +17,8 @@ tensors they launch the hand-written kernels of ``csrc/`` or raise.
 Nothing falls back.  Launches count in ``cuda_ops.launch_counts()``.
 Unlike the TPU functions, every output carries its full ghost layer.
 
-Four CUDA kernels carry the three TPU kernels and the step's two stencils:
+Four CUDA kernels carry the three TPU kernels, the step's two stencils and
+its exact gather (a second form of K14):
 
 - K13, ``fused_jacobi3_slab`` (B10a, ``pallas_sharded_3d.py:349``) and
   ``fused_cheby3_slab`` (B10b, ``:442``), a Chebyshev chain segment that
@@ -29,13 +30,17 @@ Four CUDA kernels carry the three TPU kernels and the step's two stencils:
   5*T3 planes (``cuda_ops.tiled3``);
 - ``advect3_slab`` (K14, ``csrc/advect3_slab.cu``): ``advect3_flat_slab``
   (B10c, ``:530``), one field or the (u, v, w) triple per launch;
+  ``advect3_flat_slab_exact``, K14's exact form, the gather of JAX's exact
+  all-gather advection (``_advect3_local_exact``,
+  ``parallel/sharded3d.py:288``, jnp) from the assembled fields;
 - ``divergence3_slab`` (K15) and ``gradient3_slab`` (K16),
   ``csrc/project3_slab.cu``: the step's ``_divergence3_fast`` and
   ``_gradient3_fast`` (``parallel/sharded3d.py:567-597``).
 
 Each result equals the global operation restricted to the slab while the
 halos are deep enough: ``H >= sweeps + 1`` for a solve segment (JAX's
-margin) and ``cmax + 1`` planes for a gather; the wrappers check these.
+margin) and ``cmax + 1`` planes for a windowed gather (the exact one reads
+the assembled fields); the wrappers check these.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from .cuda_sharded import _flags, _require, _shift, _wall_rows
 __all__ = [
     "fused_jacobi3_slab", "fused_jacobi3_slab_plain", "fused_cheby3_slab",
     "fused_cheby3_slab_plain", "advect3_flat_slab", "advect3_flat_slab_plain",
+    "advect3_flat_slab_exact", "advect3_flat_slab_exact_plain",
     "divergence3_slab", "divergence3_slab_plain", "gradient3_slab",
     "gradient3_slab_plain",
 ]
@@ -151,7 +157,9 @@ def _sweeps3_plain(b, x, rhs, alpha, beta, sweeps, gtop, gbot, *,
 def _advect3_plain(bs, exts, halo, u, v, w, flags, dt, n, cmax):
     """The windowed gather (``ops.three_d.advect3_windowed``) of each field
     of ``exts`` at the cells of an (mz, side, side) slab, at global
-    coordinates; slab plane k is ext plane ``halo + k``."""
+    coordinates; slab plane k is ext plane ``halo + k``.  With
+    ``cmax=None`` the exact gather (``ops.three_d.advect3``'s departure)
+    from the assembled fields, ``halo = plane0``."""
     _, _, plane0 = _flags(flags)
     mz, side, _ = u.shape
 
@@ -361,6 +369,59 @@ def advect3_flat_slab(bs, exts, u_slab, v_slab, w_slab, flags, *, dt, n, cmax,
                    *(o.data_ptr() for o in outs), *[None] * pad, mz, side,
                    halo, *bs, *[0] * pad, co._dt0(dt, n), _flags(flags)[2],
                    cmax, *_wall_rows(flags, 0, mz), co._stream(u_slab))
+        return outs
+
+
+def _advect_exact_args(bs, fulls, u_slab, v_slab, w_slab, flags, n, mz):
+    """(bs, fulls, on_card) after the checks."""
+    bs, fulls = tuple(bs), tuple(fulls)
+    _require(len(bs) == len(fulls) and len(bs) in (1, 2, 3),
+             "advect3_flat_slab_exact takes one to three fields")
+    side, plane0 = n + 2, _flags(flags)[2]
+    _require(0 <= plane0 and plane0 + mz <= side and mz >= 1,
+             f"an {mz}-plane slab at plane {plane0} is not inside the "
+             f"{side}-plane volume")
+    slab = (mz, side, side)
+    on_card = _on_card(*((f, (side,) * 3) for f in fulls), (u_slab, slab),
+                       (v_slab, slab), (w_slab, slab))
+    return bs, fulls, on_card
+
+
+def advect3_flat_slab_exact_plain(bs, fulls, u_slab, v_slab, w_slab, flags,
+                                  *, dt, n, mz):
+    bs, fulls, _ = _advect_exact_args(bs, fulls, u_slab, v_slab, w_slab,
+                                      flags, n, mz)
+    return _advect3_plain(bs, fulls, _flags(flags)[2], u_slab, v_slab,
+                          w_slab, flags, dt, n, None)
+
+
+def advect3_flat_slab_exact(bs, fulls, u_slab, v_slab, w_slab, flags, *, dt,
+                            n, mz):
+    """Exact trilinear advection of one to three fields of an (mz, side,
+    side) slab, gathered from the assembled (side, side, side) fields
+    ``fulls`` (JAX's ``_advect3_local_exact``, which all-gathers the volume
+    over z first): each coordinate takes the global clamp alone, so any
+    displacement gathers as the single-device step does, at any slab
+    thickness.  Velocities and outputs as ``advect3_flat_slab``'s.  One
+    launch of K14's exact form; returns a tuple of (mz, side, side)
+    slabs."""
+    bs, fulls, on_card = _advect_exact_args(bs, fulls, u_slab, v_slab,
+                                            w_slab, flags, n, mz)
+    plane0 = _flags(flags)[2]
+    if not on_card:
+        return _advect3_plain(bs, fulls, plane0, u_slab, v_slab, w_slab,
+                              flags, dt, n, None)
+    side = n + 2
+    with torch.cuda.device(u_slab.device):
+        lib = build.load()
+        outs = tuple(u_slab.new_empty((mz, side, side)) for _ in bs)
+        pad = 3 - len(bs)  # null pointers for the fields not given
+        co._launch("advect3_slab_exact", lib.fsc_advect3_slab_exact,
+                   *(f.data_ptr() for f in fulls), *[None] * pad,
+                   u_slab.data_ptr(), v_slab.data_ptr(), w_slab.data_ptr(),
+                   *(o.data_ptr() for o in outs), *[None] * pad, mz, side,
+                   *bs, *[0] * pad, co._dt0(dt, n), plane0,
+                   *_wall_rows(flags, 0, mz), co._stream(u_slab))
         return outs
 
 

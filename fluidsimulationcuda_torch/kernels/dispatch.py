@@ -130,9 +130,10 @@ def get_ops(cfg: SimConfig) -> OpSet:
 class SlabOpSet(NamedTuple):
     """The per-slab operations of the multi-device step
     (``parallel/sharded.py``), with the JAX slab functions' signatures
-    (``kernels/cuda_sharded.py``) and the slab multigrid's smoother
-    (``smooth(p_slabs, div_slabs, flags, *, sweeps, zero_init)``, the
-    list of every slab in and out), and
+    (``kernels/cuda_sharded.py``; ``advect`` the windowed gather,
+    ``advect_exact`` the exact one from the assembled fields) and the slab
+    multigrid's smoother (``smooth(p_slabs, div_slabs, flags, *, sweeps,
+    zero_init)``, the list of every slab in and out), and
     whether this backend honours ``fast_math`` (the ``reference`` backend
     ignores it, as the JAX package's does)."""
 
@@ -140,6 +141,7 @@ class SlabOpSet(NamedTuple):
     project: Callable
     dens: Callable
     advect: Callable
+    advect_exact: Callable
     divergence: Callable
     gradient: Callable
     smooth: Callable
@@ -156,26 +158,30 @@ def get_slab_ops(cfg: SimConfig) -> SlabOpSet:
         return SlabOpSet(cs.fused_jacobi_slab_plain,
                          cs.fused_project_slab_plain,
                          cs.fused_dens_slab_plain, cs.advect_slab_plain,
+                         cs.advect_slab_exact_plain,
                          cs.divergence_slab_plain, cs.gradient_slab_plain,
                          cs.smooth_slabs_plain, fast=False)
     if backend == "cuda":
         return SlabOpSet(cs.fused_jacobi_slab, cs.fused_project_slab,
                          cs.fused_dens_slab, cs.advect_slab,
-                         cs.divergence_slab, cs.gradient_slab,
-                         cs.smooth_slabs, fast=cfg.fast_math)
+                         cs.advect_slab_exact, cs.divergence_slab,
+                         cs.gradient_slab, cs.smooth_slabs,
+                         fast=cfg.fast_math)
     raise ValueError(f"unknown backend {backend!r}")
 
 
 class Slab3OpSet(NamedTuple):
     """The per-slab operations of the 3-D multi-device step
     (``parallel/sharded3d.py``), with the signatures of
-    ``kernels/cuda_sharded_3d.py``, and whether this backend honours
-    ``fast_math`` (the ``reference`` backend ignores it, as the JAX
-    package's does)."""
+    ``kernels/cuda_sharded_3d.py`` (``advect`` the windowed gather,
+    ``advect_exact`` the exact one from the assembled fields), and whether
+    this backend honours ``fast_math`` (the ``reference`` backend ignores
+    it, as the JAX package's does)."""
 
     jacobi: Callable
     cheby: Callable
     advect: Callable
+    advect_exact: Callable
     divergence: Callable
     gradient: Callable
     fast: bool
@@ -191,10 +197,12 @@ def get_slab3_ops(cfg: SimConfig) -> Slab3OpSet:
         return Slab3OpSet(cs3.fused_jacobi3_slab_plain,
                           cs3.fused_cheby3_slab_plain,
                           cs3.advect3_flat_slab_plain,
+                          cs3.advect3_flat_slab_exact_plain,
                           cs3.divergence3_slab_plain,
                           cs3.gradient3_slab_plain, fast=False)
     if backend == "cuda":
         return Slab3OpSet(cs3.fused_jacobi3_slab, cs3.fused_cheby3_slab,
-                          cs3.advect3_flat_slab, cs3.divergence3_slab,
-                          cs3.gradient3_slab, fast=cfg.fast_math)
+                          cs3.advect3_flat_slab, cs3.advect3_flat_slab_exact,
+                          cs3.divergence3_slab, cs3.gradient3_slab,
+                          fast=cfg.fast_math)
     raise ValueError(f"unknown backend {backend!r}")

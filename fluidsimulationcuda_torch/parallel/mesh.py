@@ -4,7 +4,8 @@
 A ``Mesh`` is a 2-D grid of ``torch.device``s with axes ("x", "y"), held
 by one process: the steps (``parallel/sharded.py``, ``sharded3d.py``) and
 the slab solvers (``parallel/solvers.py``) drive every device from it and
-move halo rows between devices with ``.to`` (``_halos``, ``_ext``).  A
+move halo rows between devices with ``.to`` (``_halos``, ``_ext``), or
+assemble a whole field on each device for the exact gathers (``_gather``).  A
 mesh may list one device more than once.  That is the port's counterpart
 of the JAX tests' virtual 8-device CPU mesh, and how one card runs a 4- or
 8-slab mesh with interior and wall slabs both present.
@@ -97,3 +98,16 @@ def _ext(xs, k: int):
     """Each slab extended by its ``k``-deep halos on both sides."""
     return [torch.cat([top, x, bot])
             for x, (top, bot) in zip(xs, _halos(xs, k))]
+
+
+def _gather(xs):
+    """JAX's ``_gather_global`` for the slabs ``xs``: the whole field
+    (slabs stacked along the leading axis) assembled once on each distinct
+    device of the slabs, every slab on that device reading the same tensor.
+    One copy per slab would hold a mesh's slab count of whole fields on
+    one card where it lists its device once per slab."""
+    full: dict[torch.device, torch.Tensor] = {}
+    for x in xs:
+        if x.device not in full:
+            full[x.device] = torch.cat([s.to(x.device) for s in xs])
+    return [full[x.device] for x in xs]

@@ -33,18 +33,31 @@ The composition, margins and route gates are JAX's, so a given
 Left out are JAX's VMEM strip gates (``_slab_tm``, ``_proj_slab_tm``,
 ``_dens_slab_tm``, ``advect_slab_tm``) and its TPU tiling gates
 (``side >= 128``, ``m % 8``), which choose strip heights, not what is
-computed.  Every gather is windowed: exact while the backtrace moves at
-most ``cfg.max_courant`` cells, clamped above (``ops.advect_windowed``);
+computed.  The windowed gathers (``advect_mode="windowed"``, and
+``"auto"``) are exact while the backtrace moves at most
+``cfg.max_courant`` cells and clamped above (``ops.advect_windowed``);
 ``audited=True`` returns the displacement to check it.
+
+``advect_mode="exact"`` gathers as JAX's block route does
+(``_advect_local``: the all-gather, then the gather at global
+coordinates), on the slab route: each gathered field is assembled once per
+device (``mesh._gather``) and every slab gathers from it with K12's exact
+form (``advect_slab_exact``), so the step equals the single-device step at
+any displacement.  The density step is then composed, diffusion and gather,
+as JAX's ``_step_local`` composes it (the fused density step gathers in the
+window).  JAX runs its exact mode only on its jnp block route; the port's
+slab route is not JAX's Pallas code, which refuses it.
 
 ``pressure_solver="multigrid"`` needs an even slab height, as JAX's slab
 route does (the coarse grid's 2x2 groups must not straddle two slabs), and
 raises ``ValueError`` otherwise.
 
-Not ported (ROADMAP A10c, now §A 2-3): the exact all-gather advection and
-the 2-D block route of ``_step_local`` (2-D halos, its solvers on 2-D
-blocks, the jnp Chebyshev solves for a halo deeper than a slab).  Every
-shape that would need them raises; none quietly takes another route.
+Not ported (ROADMAP §A 3): the 2-D block route of ``_step_local`` (2-D
+halos, its solvers on 2-D blocks, the jnp Chebyshev solves for a halo
+deeper than a slab), which JAX takes for ``shard_backend="reference"``, for
+meshes that do not row-flatten and for slabs thinner than
+``max_courant+1`` rows (where its ``"auto"`` gathers exactly).  Every shape
+that would need it raises; none quietly takes another route.
 """
 from __future__ import annotations
 
@@ -56,14 +69,14 @@ from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
 from ..kernels.dispatch import get_ops, get_slab_ops
 from ..ops.source import add_source
-from .mesh import Mesh, _ext, _halos
+from .mesh import Mesh, _ext, _gather, _halos
 from .solvers import SMOOTH_HALO, cg_slabs, mg_slabs
 
 __all__ = ["make_sharded_step_fn", "shard_state", "unshard"]
 
 _BLOCK_ROUTE = ("the block route of the JAX package's _step_local (2-D "
-                "halos, exact all-gather advection, the jnp Chebyshev "
-                "solves) is not ported (ROADMAP A10c)")
+                "halos, its solvers on 2-D blocks, the jnp Chebyshev "
+                "solves) is not ported (ROADMAP §A 3)")
 
 
 def _ceil8(x: int) -> int:
@@ -119,12 +132,14 @@ def _slab_viable(cfg: SimConfig, slabs: int) -> bool:
 
 
 class _SlabStep:
-    """One step of ``cfg`` on the row slabs of a (px, 1) mesh; the routes
-    are chosen, and every halo checked against the slab height, here."""
+    """One step of ``cfg`` on the row slabs of a (px, 1) mesh, its gathers
+    exact (from the assembled fields) or windowed; the routes are chosen,
+    and every halo checked against the slab height, here."""
 
-    def __init__(self, cfg: SimConfig, mesh: Mesh, audited: bool):
+    def __init__(self, cfg: SimConfig, mesh: Mesh, audited: bool,
+                 exact: bool):
         n, it, cmax = cfg.n, cfg.jacobi_iters, cfg.max_courant
-        self.cfg, self.audited = cfg, audited
+        self.cfg, self.audited, self.exact = cfg, audited, exact
         self.devices = mesh.device_list
         self.px = px = len(self.devices)
         self.m = m = (n + 2) // px
@@ -150,7 +165,8 @@ class _SlabStep:
         # the single-device OpSet's smoother.
         self.smooth_coarse = (get_ops(cfg).smooth
                               if self.solver == "multigrid" else None)
-        self.fused_dens = (not self.dens_cheby and it <= fuse
+        # B9c gathers in the window: the exact step composes the density.
+        self.fused_dens = (not exact and not self.dens_cheby and it <= fuse
                            and 1 <= cmax <= 7
                            and _ceil8(it + 1 + cmax) <= m)
 
@@ -248,6 +264,12 @@ class _SlabStep:
 
     def _advect(self, bs, fields, u, v, self_adv):
         cfg, C = self.cfg, self.cfg.max_courant + 1
+        if self.exact:
+            fulls = [_gather(f) for f in fields]
+            return [self.ops.advect_exact(bs, fs, ui, vi, fl, dt=cfg.dt,
+                                          n=cfg.n, m=self.m,
+                                          self_adv=self_adv)
+                    for fs, ui, vi, fl in zip(zip(*fulls), u, v, self.flags)]
         exts = [_ext(f, C) for f in fields]
         return [self.ops.advect(bs, es, ui, vi, fl, dt=cfg.dt, n=cfg.n,
                                 cmax=cfg.max_courant, m=self.m,
@@ -340,18 +362,22 @@ def make_sharded_step_fn(
     ``pressure_solver="multigrid"`` raises ``ValueError`` unless every slab
     has an even row count, as JAX's slab route does.
 
-    ``advect_mode``: ``"windowed"`` or ``"auto"``, the slab route's
-    gather (every slab must hold ``max_courant+1`` rows); ``"exact"`` needs
-    the block route.
+    ``advect_mode``: ``"windowed"`` (or ``"auto"``, as JAX's on slabs that
+    hold the window) gathers in the window of ``max_courant`` cells;
+    ``"exact"`` gathers from the assembled fields at any displacement
+    (JAX's ``_advect_local``, on the slab route).  Every slab must hold
+    ``max_courant+1`` rows in both modes: thinner slabs need the block
+    route (ROADMAP §A 3).
 
     ``audited=True`` returns ``(state, max_displacement)``, the largest
     backtrace displacement of the step's advections over every slab (a
-    0-dim tensor on the first device): the gathers are exact while it stays
-    at or below ``cfg.max_courant``.
+    0-dim tensor on the first device): the windowed gathers are exact
+    while it stays at or below ``cfg.max_courant``.
 
-    The callable carries ``.shard_backend``, ``.advect_mode`` and ``.mesh``
-    (the mesh used, flattened for a 2-D mesh), and ``.routes``: whether the
-    projection and the density step run ``"fused"`` or ``"composed"``.
+    The callable carries ``.shard_backend``, ``.advect_mode`` (the mode
+    taken: ``"exact"`` or ``"windowed"``) and ``.mesh`` (the mesh used,
+    flattened for a 2-D mesh), and ``.routes``: whether the projection and
+    the density step run ``"fused"`` or ``"composed"``.
     """
     if advect_mode not in ("auto", "exact", "windowed"):
         raise ValueError(f"unknown advect_mode {advect_mode!r}")
@@ -359,7 +385,7 @@ def make_sharded_step_fn(
         raise ValueError(f"unknown shard_backend {shard_backend!r}")
     if cfg.ndim != 2:
         raise ValueError("make_sharded_step_fn is the 2-D step; the 3-D "
-                         "z-slab step is not ported (ROADMAP A10b)")
+                         "z-slab step is make_sharded_step_fn_3d")
     if cfg.dtype != torch.float32:
         # JAX's slab route requires float32 (parallel/sharded.py:847 there)
         # and takes the block route in bf16.
@@ -372,19 +398,16 @@ def make_sharded_step_fn(
         raise ValueError(f"grid side {side} not divisible by mesh shape "
                          f"({px}, {py})")
     # The one route ported: JAX's "pallas" slab route on the row-flattened
-    # mesh (sharded.py:962-981), whose gathers are windowed.
+    # mesh (sharded.py:962-981), with its windowed gathers or JAX's exact
+    # all-gather (_advect_local).
     slabs = px * py
     if shard_backend == "slab":
-        if advect_mode == "exact":
-            raise ValueError("shard_backend='slab' advection is always "
-                             "windowed; pass advect_mode='windowed'")
         if not _slab_viable(cfg, slabs):
             raise ValueError(
                 f"shard_backend='slab' needs row slabs (2-D meshes are "
                 f"row-flattened): (n+2) % n_devices == 0 and slabs of >= "
                 f"max_courant+1 rows; got mesh ({px}, {py}), n={cfg.n}")
-    elif (shard_backend == "reference" or advect_mode == "exact"
-          or not _slab_viable(cfg, slabs)):
+    elif shard_backend == "reference" or not _slab_viable(cfg, slabs):
         raise NotImplementedError(
             f"mesh ({px}, {py}) with shard_backend={shard_backend!r}, "
             f"advect_mode={advect_mode!r} needs the block route: "
@@ -398,13 +421,15 @@ def make_sharded_step_fn(
             f"({px}, {py})")
     mesh = mesh.reshape(slabs, 1)
 
-    run = _SlabStep(cfg, mesh, audited)
+    # JAX's "auto" is windowed on shards that hold the window, as these do.
+    mode = "windowed" if advect_mode == "auto" else advect_mode
+    run = _SlabStep(cfg, mesh, audited, exact=mode == "exact")
 
     def step_fn(state, src):
         return run(state, src)
 
     step_fn.shard_backend = "slab"
-    step_fn.advect_mode = "windowed"
+    step_fn.advect_mode = mode
     step_fn.mesh = mesh
     step_fn.routes = {
         "projection": "fused" if run.fused_proj else "composed",

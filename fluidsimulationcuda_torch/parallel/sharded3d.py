@@ -1,7 +1,7 @@
 """The 3-D multi-device step on z-slabs (PyTorch twin of
-``fluidsimulationcuda_tpu.parallel.sharded3d``: ``make_sharded_step_fn_3d``
-with windowed advection, whose per-shard program is ``_step3_local_pallas``
-and, on its jnp ops, ``_step3_local``).
+``fluidsimulationcuda_tpu.parallel.sharded3d``: ``make_sharded_step_fn_3d``,
+whose per-shard program is ``_step3_local_pallas`` and, on its jnp ops,
+``_step3_local``).
 
 The padded (side, side, side) volume is cut into ``pz`` slabs of ``mz =
 side/pz`` whole (y, x) planes, slab ``i`` on mesh device ``i``; every mesh
@@ -24,15 +24,21 @@ segment and resumes ω where the last segment stopped.  This is JAX's
 interpret-mode plan, without the VMEM planners that size K on the TPU;
 the chunking changes no number.  ``fast_math`` reaches every solve,
 pressure included (``sharded3d.py:644-646, 679-683``; the row-slab step
-keeps it off the pressure solve, as JAX's 2-D route does).  Every gather
-is windowed, over a ``cmax+1``-plane halo: exact while the backtrace moves
-at most ``cfg.max_courant`` cells per axis, clamped above;
-``audited=True`` returns the displacement to check it.
+keeps it off the pressure solve, as JAX's 2-D route does).
 
-Not ported (ROADMAP A10c): JAX's exact all-gather advection
-(``_advect3_local_exact``), which ``advect_mode="exact"`` and, on slabs
-thinner than ``max_courant+1`` planes, ``"auto"`` would take.  Both raise;
-nothing falls back quietly.
+The gathers are windowed (``advect_mode="windowed"``, and ``"auto"`` on
+slabs of at least ``max_courant+1`` planes), over a ``cmax+1``-plane halo:
+exact while the backtrace moves at most ``cfg.max_courant`` cells per axis,
+clamped above; ``audited=True`` returns the displacement to check it.  Or
+they are exact (``"exact"``, and ``"auto"`` on thinner slabs, as JAX's
+``"auto"`` chooses, ``sharded3d.py:799-800``): JAX's
+``_advect3_local_exact``, the volume all-gathered over z and each slab's
+cells gathered at global coordinates; here each gathered field is
+assembled once per device (``mesh._gather``) and every slab gathers from
+it with K14's exact form (``advect3_flat_slab_exact``), so the step equals
+the single-device step at any displacement and any slab thickness.
+Nothing falls back quietly: a windowed request on slabs too thin for the
+window raises.
 """
 from __future__ import annotations
 
@@ -44,14 +50,10 @@ from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
 from ..kernels.dispatch import get_slab3_ops
 from ..ops.source import add_source
-from .mesh import Mesh
+from .mesh import Mesh, _gather
 from .sharded import _ext, _halos, _split
 
 __all__ = ["make_sharded_step_fn_3d", "shard_state_3d"]
-
-_EXACT = ("JAX's exact all-gather advection (_advect3_local_exact) is not "
-          "ported (ROADMAP A10c)")
-
 
 def shard_state_3d(tree, mesh: Mesh):
     """Split each (side, side, side) field of a ``FluidState`` or
@@ -67,10 +69,12 @@ def _transpose(per_slab):
 
 
 class _ZSlabStep:
-    """One step of ``cfg`` on the z-slabs of a (pz, 1) mesh."""
+    """One step of ``cfg`` on the z-slabs of a (pz, 1) mesh, its gathers
+    exact (from the assembled fields) or windowed."""
 
-    def __init__(self, cfg: SimConfig, mesh: Mesh, audited: bool):
-        self.cfg, self.audited = cfg, audited
+    def __init__(self, cfg: SimConfig, mesh: Mesh, audited: bool,
+                 exact: bool):
+        self.cfg, self.audited, self.exact = cfg, audited, exact
         self.ops = get_slab3_ops(cfg)
         self.devices = mesh.device_list
         self.pz = pz = len(self.devices)
@@ -151,6 +155,13 @@ class _ZSlabStep:
         """The gather of each field of ``fields`` by (u, v, w), one launch
         per slab for all of them."""
         cfg = self.cfg
+        if self.exact:
+            fulls = [_gather(f) for f in fields]
+            return _transpose(
+                self.ops.advect_exact(bs, fs, ui, vi, wi, fl, dt=cfg.dt,
+                                      n=cfg.n, mz=self.mz)
+                for fs, ui, vi, wi, fl in zip(zip(*fulls), u, v, w,
+                                              self.flags))
         exts = [_ext(f, cfg.max_courant + 1) for f in fields]
         return _transpose(
             self.ops.advect(bs, es, ui, vi, wi, fl, dt=cfg.dt, n=cfg.n,
@@ -224,17 +235,20 @@ def make_sharded_step_fn_3d(
     z-slab route) is the same route on the plain twins: pass
     ``cfg.replace(backend="reference")``.
 
-    ``advect_mode``: ``"windowed"`` or ``"auto"``; ``"exact"``, and
-    ``"auto"`` on slabs too thin for the window (where JAX falls back to
-    its exact all-gather), raise ``NotImplementedError`` (ROADMAP A10c).
+    ``advect_mode``: ``"windowed"`` gathers in the window of
+    ``max_courant`` cells (``ValueError`` on slabs thinner than
+    ``max_courant+1`` planes); ``"exact"`` from the assembled fields at
+    any displacement; ``"auto"`` windowed where the slabs hold the window
+    and exact on thinner ones, as JAX's.
 
     ``audited=True`` returns ``(state, max_displacement)``, the largest
     backtrace displacement of the step's advections over every slab (a
-    0-dim tensor on the first device): the gathers are exact while it stays
-    at or below ``cfg.max_courant``.
+    0-dim tensor on the first device): the windowed gathers are exact
+    while it stays at or below ``cfg.max_courant``.
 
     The callable carries ``.shard_backend`` (``"slab"``), ``.advect_mode``
-    (``"windowed"``), ``.mesh`` (the (pz, 1) mesh used) and ``.chunks``:
+    (the mode taken: ``"exact"`` or ``"windowed"``), ``.mesh`` (the (pz, 1)
+    mesh used) and ``.chunks``:
     per solve (velocity, pressure, density) the sweeps per exchange K and
     the halo planes H.
     """
@@ -260,26 +274,21 @@ def make_sharded_step_fn_3d(
     if mz < 2:
         raise ValueError(f"z-slab decomposition needs >= 2 planes per shard; "
                          f"got {mz}")
-    if advect_mode == "exact":
-        raise NotImplementedError(f"advect_mode='exact': {_EXACT}")
-    if mz < cfg.max_courant + 1:
-        if advect_mode == "windowed":
-            raise ValueError(
-                f"windowed advection needs >= {cfg.max_courant + 1} planes "
-                f"per shard (max_courant={cfg.max_courant}); got {mz}. Use a "
-                f"coarser mesh.")
-        raise NotImplementedError(
-            f"{mz}-plane slabs cannot hold the max_courant="
-            f"{cfg.max_courant} window, where advect_mode='auto' would take "
-            f"the exact gather: {_EXACT}")
+    if advect_mode == "auto":
+        advect_mode = "windowed" if mz >= cfg.max_courant + 1 else "exact"
+    if advect_mode == "windowed" and mz < cfg.max_courant + 1:
+        raise ValueError(
+            f"windowed advection needs >= {cfg.max_courant + 1} planes per "
+            f"shard (max_courant={cfg.max_courant}); got {mz}. Use "
+            f"advect_mode='exact' or a coarser mesh.")
     mesh = mesh.reshape(pz, 1)
-    run = _ZSlabStep(cfg, mesh, audited)
+    run = _ZSlabStep(cfg, mesh, audited, exact=advect_mode == "exact")
 
     def step_fn(state, src):
         return run(state, src)
 
     step_fn.shard_backend = "slab"
-    step_fn.advect_mode = "windowed"
+    step_fn.advect_mode = advect_mode
     step_fn.mesh = mesh
     step_fn.chunks = run.chunks
     return step_fn

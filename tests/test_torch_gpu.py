@@ -268,6 +268,99 @@ def test_sharded3d_step_launches_and_matches_reference(cuda, mode):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
 
 
+@pytest.mark.parametrize("ndim,side,m", [(2, 64, 16), (2, 2048, 256),
+                                         (3, 24, 8), (3, 64, 4)])
+def test_exact_gathers_match_plain_bit_for_bit(cuda, ndim, side, m):
+    """K12's and K14's exact forms from the assembled fields against their
+    plain versions on top, interior and bottom slabs, up to 24 cells."""
+    kernel = "advect_slab_exact" if ndim == 2 else "advect3_slab_exact"
+    make = (checks.kernel_checks_slab if ndim == 2
+            else checks.kernel_checks_slab3)
+    found = 0
+    for check in make(side, m, cuda, seed=side):
+        if kernel not in check.kernels:
+            continue
+        found += 1
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        assert cuda_ops.launch_counts()[kernel] == 1, check.label
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+    assert found == 18
+
+
+@pytest.mark.parametrize("ndim,slabs,mode", [(2, 8, "exact"), (3, 4, "exact"),
+                                             (3, 32, "auto")])
+def test_exact_sharded_step_equals_single_device(cuda, ndim, slabs, mode):
+    """The exact multi-device step past the window: the launches of
+    ``chip_smoke.expected_launches_sharded(3)`` with the exact forms, equal
+    to the single-device step and to the ``reference`` backend bit for
+    bit.  256² on 8 row slabs; 64³ on 4 z-slabs, and on 32 of 2 planes,
+    where ``"auto"`` takes the exact gather."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    make_sharded_step_fn_3d,
+                                                    shard_state,
+                                                    shard_state_3d, unshard)
+
+    if ndim == 2:
+        cfg = ft.SimConfig(n=254, jacobi_iters=20, max_courant=2,
+                           backend="cuda", device=cuda)
+        make, shard = make_sharded_step_fn, shard_state
+        design = chip_smoke.expected_launches_sharded
+    else:
+        cfg = ft.SimConfig(n=62, ndim=3, jacobi_iters=20, max_courant=2,
+                           backend="cuda", device=cuda)
+        make, shard = make_sharded_step_fn_3d, shard_state_3d
+        design = chip_smoke.expected_launches_sharded3
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    # Velocity sources that move the backtrace past the 2-cell window.
+    scale = 20 if ndim == 2 else 400
+    src = src._replace(**{k: scale * getattr(src, k) for k in ("u", "v", "w")
+                          if getattr(src, k) is not None})
+    mesh = make_mesh([cuda] * slabs)
+    step = make(cfg, mesh, advect_mode=mode, audited=True)
+    assert step.advect_mode == "exact"
+    cuda_ops.reset_launch_counts()
+    got, disp = step(shard(state, mesh), shard(src, mesh))
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0), **design(cfg, slabs, True)}
+    assert float(disp) > cfg.max_courant
+    got = unshard(got)
+    ref = make(cfg.replace(backend="reference"), mesh, advect_mode=mode)
+    single = (ft.StableFluids2D if ndim == 2 else ft.StableFluids3D)(cfg)
+    for want in (unshard(ref(shard(state, mesh), shard(src, mesh))),
+                 single.step(state, src)):
+        for a, b in zip(got, want):
+            if a is not None:
+                assert torch.equal(a, b)
+
+
+def test_cuda_exact_gathers_launch_or_raise(cuda):
+    from fluidsimulationcuda_torch.kernels import cuda_sharded, cuda_sharded_3d
+
+    full, slab = torch.zeros(34, 34, device=cuda), torch.zeros(8, 34,
+                                                               device=cuda)
+    cuda_ops.reset_launch_counts()
+    cuda_sharded.advect_slab_exact((1, 2), (full, full), None, None,
+                                   (0, 0, 8), dt=0.016, n=32, m=8,
+                                   self_adv=True)
+    vol, zslab = (torch.zeros(24, 24, 24, device=cuda),
+                  torch.zeros(4, 24, 24, device=cuda))
+    cuda_sharded_3d.advect3_flat_slab_exact((0,), (vol,), zslab, zslab,
+                                            zslab, (0, 1, 20), dt=0.016,
+                                            n=22, mz=4)
+    counts = cuda_ops.launch_counts()
+    assert counts["advect_slab_exact"] == counts["advect3_slab_exact"] == 1
+    with pytest.raises(ValueError):
+        cuda_sharded.advect_slab_exact((0,), (full.cpu(),), slab, slab,
+                                       (0, 0, 8), dt=0.016, n=32, m=8,
+                                       self_adv=False)
+
+
 def test_cuda_slab3_launches_or_raises(cuda):
     from fluidsimulationcuda_torch.kernels import cuda_sharded_3d
 

@@ -230,12 +230,23 @@ def test_step_needs_slabs():
 
 
 def test_rejects_exact_advection():
+    """The exact gather runs on the slab route now
+    (``tests/test_torch_sharded_exact.py``); what stays refused is the
+    block route it would need elsewhere (ROADMAP §A 3): JAX's jnp route
+    (``shard_backend="reference"``), and slabs thinner than
+    ``max_courant+1`` rows, where JAX's ``"auto"`` gathers exactly on its
+    block route."""
     mesh = make_mesh([CPU] * 2)
-    with pytest.raises(ValueError, match="windowed"):
+    assert make_sharded_step_fn(_cfg("parity"), mesh, advect_mode="exact",
+                                shard_backend="slab").advect_mode == "exact"
+    with pytest.raises(NotImplementedError, match="§A 3"):
         make_sharded_step_fn(_cfg("parity"), mesh, advect_mode="exact",
-                             shard_backend="slab")
-    with pytest.raises(NotImplementedError, match="A10c"):
-        make_sharded_step_fn(_cfg("parity"), mesh, advect_mode="exact")
+                             shard_backend="reference")
+    thin = _cfg("parity").replace(max_courant=8)  # 8-row slabs, 9 needed
+    for mode in ("auto", "exact"):
+        with pytest.raises(NotImplementedError, match="§A 3"):
+            make_sharded_step_fn(thin, make_mesh([CPU] * 8),
+                                 advect_mode=mode)
 
 
 def test_rejects_unflattenable_mesh():
@@ -244,7 +255,7 @@ def test_rejects_unflattenable_mesh():
     mesh = make_mesh([CPU] * 8, shape=(2, 4))
     with pytest.raises(ValueError, match="row slabs"):
         make_sharded_step_fn(cfg, mesh, shard_backend="slab")
-    with pytest.raises(NotImplementedError, match="A10c"):
+    with pytest.raises(NotImplementedError, match="§A 3"):
         make_sharded_step_fn(cfg, mesh)
 
 
@@ -280,7 +291,7 @@ def test_rejects_sharded_krylov_and_multigrid(solver):
     block route for them (``shard_backend="reference"``, its jnp step on 2-D
     blocks), which is not ported."""
     cfg = _cfg("parity", pressure_solver=solver)
-    with pytest.raises(NotImplementedError, match="A10c"):
+    with pytest.raises(NotImplementedError, match="§A 3"):
         make_sharded_step_fn(cfg, make_mesh([CPU] * 4),
                              shard_backend="reference")
     assert make_sharded_step_fn(cfg, make_mesh([CPU] * 4)).routes[

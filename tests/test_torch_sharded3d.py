@@ -243,9 +243,9 @@ def test_rejects_slabs_thinner_than_the_window():
     mesh = make_mesh([CPU] * 8)
     with pytest.raises(ValueError, match="planes per shard"):
         make_sharded_step_fn_3d(cfg, mesh, advect_mode="windowed")
-    # Where JAX's "auto" would take the exact all-gather, the port raises.
-    with pytest.raises(NotImplementedError, match="A10c"):
-        make_sharded_step_fn_3d(cfg, mesh)
+    # Where JAX's "auto" takes the exact all-gather, so does the port's now
+    # (tests/test_torch_sharded_exact.py holds it against JAX's).
+    assert make_sharded_step_fn_3d(cfg, mesh).advect_mode == "exact"
 
 
 def test_rejects_one_plane_slabs():
@@ -255,9 +255,16 @@ def test_rejects_one_plane_slabs():
 
 
 def test_rejects_exact_advection():
-    with pytest.raises(NotImplementedError, match="A10c"):
+    """The exact all-gather advection runs on z-slabs now
+    (``tests/test_torch_sharded_exact.py``): the one exact request still
+    refused is an unknown mode's, and nothing exact quietly becomes
+    windowed."""
+    step = make_sharded_step_fn_3d(_cfg("parity", 1), make_mesh([CPU] * 4),
+                                   advect_mode="exact")
+    assert step.advect_mode == "exact"
+    with pytest.raises(ValueError, match="advect_mode"):
         make_sharded_step_fn_3d(_cfg("parity", 1), make_mesh([CPU] * 4),
-                                advect_mode="exact")
+                                advect_mode="Exact")
 
 
 @pytest.mark.parametrize("solver", ["multigrid", "cg"])
