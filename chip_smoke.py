@@ -250,7 +250,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    bar of its own one-grid step (max|Δ| printed, and how many grids equal
    it bit for bit), the batch held to the ``reference`` backend; the
    multigrid step's ms/step eager and as a CUDA graph beside the per-sweep
-   damped K1's, as in phase 14.
+   damped K1's, as in phase 14;
+19. the block route (``block_phase``): K9-block, K12-block, K10-block and
+   K11-block against their plain twins on a corner, an edge, an interior
+   and the far corner block of (2, 4) blocks at 2048² (every mode the
+   step gives them; bit for bit, the fast forms within 1e-5), each timed
+   beside its bound, its slab counterpart on as many cells and, for the
+   gathers, ``grid_sample``; then ``make_sharded_step_fn(...,
+   shard_backend="reference")`` on (2, 4) blocks of one card at 2048², 20
+   iterations (``block_path``): exact, held to ``StableFluids2D.step``
+   bit for bit past the window; windowed, to the slab route's windowed
+   step on 8 slabs bit for bit; compensated with fast math, to the
+   ``reference`` backend within 1e-4; multigrid (two cycles) and CG-20,
+   to the ``reference`` backend bit for bit, each with its max|Δ| to the
+   slab route's solver on 8 slabs printed; 8192² at 40 iterations on
+   (2, 2) blocks, exact, to ``StableFluids2D.step`` bit for bit; each
+   with its launches a step against ``expected_launches_blocks``, eager
+   and graph ms/step and one step traced with the share of its device
+   time the halo and gather copies take; and ``"auto"`` on 64 slabs of 4
+   rows of 256² (the block route, exact) and the slab route's deep-halo
+   Chebyshev (512² compensated fast on 64 slabs of 8 rows: its solves on
+   the (64, 1) blocks), each against ``StableFluids2D.step``.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
@@ -263,7 +283,8 @@ forms, ``advect_slab_exact`` and ``advect3_slab_exact``, from phase 10's
 8-slab 256³ parity run of phase 11 for the z-slab kernels, phase 12's tail
 runs for K17, phase 10's chunk run for B13's split-source K9, phases 14 and
 18 for K1-damp and
-phase 16 for K6's window), its max|Δ| from phase 3, 3b, 3c, 3d, 3e or 3f,
+phase 16 for K6's window, phase 19's runs for the block forms), its max|Δ|
+from phase 3, 3b, 3c, 3d, 3e, 3f or 19,
 its device time beside its plain version's, and its bound; the bf16 forms
 are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 ``gradient_bf16``, ``advect_bf16``: launches from phase 18's 2048² parity
@@ -374,6 +395,14 @@ KERNEL_SOURCES = {
     "jacobi3_sweeps": (f"{CSRC}/jacobi3_tiles.cu", f"{TPU_KERNELS_3D}:458"),
     "jacobi3_slab_sweeps": (f"{CSRC}/jacobi3_tiles.cu",
                             f"{TPU_SLABS_3D}:349"),
+    # The block route's forms: the TPU step computes them in jnp
+    # (_diffuse_local and its Chebyshev and damped twins, the gathers,
+    # the two stencils; no pallas_call).
+    "jacobi_block_sweeps": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_STEP}:195"),
+    "advect_block": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:274"),
+    "advect_block_exact": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:245"),
+    "divergence_block": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:317"),
+    "gradient_block": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:329"),
     "divergence_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "gradient_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "advect_bf16": (f"{CSRC}/advect.cu", f"{TPU_KERNELS}:1182"),
@@ -573,6 +602,9 @@ def slab_solves(cfg, slabs: int,
         return out
 
     def cheby(iters):
+        # A halo deeper than a slab: the block solve (slab_block_solves).
+        if ceil8(iters + 1) > m:
+            return []
         return [(iters, m + 2 * ceil8(iters + 1))]
 
     dens_cheby = cfg.diffusion_solver in ("chebyshev", "chebyshev-dens")
@@ -596,6 +628,23 @@ def slab_solves(cfg, slabs: int,
     return 2 * vel + 2 * proj + dens
 
 
+def slab_block_solves(cfg, slabs: int) -> list[int]:
+    """The sweeps of each one-call Chebyshev solve of a slab step of
+    ``cfg`` on ``slabs`` row slabs whose ``ceil8(iters+1)``-row halo is
+    deeper than a slab: those run JAX's jnp fallback, the block route's
+    chunked solve on the (px, 1) blocks (``parallel/sharded.py``,
+    ``_cheby_blocks``), one K9-block launch a slab a chunk."""
+    m = (cfg.n + 2) // slabs
+    deep = [] if cfg.diffusion_solver != "chebyshev" else [cfg.cheby_iters] * 2
+    if cfg.pressure_solver == "chebyshev" and -(-(
+            cfg.press_cheby_iters + 3) // 8) * 8 > m:
+        deep += [cfg.press_cheby_iters] * 2
+    if cfg.diffusion_solver in ("chebyshev", "chebyshev-dens"):
+        deep.append(cfg.cheby_iters if cfg.diffusion_solver == "chebyshev"
+                    else cfg.cheby_dens_iters)
+    return [k for k in deep if -(-(k + 1) // 8) * 8 > m]
+
+
 def slab_mg_launches(cfg, slabs: int) -> dict[str, int]:
     """Kernel launches of one slab multigrid solve of ``cfg`` on ``slabs``
     row slabs of one device (``parallel/solvers.py``), by kernel: each
@@ -606,20 +655,45 @@ def slab_mg_launches(cfg, slabs: int) -> dict[str, int]:
     slab) on K1-damp in the launches of ``cuda_ops.damped_plan`` (at
     1025²: 1 + 4)."""
     from fluidsimulationcuda_torch.kernels import cuda_ops
-    from fluidsimulationcuda_torch.ops.multigrid import mg_levels
 
     side = cfg.n + 2
     m = side // slabs
-    launches = dict.fromkeys(("jacobi_slab_sweeps_damp_group",
-                              "jacobi_sweeps_damp", "jacobi_sweep_damp"), 0)
 
-    def fine(sweeps):
+    def fine(sweeps, launches):
         while sweeps > 0:
             per_launch = cuda_ops.group_smooth_tiling(side * side, m,
                                                       sweeps)[0]
             launches["jacobi_slab_sweeps_damp_group"] += -(
                 -slabs // cuda_ops.GROUP_SLABS)
             sweeps -= per_launch
+
+    return _mg_launches(cfg, "jacobi_slab_sweeps_damp_group", fine)
+
+
+def block_mg_launches(cfg, px: int, py: int) -> dict[str, int]:
+    """``slab_mg_launches`` on the (px, py) blocks of the block route: each
+    fine smooth one K9-block launch a block for every ``BLOCK_SMOOTH``
+    sweeps (no more than a block's side), the coarse grid as on slabs."""
+    from fluidsimulationcuda_torch.parallel.solvers import BLOCK_SMOOTH
+
+    side = cfg.n + 2
+    per = min(BLOCK_SMOOTH, side // px, side // py)
+
+    def fine(sweeps, launches):
+        launches["jacobi_block_sweeps"] += px * py * -(-sweeps // per)
+
+    return _mg_launches(cfg, "jacobi_block_sweeps", fine)
+
+
+def _mg_launches(cfg, fine_kernel: str, fine) -> dict[str, int]:
+    """The launches of one sharded multigrid solve of ``cfg``: ``fine(sweeps,
+    launches)`` counts a fine-level smooth; the replicated coarse grid's
+    classic cycle on K1-damp."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+    from fluidsimulationcuda_torch.ops.multigrid import mg_levels
+
+    launches = dict.fromkeys((fine_kernel, "jacobi_sweeps_damp",
+                              "jacobi_sweep_damp"), 0)
 
     def coarse(n, sweeps):
         per_launch = cuda_ops.damped_plan(n + 2, sweeps).per_launch
@@ -638,13 +712,52 @@ def slab_mg_launches(cfg, slabs: int) -> dict[str, int]:
 
     levels = mg_levels(cfg.n)
     for _ in range(cfg.mg_cycles):
-        fine(2)
+        fine(2, launches)
         if levels == 0:
-            fine(40)
+            fine(40, launches)
             continue
         classic(cfg.n // 2, levels - 1)
-        fine(2)
+        fine(2, launches)
     return {k: c for k, c in launches.items() if c}
+
+
+def block_chunks(iters: int, m: int, k: int) -> int:
+    """K9-block launches a block of a block solve of ``iters`` sweeps on
+    (m, k) blocks: one a chunk of ``parallel.sharded._chunk`` sweeps."""
+    from fluidsimulationcuda_torch.parallel.sharded import _chunk
+
+    return -(-iters // _chunk(iters, m, k))
+
+
+def expected_launches_blocks(cfg, px: int, py: int,
+                             exact: bool = False) -> dict[str, int]:
+    """Kernel launches of one block-route step of ``cfg`` on (px, py)
+    blocks (``parallel/sharded.py``, ``_BlockStep``): each block launches
+    K9-block once a chunk of each solve (``block_chunks``: two velocity
+    diffusions, two pressure solves, the density diffusion; the multigrid
+    projection's smooths by ``block_mg_launches``, none for CG), K10-block
+    and K11-block once per projection, K12-block for the u/v pair and the
+    density (its exact form with ``exact`` gathers)."""
+    side = cfg.n + 2
+    m, k, blocks = side // px, side // py, px * py
+    mode = cfg.diffusion_solver
+    k_vel = cfg.cheby_iters if mode == "chebyshev" else cfg.jacobi_iters
+    k_dens = (cfg.cheby_iters if mode == "chebyshev"
+              else cfg.cheby_dens_iters if mode == "chebyshev-dens"
+              else cfg.jacobi_iters)
+    k_p = {"chebyshev": cfg.press_cheby_iters, "multigrid": 0,
+           "cg": 0}.get(cfg.pressure_solver, cfg.jacobi_iters)
+    chunks = (2 * block_chunks(k_vel, m, k) + block_chunks(k_dens, m, k)
+              + (2 * block_chunks(k_p, m, k) if k_p else 0))
+    launches = {"jacobi_block_sweeps": blocks * chunks,
+                "divergence_block": 2 * blocks,
+                "gradient_block": 2 * blocks,
+                "advect_block_exact" if exact else "advect_block":
+                2 * blocks}
+    if cfg.pressure_solver == "multigrid":
+        for name, count in block_mg_launches(cfg, px, py).items():
+            launches[name] = launches.get(name, 0) + 2 * count
+    return launches
 
 
 def expected_launches_sharded(cfg, slabs: int,
@@ -668,6 +781,11 @@ def expected_launches_sharded(cfg, slabs: int,
     if cfg.pressure_solver == "multigrid":
         for name, count in slab_mg_launches(cfg, slabs).items():
             launches[name] = 2 * count
+    side = cfg.n + 2
+    chunks = sum(block_chunks(k, side // slabs, side)
+                 for k in slab_block_solves(cfg, slabs))
+    if chunks:
+        launches["jacobi_block_sweeps"] = slabs * chunks
     return launches
 
 
@@ -994,6 +1112,120 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
                   f"as a CUDA graph, {sum(per_step.values())} launches a "
                   f"step; windowed {w_ms:.4f} ms/step eager, {w_graph:.4f} "
                   f"as a CUDA graph, {w_launches} launches a step ({card})")
+    return counts
+
+
+def copy_share(per_kernel: dict[str, list]) -> float:
+    """The share of a traced step's device time that its copies take:
+    the halo and all-gather ``torch.cat``, the zero pads and device
+    copies (every kernel whose name says cat, copy or fill)."""
+    busy = sum(ms for _, ms in per_kernel.values())
+    copies = sum(ms for name, (_, ms) in per_kernel.items()
+                 if re.search(r"Cat|[Cc]opy|Fill|Memcpy|Memset", name))
+    return copies / busy
+
+
+def block_path(cfg, shape: tuple[int, int], label: str, card: str,
+               steps: int, against: str, tol: float = 0.0,
+               advect_mode: str = "exact", shard_backend: str = "reference",
+               timed: bool = True) -> dict[str, int]:
+    """Impulse step plus ``steps-1`` steps of ``make_sharded_step_fn(cfg,
+    shard_backend=shard_backend, advect_mode=advect_mode)`` on a ``shape``
+    mesh of one card (``cuda:0`` listed once per part): its launches a
+    step against ``expected_launches_blocks`` (the slab route's, for a
+    run ``"auto"`` keeps on slabs, against ``expected_launches_sharded``),
+    and each step's state against ``against``: ``"single"``,
+    ``StableFluids2D.step``; ``"slabs"``, the slab route on the flattened
+    mesh (its max|d| printed, held to ``tol`` unless None); ``"reference"``
+    the same step on the ``reference`` backend (the plain twins); max|d|
+    at most ``tol`` (0: bit for bit).  With ``timed``: eager and CUDA-graph
+    ms/step and one step traced, with the share of its device time the
+    halo copies take (``copy_share``).  Returns the launch counts."""
+    from fluidsimulationcuda_torch import (StableFluids2D, reference_init,
+                                           zero_sources)
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_blocks,
+                                                    shard_state, unshard)
+
+    px, py = shape
+    mesh = make_mesh([torch.device("cuda", 0)] * (px * py), shape=shape)
+    step_fn = make_sharded_step_fn(cfg, mesh, advect_mode=advect_mode,
+                                   shard_backend=shard_backend, audited=True)
+    cut = shard_blocks if step_fn.layout == "blocks" else shard_state
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    start, src, zeros = (cut(x, step_fn.mesh)
+                         for x in (state0, sources, zero_sources(cfg)))
+    side = cfg.n + 2
+    print(f"{label}: {step_fn.layout} of {side // px} x "
+          f"{side // py if step_fn.layout == 'blocks' else side} on mesh "
+          f"{shape}, shard_backend {step_fn.shard_backend!r}, advect_mode "
+          f"{advect_mode!r} took {step_fn.advect_mode!r}")
+
+    def run(fn, start=start, src=src, zeros=zeros, mesh=step_fn.mesh):
+        states, disps, state = [], [], start
+        for k in range(steps):
+            state, disp = fn(state, src if k == 0 else zeros)
+            states.append(unshard(state, mesh))
+            disps.append(float(disp))
+        return states, disps, state
+
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    states, disps, last = run(step_fn)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    exact = step_fn.advect_mode == "exact"
+    per_step = (expected_launches_blocks(cfg, px, py, exact)
+                if step_fn.layout == "blocks"
+                else expected_launches_sharded(cfg, px * py, exact))
+    want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: launches a step {sum(per_step.values())} "
+          f"({ {k: c for k, c in per_step.items() if c} }, computed from the "
+          f"code); counted over {steps} steps {counts == want}")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    require_finite(states[-1], label)
+    print(f"{label}: audited displacement {max(disps):.6f} cells (window "
+          f"{cfg.max_courant})")
+    if against == "single":
+        sim = StableFluids2D(cfg)
+        twins = [sim.step(state0, sources)]
+        for _ in range(steps - 1):
+            twins.append(sim.step(twins[-1]))
+        what = "StableFluids2D.step"
+    elif against == "slabs":
+        slab = make_sharded_step_fn(cfg, mesh, advect_mode=advect_mode,
+                                    shard_backend="slab", audited=True)
+        flat = [shard_state(x, slab.mesh)
+                for x in (state0, sources, zero_sources(cfg))]
+        twins = run(slab, *flat, mesh=None)[0]
+        what = f"the slab route on {px * py} slabs"
+    else:
+        ref = make_sharded_step_fn(cfg.replace(backend="reference"), mesh,
+                                   advect_mode=advect_mode,
+                                   shard_backend=shard_backend, audited=True)
+        twins = run(ref)[0]
+        what = "the reference backend (plain twins)"
+    errs = [max_diff(a, b) for a, b in zip(states, twins)]
+    print(f"{label}: max|d| vs {what} by step "
+          f"{', '.join(f'{e:.3e}' for e in errs)}"
+          + (" (bit for bit)" if tol == 0.0 else f" (bar {tol})"))
+    if tol is not None and not max(errs) <= tol:
+        raise AssertionError(f"{label}: max|d| {max(errs):.3e} > {tol} vs "
+                             f"{what}")
+    if timed:
+        plain = make_sharded_step_fn(cfg, mesh, advect_mode=advect_mode,
+                                     shard_backend=shard_backend)
+        state, ms = timed_steps(lambda s: plain(s, zeros), last, 2)
+        graph_ms = checks.device_ms(lambda: plain(state, zeros), reps=2)
+        per_kernel = profile_step(lambda: plain(state, zeros), label, card)
+        print(f"{label}: {ms:.4f} ms/step eager, {graph_ms:.4f} ms/step as "
+              f"a CUDA graph; halo and gather copies "
+              f"{100 * copy_share(per_kernel):.1f}% of the traced step's "
+              f"device time ({card})")
     return counts
 
 
@@ -2326,11 +2558,14 @@ def main() -> None:
     launches_sb = {k: c + launches_sb[k]
                    for k, c in solver_batch_path("cg", card).items()}
 
+    phase("19 the block route: (px, py) blocks on one card")
+    launches_blocks = block_phase(parity, cheby, big, card, errs, times)
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
                      + launches_slab_mg[k] + launches_exact[k]
                      + launches_slab3[k] + launches_dg[k] + launches_mg[k]
                      + launches_cg[k] + launches_w3[k] + launches_cli[k]
-                     + launches_16[k] + launches_sb[k]
+                     + launches_16[k] + launches_sb[k] + launches_blocks[k]
                      for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_sweeps_split"] = launches_split[
@@ -2358,6 +2593,65 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def block_phase(parity, cheby, big, card: str, errs: dict[str, float],
+                times: dict) -> dict[str, int]:
+    """Phase 19: the block forms against their plain twins on a corner, an
+    edge, an interior and the far corner block of (2, 4) blocks at 2048²
+    (bit for bit, fast forms within ``checks.TOL``) and timed; the block
+    step at 2048² on (2, 4) blocks exact, windowed, compensated, multigrid
+    and CG-20, at 8192² on (2, 2) exact; ``"auto"`` on 64 slabs of 4 rows
+    of 256² (the block route, exact) and the slab route's deep-halo
+    Chebyshev on 64 slabs of 8 rows of 512².  Returns the launches of the
+    runs whose kernels the kernels line reads."""
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    blocks = checks.kernel_checks_block(2048, 1024, 512, "cuda", SEED)
+    compare([c for c in blocks if "fast" not in c.label], 0.0, errs,
+            "bit for bit")
+    compare([c for c in blocks if "fast" in c.label], checks.TOL, errs)
+    times.update(kernel_times(checks.timing_checks_block(2048, 2, 4, "cuda",
+                                                         SEED),
+                              "2048² on (2, 4) blocks", card))
+    total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
+
+    def add(counts):
+        for k, c in counts.items():
+            total[k] += c
+
+    mesh24 = (2, 4)
+    add(block_path(parity, mesh24, "blocks 2048² parity, exact", card, 3,
+                   "single"))
+    add(block_path(parity, mesh24, "blocks 2048² parity, windowed", card, 3,
+                   "slabs", advect_mode="windowed"))
+    rho, k_d, k_p = cheby.cheby_rho, cheby.cheby_iters, cheby.press_cheby_iters
+    # As in phase 10: the reference backend ignores fast_math.
+    block_path(cheby.replace(fast_math=True), mesh24,
+               f"blocks 2048² compensated (rho={rho}, k_d={k_d}, k_p={k_p}) "
+               f"fast_math, exact", card, 3, "reference", tol=1e-4)
+    mg = parity.replace(pressure_solver="multigrid", mg_cycles=2)
+    block_path(mg, mesh24, "blocks 2048² multigrid, 2 cycles, exact", card,
+               3, "reference")
+    block_path(mg, mesh24, "blocks 2048² multigrid, 2 cycles, exact", card,
+               3, "slabs", tol=None, timed=False)
+    cg = parity.replace(pressure_solver="cg", cg_iters=20)
+    block_path(cg, mesh24, "blocks 2048² CG-20, exact", card, 3,
+               "reference")
+    block_path(cg, mesh24, "blocks 2048² CG-20, exact", card, 3, "slabs",
+               tol=None, timed=False)
+    block_path(big, (2, 2), "blocks 8192² parity 40 it, exact", card, 2,
+               "single")
+    small = parity.replace(n=254)
+    block_path(small, (64, 1), "256² parity, 64 slabs of 4 rows, auto", card,
+               2, "single", advect_mode="auto", shard_backend="auto",
+               timed=False)
+    deep = cheby.replace(n=510, fast_math=True)
+    block_path(deep, (64, 1), f"512² compensated (rho={rho}, k_d={k_d}, "
+               f"k_p={k_p}) fast_math, 64 slabs of 8 rows", card, 2, "single",
+               tol=None, advect_mode="auto", shard_backend="auto",
+               timed=False)
+    return total
 
 
 def k1_against_both(bf16: bool, errs: dict[str, float]) -> None:
@@ -2520,6 +2814,9 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
                      f"the tiled kernel's)")
         if library is not None:
             line += f"  grid_sample (gather only) {library:.5f} ms"
+        if c.counterpart is not None:
+            line += (f"  slab counterpart on as many cells "
+                     f"{checks.device_ms(c.counterpart):.5f} ms")
         if c.boxes is not None:
             line += (f"  blocks staged "
                      f"{100 * checks.staged_share(c):.1f}%")

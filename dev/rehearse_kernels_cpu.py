@@ -50,6 +50,8 @@ loader patched), and:
   ``kernel_checks_slab`` and ``kernel_checks_group_smooth`` (K9-damp; B13
   also against K18 then K9) for
   slabs of ``--slab-side``/4 rows at ``--slab-side``,
+  ``kernel_checks_block`` (the block route's forms) for blocks of
+  ``--slab-side``/2 x ``--slab-side``/4 there,
   ``kernel_checks_slab3`` and
   ``kernel_checks_slab3_flows`` for z-slabs of ``--slab3-side``/3 planes at
   ``--slab3-side``) compares kernel and plain version, on a shim device of
@@ -68,7 +70,8 @@ loader patched), and:
   against the same calls on the per-sweep damped K1, bit for bit;
 - one multi-device step per mode and route goes through the ``cuda``
   backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``; the
-  multigrid and CG projections too), its
+  multigrid and CG projections too; the block route on (2, 4), (4, 2)
+  and (2, 2) blocks, against ``chip_smoke.expected_launches_blocks``), its
   launch counts against ``chip_smoke.expected_launches_sharded``, its state
   against the ``reference`` backend of the same sharded step; and one 3-D
   multi-device step per mode on 3 and 8 z-slabs at ``--slab3-side``
@@ -571,6 +574,10 @@ def main() -> int:
                   + checks.kernel_checks_group_smooth(args.slab_side,
                                                       args.slab_side // 4,
                                                       "cpu", 1)
+                  + checks.kernel_checks_block(args.slab_side,
+                                               args.slab_side // 2,
+                                               args.slab_side // 4, "cpu",
+                                               1)
                   + checks.kernel_checks_slab3(args.slab3_side,
                                                args.slab3_side // 3, "cpu",
                                                1)
@@ -706,14 +713,16 @@ def main() -> int:
 
 
 def rehearse_sharded(lib, side: int) -> int:
-    """One multi-device step per mode and route through the ``cuda``
-    backend on a virtual CPU mesh against the ``reference`` backend of the
-    same step; returns the number of failures."""
+    """One multi-device step per mode and route (row slabs and 2-D blocks)
+    through the ``cuda`` backend on a virtual CPU mesh against the
+    ``reference`` backend of the same step; returns the number of
+    failures."""
     import chip_smoke
     import fluidsimulationcuda_torch as ft
     from fluidsimulationcuda_torch.kernels import cuda_ops
     from fluidsimulationcuda_torch.parallel import (make_mesh,
                                                     make_sharded_step_fn,
+                                                    shard_blocks,
                                                     shard_state, unshard)
 
     base = dict(n=side - 2, jacobi_iters=6, max_courant=2)
@@ -734,38 +743,53 @@ def rehearse_sharded(lib, side: int) -> int:
     # steps' sources move the backtrace past the window; fast math's
     # roundings, which the reference ignores, stay within the bar at the
     # unscaled draw.
+    # The block route: (px, py) blocks (shard_backend="reference"), and
+    # the slab route's Chebyshev solves whose halo is deeper than a slab
+    # (compensated on 8 slabs of 8 rows: on the (8, 1) blocks).
     for mode, slabs, gather, scale in (
             ("parity", 4, "auto", 1), ("parity", 8, "auto", 1),
             ("compensated", 4, "auto", 1), ("chebyshev-dens", 4, "auto", 1),
             ("multi-chunk", 4, "auto", 1), ("multigrid", 4, "auto", 1),
             ("multigrid", 8, "auto", 1), ("cg", 8, "auto", 1),
             ("parity", 4, "exact", 400), ("parity", 8, "exact", 400),
-            ("compensated", 4, "exact", 1)):
+            ("compensated", 4, "exact", 1), ("compensated", 8, "auto", 1),
+            ("parity", (2, 4), "exact", 400), ("parity", (4, 2), "windowed", 1),
+            ("compensated", (2, 2), "exact", 1),
+            ("multigrid", (2, 4), "exact", 1), ("cg", (2, 2), "exact", 1)):
         ref = ft.SimConfig(backend="reference", device="cpu",
                            **{**base, **modes[mode]})
         cfg = ref.replace()
         # The cuda backend on CPU tensors, which only the shim allows.
         object.__setattr__(cfg, "backend", "cuda")
-        mesh = make_mesh([torch.device("cpu")] * slabs)
+        shape = slabs if isinstance(slabs, tuple) else (slabs, 1)
+        blocks = isinstance(slabs, tuple)
+        mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]),
+                         shape=shape)
         state, src = ft.reference_init(torch.Generator().manual_seed(0), ref)
         src = src._replace(u=src.u * scale, v=src.v * scale)
-        state, src = shard_state(state, mesh), shard_state(src, mesh)
-        step = make_sharded_step_fn(cfg, mesh, advect_mode=gather)
+        cut = shard_blocks if blocks else shard_state
+        state, src = cut(state, mesh), cut(src, mesh)
+        backend = "reference" if blocks else "auto"
+        step = make_sharded_step_fn(cfg, mesh, advect_mode=gather,
+                                    shard_backend=backend)
         with kernels_on_cpu(lib):
             cuda_ops.reset_launch_counts()
-            got = unshard(step(state, src))
+            got = unshard(step(state, src), mesh)
             counts = cuda_ops.launch_counts()
-        want = unshard(make_sharded_step_fn(ref, mesh,
-                                            advect_mode=gather)(state, src))
-        per_step = chip_smoke.expected_launches_sharded(
-            cfg, slabs, step.advect_mode == "exact")
+        want = unshard(make_sharded_step_fn(
+            ref, mesh, advect_mode=gather, shard_backend=backend)(state, src),
+            mesh)
+        exact = step.advect_mode == "exact"
+        per_step = (chip_smoke.expected_launches_blocks(cfg, *shape, exact)
+                    if blocks else chip_smoke.expected_launches_sharded(
+                        cfg, slabs, exact))
         launches_ok = counts == {k: per_step.get(k, 0)
                                  for k in cuda_ops.KERNELS}
         err = chip_smoke.max_diff(got, want)
         tol = 1e-4 if cfg.fast_math else 0.0
         bad = err > tol or not launches_ok
         failures += bad
-        print(f"  sharded {mode:15s} {slabs} slabs {step.advect_mode} "
+        print(f"  sharded {mode:15s} {slabs} {step.layout} {step.advect_mode} "
               f"{step.routes} max|d| vs "
               f"reference {err:.3e}, launches "
               f"{'as designed' if launches_ok else counts}"

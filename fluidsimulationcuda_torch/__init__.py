@@ -13,7 +13,7 @@ reference it is tested against.  It imports ``torch`` and never ``jax``:
 - ``models``   — the 2-D step, batched datagen over it, and the 3-D
   smoke-volume step
 - ``parallel`` — the multi-device steps on one process's mesh: row slabs
-  (2-D) and z-slabs (3-D)
+  or 2-D blocks (2-D) and z-slabs (3-D)
 - ``utils``    — checkpoints (readable by both packages), stability
   diagnostics, per-phase timing, the validation bars and PNG rendering
 
@@ -32,8 +32,8 @@ from .models.batched import (batched_init, generate_trajectories,
 from .models.stable_fluids_2d import StableFluids2D, make_step_fn, simulate, step, step_audited
 from .models.stable_fluids_3d import StableFluids3D, step3
 from .parallel import (make_mesh, make_sharded_step_fn,
-                       make_sharded_step_fn_3d, shard_state, shard_state_3d,
-                       unshard)
+                       make_sharded_step_fn_3d, shard_blocks, shard_state,
+                       shard_state_3d, unshard)
 from .utils import (PhaseReport, StabilityReport, check_stability, is_stable,
                     load_checkpoint, profile_phases, save_checkpoint,
                     wallclock)
@@ -61,6 +61,7 @@ __all__ = [
     "make_mesh",
     "make_sharded_step_fn",
     "make_sharded_step_fn_3d",
+    "shard_blocks",
     "shard_state",
     "shard_state_3d",
     "unshard",

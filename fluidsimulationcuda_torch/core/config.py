@@ -65,7 +65,7 @@ class SimConfig:
         ``"exact"`` gathers from the assembled fields at any displacement,
         ``"windowed"`` in the window; ``"auto"`` is windowed where every
         slab holds ``max_courant+1`` rows or planes, and on thinner z-slabs
-        exact (thinner row slabs need the block route, ROADMAP §A 3).
+        exact (thinner row slabs take the 2-D step's block route, exact).
       ndim: 2 (the flagship) or 3 (smoke volumes, ``(n+2)^3``).
     """
 

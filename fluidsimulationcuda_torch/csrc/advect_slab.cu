@@ -33,6 +33,18 @@
 //
 // Bound: device memory, as K3: u, v and four gather points per field (L1/L2
 // hits for a smooth flow) and one write per field.
+//
+// K12-block advect_block: both forms on an (m, k) block of the 2-D block
+// route, at global row r0 + r and column c0 + j: the windowed form
+// (fsc_advect_block) from the block extended by a halo of `halo` >= cmax+1
+// cells on every side (_advect_local_windowed,
+// fluidsimulationcuda_tpu/parallel/sharded.py:274, jnp, whose
+// (2*cmax+1)^2 masked shifts read what one gather reads after the window
+// clamp), the exact form (fsc_advect_block_exact) from the assembled
+// field (_advect_local, :245).  u and v may be views with a row stride
+// (the u/v pair gathers its own cells from its buffers).  A ghost cell of
+// the grid in the block takes the border rule of its interior neighbour's
+// gather, which lies in the block.
 #include "fsc_common.cuh"
 
 namespace {
@@ -80,6 +92,59 @@ int launch(const float* d1, const float* d2, const float* u, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K12-block: the gather of one or two fields at the (m, k) block at global
+// origin (r0, c0): from the assembled (n+2)^2 fields (kExact) or from the
+// blocks extended by `halo` cells, window cmax.
+template <bool kExact>
+__global__ void advect_block_kernel(const float* __restrict__ d1,
+                                    const float* __restrict__ d2,
+                                    const float* __restrict__ u,
+                                    const float* __restrict__ v, int ustride,
+                                    float* __restrict__ o1,
+                                    float* __restrict__ o2, int m, int k,
+                                    int n, int r0, int c0, int halo,
+                                    int cmax, int b1, int b2, float dt0) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= m || j >= k) return;
+  // The interior cell the cell derives from, in global coordinates.
+  const int gi = fsc::clampi(r0 + r, 1, n);
+  const int gj = fsc::clampi(c0 + j, 1, n);
+  const int c = (gi - r0) * ustride + (gj - c0);
+  const fsc::Departure d =
+      kExact ? fsc::backtrace_at(u[c], v[c], gi, gj, n + 2, dt0)
+             : fsc::window_backtrace(u[c], v[c], gi, gj, n, dt0, cmax);
+  const int width = kExact ? n + 2 : k + 2 * halo;
+  const int g = kExact ? d.i0 * width + d.j0
+                       : (d.i0 - r0 + halo) * width + (d.j0 - c0 + halo);
+  const bool gx = c0 + j == 0 || c0 + j == n + 1;
+  const bool gy = r0 + r == 0 || r0 + r == n + 1;
+  const float a = fsc::blend(d, d1[g], d1[g + width], d1[g + 1],
+                             d1[g + width + 1]);
+  o1[r * k + j] = fsc::border_rule(a, gx, gy, b1);
+  if (d2 != nullptr) {
+    const float e = fsc::blend(d, d2[g], d2[g + width], d2[g + 1],
+                               d2[g + width + 1]);
+    o2[r * k + j] = fsc::border_rule(e, gx, gy, b2);
+  }
+}
+
+template <bool kExact>
+int launch_block(const float* d1, const float* d2, const float* u,
+                 const float* v, int ustride, float* o1, float* o2, int m,
+                 int k, int n, int r0, int c0, int halo, int cmax, int b1,
+                 int b2, float dt0, void* stream) {
+  if (m < 2 || k < 2 || r0 < 0 || c0 < 0 || r0 + m > n + 2 ||
+      c0 + k > n + 2 || (!kExact && (cmax < 0 || halo < cmax + 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = advect_block_kernel<kExact>;
+  kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(d1, d2, u, v, ustride, o1,
+                                                o2, m, k, n, r0, c0, halo,
+                                                cmax, b1, b2, dt0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // d1, d2: (m + 2*halo, side) extended fields, slab row r at buffer row
@@ -104,4 +169,31 @@ extern "C" int fsc_advect_slab_exact(const float* d1, const float* d2,
                                      int gtop, int gbot, void* stream) {
   return launch<true>(d1, d2, u, v, o1, o2, m, side, row0, b1, b2, dt0, row0,
                       0, gtop, gbot, stream);
+}
+
+// K12-block windowed: d1, d2 the (m + 2*halo, k + 2*halo) extended fields,
+// block cell (r, c) at buffer cell (halo + r, halo + c); u, v the (m, k)
+// velocities with row stride ustride; o1, o2: (m, k).  d2/o2 null gathers
+// one field.  dt0 = dt*n in float32.  Returns cudaErrorInvalidValue for a
+// block outside the grid or a halo under cmax+1, otherwise
+// cudaGetLastError() after the launch.
+extern "C" int fsc_advect_block(const float* d1, const float* d2,
+                                const float* u, const float* v, int ustride,
+                                float* o1, float* o2, int m, int k, int n,
+                                int r0, int c0, int halo, int cmax, int b1,
+                                int b2, float dt0, void* stream) {
+  return launch_block<false>(d1, d2, u, v, ustride, o1, o2, m, k, n, r0, c0,
+                             halo, cmax, b1, b2, dt0, stream);
+}
+
+// K12-block exact: d1, d2 the assembled (n+2, n+2) fields; the rest as
+// fsc_advect_block's.
+extern "C" int fsc_advect_block_exact(const float* d1, const float* d2,
+                                      const float* u, const float* v,
+                                      int ustride, float* o1, float* o2,
+                                      int m, int k, int n, int r0, int c0,
+                                      int b1, int b2, float dt0,
+                                      void* stream) {
+  return launch_block<true>(d1, d2, u, v, ustride, o1, o2, m, k, n, r0, c0,
+                            0, 0, b1, b2, dt0, stream);
 }

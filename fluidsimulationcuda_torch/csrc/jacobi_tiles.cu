@@ -184,6 +184,29 @@
 // fast mode) on its band of the extended buffers, which the later tiled
 // launches read: bit for bit K9 on the concatenation.  Jacobi, fast mode
 // and the zero guess, as JAX's B13; no Chebyshev form.
+//
+// K9-block jacobi_block_sweeps: the tiled sweeps on an extended 2-D block
+// (fsc_jacobi_block_sweeps), the block route of the multi-device step.  It
+// replaces no Pallas kernel: the JAX package sweeps its blocks in jnp
+// (_diffuse_local, _cheby_diffuse_local and _mg_smooth_local,
+// fluidsimulationcuda_tpu/parallel/sharded.py:195, :348, :477), a chunk of
+// K sweeps on an (m + 2K, k + 2K) block extended by the two-phase halo
+// exchange, whose interior and ghost cells follow from global coordinates.
+// Here a chunk is one launch on that buffer (BlockTiles: its cell (0, 0)
+// is global cell (gr0, gc0), its output the (m, k) block at buffer cell
+// (K, K)): the tiles cover the block with a halo of `count` cells, the
+// interior update at every tile cell, then the border rule at whatever
+// global ghost cells fall in the tile, each from its interior neighbour's
+// new value (a corner from the diagonal cell, 0.5*(sy*v + sx*v), which is
+// 0.5*(edge + edge) of the edges just written), so a launch computes what
+// the chunk computes on the block's cells, bit for bit.  A ghost line of
+// the grid derives from a line the sweeps reach one sweep later than
+// their own, so a launch whose buffer holds one takes a halo one cell
+// deeper (plan_block), wherever the line lies in the tile.  The forms are
+// K9's: Jacobi, the reciprocal form (the rhs pre-scaled in every launch,
+// since each chunk reads the solve's one extended rhs), Chebyshev with
+// x_{k-1} carried in and out across chunks (sweep 0 of the solve plain),
+// and K1-damp's damped form for the multigrid smoother.  Float32 only.
 #include <atomic>
 #include <type_traits>
 
@@ -221,6 +244,9 @@ struct Tiling {
   // A slab buffer: its rows, wall rows (-1 when absent) and the band of
   // rows the launch writes, [band_lo, band_hi).
   int rows, gtop, gbot, band_lo, band_hi;
+  // A block buffer: its band of columns [col_lo, col_hi), the grid's n and
+  // the global cell of buffer cell (0, 0).
+  int col_lo, col_hi, n, gr0, gc0;
   float w[kMaxSweeps];  // ω of each sweep of the launch
   float omw;            // 1-w of the damped form
 };
@@ -277,6 +303,7 @@ struct GridTiles {
     return r0 <= 0 || r0 + tile_h >= side || c0 <= 0 || c0 + kTileW >= side;
   }
   __device__ bool writes_row(int r) const { return r < side; }
+  __device__ bool writes_col(int c) const { return c < side; }
   __device__ int at(int r, int c) const { return off + r * side + c; }
   // The lines of the array along the tile's rows.
   __device__ int extent() const { return side; }
@@ -341,7 +368,81 @@ struct SlabTiles {
            (gbot >= 0 && gbot >= r0 && gbot < r0 + tile_h);
   }
   __device__ bool writes_row(int r) const { return r < band_hi; }
+  __device__ bool writes_col(int c) const { return c < side; }
   __device__ int at(int r, int c) const { return r * side + c; }
+  __device__ int extent() const { return rows; }
+};
+
+// K9-block's geometry: an extended block buffer of `rows` x `side`
+// columns whose cell (0, 0) is global cell (gr0, gc0) of a grid of n
+// interior cells a side, its tiles over the band [band_lo, band_hi) x
+// [col_lo, col_hi) (the block), written to an array of the band alone.
+// Interior and ghost cells follow from global coordinates: a ghost row or
+// column of the grid, or a corner, may lie anywhere in the buffer, and a
+// cell beyond the grid (a halo beyond a wall) is neither.
+struct BlockTiles {
+  static constexpr bool kWhole = false;
+  int side, n, rows, gr0, gc0, band_lo, band_hi, col_lo, col_hi, mode, r0,
+      c0;
+  __device__ explicit BlockTiles(const Tiling& t)
+      : side(t.side),
+        n(t.n),
+        rows(t.rows),
+        gr0(t.gr0),
+        gc0(t.gc0),
+        band_lo(t.band_lo),
+        band_hi(t.band_hi),
+        col_lo(t.col_lo),
+        col_hi(t.col_hi),
+        mode(t.b),
+        r0(t.band_lo + static_cast<int>(blockIdx.y) * t.out_h - t.margin),
+        c0(t.col_lo + static_cast<int>(blockIdx.x) * t.out_w - t.margin) {}
+  __device__ int load_at(int r, int c) const {
+    return fsc::clampi(r, 0, rows - 1) * side + fsc::clampi(c, 0, side - 1);
+  }
+  template <class P>
+  __device__ bool guess(const P& p) const {
+    return p.x != nullptr;
+  }
+  template <class P>
+  __device__ float x_at(const P& p, int r, int c) const {
+    return fsc::load(p.x, load_at(r, c));
+  }
+  template <class P>
+  __device__ float rhs_at(const P& p, int r, int c) const {
+    return fsc::load(p.rhs, inner(r, c));
+  }
+  __device__ bool in_grid(int r, int c) const {
+    return r >= 0 && r < rows && c >= 0 && c < side;
+  }
+  // The interior cell of the grid a cell derives from, clamped into the
+  // buffer.
+  __device__ int inner(int r, int c) const {
+    return load_at(fsc::clampi(gr0 + r, 1, n) - gr0,
+                   fsc::clampi(gc0 + c, 1, n) - gc0);
+  }
+  __device__ bool border(int r, int c) const {
+    const int R = gr0 + r, C = gc0 + c;
+    return R >= 0 && R <= n + 1 && C >= 0 && C <= n + 1 &&
+           (R == 0 || R == n + 1 || C == 0 || C == n + 1);
+  }
+  __device__ int row_dir(int r) const {
+    return gr0 + r == 0 ? 1 : (gr0 + r == n + 1 ? -1 : 0);
+  }
+  __device__ int col_dir(int c) const {
+    return gc0 + c == 0 ? 1 : (gc0 + c == n + 1 ? -1 : 0);
+  }
+  // The tile holds a ghost row or column of the grid.
+  __device__ bool edge(int tile_h) const {
+    const int R = gr0 + r0, C = gc0 + c0;
+    return (R <= 0 && R + tile_h > 0) || (R <= n + 1 && R + tile_h > n + 1) ||
+           (C <= 0 && C + kTileW > 0) || (C <= n + 1 && C + kTileW > n + 1);
+  }
+  __device__ bool writes_row(int r) const { return r < band_hi; }
+  __device__ bool writes_col(int c) const { return c < col_hi; }
+  __device__ int at(int r, int c) const {
+    return (r - band_lo) * (col_hi - col_lo) + (c - col_lo);
+  }
   __device__ int extent() const { return rows; }
 };
 
@@ -441,8 +542,8 @@ __device__ __forceinline__ void sweep_tile(
 }
 
 // The sweeps of one launch on the block's tile of geometry g (GridTiles,
-// SlabTiles, SplitSlabTiles, WholeGrid): load, `count` sweeps in shared
-// memory, store.
+// SlabTiles, SplitSlabTiles, WholeGrid, BlockTiles): load, `count` sweeps
+// in shared memory, store.
 template <int kRows, bool kCheby, bool kFast, bool kDamp, class G,
           typename TX, typename TM, typename TR, typename TO>
 __device__ __forceinline__ void sweeps_body(
@@ -590,7 +691,8 @@ __device__ __forceinline__ void sweeps_body(
     for (int cb = 0; cb < kCols; ++cb) {
       const int lc = static_cast<int>(threadIdx.x) + kLanes * cb;
       const int gc = g.c0 + lc;
-      if (lc < t.margin || lc >= t.margin + t.out_w || gc >= t.side) continue;
+      if (lc < t.margin || lc >= t.margin + t.out_w || !g.writes_col(gc))
+        continue;
       const int o = g.at(gr, gc);
       const int i = lr * kTileW + lc;
       fsc::store(out, o, cur[i]);
@@ -680,6 +782,20 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
       rhs_out, tile);
 }
 
+// K9-block: the sweeps of one chunk of a block solve (Jacobi, the
+// reciprocal form, Chebyshev or damped) on an extended block buffer,
+// written to the (m, k) block and, for Chebyshev, its x_{count-1}.
+template <int kRows, bool kCheby, bool kFast, bool kDamp>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    jacobi_block_sweeps_kernel(fsc::SweepParams p, Tiling t,
+                               float* __restrict__ out,
+                               float* __restrict__ xm_out) {
+  extern __shared__ float tile[];
+  sweeps_body<kRows, kCheby, kFast, kDamp>(BlockTiles(t), p, t, out, xm_out,
+                                           static_cast<float*>(nullptr),
+                                           tile);
+}
+
 // The halo and output tile of a launch of `count` sweeps: a halo of
 // `count` cells, one more where `deeper` says a border line would derive
 // from a line the halo leaves stale.
@@ -752,6 +868,37 @@ int plan_whole(int side, int count, int tile_h, Tiling* t) {
   t->margin = 1;
   t->out_w = side;
   t->out_h = side;
+  return 0;
+}
+
+// The tiling of a K9-block launch of `count` sweeps (at most the halo)
+// on an (m + 2*halo) x (k + 2*halo) block buffer at global origin (gr0,
+// gc0): tiles of tile_h rows over the block, a halo of `count` cells, one
+// deeper where the buffer holds a ghost line of the grid.  A top ghost
+// row derives from the row below it in the same sweep, so wherever it
+// lies within `count` rows under a tile's output band it leaves the exact
+// rows one short after the sweep that reaches it; one more halo row keeps
+// the band exact (so for the bottom row, the columns and the corners).
+int plan_block(int rows, int cols, int halo, int m, int k, int gr0, int gc0,
+               int n, int count, int tile_h, Tiling* t) {
+  if (count < 1 || count > kMaxSweeps || count > halo || m < 2 || k < 2 ||
+      n < 1 || rows != m + 2 * halo || cols != k + 2 * halo ||
+      (tile_h != Tile<4>::kTileH && tile_h != Tile<2>::kTileH) ||
+      tile_h - 2 * (count + 1) < 1 || kTileW - 2 * (count + 1) < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  t->side = cols;
+  t->rows = rows;
+  t->count = count;
+  t->n = n;
+  t->gr0 = gr0;
+  t->gc0 = gc0;
+  t->gtop = t->gbot = -1;
+  t->band_lo = t->col_lo = halo;
+  t->band_hi = halo + m;
+  t->col_hi = halo + k;
+  const bool walls = gr0 <= 0 || gr0 + rows > n + 1 || gc0 <= 0 ||
+                     gc0 + cols > n + 1;
+  set_halo(count, tile_h, walls, t);
   return 0;
 }
 
@@ -966,6 +1113,38 @@ int launch_split(const fsc::SweepParams& p, const Tiling& t,
                                                  rhs_out, stream);
 }
 
+template <int kRows, bool kCheby, bool kFast, bool kDamp>
+int launch_block_kernel(const fsc::SweepParams& p, const Tiling& t,
+                        float* out, float* xm_out, cudaStream_t stream) {
+  const auto kernel = jacobi_block_sweeps_kernel<kRows, kCheby, kFast, kDamp>;
+  constexpr int kSmem = Tile<kRows>::kSmem;
+  static std::atomic<int> attribute[kDevices];
+  const int err = smem_attribute(kernel, kSmem, attribute);
+  if (err != 0) return err;
+  const dim3 grid((t.col_hi - t.col_lo + t.out_w - 1) / t.out_w,
+                  (t.band_hi - t.band_lo + t.out_h - 1) / t.out_h);
+  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(p, t, out, xm_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kRows>
+int launch_block(int flags, const fsc::SweepParams& p, const Tiling& t,
+                 float* out, float* xm_out, cudaStream_t stream) {
+  if (flags & fsc::kDamp)
+    return launch_block_kernel<kRows, false, false, true>(p, t, out, xm_out,
+                                                          stream);
+  const bool fast = (flags & fsc::kFast) != 0;
+  if (flags & fsc::kCheby)
+    return fast ? launch_block_kernel<kRows, true, true, false>(
+                      p, t, out, xm_out, stream)
+                : launch_block_kernel<kRows, true, false, false>(
+                      p, t, out, xm_out, stream);
+  return fast ? launch_block_kernel<kRows, false, true, false>(p, t, out,
+                                                               xm_out, stream)
+              : launch_block_kernel<kRows, false, false, false>(
+                    p, t, out, xm_out, stream);
+}
+
 }  // namespace
 
 // `count` sweeps (1..kMaxSweeps) of a solve whose sweeps are numbered from
@@ -1175,4 +1354,45 @@ extern "C" int fsc_jacobi_slab_sweeps_split(
   return tile_h == Tile<4>::kTileH
              ? launch_split<4>(p, t, xs, rs, K, m, out, rhs_out, stream_)
              : launch_split<2>(p, t, xs, rs, K, m, out, rhs_out, stream_);
+}
+
+// K9-block: `count` sweeps (1..kMaxSweeps, at most halo) of one chunk of a
+// block solve on the (rows, cols) = (m + 2*halo, k + 2*halo) extended block
+// buffers x (null: the zero guess) and rhs, buffer cell (0, 0) at global
+// cell (gr0, gc0) of a grid of n interior cells a side, in boundary mode
+// b, sweeps `first` .. `first + count - 1` of the solve.  It writes the
+// (m, k) block at buffer cell (halo, halo) to out and, with kCheby, its
+// x_{count-1} to xm_out.  flags: kPrep | kFast (the reciprocal form,
+// rhs * inv_b built in the launch), kCheby (omegas holds `count` floats
+// on the host, the ω of each sweep; sweep 0 of the solve takes none; xm,
+// the extended x_{k-1}, is read where first > 0), or kDamp alone (damped
+// Jacobi, w and omw).  tile_h is 64 or 32.  No output aliases an input.
+// Returns cudaErrorInvalidValue for a count, shape, tile or flag out of
+// range, otherwise cudaGetLastError() after the launch.
+extern "C" int fsc_jacobi_block_sweeps(
+    const float* x, const float* rhs, const float* xm, float* out,
+    float* xm_out, int rows, int cols, int halo, int m, int k, int gr0,
+    int gc0, int n, int b, float alpha, float beta, float ab, float inv_b,
+    float w, float omw, const float* omegas, int flags, int first,
+    int count, int tile_h, void* stream) {
+  Tiling t{};
+  const int err = plan_block(rows, cols, halo, m, k, gr0, gc0, n, count,
+                             tile_h, &t);
+  if (err != 0) return err;
+  const bool cheby = (flags & fsc::kCheby) != 0;
+  if (first < 0 || ((flags & fsc::kDamp) && flags != fsc::kDamp) ||
+      (cheby && first > 0 && xm == nullptr) || (cheby && xm_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  t.b = b;
+  t.omw = omw;
+  t.first_combine = first == 0 ? 1 : 0;
+  for (int s = 0; s < kMaxSweeps; ++s)
+    t.w[s] = (cheby && s < count) ? omegas[s] : 0.0f;
+  const fsc::SweepParams p = fsc::make_sweep_params(
+      x, rhs, nullptr, cheby ? xm : nullptr, alpha, beta, ab, inv_b, 0.0f, w,
+      flags & (fsc::kPrep | fsc::kFast));
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  return tile_h == Tile<4>::kTileH
+             ? launch_block<4>(flags, p, t, out, xm_out, stream_)
+             : launch_block<2>(flags, p, t, out, xm_out, stream_);
 }

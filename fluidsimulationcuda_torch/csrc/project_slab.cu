@@ -22,6 +22,16 @@
 //
 // Bound: device memory, as K2: 12 bytes a cell for the divergence, 20 for
 // the gradient.
+//
+// K10-block divergence_block and K11-block gradient_block: the same two
+// stencils on an (m, k) block of the 2-D block route at global origin
+// (r0, c0) (_divergence_local and _gradient_local,
+// fluidsimulationcuda_tpu/parallel/sharded.py:317 and :329, jnp, which
+// extend the block by a one-cell halo from its four neighbours).  A halo
+// is a pointer to the one row (top, bottom) or the one column (left,
+// right, contiguous) the stencil needs, null beyond a wall, where no cell
+// reads it.  A ghost cell of the grid in the block takes the border rule
+// of its interior neighbour's value, which lies in the block.
 #include "fsc_common.cuh"
 
 namespace {
@@ -67,6 +77,82 @@ __global__ void gradient_slab_kernel(const float* __restrict__ u,
   vo[r * side + j] = fsc::slab_border_value(vn, r, j, side, gtop, gbot, 2);
 }
 
+// Cell (ri, ci) of an (m, k) block or, one cell past its edge, of the
+// halo there (top and bottom rows, left and right columns).
+__device__ __forceinline__ float block_at(const float* f, const float* top,
+                                          const float* bot,
+                                          const float* left,
+                                          const float* right, int ri, int ci,
+                                          int m, int k) {
+  if (ri < 0) return top[ci];
+  if (ri >= m) return bot[ci];
+  if (ci < 0) return left[ri];
+  if (ci >= k) return right[ri];
+  return f[ri * k + ci];
+}
+
+__global__ void divergence_block_kernel(
+    const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ u_left, const float* __restrict__ u_right,
+    const float* __restrict__ v_top, const float* __restrict__ v_bot,
+    float* __restrict__ out, int m, int k, int n, int r0, int c0,
+    float coef) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= m || j >= k) return;
+  const int ri = fsc::clampi(r0 + r, 1, n) - r0;
+  const int ci = fsc::clampi(c0 + j, 1, n) - c0;
+  const float u_l = block_at(u, nullptr, nullptr, u_left, u_right, ri,
+                             ci - 1, m, k);
+  const float u_r = block_at(u, nullptr, nullptr, u_left, u_right, ri,
+                             ci + 1, m, k);
+  const float v_up = block_at(v, v_top, v_bot, nullptr, nullptr, ri - 1, ci,
+                              m, k);
+  const float v_dn = block_at(v, v_top, v_bot, nullptr, nullptr, ri + 1, ci,
+                              m, k);
+  const float d = coef * ((u_r - u_l) + (v_dn - v_up));
+  out[r * k + j] = fsc::border_rule(d, c0 + j == 0 || c0 + j == n + 1,
+                                    r0 + r == 0 || r0 + r == n + 1, 0);
+}
+
+__global__ void gradient_block_kernel(
+    const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ p, const float* __restrict__ p_top,
+    const float* __restrict__ p_bot, const float* __restrict__ p_left,
+    const float* __restrict__ p_right, float* __restrict__ uo,
+    float* __restrict__ vo, int m, int k, int n, int r0, int c0, float h) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= m || j >= k) return;
+  const int ri = fsc::clampi(r0 + r, 1, n) - r0;
+  const int ci = fsc::clampi(c0 + j, 1, n) - c0;
+  const int c = ri * k + ci;
+  const float p_l = block_at(p, p_top, p_bot, p_left, p_right, ri, ci - 1,
+                             m, k);
+  const float p_r = block_at(p, p_top, p_bot, p_left, p_right, ri, ci + 1,
+                             m, k);
+  const float p_up = block_at(p, p_top, p_bot, p_left, p_right, ri - 1, ci,
+                              m, k);
+  const float p_dn = block_at(p, p_top, p_bot, p_left, p_right, ri + 1, ci,
+                              m, k);
+  const float un = u[c] - (0.5f * (p_r - p_l)) / h;
+  const float vn = v[c] - (0.5f * (p_dn - p_up)) / h;
+  const bool gx = c0 + j == 0 || c0 + j == n + 1;
+  const bool gy = r0 + r == 0 || r0 + r == n + 1;
+  uo[r * k + j] = fsc::border_rule(un, gx, gy, 1);
+  vo[r * k + j] = fsc::border_rule(vn, gx, gy, 2);
+}
+
+// Whether an (m, k) block at (r0, c0) lies in the grid and has each halo
+// that is not beyond a wall (top, bottom, left, right; null beyond one).
+bool block_ok(int m, int k, int n, int r0, int c0, const float* top,
+              const float* bot, const float* left, const float* right) {
+  return m >= 2 && k >= 2 && r0 >= 0 && c0 >= 0 && r0 + m <= n + 2 &&
+         c0 + k <= n + 2 && (top != nullptr || r0 == 0) &&
+         (bot != nullptr || r0 + m == n + 2) && (left != nullptr || c0 == 0) &&
+         (right != nullptr || c0 + k == n + 2);
+}
+
 }  // namespace
 
 // u, v, out: (rows, side); vtop/vbot: the rows above and below v.
@@ -91,5 +177,42 @@ extern "C" int fsc_gradient_slab(const float* u, const float* v,
   gradient_slab_kernel<<<fsc::slab_grid_dim(side, rows), fsc::block_dim(), 0,
                          static_cast<cudaStream_t>(stream)>>>(
       u, v, p, ptop, pbot, uo, vo, rows, side, gtop, gbot, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10-block: u, v, out (m, k) at global origin (r0, c0); u_left/u_right
+// u's columns left and right of the block (m floats each), v_top/v_bot v's
+// rows above and below it (k floats each), null beyond a wall.  coef =
+// -0.5*h in float32.  Returns cudaErrorInvalidValue for a block outside
+// the grid or a missing halo, otherwise cudaGetLastError() after the
+// launch.
+extern "C" int fsc_divergence_block(const float* u, const float* v,
+                                    const float* u_left,
+                                    const float* u_right, const float* v_top,
+                                    const float* v_bot, float* out, int m,
+                                    int k, int n, int r0, int c0, float coef,
+                                    void* stream) {
+  if (!block_ok(m, k, n, r0, c0, v_top, v_bot, u_left, u_right))
+    return static_cast<int>(cudaErrorInvalidValue);
+  divergence_block_kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      u, v, u_left, u_right, v_top, v_bot, out, m, k, n, r0, c0, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11-block: u, v, p, uo, vo (m, k) at global origin (r0, c0); p_top,
+// p_bot (k floats), p_left, p_right (m floats): p's halo, null beyond a
+// wall.  h = 1/n in float32.  Returns as fsc_divergence_block.
+extern "C" int fsc_gradient_block(const float* u, const float* v,
+                                  const float* p, const float* p_top,
+                                  const float* p_bot, const float* p_left,
+                                  const float* p_right, float* uo, float* vo,
+                                  int m, int k, int n, int r0, int c0,
+                                  float h, void* stream) {
+  if (!block_ok(m, k, n, r0, c0, p_top, p_bot, p_left, p_right))
+    return static_cast<int>(cudaErrorInvalidValue);
+  gradient_block_kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      u, v, p, p_top, p_bot, p_left, p_right, uo, vo, m, k, n, r0, c0, h);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,6 +49,17 @@ _SIGNATURES = {
     "fsc_jacobi_slab_sweeps_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
                                      _I, _P],
+    "fsc_jacobi_block_sweeps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _I,
+                                _I, _I, _I, _P],
+    "fsc_advect_block": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _P],
+    "fsc_advect_block_exact": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _P],
+    "fsc_divergence_block": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _P],
+    "fsc_gradient_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _F, _P],
     "fsc_divergence": [_P, _P, _P, _I, _I, _F, _P],
     "fsc_divergence_bf16": [_P, _P, _P, _I, _I, _F, _I, _P],
     "fsc_gradient": [_P, _P, _P, _P, _P, _I, _I, _F, _P],

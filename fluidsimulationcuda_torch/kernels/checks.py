@@ -30,6 +30,7 @@ import torch
 
 from ..core.config import PERF_POINT_3D, PERF_POINTS_2D
 from ..ops.advect import backtrace, departure
+from ..ops.chebyshev import cheby_omegas
 from ..ops.multigrid import OMEGA, _smooth
 from ..ops.three_d import backtrace3, departure3
 from . import cuda_ops as co
@@ -57,7 +58,7 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks_bf16", "timing_checks_bf16", "k1_checks",
            "BF16_FORM_VELOCITIES", "BF16_FORM_FIELDS", "BF16_FORMS",
            "kernel_checks_bf16_forms",
-           "per_sweep_checks"]
+           "per_sweep_checks", "kernel_checks_block", "timing_checks_block"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -90,6 +91,9 @@ class Check:
     gather: Callable[[], tuple[list, tuple]] | None = None
     # K4's footprint box per block of its launch (footprint_boxes).
     boxes: Callable[[], torch.Tensor] | None = None
+    # A block form's slab counterpart on as many cells (its slab kernel on
+    # a slab of the same cell count), timed beside it.
+    counterpart: Callable[[], object] | None = None
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the larger of the bytes the
@@ -1731,6 +1735,251 @@ def timing_checks_group_smooth(side: int, m: int, device,
     if (side, m) == (2048, 256):
         path.label = "jacobi_slab_sweeps_damp_group"
     return [path, zero]
+
+
+JAC_BLOCK = ("jacobi_block_sweeps",)
+# The block solve's chunk at 2048² on (2, 4) blocks: min(8, iters, ...).
+BLOCK_CHUNK = 8
+
+
+class _BlockInputs(_Inputs):
+    """Random global fields at grid ``side`` and (m, k) blocks of them at
+    global origins: the extended block (zeros beyond the grid), the block
+    and its one-cell halos (None beyond a wall), as the block route's
+    exchanges build them."""
+
+    def __init__(self, side: int, m: int, k: int, device, seed: int):
+        super().__init__(side, device, seed)
+        self.side, self.m, self.k = side, m, k
+
+    def positions(self) -> dict[str, tuple[int, int]]:
+        """A top-left corner block, a top-edge block, one off every wall
+        (r0 > 0 and c0 > 0, where the blocks leave room) and a bottom-right
+        corner block."""
+        s, m, k = self.side, self.m, self.k
+        return {"corner": (0, 0), "top edge": (0, min(k, s - k)),
+                "interior": (min(m // 2, s - m), min(k // 2, s - k)),
+                "far corner": (s - m, s - k)}
+
+    def ext(self, g: torch.Tensor, origin, K: int) -> torch.Tensor:
+        r0, c0 = origin
+        out = g.new_zeros((self.m + 2 * K, self.k + 2 * K))
+        rlo, clo = r0 - K, c0 - K
+        a, b = max(rlo, 0), min(r0 + self.m + K, self.side)
+        c, d = max(clo, 0), min(c0 + self.k + K, self.side)
+        out[a - rlo:b - rlo, c - clo:d - clo] = g[a:b, c:d]
+        return out
+
+    def block(self, g: torch.Tensor, origin) -> torch.Tensor:
+        r0, c0 = origin
+        return g[r0:r0 + self.m, c0:c0 + self.k].contiguous()
+
+    def halos(self, g: torch.Tensor, origin) -> tuple:
+        r0, c0 = origin
+        m, k, s = self.m, self.k, self.side
+        cols, rows = slice(c0, c0 + k), slice(r0, r0 + m)
+        return (g[r0 - 1:r0, cols].contiguous() if r0 > 0 else None,
+                g[r0 + m:r0 + m + 1, cols].contiguous() if r0 + m < s
+                else None,
+                g[rows, c0 - 1].contiguous() if c0 > 0 else None,
+                g[rows, c0 + k].contiguous() if c0 + k < s else None)
+
+
+def _block_cases(t: "_BlockInputs", pos: str, origin) -> list[Check]:
+    """Every block form at ``origin`` in every mode the block route gives
+    it: K9-block's Jacobi chunk (whole and shorter than its halo), zero
+    guess, fast, Chebyshev first and chained chunks (plain and fast, and
+    the zero-guess pressure), damped smooths; K12-block's two forms (one
+    field and the u/v pair, under and over the window; exact at the
+    reaches of ``EXACT_REACH``); K10-block and K11-block."""
+    n, av, m, k = t.n, t.a_visc, t.m, t.k
+    K, ext, blk = BLOCK_CHUNK, t.ext, t.block
+    rho, k_d, k_p = PERF_POINTS_2D[2048]
+    geo = dict(n=n, m=m, k=k)
+    vel = dict(alpha=av, beta=1 + 4 * av)
+    press = dict(alpha=1.0, beta=4.0)
+    ws, wp = cheby_omegas(rho, k_d), cheby_omegas(rho, k_p)
+    jac = {
+        f"jacobi {K}it": (1, K, vel, {}),
+        f"jacobi {K // 2}it under a {K}-cell halo": (1, K // 2, vel, {}),
+        "zero_init": (0, K, press, dict(zero_init=True)),
+        "fast": (2, K, vel, dict(fast=True)),
+        "chebyshev first chunk": (1, K, vel, dict(omegas=ws)),
+        "chebyshev chained chunk": (1, k_d - K, vel,
+                                    dict(omegas=ws, first=K)),
+        "chebyshev+fast chained chunk": (2, k_d - K, vel,
+                                         dict(omegas=ws, first=K,
+                                              fast=True)),
+        "chebyshev pressure first chunk": (0, K, press,
+                                           dict(omegas=wp, zero_init=True)),
+    }
+    out = []
+    for mode, (b, sweeps, coef, kw) in jac.items():
+        if kw.get("first"):
+            kw = dict(kw, xm_ext=ext(t.p, origin, K))
+        out.append(_check(f"fused_jacobi_block {pos} {mode}", JAC_BLOCK,
+                          cs.fused_jacobi_block, cs.fused_jacobi_block_plain,
+                          b, ext(t.x, origin, K), ext(t.x0, origin, K),
+                          origin, K=K, sweeps=sweeps, **geo, **coef, **kw))
+    for sweeps, zero in ((2, False), (2, True), (K, False)):
+        out.append(_check(
+            f"smooth_block {pos} {sweeps} sweeps"
+            + (" zero_init" if zero else ""), JAC_BLOCK, cs.smooth_block,
+            cs.smooth_block_plain, ext(t.p, origin, sweeps),
+            ext(t.x0, origin, sweeps), origin, K=sweeps, sweeps=sweeps,
+            zero_init=zero, **geo))
+    C, cmax = SLAB_CMAX + 1, SLAB_CMAX
+    for window, (u, v) in (("under", (t.u, t.v)), ("over", (t.uf, t.vf))):
+        out.append(_check(
+            f"advect_block {pos} b=0, {window} the window", ("advect_block",),
+            cs.advect_block, cs.advect_block_plain, (0,),
+            (ext(t.x, origin, C),), blk(u, origin), blk(v, origin), origin,
+            dt=DT, cmax=cmax, self_adv=False, **geo))
+        out.append(_check(
+            f"advect_block {pos} u/v pair, {window} the window",
+            ("advect_block",), cs.advect_block, cs.advect_block_plain,
+            (1, 2), (ext(u, origin, C), ext(v, origin, C)), None, None,
+            origin, dt=DT, cmax=cmax, self_adv=True, **geo))
+    for reach, scale in EXACT_REACH.items():
+        u, v = scale * t.u, scale * t.v
+        out.append(_check(
+            f"advect_block_exact {pos} b=0, up to {reach}",
+            ("advect_block_exact",), cs.advect_block_exact,
+            cs.advect_block_exact_plain, (0,), (t.x,), blk(u, origin),
+            blk(v, origin), origin, dt=DT, self_adv=False, **geo))
+        out.append(_check(
+            f"advect_block_exact {pos} u/v pair, up to {reach}",
+            ("advect_block_exact",), cs.advect_block_exact,
+            cs.advect_block_exact_plain, (1, 2), (u, v), None, None, origin,
+            dt=DT, self_adv=True, **geo))
+    out.append(_check(f"divergence_block {pos}", ("divergence_block",),
+                      cs.divergence_block, cs.divergence_block_plain,
+                      blk(t.u, origin), blk(t.v, origin),
+                      t.halos(t.u, origin), t.halos(t.v, origin), origin, n))
+    out.append(_check(f"gradient_block {pos}", ("gradient_block",),
+                      cs.gradient_block, cs.gradient_block_plain,
+                      blk(t.u, origin), blk(t.v, origin), blk(t.p, origin),
+                      t.halos(t.p, origin), origin, n))
+    return out
+
+
+def kernel_checks_block(side: int, m: int, k: int, device, seed: int = 0,
+                        origins: dict | None = None) -> list[Check]:
+    """Every block form against its plain twin (``_block_cases``) on (m,
+    k) blocks of grid ``side`` at the ``origins`` given by name (a corner,
+    an edge, an interior and the far corner block by default): bit for
+    bit, ``--fmad=false``; the fast forms round as ``fmaf`` in both."""
+    t = _BlockInputs(side, m, k, device, seed)
+    return [c for pos, o in (origins or t.positions()).items()
+            for c in _block_cases(t, pos, o)]
+
+
+def _block_sweeps_cost(iters: int, rows: int, cols: int, m: int, k: int, *,
+                       zero_init=False, **kw) -> tuple[int, int]:
+    """Cost of one block chunk on a (rows, cols) buffer, in field-cells
+    (use with ``cells=1``): the buffer's guess (none for the zero guess)
+    and rhs read once, the (m, k) block written once; sweep j computes
+    the buffer's cells j or more from its rim."""
+    ops = sum(o * (rows - 2 * j) * (cols - 2 * j) for j, o in
+              enumerate(_sweep_ops(iters, 2, **kw), start=1))
+    return (2 - zero_init) * rows * cols + m * k, ops
+
+
+def timing_checks_block(side: int, px: int, py: int, device,
+                        seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of the block forms, on the top-edge
+    block (origin (0, k)) of a (px, py) mesh at grid ``side``, each
+    labelled by its kernel's name, beside its plain twin, its bound and
+    its slab counterpart on as many cells (the slab kernel on an interior
+    slab of m·k/side rows; K9-block's chunk of ``BLOCK_CHUNK`` sweeps
+    against the tiled K9 on a halo as deep); the gathers also beside
+    ``grid_sample``.  Then K9-block's Chebyshev chained chunk, fast, and
+    its damped 2-sweep smooth."""
+    m, k = side // px, side // py
+    t = _BlockInputs(side, m, k, device, seed)
+    slab = _SlabInputs(side, m * k // side, device, seed)
+    o, K, n, av = (0, k), BLOCK_CHUNK, t.n, t.a_visc
+    i, fl, sm = slab.slabs // 2, slab.flags(slab.slabs // 2), slab.m
+    ext, blk = t.ext, t.block
+    bv, cells = 1 + 4 * av, m * k
+    rho, k_d, _ = PERF_POINTS_2D[2048]
+    rows, cols = m + 2 * K, k + 2 * K
+    C, cmax = SLAB_CMAX + 1, SLAB_CMAX
+    geo = dict(n=n, m=m, k=k)
+
+    def chunk(label, sweeps, fn, plain, b, x, rhs, K, **kw):
+        check = _timed(_block_sweeps_cost(
+            sweeps, m + 2 * K, k + 2 * K, m, k,
+            zero_init=kw.get("zero_init", False),
+            fast=kw.get("fast", False),
+            cheby="omegas" in kw and kw.get("first", 0) > 0,
+            damp=fn is cs.smooth_block), 1, label, JAC_BLOCK, fn, plain,
+            *((b,) if b is not None else ()), x, rhs, o, K=K, sweeps=sweeps,
+            **geo, **kw)
+        return check
+
+    jac = chunk("jacobi_block_sweeps", K, cs.fused_jacobi_block,
+                cs.fused_jacobi_block_plain, 1, ext(t.x, o, K),
+                ext(t.x0, o, K), K, alpha=av, beta=bv)
+    jac.counterpart = functools.partial(
+        cs.fused_jacobi_slab, 1, slab.ext(slab.x, i, K),
+        slab.ext(slab.x0, i, K), fl, m=sm, K=K, alpha=av, beta=bv, sweeps=K)
+    ws = cheby_omegas(rho, k_d)
+    cheb = chunk(f"fused_jacobi_block chebyshev+fast chained chunk "
+                 f"({k_d - K} of {k_d}it)", k_d - K, cs.fused_jacobi_block,
+                 cs.fused_jacobi_block_plain, 1, ext(t.x, o, K),
+                 ext(t.x0, o, K), K, alpha=av, beta=bv, fast=True,
+                 omegas=ws, first=K, xm_ext=ext(t.p, o, K))
+    smooth = chunk("smooth_block 2 sweeps", 2, cs.smooth_block,
+                   cs.smooth_block_plain, None, ext(t.p, o, 2),
+                   ext(t.x0, o, 2), 2)
+
+    def gather(bufs, buf_origin, window):
+        """The block's departure points (in the window or exact) in the
+        cells of ``bufs``, whose cell (0, 0) is global ``buf_origin``."""
+        def run():
+            cols_ = torch.arange(o[1], o[1] + k, dtype=torch.float32,
+                                 device=t.u.device)[None, :]
+            rows_ = torch.arange(o[0], o[0] + m, dtype=torch.float32,
+                                 device=t.u.device)[:, None]
+            x, y = departure(blk(t.u, o), blk(t.v, o), cols_, rows_, DT, n,
+                             window)
+            return list(bufs), (x - buf_origin[1], y - buf_origin[0])
+        return run
+
+    win = _timed(_scaled(ADVECT2_PAIR, cells), 1, "advect_block",
+                 ("advect_block",), cs.advect_block, cs.advect_block_plain,
+                 (1, 2), (ext(t.u, o, C), ext(t.v, o, C)), None, None, o,
+                 dt=DT, cmax=cmax, self_adv=True, **geo)
+    win.gather = gather((ext(t.u, o, C), ext(t.v, o, C)), (-C, k - C),
+                        cmax)
+    win.counterpart = functools.partial(
+        cs.advect_slab, (1, 2), (slab.ext(slab.u, i, C),
+                                 slab.ext(slab.v, i, C)), None, None, fl,
+        dt=DT, n=n, cmax=cmax, m=sm, self_adv=True)
+    exact = _timed(_scaled(ADVECT2_PAIR, cells), 1, "advect_block_exact",
+                   ("advect_block_exact",), cs.advect_block_exact,
+                   cs.advect_block_exact_plain, (1, 2), (t.u, t.v), None,
+                   None, o, dt=DT, self_adv=True, **geo)
+    exact.gather = gather((t.u, t.v), (0, 0), None)
+    exact.counterpart = functools.partial(
+        cs.advect_slab_exact, (1, 2), (slab.u, slab.v), None, None, fl,
+        dt=DT, n=n, m=sm, self_adv=True)
+    div = _timed(_scaled(DIV2, cells), 1, "divergence_block",
+                 ("divergence_block",), cs.divergence_block,
+                 cs.divergence_block_plain, blk(t.u, o), blk(t.v, o),
+                 t.halos(t.u, o), t.halos(t.v, o), o, n)
+    div.counterpart = functools.partial(
+        cs.divergence_slab, slab.slab(slab.u, i), slab.slab(slab.v, i),
+        *slab.halo(slab.v, i), fl, n)
+    grad = _timed(_scaled(GRAD2, cells), 1, "gradient_block",
+                  ("gradient_block",), cs.gradient_block,
+                  cs.gradient_block_plain, blk(t.u, o), blk(t.v, o),
+                  blk(t.p, o), t.halos(t.p, o), o, n)
+    grad.counterpart = functools.partial(
+        cs.gradient_slab, slab.slab(slab.u, i), slab.slab(slab.v, i),
+        slab.slab(slab.p, i), *slab.halo(slab.p, i), fl, n)
+    return [jac, win, exact, div, grad, cheb, smooth]
 
 
 JAC3_SLAB = ("jacobi3_slab_sweeps",)

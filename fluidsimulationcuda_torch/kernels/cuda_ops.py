@@ -120,7 +120,8 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi3_slab_sweeps", "jacobi_slab_sweeps", "jacobi_sweeps_damp",
            "jacobi_slab_sweeps_damp_group",
            "jacobi_slab_sweeps_split", "advect_slab_exact",
-           "advect3_slab_exact")
+           "advect3_slab_exact", "jacobi_block_sweeps", "advect_block",
+           "advect_block_exact", "divergence_block", "gradient_block")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).

@@ -1,6 +1,7 @@
-"""The row-slab kernels of the multi-device step: one wrapper per TPU
-function of ``fluidsimulationcuda_tpu.kernels.pallas_sharded``, each beside
-its plain PyTorch twin.
+"""The kernels of the multi-device 2-D step: on row slabs, one wrapper per
+TPU function of ``fluidsimulationcuda_tpu.kernels.pallas_sharded``; on the
+(px, py) blocks of the block route, the four block forms (below); each
+beside its plain PyTorch twin.
 
 A slab is a band of ``m`` full-width rows of the padded global grid, global
 row ``row0 + r`` at slab row ``r``.  An extended slab ``(m + 2K, side)``
@@ -53,6 +54,20 @@ the exact gather (a second form of K12) of the slab route:
   (``_mg_smooth_local``, ``parallel/sharded.py:477``), a smooth in one
   launch where JAX exchanges a one-row halo a sweep.
 
+The block route (JAX's jnp ``_step_local``; no pallas_call behind it) runs
+four more, each a form of a slab kernel on an (m, k) block at global
+origin (r0, c0) (the section "The block route" below):
+
+- ``jacobi_block_sweeps`` (K9-block, ``csrc/jacobi_tiles.cu``): a chunk
+  of a block solve on the extended block, the tiled K9's body on
+  ``BlockTiles``: ``fused_jacobi_block`` (Jacobi, fast, Chebyshev with
+  x_{k-1} in and out) and ``smooth_block`` (the damped form);
+- ``advect_block`` and ``advect_block_exact`` (K12-block,
+  ``csrc/advect_slab.cu``): the windowed gather from a ``cmax+1``-deep
+  2-D halo and the exact one from the assembled fields;
+- ``divergence_block`` (K10-block) and ``gradient_block`` (K11-block),
+  ``csrc/project_slab.cu``, with one-cell 2-D halos.
+
 Each result equals the global operation restricted to the slab while the
 halos are deep enough: ``K >= sweeps`` for the sweeps, ``K >= iters + 1``
 for the projection, ``K >= iters + cmax + 1`` for the density step and
@@ -84,7 +99,11 @@ __all__ = [
     "advect_slab_exact_plain", "divergence_slab",
     "divergence_slab_plain", "gradient_slab", "gradient_slab_plain",
     "fused_jacobi_slab_split", "fused_jacobi_slab_split_plain",
-    "jacobi_slab_split_viable",
+    "jacobi_slab_split_viable", "fused_jacobi_block",
+    "fused_jacobi_block_plain", "smooth_block", "smooth_block_plain",
+    "advect_block", "advect_block_plain", "advect_block_exact",
+    "advect_block_exact_plain", "divergence_block", "divergence_block_plain",
+    "gradient_block", "gradient_block_plain",
 ]
 
 
@@ -831,4 +850,435 @@ def gradient_slab(u, v, p, ptop, pbot, flags, n):
                    v.data_ptr(), p.data_ptr(), ptop.data_ptr(),
                    pbot.data_ptr(), uo.data_ptr(), vo.data_ptr(), m, side,
                    *_wall_rows(flags, 0, m), grid_h(n), co._stream(u))
+        return uo, vo
+
+
+# ---------------------------------------------------------------------------
+# The block route: K9-block, K12-block, K10-block, K11-block
+# ---------------------------------------------------------------------------
+#
+# A block is the (m, k) part of the padded global grid at global origin
+# ``origin = (r0, c0)``: block cell (r, c) is global cell (r0 + r, c0 + c).
+# An extended block (m + 2K, k + 2K) adds K rows and columns on every side
+# (``parallel.mesh.Blocks.ext``: the neighbours' cells, corners included,
+# zeros beyond a wall), block cell (r, c) at ext cell (K + r, K + c).  A
+# global ghost cell inside a block takes the border rule of its interior
+# neighbour, which lies in the same block (blocks are at least 2 x 2), and
+# the corners of the grid the rule of the edges just written (JAX's
+# ``_apply_bnd_coords``).  JAX computes the block route in jnp
+# (``parallel/sharded.py:45-595`` there); no pallas_call stands behind
+# these four kernels.
+
+
+def _block_bnd(b: int, x: torch.Tensor, r0: int, c0: int,
+               n: int) -> torch.Tensor:
+    """JAX's ``_apply_bnd_coords`` on a buffer whose cell (0, 0) is global
+    cell (r0, c0), in place: the ghost columns and rows of the grid that
+    fall inside it mirror their interior neighbour on the interior rows
+    and columns, then each grid corner inside it averages the two edge
+    cells next to it.  A ghost line on the buffer's rim, whose neighbour
+    lies outside, is left as it is (a halo cell no kept cell reads)."""
+    rows, cols = x.shape
+    sx, sy = _signs(b)
+
+    def at(g: int, lo: int, size: int) -> int | None:
+        i = g - lo
+        return i if 0 <= i < size else None
+
+    ri = slice(min(max(1 - r0, 0), rows), max(min(n + 1 - r0, rows), 0))
+    ci = slice(min(max(1 - c0, 0), cols), max(min(n + 1 - c0, cols), 0))
+    for g, d in ((0, 1), (n + 1, -1)):
+        c = at(g, c0, cols)
+        if c is not None and 0 <= c + d < cols:
+            x[ri, c] = sx * x[ri, c + d]
+    for g, d in ((0, 1), (n + 1, -1)):
+        r = at(g, r0, rows)
+        if r is not None and 0 <= r + d < rows:
+            x[r, ci] = sy * x[r + d, ci]
+    for gr, dr in ((0, 1), (n + 1, -1)):
+        for gc, dc in ((0, 1), (n + 1, -1)):
+            r, c = at(gr, r0, rows), at(gc, c0, cols)
+            if (r is not None and c is not None and 0 <= r + dr < rows
+                    and 0 <= c + dc < cols):
+                x[r, c] = 0.5 * (x[r, c + dc] + x[r + dr, c])
+    return x
+
+
+def _block_interior(rows: int, cols: int, r0: int, c0: int, n: int,
+                    device) -> torch.Tensor:
+    """The cells of a (rows, cols) buffer at global origin (r0, c0) that
+    are global interior cells, rows and columns 1..n."""
+    gr = torch.arange(r0, r0 + rows, device=device)[:, None]
+    gc = torch.arange(c0, c0 + cols, device=device)[None, :]
+    return (gr >= 1) & (gr <= n) & (gc >= 1) & (gc <= n)
+
+
+def _block_sweeps_plain(b, x, rhs, r0, c0, n, alpha, beta, sweeps, *,
+                        zero_init=False, fast=False, omegas=None, first=0,
+                        xm=None, damp=None):
+    """JAX's ``_diffuse_local`` / ``_cheby_diffuse_local`` chunk on an
+    extended block buffer at global origin (r0, c0): ``sweeps`` sweeps of
+    the buffer's inner cells, each kept at the global interior cells, then
+    the border rule (``_block_bnd``).  ``omegas`` (the whole solve's
+    ``cheby_omegas``) makes the sweeps Chebyshev sweeps ``first`` to
+    ``first + sweeps - 1`` of their solve, combined with x_{k-1} (``xm``;
+    sweep 0 of the solve is plain and sweep 1 reads x_0), ``fast`` the
+    reciprocal form with one rounding as ``fmaf`` (``cuda_ops._fma_diffuse``),
+    ``damp`` damped Jacobi (``ops.multigrid._smooth``).  Returns (x, x_{k-1})."""
+    rows, cols = rhs.shape
+    if zero_init:
+        x = torch.zeros_like(rhs)
+    keep = _block_interior(rows, cols, r0, c0, n, rhs.device)[1:-1, 1:-1]
+    if fast:
+        rhs = rhs * (1.0 / beta)
+        ab = co._f32(alpha / beta)
+    a, bt = as_scalar(alpha, rhs), as_scalar(beta, rhs)
+    rhs_in = rhs[1:-1, 1:-1]
+    if damp is not None:
+        wd, omw = as_scalar(damp, rhs), as_scalar(1.0 - damp, rhs)
+    if first == 0:
+        xm = x
+    for j in range(first, first + sweeps):
+        neigh = ((x[1:-1, :-2] + x[1:-1, 2:]) + x[:-2, 1:-1]) + x[2:, 1:-1]
+        if fast:
+            val = (rhs_in.double() + ab * neigh.double()).float()
+        else:
+            val = (rhs_in + a * neigh) / bt
+        if damp is not None:
+            val = omw * x[1:-1, 1:-1] + wd * val
+        if omegas is not None and j >= 1:
+            wc = as_scalar(omegas[j - 1], rhs)
+            val = wc * val + (1.0 - wc) * xm[1:-1, 1:-1]
+        new = x.clone()
+        new[1:-1, 1:-1] = torch.where(keep, val, x[1:-1, 1:-1])
+        _block_bnd(b, new, r0, c0, n)
+        xm, x = x, new
+    return x, xm
+
+
+def _block_checks(x_ext, rhs_ext, xm_ext, origin, n, m, k, K,
+                  sweeps) -> bool:
+    r0, c0 = origin
+    _require(sweeps >= 1, "sweeps must be >= 1")
+    _require(K >= sweeps, f"a {K}-deep halo is valid for at most {K} "
+             f"sweeps, got {sweeps}")
+    _require(m >= 2 and k >= 2 and 0 <= r0 and r0 + m <= n + 2
+             and 0 <= c0 and c0 + k <= n + 2,
+             f"an {m} x {k} block at {origin} is not inside the "
+             f"{n + 2}-cell grid (blocks are at least 2 x 2)")
+    ext = (m + 2 * K, k + 2 * K)
+    if ext[0] * ext[1] >= 2**31:
+        raise ValueError(f"unsupported block buffer {ext}")
+    return co._on_device(*((t, ext) for t in (rhs_ext, x_ext, xm_ext)
+                           if t is not None))
+
+
+def fused_jacobi_block_plain(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha,
+                             beta, sweeps, zero_init=False, fast=False,
+                             omegas=None, first=0, xm_ext=None):
+    _block_checks(None if zero_init else x_ext, rhs_ext, xm_ext, origin, n,
+                  m, k, K, sweeps)
+    r0, c0 = origin
+    x, xm = _block_sweeps_plain(b, x_ext, rhs_ext, r0 - K, c0 - K, n, alpha,
+                                beta, sweeps, zero_init=zero_init, fast=fast,
+                                omegas=omegas, first=first, xm=xm_ext)
+    x = x[K:K + m, K:K + k]
+    return x if omegas is None else (x, xm[K:K + m, K:K + k])
+
+
+def fused_jacobi_block(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha, beta,
+                       sweeps, zero_init=False, fast=False, omegas=None,
+                       first=0, xm_ext=None):
+    """``sweeps`` Jacobi sweeps of one chunk of a block solve (JAX's
+    ``_diffuse_local`` chunk) on the ``(m+2K, k+2K)`` extended block
+    ``x_ext`` (ignored with ``zero_init``: the zero guess) with the
+    extended rhs ``rhs_ext``, at global origin ``origin`` of the block;
+    ``fast`` takes the reciprocal form (the rhs pre-scaled in the launch).
+    With ``omegas`` (the solve's ``cheby_omegas``) the chunk runs sweeps
+    ``first`` .. ``first + sweeps - 1`` of a Chebyshev solve (JAX's
+    ``_cheby_diffuse_local``): sweep 0 is plain and its x_0 is x_{-1}, a
+    later chunk combines with ``xm_ext``, the extended x_{k-1} the chunk
+    before it returned.  One K9-block launch (``jacobi_block_sweeps``);
+    returns the (m, k) block, with ``omegas`` (x_k, x_{k-1})."""
+    _require(omegas is None or first == 0 or xm_ext is not None,
+             "a Chebyshev chunk after the first takes x_{k-1} (xm_ext)")
+    if not _block_checks(None if zero_init else x_ext, rhs_ext, xm_ext,
+                         origin, n, m, k, K, sweeps):
+        return fused_jacobi_block_plain(
+            b, x_ext, rhs_ext, origin, n=n, m=m, k=k, K=K, alpha=alpha,
+            beta=beta, sweeps=sweeps, zero_init=zero_init, fast=fast,
+            omegas=omegas, first=first, xm_ext=xm_ext)
+    flags = ((co._PREP | co._FAST) if fast else 0) | (
+        co._CHEBY if omegas is not None else 0)
+    ws = [co._f32(omegas[j - 1]) if omegas is not None and j >= 1 else 0.0
+          for j in range(first, first + sweeps)]
+    out = _launch_block(b, None if zero_init else x_ext, rhs_ext,
+                        xm_ext if first > 0 else None, origin, n, m, k, K,
+                        alpha, beta, sweeps, flags, first, ws,
+                        omegas is not None)
+    return out if omegas is not None else out[0]
+
+
+def smooth_block_plain(p_ext, div_ext, origin, *, n, m, k, K, sweeps,
+                       zero_init=False):
+    _block_checks(None if zero_init else p_ext, div_ext, None, origin, n, m,
+                  k, K, sweeps)
+    r0, c0 = origin
+    x, _ = _block_sweeps_plain(0, p_ext, div_ext, r0 - K, c0 - K, n, 1.0, 4.0,
+                               sweeps, zero_init=zero_init, damp=OMEGA)
+    return x[K:K + m, K:K + k]
+
+
+def smooth_block(p_ext, div_ext, origin, *, n, m, k, K, sweeps,
+                 zero_init=False):
+    """``sweeps`` damped sweeps of the pressure problem (b=0, alpha=1,
+    beta=4, w = ``ops.multigrid.OMEGA``; JAX's ``_mg_smooth_local``, one
+    one-cell exchange a sweep there) on the ``(m+2K, k+2K)`` extended
+    block ``p_ext`` (ignored with ``zero_init``) with rhs ``div_ext``:
+    K9-block's damped form, one launch; returns the (m, k) block."""
+    if not _block_checks(None if zero_init else p_ext, div_ext, None,
+                         origin, n, m, k, K, sweeps):
+        return smooth_block_plain(p_ext, div_ext, origin, n=n, m=m, k=k, K=K,
+                                  sweeps=sweeps, zero_init=zero_init)
+    return _launch_block(0, None if zero_init else p_ext, div_ext, None,
+                         origin, n, m, k, K, 1.0, 4.0, sweeps, co._DAMP, 0,
+                         [0.0] * sweeps, False)[0]
+
+
+def _block_tile(rows: int, cols: int) -> int:
+    """The tiled K9's tile rows for a block buffer: ``cuda_ops``'s
+    ``SLAB_TILINGS`` by the buffer's cells (64 rows from 2 M cells, else
+    32), or what ``launch_sweeps(t, tile_rows=h)`` forces."""
+    if co._forced_tile is not None:
+        return co._forced_tile
+    return next(tile for least, _, tile in co.SLAB_TILINGS
+                if rows * cols >= least)
+
+
+def _launch_block(b, x_ext, rhs_ext, xm_ext, origin, n, m, k, K, alpha,
+                  beta, sweeps, flags, first, ws, cheby):
+    """One K9-block launch: (x, x_{k-1} or None) of the (m, k) block."""
+    r0, c0 = origin
+    rows, cols = m + 2 * K, k + 2 * K
+    with torch.cuda.device(rhs_ext.device):
+        lib = build.load()
+        out = rhs_ext.new_empty((m, k))
+        xm_out = rhs_ext.new_empty((m, k)) if cheby else None
+        omegas = (ctypes.c_float * sweeps)(*ws)
+        damp = flags & co._DAMP
+        co._launch("jacobi_block_sweeps", lib.fsc_jacobi_block_sweeps,
+                   co._ptr(x_ext), rhs_ext.data_ptr(), co._ptr(xm_ext),
+                   out.data_ptr(), co._ptr(xm_out), rows, cols, K, m, k,
+                   r0 - K, c0 - K, n, b, co._f32(alpha), co._f32(beta),
+                   co._f32(alpha / beta), co._f32(1.0 / beta),
+                   co._f32(OMEGA) if damp else 0.0,
+                   co._f32(1.0 - OMEGA) if damp else 0.0,
+                   ctypes.addressof(omegas), flags, first, sweeps,
+                   _block_tile(rows, cols), co._stream(rhs_ext))
+        return out, xm_out
+
+
+def _advect_block_plain(bs, bufs, buf_origin, u, v, origin, dt, n, cmax):
+    """The gather (windowed with ``cmax``, exact with None) of each field
+    of ``bufs`` (cell (0, 0) at global ``buf_origin``) at the cells of the
+    (m, k) block at ``origin``, then the border rule."""
+    r0, c0 = origin
+    m, k = u.shape
+    gr = torch.arange(r0, r0 + m, dtype=torch.float32,
+                      device=u.device)[:, None]
+    gc = torch.arange(c0, c0 + k, dtype=torch.float32, device=u.device)[None]
+    x, y = departure(u, v, gc, gr, dt, n, cmax)
+    return tuple(_block_bnd(b, bilinear(f, x, y, *buf_origin), r0, c0, n)
+                 for b, f in zip(bs, bufs))
+
+
+def _advect_block_args(bs, bufs, u, v, origin, n, m, k, halo, self_adv):
+    """(bs, bufs, u, v, on_card) after the checks; ``halo`` None for the
+    assembled (side, side) fields.  With ``self_adv`` u and v are the
+    block's cells of the two fields, views into them (row stride the
+    buffer's width)."""
+    bs, bufs = tuple(bs), tuple(bufs)
+    r0, c0 = origin
+    _require(len(bs) == len(bufs) and len(bs) in (1, 2),
+             "a block gather takes one or two fields")
+    _require(m >= 2 and k >= 2 and 0 <= r0 and r0 + m <= n + 2
+             and 0 <= c0 and c0 + k <= n + 2,
+             f"an {m} x {k} block at {origin} is not inside the "
+             f"{n + 2}-cell grid (blocks are at least 2 x 2)")
+    shape = ((n + 2, n + 2) if halo is None
+             else (m + 2 * halo, k + 2 * halo))
+    if shape[0] * shape[1] >= 2**31:
+        raise ValueError(f"unsupported block buffer {shape}")
+    specs = [(f, shape) for f in bufs]
+    if self_adv:
+        _require(len(bs) == 2, "self_adv advects the (u, v) pair")
+        at = (r0, c0) if halo is None else (halo, halo)
+        u, v = (f[at[0]:at[0] + m, at[1]:at[1] + k] for f in bufs)
+    else:
+        specs += [(u, (m, k)), (v, (m, k))]
+    return bs, bufs, u, v, co._on_device(*specs)
+
+
+def advect_block_plain(bs, exts, u_block, v_block, origin, *, dt, n, cmax,
+                       m, k, self_adv):
+    halo = (exts[0].shape[0] - m) // 2
+    bs, exts, u, v, _ = _advect_block_args(bs, exts, u_block, v_block,
+                                           origin, n, m, k, halo, self_adv)
+    _require(halo >= cmax + 1, f"the gather needs a halo of cmax+1 = "
+             f"{cmax + 1}, got {halo}")
+    r0, c0 = origin
+    return _advect_block_plain(bs, exts, (r0 - halo, c0 - halo), u, v,
+                               origin, dt, n, cmax)
+
+
+def advect_block(bs, exts, u_block, v_block, origin, *, dt, n, cmax, m, k,
+                 self_adv):
+    """Windowed advection of one or two fields of the (m, k) block at
+    ``origin`` from their extended copies ``exts`` (``(m + 2*halo, k +
+    2*halo)``, ``halo >= cmax+1``; JAX's ``_advect_local_windowed``, whose
+    (2*cmax+1)² masked shifts read what one gather reads after the window
+    clamp).  ``u_block``/``v_block`` are the (m, k) velocity blocks,
+    ignored with ``self_adv`` (the u/v pair, one shared backtrace).  One
+    K12-block launch; returns a tuple of (m, k) blocks."""
+    halo = (exts[0].shape[0] - m) // 2
+    bs, exts, u, v, on_card = _advect_block_args(
+        bs, exts, u_block, v_block, origin, n, m, k, halo, self_adv)
+    _require(halo >= cmax + 1 and exts[0].shape[0] == m + 2 * halo,
+             f"the gather needs a halo of cmax+1 = {cmax + 1}, got {halo}")
+    r0, c0 = origin
+    if not on_card:
+        return _advect_block_plain(bs, exts, (r0 - halo, c0 - halo), u, v,
+                                   origin, dt, n, cmax)
+    return _launch_advect_block("advect_block", bs, exts, u, v, origin, n, m,
+                                k, halo, dt, cmax)
+
+
+def advect_block_exact_plain(bs, fulls, u_block, v_block, origin, *, dt, n,
+                             m, k, self_adv):
+    bs, fulls, u, v, _ = _advect_block_args(bs, fulls, u_block, v_block,
+                                            origin, n, m, k, None, self_adv)
+    return _advect_block_plain(bs, fulls, (0, 0), u, v, origin, dt, n, None)
+
+
+def advect_block_exact(bs, fulls, u_block, v_block, origin, *, dt, n, m, k,
+                       self_adv):
+    """Exact advection of one or two fields of the (m, k) block at
+    ``origin``, gathered from the assembled (side, side) fields ``fulls``
+    at global coordinates (JAX's ``_advect_local``, after its all-gather):
+    any displacement gathers as the single-device step does.
+    ``u_block``/``v_block`` as ``advect_block``'s.  One launch of
+    K12-block's exact form; returns a tuple of (m, k) blocks."""
+    bs, fulls, u, v, on_card = _advect_block_args(
+        bs, fulls, u_block, v_block, origin, n, m, k, None, self_adv)
+    if not on_card:
+        return _advect_block_plain(bs, fulls, (0, 0), u, v, origin, dt, n,
+                                   None)
+    return _launch_advect_block("advect_block_exact", bs, fulls, u, v,
+                                origin, n, m, k, 0, dt, 0)
+
+
+def _launch_advect_block(name, bs, bufs, u, v, origin, n, m, k, halo, dt,
+                         cmax):
+    """One K12-block launch; u and v may be views with a row stride (the
+    u/v pair's own cells in its buffers)."""
+    r0, c0 = origin
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        outs = tuple(u.new_empty((m, k)) for _ in bs)
+        d2, o2, b2 = ((bufs[1], outs[1], bs[1]) if len(bs) == 2
+                      else (None, None, 0))
+        exact = name == "advect_block_exact"
+        co._launch(name, getattr(lib, f"fsc_{name}"), bufs[0].data_ptr(),
+                   co._ptr(d2), u.data_ptr(), v.data_ptr(), u.stride(0),
+                   outs[0].data_ptr(), co._ptr(o2), m, k, n, r0, c0,
+                   *(() if exact else (halo, cmax)), bs[0], b2,
+                   co._dt0(dt, n), co._stream(u))
+        return outs
+
+
+def _ext1(x: torch.Tensor, halos) -> torch.Tensor:
+    """JAX's ``_extend``: the (m+2, k+2) block with its one-deep halos
+    (zeros where None and at the four corner cells, which the 5-point
+    stencil never reads)."""
+    top, bot, left, right = halos
+    m, k = x.shape
+    out = x.new_zeros((m + 2, k + 2))
+    out[1:-1, 1:-1] = x
+    for sl, h in (((0, slice(1, -1)), top), ((-1, slice(1, -1)), bot),
+                  ((slice(1, -1), 0), left), ((slice(1, -1), -1), right)):
+        if h is not None:
+            out[sl] = h.reshape(-1)
+    return out
+
+
+def _halo_checks_block(x, halos, origin, n) -> list:
+    """Each halo of a block (top, bottom: (1, k); left, right: (m,)), None
+    only beyond a global wall; returns the specs of those given."""
+    m, k = x.shape
+    r0, c0 = origin
+    walls = (r0 == 0, r0 + m == n + 2, c0 == 0, c0 + k == n + 2)
+    shapes = ((1, k), (1, k), (m,), (m,))
+    specs = []
+    for h, wall, shape in zip(halos, walls, shapes):
+        _require(h is not None or wall,
+                 "a block's halo may be None only beyond a wall")
+        if h is not None:
+            specs.append((h, shape))
+    return specs
+
+
+def divergence_block_plain(u, v, u_halos, v_halos, origin, n):
+    ue, ve = _ext1(u, u_halos), _ext1(v, v_halos)
+    d = (-0.5 * grid_h(n)) * ((ue[1:-1, 2:] - ue[1:-1, :-2])
+                              + (ve[2:, 1:-1] - ve[:-2, 1:-1]))
+    return _block_bnd(0, d, *origin, n)
+
+
+def divergence_block(u, v, u_halos, v_halos, origin, n):
+    """JAX's ``_divergence_local`` on the (m, k) block at ``origin``:
+    ``(-0.5*h)*((u_r - u_l) + (v_dn - v_up))``, border mode 0, its
+    neighbour cells from the one-deep halos (``parallel.mesh.Blocks.halos``:
+    (top, bottom, left, right); the divergence reads u's columns and v's
+    rows).  One K10-block launch."""
+    m, k = u.shape
+    specs = (_halo_checks_block(u, u_halos, origin, n)[2:]
+             + _halo_checks_block(v, v_halos, origin, n)[:2])
+    if not co._on_device((u, (m, k)), (v, (m, k)), *specs):
+        return divergence_block_plain(u, v, u_halos, v_halos, origin, n)
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        out = torch.empty_like(u)
+        co._launch("divergence_block", lib.fsc_divergence_block,
+                   u.data_ptr(), v.data_ptr(), co._ptr(u_halos[2]),
+                   co._ptr(u_halos[3]), co._ptr(v_halos[0]),
+                   co._ptr(v_halos[1]), out.data_ptr(), m, k, n, *origin,
+                   -0.5 * grid_h(n), co._stream(u))
+        return out
+
+
+def gradient_block_plain(u, v, p, p_halos, origin, n):
+    pe = _ext1(p, p_halos)
+    h = as_scalar(grid_h(n), u)
+    uo = u - (0.5 * (pe[1:-1, 2:] - pe[1:-1, :-2])) / h
+    vo = v - (0.5 * (pe[2:, 1:-1] - pe[:-2, 1:-1])) / h
+    return _block_bnd(1, uo, *origin, n), _block_bnd(2, vo, *origin, n)
+
+
+def gradient_block(u, v, p, p_halos, origin, n):
+    """JAX's ``_gradient_local`` on the (m, k) block at ``origin``: ``u -
+    (0.5*dp/dx)/h``, ``v - (0.5*dp/dy)/h``, border modes 1 and 2, p's
+    neighbour cells from its one-deep halos.  One K11-block launch;
+    returns the (u, v) blocks."""
+    m, k = u.shape
+    specs = _halo_checks_block(p, p_halos, origin, n)
+    if not co._on_device((u, (m, k)), (v, (m, k)), (p, (m, k)), *specs):
+        return gradient_block_plain(u, v, p, p_halos, origin, n)
+    with torch.cuda.device(u.device):
+        lib = build.load()
+        uo = torch.empty_like(u)
+        vo = torch.empty_like(v)
+        co._launch("gradient_block", lib.fsc_gradient_block, u.data_ptr(),
+                   v.data_ptr(), p.data_ptr(), *map(co._ptr, p_halos),
+                   uo.data_ptr(), vo.data_ptr(), m, k, n, *origin,
+                   grid_h(n), co._stream(u))
         return uo, vo

@@ -11,7 +11,9 @@ backend takes ``ops.advect.advect_windowed`` then, and its Pallas backend
 always gathers so).  The multigrid smoother is ``ops.multigrid._smooth`` on
 ``reference`` and K1's damped sweep on ``cuda``.
 
-``get_ops`` returns the single-device step's ``OpSet``, ``get_slab_ops``
+``get_ops`` returns the single-device step's ``OpSet``, ``get_block_ops``
+the block route's ``BlockOpSet`` (``kernels/cuda_sharded.py``: K9-block,
+K12-block, K10-block and K11-block, or their plain twins), ``get_slab_ops``
 the multi-device step's ``SlabOpSet`` (``kernels/cuda_sharded.py``: the
 row-slab kernels or their plain twins; the slab multigrid smooths its fine
 level with the SlabOpSet's ``smooth``, the grouped K9-damp or its plain
@@ -41,8 +43,8 @@ from ..ops.project import (
 )
 from ..ops.source import add_source
 
-__all__ = ["OpSet", "SlabOpSet", "Slab3OpSet", "get_ops", "get_slab_ops",
-           "get_slab3_ops"]
+__all__ = ["OpSet", "SlabOpSet", "Slab3OpSet", "BlockOpSet", "get_ops",
+           "get_slab_ops", "get_slab3_ops", "get_block_ops"]
 
 
 class OpSet(NamedTuple):
@@ -167,6 +169,43 @@ def get_slab_ops(cfg: SimConfig) -> SlabOpSet:
                          cs.advect_slab_exact, cs.divergence_slab,
                          cs.gradient_slab, cs.smooth_slabs,
                          fast=cfg.fast_math)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+class BlockOpSet(NamedTuple):
+    """The per-block operations of the block route (``parallel/sharded.py``,
+    ``_BlockStep``), with the signatures of ``kernels/cuda_sharded.py``:
+    ``jacobi`` a chunk of a Jacobi or Chebyshev block solve, ``smooth``
+    the multigrid's damped chunk, ``advect`` the windowed gather,
+    ``advect_exact`` the exact one from the assembled fields, and whether
+    this backend honours ``fast_math`` (the ``reference`` backend ignores
+    it, as the JAX package's does)."""
+
+    jacobi: Callable
+    smooth: Callable
+    advect: Callable
+    advect_exact: Callable
+    divergence: Callable
+    gradient: Callable
+    fast: bool
+
+
+def get_block_ops(cfg: SimConfig) -> BlockOpSet:
+    """The block kernels (``cuda``) or their plain twins (``reference``),
+    chosen once from ``cfg.resolved_backend``."""
+    from . import cuda_sharded as cs
+
+    backend = cfg.resolved_backend
+    if backend == "reference":
+        return BlockOpSet(cs.fused_jacobi_block_plain, cs.smooth_block_plain,
+                          cs.advect_block_plain, cs.advect_block_exact_plain,
+                          cs.divergence_block_plain, cs.gradient_block_plain,
+                          fast=False)
+    if backend == "cuda":
+        return BlockOpSet(cs.fused_jacobi_block, cs.smooth_block,
+                          cs.advect_block, cs.advect_block_exact,
+                          cs.divergence_block, cs.gradient_block,
+                          fast=cfg.fast_math)
     raise ValueError(f"unknown backend {backend!r}")
 
 

@@ -57,10 +57,11 @@ def backtrace(u: torch.Tensor, v: torch.Tensor, dt: float, n: int,
 
 
 def bilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-             row0: int = 0) -> torch.Tensor:
+             row0: int = 0, col0: int = 0) -> torch.Tensor:
     """Bilinear gather of ``d0`` at departure points (x, y) in the
     reference's blend order (the clamp makes trunc == floor); global row
-    ``i`` is row ``i - row0`` of ``d0``.  Leading axes of ``d0`` are a batch
+    ``i`` is row ``i - row0`` of ``d0``, global column ``j`` its column
+    ``j - col0``.  Leading axes of ``d0`` are a batch
     of grids: the points of grid ``g`` (the same leading index of x and y)
     gather from grid ``g`` alone.  The blend runs in float32 whatever
     ``d0`` stores, and the result is rounded to ``d0``'s dtype (JAX
@@ -74,7 +75,7 @@ def bilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
     side = d0.shape[-1]
     flat = d0.reshape(-1)
-    base = ((i0 - row0) * side + j0).to(torch.int64)
+    base = ((i0 - row0) * side + (j0 - col0)).to(torch.int64)
     if d0.dim() > 2:
         # Each grid's flat offset, g * rows * side, broadcast over its points.
         grids = torch.arange(math.prod(d0.shape[:-2]), device=d0.device)

@@ -1,29 +1,34 @@
-"""The multi-device step on row slabs (PyTorch twin of the slab route of
-``fluidsimulationcuda_tpu.parallel.sharded``: ``make_sharded_step_fn``
-with ``shard_backend="pallas"``, whose per-shard program is
-``_step_local_pallas``).
+"""The multi-device 2-D step (PyTorch twin of
+``fluidsimulationcuda_tpu.parallel.sharded``), on either of JAX's two
+per-shard programs: the slab route (``shard_backend="pallas"`` there,
+``_step_local_pallas``) on row slabs, and the block route (its jnp
+``_step_local``) on the (px, py) blocks of a 2-D mesh.
 
-The padded (side, side) grid is cut into ``px`` slabs of ``m = side/px``
-full-width rows, slab ``i`` on mesh device ``i``.  One process drives every
-slab: before each slab kernel call it builds the slab's extended copy from
-the neighbouring slabs' edge rows (``.to(device)`` where the devices
-differ; zeros beyond a wall) and calls the slab function of
+One process drives every part: before each kernel call it builds the
+part's halo from its neighbours' edge cells (``.to(device)`` where the
+devices differ; zeros beyond a wall) and calls the slab function of
 ``kernels/cuda_sharded.py`` with the slab's ``(is_top, is_bot, row0)``
-flags.  Torch has no global sharded array, so ``shard_state`` splits a
-state into slabs and ``unshard`` stitches them back.
+flags, or the block function with the block's global origin ``(r0,
+c0)``.  Torch has no global sharded array: ``shard_state`` splits a state
+into row slabs, ``shard_blocks`` into the blocks of a mesh, and
+``unshard`` stitches either back.
 
-The composition, margins and route gates are JAX's, so a given
-``(m, iters, cmax)`` takes the same route in both packages:
+The slab route.  The padded (side, side) grid is cut into ``px`` slabs of
+``m = side/px`` full-width rows, slab ``i`` on mesh device ``i``.  The
+composition, margins and route gates are JAX's, so a given ``(m, iters,
+cmax)`` takes the same route in both packages:
 
 - sources folded as ``state + dt*src``, then u and v diffused in Jacobi
   chunks of ``fuse = cfg.fuse_sweeps or 20`` sweeps (halo
   ``ceil8(s+1)`` per chunk, the rhs built once and exchanged per chunk), or
-  as one-call Chebyshev solves (halo ``ceil8(iters+1)``);
+  as one-call Chebyshev solves (halo ``ceil8(iters+1)``; where that halo
+  is deeper than a slab, JAX's jnp fallback: the block route's chunked
+  Chebyshev on the (px, 1) blocks, which are the slabs);
 - the projection fused (one ``ceil8(iters+3)``-row u/v exchange) for a
   Jacobi or Chebyshev pressure solve whose halo fits a slab, else
   composed: divergence, the pressure solve (Jacobi chunks from zero, one
-  Chebyshev call, or the slab multigrid or CG of ``parallel/solvers.py``)
-  and gradient, each stencil with a one-row halo;
+  Chebyshev call or its block fallback, or the slab multigrid or CG of
+  ``parallel/solvers.py``) and gradient, each stencil with a one-row halo;
 - the u/v self-advection pair (one shared backtrace, ``cmax+1``-row halo),
   then the second projection;
 - the density fused (diffusion and gather, halo ``ceil8(it+1+cmax)``) for
@@ -37,7 +42,6 @@ computed.  The windowed gathers (``advect_mode="windowed"``, and
 ``"auto"``) are exact while the backtrace moves at most
 ``cfg.max_courant`` cells and clamped above (``ops.advect_windowed``);
 ``audited=True`` returns the displacement to check it.
-
 ``advect_mode="exact"`` gathers as JAX's block route does
 (``_advect_local``: the all-gather, then the gather at global
 coordinates), on the slab route: each gathered field is assembled once per
@@ -47,17 +51,25 @@ any displacement.  The density step is then composed, diffusion and gather,
 as JAX's ``_step_local`` composes it (the fused density step gathers in the
 window).  JAX runs its exact mode only on its jnp block route; the port's
 slab route is not JAX's Pallas code, which refuses it.
-
 ``pressure_solver="multigrid"`` needs an even slab height, as JAX's slab
 route does (the coarse grid's 2x2 groups must not straddle two slabs), and
 raises ``ValueError`` otherwise.
 
-Not ported (ROADMAP §A 3): the 2-D block route of ``_step_local`` (2-D
-halos, its solvers on 2-D blocks, the jnp Chebyshev solves for a halo
-deeper than a slab), which JAX takes for ``shard_backend="reference"``, for
-meshes that do not row-flatten and for slabs thinner than
-``max_courant+1`` rows (where its ``"auto"`` gathers exactly).  Every shape
-that would need it raises; none quietly takes another route.
+The block route (``_BlockStep``): JAX's ``_step_local`` on the (px, py)
+blocks of ``m = side/px`` rows and ``k = side/py`` columns, each solve in
+chunks of ``K = min(8, iters, (m-2)//2, (k-2)//2)`` sweeps (1 for blocks of
+4 or fewer), one two-phase 2-D halo exchange (``mesh.Blocks.ext``) and one
+K9-block launch a chunk, the rhs exchanged once per solve; a Chebyshev
+chain carries x_{k-1} from chunk to chunk and resumes its weights where
+the chunk before stopped.  The divergence and gradient take one-cell 2-D
+halos (K10-block, K11-block), the gathers either the assembled fields
+(exact, ``Blocks.gather``) or a ``cmax+1``-deep 2-D halo (windowed;
+K12-block's two forms), and multigrid and CG run on blocks
+(``solvers.mg_blocks``, ``cg_blocks``).  Every operation is the
+BlockOpSet's (``kernels/dispatch.py``): the kernels on ``cuda``, their
+plain twins on ``reference``.  JAX's block route ignores ``fast_math``;
+here, as on the slab route, the ``cuda`` backend takes the reciprocal
+form for the diffusion solves in fast mode (never for the pressure).
 """
 from __future__ import annotations
 
@@ -67,16 +79,13 @@ import torch
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
-from ..kernels.dispatch import get_ops, get_slab_ops
+from ..kernels.dispatch import get_block_ops, get_ops, get_slab_ops
+from ..ops.chebyshev import cheby_omegas
 from ..ops.source import add_source
-from .mesh import Mesh, _ext, _gather, _halos
-from .solvers import SMOOTH_HALO, cg_slabs, mg_slabs
+from .mesh import Blocks, Mesh, _ext, _gather, _halos
+from .solvers import SMOOTH_HALO, cg_blocks, cg_slabs, mg_blocks, mg_slabs
 
-__all__ = ["make_sharded_step_fn", "shard_state", "unshard"]
-
-_BLOCK_ROUTE = ("the block route of the JAX package's _step_local (2-D "
-                "halos, its solvers on 2-D blocks, the jnp Chebyshev "
-                "solves) is not ported (ROADMAP §A 3)")
+__all__ = ["make_sharded_step_fn", "shard_state", "shard_blocks", "unshard"]
 
 
 def _ceil8(x: int) -> int:
@@ -115,13 +124,39 @@ def shard_state(tree, mesh: Mesh):
     return _split(tree, mesh, 2)
 
 
-def unshard(tree):
-    """Stitch each field's slabs back into one tensor (a (side, side) grid
-    or a (side, side, side) volume) on the first slab's device."""
-    def join(slabs):
-        if slabs is None:
+def shard_blocks(tree, mesh: Mesh):
+    """Cut each (side, side) field of a ``FluidState`` or ``Sources`` into
+    the blocks of the (px, py) ``mesh``: a tuple of ``px·py`` tensors of
+    shape (side/px, side/py) in row-major mesh order, block ``i`` a copy
+    on the mesh's ``i``-th device; the layout of the block route.  A (px,
+    1) mesh's blocks are its row slabs."""
+    px, py = mesh.shape["x"], mesh.shape["y"]
+
+    def cut(t):
+        if t is None:
             return None
-        return torch.cat([s.to(slabs[0].device) for s in slabs])
+        if t.dim() != 2 or t.shape[0] != t.shape[1]:
+            raise ValueError(f"expected a (side, side) field, got "
+                             f"{tuple(t.shape)}")
+        if t.shape[0] % px or t.shape[0] % py:
+            raise ValueError(f"side {t.shape[0]} not divisible by mesh "
+                             f"shape ({px}, {py})")
+        return Blocks(px, py, t.shape[0]).cut(t, mesh.device_list)
+
+    return type(tree)(*map(cut, tree))
+
+
+def unshard(tree, mesh: Mesh | None = None):
+    """Stitch each field's parts back into one tensor on the first part's
+    device: row slabs (or z-slabs of a volume) without ``mesh`` or on a
+    (px, 1) mesh, the blocks of ``mesh`` otherwise (``shard_blocks``)."""
+    def join(parts):
+        if parts is None:
+            return None
+        if mesh is None or mesh.shape["y"] == 1:
+            return torch.cat([s.to(parts[0].device) for s in parts])
+        px, py = mesh.shape["x"], mesh.shape["y"]
+        return Blocks(px, py, parts[0].shape[0] * px).stitch(parts)
 
     return type(tree)(*map(join, tree))
 
@@ -129,6 +164,61 @@ def unshard(tree):
 def _slab_viable(cfg: SimConfig, slabs: int) -> bool:
     side = cfg.n + 2
     return side % slabs == 0 and side // slabs >= cfg.max_courant + 1
+
+
+def _chunk(iters: int, m: int, k: int, fuse: int = 8) -> int:
+    """JAX's sweeps per halo exchange of a block solve (its K): at most
+    ``fuse``, ``iters`` and what (m, k) blocks hold, ``(m-2)//2``
+    (1 for blocks of 4 rows or fewer)."""
+    return max(1, min(fuse, iters, (m - 2) // 2 if m > 4 else 1,
+                      (k - 2) // 2 if k > 4 else 1))
+
+
+def _diffuse_blocks(ops, blocks: Blocks, n: int, b, x_init, rhs, alpha, beta,
+                    iters: int, *, zero_init=False, fast=False):
+    """JAX's ``_diffuse_local``: Jacobi in chunks of ``_chunk`` sweeps on
+    the blocks extended by as deep a halo, the rhs exchanged once;
+    ``x_init`` is ignored with ``zero_init``."""
+    m, k = blocks.m, blocks.k
+    K = _chunk(iters, m, k)
+    rhs_ext = blocks.ext(rhs, K)
+    x, done = x_init, 0
+    while done < iters:
+        s = min(K, iters - done)
+        zi = zero_init and done == 0
+        x_ext = [None] * len(rhs) if zi else blocks.ext(x, K)
+        x = [ops.jacobi(b, xe, re, o, n=n, m=m, k=k, K=K, alpha=alpha,
+                        beta=beta, sweeps=s, zero_init=zi, fast=fast)
+             for xe, re, o in zip(x_ext, rhs_ext, blocks.origins)]
+        done += s
+    return x
+
+
+def _cheby_blocks(ops, blocks: Blocks, n: int, b, x_init, rhs, alpha, beta,
+                  iters: int, rho: float, *, zero_init=False, fast=False):
+    """JAX's ``_cheby_diffuse_local``: the Chebyshev solve in chunks as
+    ``_diffuse_blocks``'s.  Sweep 0 of the solve is plain (x_0 doubles as
+    x_{-1}); each later chunk takes the x_{k-1} the chunk before it
+    returned, exchanged as x is, and the weights from where it stopped."""
+    m, k = blocks.m, blocks.k
+    K = _chunk(iters, m, k)
+    omegas = cheby_omegas(float(rho), iters)
+    rhs_ext = blocks.ext(rhs, K)
+    none = [None] * len(rhs)
+    x, xm, done = x_init, None, 0
+    while done < iters:
+        s = min(K, iters - done)
+        zi = zero_init and done == 0
+        pairs = [ops.jacobi(b, xe, re, o, n=n, m=m, k=k, K=K, alpha=alpha,
+                            beta=beta, sweeps=s, zero_init=zi, fast=fast,
+                            omegas=omegas, first=done, xm_ext=xme)
+                 for xe, re, xme, o in zip(
+                     none if zi else blocks.ext(x, K), rhs_ext,
+                     none if done == 0 else blocks.ext(xm, K),
+                     blocks.origins)]
+        x, xm = [q[0] for q in pairs], [q[1] for q in pairs]
+        done += s
+    return x
 
 
 class _SlabStep:
@@ -165,6 +255,11 @@ class _SlabStep:
         # the single-device OpSet's smoother.
         self.smooth_coarse = (get_ops(cfg).smooth
                               if self.solver == "multigrid" else None)
+        # A one-call Chebyshev solve whose halo is deeper than a slab takes
+        # JAX's jnp fallback (sharded.py:697-698, :727-728 there): the
+        # block route's chunked solve on the (px, 1) blocks, the slabs.
+        self.blocks = Blocks(px, 1, n + 2)
+        self.block_ops = get_block_ops(cfg)
         # B9c gathers in the window: the exact step composes the density.
         self.fused_dens = (not exact and not self.dens_cheby and it <= fuse
                            and 1 <= cmax <= 7
@@ -185,15 +280,6 @@ class _SlabStep:
             raise ValueError(
                 f"the slab multigrid's smooths need a {SMOOTH_HALO}-row "
                 f"halo, deeper than the {m}-row slabs; use fewer slabs")
-        one_call = ([cfg.cheby_iters] * self.vel_cheby
-                    + [self.k_dens] * (self.dens_cheby and not self.fused_dens)
-                    + [self.it_p] * (self.cheby_p and not self.fused_proj))
-        for iters in one_call:
-            if _ceil8(iters + 1) > m:
-                raise NotImplementedError(
-                    f"a {iters}-sweep Chebyshev solve needs a "
-                    f"{_ceil8(iters + 1)}-row halo, deeper than the {m}-row "
-                    f"slabs; {_BLOCK_ROUTE}")
 
     # -- the operations of _step_local_pallas ----------------------------------
 
@@ -217,8 +303,13 @@ class _SlabStep:
 
     def _cheby(self, b, x_init, rhs, alpha, beta, iters):
         """A Chebyshev solve in one slab call (the recurrence's x_{k-1}
-        never crosses a halo exchange)."""
+        never crosses a halo exchange), or where its halo is deeper than a
+        slab in chunks on the (px, 1) blocks (``_cheby_blocks``)."""
         K = _ceil8(iters + 1)
+        if K > self.m:
+            return _cheby_blocks(self.block_ops, self.blocks, self.cfg.n, b,
+                                 x_init, rhs, alpha, beta, iters,
+                                 self.cfg.cheby_rho, fast=self.ops.fast)
         return [self.ops.jacobi(b, xe, re, fl, m=self.m, K=K, alpha=alpha,
                                 beta=beta, sweeps=iters, zero_init=False,
                                 fast=self.ops.fast,
@@ -235,6 +326,10 @@ class _SlabStep:
             return cg_slabs(div, cfg.cg_iters, cfg.n, self.flags)
         if self.cheby_p:
             K = _ceil8(self.it_p + 1)
+            if K > self.m:
+                return _cheby_blocks(self.block_ops, self.blocks, cfg.n, 0,
+                                     None, div, 1.0, 4.0, self.it_p,
+                                     self.rho_p, zero_init=True)
             ext = _ext(div, K)
             return [self.ops.jacobi(0, e, e, fl, m=self.m, K=K, alpha=1.0,
                                     beta=4.0, sweeps=self.it_p,
@@ -345,39 +440,172 @@ class _SlabStep:
         return out
 
 
+class _BlockStep:
+    """One step of ``cfg`` on the (px, py) blocks of a mesh (JAX's
+    ``_step_local``), its gathers exact (from the assembled fields) or
+    windowed (from a ``cmax+1``-deep 2-D halo)."""
+
+    def __init__(self, cfg: SimConfig, mesh: Mesh, audited: bool,
+                 exact: bool):
+        self.cfg, self.audited, self.exact = cfg, audited, exact
+        self.devices = mesh.device_list
+        self.blocks = Blocks(mesh.shape["x"], mesh.shape["y"], cfg.n + 2)
+        if self.blocks.m < 2 or self.blocks.k < 2:
+            raise ValueError(
+                f"the block route needs blocks of at least 2 x 2 cells; got "
+                f"{self.blocks.m} x {self.blocks.k} on mesh "
+                f"({self.blocks.px}, {self.blocks.py})")
+        self.ops = get_block_ops(cfg)
+        self.smooth_coarse = (get_ops(cfg).smooth
+                              if cfg.pressure_solver == "multigrid" else None)
+
+    # -- the operations of _step_local ------------------------------------------
+
+    def _diffusion(self, b, src_f, rhs, alpha, beta, dens=False):
+        """As JAX's: "chebyshev" accelerates all three solves,
+        "chebyshev-dens" only the density one."""
+        cfg, mode = self.cfg, self.cfg.diffusion_solver
+        if mode == "chebyshev" or (dens and mode == "chebyshev-dens"):
+            k = (cfg.cheby_dens_iters if mode == "chebyshev-dens"
+                 else cfg.cheby_iters)
+            return _cheby_blocks(self.ops, self.blocks, cfg.n, b, src_f, rhs,
+                                 alpha, beta, k, cfg.cheby_rho,
+                                 fast=self.ops.fast)
+        return _diffuse_blocks(self.ops, self.blocks, cfg.n, b, src_f, rhs,
+                               alpha, beta, cfg.jacobi_iters,
+                               fast=self.ops.fast)
+
+    def _pressure(self, div):
+        cfg, blocks = self.cfg, self.blocks
+        if cfg.pressure_solver == "multigrid":
+            return mg_blocks(div, cfg.mg_cycles, cfg.n, blocks,
+                             self.ops.smooth, self.smooth_coarse)
+        if cfg.pressure_solver == "cg":
+            return cg_blocks(div, cfg.cg_iters, cfg.n, blocks)
+        if cfg.pressure_solver == "chebyshev":
+            return _cheby_blocks(self.ops, blocks, cfg.n, 0, None, div, 1.0,
+                                 4.0, cfg.press_cheby_iters, cfg.cheby_rho,
+                                 zero_init=True)
+        return _diffuse_blocks(self.ops, blocks, cfg.n, 0, None, div, 1.0,
+                               4.0, cfg.jacobi_iters, zero_init=True)
+
+    def _project(self, u, v):
+        n, origins = self.cfg.n, self.blocks.origins
+        halos = self.blocks.halos
+        div = [self.ops.divergence(ui, vi, uh, vh, o, n)
+               for ui, vi, uh, vh, o in zip(u, v, halos(u), halos(v),
+                                            origins)]
+        p = self._pressure(div)
+        pairs = [self.ops.gradient(ui, vi, pi, ph, o, n)
+                 for ui, vi, pi, ph, o in zip(u, v, p, halos(p), origins)]
+        return [q[0] for q in pairs], [q[1] for q in pairs]
+
+    def _advect(self, bs, fields, u, v, self_adv):
+        cfg, blocks = self.cfg, self.blocks
+        kw = dict(dt=cfg.dt, n=cfg.n, m=blocks.m, k=blocks.k,
+                  self_adv=self_adv)
+        if self.exact:
+            bufs = [blocks.gather(f) for f in fields]
+            return [self.ops.advect_exact(bs, fs, ui, vi, o, **kw)
+                    for fs, ui, vi, o in zip(zip(*bufs), u, v,
+                                             blocks.origins)]
+        bufs = [blocks.ext(f, cfg.max_courant + 1) for f in fields]
+        return [self.ops.advect(bs, es, ui, vi, o, cmax=cfg.max_courant,
+                                **kw)
+                for es, ui, vi, o in zip(zip(*bufs), u, v, blocks.origins)]
+
+    def _disp(self, u, v) -> torch.Tensor:
+        """Largest backtrace displacement (cells) over every block."""
+        dev = self.devices[0]
+        local = [torch.maximum(a.abs().max(), b.abs().max()).to(dev)
+                 for a, b in zip(u, v)]
+        return torch.stack(local).max() * (self.cfg.dt * self.cfg.n)
+
+    # -- the step --------------------------------------------------------------
+
+    def _parts(self, tree, what: str):
+        shape = (self.blocks.m, self.blocks.k)
+        count = self.blocks.px * self.blocks.py
+        for name in ("dens", "u", "v"):
+            parts = getattr(tree, name)
+            if (not isinstance(parts, (tuple, list)) or len(parts) != count
+                    or any(tuple(x.shape) != shape for x in parts)):
+                raise TypeError(
+                    f"{what}.{name}: expected {count} blocks of shape "
+                    f"{shape} (see shard_blocks)")
+        return tree
+
+    def __call__(self, state: FluidState, src: Sources):
+        cfg = self.cfg
+        self._parts(state, "state")
+        self._parts(src, "sources")
+        dt = cfg.dt
+        none = [None] * len(state.u)
+        u = [add_source(a, s, dt) for a, s in zip(state.u, src.u)]
+        v = [add_source(a, s, dt) for a, s in zip(state.v, src.v)]
+        alpha = cfg.diffusion_alpha_visc
+        beta = 1.0 + 4.0 * alpha
+        u = self._diffusion(1, src.u, u, alpha, beta)
+        v = self._diffusion(2, src.v, v, alpha, beta)
+        u, v = self._project(u, v)
+        d_vel = self._disp(u, v) if self.audited else None
+        pairs = self._advect((1, 2), (u, v), none, none, self_adv=True)
+        u, v = self._project([q[0] for q in pairs], [q[1] for q in pairs])
+        d_dens = self._disp(u, v) if self.audited else None
+
+        dens = [add_source(a, s, dt) for a, s in zip(state.dens, src.dens)]
+        alpha = cfg.diffusion_alpha_diff
+        beta = 1.0 + 4.0 * alpha
+        dens = self._diffusion(0, src.dens, dens, alpha, beta, dens=True)
+        dens = [d[0] for d in self._advect((0,), (dens,), u, v,
+                                           self_adv=False)]
+        out = FluidState(dens=tuple(dens), u=tuple(u), v=tuple(v))
+        if self.audited:
+            return out, torch.maximum(d_vel, d_dens)
+        return out
+
+
 def make_sharded_step_fn(
     cfg: SimConfig, mesh: Mesh, *, advect_mode: str = "auto",
     shard_backend: str = "auto", audited: bool = False,
 ) -> Callable[[FluidState, Sources], FluidState]:
-    """A multi-device step over ``mesh``.  Inputs and outputs are states
-    and sources whose fields are tuples of row slabs (``shard_state``);
-    ``(n+2)`` must divide by the number of slabs.
+    """A multi-device step over ``mesh``; ``(n+2)`` must divide by both
+    mesh dimensions.  Inputs and outputs are states and sources whose
+    fields are tuples of parts: the row slabs of ``shard_state`` on the
+    slab route, the blocks of ``shard_blocks`` on the block route (the
+    callable's ``.layout``, ``"slabs"`` or ``"blocks"``; a (px, 1) mesh's
+    blocks are its slabs).  The wrong layout raises ``TypeError``.
 
     ``shard_backend``: ``"slab"`` is the row-slab route (JAX's
-    ``"pallas"``); its slab operations are the CUDA kernels or their plain
-    twins by ``cfg.resolved_backend``, chosen once.  ``"reference"`` (JAX's
-    jnp block route) raises ``NotImplementedError``.  ``"auto"`` takes the
-    slab route where the shape qualifies and raises otherwise.  A 2-D mesh
-    qualifies by row-flattening: its devices become a (px·py, 1) mesh.
-    ``pressure_solver="multigrid"`` raises ``ValueError`` unless every slab
-    has an even row count, as JAX's slab route does.
+    ``"pallas"``): a 2-D mesh row-flattens, its devices a (px·py, 1) mesh,
+    and every slab must hold ``max_courant+1`` rows.  ``"reference"`` is
+    JAX's jnp block route (``_step_local``) on the (px, py) mesh as it
+    comes.  ``"auto"`` takes the slab route where the shape qualifies
+    (JAX's gate, ``sharded.py:962-981``) and the block route otherwise:
+    slabs thinner than ``max_courant+1`` rows, or a mesh that does not
+    row-flatten.  Each route's operations are the CUDA kernels or their
+    plain twins by ``cfg.resolved_backend``, chosen once.
+    ``pressure_solver="multigrid"`` raises ``ValueError`` unless every part
+    has even sides, as in JAX.  bfloat16 raises ``NotImplementedError``
+    (ROADMAP §A 5).
 
-    ``advect_mode``: ``"windowed"`` (or ``"auto"``, as JAX's on slabs that
-    hold the window) gathers in the window of ``max_courant`` cells;
-    ``"exact"`` gathers from the assembled fields at any displacement
-    (JAX's ``_advect_local``, on the slab route).  Every slab must hold
-    ``max_courant+1`` rows in both modes: thinner slabs need the block
-    route (ROADMAP §A 3).
+    ``advect_mode``: ``"windowed"`` gathers in the window of
+    ``max_courant`` cells; ``"exact"`` gathers from the assembled fields
+    at any displacement (JAX's ``_advect_local``, on either route).
+    ``"auto"`` is windowed where every part holds ``max_courant+1`` rows
+    and columns and exact otherwise; a windowed request on thinner parts
+    raises ``ValueError``.
 
     ``audited=True`` returns ``(state, max_displacement)``, the largest
-    backtrace displacement of the step's advections over every slab (a
+    backtrace displacement of the step's advections over every part (a
     0-dim tensor on the first device): the windowed gathers are exact
     while it stays at or below ``cfg.max_courant``.
 
-    The callable carries ``.shard_backend``, ``.advect_mode`` (the mode
-    taken: ``"exact"`` or ``"windowed"``) and ``.mesh`` (the mesh used,
-    flattened for a 2-D mesh), and ``.routes``: whether the projection and
-    the density step run ``"fused"`` or ``"composed"``.
+    The callable carries ``.shard_backend`` (``"slab"``, or
+    ``"reference"`` for the block route), ``.advect_mode`` (the mode
+    taken), ``.mesh`` (the mesh used, flattened for the slab route),
+    ``.layout`` and ``.routes``: whether the projection and the density
+    step run ``"fused"`` or ``"composed"``.
     """
     if advect_mode not in ("auto", "exact", "windowed"):
         raise ValueError(f"unknown advect_mode {advect_mode!r}")
@@ -388,50 +616,60 @@ def make_sharded_step_fn(
                          "z-slab step is make_sharded_step_fn_3d")
     if cfg.dtype != torch.float32:
         # JAX's slab route requires float32 (parallel/sharded.py:847 there)
-        # and takes the block route in bf16.
+        # and runs bf16 on its block route, in jnp.
         raise NotImplementedError(
-            f"dtype={cfg.dtype} on slabs waits on ROADMAP §A 5: "
-            f"{_BLOCK_ROUTE}")
+            f"dtype={cfg.dtype} on the multi-device step waits on ROADMAP "
+            f"§A 5 (bf16 beyond the single-device 2-D step)")
     px, py = mesh.shape["x"], mesh.shape["y"]
     side = cfg.n + 2
-    if side % px or side % py:
-        raise ValueError(f"grid side {side} not divisible by mesh shape "
-                         f"({px}, {py})")
-    # The one route ported: JAX's "pallas" slab route on the row-flattened
-    # mesh (sharded.py:962-981), with its windowed gathers or JAX's exact
-    # all-gather (_advect_local).
     slabs = px * py
+    window = cfg.max_courant + 1
     if shard_backend == "slab":
         if not _slab_viable(cfg, slabs):
             raise ValueError(
                 f"shard_backend='slab' needs row slabs (2-D meshes are "
                 f"row-flattened): (n+2) % n_devices == 0 and slabs of >= "
                 f"max_courant+1 rows; got mesh ({px}, {py}), n={cfg.n}")
-    elif shard_backend == "reference" or not _slab_viable(cfg, slabs):
-        raise NotImplementedError(
-            f"mesh ({px}, {py}) with shard_backend={shard_backend!r}, "
-            f"advect_mode={advect_mode!r} needs the block route: "
-            f"{_BLOCK_ROUTE}")
-    if cfg.pressure_solver == "multigrid" and (side // slabs) % 2:
-        # The coarse grid's 2x2 groups stay inside a slab (JAX's gate,
-        # sharded.py:1029-1038 there; a slab is full width).
+        blocks = False
+    else:
+        blocks = shard_backend == "reference" or not _slab_viable(cfg,
+                                                                  slabs)
+    if blocks:
+        if side % px or side % py:
+            raise ValueError(f"grid side {side} not divisible by mesh "
+                             f"shape ({px}, {py})")
+        m, k = side // px, side // py
+    else:
+        mesh = mesh.reshape(slabs, 1)
+        m, k = side // slabs, side
+    if advect_mode == "auto":
+        # JAX's "auto" (sharded.py:986-991): windowed where every part
+        # holds the window, as every slab does.
+        advect_mode = "windowed" if min(m, k) >= window else "exact"
+    if advect_mode == "windowed" and min(m, k) < window:
+        raise ValueError(
+            f"windowed advection needs >= {window} rows/cols per shard "
+            f"(max_courant={cfg.max_courant}); got ({m}, {k}) on mesh "
+            f"({px}, {py}). Use advect_mode='exact' or a coarser mesh.")
+    if cfg.pressure_solver == "multigrid" and (m % 2 or k % 2):
+        # The coarse grid's 2x2 groups stay inside a part (JAX's gate,
+        # sharded.py:1029-1038 there).
         raise ValueError(
             f"sharded multigrid needs even local block sizes ((n+2)/px "
-            f"and (n+2)/py even); got ({side // slabs}, {side}) on mesh "
-            f"({px}, {py})")
-    mesh = mesh.reshape(slabs, 1)
+            f"and (n+2)/py even); got ({m}, {k}) on mesh ({px}, {py})")
 
-    # JAX's "auto" is windowed on shards that hold the window, as these do.
-    mode = "windowed" if advect_mode == "auto" else advect_mode
-    run = _SlabStep(cfg, mesh, audited, exact=mode == "exact")
+    exact = advect_mode == "exact"
+    run = (_BlockStep if blocks else _SlabStep)(cfg, mesh, audited, exact)
 
     def step_fn(state, src):
         return run(state, src)
 
-    step_fn.shard_backend = "slab"
-    step_fn.advect_mode = mode
+    step_fn.shard_backend = "reference" if blocks else "slab"
+    step_fn.advect_mode = advect_mode
     step_fn.mesh = mesh
+    step_fn.layout = "blocks" if blocks else "slabs"
     step_fn.routes = {
-        "projection": "fused" if run.fused_proj else "composed",
-        "density": "fused" if run.fused_dens else "composed"}
+        "projection": ("fused" if not blocks and run.fused_proj
+                       else "composed"),
+        "density": "fused" if not blocks and run.fused_dens else "composed"}
     return step_fn

@@ -1234,3 +1234,61 @@ def test_tiled_k1_at_any_sweeps_per_launch(cuda, per_launch):
     with cuda_ops.launch_sweeps(21), pytest.raises(RuntimeError,
                                                    match="jacobi_sweeps"):
         cuda_ops.fused_jacobi(*args[:-1], 21, zero_init=True)
+
+
+BLOCK_MESHES = [(2048, 2, 4), (66, 3, 3), (64, 1, 8)]
+
+
+@pytest.mark.parametrize("side,px,py", BLOCK_MESHES,
+                         ids=[f"{s}-{a}x{b}" for s, a, b in BLOCK_MESHES])
+def test_block_forms_match_plain(cuda, side, px, py):
+    """K9-block, K12-block, K10-block and K11-block against their plain
+    twins on a corner, an edge, an interior and the far corner block: bit
+    for bit, the fast forms within ``checks.TOL``."""
+    for check in checks.kernel_checks_block(side, side // px, side // py,
+                                            cuda, seed=side):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = cuda_ops.launch_counts()
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts[check.kernels[0]] == 1, (check.label, counts)
+        err = checks.max_abs_diff(got, want)
+        tol = checks.TOL if "fast" in check.label else 0.0
+        assert err <= tol, (check.label, err)
+
+
+def test_block_step_2048_exact_equals_single_device(cuda):
+    """The 2048² exact block step on (2, 4) blocks equals
+    ``StableFluids2D.step`` bit for bit over 3 steps, past the window (the
+    impulse moves the backtrace ~20 cells), with the launches
+    ``chip_smoke.expected_launches_blocks`` counts."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_blocks, unshard)
+
+    cfg = ft.SimConfig(n=2046, jacobi_iters=20, backend="cuda", device=cuda)
+    mesh = make_mesh([torch.device("cuda", 0)] * 8, shape=(2, 4))
+    step = make_sharded_step_fn(cfg, mesh, advect_mode="exact",
+                                shard_backend="reference", audited=True)
+    state0, src = ft.reference_init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    zeros = shard_blocks(ft.zero_sources(cfg), mesh)
+    state, sources = shard_blocks(state0, mesh), shard_blocks(src, mesh)
+    states, disps = [], []
+    cuda_ops.reset_launch_counts()
+    for k in range(3):
+        state, disp = step(state, sources if k == 0 else zeros)
+        states.append(unshard(state, mesh))
+        disps.append(float(disp))
+    per_step = chip_smoke.expected_launches_blocks(cfg, 2, 4, True)
+    assert cuda_ops.launch_counts() == {
+        k: 3 * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    assert max(disps) > cfg.max_courant
+    sim = ft.StableFluids2D(cfg)
+    single = state0
+    for k, got in enumerate(states):
+        single = sim.step(single, src) if k == 0 else sim.step(single)
+        for a, b in zip(got[:3], single[:3]):
+            assert torch.equal(a, b), f"step {k + 1}"

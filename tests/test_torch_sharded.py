@@ -31,7 +31,7 @@ import jax.numpy as jnp  # noqa: E402
 import fluidsimulationcuda_torch as ft  # noqa: E402
 import fluidsimulationcuda_tpu as fj  # noqa: E402
 from fluidsimulationcuda_torch.parallel import (  # noqa: E402
-    make_mesh, make_sharded_step_fn, shard_state, unshard)
+    make_mesh, make_sharded_step_fn, shard_blocks, shard_state, unshard)
 from fluidsimulationcuda_tpu.kernels import pallas_ops  # noqa: E402
 from fluidsimulationcuda_tpu.parallel import mesh as jmesh  # noqa: E402
 from fluidsimulationcuda_tpu.parallel import sharded as jsharded  # noqa: E402
@@ -230,69 +230,113 @@ def test_step_needs_slabs():
 
 
 def test_rejects_exact_advection():
-    """The exact gather runs on the slab route now
-    (``tests/test_torch_sharded_exact.py``); what stays refused is the
-    block route it would need elsewhere (ROADMAP §A 3): JAX's jnp route
-    (``shard_backend="reference"``), and slabs thinner than
-    ``max_courant+1`` rows, where JAX's ``"auto"`` gathers exactly on its
-    block route."""
+    """The exact gather runs on both routes now: on the slab route
+    (``tests/test_torch_sharded_exact.py``), on JAX's jnp route
+    (``shard_backend="reference"``, the block route) and, where slabs are
+    thinner than ``max_courant+1`` rows, under ``"auto"`` and ``"exact"``
+    on the block route, as JAX's ``"auto"`` gathers there
+    (``tests/test_torch_sharded_blocks.py``).  What stays refused is a
+    windowed gather on parts thinner than the window, JAX's
+    ``ValueError``."""
     mesh = make_mesh([CPU] * 2)
     assert make_sharded_step_fn(_cfg("parity"), mesh, advect_mode="exact",
                                 shard_backend="slab").advect_mode == "exact"
-    with pytest.raises(NotImplementedError, match="§A 3"):
-        make_sharded_step_fn(_cfg("parity"), mesh, advect_mode="exact",
-                             shard_backend="reference")
+    step = make_sharded_step_fn(_cfg("parity"), mesh, advect_mode="exact",
+                                shard_backend="reference")
+    assert (step.shard_backend, step.layout) == ("reference", "blocks")
     thin = _cfg("parity").replace(max_courant=8)  # 8-row slabs, 9 needed
     for mode in ("auto", "exact"):
-        with pytest.raises(NotImplementedError, match="§A 3"):
-            make_sharded_step_fn(thin, make_mesh([CPU] * 8),
-                                 advect_mode=mode)
+        step = make_sharded_step_fn(thin, make_mesh([CPU] * 8),
+                                    advect_mode=mode)
+        assert (step.shard_backend, step.advect_mode) == ("reference",
+                                                          "exact")
+    with pytest.raises(ValueError, match="windowed advection needs"):
+        make_sharded_step_fn(thin, make_mesh([CPU] * 8),
+                             advect_mode="windowed")
 
 
 def test_rejects_unflattenable_mesh():
-    # side 36 over 8 devices: 36 % 8 != 0, so the (2, 4) mesh stays 2-D.
+    """Side 36 over 8 devices: 36 % 8 != 0, so the (2, 4) mesh cannot
+    row-flatten.  The slab route still refuses it; ``"auto"`` now runs
+    the block route on the (2, 4) blocks of 18 x 9, as JAX does."""
     cfg = ft.SimConfig(n=34, jacobi_iters=4, device="cpu")
     mesh = make_mesh([CPU] * 8, shape=(2, 4))
     with pytest.raises(ValueError, match="row slabs"):
         make_sharded_step_fn(cfg, mesh, shard_backend="slab")
-    with pytest.raises(NotImplementedError, match="§A 3"):
-        make_sharded_step_fn(cfg, mesh)
+    step = make_sharded_step_fn(cfg, mesh)
+    assert (step.shard_backend, step.layout) == ("reference", "blocks")
+    assert step.mesh.shape == {"x": 2, "y": 4}
+    state = shard_blocks(ft.zero_state(cfg), mesh)
+    out = step(state, shard_blocks(ft.zero_sources(cfg), mesh))
+    assert tuple(out.u[0].shape) == (18, 9)
 
 
 def test_rejects_a_halo_deeper_than_a_slab():
     """20 sweeps per chunk need a 24-row halo; JAX's x[-K:] would silently
-    take the 8 rows a slab has."""
+    take the 8 rows a slab has, so the port refuses the Jacobi chunk.  A
+    one-call Chebyshev solve whose halo is deeper than a slab now takes
+    JAX's jnp fallback, the chunked block solve on the (px, 1) blocks
+    (``tests/test_torch_sharded_blocks_solvers.py``)."""
     cfg = ft.SimConfig(n=62, jacobi_iters=20, max_courant=2, device="cpu")
     with pytest.raises(ValueError, match="24-row halo"):
         make_sharded_step_fn(cfg, make_mesh([CPU] * 8))
-    # A one-call Chebyshev solve cannot be chunked: the block route's jnp
-    # solve would take it.
     cheby = cfg.replace(jacobi_iters=4, diffusion_solver="chebyshev",
                         cheby_iters=10)
-    with pytest.raises(NotImplementedError, match="Chebyshev"):
-        make_sharded_step_fn(cheby, make_mesh([CPU] * 8))
+    step = make_sharded_step_fn(cheby, make_mesh([CPU] * 8))
+    assert step.shard_backend == "slab"
+    out = step(shard_state(ft.zero_state(cheby), step.mesh),
+               shard_state(ft.zero_sources(cheby), step.mesh))
+    assert len(out.u) == 8
 
 
 @pytest.mark.parametrize("kw", [dict(shard_backend="reference"),
                                 dict(advect_mode="sideways"),
                                 dict(shard_backend="pallas")])
 def test_rejects_unported_or_unknown_backends(kw):
+    """Unknown backends and modes raise ``ValueError``; JAX's jnp route,
+    ``shard_backend="reference"``, is ported (the block route) and runs."""
     mesh = make_mesh([CPU] * 4)
-    error = (NotImplementedError if kw.get("shard_backend") == "reference"
-             else ValueError)
-    with pytest.raises(error):
+    if kw.get("shard_backend") == "reference":
+        step = make_sharded_step_fn(_cfg("parity"), mesh, **kw)
+        assert (step.shard_backend, step.layout) == ("reference", "blocks")
+        return
+    with pytest.raises(ValueError):
         make_sharded_step_fn(_cfg("parity"), mesh, **kw)
 
 
 @pytest.mark.parametrize("solver", ["multigrid", "cg"])
 def test_rejects_sharded_krylov_and_multigrid(solver):
     """The multigrid and CG projections run on row slabs
-    (``tests/test_torch_sharded_solvers.py``); what stays refused is JAX's
-    block route for them (``shard_backend="reference"``, its jnp step on 2-D
-    blocks), which is not ported."""
+    (``tests/test_torch_sharded_solvers.py``) and now on JAX's block route
+    too (``shard_backend="reference"``, ``solvers.mg_blocks`` and
+    ``cg_blocks``, ``tests/test_torch_sharded_blocks_solvers.py``).  What
+    stays refused is bf16 on either route (ROADMAP §A 5) and, for
+    multigrid, odd blocks."""
     cfg = _cfg("parity", pressure_solver=solver)
-    with pytest.raises(NotImplementedError, match="§A 3"):
-        make_sharded_step_fn(cfg, make_mesh([CPU] * 4),
-                             shard_backend="reference")
+    step = make_sharded_step_fn(cfg, make_mesh([CPU] * 4),
+                                shard_backend="reference")
+    assert step.layout == "blocks" and step.routes["projection"] == "composed"
     assert make_sharded_step_fn(cfg, make_mesh([CPU] * 4)).routes[
         "projection"] == "composed"
+    # (bf16 multigrid and CG stop at the config; the step refuses bf16
+    # whatever the solver.)
+    bf16 = _cfg("parity").replace(dtype=torch.bfloat16)
+    for backend in ("auto", "reference", "slab"):
+        with pytest.raises(NotImplementedError, match="§A 5"):
+            make_sharded_step_fn(bf16, make_mesh([CPU] * 4),
+                                 shard_backend=backend)
+
+
+def test_auto_keeps_slabs_where_jax_takes_blocks():
+    """A recorded difference (ROADMAP §C): JAX's ``shard_backend="auto"``
+    takes its slab route only when ``cfg.backend`` asks for Pallas, and
+    its block route for any other backend (``sharded.py:1022-1027``
+    there); the port's ``"auto"`` keeps the slab route wherever it
+    qualifies, on either backend (the slab route's plain twins on
+    ``reference``)."""
+    mesh = make_mesh([CPU] * 4)
+    assert make_sharded_step_fn(_cfg("parity"), mesh).shard_backend == "slab"
+    jstep = jsharded.make_sharded_step_fn(
+        fj.SimConfig(n=N, max_courant=2, backend="reference"),
+        jmesh.make_mesh(jax.devices()[:4], shape=(4, 1)))
+    assert jstep.shard_backend == "reference"
