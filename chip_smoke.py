@@ -250,7 +250,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    bar of its own one-grid step (max|Δ| printed, and how many grids equal
    it bit for bit), the batch held to the ``reference`` backend; the
    multigrid step's ms/step eager and as a CUDA graph beside the per-sweep
-   damped K1's, as in phase 14;
+   damped K1's, as in phase 14; then the multigrid and CG projections in
+   bf16: K1-damp's bf16-rhs forms (``checks.kernel_checks_damp(...,
+   bf16=True)``: 2-sweep smooths from zero and from a float32 guess,
+   40-sweep solves from zero and from a bf16 guess) against their plain
+   twin at 2048² and on 64 × 256², bit for bit, and timed beside the
+   bound; the multigrid (two cycles) and CG-20 steps in bf16 at 2048²
+   through ``bf16_path`` (launch counts: 8 of the bf16-rhs forms and 52
+   of K1-damp's float32 form a multigrid step; the state bf16;
+   ``bf16_bars``; ms/step eager and as a graph beside float32), the
+   projection's max|div| in float32 and bf16 beside Jacobi-20's, and
+   both steps in bf16 on the 64 × 256² batch (``solver_batch_path``:
+   each grid within 4 bf16 units of its own step, the batch to
+   ``bf16_bars``);
 19. the block route (``block_phase``): K9-block, K12-block, K10-block and
    K11-block against their plain twins on a corner, an edge, an interior
    and the far corner block of (2, 4) blocks at 2048² (every mode the
@@ -282,7 +294,8 @@ forms, ``advect_slab_exact`` and ``advect3_slab_exact``, from phase 10's
 8-slab 2048² and phase 11's 8-slab 256³ exact runs), the
 8-slab 256³ parity run of phase 11 for the z-slab kernels, phase 12's tail
 runs for K17, phase 10's chunk run for B13's split-source K9, phases 14 and
-18 for K1-damp and
+18 for K1-damp (its bf16-rhs forms, ``jacobi_sweeps_damp_bf16``, from
+phase 18's bf16 multigrid runs) and
 phase 16 for K6's window, phase 19's runs for the block forms), its max|Δ|
 from phase 3, 3b, 3c, 3d, 3e, 3f or 19,
 its device time beside its plain version's, and its bound; the bf16 forms
@@ -310,6 +323,7 @@ import functools
 import glob
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -384,6 +398,11 @@ KERNEL_SOURCES = {
     # (advect3_shift(_fused)'s cmax).
     "jacobi_sweep_damp": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
     "jacobi_sweeps_damp": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_KERNELS}:645"),
+    # K1-damp's bf16-rhs forms, the finest level of a bf16 multigrid
+    # solve: JAX smooths that level in jnp (its Pallas smoother takes
+    # float32 only, ops/multigrid.py:266 there).
+    "jacobi_sweeps_damp_bf16": (f"{CSRC}/jacobi_tiles.cu",
+                                f"{TPU_KERNELS}:645"),
     "advect3_windowed": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
     # The bf16 storage forms of the same pallas_calls (JAX's bf16 mode).
     "jacobi_sweep_bf16": (f"{CSRC}/jacobi.cu", f"{TPU_KERNELS}:645"),
@@ -435,7 +454,7 @@ def card_line() -> str:
 
 
 def mg_cycle_launches(n: int, pre: int = 2, post: int = 2,
-                      min_n: int = 16) -> dict[str, int]:
+                      min_n: int = 16, bf16: bool = False) -> dict[str, int]:
     """Damped K1 launches of one multigrid V-cycle from interior ``n``, by
     kernel: a ``pre`` and a ``post`` smooth on every level whose interior
     is at least ``min_n``, each next padded side the half rounded down to
@@ -444,21 +463,27 @@ def mg_cycle_launches(n: int, pre: int = 2, post: int = 2,
     each smooth in the launches of ``cuda_ops.damped_plan`` (K1-damp's,
     or a launch a sweep of the per-sweep damped K1; at 2048²: 15 K1-damp
     launches; from 256²: 9, one grid or a batch, whose smooths are one
-    launch whatever the tile)."""
+    launch whatever the tile).  ``bf16``: the finest level's rhs is bf16,
+    so its smooths take K1-damp's bf16-rhs forms
+    (``jacobi_sweeps_damp_bf16``: 2 of the 15 at 2048²)."""
     from fluidsimulationcuda_torch.kernels import cuda_ops
 
-    launches = {"jacobi_sweeps_damp": 0, "jacobi_sweep_damp": 0}
+    launches = dict.fromkeys(("jacobi_sweeps_damp", "jacobi_sweep_damp",
+                              "jacobi_sweeps_damp_bf16"), 0)
+    fine = True
 
     def smooth(side, sweeps):
         per_launch = cuda_ops.damped_plan(side, sweeps).per_launch
         if per_launch == 0:
             launches["jacobi_sweep_damp"] += sweeps
         else:
-            launches["jacobi_sweeps_damp"] += -(-sweeps // per_launch)
+            name = "jacobi_sweeps_damp" + ("_bf16" if bf16 and fine else "")
+            launches[name] += -(-sweeps // per_launch)
 
     while n >= min_n:
         smooth(n + 2, pre)
         smooth(n + 2, post)
+        fine = False
         half = (n + 2) // 2
         n = max(16, half - half % 8) - 2
     smooth(n + 2, 40)
@@ -478,7 +503,8 @@ def expected_launches(cfg) -> dict[str, int]:
     T sweeps a launch (``k1_launches``), the density's first ``iters-1``
     before K4.  The multigrid projection smooths with K1-damp, counted
     apart (``mg_cycle_launches``); the CG projection launches K2 alone
-    (its iterations are torch operations)."""
+    (its iterations are torch operations).  In bf16 both take K2's bf16
+    forms, and multigrid's finest level K1-damp's bf16-rhs forms."""
     k_vel = k_dens = cfg.jacobi_iters
     if cfg.diffusion_solver == "chebyshev":
         k_vel = k_dens = cfg.cheby_iters
@@ -495,16 +521,18 @@ def expected_launches(cfg) -> dict[str, int]:
                     "jacobi_sweeps": 2 * k1_launches(k_p),
                     "divergence_bf16": 2, "gradient_bf16": 2,
                     "advect_bf16": 2}
-        return launches
-    launches = {"jacobi_sweeps": (2 * k1_launches(k_vel) + 2 * k1_launches(k_p)
-                                  + k1_launches(k_dens - 1)),
-                "divergence": 2, "gradient": 2, "advect": 1,
-                "dens_advect": 1}
+    else:
+        launches = {"jacobi_sweeps": (2 * k1_launches(k_vel)
+                                      + 2 * k1_launches(k_p)
+                                      + k1_launches(k_dens - 1)),
+                    "divergence": 2, "gradient": 2, "advect": 1,
+                    "dens_advect": 1}
     if cfg.pressure_solver == "multigrid":
-        for name, count in mg_cycle_launches(cfg.n).items():
+        for name, count in mg_cycle_launches(
+                cfg.n, bf16=cfg.dtype == torch.bfloat16).items():
             if count:
                 launches[name] = 2 * cfg.mg_cycles * count
-    return launches
+    return {k: c for k, c in launches.items() if c}
 
 
 def solves3(cfg) -> list[tuple[int, int, bool]]:
@@ -853,6 +881,13 @@ def bf16_bars(got, twins, ref16, ref32, label: str) -> None:
         raise AssertionError(f"{label}: differs from the plain twins")
     if not (d32 < 0.15 and d32 <= r32):
         raise AssertionError(f"{label}: too far from the float32 run")
+
+
+def bf16_unit(x: torch.Tensor) -> float:
+    """One bf16 rounding unit at the magnitude of ``x``'s largest value (8
+    significant bits)."""
+    m = float(x.abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
 
 
 def require_finite(state, what: str) -> None:
@@ -2104,7 +2139,8 @@ def bf16_datagen(cfg, label: str, card: str, steps: int = 20,
     return counts
 
 
-def solver_batch_path(solver: str, card: str) -> dict[str, int]:
+def solver_batch_path(solver: str, card: str,
+                      dtype: torch.dtype = torch.float32) -> dict[str, int]:
     """Phase 18's batched multigrid or CG step: ``SOLVER_BATCH`` grids of
     256² (20 Jacobi iterations) in one ``make_batched_step_fn`` step;
     launch counts those of one grid (K1's damped sweep takes the batch);
@@ -2112,15 +2148,24 @@ def solver_batch_path(solver: str, card: str) -> dict[str, int]:
     one-grid step, max|Δ| and the grids equal bit for bit printed (the
     batched transfer GEMMs and CG's per-grid reductions may sum in another
     order than one grid's); the batch held to the ``reference`` backend at
-    the same bar.  Returns the launch counts."""
+    the same bar.  In bf16 (``dtype``) every field stays bf16, each grid
+    is held within 4 bf16 units of each field's magnitude of its own step
+    (``bf16_unit``; the batched GEMMs' float32 pressure, a few ulp from
+    one grid's, rounds some cells of u to the neighbouring bf16 value,
+    which the advection and the second projection carry: 2 units measured
+    in multigrid's u, CG bit for bit), and the batch to
+    ``bf16_bars`` (the plain twins bit for bit; the float32 batch from the
+    same bf16 draw, widened; the ``reference`` backend's bf16 batch).
+    Returns the launch counts."""
     from fluidsimulationcuda_torch import (FluidState, Sources, SimConfig,
                                            batched_init, make_batched_step_fn,
                                            step)
     from fluidsimulationcuda_torch.kernels import cuda_ops
 
     cfg = SimConfig(n=254, jacobi_iters=20, backend="cuda", device="cuda",
-                    pressure_solver=solver)
-    label = f"{SOLVER_BATCH} × 256² {solver} step"
+                    pressure_solver=solver, dtype=dtype)
+    bf16 = dtype == torch.bfloat16
+    label = f"{'bf16 ' if bf16 else ''}{SOLVER_BATCH} × 256² {solver} step"
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     state, src = batched_init(gen, cfg, SOLVER_BATCH)
     torch.cuda.synchronize()
@@ -2132,20 +2177,42 @@ def solver_batch_path(solver: str, card: str) -> dict[str, int]:
     print(f"{label}: launches {counts} (expected those of one grid, {want})")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
-    worst, exact = 0.0, 0
+    if any(f.dtype != dtype for f in got[:3]):
+        raise AssertionError(f"{label}: the state left {dtype}")
+    worst, units, exact = 0.0, 0.0, 0
     for g in range(SOLVER_BATCH):
         one = step(cfg, FluidState(*(t[g] for t in state[:3])),
                    Sources(*(t[g] for t in src[:3])))
         mine = FluidState(*(t[g] for t in got[:3]))
-        require_close(mine, one, 1e-5, 2e-5, f"{label}, grid {g} alone")
+        if bf16:
+            for (name, a), (_, b) in zip(fields(mine), fields(one)):
+                d = float((a.float() - b.float()).abs().max())
+                unit = bf16_unit(b)
+                units = max(units, d / unit)
+                if not d <= 4 * unit:
+                    raise AssertionError(f"{label}, grid {g} alone: {name} "
+                                         f"max|d| {d:.3e} > 4 bf16 units "
+                                         f"{4 * unit:.3e}")
+        else:
+            require_close(mine, one, 1e-5, 2e-5, f"{label}, grid {g} alone")
         worst = max(worst, max_diff(mine, one))
         exact += all(torch.equal(a, b) for a, b in zip(mine[:3], one[:3]))
     ref = make_batched_step_fn(cfg.replace(backend="reference"))(state, src)
-    require_close(got, ref, 1e-5, 2e-5, f"{label} vs the reference backend")
+    if bf16:
+        twins = step(cfg, state, src, cuda_ops.make_opset(cfg, plain=True))
+        ref32 = make_batched_step_fn(cfg.replace(dtype=torch.float32))(
+            FluidState(*(t.float() for t in state[:3])),
+            Sources(*(t.float() for t in src[:3])))
+        bf16_bars(got, twins, ref, ref32, label)
+    else:
+        require_close(got, ref, 1e-5, 2e-5,
+                      f"{label} vs the reference backend")
     print(f"{label}: each grid against its own step max|d| {worst:.3e} "
-          f"({exact} of {SOLVER_BATCH} bit for bit); against the reference "
-          f"backend max|d| {max_diff(got, ref):.3e} ({card})")
-    if solver == "multigrid":
+          f"({f'{units:.2f} bf16 units, ' if bf16 else ''}{exact} of "
+          f"{SOLVER_BATCH} bit for bit); against the reference backend "
+          f"max|d| {max_diff(got, ref):.3e} ({card})")
+    # The per-sweep damped K1 has no bf16 form.
+    if solver == "multigrid" and not bf16:
         fn = make_batched_step_fn(cfg)
         smoother_routes(lambda s: fn(s, src), got, label, card)
     return counts
@@ -2557,6 +2624,27 @@ def main() -> None:
     launches_sb = solver_batch_path("multigrid", card)
     launches_sb = {k: c + launches_sb[k]
                    for k, c in solver_batch_path("cg", card).items()}
+    # The multigrid and CG projections in bf16: K1-damp's bf16-rhs forms
+    # (the finest level of a bf16 multigrid solve) against their plain
+    # twins, bit for bit, and timed; the steps at 2048² and on the batch.
+    compare(checks.kernel_checks_damp(2048, "cuda", SEED, bf16=True), 0.0,
+            errs, "bit for bit")
+    compare(checks.kernel_checks_damp(256, "cuda", SEED, SOLVER_BATCH,
+                                      bf16=True), 0.0, errs, "bit for bit")
+    times.update(kernel_times(checks.timing_checks_damp(2048, "cuda", SEED,
+                                                        bf16=True),
+                              "2048²", card))
+    kernel_times(checks.timing_checks_damp(256, "cuda", SEED, SOLVER_BATCH,
+                                           bf16=True),
+                 f"{SOLVER_BATCH} × 256²", card)
+    for c, label in ((mg, "2048² multigrid, 2 cycles"), (cg, "2048² CG-20")):
+        launches_16 = {k: n + launches_16[k] for k, n in bf16_path(
+            c, f"bf16 {label}", card, 6).items()}
+        projection_quality(c, f"float32 {label}", bar=False)
+        projection_quality(c.replace(dtype=torch.bfloat16), f"bf16 {label}",
+                           bar=False)
+        launches_sb = {k: n + launches_sb[k] for k, n in solver_batch_path(
+            c.pressure_solver, card, torch.bfloat16).items()}
 
     phase("19 the block route: (px, py) blocks on one card")
     launches_blocks = block_phase(parity, cheby, big, card, errs, times)

@@ -63,9 +63,11 @@ loader patched), and:
   against the ``reference`` backend; both also in windowed mode, each
   windowed 2-D step's velocity tail again through K17 against the step's
   own; and 2-D steps at ``--mg-side`` with the multigrid (two cycles; one
-  with fast math) and CG pressure solves; K1-damp
+  with fast math) and CG pressure solves, in float32 and in bf16 (held to
+  the plain twins); K1-damp
   (``kernel_checks_damp`` at ``--mg-side`` and on a batch of three 16²
-  grids, whole-grid launches) and K6's window
+  grids, whole-grid launches; its bf16-rhs forms there too) and K6's
+  window
   (``kernel_checks3_windowed``) against their plain versions, and K1-damp
   against the same calls on the per-sweep damped K1, bit for bit;
 - one multi-device step per mode and route goes through the ``cuda``
@@ -567,6 +569,10 @@ def main() -> int:
     check_list = (checks.kernel_checks(args.side2, "cpu", 1)
                   + checks.kernel_checks_damp(args.mg_side, "cpu", 1)
                   + checks.kernel_checks_damp(16, "cpu", 1, batch=3)
+                  + checks.kernel_checks_damp(args.mg_side, "cpu", 1,
+                                              bf16=True)
+                  + checks.kernel_checks_damp(16, "cpu", 1, batch=3,
+                                              bf16=True)
                   + checks.kernel_checks3(args.side3, "cpu", 1)
                   + checks.kernel_checks3_windowed(args.side3, "cpu", 1)
                   + checks.kernel_checks_slab(args.slab_side,
@@ -651,6 +657,8 @@ def main() -> int:
                "multigrid fast": dict(pressure_solver="multigrid",
                                       mg_cycles=1, fast_math=True),
                "cg": dict(pressure_solver="cg", cg_iters=20)}
+    solvers.update({f"bf16 {m}": dict(solvers[m], dtype=torch.bfloat16)
+                    for m in ("multigrid", "cg")})
     for ndim, side, mode, kw in (
             [(2, args.side2, m, kw) for m, kw in modes.items()]
             + [(2, args.side2, m, kw) for m, kw in bf16.items()]

@@ -30,8 +30,10 @@ class SimConfig:
         ``reference`` backend runs its plain ops on bf16 tensors, as JAX's
         jnp ops run on bf16 arrays; the ``cuda`` kernels read bf16, compute
         in float32 and write bf16 (``kernels/cuda_ops.py``).  The 2-D step
-        with the Jacobi or Chebyshev pressure solve only: multigrid and CG,
-        the 3-D step and the multi-device steps raise
+        on one device, with any pressure solve: multigrid takes a bf16
+        divergence to a float32 pressure (float32 transfers and coarse
+        levels, as JAX's), CG stays bf16, and the gradient writes the
+        state's dtype.  The 3-D step and the multi-device steps raise
         ``NotImplementedError`` in bf16 (ROADMAP §A 5).
       backend: ``"reference"`` runs the plain torch ops of ``ops/``;
         ``"cuda"`` runs the hand-written kernels of ``kernels/cuda_ops.py``
@@ -134,13 +136,6 @@ class SimConfig:
             raise NotImplementedError(
                 "bf16 storage runs the 2-D step only; the 3-D step in bf16 "
                 "waits on ROADMAP §A 5")
-        if (self.dtype == torch.bfloat16
-                and self.pressure_solver in ("multigrid", "cg")):
-            raise NotImplementedError(
-                f"pressure_solver={self.pressure_solver!r} in bf16 waits on "
-                f"ROADMAP §A 5 (its float32 transfer matrices and "
-                f"reductions would meet bf16 fields); bf16 takes 'jacobi' "
-                f"or 'chebyshev'")
         if (self.ndim == 3 and self.diffusion_solver == "chebyshev"
                 and self.pressure_solver != "chebyshev"):
             # The velocity-diffusion swap is validated only with the

@@ -102,13 +102,24 @@
 // omw*x_k + w*val in that order, x_k the cell's own value in the tile (0
 // for the zero guess), omw = 1-w rounded once on the host from the double
 // 1 - 0.8, and a ghost cell takes the border rule of its interior
-// neighbour's damped value.  Float32 only, no fold, fast mode or
-// Chebyshev, as the smoother calls it.
+// neighbour's damped value.  No fold, fast mode or Chebyshev, as the
+// smoother calls it.  Float32, and two bf16-rhs forms for the finest level
+// of a bf16 multigrid solve (fsc_jacobi_sweeps_damp_bf16; JAX smooths that
+// level in jnp, ops/multigrid.py:266 there): the rhs read as bf16, the
+// iterate float32 in the tile.  From zero or a bf16 guess, w and 1-w
+// rounded to bf16 on the host (JAX's _smooth takes them in p's dtype) and
+// the result rounded to bf16 once, at the store, where JAX's jnp sweeps
+// round every operation (ROADMAP §C); from a float32 guess, the float32
+// arithmetic of JAX's _smooth on it, bit for bit.  A solve split over
+// launches keeps its iterate float32 between them.  The per-sweep form
+// has no bf16 one.
 //
 // Bound: a smooth reads its guess (none from zero) and its rhs and writes
 // its result once, 8-12 bytes a cell, and does 9 float operations a cell
 // a sweep: 0.0150 ms for a 2-sweep smooth at 2048^2 (bytes), where the
-// per-sweep form's two launches each read x and rhs and write x.  Below
+// per-sweep form's two launches each read x and rhs and write x; the bf16
+// forms 4 bytes a cell from zero (0.0050 ms) and 10 from a float32 guess
+// (0.0125 ms).  Below
 // 1024^2 a level's smooth is latency, a launch and a few dependent passes
 // through a block, and 40 launches of the per-sweep form for the coarsest
 // 16^2 solve are latency alone.
@@ -724,14 +735,15 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 }
 
 // K1-damp on tiles of kRows rows of warps (GridTiles; kRows 1 or 4: tiles
-// of 16 or 64 rows) or on whole grids (WholeGrid, kRows 2: 32 rows).
-template <class G, int kRows>
+// of 16 or 64 rows) or on whole grids (WholeGrid, kRows 2: 32 rows); x of
+// TX, the rhs of TR and out of TO (float32, or the bf16-rhs forms).
+template <class G, int kRows, typename TX, typename TR, typename TO>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
-    jacobi_damped_sweeps_kernel(fsc::SweepParams p, Tiling t,
-                                float* __restrict__ out) {
+    jacobi_damped_sweeps_kernel(fsc::SweepParamsT<TX, float, TR> p, Tiling t,
+                                TO* __restrict__ out) {
   extern __shared__ float tile[];
   sweeps_body<kRows, false, false, true>(G(t), p, t, out, nullptr,
-                                         static_cast<float*>(nullptr), tile);
+                                         static_cast<TR*>(nullptr), tile);
 }
 
 // One slab of a grouped K9-damp launch: its x and rhs row sources (a
@@ -1058,16 +1070,52 @@ int launch_slab(bool cheby, const fsc::SweepParams& p, const Tiling& t,
                                                         rhs_out, stream);
 }
 
-template <class G, int kRows>
-int launch_damped_kernel(const fsc::SweepParams& p, const Tiling& t,
-                         float* out, dim3 grid, cudaStream_t stream) {
-  const auto kernel = jacobi_damped_sweeps_kernel<G, kRows>;
+template <class G, int kRows, typename TX, typename TR, typename TO>
+int launch_damped_kernel(const fsc::SweepParamsT<TX, float, TR>& p,
+                         const Tiling& t, void* out, dim3 grid,
+                         cudaStream_t stream) {
+  const auto kernel = jacobi_damped_sweeps_kernel<G, kRows, TX, TR, TO>;
   constexpr int kSmem = Tile<kRows>::kSmem;
   static std::atomic<int> attribute[kDevices];
   const int err = smem_attribute(kernel, kSmem, attribute);
   if (err != 0) return err;
-  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(p, t, out);
+  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(
+      p, t, static_cast<TO*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// One K1-damp launch (fsc_jacobi_sweeps_damp's arguments) of the form
+// <TX, TR, TO>: its tiling, then the whole-grid or the tiled kernel.
+template <typename TX, typename TR, typename TO>
+int launch_damped(const void* x, const void* rhs, void* out, int side, int b,
+                  float alpha, float beta, float w, float omw, int count,
+                  int nb, int nb1, int b1, int tile_rows, int whole,
+                  void* stream) {
+  if (nb < 1 || (!whole && tile_rows != Tile<4>::kTileH &&
+                 tile_rows != Tile<1>::kTileH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Tiling t{};
+  const int err = whole ? plan_whole(side, count, tile_rows, &t)
+                        : plan_tiling(side, count, &t, tile_rows);
+  if (err != 0) return err;
+  t.b = b;
+  t.nb1 = nb1;
+  t.b1 = b1;
+  t.omw = omw;
+  auto p = sweep_params<TX, float, TR>(x, rhs, nullptr, nullptr, alpha, beta,
+                                       0.0f, 0.0f, 0.0f, 0);
+  p.w = w;
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  if (whole)
+    return launch_damped_kernel<WholeGrid, 2, TX, TR, TO>(
+        p, t, out, dim3(1, 1, nb), stream_);
+  const dim3 grid((side + t.out_w - 1) / t.out_w,
+                  (side + t.out_h - 1) / t.out_h, nb);
+  return tile_rows == Tile<4>::kTileH
+             ? launch_damped_kernel<GridTiles, 4, TX, TR, TO>(p, t, out, grid,
+                                                              stream_)
+             : launch_damped_kernel<GridTiles, 1, TX, TR, TO>(p, t, out, grid,
+                                                              stream_);
 }
 
 template <int kRows>
@@ -1205,28 +1253,32 @@ extern "C" int fsc_jacobi_sweeps_damp(const float* x, const float* rhs,
                                       float omw, int count, int nb, int nb1,
                                       int b1, int tile_rows, int whole,
                                       void* stream) {
-  if (nb < 1 || (!whole && tile_rows != Tile<4>::kTileH &&
-                 tile_rows != Tile<1>::kTileH))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Tiling t{};
-  const int err = whole ? plan_whole(side, count, tile_rows, &t)
-                        : plan_tiling(side, count, &t, tile_rows);
-  if (err != 0) return err;
-  t.b = b;
-  t.nb1 = nb1;
-  t.b1 = b1;
-  t.omw = omw;
-  const fsc::SweepParams p = fsc::make_sweep_params(
-      x, rhs, nullptr, nullptr, alpha, beta, 0.0f, 0.0f, 0.0f, w, 0);
-  const auto stream_ = static_cast<cudaStream_t>(stream);
-  if (whole)
-    return launch_damped_kernel<WholeGrid, 2>(p, t, out, dim3(1, 1, nb),
-                                              stream_);
-  const dim3 grid((side + t.out_w - 1) / t.out_w,
-                  (side + t.out_h - 1) / t.out_h, nb);
-  return tile_rows == Tile<4>::kTileH
-             ? launch_damped_kernel<GridTiles, 4>(p, t, out, grid, stream_)
-             : launch_damped_kernel<GridTiles, 1>(p, t, out, grid, stream_);
+  return launch_damped<float, float, float>(x, rhs, out, side, b, alpha,
+                                            beta, w, omw, count, nb, nb1, b1,
+                                            tile_rows, whole, stream);
+}
+
+// K1-damp's bf16-rhs forms (the finest level of a bf16 multigrid solve):
+// the same launch with a bf16 rhs; types says which of x (1) and out (4)
+// hold bf16, the other float32.  The iterate is float32 in the tile;
+// loads widen, the store of a bf16 out rounds once.  The caller passes w
+// and 1-w in the iterate's storage type (bf16-rounded for a solve from
+// zero or from a bf16 guess, as JAX's _smooth takes them).
+extern "C" int fsc_jacobi_sweeps_damp_bf16(const void* x, const void* rhs,
+                                           void* out, int side, int b,
+                                           float alpha, float beta, float w,
+                                           float omw, int count, int nb,
+                                           int nb1, int b1, int tile_rows,
+                                           int whole, int types,
+                                           void* stream) {
+  using fsc::bf16;
+  const auto form =
+      (types & 1) ? ((types & 4) ? launch_damped<bf16, bf16, bf16>
+                                 : launch_damped<bf16, bf16, float>)
+                  : ((types & 4) ? launch_damped<float, bf16, bf16>
+                                 : launch_damped<float, bf16, float>);
+  return form(x, rhs, out, side, b, alpha, beta, w, omw, count, nb, nb1, b1,
+              tile_rows, whole, stream);
 }
 
 // The same sweeps on a (rows, side) row-slab buffer (fsc_jacobi_slab's

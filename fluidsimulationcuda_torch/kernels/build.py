@@ -44,6 +44,8 @@ _SIGNATURES = {
                                _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsc_jacobi_sweeps_damp": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I,
                                _I, _I, _I, _I, _P],
+    "fsc_jacobi_sweeps_damp_bf16": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
+                                    _I, _I, _I, _I, _I, _I, _P],
     "fsc_jacobi_slab_sweeps_damp_group": [_P, _P, _I, _I, _I, _I, _F, _F,
                                           _F, _F, _I, _I, _P],
     "fsc_jacobi_slab_sweeps_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -50,6 +50,7 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "timing_checks_batched",
            "pair_against_singles", "timing_checks_pair",
            "timing_checks_split", "split_against_k18", "kernel_checks_damp",
+           "MG_SMOOTHS_BF16",
            "timing_checks_damp", "kernel_checks_group_smooth", "timing_checks_group_smooth",
            "GROUP_SMOOTHS", "kernel_checks3_windowed",
            "timing_checks3_windowed", "K4_TILE", "K4_BOX_CAP",
@@ -531,16 +532,49 @@ def _damp_cost(sweeps: int, zero_init: bool) -> tuple[float, int]:
     return _sweeps_cost(sweeps, 2, zero_init=zero_init, damp=True)
 
 
+# K1-damp's bf16-rhs calls (sweeps, the guess): the finest level of a bf16
+# multigrid solve, its first pre-smooth from zero and its later smooths
+# from the float32 iterate; below 16² the whole one-level solve from zero
+# and, in the second cycle, from its bf16 result.
+MG_SMOOTHS_BF16 = ((2, "zero"), (2, "float32"), (40, "zero"), (40, "bf16"))
+DAMP_BF16 = ("jacobi_sweeps_damp_bf16",)
+
+
+def _damp_bf16_cost(sweeps: int, guess: str) -> tuple[float, int]:
+    """A bf16-rhs smooth's cost: the bf16 rhs read (half a float32 pass),
+    the guess read (none from zero) and the result written in the guess's
+    dtype; 4 bytes a cell from zero, 10 from a float32 guess."""
+    store = {"zero": 0.5, "bf16": 0.5, "float32": 1.0}[guess]
+    return ((0.0 if guess == "zero" else store) + 0.5 + store,
+            sum(_sweep_ops(sweeps, 2, damp=True)))
+
+
+def _damp_bf16_check(t: "_Inputs", label: str, sweeps: int,
+                     guess: str) -> Check:
+    rhs = t.x0.to(torch.bfloat16)
+    x = t.x.to(torch.bfloat16) if guess == "bf16" else t.x
+    return _timed(_damp_bf16_cost(sweeps, guess), t.cells, label, DAMP_BF16,
+                  co.mg_smooth, co.mg_smooth_plain, x, rhs, sweeps,
+                  guess == "zero")
+
+
 def kernel_checks_damp(side: int, device, seed: int = 0,
-                       batch: int = 0) -> list[Check]:
+                       batch: int = 0, bf16: bool = False) -> list[Check]:
     """K1-damp (B1's ``damp``, the multigrid smoother, in the launches of
     ``cuda_ops.damped_plan``) against the plain multigrid smoother
     ``ops.multigrid._smooth`` at grid ``side`` (a batch of ``batch``
     grids), in the calls a V-cycle makes (``MG_SMOOTHS``), each carrying
     the same call on the per-sweep damped K1 (``chain``); with
-    ``--fmad=false`` all three agree bit for bit."""
+    ``--fmad=false`` all three agree bit for bit.  ``bf16``: instead its
+    bf16-rhs forms in the calls of ``MG_SMOOTHS_BF16``, each against its
+    plain twin ``cuda_ops.mg_smooth_plain`` (no chain: the per-sweep damped
+    K1 has no bf16 form)."""
     t = _Inputs(side, device, seed, batch=batch)
     size = f"{batch} × {side}²" if batch else f"{side}²"
+    if bf16:
+        return [_damp_bf16_check(t, f"{size} damped jacobi {k} sweeps bf16 "
+                                 f"rhs, {g} guess", k, g)
+                for k, g in MG_SMOOTHS_BF16]
     return [_k1_timed(_damp_cost(k, z), t.cells,
                       f"{size} damped jacobi {k} sweeps"
                       f"{' zero_init' if z else ''}", DAMP, co.mg_smooth,
@@ -548,13 +582,18 @@ def kernel_checks_damp(side: int, device, seed: int = 0,
 
 
 def timing_checks_damp(side: int, device, seed: int = 0,
-                       batch: int = 0) -> list[Check]:
+                       batch: int = 0, bf16: bool = False) -> list[Check]:
     """What ``chip_smoke.py`` times of K1-damp at grid ``side`` (a batch
     of ``batch`` grids): the path's launch of a 2-sweep smooth from a guess
     (labelled by its count's name), then the cycle's smoothing calls of
     ``MG_SMOOTHS`` (``kernel_checks_damp``), each beside ``_smooth`` and
-    the per-sweep damped K1."""
+    the per-sweep damped K1.  ``bf16``: the bf16-rhs forms' 2-sweep smooth
+    from a float32 guess (the path's most launched, labelled by the
+    count's name), then the calls of ``MG_SMOOTHS_BF16``."""
     t = _Inputs(side, device, seed, batch=batch)
+    if bf16:
+        return [_damp_bf16_check(t, "jacobi_sweeps_damp_bf16", 2, "float32")
+                ] + kernel_checks_damp(side, device, seed, batch, bf16=True)
     return [_k1_timed(_damp_cost(2, False), t.cells, "jacobi_sweeps_damp",
                       DAMP, co.mg_smooth, _smooth, t.x, t.x0, 2)
             ] + kernel_checks_damp(side, device, seed, batch)

@@ -30,8 +30,12 @@ of their ``VECTOR_WIDTHS`` that the side and the operands' alignment
 allow (``vector_width``; else the one-cell kernel), counted by width too
 (``width_counts``).  Its plain version widens the fields
 to float32, runs the float32 plain version with the same roundings and
-rounds the output to bf16.  A bf16 tensor reaching any other wrapper
-(``fused_dens_advect``, K1's damped sweep, the 3-D, slab and tail
+rounds the output to bf16.  K1-damp, the multigrid smoother, also takes
+a bf16 rhs (the finest level of a bf16 multigrid solve; JAX smooths that
+level in jnp): its bf16-rhs forms (``jacobi_sweeps_damp_bf16``) read the
+rhs as bf16 and a float32 guess, or a bf16 guess or none, and write the
+guess's dtype (``mg_smooth``).  A bf16 tensor reaching any other wrapper
+(``fused_dens_advect``, ``fused_jacobi_pair``, the 3-D, slab and tail
 kernels) raises ``TypeError``: nothing widens it silently.
 
 Four CUDA kernels (K1-K4) carry the five TPU kernel families of the 2-D
@@ -46,7 +50,8 @@ step:
   (``jacobi_sweeps_damp``, K1-damp, the same source) is the multigrid
   smoother (``damp``): a smooth in one launch, on K1's tiles or, on grids
   that one tile holds whole, every sweep of the solve in one launch a
-  grid (``damped_plan``).  The per-sweep K1 (``jacobi_sweep``,
+  grid (``damped_plan``); on a bf16 rhs its bf16-rhs forms
+  (``jacobi_sweeps_damp_bf16``).  The per-sweep K1 (``jacobi_sweep``,
   ``csrc/jacobi.cu``) computes the same sweeps one launch each, damped
   ones counted as ``jacobi_sweep_damp``; ``launch_sweeps(0)`` runs a
   solve through it, the "before" the tiled kernel is timed and held
@@ -86,7 +91,7 @@ from ..ops.advect import advect, advect_windowed
 from ..ops.boundary import embed_interior
 from ..ops.chebyshev import cheby_diffuse, cheby_omegas
 from ..ops.diffuse import damped_diffuse, diffuse
-from ..ops.multigrid import OMEGA, _smooth
+from ..ops.multigrid import OMEGA
 from ..ops.project import apply_pressure_gradient, divergence, grid_h
 from ..ops.source import add_source
 from . import build
@@ -101,7 +106,8 @@ __all__ = [
     "WHOLE_GRID_SIDE", "DampedRoute", "damped_plan", "launch_sweeps",
     "smooth_launches", "SweepLaunch", "sweep_plan", "VECTOR_WIDTHS",
     "vector_width", "vector_widths", "width_counts", "reset_width_counts",
-    "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "fused_jacobi_pair",
+    "fused_jacobi", "fused_jacobi_plain", "mg_smooth", "mg_smooth_plain",
+    "fused_jacobi_pair",
     "fused_jacobi_pair_plain", "fused_project",
     "fused_project_plain", "advect_shift", "advect_shift_plain",
     "advect_shift_fused", "advect_shift_fused_plain", "fused_dens_advect",
@@ -119,7 +125,8 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi_sweeps", "jacobi_sweeps_bf16", "jacobi3_sweeps",
            "jacobi3_slab_sweeps", "jacobi_slab_sweeps", "jacobi_sweeps_damp",
            "jacobi_slab_sweeps_damp_group",
-           "jacobi_slab_sweeps_split", "advect_slab_exact",
+           "jacobi_slab_sweeps_split", "jacobi_sweeps_damp_bf16",
+           "advect_slab_exact",
            "advect3_slab_exact", "jacobi_block_sweeps", "advect_block",
            "advect_block_exact", "divergence_block", "gradient_block")
 _launches = dict.fromkeys(KERNELS, 0)
@@ -454,6 +461,12 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def _round(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (float32 or bf16) as a 0-dim tensor of
+    it rounds (``ops.diffuse.damped_diffuse``'s w and 1-w)."""
+    return float(torch.full((), x, dtype=dtype))
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -578,7 +591,13 @@ class _Sweeps:
     Jacobi (K1 only; ``omw``, 1-w rounded once from float64, goes to the
     launch beside the geometry): ``run()`` takes the launches of
     ``damped_plan`` (K1-damp, counted as ``jacobi_sweeps_damp``, or one
-    per-sweep launch a sweep, ``jacobi_sweep_damp``).
+    per-sweep launch a sweep, ``jacobi_sweep_damp``).  A damped solve on a
+    bf16 rhs takes K1-damp's bf16-rhs forms (``jacobi_sweeps_damp_bf16``):
+    from zero or a bf16 guess, w and 1-w rounded to bf16 in every launch
+    and the solve's last output bf16 (the iterate float32 in between);
+    from a float32 guess, float32 w and output.  The
+    per-sweep damped K1 has no bf16 form: inside ``smooth_launches(0)`` or
+    ``launch_sweeps(0)`` such a solve raises ``TypeError``.
 
     A Chebyshev chain may run in segments (the z-slab step exchanges halos
     between them): ``start`` is the segment's first global sweep, whose ω
@@ -615,8 +634,14 @@ class _Sweeps:
         self.count = (f"{kernel}_damp" if damp is not None
                       else f"{kernel}_bf16" if self.bf16 else kernel)
         self.symbol = f"fsc_{self.count if self.bf16 else kernel}"
-        self.damp = None if damp is None else _f32(damp)
-        self.omw = 0.0 if damp is None else _f32(1.0 - damp)
+        # A damped solve on a bf16 rhs from zero or a bf16 guess takes w
+        # and 1-w in bf16, the guess's dtype, as JAX's _smooth takes them,
+        # and ends in bf16.
+        self.damp_bf16 = damp is not None and self.bf16 and (
+            zero_init or x_init.dtype == torch.bfloat16)
+        wdt = torch.bfloat16 if self.damp_bf16 else torch.float32
+        self.damp = None if damp is None else _round(damp, wdt)
+        self.omw = 0.0 if damp is None else _round(1.0 - damp, wdt)
         self.b = b
         self.side = rhs.shape[-1]
         self.stream = _stream(rhs)
@@ -702,6 +727,10 @@ class _Sweeps:
         per_launch = (route.per_launch if route is not None
                       else SWEEPS_PER_LAUNCH if _forced is None else _forced)
         if per_launch == 0:
+            if self.damp is not None and self.bf16:
+                raise TypeError("the per-sweep damped K1 has no bf16 form; "
+                                "a damped solve on a bf16 rhs runs on "
+                                "K1-damp's tiles or whole grids")
             for _ in range(sweeps):
                 self.sweep(lib, nb, nb1, b1, self.omw)
             return
@@ -844,13 +873,23 @@ class _Sweeps:
     def launch_damped(self, lib, step: SweepLaunch, nb: int, nb1: int,
                       b1: int, route: DampedRoute) -> None:
         """One K1-damp launch: the damped sweeps of ``step`` on tiles or
-        whole grids, as ``route`` says."""
-        out = self._scratch()
+        whole grids, as ``route`` says; on a bf16 rhs its bf16-rhs form,
+        the output bf16 where it ends a solve from zero."""
+        out_bf16 = self.damp_bf16 and step.ends_solve
+        out = torch.empty_like(self.rhs) if out_bf16 else self._scratch()
         alpha, beta = self.coefs[:2]
-        _launch("jacobi_sweeps_damp", lib.fsc_jacobi_sweeps_damp,
-                _ptr(self.x), self.rhs.data_ptr(), out.data_ptr(), self.side,
+        args = (_ptr(self.x), self.rhs.data_ptr(), out.data_ptr(), self.side,
                 self.b, alpha, beta, self.damp, self.omw, step.count, nb, nb1,
-                b1, route.tile_rows, int(route.whole), self.stream)
+                b1, route.tile_rows, int(route.whole))
+        if self.bf16:
+            x_bf16 = self.x is not None and self.x.dtype == torch.bfloat16
+            types = (_X_BF16 if x_bf16 else 0) | (_OUT_BF16 if out_bf16
+                                                  else 0)
+            _launch("jacobi_sweeps_damp_bf16", lib.fsc_jacobi_sweeps_damp_bf16,
+                    *args, types, self.stream)
+        else:
+            _launch("jacobi_sweeps_damp", lib.fsc_jacobi_sweeps_damp, *args,
+                    self.stream)
         self.x = out
         self.k += step.count
 
@@ -860,16 +899,20 @@ class _Sweeps:
 # ---------------------------------------------------------------------------
 
 
-def _check_damp(damp, src_dt, fast, cheby_rho, dtype=torch.float32) -> None:
+def _check_damp(damp, src_dt, fast, cheby_rho, x_init, x0,
+                zero_init) -> None:
     """``damp`` is the multigrid smoother's alone: no source fold, no
     reciprocal form and no Chebyshev weights (JAX asserts the last,
-    ``pallas_ops.py:540``), and float32 (the multigrid solve has no bf16
-    form)."""
-    if damp is not None and (src_dt is not None or fast
-                             or cheby_rho is not None):
+    ``pallas_ops.py:540``).  A float32 rhs takes a float32 guess; a bf16
+    rhs (the finest level of a bf16 multigrid solve) a bf16 guess or the
+    zero guess, or a float32 guess: K1-damp's two bf16-rhs forms."""
+    if damp is None:
+        return
+    if src_dt is not None or fast or cheby_rho is not None:
         raise ValueError("damp takes no src_dt, fast or cheby_rho")
-    if damp is not None and dtype != torch.float32:
-        raise TypeError(f"K1's damped sweep takes float32, got {dtype}")
+    if x0.dtype == torch.float32 and x_init.dtype != torch.float32:
+        raise TypeError(f"K1's damped sweeps on a float32 rhs take a float32 "
+                        f"guess, got {x_init.dtype}")
 
 
 def _fma_diffuse(b, x_init, rhs, ab, iters, cheby_rho=None):
@@ -909,8 +952,19 @@ def fused_jacobi_plain(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
     and Chebyshev sweeps round as K1's do (``_fma_diffuse``), so the two
     agree to the bit.  bf16 fields are widened to float32, the rhs built in
     float32 and rounded to bf16 once (K1's bf16 form, ``_Sweeps``), the
-    sweeps run in float32 and the result is rounded to bf16."""
-    _check_damp(damp, src_dt, fast, cheby_rho, x0.dtype)
+    sweeps run in float32 and the result is rounded to bf16.  A damped
+    solve on a bf16 rhs is K1-damp's bf16-rhs forms: float32 sweeps with
+    w and 1-w in the guess's dtype, as JAX's ``_smooth`` takes them, and
+    the result in it: from zero or a bf16 guess, w and 1-w rounded to bf16
+    and the result rounded to bf16 once; from a float32 guess, float32
+    throughout (``_smooth`` on that guess, bit for bit)."""
+    _check_damp(damp, src_dt, fast, cheby_rho, x_init, x0, zero_init)
+    if damp is not None and x0.dtype == torch.bfloat16:
+        dtype = torch.bfloat16 if zero_init else x_init.dtype
+        x = (torch.zeros_like(x0, dtype=torch.float32) if zero_init
+             else x_init.float())
+        return damped_diffuse(b, x, x0.float(), alpha, beta, iters, damp,
+                              omega_dtype=dtype).to(dtype)
     if zero_init:
         x_init = torch.zeros_like(x0)
     if x0.dtype == torch.bfloat16:
@@ -957,8 +1011,12 @@ def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
     ``damped_plan``."""
     if iters < 1:
         raise ValueError("iters must be >= 1")
-    _check_damp(damp, src_dt, fast, cheby_rho, x0.dtype)
-    if not _on_card(x0.shape[-1], x_init, x0, dtypes=_F32_BF16):
+    _check_damp(damp, src_dt, fast, cheby_rho, x_init, x0, zero_init)
+    # A damped solve's guess may be float32 beside a bf16 rhs.
+    card = _on_card(x0.shape[-1], *((x0,) if damp is not None
+                                    else (x_init, x0)), dtypes=_F32_BF16)
+    _on_device((x_init, x0.shape, _F32_BF16), (x0, x0.shape, _F32_BF16))
+    if not card:
         return fused_jacobi_plain(b, x_init, x0, alpha, beta, iters,
                                   zero_init=zero_init, src_dt=src_dt,
                                   fast=fast, cheby_rho=cheby_rho, damp=damp)
@@ -967,12 +1025,22 @@ def fused_jacobi(b, x_init, x0, alpha, beta, iters, *, zero_init=False,
                   cheby_rho=cheby_rho, damp=damp)
 
 
+def mg_smooth_plain(p, div, sweeps, zero_init=False):
+    """Plain form of ``mg_smooth``."""
+    return fused_jacobi_plain(0, p, div, 1.0, 4.0, sweeps,
+                              zero_init=zero_init, damp=OMEGA)
+
+
 def mg_smooth(p, div, sweeps, zero_init=False):
     """The multigrid smoother on K1-damp (the ``cuda`` OpSet's
     ``smooth``): ``sweeps`` damped sweeps, w = ``ops.multigrid.OMEGA``, of
     the pressure problem (b=0, alpha=1, beta=4) from ``p`` or from zero, in
     the launches of ``damped_plan``; equal to ``ops.multigrid._smooth`` bit
-    for bit."""
+    for bit in float32 and from a float32 guess on a bf16 rhs.  From zero
+    or a bf16 guess on a bf16 rhs (a bf16 solve's first pre-smooth; below
+    16² its whole solve) the iterate stays float32 and is rounded to bf16
+    once, at the store, where JAX's jnp ``_smooth`` rounds every operation
+    (ROADMAP §C)."""
     return fused_jacobi(0, p, div, 1.0, 4.0, sweeps, zero_init=zero_init,
                         damp=OMEGA)
 
@@ -1266,7 +1334,7 @@ def make_opset(cfg, plain: bool = False) -> OpSet:
             fused_jacobi_plain, advect_shift_plain, advect_shift_fused_plain,
             fused_dens_advect_plain)
         div, grad, project, smooth = (divergence_p_plain, gradient_p_plain,
-                                      fused_project_plain, _smooth)
+                                      fused_project_plain, mg_smooth_plain)
     else:
         jacobi, adv, adv_fused, dens_adv = (
             fused_jacobi, advect_shift, advect_shift_fused, fused_dens_advect)

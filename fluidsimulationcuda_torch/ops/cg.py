@@ -11,7 +11,8 @@ mean-zero subspace CG walks.  Plain CG from p = 0, no preconditioner (a
 Jacobi one, diag(A) = 4I, only rescales).  An optional alternative to the
 parity solve (``SimConfig.pressure_solver = "cg"``), non-parity numerics.
 
-No kernel: both backends run this code (the projection around it takes
+In bf16 storage the solve stays bf16, as JAX's does, its dot products
+summed in float32 (``_dot``).  No kernel: both backends run this code (the projection around it takes
 K2's divergence and gradient on the card).  It takes one padded grid or a
 batch of them on leading axes, each solved alone, as JAX's vmapped solve
 runs them: every reduction is per grid, over the last two axes.  The
@@ -39,8 +40,12 @@ def _apply_A_bc(p_int: torch.Tensor) -> torch.Tensor:
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Each grid's sum of ``a * b``, kept as a (..., 1, 1) tensor."""
-    return (a * b).sum(dim=(-2, -1), keepdim=True)
+    """Each grid's sum of ``a * b``, kept as a (..., 1, 1) tensor of their
+    dtype.  The products and the sum are float32 and only the sum is
+    rounded: in bf16, XLA fuses JAX's ``jnp.sum(r * r)`` into its float32
+    accumulation without rounding the products to bf16 (a bf16 product
+    rounded first moved one ``rs`` by a bf16 unit at n = 30)."""
+    return (a.float() * b.float()).sum(dim=(-2, -1), keepdim=True).to(a.dtype)
 
 
 def cg_pressure_solve(div: torch.Tensor, iters: int = 20) -> torch.Tensor:

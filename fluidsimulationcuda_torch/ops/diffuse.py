@@ -50,15 +50,18 @@ def diffuse(b: int, x_init: torch.Tensor, x0: torch.Tensor, alpha: float,
 
 
 def damped_diffuse(b: int, x_init: torch.Tensor, x0: torch.Tensor,
-                   alpha: float, beta: float, iters: int,
-                   damp: float) -> torch.Tensor:
+                   alpha: float, beta: float, iters: int, damp: float, *,
+                   omega_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``iters`` damped Jacobi sweeps ``x <- (1-w)*x + w*S(x)`` with
     ``w = damp`` and ``S`` the sweep of ``diffuse`` (guess ``x_init``, rhs
     ``x0``), in the order of the TPU kernel's damped mode
-    (``pallas_ops.py:456-459``).  1-w is taken in float64 and rounded to
-    float32 once, as ``jnp.asarray(1.0 - damp, float32)`` rounds it."""
-    w = as_scalar(damp, x0)
-    omw = as_scalar(1.0 - damp, x0)
+    (``pallas_ops.py:456-459``).  w and 1-w are taken in the guess's dtype
+    (or ``omega_dtype``), 1-w from float64 and rounded once, as JAX's
+    multigrid ``_smooth`` takes ``jnp.asarray(1.0 - w, p.dtype)``: in
+    bf16 0.80078125 and 0.2001953125."""
+    wt = dict(dtype=omega_dtype or x_init.dtype, device=x_init.device)
+    w = torch.full((), damp, **wt)
+    omw = torch.full((), 1.0 - damp, **wt)
     a = as_scalar(alpha, x0)
     bt = as_scalar(beta, x0)
     rhs_int = x0[..., 1:-1, 1:-1]

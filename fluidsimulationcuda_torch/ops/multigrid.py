@@ -21,7 +21,12 @@ non-parity numerics.  Two cycles, as in the JAX package:
   a copy to the card on every level of every cycle.  The products run in
   full float32 (PyTorch's default; TF32 is off): the JAX package found that
   a one-pass bf16 transfer fails its divergence bar
-  (``ops/multigrid.py:195-204`` there).
+  (``ops/multigrid.py:195-204`` there).  A bf16 residual is promoted to
+  float32 before the products, as JAX's matmul promotes it, so on a bf16
+  divergence the coarse levels, the corrected iterate and the returned
+  pressure are float32; only the first pre-smooth of the first cycle runs
+  in bf16 (from a bf16 zero), every later fine smooth in float32 against
+  the bf16 rhs.
 
 Every cycle takes its smoother as an argument, ``smooth(p, div, sweeps,
 zero_init=False)``: ``_smooth`` here (the ``reference`` backend), or K1's
@@ -62,10 +67,13 @@ def residual(p: torch.Tensor, div: torch.Tensor) -> torch.Tensor:
 def _smooth(p: torch.Tensor, div: torch.Tensor, sweeps: int,
             zero_init: bool = False) -> torch.Tensor:
     """Damped-Jacobi smoothing p <- (1-w) p + w (div + N p) / 4 from ``p``
-    (from zero with ``zero_init``).  JAX writes the sweep
-    ``(rhs + neigh) * 0.25``; ``damped_diffuse``'s ``(rhs + 1*neigh) / 4``
-    is the same to the bit (a multiplication by 1 and a division by a power
-    of two round nothing)."""
+    (from zero with ``zero_init``, a zero of div's dtype).  JAX writes the
+    sweep ``(rhs + neigh) * 0.25``; ``damped_diffuse``'s ``(rhs + 1*neigh)
+    / 4`` is the same to the bit (a multiplication by 1 and a division by a
+    power of two round nothing).  w and 1-w are taken in p's dtype, as
+    JAX's ``_smooth`` takes them: on a bf16 divergence the first smooth
+    runs in bf16 from a bf16 zero (w 0.80078125), every later one in
+    float32 against the bf16 rhs."""
     if zero_init:
         p = torch.zeros_like(div)
     return damped_diffuse(0, p, div, 1.0, 4.0, sweeps, OMEGA)
@@ -188,6 +196,7 @@ def _restrict_mat(r: torch.Tensor, nc: int) -> torch.Tensor:
     rin = r[..., 1:-1, 1:-1]
     nf = rin.shape[-1]
     _, R = _transfer_mats(nf, nc, r.device)
+    rin = rin.to(torch.promote_types(rin.dtype, R.dtype))
     rc = torch.matmul(torch.matmul(R, rin), R.T)
     return embed_copy(((nf / nc) ** 2) * rc)
 
@@ -197,6 +206,7 @@ def _prolong_mat(e: torch.Tensor, nf: int) -> torch.Tensor:
     ``nf`` by the separable matrices."""
     ein = e[..., 1:-1, 1:-1]
     P, _ = _transfer_mats(nf, ein.shape[-1], e.device)
+    ein = ein.to(torch.promote_types(ein.dtype, P.dtype))
     return embed_copy(torch.matmul(torch.matmul(P, ein), P.T))
 
 

@@ -47,13 +47,17 @@ def pressure_solve(div: torch.Tensor, iters: int) -> torch.Tensor:
 def apply_pressure_gradient(u: torch.Tensor, v: torch.Tensor,
                             p: torch.Tensor, n: int):
     """``u -= 0.5*(pR-pL)/h``, ``v -= 0.5*(pD-pU)/h``
-    (``FluidSequential.c:165-172``); boundary modes 1 and 2."""
+    (``FluidSequential.c:165-172``); boundary modes 1 and 2.  Written in
+    u's dtype: a float32 pressure (bf16 multigrid's) against bf16 u, v is
+    computed in float32 and rounded once, as JAX's Pallas ``gradient_p``
+    writes it; JAX's jnp version returns float32 there (ROADMAP §C)."""
     h = _h(n, u)
     un = (u[..., 1:-1, 1:-1]
           - (0.5 * (p[..., 1:-1, 2:] - p[..., 1:-1, :-2])) / h)
     vn = (v[..., 1:-1, 1:-1]
           - (0.5 * (p[..., 2:, 1:-1] - p[..., :-2, 1:-1])) / h)
-    return embed_interior(1, un), embed_interior(2, vn)
+    return (embed_interior(1, un.to(u.dtype)),
+            embed_interior(2, vn.to(v.dtype)))
 
 
 def project(u: torch.Tensor, v: torch.Tensor, n: int, iters: int):

@@ -343,13 +343,18 @@ SOLVERS = {"multigrid": dict(pressure_solver="multigrid", mg_cycles=2),
 @pytest.mark.parametrize("n", [14, 30])
 @pytest.mark.parametrize("backend", ["reference", "cuda"])
 @pytest.mark.parametrize("solver", list(SOLVERS))
-def test_batched_solver_step_equals_per_grid(solver, backend, n):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+def test_batched_solver_step_equals_per_grid(dtype, solver, backend, n):
     """Each grid of a batched multigrid or CG step equals its own step bit
-    for bit, and the audited displacement is the grids' largest."""
-    cfg = _cfg(backend, n=n, jacobi_iters=6, **SOLVERS[solver])
-    state = ft.FluidState(*map(_t, _state(72, n=n)))
-    src = ft.Sources(*map(_t, _sources(73, n=n)))
+    for bit, and the audited displacement is the grids' largest; in bf16
+    storage too, where every field stays bf16 (multigrid's float32
+    pressure included: the gradient writes u's dtype)."""
+    cfg = _cfg(backend, n=n, jacobi_iters=6, dtype=dtype, **SOLVERS[solver])
+    state = ft.FluidState(*(_t(a).to(dtype) for a in _state(72, n=n)))
+    src = ft.Sources(*(_t(a).to(dtype) for a in _sources(73, n=n)))
     got, disp = ft.step_audited(cfg, state, src)
+    assert all(f.dtype == dtype for f in got[:3])
     disps = []
     for g in range(B):
         one, d = ft.step_audited(cfg, _one(state, g), _one(src, g))

@@ -1292,3 +1292,57 @@ def test_block_step_2048_exact_equals_single_device(cuda):
         single = sim.step(single, src) if k == 0 else sim.step(single)
         for a, b in zip(got[:3], single[:3]):
             assert torch.equal(a, b), f"step {k + 1}"
+
+
+@pytest.mark.parametrize("side,batch", [(16, 0), (130, 3), (2048, 0)])
+def test_damped_bf16_rhs_forms_match_plain(cuda, side, batch):
+    """K1-damp's bf16-rhs forms (``checks.kernel_checks_damp(bf16=True)``:
+    2-sweep smooths from zero and from a float32 guess, 40-sweep solves
+    from zero and from a bf16 guess) against their plain twin
+    ``cuda_ops.mg_smooth_plain``, bit for bit, counted as
+    ``jacobi_sweeps_damp_bf16`` alone; the per-sweep damped route refuses
+    them."""
+    for check in checks.kernel_checks_damp(side, cuda, side, batch,
+                                           bf16=True):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = {k: c for k, c in cuda_ops.launch_counts().items() if c}
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert set(counts) == {"jacobi_sweeps_damp_bf16"}, (check.label,
+                                                           counts)
+        assert got.dtype == want.dtype and torch.equal(got, want), check.label
+    x, div = (torch.rand(side, side, device=cuda) for _ in range(2))
+    with pytest.raises(TypeError), cuda_ops.smooth_launches(0):
+        cuda_ops.mg_smooth(x, div.to(torch.bfloat16), 2)
+
+
+@pytest.mark.parametrize("solver", ["multigrid", "cg"])
+def test_bf16_solver_step_2048_launches_and_matches_plain(cuda, solver):
+    """The bf16 multigrid (two cycles) and CG-20 steps at 2048²: the
+    launches ``chip_smoke.expected_launches`` counts (8 of K1-damp's
+    bf16-rhs forms a multigrid step, 52 of its float32 form), every field
+    bf16, held by ``chip_smoke.bf16_bars`` to the ``cuda`` OpSet's plain
+    twins bit for bit and to the float32 step from the same bf16 draw."""
+    import chip_smoke
+
+    cfg = ft.SimConfig(n=2046, jacobi_iters=20, backend="cuda", device=cuda,
+                       dtype=torch.bfloat16, pressure_solver=solver,
+                       mg_cycles=2, cg_iters=20)
+    state, src = ft.reference_init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.step(cfg, state, src)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    assert counts == {**dict.fromkeys(cuda_ops.KERNELS, 0),
+                      **chip_smoke.expected_launches(cfg)}
+    assert counts["jacobi_sweeps_damp_bf16"] == (8 if solver == "multigrid"
+                                                 else 0)
+    assert all(f.dtype == torch.bfloat16 for f in got[:3])
+    twins = ft.step(cfg, state, src, cuda_ops.make_opset(cfg, plain=True))
+    ref16 = ft.step(cfg.replace(backend="reference"), state, src)
+    ref32 = ft.step(cfg.replace(dtype=torch.float32),
+                    ft.FluidState(*(t.float() for t in state[:3])),
+                    ft.Sources(*(t.float() for t in src[:3])))
+    chip_smoke.bf16_bars(got, twins, ref16, ref32, f"bf16 2048² {solver}")

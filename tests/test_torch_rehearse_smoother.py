@@ -15,8 +15,12 @@ library takes, up to the largest side each holds (where a sweep range
 that shrank a line a sweep, as the tiled form's does, would drop grid
 rows); the launches of ``cuda_ops.damped_plan`` and ``sweep_plan``; the
 launch counts ``chip_smoke.py`` expects of the multigrid step, and that
-step on the shim against the ``reference`` backend.  Skips only without
-``g++``.
+step on the shim against the ``reference`` backend.  Its bf16-rhs forms
+(the finest level of a bf16 multigrid solve) against their plain twin,
+bit for bit, from zero, a bf16 and a float32 guess, on both tiles, a whole
+16² grid and split over launches, one grid and a batch of three; the
+per-sweep route's refusal; the bf16 multigrid and CG steps on the shim.
+Skips only without ``g++``.
 """
 import contextlib
 import importlib.util
@@ -347,4 +351,107 @@ def test_multigrid_step_on_the_shim(shim, cycles):
     assert counts == {k: design.get(k, 0) for k in co.KERNELS}
     assert counts["jacobi_sweeps_damp"] == 2 * cycles * 5
     for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K1-damp's bf16-rhs forms (the finest level of a bf16 multigrid solve)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# fsc_jacobi_sweeps_damp_bf16's operand types (its last argument before the
+# stream): x bf16 (1), out bf16 (4).
+TYPES = 15
+
+
+def _bf16_inputs(side: int, batch: int, guess: str):
+    x, div = _inputs(side, batch)
+    return (x.to(BF16) if guess == "bf16" else x), div.to(BF16)
+
+
+def _plain16(p, div, sweeps, zero_init):
+    """``fused_jacobi_plain(damp=0.8)``'s bf16-rhs forms with
+    ``_smooth_card``'s boundary modes."""
+    def one(b, pp, dd):
+        return co.fused_jacobi_plain(b, pp, dd, 1.0, 4.0, sweeps,
+                                     zero_init=zero_init, damp=OMEGA)
+    if p.dim() == 2:
+        return one(0, p, div)
+    return torch.cat([one(2, p[:1], div[:1]), one(0, p[1:], div[1:])])
+
+
+ROUTES = {"tiles16": (34, 2, lambda: co.smooth_launches(tile_rows=16)),
+          "tiles64": (34, 2, lambda: co.smooth_launches(tile_rows=64)),
+          "whole": (16, 40, contextlib.nullcontext),
+          "split": (34, 7, lambda: co.smooth_launches(3, 16))}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("guess", ["zero", "float32", "bf16"])
+@pytest.mark.parametrize("batch", [0, 3], ids=["one", "batch3"])
+def test_bf16_rhs_forms_match_plain(shim, route, guess, batch):
+    """K1-damp on a bf16 rhs against its plain twin, bit for bit: from zero
+    or a bf16 guess (w and 1-w rounded to bf16, the result bf16) and from a
+    float32 guess (float32 throughout, ``_smooth`` on that guess), on 16-
+    and 64-row tiles (one launch of a 2-sweep smooth), on a whole 16² grid
+    (40 sweeps in one launch) and split over tiled launches of 3 sweeps
+    (7 sweeps: the iterate float32 between launches, only the last launch
+    writing bf16), one grid and a batch of three.  Each launch counts as
+    ``jacobi_sweeps_damp_bf16`` and passes the operand types of its x and
+    its output."""
+    side, sweeps, forced = ROUTES[route]
+    x, div = _bf16_inputs(side, batch, guess)
+    zero = guess == "zero"
+    co.reset_launch_counts()
+    got, launches = _run(shim, forced, _smooth_card, x, div, sweeps, zero)
+    want = _plain16(x, div, sweeps, zero)
+    out_dtype = torch.float32 if guess == "float32" else BF16
+    assert got.dtype == want.dtype == out_dtype
+    assert torch.equal(got, want)
+    if guess == "float32" and batch == 0:
+        assert torch.equal(got, _smooth(x, div, sweeps))
+    kernels = {k for k, _ in launches}
+    assert kernels == {"jacobi_sweeps_damp_bf16"}
+    types = [a[TYPES] for _, a in launches]
+    first_x = 1 if guess == "bf16" else 0
+    last_out = 0 if guess == "float32" else 4
+    assert types[0] & 1 == first_x and all(t & 1 == 0 for t in types[1:])
+    assert types[-1] & 4 == last_out and all(t & 4 == 0 for t in types[:-1])
+    assert len(launches) == {"split": 3}.get(route, 1)
+
+
+def test_bf16_rhs_refuses_the_per_sweep_route(shim):
+    """The per-sweep damped K1 has no bf16 form: forced there
+    (``smooth_launches(0)``), a damped solve on a bf16 rhs raises
+    ``TypeError`` and launches nothing; it takes no other route."""
+    x, div = _bf16_inputs(34, 0, "float32")
+    co.reset_launch_counts()
+    with pytest.raises(TypeError, match="per-sweep damped K1"):
+        _run(shim, lambda: co.smooth_launches(0), co.mg_smooth, x, div, 2)
+    assert not any(co.launch_counts().values())
+
+
+@pytest.mark.parametrize("solver", ["multigrid", "cg"])
+def test_bf16_solver_step_on_the_shim(shim, solver):
+    """The bf16 multigrid and CG steps at 64² through the ``cuda`` backend
+    on the shim: the launches ``chip_smoke.expected_launches`` counts (8
+    of K1-damp's bf16-rhs forms in the two-cycle multigrid step), every
+    field bf16, and the ``cuda`` OpSet's plain twins bit for bit."""
+    mod, lib = shim
+    ref = ft.SimConfig(n=62, backend="reference", device="cpu", dtype=BF16,
+                       pressure_solver=solver, mg_cycles=2)
+    cfg = ref.replace()
+    object.__setattr__(cfg, "backend", "cuda")
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), ref)
+    with mod.kernels_on_cpu(lib):
+        co.reset_launch_counts()
+        got = ft.step(cfg, state, src)
+        counts = co.launch_counts()
+    want = ft.step(cfg, state, src, co.make_opset(cfg, plain=True))
+    design = _chip_smoke().expected_launches(cfg)
+    assert counts == {k: design.get(k, 0) for k in co.KERNELS}
+    assert counts["jacobi_sweeps_damp_bf16"] == (8 if solver == "multigrid"
+                                                 else 0)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == BF16
         assert torch.equal(a, b)
