@@ -282,7 +282,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    time the halo and gather copies take; and ``"auto"`` on 64 slabs of 4
    rows of 256² (the block route, exact) and the slab route's deep-halo
    Chebyshev (512² compensated fast on 64 slabs of 8 rows: its solves on
-   the (64, 1) blocks), each against ``StableFluids2D.step``.
+   the (64, 1) blocks), each against ``StableFluids2D.step``;
+20. bf16 storage on the block route (``bf16_block_phase``): the bf16 forms
+   of K9-block, K12-block, K10-block and K11-block against their plain
+   twins (which round where the kernels store) on a corner, an edge, an
+   interior and the far corner block of (2, 4) blocks at 2048², in every
+   mode the step gives them (bit for bit; fast forms within 1e-5), each
+   timed beside its bound in 2-byte storage and its float32 form (the
+   gathers beside ``grid_sample`` on bf16); then the bf16 block step
+   (``bf16_block_path``) on (2, 4) blocks of one card at 2048², 20
+   iterations: exact, windowed, compensated with fast math, multigrid
+   (two cycles) and CG-20, and ``"auto"`` at 8192² on (2, 2), exact, 40
+   iterations, which must take blocks; each held to the plain twins' step
+   (``_BlockStep(..., plain=True)``) bit for bit and to the float32 block
+   step by ``bf16_bars``, with its rel-L2 to the ``reference`` backend's
+   bf16 block step printed, its state bf16 and finite, its launches a step
+   against ``expected_launches_blocks`` (the bf16 forms; the float32 block
+   forms at 0), eager and graph ms/step beside the float32 block step's,
+   and for multigrid and CG max|div| after the first projection beside
+   float32's.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
@@ -296,8 +314,9 @@ forms, ``advect_slab_exact`` and ``advect3_slab_exact``, from phase 10's
 runs for K17, phase 10's chunk run for B13's split-source K9, phases 14 and
 18 for K1-damp (its bf16-rhs forms, ``jacobi_sweeps_damp_bf16``, from
 phase 18's bf16 multigrid runs) and
-phase 16 for K6's window, phase 19's runs for the block forms), its max|Δ|
-from phase 3, 3b, 3c, 3d, 3e, 3f or 19,
+phase 16 for K6's window, phase 19's runs for the block forms, phase
+20's for their bf16 forms), its max|Δ|
+from phase 3, 3b, 3c, 3d, 3e, 3f, 19 or 20,
 its device time beside its plain version's, and its bound; the bf16 forms
 are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 ``gradient_bf16``, ``advect_bf16``: launches from phase 18's 2048² parity
@@ -422,6 +441,14 @@ KERNEL_SOURCES = {
     "advect_block_exact": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:245"),
     "divergence_block": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:317"),
     "gradient_block": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:329"),
+    # Their bf16 forms: the TPU step's bf16 storage runs its jnp block
+    # route (no pallas_call; its slab route is float32).
+    "jacobi_block_sweeps_bf16": (f"{CSRC}/jacobi_tiles.cu",
+                                 f"{TPU_STEP}:195"),
+    "advect_block_bf16": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:274"),
+    "advect_block_exact_bf16": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:245"),
+    "divergence_block_bf16": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:317"),
+    "gradient_block_bf16": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:329"),
     "divergence_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "gradient_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "advect_bf16": (f"{CSRC}/advect.cu", f"{TPU_KERNELS}:1182"),
@@ -701,16 +728,24 @@ def slab_mg_launches(cfg, slabs: int) -> dict[str, int]:
 def block_mg_launches(cfg, px: int, py: int) -> dict[str, int]:
     """``slab_mg_launches`` on the (px, py) blocks of the block route: each
     fine smooth one K9-block launch a block for every ``BLOCK_SMOOTH``
-    sweeps (no more than a block's side), the coarse grid as on slabs."""
+    sweeps (no more than a block's side), the coarse grid as on slabs (in
+    bf16 K9-block's and K1-damp's bf16 forms)."""
     from fluidsimulationcuda_torch.parallel.solvers import BLOCK_SMOOTH
 
     side = cfg.n + 2
     per = min(BLOCK_SMOOTH, side // px, side // py)
+    name = "jacobi_block_sweeps" + _bf16_suffix(cfg)
 
     def fine(sweeps, launches):
-        launches["jacobi_block_sweeps"] += px * py * -(-sweeps // per)
+        launches[name] += px * py * -(-sweeps // per)
 
-    return _mg_launches(cfg, "jacobi_block_sweeps", fine)
+    return _mg_launches(cfg, name, fine)
+
+
+def _bf16_suffix(cfg) -> str:
+    """``"_bf16"`` for a bf16 config, whose kernels count their bf16
+    forms under that suffix, else ``""``."""
+    return "_bf16" if cfg.dtype == torch.bfloat16 else ""
 
 
 def _mg_launches(cfg, fine_kernel: str, fine) -> dict[str, int]:
@@ -720,15 +755,17 @@ def _mg_launches(cfg, fine_kernel: str, fine) -> dict[str, int]:
     from fluidsimulationcuda_torch.kernels import cuda_ops
     from fluidsimulationcuda_torch.ops.multigrid import mg_levels
 
-    launches = dict.fromkeys((fine_kernel, "jacobi_sweeps_damp",
-                              "jacobi_sweep_damp"), 0)
+    # A bf16 coarse grid (the block route's) smooths on K1-damp's bf16-rhs
+    # forms, which have no per-sweep form.
+    tiled = "jacobi_sweeps_damp" + _bf16_suffix(cfg)
+    launches = dict.fromkeys((fine_kernel, tiled, "jacobi_sweep_damp"), 0)
 
     def coarse(n, sweeps):
         per_launch = cuda_ops.damped_plan(n + 2, sweeps).per_launch
         if per_launch == 0:
             launches["jacobi_sweep_damp"] += sweeps
         else:
-            launches["jacobi_sweeps_damp"] += -(-sweeps // per_launch)
+            launches[tiled] += -(-sweeps // per_launch)
 
     def classic(n, level):  # ops.multigrid.v_cycle
         coarse(n, 2)
@@ -765,8 +802,10 @@ def expected_launches_blocks(cfg, px: int, py: int,
     diffusions, two pressure solves, the density diffusion; the multigrid
     projection's smooths by ``block_mg_launches``, none for CG), K10-block
     and K11-block once per projection, K12-block for the u/v pair and the
-    density (its exact form with ``exact`` gathers)."""
+    density (its exact form with ``exact`` gathers).  A bf16 config
+    launches each kernel's bf16 form and none of the float32 ones."""
     side = cfg.n + 2
+    bf = _bf16_suffix(cfg)
     m, k, blocks = side // px, side // py, px * py
     mode = cfg.diffusion_solver
     k_vel = cfg.cheby_iters if mode == "chebyshev" else cfg.jacobi_iters
@@ -777,10 +816,10 @@ def expected_launches_blocks(cfg, px: int, py: int,
            "cg": 0}.get(cfg.pressure_solver, cfg.jacobi_iters)
     chunks = (2 * block_chunks(k_vel, m, k) + block_chunks(k_dens, m, k)
               + (2 * block_chunks(k_p, m, k) if k_p else 0))
-    launches = {"jacobi_block_sweeps": blocks * chunks,
-                "divergence_block": 2 * blocks,
-                "gradient_block": 2 * blocks,
-                "advect_block_exact" if exact else "advect_block":
+    launches = {f"jacobi_block_sweeps{bf}": blocks * chunks,
+                f"divergence_block{bf}": 2 * blocks,
+                f"gradient_block{bf}": 2 * blocks,
+                ("advect_block_exact" if exact else "advect_block") + bf:
                 2 * blocks}
     if cfg.pressure_solver == "multigrid":
         for name, count in block_mg_launches(cfg, px, py).items():
@@ -2649,12 +2688,15 @@ def main() -> None:
     phase("19 the block route: (px, py) blocks on one card")
     launches_blocks = block_phase(parity, cheby, big, card, errs, times)
 
+    phase("20 bf16 on the block route: (px, py) blocks on one card")
+    launches_b16 = bf16_block_phase(parity, cheby, big, card, errs, times)
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
                      + launches_slab_mg[k] + launches_exact[k]
                      + launches_slab3[k] + launches_dg[k] + launches_mg[k]
                      + launches_cg[k] + launches_w3[k] + launches_cli[k]
                      + launches_16[k] + launches_sb[k] + launches_blocks[k]
-                     for k in cuda_ops.KERNELS}
+                     + launches_b16[k] for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_sweeps_split"] = launches_split[
         "jacobi_slab_sweeps_split"]
@@ -2740,6 +2782,170 @@ def block_phase(parity, cheby, big, card: str, errs: dict[str, float],
                tol=None, advect_mode="auto", shard_backend="auto",
                timed=False)
     return total
+
+
+def bf16_block_phase(parity, cheby, big, card: str, errs: dict[str, float],
+                     times: dict) -> dict[str, int]:
+    """Phase 20: the bf16 forms of the block kernels against their plain
+    twins on a corner, an edge, an interior and the far corner block of
+    (2, 4) blocks at 2048² (bit for bit, fast forms within ``checks.TOL``)
+    and timed beside their float32 forms; the bf16 block step at 2048² on
+    (2, 4) blocks exact, windowed, compensated, multigrid and CG-20, and
+    ``"auto"`` at 8192² on (2, 2), exact (``bf16_block_path``).  Returns
+    the launches of its runs."""
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    forms = checks.kernel_checks_block(2048, 1024, 512, "cuda", SEED,
+                                       bf16=True)
+    compare([c for c in forms if "fast" not in c.label], 0.0, errs,
+            "bit for bit")
+    compare([c for c in forms if "fast" in c.label], checks.TOL, errs)
+    del forms
+    times.update(kernel_times(checks.timing_checks_block(
+        2048, 2, 4, "cuda", SEED, bf16=True), "2048² on (2, 4) blocks, bf16",
+        card))
+    total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
+
+    def add(counts):
+        for k, c in counts.items():
+            total[k] += c
+
+    mesh24 = (2, 4)
+    add(bf16_block_path(parity, mesh24, "bf16 blocks 2048² parity, exact",
+                        card, 3))
+    add(bf16_block_path(parity, mesh24, "bf16 blocks 2048² parity, windowed",
+                        card, 3, advect_mode="windowed"))
+    rho, k_d, k_p = cheby.cheby_rho, cheby.cheby_iters, cheby.press_cheby_iters
+    add(bf16_block_path(cheby.replace(fast_math=True), mesh24,
+                        f"bf16 blocks 2048² compensated (rho={rho}, "
+                        f"k_d={k_d}, k_p={k_p}) fast_math, exact", card, 3))
+    add(bf16_block_path(parity.replace(pressure_solver="multigrid",
+                                       mg_cycles=2), mesh24,
+                        "bf16 blocks 2048² multigrid, 2 cycles, exact", card,
+                        3, quality=True))
+    add(bf16_block_path(parity.replace(pressure_solver="cg", cg_iters=20),
+                        mesh24, "bf16 blocks 2048² CG-20, exact", card, 3,
+                        quality=True))
+    add(bf16_block_path(big, (2, 2), "bf16 8192² parity 40 it, auto, exact",
+                        card, 2, shard_backend="auto"))
+    return total
+
+
+def bf16_block_path(cfg, shape: tuple[int, int], label: str, card: str,
+                    steps: int, advect_mode: str = "exact",
+                    shard_backend: str = "reference",
+                    quality: bool = False) -> dict[str, int]:
+    """Phase 20's run of ``cfg`` (float32, the ``cuda`` backend) in bf16 on
+    a ``shape`` mesh of one card: an impulse step plus ``steps-1`` of
+    ``make_sharded_step_fn(cfg in bf16, shard_backend=shard_backend,
+    advect_mode=advect_mode)`` from the reference draw rounded to bf16,
+    which must take the block route; its launches a step against
+    ``expected_launches_blocks`` (the bf16 forms, the float32 block forms
+    at 0); the state bf16 and held to ``bf16_bars`` (the plain twins' step
+    bit for bit, the float32 block step from the same rounded draw, the
+    ``reference`` backend's bf16 block step); eager and CUDA-graph ms/step
+    of the bf16 and the float32 block steps.  With ``quality``, max|div|
+    after the step's first projection in both storages.  Returns the bf16
+    run's launch counts."""
+    from fluidsimulationcuda_torch import (FluidState, Sources,
+                                           reference_init, zero_sources)
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_blocks, unshard)
+    from fluidsimulationcuda_torch.parallel.sharded import _BlockStep
+
+    c16 = cfg.replace(dtype=torch.bfloat16)
+    px, py = shape
+    mesh = make_mesh([torch.device("cuda", 0)] * (px * py), shape=shape)
+    step_fn = make_sharded_step_fn(c16, mesh, advect_mode=advect_mode,
+                                   shard_backend=shard_backend)
+    if step_fn.layout != "blocks":
+        raise AssertionError(f"{label}: bf16 took the {step_fn.layout}")
+    exact = step_fn.advect_mode == "exact"
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    draw16 = [FluidState(*(t.to(torch.bfloat16) for t in state0[:3])),
+              Sources(*(t.to(torch.bfloat16) for t in sources[:3]))]
+    draw32 = [type(t)(*(x.float() for x in t[:3])) for t in draw16]
+    cut16 = [shard_blocks(t, mesh) for t in (*draw16, zero_sources(c16))]
+    cut32 = [shard_blocks(t, mesh) for t in (*draw32, zero_sources(cfg))]
+    side = cfg.n + 2
+    print(f"{label}: blocks of {side // px} x {side // py} on mesh {shape}, "
+          f"shard_backend {shard_backend!r} took "
+          f"{step_fn.shard_backend!r}, advect_mode {step_fn.advect_mode!r}")
+
+    def run(fn, start, src, zeros):
+        state = start
+        for k in range(steps):
+            state = fn(state, src if k == 0 else zeros)
+        return state
+
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    last = run(step_fn, *cut16)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    per_step = expected_launches_blocks(c16, px, py, exact)
+    want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: launches a step {sum(per_step.values())} "
+          f"({ {k: c for k, c in per_step.items() if c} }, computed from the "
+          f"code); counted over {steps} steps {counts == want}")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    got = unshard(last, mesh)
+    if any(f.dtype != torch.bfloat16 for f in got[:3]):
+        raise AssertionError(f"{label}: the state left bf16")
+    twins = unshard(run(_BlockStep(c16, mesh, False, exact, plain=True),
+                        *cut16), mesh)
+    ref16 = unshard(run(make_sharded_step_fn(
+        c16.replace(backend="reference"), mesh, advect_mode=advect_mode,
+        shard_backend=shard_backend), *cut16), mesh)
+    step32 = make_sharded_step_fn(cfg, mesh, advect_mode=step_fn.advect_mode,
+                                  shard_backend="reference")
+    last32 = run(step32, *cut32)
+    bf16_bars(got, twins, ref16, unshard(last32, mesh),
+              f"{label}, step {steps}")
+    ms = {}
+    for name, fn, state, zeros in (("bf16", step_fn, last, cut16[2]),
+                                   ("float32", step32, last32, cut32[2])):
+        state, eager = timed_steps(lambda s: fn(s, zeros), state, 2)
+        graph = checks.device_ms(lambda: fn(state, zeros), reps=2)
+        ms[name] = (eager, graph)
+    print(f"{label}: ms/step eager / as a CUDA graph: bf16 "
+          f"{ms['bf16'][0]:.4f} / {ms['bf16'][1]:.4f}, float32 block step "
+          f"{ms['float32'][0]:.4f} / {ms['float32'][1]:.4f} (bf16/float32 "
+          f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
+    if quality:
+        divs = [block_projection_div(c, mesh, draw) for c, draw in
+                ((c16, draw16), (cfg, draw32))]
+        print(f"{label}: max|div| of the diffused impulse velocity "
+              f"{divs[1][0]:.4e}; after the first projection bf16 "
+              f"{divs[0][1]:.4e}, float32 {divs[1][1]:.4e} "
+              f"({divs[0][1] / divs[1][1]:.3f}x)")
+    return counts
+
+
+def block_projection_div(cfg, mesh, draw) -> tuple[float, float]:
+    """max|div| (float32 stencil) of the block step's diffused impulse
+    velocity before and after its first projection, on the blocks of
+    ``mesh`` from ``draw`` (state, sources)."""
+    from fluidsimulationcuda_torch.ops.source import add_source
+    from fluidsimulationcuda_torch.parallel import shard_blocks
+    from fluidsimulationcuda_torch.parallel.sharded import _BlockStep
+
+    run = _BlockStep(cfg, mesh, False, True)
+    state, src = (shard_blocks(t, mesh) for t in draw)
+    alpha = cfg.diffusion_alpha_visc
+    beta = 1.0 + 4.0 * alpha
+    u, v = ([add_source(a, s, cfg.dt) for a, s in zip(f, g)]
+            for f, g in ((state.u, src.u), (state.v, src.v)))
+    u = run._diffusion(1, src.u, u, alpha, beta)
+    v = run._diffusion(2, src.v, v, alpha, beta)
+    stitch = run.blocks.stitch
+    before = max_div(stitch(u).float(), stitch(v).float(), cfg.n)
+    u, v = run._project(u, v)
+    return before, max_div(stitch(u).float(), stitch(v).float(), cfg.n)
 
 
 def k1_against_both(bf16: bool, errs: dict[str, float]) -> None:
@@ -2903,7 +3109,7 @@ def kernel_times(check_list, size: str, card: str, floor: float | None = None
         if library is not None:
             line += f"  grid_sample (gather only) {library:.5f} ms"
         if c.counterpart is not None:
-            line += (f"  slab counterpart on as many cells "
+            line += (f"  {c.counterpart_label} "
                      f"{checks.device_ms(c.counterpart):.5f} ms")
         if c.boxes is not None:
             line += (f"  blocks staged "

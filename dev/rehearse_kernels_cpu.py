@@ -50,8 +50,8 @@ loader patched), and:
   ``kernel_checks_slab`` and ``kernel_checks_group_smooth`` (K9-damp; B13
   also against K18 then K9) for
   slabs of ``--slab-side``/4 rows at ``--slab-side``,
-  ``kernel_checks_block`` (the block route's forms) for blocks of
-  ``--slab-side``/2 x ``--slab-side``/4 there,
+  ``kernel_checks_block`` (the block route's forms, float32 and bf16) for
+  blocks of ``--slab-side``/2 x ``--slab-side``/4 there,
   ``kernel_checks_slab3`` and
   ``kernel_checks_slab3_flows`` for z-slabs of ``--slab3-side``/3 planes at
   ``--slab3-side``) compares kernel and plain version, on a shim device of
@@ -73,9 +73,10 @@ loader patched), and:
 - one multi-device step per mode and route goes through the ``cuda``
   backend on a virtual CPU mesh (4 and 8 slabs at ``--slab-side``; the
   multigrid and CG projections too; the block route on (2, 4), (4, 2)
-  and (2, 2) blocks, against ``chip_smoke.expected_launches_blocks``), its
-  launch counts against ``chip_smoke.expected_launches_sharded``, its state
-  against the ``reference`` backend of the same sharded step; and one 3-D
+  and (2, 2) blocks, against ``chip_smoke.expected_launches_blocks``, and
+  in bf16, held to the plain twins' step), its launch counts against
+  ``chip_smoke.expected_launches_sharded``, its state against the
+  ``reference`` backend of the same sharded step; and one 3-D
   multi-device step per mode on 3 and 8 z-slabs at ``--slab3-side``
   (chained segments included) against
   ``chip_smoke.expected_launches_sharded3`` and the ``reference`` backend.
@@ -584,6 +585,10 @@ def main() -> int:
                                                args.slab_side // 2,
                                                args.slab_side // 4, "cpu",
                                                1)
+                  + checks.kernel_checks_block(args.slab_side,
+                                               args.slab_side // 2,
+                                               args.slab_side // 4, "cpu",
+                                               1, bf16=True)
                   + checks.kernel_checks_slab3(args.slab3_side,
                                                args.slab3_side // 3, "cpu",
                                                1)
@@ -723,8 +728,9 @@ def main() -> int:
 def rehearse_sharded(lib, side: int) -> int:
     """One multi-device step per mode and route (row slabs and 2-D blocks)
     through the ``cuda`` backend on a virtual CPU mesh against the
-    ``reference`` backend of the same step; returns the number of
-    failures."""
+    ``reference`` backend of the same step (a bf16 block step against the
+    plain twins' step, ``_BlockStep(..., plain=True)``, bit for bit);
+    returns the number of failures."""
     import chip_smoke
     import fluidsimulationcuda_torch as ft
     from fluidsimulationcuda_torch.kernels import cuda_ops
@@ -732,6 +738,7 @@ def rehearse_sharded(lib, side: int) -> int:
                                                     make_sharded_step_fn,
                                                     shard_blocks,
                                                     shard_state, unshard)
+    from fluidsimulationcuda_torch.parallel.sharded import _BlockStep
 
     base = dict(n=side - 2, jacobi_iters=6, max_courant=2)
     modes = {
@@ -754,19 +761,30 @@ def rehearse_sharded(lib, side: int) -> int:
     # The block route: (px, py) blocks (shard_backend="reference"), and
     # the slab route's Chebyshev solves whose halo is deeper than a slab
     # (compensated on 8 slabs of 8 rows: on the (8, 1) blocks).
-    for mode, slabs, gather, scale in (
-            ("parity", 4, "auto", 1), ("parity", 8, "auto", 1),
-            ("compensated", 4, "auto", 1), ("chebyshev-dens", 4, "auto", 1),
-            ("multi-chunk", 4, "auto", 1), ("multigrid", 4, "auto", 1),
-            ("multigrid", 8, "auto", 1), ("cg", 8, "auto", 1),
-            ("parity", 4, "exact", 400), ("parity", 8, "exact", 400),
-            ("compensated", 4, "exact", 1), ("compensated", 8, "auto", 1),
-            ("parity", (2, 4), "exact", 400), ("parity", (4, 2), "windowed", 1),
-            ("compensated", (2, 2), "exact", 1),
-            ("multigrid", (2, 4), "exact", 1), ("cg", (2, 2), "exact", 1)):
+    f32, bf16 = torch.float32, torch.bfloat16
+    for mode, slabs, gather, scale, dtype in (
+            ("parity", 4, "auto", 1, f32), ("parity", 8, "auto", 1, f32),
+            ("compensated", 4, "auto", 1, f32),
+            ("chebyshev-dens", 4, "auto", 1, f32),
+            ("multi-chunk", 4, "auto", 1, f32),
+            ("multigrid", 4, "auto", 1, f32),
+            ("multigrid", 8, "auto", 1, f32), ("cg", 8, "auto", 1, f32),
+            ("parity", 4, "exact", 400, f32), ("parity", 8, "exact", 400, f32),
+            ("compensated", 4, "exact", 1, f32),
+            ("compensated", 8, "auto", 1, f32),
+            ("parity", (2, 4), "exact", 400, f32),
+            ("parity", (4, 2), "windowed", 1, f32),
+            ("compensated", (2, 2), "exact", 1, f32),
+            ("multigrid", (2, 4), "exact", 1, f32),
+            ("cg", (2, 2), "exact", 1, f32),
+            ("parity", (2, 4), "exact", 400, bf16),
+            ("parity", (4, 2), "windowed", 1, bf16),
+            ("compensated", (2, 2), "exact", 1, bf16),
+            ("multigrid", (2, 4), "exact", 1, bf16),
+            ("cg", (2, 2), "exact", 1, bf16)):
         ref = ft.SimConfig(backend="reference", device="cpu",
                            **{**base, **modes[mode]})
-        cfg = ref.replace()
+        cfg = ref.replace(dtype=dtype)
         # The cuda backend on CPU tensors, which only the shim allows.
         object.__setattr__(cfg, "backend", "cuda")
         shape = slabs if isinstance(slabs, tuple) else (slabs, 1)
@@ -775,6 +793,8 @@ def rehearse_sharded(lib, side: int) -> int:
                          shape=shape)
         state, src = ft.reference_init(torch.Generator().manual_seed(0), ref)
         src = src._replace(u=src.u * scale, v=src.v * scale)
+        state, src = (type(t)(*(x.to(dtype) for x in t[:3]))
+                      for t in (state, src))
         cut = shard_blocks if blocks else shard_state
         state, src = cut(state, mesh), cut(src, mesh)
         backend = "reference" if blocks else "auto"
@@ -784,9 +804,13 @@ def rehearse_sharded(lib, side: int) -> int:
             cuda_ops.reset_launch_counts()
             got = unshard(step(state, src), mesh)
             counts = cuda_ops.launch_counts()
-        want = unshard(make_sharded_step_fn(
-            ref, mesh, advect_mode=gather, shard_backend=backend)(state, src),
-            mesh)
+        if dtype == bf16:
+            want = unshard(_BlockStep(cfg, mesh, False, step.advect_mode ==
+                                      "exact", plain=True)(state, src), mesh)
+        else:
+            want = unshard(make_sharded_step_fn(
+                ref, mesh, advect_mode=gather, shard_backend=backend)(
+                    state, src), mesh)
         exact = step.advect_mode == "exact"
         per_step = (chip_smoke.expected_launches_blocks(cfg, *shape, exact)
                     if blocks else chip_smoke.expected_launches_sharded(
@@ -794,10 +818,11 @@ def rehearse_sharded(lib, side: int) -> int:
         launches_ok = counts == {k: per_step.get(k, 0)
                                  for k in cuda_ops.KERNELS}
         err = chip_smoke.max_diff(got, want)
-        tol = 1e-4 if cfg.fast_math else 0.0
+        tol = 1e-4 if cfg.fast_math and dtype == f32 else 0.0
         bad = err > tol or not launches_ok
         failures += bad
-        print(f"  sharded {mode:15s} {slabs} {step.layout} {step.advect_mode} "
+        print(f"  sharded {mode:15s} {slabs} {str(dtype)[6:]} {step.layout} "
+              f"{step.advect_mode} "
               f"{step.routes} max|d| vs "
               f"reference {err:.3e}, launches "
               f"{'as designed' if launches_ok else counts}"

@@ -44,7 +44,12 @@
 // field (_advect_local, :245).  u and v may be views with a row stride
 // (the u/v pair gathers its own cells from its buffers).  A ghost cell of
 // the grid in the block takes the border rule of its interior neighbour's
-// gather, which lies in the block.
+// gather, which lies in the block.  Both have bf16 forms
+// (fsc_advect_block_bf16, fsc_advect_block_exact_bf16): bf16 fields,
+// velocities and outputs, the backtrace coordinates and the blend float32
+// (a grid index past 256 has no exact bf16 value; JAX's block route
+// computes them in bf16 and loses the cell there, ROADMAP §C), each result
+// rounded to bf16 at the store.
 #include "fsc_common.cuh"
 
 namespace {
@@ -95,15 +100,15 @@ int launch(const float* d1, const float* d2, const float* u, const float* v,
 // K12-block: the gather of one or two fields at the (m, k) block at global
 // origin (r0, c0): from the assembled (n+2)^2 fields (kExact) or from the
 // blocks extended by `halo` cells, window cmax.
-template <bool kExact>
-__global__ void advect_block_kernel(const float* __restrict__ d1,
-                                    const float* __restrict__ d2,
-                                    const float* __restrict__ u,
-                                    const float* __restrict__ v, int ustride,
-                                    float* __restrict__ o1,
-                                    float* __restrict__ o2, int m, int k,
-                                    int n, int r0, int c0, int halo,
-                                    int cmax, int b1, int b2, float dt0) {
+template <bool kExact, typename T>
+__global__ void advect_block_kernel(const T* __restrict__ d1,
+                                    const T* __restrict__ d2,
+                                    const T* __restrict__ u,
+                                    const T* __restrict__ v, int ustride,
+                                    T* __restrict__ o1, T* __restrict__ o2,
+                                    int m, int k, int n, int r0, int c0,
+                                    int halo, int cmax, int b1, int b2,
+                                    float dt0) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= m || j >= k) return;
@@ -111,37 +116,43 @@ __global__ void advect_block_kernel(const float* __restrict__ d1,
   const int gi = fsc::clampi(r0 + r, 1, n);
   const int gj = fsc::clampi(c0 + j, 1, n);
   const int c = (gi - r0) * ustride + (gj - c0);
+  const float uc = fsc::load(u, c);
+  const float vc = fsc::load(v, c);
   const fsc::Departure d =
-      kExact ? fsc::backtrace_at(u[c], v[c], gi, gj, n + 2, dt0)
-             : fsc::window_backtrace(u[c], v[c], gi, gj, n, dt0, cmax);
+      kExact ? fsc::backtrace_at(uc, vc, gi, gj, n + 2, dt0)
+             : fsc::window_backtrace(uc, vc, gi, gj, n, dt0, cmax);
   const int width = kExact ? n + 2 : k + 2 * halo;
   const int g = kExact ? d.i0 * width + d.j0
                        : (d.i0 - r0 + halo) * width + (d.j0 - c0 + halo);
   const bool gx = c0 + j == 0 || c0 + j == n + 1;
   const bool gy = r0 + r == 0 || r0 + r == n + 1;
-  const float a = fsc::blend(d, d1[g], d1[g + width], d1[g + 1],
-                             d1[g + width + 1]);
-  o1[r * k + j] = fsc::border_rule(a, gx, gy, b1);
+  const float a =
+      fsc::blend(d, fsc::load(d1, g), fsc::load(d1, g + width),
+                 fsc::load(d1, g + 1), fsc::load(d1, g + width + 1));
+  fsc::store(o1, r * k + j, fsc::border_rule(a, gx, gy, b1));
   if (d2 != nullptr) {
-    const float e = fsc::blend(d, d2[g], d2[g + width], d2[g + 1],
-                               d2[g + width + 1]);
-    o2[r * k + j] = fsc::border_rule(e, gx, gy, b2);
+    const float e =
+        fsc::blend(d, fsc::load(d2, g), fsc::load(d2, g + width),
+                   fsc::load(d2, g + 1), fsc::load(d2, g + width + 1));
+    fsc::store(o2, r * k + j, fsc::border_rule(e, gx, gy, b2));
   }
 }
 
-template <bool kExact>
-int launch_block(const float* d1, const float* d2, const float* u,
-                 const float* v, int ustride, float* o1, float* o2, int m,
+template <bool kExact, typename T>
+int launch_block(const void* d1, const void* d2, const void* u,
+                 const void* v, int ustride, void* o1, void* o2, int m,
                  int k, int n, int r0, int c0, int halo, int cmax, int b1,
                  int b2, float dt0, void* stream) {
   if (m < 2 || k < 2 || r0 < 0 || c0 < 0 || r0 + m > n + 2 ||
       c0 + k > n + 2 || (!kExact && (cmax < 0 || halo < cmax + 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = advect_block_kernel<kExact>;
+  const auto kernel = advect_block_kernel<kExact, T>;
   kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
-           static_cast<cudaStream_t>(stream)>>>(d1, d2, u, v, ustride, o1,
-                                                o2, m, k, n, r0, c0, halo,
-                                                cmax, b1, b2, dt0);
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(d1), static_cast<const T*>(d2),
+      static_cast<const T*>(u), static_cast<const T*>(v), ustride,
+      static_cast<T*>(o1), static_cast<T*>(o2), m, k, n, r0, c0, halo, cmax,
+      b1, b2, dt0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -182,8 +193,21 @@ extern "C" int fsc_advect_block(const float* d1, const float* d2,
                                 float* o1, float* o2, int m, int k, int n,
                                 int r0, int c0, int halo, int cmax, int b1,
                                 int b2, float dt0, void* stream) {
-  return launch_block<false>(d1, d2, u, v, ustride, o1, o2, m, k, n, r0, c0,
-                             halo, cmax, b1, b2, dt0, stream);
+  return launch_block<false, float>(d1, d2, u, v, ustride, o1, o2, m, k, n,
+                                    r0, c0, halo, cmax, b1, b2, dt0, stream);
+}
+
+// K12-block windowed, bf16 form: d1, d2, u, v, o1 and o2 bf16, the rest as
+// fsc_advect_block's.
+extern "C" int fsc_advect_block_bf16(const void* d1, const void* d2,
+                                     const void* u, const void* v,
+                                     int ustride, void* o1, void* o2, int m,
+                                     int k, int n, int r0, int c0, int halo,
+                                     int cmax, int b1, int b2, float dt0,
+                                     void* stream) {
+  return launch_block<false, fsc::bf16>(d1, d2, u, v, ustride, o1, o2, m, k,
+                                        n, r0, c0, halo, cmax, b1, b2, dt0,
+                                        stream);
 }
 
 // K12-block exact: d1, d2 the assembled (n+2, n+2) fields; the rest as
@@ -194,6 +218,18 @@ extern "C" int fsc_advect_block_exact(const float* d1, const float* d2,
                                       int m, int k, int n, int r0, int c0,
                                       int b1, int b2, float dt0,
                                       void* stream) {
-  return launch_block<true>(d1, d2, u, v, ustride, o1, o2, m, k, n, r0, c0,
-                            0, 0, b1, b2, dt0, stream);
+  return launch_block<true, float>(d1, d2, u, v, ustride, o1, o2, m, k, n,
+                                   r0, c0, 0, 0, b1, b2, dt0, stream);
+}
+
+// K12-block exact, bf16 form: d1, d2, u, v, o1 and o2 bf16, the rest as
+// fsc_advect_block_exact's.
+extern "C" int fsc_advect_block_exact_bf16(const void* d1, const void* d2,
+                                           const void* u, const void* v,
+                                           int ustride, void* o1, void* o2,
+                                           int m, int k, int n, int r0,
+                                           int c0, int b1, int b2, float dt0,
+                                           void* stream) {
+  return launch_block<true, fsc::bf16>(d1, d2, u, v, ustride, o1, o2, m, k,
+                                       n, r0, c0, 0, 0, b1, b2, dt0, stream);
 }

@@ -217,7 +217,13 @@
 // K9's: Jacobi, the reciprocal form (the rhs pre-scaled in every launch,
 // since each chunk reads the solve's one extended rhs), Chebyshev with
 // x_{k-1} carried in and out across chunks (sweep 0 of the solve plain),
-// and K1-damp's damped form for the multigrid smoother.  Float32 only.
+// and K1-damp's damped form for the multigrid smoother.  Float32, and
+// bf16 forms of each (fsc_jacobi_block_sweeps_bf16): every operand bf16,
+// widened at the tile's loads; the iterate stays float32 through the
+// chunk's sweeps and x_count (and a Chebyshev chunk's x_{count-1}) round
+// to bf16 at the store, so a block solve rounds once a chunk, where JAX's
+// jnp sweeps round every operation (ROADMAP §C).  Between chunks the halo
+// exchange moves bf16 blocks, as JAX's _extend_deep does.
 #include <atomic>
 #include <type_traits>
 
@@ -556,10 +562,10 @@ __device__ __forceinline__ void sweep_tile(
 // SlabTiles, SplitSlabTiles, WholeGrid, BlockTiles): load, `count` sweeps
 // in shared memory, store.
 template <int kRows, bool kCheby, bool kFast, bool kDamp, class G,
-          typename TX, typename TM, typename TR, typename TO>
+          typename TX, typename TM, typename TR, typename TO, typename TXO>
 __device__ __forceinline__ void sweeps_body(
     const G& g, const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t,
-    TO* out, float* xm_out, TR* rhs_out, float* tile) {
+    TO* out, TXO* xm_out, TR* rhs_out, float* tile) {
   constexpr int kTileH = Tile<kRows>::kTileH;
   constexpr int kCells = Tile<kRows>::kCells;
   float* cur = tile;                     // x_k
@@ -707,7 +713,7 @@ __device__ __forceinline__ void sweeps_body(
       const int o = g.at(gr, gc);
       const int i = lr * kTileW + lc;
       fsc::store(out, o, cur[i]);
-      if (xm_out != nullptr) xm_out[o] = nxt[i];
+      if (xm_out != nullptr) fsc::store(xm_out, o, nxt[i]);
     }
   }
 }
@@ -742,7 +748,8 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
     jacobi_damped_sweeps_kernel(fsc::SweepParamsT<TX, float, TR> p, Tiling t,
                                 TO* __restrict__ out) {
   extern __shared__ float tile[];
-  sweeps_body<kRows, false, false, true>(G(t), p, t, out, nullptr,
+  sweeps_body<kRows, false, false, true>(G(t), p, t, out,
+                                         static_cast<float*>(nullptr),
                                          static_cast<TR*>(nullptr), tile);
 }
 
@@ -775,7 +782,8 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
   const GroupSlab& s = group.slab[blockIdx.z];
   sweeps_body<kRows, false, false, true>(
       SplitSlabTiles(t, s.x, s.rhs, t.count, m, s.gtop, s.gbot, t.count), p,
-      t, s.out, nullptr, static_cast<float*>(nullptr), tile);
+      t, s.out, static_cast<float*>(nullptr), static_cast<float*>(nullptr),
+      tile);
 }
 
 // The tiled K9's first launch of a solve on split operands: x and rhs from
@@ -790,22 +798,22 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
                                     float* __restrict__ rhs_out) {
   extern __shared__ float tile[];
   sweeps_body<kRows, false, kFast, false>(
-      SplitSlabTiles(t, xs, rs, K, m, t.gtop, t.gbot, 0), p, t, out, nullptr,
-      rhs_out, tile);
+      SplitSlabTiles(t, xs, rs, K, m, t.gtop, t.gbot, 0), p, t, out,
+      static_cast<float*>(nullptr), rhs_out, tile);
 }
 
 // K9-block: the sweeps of one chunk of a block solve (Jacobi, the
 // reciprocal form, Chebyshev or damped) on an extended block buffer,
-// written to the (m, k) block and, for Chebyshev, its x_{count-1}.
-template <int kRows, bool kCheby, bool kFast, bool kDamp>
+// written to the (m, k) block and, for Chebyshev, its x_{count-1}; every
+// operand stored as T (float32, or bf16: loads widen, the iterate is
+// float32 in the tile, the stores round).
+template <int kRows, bool kCheby, bool kFast, bool kDamp, typename T>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
-    jacobi_block_sweeps_kernel(fsc::SweepParams p, Tiling t,
-                               float* __restrict__ out,
-                               float* __restrict__ xm_out) {
+    jacobi_block_sweeps_kernel(fsc::SweepParamsT<T, T, T> p, Tiling t,
+                               T* __restrict__ out, T* __restrict__ xm_out) {
   extern __shared__ float tile[];
   sweeps_body<kRows, kCheby, kFast, kDamp>(BlockTiles(t), p, t, out, xm_out,
-                                           static_cast<float*>(nullptr),
-                                           tile);
+                                           static_cast<T*>(nullptr), tile);
 }
 
 // The halo and output tile of a launch of `count` sweeps: a halo of
@@ -1161,10 +1169,11 @@ int launch_split(const fsc::SweepParams& p, const Tiling& t,
                                                  rhs_out, stream);
 }
 
-template <int kRows, bool kCheby, bool kFast, bool kDamp>
-int launch_block_kernel(const fsc::SweepParams& p, const Tiling& t,
-                        float* out, float* xm_out, cudaStream_t stream) {
-  const auto kernel = jacobi_block_sweeps_kernel<kRows, kCheby, kFast, kDamp>;
+template <int kRows, bool kCheby, bool kFast, bool kDamp, typename T>
+int launch_block_kernel(const fsc::SweepParamsT<T, T, T>& p, const Tiling& t,
+                        T* out, T* xm_out, cudaStream_t stream) {
+  const auto kernel =
+      jacobi_block_sweeps_kernel<kRows, kCheby, kFast, kDamp, T>;
   constexpr int kSmem = Tile<kRows>::kSmem;
   static std::atomic<int> attribute[kDevices];
   const int err = smem_attribute(kernel, kSmem, attribute);
@@ -1175,22 +1184,56 @@ int launch_block_kernel(const fsc::SweepParams& p, const Tiling& t,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kRows>
-int launch_block(int flags, const fsc::SweepParams& p, const Tiling& t,
-                 float* out, float* xm_out, cudaStream_t stream) {
+template <int kRows, typename T>
+int launch_block(int flags, const fsc::SweepParamsT<T, T, T>& p,
+                 const Tiling& t, T* out, T* xm_out, cudaStream_t stream) {
   if (flags & fsc::kDamp)
-    return launch_block_kernel<kRows, false, false, true>(p, t, out, xm_out,
-                                                          stream);
+    return launch_block_kernel<kRows, false, false, true, T>(p, t, out,
+                                                             xm_out, stream);
   const bool fast = (flags & fsc::kFast) != 0;
   if (flags & fsc::kCheby)
-    return fast ? launch_block_kernel<kRows, true, true, false>(
+    return fast ? launch_block_kernel<kRows, true, true, false, T>(
                       p, t, out, xm_out, stream)
-                : launch_block_kernel<kRows, true, false, false>(
+                : launch_block_kernel<kRows, true, false, false, T>(
                       p, t, out, xm_out, stream);
-  return fast ? launch_block_kernel<kRows, false, true, false>(p, t, out,
-                                                               xm_out, stream)
-              : launch_block_kernel<kRows, false, false, false>(
+  return fast ? launch_block_kernel<kRows, false, true, false, T>(
+                    p, t, out, xm_out, stream)
+              : launch_block_kernel<kRows, false, false, false, T>(
                     p, t, out, xm_out, stream);
+}
+
+// One K9-block launch (fsc_jacobi_block_sweeps's arguments) with every
+// operand stored as T.
+template <typename T>
+int block_sweeps(const void* x, const void* rhs, const void* xm, void* out,
+                 void* xm_out, int rows, int cols, int halo, int m, int k,
+                 int gr0, int gc0, int n, int b, float alpha, float beta,
+                 float ab, float inv_b, float w, float omw,
+                 const float* omegas, int flags, int first, int count,
+                 int tile_h, void* stream) {
+  Tiling t{};
+  const int err = plan_block(rows, cols, halo, m, k, gr0, gc0, n, count,
+                             tile_h, &t);
+  if (err != 0) return err;
+  const bool cheby = (flags & fsc::kCheby) != 0;
+  if (first < 0 || ((flags & fsc::kDamp) && flags != fsc::kDamp) ||
+      (cheby && first > 0 && xm == nullptr) || (cheby && xm_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  t.b = b;
+  t.omw = omw;
+  t.first_combine = first == 0 ? 1 : 0;
+  for (int s = 0; s < kMaxSweeps; ++s)
+    t.w[s] = (cheby && s < count) ? omegas[s] : 0.0f;
+  auto p = sweep_params<T, T, T>(x, rhs, nullptr, cheby ? xm : nullptr,
+                                 alpha, beta, ab, inv_b, 0.0f,
+                                 flags & (fsc::kPrep | fsc::kFast));
+  p.w = w;
+  const auto stream_ = static_cast<cudaStream_t>(stream);
+  T* const o = static_cast<T*>(out);
+  T* const xo = static_cast<T*>(xm_out);
+  return tile_h == Tile<4>::kTileH
+             ? launch_block<4, T>(flags, p, t, o, xo, stream_)
+             : launch_block<2, T>(flags, p, t, o, xo, stream_);
 }
 
 }  // namespace
@@ -1427,24 +1470,26 @@ extern "C" int fsc_jacobi_block_sweeps(
     int gc0, int n, int b, float alpha, float beta, float ab, float inv_b,
     float w, float omw, const float* omegas, int flags, int first,
     int count, int tile_h, void* stream) {
-  Tiling t{};
-  const int err = plan_block(rows, cols, halo, m, k, gr0, gc0, n, count,
-                             tile_h, &t);
-  if (err != 0) return err;
-  const bool cheby = (flags & fsc::kCheby) != 0;
-  if (first < 0 || ((flags & fsc::kDamp) && flags != fsc::kDamp) ||
-      (cheby && first > 0 && xm == nullptr) || (cheby && xm_out == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  t.b = b;
-  t.omw = omw;
-  t.first_combine = first == 0 ? 1 : 0;
-  for (int s = 0; s < kMaxSweeps; ++s)
-    t.w[s] = (cheby && s < count) ? omegas[s] : 0.0f;
-  const fsc::SweepParams p = fsc::make_sweep_params(
-      x, rhs, nullptr, cheby ? xm : nullptr, alpha, beta, ab, inv_b, 0.0f, w,
-      flags & (fsc::kPrep | fsc::kFast));
-  const auto stream_ = static_cast<cudaStream_t>(stream);
-  return tile_h == Tile<4>::kTileH
-             ? launch_block<4>(flags, p, t, out, xm_out, stream_)
-             : launch_block<2>(flags, p, t, out, xm_out, stream_);
+  return block_sweeps<float>(x, rhs, xm, out, xm_out, rows, cols, halo, m, k,
+                             gr0, gc0, n, b, alpha, beta, ab, inv_b, w, omw,
+                             omegas, flags, first, count, tile_h, stream);
+}
+
+// K9-block's bf16 forms: the same launch with x, rhs, xm, out and xm_out
+// all bf16.  The tile loads widen them to float32, the chunk's sweeps run
+// in float32 (the pre-scaled rhs of the reciprocal form rounded to bf16
+// first, as K1's bf16 form restages it) and x_count and x_{count-1} round
+// to bf16 at the store: a block solve rounds once a chunk.  The damped
+// form takes w and omw as the caller rounds them (bf16, as JAX's
+// _mg_smooth_local takes them in p's dtype).
+extern "C" int fsc_jacobi_block_sweeps_bf16(
+    const void* x, const void* rhs, const void* xm, void* out, void* xm_out,
+    int rows, int cols, int halo, int m, int k, int gr0, int gc0, int n,
+    int b, float alpha, float beta, float ab, float inv_b, float w,
+    float omw, const float* omegas, int flags, int first, int count,
+    int tile_h, void* stream) {
+  return block_sweeps<fsc::bf16>(x, rhs, xm, out, xm_out, rows, cols, halo,
+                                 m, k, gr0, gc0, n, b, alpha, beta, ab, inv_b,
+                                 w, omw, omegas, flags, first, count, tile_h,
+                                 stream);
 }

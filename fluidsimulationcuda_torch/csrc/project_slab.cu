@@ -31,7 +31,11 @@
 // is a pointer to the one row (top, bottom) or the one column (left,
 // right, contiguous) the stencil needs, null beyond a wall, where no cell
 // reads it.  A ghost cell of the grid in the block takes the border rule
-// of its interior neighbour's value, which lies in the block.
+// of its interior neighbour's value, which lies in the block.  Each has a
+// bf16 form (fsc_divergence_block_bf16, fsc_gradient_block_bf16): bf16
+// operands, halos and outputs, widened at the loads, the arithmetic float32
+// and each output rounded to bf16 at the store (JAX's block route keeps
+// div, p, u and v in bf16; it rounds every operation).
 #include "fsc_common.cuh"
 
 namespace {
@@ -78,79 +82,116 @@ __global__ void gradient_slab_kernel(const float* __restrict__ u,
 }
 
 // Cell (ri, ci) of an (m, k) block or, one cell past its edge, of the
-// halo there (top and bottom rows, left and right columns).
-__device__ __forceinline__ float block_at(const float* f, const float* top,
-                                          const float* bot,
-                                          const float* left,
-                                          const float* right, int ri, int ci,
+// halo there (top and bottom rows, left and right columns), as float.
+template <typename T>
+__device__ __forceinline__ float block_at(const T* f, const T* top,
+                                          const T* bot, const T* left,
+                                          const T* right, int ri, int ci,
                                           int m, int k) {
-  if (ri < 0) return top[ci];
-  if (ri >= m) return bot[ci];
-  if (ci < 0) return left[ri];
-  if (ci >= k) return right[ri];
-  return f[ri * k + ci];
+  if (ri < 0) return fsc::load(top, ci);
+  if (ri >= m) return fsc::load(bot, ci);
+  if (ci < 0) return fsc::load(left, ri);
+  if (ci >= k) return fsc::load(right, ri);
+  return fsc::load(f, ri * k + ci);
 }
 
+template <typename T>
 __global__ void divergence_block_kernel(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ u_left, const float* __restrict__ u_right,
-    const float* __restrict__ v_top, const float* __restrict__ v_bot,
-    float* __restrict__ out, int m, int k, int n, int r0, int c0,
-    float coef) {
+    const T* __restrict__ u, const T* __restrict__ v,
+    const T* __restrict__ u_left, const T* __restrict__ u_right,
+    const T* __restrict__ v_top, const T* __restrict__ v_bot,
+    T* __restrict__ out, int m, int k, int n, int r0, int c0, float coef) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= m || j >= k) return;
   const int ri = fsc::clampi(r0 + r, 1, n) - r0;
   const int ci = fsc::clampi(c0 + j, 1, n) - c0;
-  const float u_l = block_at(u, nullptr, nullptr, u_left, u_right, ri,
-                             ci - 1, m, k);
-  const float u_r = block_at(u, nullptr, nullptr, u_left, u_right, ri,
-                             ci + 1, m, k);
-  const float v_up = block_at(v, v_top, v_bot, nullptr, nullptr, ri - 1, ci,
-                              m, k);
-  const float v_dn = block_at(v, v_top, v_bot, nullptr, nullptr, ri + 1, ci,
-                              m, k);
+  const float u_l = block_at<T>(u, nullptr, nullptr, u_left, u_right, ri,
+                                ci - 1, m, k);
+  const float u_r = block_at<T>(u, nullptr, nullptr, u_left, u_right, ri,
+                                ci + 1, m, k);
+  const float v_up = block_at<T>(v, v_top, v_bot, nullptr, nullptr, ri - 1,
+                                 ci, m, k);
+  const float v_dn = block_at<T>(v, v_top, v_bot, nullptr, nullptr, ri + 1,
+                                 ci, m, k);
   const float d = coef * ((u_r - u_l) + (v_dn - v_up));
-  out[r * k + j] = fsc::border_rule(d, c0 + j == 0 || c0 + j == n + 1,
-                                    r0 + r == 0 || r0 + r == n + 1, 0);
+  fsc::store(out, r * k + j,
+             fsc::border_rule(d, c0 + j == 0 || c0 + j == n + 1,
+                              r0 + r == 0 || r0 + r == n + 1, 0));
 }
 
+template <typename T>
 __global__ void gradient_block_kernel(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ p, const float* __restrict__ p_top,
-    const float* __restrict__ p_bot, const float* __restrict__ p_left,
-    const float* __restrict__ p_right, float* __restrict__ uo,
-    float* __restrict__ vo, int m, int k, int n, int r0, int c0, float h) {
+    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ p,
+    const T* __restrict__ p_top, const T* __restrict__ p_bot,
+    const T* __restrict__ p_left, const T* __restrict__ p_right,
+    T* __restrict__ uo, T* __restrict__ vo, int m, int k, int n, int r0,
+    int c0, float h) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= m || j >= k) return;
   const int ri = fsc::clampi(r0 + r, 1, n) - r0;
   const int ci = fsc::clampi(c0 + j, 1, n) - c0;
   const int c = ri * k + ci;
-  const float p_l = block_at(p, p_top, p_bot, p_left, p_right, ri, ci - 1,
-                             m, k);
-  const float p_r = block_at(p, p_top, p_bot, p_left, p_right, ri, ci + 1,
-                             m, k);
-  const float p_up = block_at(p, p_top, p_bot, p_left, p_right, ri - 1, ci,
-                              m, k);
-  const float p_dn = block_at(p, p_top, p_bot, p_left, p_right, ri + 1, ci,
-                              m, k);
-  const float un = u[c] - (0.5f * (p_r - p_l)) / h;
-  const float vn = v[c] - (0.5f * (p_dn - p_up)) / h;
+  const float p_l = block_at<T>(p, p_top, p_bot, p_left, p_right, ri,
+                                ci - 1, m, k);
+  const float p_r = block_at<T>(p, p_top, p_bot, p_left, p_right, ri,
+                                ci + 1, m, k);
+  const float p_up = block_at<T>(p, p_top, p_bot, p_left, p_right, ri - 1,
+                                 ci, m, k);
+  const float p_dn = block_at<T>(p, p_top, p_bot, p_left, p_right, ri + 1,
+                                 ci, m, k);
+  const float un = fsc::load(u, c) - (0.5f * (p_r - p_l)) / h;
+  const float vn = fsc::load(v, c) - (0.5f * (p_dn - p_up)) / h;
   const bool gx = c0 + j == 0 || c0 + j == n + 1;
   const bool gy = r0 + r == 0 || r0 + r == n + 1;
-  uo[r * k + j] = fsc::border_rule(un, gx, gy, 1);
-  vo[r * k + j] = fsc::border_rule(vn, gx, gy, 2);
+  fsc::store(uo, r * k + j, fsc::border_rule(un, gx, gy, 1));
+  fsc::store(vo, r * k + j, fsc::border_rule(vn, gx, gy, 2));
 }
 
 // Whether an (m, k) block at (r0, c0) lies in the grid and has each halo
 // that is not beyond a wall (top, bottom, left, right; null beyond one).
-bool block_ok(int m, int k, int n, int r0, int c0, const float* top,
-              const float* bot, const float* left, const float* right) {
+bool block_ok(int m, int k, int n, int r0, int c0, const void* top,
+              const void* bot, const void* left, const void* right) {
   return m >= 2 && k >= 2 && r0 >= 0 && c0 >= 0 && r0 + m <= n + 2 &&
          c0 + k <= n + 2 && (top != nullptr || r0 == 0) &&
          (bot != nullptr || r0 + m == n + 2) && (left != nullptr || c0 == 0) &&
          (right != nullptr || c0 + k == n + 2);
+}
+
+template <typename T>
+int divergence_block(const void* u, const void* v, const void* u_left,
+                     const void* u_right, const void* v_top,
+                     const void* v_bot, void* out, int m, int k, int n,
+                     int r0, int c0, float coef, void* stream) {
+  if (!block_ok(m, k, n, r0, c0, v_top, v_bot, u_left, u_right))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = divergence_block_kernel<T>;
+  kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const T*>(v),
+      static_cast<const T*>(u_left), static_cast<const T*>(u_right),
+      static_cast<const T*>(v_top), static_cast<const T*>(v_bot),
+      static_cast<T*>(out), m, k, n, r0, c0, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gradient_block(const void* u, const void* v, const void* p,
+                   const void* p_top, const void* p_bot, const void* p_left,
+                   const void* p_right, void* uo, void* vo, int m, int k,
+                   int n, int r0, int c0, float h, void* stream) {
+  if (!block_ok(m, k, n, r0, c0, p_top, p_bot, p_left, p_right))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = gradient_block_kernel<T>;
+  kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const T*>(v),
+      static_cast<const T*>(p), static_cast<const T*>(p_top),
+      static_cast<const T*>(p_bot), static_cast<const T*>(p_left),
+      static_cast<const T*>(p_right), static_cast<T*>(uo),
+      static_cast<T*>(vo), m, k, n, r0, c0, h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -192,12 +233,21 @@ extern "C" int fsc_divergence_block(const float* u, const float* v,
                                     const float* v_bot, float* out, int m,
                                     int k, int n, int r0, int c0, float coef,
                                     void* stream) {
-  if (!block_ok(m, k, n, r0, c0, v_top, v_bot, u_left, u_right))
-    return static_cast<int>(cudaErrorInvalidValue);
-  divergence_block_kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      u, v, u_left, u_right, v_top, v_bot, out, m, k, n, r0, c0, coef);
-  return static_cast<int>(cudaGetLastError());
+  return divergence_block<float>(u, v, u_left, u_right, v_top, v_bot, out, m,
+                                 k, n, r0, c0, coef, stream);
+}
+
+// K10-block's bf16 form: every operand and out bf16, the rest as
+// fsc_divergence_block's.
+extern "C" int fsc_divergence_block_bf16(const void* u, const void* v,
+                                         const void* u_left,
+                                         const void* u_right,
+                                         const void* v_top, const void* v_bot,
+                                         void* out, int m, int k, int n,
+                                         int r0, int c0, float coef,
+                                         void* stream) {
+  return divergence_block<fsc::bf16>(u, v, u_left, u_right, v_top, v_bot,
+                                     out, m, k, n, r0, c0, coef, stream);
 }
 
 // K11-block: u, v, p, uo, vo (m, k) at global origin (r0, c0); p_top,
@@ -209,10 +259,18 @@ extern "C" int fsc_gradient_block(const float* u, const float* v,
                                   const float* p_right, float* uo, float* vo,
                                   int m, int k, int n, int r0, int c0,
                                   float h, void* stream) {
-  if (!block_ok(m, k, n, r0, c0, p_top, p_bot, p_left, p_right))
-    return static_cast<int>(cudaErrorInvalidValue);
-  gradient_block_kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      u, v, p, p_top, p_bot, p_left, p_right, uo, vo, m, k, n, r0, c0, h);
-  return static_cast<int>(cudaGetLastError());
+  return gradient_block<float>(u, v, p, p_top, p_bot, p_left, p_right, uo,
+                               vo, m, k, n, r0, c0, h, stream);
+}
+
+// K11-block's bf16 form: every operand, uo and vo bf16, the rest as
+// fsc_gradient_block's.
+extern "C" int fsc_gradient_block_bf16(const void* u, const void* v,
+                                       const void* p, const void* p_top,
+                                       const void* p_bot, const void* p_left,
+                                       const void* p_right, void* uo,
+                                       void* vo, int m, int k, int n, int r0,
+                                       int c0, float h, void* stream) {
+  return gradient_block<fsc::bf16>(u, v, p, p_top, p_bot, p_left, p_right,
+                                   uo, vo, m, k, n, r0, c0, h, stream);
 }

@@ -109,6 +109,10 @@ _SIGNATURES = {
     "fsc_gradient3_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _P],
 }
+# The bf16 forms of the block kernels take their float32 forms' arguments.
+_SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
+    "fsc_jacobi_block_sweeps", "fsc_advect_block", "fsc_advect_block_exact",
+    "fsc_divergence_block", "fsc_gradient_block")})
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -93,8 +93,10 @@ class Check:
     # K4's footprint box per block of its launch (footprint_boxes).
     boxes: Callable[[], torch.Tensor] | None = None
     # A block form's slab counterpart on as many cells (its slab kernel on
-    # a slab of the same cell count), timed beside it.
+    # a slab of the same cell count), or a bf16 form's float32 form on the
+    # same values, timed beside it (``counterpart_label`` says which).
     counterpart: Callable[[], object] | None = None
+    counterpart_label: str = "slab counterpart on as many cells"
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the larger of the bytes the
@@ -1785,11 +1787,21 @@ class _BlockInputs(_Inputs):
     """Random global fields at grid ``side`` and (m, k) blocks of them at
     global origins: the extended block (zeros beyond the grid), the block
     and its one-cell halos (None beyond a wall), as the block route's
-    exchanges build them."""
+    exchanges build them.  ``bf16``: the fields rounded to bf16, the
+    operands of the bf16 forms, whose kernels count as ``name`` says."""
 
-    def __init__(self, side: int, m: int, k: int, device, seed: int):
+    def __init__(self, side: int, m: int, k: int, device, seed: int,
+                 bf16: bool = False):
         super().__init__(side, device, seed)
-        self.side, self.m, self.k = side, m, k
+        self.side, self.m, self.k, self.bf16 = side, m, k, bf16
+        self.tag = " bf16" if bf16 else ""
+        if bf16:
+            for name in ("x", "x0", "src", "p", "u", "v", "uf", "vf"):
+                setattr(self, name, getattr(self, name).to(torch.bfloat16))
+
+    def name(self, kernel: str) -> str:
+        """The launch count of ``kernel``'s form for these fields."""
+        return f"{kernel}_bf16" if self.bf16 else kernel
 
     def positions(self) -> dict[str, tuple[int, int]]:
         """A top-left corner block, a top-edge block, one off every wall
@@ -1830,8 +1842,11 @@ def _block_cases(t: "_BlockInputs", pos: str, origin) -> list[Check]:
     guess, fast, Chebyshev first and chained chunks (plain and fast, and
     the zero-guess pressure), damped smooths; K12-block's two forms (one
     field and the u/v pair, under and over the window; exact at the
-    reaches of ``EXACT_REACH``); K10-block and K11-block."""
+    reaches of ``EXACT_REACH``); K10-block and K11-block.  In bf16
+    (``t.bf16``) the same calls on bf16 fields, each form's bf16 form."""
     n, av, m, k = t.n, t.a_visc, t.m, t.k
+    tag, jac_k = t.tag, (t.name("jacobi_block_sweeps"),)
+    adv_k, exact_k = (t.name("advect_block"),), (t.name("advect_block_exact"),)
     K, ext, blk = BLOCK_CHUNK, t.ext, t.block
     rho, k_d, k_p = PERF_POINTS_2D[2048]
     geo = dict(n=n, m=m, k=k)
@@ -1856,46 +1871,48 @@ def _block_cases(t: "_BlockInputs", pos: str, origin) -> list[Check]:
     for mode, (b, sweeps, coef, kw) in jac.items():
         if kw.get("first"):
             kw = dict(kw, xm_ext=ext(t.p, origin, K))
-        out.append(_check(f"fused_jacobi_block {pos} {mode}", JAC_BLOCK,
+        out.append(_check(f"fused_jacobi_block{tag} {pos} {mode}", jac_k,
                           cs.fused_jacobi_block, cs.fused_jacobi_block_plain,
                           b, ext(t.x, origin, K), ext(t.x0, origin, K),
                           origin, K=K, sweeps=sweeps, **geo, **coef, **kw))
     for sweeps, zero in ((2, False), (2, True), (K, False)):
         out.append(_check(
-            f"smooth_block {pos} {sweeps} sweeps"
-            + (" zero_init" if zero else ""), JAC_BLOCK, cs.smooth_block,
+            f"smooth_block{tag} {pos} {sweeps} sweeps"
+            + (" zero_init" if zero else ""), jac_k, cs.smooth_block,
             cs.smooth_block_plain, ext(t.p, origin, sweeps),
             ext(t.x0, origin, sweeps), origin, K=sweeps, sweeps=sweeps,
             zero_init=zero, **geo))
     C, cmax = SLAB_CMAX + 1, SLAB_CMAX
     for window, (u, v) in (("under", (t.u, t.v)), ("over", (t.uf, t.vf))):
         out.append(_check(
-            f"advect_block {pos} b=0, {window} the window", ("advect_block",),
+            f"advect_block{tag} {pos} b=0, {window} the window", adv_k,
             cs.advect_block, cs.advect_block_plain, (0,),
             (ext(t.x, origin, C),), blk(u, origin), blk(v, origin), origin,
             dt=DT, cmax=cmax, self_adv=False, **geo))
         out.append(_check(
-            f"advect_block {pos} u/v pair, {window} the window",
-            ("advect_block",), cs.advect_block, cs.advect_block_plain,
+            f"advect_block{tag} {pos} u/v pair, {window} the window",
+            adv_k, cs.advect_block, cs.advect_block_plain,
             (1, 2), (ext(u, origin, C), ext(v, origin, C)), None, None,
             origin, dt=DT, cmax=cmax, self_adv=True, **geo))
     for reach, scale in EXACT_REACH.items():
         u, v = scale * t.u, scale * t.v
         out.append(_check(
-            f"advect_block_exact {pos} b=0, up to {reach}",
-            ("advect_block_exact",), cs.advect_block_exact,
+            f"advect_block_exact{tag} {pos} b=0, up to {reach}",
+            exact_k, cs.advect_block_exact,
             cs.advect_block_exact_plain, (0,), (t.x,), blk(u, origin),
             blk(v, origin), origin, dt=DT, self_adv=False, **geo))
         out.append(_check(
-            f"advect_block_exact {pos} u/v pair, up to {reach}",
-            ("advect_block_exact",), cs.advect_block_exact,
+            f"advect_block_exact{tag} {pos} u/v pair, up to {reach}",
+            exact_k, cs.advect_block_exact,
             cs.advect_block_exact_plain, (1, 2), (u, v), None, None, origin,
             dt=DT, self_adv=True, **geo))
-    out.append(_check(f"divergence_block {pos}", ("divergence_block",),
+    out.append(_check(f"divergence_block{tag} {pos}",
+                      (t.name("divergence_block"),),
                       cs.divergence_block, cs.divergence_block_plain,
                       blk(t.u, origin), blk(t.v, origin),
                       t.halos(t.u, origin), t.halos(t.v, origin), origin, n))
-    out.append(_check(f"gradient_block {pos}", ("gradient_block",),
+    out.append(_check(f"gradient_block{tag} {pos}",
+                      (t.name("gradient_block"),),
                       cs.gradient_block, cs.gradient_block_plain,
                       blk(t.u, origin), blk(t.v, origin), blk(t.p, origin),
                       t.halos(t.p, origin), origin, n))
@@ -1903,12 +1920,15 @@ def _block_cases(t: "_BlockInputs", pos: str, origin) -> list[Check]:
 
 
 def kernel_checks_block(side: int, m: int, k: int, device, seed: int = 0,
-                        origins: dict | None = None) -> list[Check]:
+                        origins: dict | None = None,
+                        bf16: bool = False) -> list[Check]:
     """Every block form against its plain twin (``_block_cases``) on (m,
     k) blocks of grid ``side`` at the ``origins`` given by name (a corner,
     an edge, an interior and the far corner block by default): bit for
-    bit, ``--fmad=false``; the fast forms round as ``fmaf`` in both."""
-    t = _BlockInputs(side, m, k, device, seed)
+    bit, ``--fmad=false``; the fast forms round as ``fmaf`` in both.
+    ``bf16``: the bf16 forms on bf16 fields, against their twins, which
+    round where the kernels store."""
+    t = _BlockInputs(side, m, k, device, seed, bf16)
     return [c for pos, o in (origins or t.positions()).items()
             for c in _block_cases(t, pos, o)]
 
@@ -1925,7 +1945,7 @@ def _block_sweeps_cost(iters: int, rows: int, cols: int, m: int, k: int, *,
 
 
 def timing_checks_block(side: int, px: int, py: int, device,
-                        seed: int = 0) -> list[Check]:
+                        seed: int = 0, bf16: bool = False) -> list[Check]:
     """What ``chip_smoke.py`` times of the block forms, on the top-edge
     block (origin (0, k)) of a (px, py) mesh at grid ``side``, each
     labelled by its kernel's name, beside its plain twin, its bound and
@@ -1933,9 +1953,27 @@ def timing_checks_block(side: int, px: int, py: int, device,
     slab of m·k/side rows; K9-block's chunk of ``BLOCK_CHUNK`` sweeps
     against the tiled K9 on a halo as deep); the gathers also beside
     ``grid_sample``.  Then K9-block's Chebyshev chained chunk, fast, and
-    its damped 2-sweep smooth."""
+    its damped 2-sweep smooth.  ``bf16``: the bf16 forms on the same draw
+    rounded to bf16, each bound in 2-byte storage and each beside its
+    float32 form (in place of the slab counterpart)."""
     m, k = side // px, side // py
-    t = _BlockInputs(side, m, k, device, seed)
+    f32 = _block_timings(_BlockInputs(side, m, k, device, seed), device,
+                         seed)
+    if not bf16:
+        return f32
+    out = _block_timings(_BlockInputs(side, m, k, device, seed, True),
+                         device, seed)
+    for c16, c32 in zip(out, f32):
+        c16.counterpart, c16.counterpart_label = c32.run, "float32 form"
+        # A bf16 pass counts half a float32 one (as _sweeps_cost's bf16).
+        c16.cost = (c16.cost[0] / 2, c16.cost[1])
+    return out
+
+
+def _block_timings(t: "_BlockInputs", device, seed: int) -> list[Check]:
+    """``timing_checks_block``'s checks on the fields of ``t`` (float32 or
+    bf16), each labelled by its form's launch count."""
+    side, m, k = t.side, t.m, t.k
     slab = _SlabInputs(side, m * k // side, device, seed)
     o, K, n, av = (0, k), BLOCK_CHUNK, t.n, t.a_visc
     i, fl, sm = slab.slabs // 2, slab.flags(slab.slabs // 2), slab.m
@@ -1952,24 +1990,25 @@ def timing_checks_block(side: int, px: int, py: int, device,
             zero_init=kw.get("zero_init", False),
             fast=kw.get("fast", False),
             cheby="omegas" in kw and kw.get("first", 0) > 0,
-            damp=fn is cs.smooth_block), 1, label, JAC_BLOCK, fn, plain,
+            damp=fn is cs.smooth_block), 1, label,
+            (t.name("jacobi_block_sweeps"),), fn, plain,
             *((b,) if b is not None else ()), x, rhs, o, K=K, sweeps=sweeps,
             **geo, **kw)
         return check
 
-    jac = chunk("jacobi_block_sweeps", K, cs.fused_jacobi_block,
+    jac = chunk(t.name("jacobi_block_sweeps"), K, cs.fused_jacobi_block,
                 cs.fused_jacobi_block_plain, 1, ext(t.x, o, K),
                 ext(t.x0, o, K), K, alpha=av, beta=bv)
     jac.counterpart = functools.partial(
         cs.fused_jacobi_slab, 1, slab.ext(slab.x, i, K),
         slab.ext(slab.x0, i, K), fl, m=sm, K=K, alpha=av, beta=bv, sweeps=K)
     ws = cheby_omegas(rho, k_d)
-    cheb = chunk(f"fused_jacobi_block chebyshev+fast chained chunk "
+    cheb = chunk(f"fused_jacobi_block{t.tag} chebyshev+fast chained chunk "
                  f"({k_d - K} of {k_d}it)", k_d - K, cs.fused_jacobi_block,
                  cs.fused_jacobi_block_plain, 1, ext(t.x, o, K),
                  ext(t.x0, o, K), K, alpha=av, beta=bv, fast=True,
                  omegas=ws, first=K, xm_ext=ext(t.p, o, K))
-    smooth = chunk("smooth_block 2 sweeps", 2, cs.smooth_block,
+    smooth = chunk(f"smooth_block{t.tag} 2 sweeps", 2, cs.smooth_block,
                    cs.smooth_block_plain, None, ext(t.p, o, 2),
                    ext(t.x0, o, 2), 2)
 
@@ -1986,8 +2025,9 @@ def timing_checks_block(side: int, px: int, py: int, device,
             return list(bufs), (x - buf_origin[1], y - buf_origin[0])
         return run
 
-    win = _timed(_scaled(ADVECT2_PAIR, cells), 1, "advect_block",
-                 ("advect_block",), cs.advect_block, cs.advect_block_plain,
+    win = _timed(_scaled(ADVECT2_PAIR, cells), 1, t.name("advect_block"),
+                 (t.name("advect_block"),), cs.advect_block,
+                 cs.advect_block_plain,
                  (1, 2), (ext(t.u, o, C), ext(t.v, o, C)), None, None, o,
                  dt=DT, cmax=cmax, self_adv=True, **geo)
     win.gather = gather((ext(t.u, o, C), ext(t.v, o, C)), (-C, k - C),
@@ -1996,23 +2036,24 @@ def timing_checks_block(side: int, px: int, py: int, device,
         cs.advect_slab, (1, 2), (slab.ext(slab.u, i, C),
                                  slab.ext(slab.v, i, C)), None, None, fl,
         dt=DT, n=n, cmax=cmax, m=sm, self_adv=True)
-    exact = _timed(_scaled(ADVECT2_PAIR, cells), 1, "advect_block_exact",
-                   ("advect_block_exact",), cs.advect_block_exact,
+    exact = _timed(_scaled(ADVECT2_PAIR, cells), 1,
+                   t.name("advect_block_exact"),
+                   (t.name("advect_block_exact"),), cs.advect_block_exact,
                    cs.advect_block_exact_plain, (1, 2), (t.u, t.v), None,
                    None, o, dt=DT, self_adv=True, **geo)
     exact.gather = gather((t.u, t.v), (0, 0), None)
     exact.counterpart = functools.partial(
         cs.advect_slab_exact, (1, 2), (slab.u, slab.v), None, None, fl,
         dt=DT, n=n, m=sm, self_adv=True)
-    div = _timed(_scaled(DIV2, cells), 1, "divergence_block",
-                 ("divergence_block",), cs.divergence_block,
+    div = _timed(_scaled(DIV2, cells), 1, t.name("divergence_block"),
+                 (t.name("divergence_block"),), cs.divergence_block,
                  cs.divergence_block_plain, blk(t.u, o), blk(t.v, o),
                  t.halos(t.u, o), t.halos(t.v, o), o, n)
     div.counterpart = functools.partial(
         cs.divergence_slab, slab.slab(slab.u, i), slab.slab(slab.v, i),
         *slab.halo(slab.v, i), fl, n)
-    grad = _timed(_scaled(GRAD2, cells), 1, "gradient_block",
-                  ("gradient_block",), cs.gradient_block,
+    grad = _timed(_scaled(GRAD2, cells), 1, t.name("gradient_block"),
+                  (t.name("gradient_block"),), cs.gradient_block,
                   cs.gradient_block_plain, blk(t.u, o), blk(t.v, o),
                   blk(t.p, o), t.halos(t.p, o), o, n)
     grad.counterpart = functools.partial(

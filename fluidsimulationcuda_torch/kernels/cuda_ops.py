@@ -128,7 +128,10 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "jacobi_slab_sweeps_split", "jacobi_sweeps_damp_bf16",
            "advect_slab_exact",
            "advect3_slab_exact", "jacobi_block_sweeps", "advect_block",
-           "advect_block_exact", "divergence_block", "gradient_block")
+           "advect_block_exact", "divergence_block", "gradient_block",
+           "jacobi_block_sweeps_bf16", "advect_block_bf16",
+           "advect_block_exact_bf16", "divergence_block_bf16",
+           "gradient_block_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).

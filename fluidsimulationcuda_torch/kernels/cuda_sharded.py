@@ -12,12 +12,12 @@ slab holds the global top or bottom ghost row, and its first global row.
 The TPU kernels read the same three numbers from an SMEM vector; passed
 from the host they cost no device-to-host copy per launch.
 
-Wrappers keep the JAX names and arguments and check dtype (float32), shape,
-contiguity and device.  On CPU tensors they return their plain twin (the
-``*_plain`` function, which the ``reference`` backend of the sharded step
-also runs, on any device); on CUDA tensors they launch the hand-written
-kernels of ``csrc/`` or raise.  Nothing falls back.  Launches count in
-``cuda_ops.launch_counts()``.
+Wrappers keep the JAX names and arguments and check dtype (float32; the
+block forms also bf16), shape, contiguity and device.  On CPU tensors they
+return their plain twin (the ``*_plain`` function, which the ``reference``
+backend of the sharded step also runs in float32, on any device); on CUDA
+tensors they launch the hand-written kernels of ``csrc/`` or raise.
+Nothing falls back.  Launches count in ``cuda_ops.launch_counts()``.
 
 Eight CUDA kernels carry the seven TPU kernels, the multigrid smoother and
 the exact gather (a second form of K12) of the slab route:
@@ -68,6 +68,17 @@ origin (r0, c0) (the section "The block route" below):
 - ``divergence_block`` (K10-block) and ``gradient_block`` (K11-block),
   ``csrc/project_slab.cu``, with one-cell 2-D halos.
 
+Each block form has a bf16 form for bf16 storage (JAX runs bf16 on its
+block route alone), counted as ``<kernel>_bf16``: every operand bf16, the
+arithmetic float32, each output rounded to bf16 at the store (a block
+solve once a chunk).  In bf16 the two roles of the plain functions split:
+``*_plain`` is the kernel's twin, float32 arithmetic rounded where the
+kernel stores; ``*_ref`` (the ``reference`` backend's) rounds every
+operation to bf16 as JAX's jnp block route does.  In float32 they are the
+same computation.  The gathers have no ``*_ref``: the ``reference``
+backend gathers in float32 too (JAX's block route computes its bf16
+coordinates in bf16, ROADMAP §C).
+
 Each result equals the global operation restricted to the slab while the
 halos are deep enough: ``K >= sweeps`` for the sweeps, ``K >= iters + 1``
 for the projection, ``K >= iters + cmax + 1`` for the density step and
@@ -86,7 +97,7 @@ from ..ops.advect import bilinear, departure
 from ..ops.chebyshev import cheby_omegas
 from ..ops.diffuse import as_scalar
 from ..ops.multigrid import OMEGA
-from ..ops.project import grid_h
+from ..ops.project import _h, grid_h
 from ..ops.source import add_source
 from . import build
 from . import cuda_ops as co
@@ -103,7 +114,8 @@ __all__ = [
     "fused_jacobi_block_plain", "smooth_block", "smooth_block_plain",
     "advect_block", "advect_block_plain", "advect_block_exact",
     "advect_block_exact_plain", "divergence_block", "divergence_block_plain",
-    "gradient_block", "gradient_block_plain",
+    "gradient_block", "gradient_block_plain", "fused_jacobi_block_ref",
+    "smooth_block_ref", "divergence_block_ref", "gradient_block_ref",
 ]
 
 
@@ -915,33 +927,41 @@ def _block_interior(rows: int, cols: int, r0: int, c0: int, n: int,
 
 def _block_sweeps_plain(b, x, rhs, r0, c0, n, alpha, beta, sweeps, *,
                         zero_init=False, fast=False, omegas=None, first=0,
-                        xm=None, damp=None):
+                        xm=None, damp=None, stored=None):
     """JAX's ``_diffuse_local`` / ``_cheby_diffuse_local`` chunk on an
     extended block buffer at global origin (r0, c0): ``sweeps`` sweeps of
     the buffer's inner cells, each kept at the global interior cells, then
-    the border rule (``_block_bnd``).  ``omegas`` (the whole solve's
-    ``cheby_omegas``) makes the sweeps Chebyshev sweeps ``first`` to
-    ``first + sweeps - 1`` of their solve, combined with x_{k-1} (``xm``;
-    sweep 0 of the solve is plain and sweep 1 reads x_0), ``fast`` the
-    reciprocal form with one rounding as ``fmaf`` (``cuda_ops._fma_diffuse``),
-    ``damp`` damped Jacobi (``ops.multigrid._smooth``).  Returns (x, x_{k-1})."""
+    the border rule (``_block_bnd``), every operation in the operands'
+    dtype.  ``omegas`` (the whole solve's ``cheby_omegas``) makes the
+    sweeps Chebyshev sweeps ``first`` to ``first + sweeps - 1`` of their
+    solve, combined with x_{k-1} (``xm``; sweep 0 of the solve is plain and
+    sweep 1 reads x_0), ``fast`` the reciprocal form with one rounding as
+    ``fmaf`` (``cuda_ops._fma_diffuse``), ``damp`` damped Jacobi
+    (``ops.multigrid._smooth``).  ``stored``, the storage dtype of the
+    kernel a float32 run stands for (bf16), rounds the pre-scaled rhs and
+    the damped weights to it, as K9-block's bf16 forms take them.  Returns
+    (x, x_{k-1})."""
     rows, cols = rhs.shape
     if zero_init:
         x = torch.zeros_like(rhs)
     keep = _block_interior(rows, cols, r0, c0, n, rhs.device)[1:-1, 1:-1]
     if fast:
         rhs = rhs * (1.0 / beta)
+        if stored is not None:
+            rhs = rhs.to(stored).to(rhs.dtype)
         ab = co._f32(alpha / beta)
     a, bt = as_scalar(alpha, rhs), as_scalar(beta, rhs)
     rhs_in = rhs[1:-1, 1:-1]
     if damp is not None:
-        wd, omw = as_scalar(damp, rhs), as_scalar(1.0 - damp, rhs)
+        wdt = rhs.dtype if stored is None else stored
+        wd, omw = (as_scalar(co._round(w, wdt), rhs)
+                   for w in (damp, 1.0 - damp))
     if first == 0:
         xm = x
     for j in range(first, first + sweeps):
         neigh = ((x[1:-1, :-2] + x[1:-1, 2:]) + x[:-2, 1:-1]) + x[2:, 1:-1]
         if fast:
-            val = (rhs_in.double() + ab * neigh.double()).float()
+            val = (rhs_in.double() + ab * neigh.double()).to(rhs.dtype)
         else:
             val = (rhs_in + a * neigh) / bt
         if damp is not None:
@@ -954,6 +974,26 @@ def _block_sweeps_plain(b, x, rhs, r0, c0, n, alpha, beta, sweeps, *,
         _block_bnd(b, new, r0, c0, n)
         xm, x = x, new
     return x, xm
+
+
+def _storage(*tensors) -> torch.dtype:
+    """The one storage dtype of the given operands (None skipped): float32
+    or bf16, the block forms' two.  Any other dtype or a mix raises
+    ``TypeError``."""
+    dtypes = {t.dtype for t in tensors if t is not None}
+    if len(dtypes) > 1:
+        raise TypeError(f"mixed dtypes {sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    if dtype not in co._F32_BF16:
+        raise TypeError(f"expected torch.float32 or torch.bfloat16, got "
+                        f"{dtype}")
+    return dtype
+
+
+def _wide(t):
+    """A storage operand widened to float32 (itself in float32), None
+    kept: a kernel's loads."""
+    return None if t is None else t.float()
 
 
 def _block_checks(x_ext, rhs_ext, xm_ext, origin, n, m, k, K,
@@ -969,13 +1009,19 @@ def _block_checks(x_ext, rhs_ext, xm_ext, origin, n, m, k, K,
     ext = (m + 2 * K, k + 2 * K)
     if ext[0] * ext[1] >= 2**31:
         raise ValueError(f"unsupported block buffer {ext}")
-    return co._on_device(*((t, ext) for t in (rhs_ext, x_ext, xm_ext)
+    dtype = _storage(rhs_ext, x_ext, xm_ext)
+    return co._on_device(*((t, ext, (dtype,)) for t in (rhs_ext, x_ext,
+                                                        xm_ext)
                            if t is not None))
 
 
-def fused_jacobi_block_plain(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha,
-                             beta, sweeps, zero_init=False, fast=False,
-                             omegas=None, first=0, xm_ext=None):
+def fused_jacobi_block_ref(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha,
+                           beta, sweeps, zero_init=False, fast=False,
+                           omegas=None, first=0, xm_ext=None):
+    """The ``reference`` backend's chunk (JAX's jnp ``_diffuse_local`` /
+    ``_cheby_diffuse_local`` chunk): every operation in the storage dtype,
+    so in bf16 each one rounds to bf16 as JAX's do; in float32
+    ``fused_jacobi_block_plain`` to the bit."""
     _block_checks(None if zero_init else x_ext, rhs_ext, xm_ext, origin, n,
                   m, k, K, sweeps)
     r0, c0 = origin
@@ -984,6 +1030,25 @@ def fused_jacobi_block_plain(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha,
                                 omegas=omegas, first=first, xm=xm_ext)
     x = x[K:K + m, K:K + k]
     return x if omegas is None else (x, xm[K:K + m, K:K + k])
+
+
+def fused_jacobi_block_plain(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha,
+                             beta, sweeps, zero_init=False, fast=False,
+                             omegas=None, first=0, xm_ext=None):
+    """Plain twin of ``fused_jacobi_block``: its arithmetic in float32
+    torch ops, and in bf16 storage its roundings: the operands widened, the
+    pre-scaled rhs of the fast form rounded to bf16, the sweeps in float32
+    and x_k (and x_{k-1}) rounded to bf16 at the chunk's end."""
+    _block_checks(None if zero_init else x_ext, rhs_ext, xm_ext, origin, n,
+                  m, k, K, sweeps)
+    dtype = rhs_ext.dtype
+    r0, c0 = origin
+    x, xm = _block_sweeps_plain(
+        b, _wide(x_ext), _wide(rhs_ext), r0 - K, c0 - K, n, alpha, beta,
+        sweeps, zero_init=zero_init, fast=fast, omegas=omegas, first=first,
+        xm=_wide(xm_ext), stored=dtype)
+    x = x[K:K + m, K:K + k].to(dtype)
+    return x if omegas is None else (x, xm[K:K + m, K:K + k].to(dtype))
 
 
 def fused_jacobi_block(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha, beta,
@@ -998,8 +1063,11 @@ def fused_jacobi_block(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha, beta,
     ``first`` .. ``first + sweeps - 1`` of a Chebyshev solve (JAX's
     ``_cheby_diffuse_local``): sweep 0 is plain and its x_0 is x_{-1}, a
     later chunk combines with ``xm_ext``, the extended x_{k-1} the chunk
-    before it returned.  One K9-block launch (``jacobi_block_sweeps``);
-    returns the (m, k) block, with ``omegas`` (x_k, x_{k-1})."""
+    before it returned.  Every operand float32, or every one bf16 (the
+    bf16 form: the iterate float32 in the tile, x_k and x_{k-1} rounded to
+    bf16 at the store).  One K9-block launch (``jacobi_block_sweeps``, in
+    bf16 ``jacobi_block_sweeps_bf16``); returns the (m, k) block, with
+    ``omegas`` (x_k, x_{k-1})."""
     _require(omegas is None or first == 0 or xm_ext is not None,
              "a Chebyshev chunk after the first takes x_{k-1} (xm_ext)")
     if not _block_checks(None if zero_init else x_ext, rhs_ext, xm_ext,
@@ -1019,8 +1087,11 @@ def fused_jacobi_block(b, x_ext, rhs_ext, origin, *, n, m, k, K, alpha, beta,
     return out if omegas is not None else out[0]
 
 
-def smooth_block_plain(p_ext, div_ext, origin, *, n, m, k, K, sweeps,
-                       zero_init=False):
+def smooth_block_ref(p_ext, div_ext, origin, *, n, m, k, K, sweeps,
+                     zero_init=False):
+    """The ``reference`` backend's damped chunk (JAX's ``_mg_smooth_local``
+    sweeps): every operation in the storage dtype, w and 1-w in it; in
+    float32 ``smooth_block_plain`` to the bit."""
     _block_checks(None if zero_init else p_ext, div_ext, None, origin, n, m,
                   k, K, sweeps)
     r0, c0 = origin
@@ -1029,13 +1100,31 @@ def smooth_block_plain(p_ext, div_ext, origin, *, n, m, k, K, sweeps,
     return x[K:K + m, K:K + k]
 
 
+def smooth_block_plain(p_ext, div_ext, origin, *, n, m, k, K, sweeps,
+                       zero_init=False):
+    """Plain twin of ``smooth_block``: float32 sweeps, and in bf16
+    storage w and 1-w rounded to bf16 and the result rounded once, at the
+    chunk's end."""
+    _block_checks(None if zero_init else p_ext, div_ext, None, origin, n, m,
+                  k, K, sweeps)
+    dtype = div_ext.dtype
+    r0, c0 = origin
+    x, _ = _block_sweeps_plain(0, _wide(p_ext), _wide(div_ext), r0 - K,
+                               c0 - K, n, 1.0, 4.0, sweeps,
+                               zero_init=zero_init, damp=OMEGA, stored=dtype)
+    return x[K:K + m, K:K + k].to(dtype)
+
+
 def smooth_block(p_ext, div_ext, origin, *, n, m, k, K, sweeps,
                  zero_init=False):
     """``sweeps`` damped sweeps of the pressure problem (b=0, alpha=1,
     beta=4, w = ``ops.multigrid.OMEGA``; JAX's ``_mg_smooth_local``, one
     one-cell exchange a sweep there) on the ``(m+2K, k+2K)`` extended
     block ``p_ext`` (ignored with ``zero_init``) with rhs ``div_ext``:
-    K9-block's damped form, one launch; returns the (m, k) block."""
+    K9-block's damped form, one launch; returns the (m, k) block.  In bf16
+    storage (both operands) w and 1-w are taken in bf16, as JAX takes
+    them in p's dtype, and the result is rounded to bf16 once, at the
+    store."""
     if not _block_checks(None if zero_init else p_ext, div_ext, None,
                          origin, n, m, k, K, sweeps):
         return smooth_block_plain(p_ext, div_ext, origin, n=n, m=m, k=k, K=K,
@@ -1057,22 +1146,27 @@ def _block_tile(rows: int, cols: int) -> int:
 
 def _launch_block(b, x_ext, rhs_ext, xm_ext, origin, n, m, k, K, alpha,
                   beta, sweeps, flags, first, ws, cheby):
-    """One K9-block launch: (x, x_{k-1} or None) of the (m, k) block."""
+    """One K9-block launch: (x, x_{k-1} or None) of the (m, k) block, in
+    the operands' storage dtype (bf16: the bf16 form, whose damped weights
+    are rounded to bf16 here)."""
     r0, c0 = origin
     rows, cols = m + 2 * K, k + 2 * K
+    bf16 = rhs_ext.dtype == torch.bfloat16
+    name = "jacobi_block_sweeps_bf16" if bf16 else "jacobi_block_sweeps"
+    wdt = torch.bfloat16 if bf16 else torch.float32
     with torch.cuda.device(rhs_ext.device):
         lib = build.load()
         out = rhs_ext.new_empty((m, k))
         xm_out = rhs_ext.new_empty((m, k)) if cheby else None
         omegas = (ctypes.c_float * sweeps)(*ws)
         damp = flags & co._DAMP
-        co._launch("jacobi_block_sweeps", lib.fsc_jacobi_block_sweeps,
+        co._launch(name, getattr(lib, f"fsc_{name}"),
                    co._ptr(x_ext), rhs_ext.data_ptr(), co._ptr(xm_ext),
                    out.data_ptr(), co._ptr(xm_out), rows, cols, K, m, k,
                    r0 - K, c0 - K, n, b, co._f32(alpha), co._f32(beta),
                    co._f32(alpha / beta), co._f32(1.0 / beta),
-                   co._f32(OMEGA) if damp else 0.0,
-                   co._f32(1.0 - OMEGA) if damp else 0.0,
+                   co._round(OMEGA, wdt) if damp else 0.0,
+                   co._round(1.0 - OMEGA, wdt) if damp else 0.0,
                    ctypes.addressof(omegas), flags, first, sweeps,
                    _block_tile(rows, cols), co._stream(rhs_ext))
         return out, xm_out
@@ -1081,7 +1175,11 @@ def _launch_block(b, x_ext, rhs_ext, xm_ext, origin, n, m, k, K, alpha,
 def _advect_block_plain(bs, bufs, buf_origin, u, v, origin, dt, n, cmax):
     """The gather (windowed with ``cmax``, exact with None) of each field
     of ``bufs`` (cell (0, 0) at global ``buf_origin``) at the cells of the
-    (m, k) block at ``origin``, then the border rule."""
+    (m, k) block at ``origin``, then the border rule.  The backtrace and
+    the blend are float32 whatever the fields store, and each result is
+    rounded to its field's dtype (``ops.advect.departure``, ``bilinear``);
+    the border rule after that rounding moves, negates or averages equal
+    values and rounds nothing more."""
     r0, c0 = origin
     m, k = u.shape
     gr = torch.arange(r0, r0 + m, dtype=torch.float32,
@@ -1096,7 +1194,8 @@ def _advect_block_args(bs, bufs, u, v, origin, n, m, k, halo, self_adv):
     """(bs, bufs, u, v, on_card) after the checks; ``halo`` None for the
     assembled (side, side) fields.  With ``self_adv`` u and v are the
     block's cells of the two fields, views into them (row stride the
-    buffer's width)."""
+    buffer's width).  Every field and velocity float32, or every one
+    bf16."""
     bs, bufs = tuple(bs), tuple(bufs)
     r0, c0 = origin
     _require(len(bs) == len(bufs) and len(bs) in (1, 2),
@@ -1109,18 +1208,24 @@ def _advect_block_args(bs, bufs, u, v, origin, n, m, k, halo, self_adv):
              else (m + 2 * halo, k + 2 * halo))
     if shape[0] * shape[1] >= 2**31:
         raise ValueError(f"unsupported block buffer {shape}")
-    specs = [(f, shape) for f in bufs]
+    dtype = (_storage(*bufs) if self_adv
+             else _storage(*bufs, u, v))
+    specs = [(f, shape, (dtype,)) for f in bufs]
     if self_adv:
         _require(len(bs) == 2, "self_adv advects the (u, v) pair")
         at = (r0, c0) if halo is None else (halo, halo)
         u, v = (f[at[0]:at[0] + m, at[1]:at[1] + k] for f in bufs)
     else:
-        specs += [(u, (m, k)), (v, (m, k))]
+        specs += [(u, (m, k), (dtype,)), (v, (m, k), (dtype,))]
     return bs, bufs, u, v, co._on_device(*specs)
 
 
 def advect_block_plain(bs, exts, u_block, v_block, origin, *, dt, n, cmax,
                        m, k, self_adv):
+    """Plain twin of ``advect_block``, and the ``reference`` backend's
+    windowed gather: in bf16 the coordinates and the blend are float32 as
+    the kernel computes them, as JAX's single-device ``advect_windowed``
+    does; JAX's block route computes them in bf16 (ROADMAP §C)."""
     halo = (exts[0].shape[0] - m) // 2
     bs, exts, u, v, _ = _advect_block_args(bs, exts, u_block, v_block,
                                            origin, n, m, k, halo, self_adv)
@@ -1138,8 +1243,11 @@ def advect_block(bs, exts, u_block, v_block, origin, *, dt, n, cmax, m, k,
     2*halo)``, ``halo >= cmax+1``; JAX's ``_advect_local_windowed``, whose
     (2*cmax+1)² masked shifts read what one gather reads after the window
     clamp).  ``u_block``/``v_block`` are the (m, k) velocity blocks,
-    ignored with ``self_adv`` (the u/v pair, one shared backtrace).  One
-    K12-block launch; returns a tuple of (m, k) blocks."""
+    ignored with ``self_adv`` (the u/v pair, one shared backtrace).
+    Float32, or bf16 fields and velocities (the bf16 form: the backtrace
+    and the blend float32, each result rounded to bf16).  One K12-block
+    launch (``advect_block``, ``advect_block_bf16``); returns a tuple of
+    (m, k) blocks."""
     halo = (exts[0].shape[0] - m) // 2
     bs, exts, u, v, on_card = _advect_block_args(
         bs, exts, u_block, v_block, origin, n, m, k, halo, self_adv)
@@ -1155,6 +1263,9 @@ def advect_block(bs, exts, u_block, v_block, origin, *, dt, n, cmax, m, k,
 
 def advect_block_exact_plain(bs, fulls, u_block, v_block, origin, *, dt, n,
                              m, k, self_adv):
+    """Plain twin of ``advect_block_exact``, and the ``reference``
+    backend's exact gather: float32 coordinates and blend in bf16 too
+    (``advect_block_plain``)."""
     bs, fulls, u, v, _ = _advect_block_args(bs, fulls, u_block, v_block,
                                             origin, n, m, k, None, self_adv)
     return _advect_block_plain(bs, fulls, (0, 0), u, v, origin, dt, n, None)
@@ -1166,8 +1277,9 @@ def advect_block_exact(bs, fulls, u_block, v_block, origin, *, dt, n, m, k,
     ``origin``, gathered from the assembled (side, side) fields ``fulls``
     at global coordinates (JAX's ``_advect_local``, after its all-gather):
     any displacement gathers as the single-device step does.
-    ``u_block``/``v_block`` as ``advect_block``'s.  One launch of
-    K12-block's exact form; returns a tuple of (m, k) blocks."""
+    ``u_block``/``v_block`` and the dtypes as ``advect_block``'s.  One
+    launch of K12-block's exact form (``advect_block_exact``,
+    ``advect_block_exact_bf16``); returns a tuple of (m, k) blocks."""
     bs, fulls, u, v, on_card = _advect_block_args(
         bs, fulls, u_block, v_block, origin, n, m, k, None, self_adv)
     if not on_card:
@@ -1180,15 +1292,17 @@ def advect_block_exact(bs, fulls, u_block, v_block, origin, *, dt, n, m, k,
 def _launch_advect_block(name, bs, bufs, u, v, origin, n, m, k, halo, dt,
                          cmax):
     """One K12-block launch; u and v may be views with a row stride (the
-    u/v pair's own cells in its buffers)."""
+    u/v pair's own cells in its buffers).  bf16 fields take the bf16
+    form."""
     r0, c0 = origin
+    count = f"{name}_bf16" if u.dtype == torch.bfloat16 else name
     with torch.cuda.device(u.device):
         lib = build.load()
         outs = tuple(u.new_empty((m, k)) for _ in bs)
         d2, o2, b2 = ((bufs[1], outs[1], bs[1]) if len(bs) == 2
                       else (None, None, 0))
         exact = name == "advect_block_exact"
-        co._launch(name, getattr(lib, f"fsc_{name}"), bufs[0].data_ptr(),
+        co._launch(count, getattr(lib, f"fsc_{count}"), bufs[0].data_ptr(),
                    co._ptr(d2), u.data_ptr(), v.data_ptr(), u.stride(0),
                    outs[0].data_ptr(), co._ptr(o2), m, k, n, r0, c0,
                    *(() if exact else (halo, cmax)), bs[0], b2,
@@ -1213,7 +1327,8 @@ def _ext1(x: torch.Tensor, halos) -> torch.Tensor:
 
 def _halo_checks_block(x, halos, origin, n) -> list:
     """Each halo of a block (top, bottom: (1, k); left, right: (m,)), None
-    only beyond a global wall; returns the specs of those given."""
+    only beyond a global wall; returns the specs of those given, each in
+    ``x``'s dtype."""
     m, k = x.shape
     r0, c0 = origin
     walls = (r0 == 0, r0 + m == n + 2, c0 == 0, c0 + k == n + 2)
@@ -1223,15 +1338,36 @@ def _halo_checks_block(x, halos, origin, n) -> list:
         _require(h is not None or wall,
                  "a block's halo may be None only beyond a wall")
         if h is not None:
-            specs.append((h, shape))
+            specs.append((h, shape, (x.dtype,)))
     return specs
 
 
-def divergence_block_plain(u, v, u_halos, v_halos, origin, n):
+def _wides(halos) -> tuple:
+    return tuple(map(_wide, halos))
+
+
+def _divergence_block(u, v, u_halos, v_halos, origin, n):
+    """JAX's ``_divergence_local`` in the operands' dtype: h and
+    ``-0.5*h`` taken in it (``ops.project._h``)."""
     ue, ve = _ext1(u, u_halos), _ext1(v, v_halos)
-    d = (-0.5 * grid_h(n)) * ((ue[1:-1, 2:] - ue[1:-1, :-2])
-                              + (ve[2:, 1:-1] - ve[:-2, 1:-1]))
+    d = (as_scalar(-0.5, u) * _h(n, u)) * ((ue[1:-1, 2:] - ue[1:-1, :-2])
+                                           + (ve[2:, 1:-1] - ve[:-2, 1:-1]))
     return _block_bnd(0, d, *origin, n)
+
+
+def divergence_block_ref(u, v, u_halos, v_halos, origin, n):
+    """The ``reference`` backend's divergence: every operation in the
+    storage dtype, as JAX's; in float32 ``divergence_block_plain``."""
+    _storage(u, v, *u_halos, *v_halos)
+    return _divergence_block(u, v, u_halos, v_halos, origin, n)
+
+
+def divergence_block_plain(u, v, u_halos, v_halos, origin, n):
+    """Plain twin of ``divergence_block``: float32 arithmetic, the result
+    rounded to the storage dtype once."""
+    _storage(u, v, *u_halos, *v_halos)
+    return _divergence_block(_wide(u), _wide(v), _wides(u_halos),
+                             _wides(v_halos), origin, n).to(u.dtype)
 
 
 def divergence_block(u, v, u_halos, v_halos, origin, n):
@@ -1239,16 +1375,22 @@ def divergence_block(u, v, u_halos, v_halos, origin, n):
     ``(-0.5*h)*((u_r - u_l) + (v_dn - v_up))``, border mode 0, its
     neighbour cells from the one-deep halos (``parallel.mesh.Blocks.halos``:
     (top, bottom, left, right); the divergence reads u's columns and v's
-    rows).  One K10-block launch."""
+    rows).  Float32, or bf16 u, v and halos (the bf16 form: float32
+    arithmetic, a bf16 divergence as JAX's block route writes).  One
+    K10-block launch (``divergence_block``, ``divergence_block_bf16``)."""
     m, k = u.shape
+    dtype = _storage(u, v)
     specs = (_halo_checks_block(u, u_halos, origin, n)[2:]
              + _halo_checks_block(v, v_halos, origin, n)[:2])
-    if not co._on_device((u, (m, k)), (v, (m, k)), *specs):
+    if not co._on_device((u, (m, k), (dtype,)), (v, (m, k), (dtype,)),
+                         *specs):
         return divergence_block_plain(u, v, u_halos, v_halos, origin, n)
+    name = ("divergence_block_bf16" if u.dtype == torch.bfloat16
+            else "divergence_block")
     with torch.cuda.device(u.device):
         lib = build.load()
         out = torch.empty_like(u)
-        co._launch("divergence_block", lib.fsc_divergence_block,
+        co._launch(name, getattr(lib, f"fsc_{name}"),
                    u.data_ptr(), v.data_ptr(), co._ptr(u_halos[2]),
                    co._ptr(u_halos[3]), co._ptr(v_halos[0]),
                    co._ptr(v_halos[1]), out.data_ptr(), m, k, n, *origin,
@@ -1256,28 +1398,51 @@ def divergence_block(u, v, u_halos, v_halos, origin, n):
         return out
 
 
-def gradient_block_plain(u, v, p, p_halos, origin, n):
+def _gradient_block(u, v, p, p_halos, origin, n):
+    """JAX's ``_gradient_local`` in the operands' dtype (h in it)."""
     pe = _ext1(p, p_halos)
-    h = as_scalar(grid_h(n), u)
+    h = _h(n, u)
     uo = u - (0.5 * (pe[1:-1, 2:] - pe[1:-1, :-2])) / h
     vo = v - (0.5 * (pe[2:, 1:-1] - pe[:-2, 1:-1])) / h
     return _block_bnd(1, uo, *origin, n), _block_bnd(2, vo, *origin, n)
 
 
+def gradient_block_ref(u, v, p, p_halos, origin, n):
+    """The ``reference`` backend's gradient: every operation in the
+    storage dtype, as JAX's; in float32 ``gradient_block_plain``."""
+    _storage(u, v, p, *p_halos)
+    return _gradient_block(u, v, p, p_halos, origin, n)
+
+
+def gradient_block_plain(u, v, p, p_halos, origin, n):
+    """Plain twin of ``gradient_block``: float32 arithmetic, u and v
+    rounded to the storage dtype once."""
+    _storage(u, v, p, *p_halos)
+    uo, vo = _gradient_block(_wide(u), _wide(v), _wide(p), _wides(p_halos),
+                             origin, n)
+    return uo.to(u.dtype), vo.to(u.dtype)
+
+
 def gradient_block(u, v, p, p_halos, origin, n):
     """JAX's ``_gradient_local`` on the (m, k) block at ``origin``: ``u -
     (0.5*dp/dx)/h``, ``v - (0.5*dp/dy)/h``, border modes 1 and 2, p's
-    neighbour cells from its one-deep halos.  One K11-block launch;
+    neighbour cells from its one-deep halos.  Float32, or bf16 u, v, p
+    and halos (the bf16 form: float32 arithmetic, bf16 u and v).  One
+    K11-block launch (``gradient_block``, ``gradient_block_bf16``);
     returns the (u, v) blocks."""
     m, k = u.shape
+    dtype = _storage(u, v, p)
     specs = _halo_checks_block(p, p_halos, origin, n)
-    if not co._on_device((u, (m, k)), (v, (m, k)), (p, (m, k)), *specs):
+    if not co._on_device((u, (m, k), (dtype,)), (v, (m, k), (dtype,)),
+                         (p, (m, k), (dtype,)), *specs):
         return gradient_block_plain(u, v, p, p_halos, origin, n)
+    name = ("gradient_block_bf16" if u.dtype == torch.bfloat16
+            else "gradient_block")
     with torch.cuda.device(u.device):
         lib = build.load()
         uo = torch.empty_like(u)
         vo = torch.empty_like(v)
-        co._launch("gradient_block", lib.fsc_gradient_block, u.data_ptr(),
+        co._launch(name, getattr(lib, f"fsc_{name}"), u.data_ptr(),
                    v.data_ptr(), p.data_ptr(), *map(co._ptr, p_halos),
                    uo.data_ptr(), vo.data_ptr(), m, k, n, *origin,
                    grid_h(n), co._stream(u))

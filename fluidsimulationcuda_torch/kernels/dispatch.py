@@ -13,7 +13,9 @@ always gathers so).  The multigrid smoother is ``ops.multigrid._smooth`` on
 
 ``get_ops`` returns the single-device step's ``OpSet``, ``get_block_ops``
 the block route's ``BlockOpSet`` (``kernels/cuda_sharded.py``: K9-block,
-K12-block, K10-block and K11-block, or their plain twins), ``get_slab_ops``
+K12-block, K10-block and K11-block, or the ``reference`` forms, which in
+bf16 round every operation as JAX's jnp block route does, or the kernels'
+plain twins), ``get_slab_ops``
 the multi-device step's ``SlabOpSet`` (``kernels/cuda_sharded.py``: the
 row-slab kernels or their plain twins; the slab multigrid smooths its fine
 level with the SlabOpSet's ``smooth``, the grouped K9-damp or its plain
@@ -190,17 +192,28 @@ class BlockOpSet(NamedTuple):
     fast: bool
 
 
-def get_block_ops(cfg: SimConfig) -> BlockOpSet:
-    """The block kernels (``cuda``) or their plain twins (``reference``),
-    chosen once from ``cfg.resolved_backend``."""
+def get_block_ops(cfg: SimConfig, plain: bool = False) -> BlockOpSet:
+    """The block kernels (``cuda``) or the ``reference`` backend's forms,
+    chosen once from ``cfg.resolved_backend``.  In float32 the
+    ``reference`` forms are the kernels' plain twins; in bf16 they split:
+    the ``reference`` forms round every operation to bf16 as JAX's jnp
+    block route does (``*_ref``), a twin rounds where its kernel stores
+    (``*_plain``; the gathers are float32 in both).  ``plain`` (a ``cuda``
+    config) binds the kernels' plain twins on any device, fast math
+    included: what a block step on the card is held to bit for bit."""
     from . import cuda_sharded as cs
 
     backend = cfg.resolved_backend
     if backend == "reference":
+        return BlockOpSet(cs.fused_jacobi_block_ref, cs.smooth_block_ref,
+                          cs.advect_block_plain, cs.advect_block_exact_plain,
+                          cs.divergence_block_ref, cs.gradient_block_ref,
+                          fast=False)
+    if backend == "cuda" and plain:
         return BlockOpSet(cs.fused_jacobi_block_plain, cs.smooth_block_plain,
                           cs.advect_block_plain, cs.advect_block_exact_plain,
                           cs.divergence_block_plain, cs.gradient_block_plain,
-                          fast=False)
+                          fast=cfg.fast_math)
     if backend == "cuda":
         return BlockOpSet(cs.fused_jacobi_block, cs.smooth_block,
                           cs.advect_block, cs.advect_block_exact,

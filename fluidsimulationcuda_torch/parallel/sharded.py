@@ -66,10 +66,22 @@ halos (K10-block, K11-block), the gathers either the assembled fields
 (exact, ``Blocks.gather``) or a ``cmax+1``-deep 2-D halo (windowed;
 K12-block's two forms), and multigrid and CG run on blocks
 (``solvers.mg_blocks``, ``cg_blocks``).  Every operation is the
-BlockOpSet's (``kernels/dispatch.py``): the kernels on ``cuda``, their
-plain twins on ``reference``.  JAX's block route ignores ``fast_math``;
+BlockOpSet's (``kernels/dispatch.py``): the kernels on ``cuda``, the
+``reference`` forms on ``reference`` (in float32 the kernels' plain
+twins).  JAX's block route ignores ``fast_math``;
 here, as on the slab route, the ``cuda`` backend takes the reciprocal
 form for the diffusion solves in fast mode (never for the pressure).
+
+bf16 storage (``cfg.dtype``) runs on the block route alone, as in JAX,
+whose slab route is float32.  Every field, halo and exchange is bf16 and
+so are the divergence, the pressure of every solver (the multigrid's
+coarse levels too) and the audited displacement, as JAX's.  The
+``reference`` backend rounds every operation to bf16 as JAX's jnp ops do,
+except the gathers, whose coordinates and blend are float32 (JAX's
+single-device ``ops.advect``; its block route computes them in bf16,
+ROADMAP §C).  The ``cuda`` backend runs the bf16 forms of the four block
+kernels, which compute in float32 and round at the store: a solve once a
+chunk, where JAX rounds every sweep.
 """
 from __future__ import annotations
 
@@ -79,8 +91,10 @@ import torch
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
+from ..kernels import cuda_ops
 from ..kernels.dispatch import get_block_ops, get_ops, get_slab_ops
 from ..ops.chebyshev import cheby_omegas
+from ..ops.diffuse import as_scalar
 from ..ops.source import add_source
 from .mesh import Blocks, Mesh, _ext, _gather, _halos
 from .solvers import SMOOTH_HALO, cg_blocks, cg_slabs, mg_blocks, mg_slabs
@@ -446,7 +460,7 @@ class _BlockStep:
     windowed (from a ``cmax+1``-deep 2-D halo)."""
 
     def __init__(self, cfg: SimConfig, mesh: Mesh, audited: bool,
-                 exact: bool):
+                 exact: bool, plain: bool = False):
         self.cfg, self.audited, self.exact = cfg, audited, exact
         self.devices = mesh.device_list
         self.blocks = Blocks(mesh.shape["x"], mesh.shape["y"], cfg.n + 2)
@@ -455,9 +469,13 @@ class _BlockStep:
                 f"the block route needs blocks of at least 2 x 2 cells; got "
                 f"{self.blocks.m} x {self.blocks.k} on mesh "
                 f"({self.blocks.px}, {self.blocks.py})")
-        self.ops = get_block_ops(cfg)
-        self.smooth_coarse = (get_ops(cfg).smooth
-                              if cfg.pressure_solver == "multigrid" else None)
+        # plain (a cuda config): the kernels' plain twins and K1-damp's,
+        # the step a cuda run is held to bit for bit.
+        self.ops = get_block_ops(cfg, plain=plain)
+        self.smooth_coarse = None
+        if cfg.pressure_solver == "multigrid":
+            self.smooth_coarse = (cuda_ops.mg_smooth_plain if plain
+                                  else get_ops(cfg).smooth)
 
     # -- the operations of _step_local ------------------------------------------
 
@@ -515,11 +533,14 @@ class _BlockStep:
                 for es, ui, vi, o in zip(zip(*bufs), u, v, blocks.origins)]
 
     def _disp(self, u, v) -> torch.Tensor:
-        """Largest backtrace displacement (cells) over every block."""
+        """Largest backtrace displacement (cells) over every block, in the
+        storage dtype (JAX's ``_disp_global``: the largest speed times
+        ``dt*n`` taken in it)."""
         dev = self.devices[0]
         local = [torch.maximum(a.abs().max(), b.abs().max()).to(dev)
                  for a, b in zip(u, v)]
-        return torch.stack(local).max() * (self.cfg.dt * self.cfg.n)
+        fastest = torch.stack(local).max()
+        return fastest * as_scalar(self.cfg.dt * self.cfg.n, fastest)
 
     # -- the step --------------------------------------------------------------
 
@@ -586,8 +607,10 @@ def make_sharded_step_fn(
     row-flatten.  Each route's operations are the CUDA kernels or their
     plain twins by ``cfg.resolved_backend``, chosen once.
     ``pressure_solver="multigrid"`` raises ``ValueError`` unless every part
-    has even sides, as in JAX.  bfloat16 raises ``NotImplementedError``
-    (ROADMAP §A 5).
+    has even sides, as in JAX.  bfloat16 storage runs on the block route,
+    which ``"auto"`` takes for it, as JAX's does (its slab route is
+    float32, ``sharded.py:843-847`` there); ``"slab"`` raises
+    ``ValueError`` for it.
 
     ``advect_mode``: ``"windowed"`` gathers in the window of
     ``max_courant`` cells; ``"exact"`` gathers from the assembled fields
@@ -614,17 +637,19 @@ def make_sharded_step_fn(
     if cfg.ndim != 2:
         raise ValueError("make_sharded_step_fn is the 2-D step; the 3-D "
                          "z-slab step is make_sharded_step_fn_3d")
-    if cfg.dtype != torch.float32:
-        # JAX's slab route requires float32 (parallel/sharded.py:847 there)
-        # and runs bf16 on its block route, in jnp.
-        raise NotImplementedError(
-            f"dtype={cfg.dtype} on the multi-device step waits on ROADMAP "
-            f"§A 5 (bf16 beyond the single-device 2-D step)")
     px, py = mesh.shape["x"], mesh.shape["y"]
     side = cfg.n + 2
     slabs = px * py
     window = cfg.max_courant + 1
+    # The slab route is float32, as JAX's (parallel/sharded.py:843-847
+    # there); bf16 storage takes the block route, as JAX's "auto" does.
+    bf16 = cfg.dtype == torch.bfloat16
     if shard_backend == "slab":
+        if bf16:
+            raise ValueError(
+                "shard_backend='slab' is float32, as the JAX package's slab "
+                "route; bf16 storage runs on the block route "
+                "(shard_backend='auto' or 'reference')")
         if not _slab_viable(cfg, slabs):
             raise ValueError(
                 f"shard_backend='slab' needs row slabs (2-D meshes are "
@@ -632,8 +657,8 @@ def make_sharded_step_fn(
                 f"max_courant+1 rows; got mesh ({px}, {py}), n={cfg.n}")
         blocks = False
     else:
-        blocks = shard_backend == "reference" or not _slab_viable(cfg,
-                                                                  slabs)
+        blocks = (bf16 or shard_backend == "reference"
+                  or not _slab_viable(cfg, slabs))
     if blocks:
         if side % px or side % py:
             raise ValueError(f"grid side {side} not divisible by mesh "

@@ -30,8 +30,10 @@ that calls them captures into a CUDA graph.
   its residual's 2x2 cell groups, pair-aligned by one leading zero row and
   column (a part's first row and column are even), into a block of the
   coarse grid; the blocks of neighbouring parts overlap by one coarse row
-  or column, and the first device adds them into one zero coarse grid, in
-  mesh order.  The coarse grid is solved there by the classic single-grid
+  or column, and the first device adds them into one zero float32 coarse
+  grid, in mesh order, and rounds the sum to the storage dtype once (a
+  bf16 coarse grid, as XLA's ``psum`` of JAX's bf16 grids rounds it).
+  The coarse grid is solved there by the classic single-grid
   cycle, ``ops.multigrid.v_cycle`` with ``smooth_coarse`` (the OpSet's:
   K1-damp on the card), never by the graded ``mg_pressure_solve_fast`` of
   the single-device step; its bilinear prolongation is cut back into
@@ -214,7 +216,9 @@ def _mg(div, cycles: int, n: int, g: _Parts, smooth_coarse: Callable,
             return g.smooth(p, div, 40, False)
         r = [torch.where(mask, d - a, 0.0)
              for d, a, mask in zip(div, g.apply_A(p), g.masks)]
-        full = torch.zeros((nc + 2, nc + 2), dtype=div[0].dtype,
+        # The parts' blocks are added in float32 and the sum rounded to
+        # the storage dtype once, as XLA's psum of bf16 grids sums them.
+        full = torch.zeros((nc + 2, nc + 2), dtype=torch.float32,
                            device=first)
         for ri, (r0, c0) in zip(r, g.origins):
             m, k = ri.shape
@@ -222,8 +226,8 @@ def _mg(div, cycles: int, n: int, g: _Parts, smooth_coarse: Callable,
             block = rp.reshape((m + 2) // 2, 2, (k + 2) // 2, 2).sum(
                 dim=(1, 3))
             full[r0 // 2:r0 // 2 + (m + 2) // 2,
-                 c0 // 2:c0 // 2 + (k + 2) // 2] += block.to(first)
-        r_c = embed_interior(0, full[1:-1, 1:-1])
+                 c0 // 2:c0 // 2 + (k + 2) // 2] += block.to(first).float()
+        r_c = embed_interior(0, full[1:-1, 1:-1].to(div[0].dtype))
         e_c = mg.v_cycle(torch.zeros_like(r_c), r_c, levels - 1, pre, post,
                          smooth=smooth_coarse)
         e = mg._prolong(e_c)

@@ -337,14 +337,21 @@ def test_config_refuses_other_dtypes():
 
 
 def test_sharded_step_refuses_bf16():
+    """The multi-device step's slab route is float32, as JAX's, and
+    refuses bf16 storage; bf16 runs on the block route, which
+    ``"auto"`` takes for it (ROADMAP §A 5 (b),
+    tests/test_torch_sharded_blocks_bf16.py)."""
     from fluidsimulationcuda_torch.parallel import make_mesh
     from fluidsimulationcuda_torch.parallel.sharded import (
         make_sharded_step_fn)
 
     cfg = ft.SimConfig(n=62, dtype=BF16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_step_fn(cfg, make_mesh([torch.device("cpu")] * 4),
-                             advect_mode="windowed")
+    mesh = make_mesh([torch.device("cpu")] * 4)
+    with pytest.raises(ValueError, match="float32"):
+        make_sharded_step_fn(cfg, mesh, advect_mode="windowed",
+                             shard_backend="slab")
+    assert make_sharded_step_fn(cfg, mesh, advect_mode="windowed").layout \
+        == "blocks"
 
 
 def test_kernels_without_a_bf16_form_raise():

@@ -1294,6 +1294,75 @@ def test_block_step_2048_exact_equals_single_device(cuda):
             assert torch.equal(a, b), f"step {k + 1}"
 
 
+@pytest.mark.parametrize("side,px,py", BLOCK_MESHES,
+                         ids=[f"{s}-{a}x{b}" for s, a, b in BLOCK_MESHES])
+def test_block_bf16_forms_match_plain(cuda, side, px, py):
+    """The bf16 forms of K9-block, K12-block, K10-block and K11-block
+    against their plain twins (float32 arithmetic, a bf16 rounding where
+    the kernel stores) on a corner, an edge, an interior and the far corner
+    block: bit for bit, the fast forms within ``checks.TOL``; each call
+    launches its bf16 form once and nothing else, and returns bf16."""
+    for check in checks.kernel_checks_block(side, side // px, side // py,
+                                            cuda, seed=side, bf16=True):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = {k: c for k, c in cuda_ops.launch_counts().items() if c}
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts == {check.kernels[0]: 1}, (check.label, counts)
+        assert check.kernels[0].endswith("_bf16"), check.label
+        for g in (got if isinstance(got, tuple) else (got,)):
+            assert g.dtype == torch.bfloat16, check.label
+        err = checks.max_abs_diff(got, want)
+        tol = checks.TOL if "fast" in check.label else 0.0
+        assert err <= tol, (check.label, err)
+
+
+BF16_BLOCK_STEPS = {
+    "parity": dict(),
+    "compensated-fast": dict(PERF, fast_math=True),
+    "multigrid": dict(pressure_solver="multigrid", mg_cycles=2),
+    "cg": dict(pressure_solver="cg", cg_iters=20),
+}
+
+
+@pytest.mark.parametrize("mode", list(BF16_BLOCK_STEPS))
+def test_block_bf16_step_launches_only_bf16_forms(cuda, mode):
+    """The bf16 block step at 2048² on (2, 4) blocks (exact, 2 steps)
+    launches only the bf16 forms (``chip_smoke.expected_launches_blocks``:
+    every float32 block form at 0), stays bf16 and finite, and equals the
+    plain twins' step (``_BlockStep(..., plain=True)``) bit for bit."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn,
+                                                    shard_blocks, unshard)
+    from fluidsimulationcuda_torch.parallel.sharded import _BlockStep
+
+    cfg = ft.SimConfig(n=2046, jacobi_iters=20, backend="cuda", device=cuda,
+                       dtype=torch.bfloat16, **BF16_BLOCK_STEPS[mode])
+    mesh = make_mesh([torch.device("cuda", 0)] * 8, shape=(2, 4))
+    step = make_sharded_step_fn(cfg, mesh, advect_mode="exact")
+    assert step.layout == "blocks"
+    state0, src = ft.reference_init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    state, sources, zeros = (shard_blocks(t, mesh) for t in
+                             (state0, src, ft.zero_sources(cfg)))
+    twins = _BlockStep(cfg, mesh, False, True, plain=True)
+    cuda_ops.reset_launch_counts()
+    got, want = state, state
+    for k in range(2):
+        got = step(got, sources if k == 0 else zeros)
+    counts = cuda_ops.launch_counts()
+    for k in range(2):
+        want = twins(want, sources if k == 0 else zeros)
+    per_step = chip_smoke.expected_launches_blocks(cfg, 2, 4, True)
+    assert all(k.endswith("_bf16") for k, c in per_step.items() if c)
+    assert counts == {k: 2 * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    for a, b in zip(unshard(got, mesh)[:3], unshard(want, mesh)[:3]):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("side,batch", [(16, 0), (130, 3), (2048, 0)])
 def test_damped_bf16_rhs_forms_match_plain(cuda, side, batch):
     """K1-damp's bf16-rhs forms (``checks.kernel_checks_damp(bf16=True)``:

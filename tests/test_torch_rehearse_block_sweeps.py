@@ -19,8 +19,14 @@ through the kernel equals the plain twin's whole solve on the whole grid,
 and the block step on the ``cuda`` backend (the kernels through the shim)
 equals the ``reference`` backend's on (2, 2) and (2, 4) meshes, bit for
 bit, with the launches counted.  A copy of the sources whose K9-block
-ignores the block's column origin fails the checks.  Skips only without
-``g++``.
+ignores the block's column origin fails the checks.  The bf16 forms
+(``*_bf16``: bf16 operands, float32 arithmetic, a rounding at each store)
+are held the same way against their plain twins, which round where the
+kernels store, on every block of the four meshes; a bf16 Chebyshev solve
+chunked through K9-block's bf16 form equals the same chunks on the twins;
+and the bf16 block step through the kernels equals the step on the plain
+twins (``_BlockStep(..., plain=True)``) bit for bit, launching only bf16
+forms.  Skips only without ``g++``.
 """
 import importlib.util
 import re
@@ -94,6 +100,53 @@ def test_block_forms_match_plain(shim, px, py):
         assert checks.max_abs_diff(got, want) == 0.0, c.label
 
 
+@pytest.mark.parametrize("px,py", MESHES, ids=[f"{a}x{b}" for a, b in MESHES])
+def test_block_bf16_forms_match_plain(shim, px, py):
+    """Every bf16 form of the four block kernels, in every mode the step
+    gives it, against its plain twin bit for bit (fast forms too: the
+    twin rounds as ``fmaf`` does), each launching its bf16 form once."""
+    m, k = SIDE // px, SIDE // py
+    cases = checks.kernel_checks_block(SIDE, m, k, "cpu", 0,
+                                       _mesh_origins(px, py), bf16=True)
+    assert len(cases) == px * py * 23
+    for c in cases:
+        assert c.kernels[0].endswith("_bf16"), c.label
+        got, counts = _run(shim, c.run)
+        assert counts == {c.kernels[0]: 1}, c.label
+        want = c.plain()
+        for g in (got if isinstance(got, tuple) else (got,)):
+            assert g.dtype == torch.bfloat16, c.label
+        assert checks.max_abs_diff(got, want) == 0.0, c.label
+
+
+@pytest.mark.parametrize("zero_init", [False, True])
+def test_chunked_chebyshev_bf16_through_the_kernels(shim, zero_init):
+    """A 10-sweep bf16 Chebyshev solve on the 3 x 3 blocks of 66² in
+    chunks of 8 and 2 sweeps (``parallel.sharded._cheby_blocks``: x and
+    x_{k-1} rounded to bf16 at each chunk's end and exchanged in bf16)
+    through K9-block's bf16 form equals the same chunks on the plain twin
+    bit for bit, with one launch a block a chunk."""
+    from fluidsimulationcuda_torch.parallel import sharded
+
+    t = checks._Inputs(SIDE, "cpu", 5)
+    blocks = Blocks(3, 3, SIDE)
+    x, rhs = (blocks.cut(f.to(torch.bfloat16)) for f in (t.src, t.x0))
+    ops = {name: type("Ops", (), dict(jacobi=staticmethod(fn)))
+           for name, fn in (("cuda", cs.fused_jacobi_block),
+                            ("plain", cs.fused_jacobi_block_plain))}
+
+    def solve(o):
+        return sharded._cheby_blocks(o, blocks, t.n, 1, x, rhs, t.a_visc,
+                                     1 + 4 * t.a_visc, 10, 0.9,
+                                     zero_init=zero_init)
+
+    got, counts = _run(shim, solve, ops["cuda"])
+    assert counts == {"jacobi_block_sweeps_bf16": 9 * 2}
+    want = solve(ops["plain"])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+
+
 @pytest.mark.parametrize("zero_init", [False, True])
 def test_chunked_chebyshev_is_the_whole_solve(shim, zero_init):
     """A 10-sweep Chebyshev solve in chunks of 4, 4 and 2 sweeps on the one
@@ -160,6 +213,42 @@ def test_block_step_through_the_kernels(shim, mode, shape, gather):
             assert torch.equal(g, w)
     expected = chip_smoke.expected_launches_blocks(cfg, *shape,
                                                    gather == "exact")
+    assert counts == {k: c for k, c in expected.items() if c}
+
+
+@pytest.mark.parametrize("mode,shape,gather", STEPS,
+                         ids=[f"{m}-{s[0]}x{s[1]}-{g}" for m, s, g in STEPS])
+def test_block_bf16_step_through_the_kernels(shim, mode, shape, gather):
+    """The bf16 block step on the ``cuda`` backend (the bf16 forms through
+    the shim; the multigrid's bf16 coarse grid on K1-damp's bf16-rhs
+    forms) equals the step on the plain twins (``_BlockStep(...,
+    plain=True)``) bit for bit and stays bf16; it launches
+    ``chip_smoke.expected_launches_blocks``'s bf16 forms and no float32
+    block form."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import sharded
+
+    ref = ft.SimConfig(n=30, jacobi_iters=8, max_courant=2,
+                       backend="reference", device="cpu", **MODES[mode])
+    cfg = ref.replace(dtype=torch.bfloat16)
+    object.__setattr__(cfg, "backend", "cuda")  # only the shim allows it
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), ref)
+    state = ft.FluidState(*(x.to(torch.bfloat16) for x in state[:3]))
+    src = ft.Sources(*(x.to(torch.bfloat16) for x in src[:3]))
+    mesh = make_mesh([CPU] * (shape[0] * shape[1]), shape=shape)
+    step = make_sharded_step_fn(cfg, mesh, advect_mode=gather,
+                                shard_backend="reference")
+    twins = sharded._BlockStep(cfg, mesh, False, gather == "exact",
+                               plain=True)
+    state, src = shard_blocks(state, mesh), shard_blocks(src, mesh)
+    got, counts = _run(shim, step, state, src)
+    want = twins(state, src)
+    for g, w in zip(unshard(got, mesh), unshard(want, mesh)):
+        if g is not None:
+            assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    expected = chip_smoke.expected_launches_blocks(cfg, *shape,
+                                                   gather == "exact")
+    assert all(k.endswith("_bf16") for k in expected)
     assert counts == {k: c for k, c in expected.items() if c}
 
 

@@ -310,21 +310,25 @@ def test_rejects_sharded_krylov_and_multigrid(solver):
     (``tests/test_torch_sharded_solvers.py``) and now on JAX's block route
     too (``shard_backend="reference"``, ``solvers.mg_blocks`` and
     ``cg_blocks``, ``tests/test_torch_sharded_blocks_solvers.py``).  What
-    stays refused is bf16 on either route (ROADMAP §A 5) and, for
-    multigrid, odd blocks."""
+    stays refused is bf16 on the slab route and, for multigrid, odd
+    blocks.  bf16 storage now runs on the block route, which ``"auto"``
+    and ``"reference"`` take for it (ROADMAP §A 5 (b),
+    ``tests/test_torch_sharded_blocks_bf16.py``); the slab route is
+    float32, as JAX's, so only ``"slab"`` refuses it, with a
+    ``ValueError`` that says so."""
     cfg = _cfg("parity", pressure_solver=solver)
     step = make_sharded_step_fn(cfg, make_mesh([CPU] * 4),
                                 shard_backend="reference")
     assert step.layout == "blocks" and step.routes["projection"] == "composed"
     assert make_sharded_step_fn(cfg, make_mesh([CPU] * 4)).routes[
         "projection"] == "composed"
-    # (bf16 multigrid and CG stop at the config; the step refuses bf16
-    # whatever the solver.)
-    bf16 = _cfg("parity").replace(dtype=torch.bfloat16)
-    for backend in ("auto", "reference", "slab"):
-        with pytest.raises(NotImplementedError, match="§A 5"):
-            make_sharded_step_fn(bf16, make_mesh([CPU] * 4),
-                                 shard_backend=backend)
+    bf16 = cfg.replace(dtype=torch.bfloat16)
+    for backend in ("auto", "reference"):
+        assert make_sharded_step_fn(bf16, make_mesh([CPU] * 4),
+                                    shard_backend=backend).layout == "blocks"
+    with pytest.raises(ValueError, match="float32"):
+        make_sharded_step_fn(bf16, make_mesh([CPU] * 4),
+                             shard_backend="slab")
 
 
 def test_auto_keeps_slabs_where_jax_takes_blocks():
