@@ -300,7 +300,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    against ``expected_launches_blocks`` (the bf16 forms; the float32 block
    forms at 0), eager and graph ms/step beside the float32 block step's,
    and for multigrid and CG max|div| after the first projection beside
-   float32's.
+   float32's;
+21. bf16 storage on the 3-D step (``bf16_3d_phase``): the bf16 forms of
+   K5 (per-sweep and tiled), K6 (exact and windowed, one field and the
+   triple), K7 (into float32) and K8 (from a float32 pressure) against
+   their plain twins at 256³ (``checks.kernel_checks3_bf16``, bit for
+   bit), every tiled call also against the same call on the per-sweep
+   K5's bf16 form; each form timed beside its bound in 2-byte storage, its
+   float32 form on the same values, its plain twin and, for K6,
+   ``grid_sample`` on bf16; then ``StableFluids3D`` in bf16 at 256³
+   (``bf16_3d_path``), parity (20 iterations), compensated with fast math
+   (the tiled K5) and windowed parity (4 cells), three steps each from the
+   reference draw rounded to bf16: launches against
+   ``expected_launches3`` (bf16 forms wherever a bf16 operand enters, the
+   float32 K5 for the pressure solves on the float32 divergence), the
+   state bf16, held to the plain twins' step (``_Ops3(cfg, plain=True)``)
+   bit for bit and to the float32 step by ``bf16_bars``, max|div| after
+   the first projection bf16 beside float32, eager and graph ms/step
+   beside the float32 step.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
@@ -315,8 +332,8 @@ runs for K17, phase 10's chunk run for B13's split-source K9, phases 14 and
 18 for K1-damp (its bf16-rhs forms, ``jacobi_sweeps_damp_bf16``, from
 phase 18's bf16 multigrid runs) and
 phase 16 for K6's window, phase 19's runs for the block forms, phase
-20's for their bf16 forms), its max|Δ|
-from phase 3, 3b, 3c, 3d, 3e, 3f, 19 or 20,
+20's for their bf16 forms, phase 21's for K5-K8's bf16 forms), its max|Δ|
+from phase 3, 3b, 3c, 3d, 3e, 3f, 19, 20 or 21,
 its device time beside its plain version's, and its bound; the bf16 forms
 are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 ``gradient_bf16``, ``advect_bf16``: launches from phase 18's 2048² parity
@@ -452,6 +469,16 @@ KERNEL_SOURCES = {
     "divergence_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "gradient_bf16": (f"{CSRC}/project.cu", f"{TPU_KERNELS}:899"),
     "advect_bf16": (f"{CSRC}/advect.cu", f"{TPU_KERNELS}:1182"),
+    # The bf16 forms of K5-K8: JAX's bf16 3-D step runs its jnp ops
+    # (_use_pallas3 takes float32 only), the functions of these
+    # pallas_calls.
+    "jacobi3_sweep_bf16": (f"{CSRC}/jacobi3.cu", f"{TPU_KERNELS_3D}:458"),
+    "jacobi3_sweeps_bf16": (f"{CSRC}/jacobi3_tiles.cu",
+                            f"{TPU_KERNELS_3D}:522"),
+    "advect3_bf16": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
+    "advect3_windowed_bf16": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
+    "divergence3_bf16": (f"{CSRC}/project3.cu", f"{TPU_KERNELS_3D}:1085"),
+    "gradient3_bf16": (f"{CSRC}/project3.cu", f"{TPU_KERNELS_3D}:1101"),
 }
 # Phase 18's batch of grids for the multigrid and CG steps.
 SOLVER_BATCH = 64
@@ -582,14 +609,21 @@ def k3_launches(cfg, mz: int | None = None) -> dict[str, int]:
     sweeps, mz-1) sweeps, the remainder last, on buffers of mz + 2(K+1)
     planes, ``parallel/sharded3d.py``): a solve or segment that
     ``cuda_ops.tiled3`` gives the tiled kernel runs ceil(sweeps / T3)
-    launches a segment, the others one per-sweep launch a sweep."""
+    launches a segment, the others one per-sweep launch a sweep.  In bf16
+    storage (one volume) the diffusions take K5's bf16 forms and the
+    pressure solves, on the float32 divergence, its float32 forms."""
     from fluidsimulationcuda_torch.kernels import cuda_ops
 
     per = cuda_ops.SWEEPS_PER_LAUNCH_3D
-    tiled, plain = (("jacobi3_sweeps", "jacobi3_sweep") if mz is None
-                    else ("jacobi3_slab_sweeps", "jacobi3_slab"))
-    launches = {tiled: 0, plain: 0}
-    for count, sweeps, cheby in solves3(cfg):
+    names = (("jacobi3_sweeps", "jacobi3_sweep") if mz is None
+             else ("jacobi3_slab_sweeps", "jacobi3_slab"))
+    launches = dict.fromkeys(names, 0)
+    bf16 = cfg.dtype == torch.bfloat16
+    for i, (count, sweeps, cheby) in enumerate(solves3(cfg)):
+        tiled, plain = (tuple(f"{k}_bf16" for k in names)
+                        if bf16 and i != 1 else names)
+        launches.setdefault(tiled, 0)
+        launches.setdefault(plain, 0)
         seg = (sweeps if mz is None
                else min(cfg.fuse_sweeps or 20, sweeps, mz - 1))
         planes = None if mz is None else mz + 2 * (seg + 1)
@@ -607,11 +641,13 @@ def expected_launches3(cfg) -> dict[str, int]:
     tiled form T3 sweeps a launch where ``cuda_ops.tiled3`` says so
     (``k3_launches``), one K7 and one K8 per projection, one K6 for the
     (u, v, w) self-advection triple and one for the density (counted as
-    ``advect3_windowed`` under ``advect_mode="windowed"``)."""
+    ``advect3_windowed`` under ``advect_mode="windowed"``); in bf16
+    storage K6-K8's bf16 forms."""
+    bf16 = _bf16_suffix(cfg)
     advect = ("advect3_windowed" if cfg.advect_mode == "windowed"
               else "advect3")
-    return {**k3_launches(cfg), "divergence3": 2, "gradient3": 2,
-            advect: 2}
+    return {**k3_launches(cfg), f"divergence3{bf16}": 2,
+            f"gradient3{bf16}": 2, f"{advect}{bf16}": 2}
 
 
 def slab_solve_launches(sweeps: int, rows: int, side: int,
@@ -2691,12 +2727,16 @@ def main() -> None:
     phase("20 bf16 on the block route: (px, py) blocks on one card")
     launches_b16 = bf16_block_phase(parity, cheby, big, card, errs, times)
 
+    phase("21 bf16 storage on the 3-D step: 256³")
+    launches_3d16 = bf16_3d_phase(parity3, comp3, card, errs, times)
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
                      + launches_slab_mg[k] + launches_exact[k]
                      + launches_slab3[k] + launches_dg[k] + launches_mg[k]
                      + launches_cg[k] + launches_w3[k] + launches_cli[k]
                      + launches_16[k] + launches_sb[k] + launches_blocks[k]
-                     + launches_b16[k] for k in cuda_ops.KERNELS}
+                     + launches_b16[k] + launches_3d16[k]
+                     for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_sweeps_split"] = launches_split[
         "jacobi_slab_sweeps_split"]
@@ -2926,6 +2966,125 @@ def bf16_block_path(cfg, shape: tuple[int, int], label: str, card: str,
     return counts
 
 
+def bf16_3d_phase(parity3, comp3, card: str, errs: dict[str, float],
+                  times: dict) -> dict[str, int]:
+    """Phase 21: the bf16 forms of K5 (per-sweep and tiled), K6 (exact and
+    windowed, the triple and one field), K7 and K8 against their plain
+    twins at 256³, bit for bit, every tiled K5 call also against the same
+    call on the per-sweep K5; each form timed beside its bound in 2-byte
+    storage, its float32 form, its plain twin and, for K6, ``grid_sample``
+    on bf16; then the bf16 3-D step at 256³ (``bf16_3d_path``): parity
+    (20 iterations), compensated with fast math (the tiled K5) and
+    windowed parity (4 cells).  Returns the launches of its runs."""
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    forms = checks.kernel_checks3_bf16(256, "cuda", SEED)
+    compare(forms, 0.0, errs, "bit for bit")
+    compare(checks.per_sweep_checks(forms), 0.0, errs, "bit for bit")
+    del forms
+    timed = checks.timing_checks3_bf16(256, "cuda", SEED)
+    timed_against_both(timed, 0.0, errs)
+    times.update(kernel_times(timed, "256³, bf16", card))
+    del timed
+    total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
+    rho, k_d, k_p = comp3.cheby_rho, comp3.cheby_iters, comp3.press_cheby_iters
+    for cfg, label in (
+            (parity3, "bf16 256³ parity"),
+            (comp3.replace(fast_math=True),
+             f"bf16 256³ compensated (rho={rho}, k_d={k_d}, k_p={k_p}) "
+             f"fast_math"),
+            (parity3.replace(advect_mode="windowed"),
+             "bf16 256³ windowed parity")):
+        for k, c in bf16_3d_path(cfg, label, card, 3).items():
+            total[k] += c
+    return total
+
+
+def bf16_3d_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
+    """Phase 21's run of ``cfg`` (float32, the ``cuda`` backend) in bf16
+    through ``StableFluids3D``: an impulse step plus ``steps-1`` from the
+    reference draw rounded to bf16; its launches against
+    ``expected_launches3`` (the bf16 forms wherever a bf16 operand enters,
+    the float32 K5 for the pressure solves and no other float32 form); the
+    state bf16 and held to ``bf16_bars`` (the plain twins' step,
+    ``_Ops3(cfg, plain=True)``, bit for bit; the float32 step from the same
+    rounded draw; the ``reference`` backend's bf16 step); max|div| after
+    the first projection in both storages; eager and CUDA-graph ms/step of
+    both.  Returns the bf16 run's launch counts."""
+    from fluidsimulationcuda_torch import (FluidState, Sources,
+                                           StableFluids3D, reference_init,
+                                           step3)
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.models.stable_fluids_3d import _Ops3
+
+    c16 = cfg.replace(dtype=torch.bfloat16)
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state, src = reference_init(gen, cfg)
+    draw16 = (FluidState(*(t.to(torch.bfloat16) for t in state)),
+              Sources(*(t.to(torch.bfloat16) for t in src)))
+    draw32 = tuple(type(t)(*(x.float() for x in t)) for t in draw16)
+
+    def run(c, st, sr, ops=None):
+        zeros = Sources(*(torch.zeros_like(t) for t in sr))
+        for k in range(steps):
+            st = step3(c, st, sr if k == 0 else zeros, ops)
+        return st
+
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    got = run(c16, *draw16)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    per_step = expected_launches3(c16)
+    want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    print(f"{label}: launches {({k: c for k, c in counts.items() if c})} "
+          f"(expected {({k: c for k, c in want.items() if c})})")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if any(f.dtype != torch.bfloat16 for f in got):
+        raise AssertionError(f"{label}: the state left bf16")
+    twins = run(c16, *draw16, _Ops3(c16, plain=True))
+    ref16 = run(c16.replace(backend="reference"), *draw16)
+    ref32 = run(cfg, *draw32)
+    bf16_bars(got, twins, ref16, ref32, f"{label}, step {steps}")
+    divs = [projection_div3(c, draw) for c, draw in ((c16, draw16),
+                                                      (cfg, draw32))]
+    print(f"{label}: max|div| of the diffused impulse velocity "
+          f"{divs[1][0]:.4e}; after the first projection bf16 "
+          f"{divs[0][1]:.4e}, float32 {divs[1][1]:.4e} "
+          f"({divs[0][1] / divs[1][1]:.3f}x)")
+    ms = {}
+    for name, c, st in (("bf16", c16, got), ("float32", cfg, ref32)):
+        sim = StableFluids3D(c)
+        st, eager = timed_steps(sim.step, st, 3)
+        graph = checks.device_ms(lambda: sim.step(st), reps=3)
+        ms[name] = (eager, graph)
+    print(f"{label}: ms/step eager / as a CUDA graph: bf16 "
+          f"{ms['bf16'][0]:.4f} / {ms['bf16'][1]:.4f}, float32 "
+          f"{ms['float32'][0]:.4f} / {ms['float32'][1]:.4f} (bf16/float32 "
+          f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
+    return counts
+
+
+def projection_div3(cfg, draw) -> tuple[float, float]:
+    """max|div| (float32 stencil) of the 3-D step's diffused impulse
+    velocity before and after its first projection, on ``cfg``'s backend
+    from ``draw`` (state, sources)."""
+    from fluidsimulationcuda_torch.models.stable_fluids_3d import (
+        _diffuse_velocity, _Ops3)
+    from fluidsimulationcuda_torch.ops.three_d import divergence3
+
+    def div(u, v, w):
+        return float(divergence3(u.float(), v.float(), w.float(),
+                                 cfg.n)[1:-1, 1:-1, 1:-1].abs().max())
+
+    state, src = draw
+    ops = _Ops3(cfg)
+    vel = _diffuse_velocity(cfg, ops, state.u, state.v, state.w, src.u,
+                            src.v, src.w)
+    return div(*vel), div(*ops.project(*vel))
+
+
 def block_projection_div(cfg, mesh, draw) -> tuple[float, float]:
     """max|div| (float32 stencil) of the block step's diffused impulse
     velocity before and after its first projection, on the blocks of
@@ -2982,9 +3141,10 @@ def timed_against_both(check_list, tol: float,
     """The timing checks whose call has a tiled solve in it (those carrying
     the same call on the per-sweep kernels, ``chain``), on the inputs they
     are timed on, against their plain version (``max|Δ| <= tol``: 0 for
-    K1, ``checks.TOL`` for the 3-D kernel, whose plain fast form multiplies
-    and adds where the kernels call ``fmaf``) and against that chain, bit
-    for bit."""
+    K1 and the 3-D kernel's bf16 forms, ``checks.TOL`` for its float32
+    forms, whose plain fast form takes ``fmaf``'s product and sum in
+    float64 and may round a halfway case twice) and against that chain,
+    bit for bit."""
     timed = [c for c in check_list if c.chain is not None]
     compare(timed, tol, errs, "bit for bit" if tol == 0.0 else "")
     compare([dataclasses.replace(c, label=f"{c.label} vs per-sweep",

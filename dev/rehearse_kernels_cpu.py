@@ -46,7 +46,9 @@ loader patched), and:
   against the plain version and the per-sweep K1 chain, one grid and a
   batch of three, float32 and bf16, and, on a batch of three grids,
   ``kernel_checks_flows`` at ``--side2``,
-  ``kernel_checks3`` and ``kernel_checks_flows`` at ``--side3``,
+  ``kernel_checks3``, ``kernel_checks3_bf16`` (each tiled call also
+  against the per-sweep K5's bf16 form, bit for bit) and
+  ``kernel_checks_flows`` at ``--side3``,
   ``kernel_checks_slab`` and ``kernel_checks_group_smooth`` (K9-damp; B13
   also against K18 then K9) for
   slabs of ``--slab-side``/4 rows at ``--slab-side``,
@@ -62,9 +64,10 @@ loader patched), and:
   launch counts against ``chip_smoke.expected_launches(3)``, their state
   against the ``reference`` backend; both also in windowed mode, each
   windowed 2-D step's velocity tail again through K17 against the step's
-  own; and 2-D steps at ``--mg-side`` with the multigrid (two cycles; one
-  with fast math) and CG pressure solves, in float32 and in bf16 (held to
-  the plain twins); K1-damp
+  own; the 2-D and 3-D steps in bf16, parity and compensated, held to
+  the plain twins; and 2-D steps at ``--mg-side`` with the multigrid
+  (two cycles; one with fast math) and CG pressure solves, in float32 and
+  in bf16 (held to the plain twins); K1-damp
   (``kernel_checks_damp`` at ``--mg-side`` and on a batch of three 16²
   grids, whole-grid launches; its bf16-rhs forms there too) and K6's
   window
@@ -562,6 +565,7 @@ def main() -> int:
     import chip_smoke
     import fluidsimulationcuda_torch as ft
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.models.stable_fluids_3d import _Ops3
 
     lib = build_shim_library()
     with kernels_on_cpu(lib) as handle:
@@ -576,6 +580,7 @@ def main() -> int:
                                               bf16=True)
                   + checks.kernel_checks3(args.side3, "cpu", 1)
                   + checks.kernel_checks3_windowed(args.side3, "cpu", 1)
+                  + checks.kernel_checks3_bf16(args.side3, "cpu", 1)
                   + checks.kernel_checks_slab(args.slab_side,
                                               args.slab_side // 4, "cpu", 1)
                   + checks.kernel_checks_group_smooth(args.slab_side,
@@ -619,6 +624,15 @@ def main() -> int:
     # The tiled K9 against the per-sweep K9 on the same calls: bit for bit.
     for c in checks.slab_per_sweep_checks(checks.kernel_checks_slab(
             args.slab_side, args.slab_side // 4, "cpu", 1)):
+        with kernels_on_cpu(lib):
+            err = checks.max_abs_diff(c.run(), c.plain())
+        failures += err > 0.0
+        print(f"  {c.label:45s} max|d| {err:.3e}"
+              f"{'  FAIL' if err > 0.0 else ''}")
+    # The tiled 3-D kernel's bf16 form against the per-sweep K5's on the
+    # same calls: bit for bit.
+    for c in checks.per_sweep_checks(checks.kernel_checks3_bf16(
+            args.side3, "cpu", 1)):
         with kernels_on_cpu(lib):
             err = checks.max_abs_diff(c.run(), c.plain())
         failures += err > 0.0
@@ -668,7 +682,8 @@ def main() -> int:
             [(2, args.side2, m, kw) for m, kw in modes.items()]
             + [(2, args.side2, m, kw) for m, kw in bf16.items()]
             + [(2, args.mg_side, m, kw) for m, kw in solvers.items()]
-            + [(3, args.side3, m, kw) for m, kw in modes.items()]):
+            + [(3, args.side3, m, kw) for m, kw in modes.items()]
+            + [(3, args.side3, m, kw) for m, kw in bf16.items()]):
         step = ft.step3 if ndim == 3 else ft.step
         design = (chip_smoke.expected_launches3 if ndim == 3
                   else chip_smoke.expected_launches)
@@ -693,8 +708,10 @@ def main() -> int:
         # rounds its bf16 solves every sweep); the other fast modes to the
         # reference at 1e-4.
         exact_twins = mode == "multigrid fast" or mode.startswith("bf16")
-        want = (step(ref, state, src, cuda_ops.make_opset(ref, plain=True))
-                if exact_twins else step(ref, state, src))
+        twins = (_Ops3(cfg, plain=True) if ndim == 3
+                 else cuda_ops.make_opset(ref, plain=True))
+        want = (step(ref, state, src, twins) if exact_twins
+                else step(ref, state, src))
         per_step = design(cfg)
         launches_ok = counts == {k: per_step.get(k, 0)
                                  for k in cuda_ops.KERNELS}

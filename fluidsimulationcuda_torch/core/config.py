@@ -33,8 +33,16 @@ class SimConfig:
         on one device, with any pressure solve: multigrid takes a bf16
         divergence to a float32 pressure (float32 transfers and coarse
         levels, as JAX's), CG stays bf16, and the gradient writes the
-        state's dtype.  The 3-D step and the multi-device steps raise
-        ``NotImplementedError`` in bf16 (ROADMAP §A 5).
+        state's dtype.  The 2-D multi-device step runs bf16 on its block
+        route.  The 3-D step on one device, in every solver mode and both
+        gathers: the ``reference`` backend rounds each jnp op of JAX's
+        bf16 ``step3`` as JAX does, its gathers in float32 rounded once;
+        on the ``cuda`` backend a solve's iterate stays float32 from its
+        first sweep to its last and is rounded once at the end, the folded
+        or prescaled rhs is rounded to bf16 before any sweep reads it, and
+        the projection keeps a float32 divergence and pressure
+        (``kernels/cuda_ops_3d.py``).  The 3-D z-slab step raises
+        ``NotImplementedError`` in bf16 (ROADMAP §A 5 (c)).
       backend: ``"reference"`` runs the plain torch ops of ``ops/``;
         ``"cuda"`` runs the hand-written kernels of ``kernels/cuda_ops.py``
         and ``kernels/cuda_ops_3d.py`` and needs a CUDA ``device``;
@@ -132,10 +140,6 @@ class SimConfig:
             raise ValueError(
                 "pressure_solver='multigrid'/'cg' are 2-D solvers; "
                 "ndim=3 supports 'jacobi' and 'chebyshev'")
-        if self.dtype == torch.bfloat16 and self.ndim == 3:
-            raise NotImplementedError(
-                "bf16 storage runs the 2-D step only; the 3-D step in bf16 "
-                "waits on ROADMAP §A 5")
         if (self.ndim == 3 and self.diffusion_solver == "chebyshev"
                 and self.pressure_solver != "chebyshev"):
             # The velocity-diffusion swap is validated only with the

@@ -36,22 +36,27 @@
 // barriers add their own time.  Outputs are fresh tensors, so the three
 // self-advections all read the pre-advection velocity
 // (stable_fluids_3d.py:118-119).
+//
+// The bf16 form (fsc_advect3_bf16) reads bf16 fields and velocities, finds
+// each departure and blends in float32, derives the ghost layer in float32
+// and rounds to bf16 at the store (ops/three_d.py advect3 on bf16 fields):
+// bf16 coordinates could not resolve a fraction of a cell at these sides.
 #include "fsc_common.cuh"
 
 namespace {
 
 constexpr int kBrickZ = 2;
 
-template <bool kWindowed>
-__global__ void advect3_kernel(const float* __restrict__ d1,
-                               const float* __restrict__ d2,
-                               const float* __restrict__ d3,
-                               const float* __restrict__ u,
-                               const float* __restrict__ v,
-                               const float* __restrict__ w,
-                               float* __restrict__ o1, float* __restrict__ o2,
-                               float* __restrict__ o3, int side, int b1,
-                               int b2, int b3, float dt0, int cmax) {
+template <bool kWindowed, typename T>
+__global__ void advect3_kernel(const T* __restrict__ d1,
+                               const T* __restrict__ d2,
+                               const T* __restrict__ d3,
+                               const T* __restrict__ u,
+                               const T* __restrict__ v,
+                               const T* __restrict__ w, T* __restrict__ o1,
+                               T* __restrict__ o2, T* __restrict__ o3,
+                               int side, int b1, int b2, int b3, float dt0,
+                               int cmax) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int k0 = blockIdx.z * kBrickZ;
@@ -70,20 +75,37 @@ __global__ void advect3_kernel(const float* __restrict__ d1,
                : fsc::backtrace3(u, v, w, ck, ci, cj, side, dt0);
   }
   // Then each field's gathers over the brick.
-  auto gather = [&](const float* __restrict__ f, float* __restrict__ o,
-                    int bb) {
+  auto gather = [&](const T* __restrict__ f, T* __restrict__ o, int bb) {
 #pragma unroll
     for (int z = 0; z < kBrickZ; ++z) {
       const int k = k0 + z;
       if (k < side)
-        o[(k * side + i) * side + j] =
-            fsc::border_value3(fsc::trilinear(d[z], f, side), k, i, j, side,
-                               bb);
+        fsc::store(o, (k * side + i) * side + j,
+                   fsc::border_value3(fsc::trilinear(d[z], f, side), k, i, j,
+                                      side, bb));
     }
   };
   gather(d1, o1, b1);
   if (d2 != nullptr) gather(d2, o2, b2);
   if (d3 != nullptr) gather(d3, o3, b3);
+}
+
+template <typename T>
+int launch(const void* d1, const void* d2, const void* d3, const void* u,
+           const void* v, const void* w, void* o1, void* o2, void* o3,
+           int side, int b1, int b2, int b3, float dt0, int cmax,
+           void* stream) {
+  const auto kernel =
+      cmax > 0 ? advect3_kernel<true, T> : advect3_kernel<false, T>;
+  const dim3 grid((side + fsc::kBlockX - 1) / fsc::kBlockX,
+                  (side + fsc::kBlockY - 1) / fsc::kBlockY,
+                  (side + kBrickZ - 1) / kBrickZ);
+  kernel<<<grid, fsc::block_dim(), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(d1), static_cast<const T*>(d2),
+      static_cast<const T*>(d3), static_cast<const T*>(u),
+      static_cast<const T*>(v), static_cast<const T*>(w), static_cast<T*>(o1),
+      static_cast<T*>(o2), static_cast<T*>(o3), side, b1, b2, b3, dt0, cmax);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -96,12 +118,17 @@ extern "C" int fsc_advect3(const float* d1, const float* d2, const float* d3,
                            float* o1, float* o2, float* o3, int side, int b1,
                            int b2, int b3, float dt0, int cmax,
                            void* stream) {
-  const auto kernel =
-      cmax > 0 ? advect3_kernel<true> : advect3_kernel<false>;
-  const dim3 grid((side + fsc::kBlockX - 1) / fsc::kBlockX,
-                  (side + fsc::kBlockY - 1) / fsc::kBlockY,
-                  (side + kBrickZ - 1) / kBrickZ);
-  kernel<<<grid, fsc::block_dim(), 0, static_cast<cudaStream_t>(stream)>>>(
-      d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3, dt0, cmax);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3,
+                       dt0, cmax, stream);
+}
+
+// The bf16 form: every field, velocity and output bf16; the arguments of
+// fsc_advect3.
+extern "C" int fsc_advect3_bf16(const void* d1, const void* d2,
+                                const void* d3, const void* u, const void* v,
+                                const void* w, void* o1, void* o2, void* o3,
+                                int side, int b1, int b2, int b3, float dt0,
+                                int cmax, void* stream) {
+  return launch<fsc::bf16>(d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3,
+                           dt0, cmax, stream);
 }

@@ -19,10 +19,11 @@
 // version to the last bit or so.  Where the TPU kernel's fast mode fuses on
 // purpose, the code calls fmaf explicitly.
 //
-// K1-K3 also have bf16 storage forms (JAX's bf16 mode, pallas_ops.py:
-// 125-149): a kernel reads bf16 into float32, computes in float32 and
-// rounds to bf16 (to nearest even, as torch.Tensor.to(torch.bfloat16) and
-// astype(jnp.bfloat16) round) on store.  Each form is a template
+// K1-K3 and K5-K8 also have bf16 storage forms (JAX's bf16 mode,
+// pallas_ops.py:125-149, and its jnp 3-D step): a kernel reads bf16 into
+// float32, computes in float32 and rounds to bf16 (to nearest even, as
+// torch.Tensor.to(torch.bfloat16) and astype(jnp.bfloat16) round) on
+// store.  Each form is a template
 // instantiation over its operands' types, chosen at launch; the helpers
 // below (load, store, round_to, SweepParamsT) are at float the plain
 // accesses they stand for, so the float32 kernels compile as before.
@@ -374,7 +375,7 @@ enum SweepFlags {
 };
 
 // The operands of one sweep, stored as TX (x_k and src), TM (x_{k-1}) and
-// TR (rhs); every kernel but K1's bf16 form takes them all as float.
+// TR (rhs); every kernel but the bf16 forms takes them all as float.
 template <typename TX = float, typename TM = float, typename TR = float>
 struct SweepParamsT {
   const TX* x;    // x_k; null means the zero guess
@@ -434,13 +435,15 @@ __device__ __forceinline__ float sweep_at(const SweepParamsT<TX, TM, TR>& p,
 
 // 3-D: the neighbour sum in the order ((L+R)+(U+D))+(F+B) of
 // ops/three_d.py (x, then y, then z neighbours).
-__device__ __forceinline__ float sweep_at3(const SweepParams& p, int c,
-                                           int side, float r) {
+template <typename TX, typename TM, typename TR>
+__device__ __forceinline__ float sweep_at3(const SweepParamsT<TX, TM, TR>& p,
+                                           int c, int side, float r) {
   float neigh = 0.0f;
   if (p.x) {
     const int plane = side * side;
-    neigh = ((p.x[c - 1] + p.x[c + 1]) + (p.x[c - side] + p.x[c + side])) +
-            (p.x[c - plane] + p.x[c + plane]);
+    neigh = ((load(p.x, c - 1) + load(p.x, c + 1)) +
+             (load(p.x, c - side) + load(p.x, c + side))) +
+            (load(p.x, c - plane) + load(p.x, c + plane));
   }
   return sweep_update(p, c, neigh, r);
 }
@@ -589,17 +592,19 @@ __device__ __forceinline__ Departure3 departure3(float x, float y, float z,
   return d;
 }
 
-__device__ __forceinline__ Departure3 backtrace3(const float* u,
-                                                 const float* v,
-                                                 const float* w, int ck,
-                                                 int ci, int cj, int side,
+// The coordinates are float32 whatever the velocities store (T: float or
+// bf16).
+template <typename T>
+__device__ __forceinline__ Departure3 backtrace3(const T* u, const T* v,
+                                                 const T* w, int ck, int ci,
+                                                 int cj, int side,
                                                  float dt0) {
   const int c = (ck * side + ci) * side + cj;
   const float lo = 0.5f;
   const float hi = static_cast<float>(side - 2) + 0.5f;
-  float x = static_cast<float>(cj) - dt0 * u[c];
-  float y = static_cast<float>(ci) - dt0 * v[c];
-  float z = static_cast<float>(ck) - dt0 * w[c];
+  float x = static_cast<float>(cj) - dt0 * load(u, c);
+  float y = static_cast<float>(ci) - dt0 * load(v, c);
+  float z = static_cast<float>(ck) - dt0 * load(w, c);
   x = fminf(fmaxf(x, lo), hi);
   y = fminf(fmaxf(y, lo), hi);
   z = fminf(fmaxf(z, lo), hi);
@@ -609,30 +614,34 @@ __device__ __forceinline__ Departure3 backtrace3(const float* u,
 // 3-D departure of interior cell (ck, ci, cj) under the window clamp of
 // cmax cells per axis (window_coord; ops/three_d.py advect3_windowed), the
 // windowed twin of backtrace3.
+template <typename T>
 __device__ __forceinline__ Departure3 window_backtrace3(
-    const float* u, const float* v, const float* w, int ck, int ci, int cj,
-    int side, float dt0, int cmax) {
+    const T* u, const T* v, const T* w, int ck, int ci, int cj, int side,
+    float dt0, int cmax) {
   const int c = (ck * side + ci) * side + cj;
   const int n = side - 2;
-  return departure3(window_coord(cj, u[c], n, dt0, cmax),
-                    window_coord(ci, v[c], n, dt0, cmax),
-                    window_coord(ck, w[c], n, dt0, cmax), side, 0);
+  return departure3(window_coord(cj, load(u, c), n, dt0, cmax),
+                    window_coord(ci, load(v, c), n, dt0, cmax),
+                    window_coord(ck, load(w, c), n, dt0, cmax), side, 0);
 }
 
 // The trilinear blend in the order of ops/three_d.py advect3:
-// (1-fz)*((1-fy)*((1-fx)*g000 + fx*g001) + fy*(...)) + fz*(...).
+// (1-fz)*((1-fy)*((1-fx)*g000 + fx*g001) + fy*(...)) + fz*(...), in
+// float32 whatever f stores (T: float or bf16).
+template <typename T>
 __device__ __forceinline__ float trilinear(const Departure3& d,
-                                           const float* __restrict__ f,
+                                           const T* __restrict__ f,
                                            int side) {
   const int plane = side * side;
-  const float* g = f + d.base;
+  const T* g = f + d.base;
   const float gx = 1.0f - d.fx;
   const float gy = 1.0f - d.fy;
   const float gz = 1.0f - d.fz;
-  return gz * (gy * (gx * g[0] + d.fx * g[1]) +
-               d.fy * (gx * g[side] + d.fx * g[side + 1])) +
-         d.fz * (gy * (gx * g[plane] + d.fx * g[plane + 1]) +
-                 d.fy * (gx * g[plane + side] + d.fx * g[plane + side + 1]));
+  return gz * (gy * (gx * load(g, 0) + d.fx * load(g, 1)) +
+               d.fy * (gx * load(g, side) + d.fx * load(g, side + 1))) +
+         d.fz * (gy * (gx * load(g, plane) + d.fx * load(g, plane + 1)) +
+                 d.fy * (gx * load(g, plane + side) +
+                         d.fx * load(g, plane + side + 1)));
 }
 
 }  // namespace fsc

@@ -70,6 +70,17 @@
 // slab has them (planes beyond a wall influence no slab plane, so they are
 // not computed).  A volume is the buffer of `side` planes with walls at 0
 // and side - 1 and no shrinking.
+//
+// On a volume it also has a bf16 storage form (fsc_jacobi3_sweeps_bf16,
+// JAX's bf16 mode; the slab walk's bf16 form is still to come): the rhs is
+// read as bf16, and the rhs a first launch builds is rounded to bf16
+// before any sweep reads it; the iterate stays float32 in shared memory
+// within a launch and in the float32 scratch between launches (x_{k-1}
+// too); the caller's guess is read as bf16 (as x_k by the first launch,
+// as x_{k-1} by a second after a 1-sweep first) and the launch that ends
+// the solve writes bf16.  So a solve rounds once, at its end, whatever its
+// launches, as the per-sweep K5's bf16 form does: each a template
+// instantiation over the types of x, x_{k-1}, rhs and out.
 #include <atomic>
 
 #include "fsc_common.cuh"
@@ -109,11 +120,11 @@ __host__ __device__ __forceinline__ int imax(int a, int b) {
   return a > b ? a : b;
 }
 
-template <int kT>
+template <int kT, typename TX, typename TM, typename TR, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
-    jacobi3_sweeps_kernel(fsc::SweepParams p, Walk g, float* __restrict__ out,
-                          float* __restrict__ xm_out,
-                          float* __restrict__ rhs_out) {
+    jacobi3_sweeps_kernel(fsc::SweepParamsT<TX, TM, TR> p, Walk g,
+                          TO* __restrict__ out, float* __restrict__ xm_out,
+                          TR* __restrict__ rhs_out) {
   extern __shared__ float smem[];
   // Level t keeps its last three planes, plane z in slot z % 3; at step z
   // (s = z % 3) ring(t, d) is level t's plane z - d, 0 <= d.
@@ -218,10 +229,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int base = z * plane;
 #pragma unroll
     for (int q = 0; q < kCells; ++q) {
-      nx[q] = p.x ? p.x[base + at[q]] : 0.0f;
-      nr[q] = p.rhs[base + at[q]];
-      ns[q] = p.src ? p.src[base + at[q]] : 0.0f;
-      nm[q] = p.xm ? p.xm[base + at[q]] : 0.0f;
+      nx[q] = p.x ? fsc::load(p.x, base + at[q]) : 0.0f;
+      nr[q] = fsc::load(p.rhs, base + at[q]);
+      ns[q] = p.src ? fsc::load(p.src, base + at[q]) : 0.0f;
+      nm[q] = p.xm ? fsc::load(p.xm, base + at[q]) : 0.0f;
     }
   };
   const int last = hi[kT] - 1 + kT;  // the step at which level kT ends
@@ -244,18 +255,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         up[q] = bit(in_grid, q) ? nx[q] : 0.0f;
         b0[cell(q)] = up[q];
         // The rhs as fsc::rhs_at builds it in fast mode: base +
-        // src_dt*src, times 1/beta.
+        // src_dt*src, times 1/beta, rounded to the rhs's storage type.
         float r = nr[q];
         if (p.flags & fsc::kPrep) {
           if (p.src) r = r + p.src_dt * ns[q];
-          r = r * p.inv_b;
+          r = fsc::round_to<TR>(r * p.inv_b);
         }
         rhs[0][q] = r;
         xmr[0][q] = nm[q];
         // The first launch of a folded or fast solve stores the rhs it
         // built, once per interior cell, for the launches after it.
         if (rhs_out != nullptr && own && bit(inner, q) && bit(kept, q))
-          rhs_out[z * plane + at[q]] = r;
+          fsc::store(rhs_out, z * plane + at[q], r);
       }
       if (z + 1 < hi[0]) fetch(z + 1);
     }
@@ -320,10 +331,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (!bit(kept, q)) continue;
         const int i = cell(q);
         if (bit(inner, q)) {
-          if (mid || bot) out[zt * plane + at[q]] = up[q];
+          if (mid || bot) fsc::store(out, zt * plane + at[q], up[q]);
           if (top)
-            out[g.gtop * plane + at[q]] =
-                fsc::border_rule3(up[q], false, false, true, g.b);
+            fsc::store(out, g.gtop * plane + at[q],
+                       fsc::border_rule3(up[q], false, false, true, g.b));
         }
         if (kT >= 2 && xm_out != nullptr) {
           const float* const prev = ring(kT - 1, kT);
@@ -358,14 +369,15 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
           if (!bit(kept, q)) continue;
           if (zt != g.gtop && zt != g.gbot && zt >= zw0 && zt < zw1)
-            out[zt * plane + at[q]] = ghost_value(ring(t, t), q, i, false);
+            fsc::store(out, zt * plane + at[q],
+                       ghost_value(ring(t, t), q, i, false));
           if (g.gtop >= 0 && zt == g.gtop + 1 && g.gtop >= zw0 &&
               g.gtop < zw1)
-            out[g.gtop * plane + at[q]] =
-                ghost_value(ring(t, t), q, i, true);
+            fsc::store(out, g.gtop * plane + at[q],
+                       ghost_value(ring(t, t), q, i, true));
           if (zt == g.gbot && zt >= zw0 && zt < zw1)
-            out[zt * plane + at[q]] =
-                ghost_value(ring(t, t + 1), q, i, true);
+            fsc::store(out, zt * plane + at[q],
+                       ghost_value(ring(t, t + 1), q, i, true));
         }
       }
       __syncthreads();
@@ -417,10 +429,10 @@ int plan_chunk(int span, int tiles, int slots, int count) {
   return chunk;
 }
 
-template <int kT>
-int launch_kernel(const fsc::SweepParams& p, const Walk& g, float* out,
-                  float* xm_out, float* rhs_out, cudaStream_t stream) {
-  const auto kernel = jacobi3_sweeps_kernel<kT>;
+template <int kT, typename TX, typename TM, typename TR, typename TO>
+int launch_kernel(const fsc::SweepParamsT<TX, TM, TR>& p, const Walk& g,
+                  TO* out, float* xm_out, TR* rhs_out, cudaStream_t stream) {
+  const auto kernel = jacobi3_sweeps_kernel<kT, TX, TM, TR, TO>;
   const int smem = 3 * (kT + 1) * kPlane * static_cast<int>(sizeof(float));
   // The dynamic shared-memory attribute is each device's: set once a
   // device, its cudaError_t + 1 kept (0: not set yet) and returned after;
@@ -465,8 +477,9 @@ int launch_kernel(const fsc::SweepParams& p, const Walk& g, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_count(const fsc::SweepParams& p, const Walk& g, float* out,
-                 float* xm_out, float* rhs_out, cudaStream_t stream) {
+template <typename TX, typename TM, typename TR, typename TO>
+int launch_count(const fsc::SweepParamsT<TX, TM, TR>& p, const Walk& g,
+                 TO* out, float* xm_out, TR* rhs_out, cudaStream_t stream) {
   switch (g.count) {
     case 1:
       return launch_kernel<1>(p, g, out, xm_out, rhs_out, stream);
@@ -485,8 +498,11 @@ int launch_count(const fsc::SweepParams& p, const Walk& g, float* out,
   }
 }
 
-int launch_walk(const float* x, const float* rhs, const float* src,
-                const float* xm, float* out, float* xm_out, float* rhs_out,
+// One launch of the walk g: x and src stored as TX, x_{k-1} as TM, rhs and
+// rhs_out as TR, out as TO; x_{count-1} float32.
+template <typename TX, typename TM, typename TR, typename TO>
+int launch_walk(const void* x, const void* rhs, const void* src,
+                const void* xm, void* out, float* xm_out, void* rhs_out,
                 int b, float alpha, float beta, float ab, float inv_b,
                 float src_dt, const float* omegas, int flags, int first,
                 Walk* g, void* stream) {
@@ -497,11 +513,35 @@ int launch_walk(const float* x, const float* rhs, const float* src,
   g->first_combine = first == 0 ? 2 : 1;
   for (int s = 0; s < kMaxSweeps; ++s)
     g->w[s] = s < g->count ? omegas[s] : 0.0f;
-  const fsc::SweepParams p =
-      fsc::make_sweep_params(x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt,
-                             0.0f, flags & ~fsc::kCheby);
-  return launch_count(p, *g, out, xm_out, rhs_out,
+  fsc::SweepParamsT<TX, TM, TR> p;
+  p.x = static_cast<const TX*>(x);
+  p.rhs = static_cast<const TR*>(rhs);
+  p.src = static_cast<const TX*>(src);
+  p.xm = static_cast<const TM*>(xm);
+  p.alpha = alpha;
+  p.beta = beta;
+  p.ab = ab;
+  p.inv_b = inv_b;
+  p.src_dt = src_dt;
+  p.w = 0.0f;
+  p.flags = flags & ~fsc::kCheby;
+  return launch_count(p, *g, static_cast<TO*>(out), xm_out,
+                      static_cast<TR*>(rhs_out),
                       static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form's launch of out's type.
+template <typename TX, typename TM>
+int launch_walk_bf16(bool out_bf16, const void* x, const void* rhs,
+                     const void* src, const void* xm, void* out,
+                     float* xm_out, void* rhs_out, int b, float alpha,
+                     float beta, float ab, float inv_b, float src_dt,
+                     const float* omegas, int flags, int first, Walk* g,
+                     void* stream) {
+  const auto launch = out_bf16 ? launch_walk<TX, TM, fsc::bf16, fsc::bf16>
+                               : launch_walk<TX, TM, fsc::bf16, float>;
+  return launch(x, rhs, src, xm, out, xm_out, rhs_out, b, alpha, beta, ab,
+                inv_b, src_dt, omegas, flags, first, g, stream);
 }
 
 }  // namespace
@@ -526,8 +566,32 @@ extern "C" int fsc_jacobi3_sweeps(const float* x, const float* rhs,
   Walk g;
   const int err = plan_walk(side, side, count, 0, false, 0, side - 1, &g);
   if (err != 0) return err;
-  return launch_walk(x, rhs, src, xm, out, xm_out, rhs_out, b, alpha, beta,
-                     ab, inv_b, src_dt, omegas, flags, first, &g, stream);
+  return launch_walk<float, float, float, float>(
+      x, rhs, src, xm, out, xm_out, rhs_out, b, alpha, beta, ab, inv_b,
+      src_dt, omegas, flags, first, &g, stream);
+}
+
+// The bf16 form on a volume (JAX's bf16 storage, the per-sweep K5's bf16
+// rule): rhs and rhs_out hold bf16, the rhs built rounded to bf16 before
+// any sweep reads it; types says which of x (1, src too), xm (2) and out
+// (4) hold bf16, the others float32 (x_{k-1} is read as bf16 only where x
+// is not: types 3 is refused); xm_out is float32.  Returns a cudaError_t
+// as fsc_jacobi3_sweeps does.
+extern "C" int fsc_jacobi3_sweeps_bf16(
+    const void* x, const void* rhs, const void* src, const void* xm,
+    void* out, float* xm_out, void* rhs_out, int side, int b, float alpha,
+    float beta, float ab, float inv_b, float src_dt, const float* omegas,
+    int flags, int first, int count, int types, void* stream) {
+  if ((types & 3) == 3) return static_cast<int>(cudaErrorInvalidValue);
+  Walk g;
+  const int err = plan_walk(side, side, count, 0, false, 0, side - 1, &g);
+  if (err != 0) return err;
+  const auto launch = (types & 1) ? launch_walk_bf16<fsc::bf16, float>
+                      : (types & 2) ? launch_walk_bf16<float, fsc::bf16>
+                                    : launch_walk_bf16<float, float>;
+  return launch((types & 4) != 0, x, rhs, src, xm, out, xm_out, rhs_out, b,
+                alpha, beta, ab, inv_b, src_dt, omegas, flags, first, &g,
+                stream);
 }
 
 // The same on a (planes, side, side) z-slab buffer (fsc_jacobi3_slab's):
@@ -545,6 +609,7 @@ extern "C" int fsc_jacobi3_slab_sweeps(
   const int err =
       plan_walk(planes, side, count, done, true, gtop, gbot, &g);
   if (err != 0) return err;
-  return launch_walk(x, rhs, src, xm, out, xm_out, rhs_out, b, alpha, beta,
-                     ab, inv_b, src_dt, omegas, flags, first, &g, stream);
+  return launch_walk<float, float, float, float>(
+      x, rhs, src, xm, out, xm_out, rhs_out, b, alpha, beta, ab, inv_b,
+      src_dt, omegas, flags, first, &g, stream);
 }

@@ -86,6 +86,10 @@ _SIGNATURES = {
     "fsc_jacobi_slab_sweeps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
                                _F, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P],
+    "fsc_jacobi3_sweep_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                               _F, _F, _F, _I, _I, _P],
+    "fsc_jacobi3_sweeps_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                                _F, _F, _F, _P, _I, _I, _I, _I, _P],
     "fsc_divergence3": [_P, _P, _P, _P, _I, _F, _P],
     "fsc_gradient3": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _P],
     "fsc_advect3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -109,10 +113,12 @@ _SIGNATURES = {
     "fsc_gradient3_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _P],
 }
-# The bf16 forms of the block kernels take their float32 forms' arguments.
+# The bf16 forms of the block kernels and of K6-K8 take their float32
+# forms' arguments.
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "fsc_jacobi_block_sweeps", "fsc_advect_block", "fsc_advect_block_exact",
-    "fsc_divergence_block", "fsc_gradient_block")})
+    "fsc_divergence_block", "fsc_gradient_block", "fsc_advect3",
+    "fsc_divergence3", "fsc_gradient3")})
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -59,7 +59,8 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks_bf16", "timing_checks_bf16", "k1_checks",
            "BF16_FORM_VELOCITIES", "BF16_FORM_FIELDS", "BF16_FORMS",
            "kernel_checks_bf16_forms",
-           "per_sweep_checks", "kernel_checks_block", "timing_checks_block"]
+           "per_sweep_checks", "kernel_checks_block", "timing_checks_block",
+           "kernel_checks3_bf16", "timing_checks3_bf16"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -1149,7 +1150,7 @@ def per_sweep_checks(check_list: list[Check]) -> list[Check]:
     launches of its sweeps compute."""
     return [dataclasses.replace(c, label=f"{c.label} tiled vs per-sweep",
                                 plain=functools.partial(_per_sweep, c.run))
-            for c in check_list if c.kernels in (JAC3, JAC3_SLAB)]
+            for c in check_list if c.kernels in (JAC3, JAC3_SLAB, JAC3_16)]
 
 
 def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
@@ -1328,6 +1329,179 @@ def timing_checks3_windowed(side: int, device,
             ADVECT3_TRIPLE, (1, 2, 3), t.smooth, t.smooth, CMAX),
         win(f"advect3_windowed triple cmax={WINDOW3}, over the window",
             ADVECT3_TRIPLE, (1, 2, 3), fast, fast, WINDOW3),
+    ]
+
+
+# The bf16 forms of K5-K8 (cuda_ops_3d: each counts under its own name).
+JAC3_16 = ("jacobi3_sweeps_bf16",)
+JAC3_SWEEP_16 = ("jacobi3_sweep_bf16",)
+ADV3_16, ADV3_WIN_16 = ("advect3_bf16",), ("advect3_windowed_bf16",)
+# (field passes, float ops per cell) of one launch, a bf16 pass counting
+# half: K7 reads bf16 u, v, w and writes float32, K8 reads bf16 u, v, w and
+# a float32 p and writes bf16, K6 reads and writes bf16.
+DIV3_BF16, GRAD3_BF16 = (2.5, 6), (4, 12)
+ADVECT3_ONE_BF16, ADVECT3_TRIPLE_BF16 = (2.5, 39), (3, 81)
+
+
+def _jac3_16(kw: dict) -> tuple[str, ...]:
+    """The bf16 form a 3-D solve of keyword arguments ``kw`` takes on the
+    path (``cuda_ops.tiled3``)."""
+    tiled = co.tiled3(kw.get("cheby_rho") is not None, kw.get("fast", False))
+    return JAC3_16 if tiled else JAC3_SWEEP_16
+
+
+class _Bf16Inputs3(_Inputs):
+    """``_Inputs``' 3-D fields rounded to bf16 (``x``, ``x0``, ``src``,
+    ``p``, ``u``, ``v``, ``w``), the float32 pressure ``p32`` that K8's
+    bf16 form reads, and the float32 fields widened back from the bf16
+    ones (``f32``: the same values in float32 storage)."""
+
+    def __init__(self, side: int, device, seed: int):
+        super().__init__(side, device, seed, ndim=3)
+        self.p32 = self.p
+        names = ("x", "x0", "src", "p", "u", "v", "w")
+        for name in names:
+            setattr(self, name, getattr(self, name).to(torch.bfloat16))
+        self.f32 = {name: getattr(self, name).float() for name in names}
+
+
+def kernel_checks3_bf16(side: int, device, seed: int = 0) -> list[Check]:
+    """Every bf16 form of K5-K8 against its plain twin at volume ``side``,
+    in the calls the bf16 3-D step makes and a few more: K5 for b = 0..3
+    in the parity modes (20 sweeps: a guess, a source fold, the zero
+    guess), one sweep (bf16 in and out in one launch), Chebyshev at 2
+    sweeps (the guess read as x_{k-1}) and at the compensated point's 10,
+    and in fast mode (Jacobi and Chebyshev: the tiled K5's bf16 form, also
+    of 1 and T3 + 1 sweeps); K7 into float32; K8 from a float32 pressure;
+    K6 on one field and on the (u, v, w) triple, exact and in windows of
+    2 and 4 cells on velocities that move the backtrace up to 6 cells.
+    Expected bit for bit: kernel and twin do the same float32 arithmetic
+    and round where the kernel stores."""
+    t = _Bf16Inputs3(side, device, seed)
+    n, av = t.n, t.a_visc
+    bv = 1 + 6 * av
+    rho, k_d, _ = PERF_POINT_3D
+    per_launch = co.SWEEPS_PER_LAUNCH_3D
+    modes = {
+        "jacobi 20it": (20, dict()),
+        "src-fold 20it": (20, dict(src_dt=DT)),
+        "zero_init 20it": (20, dict(zero_init=True)),
+        f"chebyshev {k_d}it": (k_d, dict(src_dt=DT, cheby_rho=rho)),
+        f"chebyshev+fast {k_d}it": (k_d, dict(src_dt=DT, cheby_rho=rho,
+                                              fast=True)),
+    }
+    out = []
+    for b in (0, 1, 2, 3):
+        for mode, (k, kw) in modes.items():
+            out.append(_check(f"bf16 fused_jacobi3 b={b} {mode}",
+                              _jac3_16(kw), co3.fused_jacobi3,
+                              co3.fused_jacobi3_plain, b, t.x, t.x0, av, bv,
+                              k, **kw))
+    for label, k, kw in (
+            ("1 sweep", 1, dict()),
+            ("2it chebyshev", 2, dict(src_dt=DT, cheby_rho=rho)),
+            ("20it src_dt fast", 20, dict(src_dt=DT, fast=True)),
+            ("1 sweep chebyshev+fast", 1, dict(src_dt=DT, cheby_rho=rho,
+                                               fast=True)),
+            (f"{per_launch + 1}it chebyshev+fast", per_launch + 1,
+             dict(src_dt=DT, cheby_rho=rho, fast=True))):
+        out.append(_check(f"bf16 fused_jacobi3 b=1 {label}", _jac3_16(kw),
+                          co3.fused_jacobi3, co3.fused_jacobi3_plain, 1,
+                          t.src, t.x0, av, bv, k, **kw))
+    uvw = (t.u, t.v, t.w)
+    fast = tuple((3.0 * f.float()).to(torch.bfloat16) for f in uvw)
+    out += [
+        _check("bf16 divergence3_p (into float32)", ("divergence3_bf16",),
+               co3.divergence3_p, co3.divergence3_p_plain, *uvw, n),
+        _check("bf16 gradient3_p (float32 p)", ("gradient3_bf16",),
+               co3.gradient3_p, co3.gradient3_p_plain, *uvw, t.p32, n),
+        _check("bf16 advect3_shift b=0", ADV3_16, co3.advect3_shift,
+               co3.advect3_shift_plain, 0, t.x, *uvw, DT, n),
+        _check("bf16 advect3_shift_fused u/v/w triple", ADV3_16,
+               co3.advect3_shift_fused, co3.advect3_shift_fused_plain,
+               (1, 2, 3), uvw, *uvw, DT, n),
+    ]
+    for cmax in (WINDOW3, CMAX):
+        out += [
+            _check(f"bf16 advect3_shift b=0 cmax={cmax}, random velocities",
+                   ADV3_WIN_16, co3.advect3_shift, co3.advect3_shift_plain,
+                   0, t.x, *fast, DT, n, cmax),
+            _check(f"bf16 advect3_shift_fused u/v/w triple cmax={cmax}",
+                   ADV3_WIN_16, co3.advect3_shift_fused,
+                   co3.advect3_shift_fused_plain, (1, 2, 3), fast, *fast,
+                   DT, n, cmax),
+        ]
+    return out
+
+
+def timing_checks3_bf16(side: int, device, seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of the bf16 forms of K5-K8 at volume
+    ``side``, each beside its float32 form on the same values
+    (``counterpart``) and its plain twin, its bound counting a bf16 pass
+    half: first one launch of each form on the main path (labelled by its
+    count's name: the tiled K5's T3 sweeps of a fast Chebyshev solve, the
+    per-sweep K5's one Jacobi sweep, K7 into float32, K8 from a float32
+    pressure, K6's triple exact and in the step's 4-cell window, the
+    gathers beside ``grid_sample`` on bf16), then K6 on one field, and
+    each solve at the main path's counts on the kernel the path takes, the
+    tiled one beside the per-sweep chain (``chain``)."""
+    t = _Bf16Inputs3(side, device, seed)
+    w = t.f32
+    n, av, cells = t.n, t.a_visc, t.cells
+    bv = 1 + 6 * av
+    rho, k_d, _ = PERF_POINT_3D
+    per_launch = co.SWEEPS_PER_LAUNCH_3D
+    uvw, uvw32 = (t.u, t.v, t.w), (w["u"], w["v"], w["w"])
+
+    def sweeps(iters, **kw):
+        return _sweeps_cost(iters, 3, bf16=True, **kw)
+
+    def form(make, cost, label, kernels, fn, plain, args16, args32, **kw):
+        check = make(cost, cells, label, kernels, fn, plain, *args16, **kw)
+        check.counterpart = functools.partial(fn, *args32, **kw)
+        check.counterpart_label = "float32 form on the same values"
+        return check
+
+    def k6(label, cost, kernels, bs, fields, fields32, cmax=None):
+        extra = 0 if cmax is None else 4 * 3
+        check = form(_timed, (cost[0], cost[1] + extra), label, kernels,
+                     co3.advect3_shift_fused, co3.advect3_shift_fused_plain,
+                     (bs, fields, *uvw, DT, n, cmax),
+                     (bs, fields32, *uvw32, DT, n, cmax))
+        check.gather = _gather3(fields, *uvw, n, cmax)
+        return check
+
+    fold = dict(src_dt=DT, fast=True, cheby_rho=rho)
+    return [
+        form(_k1_timed, sweeps(per_launch, src=True, fast=True, cheby=True),
+             "jacobi3_sweeps_bf16", JAC3_16, co3.fused_jacobi3,
+             co3.fused_jacobi3_plain, (1, t.x, t.x0, av, bv, per_launch),
+             (1, w["x"], w["x0"], av, bv, per_launch), **fold),
+        form(_timed, sweeps(1), "jacobi3_sweep_bf16", JAC3_SWEEP_16,
+             co3.fused_jacobi3, co3.fused_jacobi3_plain,
+             (1, t.x, t.x0, av, bv, 1), (1, w["x"], w["x0"], av, bv, 1)),
+        form(_timed, DIV3_BF16, "divergence3_bf16", ("divergence3_bf16",),
+             co3.divergence3_p, co3.divergence3_p_plain, (*uvw, n),
+             (*uvw32, n)),
+        form(_timed, GRAD3_BF16, "gradient3_bf16", ("gradient3_bf16",),
+             co3.gradient3_p, co3.gradient3_p_plain, (*uvw, t.p32, n),
+             (*uvw32, t.p32, n)),
+        k6("advect3_bf16", ADVECT3_TRIPLE_BF16, ADV3_16, (1, 2, 3), uvw,
+           uvw32),
+        k6("advect3_windowed_bf16", ADVECT3_TRIPLE_BF16, ADV3_WIN_16,
+           (1, 2, 3), uvw, uvw32, CMAX),
+        k6("advect3 bf16 one field (density)", ADVECT3_ONE_BF16, ADV3_16,
+           (0,), (t.x,), (w["x"],)),
+        form(_timed, sweeps(20, src=True),
+             "fused_jacobi3 20it src_dt bf16 (u diffusion)", JAC3_SWEEP_16,
+             co3.fused_jacobi3, co3.fused_jacobi3_plain,
+             (1, t.src, t.x0, av, bv, 20), (1, w["src"], w["x0"], av, bv, 20),
+             src_dt=DT),
+        form(_k1_timed, sweeps(k_d, src=True, fast=True, cheby=True),
+             f"fused_jacobi3 {k_d}it chebyshev+fast bf16", JAC3_16,
+             co3.fused_jacobi3, co3.fused_jacobi3_plain,
+             (1, t.src, t.x0, av, bv, k_d),
+             (1, w["src"], w["x0"], av, bv, k_d), **fold),
     ]
 
 

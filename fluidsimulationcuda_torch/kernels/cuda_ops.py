@@ -34,9 +34,11 @@ rounds the output to bf16.  K1-damp, the multigrid smoother, also takes
 a bf16 rhs (the finest level of a bf16 multigrid solve; JAX smooths that
 level in jnp): its bf16-rhs forms (``jacobi_sweeps_damp_bf16``) read the
 rhs as bf16 and a float32 guess, or a bf16 guess or none, and write the
-guess's dtype (``mg_smooth``).  A bf16 tensor reaching any other wrapper
-(``fused_dens_advect``, ``fused_jacobi_pair``, the 3-D, slab and tail
-kernels) raises ``TypeError``: nothing widens it silently.
+guess's dtype (``mg_smooth``).  The 3-D wrappers (``cuda_ops_3d.py``)
+and the block route's have bf16 forms of their own.  A bf16 tensor
+reaching any other wrapper (``fused_dens_advect``, ``fused_jacobi_pair``,
+the row-slab, z-slab and tail kernels) raises ``TypeError``: nothing
+widens it silently.
 
 Four CUDA kernels (K1-K4) carry the five TPU kernel families of the 2-D
 step:
@@ -131,7 +133,9 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "advect_block_exact", "divergence_block", "gradient_block",
            "jacobi_block_sweeps_bf16", "advect_block_bf16",
            "advect_block_exact_bf16", "divergence_block_bf16",
-           "gradient_block_bf16")
+           "gradient_block_bf16", "jacobi3_sweep_bf16", "jacobi3_sweeps_bf16",
+           "advect3_bf16", "advect3_windowed_bf16", "divergence3_bf16",
+           "gradient3_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -140,9 +144,9 @@ _PREP, _FAST, _CHEBY, _DAMP = 1, 2, 4, 8
 _MAX_BATCH = 65535
 # The storage dtypes of the wrappers that have a bf16 form.
 _F32_BF16 = (torch.float32, torch.bfloat16)
-# fsc_jacobi_sweep(s)_bf16's operand types (csrc/jacobi.cu,
-# csrc/jacobi_tiles.cu): which of x, xm and out are bf16 (rhs and rhs_out
-# always are).
+# fsc_jacobi(3)_sweep(s)_bf16's operand types (csrc/jacobi.cu,
+# csrc/jacobi_tiles.cu, csrc/jacobi3.cu, csrc/jacobi3_tiles.cu): which of
+# x, xm and out are bf16 (rhs and rhs_out always are).
 _X_BF16, _XM_BF16, _OUT_BF16 = 1, 2, 4
 # T, the sweeps of one tiled K1 launch, chosen by measurement
 # (dev/bench_sweeps.py, PERF.md): the fastest or within 5% of it at 2048²,
@@ -609,10 +613,12 @@ class _Sweeps:
     (the trap of ``pallas_ops.py:560-585``: a chain that restarts ω or
     drops x_{k-1} at a segment boundary looks plausible and is wrong).
 
-    A bf16 rhs (K1 only) makes the solve JAX's bf16 storage form: it
-    launches ``fsc_jacobi_sweeps_bf16`` (``fsc_jacobi_sweep_bf16`` a sweep
-    on the per-sweep K1; counted as ``jacobi_sweeps_bf16`` and
-    ``jacobi_sweep_bf16``), the iterate lives in float32 (shared memory
+    A bf16 rhs (K1, and K5 on a volume) makes the solve JAX's bf16
+    storage form: it launches ``fsc_jacobi_sweeps_bf16``
+    (``fsc_jacobi_sweep_bf16`` a sweep on the per-sweep K1; counted as
+    ``jacobi_sweeps_bf16`` and ``jacobi_sweep_bf16``; K5's
+    ``jacobi3_sweeps_bf16`` and ``jacobi3_sweep_bf16``), the iterate
+    lives in float32 (shared memory
     within a launch, scratch between launches) from the first sweep to the
     last, the guess and x_{k-1} are read as bf16 where they are the
     caller's, the folded or prescaled rhs is rounded to bf16 before any

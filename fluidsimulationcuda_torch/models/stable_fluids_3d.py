@@ -21,6 +21,18 @@ Every op of either backend returns its full ghost layer, so the JAX
 package's ghost-layer policy (which kernel outputs get ``set_bnd3``) has
 nothing to decide here.  PyTorch runs eagerly: a step is a plain function of
 tensors.
+
+In bf16 storage (``SimConfig(dtype=torch.bfloat16)``) the state and sources
+are bf16 and the step composes the same ops.  The ``reference`` backend is
+JAX's jnp ``step3`` on bf16 arrays, every op rounded to bf16 as JAX rounds
+it, except the gathers, which widen their inputs, gather in float32 and
+round once (JAX's own bf16 gather cannot resolve a fraction of a cell at
+these sides).  The ``cuda`` backend is the kernels' bf16 forms: each solve
+keeps a float32 iterate and rounds once at its end, the folded or
+prescaled rhs is rounded to bf16 before any sweep reads it, and the
+projection keeps a float32 divergence and pressure between bf16 velocities
+(``kernels/cuda_ops_3d.py``).  ``_Ops3(cfg, plain=True)`` composes the
+kernels' plain twins instead, which equal them bit for bit.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ import torch
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources, zero_sources
 from ..ops.chebyshev import cheby_diffuse3, cheby_pressure_solve3
+from ..ops.diffuse import as_scalar
 from ..ops.source import add_source
 from ..ops.three_d import (advect3, advect3_windowed,
                            apply_pressure_gradient3, diffuse3, divergence3,
@@ -49,10 +62,11 @@ def _require_3d(cfg: SimConfig, what: str) -> None:
 class _Ops3:
     """3-D op dispatch by ``cfg.resolved_backend``: the plain ops of
     ``ops/three_d.py`` (``reference``) or the CUDA kernels of
-    ``kernels/cuda_ops_3d.py`` (``cuda``).  Chosen once, explicitly; nothing
-    falls back.  ``cmax`` is the gather window (None: exact)."""
+    ``kernels/cuda_ops_3d.py`` (``cuda``; with ``plain``, their plain
+    twins, on any device).  Chosen once, explicitly; nothing falls back.
+    ``cmax`` is the gather window (None: exact)."""
 
-    def __init__(self, cfg: SimConfig):
+    def __init__(self, cfg: SimConfig, plain: bool = False):
         backend = cfg.resolved_backend
         if backend not in ("reference", "cuda"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -62,7 +76,7 @@ class _Ops3:
         if backend == "cuda":
             from ..kernels import cuda_ops_3d
 
-            self.k3 = cuda_ops_3d
+            self.k3 = cuda_ops_3d.PLAIN_TWINS if plain else cuda_ops_3d
 
     def diffuse_src(self, b, src, base, alpha, beta, iters, cheby_rho=None):
         """``add_source(base, src)`` diffused from the guess ``src``."""
@@ -131,20 +145,22 @@ def _diffuse_velocity(cfg, ops, u, v, w, u_src, v_src, w_src):
                                    (3, w_src, w)))
 
 
-def vel_step3(cfg: SimConfig, u, v, w, u_src, v_src, w_src):
+def vel_step3(cfg: SimConfig, u, v, w, u_src, v_src, w_src,
+              ops: _Ops3 | None = None):
     """Velocity update: sources, diffusion, projection, self-advection,
-    projection."""
+    projection (through ``ops``, ``_Ops3(cfg)`` if None)."""
     _require_3d(cfg, "vel_step3")
-    ops = _Ops3(cfg)
+    ops = ops if ops is not None else _Ops3(cfg)
     u, v, w = ops.project(*_diffuse_velocity(cfg, ops, u, v, w, u_src, v_src,
                                              w_src))
     return ops.project(*ops.advect_self(u, v, w))
 
 
-def dens_step3(cfg: SimConfig, dens, dens_src, u, v, w):
+def dens_step3(cfg: SimConfig, dens, dens_src, u, v, w,
+               ops: _Ops3 | None = None):
     """Density update: source, diffusion, advection by the new velocity."""
     _require_3d(cfg, "dens_step3")
-    ops = _Ops3(cfg)
+    ops = ops if ops is not None else _Ops3(cfg)
     alpha = cfg.diffusion_alpha_diff
     beta = 1.0 + 6.0 * alpha
     if cfg.diffusion_solver == "chebyshev-dens":
@@ -157,11 +173,14 @@ def dens_step3(cfg: SimConfig, dens, dens_src, u, v, w):
     return ops.advect(0, dens, u, v, w)
 
 
-def step3(cfg: SimConfig, state: FluidState, sources: Sources) -> FluidState:
-    """One full 3-D timestep: ``vel_step3`` then ``dens_step3``."""
+def step3(cfg: SimConfig, state: FluidState, sources: Sources,
+          ops: _Ops3 | None = None) -> FluidState:
+    """One full 3-D timestep: ``vel_step3`` then ``dens_step3``, through
+    ``ops`` (``_Ops3(cfg)`` if None)."""
+    ops = ops if ops is not None else _Ops3(cfg)
     u, v, w = vel_step3(cfg, state.u, state.v, state.w, sources.u, sources.v,
-                        sources.w)
-    dens = dens_step3(cfg, state.dens, sources.dens, u, v, w)
+                        sources.w, ops)
+    dens = dens_step3(cfg, state.dens, sources.dens, u, v, w, ops)
     return FluidState(dens=dens, u=u, v=v, w=w)
 
 
@@ -173,13 +192,16 @@ def step_audited3(cfg: SimConfig, state: FluidState,
     Under ``advect_mode="windowed"`` the gathers were exact while it stays
     at or below ``cfg.max_courant`` and clamped above; under ``"auto"``/
     ``"exact"`` they are exact at any displacement, and the number says
-    whether the windowed gather would have been."""
+    whether the windowed gather would have been.  In bf16 storage the
+    displacement is bf16, as JAX's is."""
     _require_3d(cfg, "step_audited3")
     dt0 = cfg.dt * cfg.n
 
     def _disp(u, v, w):
         m = torch.maximum(u.abs().max(), v.abs().max())
-        return torch.maximum(m, w.abs().max()) * dt0
+        # dt0 rounded to the fields' dtype first, as JAX's weakly typed
+        # scalar is.
+        return torch.maximum(m, w.abs().max()) * as_scalar(dt0, m)
 
     ops = _Ops3(cfg)
     u, v, w = ops.project(*_diffuse_velocity(

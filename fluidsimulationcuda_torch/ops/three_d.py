@@ -22,6 +22,16 @@ The smoke-volume generalization of the 2-D solver (BASELINE config 5):
 Each function keeps the JAX package's expression order, so both round
 alike.  These are the ``reference`` backend's 3-D ops and the plain forms
 of the CUDA kernels in ``kernels/cuda_ops_3d.py``.
+
+On bf16 fields (JAX's bf16 storage mode) every op but the gathers rounds
+each operation to bf16 as JAX's jnp ops do: the constants (``1/3``, ``h``,
+``-0.5*h``) are taken in the fields' dtype first, ``jnp.asarray(c,
+dtype)``.  The gathers keep float32 coordinates and blend: bf16 cannot
+resolve a fraction of a cell at these sides (JAX's own ``advect3`` blends
+in bf16 and lies rel-L2 0.35 from its float32 gather on a random field at
+n = 126), so bf16 fields and velocities are widened, the gather and its
+ghost layer computed in float32 and the result rounded once, as K6's bf16
+form stores it.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ import numpy as np
 import torch
 
 from .diffuse import as_scalar
-from .project import grid_h
+from .project import _h
 
 __all__ = [
     "embed_faces3", "embed_interior3", "set_bnd3", "fix_faces3",
@@ -58,8 +68,10 @@ def _fix_faces3_(b: int, x: torch.Tensor) -> torch.Tensor:
 
 def _fix_edges3_(x: torch.Tensor) -> torch.Tensor:
     """Derive the ghost edges (mean of the two adjacent face cells) and then
-    the corners (mean of the three adjacent edge cells) in place."""
+    the corners (mean of the three adjacent edge cells) in place; 1/3 is
+    rounded to ``x``'s dtype, as ``jnp.asarray(1.0 / 3.0, dtype)``."""
     n2 = x.shape[0]
+    third = as_scalar(1.0 / 3.0, x)
     for a1 in range(3):
         for a2 in range(a1 + 1, 3):
             for i1 in (0, n2 - 1):
@@ -77,8 +89,8 @@ def _fix_edges3_(x: torch.Tensor) -> torch.Tensor:
                 nz = 1 if iz == 0 else n2 - 2
                 ny = 1 if iy == 0 else n2 - 2
                 nx = 1 if ix == 0 else n2 - 2
-                x[iz, iy, ix] = _THIRD * ((x[nz, iy, ix] + x[iz, ny, ix])
-                                          + x[iz, iy, nx])
+                x[iz, iy, ix] = third * ((x[nz, iy, ix] + x[iz, ny, ix])
+                                         + x[iz, iy, nx])
     return x
 
 
@@ -152,11 +164,12 @@ def departure3(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     ``u``, ``v``, ``w``): ``g - dt0*vel`` per axis, clamped to
     ``[0.5, n+0.5]`` and then, with ``cmax``, to ``[g - cmax, g + cmax]``
     around the cell's own coordinate ``g``, in that order.  ``dt0 = dt*n``
-    is taken in float32, as the JAX package takes it."""
+    is taken in float32, as the JAX package takes it, and so is every
+    coordinate: bf16 velocities are widened first."""
     dt0 = float(np.float32(dt) * np.float32(n))
     out = []
     for g, vel in ((xs, u), (ys, v), (zs, w)):
-        c = (g - dt0 * vel).clamp(0.5, n + 0.5)
+        c = (g - dt0 * vel.float()).clamp(0.5, n + 0.5)
         if cmax is not None:
             c = torch.clamp(c, g - cmax, g + cmax)
         out.append(c)
@@ -178,14 +191,15 @@ def trilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     """Trilinear gather of ``d0`` at departure points (x, y, z), truncated
     to the lower corner (the clamp makes trunc == floor) and blended in the
     JAX ``advect3`` order; global plane ``k`` is plane ``k - z_offset`` of
-    ``d0``."""
+    ``d0``.  The blend runs in float32 whatever ``d0`` stores (a bf16
+    ``d0`` is widened)."""
     i0, j0, k0 = (t.to(torch.int32) for t in (x, y, z))
     fx = x - i0.to(torch.float32)
     fy = y - j0.to(torch.float32)
     fz = z - k0.to(torch.float32)
 
     side = d0.shape[-1]
-    flat = d0.reshape(-1)
+    flat = d0.float().reshape(-1)
     base = (((k0 - z_offset) * side + j0) * side + i0).to(torch.int64)
 
     def g(dz, dy, dx):
@@ -203,11 +217,18 @@ def trilinear(d0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     )
 
 
+def _gathered(b: int, d0: torch.Tensor, interior: torch.Tensor
+              ) -> torch.Tensor:
+    """A gather's float32 interior with its ghost layer, in ``d0``'s dtype:
+    a bf16 result is rounded once, after the float32 ghost layer."""
+    return embed_interior3(b, interior).to(d0.dtype)
+
+
 def advect3(b: int, d0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             w: torch.Tensor, dt: float, n: int) -> torch.Tensor:
     """Semi-Lagrangian advection: backtrace by ``dt*n*(u, v, w)`` taken in
     float32, clamp to ``[0.5, n+0.5]``, trilinear gather."""
-    return embed_interior3(b, trilinear(d0, *backtrace3(u, v, w, dt, n)))
+    return _gathered(b, d0, trilinear(d0, *backtrace3(u, v, w, dt, n)))
 
 
 def advect3_windowed(b: int, d0: torch.Tensor, u: torch.Tensor,
@@ -220,14 +241,15 @@ def advect3_windowed(b: int, d0: torch.Tensor, u: torch.Tensor,
     sums (2*cmax+1)³ masked shifts; after the window clamp every departure
     point lies inside the window, so a direct gather reads the same eight
     values."""
-    return embed_interior3(b, trilinear(d0, *backtrace3(u, v, w, dt, n,
-                                                         cmax)))
+    return _gathered(b, d0, trilinear(d0, *backtrace3(u, v, w, dt, n,
+                                                      cmax)))
 
 
 def divergence3(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                 n: int) -> torch.Tensor:
-    """``div = (-0.5*h)*((du + dv) + dw)``, ``h = 1/n``; boundary mode 0."""
-    coef = -0.5 * grid_h(n)  # exact in float32: a power-of-two scaling
+    """``div = (-0.5*h)*((du + dv) + dw)``, ``h = 1/n`` taken in the
+    fields' dtype (``_h``); boundary mode 0."""
+    coef = as_scalar(-0.5, u) * _h(n, u)  # exact: a power-of-two scaling
     d = coef * ((u[1:-1, 1:-1, 2:] - u[1:-1, 1:-1, :-2])
                 + (v[1:-1, 2:, 1:-1] - v[1:-1, :-2, 1:-1])
                 + (w[2:, 1:-1, 1:-1] - w[:-2, 1:-1, 1:-1]))
@@ -242,12 +264,15 @@ def pressure_solve3(div: torch.Tensor, iters: int) -> torch.Tensor:
 def apply_pressure_gradient3(u: torch.Tensor, v: torch.Tensor,
                              w: torch.Tensor, p: torch.Tensor, n: int):
     """``u -= 0.5*(pR-pL)/h`` and likewise for v and w, dividing by
-    ``h = 1/n``; boundary modes 1, 2 and 3."""
-    h = as_scalar(grid_h(n), u)
+    ``h = 1/n`` taken in u's dtype (``_h``); boundary modes 1, 2 and 3.
+    Written in u's dtype: a float32 pressure against bf16 u, v, w is
+    computed in float32 and rounded once."""
+    h = _h(n, u)
     un = u[1:-1, 1:-1, 1:-1] - (0.5 * (p[1:-1, 1:-1, 2:] - p[1:-1, 1:-1, :-2])) / h
     vn = v[1:-1, 1:-1, 1:-1] - (0.5 * (p[1:-1, 2:, 1:-1] - p[1:-1, :-2, 1:-1])) / h
     wn = w[1:-1, 1:-1, 1:-1] - (0.5 * (p[2:, 1:-1, 1:-1] - p[:-2, 1:-1, 1:-1])) / h
-    return embed_interior3(1, un), embed_interior3(2, vn), embed_interior3(3, wn)
+    return tuple(embed_interior3(b, f.to(u.dtype))
+                 for b, f in ((1, un), (2, vn), (3, wn)))
 
 
 def project3(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, n: int,

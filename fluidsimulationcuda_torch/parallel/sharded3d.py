@@ -251,9 +251,18 @@ def make_sharded_step_fn_3d(
     mesh used) and ``.chunks``:
     per solve (velocity, pressure, density) the sweeps per exchange K and
     the halo planes H.
+
+    The z-slab route is float32: a bf16 ``cfg`` raises
+    ``NotImplementedError`` (the single-device 3-D step runs bf16; its
+    z-slab forms wait on ROADMAP §A 5 (c)).
     """
     if cfg.ndim != 3:
         raise ValueError("make_sharded_step_fn_3d requires cfg.ndim == 3")
+    if cfg.dtype != torch.float32:
+        raise NotImplementedError(
+            "the 3-D z-slab step is float32; bf16 storage runs the "
+            "single-device 3-D step, and its z-slab forms wait on ROADMAP "
+            "§A 5 (c)")
     if cfg.pressure_solver not in ("jacobi", "chebyshev"):
         raise ValueError("sharded 3-D supports pressure_solver='jacobi' or "
                          "'chebyshev' (mg/cg are 2-D solvers)")

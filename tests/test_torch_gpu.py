@@ -7,6 +7,7 @@ On a machine with one H100:
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
 """
 import contextlib
+import ctypes
 import glob
 import os
 import warnings
@@ -1415,3 +1416,74 @@ def test_bf16_solver_step_2048_launches_and_matches_plain(cuda, solver):
                     ft.FluidState(*(t.float() for t in state[:3])),
                     ft.Sources(*(t.float() for t in src[:3])))
     chip_smoke.bf16_bars(got, twins, ref16, ref32, f"bf16 2048² {solver}")
+
+
+@pytest.mark.parametrize("side", [34, 66])
+def test_bf16_3d_forms_match_plain(cuda, side):
+    """The bf16 forms of K5 (per-sweep and tiled), K6 (exact and windowed),
+    K7 and K8 against their plain twins (``checks.kernel_checks3_bf16``),
+    bit for bit, each launching only its bf16 forms; every tiled call also
+    against the same call on the per-sweep K5's bf16 form."""
+    forms = checks.kernel_checks3_bf16(side, cuda, seed=side)
+    for check in forms:
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = {k: c for k, c in cuda_ops.launch_counts().items() if c}
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert set(counts) == set(check.kernels), (check.label, counts)
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+    for check in checks.per_sweep_checks(forms):
+        assert checks.max_abs_diff(check.run(), check.plain()) == 0.0, \
+            check.label
+
+
+BF16_STEPS3 = {"parity": {}, "compensated fast": dict(COMP3, fast_math=True),
+               "windowed": dict(advect_mode="windowed")}
+
+
+@pytest.mark.parametrize("mode", list(BF16_STEPS3))
+def test_bf16_step3_launches_and_matches_plain(cuda, mode):
+    """The bf16 3-D step at 64³: the launches
+    ``chip_smoke.expected_launches3`` counts (K5's bf16 forms for the diffusions, its float32 forms for the
+    pressure solves, K6-K8's bf16 forms), every field bf16, held by
+    ``chip_smoke.bf16_bars`` to the plain twins' step (``_Ops3(cfg,
+    plain=True)``) bit for bit and to the float32 step from the same bf16
+    draw."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.models.stable_fluids_3d import _Ops3
+
+    cfg = ft.SimConfig(n=62, ndim=3, jacobi_iters=20, backend="cuda",
+                       device=cuda, dtype=torch.bfloat16, **BF16_STEPS3[mode])
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cuda_ops.reset_launch_counts()
+    got = ft.StableFluids3D(cfg).step(state, src)
+    torch.cuda.synchronize()
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0),
+        **chip_smoke.expected_launches3(cfg)}
+    assert all(f.dtype == torch.bfloat16 for f in got)
+    twins = ft.step3(cfg, state, src, _Ops3(cfg, plain=True))
+    ref16 = ft.step3(cfg.replace(backend="reference"), state, src)
+    ref32 = ft.step3(cfg.replace(dtype=torch.float32),
+                     ft.FluidState(*(t.float() for t in state)),
+                     ft.Sources(*(t.float() for t in src)))
+    chip_smoke.bf16_bars(got, twins, ref16, ref32, f"bf16 64³ {mode}")
+
+
+def test_bf16_3d_kernels_refuse_other_operands(cuda):
+    """K8's bf16 form reads a float32 pressure only; the tiled K5's bf16
+    form refuses x and x_{k-1} both bf16 (no solve reads its guess as
+    both)."""
+    from fluidsimulationcuda_torch.kernels import build
+
+    vol = torch.zeros((18,) * 3, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        cuda_ops_3d.gradient3_p(vol, vol, vol, vol, 16)
+    omegas = (ctypes.c_float * 1)(1.0)
+    err = build.load().fsc_jacobi3_sweeps_bf16(
+        vol.data_ptr(), vol.data_ptr(), None, vol.data_ptr(), vol.data_ptr(),
+        None, None, 18, 0, 1.0, 6.0, 1 / 6, 1 / 6, 0.0,
+        ctypes.addressof(omegas), 6, 1, 1, 3,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
