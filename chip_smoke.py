@@ -318,6 +318,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    bit for bit and to the float32 step by ``bf16_bars``, max|div| after
    the first projection bf16 beside float32, eager and graph ms/step
    beside the float32 step.
+22. bf16 on the 3-D z-slab step (``bf16_zslab_phase``): the bf16 forms of
+   K13 (per-sweep and the tiled slab walk), K14 (windowed and exact), K15
+   (into float32) and K16 (from a float32 pressure) against their plain
+   twins on top, interior and bottom 32-plane slabs of 256³
+   (``checks.kernel_checks_slab3_bf16``, bit for bit), every tiled call
+   also against the same call on the per-sweep K13's bf16 form; each form
+   timed beside its bound in 2-byte storage, its float32 form on the same
+   values, its plain twin and, for K14, ``grid_sample`` on bf16; then
+   ``make_sharded_step_fn_3d`` in bf16 at 256³ (``bf16_zslab_path``) on 8
+   z-slabs (parity windowed by ``"auto"``, parity exact, compensated with
+   fast math) and 32 of 8 planes (compensated with fast math), two steps
+   each from the reference draw rounded to bf16: launches against
+   ``expected_launches_sharded3`` (the bf16 forms, the float32 K13 for the
+   pressure solves and no other float32 form), the state bf16, held to
+   the plain twins' z-slab step (``_ZSlabStep(..., plain=True)``) bit for
+   bit and to the float32 z-slab step by ``bf16_bars``, the exact run to
+   the single-device bf16 step bit for bit, eager and graph ms/step
+   beside the float32 z-slab step.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
@@ -332,8 +350,9 @@ runs for K17, phase 10's chunk run for B13's split-source K9, phases 14 and
 18 for K1-damp (its bf16-rhs forms, ``jacobi_sweeps_damp_bf16``, from
 phase 18's bf16 multigrid runs) and
 phase 16 for K6's window, phase 19's runs for the block forms, phase
-20's for their bf16 forms, phase 21's for K5-K8's bf16 forms), its max|Δ|
-from phase 3, 3b, 3c, 3d, 3e, 3f, 19, 20 or 21,
+20's for their bf16 forms, phase 21's for K5-K8's bf16 forms, phase 22's
+for K13-K16's), its max|Δ|
+from phase 3, 3b, 3c, 3d, 3e, 3f, 19, 20, 21 or 22,
 its device time beside its plain version's, and its bound; the bf16 forms
 are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 ``gradient_bf16``, ``advect_bf16``: launches from phase 18's 2048² parity
@@ -479,6 +498,18 @@ KERNEL_SOURCES = {
     "advect3_windowed_bf16": (f"{CSRC}/advect3.cu", f"{TPU_KERNELS_3D}:728"),
     "divergence3_bf16": (f"{CSRC}/project3.cu", f"{TPU_KERNELS_3D}:1085"),
     "gradient3_bf16": (f"{CSRC}/project3.cu", f"{TPU_KERNELS_3D}:1101"),
+    # The bf16 forms of K13-K16: JAX's bf16 z-slab step runs its jnp
+    # _step3_local (its Pallas z-slab route takes float32 only), the
+    # functions of these pallas_calls and of its two jnp stencils.
+    "jacobi3_slab_bf16": (f"{CSRC}/jacobi3_slab.cu", f"{TPU_SLABS_3D}:349"),
+    "jacobi3_slab_sweeps_bf16": (f"{CSRC}/jacobi3_tiles.cu",
+                                 f"{TPU_SLABS_3D}:442"),
+    "advect3_slab_bf16": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
+    "advect3_slab_exact_bf16": (f"{CSRC}/advect3_slab.cu",
+                                f"{TPU_STEP_3D}:288"),
+    "divergence3_slab_bf16": (f"{CSRC}/project3_slab.cu",
+                              f"{TPU_STEP_3D}:405"),
+    "gradient3_slab_bf16": (f"{CSRC}/project3_slab.cu", f"{TPU_STEP_3D}:419"),
 }
 # Phase 18's batch of grids for the multigrid and CG steps.
 SOLVER_BATCH = 64
@@ -900,11 +931,15 @@ def expected_launches_sharded3(cfg, slabs: int,
     form T3 sweeps a launch where ``cuda_ops.tiled3`` says so
     (``k3_launches``); K15 and K16 once per projection; K14 for the
     (u, v, w) triple and for the density (its exact form,
-    ``advect3_slab_exact``, with ``exact`` gathers)."""
+    ``advect3_slab_exact``, with ``exact`` gathers).  In bf16 storage the
+    bf16 forms of each, the pressure solves on the float32 K13
+    (``k3_launches``)."""
     jacobi = k3_launches(cfg, (cfg.n + 2) // slabs)
+    bf16 = _bf16_suffix(cfg)
+    advect = "advect3_slab_exact" if exact else "advect3_slab"
     return {**{k: slabs * n for k, n in jacobi.items()},
-            "divergence3_slab": 2 * slabs, "gradient3_slab": 2 * slabs,
-            "advect3_slab_exact" if exact else "advect3_slab": 2 * slabs}
+            f"divergence3_slab{bf16}": 2 * slabs,
+            f"gradient3_slab{bf16}": 2 * slabs, f"{advect}{bf16}": 2 * slabs}
 
 
 def fields(state) -> list[tuple[str, torch.Tensor]]:
@@ -2730,12 +2765,16 @@ def main() -> None:
     phase("21 bf16 storage on the 3-D step: 256³")
     launches_3d16 = bf16_3d_phase(parity3, comp3, card, errs, times)
 
+    phase("22 bf16 on the 3-D z-slab step: 256³ on one card")
+    launches_zs16 = bf16_zslab_phase(parity3, comp3, card, errs, times)
+
     main_launches = {k: launches[k] + launches3[k] + launches_slab[k]
                      + launches_slab_mg[k] + launches_exact[k]
                      + launches_slab3[k] + launches_dg[k] + launches_mg[k]
                      + launches_cg[k] + launches_w3[k] + launches_cli[k]
                      + launches_16[k] + launches_sb[k] + launches_blocks[k]
                      + launches_b16[k] + launches_3d16[k]
+                     + launches_zs16[k]
                      for k in cuda_ops.KERNELS}
     main_launches["advect_project"] = tails["advect_project"]
     main_launches["jacobi_slab_sweeps_split"] = launches_split[
@@ -3061,6 +3100,147 @@ def bf16_3d_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
         ms[name] = (eager, graph)
     print(f"{label}: ms/step eager / as a CUDA graph: bf16 "
           f"{ms['bf16'][0]:.4f} / {ms['bf16'][1]:.4f}, float32 "
+          f"{ms['float32'][0]:.4f} / {ms['float32'][1]:.4f} (bf16/float32 "
+          f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
+    return counts
+
+
+def bf16_zslab_phase(parity3, comp3, card: str, errs: dict[str, float],
+                     times: dict) -> dict[str, int]:
+    """Phase 22: the bf16 forms of K13 (per-sweep and the tiled slab walk),
+    K14 (windowed and exact), K15 and K16 against their plain twins on
+    top, interior and bottom slabs of 32 planes of 256³, bit for bit,
+    every tiled call also against the same call on the per-sweep K13's
+    bf16 form; each form timed beside its bound in 2-byte storage, its
+    float32 form, its plain twin and, for K14, ``grid_sample`` on bf16;
+    then the bf16 z-slab step at 256³ (``bf16_zslab_path``) on 8 slabs:
+    parity windowed (``"auto"``), parity exact, compensated with fast
+    math; and compensated with fast math on 32 slabs of 8 planes, whose
+    solves all chain across exchanges.  Returns the launches of its
+    runs."""
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    forms = checks.kernel_checks_slab3_bf16(256, 32, "cuda", SEED)
+    compare(forms, 0.0, errs, "bit for bit")
+    compare(checks.per_sweep_checks(forms), 0.0, errs, "bit for bit")
+    del forms
+    timed = checks.timing_checks_slab3_bf16(256, 32, "cuda", SEED)
+    timed_against_both(timed, 0.0, errs)
+    times.update(kernel_times(timed, "256³, slab of 32 planes, bf16", card))
+    del timed
+    total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
+    rho, k_d, k_p = comp3.cheby_rho, comp3.cheby_iters, comp3.press_cheby_iters
+    comp = comp3.replace(fast_math=True)
+    label = (f"bf16 256³ compensated (rho={rho}, k_d={k_d}, k_p={k_p}) "
+             f"fast_math")
+    for cfg, slabs, label, advect_mode in (
+            (parity3, 8, "bf16 256³ parity", "auto"),
+            (parity3, 8, "bf16 256³ parity", "exact"),
+            (comp, 8, label, "auto"), (comp, 32, label, "auto")):
+        for k, c in bf16_zslab_path(cfg, slabs, f"{label}, {slabs} z-slabs",
+                                    card, 2, advect_mode).items():
+            total[k] += c
+    return total
+
+
+def bf16_zslab_path(cfg, slabs: int, label: str, card: str, steps: int,
+                    advect_mode: str) -> dict[str, int]:
+    """Phase 22's run of ``cfg`` (float32, the ``cuda`` backend) in bf16 on
+    ``slabs`` z-slabs of one card: an impulse step plus ``steps-1`` of
+    ``make_sharded_step_fn_3d(cfg in bf16, advect_mode=advect_mode,
+    audited=True)`` from the reference draw rounded to bf16; its launches
+    against ``expected_launches_sharded3`` (the bf16 forms wherever a bf16
+    operand enters, the float32 K13 for the pressure solves and no other
+    float32 form); the state bf16 and held to ``bf16_bars`` (the plain
+    twins' z-slab step, ``_ZSlabStep(..., plain=True)``, bit for bit; the
+    float32 z-slab step from the same rounded draw; the ``reference``
+    backend's bf16 z-slab step, JAX's jnp route); an exact run also to the
+    single-device bf16 ``cuda`` step bit for bit; eager and CUDA-graph
+    ms/step beside the float32 z-slab step.  Returns the bf16 run's
+    launch counts."""
+    from fluidsimulationcuda_torch import (FluidState, Sources, reference_init,
+                                           step3)
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    make_sharded_step_fn_3d,
+                                                    shard_state_3d, unshard)
+    from fluidsimulationcuda_torch.parallel.sharded3d import _ZSlabStep
+
+    c16 = cfg.replace(dtype=torch.bfloat16)
+    mesh = make_mesh([torch.device("cuda", 0)] * slabs)
+    step_fn = make_sharded_step_fn_3d(c16, mesh, advect_mode=advect_mode,
+                                      audited=True)
+    exact = step_fn.advect_mode == "exact"
+    gen = torch.Generator(device=cfg.device).manual_seed(SEED)
+    state0, sources = reference_init(gen, cfg)
+    draw16 = (FluidState(*(t.to(torch.bfloat16) for t in state0)),
+              Sources(*(t.to(torch.bfloat16) for t in sources)))
+    draw32 = tuple(type(t)(*(x.float() for x in t)) for t in draw16)
+    zeros16, zeros32 = (Sources(*(torch.zeros_like(x) for x in d[1]))
+                        for d in (draw16, draw32))
+    cut16 = [shard_state_3d(t, mesh) for t in (*draw16, zeros16)]
+    cut32 = [shard_state_3d(t, mesh) for t in (*draw32, zeros32)]
+    print(f"{label}: slabs of {(cfg.n + 2) // slabs} planes, (K, H) per "
+          f"solve {step_fn.chunks}, advect_mode {advect_mode!r} took "
+          f"{step_fn.advect_mode!r}")
+
+    def run(fn, start, src, zeros, audited=False):
+        state, disps = start, []
+        for k in range(steps):
+            state = fn(state, src if k == 0 else zeros)
+            if audited:
+                state, disp = state
+                disps.append(float(disp))
+        return state, disps
+
+    torch.cuda.synchronize()
+    cuda_ops.reset_launch_counts()
+    last, disps = run(step_fn, *cut16, audited=True)
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    per_step = expected_launches_sharded3(c16, slabs, exact)
+    want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
+    float32_forms = {k for k, c in counts.items()
+                     if c and not k.endswith("_bf16")}
+    print(f"{label}: launches {({k: c for k, c in counts.items() if c})} "
+          f"(expected {({k: c for k, c in want.items() if c})}); float32 "
+          f"forms {sorted(float32_forms)} (the pressure solves'); audited "
+          f"displacement {max(disps):.4f} cells (window {cfg.max_courant})")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if not float32_forms <= {"jacobi3_slab", "jacobi3_slab_sweeps"}:
+        raise AssertionError(f"{label}: float32 forms {float32_forms}")
+    got = unshard(last)
+    if any(f.dtype != torch.bfloat16 for f in got):
+        raise AssertionError(f"{label}: the state left bf16")
+    twins, _ = run(_ZSlabStep(c16, mesh.reshape(slabs, 1), False, exact,
+                              plain=True), *cut16)
+    ref16, _ = run(make_sharded_step_fn_3d(
+        c16.replace(backend="reference"), mesh, advect_mode=advect_mode),
+        *cut16)
+    step32 = make_sharded_step_fn_3d(cfg, mesh, advect_mode=advect_mode)
+    last32, _ = run(step32, *cut32)
+    bf16_bars(got, unshard(twins), unshard(ref16), unshard(last32),
+              f"{label}, step {steps}")
+    if exact:
+        single = draw16[0]
+        for k in range(steps):
+            single = step3(c16, single, draw16[1] if k == 0 else zeros16)
+        d = max_diff(got, single)
+        print(f"{label}: max|d| to the single-device bf16 cuda step {d:.3e}")
+        if d != 0.0:
+            raise AssertionError(f"{label}: differs from the single-device "
+                                 f"bf16 step")
+    ms = {}
+    for name, c, state, zeros in (("bf16", c16, last, cut16[2]),
+                                  ("float32", cfg, last32, cut32[2])):
+        plain = make_sharded_step_fn_3d(c, mesh, advect_mode=advect_mode)
+        state, eager = timed_steps(lambda s: plain(s, zeros), state, 2)
+        graph = checks.device_ms(lambda: plain(state, zeros),
+                                 reps=1 if slabs > 8 else 2)
+        ms[name] = (eager, graph)
+    print(f"{label}: ms/step eager / as a CUDA graph: bf16 "
+          f"{ms['bf16'][0]:.4f} / {ms['bf16'][1]:.4f}, float32 z-slab step "
           f"{ms['float32'][0]:.4f} / {ms['float32'][1]:.4f} (bf16/float32 "
           f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
     return counts

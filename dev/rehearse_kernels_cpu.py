@@ -54,9 +54,10 @@ loader patched), and:
   slabs of ``--slab-side``/4 rows at ``--slab-side``,
   ``kernel_checks_block`` (the block route's forms, float32 and bf16) for
   blocks of ``--slab-side``/2 x ``--slab-side``/4 there,
-  ``kernel_checks_slab3`` and
-  ``kernel_checks_slab3_flows`` for z-slabs of ``--slab3-side``/3 planes at
-  ``--slab3-side``) compares kernel and plain version, on a shim device of
+  ``kernel_checks_slab3``,
+  ``kernel_checks_slab3_flows`` and ``kernel_checks_slab3_bf16`` (each
+  tiled call also against the per-sweep K13's bf16 form, bit for bit) for
+  z-slabs of ``--slab3-side``/3 planes at ``--slab3-side``) compares kernel and plain version, on a shim device of
   3 SMs; each row-slab call whose solve takes the tiled K9 is held bit for
   bit against the same call on the per-sweep K9
   (``checks.slab_per_sweep_checks``);
@@ -600,6 +601,9 @@ def main() -> int:
                   + checks.kernel_checks_slab3_flows(args.slab3_side,
                                                      args.slab3_side // 3,
                                                      "cpu", 1)
+                  + checks.kernel_checks_slab3_bf16(args.slab3_side,
+                                                    args.slab3_side // 3,
+                                                    "cpu", 1)
                   + checks.kernel_checks_flows(args.side2, "cpu", 1,
                                                 batch=3)
                   + checks.kernel_checks_flows(args.side3, "cpu", 1,
@@ -629,10 +633,13 @@ def main() -> int:
         failures += err > 0.0
         print(f"  {c.label:45s} max|d| {err:.3e}"
               f"{'  FAIL' if err > 0.0 else ''}")
-    # The tiled 3-D kernel's bf16 form against the per-sweep K5's on the
-    # same calls: bit for bit.
-    for c in checks.per_sweep_checks(checks.kernel_checks3_bf16(
-            args.side3, "cpu", 1)):
+    # The tiled 3-D kernel's bf16 forms against the per-sweep K5's and
+    # K13's on the same calls: bit for bit.
+    for c in checks.per_sweep_checks(
+            checks.kernel_checks3_bf16(args.side3, "cpu", 1)
+            + checks.kernel_checks_slab3_bf16(args.slab3_side,
+                                              args.slab3_side // 3, "cpu",
+                                              1)):
         with kernels_on_cpu(lib):
             err = checks.max_abs_diff(c.run(), c.plain())
         failures += err > 0.0

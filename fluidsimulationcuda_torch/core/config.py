@@ -41,8 +41,9 @@ class SimConfig:
         first sweep to its last and is rounded once at the end, the folded
         or prescaled rhs is rounded to bf16 before any sweep reads it, and
         the projection keeps a float32 divergence and pressure
-        (``kernels/cuda_ops_3d.py``).  The 3-D z-slab step raises
-        ``NotImplementedError`` in bf16 (ROADMAP §A 5 (c)).
+        (``kernels/cuda_ops_3d.py``).  The 3-D z-slab step, with the same
+        rules on its slabs, a solve's float32 iterate handed from segment
+        to segment (``parallel/sharded3d.py``).
       backend: ``"reference"`` runs the plain torch ops of ``ops/``;
         ``"cuda"`` runs the hand-written kernels of ``kernels/cuda_ops.py``
         and ``kernels/cuda_ops_3d.py`` and needs a CUDA ``device``;

@@ -37,18 +37,24 @@
 // Bound: device memory, as K6: u, v, w and eight gather points per field
 // (neighbours of each other for a smooth flow, so mostly L1/L2 hits) and
 // one write per field.
+//
+// The bf16 forms (fsc_advect3_slab_bf16, fsc_advect3_slab_exact_bf16) read
+// bf16 fields and velocities (the exact form's fields the bf16 volumes the
+// step assembles), find each departure and blend in float32, derive the
+// ghost layer in float32 and round to bf16 at the store: K6's bf16 form
+// (advect3.cu) on a slab.  bf16 coordinates could not resolve a fraction of
+// a cell at these sides.
 #include "fsc_common.cuh"
 
 namespace {
 
-template <bool kExact>
+template <bool kExact, typename T>
 __global__ void advect3_slab_kernel(
-    const float* __restrict__ d1, const float* __restrict__ d2,
-    const float* __restrict__ d3, const float* __restrict__ u,
-    const float* __restrict__ v, const float* __restrict__ w,
-    float* __restrict__ o1, float* __restrict__ o2, float* __restrict__ o3,
-    int side, int halo, int b1, int b2, int b3, float dt0, int plane0,
-    int cmax, int gtop, int gbot) {
+    const T* __restrict__ d1, const T* __restrict__ d2,
+    const T* __restrict__ d3, const T* __restrict__ u,
+    const T* __restrict__ v, const T* __restrict__ w, T* __restrict__ o1,
+    T* __restrict__ o2, T* __restrict__ o3, int side, int halo, int b1,
+    int b2, int b3, float dt0, int plane0, int cmax, int gtop, int gbot) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -59,36 +65,45 @@ __global__ void advect3_slab_kernel(
   const int cj = fsc::clampi(j, 1, n);
   const int c = (ki * side + ci) * side + cj;
   const int gk = plane0 + ki;
+  const float uc = fsc::load(u, c);
+  const float vc = fsc::load(v, c);
+  const float wc = fsc::load(w, c);
   const fsc::Departure3 d =
-      kExact ? fsc::departure3(fsc::exact_coord(cj, u[c], n, dt0),
-                               fsc::exact_coord(ci, v[c], n, dt0),
-                               fsc::exact_coord(gk, w[c], n, dt0), side,
+      kExact ? fsc::departure3(fsc::exact_coord(cj, uc, n, dt0),
+                               fsc::exact_coord(ci, vc, n, dt0),
+                               fsc::exact_coord(gk, wc, n, dt0), side,
                                plane0 - halo)
-             : fsc::departure3(fsc::window_coord(cj, u[c], n, dt0, cmax),
-                               fsc::window_coord(ci, v[c], n, dt0, cmax),
-                               fsc::window_coord(gk, w[c], n, dt0, cmax),
+             : fsc::departure3(fsc::window_coord(cj, uc, n, dt0, cmax),
+                               fsc::window_coord(ci, vc, n, dt0, cmax),
+                               fsc::window_coord(gk, wc, n, dt0, cmax),
                                side, plane0 - halo);
   const int o = (k * side + i) * side + j;
-  o1[o] = fsc::slab_border_value3(fsc::trilinear(d, d1, side), k, i, j, side,
-                                  gtop, gbot, b1);
+  fsc::store(o1, o,
+             fsc::slab_border_value3(fsc::trilinear(d, d1, side), k, i, j,
+                                     side, gtop, gbot, b1));
   if (d2 != nullptr)
-    o2[o] = fsc::slab_border_value3(fsc::trilinear(d, d2, side), k, i, j,
-                                    side, gtop, gbot, b2);
+    fsc::store(o2, o,
+               fsc::slab_border_value3(fsc::trilinear(d, d2, side), k, i, j,
+                                       side, gtop, gbot, b2));
   if (d3 != nullptr)
-    o3[o] = fsc::slab_border_value3(fsc::trilinear(d, d3, side), k, i, j,
-                                    side, gtop, gbot, b3);
+    fsc::store(o3, o,
+               fsc::slab_border_value3(fsc::trilinear(d, d3, side), k, i, j,
+                                       side, gtop, gbot, b3));
 }
 
-template <bool kExact>
-int launch(const float* d1, const float* d2, const float* d3, const float* u,
-           const float* v, const float* w, float* o1, float* o2, float* o3,
-           int mz, int side, int halo, int b1, int b2, int b3, float dt0,
-           int plane0, int cmax, int gtop, int gbot, void* stream) {
-  const auto kernel = advect3_slab_kernel<kExact>;
+template <bool kExact, typename T>
+int launch(const void* d1, const void* d2, const void* d3, const void* u,
+           const void* v, const void* w, void* o1, void* o2, void* o3, int mz,
+           int side, int halo, int b1, int b2, int b3, float dt0, int plane0,
+           int cmax, int gtop, int gbot, void* stream) {
+  const auto kernel = advect3_slab_kernel<kExact, T>;
   kernel<<<fsc::slab_grid_dim3(side, mz), fsc::block_dim(), 0,
            static_cast<cudaStream_t>(stream)>>>(
-      d1, d2, d3, u, v, w, o1, o2, o3, side, halo, b1, b2, b3, dt0, plane0,
-      cmax, gtop, gbot);
+      static_cast<const T*>(d1), static_cast<const T*>(d2),
+      static_cast<const T*>(d3), static_cast<const T*>(u),
+      static_cast<const T*>(v), static_cast<const T*>(w), static_cast<T*>(o1),
+      static_cast<T*>(o2), static_cast<T*>(o3), side, halo, b1, b2, b3, dt0,
+      plane0, cmax, gtop, gbot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -106,8 +121,9 @@ extern "C" int fsc_advect3_slab(const float* d1, const float* d2,
                                 int halo, int b1, int b2, int b3, float dt0,
                                 int plane0, int cmax, int gtop, int gbot,
                                 void* stream) {
-  return launch<false>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side, halo, b1,
-                       b2, b3, dt0, plane0, cmax, gtop, gbot, stream);
+  return launch<false, float>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side, halo,
+                              b1, b2, b3, dt0, plane0, cmax, gtop, gbot,
+                              stream);
 }
 
 // d1..d3: the assembled (side, side, side) fields, slab plane k at plane
@@ -119,6 +135,33 @@ extern "C" int fsc_advect3_slab_exact(const float* d1, const float* d2,
                                       int side, int b1, int b2, int b3,
                                       float dt0, int plane0, int gtop,
                                       int gbot, void* stream) {
-  return launch<true>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side, plane0, b1,
-                      b2, b3, dt0, plane0, 0, gtop, gbot, stream);
+  return launch<true, float>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side,
+                             plane0, b1, b2, b3, dt0, plane0, 0, gtop, gbot,
+                             stream);
+}
+
+// The bf16 forms: every field, velocity and output bf16; the arguments of
+// fsc_advect3_slab and fsc_advect3_slab_exact.
+extern "C" int fsc_advect3_slab_bf16(const void* d1, const void* d2,
+                                     const void* d3, const void* u,
+                                     const void* v, const void* w, void* o1,
+                                     void* o2, void* o3, int mz, int side,
+                                     int halo, int b1, int b2, int b3,
+                                     float dt0, int plane0, int cmax,
+                                     int gtop, int gbot, void* stream) {
+  return launch<false, fsc::bf16>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side,
+                                  halo, b1, b2, b3, dt0, plane0, cmax, gtop,
+                                  gbot, stream);
+}
+
+extern "C" int fsc_advect3_slab_exact_bf16(const void* d1, const void* d2,
+                                           const void* d3, const void* u,
+                                           const void* v, const void* w,
+                                           void* o1, void* o2, void* o3,
+                                           int mz, int side, int b1, int b2,
+                                           int b3, float dt0, int plane0,
+                                           int gtop, int gbot, void* stream) {
+  return launch<true, fsc::bf16>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side,
+                                 plane0, b1, b2, b3, dt0, plane0, 0, gtop,
+                                 gbot, stream);
 }

@@ -272,10 +272,10 @@ __device__ __forceinline__ float slab_border_value(float v, int r, int j,
 // Row r of a (rows, side) slab field whose row above row 0 is the halo row
 // top and whose row below row rows-1 is the halo row bot; with stride
 // side*side, plane r of a z-slab and its halo planes.
-__device__ __forceinline__ const float* slab_row(const float* f,
-                                                 const float* top,
-                                                 const float* bot, int r,
-                                                 int rows, int stride) {
+template <typename T>
+__device__ __forceinline__ const T* slab_row(const T* f, const T* top,
+                                             const T* bot, int r, int rows,
+                                             int stride) {
   return r < 0 ? top : (r >= rows ? bot : f + r * stride);
 }
 

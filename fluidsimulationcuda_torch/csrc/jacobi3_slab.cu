@@ -27,13 +27,25 @@
 //
 // Bound: device memory, as K5: 12 bytes a cell (16 with Chebyshev) over the
 // planes a sweep computes, the 2H halo planes computed again by each slab.
+//
+// The bf16 form (fsc_jacobi3_slab_bf16) is the per-sweep K5's bf16 rule
+// (jacobi3.cu) on a z-slab segment: the rhs is bf16, built and rounded by
+// the caller before any sweep reads it; the iterate stays float32 from the
+// solve's first sweep to its last, across the segments and the halo
+// exchanges between them, so only the solve's last sweep writes bf16.  The
+// first sweep of a solve reads the caller's bf16 guess, a Chebyshev
+// solve's second the bf16 guess as x_{k-1}, every other sweep float32
+// scratch: each a template instantiation over the types of x, x_{k-1} and
+// out, chosen at launch.
 #include "fsc_common.cuh"
 
 namespace {
 
-__global__ void jacobi3_slab_kernel(fsc::SweepParams p,
-                                    float* __restrict__ out,
-                                    float* __restrict__ rhs_out, int side,
+template <typename TX = float, typename TM = float, typename TR = float,
+          typename TO = float>
+__global__ void jacobi3_slab_kernel(fsc::SweepParamsT<TX, TM, TR> p,
+                                    TO* __restrict__ out,
+                                    TR* __restrict__ rhs_out, int side,
                                     int b, int lo, int gtop, int gbot) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
@@ -45,8 +57,49 @@ __global__ void jacobi3_slab_kernel(fsc::SweepParams p,
   const float val = fsc::sweep_at3(p, c, side, r);
   // The first sweep of a fast solve stores the rhs it built, once per cell
   // that is its own interior cell, for the sweeps after it.
-  if (rhs_out != nullptr && c == o) rhs_out[c] = r;
-  out[o] = fsc::slab_border_value3(val, k, i, j, side, gtop, gbot, b);
+  if (rhs_out != nullptr && c == o) fsc::store(rhs_out, c, r);
+  fsc::store(out, o,
+             fsc::slab_border_value3(val, k, i, j, side, gtop, gbot, b));
+}
+
+// One bf16-form sweep: x and src stored as TX, x_{k-1} as TM, out as TO;
+// rhs and rhs_out bf16.
+template <typename TX, typename TM, typename TO>
+int launch_bf16(const void* x, const void* rhs, const void* src,
+                const void* xm, void* out, void* rhs_out, int side, int b,
+                float alpha, float beta, float ab, float inv_b, float src_dt,
+                float w, int flags, int lo, int hi, int gtop, int gbot,
+                cudaStream_t stream) {
+  fsc::SweepParamsT<TX, TM, fsc::bf16> p;
+  p.x = static_cast<const TX*>(x);
+  p.rhs = static_cast<const fsc::bf16*>(rhs);
+  p.src = static_cast<const TX*>(src);
+  p.xm = static_cast<const TM*>(xm);
+  p.alpha = alpha;
+  p.beta = beta;
+  p.ab = ab;
+  p.inv_b = inv_b;
+  p.src_dt = src_dt;
+  p.w = w;
+  p.flags = flags;
+  const auto kernel = jacobi3_slab_kernel<TX, TM, fsc::bf16, TO>;
+  kernel<<<fsc::slab_grid_dim3(side, hi - lo), fsc::block_dim(), 0,
+           stream>>>(p, static_cast<TO*>(out),
+                     static_cast<fsc::bf16*>(rhs_out), side, b, lo, gtop,
+                     gbot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX, typename TM>
+int launch_bf16_out(bool out_bf16, const void* x, const void* rhs,
+                    const void* src, const void* xm, void* out, void* rhs_out,
+                    int side, int b, float alpha, float beta, float ab,
+                    float inv_b, float src_dt, float w, int flags, int lo,
+                    int hi, int gtop, int gbot, cudaStream_t stream) {
+  const auto launch = out_bf16 ? launch_bf16<TX, TM, fsc::bf16>
+                               : launch_bf16<TX, TM, float>;
+  return launch(x, rhs, src, xm, out, rhs_out, side, b, alpha, beta, ab,
+                inv_b, src_dt, w, flags, lo, hi, gtop, gbot, stream);
 }
 
 }  // namespace
@@ -64,8 +117,31 @@ extern "C" int fsc_jacobi3_slab(const float* x, const float* rhs,
   if (hi <= lo) return 0;
   const fsc::SweepParams p = fsc::make_sweep_params(
       x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt, w, flags);
-  jacobi3_slab_kernel<<<fsc::slab_grid_dim3(side, hi - lo), fsc::block_dim(),
-                        0, static_cast<cudaStream_t>(stream)>>>(
-      p, out, rhs_out, side, b, lo, gtop, gbot);
+  const auto kernel = jacobi3_slab_kernel<>;
+  kernel<<<fsc::slab_grid_dim3(side, hi - lo), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(p, out, rhs_out, side, b, lo,
+                                                gtop, gbot);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form: rhs (and rhs_out) hold bf16; types says which of x (1),
+// xm (2) and out (4) hold bf16, the others float32 (fsc_jacobi3_sweep_bf16's
+// types).  src is stored as x.  The other arguments are fsc_jacobi3_slab's.
+extern "C" int fsc_jacobi3_slab_bf16(const void* x, const void* rhs,
+                                     const void* src, const void* xm,
+                                     void* out, void* rhs_out, int side,
+                                     int b, float alpha, float beta, float ab,
+                                     float inv_b, float src_dt, float w,
+                                     int flags, int lo, int hi, int gtop,
+                                     int gbot, int types, void* stream) {
+  if (hi <= lo) return 0;
+  const bool out_bf16 = (types & 4) != 0;
+  const auto launch =
+      (types & 1) ? ((types & 2) ? launch_bf16_out<fsc::bf16, fsc::bf16>
+                                 : launch_bf16_out<fsc::bf16, float>)
+                  : ((types & 2) ? launch_bf16_out<float, fsc::bf16>
+                                 : launch_bf16_out<float, float>);
+  return launch(out_bf16, x, rhs, src, xm, out, rhs_out, side, b, alpha, beta,
+                ab, inv_b, src_dt, w, flags, lo, hi, gtop, gbot,
+                static_cast<cudaStream_t>(stream));
 }

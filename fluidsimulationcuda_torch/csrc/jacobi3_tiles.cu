@@ -71,8 +71,8 @@
 // not computed).  A volume is the buffer of `side` planes with walls at 0
 // and side - 1 and no shrinking.
 //
-// On a volume it also has a bf16 storage form (fsc_jacobi3_sweeps_bf16,
-// JAX's bf16 mode; the slab walk's bf16 form is still to come): the rhs is
+// It also has a bf16 storage form, on a volume (fsc_jacobi3_sweeps_bf16,
+// JAX's bf16 mode) and on a z-slab (fsc_jacobi3_slab_sweeps_bf16): the rhs is
 // read as bf16, and the rhs a first launch builds is rounded to bf16
 // before any sweep reads it; the iterate stays float32 in shared memory
 // within a launch and in the float32 scratch between launches (x_{k-1}
@@ -80,7 +80,11 @@
 // as x_{k-1} by a second after a 1-sweep first) and the launch that ends
 // the solve writes bf16.  So a solve rounds once, at its end, whatever its
 // launches, as the per-sweep K5's bf16 form does: each a template
-// instantiation over the types of x, x_{k-1}, rhs and out.
+// instantiation over the types of x, x_{k-1}, rhs and out.  On a z-slab
+// the solve runs in segments between halo exchanges: a segment after the
+// first reads the float32 iterate (and x_{k-1}) the one before it wrote,
+// and only the segment that ends the solve writes bf16, so the slab walk
+// computes what the per-sweep K13's bf16 form computes, bit for bit.
 #include <atomic>
 
 #include "fsc_common.cuh"
@@ -612,4 +616,27 @@ extern "C" int fsc_jacobi3_slab_sweeps(
   return launch_walk<float, float, float, float>(
       x, rhs, src, xm, out, xm_out, rhs_out, b, alpha, beta, ab, inv_b,
       src_dt, omegas, flags, first, &g, stream);
+}
+
+// The bf16 form on a z-slab buffer: fsc_jacobi3_slab_sweeps' geometry with
+// fsc_jacobi3_sweeps_bf16's operand types (rhs and rhs_out bf16; types
+// says which of x, xm and out hold bf16; types 3 is refused).  Returns a
+// cudaError_t as fsc_jacobi3_slab_sweeps does.
+extern "C" int fsc_jacobi3_slab_sweeps_bf16(
+    const void* x, const void* rhs, const void* src, const void* xm,
+    void* out, float* xm_out, void* rhs_out, int side, int b, float alpha,
+    float beta, float ab, float inv_b, float src_dt, const float* omegas,
+    int flags, int first, int count, int planes, int done, int gtop,
+    int gbot, int types, void* stream) {
+  if ((types & 3) == 3) return static_cast<int>(cudaErrorInvalidValue);
+  Walk g;
+  const int err =
+      plan_walk(planes, side, count, done, true, gtop, gbot, &g);
+  if (err != 0) return err;
+  const auto launch = (types & 1) ? launch_walk_bf16<fsc::bf16, float>
+                      : (types & 2) ? launch_walk_bf16<float, fsc::bf16>
+                                    : launch_walk_bf16<float, float>;
+  return launch((types & 4) != 0, x, rhs, src, xm, out, xm_out, rhs_out, b,
+                alpha, beta, ab, inv_b, src_dt, omegas, flags, first, &g,
+                stream);
 }

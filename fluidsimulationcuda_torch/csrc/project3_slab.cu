@@ -17,14 +17,21 @@
 //
 // Bound: device memory, as K7 and K8: 16 bytes a cell for the divergence,
 // 28 for the gradient.
+//
+// Their bf16 forms are the projection of the bf16 z-slab step, which keeps
+// a float32 divergence and pressure (K7's and K8's bf16 rule, project3.cu):
+// fsc_divergence3_slab_bf16 reads bf16 u, v, w and bf16 w halo planes and
+// writes float32; fsc_gradient3_slab_bf16 reads bf16 u, v, w, a float32 p
+// and float32 p halo planes and writes bf16, rounded once at the store.
 #include "fsc_common.cuh"
 
 namespace {
 
+template <typename TI>
 __global__ void divergence3_slab_kernel(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ w, const float* __restrict__ wtop,
-    const float* __restrict__ wbot, float* __restrict__ out, int planes,
+    const TI* __restrict__ u, const TI* __restrict__ v,
+    const TI* __restrict__ w, const TI* __restrict__ wtop,
+    const TI* __restrict__ wbot, float* __restrict__ out, int planes,
     int side, int gtop, int gbot, float coef) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
@@ -35,20 +42,25 @@ __global__ void divergence3_slab_kernel(
   const int ki = fsc::slab_row_of(k, gtop, gbot);
   const int cp = fsc::clampi(i, 1, n) * side + fsc::clampi(j, 1, n);
   const int c = ki * plane + cp;
-  const float w_up = fsc::slab_row(w, wtop, wbot, ki - 1, planes, plane)[cp];
-  const float w_dn = fsc::slab_row(w, wtop, wbot, ki + 1, planes, plane)[cp];
-  const float d = coef * (((u[c + 1] - u[c - 1]) + (v[c + side] - v[c - side])) +
-                          (w_dn - w_up));
+  const float w_up =
+      fsc::load(fsc::slab_row(w, wtop, wbot, ki - 1, planes, plane), cp);
+  const float w_dn =
+      fsc::load(fsc::slab_row(w, wtop, wbot, ki + 1, planes, plane), cp);
+  const float d =
+      coef * (((fsc::load(u, c + 1) - fsc::load(u, c - 1)) +
+               (fsc::load(v, c + side) - fsc::load(v, c - side))) +
+              (w_dn - w_up));
   out[(k * side + i) * side + j] =
       fsc::slab_border_value3(d, k, i, j, side, gtop, gbot, 0);
 }
 
+template <typename TU>
 __global__ void gradient3_slab_kernel(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ w, const float* __restrict__ p,
+    const TU* __restrict__ u, const TU* __restrict__ v,
+    const TU* __restrict__ w, const float* __restrict__ p,
     const float* __restrict__ ptop, const float* __restrict__ pbot,
-    float* __restrict__ uo, float* __restrict__ vo, float* __restrict__ wo,
-    int planes, int side, int gtop, int gbot, float h) {
+    TU* __restrict__ uo, TU* __restrict__ vo, TU* __restrict__ wo, int planes,
+    int side, int gtop, int gbot, float h) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int k = blockIdx.z;
@@ -60,13 +72,43 @@ __global__ void gradient3_slab_kernel(
   const int c = ki * plane + cp;
   const float p_up = fsc::slab_row(p, ptop, pbot, ki - 1, planes, plane)[cp];
   const float p_dn = fsc::slab_row(p, ptop, pbot, ki + 1, planes, plane)[cp];
-  const float un = u[c] - (0.5f * (p[c + 1] - p[c - 1])) / h;
-  const float vn = v[c] - (0.5f * (p[c + side] - p[c - side])) / h;
-  const float wn = w[c] - (0.5f * (p_dn - p_up)) / h;
+  const float un = fsc::load(u, c) - (0.5f * (p[c + 1] - p[c - 1])) / h;
+  const float vn =
+      fsc::load(v, c) - (0.5f * (p[c + side] - p[c - side])) / h;
+  const float wn = fsc::load(w, c) - (0.5f * (p_dn - p_up)) / h;
   const int o = (k * side + i) * side + j;
-  uo[o] = fsc::slab_border_value3(un, k, i, j, side, gtop, gbot, 1);
-  vo[o] = fsc::slab_border_value3(vn, k, i, j, side, gtop, gbot, 2);
-  wo[o] = fsc::slab_border_value3(wn, k, i, j, side, gtop, gbot, 3);
+  fsc::store(uo, o, fsc::slab_border_value3(un, k, i, j, side, gtop, gbot, 1));
+  fsc::store(vo, o, fsc::slab_border_value3(vn, k, i, j, side, gtop, gbot, 2));
+  fsc::store(wo, o, fsc::slab_border_value3(wn, k, i, j, side, gtop, gbot, 3));
+}
+
+template <typename TI>
+int launch_divergence(const void* u, const void* v, const void* w,
+                      const void* wtop, const void* wbot, float* out,
+                      int planes, int side, int gtop, int gbot, float coef,
+                      void* stream) {
+  const auto kernel = divergence3_slab_kernel<TI>;
+  kernel<<<fsc::slab_grid_dim3(side, planes), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TI*>(u), static_cast<const TI*>(v),
+      static_cast<const TI*>(w), static_cast<const TI*>(wtop),
+      static_cast<const TI*>(wbot), out, planes, side, gtop, gbot, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TU>
+int launch_gradient(const void* u, const void* v, const void* w,
+                    const float* p, const float* ptop, const float* pbot,
+                    void* uo, void* vo, void* wo, int planes, int side,
+                    int gtop, int gbot, float h, void* stream) {
+  const auto kernel = gradient3_slab_kernel<TU>;
+  kernel<<<fsc::slab_grid_dim3(side, planes), fsc::block_dim(), 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TU*>(u), static_cast<const TU*>(v),
+      static_cast<const TU*>(w), p, ptop, pbot, static_cast<TU*>(uo),
+      static_cast<TU*>(vo), static_cast<TU*>(wo), planes, side, gtop, gbot,
+      h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -79,11 +121,18 @@ extern "C" int fsc_divergence3_slab(const float* u, const float* v,
                                     const float* wbot, float* out, int planes,
                                     int side, int gtop, int gbot, float coef,
                                     void* stream) {
-  divergence3_slab_kernel<<<fsc::slab_grid_dim3(side, planes),
-                            fsc::block_dim(), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, wtop, wbot, out, planes, side, gtop, gbot, coef);
-  return static_cast<int>(cudaGetLastError());
+  return launch_divergence<float>(u, v, w, wtop, wbot, out, planes, side,
+                                  gtop, gbot, coef, stream);
+}
+
+// The bf16 form: bf16 u, v, w and w halo planes; a float32 divergence.
+extern "C" int fsc_divergence3_slab_bf16(const void* u, const void* v,
+                                         const void* w, const void* wtop,
+                                         const void* wbot, float* out,
+                                         int planes, int side, int gtop,
+                                         int gbot, float coef, void* stream) {
+  return launch_divergence<fsc::bf16>(u, v, w, wtop, wbot, out, planes, side,
+                                      gtop, gbot, coef, stream);
 }
 
 // u, v, w, p, uo, vo, wo: (planes, side, side); ptop/pbot: the planes above
@@ -95,8 +144,17 @@ extern "C" int fsc_gradient3_slab(const float* u, const float* v,
                                   float* uo, float* vo, float* wo, int planes,
                                   int side, int gtop, int gbot, float h,
                                   void* stream) {
-  gradient3_slab_kernel<<<fsc::slab_grid_dim3(side, planes), fsc::block_dim(),
-                          0, static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, p, ptop, pbot, uo, vo, wo, planes, side, gtop, gbot, h);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gradient<float>(u, v, w, p, ptop, pbot, uo, vo, wo, planes,
+                                side, gtop, gbot, h, stream);
+}
+
+// The bf16 form: bf16 u, v, w and outputs; a float32 p and p halo planes.
+extern "C" int fsc_gradient3_slab_bf16(const void* u, const void* v,
+                                       const void* w, const float* p,
+                                       const float* ptop, const float* pbot,
+                                       void* uo, void* vo, void* wo,
+                                       int planes, int side, int gtop,
+                                       int gbot, float h, void* stream) {
+  return launch_gradient<fsc::bf16>(u, v, w, p, ptop, pbot, uo, vo, wo,
+                                    planes, side, gtop, gbot, h, stream);
 }

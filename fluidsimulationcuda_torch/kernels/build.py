@@ -113,12 +113,16 @@ _SIGNATURES = {
     "fsc_gradient3_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _P],
 }
-# The bf16 forms of the block kernels and of K6-K8 take their float32
-# forms' arguments.
+# The bf16 forms of the block kernels, of K6-K8 and of K14-K16 take their
+# float32 forms' arguments; K13's, those and the operand types.
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "fsc_jacobi_block_sweeps", "fsc_advect_block", "fsc_advect_block_exact",
     "fsc_divergence_block", "fsc_gradient_block", "fsc_advect3",
-    "fsc_divergence3", "fsc_gradient3")})
+    "fsc_divergence3", "fsc_gradient3", "fsc_advect3_slab",
+    "fsc_advect3_slab_exact", "fsc_divergence3_slab", "fsc_gradient3_slab")})
+_SIGNATURES.update({f"{name}_bf16": [*_SIGNATURES[name][:-1], _I, _P]
+                    for name in ("fsc_jacobi3_slab",
+                                 "fsc_jacobi3_slab_sweeps")})
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -60,7 +60,8 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "BF16_FORM_VELOCITIES", "BF16_FORM_FIELDS", "BF16_FORMS",
            "kernel_checks_bf16_forms",
            "per_sweep_checks", "kernel_checks_block", "timing_checks_block",
-           "kernel_checks3_bf16", "timing_checks3_bf16"]
+           "kernel_checks3_bf16", "timing_checks3_bf16",
+           "kernel_checks_slab3_bf16", "timing_checks_slab3_bf16"]
 
 # Kernel against plain version on the same inputs.  Both evaluate the same
 # float32 expressions in the same order (the kernels build with
@@ -1145,12 +1146,14 @@ def _jac3(kw: dict, planes: int | None = None) -> tuple[str, ...]:
 def per_sweep_checks(check_list: list[Check]) -> list[Check]:
     """Each check of ``check_list`` whose call takes the tiled 3-D Jacobi
     on the path (a Chebyshev solve or z-slab segment in fast mode,
-    ``_jac3``) held against the same call on the per-sweep K5 and K13:
+    ``_jac3``; float32 or bf16) held against the same call on the
+    per-sweep K5 and K13 (their bf16 forms for a bf16 call):
     equal bit for bit, the tiled kernel computing what the per-sweep
     launches of its sweeps compute."""
     return [dataclasses.replace(c, label=f"{c.label} tiled vs per-sweep",
                                 plain=functools.partial(_per_sweep, c.run))
-            for c in check_list if c.kernels in (JAC3, JAC3_SLAB, JAC3_16)]
+            for c in check_list
+            if c.kernels in (JAC3, JAC3_SLAB, JAC3_16, JAC3_SLAB_16)]
 
 
 def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
@@ -2279,14 +2282,17 @@ class _Slab3Inputs(_Inputs):
 
 
 def _slab3_sweeps_cost(iters: int, planes: int, side: int, *,
-                       zero_init=False, **kw) -> tuple[int, int]:
+                       zero_init=False, bf16=False, **kw) -> tuple[int, int]:
     """Cost of one z-slab solve segment on a buffer of ``planes`` planes,
     in field-cells (use with ``cells=1``), as ``_slab_sweeps_cost``: sweep
-    k computes planes [k, planes-k)."""
+    k computes planes [k, planes-k); in bf16 storage (a guess, rhs and
+    result in bf16) a field-cell counts half."""
     plane = side * side
     ops = sum(o * (planes - 2 * k) * plane for k, o in
               enumerate(_sweep_ops(iters, 3, **kw), start=1))
-    return ((1 - zero_init + 1) * planes + planes - 2 * iters) * plane, ops
+    store = 0.5 if bf16 else 1
+    return (store * ((1 - zero_init + 1) * planes + planes - 2 * iters)
+            * plane, ops)
 
 
 def kernel_checks_slab3(side: int, mz: int, device,
@@ -2532,6 +2538,255 @@ def timing_checks_slab3(side: int, mz: int, device,
                   ext(t.p, i, Kp + 1), None, ext(t.p, i, Kp + 1), fl, mz=mz,
                   H=Kp + 1, alpha=1.0, beta=6.0, cheby_rho=rho, start=0,
                   sweeps=Kp, zero_init=True, fast=True),
+    ]
+
+
+# The bf16 forms of K13-K16 (cuda_sharded_3d: each counts under its own
+# name).
+JAC3_SLAB_16 = ("jacobi3_slab_sweeps_bf16",)
+JAC3_SLAB_SWEEP_16 = ("jacobi3_slab_bf16",)
+ADV3_SLAB_16 = ("advect3_slab_bf16",)
+ADV3_SLAB_EXACT_16 = ("advect3_slab_exact_bf16",)
+
+
+def _jac3_slab_16(kw: dict, planes: int) -> tuple[str, ...]:
+    """The bf16 form a z-slab segment of keyword arguments ``kw`` on a
+    buffer of ``planes`` planes takes on the path (``cuda_ops.tiled3``)."""
+    tiled = co.tiled3(kw.get("cheby_rho") is not None, kw.get("fast", False),
+                      planes)
+    return JAC3_SLAB_16 if tiled else JAC3_SLAB_SWEEP_16
+
+
+class _Bf16Slab3Inputs(_Slab3Inputs):
+    """``_Slab3Inputs``' fields and velocities rounded to bf16 (``x``,
+    ``x0``, ``src``, ``u``, ``v``, ``w``, ``uf``, ``vf``, ``wf``), the
+    float32 fields widened back from them (``f32``), a float32 pressure
+    ``p`` (K16's bf16 form reads float32; also a chained segment's float32
+    iterate), and the rhs of a velocity diffusion as the bf16 step builds
+    it (``rhs``; ``rhs_fast`` prescaled by 1/beta, ``solve_rhs3``)."""
+
+    def __init__(self, side: int, mz: int, device, seed: int):
+        super().__init__(side, mz, device, seed)
+        names = ("x", "x0", "src", "u", "v", "w", "uf", "vf", "wf")
+        for name in names:
+            setattr(self, name, getattr(self, name).to(torch.bfloat16))
+        self.f32 = {name: getattr(self, name).float() for name in names}
+        beta = 1 + 6 * self.a_visc
+        self.rhs, self.rhs_fast = (cs3.solve_rhs3(self.x0, self.src, DT, beta,
+                                                  fast) for fast in (False,
+                                                                     True))
+
+
+def kernel_checks_slab3_bf16(side: int, mz: int, device,
+                             seed: int = 0) -> list[Check]:
+    """Every bf16 form of K13-K16 against its plain twin, for a top, an
+    interior and a bottom slab of ``mz`` planes at volume ``side``, with
+    the step's margins: K13's Jacobi segment from the caller's bf16 guess
+    ending the solve (bf16 out) or handing its float32 iterate on, from a
+    float32 iterate (a chained segment), from zero, one sweep, fast on a
+    prescaled rhs; its Chebyshev segments: a first one from the bf16 guess
+    (both iterates handed on in float32, also after one sweep, whose
+    x_{k-1} is the guess), a chained one ending the chain, in fast mode
+    too (the tiled K13's bf16 form on buffers of at least 5*T3 planes) and
+    handing on; K14's bf16 form under and over the 4-cell window and its
+    exact form at the reaches of ``EXACT_REACH``; K15 into float32; K16
+    from a float32 pressure.  Expected bit for bit: kernel and twin do the
+    same float32 arithmetic and round where the kernel stores."""
+    t = _Bf16Slab3Inputs(side, mz, device, seed)
+    n, av = t.n, t.a_visc
+    bv = 1 + 6 * av
+    rho, k_d, _ = PERF_POINT_3D
+    cmax, out = SLAB3_CMAX, []
+    for pos, i in t.positions().items():
+        fl, ext, slab = t.flags(i), t.ext, t.slab
+        K = min(20, mz - 1)
+        H = K + 1
+        planes = mz + 2 * H
+        jac = {
+            "bf16 guess, ends the solve": (t.src, t.rhs, K, dict()),
+            "bf16 guess, hands on float32": (t.src, t.rhs, K,
+                                             dict(ends_solve=False)),
+            "float32 iterate, ends the solve": (t.p, t.rhs, K, dict()),
+            "zero_init": (t.rhs, t.rhs, K, dict(zero_init=True)),
+            "1 sweep": (t.src, t.rhs, 1, dict()),
+            "fast, prescaled": (t.src, t.rhs_fast, K, dict(fast=True)),
+        }
+        for what, (x, rhs, sweeps, kw) in jac.items():
+            out.append(_check(
+                f"bf16 fused_jacobi3_slab {pos} {what} {sweeps}it",
+                _jac3_slab_16(kw, planes), cs3.fused_jacobi3_slab,
+                cs3.fused_jacobi3_slab_plain, 1, ext(x, i, H), ext(rhs, i, H),
+                fl, mz=mz, H=H, alpha=av, beta=bv, sweeps=sweeps, **kw))
+        Kd = min(20, k_d, mz - 1)
+        H = Kd + 1
+        planes = mz + 2 * H
+        s = max(1, Kd // 2)
+        xm = ext(t.p, i, H)
+        fast = dict(fast=True)
+        for what, x, carried, start, sweeps, rhs, kw in (
+                ("first segment", t.src, None, 0, s, t.rhs,
+                 dict(carry_out=True)),
+                ("first segment, 1 sweep", t.src, None, 0, 1, t.rhs,
+                 dict(carry_out=True)),
+                ("chained segment, ends the chain", t.p, xm, s, Kd - s,
+                 t.rhs, dict()),
+                ("first segment fast", t.src, None, 0, Kd, t.rhs_fast,
+                 dict(carry_out=True, **fast)),
+                ("chained segment fast, ends the chain", t.p, xm, s, Kd - s,
+                 t.rhs_fast, fast),
+                ("chained segment fast, hands on", t.p, xm, s, Kd - s,
+                 t.rhs_fast, dict(carry_out=True, **fast))):
+            out.append(_check(
+                f"bf16 fused_cheby3_slab {pos} {what} {start}+{sweeps}it",
+                _jac3_slab_16(dict(cheby_rho=rho, **kw), planes),
+                cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 3,
+                ext(x, i, H), carried, ext(rhs, i, H), fl, mz=mz, H=H,
+                alpha=av, beta=bv, cheby_rho=rho, start=start, sweeps=sweeps,
+                carry_in=carried is not None, **kw))
+        C = cmax + 1
+        for window, (u, v, w) in (("under", (t.u, t.v, t.w)),
+                                  ("over", (t.uf, t.vf, t.wf))):
+            uvw = tuple(slab(f, i) for f in (u, v, w))
+            for what, bs, fields in (("b=0", (0,), (t.x,)),
+                                     ("u/v/w triple", (1, 2, 3),
+                                      (u, v, w))):
+                out.append(_check(
+                    f"bf16 advect3_flat_slab {pos} {what}, {window} the "
+                    f"window", ADV3_SLAB_16, cs3.advect3_flat_slab,
+                    cs3.advect3_flat_slab_plain, bs,
+                    tuple(ext(f, i, C) for f in fields), *uvw, fl, dt=DT, n=n,
+                    cmax=cmax, mz=mz))
+        for reach, scale in EXACT_REACH.items():
+            vel = tuple((scale * f.float()).to(torch.bfloat16)
+                        for f in (t.u, t.v, t.w))
+            uvw = tuple(slab(f, i).contiguous() for f in vel)
+            for what, bs, fields in (("b=0", (0,), (t.x,)),
+                                     ("u/v/w triple", (1, 2, 3), vel)):
+                out.append(_check(
+                    f"bf16 advect3_flat_slab_exact {pos} {what}, up to "
+                    f"{reach}", ADV3_SLAB_EXACT_16,
+                    cs3.advect3_flat_slab_exact,
+                    cs3.advect3_flat_slab_exact_plain, bs, fields, *uvw, fl,
+                    dt=DT, n=n, mz=mz))
+        uvw = tuple(slab(f, i) for f in (t.u, t.v, t.w))
+        out.append(_check(f"bf16 divergence3_slab {pos} (into float32)",
+                          ("divergence3_slab_bf16",), cs3.divergence3_slab,
+                          cs3.divergence3_slab_plain, *uvw, *t.halo(t.w, i),
+                          fl, n))
+        out.append(_check(f"bf16 gradient3_slab {pos} (float32 p)",
+                          ("gradient3_slab_bf16",), cs3.gradient3_slab,
+                          cs3.gradient3_slab_plain, *uvw, slab(t.p, i),
+                          *t.halo(t.p, i), fl, n))
+    return out
+
+
+def timing_checks_slab3_bf16(side: int, mz: int, device,
+                             seed: int = 0) -> list[Check]:
+    """What ``chip_smoke.py`` times of the bf16 forms of K13-K16 on an
+    interior slab of ``mz`` planes at volume ``side``, each beside its
+    float32 form on the same values (``counterpart``) and its plain twin,
+    its bound counting a bf16 field-cell half: one launch of each form
+    (labelled by its count's name: the tiled K13's first T3 sweeps of a
+    fast Chebyshev segment and the per-sweep K13's one Jacobi sweep over
+    the extended buffer, K15 into float32, K16 from a float32 pressure,
+    K14's (u, v, w) triple windowed and exact, beside ``grid_sample`` on
+    bf16), then the segments at the main path's counts."""
+    t = _Bf16Slab3Inputs(side, mz, device, seed)
+    f = t.f32
+    n, av = t.n, t.a_visc
+    bv = 1 + 6 * av
+    rho, k_d, _ = PERF_POINT_3D
+    i = t.slabs // 2
+    fl, ext, slab, cmax = t.flags(i), t.ext, t.slab, SLAB3_CMAX
+    cells = mz * side * side
+    K20 = min(20, mz - 1)
+    Kd = min(k_d, mz - 1)
+    H20, C = K20 + 1, cmax + 1
+    per_launch = co.SWEEPS_PER_LAUNCH_3D
+    uvw = tuple(slab(x, i) for x in (t.u, t.v, t.w))
+    uvw32 = tuple(slab(f[k], i) for k in ("u", "v", "w"))
+    rhs32, fast32 = t.rhs.float(), t.rhs_fast.float()
+    fast = dict(fast=True)
+
+    def sweeps(k, H, **kw):
+        return _slab3_sweeps_cost(k, mz + 2 * H, side, bf16=True, **kw)
+
+    def form(make, cost, label, kernels, fn, plain, args16, args32, **kw):
+        check = make(cost, 1, label, kernels, fn, plain, *args16, **kw)
+        check.counterpart = functools.partial(fn, *args32, **kw)
+        check.counterpart_label = "float32 form on the same values"
+        return check
+
+    def k14(label, kernels, fn, plain, fields16, fields32, vel16, vel32,
+            exact):
+        bs = (1, 2, 3)
+        if exact:
+            args16 = (bs, fields16, *vel16, fl)
+            args32 = (bs, fields32, *vel32, fl)
+            kw = dict(dt=DT, n=n, mz=mz)
+        else:
+            args16 = (bs, tuple(ext(x, i, C) for x in fields16), *vel16, fl)
+            args32 = (bs, tuple(ext(x, i, C) for x in fields32), *vel32, fl)
+            kw = dict(dt=DT, n=n, cmax=cmax, mz=mz)
+        check = form(_timed, _scaled(ADVECT3_TRIPLE_BF16, cells), label,
+                     kernels, fn, plain, args16, args32, **kw)
+
+        def lib_gather():
+            ax = torch.arange(side, dtype=torch.float32, device=t.u.device)
+            zs = torch.arange(i * mz, (i + 1) * mz, dtype=torch.float32,
+                              device=t.u.device)[:, None, None]
+            x, y, z = departure3(*vel16, ax, ax[:, None], zs, DT, n,
+                                 None if exact else cmax)
+            src = list(args16[1])
+            return src, (x, y, z - (0 if exact else i * mz - C))
+
+        check.gather = lib_gather
+        return check
+
+    rand16 = (t.u, t.v, t.w)
+    rand32 = tuple(f[k] for k in ("u", "v", "w"))
+    return [
+        form(_k1_timed, sweeps(per_launch, H20, fast=True, cheby=True),
+             "jacobi3_slab_sweeps_bf16", JAC3_SLAB_16, cs3.fused_cheby3_slab,
+             cs3.fused_cheby3_slab_plain,
+             (1, ext(t.x, i, H20), None, ext(t.rhs_fast, i, H20), fl),
+             (1, ext(f["x"], i, H20), None, ext(fast32, i, H20), fl),
+             mz=mz, H=H20, alpha=av, beta=bv, cheby_rho=rho, start=0,
+             sweeps=per_launch, **fast),
+        form(_timed, sweeps(1, H20), "jacobi3_slab_bf16", JAC3_SLAB_SWEEP_16,
+             cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain,
+             (1, ext(t.x, i, H20), ext(t.rhs, i, H20), fl),
+             (1, ext(f["x"], i, H20), ext(rhs32, i, H20), fl), mz=mz,
+             H=H20, alpha=av, beta=bv, sweeps=1),
+        form(_timed, _scaled(DIV3_BF16, cells), "divergence3_slab_bf16",
+             ("divergence3_slab_bf16",), cs3.divergence3_slab,
+             cs3.divergence3_slab_plain, (*uvw, *t.halo(t.w, i), fl, n),
+             (*uvw32, *t.halo(f["w"], i), fl, n)),
+        form(_timed, _scaled(GRAD3_BF16, cells), "gradient3_slab_bf16",
+             ("gradient3_slab_bf16",), cs3.gradient3_slab,
+             cs3.gradient3_slab_plain,
+             (*uvw, slab(t.p, i), *t.halo(t.p, i), fl, n),
+             (*uvw32, slab(t.p, i), *t.halo(t.p, i), fl, n)),
+        k14("advect3_slab_bf16", ADV3_SLAB_16, cs3.advect3_flat_slab,
+            cs3.advect3_flat_slab_plain, rand16, rand32, uvw, uvw32, False),
+        k14("advect3_slab_exact_bf16", ADV3_SLAB_EXACT_16,
+            cs3.advect3_flat_slab_exact, cs3.advect3_flat_slab_exact_plain,
+            rand16, rand32, tuple(u.contiguous() for u in uvw),
+            tuple(u.contiguous() for u in uvw32), True),
+        form(_timed, sweeps(K20, H20),
+             f"fused_jacobi3_slab {K20}it bf16 (u diffusion)",
+             JAC3_SLAB_SWEEP_16, cs3.fused_jacobi3_slab,
+             cs3.fused_jacobi3_slab_plain,
+             (1, ext(t.src, i, H20), ext(t.rhs, i, H20), fl),
+             (1, ext(f["src"], i, H20), ext(rhs32, i, H20), fl), mz=mz,
+             H=H20, alpha=av, beta=bv, sweeps=K20),
+        form(_k1_timed, sweeps(Kd, Kd + 1, fast=True, cheby=True),
+             f"fused_cheby3_slab {Kd}it fast bf16 (u diffusion)",
+             JAC3_SLAB_16, cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain,
+             (1, ext(t.src, i, Kd + 1), None, ext(t.rhs_fast, i, Kd + 1), fl),
+             (1, ext(f["src"], i, Kd + 1), None, ext(fast32, i, Kd + 1), fl),
+             mz=mz, H=Kd + 1, alpha=av, beta=bv, cheby_rho=rho, start=0,
+             sweeps=Kd, **fast),
     ]
 
 

@@ -34,11 +34,11 @@ rounds the output to bf16.  K1-damp, the multigrid smoother, also takes
 a bf16 rhs (the finest level of a bf16 multigrid solve; JAX smooths that
 level in jnp): its bf16-rhs forms (``jacobi_sweeps_damp_bf16``) read the
 rhs as bf16 and a float32 guess, or a bf16 guess or none, and write the
-guess's dtype (``mg_smooth``).  The 3-D wrappers (``cuda_ops_3d.py``)
-and the block route's have bf16 forms of their own.  A bf16 tensor
-reaching any other wrapper (``fused_dens_advect``, ``fused_jacobi_pair``,
-the row-slab, z-slab and tail kernels) raises ``TypeError``: nothing
-widens it silently.
+guess's dtype (``mg_smooth``).  The 3-D wrappers (``cuda_ops_3d.py``),
+the z-slab wrappers (``cuda_sharded_3d.py``) and the block route's have
+bf16 forms of their own.  A bf16 tensor reaching any other wrapper
+(``fused_dens_advect``, ``fused_jacobi_pair``, the row-slab and tail
+kernels) raises ``TypeError``: nothing widens it silently.
 
 Four CUDA kernels (K1-K4) carry the five TPU kernel families of the 2-D
 step:
@@ -135,7 +135,9 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "advect_block_exact_bf16", "divergence_block_bf16",
            "gradient_block_bf16", "jacobi3_sweep_bf16", "jacobi3_sweeps_bf16",
            "advect3_bf16", "advect3_windowed_bf16", "divergence3_bf16",
-           "gradient3_bf16")
+           "gradient3_bf16", "jacobi3_slab_bf16", "jacobi3_slab_sweeps_bf16",
+           "advect3_slab_bf16", "advect3_slab_exact_bf16",
+           "divergence3_slab_bf16", "gradient3_slab_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -613,17 +615,23 @@ class _Sweeps:
     (the trap of ``pallas_ops.py:560-585``: a chain that restarts ω or
     drops x_{k-1} at a segment boundary looks plausible and is wrong).
 
-    A bf16 rhs (K1, and K5 on a volume) makes the solve JAX's bf16
-    storage form: it launches ``fsc_jacobi_sweeps_bf16``
+    A bf16 rhs (K1, K5 on a volume and K13 on a z-slab) makes the solve
+    JAX's bf16 storage form: it launches ``fsc_jacobi_sweeps_bf16``
     (``fsc_jacobi_sweep_bf16`` a sweep on the per-sweep K1; counted as
     ``jacobi_sweeps_bf16`` and ``jacobi_sweep_bf16``; K5's
-    ``jacobi3_sweeps_bf16`` and ``jacobi3_sweep_bf16``), the iterate
+    ``jacobi3_sweeps_bf16`` and ``jacobi3_sweep_bf16``, K13's
+    ``jacobi3_slab_sweeps_bf16`` and ``jacobi3_slab_bf16``), the iterate
     lives in float32 (shared memory
     within a launch, scratch between launches) from the first sweep to the
-    last, the guess and x_{k-1} are read as bf16 where they are the
-    caller's, the folded or prescaled rhs is rounded to bf16 before any
+    last, the guess and x_{k-1} are read as bf16 where they are bf16 (the
+    caller's), the folded or prescaled rhs is rounded to bf16 before any
     sweep reads it (``pallas_ops.py:416-428``, ``rdt``), and only the last
-    sweep (the ``iters``-th of this call) writes bf16.
+    sweep (the ``iters``-th of this call) writes bf16.  A z-slab segment
+    that does not end its solve (``final=False``) writes float32 there
+    too: the next segment reads it, so the solve still rounds once.
+    ``prescaled``: the rhs is already times 1/beta (a bf16 rhs in fast
+    mode, built and rounded once by the caller), so no sweep scales it
+    again.
 
     A tiled launch (``launch()``) leaves the state as the per-sweep
     launches of its sweeps leave it: x, x_{k-1} (written by the launch where
@@ -637,9 +645,10 @@ class _Sweeps:
 
     def __init__(self, b, x_init, rhs, alpha, beta, iters, *, zero_init,
                  src_dt, fast, cheby_rho, kernel="jacobi_sweep", start=0,
-                 xm=None, damp=None):
+                 xm=None, damp=None, final=True, prescaled=False):
         self.kernel = kernel
         self.bf16 = rhs.dtype == torch.bfloat16
+        self.final = final
         self.count = (f"{kernel}_damp" if damp is not None
                       else f"{kernel}_bf16" if self.bf16 else kernel)
         self.symbol = f"fsc_{self.count if self.bf16 else kernel}"
@@ -658,7 +667,7 @@ class _Sweeps:
         self.xm = xm  # None: zero (the chain's x_{-1} is never read)
         self.rhs = rhs
         self.src = x_init if (src_dt is not None and not zero_init) else None
-        self.prep = src_dt is not None or fast
+        self.prep = src_dt is not None or (fast and not prescaled)
         self.fast = fast
         self.omegas = (None if cheby_rho is None
                        else cheby_omegas(float(cheby_rho), start + iters))
@@ -710,7 +719,7 @@ class _Sweeps:
         """One launch; ``geometry`` goes between the sweep scalars and the
         stream (K1's batch and boundary split and ``omw``, the slab
         kernel's row range and wall rows)."""
-        last = self.bf16 and self.k + 1 == self.end
+        last = self.bf16 and self.final and self.k + 1 == self.end
         out = torch.empty_like(self.rhs) if last else self._scratch()
         rhs_out = torch.empty_like(self.rhs) if self.prep else None
         types = (self._types(out),) if self.bf16 else ()
@@ -850,7 +859,8 @@ class _Sweeps:
         split, a z-slab's planes, sweeps done and wall planes, a row slab's
         rows, sweeps done, wall rows and tile rows)."""
         cheby = self.omegas is not None
-        out = (torch.empty_like(self.rhs) if self.bf16 and step.ends_solve
+        out = (torch.empty_like(self.rhs)
+               if self.bf16 and self.final and step.ends_solve
                else self._scratch())
         xm_out = self._scratch(out) if step.stores_xm else None
         rhs_out = torch.empty_like(self.rhs) if step.stores_rhs else None
@@ -861,11 +871,10 @@ class _Sweeps:
         flags = ((_PREP if self.prep else 0) | (_FAST if self.fast else 0)
                  | (_CHEBY if cheby else 0))
         name = self.TILED[self.kernel] + ("_bf16" if self.bf16 else "")
-        # A bf16 solve's guess is bf16 (the wrappers take one dtype).
-        types = (((_X_BF16 if step.reads_guess else 0)
-                  | (_XM_BF16 if step.reads_guess_as_xm else 0)
-                  | (_OUT_BF16 if step.ends_solve else 0)),) if self.bf16 \
-            else ()
+        # The operands as they are stored: a bf16 guess read as x_k (or
+        # as x_{k-1} after a 1-sweep first launch); float32 scratch, or a
+        # z-slab segment's float32 iterate and x_{k-1} carried in.
+        types = (self._types(out),) if self.bf16 else ()
         _launch(name, getattr(lib, f"fsc_{name}"), _ptr(self.x),
                 self.rhs.data_ptr(), _ptr(self.src if self.prep else None),
                 _ptr(self.xm if cheby else None), out.data_ptr(),

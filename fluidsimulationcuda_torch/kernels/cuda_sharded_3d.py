@@ -10,12 +10,12 @@ received from the neighbouring slabs (zeros beyond a wall), slab plane
 is_bot, plane0)`` as host ints, as ``cuda_sharded`` does for row slabs.
 
 Wrappers keep the JAX names and arguments minus the TPU knobs and check
-dtype (float32), shape, contiguity, device and 32-bit indexing.  On CPU
-tensors they return their plain twin (the ``*_plain`` function, which the
-``reference`` backend of the z-slab step also runs, on any device); on CUDA
-tensors they launch the hand-written kernels of ``csrc/`` or raise.
-Nothing falls back.  Launches count in ``cuda_ops.launch_counts()``.
-Unlike the TPU functions, every output carries its full ghost layer.
+dtype (float32, or bf16 storage), shape, contiguity, device and 32-bit
+indexing.  On CPU tensors they return their plain twin (the ``*_plain``
+function); on CUDA tensors they launch the hand-written kernels of
+``csrc/`` or raise.  Nothing falls back.  Launches count in
+``cuda_ops.launch_counts()``.  Unlike the TPU functions, every output
+carries its full ghost layer.
 
 Four CUDA kernels carry the three TPU kernels, the step's two stencils and
 its exact gather (a second form of K14):
@@ -41,6 +41,30 @@ Each result equals the global operation restricted to the slab while the
 halos are deep enough: ``H >= sweeps + 1`` for a solve segment (JAX's
 margin) and ``cmax + 1`` planes for a windowed gather (the exact one reads
 the assembled fields); the wrappers check these.
+
+Each kernel also has a bf16 storage form (JAX's bf16 z-slab step, which
+runs its jnp ``_step3_local``), counted apart (``*_bf16``), with the rules
+of the single-device bf16 forms (``cuda_ops_3d``): a solve's rhs is bf16,
+built in float32 and rounded once by the caller (``solve_rhs3``; in fast
+mode already times 1/beta, so no sweep scales it); its iterate, and x_{k-1}
+for Chebyshev, stay float32 from the solve's first sweep to its last,
+across the segments and the halo exchanges between them, so a segment that
+does not end the solve (``ends_solve=False``, or ``carry_out``) returns
+float32 and only the last rounds to bf16; K15 writes a float32 divergence
+from bf16 velocities, the pressure solve is the float32 K13, and K16 reads
+bf16 velocities and a float32 pressure and writes bf16; K14 gathers bf16
+fields by bf16 velocities in float32 and rounds at the store.  Each plain
+twin (``*_plain``) widens its bf16 operands, runs the float32 plain version
+(fast sweeps with an ``fmaf``, as the kernels) and rounds where its kernel
+stores, so it equals the kernel bit for bit.
+
+The ``reference`` backend of the z-slab step runs the ``*_ref`` forms:
+JAX's jnp slab operations (``_diffuse3_local``, ``_cheby_diffuse3_local``,
+``_apply_bnd3_coords``, ``_divergence3_local``, ``_gradient3_local``),
+every operation rounded to the fields' dtype as JAX rounds it, so in bf16
+a solve rounds every sweep.  In float32 they are the plain twins.  Its
+gathers are the twins (float32, rounded once in bf16): JAX's own bf16
+gather cannot resolve a fraction of a cell at these sides.
 """
 from __future__ import annotations
 
@@ -48,19 +72,24 @@ import torch
 
 from ..ops.chebyshev import cheby_omegas
 from ..ops.diffuse import as_scalar
-from ..ops.project import grid_h
-from ..ops.three_d import _THIRD, _neigh3, departure3, trilinear
+from ..ops.project import _h, grid_h
+from ..ops.three_d import _neigh3, departure3, trilinear
 from . import build
 from . import cuda_ops as co
 from .cuda_sharded import _flags, _require, _shift, _wall_rows
 
 __all__ = [
-    "fused_jacobi3_slab", "fused_jacobi3_slab_plain", "fused_cheby3_slab",
-    "fused_cheby3_slab_plain", "advect3_flat_slab", "advect3_flat_slab_plain",
+    "fused_jacobi3_slab", "fused_jacobi3_slab_plain", "fused_jacobi3_slab_ref",
+    "fused_cheby3_slab", "fused_cheby3_slab_plain", "fused_cheby3_slab_ref",
+    "advect3_flat_slab", "advect3_flat_slab_plain",
     "advect3_flat_slab_exact", "advect3_flat_slab_exact_plain",
-    "divergence3_slab", "divergence3_slab_plain", "gradient3_slab",
-    "gradient3_slab_plain",
+    "divergence3_slab", "divergence3_slab_plain", "divergence3_slab_ref",
+    "gradient3_slab", "gradient3_slab_plain", "gradient3_slab_ref",
+    "solve_rhs3",
 ]
+
+BF16 = torch.bfloat16
+_F32 = (torch.float32,)
 
 
 # ---------------------------------------------------------------------------
@@ -68,14 +97,32 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
-def _on_card(*specs: tuple[torch.Tensor, tuple[int, int, int]]) -> bool:
+def _on_card(*specs: tuple) -> bool:
     """``cuda_ops._on_device`` for (planes, side, side) slab arrays, each
-    at least 3 cells wide and below 2**31 cells (the kernels index with
-    32-bit ints)."""
-    for _, (planes, side, _) in specs:
+    spec ``(tensor, shape)`` (float32) or ``(tensor, shape, dtypes)``, each
+    array at least 3 cells wide and below 2**31 cells (the kernels index
+    with 32-bit ints)."""
+    for _, (planes, side, _), *_ in specs:
         if side < 3 or planes * side * side >= 2**31:
             raise ValueError(f"unsupported slab shape {(planes, side, side)}")
     return co._on_device(*specs)
+
+
+def _dtypes(storage: torch.dtype) -> tuple[torch.dtype, ...]:
+    """The dtypes a solve's iterate may take beside a rhs of ``storage``:
+    float32 on a float32 rhs; on a bf16 rhs the caller's bf16 guess or the
+    float32 iterate a segment before handed on."""
+    return co._F32_BF16 if storage == BF16 else _F32
+
+
+def _one_dtype(*tensors: torch.Tensor) -> tuple[torch.dtype, ...]:
+    """The one storage dtype of ``tensors`` (float32 or bf16), as a spec's
+    dtypes; mixed dtypes raise ``TypeError``."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) > 1:
+        raise TypeError(f"mixed dtypes {sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    return (dtype,) if dtype in co._F32_BF16 else _F32
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +141,11 @@ def _slab_bnd3(b: int, x: torch.Tensor, gtop: int, gbot: int) -> torch.Tensor:
     (``gtop``/``gbot``, -1 when absent) from the plane next to it; edges
     average their two face neighbours, corners their three edge neighbours,
     in the expression order of ``ops.three_d.set_bnd3`` (and of JAX's
-    ``_apply_bnd3_direct``, ``sharded3d.py:516-564``)."""
+    ``_apply_bnd3_direct``, ``sharded3d.py:516-564``), each operation in
+    ``x``'s dtype with 1/3 taken in it (``_apply_bnd3_coords``,
+    ``:74-125``)."""
     sx, sy, sz = _signs3(b)
+    third = as_scalar(1.0 / 3.0, x)
     x[:, 1:-1, 0] = sx * x[:, 1:-1, 1]
     x[:, 1:-1, -1] = sx * x[:, 1:-1, -2]
     x[:, 0, 1:-1] = sy * x[:, 1, 1:-1]
@@ -115,23 +165,27 @@ def _slab_bnd3(b: int, x: torch.Tensor, gtop: int, gbot: int) -> torch.Tensor:
             x[g, 1:-1, xi] = 0.5 * (x[nb, 1:-1, xi] + x[g, 1:-1, xn])
         for yi, yn in ends:
             for xi, xn in ends:
-                x[g, yi, xi] = _THIRD * ((x[nb, yi, xi] + x[g, yn, xi])
-                                      + x[g, yi, xn])
+                x[g, yi, xi] = third * ((x[nb, yi, xi] + x[g, yn, xi])
+                                     + x[g, yi, xn])
     return x
 
 
 def _sweeps3_plain(b, x, rhs, alpha, beta, sweeps, gtop, gbot, *,
                    zero_init=False, fast=False, cheby_rho=None, start=0,
-                   xm=None):
+                   xm=None, prescaled=False, fma=False):
     """The whole (planes, side, side) buffers x and x_{k-1} after
     ``sweeps`` Jacobi (or Chebyshev, from global sweep ``start``) sweeps,
     each over the buffer's inner planes (its edge planes keep their input
-    values), with the ghost layer after each.  Fast form and Chebyshev
-    weights as ``cuda_ops.fused_jacobi_plain``."""
+    values), with the ghost layer after each, every operation in the
+    buffers' dtype.  Fast form and Chebyshev weights as
+    ``cuda_ops.fused_jacobi_plain`` (``prescaled``: the rhs is already
+    times 1/beta); ``fma``: each fast sweep rounds its product and sum once,
+    as the kernels' ``fmaf`` (``cuda_ops_3d._fma_diffuse3``)."""
     if zero_init:
         x = torch.zeros_like(rhs)
     if fast:
-        rhs = rhs * (1.0 / beta)
+        if not prescaled:
+            rhs = rhs * (1.0 / beta)
         alpha, beta = alpha / beta, 1.0
     a = as_scalar(alpha, rhs)
     bt = as_scalar(beta, rhs)
@@ -143,7 +197,11 @@ def _sweeps3_plain(b, x, rhs, alpha, beta, sweeps, gtop, gbot, *,
     g_in = (_shift(gtop, 1), _shift(gbot, 1))
     xm = x if xm is None else xm
     for w in ws:
-        val = (rhs_in + a * _neigh3(x)) / bt
+        if fast and fma:
+            val = (rhs_in.double() + co._f32(alpha) * _neigh3(x).double()
+                   ).to(rhs.dtype)
+        else:
+            val = (rhs_in + a * _neigh3(x)) / bt
         if w is not None:
             wc = as_scalar(w, rhs)
             val = wc * val + (1.0 - wc) * xm[1:-1, 1:-1, 1:-1]
@@ -159,7 +217,9 @@ def _advect3_plain(bs, exts, halo, u, v, w, flags, dt, n, cmax):
     of ``exts`` at the cells of an (mz, side, side) slab, at global
     coordinates; slab plane k is ext plane ``halo + k``.  With
     ``cmax=None`` the exact gather (``ops.three_d.advect3``'s departure)
-    from the assembled fields, ``halo = plane0``."""
+    from the assembled fields, ``halo = plane0``.  bf16 fields and
+    velocities are gathered in float32 (``departure3``, ``trilinear``), the
+    ghost layer derived in float32 and each result rounded to bf16 once."""
     _, _, plane0 = _flags(flags)
     mz, side, _ = u.shape
 
@@ -172,18 +232,19 @@ def _advect3_plain(bs, exts, halo, u, v, w, flags, dt, n, cmax):
                          coords(plane0, mz)[:, None, None], dt, n, cmax)
     gtop, gbot = _wall_rows(flags, 0, mz)
     return tuple(_slab_bnd3(b, trilinear(ext, x, y, z, plane0 - halo), gtop,
-                            gbot)
+                            gbot).to(ext.dtype)
                  for b, ext in zip(bs, exts))
 
 
 def _divergence3_plain(u, v, w, wtop, wbot, n, gtop, gbot):
     """``(-0.5*h)*((du + dv) + (w_dn - w_up))`` on (planes, side, side)
     slabs whose neighbour planes are the one-plane halos ``wtop``/``wbot``;
-    border mode 0."""
+    border mode 0; in the fields' dtype, -0.5 and h = 1/n taken in it
+    (``_divergence3_local``, ``sharded3d.py:405-416``)."""
     w_up = torch.cat([wtop, w[:-1]])
     w_dn = torch.cat([w[1:], wbot])
     out = torch.empty_like(u)
-    out[:, 1:-1, 1:-1] = (-0.5 * grid_h(n)) * (
+    out[:, 1:-1, 1:-1] = (as_scalar(-0.5, u) * _h(n, u)) * (
         (u[:, 1:-1, 2:] - u[:, 1:-1, :-2]) + (v[:, 2:, 1:-1] - v[:, :-2, 1:-1])
         + (w_dn - w_up)[:, 1:-1, 1:-1])
     return _slab_bnd3(0, out, gtop, gbot)
@@ -191,8 +252,9 @@ def _divergence3_plain(u, v, w, wtop, wbot, n, gtop, gbot):
 
 def _gradient3_plain(u, v, w, p, ptop, pbot, n, gtop, gbot):
     """``u - (0.5*dp)/h`` per axis on (planes, side, side) slabs with
-    one-plane halos of ``p``; border modes 1, 2 and 3."""
-    h = as_scalar(grid_h(n), u)
+    one-plane halos of ``p``; border modes 1, 2 and 3; in the fields'
+    dtype, h = 1/n taken in it (``_gradient3_local``, ``:419-434``)."""
+    h = _h(n, u)
     p_up = torch.cat([ptop, p[:-1]])
     p_dn = torch.cat([p[1:], pbot])
     uo, vo, wo = (torch.empty_like(t) for t in (u, v, w))
@@ -209,36 +271,87 @@ def _gradient3_plain(u, v, w, p, ptop, pbot, n, gtop, gbot):
 # ---------------------------------------------------------------------------
 
 
+def solve_rhs3(x0, src, dt, beta, fast):
+    """The rhs of a bf16 z-slab diffusion on the kernels: ``x0 + dt*src``
+    in float32, times 1/beta in fast mode, rounded to bf16 once, as K5's
+    bf16 form builds it in its first sweep (``cuda_ops._plain_rhs``).  A
+    z-slab solve reads its rhs across halo exchanges, so it is built once,
+    and in fast mode its segments take a bf16 rhs as already scaled."""
+    return co._plain_rhs(src.float(), x0.float(), beta, dt, fast).to(BF16)
+
+
 def _solve_checks(x_ext, rhs_ext, mz, H, sweeps, xm_ext=None) -> bool:
     side = rhs_ext.shape[-1]
     _require(sweeps >= 1, "sweeps must be >= 1")
     _require(H >= sweeps + 1, f"a {H}-plane halo is valid for at most "
              f"{H - 1} sweeps, got {sweeps}")
     ext = (mz + 2 * H, side, side)
-    specs = [(rhs_ext, ext), (x_ext, ext)]
+    iterate = _dtypes(rhs_ext.dtype)
+    specs = [(rhs_ext, ext, co._F32_BF16), (x_ext, ext, iterate)]
     if xm_ext is not None:
-        specs.append((xm_ext, ext))
+        specs.append((xm_ext, ext, iterate))
     return _on_card(*specs)
 
 
 def _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta, sweeps, *,
-                   zero_init, fast, cheby_rho=None, start=0, xm_ext=None,
-                   carry_out=False):
+                   zero_init, fast, final, cheby_rho=None,
+                   start=0, xm_ext=None, carry_out=False):
     """The segment's K13 launches (``cuda_ops._Sweeps.run3``); returns the
-    final (x, x_{k-1}) buffers, x_{k-1} valid with ``carry_out``."""
+    final (x, x_{k-1}) buffers, x_{k-1} valid with ``carry_out``.  On a
+    bf16 rhs the bf16 forms, bf16 written only by a ``final`` segment, the
+    rhs in fast mode already times 1/beta (``solve_rhs3``)."""
     gtop, gbot = _wall_rows(flags, H, mz)
     with torch.cuda.device(rhs_ext.device):
         lib = build.load()
         run = co._Sweeps(b, x_ext, rhs_ext, alpha, beta, sweeps,
                          zero_init=zero_init, src_dt=None, fast=fast,
                          cheby_rho=cheby_rho, kernel="jacobi3_slab",
-                         start=start, xm=xm_ext)
+                         start=start, xm=xm_ext, final=final,
+                         prescaled=fast and rhs_ext.dtype == BF16)
         run.run3(lib, (mz + 2 * H, gtop, gbot), carry_out=carry_out)
         return run.x, run.xm
 
 
+def _twin_sweeps(b, x_ext, rhs_ext, alpha, beta, sweeps, gtop, gbot, *,
+                 xm=None, **kw):
+    """``_sweeps3_plain`` as the kernels compute it: in float32 (bf16
+    operands widened), each fast sweep's product and sum rounded once, as
+    their ``fmaf`` (so a z-slab solve's twin equals the single-device
+    twin, ``cuda_ops_3d._fma_diffuse3``); a bf16 rhs in fast mode is
+    already times 1/beta (``solve_rhs3``)."""
+    def wide(t):
+        return None if t is None else t.float()
+
+    prescaled = kw.get("fast", False) and rhs_ext.dtype == BF16
+    return _sweeps3_plain(b, wide(x_ext), wide(rhs_ext), alpha, beta, sweeps,
+                          gtop, gbot, xm=wide(xm), fma=True,
+                          prescaled=prescaled, **kw)
+
+
+def _stored(slab: torch.Tensor, rhs_ext: torch.Tensor,
+            ends_solve: bool) -> torch.Tensor:
+    """A segment's result as its kernel stores it: bf16 where a bf16 solve
+    ends, the float32 iterate otherwise."""
+    return slab.to(BF16) if rhs_ext.dtype == BF16 and ends_solve else slab
+
+
 def fused_jacobi3_slab_plain(b, x_ext, rhs_ext, flags, *, mz, H, alpha, beta,
-                             sweeps, zero_init=False, fast=False):
+                             sweeps, zero_init=False, fast=False,
+                             ends_solve=True):
+    _solve_checks(x_ext, rhs_ext, mz, H, sweeps)
+    x, _ = _twin_sweeps(b, x_ext, rhs_ext, alpha, beta, sweeps,
+                        *_wall_rows(flags, H, mz), zero_init=zero_init,
+                        fast=fast)
+    return _stored(x[H:H + mz], rhs_ext, ends_solve)
+
+
+def fused_jacobi3_slab_ref(b, x_ext, rhs_ext, flags, *, mz, H, alpha, beta,
+                           sweeps, zero_init=False, fast=False,
+                           ends_solve=True):
+    """JAX's jnp segment (``_diffuse3_local``'s chunk,
+    ``sharded3d.py:164-207``): every operation in the fields' dtype, so a
+    bf16 solve rounds every sweep and ``ends_solve`` changes nothing; in
+    float32 the plain twin."""
     _solve_checks(x_ext, rhs_ext, mz, H, sweeps)
     x, _ = _sweeps3_plain(b, x_ext, rhs_ext, alpha, beta, sweeps,
                           *_wall_rows(flags, H, mz), zero_init=zero_init,
@@ -247,18 +360,23 @@ def fused_jacobi3_slab_plain(b, x_ext, rhs_ext, flags, *, mz, H, alpha, beta,
 
 
 def fused_jacobi3_slab(b, x_ext, rhs_ext, flags, *, mz, H, alpha, beta,
-                       sweeps, zero_init=False, fast=False):
+                       sweeps, zero_init=False, fast=False, ends_solve=True):
     """``sweeps`` 7-point Jacobi sweeps (the reciprocal form with ``fast``)
     on an ``(mz+2H, side, side)`` extended slab from guess ``x_ext`` (zero
     with ``zero_init``; ``x_ext`` is then ignored) with rhs ``rhs_ext``;
     requires ``H >= sweeps + 1``.  Returns the (mz, side, side) slab.  One
-    launch of the per-sweep K13 a sweep (``cuda_ops.tiled3``)."""
+    launch of the per-sweep K13 a sweep (``cuda_ops.tiled3``).  On a bf16
+    rhs (``solve_rhs3``) the bf16 form (in fast mode the rhs already times
+    1/beta): a bf16 or float32 guess, the slab bf16 where the segment
+    ``ends_solve``, the float32 iterate for the next segment otherwise."""
     if not _solve_checks(x_ext, rhs_ext, mz, H, sweeps):
         return fused_jacobi3_slab_plain(
             b, x_ext, rhs_ext, flags, mz=mz, H=H, alpha=alpha, beta=beta,
-            sweeps=sweeps, zero_init=zero_init, fast=fast)
+            sweeps=sweeps, zero_init=zero_init, fast=fast,
+            ends_solve=ends_solve)
     x, _ = _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta,
-                          sweeps, zero_init=zero_init, fast=fast)
+                          sweeps, zero_init=zero_init, fast=fast,
+                          final=ends_solve)
     return x[H:H + mz]
 
 
@@ -279,6 +397,22 @@ def fused_cheby3_slab_plain(b, x_ext, xm_ext, rhs_ext, flags, *, mz, H, alpha,
                             beta, cheby_rho, start, sweeps, zero_init=False,
                             fast=False, carry_in=False, carry_out=False):
     _cheby_checks(x_ext, xm_ext, rhs_ext, mz, H, sweeps, start, carry_in)
+    x, xm = _twin_sweeps(b, x_ext, rhs_ext, alpha, beta, sweeps,
+                         *_wall_rows(flags, H, mz), zero_init=zero_init,
+                         fast=fast, cheby_rho=cheby_rho, start=start,
+                         xm=xm_ext)
+    if carry_out:
+        return _cheby_result(x, xm, H, mz, True)
+    return _stored(x[H:H + mz], rhs_ext, True)
+
+
+def fused_cheby3_slab_ref(b, x_ext, xm_ext, rhs_ext, flags, *, mz, H, alpha,
+                          beta, cheby_rho, start, sweeps, zero_init=False,
+                          fast=False, carry_in=False, carry_out=False):
+    """JAX's jnp Chebyshev segment (``_cheby_diffuse3_local``'s chunk,
+    ``sharded3d.py:210-269``): every operation in the fields' dtype, ω and
+    1 - ω too; in float32 the plain twin."""
+    _cheby_checks(x_ext, xm_ext, rhs_ext, mz, H, sweeps, start, carry_in)
     x, xm = _sweeps3_plain(b, x_ext, rhs_ext, alpha, beta, sweeps,
                            *_wall_rows(flags, H, mz), zero_init=zero_init,
                            fast=fast, cheby_rho=cheby_rho, start=start,
@@ -298,7 +432,10 @@ def fused_cheby3_slab(b, x_ext, xm_ext, rhs_ext, flags, *, mz, H, alpha, beta,
     next segment.  Returns the (mz, side, side) slab, or (x, x_{k-1}).
     ceil(sweeps / T3) launches of the tiled K13 in fast mode on a buffer
     of at least 5*T3 planes, one of the per-sweep K13 a sweep otherwise
-    (``cuda_ops.tiled3``)."""
+    (``cuda_ops.tiled3``).  On a bf16 rhs (in fast mode already times
+    1/beta) the bf16 forms of either: the slab bf16 where the chain ends,
+    and with ``carry_out`` both iterates float32 (the chain's iterate
+    never rounds before its end)."""
     if not _cheby_checks(x_ext, xm_ext, rhs_ext, mz, H, sweeps, start,
                          carry_in):
         return fused_cheby3_slab_plain(
@@ -308,8 +445,12 @@ def fused_cheby3_slab(b, x_ext, xm_ext, rhs_ext, flags, *, mz, H, alpha, beta,
             carry_out=carry_out)
     x, xm = _launch_sweeps(b, x_ext, rhs_ext, flags, mz, H, alpha, beta,
                            sweeps, zero_init=zero_init, fast=fast,
+                           final=not carry_out,
                            cheby_rho=cheby_rho, start=start, xm_ext=xm_ext,
                            carry_out=carry_out)
+    if carry_out and xm.dtype == BF16:
+        # A 1-sweep first segment's x_{k-1} is the caller's bf16 guess.
+        xm = xm.float()
     return _cheby_result(x, xm, H, mz, carry_out)
 
 
@@ -330,8 +471,10 @@ def _advect_args(bs, exts, u_slab, v_slab, w_slab, n, cmax, mz):
              f"the gather needs an extended slab of mz + 2*halo planes with "
              f"halo >= cmax+1 = {cmax + 1}; got {planes} planes for mz={mz}")
     slab = (mz, side, side)
-    on_card = _on_card(*((e, (planes, side, side)) for e in exts),
-                       (u_slab, slab), (v_slab, slab), (w_slab, slab))
+    dt = _one_dtype(*exts, u_slab, v_slab, w_slab)
+    on_card = _on_card(*((e, (planes, side, side), dt) for e in exts),
+                       (u_slab, slab, dt), (v_slab, slab, dt),
+                       (w_slab, slab, dt))
     return bs, exts, halo, on_card
 
 
@@ -343,6 +486,11 @@ def advect3_flat_slab_plain(bs, exts, u_slab, v_slab, w_slab, flags, *, dt, n,
                           n, cmax)
 
 
+def _suffix(t: torch.Tensor) -> str:
+    """The count and symbol suffix of a kernel's form on ``t``'s dtype."""
+    return "_bf16" if t.dtype == BF16 else ""
+
+
 def advect3_flat_slab(bs, exts, u_slab, v_slab, w_slab, flags, *, dt, n, cmax,
                       mz):
     """Windowed trilinear advection of one to three fields (border modes
@@ -351,19 +499,20 @@ def advect3_flat_slab(bs, exts, u_slab, v_slab, w_slab, flags, *, dt, n, cmax,
     holds, where the TPU kernel takes ``cmax <= 2``) by the velocity slabs
     ``u_slab``, ``v_slab``, ``w_slab``, with one shared backtrace.  Outputs
     are fresh tensors with their full ghost layer, so the (u, v, w)
-    self-advection reads the pre-advection velocity.  One K14 launch;
-    returns a tuple of (mz, side, side) slabs."""
+    self-advection reads the pre-advection velocity.  One K14 launch (its
+    bf16 form on bf16 fields and velocities); returns a tuple of (mz,
+    side, side) slabs."""
     bs, exts, halo, on_card = _advect_args(bs, exts, u_slab, v_slab, w_slab,
                                            n, cmax, mz)
     if not on_card:
         return _advect3_plain(bs, exts, halo, u_slab, v_slab, w_slab, flags,
                               dt, n, cmax)
-    side = n + 2
+    side, name = n + 2, "advect3_slab" + _suffix(u_slab)
     with torch.cuda.device(u_slab.device):
         lib = build.load()
         outs = tuple(u_slab.new_empty((mz, side, side)) for _ in bs)
         pad = 3 - len(bs)  # null pointers for the fields not given
-        co._launch("advect3_slab", lib.fsc_advect3_slab,
+        co._launch(name, getattr(lib, f"fsc_{name}"),
                    *(e.data_ptr() for e in exts), *[None] * pad,
                    u_slab.data_ptr(), v_slab.data_ptr(), w_slab.data_ptr(),
                    *(o.data_ptr() for o in outs), *[None] * pad, mz, side,
@@ -382,8 +531,10 @@ def _advect_exact_args(bs, fulls, u_slab, v_slab, w_slab, flags, n, mz):
              f"an {mz}-plane slab at plane {plane0} is not inside the "
              f"{side}-plane volume")
     slab = (mz, side, side)
-    on_card = _on_card(*((f, (side,) * 3) for f in fulls), (u_slab, slab),
-                       (v_slab, slab), (w_slab, slab))
+    dt = _one_dtype(*fulls, u_slab, v_slab, w_slab)
+    on_card = _on_card(*((f, (side,) * 3, dt) for f in fulls),
+                       (u_slab, slab, dt), (v_slab, slab, dt),
+                       (w_slab, slab, dt))
     return bs, fulls, on_card
 
 
@@ -403,20 +554,20 @@ def advect3_flat_slab_exact(bs, fulls, u_slab, v_slab, w_slab, flags, *, dt,
     over z first): each coordinate takes the global clamp alone, so any
     displacement gathers as the single-device step does, at any slab
     thickness.  Velocities and outputs as ``advect3_flat_slab``'s.  One
-    launch of K14's exact form; returns a tuple of (mz, side, side)
-    slabs."""
+    launch of K14's exact form (its bf16 form on bf16 fields and
+    velocities); returns a tuple of (mz, side, side) slabs."""
     bs, fulls, on_card = _advect_exact_args(bs, fulls, u_slab, v_slab,
                                             w_slab, flags, n, mz)
     plane0 = _flags(flags)[2]
     if not on_card:
         return _advect3_plain(bs, fulls, plane0, u_slab, v_slab, w_slab,
                               flags, dt, n, None)
-    side = n + 2
+    side, name = n + 2, "advect3_slab_exact" + _suffix(u_slab)
     with torch.cuda.device(u_slab.device):
         lib = build.load()
         outs = tuple(u_slab.new_empty((mz, side, side)) for _ in bs)
         pad = 3 - len(bs)  # null pointers for the fields not given
-        co._launch("advect3_slab_exact", lib.fsc_advect3_slab_exact,
+        co._launch(name, getattr(lib, f"fsc_{name}"),
                    *(f.data_ptr() for f in fulls), *[None] * pad,
                    u_slab.data_ptr(), v_slab.data_ptr(), w_slab.data_ptr(),
                    *(o.data_ptr() for o in outs), *[None] * pad, mz, side,
@@ -440,6 +591,17 @@ def _halo_checks(n, side, *halos) -> None:
 
 
 def divergence3_slab_plain(u, v, w, wtop, wbot, flags, n):
+    """K15's twin: bf16 fields are widened, the divergence float32."""
+    mz, side, _ = u.shape
+    _halo_checks(n, side, wtop, wbot)
+    return _divergence3_plain(*(t.float() for t in (u, v, w, wtop[-1:],
+                                                    wbot[:1])),
+                              n, *_wall_rows(flags, 0, mz))
+
+
+def divergence3_slab_ref(u, v, w, wtop, wbot, flags, n):
+    """JAX's ``_divergence3_local``: in the fields' dtype (a bf16
+    divergence from bf16 fields); in float32 the plain twin."""
     mz, side, _ = u.shape
     _halo_checks(n, side, wtop, wbot)
     return _divergence3_plain(u, v, w, wtop[-1:], wbot[:1], n,
@@ -450,19 +612,23 @@ def divergence3_slab(u, v, w, wtop, wbot, flags, n):
     """Divergence (border mode 0) on (mz, side, side) slabs; ``wtop``/
     ``wbot`` hold planes of the neighbouring slabs' w (any number >= 1; the
     plane next to the slab is the last of ``wtop`` and the first of
-    ``wbot``).  One K15 launch."""
+    ``wbot``).  One K15 launch; float32 whatever u, v, w store (bf16 ones
+    take the bf16 form, which writes the float32 divergence of the bf16
+    step's projection)."""
     mz, side, _ = u.shape
     _halo_checks(n, side, wtop, wbot)
     wtop, wbot = wtop[-1:], wbot[:1]
     slab, one = (mz, side, side), (1, side, side)
-    if not _on_card((u, slab), (v, slab), (w, slab), (wtop, one),
-                    (wbot, one)):
+    dt = _one_dtype(u, v, w, wtop, wbot)
+    if not _on_card((u, slab, dt), (v, slab, dt), (w, slab, dt),
+                    (wtop, one, dt), (wbot, one, dt)):
         return divergence3_slab_plain(u, v, w, wtop, wbot, flags, n)
+    name = "divergence3_slab" + _suffix(u)
     with torch.cuda.device(u.device):
         lib = build.load()
-        out = torch.empty_like(u)
-        co._launch("divergence3_slab", lib.fsc_divergence3_slab,
-                   u.data_ptr(), v.data_ptr(), w.data_ptr(), wtop.data_ptr(),
+        out = torch.empty_like(u, dtype=torch.float32)
+        co._launch(name, getattr(lib, f"fsc_{name}"), u.data_ptr(),
+                   v.data_ptr(), w.data_ptr(), wtop.data_ptr(),
                    wbot.data_ptr(), out.data_ptr(), mz, side,
                    *_wall_rows(flags, 0, mz), -0.5 * grid_h(n),
                    co._stream(u))
@@ -470,6 +636,19 @@ def divergence3_slab(u, v, w, wtop, wbot, flags, n):
 
 
 def gradient3_slab_plain(u, v, w, p, ptop, pbot, flags, n):
+    """K16's twin: bf16 u, v, w are widened beside the float32 pressure,
+    the results rounded to u's dtype once."""
+    mz, side, _ = u.shape
+    _halo_checks(n, side, ptop, pbot)
+    out = _gradient3_plain(*(t.float() for t in (u, v, w, p, ptop[-1:],
+                                                 pbot[:1])),
+                           n, *_wall_rows(flags, 0, mz))
+    return tuple(t.to(u.dtype) for t in out)
+
+
+def gradient3_slab_ref(u, v, w, p, ptop, pbot, flags, n):
+    """JAX's ``_gradient3_local``: in the fields' dtype (bf16 u, v, w and
+    a bf16 pressure in bf16); in float32 the plain twin."""
     mz, side, _ = u.shape
     _halo_checks(n, side, ptop, pbot)
     return _gradient3_plain(u, v, w, p, ptop[-1:], pbot[:1], n,
@@ -479,18 +658,21 @@ def gradient3_slab_plain(u, v, w, p, ptop, pbot, flags, n):
 def gradient3_slab(u, v, w, p, ptop, pbot, flags, n):
     """Pressure-gradient subtraction (border modes 1, 2 and 3) on (mz,
     side, side) slabs, ``ptop``/``pbot`` as ``divergence3_slab``'s halos.
-    One K16 launch; returns the (u, v, w) slabs."""
+    One K16 launch; returns the (u, v, w) slabs.  The pressure is float32;
+    bf16 u, v, w take the bf16 form, which writes bf16."""
     mz, side, _ = u.shape
     _halo_checks(n, side, ptop, pbot)
     ptop, pbot = ptop[-1:], pbot[:1]
     slab, one = (mz, side, side), (1, side, side)
-    if not _on_card((u, slab), (v, slab), (w, slab), (p, slab), (ptop, one),
-                    (pbot, one)):
+    dt = _one_dtype(u, v, w)
+    if not _on_card((u, slab, dt), (v, slab, dt), (w, slab, dt), (p, slab),
+                    (ptop, one), (pbot, one)):
         return gradient3_slab_plain(u, v, w, p, ptop, pbot, flags, n)
+    name = "gradient3_slab" + _suffix(u)
     with torch.cuda.device(u.device):
         lib = build.load()
         outs = tuple(torch.empty_like(t) for t in (u, v, w))
-        co._launch("gradient3_slab", lib.fsc_gradient3_slab, u.data_ptr(),
+        co._launch(name, getattr(lib, f"fsc_{name}"), u.data_ptr(),
                    v.data_ptr(), w.data_ptr(), p.data_ptr(), ptop.data_ptr(),
                    pbot.data_ptr(), *(o.data_ptr() for o in outs), mz, side,
                    *_wall_rows(flags, 0, mz), grid_h(n), co._stream(u))

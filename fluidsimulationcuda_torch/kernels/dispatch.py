@@ -21,7 +21,8 @@ row-slab kernels or their plain twins; the slab multigrid smooths its fine
 level with the SlabOpSet's ``smooth``, the grouped K9-damp or its plain
 twin, and its replicated coarse level with the OpSet's), ``get_slab3_ops`` the 3-D
 multi-device step's ``Slab3OpSet`` (``kernels/cuda_sharded_3d.py``: the
-z-slab kernels or their plain twins).
+z-slab kernels, or the ``reference`` forms, which in bf16 round every
+operation as JAX's jnp z-slab route does, or the kernels' plain twins).
 
 The backend is chosen once, explicitly, from the config: callers never
 infer it from which OpSet fields are set, and no path catches an error to
@@ -239,19 +240,33 @@ class Slab3OpSet(NamedTuple):
     fast: bool
 
 
-def get_slab3_ops(cfg: SimConfig) -> Slab3OpSet:
-    """The z-slab kernels (``cuda``) or their plain twins (``reference``),
-    chosen once from ``cfg.resolved_backend``."""
+def get_slab3_ops(cfg: SimConfig, plain: bool = False) -> Slab3OpSet:
+    """The z-slab kernels (``cuda``) or the ``reference`` backend's forms,
+    chosen once from ``cfg.resolved_backend``.  In float32 the
+    ``reference`` forms are the kernels' plain twins; in bf16 they split,
+    as ``get_block_ops``' do: the ``reference`` forms round every
+    operation to bf16 as JAX's jnp z-slab route does (``*_ref``), a twin
+    rounds where its kernel stores (``*_plain``; the gathers are float32 in
+    both).  ``plain`` (a ``cuda`` config) binds the kernels' plain twins
+    on any device, fast math included: what a z-slab step on the card is
+    held to bit for bit."""
     from . import cuda_sharded_3d as cs3
 
     backend = cfg.resolved_backend
     if backend == "reference":
+        return Slab3OpSet(cs3.fused_jacobi3_slab_ref,
+                          cs3.fused_cheby3_slab_ref,
+                          cs3.advect3_flat_slab_plain,
+                          cs3.advect3_flat_slab_exact_plain,
+                          cs3.divergence3_slab_ref,
+                          cs3.gradient3_slab_ref, fast=False)
+    if backend == "cuda" and plain:
         return Slab3OpSet(cs3.fused_jacobi3_slab_plain,
                           cs3.fused_cheby3_slab_plain,
                           cs3.advect3_flat_slab_plain,
                           cs3.advect3_flat_slab_exact_plain,
                           cs3.divergence3_slab_plain,
-                          cs3.gradient3_slab_plain, fast=False)
+                          cs3.gradient3_slab_plain, fast=cfg.fast_math)
     if backend == "cuda":
         return Slab3OpSet(cs3.fused_jacobi3_slab, cs3.fused_cheby3_slab,
                           cs3.advect3_flat_slab, cs3.advect3_flat_slab_exact,

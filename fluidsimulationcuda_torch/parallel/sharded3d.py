@@ -39,6 +39,21 @@ it with K14's exact form (``advect3_flat_slab_exact``), so the step equals
 the single-device step at any displacement and any slab thickness.
 Nothing falls back quietly: a windowed request on slabs too thin for the
 window raises.
+
+In bf16 storage (``SimConfig(dtype=torch.bfloat16)``) the slabs are bf16
+in and out and the step composes the same operations.  The ``reference``
+backend is JAX's jnp ``_step3_local`` on bf16 slabs (its bf16 route, which
+JAX's Pallas z-slab route leaves to jnp, ``sharded3d.py:814-818``): every
+operation rounded to bf16 as JAX rounds it, the sources folded by
+``add_source`` in bf16, except the gathers, which widen their inputs,
+gather in float32 and round once, as the single-device bf16 step's do.
+The ``cuda`` backend is the z-slab kernels' bf16 forms
+(``kernels/cuda_sharded_3d.py``), the single-device bf16 kernels' rules:
+each diffusion's rhs built in float32 and rounded once (``solve_rhs3``,
+times 1/beta in fast mode), each solve's iterate float32 from its first
+sweep to its last across its segments and exchanges, a float32 divergence
+and pressure between bf16 velocities.  ``_ZSlabStep(..., plain=True)``
+composes the kernels' plain twins instead, which equal them bit for bit.
 """
 from __future__ import annotations
 
@@ -48,7 +63,9 @@ import torch
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
+from ..kernels.cuda_sharded_3d import solve_rhs3
 from ..kernels.dispatch import get_slab3_ops
+from ..ops.diffuse import as_scalar
 from ..ops.source import add_source
 from .mesh import Mesh, _gather
 from .sharded import _ext, _halos, _split
@@ -70,12 +87,18 @@ def _transpose(per_slab):
 
 class _ZSlabStep:
     """One step of ``cfg`` on the z-slabs of a (pz, 1) mesh, its gathers
-    exact (from the assembled fields) or windowed."""
+    exact (from the assembled fields) or windowed; ``plain`` (a ``cuda``
+    config) on the kernels' plain twins, on any device."""
 
     def __init__(self, cfg: SimConfig, mesh: Mesh, audited: bool,
-                 exact: bool):
+                 exact: bool, plain: bool = False):
         self.cfg, self.audited, self.exact = cfg, audited, exact
-        self.ops = get_slab3_ops(cfg)
+        self.ops = get_slab3_ops(cfg, plain)
+        # The kernels build a bf16 diffusion's rhs once, in float32
+        # (solve_rhs3); JAX's jnp route, the reference backend, adds the
+        # source in bf16.
+        self.built_rhs = (cfg.dtype == torch.bfloat16
+                          and cfg.resolved_backend == "cuda")
         self.devices = mesh.device_list
         self.pz = pz = len(self.devices)
         self.mz = mz = (cfg.n + 2) // pz
@@ -112,7 +135,9 @@ class _ZSlabStep:
                zero_init=False):
         """``iters`` Jacobi (or, with ``rho``, Chebyshev) sweeps in
         segments of K, one H-plane exchange of the iterate (and of x_{k-1}
-        for Chebyshev) per segment, the rhs exchanged once."""
+        for Chebyshev) per segment, the rhs exchanged once.  On the
+        kernels a bf16 solve's segments hand on its float32 iterate; the
+        last rounds it."""
         K, H = self._plan(iters)
         ops, mz = self.ops, self.mz
         rhs_ext = _ext(rhs, H)
@@ -124,7 +149,8 @@ class _ZSlabStep:
             kw = dict(mz=mz, H=H, alpha=alpha, beta=beta, sweeps=s,
                       zero_init=zi, fast=ops.fast)
             if rho is None:
-                x = [ops.jacobi(b, xe, re, fl, **kw)
+                ends = done + s == iters
+                x = [ops.jacobi(b, xe, re, fl, ends_solve=ends, **kw)
                      for xe, re, fl in zip(x_ext, rhs_ext, self.flags)]
             else:
                 carry_out = done + s < iters
@@ -169,12 +195,25 @@ class _ZSlabStep:
             for es, ui, vi, wi, fl in zip(zip(*exts), u, v, w, self.flags))
 
     def _disp(self, u, v, w) -> torch.Tensor:
-        """Largest backtrace displacement (cells) over every slab."""
+        """Largest backtrace displacement (cells) over every slab, in the
+        fields' dtype, dt*n rounded to it first as JAX's weakly typed
+        scalar is (``_disp3_global``)."""
         dev = self.devices[0]
         local = [torch.maximum(torch.maximum(a.abs().max(), b.abs().max()),
                                c.abs().max()).to(dev)
                  for a, b, c in zip(u, v, w)]
-        return torch.stack(local).max() * (self.cfg.dt * self.cfg.n)
+        m = torch.stack(local).max()
+        return m * as_scalar(self.cfg.dt * self.cfg.n, m)
+
+    def _rhs(self, x0, src, beta) -> list:
+        """The rhs slabs of a diffusion from ``x0`` with the source
+        ``src`` folded in: ``solve_rhs3`` for a bf16 solve on the kernels
+        (times 1/beta in fast mode), ``add_source`` otherwise."""
+        dt = self.cfg.dt
+        if self.built_rhs:
+            return [solve_rhs3(a, s, dt, beta, self.ops.fast)
+                    for a, s in zip(x0, src)]
+        return [add_source(a, s, dt) for a, s in zip(x0, src)]
 
     # -- the step --------------------------------------------------------------
 
@@ -191,17 +230,17 @@ class _ZSlabStep:
         return tree
 
     def __call__(self, state: FluidState, src: Sources):
-        cfg, dt = self.cfg, self.cfg.dt
+        cfg = self.cfg
         self._slabs(state, "state")
         self._slabs(src, "sources")
-        vel = [[add_source(a, s, dt) for a, s in zip(x, sx)]
-               for x, sx in ((state.u, src.u), (state.v, src.v),
-                             (state.w, src.w))]
         alpha = cfg.diffusion_alpha_visc
         beta = 1.0 + 6.0 * alpha
-        u, v, w = (self._solve(b, guess, x, alpha, beta, *self.vel)
-                   for b, guess, x in zip((1, 2, 3), (src.u, src.v, src.w),
-                                          vel))
+        vel = []
+        for b, guess, x0 in zip((1, 2, 3), (src.u, src.v, src.w),
+                                (state.u, state.v, state.w)):
+            vel.append(self._solve(b, guess, self._rhs(x0, guess, beta),
+                                   alpha, beta, *self.vel))
+        u, v, w = vel
         u, v, w = self._project(u, v, w)
         d_vel = self._disp(u, v, w) if self.audited else None
         u, v, w = self._project(*self._advect((1, 2, 3), (u, v, w), u, v, w))
@@ -209,8 +248,8 @@ class _ZSlabStep:
 
         alpha = cfg.diffusion_alpha_diff
         beta = 1.0 + 6.0 * alpha
-        dens = [add_source(a, s, dt) for a, s in zip(state.dens, src.dens)]
-        dens = self._solve(0, src.dens, dens, alpha, beta, *self.dens)
+        dens = self._solve(0, src.dens, self._rhs(state.dens, src.dens, beta),
+                           alpha, beta, *self.dens)
         (dens,) = self._advect((0,), (dens,), u, v, w)
         out = FluidState(dens=tuple(dens), u=tuple(u), v=tuple(v),
                          w=tuple(w))
@@ -252,17 +291,11 @@ def make_sharded_step_fn_3d(
     per solve (velocity, pressure, density) the sweeps per exchange K and
     the halo planes H.
 
-    The z-slab route is float32: a bf16 ``cfg`` raises
-    ``NotImplementedError`` (the single-device 3-D step runs bf16; its
-    z-slab forms wait on ROADMAP §A 5 (c)).
+    A bf16 ``cfg`` runs the same route on bf16 slabs (the module note):
+    the state and the sources are bf16 slabs, and so are the results.
     """
     if cfg.ndim != 3:
         raise ValueError("make_sharded_step_fn_3d requires cfg.ndim == 3")
-    if cfg.dtype != torch.float32:
-        raise NotImplementedError(
-            "the 3-D z-slab step is float32; bf16 storage runs the "
-            "single-device 3-D step, and its z-slab forms wait on ROADMAP "
-            "§A 5 (c)")
     if cfg.pressure_solver not in ("jacobi", "chebyshev"):
         raise ValueError("sharded 3-D supports pressure_solver='jacobi' or "
                          "'chebyshev' (mg/cg are 2-D solvers)")

@@ -40,7 +40,7 @@ import fluidsimulationcuda_tpu as fj  # noqa: E402
 from fluidsimulationcuda_torch.core.state import (  # noqa: E402
     state_from_numpy, zero_sources_like)
 from fluidsimulationcuda_torch.kernels import (  # noqa: E402
-    checks, cuda_ops, cuda_ops_3d, cuda_sharded_3d, cuda_step)
+    checks, cuda_ops, cuda_ops_3d, cuda_sharded, cuda_step)
 from fluidsimulationcuda_torch.models import batched as tb  # noqa: E402
 from fluidsimulationcuda_torch.utils import checkpoint as tcp  # noqa: E402
 from fluidsimulationcuda_tpu.kernels import pallas_ops  # noqa: E402
@@ -321,20 +321,28 @@ def test_config_refuses_bf16_beyond_the_2d_step(kw):
     solve: multigrid (a bf16 divergence to a float32 pressure, as JAX's)
     and CG (bf16 throughout) build their config, held against JAX in
     tests/test_torch_bf16_solvers.py.  The single-device 3-D step runs
-    bf16 too (tests/test_torch_step3_bf16.py), so the 3-D config now
-    builds where it used to raise; what still refuses bf16 beyond it is
-    the 3-D z-slab step, whose bf16 forms wait on ROADMAP §A 5 (c)."""
+    bf16 too (tests/test_torch_step3_bf16.py), and so does the 3-D
+    z-slab step, which used to refuse it (tests/test_torch_sharded3d_bf16.py
+    holds it against JAX): the 3-D config builds and its z-slab step takes
+    bf16 slabs to bf16 slabs."""
     cfg = ft.SimConfig(n=14, dtype=BF16, device="cpu", **kw)
     assert cfg.dtype == BF16
     if kw.get("ndim") != 3:
         assert cfg.pressure_solver == kw["pressure_solver"]
         return
-    from fluidsimulationcuda_torch.parallel import make_mesh
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    shard_state_3d, unshard)
     from fluidsimulationcuda_torch.parallel.sharded3d import (
         make_sharded_step_fn_3d)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_step_fn_3d(cfg, make_mesh([torch.device("cpu")] * 2))
+    mesh = make_mesh([torch.device("cpu")] * 2)
+    step = make_sharded_step_fn_3d(cfg, mesh)
+    state = shard_state_3d(ft.zero_state(cfg), mesh)
+    src = shard_state_3d(ft.Sources(*(torch.full_like(f, 0.5)
+                                      for f in ft.zero_state(cfg))), mesh)
+    out = unshard(step(state, src))
+    assert all(f.dtype == BF16 and bool(torch.isfinite(f).all())
+               for f in out)
 
 
 def test_config_refuses_other_dtypes():
@@ -363,8 +371,9 @@ def test_sharded_step_refuses_bf16():
 def test_kernels_without_a_bf16_form_raise():
     """K1-damp takes a bf16 rhs (its bf16-rhs forms), never a bf16 guess
     on a float32 rhs; the velocity pair has no bf16 form, nor have the
-    z-slab kernels (the 3-D kernels of one volume have theirs since
-    tests/test_torch_step3_bf16.py)."""
+    row-slab kernels (the row-slab route stays float32, as JAX's; the
+    z-slab kernels have theirs since tests/test_torch_sharded3d_bf16.py,
+    the 3-D kernels of one volume since tests/test_torch_step3_bf16.py)."""
     x, y, z = (_t(a) for a in _fields(24, 1.0, 1.0, 1.0))
     with pytest.raises(TypeError):
         cuda_ops.mg_smooth(x, y.float(), 2)
@@ -376,10 +385,11 @@ def test_kernels_without_a_bf16_form_raise():
         cuda_step.fused_advect_project(x, y, SIDE - 2, 4, DT, cmax=1)
     with pytest.raises(TypeError):
         cuda_ops.fused_jacobi(0, x, y.float(), 1.0, 4.0, 2)
-    vol = torch.zeros((8, 8, 8), dtype=BF16)
+    slab = torch.zeros((8, 8), dtype=BF16)
     with pytest.raises(TypeError):
-        cuda_sharded_3d.fused_jacobi3_slab(0, vol, vol, (1, 0, 0), mz=4, H=2,
-                                           alpha=1.0, beta=6.0, sweeps=1)
+        cuda_sharded.fused_jacobi_slab(0, slab, slab, (1, 0, 0), m=4, K=2,
+                                       alpha=1.0, beta=4.0, sweeps=1)
+    vol = torch.zeros((8, 8, 8), dtype=BF16)
     with pytest.raises(TypeError):
         cuda_ops_3d.gradient3_p(vol, vol, vol, vol, 6)
 

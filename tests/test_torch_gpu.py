@@ -1487,3 +1487,71 @@ def test_bf16_3d_kernels_refuse_other_operands(cuda):
         ctypes.addressof(omegas), 6, 1, 1, 3,
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
+
+
+@pytest.mark.parametrize("side,mz", [(34, 17), (66, 22)])
+def test_bf16_slab3_forms_match_plain(cuda, side, mz):
+    """The bf16 forms of K13 (per-sweep and the tiled slab walk), K14
+    (windowed and exact), K15 and K16 against their plain twins on top,
+    interior and bottom slabs (``checks.kernel_checks_slab3_bf16``), bit
+    for bit and in the twin's dtype, each launching only its bf16 forms;
+    every tiled call also against the same call on the per-sweep K13's
+    bf16 form."""
+    forms = checks.kernel_checks_slab3_bf16(side, mz, cuda, seed=side)
+    for check in forms:
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = {k: c for k, c in cuda_ops.launch_counts().items() if c}
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert set(counts) == set(check.kernels), (check.label, counts)
+        for g, w in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got, want))):
+            assert g.dtype == w.dtype, check.label
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+    for check in checks.per_sweep_checks(forms):
+        assert checks.max_abs_diff(check.run(), check.plain()) == 0.0, \
+            check.label
+
+
+BF16_ZSLAB_STEPS = {"parity windowed": ({}, "auto"),
+                    "parity exact": ({}, "exact"),
+                    "compensated fast": (dict(COMP3, fast_math=True), "auto")}
+
+
+@pytest.mark.parametrize("mode", list(BF16_ZSLAB_STEPS))
+def test_bf16_zslab_step_256_launches_only_bf16_forms(cuda, mode):
+    """The bf16 z-slab step at 256³ on 8 slabs of one card: the launches
+    ``chip_smoke.expected_launches_sharded3`` counts, every one a bf16 form
+    but the pressure solves' float32 K13, every field bf16, equal to the
+    plain twins' z-slab step (``_ZSlabStep(..., plain=True)``) bit for
+    bit; the exact run also to the single-device bf16 step."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import (
+        make_mesh, make_sharded_step_fn_3d, shard_state_3d, unshard)
+    from fluidsimulationcuda_torch.parallel.sharded3d import _ZSlabStep
+
+    kw, advect_mode = BF16_ZSLAB_STEPS[mode]
+    cfg = ft.SimConfig(n=254, ndim=3, jacobi_iters=20, backend="cuda",
+                       device=cuda, dtype=torch.bfloat16, **kw)
+    mesh = make_mesh([torch.device(cuda)] * 8)
+    step = make_sharded_step_fn_3d(cfg, mesh, advect_mode=advect_mode)
+    exact = step.advect_mode == "exact"
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    cut = [shard_state_3d(t, mesh) for t in (state, src)]
+    cuda_ops.reset_launch_counts()
+    got = unshard(step(*cut))
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    assert counts == {**dict.fromkeys(cuda_ops.KERNELS, 0),
+                      **chip_smoke.expected_launches_sharded3(cfg, 8, exact)}
+    assert {k for k, c in counts.items() if c and not k.endswith("_bf16")} \
+        <= {"jacobi3_slab", "jacobi3_slab_sweeps"}
+    assert all(f.dtype == torch.bfloat16 for f in got)
+    twins = unshard(_ZSlabStep(cfg, mesh.reshape(8, 1), False, exact,
+                               plain=True)(*cut))
+    for a, b in zip(got, twins):
+        assert torch.equal(a, b)
+    if exact:
+        for a, b in zip(got, ft.step3(cfg, state, src)):
+            assert torch.equal(a, b)

@@ -9,9 +9,9 @@ block), beside the per-sweep K5 (``csrc/jacobi3.cu``) and K13
 (``csrc/jacobi3_slab.cu``), and holds it bit for bit against the per-sweep
 chains (the same sweeps one launch each, ``cuda_ops.launch_sweeps(0)``)
 and within ``checks.TOL`` against the plain versions
-``fused_jacobi3_plain`` and ``fused_cheby3_slab_plain`` (the z-slab
-plain fast form multiplies and adds where the kernels call ``fmaf``; the
-volume's takes ``fmaf``'s product and sum in float64): volumes of
+``fused_jacobi3_plain`` and ``fused_cheby3_slab_plain`` (both take
+``fmaf``'s product and sum in float64, the z-slab one since its bf16
+forms came): volumes of
 side 18 and 34 (34 needs two tiles in y and two z-chunks, the last of each
 moved back to end at the volume's end) for the step's three kinds of
 solve (a source fold, the zero guess, a guess), T of 1 to 6 with solves

@@ -20,7 +20,8 @@ the JAX package changes.
   kernels' bf16 forms equal bit for bit on the card) lie within
   ``TWIN_UNITS`` bf16 units of the oracle (8 exact, 24 windowed) and
   within rel-L2 0.15 of the float32 step.
-- ``step_audited3``, the z-slab refusal, the bf16 3-D state from JAX arrays
+- ``step_audited3``, the bf16 z-slab step against the single-device one,
+  the bf16 3-D state from JAX arrays
   and the checkpoint round trips.
 
 The same numpy arrays, drawn from ``np.random.default_rng(seed)``, go to
@@ -361,17 +362,27 @@ def test_step_audited3_in_bf16():
 
 
 def test_sharded_step3_refuses_bf16():
-    """The z-slab step is float32 until its bf16 forms land (ROADMAP
-    §A 5 (c)); the single-device bf16 config builds."""
-    from fluidsimulationcuda_torch.parallel import make_mesh
+    """The z-slab step used to refuse bf16 until its bf16 forms landed
+    (tests/test_torch_sharded3d_bf16.py holds it against JAX); now the
+    single-device bf16 config builds it in every gather mode, and under
+    exact gathers its step equals the single-device bf16 step bit for
+    bit."""
+    from fluidsimulationcuda_torch.parallel import (make_mesh,
+                                                    shard_state_3d, unshard)
     from fluidsimulationcuda_torch.parallel.sharded3d import (
         make_sharded_step_fn_3d)
 
     cfg = ft.SimConfig(n=14, ndim=3, dtype=BF16, device="cpu")
+    mesh = make_mesh([torch.device("cpu")] * 2)  # slabs of 8 planes
+    src = ft.Sources(*map(_t, _sources(7, 14, False)))
     for mode in ("auto", "exact", "windowed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_sharded_step_fn_3d(cfg, make_mesh([torch.device("cpu")] * 4),
-                                    advect_mode=mode)
+        step = make_sharded_step_fn_3d(cfg, mesh, advect_mode=mode)
+        assert step.advect_mode == ("exact" if mode == "exact"
+                                    else "windowed")
+    got = unshard(make_sharded_step_fn_3d(cfg, mesh, advect_mode="exact")(
+        shard_state_3d(ft.zero_state(cfg), mesh), shard_state_3d(src, mesh)))
+    for a, b in zip(got, ft.step3(cfg, ft.zero_state(cfg), src)):
+        assert a.dtype == BF16 and torch.equal(a, b)
 
 
 def test_state_from_numpy_carries_a_jax_bf16_3d_state():
