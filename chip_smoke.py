@@ -308,12 +308,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    bit), every tiled call also against the same call on the per-sweep
    K5's bf16 form; each form timed beside its bound in 2-byte storage, its
    float32 form on the same values, its plain twin and, for K6,
-   ``grid_sample`` on bf16; then ``StableFluids3D`` in bf16 at 256³
+   ``grid_sample`` on bf16; the per-sweep K5's timed calls (one sweep,
+   the 20-sweep u solve) in its vector form and its one-cell form, each
+   bit for bit with the twin, timed in turns beside the float32 form,
+   with their launches by width (``sweep3_forms``); then
+   ``StableFluids3D`` in bf16 at 256³
    (``bf16_3d_path``), parity (20 iterations), compensated with fast math
    (the tiled K5) and windowed parity (4 cells), three steps each from the
    reference draw rounded to bf16: launches against
    ``expected_launches3`` (bf16 forms wherever a bf16 operand enters, the
-   float32 K5 for the pressure solves on the float32 divergence), the
+   float32 K5 for the pressure solves on the float32 divergence; every
+   per-sweep bf16 launch in the vector form), the
    state bf16, held to the plain twins' step (``_Ops3(cfg, plain=True)``)
    bit for bit and to the float32 step by ``bf16_bars``, max|div| after
    the first projection bf16 beside float32, eager and graph ms/step
@@ -325,13 +330,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    (``checks.kernel_checks_slab3_bf16``, bit for bit), every tiled call
    also against the same call on the per-sweep K13's bf16 form; each form
    timed beside its bound in 2-byte storage, its float32 form on the same
-   values, its plain twin and, for K14, ``grid_sample`` on bf16; then
+   values, its plain twin and, for K14, ``grid_sample`` on bf16; the
+   per-sweep K13's timed calls in both its forms (``sweep3_forms``); then
    ``make_sharded_step_fn_3d`` in bf16 at 256³ (``bf16_zslab_path``) on 8
    z-slabs (parity windowed by ``"auto"``, parity exact, compensated with
    fast math) and 32 of 8 planes (compensated with fast math), two steps
    each from the reference draw rounded to bf16: launches against
    ``expected_launches_sharded3`` (the bf16 forms, the float32 K13 for the
-   pressure solves and no other float32 form), the state bf16, held to
+   pressure solves and no other float32 form; every per-sweep bf16 launch
+   in the vector form), the state bf16, held to
    the plain twins' z-slab step (``_ZSlabStep(..., plain=True)``) bit for
    bit and to the float32 z-slab step by ``bf16_bars``, the exact run to
    the single-device bf16 step bit for bit, eager and graph ms/step
@@ -3012,7 +3019,9 @@ def bf16_3d_phase(parity3, comp3, card: str, errs: dict[str, float],
     twins at 256³, bit for bit, every tiled K5 call also against the same
     call on the per-sweep K5; each form timed beside its bound in 2-byte
     storage, its float32 form, its plain twin and, for K6, ``grid_sample``
-    on bf16; then the bf16 3-D step at 256³ (``bf16_3d_path``): parity
+    on bf16, the per-sweep K5's also in its one-cell form
+    (``sweep3_forms``); then the bf16 3-D step at 256³ (``bf16_3d_path``):
+    parity
     (20 iterations), compensated with fast math (the tiled K5) and
     windowed parity (4 cells).  Returns the launches of its runs."""
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
@@ -3024,6 +3033,7 @@ def bf16_3d_phase(parity3, comp3, card: str, errs: dict[str, float],
     timed = checks.timing_checks3_bf16(256, "cuda", SEED)
     timed_against_both(timed, 0.0, errs)
     times.update(kernel_times(timed, "256³, bf16", card))
+    sweep3_forms(timed, "jacobi3_sweep_bf16", card, errs)
     del timed
     total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
     rho, k_d, k_p = comp3.cheby_rho, comp3.cheby_iters, comp3.press_cheby_iters
@@ -3071,15 +3081,20 @@ def bf16_3d_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
 
     torch.cuda.synchronize()
     cuda_ops.reset_launch_counts()
+    cuda_ops.reset_width_counts()
     got = run(c16, *draw16)
     torch.cuda.synchronize()
     counts = cuda_ops.launch_counts()
+    widths = cuda_ops.width_counts()["jacobi3_sweep_bf16"]
     per_step = expected_launches3(c16)
     want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
     print(f"{label}: launches {({k: c for k, c in counts.items() if c})} "
-          f"(expected {({k: c for k, c in want.items() if c})})")
+          f"(expected {({k: c for k, c in want.items() if c})}); "
+          f"jacobi3_sweep_bf16 by width {widths}")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if widths[1]:
+        raise AssertionError(f"{label}: one-cell K5 launches {widths}")
     if any(f.dtype != torch.bfloat16 for f in got):
         raise AssertionError(f"{label}: the state left bf16")
     twins = run(c16, *draw16, _Ops3(c16, plain=True))
@@ -3105,6 +3120,51 @@ def bf16_3d_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
     return counts
 
 
+def sweep3_forms(check_list, kernel: str, card: str,
+                 errs: dict[str, float]) -> None:
+    """Phases 21-22: each timing check whose solves take the per-sweep K5
+    or K13's bf16 form (``kernel``) in both of its forms, the vector form
+    the path takes (``cuda_ops.VECTOR_WIDTHS``, ``csrc/jacobi3_walk.cuh``)
+    and the one-cell form (``vector_widths((1,))``): each held to the
+    plain twin bit for bit, its launches by width (every one in its form's
+    width), and the two timed in turns beside the float32 form on the same
+    values (device ms, CUDA graphs of 20 calls)."""
+    from fluidsimulationcuda_torch.kernels import checks, cuda_ops
+
+    width = cuda_ops.VECTOR_WIDTHS[kernel][0]
+    forms = {f"V={width}": None, "one-cell": (1,)}
+
+    def run(c, widths):
+        with (contextlib.nullcontext() if widths is None
+              else cuda_ops.vector_widths(widths)):
+            return c.run()
+
+    for c in [c for c in check_list if c.kernels == (kernel,)]:
+        want = c.plain()
+        counts = {}
+        for name, widths in forms.items():
+            cuda_ops.reset_width_counts()
+            got = run(c, widths)
+            torch.cuda.synchronize()
+            counts[name] = cuda_ops.width_counts()[kernel]
+            err = checks.max_abs_diff(got, want)
+            form_width = 1 if widths else width
+            if err != 0.0 or counts[name][form_width] != sum(
+                    counts[name].values()):
+                raise AssertionError(f"{c.label} {name}: max|d| {err}, "
+                                     f"launches by width {counts[name]}")
+            errs[kernel] = max(errs[kernel], err)
+        ms = dict.fromkeys(forms, 0.0)
+        for name in [*forms, *reversed(forms)]:
+            ms[name] += checks.device_ms(lambda: run(c, forms[name])) / 2
+        f32 = checks.device_ms(c.counterpart)
+        vec, one = ms[f"V={width}"], ms["one-cell"]
+        print(f"  {c.label}: V={width} {vec:.5f} ms, one-cell {one:.5f} "
+              f"({one / vec:.2f}x), float32 form {f32:.5f} (bf16 V={width} "
+              f"{vec / f32:.3f}x it); each bit for bit with the plain twin; "
+              f"launches by width {counts} ({card})")
+
+
 def bf16_zslab_phase(parity3, comp3, card: str, errs: dict[str, float],
                      times: dict) -> dict[str, int]:
     """Phase 22: the bf16 forms of K13 (per-sweep and the tiled slab walk),
@@ -3112,7 +3172,8 @@ def bf16_zslab_phase(parity3, comp3, card: str, errs: dict[str, float],
     top, interior and bottom slabs of 32 planes of 256³, bit for bit,
     every tiled call also against the same call on the per-sweep K13's
     bf16 form; each form timed beside its bound in 2-byte storage, its
-    float32 form, its plain twin and, for K14, ``grid_sample`` on bf16;
+    float32 form, its plain twin and, for K14, ``grid_sample`` on bf16,
+    the per-sweep K13's also in its one-cell form (``sweep3_forms``);
     then the bf16 z-slab step at 256³ (``bf16_zslab_path``) on 8 slabs:
     parity windowed (``"auto"``), parity exact, compensated with fast
     math; and compensated with fast math on 32 slabs of 8 planes, whose
@@ -3127,6 +3188,7 @@ def bf16_zslab_phase(parity3, comp3, card: str, errs: dict[str, float],
     timed = checks.timing_checks_slab3_bf16(256, 32, "cuda", SEED)
     timed_against_both(timed, 0.0, errs)
     times.update(kernel_times(timed, "256³, slab of 32 planes, bf16", card))
+    sweep3_forms(timed, "jacobi3_slab_bf16", card, errs)
     del timed
     total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
     rho, k_d, k_p = comp3.cheby_rho, comp3.cheby_iters, comp3.press_cheby_iters
@@ -3195,19 +3257,24 @@ def bf16_zslab_path(cfg, slabs: int, label: str, card: str, steps: int,
 
     torch.cuda.synchronize()
     cuda_ops.reset_launch_counts()
+    cuda_ops.reset_width_counts()
     last, disps = run(step_fn, *cut16, audited=True)
     torch.cuda.synchronize()
     counts = cuda_ops.launch_counts()
+    widths = cuda_ops.width_counts()["jacobi3_slab_bf16"]
     per_step = expected_launches_sharded3(c16, slabs, exact)
     want = {k: steps * per_step.get(k, 0) for k in cuda_ops.KERNELS}
     float32_forms = {k for k, c in counts.items()
                      if c and not k.endswith("_bf16")}
     print(f"{label}: launches {({k: c for k, c in counts.items() if c})} "
-          f"(expected {({k: c for k, c in want.items() if c})}); float32 "
+          f"(expected {({k: c for k, c in want.items() if c})}); "
+          f"jacobi3_slab_bf16 by width {widths}; float32 "
           f"forms {sorted(float32_forms)} (the pressure solves'); audited "
           f"displacement {max(disps):.4f} cells (window {cfg.max_courant})")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if widths[1]:
+        raise AssertionError(f"{label}: one-cell K13 launches {widths}")
     if not float32_forms <= {"jacobi3_slab", "jacobi3_slab_sweeps"}:
         raise AssertionError(f"{label}: float32 forms {float32_forms}")
     got = unshard(last)

@@ -261,6 +261,9 @@ struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
 // The vector types and reads of the bf16 forms' vector kernels.
 struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }

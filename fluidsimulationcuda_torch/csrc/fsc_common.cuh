@@ -171,6 +171,20 @@ __device__ __forceinline__ void store_vec(bf16* __restrict__ p, int i,
   }
 }
 
+template <int V>
+__device__ __forceinline__ void store_vec(float* __restrict__ p, int i,
+                                          const float (&o)[V]) {
+  static_assert(V == 2 || V == 4 || V == 8, "a vector of 2, 4 or 8 cells");
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p + i) = make_float2(o[0], o[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; k += 4)
+      *reinterpret_cast<float4*>(p + i + k) =
+          make_float4(o[k], o[k + 1], o[k + 2], o[k + 3]);
+  }
+}
+
 // p[g] and p[g + 1] of a 4-byte aligned bf16 array: one 4-byte load where
 // g is even, two 2-byte loads where it is odd.
 __device__ __forceinline__ void load_pair(const bf16* __restrict__ p, int g,
@@ -410,13 +424,20 @@ __device__ __forceinline__ float cheby_combine(float w, float val,
   return w * val + (1.0f - w) * prev;
 }
 
+// The Jacobi update of a cell from its neighbour sum and rhs value r.
+template <typename TX, typename TM, typename TR>
+__device__ __forceinline__ float jacobi_update(
+    const SweepParamsT<TX, TM, TR>& p, float neigh, float r) {
+  return (p.flags & kFast) ? fmaf(p.ab, neigh, r)
+                           : (r + p.alpha * neigh) / p.beta;
+}
+
 // x_{k+1} at interior cell c from its neighbour sum and rhs value r: the
 // Jacobi update, then the Chebyshev combine read pointwise.
 template <typename TX, typename TM, typename TR>
 __device__ __forceinline__ float sweep_update(
     const SweepParamsT<TX, TM, TR>& p, int c, float neigh, float r) {
-  float val = (p.flags & kFast) ? fmaf(p.ab, neigh, r)
-                                : (r + p.alpha * neigh) / p.beta;
+  float val = jacobi_update(p, neigh, r);
   if (p.flags & kCheby)
     val = cheby_combine(p.w, val, p.xm ? load(p.xm, c) : 0.0f);
   return val;

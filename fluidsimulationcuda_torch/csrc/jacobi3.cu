@@ -25,7 +25,13 @@
 // a Chebyshev solve's second the bf16 guess as x_{k-1}, the middle sweeps
 // float32 scratch, and its last writes bf16: each a template
 // instantiation over the types of x, x_{k-1} and out, chosen at launch.
+// It runs in the vector form of jacobi3_walk.cuh, 4 cells of a row a
+// thread walking 3 planes in z (jacobi3_sweep_vec_kernel; 0.64-0.70x the
+// one-cell kernel's time and 0.70-0.77x the float32 form's at 256^3,
+// PERF.md), or, where the wrapper finds no width for the side and the
+// operands, one cell a thread (jacobi3_sweep_kernel).
 #include "fsc_common.cuh"
+#include "jacobi3_walk.cuh"
 
 namespace {
 
@@ -49,13 +55,26 @@ __global__ void jacobi3_sweep_kernel(fsc::SweepParamsT<TX, TM, TR> p,
   fsc::store(out, o, fsc::border_value3(val, k, i, j, side, b));
 }
 
+// The vector form over the whole volume: planes [0, side), the wall ghost
+// planes 0 and side-1.
+template <typename TX, typename TM, typename TO>
+__global__ void __launch_bounds__(fsc::kBlockX * fsc::kBlockY)
+    jacobi3_sweep_vec_kernel(fsc::SweepParamsT<TX, TM, fsc::bf16> p,
+                             TO* __restrict__ out,
+                             fsc::bf16* __restrict__ rhs_out, int side, int b,
+                             int lo, int hi, int gtop, int gbot, int walk) {
+  fsc::sweep3_walk<fsc::kSweep3Width>(p, out, rhs_out, side, b, lo, hi,
+                                      gtop, gbot, walk);
+}
+
 // One bf16-form sweep: x and src stored as TX, x_{k-1} as TM, out as TO;
-// rhs and rhs_out bf16.
+// rhs and rhs_out bf16; width cells a thread (1: the one-cell kernel).
 template <typename TX, typename TM, typename TO>
 int launch_bf16(const void* x, const void* rhs, const void* src,
                 const void* xm, void* out, void* rhs_out, int side, int b,
                 float alpha, float beta, float ab, float inv_b, float src_dt,
-                float w, int flags, cudaStream_t stream) {
+                float w, int flags, int width, int walk,
+                cudaStream_t stream) {
   fsc::SweepParamsT<TX, TM, fsc::bf16> p;
   p.x = static_cast<const TX*>(x);
   p.rhs = static_cast<const fsc::bf16*>(rhs);
@@ -68,22 +87,30 @@ int launch_bf16(const void* x, const void* rhs, const void* src,
   p.src_dt = src_dt;
   p.w = w;
   p.flags = flags;
-  const auto kernel = jacobi3_sweep_kernel<TX, TM, fsc::bf16, TO>;
-  kernel<<<fsc::grid_dim3(side), fsc::block_dim(), 0, stream>>>(
-      p, static_cast<TO*>(out), static_cast<fsc::bf16*>(rhs_out), side, b);
-  return static_cast<int>(cudaGetLastError());
+  auto* o = static_cast<TO*>(out);
+  auto* ro = static_cast<fsc::bf16*>(rhs_out);
+  if (width == 1) {
+    const auto kernel = jacobi3_sweep_kernel<TX, TM, fsc::bf16, TO>;
+    kernel<<<fsc::grid_dim3(side), fsc::block_dim(), 0, stream>>>(
+        p, o, ro, side, b);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (width != fsc::kSweep3Width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fsc::launch_walk(jacobi3_sweep_vec_kernel<TX, TM, TO>, p, o, ro, side,
+                          b, 0, side, 0, side - 1, walk, stream);
 }
 
 template <typename TX, typename TM>
 int launch_bf16_out(bool out_bf16, const void* x, const void* rhs,
                     const void* src, const void* xm, void* out, void* rhs_out,
                     int side, int b, float alpha, float beta, float ab,
-                    float inv_b, float src_dt, float w, int flags,
-                    cudaStream_t stream) {
+                    float inv_b, float src_dt, float w, int flags, int width,
+                    int walk, cudaStream_t stream) {
   const auto launch = out_bf16 ? launch_bf16<TX, TM, fsc::bf16>
                                : launch_bf16<TX, TM, float>;
   return launch(x, rhs, src, xm, out, rhs_out, side, b, alpha, beta, ab,
-                inv_b, src_dt, w, flags, stream);
+                inv_b, src_dt, w, flags, width, walk, stream);
 }
 
 }  // namespace
@@ -106,14 +133,18 @@ extern "C" int fsc_jacobi3_sweep(const float* x, const float* rhs,
 
 // The bf16 form: rhs (and rhs_out) hold bf16; types says which of x (1),
 // xm (2) and out (4) hold bf16, the others float32.  src is stored as x.
-// Returns cudaGetLastError() after the launch.
+// width is the cells a thread: 1 runs the one-cell kernel, 4
+// (fsc::kSweep3Width) the vector form, each thread walking `walk` planes,
+// which takes side a multiple of 4 and every operand aligned to its 4-cell
+// access; anything else is refused with cudaErrorInvalidValue.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int fsc_jacobi3_sweep_bf16(const void* x, const void* rhs,
                                       const void* src, const void* xm,
                                       void* out, void* rhs_out, int side,
                                       int b, float alpha, float beta,
                                       float ab, float inv_b, float src_dt,
                                       float w, int flags, int types,
-                                      void* stream) {
+                                      int width, int walk, void* stream) {
   const bool out_bf16 = (types & 4) != 0;
   const auto launch =
       (types & 1) ? ((types & 2) ? launch_bf16_out<fsc::bf16, fsc::bf16>
@@ -121,6 +152,6 @@ extern "C" int fsc_jacobi3_sweep_bf16(const void* x, const void* rhs,
                   : ((types & 2) ? launch_bf16_out<float, fsc::bf16>
                                  : launch_bf16_out<float, float>);
   return launch(out_bf16, x, rhs, src, xm, out, rhs_out, side, b, alpha, beta,
-                ab, inv_b, src_dt, w, flags,
+                ab, inv_b, src_dt, w, flags, width, walk,
                 static_cast<cudaStream_t>(stream));
 }

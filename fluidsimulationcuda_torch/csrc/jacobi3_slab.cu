@@ -36,8 +36,12 @@
 // first sweep of a solve reads the caller's bf16 guess, a Chebyshev
 // solve's second the bf16 guess as x_{k-1}, every other sweep float32
 // scratch: each a template instantiation over the types of x, x_{k-1} and
-// out, chosen at launch.
+// out, chosen at launch.  It runs in K5's vector form (jacobi3_walk.cuh,
+// jacobi3_slab_vec_kernel) on the plane range, or one cell a thread
+// (jacobi3_slab_kernel) where the wrapper finds no width for the side and
+// the operands.
 #include "fsc_common.cuh"
+#include "jacobi3_walk.cuh"
 
 namespace {
 
@@ -62,14 +66,25 @@ __global__ void jacobi3_slab_kernel(fsc::SweepParamsT<TX, TM, TR> p,
              fsc::slab_border_value3(val, k, i, j, side, gtop, gbot, b));
 }
 
+// The vector form over planes [lo, hi) of the buffer.
+template <typename TX, typename TM, typename TO>
+__global__ void __launch_bounds__(fsc::kBlockX * fsc::kBlockY)
+    jacobi3_slab_vec_kernel(fsc::SweepParamsT<TX, TM, fsc::bf16> p,
+                            TO* __restrict__ out,
+                            fsc::bf16* __restrict__ rhs_out, int side, int b,
+                            int lo, int hi, int gtop, int gbot, int walk) {
+  fsc::sweep3_walk<fsc::kSweep3Width>(p, out, rhs_out, side, b, lo, hi,
+                                      gtop, gbot, walk);
+}
+
 // One bf16-form sweep: x and src stored as TX, x_{k-1} as TM, out as TO;
-// rhs and rhs_out bf16.
+// rhs and rhs_out bf16; width cells a thread (1: the one-cell kernel).
 template <typename TX, typename TM, typename TO>
 int launch_bf16(const void* x, const void* rhs, const void* src,
                 const void* xm, void* out, void* rhs_out, int side, int b,
                 float alpha, float beta, float ab, float inv_b, float src_dt,
                 float w, int flags, int lo, int hi, int gtop, int gbot,
-                cudaStream_t stream) {
+                int width, int walk, cudaStream_t stream) {
   fsc::SweepParamsT<TX, TM, fsc::bf16> p;
   p.x = static_cast<const TX*>(x);
   p.rhs = static_cast<const fsc::bf16*>(rhs);
@@ -82,12 +97,18 @@ int launch_bf16(const void* x, const void* rhs, const void* src,
   p.src_dt = src_dt;
   p.w = w;
   p.flags = flags;
-  const auto kernel = jacobi3_slab_kernel<TX, TM, fsc::bf16, TO>;
-  kernel<<<fsc::slab_grid_dim3(side, hi - lo), fsc::block_dim(), 0,
-           stream>>>(p, static_cast<TO*>(out),
-                     static_cast<fsc::bf16*>(rhs_out), side, b, lo, gtop,
-                     gbot);
-  return static_cast<int>(cudaGetLastError());
+  auto* o = static_cast<TO*>(out);
+  auto* ro = static_cast<fsc::bf16*>(rhs_out);
+  if (width == 1) {
+    const auto kernel = jacobi3_slab_kernel<TX, TM, fsc::bf16, TO>;
+    kernel<<<fsc::slab_grid_dim3(side, hi - lo), fsc::block_dim(), 0,
+             stream>>>(p, o, ro, side, b, lo, gtop, gbot);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (width != fsc::kSweep3Width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fsc::launch_walk(jacobi3_slab_vec_kernel<TX, TM, TO>, p, o, ro, side,
+                          b, lo, hi, gtop, gbot, walk, stream);
 }
 
 template <typename TX, typename TM>
@@ -95,11 +116,13 @@ int launch_bf16_out(bool out_bf16, const void* x, const void* rhs,
                     const void* src, const void* xm, void* out, void* rhs_out,
                     int side, int b, float alpha, float beta, float ab,
                     float inv_b, float src_dt, float w, int flags, int lo,
-                    int hi, int gtop, int gbot, cudaStream_t stream) {
+                    int hi, int gtop, int gbot, int width, int walk,
+                    cudaStream_t stream) {
   const auto launch = out_bf16 ? launch_bf16<TX, TM, fsc::bf16>
                                : launch_bf16<TX, TM, float>;
   return launch(x, rhs, src, xm, out, rhs_out, side, b, alpha, beta, ab,
-                inv_b, src_dt, w, flags, lo, hi, gtop, gbot, stream);
+                inv_b, src_dt, w, flags, lo, hi, gtop, gbot, width, walk,
+                stream);
 }
 
 }  // namespace
@@ -125,15 +148,17 @@ extern "C" int fsc_jacobi3_slab(const float* x, const float* rhs,
 }
 
 // The bf16 form: rhs (and rhs_out) hold bf16; types says which of x (1),
-// xm (2) and out (4) hold bf16, the others float32 (fsc_jacobi3_sweep_bf16's
-// types).  src is stored as x.  The other arguments are fsc_jacobi3_slab's.
+// xm (2) and out (4) hold bf16, the others float32, and width and walk
+// choose the form (fsc_jacobi3_sweep_bf16's).  src is stored as x.  The
+// other arguments are fsc_jacobi3_slab's.
 extern "C" int fsc_jacobi3_slab_bf16(const void* x, const void* rhs,
                                      const void* src, const void* xm,
                                      void* out, void* rhs_out, int side,
                                      int b, float alpha, float beta, float ab,
                                      float inv_b, float src_dt, float w,
                                      int flags, int lo, int hi, int gtop,
-                                     int gbot, int types, void* stream) {
+                                     int gbot, int types, int width, int walk,
+                                     void* stream) {
   if (hi <= lo) return 0;
   const bool out_bf16 = (types & 4) != 0;
   const auto launch =
@@ -142,6 +167,6 @@ extern "C" int fsc_jacobi3_slab_bf16(const void* x, const void* rhs,
                   : ((types & 2) ? launch_bf16_out<float, fsc::bf16>
                                  : launch_bf16_out<float, float>);
   return launch(out_bf16, x, rhs, src, xm, out, rhs_out, side, b, alpha, beta,
-                ab, inv_b, src_dt, w, flags, lo, hi, gtop, gbot,
+                ab, inv_b, src_dt, w, flags, lo, hi, gtop, gbot, width, walk,
                 static_cast<cudaStream_t>(stream));
 }

@@ -87,7 +87,7 @@ _SIGNATURES = {
                                _F, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P],
     "fsc_jacobi3_sweep_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
-                               _F, _F, _F, _I, _I, _P],
+                               _F, _F, _F, _I, _I, _I, _I, _P],
     "fsc_jacobi3_sweeps_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
                                 _F, _F, _F, _P, _I, _I, _I, _I, _P],
     "fsc_divergence3": [_P, _P, _P, _P, _I, _F, _P],
@@ -114,15 +114,17 @@ _SIGNATURES = {
                            _F, _P],
 }
 # The bf16 forms of the block kernels, of K6-K8 and of K14-K16 take their
-# float32 forms' arguments; K13's, those and the operand types.
+# float32 forms' arguments; K13's, those and the operand types (and the
+# per-sweep K13's, the width and the walk).
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "fsc_jacobi_block_sweeps", "fsc_advect_block", "fsc_advect_block_exact",
     "fsc_divergence_block", "fsc_gradient_block", "fsc_advect3",
     "fsc_divergence3", "fsc_gradient3", "fsc_advect3_slab",
     "fsc_advect3_slab_exact", "fsc_divergence3_slab", "fsc_gradient3_slab")})
-_SIGNATURES.update({f"{name}_bf16": [*_SIGNATURES[name][:-1], _I, _P]
-                    for name in ("fsc_jacobi3_slab",
-                                 "fsc_jacobi3_slab_sweeps")})
+_SIGNATURES["fsc_jacobi3_slab_sweeps_bf16"] = [
+    *_SIGNATURES["fsc_jacobi3_slab_sweeps"][:-1], _I, _P]
+_SIGNATURES["fsc_jacobi3_slab_bf16"] = [*_SIGNATURES["fsc_jacobi3_slab"][:-1],
+                                        _I, _I, _I, _P]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

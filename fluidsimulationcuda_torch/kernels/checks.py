@@ -1006,8 +1006,8 @@ BF16_FORM_FIELDS = ("b=0", "b=1", "b=2", "u/v pair")
 # Every form of the two vector kernels, by kernel: the cells a thread,
 # the path's widths (cuda_ops.VECTOR_WIDTHS) and 1, the one-cell kernel;
 # cuda_ops.vector_widths((V,)) forces one.
-BF16_FORMS = {name: widths + (1,)
-              for name, widths in co.VECTOR_WIDTHS.items()}
+BF16_FORMS = {name: co.VECTOR_WIDTHS[name] + (1,)
+              for name in ("advect_bf16", "gradient_bf16")}
 
 
 def kernel_checks_bf16_forms(side: int, device, seed: int = 0,

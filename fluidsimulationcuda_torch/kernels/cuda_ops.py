@@ -193,15 +193,27 @@ GROUP_TILES = ((16_000_000, 64), (0, 32))
 # damped K1 (dev/bench_slab_smooth.py --odd, PERF.md).
 LONG_SOLVE_CELLS = 1_000_000
 # The cells a thread of the bf16 forms' vector kernels (K3's
-# advect_vec_kernel, K2's gradient_vec_kernel) may take, by kernel, largest
-# first (vector_width); 1 is the one-cell kernel.  Chosen by measurement on
-# the H100 (dev/bench_bf16_stencils.py, PERF.md §6): K3 at V = 4 took
+# advect_vec_kernel, K2's gradient_vec_kernel, the per-sweep K5's and
+# K13's jacobi3_sweep_vec_kernel and jacobi3_slab_vec_kernel) may take, by
+# kernel, largest first (vector_width); 1 is the one-cell kernel.  K3's
+# and K2's were chosen by measurement on the H100
+# (dev/bench_bf16_stencils.py, PERF.md §6): K3 at V = 4 took
 # 18-22% less time than at V = 8 on the step's velocities and stayed
 # within 5.3% of it on smooth and shear ones, so its V = 8 form is not
 # built (V = 2 was the fastest only on random velocities over the
 # window); the gradient took V = 8 and 4 within 7% of each other, V = 8
 # the faster on a bf16 pressure.
-VECTOR_WIDTHS = {"advect_bf16": (4, 2), "gradient_bf16": (8, 4, 2)}
+# The per-sweep bf16 K5 and K13 (csrc/jacobi3_walk.cuh) take V = 4, each
+# thread walking SWEEP3_WALK planes in z, chosen with it by measurement on
+# the H100 (dev/bench_sweep3_bf16.py, PERF.md §6): at V = 4 and a walk of
+# 3 the 20-sweep u solve at 256³ took 1.371 ms (float32 1.797), the
+# z-slab segment 0.301 (0.397), the bf16 parity steps 10.15 and, on 8
+# z-slabs, 19.84 ms as graphs (float32 11.80, 22.22); walks of 2 and 4
+# within 3% of it, walks of 1 and 6 3.5-14% slower; V = 8 at its best
+# walk 3-6% slower, V = 2 slower still.
+VECTOR_WIDTHS = {"advect_bf16": (4, 2), "gradient_bf16": (8, 4, 2),
+                 "jacobi3_sweep_bf16": (4,), "jacobi3_slab_bf16": (4,)}
+SWEEP3_WALK = 3
 # Launches of each bf16 vector kernel by its width since
 # reset_width_counts().
 _width_launches = {name: dict.fromkeys(widths + (1,), 0)
@@ -353,7 +365,7 @@ def vector_width(kernel: str, side: int, *tensors: torch.Tensor) -> int:
 
 @contextlib.contextmanager
 def vector_widths(widths: tuple[int, ...]):
-    """Let K3's and K2's bf16 vector kernels take only ``widths``, the
+    """Let every bf16 vector kernel take only ``widths``, the
     first that the operands allow (``(1,)`` or ``()``: the one-cell
     kernel), whatever ``VECTOR_WIDTHS`` says: the forms
     (``checks.BF16_FORMS``) the tests hold and
@@ -368,9 +380,10 @@ def vector_widths(widths: tuple[int, ...]):
 
 
 def width_counts() -> dict[str, dict[int, int]]:
-    """Launches of ``advect_bf16`` and ``gradient_bf16`` by the cells a
-    thread took (one of its ``VECTOR_WIDTHS`` or 1) since the last
-    ``reset_width_counts``."""
+    """Launches of each bf16 vector kernel (``advect_bf16``,
+    ``gradient_bf16``, ``jacobi3_sweep_bf16``, ``jacobi3_slab_bf16``) by
+    the cells a thread took (one of its ``VECTOR_WIDTHS`` or 1) since the
+    last ``reset_width_counts``."""
     return {name: dict(counts) for name, counts in _width_launches.items()}
 
 
@@ -718,15 +731,27 @@ class _Sweeps:
     def sweep(self, lib, *geometry: int) -> None:
         """One launch; ``geometry`` goes between the sweep scalars and the
         stream (K1's batch and boundary split and ``omw``, the slab
-        kernel's row range and wall rows)."""
+        kernel's row range and wall rows).  The bf16 forms of K5 and K13
+        take the width ``vector_width`` gives their operands and walk
+        ``SWEEP3_WALK`` planes a thread."""
         last = self.bf16 and self.final and self.k + 1 == self.end
         out = torch.empty_like(self.rhs) if last else self._scratch()
         rhs_out = torch.empty_like(self.rhs) if self.prep else None
-        types = (self._types(out),) if self.bf16 else ()
         x, rhs, src, xm, *scalars = self.next_args()
-        _launch(self.count, getattr(lib, self.symbol), x, rhs, src, xm,
-                out.data_ptr(), _ptr(rhs_out), self.side, self.b, *scalars,
-                *geometry, *types, self.stream)
+        args = (getattr(lib, self.symbol), x, rhs, src, xm, out.data_ptr(),
+                _ptr(rhs_out), self.side, self.b, *scalars, *geometry)
+        if not self.bf16:
+            _launch(self.count, *args, self.stream)
+        elif self.count in VECTOR_WIDTHS:
+            cheby = self.omegas is not None and self.k >= 1
+            operands = (self.x, self.rhs, self.src if self.prep else None,
+                        self.xm if cheby else None, out, rhs_out)
+            width = vector_width(self.count, self.side,
+                                 *(t for t in operands if t is not None))
+            _launch_vector(self.count, width, *args, self._types(out), width,
+                           SWEEP3_WALK, self.stream)
+        else:
+            _launch(self.count, *args, self._types(out), self.stream)
         if self.prep:
             self.rhs, self.prep = rhs_out, False
         if self.omegas is not None:

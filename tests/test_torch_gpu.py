@@ -1555,3 +1555,85 @@ def test_bf16_zslab_step_256_launches_only_bf16_forms(cuda, mode):
     if exact:
         for a, b in zip(got, ft.step3(cfg, state, src)):
             assert torch.equal(a, b)
+
+
+def _widths_and_result(run, kernel, widths=None):
+    """``run()`` in the path's widths (or inside ``vector_widths(widths)``):
+    (its result, its launches of ``kernel`` by width)."""
+    forced = (contextlib.nullcontext() if widths is None
+              else cuda_ops.vector_widths(widths))
+    with forced:
+        cuda_ops.reset_width_counts()
+        got = run()
+        torch.cuda.synchronize()
+        return got, cuda_ops.width_counts()[kernel]
+
+
+@pytest.mark.parametrize("mz", [0, 32, 8],
+                         ids=["256³", "8 z-slabs of 256³",
+                              "32 z-slabs of 256³"])
+def test_bf16_per_sweep_3d_vector_form_equals_one_cell(cuda, mz):
+    """Every call of ``checks.kernel_checks3_bf16`` (256³) or
+    ``kernel_checks_slab3_bf16`` (top, interior and bottom slabs of ``mz``
+    planes of 256³) whose solves take the per-sweep K5 or K13's bf16 form:
+    every launch in the vector form (width 4, ``cuda_ops.width_counts``),
+    bit for bit with the same call in the one-cell form
+    (``vector_widths((1,))``)."""
+    if mz:
+        forms = checks.kernel_checks_slab3_bf16(256, mz, cuda, seed=mz)
+        kernel = "jacobi3_slab_bf16"
+    else:
+        forms = checks.kernel_checks3_bf16(256, cuda, seed=0)
+        kernel = "jacobi3_sweep_bf16"
+    calls = [c for c in forms if c.kernels == (kernel,)]
+    assert len(calls) >= 19
+    for check in calls:
+        got, widths = _widths_and_result(check.run, kernel)
+        want, one_cell = _widths_and_result(check.run, kernel, (1,))
+        assert widths[1] == 0 and widths[4] > 0, (check.label, widths)
+        assert one_cell == {4: 0, 1: widths[4]}, (check.label, one_cell)
+        for g, w in zip(checks._as_tuple(got), checks._as_tuple(want)):
+            assert g.dtype == w.dtype and torch.equal(g, w), check.label
+
+
+@pytest.mark.parametrize("slabs", [0, 8, 32])
+def test_bf16_step3_256_takes_the_vector_form(cuda, slabs):
+    """The bf16 3-D steps at 256³ (parity on one volume and on 8 z-slabs,
+    compensated with fast math on 32 z-slabs of 8 planes, whose segments
+    keep the per-sweep K13): the launches ``chip_smoke`` counts (80 and
+    640 per-sweep bf16 launches a parity step), every per-sweep bf16
+    launch at width 4, the state bit for bit with the one-cell form's."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import (
+        make_mesh, make_sharded_step_fn_3d, shard_state_3d, unshard)
+
+    kw = dict(COMP3, fast_math=True) if slabs == 32 else {}
+    cfg = ft.SimConfig(n=254, ndim=3, jacobi_iters=20, backend="cuda",
+                       device=cuda, dtype=torch.bfloat16, **kw)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    if slabs:
+        mesh = make_mesh([torch.device(cuda)] * slabs)
+        step = make_sharded_step_fn_3d(cfg, mesh)
+        cut = [shard_state_3d(t, mesh) for t in (state, src)]
+        want_counts = chip_smoke.expected_launches_sharded3(
+            cfg, slabs, step.advect_mode == "exact")
+        kernel = "jacobi3_slab_bf16"
+
+        def run():
+            return unshard(step(*cut))
+    else:
+        want_counts = chip_smoke.expected_launches3(cfg)
+        kernel = "jacobi3_sweep_bf16"
+
+        def run():
+            return ft.StableFluids3D(cfg).step(state, src)
+    if slabs != 32:
+        assert want_counts[kernel] == (640 if slabs else 80)
+    cuda_ops.reset_launch_counts()
+    got, widths = _widths_and_result(run, kernel)
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0), **want_counts}
+    assert widths == {4: want_counts[kernel], 1: 0}
+    want, _ = _widths_and_result(run, kernel, (1,))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
