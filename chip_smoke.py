@@ -26,14 +26,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``fused_jacobi_pair`` (B12, the u/v diffusion stacked on the batch axis)
    against two ``fused_jacobi`` calls, bit for bit, on a stack of two 258²
    grids and of two 2048² grids, timed beside them;
-3b. every 3-D kernel the same way at 256³; every 3-D solve check that
-   takes the tiled K5 (``cuda_ops.tiled3``: the fast Chebyshev solves, its
-   one mode) against the same call on the per-sweep K5
+3b. every 3-D kernel the same way at 256³; every 3-D solve check in the
+   tiled K5's one mode (the fast Chebyshev solves, which the per-sweep
+   K5's vector walk takes at 256³, ``cuda_ops.tiled3``) run on the tiled
+   K5 against the same call on the per-sweep K5
    (``checks.per_sweep_checks``) bit for bit; each solve timed on the
-   kernel its path takes, each tiled call beside the per-sweep chain and
-   held to it and to its plain version (the tiled K5's one launch of T3
-   sweeps labelled ``jacobi3_sweeps``, the per-sweep K5's one sweep
-   ``jacobi3_sweep``);
+   kernel its path takes, each fast Chebyshev call on the tiled K5 beside
+   the per-sweep chain and held to it and to its plain version (the tiled
+   K5's one launch of T3 sweeps labelled ``jacobi3_sweeps``, the per-sweep
+   K5's one sweep ``jacobi3_sweep``); the per-sweep K5's timed calls (one
+   sweep, the 20-sweep u and pressure solves) in its vector walk and its
+   one-cell form, each bit for bit with the twin, timed in turns, with
+   their launches by width (``sweep3_forms``);
 3c. every row-slab kernel of the multi-device step against its plain twin
    for a top, an interior and a bottom slab of 256 rows at 2048²
    (max|Δ| <= 1e-5), in its Jacobi, Chebyshev and fast forms, the gathers
@@ -70,10 +74,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    to 24 cells (bit for bit; timed beside K14 and ``grid_sample``), the
    two stencils; K14 also on smooth, random and
    shear velocities in windows of 1 and 2, one field and the triple, bit
-   for bit; every segment that takes the tiled K13 against the same
-   segment on the per-sweep K13 bit for bit; timed beside bound and launch
-   floor (the segments as in 3b; K14 also on one field and on smooth and
-   shear velocities, beside ``grid_sample``);
+   for bit; every segment in the tiled K13's mode run on it against the
+   same segment on the per-sweep K13 bit for bit; timed beside bound and
+   launch floor (the segments as in 3b, the per-sweep K13's in both its
+   forms, ``sweep3_forms``; K14 also on one field and on smooth and shear
+   velocities, beside ``grid_sample``);
 3e. the two fused kernels no step calls (as in the JAX package): B13, the
    split-operand slab Jacobi (the tiled K9's first launch reading its
    tiles from the halo and slab operands, then the tiled K9), against K9
@@ -305,7 +310,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    K5 (per-sweep and tiled), K6 (exact and windowed, one field and the
    triple), K7 (into float32) and K8 (from a float32 pressure) against
    their plain twins at 256³ (``checks.kernel_checks3_bf16``, bit for
-   bit), every tiled call also against the same call on the per-sweep
+   bit), every call in the tiled kernel's mode also on it against the
+   same call on the per-sweep
    K5's bf16 form; each form timed beside its bound in 2-byte storage, its
    float32 form on the same values, its plain twin and, for K6,
    ``grid_sample`` on bf16; the per-sweep K5's timed calls (one sweep,
@@ -314,11 +320,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    with their launches by width (``sweep3_forms``); then
    ``StableFluids3D`` in bf16 at 256³
    (``bf16_3d_path``), parity (20 iterations), compensated with fast math
-   (the tiled K5) and windowed parity (4 cells), three steps each from the
+   and windowed parity (4 cells), three steps each from the
    reference draw rounded to bf16: launches against
    ``expected_launches3`` (bf16 forms wherever a bf16 operand enters, the
    float32 K5 for the pressure solves on the float32 divergence; every
-   per-sweep bf16 launch in the vector form), the
+   per-sweep launch in the vector form, ``require_walk``), the
    state bf16, held to the plain twins' step (``_Ops3(cfg, plain=True)``)
    bit for bit and to the float32 step by ``bf16_bars``, max|div| after
    the first projection bf16 beside float32, eager and graph ms/step
@@ -337,8 +343,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    fast math) and 32 of 8 planes (compensated with fast math), two steps
    each from the reference draw rounded to bf16: launches against
    ``expected_launches_sharded3`` (the bf16 forms, the float32 K13 for the
-   pressure solves and no other float32 form; every per-sweep bf16 launch
-   in the vector form), the state bf16, held to
+   pressure solves and no other float32 form; every per-sweep launch in
+   the vector form, ``require_walk``), the state bf16, held to
    the plain twins' z-slab step (``_ZSlabStep(..., plain=True)``) bit for
    bit and to the float32 z-slab step by ``bf16_bars``, the exact run to
    the single-device bf16 step bit for bit, eager and graph ms/step
@@ -363,15 +369,15 @@ from phase 3, 3b, 3c, 3d, 3e, 3f, 19, 20, 21 or 22,
 its device time beside its plain version's, and its bound; the bf16 forms
 are entries of their own (``jacobi_sweeps_bf16``, ``divergence_bf16``,
 ``gradient_bf16``, ``advect_bf16``: launches from phase 18's 2048² parity
-run and its datagen run, max|Δ| and times from phase 18; the tiled 3-D
-kernel's ``jacobi3_sweeps`` and ``jacobi3_slab_sweeps`` from phase 16's
-compensated run and phase 11's compensated 8-slab run, whose fast
-Chebyshev solves it takes; the tiled K9's ``jacobi_slab_sweeps`` from
-phase 10's 8-slab 2048² parity run).  The per-sweep K1's forms
-(``jacobi_sweep``, ``jacobi_sweep_bf16``, ``jacobi_sweep_damp``), the
-per-sweep K9 (``jacobi_slab``) and K18's one sweep (``jacobi_slab_split``),
-which the tiled K1, K1-damp, the tiled K9 and its split-source first
-launch replaced on every path, run on none and are left out of the line
+run and its datagen run, max|Δ| and times from phase 18; the tiled K9's
+``jacobi_slab_sweeps`` from phase 10's 8-slab 2048² parity run).  The
+per-sweep K1's forms (``jacobi_sweep``, ``jacobi_sweep_bf16``,
+``jacobi_sweep_damp``), the per-sweep K9 (``jacobi_slab``) and K18's one
+sweep (``jacobi_slab_split``), which the tiled K1, K1-damp, the tiled K9
+and its split-source first launch replaced on every path, and the tiled
+3-D kernel's four forms (``jacobi3_sweeps``, ``jacobi3_slab_sweeps`` and
+their bf16 forms), whose fast Chebyshev solves the per-sweep K5's and
+K13's vector walk took at 256³, run on none and are left out of the line
 (``OFF_PATH``): every path's launch counts hold them at 0.  Each timing
 times a plain version in a CUDA graph of ``PLAIN_REPS`` calls, once.  The last line
 is ``{"ok": true, "device": {...}}``.
@@ -530,8 +536,13 @@ PLAIN_REPS = 3
 # "before", and the kernels line leaves them out.  So too K18's one sweep,
 # which the split-source tiled K9 replaced (phase 3e holds and times it
 # beside that).
+# The tiled 3-D Jacobi's four forms too: the per-sweep K5's and K13's
+# vector walk took over the fast Chebyshev solves at 256³ (cuda_ops.tiled3),
+# and phases 3b, 3d, 21 and 22 hold and time them beside it.
 OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16", "jacobi_slab",
-            "jacobi_sweep_damp", "jacobi_slab_split")
+            "jacobi_sweep_damp", "jacobi_slab_split", "jacobi3_sweeps",
+            "jacobi3_slab_sweeps", "jacobi3_sweeps_bf16",
+            "jacobi3_slab_sweeps_bf16")
 
 
 def phase(title: str) -> None:
@@ -665,7 +676,7 @@ def k3_launches(cfg, mz: int | None = None) -> dict[str, int]:
         seg = (sweeps if mz is None
                else min(cfg.fuse_sweeps or 20, sweeps, mz - 1))
         planes = None if mz is None else mz + 2 * (seg + 1)
-        if not cuda_ops.tiled3(cheby, cfg.fast_math, planes):
+        if not cuda_ops.tiled3(cheby, cfg.fast_math, planes, cfg.n + 2):
             launches[plain] += count * sweeps
             continue
         full, rest = divmod(sweeps, seg)
@@ -1026,6 +1037,25 @@ def timed_steps(step_fn, state, steps: int) -> tuple[object, float]:
     return state, start.elapsed_time(stop) / steps
 
 
+def require_walk(counts: dict[str, int], label: str) -> None:
+    """Every launch of the per-sweep K5 and K13 (float32 and bf16) in a
+    run whose launch ``counts`` these are in the vector walk
+    (``cuda_ops.width_counts``, reset with the launch counts): none in the
+    one-cell form."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    widths = cuda_ops.width_counts()
+    walk = {k: widths[k] for k in ("jacobi3_sweep", "jacobi3_slab",
+                                   "jacobi3_sweep_bf16", "jacobi3_slab_bf16")
+            if counts.get(k)}
+    if walk:
+        print(f"{label}: per-sweep K5/K13 launches by width {walk}")
+    for k, by_width in walk.items():
+        if by_width[1] or by_width[4] != counts[k]:
+            raise AssertionError(f"{label}: {k} launches by width "
+                                 f"{by_width}, {counts[k]} in all")
+
+
 def main_path(cfg, label: str, card: str, steps: int,
               tol: tuple[float, float, float] | None,
               forced_tol: float | None = None,
@@ -1056,6 +1086,7 @@ def main_path(cfg, label: str, card: str, steps: int,
     sim = model(cfg)
     torch.cuda.synchronize()
     cuda_ops.reset_launch_counts()
+    cuda_ops.reset_width_counts()
     first = sim.step(state0, sources)
     state = first
     for _ in range(steps - 1):
@@ -1067,6 +1098,7 @@ def main_path(cfg, label: str, card: str, steps: int,
     print(f"{label}: launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    require_walk(counts, label)
     require_finite(state, label)
     ref = cfg.replace(backend="reference")
     if tol is not None:
@@ -1180,6 +1212,7 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
 
     torch.cuda.synchronize()
     cuda_ops.reset_launch_counts()
+    cuda_ops.reset_width_counts()
     states, disps = run(step_fn)
     torch.cuda.synchronize()
     counts = cuda_ops.launch_counts()
@@ -1188,6 +1221,7 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
     print(f"{label}: launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    require_walk(counts, label)
     first, last = unshard(states[0]), unshard(states[-1])
     require_finite(last, label)
     disp = max(float(d) for d in disps)
@@ -2385,6 +2419,7 @@ def main() -> None:
     timed3 = checks.timing_checks3(256, "cuda", SEED)
     timed_against_both(timed3, checks.TOL, errs)
     times.update(kernel_times(timed3, "256³", card))
+    sweep3_forms(timed3, "jacobi3_sweep", card, errs)
     del timed3
 
     phase("3c row-slab kernels against their plain twins (2048², m=256)")
@@ -2442,6 +2477,7 @@ def main() -> None:
     timed3 = checks.timing_checks_slab3(256, 32, "cuda", SEED)
     timed_against_both(timed3, checks.TOL, errs)
     times.update(kernel_times(timed3, "256³, slab of 32 planes", card, floor))
+    sweep3_forms(timed3, "jacobi3_slab", card, errs)
     del timed3
 
     phase("3e the fused tail K17 and the split slab Jacobi B13")
@@ -3016,14 +3052,13 @@ def bf16_3d_phase(parity3, comp3, card: str, errs: dict[str, float],
                   times: dict) -> dict[str, int]:
     """Phase 21: the bf16 forms of K5 (per-sweep and tiled), K6 (exact and
     windowed, the triple and one field), K7 and K8 against their plain
-    twins at 256³, bit for bit, every tiled K5 call also against the same
-    call on the per-sweep K5; each form timed beside its bound in 2-byte
-    storage, its float32 form, its plain twin and, for K6, ``grid_sample``
-    on bf16, the per-sweep K5's also in its one-cell form
-    (``sweep3_forms``); then the bf16 3-D step at 256³ (``bf16_3d_path``):
-    parity
-    (20 iterations), compensated with fast math (the tiled K5) and
-    windowed parity (4 cells).  Returns the launches of its runs."""
+    twins at 256³, bit for bit, every call in the tiled K5's mode also on
+    the tiled K5 against the same call on the per-sweep K5; each form
+    timed beside its bound in 2-byte storage, its float32 form, its plain
+    twin and, for K6, ``grid_sample`` on bf16, the per-sweep K5's also in
+    its one-cell form (``sweep3_forms``); then the bf16 3-D step at 256³
+    (``bf16_3d_path``): parity (20 iterations), compensated with fast math
+    and windowed parity (4 cells).  Returns the launches of its runs."""
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
 
     forms = checks.kernel_checks3_bf16(256, "cuda", SEED)
@@ -3093,8 +3128,7 @@ def bf16_3d_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
           f"jacobi3_sweep_bf16 by width {widths}")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
-    if widths[1]:
-        raise AssertionError(f"{label}: one-cell K5 launches {widths}")
+    require_walk(counts, label)
     if any(f.dtype != torch.bfloat16 for f in got):
         raise AssertionError(f"{label}: the state left bf16")
     twins = run(c16, *draw16, _Ops3(c16, plain=True))
@@ -3122,13 +3156,14 @@ def bf16_3d_path(cfg, label: str, card: str, steps: int) -> dict[str, int]:
 
 def sweep3_forms(check_list, kernel: str, card: str,
                  errs: dict[str, float]) -> None:
-    """Phases 21-22: each timing check whose solves take the per-sweep K5
-    or K13's bf16 form (``kernel``) in both of its forms, the vector form
-    the path takes (``cuda_ops.VECTOR_WIDTHS``, ``csrc/jacobi3_walk.cuh``)
-    and the one-cell form (``vector_widths((1,))``): each held to the
-    plain twin bit for bit, its launches by width (every one in its form's
-    width), and the two timed in turns beside the float32 form on the same
-    values (device ms, CUDA graphs of 20 calls)."""
+    """Phases 3b, 3d, 21 and 22: each timing check whose solves take the
+    per-sweep K5 or K13 (``kernel``: float32 or bf16) in both of its
+    forms, the vector walk the path takes (``cuda_ops.VECTOR_WIDTHS``,
+    ``csrc/jacobi3_walk.cuh``) and the one-cell form
+    (``vector_widths((1,))``): each held to the plain twin bit for bit, its
+    launches by width (every one in its form's width), and the two timed
+    in turns, a bf16 form's beside its float32 form on the same values
+    (device ms, CUDA graphs of 20 calls)."""
     from fluidsimulationcuda_torch.kernels import checks, cuda_ops
 
     width = cuda_ops.VECTOR_WIDTHS[kernel][0]
@@ -3157,12 +3192,15 @@ def sweep3_forms(check_list, kernel: str, card: str,
         ms = dict.fromkeys(forms, 0.0)
         for name in [*forms, *reversed(forms)]:
             ms[name] += checks.device_ms(lambda: run(c, forms[name])) / 2
-        f32 = checks.device_ms(c.counterpart)
         vec, one = ms[f"V={width}"], ms["one-cell"]
-        print(f"  {c.label}: V={width} {vec:.5f} ms, one-cell {one:.5f} "
-              f"({one / vec:.2f}x), float32 form {f32:.5f} (bf16 V={width} "
-              f"{vec / f32:.3f}x it); each bit for bit with the plain twin; "
-              f"launches by width {counts} ({card})")
+        line = (f"  {c.label}: V={width} {vec:.5f} ms, one-cell {one:.5f} "
+                f"({one / vec:.2f}x)")
+        if c.counterpart is not None:
+            f32 = checks.device_ms(c.counterpart)
+            line += (f", float32 form {f32:.5f} (bf16 V={width} "
+                     f"{vec / f32:.3f}x it)")
+        print(f"{line}; each bit for bit with the plain twin; launches by "
+              f"width {counts} ({card})")
 
 
 def bf16_zslab_phase(parity3, comp3, card: str, errs: dict[str, float],
@@ -3170,7 +3208,8 @@ def bf16_zslab_phase(parity3, comp3, card: str, errs: dict[str, float],
     """Phase 22: the bf16 forms of K13 (per-sweep and the tiled slab walk),
     K14 (windowed and exact), K15 and K16 against their plain twins on
     top, interior and bottom slabs of 32 planes of 256³, bit for bit,
-    every tiled call also against the same call on the per-sweep K13's
+    every call in the tiled kernel's mode also on it against the same
+    call on the per-sweep K13's
     bf16 form; each form timed beside its bound in 2-byte storage, its
     float32 form, its plain twin and, for K14, ``grid_sample`` on bf16,
     the per-sweep K13's also in its one-cell form (``sweep3_forms``);
@@ -3273,8 +3312,7 @@ def bf16_zslab_path(cfg, slabs: int, label: str, card: str, steps: int,
           f"displacement {max(disps):.4f} cells (window {cfg.max_courant})")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
-    if widths[1]:
-        raise AssertionError(f"{label}: one-cell K13 launches {widths}")
+    require_walk(counts, label)
     if not float32_forms <= {"jacobi3_slab", "jacobi3_slab_sweeps"}:
         raise AssertionError(f"{label}: float32 forms {float32_forms}")
     got = unshard(last)

@@ -181,11 +181,12 @@ class Sweep:
             raise RuntimeError(f"{name} width {width} walk {walk}: rc {rc}")
 
     def launch32(self) -> None:
+        """The float32 form's one-cell kernel (width 1)."""
         name = "fsc_jacobi3_slab" if self.slab else "fsc_jacobi3_sweep"
         rc = getattr(self.lib, name)(
             *(_ptr(t) for t in (self.x32, self.rhs32, self.src32,
                                 self.xm32, self.out32, self.rhs_out32)),
-            SIDE, 1, *self.scalars, *self._geometry(), _stream())
+            SIDE, 1, *self.scalars, *self._geometry(), 1, 1, _stream())
         if rc != 0:
             raise RuntimeError(f"{name}: rc {rc}")
 

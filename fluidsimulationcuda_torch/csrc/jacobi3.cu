@@ -16,7 +16,14 @@
 // 3.35 TB/s.  A 67 MB field does not stay in the 50 MB L2, so every sweep
 // goes to HBM.  The ghost layer is derived in the same launch (fsc_common.cuh
 // border_value3); the first sweep reads the guess as it is, ghost faces
-// included, as ops/three_d.py diffuse3 does.
+// included, as ops/three_d.py diffuse3 does.  It runs in the vector form of
+// jacobi3_walk.cuh, 4 cells of a row a thread walking 3 planes in z
+// (jacobi3_sweep_vec_kernel: a middle float32 sweep at 256^3 in 0.0726 ms,
+// 83% of its bound, against the one-cell kernel's 0.0880; PERF.md), or,
+// where the wrapper finds no width for the side and the operands, one cell
+// a thread (jacobi3_sweep_kernel).  Two sweeps a launch (a two-level
+// wavefront in z, dev/sweep3_pair/) measured 1.4x two launches of the
+// vector form and are not built.
 //
 // The bf16 form (fsc_jacobi3_sweep_bf16) is the per-sweep K1's bf16 rule
 // (jacobi.cu) on a volume: rhs and the rhs it builds are bf16, rounded
@@ -25,11 +32,8 @@
 // a Chebyshev solve's second the bf16 guess as x_{k-1}, the middle sweeps
 // float32 scratch, and its last writes bf16: each a template
 // instantiation over the types of x, x_{k-1} and out, chosen at launch.
-// It runs in the vector form of jacobi3_walk.cuh, 4 cells of a row a
-// thread walking 3 planes in z (jacobi3_sweep_vec_kernel; 0.64-0.70x the
-// one-cell kernel's time and 0.70-0.77x the float32 form's at 256^3,
-// PERF.md), or, where the wrapper finds no width for the side and the
-// operands, one cell a thread (jacobi3_sweep_kernel).
+// It runs in the same two forms (the vector form 0.64-0.70x the one-cell
+// kernel's time at 256^3, PERF.md).
 #include "fsc_common.cuh"
 #include "jacobi3_walk.cuh"
 
@@ -57,12 +61,12 @@ __global__ void jacobi3_sweep_kernel(fsc::SweepParamsT<TX, TM, TR> p,
 
 // The vector form over the whole volume: planes [0, side), the wall ghost
 // planes 0 and side-1.
-template <typename TX, typename TM, typename TO>
+template <typename TX, typename TM, typename TR, typename TO>
 __global__ void __launch_bounds__(fsc::kBlockX * fsc::kBlockY)
-    jacobi3_sweep_vec_kernel(fsc::SweepParamsT<TX, TM, fsc::bf16> p,
+    jacobi3_sweep_vec_kernel(fsc::SweepParamsT<TX, TM, TR> p,
                              TO* __restrict__ out,
-                             fsc::bf16* __restrict__ rhs_out, int side, int b,
-                             int lo, int hi, int gtop, int gbot, int walk) {
+                             TR* __restrict__ rhs_out, int side, int b, int lo,
+                             int hi, int gtop, int gbot, int walk) {
   fsc::sweep3_walk<fsc::kSweep3Width>(p, out, rhs_out, side, b, lo, hi,
                                       gtop, gbot, walk);
 }
@@ -97,8 +101,8 @@ int launch_bf16(const void* x, const void* rhs, const void* src,
   }
   if (width != fsc::kSweep3Width)
     return static_cast<int>(cudaErrorInvalidValue);
-  return fsc::launch_walk(jacobi3_sweep_vec_kernel<TX, TM, TO>, p, o, ro, side,
-                          b, 0, side, 0, side - 1, walk, stream);
+  return fsc::launch_walk(jacobi3_sweep_vec_kernel<TX, TM, fsc::bf16, TO>, p,
+                          o, ro, side, b, 0, side, 0, side - 1, walk, stream);
 }
 
 template <typename TX, typename TM>
@@ -116,19 +120,31 @@ int launch_bf16_out(bool out_bf16, const void* x, const void* rhs,
 }  // namespace
 
 // The arguments of fsc_jacobi_sweep (jacobi.cu) on a (side, side, side)
-// volume.  Returns cudaGetLastError() after the launch.
+// volume, and the form: width 1 runs the one-cell kernel, 4
+// (fsc::kSweep3Width) the vector form, each thread walking `walk` planes,
+// which takes side a multiple of 4 and every operand aligned to its
+// 16-byte access; anything else is refused with cudaErrorInvalidValue.
+// Returns cudaGetLastError() after the launch.
 extern "C" int fsc_jacobi3_sweep(const float* x, const float* rhs,
                                  const float* src, const float* xm, float* out,
                                  float* rhs_out, int side, int b, float alpha,
                                  float beta, float ab, float inv_b,
-                                 float src_dt, float w, int flags,
-                                 void* stream) {
+                                 float src_dt, float w, int flags, int width,
+                                 int walk, void* stream) {
   const fsc::SweepParams p = fsc::make_sweep_params(
       x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt, w, flags);
-  const auto kernel = jacobi3_sweep_kernel<>;
-  kernel<<<fsc::grid_dim3(side), fsc::block_dim(), 0,
-           static_cast<cudaStream_t>(stream)>>>(p, out, rhs_out, side, b);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (width == 1) {
+    const auto kernel = jacobi3_sweep_kernel<>;
+    kernel<<<fsc::grid_dim3(side), fsc::block_dim(), 0, s>>>(p, out, rhs_out,
+                                                             side, b);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (width != fsc::kSweep3Width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fsc::launch_walk(jacobi3_sweep_vec_kernel<float, float, float, float>,
+                          p, out, rhs_out, side, b, 0, side, 0, side - 1,
+                          walk, s);
 }
 
 // The bf16 form: rhs (and rhs_out) hold bf16; types says which of x (1),

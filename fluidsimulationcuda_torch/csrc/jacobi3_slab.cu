@@ -27,6 +27,9 @@
 //
 // Bound: device memory, as K5: 12 bytes a cell (16 with Chebyshev) over the
 // planes a sweep computes, the 2H halo planes computed again by each slab.
+// It runs in K5's vector form (jacobi3_walk.cuh, jacobi3_slab_vec_kernel)
+// on the plane range, or one cell a thread (jacobi3_slab_kernel) where the
+// wrapper finds no width for the side and the operands.
 //
 // The bf16 form (fsc_jacobi3_slab_bf16) is the per-sweep K5's bf16 rule
 // (jacobi3.cu) on a z-slab segment: the rhs is bf16, built and rounded by
@@ -36,10 +39,7 @@
 // first sweep of a solve reads the caller's bf16 guess, a Chebyshev
 // solve's second the bf16 guess as x_{k-1}, every other sweep float32
 // scratch: each a template instantiation over the types of x, x_{k-1} and
-// out, chosen at launch.  It runs in K5's vector form (jacobi3_walk.cuh,
-// jacobi3_slab_vec_kernel) on the plane range, or one cell a thread
-// (jacobi3_slab_kernel) where the wrapper finds no width for the side and
-// the operands.
+// out, chosen at launch, in the same two forms.
 #include "fsc_common.cuh"
 #include "jacobi3_walk.cuh"
 
@@ -67,12 +67,12 @@ __global__ void jacobi3_slab_kernel(fsc::SweepParamsT<TX, TM, TR> p,
 }
 
 // The vector form over planes [lo, hi) of the buffer.
-template <typename TX, typename TM, typename TO>
+template <typename TX, typename TM, typename TR, typename TO>
 __global__ void __launch_bounds__(fsc::kBlockX * fsc::kBlockY)
-    jacobi3_slab_vec_kernel(fsc::SweepParamsT<TX, TM, fsc::bf16> p,
+    jacobi3_slab_vec_kernel(fsc::SweepParamsT<TX, TM, TR> p,
                             TO* __restrict__ out,
-                            fsc::bf16* __restrict__ rhs_out, int side, int b,
-                            int lo, int hi, int gtop, int gbot, int walk) {
+                            TR* __restrict__ rhs_out, int side, int b, int lo,
+                            int hi, int gtop, int gbot, int walk) {
   fsc::sweep3_walk<fsc::kSweep3Width>(p, out, rhs_out, side, b, lo, hi,
                                       gtop, gbot, walk);
 }
@@ -107,8 +107,8 @@ int launch_bf16(const void* x, const void* rhs, const void* src,
   }
   if (width != fsc::kSweep3Width)
     return static_cast<int>(cudaErrorInvalidValue);
-  return fsc::launch_walk(jacobi3_slab_vec_kernel<TX, TM, TO>, p, o, ro, side,
-                          b, lo, hi, gtop, gbot, walk, stream);
+  return fsc::launch_walk(jacobi3_slab_vec_kernel<TX, TM, fsc::bf16, TO>, p,
+                          o, ro, side, b, lo, hi, gtop, gbot, walk, stream);
 }
 
 template <typename TX, typename TM>
@@ -129,22 +129,30 @@ int launch_bf16_out(bool out_bf16, const void* x, const void* rhs,
 
 // The sweep arguments (x .. flags) are those of fsc_jacobi3_sweep, on
 // (planes, side, side) buffers; planes [lo, hi) of out are written, and a
-// sweep reads planes [lo-1, hi+1) of x.  Returns cudaGetLastError() after
-// the launch.
+// sweep reads planes [lo-1, hi+1) of x.  width and walk choose the form
+// (fsc_jacobi3_sweep's).  Returns cudaGetLastError() after the launch.
 extern "C" int fsc_jacobi3_slab(const float* x, const float* rhs,
                                 const float* src, const float* xm, float* out,
                                 float* rhs_out, int side, int b, float alpha,
                                 float beta, float ab, float inv_b,
                                 float src_dt, float w, int flags, int lo,
-                                int hi, int gtop, int gbot, void* stream) {
+                                int hi, int gtop, int gbot, int width,
+                                int walk, void* stream) {
   if (hi <= lo) return 0;
   const fsc::SweepParams p = fsc::make_sweep_params(
       x, rhs, src, xm, alpha, beta, ab, inv_b, src_dt, w, flags);
-  const auto kernel = jacobi3_slab_kernel<>;
-  kernel<<<fsc::slab_grid_dim3(side, hi - lo), fsc::block_dim(), 0,
-           static_cast<cudaStream_t>(stream)>>>(p, out, rhs_out, side, b, lo,
-                                                gtop, gbot);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (width == 1) {
+    const auto kernel = jacobi3_slab_kernel<>;
+    kernel<<<fsc::slab_grid_dim3(side, hi - lo), fsc::block_dim(), 0, s>>>(
+        p, out, rhs_out, side, b, lo, gtop, gbot);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (width != fsc::kSweep3Width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fsc::launch_walk(jacobi3_slab_vec_kernel<float, float, float, float>,
+                          p, out, rhs_out, side, b, lo, hi, gtop, gbot, walk,
+                          s);
 }
 
 // The bf16 form: rhs (and rhs_out) hold bf16; types says which of x (1),

@@ -1,13 +1,14 @@
-// The vector form of the bf16 per-sweep 3-D Jacobi sweeps: one device body
-// that K5's bf16 form (jacobi3.cu, a whole volume) and K13's (jacobi3_slab.cu,
-// planes [lo, hi) of a z-slab buffer) both launch.
+// The vector form of the per-sweep 3-D Jacobi sweeps: one device body that
+// K5 (jacobi3.cu, a whole volume) and K13 (jacobi3_slab.cu, planes [lo, hi)
+// of a z-slab buffer) both launch, in float32 and in bf16 storage.
 //
 // The one-cell kernels give a thread one cell: six scalar loads of the
-// iterate, one 2-byte load of the rhs and one store a cell, the iterate's
-// z neighbours a plane apart.  In bf16 a middle sweep moves 10 bytes a cell
-// (a float32 iterate, a bf16 rhs, a float32 output) against float32's 12,
-// and still took longer than the float32 sweep (PERF.md §6).  Here a thread
-// owns V consecutive cells of a row (x) and walks `walk` planes in z:
+// iterate, one load of the rhs and one store a cell, the iterate's z
+// neighbours a plane apart.  Narrow loads, not bytes, set their time: in
+// bf16 a middle sweep moves 10 bytes a cell (a float32 iterate, a bf16 rhs,
+// a float32 output) against float32's 12, and still took longer than the
+// float32 sweep (PERF.md §6).  Here a thread owns V consecutive cells of a
+// row (x) and walks `walk` planes in z:
 //
 // - the iterate's rows come in V-cell vector loads on the read-only path
 //   (16 bytes at V = 4 in float32), the rhs, x_{k-1} and the source in
@@ -34,16 +35,16 @@
 // folded or fast solve stores the rhs it built at the interior cells
 // (i == ci, k == kc, columns 1..n), as the one-cell kernels do.
 //
-// Bound: device memory.  A middle sweep of a bf16 solve moves 10 bytes a
-// cell (a float32 iterate read, a bf16 rhs read, a float32 output
-// written): 0.0501 ms at 256^3 on 3.35 TB/s; the vector form took 0.0685
-// ms (73%), the one-cell form 0.1058 and the float32 form 0.0888 (PERF.md
-// §6).  What held the one-cell form back was not its load path: its SASS
-// issues the float32 form's loads, all on the read-only path
-// (LDG.E.CONSTANT; the rhs a 2-byte LDG.E.U16.CONSTANT), and a sweep from
-// the zero guess, which reads only the rhs, took as long in bf16 (6 bytes
-// a cell) as in float32 (8): a one-cell thread's loads are too narrow for
-// the bytes to set its time.
+// Bound: device memory.  A middle sweep moves 12 bytes a cell in float32
+// (0.0601 ms at 256^3 on 3.35 TB/s) and 10 in bf16 (a float32 iterate
+// read, a bf16 rhs read, a float32 output written: 0.0501 ms); the vector
+// form took 0.0726 ms in float32 (83%) and 0.0685 in bf16 (73%), the
+// one-cell forms 0.0880 and 0.1058 (PERF.md §6).  What held the one-cell
+// form back was not its load path: its SASS issues the float32 form's
+// loads, all on the read-only path (LDG.E.CONSTANT; the rhs a 2-byte
+// LDG.E.U16.CONSTANT), and a sweep from the zero guess, which reads only
+// the rhs, took as long in bf16 (6 bytes a cell) as in float32 (8): a
+// one-cell thread's loads are too narrow for the bytes to set its time.
 //
 // Unrolling the walk at a fixed length, or loading all its rows at once
 // where no wall plane lies in it, measured no faster (PERF.md §6).  The
@@ -59,9 +60,9 @@ namespace fsc {
 
 // V, the cells of a row a thread of the vector form owns, chosen by
 // measurement on the H100 with the walk (cuda_ops.SWEEP3_WALK, 3 planes):
-// V = 4 was the fastest in every 20-sweep solve and segment and in both
-// bf16 parity steps (PERF.md §6, dev/bench_sweep3_bf16.py; V = 8 at its
-// best walk 3-6% slower, V = 2 slower still).  cuda_ops.VECTOR_WIDTHS
+// V = 4 was the fastest in every bf16 20-sweep solve and segment and in
+// both bf16 parity steps (PERF.md §6, dev/bench_sweep3_bf16.py; V = 8 at
+// its best walk 3-6% slower, V = 2 slower still).  cuda_ops.VECTOR_WIDTHS
 // names it for the wrapper; the library refuses any other width but 1,
 // the one-cell kernel.
 constexpr int kSweep3Width = 4;
@@ -215,19 +216,19 @@ __device__ __forceinline__ void sweep3_walk(const SweepParamsT<TX, TM, TR>& p,
 }
 
 // Launch `kernel`, a __global__ wrapper of sweep3_walk<V> at V =
-// kSweep3Width, over planes
-// [lo, hi): ceil(side/V) x side threads in 32 x 8 blocks, one grid layer
-// per `walk` planes.  Refused (cudaErrorInvalidValue) unless V divides
-// side, walk >= 1 and every operand is aligned to its V-cell access.
-template <typename TX, typename TM, typename TO, typename Kernel>
-int launch_walk(Kernel kernel, const SweepParamsT<TX, TM, bf16>& p, TO* out,
-                bf16* rhs_out, int side, int b, int lo, int hi, int gtop,
+// kSweep3Width, over planes [lo, hi): ceil(side/V) x side threads in 32 x 8
+// blocks, one grid layer per `walk` planes.  Refused (cudaErrorInvalidValue)
+// unless V divides side, walk >= 1 and every operand is aligned to its
+// V-cell access.
+template <typename TX, typename TM, typename TR, typename TO, typename Kernel>
+int launch_walk(Kernel kernel, const SweepParamsT<TX, TM, TR>& p, TO* out,
+                TR* rhs_out, int side, int b, int lo, int hi, int gtop,
                 int gbot, int walk, cudaStream_t stream) {
   constexpr int V = kSweep3Width;
   if (side % V != 0 || walk < 1 ||
       !aligned(access_bytes<TX>(V), p.x, p.src) ||
       !aligned(access_bytes<TM>(V), p.xm) ||
-      !aligned(access_bytes<bf16>(V), p.rhs, rhs_out) ||
+      !aligned(access_bytes<TR>(V), p.rhs, rhs_out) ||
       !aligned(access_bytes<TO>(V), out))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((side / V + kBlockX - 1) / kBlockX,

@@ -77,7 +77,7 @@ _SIGNATURES = {
     "fsc_jacobi_slab_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _F, _F, _F, _F, _I, _I, _I, _P],
     "fsc_jacobi3_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
-                          _F, _I, _P],
+                          _F, _I, _I, _I, _P],
     "fsc_jacobi3_sweeps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                            _F, _P, _I, _I, _I, _P],
     "fsc_jacobi3_slab_sweeps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
@@ -104,7 +104,7 @@ _SIGNATURES = {
     "fsc_advect_slab_exact": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                               _I, _I, _I, _P],
     "fsc_jacobi3_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
-                         _F, _I, _I, _I, _I, _I, _P],
+                         _F, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsc_advect3_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _F, _I, _I, _I, _I, _P],
     "fsc_advect3_slab_exact": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -114,8 +114,8 @@ _SIGNATURES = {
                            _F, _P],
 }
 # The bf16 forms of the block kernels, of K6-K8 and of K14-K16 take their
-# float32 forms' arguments; K13's, those and the operand types (and the
-# per-sweep K13's, the width and the walk).
+# float32 forms' arguments; K13's, those and the operand types (the
+# per-sweep K13's before the width and the walk, which both forms take).
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "fsc_jacobi_block_sweeps", "fsc_advect_block", "fsc_advect_block_exact",
     "fsc_divergence_block", "fsc_gradient_block", "fsc_advect3",
@@ -123,7 +123,7 @@ _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "fsc_advect3_slab_exact", "fsc_divergence3_slab", "fsc_gradient3_slab")})
 _SIGNATURES["fsc_jacobi3_slab_sweeps_bf16"] = [
     *_SIGNATURES["fsc_jacobi3_slab_sweeps"][:-1], _I, _P]
-_SIGNATURES["fsc_jacobi3_slab_bf16"] = [*_SIGNATURES["fsc_jacobi3_slab"][:-1],
+_SIGNATURES["fsc_jacobi3_slab_bf16"] = [*_SIGNATURES["fsc_jacobi3_slab"][:-3],
                                         _I, _I, _I, _P]
 
 _lock = threading.Lock()

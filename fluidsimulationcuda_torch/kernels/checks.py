@@ -99,6 +99,10 @@ class Check:
     # same values, timed beside it (``counterpart_label`` says which).
     counterpart: Callable[[], object] | None = None
     counterpart_label: str = "slab counterpart on as many cells"
+    # A 3-D solve or z-slab segment in the tiled 3-D kernel's mode (fast
+    # Chebyshev), which ``per_sweep_checks`` holds on the tiled kernel
+    # against the per-sweep kernels, whatever the path takes.
+    tiled_mode: bool = False
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the larger of the bytes the
@@ -138,6 +142,38 @@ def _k1_timed(cost: tuple[int, int], cells: int, label, kernels, fn, plain,
     kernels (``chain``), timed beside it."""
     check = _timed(cost, cells, label, kernels, fn, plain, *args, **kw)
     check.chain = functools.partial(_per_sweep, fn, *args, **kw)
+    return check
+
+
+def _tiled(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every 3-D solve or z-slab segment in the
+    tiled kernel's mode on the tiled 3-D kernel, whatever
+    ``cuda_ops.tiled3`` gives the path: T3 sweeps a launch, or the sweeps a
+    caller's ``cuda_ops.launch_sweeps`` forces."""
+    if co._forced:
+        return fn(*args, **kw)
+    with co.launch_sweeps(co.SWEEPS_PER_LAUNCH_3D):
+        return fn(*args, **kw)
+
+
+def _tiled_timed(cost: tuple[int, int], cells: int, label, kernels, fn,
+                 plain, *args, **kw) -> Check:
+    """A timed check of a 3-D solve or z-slab segment in the tiled
+    kernel's mode, run on the tiled 3-D kernel (``_tiled``), carrying the
+    same call on the per-sweep kernels (``chain``, the path's where
+    ``cuda_ops.tiled3`` gives it the vector walk), timed beside it."""
+    check = _timed(cost, cells, label, kernels, fn, plain, *args, **kw)
+    check.run = functools.partial(_tiled, fn, *args, **kw)
+    check.chain = functools.partial(_per_sweep, fn, *args, **kw)
+    check.tiled_mode = True
+    return check
+
+
+def _solve3(check: Check, kw: dict) -> Check:
+    """``check``, a 3-D solve or z-slab segment of keyword arguments
+    ``kw``, marked where it is in the tiled kernel's mode."""
+    check.tiled_mode = (kw.get("cheby_rho") is not None
+                        and kw.get("fast", False))
     return check
 
 
@@ -1133,27 +1169,31 @@ JAC3 = ("jacobi3_sweeps",)
 JAC3_SWEEP = ("jacobi3_sweep",)
 
 
-def _jac3(kw: dict, planes: int | None = None) -> tuple[str, ...]:
-    """The kernel a 3-D solve (a segment on a z-slab buffer of ``planes``
-    planes) of keyword arguments ``kw`` takes on the path
+def _jac3(kw: dict, side: int, planes: int | None = None
+          ) -> tuple[str, ...]:
+    """The kernel a 3-D solve of ``side`` (a segment on a z-slab buffer of
+    ``planes`` planes) of keyword arguments ``kw`` takes on the path
     (``cuda_ops.tiled3``)."""
     if co.tiled3(kw.get("cheby_rho") is not None, kw.get("fast", False),
-                 planes):
+                 planes, side):
         return JAC3 if planes is None else JAC3_SLAB
     return JAC3_SWEEP if planes is None else JAC3_SLAB_SWEEP
 
 
 def per_sweep_checks(check_list: list[Check]) -> list[Check]:
-    """Each check of ``check_list`` whose call takes the tiled 3-D Jacobi
-    on the path (a Chebyshev solve or z-slab segment in fast mode,
-    ``_jac3``; float32 or bf16) held against the same call on the
-    per-sweep K5 and K13 (their bf16 forms for a bf16 call):
-    equal bit for bit, the tiled kernel computing what the per-sweep
-    launches of its sweeps compute."""
+    """Each check of ``check_list`` whose call is in the tiled 3-D
+    Jacobi's mode (``tiled_mode``: a Chebyshev solve or z-slab segment in
+    fast mode; float32 or bf16), run on the tiled kernel (``_tiled``)
+    against the same call on the per-sweep K5 and K13 (their bf16 forms
+    for a bf16 call): equal bit for bit, the tiled kernel computing what
+    the per-sweep launches of its sweeps compute."""
+    tiled = {JAC3_SWEEP: JAC3, JAC3_SLAB_SWEEP: JAC3_SLAB,
+             JAC3_SWEEP_16: JAC3_16, JAC3_SLAB_SWEEP_16: JAC3_SLAB_16}
     return [dataclasses.replace(c, label=f"{c.label} tiled vs per-sweep",
+                                kernels=tiled.get(c.kernels, c.kernels),
+                                run=functools.partial(_tiled, c.run),
                                 plain=functools.partial(_per_sweep, c.run))
-            for c in check_list
-            if c.kernels in (JAC3, JAC3_SLAB, JAC3_16, JAC3_SLAB_16)]
+            for c in check_list if c.tiled_mode]
 
 
 def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
@@ -1177,14 +1217,17 @@ def kernel_checks3(side: int, device, seed: int = 0) -> list[Check]:
     for b in (0, 1, 2, 3):
         for mode, kw in modes.items():
             k = k_d if "cheby_rho" in kw else iters
-            out.append(_check(f"fused_jacobi3 b={b} {mode} {k}it", _jac3(kw),
-                              co3.fused_jacobi3, co3.fused_jacobi3_plain, b,
-                              t.x, t.x0, av, 1 + 6 * av, k, **kw))
+            out.append(_solve3(_check(
+                f"fused_jacobi3 b={b} {mode} {k}it", _jac3(kw, side),
+                co3.fused_jacobi3, co3.fused_jacobi3_plain, b, t.x, t.x0, av,
+                1 + 6 * av, k, **kw), kw))
     uvw = (t.u, t.v, t.w)
     return out + [
-        _check(f"pressure3 chebyshev+fast {k_p}it", JAC3, co3.fused_jacobi3,
-               co3.fused_jacobi3_plain, 0, t.p, t.p, 1.0, 6.0, k_p,
-               zero_init=True, fast=True, cheby_rho=rho),
+        _solve3(_check(f"pressure3 chebyshev+fast {k_p}it",
+                       _jac3(dict(fast=True, cheby_rho=rho), side),
+                       co3.fused_jacobi3, co3.fused_jacobi3_plain, 0, t.p,
+                       t.p, 1.0, 6.0, k_p, zero_init=True, fast=True,
+                       cheby_rho=rho), dict(fast=True, cheby_rho=rho)),
         _check("divergence3_p", ("divergence3",), co3.divergence3_p,
                co3.divergence3_p_plain, *uvw, n),
         _check("gradient3_p", ("gradient3",), co3.gradient3_p,
@@ -1225,10 +1268,10 @@ def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
         return check
 
     return [
-        _k1_timed(sweeps(per_launch, src=True, fast=True, cheby=True), cells,
-                  "jacobi3_sweeps", JAC3, co3.fused_jacobi3,
-                  co3.fused_jacobi3_plain, 1, t.x, t.x0, av, bv, per_launch,
-                  src_dt=DT, fast=True, cheby_rho=rho),
+        _tiled_timed(sweeps(per_launch, src=True, fast=True, cheby=True),
+                     cells, "jacobi3_sweeps", JAC3, co3.fused_jacobi3,
+                     co3.fused_jacobi3_plain, 1, t.x, t.x0, av, bv,
+                     per_launch, src_dt=DT, fast=True, cheby_rho=rho),
         _timed(sweeps(1), cells, "jacobi3_sweep", JAC3_SWEEP,
                co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.x, t.x0, av,
                bv, 1),
@@ -1250,17 +1293,17 @@ def timing_checks3(side: int, device, seed: int = 0) -> list[Check]:
                "fused_jacobi3 20it src_dt (u diffusion)", JAC3_SWEEP,
                co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0, av,
                bv, 20, src_dt=DT),
-        _k1_timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
-                  f"fused_jacobi3 {k_d}it chebyshev+fast", JAC3,
-                  co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0,
-                  av, bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
+        _tiled_timed(sweeps(k_d, src=True, fast=True, cheby=True), cells,
+                     f"fused_jacobi3 {k_d}it chebyshev+fast", JAC3,
+                     co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src,
+                     t.x0, av, bv, k_d, src_dt=DT, fast=True, cheby_rho=rho),
         _timed(sweeps(20, zero_init=True), cells, "pressure3 20it",
                JAC3_SWEEP, co3.fused_jacobi3, co3.fused_jacobi3_plain, 0,
                t.p, t.p, 1.0, 6.0, 20, zero_init=True),
-        _k1_timed(sweeps(k_p, zero_init=True, fast=True, cheby=True), cells,
-                  f"pressure3 {k_p}it chebyshev+fast", JAC3,
-                  co3.fused_jacobi3, co3.fused_jacobi3_plain, 0, t.p, t.p,
-                  1.0, 6.0, k_p, zero_init=True, fast=True, cheby_rho=rho),
+        _tiled_timed(sweeps(k_p, zero_init=True, fast=True, cheby=True), cells,
+                     f"pressure3 {k_p}it chebyshev+fast", JAC3,
+                     co3.fused_jacobi3, co3.fused_jacobi3_plain, 0, t.p, t.p,
+                     1.0, 6.0, k_p, zero_init=True, fast=True, cheby_rho=rho),
     ]
 
 
@@ -1346,10 +1389,11 @@ DIV3_BF16, GRAD3_BF16 = (2.5, 6), (4, 12)
 ADVECT3_ONE_BF16, ADVECT3_TRIPLE_BF16 = (2.5, 39), (3, 81)
 
 
-def _jac3_16(kw: dict) -> tuple[str, ...]:
-    """The bf16 form a 3-D solve of keyword arguments ``kw`` takes on the
-    path (``cuda_ops.tiled3``)."""
-    tiled = co.tiled3(kw.get("cheby_rho") is not None, kw.get("fast", False))
+def _jac3_16(kw: dict, side: int) -> tuple[str, ...]:
+    """The bf16 form a 3-D solve of ``side`` of keyword arguments ``kw``
+    takes on the path (``cuda_ops.tiled3``)."""
+    tiled = co.tiled3(kw.get("cheby_rho") is not None, kw.get("fast", False),
+                      None, side)
     return JAC3_16 if tiled else JAC3_SWEEP_16
 
 
@@ -1396,10 +1440,10 @@ def kernel_checks3_bf16(side: int, device, seed: int = 0) -> list[Check]:
     out = []
     for b in (0, 1, 2, 3):
         for mode, (k, kw) in modes.items():
-            out.append(_check(f"bf16 fused_jacobi3 b={b} {mode}",
-                              _jac3_16(kw), co3.fused_jacobi3,
-                              co3.fused_jacobi3_plain, b, t.x, t.x0, av, bv,
-                              k, **kw))
+            out.append(_solve3(_check(
+                f"bf16 fused_jacobi3 b={b} {mode}", _jac3_16(kw, side),
+                co3.fused_jacobi3, co3.fused_jacobi3_plain, b, t.x, t.x0, av,
+                bv, k, **kw), kw))
     for label, k, kw in (
             ("1 sweep", 1, dict()),
             ("2it chebyshev", 2, dict(src_dt=DT, cheby_rho=rho)),
@@ -1408,9 +1452,10 @@ def kernel_checks3_bf16(side: int, device, seed: int = 0) -> list[Check]:
                                                fast=True)),
             (f"{per_launch + 1}it chebyshev+fast", per_launch + 1,
              dict(src_dt=DT, cheby_rho=rho, fast=True))):
-        out.append(_check(f"bf16 fused_jacobi3 b=1 {label}", _jac3_16(kw),
-                          co3.fused_jacobi3, co3.fused_jacobi3_plain, 1,
-                          t.src, t.x0, av, bv, k, **kw))
+        out.append(_solve3(_check(
+            f"bf16 fused_jacobi3 b=1 {label}", _jac3_16(kw, side),
+            co3.fused_jacobi3, co3.fused_jacobi3_plain, 1, t.src, t.x0, av,
+            bv, k, **kw), kw))
     uvw = (t.u, t.v, t.w)
     fast = tuple((3.0 * f.float()).to(torch.bfloat16) for f in uvw)
     out += [
@@ -1461,7 +1506,9 @@ def timing_checks3_bf16(side: int, device, seed: int = 0) -> list[Check]:
 
     def form(make, cost, label, kernels, fn, plain, args16, args32, **kw):
         check = make(cost, cells, label, kernels, fn, plain, *args16, **kw)
-        check.counterpart = functools.partial(fn, *args32, **kw)
+        counterpart = functools.partial(fn, *args32, **kw)
+        check.counterpart = (functools.partial(_tiled, counterpart)
+                             if check.tiled_mode else counterpart)
         check.counterpart_label = "float32 form on the same values"
         return check
 
@@ -1476,7 +1523,7 @@ def timing_checks3_bf16(side: int, device, seed: int = 0) -> list[Check]:
 
     fold = dict(src_dt=DT, fast=True, cheby_rho=rho)
     return [
-        form(_k1_timed, sweeps(per_launch, src=True, fast=True, cheby=True),
+        form(_tiled_timed, sweeps(per_launch, src=True, fast=True, cheby=True),
              "jacobi3_sweeps_bf16", JAC3_16, co3.fused_jacobi3,
              co3.fused_jacobi3_plain, (1, t.x, t.x0, av, bv, per_launch),
              (1, w["x"], w["x0"], av, bv, per_launch), **fold),
@@ -1500,7 +1547,7 @@ def timing_checks3_bf16(side: int, device, seed: int = 0) -> list[Check]:
              co3.fused_jacobi3, co3.fused_jacobi3_plain,
              (1, t.src, t.x0, av, bv, 20), (1, w["src"], w["x0"], av, bv, 20),
              src_dt=DT),
-        form(_k1_timed, sweeps(k_d, src=True, fast=True, cheby=True),
+        form(_tiled_timed, sweeps(k_d, src=True, fast=True, cheby=True),
              f"fused_jacobi3 {k_d}it chebyshev+fast bf16", JAC3_16,
              co3.fused_jacobi3, co3.fused_jacobi3_plain,
              (1, t.src, t.x0, av, bv, k_d),
@@ -2322,7 +2369,7 @@ def kernel_checks_slab3(side: int, mz: int, device,
         for mode, kw in jac.items():
             out.append(_check(
                 f"fused_jacobi3_slab {pos} {mode} {K}it",
-                _jac3(kw, mz + 2 * H),
+                _jac3(kw, side, mz + 2 * H),
                 cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
                 ext(t.x, i, H), ext(t.x0, i, H), fl, mz=mz, H=H, alpha=av,
                 beta=1 + 6 * av, sweeps=K, **kw))
@@ -2336,22 +2383,22 @@ def kernel_checks_slab3(side: int, mz: int, device,
                 ("first segment", 0, s, None, False),
                 ("chained segment", s, min(K, k_d - s), xm, False),
                 ("chained segment fast", s, min(K, k_d - s), xm, True)):
-            out.append(_check(
+            kw = dict(cheby_rho=rho, fast=fast)
+            out.append(_solve3(_check(
                 f"fused_cheby3_slab {pos} {what} {start}+{sweeps}it",
-                _jac3(dict(cheby_rho=rho, fast=fast), mz + 2 * H),
-                cs3.fused_cheby3_slab,
+                _jac3(kw, side, mz + 2 * H), cs3.fused_cheby3_slab,
                 cs3.fused_cheby3_slab_plain, 3, ext(t.x, i, H), carried,
                 ext(t.x0, i, H), fl, mz=mz, H=H, alpha=av, beta=1 + 6 * av,
-                cheby_rho=rho, start=start, sweeps=sweeps, fast=fast,
-                carry_in=carried is not None, carry_out=True))
+                start=start, sweeps=sweeps, carry_in=carried is not None,
+                carry_out=True, **kw), kw))
         K, H = plan(k_p)
-        out.append(_check(
+        kw = dict(cheby_rho=rho, fast=True)
+        out.append(_solve3(_check(
             f"fused_cheby3_slab {pos} pressure fast 0+{K}it",
-            _jac3(dict(cheby_rho=rho, fast=True), mz + 2 * H),
-            cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 0,
-            ext(t.p, i, H), None, ext(t.p, i, H), fl, mz=mz, H=H, alpha=1.0,
-            beta=6.0, cheby_rho=rho, start=0, sweeps=K, zero_init=True,
-            fast=True, carry_out=K < k_p))
+            _jac3(kw, side, mz + 2 * H), cs3.fused_cheby3_slab,
+            cs3.fused_cheby3_slab_plain, 0, ext(t.p, i, H), None,
+            ext(t.p, i, H), fl, mz=mz, H=H, alpha=1.0, beta=6.0, start=0,
+            sweeps=K, zero_init=True, carry_out=K < k_p, **kw), kw))
         C = cmax + 1
         for window, (u, v, w) in (("under", (t.u, t.v, t.w)),
                                   ("over", (t.uf, t.vf, t.wf))):
@@ -2484,11 +2531,11 @@ def timing_checks_slab3(side: int, mz: int, device,
     per_launch = co.SWEEPS_PER_LAUNCH_3D
     H20 = K20 + 1
     return [
-        _k1_timed(sweeps(per_launch, H20, fast=True, cheby=True), 1,
-                  "jacobi3_slab_sweeps", JAC3_SLAB, cs3.fused_cheby3_slab,
-                  cs3.fused_cheby3_slab_plain, 1, ext(t.x, i, H20), None,
-                  ext(t.x0, i, H20), fl, mz=mz, H=H20, alpha=av, beta=bv,
-                  cheby_rho=rho, start=0, sweeps=per_launch, fast=True),
+        _tiled_timed(sweeps(per_launch, H20, fast=True, cheby=True), 1,
+                     "jacobi3_slab_sweeps", JAC3_SLAB, cs3.fused_cheby3_slab,
+                     cs3.fused_cheby3_slab_plain, 1, ext(t.x, i, H20), None,
+                     ext(t.x0, i, H20), fl, mz=mz, H=H20, alpha=av, beta=bv,
+                     cheby_rho=rho, start=0, sweeps=per_launch, fast=True),
         _timed(sweeps(1, H20), 1, "jacobi3_slab", JAC3_SLAB_SWEEP,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 1,
                ext(t.x, i, H20), ext(t.x0, i, H20), fl, mz=mz, H=H20,
@@ -2526,18 +2573,18 @@ def timing_checks_slab3(side: int, mz: int, device,
                cs3.fused_jacobi3_slab, cs3.fused_jacobi3_slab_plain, 0,
                ext(t.p, i, H20), ext(t.p, i, H20), fl, mz=mz, H=H20,
                alpha=1.0, beta=6.0, sweeps=K20, zero_init=True),
-        _k1_timed(sweeps(Kd, Kd + 1, fast=True, cheby=True), 1,
-                  f"fused_cheby3_slab {Kd}it fast (u diffusion)", JAC3_SLAB,
-                  cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 1,
-                  ext(t.src, i, Kd + 1), None, ext(t.x0, i, Kd + 1), fl,
-                  mz=mz, H=Kd + 1, alpha=av, beta=bv, cheby_rho=rho,
-                  start=0, sweeps=Kd, fast=True),
-        _k1_timed(sweeps(Kp, Kp + 1, zero_init=True, fast=True, cheby=True),
-                  1, f"fused_cheby3_slab {Kp}it fast pressure", JAC3_SLAB,
-                  cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 0,
-                  ext(t.p, i, Kp + 1), None, ext(t.p, i, Kp + 1), fl, mz=mz,
-                  H=Kp + 1, alpha=1.0, beta=6.0, cheby_rho=rho, start=0,
-                  sweeps=Kp, zero_init=True, fast=True),
+        _tiled_timed(sweeps(Kd, Kd + 1, fast=True, cheby=True), 1,
+                     f"fused_cheby3_slab {Kd}it fast (u diffusion)", JAC3_SLAB,
+                     cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 1,
+                     ext(t.src, i, Kd + 1), None, ext(t.x0, i, Kd + 1), fl,
+                     mz=mz, H=Kd + 1, alpha=av, beta=bv, cheby_rho=rho,
+                     start=0, sweeps=Kd, fast=True),
+        _tiled_timed(sweeps(Kp, Kp + 1, zero_init=True, fast=True, cheby=True),
+                     1, f"fused_cheby3_slab {Kp}it fast pressure", JAC3_SLAB,
+                     cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 0,
+                     ext(t.p, i, Kp + 1), None, ext(t.p, i, Kp + 1), fl, mz=mz,
+                     H=Kp + 1, alpha=1.0, beta=6.0, cheby_rho=rho, start=0,
+                     sweeps=Kp, zero_init=True, fast=True),
     ]
 
 
@@ -2549,11 +2596,12 @@ ADV3_SLAB_16 = ("advect3_slab_bf16",)
 ADV3_SLAB_EXACT_16 = ("advect3_slab_exact_bf16",)
 
 
-def _jac3_slab_16(kw: dict, planes: int) -> tuple[str, ...]:
-    """The bf16 form a z-slab segment of keyword arguments ``kw`` on a
-    buffer of ``planes`` planes takes on the path (``cuda_ops.tiled3``)."""
+def _jac3_slab_16(kw: dict, side: int, planes: int) -> tuple[str, ...]:
+    """The bf16 form a z-slab segment of ``side`` of keyword arguments
+    ``kw`` on a buffer of ``planes`` planes takes on the path
+    (``cuda_ops.tiled3``)."""
     tiled = co.tiled3(kw.get("cheby_rho") is not None, kw.get("fast", False),
-                      planes)
+                      planes, side)
     return JAC3_SLAB_16 if tiled else JAC3_SLAB_SWEEP_16
 
 
@@ -2614,7 +2662,7 @@ def kernel_checks_slab3_bf16(side: int, mz: int, device,
         for what, (x, rhs, sweeps, kw) in jac.items():
             out.append(_check(
                 f"bf16 fused_jacobi3_slab {pos} {what} {sweeps}it",
-                _jac3_slab_16(kw, planes), cs3.fused_jacobi3_slab,
+                _jac3_slab_16(kw, side, planes), cs3.fused_jacobi3_slab,
                 cs3.fused_jacobi3_slab_plain, 1, ext(x, i, H), ext(rhs, i, H),
                 fl, mz=mz, H=H, alpha=av, beta=bv, sweeps=sweeps, **kw))
         Kd = min(20, k_d, mz - 1)
@@ -2636,13 +2684,14 @@ def kernel_checks_slab3_bf16(side: int, mz: int, device,
                  t.rhs_fast, fast),
                 ("chained segment fast, hands on", t.p, xm, s, Kd - s,
                  t.rhs_fast, dict(carry_out=True, **fast))):
-            out.append(_check(
+            mode = dict(cheby_rho=rho, **kw)
+            out.append(_solve3(_check(
                 f"bf16 fused_cheby3_slab {pos} {what} {start}+{sweeps}it",
-                _jac3_slab_16(dict(cheby_rho=rho, **kw), planes),
-                cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain, 3,
-                ext(x, i, H), carried, ext(rhs, i, H), fl, mz=mz, H=H,
-                alpha=av, beta=bv, cheby_rho=rho, start=start, sweeps=sweeps,
-                carry_in=carried is not None, **kw))
+                _jac3_slab_16(mode, side, planes), cs3.fused_cheby3_slab,
+                cs3.fused_cheby3_slab_plain, 3, ext(x, i, H), carried,
+                ext(rhs, i, H), fl, mz=mz, H=H, alpha=av, beta=bv,
+                cheby_rho=rho, start=start, sweeps=sweeps,
+                carry_in=carried is not None, **kw), mode))
         C = cmax + 1
         for window, (u, v, w) in (("under", (t.u, t.v, t.w)),
                                   ("over", (t.uf, t.vf, t.wf))):
@@ -2713,7 +2762,9 @@ def timing_checks_slab3_bf16(side: int, mz: int, device,
 
     def form(make, cost, label, kernels, fn, plain, args16, args32, **kw):
         check = make(cost, 1, label, kernels, fn, plain, *args16, **kw)
-        check.counterpart = functools.partial(fn, *args32, **kw)
+        counterpart = functools.partial(fn, *args32, **kw)
+        check.counterpart = (functools.partial(_tiled, counterpart)
+                             if check.tiled_mode else counterpart)
         check.counterpart_label = "float32 form on the same values"
         return check
 
@@ -2746,7 +2797,7 @@ def timing_checks_slab3_bf16(side: int, mz: int, device,
     rand16 = (t.u, t.v, t.w)
     rand32 = tuple(f[k] for k in ("u", "v", "w"))
     return [
-        form(_k1_timed, sweeps(per_launch, H20, fast=True, cheby=True),
+        form(_tiled_timed, sweeps(per_launch, H20, fast=True, cheby=True),
              "jacobi3_slab_sweeps_bf16", JAC3_SLAB_16, cs3.fused_cheby3_slab,
              cs3.fused_cheby3_slab_plain,
              (1, ext(t.x, i, H20), None, ext(t.rhs_fast, i, H20), fl),
@@ -2780,7 +2831,7 @@ def timing_checks_slab3_bf16(side: int, mz: int, device,
              (1, ext(t.src, i, H20), ext(t.rhs, i, H20), fl),
              (1, ext(f["src"], i, H20), ext(rhs32, i, H20), fl), mz=mz,
              H=H20, alpha=av, beta=bv, sweeps=K20),
-        form(_k1_timed, sweeps(Kd, Kd + 1, fast=True, cheby=True),
+        form(_tiled_timed, sweeps(Kd, Kd + 1, fast=True, cheby=True),
              f"fused_cheby3_slab {Kd}it fast bf16 (u diffusion)",
              JAC3_SLAB_16, cs3.fused_cheby3_slab, cs3.fused_cheby3_slab_plain,
              (1, ext(t.src, i, Kd + 1), None, ext(t.rhs_fast, i, Kd + 1), fl),

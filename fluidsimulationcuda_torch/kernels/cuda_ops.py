@@ -101,7 +101,8 @@ from .dispatch import OpSet
 
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts", "check_grid",
-    "make_opset", "SWEEPS_PER_LAUNCH", "SWEEPS_PER_LAUNCH_3D", "tiled3",
+    "make_opset", "SWEEPS_PER_LAUNCH", "SWEEPS_PER_LAUNCH_3D",
+    "WALK_PLANE_CELLS", "tiled3",
     "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling",
     "GROUP_SLABS", "GROUP_TILES", "group_smooth_tiling", "DAMPED_TILES",
     "LONG_SOLVE_CELLS",
@@ -160,6 +161,11 @@ SWEEPS_PER_LAUNCH = 10
 # and on a 32-plane z-slab, the solves that take the kernel (tiled3); the
 # library takes at most 6.
 SWEEPS_PER_LAUNCH_3D = 6
+# The cells of a plane from which the fast Chebyshev solves of K5 and K13
+# take the per-sweep kernels' vector walk instead of the tiled 3-D kernel
+# (tiled3): 256², the side the walk was measured to win at, in float32 and
+# bf16, on a volume and on z-slab buffers (dev/bench_sweeps3.py, PERF.md).
+WALK_PLANE_CELLS = 256 * 256
 # The tilings of the tiled K9 on a row-slab buffer (csrc/jacobi_tiles.cu,
 # fsc_jacobi_slab_sweeps), chosen by measurement (dev/bench_slab_sweeps.py,
 # PERF.md): (fewest buffer cells, T, tile rows), the first whose cells a
@@ -192,30 +198,34 @@ GROUP_TILES = ((16_000_000, 64), (0, 32))
 # T = 10 on 64 rows against 0.198 at T = 5 on 16 and 0.223 on the per-sweep
 # damped K1 (dev/bench_slab_smooth.py --odd, PERF.md).
 LONG_SOLVE_CELLS = 1_000_000
-# The cells a thread of the bf16 forms' vector kernels (K3's
-# advect_vec_kernel, K2's gradient_vec_kernel, the per-sweep K5's and
-# K13's jacobi3_sweep_vec_kernel and jacobi3_slab_vec_kernel) may take, by
-# kernel, largest first (vector_width); 1 is the one-cell kernel.  K3's
-# and K2's were chosen by measurement on the H100
+# The cells a thread of the vector kernels (K3's and K2's gradient's bf16
+# forms, advect_vec_kernel and gradient_vec_kernel; the per-sweep K5's
+# and K13's jacobi3_sweep_vec_kernel and jacobi3_slab_vec_kernel, float32
+# and bf16) may take, by kernel, largest first (vector_width); 1 is the
+# one-cell kernel.  K3's and K2's were chosen by measurement on the H100
 # (dev/bench_bf16_stencils.py, PERF.md §6): K3 at V = 4 took
 # 18-22% less time than at V = 8 on the step's velocities and stayed
 # within 5.3% of it on smooth and shear ones, so its V = 8 form is not
 # built (V = 2 was the fastest only on random velocities over the
 # window); the gradient took V = 8 and 4 within 7% of each other, V = 8
 # the faster on a bf16 pressure.
-# The per-sweep bf16 K5 and K13 (csrc/jacobi3_walk.cuh) take V = 4, each
+# The per-sweep K5 and K13 (csrc/jacobi3_walk.cuh) take V = 4, each
 # thread walking SWEEP3_WALK planes in z, chosen with it by measurement on
-# the H100 (dev/bench_sweep3_bf16.py, PERF.md §6): at V = 4 and a walk of
-# 3 the 20-sweep u solve at 256³ took 1.371 ms (float32 1.797), the
-# z-slab segment 0.301 (0.397), the bf16 parity steps 10.15 and, on 8
-# z-slabs, 19.84 ms as graphs (float32 11.80, 22.22); walks of 2 and 4
-# within 3% of it, walks of 1 and 6 3.5-14% slower; V = 8 at its best
-# walk 3-6% slower, V = 2 slower still.
+# the H100 in bf16 (dev/bench_sweep3_bf16.py, PERF.md §6): at V = 4 and a
+# walk of 3 the 20-sweep u solve at 256³ took 1.371 ms (float32 one-cell
+# 1.797), the z-slab segment 0.301 (0.397), the bf16 parity steps 10.15
+# and, on 8 z-slabs, 19.84 ms as graphs (float32 11.80, 22.22); walks of 2
+# and 4 within 3% of it, walks of 1 and 6 3.5-14% slower; V = 8 at its
+# best walk 3-6% slower, V = 2 slower still.  The float32 forms take the
+# same width and walk (dev/bench_sweep3.py, PERF.md §6): a middle sweep
+# at 256³ took 0.0726 ms at walks 2-4 within 1% (one-cell 0.0881), the
+# 20-sweep u solve 1.477 (1.790), the 256³ parity step 9.96 and, on 8
+# z-slabs, 18.88 ms as graphs (11.76, 22.36).
 VECTOR_WIDTHS = {"advect_bf16": (4, 2), "gradient_bf16": (8, 4, 2),
+                 "jacobi3_sweep": (4,), "jacobi3_slab": (4,),
                  "jacobi3_sweep_bf16": (4,), "jacobi3_slab_bf16": (4,)}
 SWEEP3_WALK = 3
-# Launches of each bf16 vector kernel by its width since
-# reset_width_counts().
+# Launches of each vector kernel by its width since reset_width_counts().
 _width_launches = {name: dict.fromkeys(widths + (1,), 0)
                    for name, widths in VECTOR_WIDTHS.items()}
 # Set by vector_widths(): the widths every vector kernel may take, in place
@@ -230,23 +240,38 @@ _forced_tile: int | None = None
 _forced_damp: "DampedRoute | None" = None
 
 
-def tiled3(cheby: bool, fast: bool, planes: int | None = None) -> bool:
+def tiled3(cheby: bool, fast: bool, planes: int | None = None,
+           side: int | None = None) -> bool:
     """Whether a 3-D solve (``planes`` None) or a segment on a z-slab
-    buffer of ``planes`` planes takes the tiled 3-D Jacobi (T3 sweeps a
-    launch) or the per-sweep K5 or K13 (one launch a sweep).
+    buffer of ``planes`` planes, of ``side``, takes the tiled 3-D Jacobi
+    (T3 sweeps a launch) or the per-sweep K5 or K13 (one launch a sweep).
 
     The tiled kernel has one mode, a Chebyshev solve in fast mode, the
-    one in which it beat the per-sweep chain on the H100 (PERF.md §6:
-    1.10-1.19x; 0.83-0.99x in the three others, which it does not build).
-    On a z-slab a launch of T3 sweeps writes ``planes - 2*T3`` planes and
-    each block walks 3*T3 more of warm-up and drain (``plan_chunk`` in
-    ``csrc/jacobi3_tiles.cu``); below 5*T3 planes the walk repeats more
-    planes than the launch writes, while the per-sweep K13's fields of
-    such a buffer stay in the L2, and the per-sweep K13 takes the segment
-    (PERF.md §6: 24-plane buffers of 8-plane slabs).
-    ``launch_sweeps`` overrides the geometry, not the mode."""
-    return cheby and fast and (planes is None
-                               or planes >= 5 * SWEEPS_PER_LAUNCH_3D)
+    one in which it beat the per-sweep one-cell chain on the H100
+    (PERF.md §6: 1.10-1.19x; 0.83-0.99x in the three others, which it
+    does not build).  The per-sweep kernels' vector walk beats it in that
+    mode too, in float32 and in bf16 (PERF.md §6, ``dev/bench_sweeps3.py
+    --dtypes float32,bfloat16``; the walk [the tiled kernel]: at 256³ the
+    10-sweep u solve 0.909 ms [0.998] in float32 and 0.853 [1.098] in bf16,
+    the 12-sweep pressure 1.051 [1.119] and 0.999 [1.213]; on a 32-plane
+    slab's 54-plane buffer 0.154 [0.198] and 0.136 [0.210]), so from
+    ``WALK_PLANE_CELLS`` cells a plane, where the walk takes its width (4
+    divides the side), no solve takes the tiled kernel; below, where
+    nothing was measured, the tiled kernel keeps them.  On a z-slab a
+    launch of T3 sweeps writes ``planes - 2*T3`` planes and each block
+    walks 3*T3 more of warm-up and drain (``plan_chunk`` in
+    ``csrc/jacobi3_tiles.cu``);
+    below 5*T3 planes the walk repeats more planes than the launch writes,
+    while the per-sweep K13's fields of such a buffer stay in the L2, and
+    the per-sweep K13 takes the segment (PERF.md §6: 24-plane buffers of
+    8-plane slabs).  ``launch_sweeps`` overrides the geometry, not the
+    mode."""
+    if not (cheby and fast):
+        return False
+    if (side is not None and side * side >= WALK_PLANE_CELLS
+            and side % VECTOR_WIDTHS["jacobi3_sweep"][0] == 0):
+        return False
+    return planes is None or planes >= 5 * SWEEPS_PER_LAUNCH_3D
 
 
 def slab_tiling(rows: int, side: int, sweeps: int) -> tuple[int, int]:
@@ -348,7 +373,7 @@ def _deeper_halo(side: int, per_launch: int, tile_rows: int) -> bool:
 
 
 def vector_width(kernel: str, side: int, *tensors: torch.Tensor) -> int:
-    """The cells a thread of ``kernel``'s bf16 vector kernel takes on grids
+    """The cells a thread of ``kernel``'s vector kernel takes on grids
     of ``side`` with these operands: the largest of its ``VECTOR_WIDTHS``
     that divides ``side`` and to whose access (that many values of a
     tensor's dtype, at most 16 bytes) every tensor's data is aligned, so
@@ -365,7 +390,7 @@ def vector_width(kernel: str, side: int, *tensors: torch.Tensor) -> int:
 
 @contextlib.contextmanager
 def vector_widths(widths: tuple[int, ...]):
-    """Let every bf16 vector kernel take only ``widths``, the
+    """Let every vector kernel take only ``widths``, the
     first that the operands allow (``(1,)`` or ``()``: the one-cell
     kernel), whatever ``VECTOR_WIDTHS`` says: the forms
     (``checks.BF16_FORMS``) the tests hold and
@@ -380,10 +405,9 @@ def vector_widths(widths: tuple[int, ...]):
 
 
 def width_counts() -> dict[str, dict[int, int]]:
-    """Launches of each bf16 vector kernel (``advect_bf16``,
-    ``gradient_bf16``, ``jacobi3_sweep_bf16``, ``jacobi3_slab_bf16``) by
-    the cells a thread took (one of its ``VECTOR_WIDTHS`` or 1) since the
-    last ``reset_width_counts``."""
+    """Launches of each vector kernel (``VECTOR_WIDTHS``' kernels) by the
+    cells a thread took (one of its widths or 1) since the last
+    ``reset_width_counts``."""
     return {name: dict(counts) for name, counts in _width_launches.items()}
 
 
@@ -394,7 +418,7 @@ def reset_width_counts() -> None:
 
 
 def _launch_vector(kernel: str, width: int, fn, *args) -> None:
-    """``_launch`` of a bf16 vector kernel, counted by its width too."""
+    """``_launch`` of a vector kernel, counted by its width too."""
     _launch(kernel, fn, *args)
     _width_launches[kernel][width] += 1
 
@@ -731,27 +755,26 @@ class _Sweeps:
     def sweep(self, lib, *geometry: int) -> None:
         """One launch; ``geometry`` goes between the sweep scalars and the
         stream (K1's batch and boundary split and ``omw``, the slab
-        kernel's row range and wall rows).  The bf16 forms of K5 and K13
-        take the width ``vector_width`` gives their operands and walk
-        ``SWEEP3_WALK`` planes a thread."""
+        kernel's row range and wall rows).  K5 and K13 take the width
+        ``vector_width`` gives their operands and walk ``SWEEP3_WALK``
+        planes a thread."""
         last = self.bf16 and self.final and self.k + 1 == self.end
         out = torch.empty_like(self.rhs) if last else self._scratch()
         rhs_out = torch.empty_like(self.rhs) if self.prep else None
         x, rhs, src, xm, *scalars = self.next_args()
         args = (getattr(lib, self.symbol), x, rhs, src, xm, out.data_ptr(),
                 _ptr(rhs_out), self.side, self.b, *scalars, *geometry)
-        if not self.bf16:
-            _launch(self.count, *args, self.stream)
-        elif self.count in VECTOR_WIDTHS:
+        types = (self._types(out),) if self.bf16 else ()
+        if self.count in VECTOR_WIDTHS:
             cheby = self.omegas is not None and self.k >= 1
             operands = (self.x, self.rhs, self.src if self.prep else None,
                         self.xm if cheby else None, out, rhs_out)
             width = vector_width(self.count, self.side,
                                  *(t for t in operands if t is not None))
-            _launch_vector(self.count, width, *args, self._types(out), width,
+            _launch_vector(self.count, width, *args, *types, width,
                            SWEEP3_WALK, self.stream)
         else:
-            _launch(self.count, *args, self._types(out), self.stream)
+            _launch(self.count, *args, *types, self.stream)
         if self.prep:
             self.rhs, self.prep = rhs_out, False
         if self.omegas is not None:
@@ -800,7 +823,8 @@ class _Sweeps:
             per_launch = _forced if tiled3(cheby, self.fast) else 0
         else:
             per_launch = (SWEEPS_PER_LAUNCH_3D if tiled3(
-                cheby, self.fast, None if slab is None else slab[0]) else 0)
+                cheby, self.fast, None if slab is None else slab[0],
+                self.side) else 0)
         start = self.k
         if per_launch == 0:
             while self.k < self.end:

@@ -1637,3 +1637,89 @@ def test_bf16_step3_256_takes_the_vector_form(cuda, slabs):
     want, _ = _widths_and_result(run, kernel, (1,))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mz", [0, 32, 8],
+                         ids=["256³", "8 z-slabs of 256³",
+                              "32 z-slabs of 256³"])
+def test_float32_per_sweep_3d_walk_equals_one_cell(cuda, mz):
+    """Every call of ``checks.kernel_checks3`` (256³) or
+    ``kernel_checks_slab3`` (top, interior and bottom slabs of ``mz``
+    planes of 256³) whose solves take the float32 per-sweep K5 or K13 (the
+    fast Chebyshev ones too, ``cuda_ops.tiled3``): every launch in the
+    vector walk (width 4, ``cuda_ops.width_counts``), bit for bit with the
+    same call in the one-cell form (``vector_widths((1,))``), and within
+    ``checks.TOL`` of its plain twin (bit for bit outside fast mode)."""
+    if mz:
+        forms = checks.kernel_checks_slab3(256, mz, cuda, seed=mz)
+        kernel = "jacobi3_slab"
+    else:
+        forms = checks.kernel_checks3(256, cuda, seed=0)
+        kernel = "jacobi3_sweep"
+    calls = [c for c in forms if c.kernels == (kernel,)]
+    assert len(calls) >= 12
+    for check in calls:
+        got, widths = _widths_and_result(check.run, kernel)
+        want, one_cell = _widths_and_result(check.run, kernel, (1,))
+        assert widths[1] == 0 and widths[4] > 0, (check.label, widths)
+        assert one_cell == {4: 0, 1: widths[4]}, (check.label, one_cell)
+        for g, w in zip(checks._as_tuple(got), checks._as_tuple(want)):
+            assert torch.equal(g, w), check.label
+        tol = checks.TOL if "fast" in check.label else 0.0
+        assert checks.max_abs_diff(got, check.plain()) <= tol, check.label
+
+
+F32_STEPS3 = {"parity": (0, {}), "parity, 8 z-slabs": (8, {}),
+              "compensated": (0, COMP3),
+              "compensated fast, 32 z-slabs": (32, dict(COMP3,
+                                                        fast_math=True))}
+
+
+@pytest.mark.parametrize("mode", list(F32_STEPS3))
+def test_float32_step3_256_takes_the_walk(cuda, mode):
+    """The float32 3-D steps at 256³ (parity on one volume and on 8
+    z-slabs, compensated, compensated with fast math on 32 z-slabs of 8
+    planes): the launches ``chip_smoke`` counts (120 per-sweep K5 launches
+    a parity step, 960 K13 on 8 z-slabs; the fast Chebyshev solves on the
+    per-sweep kernels, ``cuda_ops.tiled3``), every per-sweep launch at
+    width 4, the state bit for bit with the one-cell form's and, outside
+    fast math, with the ``reference`` backend's (ROADMAP §C)."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import (
+        make_mesh, make_sharded_step_fn_3d, shard_state_3d, unshard)
+
+    slabs, kw = F32_STEPS3[mode]
+    cfg = ft.SimConfig(n=254, ndim=3, jacobi_iters=20, backend="cuda",
+                       device=cuda, **kw)
+    state, src = ft.reference_init(torch.Generator().manual_seed(0), cfg)
+    if slabs:
+        mesh = make_mesh([torch.device(cuda)] * slabs)
+        cut = [shard_state_3d(t, mesh) for t in (state, src)]
+        want_counts = chip_smoke.expected_launches_sharded3(
+            cfg, slabs, make_sharded_step_fn_3d(cfg, mesh).advect_mode
+            == "exact")
+        kernel = "jacobi3_slab"
+
+        def run(c=cfg):
+            return unshard(make_sharded_step_fn_3d(c, mesh)(*cut))
+    else:
+        want_counts = chip_smoke.expected_launches3(cfg)
+        kernel = "jacobi3_sweep"
+
+        def run(c=cfg):
+            return ft.step3(c, state, src)
+    if mode.startswith("parity"):
+        assert want_counts[kernel] == (960 if slabs else 120)
+    assert not want_counts.get("jacobi3_sweeps") and not want_counts.get(
+        "jacobi3_slab_sweeps")
+    cuda_ops.reset_launch_counts()
+    got, widths = _widths_and_result(run, kernel)
+    assert cuda_ops.launch_counts() == {
+        **dict.fromkeys(cuda_ops.KERNELS, 0), **want_counts}
+    assert widths == {4: want_counts[kernel], 1: 0}
+    one_cell, _ = _widths_and_result(run, kernel, (1,))
+    for a, b in zip(got, one_cell):
+        assert torch.equal(a, b)
+    if not cfg.fast_math:
+        for a, b in zip(got, run(cfg.replace(backend="reference"))):
+            assert torch.equal(a, b)
