@@ -273,7 +273,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and the far corner block of (2, 4) blocks at 2048² (every mode the
    step gives them; bit for bit, the fast forms within 1e-5), each timed
    beside its bound, its slab counterpart on as many cells and, for the
-   gathers, ``grid_sample``; then ``make_sharded_step_fn(...,
+   gathers, ``grid_sample``; the grouped K9-block (``group_checks``: a
+   chunk over every block in one launch, its halo read from the
+   neighbours' own arrays) over the (2, 4) blocks of 2048² and the
+   (64, 1) blocks of 512² in every form, against the per-block K9-block on
+   ``Blocks.ext``'s buffers and its plain twin bit for bit (the fast
+   forms to the twin within 1e-5), and its 8-sweep chunk, fast chained
+   Chebyshev chunk and damped smooth over 2048² timed beside their bound
+   and the route they replace (``Blocks.ext`` and 8 per-block launches);
+   then ``make_sharded_step_fn(...,
    shard_backend="reference")`` on (2, 4) blocks of one card at 2048², 20
    iterations (``block_path``): exact, held to ``StableFluids2D.step``
    bit for bit past the window; windowed, to the slab route's windowed
@@ -294,7 +302,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    interior and the far corner block of (2, 4) blocks at 2048², in every
    mode the step gives them (bit for bit; fast forms within 1e-5), each
    timed beside its bound in 2-byte storage and its float32 form (the
-   gathers beside ``grid_sample`` on bf16); then the bf16 block step
+   gathers beside ``grid_sample`` on bf16), and the grouped K9-block's
+   bf16 forms as phase 19 holds and times its float32 ones; then the bf16
+   block step
    (``bf16_block_path``) on (2, 4) blocks of one card at 2048², 20
    iterations: exact, windowed, compensated with fast math, multigrid
    (two cycles) and CG-20, and ``"auto"`` at 8192² on (2, 2), exact, 40
@@ -305,7 +315,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    against ``expected_launches_blocks`` (the bf16 forms; the float32 block
    forms at 0), eager and graph ms/step beside the float32 block step's,
    and for multigrid and CG max|div| after the first projection beside
-   float32's;
+   float32's and the ``reference`` backend's bf16 block step's;
 21. bf16 storage on the 3-D step (``bf16_3d_phase``): the bf16 forms of
    K5 (per-sweep and tiled), K6 (exact and windowed, one field and the
    triple), K7 (into float32) and K8 (from a float32 pressure) against
@@ -494,6 +504,10 @@ KERNEL_SOURCES = {
     # route (no pallas_call; its slab route is float32).
     "jacobi_block_sweeps_bf16": (f"{CSRC}/jacobi_tiles.cu",
                                  f"{TPU_STEP}:195"),
+    # K9-block grouped: a chunk over every block of a device in one launch.
+    "jacobi_block_group": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_STEP}:195"),
+    "jacobi_block_group_bf16": (f"{CSRC}/jacobi_tiles.cu",
+                                f"{TPU_STEP}:195"),
     "advect_block_bf16": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:274"),
     "advect_block_exact_bf16": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:245"),
     "divergence_block_bf16": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:317"),
@@ -538,11 +552,14 @@ PLAIN_REPS = 3
 # beside that).
 # The tiled 3-D Jacobi's four forms too: the per-sweep K5's and K13's
 # vector walk took over the fast Chebyshev solves at 256³ (cuda_ops.tiled3),
-# and phases 3b, 3d, 21 and 22 hold and time them beside it.
+# and phases 3b, 3d, 21 and 22 hold and time them beside it.  And the
+# per-block K9-block: the grouped K9-block runs every block solve's chunks,
+# and phases 19 and 20 hold it against the per-block form and time both.
 OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16", "jacobi_slab",
             "jacobi_sweep_damp", "jacobi_slab_split", "jacobi3_sweeps",
             "jacobi3_slab_sweeps", "jacobi3_sweeps_bf16",
-            "jacobi3_slab_sweeps_bf16")
+            "jacobi3_slab_sweeps_bf16", "jacobi_block_sweeps",
+            "jacobi_block_sweeps_bf16")
 
 
 def phase(title: str) -> None:
@@ -773,7 +790,8 @@ def slab_block_solves(cfg, slabs: int) -> list[int]:
     ``cfg`` on ``slabs`` row slabs whose ``ceil8(iters+1)``-row halo is
     deeper than a slab: those run JAX's jnp fallback, the block route's
     chunked solve on the (px, 1) blocks (``parallel/sharded.py``,
-    ``_cheby_blocks``), one K9-block launch a slab a chunk."""
+    ``_cheby_blocks``), one grouped K9-block launch over every slab a
+    chunk."""
     m = (cfg.n + 2) // slabs
     deep = [] if cfg.diffusion_solver != "chebyshev" else [cfg.cheby_iters] * 2
     if cfg.pressure_solver == "chebyshev" and -(-(
@@ -810,19 +828,28 @@ def slab_mg_launches(cfg, slabs: int) -> dict[str, int]:
     return _mg_launches(cfg, "jacobi_slab_sweeps_damp_group", fine)
 
 
+def group_launches(parts: int) -> int:
+    """Grouped K9-block launches a chunk over ``parts`` blocks of one
+    device: one a table of at most ``cuda_ops.GROUP_BLOCKS``."""
+    from fluidsimulationcuda_torch.kernels import cuda_ops
+
+    return -(-parts // cuda_ops.GROUP_BLOCKS)
+
+
 def block_mg_launches(cfg, px: int, py: int) -> dict[str, int]:
-    """``slab_mg_launches`` on the (px, py) blocks of the block route: each
-    fine smooth one K9-block launch a block for every ``BLOCK_SMOOTH``
-    sweeps (no more than a block's side), the coarse grid as on slabs (in
-    bf16 K9-block's and K1-damp's bf16 forms)."""
+    """``slab_mg_launches`` on the (px, py) blocks of one device on the
+    block route: each fine smooth one grouped K9-block launch over every
+    block (``group_launches``) for every ``BLOCK_SMOOTH`` sweeps (no more
+    than a block's side), the coarse grid as on slabs (in bf16 the grouped
+    K9-block's and K1-damp's bf16 forms)."""
     from fluidsimulationcuda_torch.parallel.solvers import BLOCK_SMOOTH
 
     side = cfg.n + 2
     per = min(BLOCK_SMOOTH, side // px, side // py)
-    name = "jacobi_block_sweeps" + _bf16_suffix(cfg)
+    name = "jacobi_block_group" + _bf16_suffix(cfg)
 
     def fine(sweeps, launches):
-        launches[name] += px * py * -(-sweeps // per)
+        launches[name] += group_launches(px * py) * -(-sweeps // per)
 
     return _mg_launches(cfg, name, fine)
 
@@ -872,8 +899,9 @@ def _mg_launches(cfg, fine_kernel: str, fine) -> dict[str, int]:
 
 
 def block_chunks(iters: int, m: int, k: int) -> int:
-    """K9-block launches a block of a block solve of ``iters`` sweeps on
-    (m, k) blocks: one a chunk of ``parallel.sharded._chunk`` sweeps."""
+    """The chunks of a block solve of ``iters`` sweeps on (m, k) blocks,
+    of ``parallel.sharded._chunk`` sweeps each: a grouped K9-block launch
+    each (``group_launches``)."""
     from fluidsimulationcuda_torch.parallel.sharded import _chunk
 
     return -(-iters // _chunk(iters, m, k))
@@ -882,10 +910,11 @@ def block_chunks(iters: int, m: int, k: int) -> int:
 def expected_launches_blocks(cfg, px: int, py: int,
                              exact: bool = False) -> dict[str, int]:
     """Kernel launches of one block-route step of ``cfg`` on (px, py)
-    blocks (``parallel/sharded.py``, ``_BlockStep``): each block launches
-    K9-block once a chunk of each solve (``block_chunks``: two velocity
-    diffusions, two pressure solves, the density diffusion; the multigrid
-    projection's smooths by ``block_mg_launches``, none for CG), K10-block
+    blocks of one device (``parallel/sharded.py``, ``_BlockStep``): the
+    grouped K9-block once a chunk of each solve over every block
+    (``group_launches``; ``block_chunks``: two velocity diffusions, two
+    pressure solves, the density diffusion; the multigrid projection's
+    smooths by ``block_mg_launches``, none for CG), each block K10-block
     and K11-block once per projection, K12-block for the u/v pair and the
     density (its exact form with ``exact`` gathers).  A bf16 config
     launches each kernel's bf16 form and none of the float32 ones."""
@@ -901,7 +930,7 @@ def expected_launches_blocks(cfg, px: int, py: int,
            "cg": 0}.get(cfg.pressure_solver, cfg.jacobi_iters)
     chunks = (2 * block_chunks(k_vel, m, k) + block_chunks(k_dens, m, k)
               + (2 * block_chunks(k_p, m, k) if k_p else 0))
-    launches = {f"jacobi_block_sweeps{bf}": blocks * chunks,
+    launches = {f"jacobi_block_group{bf}": group_launches(blocks) * chunks,
                 f"divergence_block{bf}": 2 * blocks,
                 f"gradient_block{bf}": 2 * blocks,
                 ("advect_block_exact" if exact else "advect_block") + bf:
@@ -937,7 +966,7 @@ def expected_launches_sharded(cfg, slabs: int,
     chunks = sum(block_chunks(k, side // slabs, side)
                  for k in slab_block_solves(cfg, slabs))
     if chunks:
-        launches["jacobi_block_sweeps"] = slabs * chunks
+        launches["jacobi_block_group"] = group_launches(slabs) * chunks
     return launches
 
 
@@ -2866,6 +2895,7 @@ def block_phase(parity, cheby, big, card: str, errs: dict[str, float],
     times.update(kernel_times(checks.timing_checks_block(2048, 2, 4, "cuda",
                                                          SEED),
                               "2048² on (2, 4) blocks", card))
+    group_checks(False, errs, times, card)
     total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
 
     def add(counts):
@@ -2926,6 +2956,7 @@ def bf16_block_phase(parity, cheby, big, card: str, errs: dict[str, float],
     times.update(kernel_times(checks.timing_checks_block(
         2048, 2, 4, "cuda", SEED, bf16=True), "2048² on (2, 4) blocks, bf16",
         card))
+    group_checks(True, errs, times, card)
     total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
 
     def add(counts):
@@ -2951,6 +2982,34 @@ def bf16_block_phase(parity, cheby, big, card: str, errs: dict[str, float],
     add(bf16_block_path(big, (2, 2), "bf16 8192² parity 40 it, auto, exact",
                         card, 2, shard_backend="auto"))
     return total
+
+
+def group_checks(bf16: bool, errs: dict[str, float], times: dict,
+                 card: str) -> None:
+    """The grouped K9-block (float32 or bf16) over the (2, 4) blocks of
+    2048² and the (64, 1) blocks of 512² (the slab route's deep-halo
+    Chebyshev) in every form: against the per-block K9-block on
+    ``Blocks.ext``'s buffers bit for bit, against its plain twin bit for
+    bit (the fast forms within ``checks.TOL``); then the path's 8-sweep
+    chunk, the fast chained Chebyshev chunk and the damped smooth over
+    2048² timed beside their bound, their plain twin and the route they
+    replace (``Blocks.ext``, then 8 per-block launches)."""
+    from fluidsimulationcuda_torch.kernels import checks
+
+    for side, px, py in ((2048, 2, 4), (512, 64, 1)):
+        group = checks.kernel_checks_block_group(side, px, py, "cuda", SEED,
+                                                 bf16=bf16)
+        def loose(c):
+            return "fast" in c.label and "vs per-block" not in c.label
+
+        compare([c for c in group if not loose(c)], 0.0, errs,
+                "bit for bit")
+        compare([c for c in group if loose(c)], checks.TOL, errs)
+        del group
+    times.update(kernel_times(checks.timing_checks_block_group(
+        2048, 2, 4, "cuda", SEED, bf16=bf16),
+        "2048² over (2, 4) blocks, grouped" + (", bf16" if bf16 else ""),
+        card))
 
 
 def bf16_block_path(cfg, shape: tuple[int, int], label: str, card: str,
@@ -3040,11 +3099,16 @@ def bf16_block_path(cfg, shape: tuple[int, int], label: str, card: str,
           f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
     if quality:
         divs = [block_projection_div(c, mesh, draw) for c, draw in
-                ((c16, draw16), (cfg, draw32))]
+                ((c16, draw16), (cfg, draw32),
+                 (c16.replace(backend="reference"), draw16))]
         print(f"{label}: max|div| of the diffused impulse velocity "
               f"{divs[1][0]:.4e}; after the first projection bf16 "
               f"{divs[0][1]:.4e}, float32 {divs[1][1]:.4e} "
-              f"({divs[0][1] / divs[1][1]:.3f}x)")
+              f"({divs[0][1] / divs[1][1]:.3f}x), the reference backend's "
+              f"bf16 block step {divs[2][1]:.4e} ("
+              f"{divs[0][1] / divs[2][1]:.3f}x; the card's gap to float32 "
+              f"{'larger' if divs[0][1] > divs[2][1] else 'no larger'} than "
+              f"the reference's)")
     return counts
 
 

@@ -224,6 +224,41 @@
 // to bf16 at the store, so a block solve rounds once a chunk, where JAX's
 // jnp sweeps round every operation (ROADMAP §C).  Between chunks the halo
 // exchange moves bf16 blocks, as JAX's _extend_deep does.
+//
+// K9-block grouped jacobi_block_group: the same chunk on every block of a
+// device in one launch (fsc_jacobi_block_group, and _bf16), block
+// blockIdx.z, the path of every block solve since the per-block launch
+// above, which stays as the form it is held against.  It replaces the same
+// jnp chunks.  A launch a block on its extended buffer was a partial wave
+// (1040 x 528 cells at 2048^2 on (2, 4): 320 blocks of 512 threads) after
+// two torch.cat phases a chunk (Blocks.ext), which took 26-48% of the block
+// steps' device time.  Here no extended block exists: a tile's load of
+// buffer cell (r, c), clamped as BlockTiles clamps it, reads global cell
+// (gr0 + r, gc0 + c) from the array that owns it, the block's or one of its
+// eight neighbours' (a copy of the neighbour's strip where it lies on
+// another device; zero beyond a wall), found from the line's place against
+// the halo K and the block's sides (GroupBlockTiles, the table GroupBlock
+// in the kernel's parameters), so a launch computes, bit for bit, what the
+// per-block launch computes on Blocks.ext's buffer, and each chunk reads
+// its neighbours as the chunk before left them.
+//
+// Bound: a chunk reads every block's guess (none from zero), rhs and, in a
+// chained Chebyshev chunk, x_{k-1} once and writes x (and x_{k-1}) once:
+// 0.01502 ms for the 8-sweep Jacobi chunk over 2048^2 (bytes), 0.00751 in
+// bf16.  Design by measurement on the H100 (dev/bench_block_group.py,
+// PERF.md §6; cuda_ops.BLOCK_GROUP_TILES, group_load below): 128 x 64
+// tiles from 2 M cells a launch and 128 x 32 below (128-row and 256-column
+// tiles, one block an SM, were slower, and are not built); every load of
+// a tile before its stores (a store between two loads held the second);
+// float32 Chebyshev chunks by cp.async, the other float32 forms staged
+// through registers, bf16 in 4-cell vectors (vectors of 8 were no faster);
+// a zero numerator taken as its own quotient, the bits 0/beta gives for
+// beta > 0, since zeros send the IEEE division to its slow path and most
+// of a step's cells are zero (90% of u after 4 steps of the impulse run,
+// all of it after 300): over the (2, 4) blocks of the 2048^2 step's
+// velocity after 300 steps the 8-sweep chunk took 0.0934 ms against
+// 0.1766 dividing; the block steps took 0.97-1.03x the dividing kernel's
+// after 4 steps at 2048^2, 0.92x at 8192^2, and 0.52-0.89x after 301.
 #include <atomic>
 #include <type_traits>
 
@@ -256,6 +291,8 @@ struct Tiling {
   int count;          // sweeps of this launch
   int margin;         // halo depth: count, or count + 1 (plan_tiling)
   int out_w, out_h;   // the output tile
+  int margin_c;       // the halo's columns: margin, or more to align the
+                      // tile's columns (the grouped K9-block's vector loads)
   int first_combine;  // the first sweep of the launch with the Chebyshev
                       // combine: 1 where the launch starts the solve
   // A slab buffer: its rows, wall rows (-1 when absent) and the band of
@@ -272,6 +309,8 @@ struct Tiling {
 // its ghost ring the border.
 struct GridTiles {
   static constexpr bool kWhole = false;  // a tile holds part of the grid
+  // Loads cell by cell (GroupBlockTiles loads a tile's rows and columns).
+  static constexpr bool kSeparable = false;
   int side, n, off, mode, r0, c0;
   __device__ explicit GridTiles(const Tiling& t)
       : side(t.side),
@@ -279,7 +318,7 @@ struct GridTiles {
         off(fsc::grid_offset(t.side)),
         mode(static_cast<int>(blockIdx.z) < t.nb1 ? t.b : t.b1),
         r0(static_cast<int>(blockIdx.y) * t.out_h - t.margin),
-        c0(static_cast<int>(blockIdx.x) * t.out_w - t.margin) {}
+        c0(static_cast<int>(blockIdx.x) * t.out_w - t.margin_c) {}
   __device__ int load_at(int r, int c) const {
     return off + fsc::clampi(r, 0, side - 1) * side +
            fsc::clampi(c, 0, side - 1);
@@ -337,6 +376,7 @@ struct WholeGrid : GridTiles {
 // band's first row, its ghost columns and wall rows the border.
 struct SlabTiles {
   static constexpr bool kWhole = false;
+  static constexpr bool kSeparable = false;
   int side, n, rows, gtop, gbot, band_hi, mode, r0, c0;
   __device__ explicit SlabTiles(const Tiling& t)
       : side(t.side),
@@ -347,7 +387,7 @@ struct SlabTiles {
         band_hi(t.band_hi),
         mode(t.b),
         r0(t.band_lo + static_cast<int>(blockIdx.y) * t.out_h - t.margin),
-        c0(static_cast<int>(blockIdx.x) * t.out_w - t.margin) {}
+        c0(static_cast<int>(blockIdx.x) * t.out_w - t.margin_c) {}
   __device__ int load_at(int r, int c) const {
     return fsc::clampi(r, 0, rows - 1) * side + fsc::clampi(c, 0, side - 1);
   }
@@ -399,6 +439,7 @@ struct SlabTiles {
 // cell beyond the grid (a halo beyond a wall) is neither.
 struct BlockTiles {
   static constexpr bool kWhole = false;
+  static constexpr bool kSeparable = false;
   int side, n, rows, gr0, gc0, band_lo, band_hi, col_lo, col_hi, mode, r0,
       c0;
   __device__ explicit BlockTiles(const Tiling& t)
@@ -413,7 +454,7 @@ struct BlockTiles {
         col_hi(t.col_hi),
         mode(t.b),
         r0(t.band_lo + static_cast<int>(blockIdx.y) * t.out_h - t.margin),
-        c0(t.col_lo + static_cast<int>(blockIdx.x) * t.out_w - t.margin) {}
+        c0(t.col_lo + static_cast<int>(blockIdx.x) * t.out_w - t.margin_c) {}
   __device__ int load_at(int r, int c) const {
     return fsc::clampi(r, 0, rows - 1) * side + fsc::clampi(c, 0, side - 1);
   }
@@ -528,8 +569,11 @@ struct SplitSlabTiles : SlabTiles {
 // take the interior update of their own rhs here; the border cells are
 // set after it (sweeps_body) and nothing exact reads the others.  A damped
 // sweep blends the update with the cell's own x_k, omw*x_k + w*val.
+// kSkipZero takes a zero numerator as its own quotient, the bits the IEEE
+// division gives for the positive finite beta the caller checks, without
+// the division's slow path on zeros (the grouped K9-block, by measurement).
 template <int kRows, bool kCheby, bool kFast, bool kDamp, bool kCombine,
-          typename TX, typename TM, typename TR>
+          bool kSkipZero, typename TX, typename TM, typename TR>
 __device__ __forceinline__ void sweep_tile(
     const fsc::SweepParamsT<TX, TM, TR>& p, const float* cur, float* nxt,
     const float (&rhs)[Tile<kRows>::kCells],
@@ -546,8 +590,13 @@ __device__ __forceinline__ void sweep_tile(
       const int i = lr * kTileW + static_cast<int>(threadIdx.x) + kLanes * cb;
       const float neigh =
           ((cur[i - 1] + cur[i + 1]) + cur[i - kTileW]) + cur[i + kTileW];
-      float val = kFast ? fmaf(p.ab, neigh, rhs[q])
-                        : (rhs[q] + p.alpha * neigh) / p.beta;
+      float val;
+      if constexpr (kFast) {
+        val = fmaf(p.ab, neigh, rhs[q]);
+      } else {
+        const float num = rhs[q] + p.alpha * neigh;
+        val = kSkipZero && num == 0.0f ? num : num / p.beta;
+      }
       if constexpr (kDamp) val = omw * cur[i] + p.w * val;
       if constexpr (kCheby) {
         if (kCombine) val = fsc::cheby_combine(w, val, xm[q]);
@@ -558,10 +607,220 @@ __device__ __forceinline__ void sweep_tile(
   }
 }
 
+// How a launch loads x_k into its tile: every launch but the grouped
+// K9-block's stages a thread's cells through registers.
+constexpr int kLoadStaged = 0;
+// cp.async, each cell's 4 bytes straight into shared memory (float32).
+constexpr int kLoadAsync = 1;
+// kLoadVec4: 4 consecutive cells of a row a thread, one 8-byte load (bf16)
+// where they share a source, each vector its own thread's.
+constexpr int kLoadVec4 = 4;
+
+// One cp.async of a float32 cell into shared memory: zeros where !valid
+// (src is then any readable address and nothing is read).  Host builds
+// copy at once.
+__device__ __forceinline__ void async_cell(float* dst, const float* src,
+                                           bool valid) {
+#ifdef __CUDA_ARCH__
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(to),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+#else
+  *dst = valid ? *src : 0.0f;
+#endif
+}
+
+// Wait for this thread's cp.async copies.
+__device__ __forceinline__ void async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+#endif
+}
+
+// The sources of one block of a grouped K9-block launch, by the nine
+// regions of its extended (m + 2K) x (k + 2K) buffer: region 3*di + dj,
+// di and dj 0 (the K rows or columns before the block), 1 (the block's
+// own m rows or k columns) or 2 (the K after it).  Each source points at
+// the region's first cell: into the block's own array (region 4), into
+// the neighbour's array that holds the region (its last K rows, first K
+// columns, a corner; row stride k), or at a copy of those cells where the
+// neighbour lies on another device (`copied`: a (K, k) strip keeps row
+// stride k, an (m, K) strip or a (K, K) corner takes K); null beyond a
+// wall, zeros.
+constexpr int kRegions = 9;
+struct GroupBlock {
+  const void* x[kRegions];    // all null: the zero guess
+  const void* rhs[kRegions];
+  const void* xm[kRegions];   // x_{k-1}; all null: none
+  void* out;                  // the (m, k) block
+  void* xm_out;               // its x_{count-1} (Chebyshev)
+  int r0, c0;                 // the block's global origin
+  int copied;                 // bit i: region i's source is a copy
+};
+
+// Where a line of a block's extended buffer lies among the regions: d 0
+// (the K lines before the block), 1 (its own) or 2 (the K after), and its
+// offset in that region's source.
+struct Line {
+  int d, off;
+};
+
+// K9-block's geometry over every block of a group: BlockTiles at the
+// block's own buffer origin (r0 - K, c0 - K), each load of buffer cell
+// (r, c) (clamped into the buffer, as BlockTiles' loads) taken from the
+// source of its region, so that a launch computes, bit for bit, what the
+// per-block launch computes on the block's extended buffer.  T is the
+// storage type of every operand.  The staged loads are separable: a
+// thread's cells share kRows buffer rows and kCols columns, so each row's
+// and each column's region and offset are found once (load_cells), and a
+// cell's address is its region's source plus the two.
+template <typename T>
+struct GroupBlockTiles : BlockTiles {
+  static constexpr bool kSeparable = true;
+  const GroupBlock& blk;
+  int K, m, k;
+  __device__ GroupBlockTiles(const Tiling& t, const GroupBlock& b, int halo,
+                             int bm, int bk)
+      : BlockTiles(t), blk(b), K(halo), m(bm), k(bk) {
+    gr0 = b.r0 - halo;
+    gc0 = b.c0 - halo;
+  }
+  // Buffer line v (inside the buffer) of a block of len lines.
+  __device__ Line line(int v, int len) const {
+    const int w = v - K;
+    return w < 0 ? Line{0, w + K} : (w < len ? Line{1, w} : Line{2, w - len});
+  }
+  __device__ Line row_line(int r) const {
+    return line(fsc::clampi(r, 0, rows - 1), m);
+  }
+  __device__ Line col_line(int c) const {
+    return line(fsc::clampi(c, 0, side - 1), k);
+  }
+  // The interior line of the grid a buffer line derives from.
+  __device__ Line inner_row(int r) const {
+    return row_line(fsc::clampi(gr0 + r, 1, n) - gr0);
+  }
+  __device__ Line inner_col(int c) const {
+    return col_line(fsc::clampi(gc0 + c, 1, n) - gc0);
+  }
+  // The cell at rows r, columns c in the sources `src`: null beyond a wall.
+  __device__ const T* cell(const void* const* src, Line r, Line c) const {
+    const int region = 3 * r.d + c.d;
+    const T* base = static_cast<const T*>(src[region]);
+    const int stride = c.d != 1 && ((blk.copied >> region) & 1) ? K : k;
+    return base == nullptr ? nullptr : base + r.off * stride + c.off;
+  }
+  __device__ float value(const void* const* src, Line r, Line c) const {
+    const T* q = cell(src, r, c);
+    return q == nullptr ? 0.0f : fsc::load(q, 0);
+  }
+  template <class P>
+  __device__ bool guess(const P&) const {
+    return blk.x[4] != nullptr;
+  }
+  template <class P>
+  __device__ float x_at(const P&, int r, int c) const {
+    return value(blk.x, row_line(r), col_line(c));
+  }
+  // The tile's loads at tile origin (r0, c0): with kX x_k into both tile
+  // buffers (zero off the buffer and for the zero guess), the raw rhs and,
+  // for Chebyshev, x_{k-1} (zero when the chunk reads none) at the
+  // interior cell each cell derives from.
+  template <int kRows, bool kCheby, bool kX>
+  __device__ void load_cells(float* cur, float* nxt,
+                             float (&rhs)[kRows * kCols],
+                             float (&xm)[kCheby ? kRows * kCols : 1]) const {
+    Line xr[kRows], ir[kRows], xc[kCols], ic[kCols];
+    bool rin[kRows], cin[kCols];
+#pragma unroll
+    for (int rb = 0; rb < kRows; ++rb) {
+      const int r = r0 + static_cast<int>(threadIdx.y) + kWarps * rb;
+      rin[rb] = r >= 0 && r < rows;
+      xr[rb] = row_line(r);
+      ir[rb] = inner_row(r);
+    }
+#pragma unroll
+    for (int cb = 0; cb < kCols; ++cb) {
+      const int c = c0 + static_cast<int>(threadIdx.x) + kLanes * cb;
+      cin[cb] = c >= 0 && c < side;
+      xc[cb] = col_line(c);
+      ic[cb] = inner_col(c);
+    }
+    const bool x = blk.x[4] != nullptr;
+    const bool has_xm = kCheby && blk.xm[4] != nullptr;
+    // Every load first, then the tile's stores: a store between two loads
+    // would hold the second until the first lands (the compiler cannot
+    // tell the tile from the sources).
+    float xv[kX ? kRows * kCols : 1];
+#pragma unroll
+    for (int rb = 0; rb < kRows; ++rb) {
+#pragma unroll
+      for (int cb = 0; cb < kCols; ++cb) {
+        const int q = rb * kCols + cb;
+        if constexpr (kX)
+          xv[q] = x && rin[rb] && cin[cb] ? value(blk.x, xr[rb], xc[cb])
+                                          : 0.0f;
+        rhs[q] = value(blk.rhs, ir[rb], ic[cb]);
+        if constexpr (kCheby)
+          xm[q] = has_xm ? value(blk.xm, ir[rb], ic[cb]) : 0.0f;
+      }
+    }
+    if constexpr (kX) {
+#pragma unroll
+      for (int rb = 0; rb < kRows; ++rb) {
+#pragma unroll
+        for (int cb = 0; cb < kCols; ++cb) {
+          const int i = (static_cast<int>(threadIdx.y) + kWarps * rb) * kTileW +
+                        static_cast<int>(threadIdx.x) + kLanes * cb;
+          cur[i] = xv[rb * kCols + cb];
+          nxt[i] = xv[rb * kCols + cb];
+        }
+      }
+    }
+  }
+  // kLoadAsync: x_k at (r, c) into the tile cell `to`, zero off the
+  // buffer, beyond a wall and for the zero guess.
+  template <class P>
+  __device__ void x_async(const P& p, int r, int c, float* to) const {
+    const T* q = guess(p) && in_grid(r, c)
+                     ? cell(blk.x, row_line(r), col_line(c))
+                     : nullptr;
+    async_cell(to, q != nullptr ? q : static_cast<const T*>(blk.rhs[4]),
+               q != nullptr);
+  }
+  // kLoadVec4: x_k at (r, c) .. (r, c + V - 1) as the staged load stores
+  // them (zero off the buffer), in one V-cell load where they lie in the
+  // buffer and one source at an address aligned to the load.
+  template <int V, class P>
+  __device__ void x_vec(const P& p, int r, int c, float (&o)[V]) const {
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = 0.0f;
+    if (!guess(p)) return;
+    const bool whole = r >= 0 && r < rows && c >= 0 && c + V <= side &&
+                       (c < K) == (c + V - 1 < K) &&
+                       (c < K + k) == (c + V - 1 < K + k);
+    if (whole) {
+      const T* q = cell(blk.x, row_line(r), col_line(c));
+      if (q == nullptr) return;
+      if (reinterpret_cast<unsigned long long>(q) % (V * sizeof(T)) == 0) {
+        fsc::load_vec<V>(q, 0, o);
+        return;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      o[j] = in_grid(r, c + j) ? x_at(p, r, c + j) : 0.0f;
+  }
+};
+
 // The sweeps of one launch on the block's tile of geometry g (GridTiles,
-// SlabTiles, SplitSlabTiles, WholeGrid, BlockTiles): load, `count` sweeps
-// in shared memory, store.
-template <int kRows, bool kCheby, bool kFast, bool kDamp, class G,
+// SlabTiles, SplitSlabTiles, WholeGrid, BlockTiles, GroupBlockTiles):
+// load, `count` sweeps in shared memory, store; x_k loaded as kLoad says,
+// kSkipZero as sweep_tile says.
+template <int kRows, bool kCheby, bool kFast, bool kDamp,
+          int kLoad = kLoadStaged, bool kSkipZero = false, class G,
           typename TX, typename TM, typename TR, typename TO, typename TXO>
 __device__ __forceinline__ void sweeps_body(
     const G& g, const fsc::SweepParamsT<TX, TM, TR>& p, const Tiling& t,
@@ -588,7 +847,37 @@ __device__ __forceinline__ void sweeps_body(
   };
   float rhs[kCells];
   float xm[kCheby ? kCells : 1];
-  {
+  if constexpr (kLoad == kLoadAsync) {
+#pragma unroll
+    for (int q = 0; q < kCells; ++q)
+      g.x_async(p, g.r0 + row(q), g.c0 + col(q),
+                cur + row(q) * kTileW + col(q));
+  } else if constexpr (kLoad == kLoadVec4) {
+    // Vectors of kLoad cells of a row, the tile's vectors dealt out over
+    // the block's threads (kCells / kLoad a thread).
+    constexpr int kPerRow = kTileW / kLoad;
+    const int tid = static_cast<int>(threadIdx.y) * kLanes +
+                    static_cast<int>(threadIdx.x);
+    constexpr int kVecs = kCells / kLoad;
+    float o[kVecs][kLoad];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      const int e = tid + kThreads * v;
+      g.template x_vec<kLoad>(p, g.r0 + e / kPerRow,
+                              g.c0 + (e % kPerRow) * kLoad, o[v]);
+    }
+    // The stores after every load (as GroupBlockTiles::load_cells).
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      const int e = tid + kThreads * v;
+      const int i = (e / kPerRow) * kTileW + (e % kPerRow) * kLoad;
+#pragma unroll
+      for (int j = 0; j < kLoad; ++j) {
+        cur[i + j] = o[v][j];
+        nxt[i + j] = o[v][j];
+      }
+    }
+  } else if constexpr (!G::kSeparable) {
     float x[kCells];
 #pragma unroll
     for (int q = 0; q < kCells; ++q) x[q] = 0.0f;
@@ -605,10 +894,16 @@ __device__ __forceinline__ void sweeps_body(
     }
   }
   // The rhs as fsc::rhs_at builds it: base + src_dt*src, times 1/beta in
-  // fast mode, rounded to its storage type.
+  // fast mode, rounded to its storage type (GroupBlockTiles loads it, and
+  // x_{k-1}, with x_k).
+  if constexpr (G::kSeparable) {
+    g.template load_cells<kRows, kCheby, kLoad == kLoadStaged>(cur, nxt, rhs,
+                                                               xm);
+  } else {
 #pragma unroll
-  for (int q = 0; q < kCells; ++q)
-    rhs[q] = g.rhs_at(p, g.r0 + row(q), g.c0 + col(q));
+    for (int q = 0; q < kCells; ++q)
+      rhs[q] = g.rhs_at(p, g.r0 + row(q), g.c0 + col(q));
+  }
   if (p.flags & fsc::kPrep) {
     if (p.src) {
 #pragma unroll
@@ -622,13 +917,20 @@ __device__ __forceinline__ void sweeps_body(
 #pragma unroll
     for (int q = 0; q < kCells; ++q) rhs[q] = fsc::round_to<TR>(rhs[q]);
   }
-  if constexpr (kCheby) {
+  if constexpr (kCheby && !G::kSeparable) {
 #pragma unroll
     for (int q = 0; q < kCells; ++q) xm[q] = 0.0f;
     if (p.xm) {
 #pragma unroll
       for (int q = 0; q < kCells; ++q) xm[q] = fsc::load(p.xm, inner(q));
     }
+  }
+  if constexpr (kLoad == kLoadAsync) {
+    // This thread's copies have landed; x_k into x_{k+1}'s buffer too.
+    async_wait();
+#pragma unroll
+    for (int q = 0; q < kCells; ++q)
+      nxt[row(q) * kTileW + col(q)] = cur[row(q) * kTileW + col(q)];
   }
   // Bit q: own cell q is a border cell off the tile's outer ring (set from
   // its interior neighbour after each sweep).
@@ -644,7 +946,7 @@ __device__ __forceinline__ void sweeps_body(
     // The first launch of a folded or fast solve stores the rhs it built,
     // once per interior cell it writes, for the launches after it.
     const bool kept = row(q) >= t.margin && row(q) < t.margin + t.out_h &&
-                      col(q) >= t.margin && col(q) < t.margin + t.out_w;
+                      col(q) >= t.margin_c && col(q) < t.margin_c + t.out_w;
     if (rhs_out != nullptr && in_grid(q) && !border && kept &&
         g.writes_row(gr))
       fsc::store(rhs_out, g.at(gr, gc), rhs[q]);
@@ -669,10 +971,10 @@ __device__ __forceinline__ void sweeps_body(
       hi = hi < row_hi ? hi : row_hi;
     }
     if (kCheby && s >= t.first_combine)
-      sweep_tile<kRows, kCheby, kFast, kDamp, true>(
+      sweep_tile<kRows, kCheby, kFast, kDamp, true, kSkipZero>(
           p, cur, nxt, rhs, xm, t.w[s], t.omw, lo, hi, col_hi);
     else
-      sweep_tile<kRows, kCheby, kFast, kDamp, false>(
+      sweep_tile<kRows, kCheby, kFast, kDamp, false, kSkipZero>(
           p, cur, nxt, rhs, xm, 0.0f, t.omw, lo, hi, col_hi);
     if (edge) {
       __syncthreads();
@@ -708,7 +1010,7 @@ __device__ __forceinline__ void sweeps_body(
     for (int cb = 0; cb < kCols; ++cb) {
       const int lc = static_cast<int>(threadIdx.x) + kLanes * cb;
       const int gc = g.c0 + lc;
-      if (lc < t.margin || lc >= t.margin + t.out_w || !g.writes_col(gc))
+      if (lc < t.margin_c || lc >= t.margin_c + t.out_w || !g.writes_col(gc))
         continue;
       const int o = g.at(gr, gc);
       const int i = lr * kTileW + lc;
@@ -816,11 +1118,38 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
                                            static_cast<T*>(nullptr), tile);
 }
 
+// The blocks of one grouped K9-block launch, passed by value in the
+// kernel's parameters (248 bytes a block, 15.9 KB at kGroupBlocks, under
+// the 32,764 bytes CUDA 12.1 takes on sm_70 and later), so a CUDA graph
+// captures the table with the launch, as K9-damp's SlabGroup.
+constexpr int kGroupBlocks = 64;
+struct BlockGroup {
+  GroupBlock block[kGroupBlocks];
+};
+
+// K9-block grouped: one chunk of a block solve on every block of the
+// group in one launch, block blockIdx.z, its halo read from the
+// neighbouring blocks' own arrays (GroupBlockTiles), x_k loaded as kLoad
+// says, a zero numerator its own quotient (kSkipZero).
+template <int kRows, int kLoad, bool kCheby, bool kFast, bool kDamp,
+          typename T>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    jacobi_block_group_kernel(fsc::SweepParamsT<T, T, T> p, Tiling t, int K,
+                              int m, int k,
+                              const __grid_constant__ BlockGroup group) {
+  extern __shared__ float tile[];
+  const GroupBlock& b = group.block[blockIdx.z];
+  sweeps_body<kRows, kCheby, kFast, kDamp, kLoad, true>(
+      GroupBlockTiles<T>(t, b, K, m, k), p, t, static_cast<T*>(b.out),
+      static_cast<T*>(b.xm_out), static_cast<T*>(nullptr), tile);
+}
+
 // The halo and output tile of a launch of `count` sweeps: a halo of
 // `count` cells, one more where `deeper` says a border line would derive
 // from a line the halo leaves stale.
 void set_halo(int count, int tile_h, bool deeper, Tiling* t) {
   t->margin = count + (deeper ? 1 : 0);
+  t->margin_c = t->margin;
   t->out_w = kTileW - 2 * t->margin;
   t->out_h = tile_h - 2 * t->margin;
 }
@@ -885,39 +1214,37 @@ int plan_whole(int side, int count, int tile_h, Tiling* t) {
     return static_cast<int>(cudaErrorInvalidValue);
   t->side = side;
   t->count = count;
-  t->margin = 1;
+  t->margin = t->margin_c = 1;
   t->out_w = side;
   t->out_h = side;
   return 0;
 }
 
 // The tiling of a K9-block launch of `count` sweeps (at most the halo)
-// on an (m + 2*halo) x (k + 2*halo) block buffer at global origin (gr0,
-// gc0): tiles of tile_h rows over the block, a halo of `count` cells, one
-// deeper where the buffer holds a ghost line of the grid.  A top ghost
-// row derives from the row below it in the same sweep, so wherever it
-// lies within `count` rows under a tile's output band it leaves the exact
-// rows one short after the sweep that reaches it; one more halo row keeps
-// the band exact (so for the bottom row, the columns and the corners).
-int plan_block(int rows, int cols, int halo, int m, int k, int gr0, int gc0,
-               int n, int count, int tile_h, Tiling* t) {
+// on an (m + 2*halo) x (k + 2*halo) block buffer: tiles of tile_h rows
+// over the block, a halo of `count` cells, one deeper where the buffer
+// holds a ghost line of the grid (`walls`; a grouped launch takes it where
+// any of its blocks' buffers does: a deeper halo changes no written
+// cell).  A top ghost row derives from the row below it in the same
+// sweep, so wherever it lies within `count` rows under a tile's output
+// band it leaves the exact rows one short after the sweep that reaches
+// it; one more halo row keeps the band exact (so for the bottom row, the
+// columns and the corners).  The caller sets the buffer's global origin
+// (gr0, gc0).
+int plan_block(int halo, int m, int k, int n, int count, int tile_h,
+               bool walls, Tiling* t) {
   if (count < 1 || count > kMaxSweeps || count > halo || m < 2 || k < 2 ||
-      n < 1 || rows != m + 2 * halo || cols != k + 2 * halo ||
-      (tile_h != Tile<4>::kTileH && tile_h != Tile<2>::kTileH) ||
+      n < 1 || (tile_h != Tile<4>::kTileH && tile_h != Tile<2>::kTileH) ||
       tile_h - 2 * (count + 1) < 1 || kTileW - 2 * (count + 1) < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  t->side = cols;
-  t->rows = rows;
+  t->side = k + 2 * halo;
+  t->rows = m + 2 * halo;
   t->count = count;
   t->n = n;
-  t->gr0 = gr0;
-  t->gc0 = gc0;
   t->gtop = t->gbot = -1;
   t->band_lo = t->col_lo = halo;
   t->band_hi = halo + m;
   t->col_hi = halo + k;
-  const bool walls = gr0 <= 0 || gr0 + rows > n + 1 || gc0 <= 0 ||
-                     gc0 + cols > n + 1;
   set_halo(count, tile_h, walls, t);
   return 0;
 }
@@ -1211,10 +1538,16 @@ int block_sweeps(const void* x, const void* rhs, const void* xm, void* out,
                  float ab, float inv_b, float w, float omw,
                  const float* omegas, int flags, int first, int count,
                  int tile_h, void* stream) {
+  if (rows != m + 2 * halo || cols != k + 2 * halo)
+    return static_cast<int>(cudaErrorInvalidValue);
   Tiling t{};
-  const int err = plan_block(rows, cols, halo, m, k, gr0, gc0, n, count,
-                             tile_h, &t);
+  const int err = plan_block(halo, m, k, n, count, tile_h,
+                             gr0 <= 0 || gr0 + rows > n + 1 || gc0 <= 0 ||
+                                 gc0 + cols > n + 1,
+                             &t);
   if (err != 0) return err;
+  t.gr0 = gr0;
+  t.gc0 = gc0;
   const bool cheby = (flags & fsc::kCheby) != 0;
   if (first < 0 || ((flags & fsc::kDamp) && flags != fsc::kDamp) ||
       (cheby && first > 0 && xm == nullptr) || (cheby && xm_out == nullptr))
@@ -1234,6 +1567,128 @@ int block_sweeps(const void* x, const void* rhs, const void* xm, void* out,
   return tile_h == Tile<4>::kTileH
              ? launch_block<4, T>(flags, p, t, o, xo, stream_)
              : launch_block<2, T>(flags, p, t, o, xo, stream_);
+}
+
+template <int kRows, int kLoad, bool kCheby, bool kFast, bool kDamp,
+          typename T>
+int launch_group_block_kernel(const fsc::SweepParamsT<T, T, T>& p,
+                              const Tiling& t, int K, int m, int k,
+                              const BlockGroup& group, int blocks,
+                              cudaStream_t stream) {
+  const auto kernel =
+      jacobi_block_group_kernel<kRows, kLoad, kCheby, kFast, kDamp, T>;
+  constexpr int kSmem = Tile<kRows>::kSmem;
+  static std::atomic<int> attribute[kDevices];
+  const int err = smem_attribute(kernel, kSmem, attribute);
+  if (err != 0) return err;
+  const dim3 grid((t.col_hi - t.col_lo + t.out_w - 1) / t.out_w,
+                  (t.band_hi - t.band_lo + t.out_h - 1) / t.out_h, blocks);
+  kernel<<<grid, dim3(kLanes, kWarps), kSmem, stream>>>(p, t, K, m, k,
+                                                         group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How the grouped launches load x_k, by measurement on the H100
+// (dev/bench_block_group.py, PERF.md): float32 Chebyshev chunks by
+// cp.async (13-16% under staged loads on 64-row tiles), the other float32
+// forms staged (3-4% under cp.async), every bf16 form in vectors of 4
+// cells (10% under staged loads; vectors of 8 were within 3% of them but
+// for the 8-sweep Jacobi chunk, 11% over, and are not built).
+template <typename T>
+constexpr int group_load(bool cheby) {
+  return std::is_same<T, float>::value ? (cheby ? kLoadAsync : kLoadStaged)
+                                       : kLoadVec4;
+}
+
+// The grouped launch of the form `flags` names, on tiles of kRows rows of
+// warps, each form loaded as group_load says.
+template <int kRows, typename T>
+int launch_group(int flags, const fsc::SweepParamsT<T, T, T>& p,
+                 const Tiling& t, int K, int m, int k, const BlockGroup& g,
+                 int blocks, cudaStream_t s) {
+  constexpr int kJ = group_load<T>(false);
+  constexpr int kCh = group_load<T>(true);
+  const bool fast = (flags & fsc::kFast) != 0;
+  if (flags & fsc::kDamp)
+    return launch_group_block_kernel<kRows, kJ, false, false, true, T>(
+        p, t, K, m, k, g, blocks, s);
+  if (flags & fsc::kCheby)
+    return fast ? launch_group_block_kernel<kRows, kCh, true, true, false, T>(
+                      p, t, K, m, k, g, blocks, s)
+                : launch_group_block_kernel<kRows, kCh, true, false, false,
+                                            T>(p, t, K, m, k, g, blocks, s);
+  return fast ? launch_group_block_kernel<kRows, kJ, false, true, false, T>(
+                    p, t, K, m, k, g, blocks, s)
+              : launch_group_block_kernel<kRows, kJ, false, false, false, T>(
+                    p, t, K, m, k, g, blocks, s);
+}
+
+// One grouped K9-block launch (fsc_jacobi_block_group's arguments) with
+// every operand stored as T.
+template <typename T>
+int block_group(const void* const* ptrs, const int* ints, int blocks, int m,
+                int k, int halo, int n, int b, float alpha, float beta,
+                float ab, float inv_b, float w, float omw,
+                const float* omegas, int flags, int first, int count,
+                int tile_h, void* stream) {
+  // beta positive and finite: 0/beta is then the zero numerator itself
+  // (kSkipZero).
+  if (blocks < 1 || blocks > kGroupBlocks || halo > m || halo > k ||
+      first < 0 || ((flags & fsc::kDamp) && flags != fsc::kDamp) ||
+      !(beta > 0.0f && beta <= 3.4e38f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool cheby = (flags & fsc::kCheby) != 0;
+  const bool guess = ptrs[4] != nullptr;
+  const bool has_xm = cheby && first > 0;
+  BlockGroup group;
+  bool walls = false;
+  for (int i = 0; i < blocks; ++i) {
+    const void* const* q = ptrs + (3 * kRegions + 2) * i;
+    const int* v = ints + 3 * i;
+    GroupBlock& g = group.block[i];
+    for (int r = 0; r < kRegions; ++r) {
+      g.x[r] = q[r];
+      g.rhs[r] = q[kRegions + r];
+      g.xm[r] = has_xm ? q[2 * kRegions + r] : nullptr;
+    }
+    g.out = const_cast<void*>(q[3 * kRegions]);
+    g.xm_out = const_cast<void*>(q[3 * kRegions + 1]);
+    g.r0 = v[0];
+    g.c0 = v[1];
+    g.copied = v[2];
+    // Every block alike: a guess or none, x_{k-1} where the chunk reads
+    // it, its rhs and its outputs.
+    if ((g.x[4] != nullptr) != guess || (has_xm && g.xm[4] == nullptr) ||
+        g.rhs[4] == nullptr || g.out == nullptr ||
+        (cheby && g.xm_out == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    walls = walls || g.r0 - halo <= 0 || g.r0 + m + halo > n + 1 ||
+            g.c0 - halo <= 0 || g.c0 + k + halo > n + 1;
+  }
+  Tiling t{};
+  const int err = plan_block(halo, m, k, n, count, tile_h, walls, &t);
+  if (err != 0) return err;
+  constexpr int vec = group_load<T>(false);
+  if (vec > 1) {
+    // Vector loads: the tile's columns start on a multiple of the vector
+    // (the blocks' columns do; a deeper halo changes no written cell).
+    t.margin_c = (t.margin + vec - 1) / vec * vec;
+    t.out_w = kTileW - 2 * t.margin_c;
+    if (t.out_w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  t.b = b;
+  t.omw = omw;
+  t.first_combine = first == 0 ? 1 : 0;
+  for (int s = 0; s < kMaxSweeps; ++s)
+    t.w[s] = (cheby && s < count) ? omegas[s] : 0.0f;
+  auto p = sweep_params<T, T, T>(nullptr, nullptr, nullptr, nullptr, alpha,
+                                 beta, ab, inv_b, 0.0f,
+                                 flags & (fsc::kPrep | fsc::kFast));
+  p.w = w;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return tile_h == Tile<4>::kTileH
+             ? launch_group<4, T>(flags, p, t, halo, m, k, group, blocks, s)
+             : launch_group<2, T>(flags, p, t, halo, m, k, group, blocks, s);
 }
 
 }  // namespace
@@ -1492,4 +1947,45 @@ extern "C" int fsc_jacobi_block_sweeps_bf16(
                                  m, k, gr0, gc0, n, b, alpha, beta, ab, inv_b,
                                  w, omw, omegas, flags, first, count, tile_h,
                                  stream);
+}
+
+// K9-block grouped: one chunk of a block solve (fsc_jacobi_block_sweeps's:
+// `count` sweeps, at most halo, sweeps `first` .. of the solve, flags,
+// b, the coefficients, omegas) on each of `blocks` (at most kGroupBlocks)
+// (m, k) blocks of a grid of n interior cells a side in one launch, each
+// block's halo of `halo` cells read from its neighbours' own arrays.
+// ptrs holds 29 pointers a block, on the host: the sources of x's nine
+// regions of the block's extended buffer (region 3*di + dj, rows and
+// columns before, in and after the block; region 4 the block's own (m, k)
+// array, the others into the neighbour's array that holds them, row
+// stride k, or at copies of their cells; null beyond a wall), the rhs's
+// nine, x_{k-1}'s nine (read where a Chebyshev chunk has first > 0), the
+// block's (m, k) output and, for Chebyshev, its x_{count-1}.  x's are all
+// null for the zero guess.  ints holds 3 a block: its global origin r0,
+// c0 and a bit a region whose source is a copy ((K, k) strips of row
+// stride k, (m, K) strips and (K, K) corners of stride K).  tile_h: 32
+// or 64 rows of 128 columns.  No output aliases an input.  Returns
+// cudaErrorInvalidValue for a count, block count, shape, tile, flag or
+// operand out of range, otherwise cudaGetLastError() after the launch.
+extern "C" int fsc_jacobi_block_group(
+    const void* const* ptrs, const int* ints, int blocks, int m, int k,
+    int halo, int n, int b, float alpha, float beta, float ab, float inv_b,
+    float w, float omw, const float* omegas, int flags, int first,
+    int count, int tile_h, void* stream) {
+  return block_group<float>(ptrs, ints, blocks, m, k, halo, n, b, alpha,
+                            beta, ab, inv_b, w, omw, omegas, flags, first,
+                            count, tile_h, stream);
+}
+
+// Its bf16 forms: every operand bf16, as fsc_jacobi_block_sweeps_bf16's
+// (loads widen, the iterate float32 through the chunk, one rounding at
+// the store).
+extern "C" int fsc_jacobi_block_group_bf16(
+    const void* const* ptrs, const int* ints, int blocks, int m, int k,
+    int halo, int n, int b, float alpha, float beta, float ab, float inv_b,
+    float w, float omw, const float* omegas, int flags, int first,
+    int count, int tile_h, void* stream) {
+  return block_group<fsc::bf16>(ptrs, ints, blocks, m, k, halo, n, b, alpha,
+                                beta, ab, inv_b, w, omw, omegas, flags,
+                                first, count, tile_h, stream);
 }

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "fsc_jacobi_block_sweeps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _I,
                                 _I, _I, _I, _P],
+    "fsc_jacobi_block_group": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                               _F, _F, _F, _P, _I, _I, _I, _I, _P],
     "fsc_advect_block": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _P],
     "fsc_advect_block_exact": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
@@ -117,7 +119,8 @@ _SIGNATURES = {
 # float32 forms' arguments; K13's, those and the operand types (the
 # per-sweep K13's before the width and the walk, which both forms take).
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
-    "fsc_jacobi_block_sweeps", "fsc_advect_block", "fsc_advect_block_exact",
+    "fsc_jacobi_block_sweeps", "fsc_jacobi_block_group", "fsc_advect_block",
+    "fsc_advect_block_exact",
     "fsc_divergence_block", "fsc_gradient_block", "fsc_advect3",
     "fsc_divergence3", "fsc_gradient3", "fsc_advect3_slab",
     "fsc_advect3_slab_exact", "fsc_divergence3_slab", "fsc_gradient3_slab")})

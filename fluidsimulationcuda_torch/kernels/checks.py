@@ -60,6 +60,8 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "BF16_FORM_VELOCITIES", "BF16_FORM_FIELDS", "BF16_FORMS",
            "kernel_checks_bf16_forms",
            "per_sweep_checks", "kernel_checks_block", "timing_checks_block",
+           "block_chunk_forms", "block_chunk", "kernel_checks_block_group",
+           "timing_checks_block_group",
            "kernel_checks3_bf16", "timing_checks3_bf16",
            "kernel_checks_slab3_bf16", "timing_checks_slab3_bf16"]
 
@@ -2284,6 +2286,173 @@ def _block_timings(t: "_BlockInputs", device, seed: int) -> list[Check]:
         cs.gradient_slab, slab.slab(slab.u, i), slab.slab(slab.v, i),
         slab.slab(slab.p, i), *slab.halo(slab.p, i), fl, n)
     return [jac, win, exact, div, grad, cheb, smooth]
+
+
+def block_chunk_forms(K: int, av: float, rho: float = 0.9,
+                      iters: int | None = None) -> dict[str, tuple]:
+    """Every form of a block chunk the block route runs, by name: (op, b,
+    sweeps, coefficients, keywords), ``op`` "jacobi" (Jacobi as deep as
+    the halo ``K`` and shorter, the zero guess, the reciprocal form,
+    Chebyshev first and chained chunks, fast and the zero-guess pressure)
+    or "smooth" (the damped 2-sweep smooths and one as deep as the halo).
+    The Chebyshev chunks take the weights of an ``iters``-sweep solve
+    (3K by default)."""
+    vel = dict(alpha=av, beta=1 + 4 * av)
+    press = dict(alpha=1.0, beta=4.0)
+    ws = cheby_omegas(rho, iters or 3 * K)
+    half = max(K // 2, 1)
+    return {
+        "jacobi": ("jacobi", 1, K, vel, {}),
+        "jacobi under the halo": ("jacobi", 1, half, vel, {}),
+        "zero_init": ("jacobi", 0, K, press, dict(zero_init=True)),
+        "fast": ("jacobi", 2, K, vel, dict(fast=True)),
+        "chebyshev first": ("jacobi", 1, K, vel, dict(omegas=ws)),
+        "chebyshev chained": ("jacobi", 1, K, vel, dict(omegas=ws, first=K)),
+        "chebyshev+fast chained": ("jacobi", 2, half, vel,
+                                   dict(omegas=ws, first=2 * K, fast=True)),
+        "chebyshev pressure first": ("jacobi", 0, K, press,
+                                     dict(omegas=ws, zero_init=True)),
+        "damped 2": ("smooth", 0, 2, {}, {}),
+        "damped 2 zero_init": ("smooth", 0, 2, {}, dict(zero_init=True)),
+        "damped halo": ("smooth", 0, K, {}, {}),
+    }
+
+
+def block_chunk(how: str, form: tuple, blocks, xs, rhs, xms, n: int,
+                K: int) -> tuple:
+    """One chunk of ``form`` (``block_chunk_forms``) on every block of
+    ``blocks`` (the lists ``xs``, ``rhs``, ``xms`` of (m, k) blocks) as
+    ``how`` says: "group", the grouped K9-block (``fused_jacobi_blocks``,
+    ``smooth_blocks``); "plain", its plain twin; "per-block", JAX's
+    composition on the per-block K9-block (``Blocks.ext``, then one launch
+    a block).  Returns every output block in one tuple (x_k, then x_{k-1}
+    for Chebyshev)."""
+    op, b, sweeps, coef, kw = form
+    m, k = blocks.m, blocks.k
+    if op == "smooth":
+        if how == "per-block":
+            out = [cs.smooth_block(pe, de, o, n=n, m=m, k=k, K=sweeps,
+                                   sweeps=sweeps, **kw)
+                   for pe, de, o in zip(blocks.ext(xs, sweeps),
+                                        blocks.ext(rhs, sweeps),
+                                        blocks.origins)]
+        else:
+            fn = cs.smooth_blocks if how == "group" else cs.smooth_blocks_plain
+            out = fn(blocks, xs, rhs, n=n, K=sweeps, sweeps=sweeps, **kw)
+        return tuple(out)
+    if how == "per-block":
+        xm_ext = (blocks.ext(xms, K) if kw.get("first", 0) > 0
+                  else [None] * len(rhs))
+        pairs = [cs.fused_jacobi_block(b, xe, re, o, n=n, m=m, k=k, K=K,
+                                       sweeps=sweeps, xm_ext=xme, **coef,
+                                       **kw)
+                 for xe, re, xme, o in zip(blocks.ext(xs, K),
+                                           blocks.ext(rhs, K), xm_ext,
+                                           blocks.origins)]
+        out = (pairs if "omegas" not in kw
+               else ([q[0] for q in pairs], [q[1] for q in pairs]))
+    else:
+        fn = (cs.fused_jacobi_blocks if how == "group"
+              else cs.fused_jacobi_blocks_plain)
+        out = fn(blocks, b, xs, rhs, n=n, K=K, sweeps=sweeps, xms=xms,
+                 **coef, **kw)
+    return (tuple(out[0]) + tuple(out[1]) if isinstance(out, tuple)
+            else tuple(out))
+
+
+def _group_inputs(side: int, px: int, py: int, device, seed: int,
+                  bf16: bool):
+    """(inputs, blocks, x, rhs, x_{k-1}): the random fields of
+    ``_BlockInputs`` cut into the (px, py) blocks of ``side``."""
+    from ..parallel.mesh import Blocks
+
+    blocks = Blocks(px, py, side)
+    t = _BlockInputs(side, side // px, side // py, device, seed, bf16)
+    xs, rhs, xms = (list(blocks.cut(f)) for f in (t.x, t.x0, t.p))
+    return t, blocks, xs, rhs, xms
+
+
+def kernel_checks_block_group(side: int, px: int, py: int, device,
+                              seed: int = 0, bf16: bool = False
+                              ) -> list[Check]:
+    """The grouped K9-block over every (px, py) block of grid ``side`` in
+    each form of ``block_chunk_forms`` (the halo of the block route's
+    chunk, ``BLOCK_CHUNK`` or less on small blocks): against its plain
+    twin (bit for bit; the fast forms within ``TOL``, the twin taking
+    ``fmaf``'s sum in float64), and against the per-block K9-block on
+    ``Blocks.ext``'s buffers, labelled "vs per-block" (bit for bit).
+    ``bf16``: the bf16 forms on the fields rounded to bf16."""
+    t, blocks, xs, rhs, xms = _group_inputs(side, px, py, device, seed, bf16)
+    K = min(BLOCK_CHUNK, blocks.m, blocks.k)
+    name = (t.name("jacobi_block_group"),)
+    out = []
+    for mode, form in block_chunk_forms(K, t.a_visc).items():
+        args = (form, blocks, xs, rhs, xms, t.n, K)
+        label = f"jacobi_block_group{t.tag} ({px}, {py}) {mode}"
+        out.append(_check(label, name, block_chunk, block_chunk, "group",
+                          *args))
+        out[-1].plain = functools.partial(block_chunk, "plain", *args)
+        out.append(_check(f"{label} vs per-block", name, block_chunk,
+                          block_chunk, "group", *args))
+        out[-1].plain = functools.partial(block_chunk, "per-block", *args)
+    return out
+
+
+def _block_group_cost(form: tuple, blocks, K: int) -> tuple[int, int]:
+    """The grouped chunk's cost in field-cells of the whole grid (use with
+    ``cells=1``): x (none for the zero guess), the rhs and a chained
+    Chebyshev chunk's x_{k-1} read once, x_k (and x_{k-1}) written once;
+    the operations of every block's chunk on its extended buffer
+    (``_block_sweeps_cost``)."""
+    op, _, sweeps, _, kw = form
+    halo = sweeps if op == "smooth" else K
+    zero = kw.get("zero_init", False)
+    cheby = "omegas" in kw
+    chained = cheby and kw.get("first", 0) > 0
+    cells = blocks.side * blocks.side
+    ops = blocks.px * blocks.py * _block_sweeps_cost(
+        sweeps, blocks.m + 2 * halo, blocks.k + 2 * halo, blocks.m,
+        blocks.k, zero_init=zero, fast=kw.get("fast", False),
+        cheby=chained, damp=op == "smooth")[1]
+    return ((3 - zero + chained + cheby) * cells, ops)
+
+
+def timing_checks_block_group(side: int, px: int, py: int, device,
+                              seed: int = 0,
+                              bf16: bool = False) -> list[Check]:
+    """What ``chip_smoke.py`` times of the grouped K9-block over every
+    (px, py) block of grid ``side``: the path's Jacobi chunk of the halo
+    (``BLOCK_CHUNK`` sweeps; labelled by the kernel's name), the fast
+    chained Chebyshev chunk and the damped 2-sweep smooth, each beside its
+    plain twin, its bound and the route it replaces (``composed``:
+    ``Blocks.ext`` of its operands, then one per-block K9-block launch a
+    block).  ``bf16``: the bf16 forms, each bound in 2-byte storage."""
+    t, blocks, xs, rhs, xms = _group_inputs(side, px, py, device, seed, bf16)
+    K = min(BLOCK_CHUNK, blocks.m, blocks.k)
+    forms = block_chunk_forms(K, t.a_visc)
+    rho, k_d, _ = PERF_POINTS_2D[2048]
+    # The velocity solve's second chunk at the perf point, as the path runs
+    # it: sweeps K .. k_d - 1, fast.
+    forms["chained"] = ("jacobi", 1, k_d - K,
+                        dict(alpha=t.a_visc, beta=1 + 4 * t.a_visc),
+                        dict(omegas=cheby_omegas(rho, k_d), first=K,
+                             fast=True))
+    out = []
+    for mode, label in (("jacobi", t.name("jacobi_block_group")),
+                        ("chained", f"jacobi_block_group{t.tag} "
+                                    f"chebyshev+fast chained ({k_d - K} of "
+                                    f"{k_d}it)"),
+                        ("damped 2", f"jacobi_block_group{t.tag} damped 2")):
+        form = forms[mode]
+        args = (form, blocks, xs, rhs, xms, t.n, K)
+        fields, ops = _block_group_cost(form, blocks, K)
+        check = _timed((fields / 2 if bf16 else fields, ops), 1, label,
+                       (t.name("jacobi_block_group"),), block_chunk,
+                       block_chunk, "group", *args)
+        check.plain = functools.partial(block_chunk, "plain", *args)
+        check.composed = functools.partial(block_chunk, "per-block", *args)
+        out.append(check)
+    return out
 
 
 JAC3_SLAB = ("jacobi3_slab_sweeps",)

@@ -105,6 +105,7 @@ __all__ = [
     "WALK_PLANE_CELLS", "tiled3",
     "SLAB_TILINGS", "SLAB_ONE_LAUNCH", "slab_tiling",
     "GROUP_SLABS", "GROUP_TILES", "group_smooth_tiling", "DAMPED_TILES",
+    "GROUP_BLOCKS", "BLOCK_GROUP_TILES",
     "LONG_SOLVE_CELLS",
     "WHOLE_GRID_SIDE", "DampedRoute", "damped_plan", "launch_sweeps",
     "smooth_launches", "SweepLaunch", "sweep_plan", "VECTOR_WIDTHS",
@@ -138,7 +139,8 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "advect3_bf16", "advect3_windowed_bf16", "divergence3_bf16",
            "gradient3_bf16", "jacobi3_slab_bf16", "jacobi3_slab_sweeps_bf16",
            "advect3_slab_bf16", "advect3_slab_exact_bf16",
-           "divergence3_slab_bf16", "gradient3_slab_bf16")
+           "divergence3_slab_bf16", "gradient3_slab_bf16",
+           "jacobi_block_group", "jacobi_block_group_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -192,6 +194,21 @@ WHOLE_GRID_SIDE = 30
 # on 64 rows against 0.451 on 32.
 GROUP_SLABS = 128
 GROUP_TILES = ((16_000_000, 64), (0, 32))
+# The grouped K9-block (fsc_jacobi_block_group) takes every block of a
+# device in one launch, at most GROUP_BLOCKS (the library's kGroupBlocks)
+# a launch, its tile rows by the launch's block cells
+# (cuda_sharded.block_group_tile): (fewest cells of a launch, tile rows),
+# the first whose cells a launch reaches, in tiles of 128 columns.  Chosen
+# by measurement on the H100 (dev/bench_block_group.py --chunks, PERF.md
+# §6) on a step's own velocity after 300 steps: the 8-sweep float32 Jacobi
+# chunk over the (2, 4) blocks of 2048² took 0.0934 ms on 64-row tiles
+# against 0.1311 on 32; over 8192² on (2, 2) 1.0985 against 1.7650; over
+# the (64, 1) blocks of 512² (8-row slabs) 0.0234 on 32 rows against 0.0398
+# on 64.  Tiles of 128 rows and of 256 columns (one block an SM, spills in
+# the Chebyshev forms) were slower on fields zero outside a disc (0.1255,
+# 0.1563 and 0.1526 ms against 0.0962 on 64 x 128) and are not built.
+GROUP_BLOCKS = 64
+BLOCK_GROUP_TILES = ((2_000_000, 64), (0, 32))
 # A damped solve of more sweeps than one launch on its tile takes (the
 # slab multigrid's 40-sweep coarse solve) takes 64-row tiles from this many
 # cells a launch (damped_plan): at 1025² the 40 sweeps took 0.149 ms at
@@ -541,7 +558,9 @@ def launch_sweeps(per_launch: int, tile_rows: int | None = None):
     tile (B13's split-source first launch included; with 0, B13 runs
     K18's one sweep, then the per-sweep K9).  K9-damp, which has no
     per-sweep kernel, takes ``per_launch`` sweeps a launch (0: one) on
-    tiles of ``tile_rows`` (64, 32 or 16; ``group_smooth_tiling``).  No
+    tiles of ``tile_rows`` (64, 32 or 16; ``group_smooth_tiling``).  The
+    grouped K9-block takes tiles of ``tile_rows`` (64 or 32;
+    ``cuda_sharded.block_group_tile``; the library refuses others).  No
     path of the port enters it."""
     global _forced, _forced_tile
     if per_launch < 0:

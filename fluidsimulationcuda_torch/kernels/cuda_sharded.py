@@ -58,10 +58,14 @@ The block route (JAX's jnp ``_step_local``; no pallas_call behind it) runs
 four more, each a form of a slab kernel on an (m, k) block at global
 origin (r0, c0) (the section "The block route" below):
 
-- ``jacobi_block_sweeps`` (K9-block, ``csrc/jacobi_tiles.cu``): a chunk
-  of a block solve on the extended block, the tiled K9's body on
-  ``BlockTiles``: ``fused_jacobi_block`` (Jacobi, fast, Chebyshev with
-  x_{k-1} in and out) and ``smooth_block`` (the damped form);
+- K9-block (``csrc/jacobi_tiles.cu``): ``jacobi_block_group``, a chunk
+  of a block solve on every block of a device in one launch, each block's
+  halo read from its neighbours' own arrays (``GroupBlockTiles``):
+  ``fused_jacobi_blocks`` (Jacobi, fast, Chebyshev with x_{k-1} in and
+  out) and ``smooth_blocks`` (the damped form), the block route's;
+  ``jacobi_block_sweeps``, the same chunk on one extended block (the
+  tiled K9's body on ``BlockTiles``), ``fused_jacobi_block`` and
+  ``smooth_block``, which the grouped form is held against;
 - ``advect_block`` and ``advect_block_exact`` (K12-block,
   ``csrc/advect_slab.cu``): the windowed gather from a ``cmax+1``-deep
   2-D halo and the exact one from the assembled fields;
@@ -89,6 +93,7 @@ the same route in both packages.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -116,6 +121,8 @@ __all__ = [
     "advect_block_exact_plain", "divergence_block", "divergence_block_plain",
     "gradient_block", "gradient_block_plain", "fused_jacobi_block_ref",
     "smooth_block_ref", "divergence_block_ref", "gradient_block_ref",
+    "fused_jacobi_blocks", "fused_jacobi_blocks_plain", "smooth_blocks",
+    "smooth_blocks_plain", "block_group_tile",
 ]
 
 
@@ -1170,6 +1177,217 @@ def _launch_block(b, x_ext, rhs_ext, xm_ext, origin, n, m, k, K, alpha,
                    ctypes.addressof(omegas), flags, first, sweeps,
                    _block_tile(rows, cols), co._stream(rhs_ext))
         return out, xm_out
+
+
+# The grouped K9-block: a chunk over every block of a device in one launch
+# (``jacobi_block_group``), its halo read from the neighbours' own arrays.
+
+
+def _groups(xs) -> dict:
+    """The indices of the parts ``xs`` by device, in mesh order."""
+    out: dict[torch.device, list[int]] = {}
+    for i, x in enumerate(xs):
+        out.setdefault(x.device, []).append(i)
+    return out
+
+
+def _blocks_checks(blocks, xs, rhs, xms, K, sweeps, n) -> bool:
+    """The grouped chunk's operands: a list of ``blocks``' (m, k) blocks
+    each (x none for the zero guess, x_{k-1} none outside a chained
+    Chebyshev chunk), one storage dtype, a halo no deeper than a block and
+    at least the chunk's sweeps.  True where every block lies on a card,
+    False where every one lies on the CPU; a mix raises."""
+    m, k = blocks.m, blocks.k
+    _require(sweeps >= 1, "sweeps must be >= 1")
+    _require(K >= sweeps, f"a {K}-deep halo is valid for at most {K} "
+             f"sweeps, got {sweeps}")
+    _require(m >= 2 and k >= 2 and K <= m and K <= k,
+             f"a {K}-deep halo on {m} x {k} blocks (blocks are at least "
+             f"2 x 2, the halo no deeper than a block)")
+    _require(blocks.side == n + 2, f"blocks of a {blocks.side}-cell grid "
+             f"for n = {n}")
+    parts = [p for p in (xs, rhs, xms) if p is not None]
+    _require(all(len(p) == blocks.px * blocks.py for p in parts),
+             f"expected {blocks.px * blocks.py} blocks an operand")
+    dtype = _storage(*(t for p in parts for t in p))
+    on_card = {co._on_device(*((p[i], (m, k), (dtype,)) for p in parts
+                               for i in idx))
+               for idx in _groups(rhs).values()}
+    _require(len(on_card) == 1, "blocks on the card and on the CPU at once")
+    return on_card.pop()
+
+
+def fused_jacobi_blocks_plain(blocks, b, xs, rhs, *, n, K, alpha, beta,
+                              sweeps, zero_init=False, fast=False,
+                              omegas=None, first=0, xms=None):
+    """Plain twin of ``fused_jacobi_blocks``: JAX's composition, every
+    block extended by ``blocks.ext`` (x, the rhs and x_{k-1}), then
+    ``fused_jacobi_block_plain`` on each."""
+    _blocks_checks(blocks, None if zero_init else xs, rhs,
+                   xms if omegas is not None and first > 0 else None, K,
+                   sweeps, n)
+    none = [None] * len(rhs)
+    x_ext = none if zero_init else blocks.ext(xs, K)
+    xm_ext = (blocks.ext(xms, K) if omegas is not None and first > 0
+              else none)
+    out = [fused_jacobi_block_plain(
+        b, xe, re, o, n=n, m=blocks.m, k=blocks.k, K=K, alpha=alpha,
+        beta=beta, sweeps=sweeps, zero_init=zero_init, fast=fast,
+        omegas=omegas, first=first, xm_ext=xme)
+        for xe, re, xme, o in zip(x_ext, blocks.ext(rhs, K), xm_ext,
+                                  blocks.origins)]
+    if omegas is None:
+        return out
+    return [q[0] for q in out], [q[1] for q in out]
+
+
+def fused_jacobi_blocks(blocks, b, xs, rhs, *, n, K, alpha, beta, sweeps,
+                        zero_init=False, fast=False, omegas=None, first=0,
+                        xms=None):
+    """``fused_jacobi_block``'s chunk on every block of ``blocks`` at once
+    (JAX's ``_diffuse_local`` / ``_cheby_diffuse_local`` chunk after its
+    ``_extend_deep``): ``xs`` and ``rhs`` the lists of (m, k) blocks (``xs``
+    ignored with ``zero_init``), ``K`` the halo the chunk's exchange would
+    build, ``xms`` the x_{k-1} the chunk before returned (read where
+    ``first > 0`` with ``omegas``).  One grouped K9-block launch a device
+    (``jacobi_block_group``, in bf16 ``jacobi_block_group_bf16``; at most
+    ``cuda_ops.GROUP_BLOCKS`` blocks a launch), each block's halo read from
+    its neighbours' own arrays (or copies of their strips where they lie
+    on another device): no extended block is built.  Every output is a
+    fresh tensor, so each block reads its neighbours as the chunk before
+    left them.  Returns the list of x blocks, with ``omegas`` (x_k blocks,
+    x_{k-1} blocks).  Bit for bit ``fused_jacobi_blocks_plain``."""
+    _require(omegas is None or first == 0 or xms is not None,
+             "a Chebyshev chunk after the first takes x_{k-1} (xms)")
+    chained = omegas is not None and first > 0
+    if not _blocks_checks(blocks, None if zero_init else xs, rhs,
+                          xms if chained else None, K, sweeps, n):
+        return fused_jacobi_blocks_plain(
+            blocks, b, xs, rhs, n=n, K=K, alpha=alpha, beta=beta,
+            sweeps=sweeps, zero_init=zero_init, fast=fast, omegas=omegas,
+            first=first, xms=xms)
+    flags = ((co._PREP | co._FAST) if fast else 0) | (
+        co._CHEBY if omegas is not None else 0)
+    ws = [co._f32(omegas[j - 1]) if omegas is not None and j >= 1 else 0.0
+          for j in range(first, first + sweeps)]
+    out, xm_out = _launch_groups(
+        blocks, b, None if zero_init else xs, rhs,
+        xms if chained else None, n, K, alpha, beta, sweeps, flags, first,
+        ws, omegas is not None)
+    return out if omegas is None else (out, xm_out)
+
+
+def smooth_blocks_plain(blocks, ps, divs, *, n, K, sweeps, zero_init=False):
+    """Plain twin of ``smooth_blocks``: ``blocks.ext`` of p and div, then
+    ``smooth_block_plain`` on each block."""
+    _blocks_checks(blocks, None if zero_init else ps, divs, None, K, sweeps,
+                   n)
+    p_ext = [None] * len(divs) if zero_init else blocks.ext(ps, K)
+    return [smooth_block_plain(pe, de, o, n=n, m=blocks.m, k=blocks.k, K=K,
+                               sweeps=sweeps, zero_init=zero_init)
+            for pe, de, o in zip(p_ext, blocks.ext(divs, K), blocks.origins)]
+
+
+def smooth_blocks(blocks, ps, divs, *, n, K, sweeps, zero_init=False):
+    """``smooth_block``'s damped chunk on every block of ``blocks`` at once
+    (JAX's ``_mg_smooth_local`` sweeps): one grouped K9-block launch a
+    device in its damped form, as ``fused_jacobi_blocks``.  Bit for bit
+    ``smooth_blocks_plain``."""
+    if not _blocks_checks(blocks, None if zero_init else ps, divs, None, K,
+                          sweeps, n):
+        return smooth_blocks_plain(blocks, ps, divs, n=n, K=K, sweeps=sweeps,
+                                   zero_init=zero_init)
+    return _launch_groups(blocks, 0, None if zero_init else ps, divs, None,
+                          n, K, 1.0, 4.0, sweeps, co._DAMP, 0,
+                          [0.0] * sweeps, False)[0]
+
+
+def block_group_tile(cells: int) -> int:
+    """The tile rows of a grouped K9-block launch over ``cells`` block
+    cells: ``cuda_ops.BLOCK_GROUP_TILES``' first whose cells the launch
+    reaches; ``launch_sweeps(t, tile_rows=h)`` forces ``h``."""
+    return co._forced_tile or next(tile for least, tile in
+                                   co.BLOCK_GROUP_TILES if cells >= least)
+
+
+def _regions(blocks, xs, i: int, K: int, copy: bool = False):
+    """The nine region sources of block i's extended buffer in the blocks
+    ``xs`` (``csrc/jacobi_tiles.cu``'s GroupBlock): (address, copied,
+    tensor to keep alive) each, region ``3*di + dj`` for the rows and
+    columns before (0), in (1) and after (2) the block; the neighbour's own
+    array where it lies on block i's device (unless ``copy``), else a copy
+    of its cells there; None beyond a wall."""
+    m, k = blocks.m, blocks.k
+    bi, bj = divmod(i, blocks.py)
+    dev = xs[i].device
+    rows = (slice(m - K, m), slice(0, m), slice(0, K))
+    cols = (slice(k - K, k), slice(0, k), slice(0, K))
+    out = []
+    for di in range(3):
+        for dj in range(3):
+            nb = blocks._at(bi + di - 1, bj + dj - 1)
+            if nb is None:
+                out.append((None, False, None))
+                continue
+            x = xs[nb]
+            if nb == i or (x.device == dev and not copy):
+                out.append((x.data_ptr() + (rows[di].start * k
+                                            + cols[dj].start)
+                            * x.element_size(), False, None))
+                continue
+            strip = x[rows[di], cols[dj]].to(dev, copy=True).contiguous()
+            out.append((strip.data_ptr(), True, strip))
+    return out
+
+
+def _launch_groups(blocks, b, xs, rhs, xms, n, K, alpha, beta, sweeps, flags,
+                   first, ws, cheby):
+    """The grouped chunk on every device's blocks: (x blocks, x_{k-1}
+    blocks or None), in the operands' storage dtype (bf16: the bf16 form,
+    its damped weights rounded to bf16 here)."""
+    bf16 = rhs[0].dtype == torch.bfloat16
+    name = "jacobi_block_group_bf16" if bf16 else "jacobi_block_group"
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    damp = flags & co._DAMP
+    outs = [torch.empty_like(r) for r in rhs]
+    xm_outs = [torch.empty_like(r) for r in rhs] if cheby else None
+    lib = build.load()
+    omegas = (ctypes.c_float * sweeps)(*ws)
+    for dev, idx in _groups(rhs).items():
+        with torch.cuda.device(dev):
+            for lo in range(0, len(idx), co.GROUP_BLOCKS):
+                group = idx[lo:lo + co.GROUP_BLOCKS]
+                # keep: each copy stays alive until the launch that reads
+                # it is enqueued (a copy freed before could lend its memory
+                # to the next).
+                ptrs, ints, keep = [], [], []
+                for i in group:
+                    srcs = [_regions(blocks, part, i, K)
+                            if part is not None else [(None, False, None)] * 9
+                            for part in (xs, rhs, xms)]
+                    for src in srcs:
+                        ptrs += [a for a, _, _ in src]
+                        keep += [t for _, _, t in src if t is not None]
+                    ptrs += [outs[i].data_ptr(),
+                             None if xm_outs is None
+                             else xm_outs[i].data_ptr()]
+                    r0, c0 = blocks.origins[i]
+                    ints += [r0, c0, sum(1 << r for r, (_, c, _) in
+                                         enumerate(srcs[1]) if c)]
+                table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+                int_table = (ctypes.c_int * len(ints))(*ints)
+                co._launch(name, getattr(lib, f"fsc_{name}"),
+                           ctypes.addressof(table),
+                           ctypes.addressof(int_table), len(ints) // 3,
+                           blocks.m, blocks.k, K, n, b, co._f32(alpha),
+                           co._f32(beta), co._f32(alpha / beta),
+                           co._f32(1.0 / beta),
+                           co._round(OMEGA, wdt) if damp else 0.0,
+                           co._round(1.0 - OMEGA, wdt) if damp else 0.0,
+                           ctypes.addressof(omegas), flags, first, sweeps,
+                           block_group_tile(len(group) * blocks.m * blocks.k),
+                           co._stream(rhs[idx[0]]))
+    return outs, xm_outs
 
 
 def _advect_block_plain(bs, bufs, buf_origin, u, v, origin, dt, n, cmax):

@@ -182,7 +182,12 @@ class BlockOpSet(NamedTuple):
     the multigrid's damped chunk, ``advect`` the windowed gather,
     ``advect_exact`` the exact one from the assembled fields, and whether
     this backend honours ``fast_math`` (the ``reference`` backend ignores
-    it, as the JAX package's does)."""
+    it, as the JAX package's does).  ``jacobi_group`` and ``smooth_group``,
+    on the ``cuda`` backend, run a chunk of ``jacobi`` or ``smooth`` on
+    every block at once from the lists of blocks (the grouped K9-block,
+    no extended block built); None elsewhere, where a chunk extends every
+    block (``Blocks.ext``) and runs ``jacobi`` or ``smooth`` on each, as
+    JAX composes it."""
 
     jacobi: Callable
     smooth: Callable
@@ -191,6 +196,8 @@ class BlockOpSet(NamedTuple):
     divergence: Callable
     gradient: Callable
     fast: bool
+    jacobi_group: Callable | None = None
+    smooth_group: Callable | None = None
 
 
 def get_block_ops(cfg: SimConfig, plain: bool = False) -> BlockOpSet:
@@ -219,7 +226,9 @@ def get_block_ops(cfg: SimConfig, plain: bool = False) -> BlockOpSet:
         return BlockOpSet(cs.fused_jacobi_block, cs.smooth_block,
                           cs.advect_block, cs.advect_block_exact,
                           cs.divergence_block, cs.gradient_block,
-                          fast=cfg.fast_math)
+                          fast=cfg.fast_math,
+                          jacobi_group=cs.fused_jacobi_blocks,
+                          smooth_group=cs.smooth_blocks)
     raise ValueError(f"unknown backend {backend!r}")
 
 

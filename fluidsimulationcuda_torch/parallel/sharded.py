@@ -58,12 +58,14 @@ raises ``ValueError`` otherwise.
 The block route (``_BlockStep``): JAX's ``_step_local`` on the (px, py)
 blocks of ``m = side/px`` rows and ``k = side/py`` columns, each solve in
 chunks of ``K = min(8, iters, (m-2)//2, (k-2)//2)`` sweeps (1 for blocks of
-4 or fewer), one two-phase 2-D halo exchange (``mesh.Blocks.ext``) and one
-K9-block launch a chunk, the rhs exchanged once per solve; a Chebyshev
-chain carries x_{k-1} from chunk to chunk and resumes its weights where
-the chunk before stopped.  The divergence and gradient take one-cell 2-D
-halos (K10-block, K11-block), the gathers either the assembled fields
-(exact, ``Blocks.gather``) or a ``cmax+1``-deep 2-D halo (windowed;
+4 or fewer), each chunk one halo exchange and its sweeps: on ``cuda`` one
+grouped K9-block launch a device over every block, each block's halo read
+from its neighbours' own arrays; elsewhere JAX's two-phase 2-D exchange
+(``mesh.Blocks.ext``, the rhs's once a solve) and a chunk a block.  A
+Chebyshev chain carries x_{k-1} from chunk to chunk and resumes its
+weights where the chunk before stopped.  The divergence and gradient take
+one-cell 2-D halos (K10-block, K11-block), the gathers either the assembled
+fields (exact, ``Blocks.gather``) or a ``cmax+1``-deep 2-D halo (windowed;
 K12-block's two forms), and multigrid and CG run on blocks
 (``solvers.mg_blocks``, ``cg_blocks``).  Every operation is the
 BlockOpSet's (``kernels/dispatch.py``): the kernels on ``cuda``, the
@@ -188,22 +190,49 @@ def _chunk(iters: int, m: int, k: int, fuse: int = 8) -> int:
                       (k - 2) // 2 if k > 4 else 1))
 
 
+def _chunk_runner(ops, blocks: Blocks, n: int, b, rhs, K: int, alpha,
+                  beta, fast: bool):
+    """One chunk of a block solve on every block: ``run(x, xm, sweeps,
+    zero_init, **kw)``.  On the ``cuda`` backend the BlockOpSet's
+    ``jacobi_group`` (one grouped K9-block launch a device, each halo read
+    from the neighbours' own arrays); elsewhere JAX's composition, x (and
+    x_{k-1}) extended by a ``K``-deep halo every chunk, the rhs once a
+    solve, and ``jacobi`` on each block."""
+    group = getattr(ops, "jacobi_group", None)
+    kw = dict(n=n, K=K, alpha=alpha, beta=beta, fast=fast)
+    if group is not None:
+        def run(x, xm, sweeps, zero_init, **cheby):
+            return group(blocks, b, x, rhs, xms=xm, sweeps=sweeps,
+                         zero_init=zero_init, **kw, **cheby)
+        return run
+    rhs_ext = blocks.ext(rhs, K)
+    none = [None] * len(rhs)
+
+    def run(x, xm, sweeps, zero_init, **cheby):
+        out = [ops.jacobi(b, xe, re, o, m=blocks.m, k=blocks.k,
+                          sweeps=sweeps, zero_init=zero_init, xm_ext=xme,
+                          **kw, **cheby)
+               for xe, re, xme, o in zip(
+                   none if zero_init else blocks.ext(x, K), rhs_ext,
+                   none if xm is None else blocks.ext(xm, K),
+                   blocks.origins)]
+        if "omegas" not in cheby:
+            return out
+        return [q[0] for q in out], [q[1] for q in out]
+    return run
+
+
 def _diffuse_blocks(ops, blocks: Blocks, n: int, b, x_init, rhs, alpha, beta,
                     iters: int, *, zero_init=False, fast=False):
     """JAX's ``_diffuse_local``: Jacobi in chunks of ``_chunk`` sweeps on
-    the blocks extended by as deep a halo, the rhs exchanged once;
-    ``x_init`` is ignored with ``zero_init``."""
-    m, k = blocks.m, blocks.k
-    K = _chunk(iters, m, k)
-    rhs_ext = blocks.ext(rhs, K)
+    the blocks extended by as deep a halo, the rhs exchanged once
+    (``_chunk_runner``); ``x_init`` is ignored with ``zero_init``."""
+    K = _chunk(iters, blocks.m, blocks.k)
+    run = _chunk_runner(ops, blocks, n, b, rhs, K, alpha, beta, fast)
     x, done = x_init, 0
     while done < iters:
         s = min(K, iters - done)
-        zi = zero_init and done == 0
-        x_ext = [None] * len(rhs) if zi else blocks.ext(x, K)
-        x = [ops.jacobi(b, xe, re, o, n=n, m=m, k=k, K=K, alpha=alpha,
-                        beta=beta, sweeps=s, zero_init=zi, fast=fast)
-             for xe, re, o in zip(x_ext, rhs_ext, blocks.origins)]
+        x = run(x, None, s, zero_init and done == 0)
         done += s
     return x
 
@@ -214,23 +243,14 @@ def _cheby_blocks(ops, blocks: Blocks, n: int, b, x_init, rhs, alpha, beta,
     ``_diffuse_blocks``'s.  Sweep 0 of the solve is plain (x_0 doubles as
     x_{-1}); each later chunk takes the x_{k-1} the chunk before it
     returned, exchanged as x is, and the weights from where it stopped."""
-    m, k = blocks.m, blocks.k
-    K = _chunk(iters, m, k)
+    K = _chunk(iters, blocks.m, blocks.k)
     omegas = cheby_omegas(float(rho), iters)
-    rhs_ext = blocks.ext(rhs, K)
-    none = [None] * len(rhs)
+    run = _chunk_runner(ops, blocks, n, b, rhs, K, alpha, beta, fast)
     x, xm, done = x_init, None, 0
     while done < iters:
         s = min(K, iters - done)
-        zi = zero_init and done == 0
-        pairs = [ops.jacobi(b, xe, re, o, n=n, m=m, k=k, K=K, alpha=alpha,
-                            beta=beta, sweeps=s, zero_init=zi, fast=fast,
-                            omegas=omegas, first=done, xm_ext=xme)
-                 for xe, re, xme, o in zip(
-                     none if zi else blocks.ext(x, K), rhs_ext,
-                     none if done == 0 else blocks.ext(xm, K),
-                     blocks.origins)]
-        x, xm = [q[0] for q in pairs], [q[1] for q in pairs]
+        x, xm = run(x, xm, s, zero_init and done == 0, omegas=omegas,
+                    first=done)
         done += s
     return x
 
@@ -497,7 +517,8 @@ class _BlockStep:
         cfg, blocks = self.cfg, self.blocks
         if cfg.pressure_solver == "multigrid":
             return mg_blocks(div, cfg.mg_cycles, cfg.n, blocks,
-                             self.ops.smooth, self.smooth_coarse)
+                             self.ops.smooth, self.smooth_coarse,
+                             grouped=self.ops.smooth_group)
         if cfg.pressure_solver == "cg":
             return cg_blocks(div, cfg.cg_iters, cfg.n, blocks)
         if cfg.pressure_solver == "chebyshev":

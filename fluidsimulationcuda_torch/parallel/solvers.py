@@ -24,8 +24,9 @@ that calls them captures into a CUDA graph.
   levels replicated.  The fine level's smooths take and return every part
   (slabs: the SlabOpSet's ``smooth``, on the card the grouped K9-damp, the
   plain twin 8-row halo-extended slabs; blocks: the BlockOpSet's
-  ``smooth``, K9-block's damped form or its plain twin, on blocks extended
-  by a halo as deep as the sweeps of an exchange, at most
+  ``smooth_group`` on the card, the grouped K9-block's damped form over
+  every block of a device, else its ``smooth``, the plain twin on blocks
+  extended by a halo as deep as the sweeps of an exchange, at most
   ``BLOCK_SMOOTH``); its residual takes a one-cell halo.  Each part sums
   its residual's 2x2 cell groups, pair-aligned by one leading zero row and
   column (a part's first row and column are even), into a block of the
@@ -141,8 +142,8 @@ def _slab_parts(div, n: int, flags, smooth: Callable | None) -> _Parts:
             p, d, flags, sweeps=sweeps, zero_init=zero_init)))
 
 
-def _block_parts(div, n: int, blocks: Blocks,
-                 smooth: Callable | None) -> _Parts:
+def _block_parts(div, n: int, blocks: Blocks, smooth: Callable | None,
+                 grouped: Callable | None = None) -> _Parts:
     origins = blocks.origins
     masks = _interior_masks(div, n, origins)
 
@@ -162,15 +163,20 @@ def _block_parts(div, n: int, blocks: Blocks,
     def smooth_blocks(p, d, sweeps, zero_init):
         """``sweeps`` damped sweeps on every block, in exchanges of up to
         ``BLOCK_SMOOTH`` sweeps (no deeper than a block), each on blocks
-        extended by a halo as deep."""
+        extended by a halo as deep, or with ``grouped`` one grouped launch
+        an exchange reading the neighbours' own arrays."""
         done = 0
         while done < sweeps:
             K = min(BLOCK_SMOOTH, sweeps - done, blocks.m, blocks.k)
             zero = zero_init and done == 0
-            p_ext = [None] * len(d) if zero else blocks.ext(p, K)
-            p = [smooth(pe, de, o, n=n, m=blocks.m, k=blocks.k, K=K,
-                        sweeps=K, zero_init=zero)
-                 for pe, de, o in zip(p_ext, blocks.ext(d, K), origins)]
+            if grouped is not None:
+                p = grouped(blocks, p, d, n=n, K=K, sweeps=K,
+                            zero_init=zero)
+            else:
+                p_ext = [None] * len(d) if zero else blocks.ext(p, K)
+                p = [smooth(pe, de, o, n=n, m=blocks.m, k=blocks.k, K=K,
+                            sweeps=K, zero_init=zero)
+                     for pe, de, o in zip(p_ext, blocks.ext(d, K), origins)]
             done += K
         return p
 
@@ -278,13 +284,15 @@ def mg_slabs(div, cycles: int, n: int, flags, smooth: Callable,
 
 
 def mg_blocks(div, cycles: int, n: int, blocks: Blocks, smooth: Callable,
-              smooth_coarse: Callable, *, pre: int = 2,
-              post: int = 2) -> list[torch.Tensor]:
+              smooth_coarse: Callable, *, pre: int = 2, post: int = 2,
+              grouped: Callable | None = None) -> list[torch.Tensor]:
     """``mg_slabs`` on the blocks ``div`` of ``blocks`` (JAX's
     ``_mg_local`` on its (px, py) mesh): the smooths by the BlockOpSet's
     ``smooth(p_ext, div_ext, origin, *, n, m, k, K, sweeps, zero_init)``
-    on extended blocks, the residual's neighbour cells from one-cell 2-D
-    halos, each block's 2x2 sums at coarse origin (r0/2, c0/2).  Every
-    block has even sides (the caller checks)."""
-    return _mg(div, cycles, n, _block_parts(div, n, blocks, smooth),
+    on extended blocks, or by its ``smooth_group(blocks, p, div, *, n, K,
+    sweeps, zero_init)`` on the blocks themselves where ``grouped`` gives
+    it, the residual's neighbour cells from one-cell 2-D halos, each
+    block's 2x2 sums at coarse origin (r0/2, c0/2).  Every block has even
+    sides (the caller checks)."""
+    return _mg(div, cycles, n, _block_parts(div, n, blocks, smooth, grouped),
                smooth_coarse, pre, post)

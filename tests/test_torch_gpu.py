@@ -1723,3 +1723,41 @@ def test_float32_step3_256_takes_the_walk(cuda, mode):
     if not cfg.fast_math:
         for a, b in zip(got, run(cfg.replace(backend="reference"))):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("side,px,py", [(512, 2, 4), (512, 64, 1),
+                                        (1024, 2, 2)])
+def test_block_group_matches_per_block_and_plain(cuda, side, px, py, bf16):
+    """The grouped K9-block over every block of the mesh in each form, one
+    launch: against the per-block K9-block on ``Blocks.ext``'s buffers
+    bit for bit, against its plain twin bit for bit (the fast forms
+    within ``checks.TOL``), in the storage dtype."""
+    for check in checks.kernel_checks_block_group(side, px, py, cuda,
+                                                  seed=side, bf16=bf16):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = {k: c for k, c in cuda_ops.launch_counts().items() if c}
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts == {check.kernels[0]: 1}, (check.label, counts)
+        for g in got:
+            assert g.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        err = checks.max_abs_diff(got, want)
+        loose = "fast" in check.label and "vs per-block" not in check.label
+        assert err <= (checks.TOL if loose else 0.0), (check.label, err)
+
+
+def test_block_group_refuses_what_the_path_library_lacks(cuda):
+    """The library builds the grouped K9-block on 32 and 64 rows of 128
+    columns: the 128- and 16-row tiles that were timed and not kept are
+    refused through ``_launch``."""
+    from fluidsimulationcuda_torch.kernels import cuda_sharded as cs
+
+    t, blocks, xs, rhs, xms = checks._group_inputs(256, 2, 2, cuda, 0,
+                                                   False)
+    for rows in (128, 16):
+        with cuda_ops.launch_sweeps(8, tile_rows=rows):
+            with pytest.raises(RuntimeError, match="failed to launch"):
+                cs.fused_jacobi_blocks(blocks, 1, xs, rhs, n=t.n, K=8,
+                                       alpha=0.3, beta=2.2, sweeps=8)

@@ -286,7 +286,10 @@ def test_slab_deep_halo_chebyshev_through_the_kernels(shim):
     (10 and 12 sweeps on 8 slabs of 8 rows, fast math) run K9-block on
     the (8, 1) blocks beside the slab kernels: within 1e-4 of the
     ``reference`` backend (which ignores fast math), with the launches of
-    ``chip_smoke.expected_launches_sharded``."""
+    ``chip_smoke.expected_launches_sharded``.  Their chunks take the
+    grouped K9-block (``jacobi_block_group``, one launch a chunk over
+    every slab) since it replaced a launch a block there, so the count
+    held to be positive is the grouped form's."""
     import chip_smoke
 
     ref = ft.SimConfig(n=62, jacobi_iters=4, max_courant=2,
@@ -304,5 +307,5 @@ def test_slab_deep_halo_chebyshev_through_the_kernels(shim):
     want = make_sharded_step_fn(ref, mesh)(state, src)
     assert chip_smoke.max_diff(unshard(got), unshard(want)) < 1e-4
     expected = chip_smoke.expected_launches_sharded(cfg, 8)
-    assert expected["jacobi_block_sweeps"] > 0
+    assert expected["jacobi_block_group"] > 0
     assert counts == {k: c for k, c in expected.items() if c}
