@@ -37,7 +37,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    K5's one sweep ``jacobi3_sweep``); the per-sweep K5's timed calls (one
    sweep, the 20-sweep u and pressure solves) in its vector walk and its
    one-cell form, each bit for bit with the twin, timed in turns, with
-   their launches by width (``sweep3_forms``);
+   their launches by width (``sweep3_forms``); K6, exact and windowed, one
+   field and the triple, bit for bit the grouped K14 over one slab of the
+   volume and the one-cell K14 on the volume
+   (``checks.kernel_checks_k6_body``);
 3c. every row-slab kernel of the multi-device step against its plain twin
    for a top, an interior and a bottom slab of 256 rows at 2048²
    (max|Δ| <= 1e-5), in its Jacobi, Chebyshev and fast forms, the gathers
@@ -78,7 +81,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    same segment on the per-sweep K13 bit for bit; timed beside bound and
    launch floor (the segments as in 3b, the per-sweep K13's in both its
    forms, ``sweep3_forms``; K14 also on one field and on smooth and shear
-   velocities, beside ``grid_sample``);
+   velocities, beside ``grid_sample``); the grouped K14 (one launch over
+   every z-slab, ``advect3_group_checks``) over the 8 slabs of 32 planes
+   and the 64 of 4, windowed and exact, one field and the triple, against
+   its plain twin and the per-slab K14 on ``_ext``'s or ``_gather``'s
+   buffers, bit for bit, and the path's three gathers timed beside bound,
+   twin, ``grid_sample`` and the per-slab route they replace;
 3e. the two fused kernels no step calls (as in the JAX package): B13, the
    split-operand slab Jacobi (the tiled K9's first launch reading its
    tiles from the halo and slab operands, then the tiled K9), against K9
@@ -164,6 +172,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    all-gather advection (K14's exact form) on 8 z-slabs and, taken by
    ``"auto"``, on 64 slabs of 4 planes, too thin for the 4-cell window,
    held to ``StableFluids3D.step`` and checked as phase 10's exact runs;
+   every run's step also on the per-slab K14 (``per_slab_route``: bit for
+   bit the grouped step's, both timed eager and as a CUDA graph);
 12. the windowed 2-D step, ``StableFluids2D`` at 2048² with
    ``advect_mode="windowed"`` (4-cell window), parity and the compensated
    perf mode with fast math: checked as phases 5-6 (launch counts, the
@@ -322,7 +332,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    their plain twins at 256³ (``checks.kernel_checks3_bf16``, bit for
    bit), every call in the tiled kernel's mode also on it against the
    same call on the per-sweep
-   K5's bf16 form; each form timed beside its bound in 2-byte storage, its
+   K5's bf16 form; K6's bf16 form (the gather body of
+   ``csrc/advect3_body.cuh``) also against the grouped K14's bf16 form
+   over one slab of the volume and the one-cell K14's bf16 form on the
+   volume, bit for bit (``checks.kernel_checks_k6_body``); each form timed
+   beside its bound in 2-byte storage, its
    float32 form on the same values, its plain twin and, for K6,
    ``grid_sample`` on bf16; the per-sweep K5's timed calls (one sweep,
    the 20-sweep u solve) in its vector form and its one-cell form, each
@@ -347,7 +361,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    also against the same call on the per-sweep K13's bf16 form; each form
    timed beside its bound in 2-byte storage, its float32 form on the same
    values, its plain twin and, for K14, ``grid_sample`` on bf16; the
-   per-sweep K13's timed calls in both its forms (``sweep3_forms``); then
+   per-sweep K13's timed calls in both its forms (``sweep3_forms``); the
+   grouped K14's bf16 form as phase 3d's float32 one
+   (``advect3_group_checks``); then
    ``make_sharded_step_fn_3d`` in bf16 at 256³ (``bf16_zslab_path``) on 8
    z-slabs (parity windowed by ``"auto"``, parity exact, compensated with
    fast math) and 32 of 8 planes (compensated with fast math), two steps
@@ -358,17 +374,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the plain twins' z-slab step (``_ZSlabStep(..., plain=True)``) bit for
    bit and to the float32 z-slab step by ``bf16_bars``, the exact run to
    the single-device bf16 step bit for bit, eager and graph ms/step
-   beside the float32 z-slab step.
+   beside the float32 z-slab step, and on the per-slab K14
+   (``per_slab_route``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 in its main path's run (phase 5, phase 13's two trajectories, phases 14-15
 and phase 17's CLI calls for the 2-D kernels, phases 8, 16 and 17 for the
 3-D ones, the 8-slab
 2048² parity run of phase 10 for the row-slab kernels (K9-damp and the
-slab K1-damp from its 8-slab multigrid and CG runs; K12's and K14's exact
-forms, ``advect_slab_exact`` and ``advect3_slab_exact``, from phase 10's
-8-slab 2048² and phase 11's 8-slab 256³ exact runs), the
-8-slab 256³ parity run of phase 11 for the z-slab kernels, phase 12's tail
+slab K1-damp from its 8-slab multigrid and CG runs; K12's exact form,
+``advect_slab_exact``, from phase 10's 8-slab 2048² exact run), the
+8-slab 256³ parity run of phase 11 for the z-slab kernels (the grouped
+K14's exact form, ``advect3_group_exact``, from its 8-slab and 64-slab
+exact runs), phase 12's tail
 runs for K17, phase 10's chunk run for B13's split-source K9, phases 14 and
 18 for K1-damp (its bf16-rhs forms, ``jacobi_sweeps_damp_bf16``, from
 phase 18's bf16 multigrid runs) and
@@ -387,7 +405,9 @@ sweep (``jacobi_slab_split``), which the tiled K1, K1-damp, the tiled K9
 and its split-source first launch replaced on every path, and the tiled
 3-D kernel's four forms (``jacobi3_sweeps``, ``jacobi3_slab_sweeps`` and
 their bf16 forms), whose fast Chebyshev solves the per-sweep K5's and
-K13's vector walk took at 256³, run on none and are left out of the line
+K13's vector walk took at 256³, the per-block K9-block and the per-slab
+K14's four forms, which the grouped K9-block and K14 took over, run on
+none and are left out of the line
 (``OFF_PATH``): every path's launch counts hold them at 0.  Each timing
 times a plain version in a CUDA graph of ``PLAIN_REPS`` calls, once.  The last line
 is ``{"ok": true, "device": {...}}``.
@@ -537,6 +557,14 @@ KERNEL_SOURCES = {
     "divergence3_slab_bf16": (f"{CSRC}/project3_slab.cu",
                               f"{TPU_STEP_3D}:405"),
     "gradient3_slab_bf16": (f"{CSRC}/project3_slab.cu", f"{TPU_STEP_3D}:419"),
+    # K14 grouped: the gather of every z-slab of a device in one launch,
+    # on the gather body of advect3_body.cuh (its per-slab forms above,
+    # which it replaced on every path, stay as what it is held to).
+    "advect3_group": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
+    "advect3_group_exact": (f"{CSRC}/advect3_slab.cu", f"{TPU_STEP_3D}:288"),
+    "advect3_group_bf16": (f"{CSRC}/advect3_slab.cu", f"{TPU_SLABS_3D}:530"),
+    "advect3_group_exact_bf16": (f"{CSRC}/advect3_slab.cu",
+                                 f"{TPU_STEP_3D}:288"),
 }
 # Phase 18's batch of grids for the multigrid and CG steps.
 SOLVER_BATCH = 64
@@ -555,11 +583,14 @@ PLAIN_REPS = 3
 # and phases 3b, 3d, 21 and 22 hold and time them beside it.  And the
 # per-block K9-block: the grouped K9-block runs every block solve's chunks,
 # and phases 19 and 20 hold it against the per-block form and time both.
+# And the per-slab K14: the grouped K14 runs every z-slab gather, and
+# phases 3d and 22 hold it against the per-slab forms and time both.
 OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16", "jacobi_slab",
             "jacobi_sweep_damp", "jacobi_slab_split", "jacobi3_sweeps",
             "jacobi3_slab_sweeps", "jacobi3_sweeps_bf16",
             "jacobi3_slab_sweeps_bf16", "jacobi_block_sweeps",
-            "jacobi_block_sweeps_bf16")
+            "jacobi_block_sweeps_bf16", "advect3_slab", "advect3_slab_exact",
+            "advect3_slab_bf16", "advect3_slab_exact_bf16")
 
 
 def phase(title: str) -> None:
@@ -976,17 +1007,21 @@ def expected_launches_sharded3(cfg, slabs: int,
     z-slabs.  Each slab runs its three velocity diffusions, two pressure
     solves and its density diffusion in segments on K13, each on the tiled
     form T3 sweeps a launch where ``cuda_ops.tiled3`` says so
-    (``k3_launches``); K15 and K16 once per projection; K14 for the
-    (u, v, w) triple and for the density (its exact form,
-    ``advect3_slab_exact``, with ``exact`` gathers).  In bf16 storage the
+    (``k3_launches``); K15 and K16 once per projection; the grouped K14
+    once for the (u, v, w) triple and once for the density over every slab
+    of the card, ``GATHER_SLABS`` slabs a launch (its exact form,
+    ``advect3_group_exact``, with ``exact`` gathers).  In bf16 storage the
     bf16 forms of each, the pressure solves on the float32 K13
     (``k3_launches``)."""
+    from fluidsimulationcuda_torch.kernels.cuda_sharded_3d import GATHER_SLABS
+
     jacobi = k3_launches(cfg, (cfg.n + 2) // slabs)
     bf16 = _bf16_suffix(cfg)
-    advect = "advect3_slab_exact" if exact else "advect3_slab"
+    advect = "advect3_group_exact" if exact else "advect3_group"
     return {**{k: slabs * n for k, n in jacobi.items()},
             f"divergence3_slab{bf16}": 2 * slabs,
-            f"gradient3_slab{bf16}": 2 * slabs, f"{advect}{bf16}": 2 * slabs}
+            f"gradient3_slab{bf16}": 2 * slabs,
+            f"{advect}{bf16}": 2 * -(-slabs // GATHER_SLABS)}
 
 
 def fields(state) -> list[tuple[str, torch.Tensor]]:
@@ -1311,7 +1346,7 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
         print(f"{label}: the all-gather copies ({len(gathered)} fields "
               f"assembled) {gather_ms:.4f} ms as a CUDA graph, "
               f"{100 * gather_ms / graph_ms:.1f}% of the exact step's "
-              f"device time ({card})")
+              f"device time ({card}){'' if cfg.ndim == 2 else '; the 3-D step on one card no longer runs them (the grouped K14)'}")
         m = (cfg.n + 2) // slabs
         if m >= cfg.max_courant + 1:
             win = make_step(cfg, mesh, advect_mode="windowed")
@@ -1327,7 +1362,47 @@ def sharded_path(cfg, slabs: int, label: str, card: str, steps: int,
                   f"as a CUDA graph, {sum(per_step.values())} launches a "
                   f"step; windowed {w_ms:.4f} ms/step eager, {w_graph:.4f} "
                   f"as a CUDA graph, {w_launches} launches a step ({card})")
+    if cfg.ndim == 3:
+        per_slab_route(cfg, mesh, exact, (start, src, zeros), state, label,
+                       card, graph_reps)
     return counts
+
+
+def per_slab_route(cfg, mesh, exact: bool, cut, state, label: str, card: str,
+                   reps: int) -> None:
+    """The z-slab step of ``cfg`` with its gathers on the per-slab K14, the
+    route the grouped K14 replaced (``mesh._ext`` or ``mesh._gather`` of
+    each gathered field, then one launch a slab): its step from ``cut``'s
+    start and sources bit for bit the grouped step's; both timed from
+    ``state``, eager and as a CUDA graph of ``reps`` steps."""
+    from fluidsimulationcuda_torch.kernels import checks
+    from fluidsimulationcuda_torch.parallel.sharded3d import _ZSlabStep
+
+    mesh = mesh.reshape(len(mesh.device_list), 1)
+    grouped = _ZSlabStep(cfg, mesh, False, exact)
+    per = _ZSlabStep(cfg, mesh, False, exact)
+    per.ops = per.ops._replace(advect_group=None)
+    start, src, zeros = cut
+    a, b = grouped(start, src), per(start, src)
+    if not all(torch.equal(x, y) for fa, fb in zip(a, b)
+               for x, y in zip(fa, fb)):
+        raise AssertionError(f"{label}: the grouped gathers' step differs "
+                             f"from the per-slab K14's")
+    ms = {"grouped": [], "per-slab": []}
+    # In turns grouped, per-slab, per-slab, grouped: eager steps on this
+    # host swing from run to run.
+    for name in ("grouped", "per-slab", "per-slab", "grouped"):
+        fn = grouped if name == "grouped" else per
+        last, eager = timed_steps(lambda s: fn(s, zeros), state, 3)
+        ms[name].append((eager, checks.device_ms(lambda: fn(last, zeros),
+                                                 reps=reps)))
+    mean = {k: [sum(x) / len(v) for x in zip(*v)] for k, v in ms.items()}
+    print(f"{label}: gathers grouped (one K14 launch a gather) / per-slab "
+          f"(_ext or _gather, one K14 launch a slab), bit for bit, in turns: "
+          f"eager {mean['grouped'][0]:.4f} / {mean['per-slab'][0]:.4f} "
+          f"ms/step (each turn {[round(e, 4) for e, _ in ms['grouped']]} / "
+          f"{[round(e, 4) for e, _ in ms['per-slab']]}), as a CUDA graph "
+          f"{mean['grouped'][1]:.4f} / {mean['per-slab'][1]:.4f} ({card})")
 
 
 def copy_share(per_kernel: dict[str, list]) -> float:
@@ -2445,6 +2520,10 @@ def main() -> None:
             0.0, errs, "bit for bit")
     compare(checks.kernel_checks_flows(256, "cuda", SEED, ndim=3),
             checks.TOL, errs)
+    # K6 against two other kernels on its inputs, bit for bit: the grouped
+    # K14 over one slab of the volume and the one-cell K14 on the volume.
+    compare(checks.kernel_checks_k6_body(256, "cuda", SEED), 0.0, errs,
+            "bit for bit")
     timed3 = checks.timing_checks3(256, "cuda", SEED)
     timed_against_both(timed3, checks.TOL, errs)
     times.update(kernel_times(timed3, "256³", card))
@@ -2508,6 +2587,7 @@ def main() -> None:
     times.update(kernel_times(timed3, "256³, slab of 32 planes", card, floor))
     sweep3_forms(timed3, "jacobi3_slab", card, errs)
     del timed3
+    advect3_group_checks(False, errs, times, card, floor)
 
     phase("3e the fused tail K17 and the split slab Jacobi B13")
     compare(checks.split_against_concat(2048, 256, "cuda", SEED), 0.0, errs,
@@ -2677,7 +2757,7 @@ def main() -> None:
     thin = sharded_path(parity3, 64, "256³ parity, 64 slabs of 4 planes, "
                         "auto", card, 2, tol=(1e-5, 2e-5, 1e-4),
                         graph_reps=1)
-    if not thin["advect3_slab_exact"]:
+    if not thin["advect3_group_exact"]:
         raise AssertionError("auto on 4-plane slabs did not take the exact "
                              "gather")
 
@@ -3012,6 +3092,27 @@ def group_checks(bf16: bool, errs: dict[str, float], times: dict,
         card))
 
 
+def advect3_group_checks(bf16: bool, errs: dict[str, float], times: dict,
+                         card: str, floor: float | None = None) -> None:
+    """The grouped K14 (float32 or bf16) over the 8 z-slabs of 32 planes
+    and the 64 of 4 planes of 256³, windowed and exact, one field and the
+    triple: against its plain twin and against the per-slab K14 on
+    ``mesh._ext``'s or ``mesh._gather``'s buffers, bit for bit; then the
+    path's triple, density and exact triple over the 8 slabs timed beside
+    their bound, plain twin, ``grid_sample`` and the route they replace
+    (``_ext`` or ``_gather``, then 8 per-slab launches)."""
+    from fluidsimulationcuda_torch.kernels import checks
+
+    for mz in (32, 4):
+        compare(checks.kernel_checks_advect3_group(256, mz, "cuda", SEED,
+                                                   bf16=bf16),
+                0.0, errs, "bit for bit")
+    times.update(kernel_times(checks.timing_checks_advect3_group(
+        256, 32, "cuda", SEED, bf16=bf16),
+        "256³ over 8 z-slabs, grouped" + (", bf16" if bf16 else ""), card,
+        floor))
+
+
 def bf16_block_path(cfg, shape: tuple[int, int], label: str, card: str,
                     steps: int, advect_mode: str = "exact",
                     shard_backend: str = "reference",
@@ -3129,6 +3230,11 @@ def bf16_3d_phase(parity3, comp3, card: str, errs: dict[str, float],
     compare(forms, 0.0, errs, "bit for bit")
     compare(checks.per_sweep_checks(forms), 0.0, errs, "bit for bit")
     del forms
+    # K6's bf16 form, on the gather body, against the grouped K14's bf16
+    # form over one slab of the volume and the one-cell K14's on the
+    # volume, the arithmetic of the kernel the body replaced.
+    compare(checks.kernel_checks_k6_body(256, "cuda", SEED, bf16=True), 0.0,
+            errs, "bit for bit")
     timed = checks.timing_checks3_bf16(256, "cuda", SEED)
     timed_against_both(timed, 0.0, errs)
     times.update(kernel_times(timed, "256³, bf16", card))
@@ -3293,6 +3399,7 @@ def bf16_zslab_phase(parity3, comp3, card: str, errs: dict[str, float],
     times.update(kernel_times(timed, "256³, slab of 32 planes, bf16", card))
     sweep3_forms(timed, "jacobi3_slab_bf16", card, errs)
     del timed
+    advect3_group_checks(True, errs, times, card)
     total: dict[str, int] = dict.fromkeys(cuda_ops.KERNELS, 0)
     rho, k_d, k_p = comp3.cheby_rho, comp3.cheby_iters, comp3.press_cheby_iters
     comp = comp3.replace(fast_math=True)
@@ -3412,6 +3519,8 @@ def bf16_zslab_path(cfg, slabs: int, label: str, card: str, steps: int,
           f"{ms['bf16'][0]:.4f} / {ms['bf16'][1]:.4f}, float32 z-slab step "
           f"{ms['float32'][0]:.4f} / {ms['float32'][1]:.4f} (bf16/float32 "
           f"device {ms['bf16'][1] / ms['float32'][1]:.3f}) ({card})")
+    per_slab_route(c16, mesh, exact, cut16, last, label, card,
+                   1 if slabs > 8 else 2)
     return counts
 
 

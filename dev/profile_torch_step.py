@@ -33,7 +33,11 @@ this tree's and its kernels again, on the same card in one process, each
 trace from the same state.  ``--per-sweep`` does the same with this
 tree's solves on the tiled kernels (K1, K9 on row slabs) and on the
 per-sweep ones (``cuda_ops.launch_sweeps(0)``), the chains the tiled
-kernels replaced: tiled, per-sweep, per-sweep, tiled.  The card's name and power limit come
+kernels replaced: tiled, per-sweep, per-sweep, tiled.  ``--per-slab-gathers``
+(3-D, with ``--slabs``) does the same with the z-slab step's gathers on the
+grouped K14 and on the per-slab K14 after ``mesh._ext`` or ``mesh._gather``
+(``Slab3OpSet.advect_group`` off), the route the grouped launch replaced:
+grouped, per-slab, per-slab, grouped.  The card's name and power limit come
 with the numbers.  Exits non-zero without a card or when the trace holds no
 device time.
 """
@@ -67,9 +71,13 @@ def main() -> None:
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--per-sweep", action="store_true")
+    ap.add_argument("--per-slab-gathers", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
+    if args.per_slab_gathers and not (args.slabs and args.ndim == 3):
+        raise SystemExit("profile_torch_step: --per-slab-gathers needs "
+                         "--ndim 3 and --slabs")
     sys.path.insert(0, ROOT)
     from fluidsimulationcuda_torch import (SimConfig, Sources, StableFluids2D,
                                            StableFluids3D, reference_init,
@@ -139,6 +147,20 @@ def main() -> None:
                   else contextlib.nullcontext()):
                 step(state, drive)  # warm-up
                 trace(step, state, drive, args)
+        return
+    if args.per_slab_gathers:
+        from fluidsimulationcuda_torch.parallel.sharded3d import _ZSlabStep
+
+        mesh = mesh.reshape(args.slabs, 1)
+        exact = (cfg.n + 2) // args.slabs < cfg.max_courant + 1
+        steps = {name: _ZSlabStep(cfg, mesh, False, exact)
+                 for name in ("grouped", "per-slab")}
+        steps["per-slab"].ops = steps["per-slab"].ops._replace(
+            advect_group=None)
+        for name in ("grouped", "per-slab", "per-slab", "grouped"):
+            print(f"\n[{name} gathers{', exact' if exact else ''}]")
+            steps[name](state, drive)  # warm-up
+            trace(steps[name], state, drive, args)
         return
     if not args.parent:
         trace(step, state, drive, args)

@@ -37,24 +37,32 @@
 // self-advections all read the pre-advection velocity
 // (stable_fluids_3d.py:118-119).
 //
-// The bf16 form (fsc_advect3_bf16) reads bf16 fields and velocities, finds
-// each departure and blends in float32, derives the ghost layer in float32
-// and rounds to bf16 at the store (ops/three_d.py advect3 on bf16 fields):
-// bf16 coordinates could not resolve a fraction of a cell at these sides.
-#include "fsc_common.cuh"
+// The gather body of advect3_body.cuh, which K14 grouped and K6's bf16
+// form run, did not replace this float32 kernel: no design of it was as
+// fast on every flow timed (PERF.md §6; on the step's own states its 2 x 2
+// cells a thread were 8-11% faster, on random velocities 8% slower).
+//
+// The bf16 form (fsc_advect3_bf16, on that body) reads bf16 fields and
+// velocities, finds each departure and blends in float32, derives the
+// ghost layer in float32 and rounds to bf16 at the store (ops/three_d.py
+// advect3 on bf16 fields): bf16 coordinates could not resolve a fraction
+// of a cell at these sides.
+#include "advect3_body.cuh"
 
 namespace {
 
 constexpr int kBrickZ = 2;
 
-template <bool kWindowed, typename T>
-__global__ void advect3_kernel(const T* __restrict__ d1,
-                               const T* __restrict__ d2,
-                               const T* __restrict__ d3,
-                               const T* __restrict__ u,
-                               const T* __restrict__ v,
-                               const T* __restrict__ w, T* __restrict__ o1,
-                               T* __restrict__ o2, T* __restrict__ o3,
+template <bool kWindowed>
+__global__ void advect3_kernel(const float* __restrict__ d1,
+                               const float* __restrict__ d2,
+                               const float* __restrict__ d3,
+                               const float* __restrict__ u,
+                               const float* __restrict__ v,
+                               const float* __restrict__ w,
+                               float* __restrict__ o1,
+                               float* __restrict__ o2,
+                               float* __restrict__ o3,
                                int side, int b1, int b2, int b3, float dt0,
                                int cmax) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -75,7 +83,8 @@ __global__ void advect3_kernel(const T* __restrict__ d1,
                : fsc::backtrace3(u, v, w, ck, ci, cj, side, dt0);
   }
   // Then each field's gathers over the brick.
-  auto gather = [&](const T* __restrict__ f, T* __restrict__ o, int bb) {
+  auto gather = [&](const float* __restrict__ f, float* __restrict__ o,
+                    int bb) {
 #pragma unroll
     for (int z = 0; z < kBrickZ; ++z) {
       const int k = k0 + z;
@@ -90,21 +99,18 @@ __global__ void advect3_kernel(const T* __restrict__ d1,
   if (d3 != nullptr) gather(d3, o3, b3);
 }
 
-template <typename T>
-int launch(const void* d1, const void* d2, const void* d3, const void* u,
-           const void* v, const void* w, void* o1, void* o2, void* o3,
+int launch(const float* d1, const float* d2, const float* d3,
+           const float* u, const float* v, const float* w, float* o1,
+           float* o2, float* o3,
            int side, int b1, int b2, int b3, float dt0, int cmax,
            void* stream) {
   const auto kernel =
-      cmax > 0 ? advect3_kernel<true, T> : advect3_kernel<false, T>;
+      cmax > 0 ? advect3_kernel<true> : advect3_kernel<false>;
   const dim3 grid((side + fsc::kBlockX - 1) / fsc::kBlockX,
                   (side + fsc::kBlockY - 1) / fsc::kBlockY,
                   (side + kBrickZ - 1) / kBrickZ);
   kernel<<<grid, fsc::block_dim(), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(d1), static_cast<const T*>(d2),
-      static_cast<const T*>(d3), static_cast<const T*>(u),
-      static_cast<const T*>(v), static_cast<const T*>(w), static_cast<T*>(o1),
-      static_cast<T*>(o2), static_cast<T*>(o3), side, b1, b2, b3, dt0, cmax);
+      d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3, dt0, cmax);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -118,17 +124,42 @@ extern "C" int fsc_advect3(const float* d1, const float* d2, const float* d3,
                            float* o1, float* o2, float* o3, int side, int b1,
                            int b2, int b3, float dt0, int cmax,
                            void* stream) {
-  return launch<float>(d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3,
-                       dt0, cmax, stream);
+  return launch(d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3, dt0, cmax,
+                stream);
 }
 
 // The bf16 form: every field, velocity and output bf16; the arguments of
-// fsc_advect3.
+// fsc_advect3.  It runs the gather body of advect3_body.cuh on the whole
+// volume (one slab of side planes at plane 0, its wall planes 0 and
+// side-1): bit for bit what advect3_kernel computed on bf16, with the
+// thread's work chosen by measurement on the H100 (PERF.md §6,
+// dev/bench_advect3_body.py): a brick of 2 planes and 2 cells a thread,
+// the design that lost least to each flow's best on the flows the steps
+// run, at most 12% (the triple at 256³ on the step's state after 4 steps
+// 0.14948 ms, where the one-cell brick of 2 planes took 0.17168 and 2 x 4
+// cells 0.14047, which lost 26% on the smooth flow).
+namespace {
+
+constexpr int kVolumeBrick = 2;
+constexpr int kVolumeVec = 2;
+
+template <bool kExact>
+int volume_bf16(const void* d1, const void* d2, const void* d3,
+                const void* u, const void* v, const void* w, void* o1,
+                void* o2, void* o3, int side, int b1, int b2, int b3,
+                float dt0, int cmax, void* stream) {
+  return fsc::launch_volume<kExact, kVolumeBrick, kVolumeVec, fsc::bf16>(
+      d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3, dt0, cmax,
+      static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
 extern "C" int fsc_advect3_bf16(const void* d1, const void* d2,
                                 const void* d3, const void* u, const void* v,
                                 const void* w, void* o1, void* o2, void* o3,
                                 int side, int b1, int b2, int b3, float dt0,
                                 int cmax, void* stream) {
-  return launch<fsc::bf16>(d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3,
-                           dt0, cmax, stream);
+  return (cmax > 0 ? volume_bf16<false> : volume_bf16<true>)(
+      d1, d2, d3, u, v, w, o1, o2, o3, side, b1, b2, b3, dt0, cmax, stream);
 }

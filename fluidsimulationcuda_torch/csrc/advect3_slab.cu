@@ -44,7 +44,7 @@
 // ghost layer in float32 and round to bf16 at the store: K6's bf16 form
 // (advect3.cu) on a slab.  bf16 coordinates could not resolve a fraction of
 // a cell at these sides.
-#include "fsc_common.cuh"
+#include "advect3_body.cuh"
 
 namespace {
 
@@ -164,4 +164,104 @@ extern "C" int fsc_advect3_slab_exact_bf16(const void* d1, const void* d2,
   return launch<true, fsc::bf16>(d1, d2, d3, u, v, w, o1, o2, o3, mz, side,
                                  plane0, b1, b2, b3, dt0, plane0, 0, gtop,
                                  gbot, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K14 grouped: one launch over every slab of a device
+// ---------------------------------------------------------------------------
+//
+// The gather of every listed slab of the volume in one launch, on the body
+// of advect3_body.cuh: a corner at global plane g is read from the array of
+// the slab that owns g (GroupSources), the slab's own array where it lies
+// on this device, or a copy of the planes the launch reads where it does
+// not, so no extended slab (_ext) and no assembled volume (_gather) is
+// built.  Each slab computes, bit for bit, what advect3_slab_kernel
+// computes on _ext's or _gather's buffer: the same coordinates, window or
+// global clamp, blend order and ghost layer.  It replaces the per-slab
+// launches on every path; they stay as the form it is held to.
+//
+// The thread's work, chosen by measurement on the H100 (PERF.md §6,
+// dev/bench_advect3_body.py; advect3_body.cuh says what was timed): in
+// float32 a brick of 2 planes and 2 cells a thread, the fastest on every
+// flow the steps run (0.18206 ms for the triple over the 8 slabs of 256³
+// on the step's state after 4 steps, against 0.18815 for 1 x 2 and
+// 0.22688 for 1 x 4); in bf16 one plane and 4 cells a thread (0.18416
+// against 0.19675 for 2 x 2; its density 0.11432 against 0.12487), within
+// 5% of the best on the smooth flow too.  Rows of a side the width does
+// not divide take one cell a thread.
+namespace {
+
+template <typename T>
+constexpr int kGroupBrick = sizeof(T) == 2 ? 1 : 2;
+template <typename T>
+constexpr int kGroupVec = sizeof(T) == 2 ? 4 : 2;
+
+template <bool kExact, typename T>
+int group(const void* const* srcs, const int* starts, int nsrc,
+          const void* const* slabs, const int* walls, int nslab, int mz,
+          int side, int nf, int b1, int b2, int b3, float dt0, int cmax,
+          void* stream) {
+  return fsc::launch_group<kExact, kGroupBrick<T>, kGroupVec<T>, T>(
+      srcs, starts, nsrc, slabs, walls, nslab, mz, side, nf, b1, b2, b3, dt0,
+      cmax, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// The windowed gather of nf (1-3) fields over nslab (at most
+// fsc::kGatherSlabs) slabs of mz planes in one launch.  srcs holds 3
+// pointers a slab of the volume (nsrc of them, at most
+// fsc::kGatherSources): each field's array for that slab (its own, or a
+// copy of some of its planes on this device; null where the launch reads
+// none of its planes), starts the global plane of each array's first
+// plane.  slabs holds 6 pointers a slab written: u, v, w, o1, o2, o3 (null
+// outputs past nf); walls 3 ints a slab: its first global plane and its
+// wall planes gtop, gbot (slab planes, -1: absent).  dt0 = dt*n in
+// float32; the departures are clamped to cmax cells, which the arrays must
+// cover.  No output aliases an input.  Returns cudaErrorInvalidValue for a
+// count out of range, otherwise cudaGetLastError() after the launch.
+extern "C" int fsc_advect3_group(const void* const* srcs, const int* starts,
+                                 int nsrc, const void* const* slabs,
+                                 const int* walls, int nslab, int mz,
+                                 int side, int nf, int b1, int b2, int b3,
+                                 float dt0, int cmax, void* stream) {
+  return group<false, float>(srcs, starts, nsrc, slabs, walls, nslab, mz,
+                             side, nf, b1, b2, b3, dt0, cmax, stream);
+}
+
+// The exact form: every coordinate takes the global clamp alone, so the
+// arrays must hold every plane of the volume (cmax is not read).
+extern "C" int fsc_advect3_group_exact(const void* const* srcs,
+                                       const int* starts, int nsrc,
+                                       const void* const* slabs,
+                                       const int* walls, int nslab, int mz,
+                                       int side, int nf, int b1, int b2,
+                                       int b3, float dt0, int cmax,
+                                       void* stream) {
+  return group<true, float>(srcs, starts, nsrc, slabs, walls, nslab, mz,
+                            side, nf, b1, b2, b3, dt0, cmax, stream);
+}
+
+// The bf16 forms: every field, velocity and output bf16, gathered in
+// float32 and rounded at the store; the arguments of the float32 forms.
+extern "C" int fsc_advect3_group_bf16(const void* const* srcs,
+                                      const int* starts, int nsrc,
+                                      const void* const* slabs,
+                                      const int* walls, int nslab, int mz,
+                                      int side, int nf, int b1, int b2,
+                                      int b3, float dt0, int cmax,
+                                      void* stream) {
+  return group<false, fsc::bf16>(srcs, starts, nsrc, slabs, walls, nslab, mz,
+                                 side, nf, b1, b2, b3, dt0, cmax, stream);
+}
+
+extern "C" int fsc_advect3_group_exact_bf16(const void* const* srcs,
+                                            const int* starts, int nsrc,
+                                            const void* const* slabs,
+                                            const int* walls, int nslab,
+                                            int mz, int side, int nf, int b1,
+                                            int b2, int b3, float dt0,
+                                            int cmax, void* stream) {
+  return group<true, fsc::bf16>(srcs, starts, nsrc, slabs, walls, nslab, mz,
+                                side, nf, b1, b2, b3, dt0, cmax, stream);
 }

@@ -111,11 +111,14 @@ _SIGNATURES = {
                          _I, _I, _F, _I, _I, _I, _I, _P],
     "fsc_advect3_slab_exact": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _I, _I, _I, _P],
+    "fsc_advect3_group": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _I, _P],
     "fsc_divergence3_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fsc_gradient3_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _P],
 }
-# The bf16 forms of the block kernels, of K6-K8 and of K14-K16 take their
+# The bf16 forms of the block kernels, of K6-K8 and of K14-K16 (K14
+# grouped too) take their
 # float32 forms' arguments; K13's, those and the operand types (the
 # per-sweep K13's before the width and the walk, which both forms take).
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
@@ -123,7 +126,11 @@ _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "fsc_advect_block_exact",
     "fsc_divergence_block", "fsc_gradient_block", "fsc_advect3",
     "fsc_divergence3", "fsc_gradient3", "fsc_advect3_slab",
-    "fsc_advect3_slab_exact", "fsc_divergence3_slab", "fsc_gradient3_slab")})
+    "fsc_advect3_slab_exact", "fsc_divergence3_slab", "fsc_gradient3_slab",
+    "fsc_advect3_group")})
+# K14 grouped's exact form takes the windowed form's arguments.
+_SIGNATURES.update({f"fsc_advect3_group_exact{tag}": _SIGNATURES[
+    "fsc_advect3_group"] for tag in ("", "_bf16")})
 _SIGNATURES["fsc_jacobi3_slab_sweeps_bf16"] = [
     *_SIGNATURES["fsc_jacobi3_slab_sweeps"][:-1], _I, _P]
 _SIGNATURES["fsc_jacobi3_slab_bf16"] = [*_SIGNATURES["fsc_jacobi3_slab"][:-3],

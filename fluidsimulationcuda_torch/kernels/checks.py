@@ -2794,6 +2794,183 @@ class _Bf16Slab3Inputs(_Slab3Inputs):
                                                                      True))
 
 
+# ---------------------------------------------------------------------------
+# K14 grouped (advect3_group) and K6 on the gather body
+# ---------------------------------------------------------------------------
+
+
+def advect3_group_route(route: str, bs, fields, u, v, w, flags, *, dt, n,
+                        cmax, mz) -> tuple[torch.Tensor, ...]:
+    """The gather of every z-slab by ``route``: ``"group"``, the grouped
+    K14 (``advect3_group``); ``"plain"``, its twin; ``"per-slab"``, JAX's
+    composition on the per-slab K14 (``mesh._ext`` of each field, or
+    ``mesh._gather`` for the exact gather, then one launch a slab,
+    ``cuda_sharded_3d.advect3_composed``).  Every slab's results in one
+    tuple, slab by slab."""
+    kw = dict(dt=dt, n=n, cmax=cmax, mz=mz)
+    if route == "group":
+        out = cs3.advect3_group(bs, fields, u, v, w, flags, **kw)
+    elif route == "plain":
+        out = cs3.advect3_group_plain(bs, fields, u, v, w, flags, **kw)
+    else:
+        out = cs3.advect3_composed(cs3.advect3_flat_slab,
+                                   cs3.advect3_flat_slab_exact, bs, fields,
+                                   u, v, w, flags, **kw)
+    return tuple(r for slab in out for r in slab)
+
+
+class _Group3Inputs(_Slab3Inputs):
+    """``_Slab3Inputs``' volumes in the storage dtype (bf16: rounded), cut
+    into every z-slab (``cut``)."""
+
+    def __init__(self, side: int, mz: int, device, seed: int, bf16: bool):
+        super().__init__(side, mz, device, seed)
+        self.dtype = torch.bfloat16 if bf16 else torch.float32
+        self.tag = "_bf16" if bf16 else ""
+        self.all_flags = [self.flags(i) for i in range(self.slabs)]
+        self._cuts: dict[int, tuple] = {}
+
+    def cut(self, g: torch.Tensor) -> list[torch.Tensor]:
+        """g's slabs in the storage dtype, cut once per volume."""
+        if id(g) not in self._cuts:
+            self._cuts[id(g)] = (g, [s.contiguous() for s in
+                                     g.to(self.dtype).split(self.mz)])
+        return self._cuts[id(g)][1]
+
+
+def _group_check(label, kernel, route, t, bs, fields, vel, cmax):
+    args = (bs, [t.cut(f) for f in fields], *(t.cut(f) for f in vel),
+            t.all_flags)
+    kw = dict(dt=DT, n=t.n, cmax=cmax, mz=t.mz)
+    check = _check(label, (kernel,), advect3_group_route,
+                   advect3_group_route, "group", *args, **kw)
+    check.plain = functools.partial(advect3_group_route, route, *args, **kw)
+    return check
+
+
+def kernel_checks_advect3_group(side: int, mz: int, device, seed: int = 0,
+                                bf16: bool = False) -> list[Check]:
+    """The grouped K14 over every z-slab of ``mz`` planes at volume
+    ``side``: windowed in windows of 1, 2 and ``SLAB3_CMAX`` cells (those
+    the slabs hold) on velocities under and over the window, and exact at
+    the reaches of ``EXACT_REACH``, one field and the (u, v, w) triple,
+    each against its plain twin and against the per-slab K14 on
+    ``mesh._ext``'s or ``mesh._gather``'s buffers (labelled "vs
+    per-slab"), both bit for bit.  ``bf16``: the bf16 forms on the
+    volumes rounded to bf16."""
+    t = _Group3Inputs(side, mz, device, seed, bf16)
+    out = []
+    cases = [(cmax, name, vel)
+             for cmax in (1, 2, SLAB3_CMAX) if cmax <= mz - 1
+             for name, vel in (("under", (t.u, t.v, t.w)),
+                               ("over", (t.uf, t.vf, t.wf)))]
+    cases += [(None, f"up to {reach}", tuple(scale * f for f in
+                                              (t.u, t.v, t.w)))
+              for reach, scale in EXACT_REACH.items()]
+    for cmax, name, vel in cases:
+        kernel = "advect3_group" + ("_exact" if cmax is None else "") + t.tag
+        how = "exact" if cmax is None else f"cmax={cmax}"
+        for what, bs, fields in (("b=0", (0,), (t.x,)),
+                                 ("u/v/w triple", (1, 2, 3), vel)):
+            label = (f"{kernel} {t.slabs} slabs of {mz} {what} {how}, "
+                     f"{name}")
+            out.append(_group_check(label, kernel, "plain", t, bs, fields,
+                                    vel, cmax))
+            out.append(_group_check(f"{label} vs per-slab", kernel,
+                                    "per-slab", t, bs, fields, vel, cmax))
+    return out
+
+
+def timing_checks_advect3_group(side: int, mz: int, device, seed: int = 0,
+                                bf16: bool = False) -> list[Check]:
+    """What ``chip_smoke.py`` times of the grouped K14 over every z-slab of
+    ``mz`` planes at volume ``side`` (the step's gathers, labelled by the
+    kernel's name): the windowed (u, v, w) triple in the
+    ``SLAB3_CMAX``-cell window, its density (one field) and the exact
+    triple, each beside its plain twin, its bound over the whole volume (as
+    K6's: the velocities, each field read once, each output written once;
+    a bf16 field-cell half), ``grid_sample`` on the same departures and
+    the route it replaces (``composed``: ``mesh._ext`` or ``mesh._gather``,
+    then one per-slab K14 launch a slab)."""
+    t = _Group3Inputs(side, mz, device, seed, bf16)
+    triple, one = ((ADVECT3_TRIPLE_BF16, ADVECT3_ONE_BF16) if bf16
+                   else (ADVECT3_TRIPLE, ADVECT3_ONE))
+    vel = (t.u, t.v, t.w)
+    out = []
+    for label, cost, bs, fields, cmax in (
+            (f"advect3_group{t.tag}", triple, (1, 2, 3), vel, SLAB3_CMAX),
+            (f"advect3_group{t.tag} one field (density)", one, (0,), (t.x,),
+             SLAB3_CMAX),
+            (f"advect3_group_exact{t.tag}", triple, (1, 2, 3), vel, None)):
+        kernel = "advect3_group" + ("_exact" if cmax is None else "") + t.tag
+        check = _group_check(label, kernel, "plain", t, bs, fields, vel,
+                             cmax)
+        check.cost, check.cells = _scaled(cost, side ** 3), 1
+        check.composed = functools.partial(
+            advect3_group_route, "per-slab", bs,
+            [t.cut(f) for f in fields], *(t.cut(f) for f in vel),
+            t.all_flags, dt=DT, n=t.n, cmax=cmax, mz=mz)
+
+        def gather(fields=fields, cmax=cmax):
+            ax = torch.arange(side, dtype=torch.float32, device=t.u.device)
+            v16 = tuple(f.to(t.dtype) for f in vel)
+            return ([f.to(t.dtype) for f in fields],
+                    departure3(*v16, ax, ax[:, None], ax[:, None, None], DT,
+                               t.n, cmax))
+
+        check.gather = gather
+        out.append(check)
+    return out
+
+
+def kernel_checks_k6_body(side: int, device, seed: int = 0,
+                          bf16: bool = False) -> list[Check]:
+    """K6 (``advect3_shift_fused``; its bf16 form runs the gather body of
+    ``csrc/advect3_body.cuh``) at volume ``side``, exact and in the
+    ``SLAB3_CMAX``-cell window, one field and the triple, against two
+    other kernels on the same inputs, bit for bit: the grouped K14 over one
+    slab of the whole volume ("vs grouped K14") and the one-cell per-slab
+    K14 on the whole volume as one slab, the windowed form on the volume
+    padded with ``cmax+1`` zero planes ("vs one-cell K14"), the arithmetic
+    of K6's one-cell forms."""
+    t = _Group3Inputs(side, side, device, seed, bf16)
+    vel = tuple(f.to(t.dtype) for f in (t.u, t.v, t.w))
+    x = t.x.to(t.dtype)
+    flags = (1, 1, 0)
+    out = []
+    for cmax in (None, SLAB3_CMAX):
+        kernel = ("advect3" if cmax is None else "advect3_windowed") + t.tag
+        for what, bs, fields in (("b=0", (0,), (x,)),
+                                 ("u/v/w triple", (1, 2, 3), vel)):
+            label = f"{kernel} {what} at {side}³"
+            k6 = (bs, fields, *vel, DT, t.n, cmax)
+            check = _check(f"{label} vs grouped K14", (kernel,),
+                           co3.advect3_shift_fused, co3.advect3_shift_fused,
+                           *k6)
+            check.plain = lambda bs=bs, fields=fields, cmax=cmax: (
+                cs3.advect3_group(bs, [[f] for f in fields], *([f] for f in
+                                                               vel),
+                                  [flags], dt=DT, n=t.n, cmax=cmax,
+                                  mz=side)[0])
+            out.append(check)
+            check = _check(f"{label} vs one-cell K14", (kernel,),
+                           co3.advect3_shift_fused, co3.advect3_shift_fused,
+                           *k6)
+            if cmax is None:
+                check.plain = functools.partial(
+                    cs3.advect3_flat_slab_exact, bs, fields, *vel, flags,
+                    dt=DT, n=t.n, mz=side)
+            else:
+                pad = [torch.nn.functional.pad(f, (0, 0, 0, 0, cmax + 1,
+                                                   cmax + 1))
+                       for f in fields]
+                check.plain = functools.partial(
+                    cs3.advect3_flat_slab, bs, pad, *vel, flags, dt=DT,
+                    n=t.n, cmax=cmax, mz=side)
+            out.append(check)
+    return out
+
+
 def kernel_checks_slab3_bf16(side: int, mz: int, device,
                              seed: int = 0) -> list[Check]:
     """Every bf16 form of K13-K16 against its plain twin, for a top, an

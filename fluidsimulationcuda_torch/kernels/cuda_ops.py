@@ -140,7 +140,9 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "gradient3_bf16", "jacobi3_slab_bf16", "jacobi3_slab_sweeps_bf16",
            "advect3_slab_bf16", "advect3_slab_exact_bf16",
            "divergence3_slab_bf16", "gradient3_slab_bf16",
-           "jacobi_block_group", "jacobi_block_group_bf16")
+           "jacobi_block_group", "jacobi_block_group_bf16", "advect3_group",
+           "advect3_group_exact", "advect3_group_bf16",
+           "advect3_group_exact_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).

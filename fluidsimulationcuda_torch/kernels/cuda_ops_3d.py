@@ -41,7 +41,11 @@ the solve's end, so the per-sweep and the tiled K5 compute the same bits;
 the folded or prescaled rhs is rounded to bf16 before any sweep reads it
 (``jacobi3_sweep_bf16``, ``jacobi3_sweeps_bf16``).  K6 reads bf16 fields
 and velocities, finds each departure and blends in float32 and rounds at
-the store (``advect3_bf16``, ``advect3_windowed_bf16``).  The projection
+the store (``advect3_bf16``, ``advect3_windowed_bf16``); its bf16 form
+runs the gather body it shares with the grouped K14
+(``csrc/advect3_body.cuh``: 2 cells a thread on bricks of 2 planes, the
+velocities loaded as vectors), its float32 form a brick of two planes
+of one cell a thread.  The projection
 keeps a float32 divergence and pressure, as the 2-D bf16 step does: K7's
 bf16 form writes float32 (``divergence3_bf16``), the pressure solve is
 the float32 K5, and K8's bf16 form reads bf16 u, v, w and a float32 p and

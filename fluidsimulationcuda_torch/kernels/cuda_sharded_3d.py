@@ -18,7 +18,7 @@ function); on CUDA tensors they launch the hand-written kernels of
 carries its full ghost layer.
 
 Four CUDA kernels carry the three TPU kernels, the step's two stencils and
-its exact gather (a second form of K14):
+its exact gather (a second form of K14), and K14 has a grouped form:
 
 - K13, ``fused_jacobi3_slab`` (B10a, ``pallas_sharded_3d.py:349``) and
   ``fused_cheby3_slab`` (B10b, ``:442``), a Chebyshev chain segment that
@@ -33,6 +33,14 @@ its exact gather (a second form of K14):
   ``advect3_flat_slab_exact``, K14's exact form, the gather of JAX's exact
   all-gather advection (``_advect3_local_exact``,
   ``parallel/sharded3d.py:288``, jnp) from the assembled fields;
+- ``advect3_group`` (K14 grouped, ``csrc/advect3_slab.cu`` on the gather
+  body of ``csrc/advect3_body.cuh``): the windowed or exact gather of
+  every z-slab of a device in one launch, each corner read from the array
+  of the slab that owns its plane (a copy of the planes read where that
+  slab lies on another device), so no extended slab and no assembled
+  volume is built; bit for bit the per-slab forms above on ``mesh._ext``'s
+  or ``mesh._gather``'s buffers, which it replaces on the ``cuda`` z-slab
+  step (``Slab3OpSet.advect_group``);
 - ``divergence3_slab`` (K15) and ``gradient3_slab`` (K16),
   ``csrc/project3_slab.cu``: the step's ``_divergence3_fast`` and
   ``_gradient3_fast`` (``parallel/sharded3d.py:567-597``).
@@ -68,6 +76,8 @@ gather cannot resolve a fraction of a cell at these sides.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..ops.chebyshev import cheby_omegas
@@ -83,6 +93,9 @@ __all__ = [
     "fused_cheby3_slab", "fused_cheby3_slab_plain", "fused_cheby3_slab_ref",
     "advect3_flat_slab", "advect3_flat_slab_plain",
     "advect3_flat_slab_exact", "advect3_flat_slab_exact_plain",
+    "advect3_group", "advect3_group_plain", "advect3_composed",
+    "GATHER_SLABS",
+    "GATHER_SOURCES",
     "divergence3_slab", "divergence3_slab_plain", "divergence3_slab_ref",
     "gradient3_slab", "gradient3_slab_plain", "gradient3_slab_ref",
     "solve_rhs3",
@@ -574,6 +587,168 @@ def advect3_flat_slab_exact(bs, fulls, u_slab, v_slab, w_slab, flags, *, dt,
                    *bs, *[0] * pad, co._dt0(dt, n), plane0,
                    *_wall_rows(flags, 0, mz), co._stream(u_slab))
         return outs
+
+
+# ---------------------------------------------------------------------------
+# K14 grouped: advect3_group
+# ---------------------------------------------------------------------------
+
+# The library's fsc::kGatherSlabs and fsc::kGatherSources
+# (csrc/advect3_body.cuh): the most slabs one grouped launch writes, and
+# the most slabs of the volume its table holds.
+GATHER_SLABS = 128
+GATHER_SOURCES = 256
+
+
+def _group_args(bs, fields, u, v, w, flags, n, cmax, mz):
+    """(bs, fields) after the checks of a grouped gather: one to three
+    fields, each a list of the volume's ``pz`` slabs as ``u``, ``v`` and
+    ``w`` are, every slab (mz, side, side) of one storage dtype, the slabs
+    stacking into the volume, and a window the adjacent slabs hold."""
+    bs, fields = tuple(bs), tuple(tuple(f) for f in fields)
+    pz, side = len(u), n + 2
+    _require(len(bs) == len(fields) and len(bs) in (1, 2, 3),
+             "advect3_group takes one to three fields")
+    _require(all(len(x) == pz for x in (v, w, flags, *fields)),
+             "advect3_group takes every slab of each field, velocity and "
+             "flag list")
+    _require(pz * mz == side and mz >= 1,
+             f"{pz} slabs of {mz} planes do not stack into {side} planes")
+    _require(cmax is None or 1 <= cmax <= mz - 1,
+             f"the {cmax}-cell window needs slabs of at least cmax+1 "
+             f"planes; got {mz}")
+    _require(all(_flags(f)[2] == i * mz for i, f in enumerate(flags)),
+             "slab i must start at global plane i*mz")
+    _one_dtype(*u, *v, *w, *(x for f in fields for x in f))
+    return bs, fields
+
+
+def advect3_composed(advect, advect_exact, bs, fields, u, v, w, flags, *,
+                     dt, n, cmax, mz):
+    """JAX's composition of a z-slab gather: each field's slabs extended by
+    ``cmax+1`` planes (``mesh._ext``), or assembled once per device
+    (``mesh._gather``) for the exact gather (``cmax=None``), then a per-slab
+    form on each slab (``advect`` windowed, ``advect_exact`` exact; the
+    kernels, their twins or the ``reference`` forms).  A list of each
+    slab's tuple of results."""
+    from ..parallel.mesh import _ext, _gather
+
+    if cmax is None:
+        fulls = [_gather(f) for f in fields]
+        return [advect_exact(bs, fs, ui, vi, wi, fl, dt=dt, n=n, mz=mz)
+                for fs, ui, vi, wi, fl in zip(zip(*fulls), u, v, w, flags)]
+    exts = [_ext(f, cmax + 1) for f in fields]
+    return [advect(bs, es, ui, vi, wi, fl, dt=dt, n=n, cmax=cmax, mz=mz)
+            for es, ui, vi, wi, fl in zip(zip(*exts), u, v, w, flags)]
+
+
+def advect3_group_plain(bs, fields, u, v, w, flags, *, dt, n, cmax, mz):
+    """The twin of ``advect3_group``: JAX's composition
+    (``advect3_composed``) on the per-slab twins."""
+    bs, fields = _group_args(bs, fields, u, v, w, flags, n, cmax, mz)
+    return advect3_composed(advect3_flat_slab_plain,
+                            advect3_flat_slab_exact_plain, bs, fields, u, v,
+                            w, flags, dt=dt, n=n, cmax=cmax, mz=mz)
+
+
+def _device_groups(slabs) -> list[tuple[torch.device, list[int]]]:
+    """The slabs of each device, in slab order: one grouped launch each."""
+    groups: dict[torch.device, list[int]] = {}
+    for i, x in enumerate(slabs):
+        groups.setdefault(x.device, []).append(i)
+    return list(groups.items())
+
+
+def _group_sources(fields, local: set[int], dev, mz: int, cmax):
+    """The grouped launch's table of the volume's slabs as the launch of
+    the slabs ``local`` on ``dev`` sees them: (3 pointers a slab, the
+    global plane of each array's first plane, the copies to keep alive
+    until the launch is enqueued).  A slab of the launch is its own array;
+    any other lies on another device and is a copy moved to ``dev`` of the
+    planes the launch reads: its whole slab for the exact gather, its
+    ``cmax+1`` planes next to a slab of the launch for the windowed one
+    (the whole slab where slabs of the launch lie on both sides), none
+    where the launch reads none of its planes."""
+    ptrs, starts, keep = [], [], []
+    for j in range(len(fields[0])):
+        lo, hi = 0, mz  # the planes of slab j the launch reads
+        if j in local:
+            parts = [f[j] for f in fields]
+        else:
+            if cmax is not None:
+                above, below = j + 1 in local, j - 1 in local
+                lo = 0 if below or not above else mz - (cmax + 1)
+                hi = mz if above or not below else cmax + 1
+                if not (above or below):
+                    lo = hi = 0
+            parts = [f[j][lo:hi].to(dev, copy=True) if hi > lo else None
+                     for f in fields]
+            keep += parts
+        ptrs += [co._ptr(x) for x in parts] + [None] * (3 - len(parts))
+        starts.append(j * mz + lo)
+    return ptrs, starts, keep
+
+
+def advect3_group(bs, fields, u, v, w, flags, *, dt, n, cmax, mz):
+    """The gather of one to three fields (border modes ``bs``; each field
+    the list of the volume's ``pz`` z-slabs, as the velocity slabs ``u``,
+    ``v``, ``w`` and the slabs' ``flags`` are) at every slab's cells, in
+    the window of ``cmax`` cells or exactly (``cmax=None``): on the card
+    one grouped K14 launch a device (``fsc_advect3_group``, counted as
+    ``advect3_group``, ``advect3_group_exact`` and their ``_bf16``
+    forms), at most ``GATHER_SLABS`` slabs a launch, with no extended slab
+    and no assembled volume built: a corner is read from the array of the
+    slab that owns its plane, copied over only where that slab lies on
+    another device.  Outputs are fresh tensors, so the (u, v, w)
+    self-advection reads the pre-advection velocity.  Bit for bit
+    ``advect3_group_plain``, which CPU tensors take.  A list of each
+    slab's tuple of (mz, side, side) results."""
+    bs, fields = _group_args(bs, fields, u, v, w, flags, n, cmax, mz)
+    side = n + 2
+    slab = (mz, side, side)
+    dt_ = _one_dtype(*u)
+    groups = _device_groups(u)
+    on_card = {_on_card(*((t, slab, dt_) for i in idx
+                          for t in (u[i], v[i], w[i],
+                                    *(f[i] for f in fields))))
+               for _, idx in groups}
+    _require(len(on_card) == 1, "slabs on the card and on the CPU at once")
+    if not on_card.pop():
+        return advect3_group_plain(bs, fields, u, v, w, flags, dt=dt, n=n,
+                                   cmax=cmax, mz=mz)
+    _require(len(u) <= GATHER_SOURCES,
+             f"a grouped gather reads at most {GATHER_SOURCES} slabs")
+    name = ("advect3_group" + ("_exact" if cmax is None else "")
+            + _suffix(u[0]))
+    pad = 3 - len(bs)
+    outs: list = [None] * len(u)
+    for dev, idx in groups:
+        with torch.cuda.device(dev):
+            lib = build.load()
+            srcs, starts, keep = _group_sources(fields, set(idx), dev, mz,
+                                                cmax)
+            src_table = (ctypes.c_void_p * len(srcs))(*srcs)
+            start_table = (ctypes.c_int * len(starts))(*starts)
+            for lo in range(0, len(idx), GATHER_SLABS):
+                part = idx[lo:lo + GATHER_SLABS]
+                ptrs, walls = [], []
+                for i in part:
+                    outs[i] = tuple(u[i].new_empty(slab) for _ in bs)
+                    ptrs += [u[i].data_ptr(), v[i].data_ptr(),
+                             w[i].data_ptr(),
+                             *(o.data_ptr() for o in outs[i]), *[None] * pad]
+                    walls += [i * mz, *_wall_rows(flags[i], 0, mz)]
+                table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+                wall_table = (ctypes.c_int * len(walls))(*walls)
+                co._launch(name, getattr(lib, f"fsc_{name}"),
+                           ctypes.addressof(src_table),
+                           ctypes.addressof(start_table), len(u),
+                           ctypes.addressof(table),
+                           ctypes.addressof(wall_table), len(part), mz, side,
+                           len(bs), *bs, *[0] * pad, co._dt0(dt, n),
+                           cmax or 0, co._stream(u[part[0]]))
+            del keep
+    return outs
 
 
 # ---------------------------------------------------------------------------

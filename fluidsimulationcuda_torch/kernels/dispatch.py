@@ -238,7 +238,12 @@ class Slab3OpSet(NamedTuple):
     ``kernels/cuda_sharded_3d.py`` (``advect`` the windowed gather,
     ``advect_exact`` the exact one from the assembled fields), and whether
     this backend honours ``fast_math`` (the ``reference`` backend ignores
-    it, as the JAX package's does)."""
+    it, as the JAX package's does).  ``advect_group``, on the ``cuda``
+    backend, gathers every slab at once from the lists of slabs, windowed
+    or exact (the grouped K14, one launch a device, no extended slab and
+    no assembled volume built); None elsewhere, where a gather extends
+    (``_ext``) or assembles (``_gather``) each field and runs ``advect``
+    or ``advect_exact`` on each slab, as JAX composes it."""
 
     jacobi: Callable
     cheby: Callable
@@ -247,6 +252,7 @@ class Slab3OpSet(NamedTuple):
     divergence: Callable
     gradient: Callable
     fast: bool
+    advect_group: Callable | None = None
 
 
 def get_slab3_ops(cfg: SimConfig, plain: bool = False) -> Slab3OpSet:
@@ -280,5 +286,5 @@ def get_slab3_ops(cfg: SimConfig, plain: bool = False) -> Slab3OpSet:
         return Slab3OpSet(cs3.fused_jacobi3_slab, cs3.fused_cheby3_slab,
                           cs3.advect3_flat_slab, cs3.advect3_flat_slab_exact,
                           cs3.divergence3_slab, cs3.gradient3_slab,
-                          fast=cfg.fast_math)
+                          fast=cfg.fast_math, advect_group=cs3.advect3_group)
     raise ValueError(f"unknown backend {backend!r}")

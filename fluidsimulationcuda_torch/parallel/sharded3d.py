@@ -36,7 +36,11 @@ they are exact (``"exact"``, and ``"auto"`` on thinner slabs, as JAX's
 cells gathered at global coordinates; here each gathered field is
 assembled once per device (``mesh._gather``) and every slab gathers from
 it with K14's exact form (``advect3_flat_slab_exact``), so the step equals
-the single-device step at any displacement and any slab thickness.
+the single-device step at any displacement and any slab thickness.  On
+the ``cuda`` backend both gathers run grouped instead
+(``Slab3OpSet.advect_group``, the grouped K14): one launch a device over
+every slab, each corner read from its owner slab's array, no extended
+slab and no assembled volume built, bit for bit the same.
 Nothing falls back quietly: a windowed request on slabs too thin for the
 window raises.
 
@@ -178,9 +182,15 @@ class _ZSlabStep:
                                                       self.flags))
 
     def _advect(self, bs, fields, u, v, w):
-        """The gather of each field of ``fields`` by (u, v, w), one launch
-        per slab for all of them."""
+        """The gather of each field of ``fields`` by (u, v, w): on the
+        ``cuda`` backend one grouped launch a device for all of them
+        (``Slab3OpSet.advect_group``), elsewhere one launch per slab on
+        each slab's extended or assembled fields."""
         cfg = self.cfg
+        if self.ops.advect_group is not None:
+            return _transpose(self.ops.advect_group(
+                bs, fields, u, v, w, self.flags, dt=cfg.dt, n=cfg.n,
+                cmax=None if self.exact else cfg.max_courant, mz=self.mz))
         if self.exact:
             fulls = [_gather(f) for f in fields]
             return _transpose(

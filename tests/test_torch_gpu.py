@@ -237,7 +237,9 @@ def test_sharded3d_step_launches_and_matches_reference(cuda, mode):
     segments, so the 20-sweep solves run chained (15 + 5); compensated with
     fast math, whose fast Chebyshev segments take ceil(sweeps / T3)
     launches of the tiled K13 (one a sweep of the per-sweep K13 before it
-    took them; the parity segments still do)."""
+    took them; the parity segments still do).  The two gathers are one
+    grouped K14 launch each over the 4 slabs (``advect3_group``; 8
+    per-slab ``advect3_slab`` launches before the grouped form)."""
     from fluidsimulationcuda_torch.parallel import (make_mesh,
                                                     make_sharded_step_fn_3d,
                                                     shard_state_3d, unshard)
@@ -260,7 +262,7 @@ def test_sharded3d_step_launches_and_matches_reference(cuda, mode):
                                         + 2 * _k3(k_p, min(k_p, 15)))}
            if mode == "compensated"
            else {"jacobi3_slab": 4 * (4 * k_vel + 2 * k_p)}),
-        "divergence3_slab": 8, "gradient3_slab": 8, "advect3_slab": 8}
+        "divergence3_slab": 8, "gradient3_slab": 8, "advect3_group": 2}
     ref = make_sharded_step_fn_3d(cfg.replace(backend="reference"), mesh)
     want = unshard(ref(state, src))
     # The reference backend ignores fast_math (phase 9 of chip_smoke.py).
@@ -1761,3 +1763,95 @@ def test_block_group_refuses_what_the_path_library_lacks(cuda):
             with pytest.raises(RuntimeError, match="failed to launch"):
                 cs.fused_jacobi_blocks(blocks, 1, xs, rhs, n=t.n, K=8,
                                        alpha=0.3, beta=2.2, sweeps=8)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("side,mz", [(64, 16), (66, 6), (64, 4)])
+def test_advect3_group_matches_per_slab_and_plain(cuda, side, mz, bf16):
+    """The grouped K14 over every z-slab, windowed and exact, one field and
+    the triple, one launch: against the per-slab K14 on ``_ext``'s or
+    ``_gather``'s buffers and against its plain twin, bit for bit, in the
+    storage dtype (66³: rows the vector form cannot take)."""
+    for check in checks.kernel_checks_advect3_group(side, mz, cuda,
+                                                    seed=side, bf16=bf16):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = {k: c for k, c in cuda_ops.launch_counts().items() if c}
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts == {check.kernels[0]: 1}, (check.label, counts)
+        for g in got:
+            assert g.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("side", [64, 66])
+def test_k6_equals_grouped_k14_and_one_cell_k14(cuda, side, bf16):
+    """K6 (its bf16 form on the gather body) against the grouped K14 over
+    one slab of the volume and the one-cell K14 on the volume, bit for
+    bit, exact and windowed."""
+    for check in checks.kernel_checks_k6_body(side, cuda, seed=side,
+                                              bf16=bf16):
+        got, want = check.run(), check.plain()
+        torch.cuda.synchronize()
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+def test_zslab_step_256_gathers_grouped_and_per_slab_alike(cuda):
+    """The 256³ z-slab step on 8 slabs, windowed and exact, float32 and
+    bf16: two grouped K14 launches a step, and the step bit for bit the
+    same step on the per-slab K14."""
+    from fluidsimulationcuda_torch.parallel import make_mesh, shard_state_3d
+    from fluidsimulationcuda_torch.parallel.sharded3d import _ZSlabStep
+
+    mesh = make_mesh([cuda] * 8).reshape(8, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = ft.SimConfig(n=254, ndim=3, jacobi_iters=20, backend="cuda",
+                           device=cuda, dtype=dtype)
+        state, src = ft.reference_init(torch.Generator(cuda).manual_seed(0),
+                                       cfg)
+        state, src = (shard_state_3d(x, mesh) for x in (state, src))
+        for exact in (False, True):
+            grouped = _ZSlabStep(cfg, mesh, False, exact)
+            per = _ZSlabStep(cfg, mesh, False, exact)
+            per.ops = per.ops._replace(advect_group=None)
+            cuda_ops.reset_launch_counts()
+            a = grouped(state, src)
+            counts = cuda_ops.launch_counts()
+            name = ("advect3_group" + ("_exact" if exact else "")
+                    + ("_bf16" if dtype == torch.bfloat16 else ""))
+            assert counts[name] == 2
+            b = per(state, src)
+            for fa, fb in zip(a, b):
+                for x, y in zip(fa, fb):
+                    assert torch.equal(x, y)
+
+
+def test_bf16_block_cg20_divergence_follows_its_diffusion(cuda):
+    """The recorded bf16 block CG-20 gap (ROADMAP §C): at 2048² on (2, 4)
+    blocks the card's bf16 step, whose diffusions round once a chunk,
+    leaves its diffused impulse velocity with float32's max|div| to 1%, and
+    after the first projection a max|div| within 15% of the ``reference``
+    bf16 block step's (which rounds every operation, and lies further from
+    float32 before the projection) and of float32's, as phase 20 prints
+    them."""
+    import chip_smoke
+    from fluidsimulationcuda_torch.parallel import make_mesh
+
+    cfg = ft.SimConfig(n=2046, jacobi_iters=20, pressure_solver="cg",
+                       cg_iters=20, backend="cuda", device=cuda)
+    c16 = cfg.replace(dtype=torch.bfloat16)
+    mesh = make_mesh([cuda] * 8, shape=(2, 4))
+    state0, sources = ft.reference_init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    draw16 = [ft.FluidState(*(t.to(torch.bfloat16) for t in state0[:3])),
+              ft.Sources(*(t.to(torch.bfloat16) for t in sources[:3]))]
+    draw32 = [type(t)(*(x.float() for x in t[:3])) for t in draw16]
+    card = chip_smoke.block_projection_div(c16, mesh, draw16)
+    f32 = chip_smoke.block_projection_div(cfg, mesh, draw32)
+    ref = chip_smoke.block_projection_div(c16.replace(backend="reference"),
+                                          mesh, draw16)
+    assert abs(card[0] / f32[0] - 1) < 0.01, (card, f32)
+    assert abs(card[1] / ref[1] - 1) < 0.15, (card, ref)
+    assert abs(card[1] / f32[1] - 1) < 0.15, (card, f32)
