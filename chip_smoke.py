@@ -291,6 +291,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    forms to the twin within 1e-5), and its 8-sweep chunk, fast chained
    Chebyshev chunk and damped smooth over 2048² timed beside their bound
    and the route they replace (``Blocks.ext`` and 8 per-block launches);
+   the grouped K11-block and K12-block (``group_checks`` too: the
+   gradient and the windowed and exact gathers over every block in one
+   launch, each block's neighbours read from their own arrays) over the
+   (2, 4) blocks of 2048² and the (64, 1) blocks of 256² in every form,
+   against the per-block kernels on ``Blocks.halos``', ``ext``'s or
+   ``gather``'s buffers and their plain twins bit for bit, and the
+   gradient, pair and density over 2048² timed beside their bound,
+   ``grid_sample`` and the route they replace (``halos``, ``ext`` or
+   ``gather`` and 8 per-block launches);
    then ``make_sharded_step_fn(...,
    shard_backend="reference")`` on (2, 4) blocks of one card at 2048², 20
    iterations (``block_path``): exact, held to ``StableFluids2D.step``
@@ -312,8 +321,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    interior and the far corner block of (2, 4) blocks at 2048², in every
    mode the step gives them (bit for bit; fast forms within 1e-5), each
    timed beside its bound in 2-byte storage and its float32 form (the
-   gathers beside ``grid_sample`` on bf16), and the grouped K9-block's
-   bf16 forms as phase 19 holds and times its float32 ones; then the bf16
+   gathers beside ``grid_sample`` on bf16), and the grouped K9-block's,
+   K11-block's and K12-block's bf16 forms as phase 19 holds and times
+   their float32 ones; then the bf16
    block step
    (``bf16_block_path``) on (2, 4) blocks of one card at 2048², 20
    iterations: exact, windowed, compensated with fast math, multigrid
@@ -405,8 +415,9 @@ sweep (``jacobi_slab_split``), which the tiled K1, K1-damp, the tiled K9
 and its split-source first launch replaced on every path, and the tiled
 3-D kernel's four forms (``jacobi3_sweeps``, ``jacobi3_slab_sweeps`` and
 their bf16 forms), whose fast Chebyshev solves the per-sweep K5's and
-K13's vector walk took at 256³, the per-block K9-block and the per-slab
-K14's four forms, which the grouped K9-block and K14 took over, run on
+K13's vector walk took at 256³, the per-block K9-block, K11-block and
+K12-block and the per-slab K14's four forms, which the grouped K9-block,
+K11-block, K12-block and K14 took over, run on
 none and are left out of the line
 (``OFF_PATH``): every path's launch counts hold them at 0.  Each timing
 times a plain version in a CUDA graph of ``PLAIN_REPS`` calls, once.  The last line
@@ -528,6 +539,17 @@ KERNEL_SOURCES = {
     "jacobi_block_group": (f"{CSRC}/jacobi_tiles.cu", f"{TPU_STEP}:195"),
     "jacobi_block_group_bf16": (f"{CSRC}/jacobi_tiles.cu",
                                 f"{TPU_STEP}:195"),
+    # K11-block and K12-block grouped: every block of a device in one
+    # launch.
+    "gradient_block_group": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:329"),
+    "gradient_block_group_bf16": (f"{CSRC}/project_slab.cu",
+                                  f"{TPU_STEP}:329"),
+    "advect_block_group": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:274"),
+    "advect_block_group_exact": (f"{CSRC}/advect_slab.cu",
+                                 f"{TPU_STEP}:245"),
+    "advect_block_group_bf16": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:274"),
+    "advect_block_group_exact_bf16": (f"{CSRC}/advect_slab.cu",
+                                      f"{TPU_STEP}:245"),
     "advect_block_bf16": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:274"),
     "advect_block_exact_bf16": (f"{CSRC}/advect_slab.cu", f"{TPU_STEP}:245"),
     "divergence_block_bf16": (f"{CSRC}/project_slab.cu", f"{TPU_STEP}:317"),
@@ -584,13 +606,18 @@ PLAIN_REPS = 3
 # per-block K9-block: the grouped K9-block runs every block solve's chunks,
 # and phases 19 and 20 hold it against the per-block form and time both.
 # And the per-slab K14: the grouped K14 runs every z-slab gather, and
-# phases 3d and 22 hold it against the per-slab forms and time both.
+# phases 3d and 22 hold it against the per-slab forms and time both.  And
+# the per-block K11-block and K12-block: their grouped forms run every
+# block gradient and gather, and phases 19 and 20 hold them against the
+# per-block forms and time both.
 OFF_PATH = ("jacobi_sweep", "jacobi_sweep_bf16", "jacobi_slab",
             "jacobi_sweep_damp", "jacobi_slab_split", "jacobi3_sweeps",
             "jacobi3_slab_sweeps", "jacobi3_sweeps_bf16",
             "jacobi3_slab_sweeps_bf16", "jacobi_block_sweeps",
             "jacobi_block_sweeps_bf16", "advect3_slab", "advect3_slab_exact",
-            "advect3_slab_bf16", "advect3_slab_exact_bf16")
+            "advect3_slab_bf16", "advect3_slab_exact_bf16", "gradient_block",
+            "gradient_block_bf16", "advect_block", "advect_block_exact",
+            "advect_block_bf16", "advect_block_exact_bf16")
 
 
 def phase(title: str) -> None:
@@ -946,9 +973,11 @@ def expected_launches_blocks(cfg, px: int, py: int,
     (``group_launches``; ``block_chunks``: two velocity diffusions, two
     pressure solves, the density diffusion; the multigrid projection's
     smooths by ``block_mg_launches``, none for CG), each block K10-block
-    and K11-block once per projection, K12-block for the u/v pair and the
-    density (its exact form with ``exact`` gathers).  A bf16 config
-    launches each kernel's bf16 form and none of the float32 ones."""
+    once per projection, the grouped K11-block once per projection and
+    the grouped K12-block for the u/v pair and the density (its exact form
+    with ``exact`` gathers), each over every block (``group_launches``).
+    A bf16 config launches each kernel's bf16 form and none of the float32
+    ones."""
     side = cfg.n + 2
     bf = _bf16_suffix(cfg)
     m, k, blocks = side // px, side // py, px * py
@@ -963,9 +992,10 @@ def expected_launches_blocks(cfg, px: int, py: int,
               + (2 * block_chunks(k_p, m, k) if k_p else 0))
     launches = {f"jacobi_block_group{bf}": group_launches(blocks) * chunks,
                 f"divergence_block{bf}": 2 * blocks,
-                f"gradient_block{bf}": 2 * blocks,
-                ("advect_block_exact" if exact else "advect_block") + bf:
-                2 * blocks}
+                f"gradient_block_group{bf}": 2 * group_launches(blocks),
+                ("advect_block_group_exact" if exact
+                 else "advect_block_group") + bf:
+                2 * group_launches(blocks)}
     if cfg.pressure_solver == "multigrid":
         for name, count in block_mg_launches(cfg, px, py).items():
             launches[name] = launches.get(name, 0) + 2 * count
@@ -3073,7 +3103,16 @@ def group_checks(bf16: bool, errs: dict[str, float], times: dict,
     bit (the fast forms within ``checks.TOL``); then the path's 8-sweep
     chunk, the fast chained Chebyshev chunk and the damped smooth over
     2048² timed beside their bound, their plain twin and the route they
-    replace (``Blocks.ext``, then 8 per-block launches)."""
+    replace (``Blocks.ext``, then 8 per-block launches).  Then the grouped
+    K11-block and K12-block (``checks.kernel_checks_block_stencil_group``)
+    over the (2, 4) blocks of 2048² and the (64, 1) blocks of 256² (the
+    64 slabs of 4 rows ``"auto"`` sends to the block route) in every form,
+    against the per-block kernels on ``Blocks.halos``', ``ext``'s or
+    ``gather``'s buffers and their plain twins, bit for bit; and the
+    gradient and the windowed and exact pair and density over 2048² timed
+    beside their bound, plain twin, ``grid_sample`` (the gathers) and the
+    route they replace (``halos``, ``ext`` or ``gather``, then 8 per-block
+    launches)."""
     from fluidsimulationcuda_torch.kernels import checks
 
     for side, px, py in ((2048, 2, 4), (512, 64, 1)):
@@ -3090,6 +3129,13 @@ def group_checks(bf16: bool, errs: dict[str, float], times: dict,
         2048, 2, 4, "cuda", SEED, bf16=bf16),
         "2048² over (2, 4) blocks, grouped" + (", bf16" if bf16 else ""),
         card))
+    for side, px, py in ((2048, 2, 4), (256, 64, 1)):
+        compare(checks.kernel_checks_block_stencil_group(
+            side, px, py, "cuda", SEED, bf16=bf16), 0.0, errs, "bit for bit")
+    times.update(kernel_times(checks.timing_checks_block_stencil_group(
+        2048, 2, 4, "cuda", SEED, bf16=bf16),
+        "2048² over (2, 4) blocks, grouped stencils"
+        + (", bf16" if bf16 else ""), card))
 
 
 def advect3_group_checks(bf16: bool, errs: dict[str, float], times: dict,

@@ -106,14 +106,6 @@ struct GatherDeparture {
   float fx, fy, fz;
 };
 
-// p[i] widened to float32, on the read-only path.
-__device__ __forceinline__ float ldg(const float* p, int i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ float ldg(const bf16* p, int i) {
-  return __bfloat162float(__ldg(p + i));
-}
-
 // The blend of fsc::trilinear, in its order, from the two planes' lower
 // corners g0 and g1.
 template <typename T>

@@ -50,6 +50,16 @@
 // (a grid index past 256 has no exact bf16 value; JAX's block route
 // computes them in bf16 and loses the cell there, ROADMAP §C), each result
 // rounded to bf16 at the store.
+//
+// K12-block grouped (fsc_advect_block_group, _exact, and their _bf16
+// forms): both forms on every block of a device in one launch, the path
+// of every cuda block step since the per-block launches above, which stay
+// as the forms it is held against.  Each corner of a departure is read
+// from the block that owns its global cell (row gi / m, column gj / k, at
+// its local offset; a copy of the cells the launch reads where that block
+// lies on another device), so no Blocks.ext and no Blocks.gather is
+// built; the kernel and its table are in block_group.cuh.
+#include "block_group.cuh"
 #include "fsc_common.cuh"
 
 namespace {
@@ -156,6 +166,38 @@ int launch_block(const void* d1, const void* d2, const void* u,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One grouped K12-block launch (fsc_advect_block_group's arguments) with
+// every field, velocity and output stored as T, `width` cells a thread: 1,
+// 2 or 4, and for the exact form in float32 1 or 2
+// (advect_block_group_kernel's designs).
+template <bool kExact, typename T>
+int gather_group(const void* parts, const void* part_ints, int nparts,
+                 const void* blks, const void* blk_ints, int nblocks, int m,
+                 int k, int n, int py, int nf, int b1, int b2, float dt0,
+                 int cmax, int width, void* stream) {
+  constexpr bool kWide = !kExact || sizeof(T) == 2;
+  fsc::BlockGatherGroup g;
+  if (!(width == 1 || width == 2 || (kWide && width == 4)) ||
+      k % width != 0 ||
+      (!kExact && (cmax < 0 || cmax + 1 > m || cmax + 1 > k)) ||
+      !fsc::gather_table<T>(static_cast<const void* const*>(parts),
+                            static_cast<const int*>(part_ints), nparts,
+                            static_cast<const void* const*>(blks),
+                            static_cast<const int*>(blk_ints), nblocks, m, k,
+                            n, py, nf, width, &g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (kWide) {
+    if (width == 4)
+      return fsc::launch_gather_group<kExact, 4, T>(g, nblocks, n, nf, b1, b2,
+                                                    dt0, cmax, s);
+  }
+  return width == 2 ? fsc::launch_gather_group<kExact, 2, T>(
+                          g, nblocks, n, nf, b1, b2, dt0, cmax, s)
+                    : fsc::launch_gather_group<kExact, 1, T>(
+                          g, nblocks, n, nf, b1, b2, dt0, cmax, s);
+}
+
 }  // namespace
 
 // d1, d2: (m + 2*halo, side) extended fields, slab row r at buffer row
@@ -232,4 +274,58 @@ extern "C" int fsc_advect_block_exact_bf16(const void* d1, const void* d2,
                                            void* stream) {
   return launch_block<true, fsc::bf16>(d1, d2, u, v, ustride, o1, o2, m, k,
                                        n, r0, c0, 0, 0, b1, b2, dt0, stream);
+}
+
+// K12-block grouped: the gather of nf (1 or 2) fields at `nblocks` (m, k)
+// blocks (at most kStencilBlocks) in one launch, windowed (cmax cells,
+// cmax + 1 <= m, k).  parts holds the field's px * py blocks as the launch
+// sees them, in mesh order (py of a row), nparts of them (at most
+// kGatherParts): 2 pointers a part (each field's array, null where the
+// launch reads none of its cells) and in part_ints 3 ints (the global row
+// and column of the array's element 0, its row stride).  blks holds 4
+// pointers a block (u, v, o1, o2; o2 null for one field) and blk_ints 2
+// (r0, c0).  dt0 = dt*n in float32, `width` the cells a thread (1, 2, 4).
+// Returns cudaErrorInvalidValue for a bad table, window, width or
+// alignment, otherwise cudaGetLastError() after the launch.
+extern "C" int fsc_advect_block_group(const void* parts,
+                                      const void* part_ints, int nparts,
+                                      const void* blks, const void* blk_ints,
+                                      int nblocks, int m, int k, int n,
+                                      int py, int nf, int b1, int b2,
+                                      float dt0, int cmax, int width,
+                                      void* stream) {
+  return gather_group<false, float>(parts, part_ints, nparts, blks,
+                                    blk_ints, nblocks, m, k, n, py, nf, b1,
+                                    b2, dt0, cmax, width, stream);
+}
+
+// K12-block grouped, exact: the global clamp alone (cmax ignored), widths
+// 1 and 2, the rest as fsc_advect_block_group's.
+extern "C" int fsc_advect_block_group_exact(
+    const void* parts, const void* part_ints, int nparts, const void* blks,
+    const void* blk_ints, int nblocks, int m, int k, int n, int py, int nf,
+    int b1, int b2, float dt0, int cmax, int width, void* stream) {
+  return gather_group<true, float>(parts, part_ints, nparts, blks, blk_ints,
+                                   nblocks, m, k, n, py, nf, b1, b2, dt0,
+                                   cmax, width, stream);
+}
+
+// The bf16 forms: bf16 fields, velocities and outputs, widths 1, 2 and 4,
+// the rest as fsc_advect_block_group's and fsc_advect_block_group_exact's.
+extern "C" int fsc_advect_block_group_bf16(
+    const void* parts, const void* part_ints, int nparts, const void* blks,
+    const void* blk_ints, int nblocks, int m, int k, int n, int py, int nf,
+    int b1, int b2, float dt0, int cmax, int width, void* stream) {
+  return gather_group<false, fsc::bf16>(parts, part_ints, nparts, blks,
+                                        blk_ints, nblocks, m, k, n, py, nf,
+                                        b1, b2, dt0, cmax, width, stream);
+}
+
+extern "C" int fsc_advect_block_group_exact_bf16(
+    const void* parts, const void* part_ints, int nparts, const void* blks,
+    const void* blk_ints, int nblocks, int m, int k, int n, int py, int nf,
+    int b1, int b2, float dt0, int cmax, int width, void* stream) {
+  return gather_group<true, fsc::bf16>(parts, part_ints, nparts, blks,
+                                       blk_ints, nblocks, m, k, n, py, nf,
+                                       b1, b2, dt0, cmax, width, stream);
 }

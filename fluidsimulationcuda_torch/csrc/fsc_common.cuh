@@ -185,6 +185,14 @@ __device__ __forceinline__ void store_vec(float* __restrict__ p, int i,
   }
 }
 
+// p[i] widened to float32, on the read-only path.
+__device__ __forceinline__ float ldg(const float* p, int i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ float ldg(const bf16* p, int i) {
+  return __bfloat162float(__ldg(p + i));
+}
+
 // p[g] and p[g + 1] of a 4-byte aligned bf16 array: one 4-byte load where
 // g is even, two 2-byte loads where it is odd.
 __device__ __forceinline__ void load_pair(const bf16* __restrict__ p, int g,

@@ -36,6 +36,17 @@
 // operands, halos and outputs, widened at the loads, the arithmetic float32
 // and each output rounded to bf16 at the store (JAX's block route keeps
 // div, p, u and v in bf16; it rounds every operation).
+//
+// K11-block grouped (fsc_gradient_block_group, and _bf16): the gradient of
+// every block of a device in one launch, the path of every cuda block
+// step since the per-block launch above, which stays as the form it is
+// held against.  p's neighbour rows and columns are read from the
+// neighbouring blocks' own arrays (copies where they lie on another
+// device), so no Blocks.halos of p is built; the kernel and its table are
+// in block_group.cuh.
+//
+// Bound: 20 bytes a cell in float32, 10 in bf16, as K11-block.
+#include "block_group.cuh"
 #include "fsc_common.cuh"
 
 namespace {
@@ -149,22 +160,12 @@ __global__ void gradient_block_kernel(
   fsc::store(vo, r * k + j, fsc::border_rule(vn, gx, gy, 2));
 }
 
-// Whether an (m, k) block at (r0, c0) lies in the grid and has each halo
-// that is not beyond a wall (top, bottom, left, right; null beyond one).
-bool block_ok(int m, int k, int n, int r0, int c0, const void* top,
-              const void* bot, const void* left, const void* right) {
-  return m >= 2 && k >= 2 && r0 >= 0 && c0 >= 0 && r0 + m <= n + 2 &&
-         c0 + k <= n + 2 && (top != nullptr || r0 == 0) &&
-         (bot != nullptr || r0 + m == n + 2) && (left != nullptr || c0 == 0) &&
-         (right != nullptr || c0 + k == n + 2);
-}
-
 template <typename T>
 int divergence_block(const void* u, const void* v, const void* u_left,
                      const void* u_right, const void* v_top,
                      const void* v_bot, void* out, int m, int k, int n,
                      int r0, int c0, float coef, void* stream) {
-  if (!block_ok(m, k, n, r0, c0, v_top, v_bot, u_left, u_right))
+  if (!fsc::block_in_grid(m, k, n, r0, c0, v_top, v_bot, u_left, u_right))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = divergence_block_kernel<T>;
   kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
@@ -181,7 +182,7 @@ int gradient_block(const void* u, const void* v, const void* p,
                    const void* p_top, const void* p_bot, const void* p_left,
                    const void* p_right, void* uo, void* vo, int m, int k,
                    int n, int r0, int c0, float h, void* stream) {
-  if (!block_ok(m, k, n, r0, c0, p_top, p_bot, p_left, p_right))
+  if (!fsc::block_in_grid(m, k, n, r0, c0, p_top, p_bot, p_left, p_right))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = gradient_block_kernel<T>;
   kernel<<<fsc::slab_grid_dim(k, m), fsc::block_dim(), 0,
@@ -192,6 +193,34 @@ int gradient_block(const void* u, const void* v, const void* p,
       static_cast<const T*>(p_right), static_cast<T*>(uo),
       static_cast<T*>(vo), m, k, n, r0, c0, h);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One grouped K11-block launch (fsc_gradient_block_group's arguments) with
+// every operand stored as T, `width` cells a thread: 1 or 2 in float32, 1,
+// 2, 4 or 8 in bf16 (gradient_block_group_kernel's designs).
+template <typename T>
+int gradient_group(const void* ptrs, const void* ints, int blocks, int m,
+                   int k, int n, float h, int width, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  fsc::GradGroup g;
+  // h positive and finite: 0/h is then the zero numerator itself.
+  const bool widths = width == 1 || width == 2 ||
+                      (kBf16 && (width == 4 || width == 8));
+  if (!(h > 0.0f && h <= 3.4e38f) || !widths || k % width != 0 ||
+      !fsc::grad_table<T>(static_cast<const void* const*>(ptrs),
+                          static_cast<const int*>(ints), blocks, m, k, n,
+                          width, &g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (kBf16) {
+    if (width == 8)
+      return fsc::launch_gradient_group<8, T>(g, blocks, m, k, n, h, s);
+    if (width == 4)
+      return fsc::launch_gradient_group<4, T>(g, blocks, m, k, n, h, s);
+  }
+  return width == 2
+             ? fsc::launch_gradient_group<2, T>(g, blocks, m, k, n, h, s)
+             : fsc::launch_gradient_group<1, T>(g, blocks, m, k, n, h, s);
 }
 
 }  // namespace
@@ -273,4 +302,30 @@ extern "C" int fsc_gradient_block_bf16(const void* u, const void* v,
                                        int c0, float h, void* stream) {
   return gradient_block<fsc::bf16>(u, v, p, p_top, p_bot, p_left, p_right,
                                    uo, vo, m, k, n, r0, c0, h, stream);
+}
+
+// K11-block grouped: the gradient of `blocks` (m, k) blocks (at most
+// kStencilBlocks) in one launch.  ptrs holds 9 pointers a block (u, v, p,
+// uo, vo, then p's neighbours: the row above and below, k cells each, the
+// column left and right, m cells each; null beyond a wall), ints 4 a block
+// (r0, c0, and the row strides of the left and right columns: k in the
+// neighbour's own array, 1 in a copy).  h = 1/n in float32, `width` the
+// cells a thread (1 or 2).  Returns cudaErrorInvalidValue for a bad
+// table, width or alignment, otherwise cudaGetLastError() after the
+// launch.
+extern "C" int fsc_gradient_block_group(const void* ptrs, const void* ints,
+                                        int blocks, int m, int k, int n,
+                                        float h, int width, void* stream) {
+  return gradient_group<float>(ptrs, ints, blocks, m, k, n, h, width,
+                               stream);
+}
+
+// K11-block grouped, bf16 form: every operand bf16, widths 1, 2, 4 and 8,
+// the rest as fsc_gradient_block_group's.
+extern "C" int fsc_gradient_block_group_bf16(const void* ptrs,
+                                             const void* ints, int blocks,
+                                             int m, int k, int n, float h,
+                                             int width, void* stream) {
+  return gradient_group<fsc::bf16>(ptrs, ints, blocks, m, k, n, h, width,
+                                   stream);
 }

@@ -64,6 +64,9 @@ _SIGNATURES = {
                              _F, _P],
     "fsc_gradient_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _F, _P],
+    "fsc_gradient_block_group": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "fsc_advect_block_group": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _I, _P],
     "fsc_divergence": [_P, _P, _P, _I, _I, _F, _P],
     "fsc_divergence_bf16": [_P, _P, _P, _I, _I, _F, _I, _P],
     "fsc_gradient": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
@@ -124,13 +127,16 @@ _SIGNATURES = {
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "fsc_jacobi_block_sweeps", "fsc_jacobi_block_group", "fsc_advect_block",
     "fsc_advect_block_exact",
-    "fsc_divergence_block", "fsc_gradient_block", "fsc_advect3",
+    "fsc_divergence_block", "fsc_gradient_block",
+    "fsc_gradient_block_group", "fsc_advect_block_group", "fsc_advect3",
     "fsc_divergence3", "fsc_gradient3", "fsc_advect3_slab",
     "fsc_advect3_slab_exact", "fsc_divergence3_slab", "fsc_gradient3_slab",
     "fsc_advect3_group")})
-# K14 grouped's exact form takes the windowed form's arguments.
-_SIGNATURES.update({f"fsc_advect3_group_exact{tag}": _SIGNATURES[
-    "fsc_advect3_group"] for tag in ("", "_bf16")})
+# K14 grouped's and K12-block grouped's exact forms take their windowed
+# forms' arguments.
+_SIGNATURES.update({f"fsc_{name}_exact{tag}": _SIGNATURES[f"fsc_{name}"]
+                    for name in ("advect3_group", "advect_block_group")
+                    for tag in ("", "_bf16")})
 _SIGNATURES["fsc_jacobi3_slab_sweeps_bf16"] = [
     *_SIGNATURES["fsc_jacobi3_slab_sweeps"][:-1], _I, _P]
 _SIGNATURES["fsc_jacobi3_slab_bf16"] = [*_SIGNATURES["fsc_jacobi3_slab"][:-3],

@@ -61,7 +61,9 @@ __all__ = ["TOL", "HBM_BYTES_PER_S", "F32_OPS_PER_S", "Check",
            "kernel_checks_bf16_forms",
            "per_sweep_checks", "kernel_checks_block", "timing_checks_block",
            "block_chunk_forms", "block_chunk", "kernel_checks_block_group",
-           "timing_checks_block_group",
+           "timing_checks_block_group", "block_stencil", "BLOCK_STENCIL_FORMS",
+           "kernel_checks_block_stencil_group",
+           "timing_checks_block_stencil_group",
            "kernel_checks3_bf16", "timing_checks3_bf16",
            "kernel_checks_slab3_bf16", "timing_checks_slab3_bf16"]
 
@@ -2271,6 +2273,25 @@ def _block_timings(t: "_BlockInputs", device, seed: int) -> list[Check]:
     exact.counterpart = functools.partial(
         cs.advect_slab_exact, (1, 2), (slab.u, slab.v), None, None, fl,
         dt=DT, n=n, m=sm, self_adv=True)
+    dens = _timed(_scaled(ADVECT2_ONE, cells), 1,
+                  f"{t.name('advect_block')} density",
+                  (t.name("advect_block"),), cs.advect_block,
+                  cs.advect_block_plain, (0,), (ext(t.p, o, C),),
+                  blk(t.u, o), blk(t.v, o), o, dt=DT, cmax=cmax,
+                  self_adv=False, **geo)
+    dens.counterpart = functools.partial(
+        cs.advect_slab, (0,), (slab.ext(slab.p, i, C),),
+        slab.slab(slab.u, i), slab.slab(slab.v, i), fl, dt=DT, n=n,
+        cmax=cmax, m=sm, self_adv=False)
+    dens_exact = _timed(_scaled(ADVECT2_ONE, cells), 1,
+                        f"{t.name('advect_block_exact')} density",
+                        (t.name("advect_block_exact"),),
+                        cs.advect_block_exact, cs.advect_block_exact_plain,
+                        (0,), (t.p,), blk(t.u, o), blk(t.v, o), o, dt=DT,
+                        self_adv=False, **geo)
+    dens_exact.counterpart = functools.partial(
+        cs.advect_slab_exact, (0,), (slab.p,), slab.slab(slab.u, i),
+        slab.slab(slab.v, i), fl, dt=DT, n=n, m=sm, self_adv=False)
     div = _timed(_scaled(DIV2, cells), 1, t.name("divergence_block"),
                  (t.name("divergence_block"),), cs.divergence_block,
                  cs.divergence_block_plain, blk(t.u, o), blk(t.v, o),
@@ -2285,7 +2306,7 @@ def _block_timings(t: "_BlockInputs", device, seed: int) -> list[Check]:
     grad.counterpart = functools.partial(
         cs.gradient_slab, slab.slab(slab.u, i), slab.slab(slab.v, i),
         slab.slab(slab.p, i), *slab.halo(slab.p, i), fl, n)
-    return [jac, win, exact, div, grad, cheb, smooth]
+    return [jac, win, exact, div, grad, cheb, smooth, dens, dens_exact]
 
 
 def block_chunk_forms(K: int, av: float, rho: float = 0.9,
@@ -2453,6 +2474,144 @@ def timing_checks_block_group(side: int, px: int, py: int, device,
         check.composed = functools.partial(block_chunk, "per-block", *args)
         out.append(check)
     return out
+
+
+# The grouped K11-block's and K12-block's forms: (what, bs, cmax, reach)
+# with what "gradient", "pair" (the u/v pair's self-advection) or
+# "density" (one field by the velocity blocks), cmax the window (None:
+# exact), reach the velocities' scale (1: up to 2 cells; 3: up to 6, past
+# a 4-cell window; 12: up to 24, across blocks of 22).
+BLOCK_STENCIL_FORMS = {
+    "gradient": ("gradient", None, None, 1.0),
+    "pair": ("pair", (1, 2), SLAB_CMAX, 1.0),
+    "pair over the window": ("pair", (1, 2), SLAB_CMAX, 3.0),
+    "density": ("density", (0,), SLAB_CMAX, 1.0),
+    "pair cmax 1": ("pair", (1, 2), 1, 1.0),
+    "exact pair": ("pair", (1, 2), None, 1.0),
+    "exact pair up to 24 cells": ("pair", (1, 2), None, 12.0),
+    "exact density": ("density", (0,), None, 3.0),
+}
+
+
+def block_stencil(how: str, form: tuple, blocks, us, vs, ps, n: int,
+                  dt: float = DT) -> tuple:
+    """One grouped K11-block or K12-block call of ``form``
+    (``BLOCK_STENCIL_FORMS``) on every block of ``blocks`` (the lists
+    ``us``, ``vs``, ``ps`` of (m, k) blocks; the density gathers ``ps``)
+    as ``how`` says: "group", the grouped kernel (``gradient_blocks``,
+    ``advect_blocks``); "plain", its plain twin; "per-block", JAX's
+    composition on the per-block kernels (``Blocks.halos``, ``ext`` or
+    ``gather``, then one launch a block).  Every output block in one
+    tuple."""
+    what, bs, cmax, reach = form
+    if what == "gradient":
+        fn = {"group": cs.gradient_blocks, "plain": cs.gradient_blocks_plain,
+              "per-block": functools.partial(cs.gradient_blocks_composed,
+                                             cs.gradient_block)}[how]
+        uo, vo = fn(blocks, us, vs, ps, n)
+        return tuple(uo) + tuple(vo)
+    if reach != 1.0:
+        us, vs = [reach * u for u in us], [reach * v for v in vs]
+    self_adv = what == "pair"
+    fields = (us, vs) if self_adv else (ps,)
+    kw = dict(dt=dt, n=n, cmax=cmax, self_adv=self_adv)
+    if how == "per-block":
+        none = [None] * len(us)
+        out = cs.advect_blocks_composed(
+            cs.advect_block, cs.advect_block_exact, blocks, bs, fields,
+            none if self_adv else us, none if self_adv else vs, **kw)
+    else:
+        fn = cs.advect_blocks if how == "group" else cs.advect_blocks_plain
+        out = fn(blocks, bs, fields, us, vs, **kw)
+    return tuple(t for r in out for t in r)
+
+
+def _stencil_name(form: tuple, tag: str) -> str:
+    what, _, cmax, _ = form
+    if what == "gradient":
+        return f"gradient_block_group{tag}"
+    return ("advect_block_group" + ("_exact" if cmax is None else "") + tag)
+
+
+def kernel_checks_block_stencil_group(side: int, px: int, py: int, device,
+                                      seed: int = 0, bf16: bool = False
+                                      ) -> list[Check]:
+    """The grouped K11-block and K12-block over every (px, py) block of
+    grid ``side`` in each form of ``BLOCK_STENCIL_FORMS`` (windowed forms
+    only where the blocks hold the window): against the plain twin and
+    against the per-block kernels on ``Blocks.halos``', ``ext``'s or
+    ``gather``'s buffers, labelled "vs per-block", both bit for bit.
+    ``bf16``: the bf16 forms on the fields rounded to bf16."""
+    t, blocks, us, vs, ps = _group_inputs(side, px, py, device, seed, bf16)
+    us, vs = (list(blocks.cut(f)) for f in (t.u, t.v))
+    tag = "_bf16" if bf16 else ""
+    out = []
+    for mode, form in BLOCK_STENCIL_FORMS.items():
+        cmax = form[2]
+        if cmax is not None and cmax + 1 > min(blocks.m, blocks.k):
+            continue
+        args = (form, blocks, us, vs, ps, t.n)
+        name = _stencil_name(form, tag)
+        label = f"{name} ({px}, {py}) {mode}"
+        out.append(_check(label, (name,), block_stencil, block_stencil,
+                          "group", *args))
+        out[-1].plain = functools.partial(block_stencil, "plain", *args)
+        out.append(_check(f"{label} vs per-block", (name,), block_stencil,
+                          block_stencil, "group", *args))
+        out[-1].plain = functools.partial(block_stencil, "per-block", *args)
+    return out
+
+
+def timing_checks_block_stencil_group(side: int, px: int, py: int, device,
+                                      seed: int = 0,
+                                      bf16: bool = False) -> list[Check]:
+    """What ``chip_smoke.py`` times of the grouped K11-block and K12-block
+    over every (px, py) block of grid ``side``: the gradient, the windowed
+    pair (labelled by the kernels' names) and density, the exact pair and
+    density, each beside its plain twin, its bound over the grid, the route
+    it replaces (``composed``: ``Blocks.halos``, ``ext`` or ``gather``,
+    then one per-block launch a block) and, for the gathers,
+    ``grid_sample`` at the grid's departure points.  ``bf16``: the bf16
+    forms, each bound in 2-byte storage."""
+    t, blocks, us, vs, ps = _group_inputs(side, px, py, device, seed, bf16)
+    us, vs = (list(blocks.cut(f)) for f in (t.u, t.v))
+    tag = "_bf16" if bf16 else ""
+    cells = side * side
+    out = []
+    for mode, label in (("gradient", f"gradient_block_group{tag}"),
+                        ("pair", f"advect_block_group{tag}"),
+                        ("density", f"advect_block_group{tag} density"),
+                        ("exact pair", f"advect_block_group_exact{tag}"),
+                        ("exact density",
+                         f"advect_block_group_exact{tag} density")):
+        # Every timed form at the same reach (up to 2 cells).
+        form = BLOCK_STENCIL_FORMS[mode][:3] + (1.0,)
+        what, _, cmax, reach = form
+        cost = {"gradient": GRAD2, "pair": ADVECT2_PAIR,
+                "density": ADVECT2_ONE}[what]
+        args = (form, blocks, us, vs, ps, t.n)
+        check = _timed(_scaled((cost[0] / 2 if bf16 else cost[0], cost[1]),
+                               cells), 1, label,
+                       (_stencil_name(form, tag),), block_stencil,
+                       block_stencil, "group", *args)
+        check.plain = functools.partial(block_stencil, "plain", *args)
+        check.composed = functools.partial(block_stencil, "per-block", *args)
+        if what != "gradient":
+            fields = [t.u, t.v] if what == "pair" else [t.p]
+            check.gather = functools.partial(_grid_departures, fields,
+                                             reach * t.u, reach * t.v, t.n,
+                                             cmax)
+        out.append(check)
+    return out
+
+
+def _grid_departures(fields, u, v, n: int, cmax):
+    """(fields, (x, y)): every cell's departure point on the whole grid,
+    for ``grid_sample`` beside a grouped gather."""
+    side = n + 2
+    ax = torch.arange(side, dtype=torch.float32, device=u.device)
+    return list(fields), departure(u, v, ax[None, :], ax[:, None], DT, n,
+                                   cmax)
 
 
 JAC3_SLAB = ("jacobi3_slab_sweeps",)

@@ -142,7 +142,10 @@ KERNELS = ("jacobi_sweep", "divergence", "gradient", "advect", "dens_advect",
            "divergence3_slab_bf16", "gradient3_slab_bf16",
            "jacobi_block_group", "jacobi_block_group_bf16", "advect3_group",
            "advect3_group_exact", "advect3_group_bf16",
-           "advect3_group_exact_bf16")
+           "advect3_group_exact_bf16", "gradient_block_group",
+           "gradient_block_group_bf16", "advect_block_group",
+           "advect_block_group_exact", "advect_block_group_bf16",
+           "advect_block_group_exact_bf16")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Sweep flags of csrc/fsc_common.cuh (fsc::SweepFlags).
@@ -239,10 +242,21 @@ LONG_SOLVE_CELLS = 1_000_000
 # same width and walk (dev/bench_sweep3.py, PERF.md §6): a middle sweep
 # at 256³ took 0.0726 ms at walks 2-4 within 1% (one-cell 0.0881), the
 # 20-sweep u solve 1.477 (1.790), the 256³ parity step 9.96 and, on 8
-# z-slabs, 18.88 ms as graphs (11.76, 22.36).
+# z-slabs, 18.88 ms as graphs (11.76, 22.36).  The grouped K11-block
+# and K12-block (csrc/block_group.cuh) take the widths measured fastest
+# over the (2, 4) blocks of 2048² (dev/bench_block_stencils.py, PERF.md
+# §6): the gradient V = 2 in float32 and 8 in bf16, the gathers V = 4 but
+# the float32 exact one's V = 2; the narrower ones where a width does not
+# divide the blocks' side.
 VECTOR_WIDTHS = {"advect_bf16": (4, 2), "gradient_bf16": (8, 4, 2),
                  "jacobi3_sweep": (4,), "jacobi3_slab": (4,),
-                 "jacobi3_sweep_bf16": (4,), "jacobi3_slab_bf16": (4,)}
+                 "jacobi3_sweep_bf16": (4,), "jacobi3_slab_bf16": (4,),
+                 "gradient_block_group": (2,),
+                 "gradient_block_group_bf16": (8, 4, 2),
+                 "advect_block_group": (4, 2),
+                 "advect_block_group_exact": (2,),
+                 "advect_block_group_bf16": (4, 2),
+                 "advect_block_group_exact_bf16": (4, 2)}
 SWEEP3_WALK = 3
 # Launches of each vector kernel by its width since reset_width_counts().
 _width_launches = {name: dict.fromkeys(widths + (1,), 0)

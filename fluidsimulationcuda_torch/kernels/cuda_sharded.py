@@ -122,7 +122,9 @@ __all__ = [
     "gradient_block", "gradient_block_plain", "fused_jacobi_block_ref",
     "smooth_block_ref", "divergence_block_ref", "gradient_block_ref",
     "fused_jacobi_blocks", "fused_jacobi_blocks_plain", "smooth_blocks",
-    "smooth_blocks_plain", "block_group_tile",
+    "smooth_blocks_plain", "block_group_tile", "gradient_blocks",
+    "gradient_blocks_plain", "gradient_blocks_composed", "advect_blocks",
+    "advect_blocks_plain", "advect_blocks_composed", "GATHER_PARTS",
 ]
 
 
@@ -1665,3 +1667,286 @@ def gradient_block(u, v, p, p_halos, origin, n):
                    uo.data_ptr(), vo.data_ptr(), m, k, n, *origin,
                    grid_h(n), co._stream(u))
         return uo, vo
+
+
+# ---------------------------------------------------------------------------
+# K11-block grouped and K12-block grouped: gradient_blocks, advect_blocks
+# ---------------------------------------------------------------------------
+# One launch over every block of a device, each block's neighbours read
+# from their own arrays (``csrc/block_group.cuh``).
+
+# The most blocks of a field a grouped gather's table holds (the
+# library's kGatherParts).
+GATHER_PARTS = 256
+
+
+def _grouped_parts(blocks, *lists) -> dict:
+    """``_groups`` of the block lists ``lists`` (each ``blocks``' px·py
+    blocks), checked: one storage dtype, contiguous (m, k) blocks, each
+    block's operands on one device, every device a card or every one the
+    CPU (a mix raises).  Returns {device: block indices} and whether the
+    blocks lie on a card."""
+    m, k = blocks.m, blocks.k
+    _require(m >= 2 and k >= 2, f"{m} x {k} blocks (blocks are at least "
+             f"2 x 2)")
+    _require(all(len(p) == blocks.px * blocks.py for p in lists),
+             f"expected {blocks.px * blocks.py} blocks an operand")
+    dtype = _storage(*(t for p in lists for t in p))
+    groups = _groups(lists[0])
+    on_card = {co._on_device(*((p[i], (m, k), (dtype,)) for p in lists
+                               for i in idx))
+               for idx in groups.values()}
+    _require(len(on_card) == 1, "blocks on the card and on the CPU at once")
+    return groups, on_card.pop()
+
+
+def gradient_blocks_composed(gradient, blocks, us, vs, ps, n):
+    """JAX's composition of the block route's gradient (``_gradient_local``
+    after ``_neighbor_halos``): ``blocks.halos(ps)``, then ``gradient`` on
+    each block.  Returns (u blocks, v blocks)."""
+    pairs = [gradient(u, v, p, h, o, n) for u, v, p, h, o in
+             zip(us, vs, ps, blocks.halos(ps), blocks.origins)]
+    return [q[0] for q in pairs], [q[1] for q in pairs]
+
+
+def gradient_blocks_plain(blocks, us, vs, ps, n):
+    """Plain twin of ``gradient_blocks``: ``gradient_blocks_composed`` on
+    ``gradient_block_plain``."""
+    _grouped_parts(blocks, us, vs, ps)
+    return gradient_blocks_composed(gradient_block_plain, blocks, us, vs, ps,
+                                    n)
+
+
+def _grad_sources(blocks, ps, i: int, copy: bool = False):
+    """p's one-cell neighbours of block i (``csrc/block_group.cuh``'s
+    GradBlock): (top, bottom, left, right) addresses, the left and right
+    columns' strides, and the copies to keep alive.  A neighbour on block
+    i's device is its own array (unless ``copy``), one on another device a
+    copy of its row or column there; None beyond a wall."""
+    m, k = blocks.m, blocks.k
+    dev, esz = ps[i].device, ps[i].element_size()
+    up, dn, lt, rt = blocks.neighbours(i)
+    ptrs, strides, keep = [], [], []
+    for nb, row, col in ((up, m - 1, None), (dn, 0, None),
+                         (lt, None, k - 1), (rt, None, 0)):
+        if nb is None:
+            ptrs.append(None)
+            strides.append(1)
+        elif ps[nb].device == dev and not copy:
+            ptrs.append(ps[nb].data_ptr()
+                        + (row * k if col is None else col) * esz)
+            strides.append(1 if col is None else k)
+        else:
+            part = ps[nb][row] if col is None else ps[nb][:, col]
+            t = part.to(dev, copy=True).contiguous()
+            keep.append(t)
+            ptrs.append(t.data_ptr())
+            strides.append(1)
+    return ptrs, strides[2:], keep
+
+
+def gradient_blocks(blocks, us, vs, ps, n):
+    """JAX's ``_gradient_local`` on every block of ``blocks`` at once:
+    ``u - (0.5*dp/dx)/h``, ``v - (0.5*dp/dy)/h``, border modes 1 and 2,
+    from the lists of (m, k) u, v and p blocks.  Float32, or bf16 (the
+    bf16 form: float32 arithmetic, bf16 u and v).  One grouped K11-block
+    launch a device (``gradient_block_group``, ``gradient_block_group_bf16``;
+    at most ``cuda_ops.GROUP_BLOCKS`` blocks a launch), ``cuda_ops.
+    VECTOR_WIDTHS``' first width that divides k with every operand
+    aligned: p's neighbour rows and columns read from the neighbours' own
+    arrays (copies where they lie on another device), no ``Blocks.halos``.
+    Returns (u blocks, v blocks), fresh tensors.  Bit for bit
+    ``gradient_blocks_plain``, which CPU blocks take."""
+    groups, on_card = _grouped_parts(blocks, us, vs, ps)
+    if not on_card:
+        return gradient_blocks_plain(blocks, us, vs, ps, n)
+    _require(blocks.side == n + 2, f"blocks of a {blocks.side}-cell grid "
+             f"for n = {n}")
+    name = "gradient_block_group" + ("_bf16" if us[0].dtype == torch.bfloat16
+                                     else "")
+    m, k = blocks.m, blocks.k
+    uo = [torch.empty_like(u) for u in us]
+    vo = [torch.empty_like(v) for v in vs]
+    for dev, idx in groups.items():
+        with torch.cuda.device(dev):
+            lib = build.load()
+            width = co.vector_width(name, k, *(t[i] for t in (us, vs, ps, uo,
+                                                              vo)
+                                               for i in idx))
+            for lo in range(0, len(idx), co.GROUP_BLOCKS):
+                ptrs, ints, keep = [], [], []
+                for i in idx[lo:lo + co.GROUP_BLOCKS]:
+                    nbs, strides, copies = _grad_sources(blocks, ps, i)
+                    keep += copies
+                    ptrs += [us[i].data_ptr(), vs[i].data_ptr(),
+                             ps[i].data_ptr(), uo[i].data_ptr(),
+                             vo[i].data_ptr(), *nbs]
+                    ints += [*blocks.origins[i], *strides]
+                table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+                int_table = (ctypes.c_int * len(ints))(*ints)
+                co._launch_vector(name, width, getattr(lib, f"fsc_{name}"),
+                                  ctypes.addressof(table),
+                                  ctypes.addressof(int_table), len(ints) // 4,
+                                  m, k, n, grid_h(n), width,
+                                  co._stream(us[idx[0]]))
+                del keep
+    return uo, vo
+
+
+def advect_blocks_composed(advect, advect_exact, blocks, bs, fields, us,
+                           vs, *, dt, n, cmax, self_adv):
+    """JAX's composition of a block-route gather: exact (``cmax`` None,
+    ``_advect_local``: ``blocks.gather`` of each field, then
+    ``advect_exact`` on each block) or windowed (``_advect_local_windowed``:
+    ``blocks.ext`` of each field by ``cmax + 1``, then ``advect``).  A list
+    of each block's tuple of results."""
+    kw = dict(dt=dt, n=n, m=blocks.m, k=blocks.k, self_adv=self_adv)
+    if cmax is None:
+        bufs = [blocks.gather(f) for f in fields]
+        return [advect_exact(bs, fs, u, v, o, **kw)
+                for fs, u, v, o in zip(zip(*bufs), us, vs, blocks.origins)]
+    bufs = [blocks.ext(f, cmax + 1) for f in fields]
+    return [advect(bs, es, u, v, o, cmax=cmax, **kw)
+            for es, u, v, o in zip(zip(*bufs), us, vs, blocks.origins)]
+
+
+def _advect_blocks_args(blocks, bs, fields, us, vs, n, cmax, self_adv):
+    """(bs, fields, velocity lists, {device: indices}, on_card) after the
+    checks: one or two fields, each the list of ``blocks``' blocks, the
+    velocity blocks ``us``/``vs`` (the u/v pair's own cells with
+    ``self_adv``, where they are ignored), a window no deeper than a
+    block less one cell."""
+    bs, fields = tuple(bs), tuple(fields)
+    _require(len(bs) == len(fields) and len(bs) in (1, 2),
+             "a block gather takes one or two fields")
+    _require(blocks.side == n + 2, f"blocks of a {blocks.side}-cell grid "
+             f"for n = {n}")
+    if self_adv:
+        _require(len(bs) == 2, "self_adv advects the (u, v) pair")
+        us, vs = fields
+    _require(cmax is None or (cmax >= 0 and cmax + 1 <= min(blocks.m,
+                                                             blocks.k)),
+             f"a {cmax}-cell window needs blocks of at least cmax+1 cells, "
+             f"got {blocks.m} x {blocks.k}")
+    groups, on_card = _grouped_parts(blocks, *fields, us, vs)
+    return bs, fields, list(us), list(vs), groups, on_card
+
+
+def advect_blocks_plain(blocks, bs, fields, us, vs, *, dt, n, cmax,
+                        self_adv):
+    """Plain twin of ``advect_blocks``: ``advect_blocks_composed`` on
+    ``advect_block_plain`` and ``advect_block_exact_plain``."""
+    bs, fields, us, vs, _, _ = _advect_blocks_args(blocks, bs, fields, us,
+                                                   vs, n, cmax, self_adv)
+    none = [None] * len(us)
+    return advect_blocks_composed(
+        advect_block_plain, advect_block_exact_plain, blocks, bs, fields,
+        none if self_adv else us, none if self_adv else vs, dt=dt, n=n,
+        cmax=cmax, self_adv=self_adv)
+
+
+def _gather_parts(blocks, fields, local, dev, K, copy: bool = False):
+    """The grouped gather's table of the field's blocks as the launch of
+    the blocks ``local`` on ``dev`` sees them (``csrc/block_group.cuh``'s
+    GatherPart): (2 addresses a part, 3 ints a part, the copies to keep
+    alive).  A block of the launch is its own array (unless ``copy``);
+    any other lies on another device and is a copy moved to ``dev`` of
+    the cells the launch reads: the whole block for the exact gather (K
+    None), for the windowed one the bounding box of its ``K``-deep strips
+    and corners next to the launch's blocks, none where it is next to
+    none."""
+    m, k = blocks.m, blocks.k
+    ptrs, ints, keep = [], [], []
+    for j in range(blocks.px * blocks.py):
+        bi, bj = divmod(j, blocks.py)
+        r0, c0 = blocks.origins[j]
+        if j in local and not copy:
+            ptrs += [f[j].data_ptr() for f in fields] + [None] * (
+                2 - len(fields))
+            ints += [r0, c0, k]
+            continue
+        rows, cols = (0, m), (0, k)
+        if K is not None:
+            near = [divmod(i, blocks.py) for i in local]
+            near = [(ii - bi, jj - bj) for ii, jj in near
+                    if abs(ii - bi) <= 1 and abs(jj - bj) <= 1]
+            if not near:
+                ptrs += [None, None]
+                ints += [0, 0, 0]
+                continue
+
+            def span(ds, size):
+                lo = min(size - K if d > 0 else 0 for d in ds)
+                hi = max(K if d < 0 else size for d in ds)
+                return lo, hi
+
+            rows = span([d for d, _ in near], m)
+            cols = span([d for _, d in near], k)
+        parts = [f[j][rows[0]:rows[1], cols[0]:cols[1]].to(
+            dev, copy=True).contiguous() for f in fields]
+        keep += parts
+        ptrs += [t.data_ptr() for t in parts] + [None] * (2 - len(fields))
+        ints += [r0 + rows[0], c0 + cols[0], cols[1] - cols[0]]
+    return ptrs, ints, keep
+
+
+def advect_blocks(blocks, bs, fields, us, vs, *, dt, n, cmax, self_adv):
+    """The gather of one or two fields (border modes ``bs``; each field
+    the list of ``blocks``' (m, k) blocks) at every block's cells, in the
+    window of ``cmax`` cells (JAX's ``_advect_local_windowed``) or exactly
+    (``cmax=None``, ``_advect_local``), by the velocity blocks ``us``,
+    ``vs`` (ignored with ``self_adv``: the u/v pair's own cells).
+    Float32, or bf16 fields and velocities (the backtrace and the blend
+    float32, each result rounded to bf16).  On the card one grouped
+    K12-block launch a device (``advect_block_group``,
+    ``advect_block_group_exact`` and their ``_bf16`` forms; at most
+    ``cuda_ops.GROUP_BLOCKS`` blocks a launch, ``VECTOR_WIDTHS``' first
+    width that divides k with every velocity and output aligned), with no
+    ``Blocks.ext`` and no ``Blocks.gather``: each corner is read from the
+    array of the block that owns it, a copy of the cells the launch reads
+    only where that block lies on another device.  Outputs are fresh
+    tensors, so the u/v pair reads the velocity from before the gather.
+    A list of each block's tuple of results; bit for bit
+    ``advect_blocks_plain``, which CPU blocks take."""
+    bs, fields, us, vs, groups, on_card = _advect_blocks_args(
+        blocks, bs, fields, us, vs, n, cmax, self_adv)
+    if not on_card:
+        return advect_blocks_plain(blocks, bs, fields, us, vs, dt=dt, n=n,
+                                   cmax=cmax, self_adv=self_adv)
+    _require(blocks.px * blocks.py <= GATHER_PARTS,
+             f"a grouped gather reads at most {GATHER_PARTS} blocks")
+    name = ("advect_block_group" + ("_exact" if cmax is None else "")
+            + ("_bf16" if us[0].dtype == torch.bfloat16 else ""))
+    m, k = blocks.m, blocks.k
+    outs: list = [None] * len(us)
+    for dev, idx in groups.items():
+        with torch.cuda.device(dev):
+            lib = build.load()
+            for i in idx:
+                outs[i] = tuple(torch.empty_like(us[i]) for _ in bs)
+            parts, part_ints, keep = _gather_parts(
+                blocks, fields, set(idx), dev,
+                None if cmax is None else cmax + 1)
+            part_table = (ctypes.c_void_p * len(parts))(*parts)
+            part_int_table = (ctypes.c_int * len(part_ints))(*part_ints)
+            width = co.vector_width(name, k, *(t for i in idx for t in
+                                               (us[i], vs[i], *outs[i])))
+            for lo in range(0, len(idx), co.GROUP_BLOCKS):
+                ptrs, ints = [], []
+                for i in idx[lo:lo + co.GROUP_BLOCKS]:
+                    ptrs += [us[i].data_ptr(), vs[i].data_ptr(),
+                             *(o.data_ptr() for o in outs[i]),
+                             *[None] * (2 - len(bs))]
+                    ints += list(blocks.origins[i])
+                table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+                int_table = (ctypes.c_int * len(ints))(*ints)
+                co._launch_vector(
+                    name, width, getattr(lib, f"fsc_{name}"),
+                    ctypes.addressof(part_table),
+                    ctypes.addressof(part_int_table), len(part_ints) // 3,
+                    ctypes.addressof(table), ctypes.addressof(int_table),
+                    len(ints) // 2, m, k, n, blocks.py, len(bs), bs[0],
+                    bs[1] if len(bs) == 2 else 0, co._dt0(dt, n), cmax or 0,
+                    width, co._stream(us[idx[0]]))
+            del keep
+    return outs

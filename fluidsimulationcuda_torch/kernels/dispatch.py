@@ -187,7 +187,10 @@ class BlockOpSet(NamedTuple):
     every block at once from the lists of blocks (the grouped K9-block,
     no extended block built); None elsewhere, where a chunk extends every
     block (``Blocks.ext``) and runs ``jacobi`` or ``smooth`` on each, as
-    JAX composes it."""
+    JAX composes it.  So too ``gradient_group`` (the grouped K11-block, no
+    ``Blocks.halos`` of p) and ``advect_group`` (the grouped K12-block,
+    windowed or exact, no ``Blocks.ext`` and no ``Blocks.gather``) for
+    ``gradient`` and ``advect``/``advect_exact``."""
 
     jacobi: Callable
     smooth: Callable
@@ -198,6 +201,8 @@ class BlockOpSet(NamedTuple):
     fast: bool
     jacobi_group: Callable | None = None
     smooth_group: Callable | None = None
+    gradient_group: Callable | None = None
+    advect_group: Callable | None = None
 
 
 def get_block_ops(cfg: SimConfig, plain: bool = False) -> BlockOpSet:
@@ -228,7 +233,9 @@ def get_block_ops(cfg: SimConfig, plain: bool = False) -> BlockOpSet:
                           cs.divergence_block, cs.gradient_block,
                           fast=cfg.fast_math,
                           jacobi_group=cs.fused_jacobi_blocks,
-                          smooth_group=cs.smooth_blocks)
+                          smooth_group=cs.smooth_blocks,
+                          gradient_group=cs.gradient_blocks,
+                          advect_group=cs.advect_blocks)
     raise ValueError(f"unknown backend {backend!r}")
 
 

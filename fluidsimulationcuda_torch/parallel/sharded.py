@@ -66,7 +66,10 @@ Chebyshev chain carries x_{k-1} from chunk to chunk and resumes its
 weights where the chunk before stopped.  The divergence and gradient take
 one-cell 2-D halos (K10-block, K11-block), the gathers either the assembled
 fields (exact, ``Blocks.gather``) or a ``cmax+1``-deep 2-D halo (windowed;
-K12-block's two forms), and multigrid and CG run on blocks
+K12-block's two forms); on ``cuda`` the gradient and each gather are one
+grouped launch a device over every block, each reading its neighbours'
+cells from their own arrays (no ``Blocks.halos`` of p, no ``ext``, no
+``gather``).  Multigrid and CG run on blocks
 (``solvers.mg_blocks``, ``cg_blocks``).  Every operation is the
 BlockOpSet's (``kernels/dispatch.py``): the kernels on ``cuda``, the
 ``reference`` forms on ``reference`` (in float32 the kernels' plain
@@ -94,6 +97,8 @@ import torch
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
 from ..kernels import cuda_ops
+from ..kernels.cuda_sharded import (advect_blocks_composed,
+                                    gradient_blocks_composed)
 from ..kernels.dispatch import get_block_ops, get_ops, get_slab_ops
 from ..ops.chebyshev import cheby_omegas
 from ..ops.diffuse import as_scalar
@@ -535,23 +540,19 @@ class _BlockStep:
                for ui, vi, uh, vh, o in zip(u, v, halos(u), halos(v),
                                             origins)]
         p = self._pressure(div)
-        pairs = [self.ops.gradient(ui, vi, pi, ph, o, n)
-                 for ui, vi, pi, ph, o in zip(u, v, p, halos(p), origins)]
-        return [q[0] for q in pairs], [q[1] for q in pairs]
+        if self.ops.gradient_group is not None:
+            return self.ops.gradient_group(self.blocks, u, v, p, n)
+        return gradient_blocks_composed(self.ops.gradient, self.blocks, u, v,
+                                        p, n)
 
     def _advect(self, bs, fields, u, v, self_adv):
-        cfg, blocks = self.cfg, self.blocks
-        kw = dict(dt=cfg.dt, n=cfg.n, m=blocks.m, k=blocks.k,
-                  self_adv=self_adv)
-        if self.exact:
-            bufs = [blocks.gather(f) for f in fields]
-            return [self.ops.advect_exact(bs, fs, ui, vi, o, **kw)
-                    for fs, ui, vi, o in zip(zip(*bufs), u, v,
-                                             blocks.origins)]
-        bufs = [blocks.ext(f, cfg.max_courant + 1) for f in fields]
-        return [self.ops.advect(bs, es, ui, vi, o, cmax=cfg.max_courant,
-                                **kw)
-                for es, ui, vi, o in zip(zip(*bufs), u, v, blocks.origins)]
+        cfg, ops = self.cfg, self.ops
+        kw = dict(dt=cfg.dt, n=cfg.n, self_adv=self_adv,
+                  cmax=None if self.exact else cfg.max_courant)
+        if ops.advect_group is not None:
+            return ops.advect_group(self.blocks, bs, fields, u, v, **kw)
+        return advect_blocks_composed(ops.advect, ops.advect_exact,
+                                      self.blocks, bs, fields, u, v, **kw)
 
     def _disp(self, u, v) -> torch.Tensor:
         """Largest backtrace displacement (cells) over every block, in the

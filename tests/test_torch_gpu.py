@@ -1766,6 +1766,101 @@ def test_block_group_refuses_what_the_path_library_lacks(cuda):
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("side,px,py", [(512, 2, 4), (256, 64, 1),
+                                        (66, 3, 3), (1024, 2, 2)])
+def test_block_stencil_group_matches_per_block_and_plain(cuda, side, px, py,
+                                                         bf16):
+    """The grouped K11-block and K12-block over every block of the mesh in
+    each form (``checks.kernel_checks_block_stencil_group``: the gradient,
+    windowed and exact gathers of the pair and the density), one launch:
+    against the per-block kernels on ``Blocks.halos``', ``ext``'s or
+    ``gather``'s buffers and against the plain twins, bit for bit, in the
+    storage dtype, at the width ``cuda_ops.VECTOR_WIDTHS`` gives it (the
+    narrower one on the 22-cell blocks of (3, 3))."""
+    for check in checks.kernel_checks_block_stencil_group(
+            side, px, py, cuda, seed=side, bf16=bf16):
+        cuda_ops.reset_launch_counts()
+        got = check.run()
+        counts = {k: c for k, c in cuda_ops.launch_counts().items() if c}
+        want = check.plain()
+        torch.cuda.synchronize()
+        assert counts == {check.kernels[0]: 1}, (check.label, counts)
+        for g in got:
+            assert g.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert checks.max_abs_diff(got, want) == 0.0, check.label
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_block_stencil_group_every_kept_width(cuda, bf16):
+    """Each width the library keeps for the grouped K11-block and K12-block
+    (``VECTOR_WIDTHS`` and the one-cell form) gives the plain twin's bits
+    over the (2, 4) blocks of 256², counted by width; a width it does not
+    keep (the float32 gradient's 4, every form's 8 but the bf16
+    gradient's) raises through ``_launch``."""
+    t, blocks, _, _, ps = checks._group_inputs(256, 2, 4, cuda, 0, bf16)
+    us, vs = (list(blocks.cut(f)) for f in (t.u, t.v))
+    tag = "_bf16" if bf16 else ""
+    for mode, form in checks.BLOCK_STENCIL_FORMS.items():
+        args = (form, blocks, us, vs, ps, t.n)
+        name = checks._stencil_name(form, tag)
+        want = checks.block_stencil("plain", *args)
+        for width in cuda_ops.VECTOR_WIDTHS[name] + (1,):
+            cuda_ops.reset_width_counts()
+            with cuda_ops.vector_widths((width,)):
+                got = checks.block_stencil("group", *args)
+            torch.cuda.synchronize()
+            assert cuda_ops.width_counts()[name][width] == 1, (mode, width)
+            assert checks.max_abs_diff(got, want) == 0.0, (mode, width)
+        refused = 8 if name != "gradient_block_group_bf16" else 16
+        with cuda_ops.vector_widths((refused,)):
+            with pytest.raises(RuntimeError, match="failed to launch"):
+                checks.block_stencil("group", *args)
+
+
+def test_block_step_on_the_grouped_stencils_equals_per_block(cuda):
+    """The 2048² exact and windowed block steps on (2, 4) blocks, float32
+    and bf16, on the grouped K11-block and K12-block equal the same steps
+    on the per-block kernels (``gradient_group`` and ``advect_group`` set
+    to None) bit for bit over 2 steps, with one grouped gradient a
+    projection and one grouped gather a gather."""
+    from fluidsimulationcuda_torch.parallel import make_mesh, shard_blocks
+    from fluidsimulationcuda_torch.parallel.sharded import _BlockStep
+
+    mesh = make_mesh([torch.device("cuda", 0)] * 8, shape=(2, 4))
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = ft.SimConfig(n=2046, jacobi_iters=20, backend="cuda",
+                           device=cuda, dtype=dtype)
+        state0, src = ft.reference_init(
+            torch.Generator(device=cuda).manual_seed(0),
+            cfg.replace(dtype=torch.float32))
+        state0 = ft.FluidState(*(x.to(dtype) for x in state0[:3]))
+        src = ft.Sources(*(x.to(dtype) for x in src[:3]))
+        tag = "_bf16" if dtype == torch.bfloat16 else ""
+        for exact in (True, False):
+            grouped = _BlockStep(cfg, mesh, False, exact)
+            per_block = _BlockStep(cfg, mesh, False, exact)
+            per_block.ops = per_block.ops._replace(gradient_group=None,
+                                                   advect_group=None)
+            zeros = shard_blocks(ft.zero_sources(cfg), mesh)
+            got = want = shard_blocks(state0, mesh)
+            cuda_ops.reset_launch_counts()
+            for k in range(2):
+                got = grouped(got, shard_blocks(src, mesh) if k == 0
+                              else zeros)
+            counts = cuda_ops.launch_counts()
+            for k in range(2):
+                want = per_block(want, shard_blocks(src, mesh) if k == 0
+                                 else zeros)
+            gather = "advect_block_group" + ("_exact" if exact else "")
+            assert counts[f"gradient_block_group{tag}"] == 4
+            assert counts[gather + tag] == 4
+            assert counts[f"gradient_block{tag}"] == 0
+            for a, b in zip(got[:3], want[:3]):
+                for x, y in zip(a, b):
+                    assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
 @pytest.mark.parametrize("side,mz", [(64, 16), (66, 6), (64, 4)])
 def test_advect3_group_matches_per_slab_and_plain(cuda, side, mz, bf16):
     """The grouped K14 over every z-slab, windowed and exact, one field and
